@@ -1,0 +1,192 @@
+"""The port's reduce-mode engine and CLI against the JAX package, on the CPU.
+
+Tolerance (the bound the JAX package holds its own formulations to,
+tests/test_engine.py): ``n_seconds`` exact, every other statistic
+rtol 2e-5 / atol 1e-2.  Chain keys are bit-exact.  Within the port a
+different block partition folds the same seconds in the same order, so it
+must give identical bits.
+"""
+
+import csv
+import json
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from tmhpvsim_torch import config as tcfg
+from tmhpvsim_torch.engine import convert
+from tmhpvsim_torch.engine.simulation import REDUCE_STATS
+from tmhpvsim_torch.engine.simulation import Simulation as TSim
+from tmhpvsim_tpu import config as jcfg
+from tmhpvsim_tpu.engine import Simulation as JSim
+
+SMALL = dict(start="2019-09-05 10:00:00", duration_s=7200, n_chains=3,
+             seed=7, block_s=3600)
+REF = os.path.join(os.path.dirname(__file__), "data",
+                   "torch_port_reference.json")
+
+
+def _jax_sim(impl="scan", **kw):
+    return JSim(jcfg.SimConfig(block_impl=impl, dtype="float32",
+                               **dict(SMALL, **kw)))
+
+
+def _assert_engine_close(want, got):
+    np.testing.assert_array_equal(got["n_seconds"], want["n_seconds"])
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=2e-5, atol=1e-2,
+                                   err_msg=k)
+
+
+@pytest.fixture(scope="module")
+def jax_scan():
+    sim = _jax_sim()
+    return sim, sim.run_reduced()
+
+
+@pytest.fixture(scope="module")
+def port():
+    sim = TSim(tcfg.SimConfig(**SMALL), device="cpu")
+    return sim, sim.run_reduced()
+
+
+def test_reduce_matches_jax_scan(jax_scan, port):
+    _assert_engine_close(jax_scan[1], port[1])
+    je, te = jax_scan[0].ensemble_stats(), port[0].ensemble_stats()
+    assert je["n_seconds"] == te["n_seconds"]
+    for k in REDUCE_STATS:
+        assert te[k] == pytest.approx(je[k], rel=2e-5, abs=1e-2), k
+
+
+def test_reduce_matches_jax_wide(port):
+    """The CPU default formulation of the JAX package, as a second case."""
+    _assert_engine_close(_jax_sim("wide").run_reduced(), port[1])
+
+
+def test_reference_file_tracks_jax(jax_scan):
+    """tests/data/torch_port_reference.json holds the JAX package's
+    statistics at this shape for chip_smoke.py's reference phase; it is
+    written when missing and must equal what the JAX package computes."""
+    doc = {"config": SMALL, "reduced": {
+        k: np.asarray(v).tolist() for k, v in jax_scan[1].items()}}
+    if not os.path.exists(REF):
+        os.makedirs(os.path.dirname(REF), exist_ok=True)
+        with open(REF, "w") as f:
+            json.dump(doc, f, indent=1)
+    with open(REF) as f:
+        assert json.load(f) == json.loads(json.dumps(doc))
+
+
+def test_state_after_two_blocks(jax_scan, port):
+    js, ts = jax_scan[0].state, port[0].state
+    for k in convert.KEY_LEAVES:
+        assert np.array_equal(np.asarray(jax.random.key_data(js[k])),
+                              ts[k].numpy().astype(np.uint32)), k
+    for k in ("cc_carry", "cc0", "cloudy_pair"):
+        np.testing.assert_allclose(ts[k].numpy(), np.asarray(js[k]),
+                                   rtol=2e-6, atol=1e-6, err_msg=k)
+    for k in convert.CARRY_LEAVES:
+        np.testing.assert_allclose(ts["carry"][k].numpy(),
+                                   np.asarray(js["carry"][k]), rtol=1e-5,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("block_s", [1800, 3600])
+def test_block_partition_invariance(port, block_s):
+    got = TSim(tcfg.SimConfig(**dict(SMALL, block_s=block_s)),
+               device="cpu").run_reduced()
+    for k in REDUCE_STATS:
+        assert np.array_equal(got[k], port[1][k]), k
+
+
+def test_chain_slab_matches_full_run():
+    full = TSim(tcfg.SimConfig(**dict(SMALL, n_chains=5, duration_s=3600)),
+                device="cpu").run_reduced()
+    slab = TSim(tcfg.SimConfig(**dict(SMALL, n_chains=3, duration_s=3600,
+                                      n_chains_total=5, chain_offset=1)),
+                device="cpu").run_reduced()
+    for k in REDUCE_STATS:
+        assert np.array_equal(slab[k], full[k][1:4]), k
+
+
+def _jax_state_numpy(state):
+    out = {k: np.asarray(jax.random.key_data(state[k]))
+           for k in convert.KEY_LEAVES}
+    for k in convert.FLOAT_LEAVES:
+        out[k] = np.asarray(state[k])
+    out["carry"] = {k: np.asarray(v) for k, v in state["carry"].items()}
+    return out
+
+
+def test_jax_state_continues_in_port(jax_scan):
+    """JAX runs block 0; the port takes its state and runs block 1; the
+    result is JAX's two-block run."""
+    sim = _jax_sim()
+    inputs, _ = sim.host_inputs(0)
+    state, acc = sim.step_acc(sim.init_state(), inputs,
+                              sim.init_reduce_acc())
+    state_np = _jax_state_numpy(state)
+    acc_np = {k: np.asarray(v) for k, v in acc.items()}
+    tstate = convert.state_from_numpy(state_np, "cpu")
+    back = convert.state_to_numpy(tstate)
+    for k in convert.KEY_LEAVES + convert.FLOAT_LEAVES:
+        assert np.array_equal(back[k], state_np[k])
+    tacc = convert.acc_from_numpy(acc_np, "cpu")
+    for k, v in convert.acc_to_numpy(tacc).items():
+        assert np.array_equal(v, acc_np[k])
+    got = TSim(tcfg.SimConfig(**SMALL), device="cpu").run_reduced(
+        state=tstate, acc=tacc, start_block=1)
+    _assert_engine_close(jax_scan[1], got)
+
+
+def test_resume_needs_accumulator():
+    with pytest.raises(ValueError):
+        TSim(tcfg.SimConfig(**SMALL), device="cpu").run_reduced(
+            start_block=1)
+
+
+def _read_csv(path):
+    with open(path, newline="") as f:
+        return list(csv.reader(f))
+
+
+def test_cli_matches_jax_cli(tmp_path):
+    from click.testing import CliRunner
+
+    from tmhpvsim_torch.cli import main
+    from tmhpvsim_tpu.cli import pvsim
+
+    common = ["--output", "reduce", "--no-realtime", "--chains", "3",
+              "--duration", "7200", "--block-s", "3600", "--seed", "7",
+              "--start", SMALL["start"]]
+    jpath, tpath = str(tmp_path / "jax.csv"), str(tmp_path / "torch.csv")
+    res = CliRunner().invoke(pvsim, [jpath, "--backend", "jax",
+                                     "--block-impl", "scan",
+                                     "--compile-cache", "off"] + common)
+    assert res.exit_code == 0, res.output
+    assert main(["pvsim", tpath, "--device", "cpu"] + common) == 0
+    jrows, trows = _read_csv(jpath), _read_csv(tpath)
+    assert jrows[0] == trows[0] == ["chain"] + list(REDUCE_STATS)
+    assert [r[0] for r in jrows] == [r[0] for r in trows]
+    for jr, tr in zip(jrows[1:], trows[1:]):
+        want = np.asarray(jr[1:], np.float64)
+        got = np.asarray(tr[1:], np.float64)
+        assert got[-1] == want[-1]  # n_seconds
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-2)
+
+
+def test_without_device_needs_cuda(tmp_path):
+    """The port runs on the card unless asked for the CPU: without CUDA,
+    the default raises instead of falling back."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device runs")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TSim(tcfg.SimConfig(**SMALL))
+    from tmhpvsim_torch.cli import main
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["pvsim", str(tmp_path / "x.csv"), "--output", "reduce",
+              "--no-realtime", "--duration", "60", "--seed", "1"])

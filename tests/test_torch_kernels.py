@@ -1,0 +1,205 @@
+"""The port's kernel wrappers, build and package boundary.
+
+On the CPU every wrapper must run its plain torch version (and count no
+launch); on a CUDA tensor it launches its kernel, which the ``cuda``-marked
+tests hold against the plain version bit for bit (K1, K2) or to the engine
+tolerance (K3: rtol 2e-5 / atol 1e-2, n_seconds exact).  Those skip where
+there is no card; ``python3 chip_smoke.py`` runs the same checks at the
+main path's shapes.
+"""
+
+import ast
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from tmhpvsim_torch import kernels, rng
+from tmhpvsim_torch.config import SimConfig
+from tmhpvsim_torch.engine.simulation import Simulation
+from tmhpvsim_torch.kernels import block_step as k3
+from tmhpvsim_torch.kernels import build
+from tmhpvsim_torch.kernels import threefry as k1
+from tmhpvsim_torch.kernels import windows as k2
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "tmhpvsim_torch")
+CFG = dict(start="2019-09-05 11:00:00", duration_s=2400, n_chains=6,
+           seed=5, block_s=1200)
+
+
+def _port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PKG):
+        out += [os.path.join(d, f) for f in sorted(files) if f.endswith(".py")]
+    return sorted(out)
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_port_never_imports_jax(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "tmhpvsim_tpu"), \
+                f"{path} imports {name}"
+
+
+def _block(sim, bi=0):
+    state = sim.init_state()
+    ins = sim.host_inputs(bi)
+    return state, ins
+
+
+def test_cpu_wrappers_run_plain_versions():
+    kernels.reset_counts()
+    keys = rng.split(rng.key(3), 16)
+    assert torch.equal(k1.split(keys, 5), rng.split(keys, 5))
+    assert torch.equal(k1.fold_in(keys, 9), rng.fold_in(keys, 9))
+    assert torch.equal(k1.bits(keys, 7), rng.random_bits(keys, (7,)))
+    assert torch.equal(k1.uniform(keys), rng.uniform(keys))
+    assert torch.equal(k1.normal(keys, 4), rng.normal(keys, (4,)))
+    sim = Simulation(SimConfig(**CFG), device="cpu")
+    state, ins = _block(sim)
+    args = (state["k_arr"], state["k_min"], state["cc_carry"], state["cc0"],
+            ins.bounds, ins.mh_idx, ins.mh_frac)
+    tw, cw = k2.sampler_windows(*args)
+    tp, cp = k2.windows_plain(*args)
+    assert torch.equal(cw, cp)
+    for k in tp:
+        assert torch.equal(tw[k], tp[k]), k
+    acc = sim.init_reduce_acc()
+    tail = (CFG["duration_s"], 9000.0, 48.12, 0.25)
+    head = (tw, ins.rows_i, ins.rows_f, state["k_scan"], state["k_meter"])
+    cw3, aw = k3.block_step_acc(*head, state["carry"], acc, *tail)
+    cp3, ap = k3.block_step_plain(*head, state["carry"], acc, *tail)
+    for k in ap:
+        assert torch.equal(aw[k], ap[k]), k
+    assert all(c.launches == 0 for c in kernels.COUNTERS)
+    assert int(ap["n_seconds"][0]) == 1200
+    assert float(ap["pv_max"].max()) > 10
+
+
+def test_wrappers_refuse_other_devices():
+    keys = torch.zeros((4, 2), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError):
+        k1.split(keys, 2)
+
+
+def test_kernel_constants_are_the_models():
+    """consts.cuh is generated from the models as exact float32 literals,
+    and every constant it defines is read by its kernel source."""
+    header = build.consts_header()
+    for table, src in ((rng.kernel_constants(), "threefry.cuh"),
+                       (k2.kernel_constants(), "windows.cu"),
+                       (k3.kernel_constants(), "block_step.cu")):
+        text = open(os.path.join(build.CSRC, src)).read()
+        for name, value in table.items():
+            assert re.search(rf"\b{name}\b", text), f"{src} never reads {name}"
+            vals = value if isinstance(value, (list, tuple)) else [value]
+            m = re.search(rf"\b{name}\b(?:\[\d+\] = \{{| \()([^}})]*)", header)
+            lits = [float.fromhex(v.strip()[:-1]) for v in m.group(1).split(",")]
+            assert lits == [float(np.float32(v)) for v in vals], name
+
+
+def test_build_flags():
+    flags = " ".join(build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "-fmad=false" in flags
+    assert "fast_math" not in flags and "fast-math" not in flags
+    for src in build.SOURCES + build.HEADERS:
+        assert os.path.exists(os.path.join(build.CSRC, src))
+
+
+def test_build_without_nvcc_raises(monkeypatch):
+    if shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("nvcc is installed here")
+    monkeypatch.setattr(build, "BUILD_DIR", "/nonexistent-unused")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build._nvcc()
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result without a card,
+    and in a directory that holds nothing else of the repository."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    env = dict(os.environ, PYTHONPATH="")
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         capture_output=True, text=True, env=env, timeout=300)
+    assert res.returncode != 0 and '"ok"' not in res.stdout
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), alone)
+    res = subprocess.run([sys.executable, str(alone)], cwd=tmp_path,
+                         capture_output=True, text=True, env=env, timeout=300)
+    assert res.returncode != 0 and '"ok"' not in res.stdout
+
+
+# --------------------------------------------------------------------------
+# on the card
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_k1_matches_plain_on_card(card):
+    keys = rng.split(rng.key(11, device=card), 4096)
+    idx = torch.arange(4096, device=card) * 31
+    assert torch.equal(k1.split(keys, 3), rng.split(keys, 3))
+    assert torch.equal(k1.fold_in(keys, idx), rng.fold_in(keys, idx))
+    assert torch.equal(k1.bits(keys, 60), rng.random_bits(keys, (60,)))
+    assert torch.equal(k1.uniform(keys, 60), rng.uniform(keys, (60,)))
+    assert torch.equal(k1.normal(keys, 60), rng.normal(keys, (60,)))
+
+
+@pytest.mark.cuda
+def test_k2_k3_match_plain_on_card(card):
+    sim = Simulation(SimConfig(**dict(CFG, n_chains=512)), device=card)
+    state, ins = _block(sim)
+    args = (state["k_arr"], state["k_min"], state["cc_carry"], state["cc0"],
+            ins.bounds, ins.mh_idx, ins.mh_frac)
+    tk, ck = k2.sampler_windows(*args)
+    tp, cp = k2.windows_plain(*args)
+    assert torch.equal(ck, cp)
+    for k in tp:
+        assert torch.equal(tk[k], tp[k]), k
+    tail = (CFG["duration_s"], 9000.0, 48.12, 0.25)
+    head = (tk, ins.rows_i, ins.rows_f, state["k_scan"], state["k_meter"])
+    carry = {k: v.clone() for k, v in state["carry"].items()}
+    _, ak = k3.block_step_acc(*head, carry, sim.init_reduce_acc(), *tail)
+    _, ap = k3.block_step_plain(*head, state["carry"], sim.init_reduce_acc(),
+                                *tail)
+    assert torch.equal(ak["n_seconds"], ap["n_seconds"])
+    for k in ap:
+        torch.testing.assert_close(ak[k], ap[k], rtol=2e-5, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_port_on_card_matches_cpu(card):
+    cfg = SimConfig(**CFG)
+    want = Simulation(cfg, device="cpu").run_reduced()
+    kernels.reset_counts()
+    got = Simulation(cfg, device=card).run_reduced()
+    assert all(c.launches > 0 for c in kernels.COUNTERS)
+    np.testing.assert_array_equal(got["n_seconds"], want["n_seconds"])
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=2e-5, atol=1e-2)

@@ -1,0 +1,169 @@
+"""The port's threefry2x32 (tmhpvsim_torch/rng.py) against jax.random.
+
+Tolerances:
+* key, split, fold_in, bits and uniform (with and without minval/maxval):
+  bit-exact — same hash, same counters, same float conversion;
+* XLA's CPU log and log1p, fused multiply-add, normal, gamma (a >= 1) and
+  t: bit-exact — rng.py reproduces XLA's CPU polynomials and its
+  multiply-add contractions;
+* gamma below a = 1 (the boost's pow, which XLA and torch compute with
+  different code; not on the simulation's path): within 4 float32 ULP for
+  90% of draws (measured 93-96%) and 2e-6 relative for all, with no
+  accept/reject flip.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax import lax
+
+from tmhpvsim_torch import rng
+
+
+def _kd(k):
+    return np.asarray(jax.random.key_data(k)).astype(np.int64)
+
+
+def _ulps(a, b):
+    a = np.ascontiguousarray(a, np.float32).view(np.int32).astype(np.int64)
+    b = np.ascontiguousarray(b, np.float32).view(np.int32).astype(np.int64)
+    return np.abs(a - b)
+
+
+SEEDS = [0, 7, 123456789]
+
+
+def _keys(seed, n=512):
+    jk = jax.random.split(jax.random.key(seed), n)
+    return jk, torch.from_numpy(_kd(jk))
+
+
+def test_layout_is_partitionable():
+    """rng.py implements the partitionable threefry layout."""
+    assert jax.config.jax_threefry_partitionable
+
+
+@pytest.mark.parametrize("seed", SEEDS + [2 ** 31 - 1])
+def test_key_and_split_bit_exact(seed):
+    k = jax.random.key(seed)
+    assert np.array_equal(_kd(k), rng.key(seed).numpy())
+    for num in (1, 2, 5, 1000):
+        assert np.array_equal(_kd(jax.random.split(k, num)),
+                              rng.split(rng.key(seed), num).numpy())
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fold_in_bit_exact(seed):
+    jk, tk = _keys(seed)
+    data = np.arange(512, dtype=np.int64) * 7919 + 3
+    jf = jax.vmap(jax.random.fold_in)(jk, jnp.asarray(data))
+    assert np.array_equal(_kd(jf), rng.fold_in(tk, torch.from_numpy(data))
+                          .numpy())
+    assert np.array_equal(_kd(jax.random.fold_in(jk[0], 2 ** 32 - 1)),
+                          rng.fold_in(tk[0], 2 ** 32 - 1).numpy())
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("shape", [(), (60,), (3, 4)])
+def test_bits_and_uniform_bit_exact(seed, shape):
+    jk, tk = _keys(seed)
+    jb = jax.vmap(lambda k: jax.random.bits(k, shape, jnp.uint32))(jk)
+    assert np.array_equal(np.asarray(jb).astype(np.int64),
+                          rng.random_bits(tk, shape).numpy())
+    ju = jax.vmap(lambda k: jax.random.uniform(k, shape, jnp.float32))(jk)
+    assert np.array_equal(np.asarray(ju), rng.uniform(tk, shape).numpy())
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_uniform_minval_tiny_bit_exact(seed):
+    """The asymmetric-Laplace draw's ``minval=finfo.tiny`` arithmetic."""
+    jk, tk = _keys(seed)
+    tiny = jnp.finfo(jnp.float32).tiny
+    ju = jax.vmap(lambda k: jax.random.uniform(
+        k, (), jnp.float32, minval=tiny, maxval=1.0))(jk)
+    assert np.array_equal(np.asarray(ju),
+                          rng.asymmetric_laplace_uniform(tk).numpy())
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_xla_log_and_log1p_bit_exact(seed):
+    r = np.random.default_rng(seed)
+    x = np.concatenate([r.uniform(0, 1, 100_000), r.uniform(0, 1e4, 50_000),
+                        r.uniform(0.99, 1.01, 50_000),
+                        [0.0, -1.0, 1e-40, np.inf, 3e38]]).astype(np.float32)
+    want = np.asarray(jax.jit(jnp.log)(x))
+    got = rng.xla_log(torch.from_numpy(x)).numpy()
+    assert np.array_equal(want, got, equal_nan=True)
+    y = r.uniform(-0.999, 3, 200_000).astype(np.float32)
+    assert np.array_equal(np.asarray(jax.jit(jnp.log1p)(y)),
+                          rng.xla_log1p(torch.from_numpy(y)).numpy())
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fma_rounds_once(seed):
+    r = np.random.default_rng(seed)
+    a, b = (r.standard_normal(100_000).astype(np.float32) for _ in range(2))
+    c = (-(a.astype(np.float64) * b)).astype(np.float32)  # cancellation
+    c[::2] = r.standard_normal(50_000).astype(np.float32) * 1e-3
+    want = (a.astype(np.longdouble) * b + c).astype(np.float32)
+    got = rng.fma(torch.from_numpy(a), torch.from_numpy(b),
+                  torch.from_numpy(c)).numpy()
+    assert np.array_equal(want, got)
+
+
+def test_erfinv_polynomial():
+    """XLA's float32 erf_inv polynomial, fed the same inputs."""
+    x = np.random.default_rng(0).uniform(-1, 1, 200_000).astype(np.float32)
+    x[:2] = (-1.0, np.nextafter(np.float32(-1), np.float32(0)))
+    want = np.asarray(jax.jit(lax.erf_inv)(jnp.asarray(x)))
+    got = rng.erfinv_f32(torch.from_numpy(x)).numpy()
+    assert np.array_equal(want, got)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_normal_bit_exact(seed):
+    jk, tk = _keys(seed)
+    jz = jax.vmap(lambda k: jax.random.normal(k, (60,), jnp.float32))(jk)
+    assert np.array_equal(np.asarray(jz), rng.normal(tk, (60,)).numpy())
+
+
+def _gamma_check(want, got):
+    want = np.asarray(want, np.float32)
+    rel = np.abs(want - got) / np.abs(want)
+    flips = int((rel > 1e-3).sum())
+    assert flips == 0, f"{flips} accept/reject flips"
+    d = _ulps(want, got)
+    assert (d <= 4).mean() >= 0.9, (d <= 4).mean()
+    assert rel.max() <= 2e-6, rel.max()
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("alpha", [2.69, 5.0, 3.5624, 11.150488 / 2])
+def test_gamma_bit_exact(seed, alpha):
+    """Windspeed 2.69, cloudy 5 / 3.5624, the t draw's df/2."""
+    jk, tk = _keys(seed)
+    want = jax.vmap(lambda k: jax.random.gamma(
+        k, jnp.float32(alpha), (), jnp.float32))(jk)
+    got = rng.gamma(tk, torch.tensor(alpha, dtype=torch.float32)).numpy()
+    assert np.array_equal(np.asarray(want), got)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_gamma_boost_path(seed):
+    """a < 1: Gamma(a + 1) * U^(1/a); the pow is libm's on each side."""
+    jk, tk = _keys(seed)
+    want = jax.vmap(lambda k: jax.random.gamma(
+        k, jnp.float32(0.6), (), jnp.float32))(jk)
+    _gamma_check(want, rng.gamma(tk, torch.tensor(
+        0.6, dtype=torch.float32)).numpy())
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_student_t_bit_exact(seed):
+    jk, tk = _keys(seed)
+    df = np.float32(11.150488007085713)
+    want = jax.vmap(lambda k: jax.random.t(k, df, (), jnp.float32))(jk)
+    assert np.array_equal(np.asarray(want),
+                          rng.t(tk, torch.tensor(df)).numpy())

@@ -1,0 +1,9 @@
+"""Vendored numeric data for the torch port (no file or environment IO)."""
+
+from tmhpvsim_torch.data.parameters import (  # noqa: F401
+    LINKE_TURBIDITY_MONTHLY_MUNICH,
+    MARKOV_STEP_BINS,
+    MARKOV_STEP_PARAMS,
+    SANDIA_INVERTER,
+    SAPM_MODULE,
+)

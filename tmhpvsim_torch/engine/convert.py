@@ -1,0 +1,68 @@
+"""Carry a run's state between the JAX package and the port.
+
+The JAX package's reduce-mode state pytree, as numpy (keys as
+``jax.random.key_data``: uint32 ``(..., 2)``), becomes the port's state on
+a device, and back; the same for the accumulator.  A JAX run stopped after
+N blocks continues in the port from block N and gives the JAX result
+(tests/test_torch_engine.py).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+KEY_LEAVES = ("k_arr", "k_min", "k_scan", "k_meter")
+FLOAT_LEAVES = ("cc_carry", "cc0", "cloudy_pair")
+CARRY_LEAVES = ("cloud_end", "total_end", "sec")
+
+
+def state_from_numpy(tree: dict, device) -> dict:
+    """JAX-layout state (numpy leaves) -> the port's state on ``device``."""
+    expected = set(KEY_LEAVES) | set(FLOAT_LEAVES) | {"carry"}
+    if set(tree) != expected:
+        raise ValueError(
+            f"state leaves {sorted(tree)} are not the shared-site reduce "
+            f"state {sorted(expected)}")
+    out = {}
+    for k in KEY_LEAVES:
+        a = np.asarray(tree[k])
+        if a.dtype != np.uint32 or a.shape[-1:] != (2,):
+            raise ValueError(f"{k}: expected uint32 (..., 2) key data, got "
+                             f"{a.dtype} {a.shape}")
+        out[k] = _tensor(a, np.int64, device)
+    for k in FLOAT_LEAVES:
+        out[k] = _tensor(tree[k], np.float32, device)
+    out["carry"] = {k: _tensor(tree["carry"][k], np.float32, device)
+                    for k in CARRY_LEAVES}
+    return out
+
+
+def _tensor(a, dtype, device) -> torch.Tensor:
+    """A contiguous copy on ``device`` (the source may be read-only)."""
+    return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
+
+
+def state_to_numpy(state: dict) -> dict:
+    """The port's state -> JAX layout (uint32 key data, float32 leaves)."""
+    out = {k: state[k].cpu().numpy().astype(np.uint32) for k in KEY_LEAVES}
+    for k in FLOAT_LEAVES:
+        out[k] = state[k].cpu().numpy()
+    out["carry"] = {k: state["carry"][k].cpu().numpy() for k in CARRY_LEAVES}
+    return out
+
+
+def acc_from_numpy(acc: dict, device) -> dict:
+    """JAX reduce accumulator (numpy) -> the port's accumulator."""
+    from tmhpvsim_torch.engine.simulation import REDUCE_STATS
+
+    if set(acc) != set(REDUCE_STATS):
+        raise ValueError(f"accumulator leaves {sorted(acc)} are not "
+                         f"{sorted(REDUCE_STATS)}")
+    return {k: _tensor(acc[k], np.int32 if d == "i" else np.float32, device)
+            for k, (_, d) in REDUCE_STATS.items()}
+
+
+def acc_to_numpy(acc: dict) -> dict:
+    """The port's accumulator -> numpy (int32 / float32 leaves)."""
+    return {k: v.cpu().numpy() for k, v in acc.items()}

@@ -1,0 +1,177 @@
+"""Build and load the hand-written CUDA kernels (nvcc into shared libraries,
+bound with ctypes).
+
+Each ``csrc/*.cu`` compiles, in parallel with the others, into its own
+shared library with a plain C interface, for ``sm_90a``.  The model
+constants the kernels use are not copied into the sources: they are
+generated from the Python models as exact float32 hex literals into
+``consts.cuh`` in the build directory, so the kernels and their plain torch
+versions read the same numbers.  Libraries are named by a hash of their
+sources and of that header and are rebuilt only when one changes; the
+build directory is ``tmhpvsim_torch/_build`` (git-ignored).
+
+Compile flags: ``-fmad=false`` keeps every float multiply and add rounded
+on its own, in the order the plain versions (and float32 jax) compute
+them; without ``--use_fast_math`` division and square root are IEEE and
+``expf`` / ``logf`` / ``powf`` / ``acosf`` are CUDA's accurate versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+import numpy as np
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
+SOURCES = ("threefry.cu", "windows.cu", "block_step.cu")
+HEADERS = ("threefry.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+              "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: dict = {}
+_fns: dict = {}
+
+
+class LaunchCounter:
+    """How often a kernel's wrapper launched it (plain integer)."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+
+
+def f32_literal(x) -> str:
+    """An exact float32 C literal (hex) for ``x`` rounded to float32."""
+    v = float(np.float32(x))
+    if v == 0.0:
+        return "0.0f"
+    return float.hex(v) + "f"
+
+
+def consts_header() -> str:
+    """``consts.cuh``: every model constant the kernels read."""
+    from tmhpvsim_torch import rng
+    from tmhpvsim_torch.kernels import block_step, windows
+
+    lines = ["// generated from the Python models by kernels/build.py",
+             "#pragma once"]
+    for table in (rng.kernel_constants(), windows.kernel_constants(),
+                  block_step.kernel_constants()):
+        for name, value in table.items():
+            if isinstance(value, (list, tuple)):
+                vals = ", ".join(f32_literal(v) for v in value)
+                lines.append(f"__constant__ float {name}[{len(value)}] "
+                             f"= {{{vals}}};")
+            else:
+                lines.append(f"#define {name} ({f32_literal(value)})")
+    return "\n".join(lines) + "\n"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(put the CUDA toolkit's bin directory on PATH)")
+
+
+def _digest(parts) -> str:
+    h = hashlib.sha256()
+    for p in parts:
+        h.update(p if isinstance(p, bytes) else p.encode())
+    return h.hexdigest()[:16]
+
+
+def build_all() -> dict:
+    """Compile every missing library (one nvcc per source, all at once)
+    and return ``{source: path}``."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    header = consts_header()
+    hdr_texts = [open(os.path.join(CSRC, h), "rb").read() for h in HEADERS]
+    gen_dir = os.path.join(BUILD_DIR, "include-" + _digest([header]))
+    os.makedirs(gen_dir, exist_ok=True)
+    with open(os.path.join(gen_dir, "consts.cuh"), "w") as f:
+        f.write(header)
+    paths, procs = {}, []
+    for src in SOURCES:
+        text = open(os.path.join(CSRC, src), "rb").read()
+        tag = _digest([text, header, *hdr_texts, " ".join(NVCC_FLAGS)])
+        out = os.path.join(BUILD_DIR, f"{src[:-3]}-{tag}.so")
+        paths[src] = out
+        if os.path.exists(out):
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        log = open(out[:-3] + ".log", "w")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-I", gen_dir, "-o", tmp,
+               os.path.join(CSRC, src)]
+        procs.append((src, out, tmp, log,
+                      subprocess.Popen(cmd, stdout=log,
+                                       stderr=subprocess.STDOUT)))
+    failed = []
+    for src, out, tmp, log, proc in procs:
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            failed.append((src, out[:-3] + ".log"))
+            continue
+        os.replace(tmp, out)
+    if failed:
+        msgs = []
+        for src, logp in failed:
+            with open(logp) as f:
+                msgs.append(f"--- {src} ---\n{f.read()[-4000:]}")
+        raise RuntimeError("nvcc failed:\n" + "\n".join(msgs))
+    return paths
+
+
+def library(source: str) -> ctypes.CDLL:
+    """The loaded library of ``source`` (building everything on first use)."""
+    with _lock:
+        lib = _libs.get(source)
+        if lib is None:
+            paths = build_all()
+            for src, path in paths.items():
+                _libs[src] = ctypes.CDLL(path)
+            lib = _libs[source]
+        return lib
+
+
+def entry(source: str, name: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry ``name`` of ``source``'s library, typed once on first
+    use: ``argtypes`` followed by the trailing ``cudaStream_t``, returning
+    an ``int`` (a ``cudaError_t``)."""
+    fn = _fns.get((source, name))
+    if fn is None:
+        fn = getattr(library(source), name)
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns[(source, name)] = fn
+    return fn
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {rc}")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

@@ -1,0 +1,70 @@
+"""Hourly cloud-cover Markov chain, batched over chains (own copy of
+tmhpvsim_tpu/models/markov_hourly.py in torch).
+
+    x[i+1] = clip(x[i] + step(x[i]), 0, 1)
+
+The step comes from one of six fitted distributions, picked by the bin the
+state falls in (searchsorted over the right edges): five asymmetric-Laplace
+bins and one Student-t bin (data/parameters.py).  Both variates are drawn
+from independent key splits and the bin's mark selects one, as in the JAX
+package, so the draws match key for key.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tmhpvsim_torch import rng
+from tmhpvsim_torch.data import MARKOV_STEP_BINS, MARKOV_STEP_PARAMS
+from tmhpvsim_torch.models import distributions as dist
+
+
+def step_params(device=None):
+    """Stacked per-bin step-distribution parameters (float32 tensors)."""
+    p = np.asarray(MARKOV_STEP_PARAMS, dtype=np.float64)
+
+    def f32(v):
+        return torch.tensor(np.asarray(v, np.float32), device=device)
+
+    return {
+        "bins": f32(MARKOV_STEP_BINS),
+        "loc": f32(p[:, 0]),
+        "scale": f32(p[:, 1]),
+        "kappa": f32(p[:, 2]),
+        "df": f32(p[:, 3]),
+        "is_t": f32(p[:, 4]),
+    }
+
+
+def transition(keys, state, params):
+    """One Markov transition of ``state`` (any shape; keys ``(*shape, 2)``)."""
+    idx = torch.searchsorted(params["bins"], state.contiguous(), right=False)
+    idx = torch.clamp(idx, 0, params["loc"].shape[0] - 1)
+    loc = params["loc"][idx]
+    scale = params["scale"][idx]
+    kappa = params["kappa"][idx]
+    df = params["df"][idx]
+    is_t = params["is_t"][idx]
+    ks = rng.split(keys, 2)
+    d_al = dist.asymmetric_laplace(ks[..., 0, :], loc, scale, kappa)
+    d_t = dist.student_t(ks[..., 1, :], loc, scale, df)
+    step = torch.where(is_t > 0.5, d_t, d_al)
+    return torch.clamp(state + step, 0.0, 1.0)
+
+
+def chain_window(keys, start: int, n: int, state, params=None):
+    """``n`` successive states for global indices [start, start+n) of each
+    chain, continuing from ``state`` (the state before transition
+    ``start``); transition i is keyed by ``fold_in(key, i)``.  ``keys`` is
+    ``(chains, 2)``, ``state`` ``(chains,)``.  Returns
+    ``(values (chains, n), final state)``."""
+    if params is None:
+        params = step_params(keys.device)
+    out = []
+    for i in range(n):
+        state = transition(rng.fold_in(keys, start + i), state, params)
+        out.append(state)
+    if not out:
+        return state.new_empty(state.shape + (0,)), state
+    return torch.stack(out, dim=-1), state

@@ -1,0 +1,292 @@
+"""Solar geometry on the host, float64 numpy (own copy of the host side
+of tmhpvsim_tpu/models/solar.py).
+
+The shared-site main path evaluates the whole chain-independent geometry
+of a block here, once, in float64, and ships the fields to the card as
+float32 rows (engine/simulation.py ``host_inputs``).  These are the
+functions ``block_geometry(xp=np)`` reaches in the JAX package, with the
+transcendentals bound to numpy; the same inputs give the same bits
+(tests/test_torch_models.py).  The float32 device geometry of site grids
+(``device_geometry``) and the strided forms belong to the site-grid slice.
+
+PSA sun position (Blanco-Muriel et al. 2001, 2020 coefficients), NREL SPA
+refraction, Kasten-Young airmass, Spencer extraterrestrial irradiance,
+Ineichen clear sky with a monthly Linke-turbidity lerp, and the cosine of
+the angle of incidence.  All angles in radians unless suffixed ``_deg``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+TWO_PI = 2.0 * np.pi
+DEG = np.pi / 180.0
+
+#: Epoch seconds of the PSA reference instant 2000-01-01 12:00 UT.
+_PSA_EPOCH0 = 946728000.0
+
+#: Mean Earth radius / astronomical unit (PSA parallax correction).
+_PARALLAX = 6371.01 / 149597.89 * 1e-3  # dimensionless, ~4.26e-5
+
+SOLAR_CONSTANT = 1366.1     # W/m^2 (clear-sky & transposition extra radiation)
+DISC_SOLAR_CONSTANT = 1370.0  # W/m^2 (Maxwell 1987 fit constant)
+
+STD_PRESSURE = 101325.0     # Pa
+
+
+def _powc(x, p):
+    return x ** p
+
+
+def alt2pres(altitude_m):
+    """ISA pressure at altitude [Pa] (standard lapse-rate barometric formula)."""
+    return STD_PRESSURE * (1.0 - 2.25577e-5 * altitude_m) ** 5.25588
+
+
+def sun_position(epoch_s, latitude_deg, longitude_deg):
+    """PSA+ sun position at UTC epoch seconds.
+
+    ``epoch_s`` MUST be float64 (or int64): absolute epoch seconds (~1.7e9)
+    quantize to ±64-128 s in float32 — about a degree of hour angle — so a
+    float32 input is a silent correctness bug, rejected here.  The intended
+    pattern is the engine's: evaluate geometry on the host in float64
+    (it is chain-independent and O(block)) and ship float32 *results* to
+    the device (engine/simulation.py host_inputs).
+
+    Parameters are broadcastable arrays.  Returns a dict:
+      ``zenith``      true topocentric zenith angle [rad] (no refraction;
+                      apply :func:`apparent_elevation` separately)
+      ``azimuth``     [rad], 0 = North, increasing eastward (pvlib
+                      convention)
+      ``cos_zenith``  cos of the true zenith
+
+    Coefficients: Blanco et al. 2020 update of the PSA ephemeris.
+
+    """
+    dt_ = np.dtype(getattr(epoch_s, "dtype", np.float64))
+    if dt_.kind == "f" and dt_.itemsize < 8:
+        raise TypeError(
+            "sun_position requires float64/int64 epoch seconds; float32 "
+            "quantizes absolute epochs to >±64 s (see docstring)"
+        )
+    lat = latitude_deg * DEG
+    lon = longitude_deg * DEG
+
+    # Elapsed days since 2000-01-01 12:00 UT (te), and UT decimal hour.
+    te = (epoch_s - _PSA_EPOCH0) / 86400.0
+    hour_ut = (epoch_s / 3600.0) % 24.0
+
+    # Ecliptic coordinates.
+    omega = 2.267127827e0 - 9.300339267e-4 * te
+    mean_lon = 4.895036035e0 + 1.720279602e-2 * te
+    mean_anom = 6.239468336e0 + 1.720200135e-2 * te
+    ecl_lon = (
+        mean_lon
+        + 3.338320972e-2 * np.sin(mean_anom)
+        + 3.497596876e-4 * np.sin(2.0 * mean_anom)
+        - 1.544353226e-4
+        - 8.689729360e-6 * np.sin(omega)
+    )
+    obliquity = (
+        4.090904909e-1 - 6.213605399e-9 * te + 4.418094944e-5 * np.cos(omega)
+    )
+
+    # Celestial coordinates.
+    sin_l = np.sin(ecl_lon)
+    ra = np.arctan2(np.cos(obliquity) * sin_l, np.cos(ecl_lon)) % TWO_PI
+    dec = np.arcsin(np.sin(obliquity) * sin_l)
+
+    # Local hour angle from Greenwich mean sidereal time.
+    gmst_h = 6.697096103e0 + 6.570984737e-2 * te + hour_ut
+    lmst = gmst_h * 15.0 * DEG + lon
+    ha = lmst - ra
+
+    cos_lat, sin_lat = np.cos(lat), np.sin(lat)
+    cos_dec, sin_dec = np.cos(dec), np.sin(dec)
+    cos_ha = np.cos(ha)
+
+    cos_zen = cos_lat * cos_ha * cos_dec + sin_dec * sin_lat
+    cos_zen = np.clip(cos_zen, -1.0, 1.0)
+    zenith = np.arccos(cos_zen)
+    azimuth = np.arctan2(
+        -np.sin(ha), np.tan(dec) * cos_lat - sin_lat * cos_ha
+    ) % TWO_PI
+
+    # Parallax correction (sun observed from the surface, not the geocenter).
+    zenith = zenith + _PARALLAX * np.sin(zenith)
+
+    return {
+        "zenith": zenith,
+        "azimuth": azimuth,
+        "cos_zenith": np.cos(zenith),
+    }
+
+
+def apparent_elevation(zenith, pressure=STD_PRESSURE, temperature_c=12.0):
+    """Refraction-corrected elevation [rad] from true zenith.
+
+    The NREL SPA atmospheric-refraction correction (Reda & Andreas 2004
+    eq. 42), as pvlib applies with its default temperature 12 C and
+    altitude-derived pressure: for elevation e [deg],
+
+        de = (P/1010 mbar) * (283/(273+T)) * 1.02 / (60 * tan(e + 10.3/(e+5.11)))
+
+    applied only while the top limb of the sun is above the horizon
+    (e >= -0.26667 - 0.5667 deg); expressed branchlessly with ``where``.
+    """
+    e_deg = (np.pi / 2.0 - zenith) / DEG
+    p_mbar = pressure / 100.0
+    de = (
+        (p_mbar / 1010.0)
+        * (283.0 / (273.0 + temperature_c))
+        * 1.02
+        / (60.0 * np.tan((e_deg + 10.3 / (e_deg + 5.11)) * DEG))
+    )
+    de = np.where(e_deg >= -(0.26667 + 0.5667), de, 0.0)
+    return (e_deg + de) * DEG
+
+
+def relative_airmass_kasten_young(apparent_zenith):
+    """Kasten & Young 1989 relative airmass from apparent zenith [rad].
+
+    pvlib returns NaN past 90 deg; here the zenith is clamped just below the
+    pole of the formula instead — downstream use is always multiplied by a
+    night mask, and NaNs are poison on TPU.
+    """
+    z_deg = np.clip(apparent_zenith / DEG, 0.0, 90.0)
+    return 1.0 / (
+        np.cos(z_deg * DEG) + 0.50572 * _powc(96.07995 - z_deg, -1.6364)
+    )
+
+
+def extra_radiation_spencer(doy, solar_constant=SOLAR_CONSTANT):
+    """Spencer 1971 extraterrestrial normal irradiance for day-of-year.
+    """
+    b = TWO_PI * (doy - 1.0) / 365.0
+    factor = (
+        1.00011
+        + 0.034221 * np.cos(b)
+        + 0.00128 * np.sin(b)
+        + 0.000719 * np.cos(2.0 * b)
+        + 7.7e-5 * np.sin(2.0 * b)
+    )
+    return solar_constant * factor
+
+
+def linke_turbidity(doy, monthly):
+    """Day-of-year Linke turbidity from a 12-value monthly climatology.
+
+    Monthly values are taken as mid-month anchors and linearly interpolated
+    (the same scheme pvlib's ``lookup_linke_turbidity(interp_turbidity=True)``
+    applies to its gridded climatology).  Wrap-around at the year boundary.
+    """
+    monthly = np.asarray(monthly)
+    # Mid-month day-of-year anchors for a 365-day year.
+    mids = np.asarray(
+        [15.5, 45.0, 74.5, 105.0, 135.5, 166.0, 196.5, 227.5, 258.0, 288.5,
+         319.0, 349.5]
+    )
+    ext_mids = np.concatenate([mids[-1:] - 365.0, mids, mids[:1] + 365.0])
+    ext_vals = np.concatenate([monthly[-1:], monthly, monthly[:1]])
+    d = np.asarray(doy, dtype=ext_mids.dtype)
+    i = np.clip(np.searchsorted(ext_mids, d, side="right") - 1, 0, 12)
+    f = (d - ext_mids[i]) / (ext_mids[i + 1] - ext_mids[i])
+    return ext_vals[i] * (1.0 - f) + ext_vals[i + 1] * f
+
+
+def ineichen_ghi(apparent_zenith, airmass_absolute, tl, altitude_m,
+                 dni_extra):
+    """Ineichen & Perez 2002 clear-sky GHI [W/m^2].
+
+    Same formulation the reference evaluates via Location.get_clearsky
+    (pvmodel.py:60): altitude-corrected coefficients and Linke-turbidity
+    attenuation (no Perez enhancement factor — see NOTE below).
+    """
+    fh1 = np.exp(-altitude_m / 8000.0)
+    fh2 = np.exp(-altitude_m / 1250.0)
+    cg1 = 5.09e-5 * altitude_m + 0.868
+    cg2 = 3.92e-5 * altitude_m + 0.0387
+    cos_zen = np.maximum(np.cos(apparent_zenith), 0.0)
+    # NOTE: the classical Perez enhancement factor exp(0.01*am^1.8) is
+    # deliberately absent — pvlib disables it by default since 0.6.0, so the
+    # reference's Location.get_clearsky path never applies it.
+    ghi = (
+        cg1
+        * dni_extra
+        * cos_zen
+        * np.exp(-cg2 * airmass_absolute * (fh1 + fh2 * (tl - 1.0)))
+    )
+    return np.maximum(ghi, 0.0)
+
+
+def csi_zenith_cap(zenith):
+    """Physical upper bound on the clear-sky index as a function of zenith.
+
+    The reference clips csi to ``27.21*exp(-114*cos z) + 1.665*exp(-4.494*
+    cos z) + 1.08`` (pvmodel.py:52-58, an enhancement-limit fit from the
+    Bright et al. model): near-overhead sun admits csi only slightly above 1,
+    while low sun admits large cloud-enhancement spikes.
+    """
+    cos_z = np.cos(zenith)
+    cap = (27.21 * np.exp(-114.0 * cos_z)
+           + 1.665 * np.exp(-4.494 * cos_z) + 1.08)
+    # Below the horizon the fit explodes (exp(90) ~ 1e39 at night), which
+    # overflows the float32 cast on device.  The cap's only consumer is
+    # ``minimum(csi, cap)`` and csi stays O(1), so any ceiling >> the
+    # physical enhancement limit is equivalent — clamp to keep it finite.
+    return np.minimum(cap, 1e6)
+
+
+def angle_of_incidence_cos(surface_tilt_deg, surface_azimuth_deg, zenith,
+                           azimuth):
+    """cos(AOI) between the sun vector and the panel normal (unclipped)."""
+    tilt = surface_tilt_deg * DEG
+    saz = surface_azimuth_deg * DEG
+    return (
+        np.cos(tilt) * np.cos(zenith)
+        + np.sin(tilt) * np.sin(zenith) * np.cos(azimuth - saz)
+    )
+
+
+def block_geometry(epoch_s, doy, site):
+    """All chain-independent solar/irradiance features for a time block.
+
+    One evaluation per block serves every chain (the csi stream is the only
+    chain-dependent input to the power chain) — the key layout decision that
+    keeps the per-chain work on the VPU elementwise (SURVEY.md §7 step 6-7).
+
+    Returns dict of arrays shaped like ``epoch_s`` (plus the scalar site
+    constants the power chain needs):
+      zenith, cos_zenith, apparent_zenith, azimuth, csi_cap,
+      ghi_clear, dni_extra, airmass_abs, cos_aoi, doy,
+      surface_tilt, albedo
+    """
+    pos = sun_position(epoch_s, site.latitude, site.longitude)
+    pressure = alt2pres(site.altitude)
+    app_elev = apparent_elevation(pos["zenith"], pressure)
+    app_zen = np.pi / 2.0 - app_elev
+
+    am_rel = relative_airmass_kasten_young(app_zen)
+    am_abs = am_rel * pressure / STD_PRESSURE
+
+    dni_extra = extra_radiation_spencer(doy)
+    tl = linke_turbidity(doy, site.linke_turbidity_monthly)
+    ghi_clear = ineichen_ghi(app_zen, am_abs, tl, site.altitude, dni_extra)
+
+    cos_aoi = angle_of_incidence_cos(
+        site.surface_tilt, site.surface_azimuth, app_zen, pos["azimuth"]
+    )
+    return {
+        "zenith": pos["zenith"],
+        "cos_zenith": pos["cos_zenith"],
+        "apparent_zenith": app_zen,
+        "azimuth": pos["azimuth"],
+        "csi_cap": csi_zenith_cap(pos["zenith"]),
+        "ghi_clear": ghi_clear,
+        "dni_extra": dni_extra,
+        "airmass_abs": am_abs,
+        "cos_aoi": cos_aoi,
+        "doy": np.asarray(doy),
+        "surface_tilt": site.surface_tilt,
+        "albedo": site.albedo,
+    }
