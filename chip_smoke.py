@@ -5,7 +5,7 @@
 Phases (any failure exits non-zero and prints no result line):
 
 1. build the CUDA kernels from ``tmhpvsim_torch/csrc`` (nvcc, one process
-   per source) and print the card's name and power limit;
+   per source, all at once) and print the card's name and power limit;
 2. K1 (threefry) against its plain torch version: bit for bit at every
    launch ``init_state`` makes (on its own keys), then on 2**20 keys for
    split, fold_in, bits and uniform bit for bit and normal to 2 float32
@@ -13,16 +13,33 @@ Phases (any failure exits non-zero and prints no result line):
 3. K2 (sampler windows) against its plain version at 65536 chains: the
    two launches ``init_state`` makes, then two consecutive blocks (the
    Markov carry crosses a block);
-4. K3 (the per-second block step) against its plain version at the main
-   path's shape, 65536 chains x 1080 s, on 2 daylight blocks (accumulator
-   and renewal carry), on the same K2 tables;
-5. the main path: ``Simulation.run_reduced`` at 65536 chains x 86400 s
-   with 1080 s blocks (80 blocks, a whole day), every launch counter set
-   to 0 just before and read just after; then each kernel and its plain
-   version timed with CUDA events at the main path's shapes;
-6. the port on the card at the JAX suite's ``small_config`` shape against
-   the JAX package's statistics in ``tests/data/torch_port_reference.json``
-   (n_seconds exact, the rest rtol 2e-5 / atol 1e-2).
+4. the block step against its plain versions at the main paths' shape,
+   65536 chains x 1080 s, on 2 daylight blocks, on the same K2 tables:
+   K3 (acc epilogue: 7 statistics and the renewal carry); K4 series (the
+   per-second sums to rtol 1e-6, a second run bit-identical, the
+   cross-CTA sum on its own); K4 trace (meter bit-identical, pv and
+   residual to the K3 tolerance, and each chain's sums over the trace
+   against the acc kernel's); K6 (the site-geometry mode through the acc
+   epilogue at 65536 sites, and the geometry fields on their own);
+5. the paths, every launch counter set to 0 just before each and read
+   just after; each must launch every kernel it needs:
+   R. reduce, shared site: ``run_reduced`` at 65536 chains x 86400 s,
+      1080 s blocks (the main path of the first slice), then timed in 10
+      pairs of alternating order against the first slice's loop;
+   A. ensemble, shared site: ``run_ensemble``, 65536 chains x 86400 s;
+   B. site-grid reduce: ``run_reduced`` over the 256 x 256 grid of
+      ``--site-grid 47:55:256,6:15:256`` (65536 sites) x 86400 s;
+   C. trace: ``run_blocks``, 65536 chains x 4320 s from 10:00, every
+      chain's (65536, 1080) arrays gathered to the host;
+   D. the CLI: ``pvsim OUT.csv --no-realtime --duration 86400 --start
+      "2019-09-05 00:00:00"`` (1 chain, trace), 86400 rows plus a header;
+6. each kernel and its plain version timed with CUDA events at the main
+   paths' shapes;
+7. the port on the card at the JAX suite's ``small_config`` shape against
+   the JAX package's results in ``tests/data/torch_port_reference.json``:
+   reduce statistics, every per-second ensemble mean, chain 0's trace
+   over the first hour and the site-grid reduce statistics (n_seconds
+   exact, the rest rtol 2e-5 / atol 1e-2).
 
 The line before the card line is the ``{"kernels": [...]}`` record; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -42,8 +59,8 @@ try:
     import torch
 
     from tmhpvsim_torch import kernels, rng
-    from tmhpvsim_torch.config import SimConfig
-    from tmhpvsim_torch.engine.simulation import Simulation
+    from tmhpvsim_torch.config import SimConfig, SiteGrid
+    from tmhpvsim_torch.engine.simulation import BlockInputs, Simulation
     from tmhpvsim_torch.kernels import block_step as k3
     from tmhpvsim_torch.kernels import build
     from tmhpvsim_torch.kernels import threefry as k1
@@ -65,7 +82,8 @@ PEAK_I32 = 132 * 64 * 1.98e9
 #: operation counts per item, read off the kernel sources: one threefry
 #: hash (20 rounds of add/rotate/xor, 5 key injections) is 80 int32 ops;
 #: one accurate libm transcendental (expf, logf, log1pf, acosf, cosf,
-#: sinf) is counted as 16 float32 ops and powf as 32
+#: sinf, tanf, asinf, atan2f, fmodf) is counted as 16 float32 ops and
+#: powf as 32
 HASH_I = 80
 TRANS_F = 16
 POW_F = 32
@@ -80,12 +98,45 @@ K3_SECOND_F = 15 + 4 + 2 + 110 + 2 * TRANS_F + 12
 K3_SECOND_I = 2 * HASH_I + 10
 #: K3 per chain-minute: the four fold_in key derivations
 K3_MINUTE_I = 4 * HASH_I
+#: the series epilogue per chain-second: two 5-step butterflies (10 adds)
+#: in place of the 12-op fold
+SERIES_SECOND_F = K3_SECOND_F - 12 + 10
+#: the trace epilogue per chain-second: no fold
+TRACE_SECOND_F = K3_SECOND_F - 12
+#: K6 on top of K3, split as the JAX function's work is: ``device_geometry``
+#: maps over the site scalars only, so the site-independent half of the PSA
+#: ephemeris (sinf/cosf of omega, the mean anomaly and the ecliptic
+#: longitude, the obliquity terms, atan2f and fmodf for the right ascension,
+#: asinf for the declination, fmodf for the sidereal time, cosf/sinf/tanf of
+#: the declination: 15 transcendentals and ~35 float ops) is work per second,
+#: although the kernel repeats it for every site.  Per chain-second: the
+#: site's hour angle, zenith, azimuth, refraction, Kasten-Young, Ineichen,
+#: the csi cap and AOI (15 transcendentals, one powf, ~60 float ops) and the
+#: physics terms the shared mode computes once per second (cosf, acosf, powf
+#: and ~35 float ops)
+K6_TIME_F = 15 * TRANS_F + 35
+K6_SITE_SECOND_F = 17 * TRANS_F + 2 * POW_F + 95
 
 HEADLINE = dict(start="2019-09-05 00:00:00", duration_s=86400,
                 n_chains=65536, seed=0, block_s=1080, output="reduce")
+#: path B's grid: the JAX CLI's --site-grid "47:55:256,6:15:256" (Germany's
+#: extent, tilt = latitude, azimuth 180, altitude 100 m, Europe/Berlin)
+GRID_B = ((47, 55), (6, 15), 256, 256)
+#: path C: shared-site trace, 4 blocks from 10:00
+PATH_C = dict(HEADLINE, start="2019-09-05 10:00:00", duration_s=4320,
+              output="trace")
+#: path D: BASELINE config 1 through the CLI
+PATH_D_ARGS = ["--no-realtime", "--duration", "86400", "--start",
+               "2019-09-05 00:00:00"]
+#: same-call pairs of path R's two loops (the first slice's, the lookahead)
+LOOP_PAIRS = 10
+#: the check blocks: two daylight blocks from 11:00
+CHECK_START = "2019-09-05 11:00:00"
 #: the JAX suite's small_config (tests/test_engine.py)
 SMALL = dict(start="2019-09-05 10:00:00", duration_s=7200, n_chains=3,
              seed=7, block_s=3600)
+#: the engine tolerance (tests/test_engine.py): rtol, atol
+TOL = (2e-5, 1e-2)
 
 
 def fail(msg: str) -> None:
@@ -103,6 +154,10 @@ def max_abs(a, b) -> float:
     if a.numel() == 0:
         return 0.0
     return float((a.double() - b.double()).abs().max())
+
+
+def close(a, b, rtol=TOL[0], atol=TOL[1]) -> bool:
+    return bool(torch.allclose(a.double(), b.double(), rtol=rtol, atol=atol))
 
 
 def time_ms(fn, reps: int = 5) -> float:
@@ -137,6 +192,10 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def clone(tree):
+    return {k: v.clone() for k, v in tree.items()}
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -151,7 +210,8 @@ def phase_build():
         log = path[:-3] + ".log"
         if os.path.exists(log):
             for line in open(log):
-                if "registers" in line or "spill" in line:
+                if ("registers" in line or "spill" in line
+                        or "entry function" in line):
                     print(f"  {src}: {line.strip()}")
 
 
@@ -295,41 +355,380 @@ def phase_k3(dev):
     return err
 
 
-def phase_main(dev):
-    cfg = SimConfig(**HEADLINE)
+def check_blocks(cfg, dev):
+    """The two check blocks of ``cfg`` (from 11:00) with their K2 tables:
+    ``(sim, state, [(inputs, tables), ...])``."""
     sim = Simulation(cfg, device=dev)
+    state = sim.init_state()
+    cc_carry = state["cc_carry"]
+    out = []
+    for bi in (0, 1):
+        ins = sim.host_inputs(bi)
+        tables, cc_carry = k2.sampler_windows(
+            state["k_arr"], state["k_min"], cc_carry, state["cc0"],
+            ins.bounds, ins.mh_idx, ins.mh_frac)
+        out.append((ins, tables))
+    return sim, state, out
+
+
+def head_of(state, ins, tables):
+    return (tables, ins.rows_i, ins.rows_f, state["k_scan"],
+            state["k_meter"])
+
+
+def phase_k4_series(dev):
+    cfg = SimConfig(**dict(HEADLINE, start=CHECK_START, output="ensemble"))
+    sim, state, blocks = check_blocks(cfg, dev)
+    tilt, alb, _ = sim.geometry_args(state)
+    mw = cfg.meter_max_w
+    carry_k, carry_p = clone(state["carry"]), clone(state["carry"])
+    err = sum_err = 0.0
+    for ins, tables in blocks:
+        head = head_of(state, ins, tables)
+        again = clone(carry_k)
+        carry_k, part = k3.series_partials_cuda(*head, carry_k, mw, tilt,
+                                                alb)
+        out = k3.series_sum(part)
+        again, part2 = k3.series_partials_cuda(*head, again, mw, tilt, alb)
+        out2 = k3.series_sum(part2)
+        carry_p, m_p, p_p = k3.series_plain(*head, carry_p, mw, tilt, alb)
+        torch.cuda.synchronize()
+        if not (torch.equal(part, part2) and torch.equal(out, out2)
+                and all(torch.equal(again[k], carry_k[k]) for k in again)):
+            fail("K4 series: a second run on the same inputs is not "
+                 "bit-identical")
+        want = k3.series_sum_plain(part)
+        if not close(out, want, rtol=1e-6, atol=0.0):
+            fail(f"K4 series_sum differs from its plain version: max abs "
+                 f"{max_abs(out, want)}")
+        sum_err = max(sum_err, max_abs(out, want))
+        for what, a, b in (("meter", out[0], m_p), ("pv", out[1], p_p)):
+            if not close(a, b, rtol=1e-6, atol=0.0):
+                fail(f"K4 series {what} sums differ from the plain version: "
+                     f"max abs {max_abs(a, b)}")
+            err = max(err, max_abs(a, b))
+        if float(out[1].max()) <= 10.0 * cfg.n_chains:
+            fail("K4 series check blocks saw no daylight")
+    for k in carry_k:
+        if not torch.equal(carry_k[k], carry_p[k]):
+            fail(f"K4 series renewal carry {k} differs from the plain "
+                 "version")
+    print(f"K4 series vs plain on 2 blocks x {cfg.n_chains} chains: per-"
+          f"second sums within rtol 1e-6 (max abs {err:.3g} W), a second "
+          f"run bit-identical; series_sum vs plain max abs {sum_err:.3g}")
+    return err, sum_err
+
+
+def phase_k4_trace(dev):
+    cfg = SimConfig(**dict(HEADLINE, start=CHECK_START, output="trace"))
+    sim, state, blocks = check_blocks(cfg, dev)
+    tilt, alb, _ = sim.geometry_args(state)
+    mw = cfg.meter_max_w
+    carry_k, carry_p = clone(state["carry"]), clone(state["carry"])
+    carry_a, acc = clone(state["carry"]), sim.init_reduce_acc()
+    sums = {"pv": 0.0, "meter": 0.0}
+    err, same, total = 0.0, 0, 0
+    for ins, tables in blocks:
+        head = head_of(state, ins, tables)
+        carry_k, mk, pk = k3.block_step_trace(*head, carry_k, mw, tilt, alb)
+        carry_p, mp, pp = k3.trace_plain(*head, carry_p, mw, tilt, alb)
+        carry_a, acc = k3.block_step_acc(*head, carry_a, acc,
+                                         cfg.duration_s, mw, tilt, alb)
+        torch.cuda.synchronize()
+        if not torch.equal(mk, mp):
+            fail(f"K4 trace meter differs from the plain version: max abs "
+                 f"{max_abs(mk, mp)}")
+        for what, a, b in (("pv", pk, pp), ("residual", mk - pk, mp - pp)):
+            if not close(a, b):
+                fail(f"K4 trace {what} differs from the plain version: max "
+                     f"abs {max_abs(a, b)}")
+            err = max(err, max_abs(a, b))
+        same += int((pk == pp).sum())
+        total += pk.numel()
+        sums["pv"] = sums["pv"] + pk.double().sum(0)
+        sums["meter"] = sums["meter"] + mk.double().sum(0)
+        del mk, pk, mp, pp
+    for k in carry_k:
+        if not close(carry_k[k], carry_p[k], rtol=1e-5, atol=1e-3):
+            fail(f"K4 trace renewal carry {k} differs from the plain version")
+    for what in ("pv", "meter"):
+        a, b = sums[what], acc[f"{what}_sum"]
+        if not close(a, b, rtol=2e-5, atol=0.0):
+            fail(f"K4 trace: per-chain sum of {what} over the trace differs "
+                 f"from the acc kernel's {what}_sum: max abs {max_abs(a, b)}")
+    print(f"K4 trace vs plain on 2 blocks x {cfg.n_chains} chains: meter "
+          f"bit-identical, pv/residual max abs {err:.3g}; {same}/{total} pv "
+          "values bit-identical; per-chain sums over the trace match the "
+          "acc kernel's pv_sum/meter_sum to rtol 2e-5")
+    return err
+
+
+def grid_b():
+    return SiteGrid.regular(*GRID_B)
+
+
+def phase_k6(dev):
+    cfg = SimConfig(**dict(HEADLINE, start=CHECK_START, site_grid=grid_b()))
+    sim, state, blocks = check_blocks(cfg, dev)
+    _, _, site = sim.geometry_args(state)
+    mw = cfg.meter_max_w
+    acc_k, acc_p = sim.init_reduce_acc(), sim.init_reduce_acc()
+    carry_k, carry_p = clone(state["carry"]), clone(state["carry"])
+    for ins, tables in blocks:
+        head = head_of(state, ins, tables)
+        carry_k, acc_k = k3.block_step_acc(*head, carry_k, acc_k,
+                                           cfg.duration_s, mw, None, None,
+                                           site=site)
+        carry_p, acc_p = k3.block_step_plain(*head, carry_p, acc_p,
+                                             cfg.duration_s, mw, None, None,
+                                             site=site)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name in acc_k:
+        a, b = acc_k[name], acc_p[name]
+        if name == "n_seconds":
+            if not torch.equal(a, b):
+                fail("K6 n_seconds differs from the plain version")
+            continue
+        if not close(a, b):
+            fail(f"K6 {name} differs from the plain version: max abs "
+                 f"{max_abs(a, b)}")
+        err = max(err, max_abs(a, b))
+    for name in carry_k:
+        if not close(carry_k[name], carry_p[name], rtol=1e-5, atol=1e-3):
+            fail(f"K6 renewal carry {name} differs from the plain version")
+    same = int(sum(torch.equal(acc_k[k], acc_p[k]) for k in acc_k))
+    if float(acc_k["pv_max"].max()) <= 10.0:
+        fail("K6 check blocks saw no daylight")
+    # the geometry device function on its own, on the first 240 s
+    rows = blocks[0][0].rows_f[:, :240].contiguous()
+    got = k3.device_geometry_fields(rows, site)
+    want = k3.geometry_fields_plain(rows, site)
+    torch.cuda.synchronize()
+    geo = {}
+    for i, k in enumerate(k3.GEOM_FIELDS):
+        w = want[i]
+        d = (got[i].double() - w.double()).abs()
+        if k == "azimuth":  # an angle: compare across the 2 pi seam
+            d = torch.minimum(d, 2 * np.pi - d)
+        rel = d / w.double().abs().clamp_min(1.0)
+        if float(rel.max()) > 1e-5:
+            fail(f"K6 geometry field {k} differs from the plain version: "
+                 f"max abs {float(d.max())}")
+        geo[k] = (float(d.max()), float((got[i] == w).double().mean()))
+    print(f"K6 vs plain on 2 blocks x {cfg.n_chains} sites: max abs "
+          f"{err:.3g} ({same}/7 statistics bit-identical); geometry fields "
+          f"on 240 s x {cfg.n_chains} sites (max abs, share identical): "
+          + ", ".join(f"{k} {a:.3g} {b:.3f}" for k, (a, b) in geo.items()))
+    return err
+
+
+def run_path(name, need, fn):
+    """Drive one path with every counter at 0 before; returns
+    ``(result, wall seconds, launches)``."""
     torch.cuda.synchronize()
     kernels.reset_counts()
     t0 = time.perf_counter()
-    reduced = sim.run_reduced()
+    out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {c.name: c.launches for c in kernels.COUNTERS}
-    for name, n in launches.items():
-        if n == 0:
-            fail(f"the main path never launched {name}")
-    if not (reduced["n_seconds"] == cfg.duration_s).all():
-        fail("n_seconds != duration for some chain")
-    for name, v in reduced.items():
+    launches = kernels.counts()
+    for k in need:
+        if launches[k] == 0:
+            fail(f"path {name} never launched {k}")
+    return out, wall, {k: v for k, v in launches.items() if v}
+
+
+def check_reduced(name, reduced, duration_s):
+    if not (reduced["n_seconds"] == duration_s).all():
+        fail(f"path {name}: n_seconds != duration for some chain")
+    for k, v in reduced.items():
         if not np.isfinite(v).all():
-            fail(f"non-finite {name}")
+            fail(f"path {name}: non-finite {k}")
     pv_max = float(reduced["pv_max"].max())
     if pv_max <= 10.0:
-        fail(f"fleet pv_max {pv_max} W: no daylight generation")
+        fail(f"path {name}: fleet pv_max {pv_max} W: no daylight generation")
+    return pv_max
+
+
+def phase_path_r(dev):
+    cfg = SimConfig(**HEADLINE)
+    sim = Simulation(cfg, device=dev)
+    reduced, wall, launches = run_path(
+        "R", ("threefry_fill", "sampler_windows", "block_step"),
+        sim.run_reduced)
+    pv_max = check_reduced("R", reduced, cfg.duration_s)
     rate = cfg.n_chains * cfg.duration_s / wall
-    print(f"main path: {cfg.n_chains} chains x {cfg.duration_s} s in "
-          f"{sim.n_blocks} blocks: {wall:.3f} s wall, {rate:.6g} site-s/s "
-          f"(incl. init and host inputs); fleet pv_max {pv_max:.2f} W; "
-          f"launches {launches}")
-    ens = sim.ensemble_stats()
-    print(f"ensemble: {json.dumps(ens)}")
+    print(f"path R (reduce, shared site): {cfg.n_chains} chains x "
+          f"{cfg.duration_s} s in {sim.n_blocks} blocks: {wall:.3f} s wall "
+          f"(the first slice's loop: 0.256 s on an H100 80GB HBM3 at 700 W), "
+          f"{rate:.6g} site-s/s (incl. init and host inputs); fleet pv_max "
+          f"{pv_max:.2f} W; all chains n_seconds={cfg.duration_s}; launches "
+          f"{launches}")
+    print(f"ensemble: {json.dumps(sim.ensemble_stats())}")
+    # the same run through the first slice's loop (each block's inputs
+    # computed at the top of the loop and copied from pageable memory)
+    # against run_reduced's lookahead loop, in 10 pairs whose order
+    # alternates: first/lookahead, lookahead/first, ...
+    kinds = ("first slice's loop", "lookahead")
+    walls = {k: [] for k in kinds}
+    for pair in range(LOOP_PAIRS):
+        for kind in (kinds if pair % 2 == 0 else kinds[::-1]):
+            s = Simulation(cfg, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "lookahead":
+                s.run_reduced()
+            else:
+                first_slice_loop(s, dev)
+            torch.cuda.synchronize()
+            walls[kind].append(time.perf_counter() - t0)
+    print(f"path R loops, same card, {LOOP_PAIRS} alternating pairs: " +
+          "; ".join(f"{k} median {np.median(v):.4f} s, min {min(v):.4f}, "
+                    f"max {max(v):.4f} ("
+                    + ", ".join(f"{w:.4f}" for w in v) + ")"
+                    for k, v in walls.items()))
     return sim, launches
 
 
-def phase_timing(sim, dev):
-    """Each kernel and its plain version at the main path's shapes."""
-    cfg = sim.config
+def first_slice_loop(sim, dev):
+    """``run_reduced`` as the first slice ran it: inputs computed inline,
+    copied synchronously from pageable memory."""
+    state, acc = sim.init_state(), sim.init_reduce_acc()
+    for bi in range(sim.n_blocks):
+        h = sim.host_arrays(bi)
+        ins = BlockInputs(h.bounds, *(torch.from_numpy(a).to(dev) for a in (
+            h.mh_idx, h.mh_frac, h.rows_i, h.rows_f)), h.epoch)
+        state, acc = sim.step_acc(state, ins, acc)
+    return acc
+
+
+def phase_path_a(dev):
+    cfg = SimConfig(**dict(HEADLINE, output="ensemble"))
+    sim = Simulation(cfg, device=dev)
+
+    def run():
+        rows, pv_max, n_blocks = 0, 0.0, 0
+        for blk in sim.run_ensemble():
+            if blk.pv.shape != (1, cfg.block_s) or \
+                    blk.meter.dtype != np.float32:
+                fail(f"path A: block of shape {blk.pv.shape}")
+            for k in ("meter", "pv", "residual"):
+                if not np.isfinite(getattr(blk, k)).all():
+                    fail(f"path A: non-finite {k}")
+            rows += blk.pv.shape[1]
+            n_blocks += 1
+            pv_max = max(pv_max, float(blk.pv.max()))
+        return rows, pv_max, n_blocks
+
+    (rows, pv_max, n_blocks), wall, launches = run_path(
+        "A", ("threefry_fill", "sampler_windows", "block_step_series",
+              "series_sum"), run)
+    if rows != cfg.duration_s or n_blocks != sim.n_blocks:
+        fail(f"path A: {rows} rows in {n_blocks} blocks")
+    if pv_max <= 10.0:
+        fail(f"path A: fleet-mean pv max {pv_max} W: no daylight")
+    print(f"path A (ensemble, shared site): {cfg.n_chains} chains x "
+          f"{cfg.duration_s} s in {n_blocks} blocks: {wall:.3f} s wall, "
+          f"{cfg.n_chains * cfg.duration_s / wall:.6g} site-s/s; "
+          f"{rows} fleet-mean rows; fleet-mean pv max {pv_max:.3f} W; "
+          f"launches {launches}")
+    return launches
+
+
+def phase_path_b(dev):
+    grid = grid_b()
+    cfg = SimConfig(**dict(HEADLINE, site_grid=grid))
+    sim = Simulation(cfg, device=dev)
+    reduced, wall, launches = run_path(
+        "B", ("threefry_fill", "sampler_windows", "block_step_site"),
+        sim.run_reduced)
+    n = sim.config.n_chains
+    if n != GRID_B[2] * GRID_B[3] or len(reduced["pv_sum"]) != n:
+        fail(f"path B ran {n} sites")
+    pv_max = check_reduced("B", reduced, cfg.duration_s)
+    # the grid spans 8 degrees of longitude: the east sees noon earlier
+    print(f"path B (site-grid reduce, {GRID_B[2]}x{GRID_B[3]} sites over "
+          f"{GRID_B[0]} N x {GRID_B[1]} E): {n} sites x {cfg.duration_s} s "
+          f"in {sim.n_blocks} blocks: {wall:.3f} s wall, "
+          f"{n * cfg.duration_s / wall:.6g} site-s/s; fleet pv_max "
+          f"{pv_max:.2f} W; all sites n_seconds={cfg.duration_s}; "
+          f"pv_sum over sites min/max {float(reduced['pv_sum'].min()):.4g}/"
+          f"{float(reduced['pv_sum'].max()):.4g} Ws; launches {launches}")
+    return launches
+
+
+def phase_path_c(dev):
+    cfg = SimConfig(**PATH_C)
+    sim = Simulation(cfg, device=dev)
+
+    def run():
+        secs, pv_max = 0, 0.0
+        for blk in sim.run_blocks():
+            shape = (cfg.n_chains, cfg.block_s)
+            for k in ("meter", "pv", "residual"):
+                a = getattr(blk, k)
+                if a.shape != shape or not np.isfinite(a).all():
+                    fail(f"path C: {k} of shape {a.shape} or not finite")
+            if (blk.pv < 0).any():
+                fail("path C: negative pv")
+            secs += blk.pv.shape[1]
+            pv_max = max(pv_max, float(blk.pv.max()))
+        return secs, pv_max
+
+    (secs, pv_max), wall, launches = run_path(
+        "C", ("threefry_fill", "sampler_windows", "block_step_trace"), run)
+    if secs != cfg.duration_s:
+        fail(f"path C: {secs} seconds of trace")
+    if pv_max <= 10.0:
+        fail(f"path C: pv max {pv_max} W: no daylight")
+    gb = 2 * cfg.n_chains * cfg.duration_s * 4 / 1e9
+    print(f"path C (trace, shared site): {cfg.n_chains} chains x "
+          f"{cfg.duration_s} s in {sim.n_blocks} blocks gathered to the host "
+          f"({gb:.2f} GB of meter and pv): {wall:.3f} s wall incl. the "
+          f"host's residual and checks, "
+          f"{cfg.n_chains * cfg.duration_s / wall:.6g} site-s/s; pv max "
+          f"{pv_max:.2f} W; launches {launches}")
+    return launches
+
+
+def phase_path_d():
+    from tmhpvsim_torch.cli import main as cli
+
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    out = os.path.join(build.BUILD_DIR, "path_d_trace.csv")
+    try:
+        rc, wall, launches = run_path(
+            "D", ("threefry_fill", "sampler_windows", "block_step_trace"),
+            lambda: cli(["pvsim", out] + PATH_D_ARGS))
+        if rc != 0:
+            fail(f"path D: the CLI returned {rc}")
+        with open(out) as f:
+            lines = f.read().splitlines()
+    finally:
+        if os.path.exists(out):
+            os.remove(out)
+    if lines[0] != "time,meter,pv,residual load" or len(lines) != 86401:
+        fail(f"path D: {len(lines)} lines, header {lines[0]!r}")
+    first, last = lines[1].split(","), lines[-1].split(",")
+    if first[0] != "2019-09-05 00:00:00" or last[0] != "2019-09-05 23:59:59":
+        fail(f"path D: time column runs {first[0]} .. {last[0]}")
+    pv = np.asarray([float(x.split(",")[2]) for x in lines[1:]])
+    if not np.isfinite(pv).all() or pv.max() <= 10.0:
+        fail("path D: pv column not finite or no daylight")
+    print(f"path D (CLI trace, 1 chain x 86400 s): {wall:.3f} s wall incl. "
+          f"writing the CSV; {len(lines) - 1} rows plus the header, "
+          f"{first[0]} .. {last[0]}; pv max {pv.max():.2f} W; launches "
+          f"{launches}")
+    return launches
+
+
+def phase_timing(dev):
+    """Each kernel and its plain version at the main paths' shapes."""
+    cfg = SimConfig(**HEADLINE)
+    sim = Simulation(cfg, device=dev)
     n = cfg.n_chains
+    T = cfg.block_s
     state = sim.init_state()
     out = {}
     # K1: the main path's largest launch, the per-chain 5-way split
@@ -340,7 +739,7 @@ def phase_timing(sim, dev):
     # holds each word in an int64
     n_h = n * 5
     out["K1"] = (ms, plain, *bound(n_h * HASH_I, 0, n * 8 + n_h * 8))
-    # K2 and K3 on a daylight block (block 40 = 12:00 local)
+    # K2 and the block step on a daylight block (block 40 = 12:00 local)
     ins = sim.host_inputs(40)
     args = (state["k_arr"], state["k_min"], state["cc_carry"], state["cc0"],
             ins.bounds, ins.mh_idx, ins.mh_frac)
@@ -360,29 +759,70 @@ def phase_timing(sim, dev):
                                          + 2 * n_min + 1)
     out["K2"] = (ms, plain, *bound(n * hashes * HASH_I, n * f32, nbytes))
     tables, _ = k2.sampler_windows(*args)
-    carry = {k: v.clone() for k, v in state["carry"].items()}
+    carry = clone(state["carry"])
     acc = sim.init_reduce_acc()
-    T = cfg.block_s
-    k3_args = (tables, ins.rows_i, ins.rows_f, state["k_scan"],
-               state["k_meter"], carry, acc, cfg.duration_s, cfg.meter_max_w,
-               cfg.site.surface_tilt, cfg.site.albedo)
+    head = (tables, ins.rows_i, ins.rows_f, state["k_scan"],
+            state["k_meter"], carry)
+    tail = (cfg.meter_max_w, cfg.site.surface_tilt, cfg.site.albedo)
+    k3_args = head + (acc, cfg.duration_s) + tail
+    int_ops = n * (T * K3_SECOND_I + (T // 60) * K3_MINUTE_I)
+    draws_f = NORMAL_F + UNIFORM_F + 1
+    table_bytes = sum(t.numel() * 4 for t in tables.values())
+    in_bytes = (table_bytes + n * 8 * 2 + n * 4 * 3 * 2
+                + ins.rows_i.numel() * 4 + ins.rows_f.numel() * 4)
     ms = time_ms(lambda: k3.block_step_acc(*k3_args))
     plain = time_ms(lambda: k3.block_step_plain(*k3_args), reps=1)
-    int_ops = n * (T * K3_SECOND_I + (T // 60) * K3_MINUTE_I)
-    f32_ops = n * T * (K3_SECOND_F + NORMAL_F + UNIFORM_F + 1)
-    table_bytes = sum(t.numel() * 4 for t in tables.values())
-    nbytes = (table_bytes + n * 8 * 2 + n * 4 * 10 * 2
-              + ins.rows_i.numel() * 4 + ins.rows_f.numel() * 4)
-    out["K3"] = (ms, plain, *bound(int_ops, f32_ops, nbytes))
+    out["K3"] = (ms, plain, *bound(int_ops, n * T * (K3_SECOND_F + draws_f),
+                                   in_bytes + n * 4 * 7 * 2))
+    # K4 series: the first pass, then the cross-CTA sum on its partials
+    ms = time_ms(lambda: k3.series_partials_cuda(*head, *tail))
+    plain = time_ms(lambda: k3.series_plain(*head, *tail), reps=1)
+    out["K4S"] = (ms, plain, *bound(
+        int_ops, n * T * (SERIES_SECOND_F + draws_f), in_bytes + 2 * T * 4))
+    _, part = k3.series_partials_cuda(*head, *tail)
+    n_parts = part.shape[1]
+    ms = time_ms(lambda: k3.series_sum(part), reps=20)
+    plain = time_ms(lambda: k3.series_sum_plain(part), reps=5)
+    out["K4R"] = (ms, plain, *bound(0, 2 * n_parts * T,
+                                    part.numel() * 4 + 2 * T * 4))
+    # K4 trace: 8 bytes per chain-second written
+    ms = time_ms(lambda: k3.block_step_trace(*head, *tail))
+    plain = time_ms(lambda: k3.trace_plain(*head, *tail), reps=1)
+    out["K4T"] = (ms, plain, *bound(
+        int_ops, n * T * (TRACE_SECOND_F + draws_f),
+        in_bytes + 2 * n * T * 4))
+    # K6: path B's grid on its noon block
+    gsim = Simulation(SimConfig(**dict(HEADLINE, site_grid=grid_b())),
+                      device=dev)
+    gstate = gsim.init_state()
+    gins = gsim.host_inputs(40)
+    gtables, _ = k2.sampler_windows(
+        gstate["k_arr"], gstate["k_min"], gstate["cc_carry"], gstate["cc0"],
+        gins.bounds, gins.mh_idx, gins.mh_frac)
+    _, _, site = gsim.geometry_args(gstate)
+    k6_args = (gtables, gins.rows_i, gins.rows_f, gstate["k_scan"],
+               gstate["k_meter"], clone(gstate["carry"]),
+               gsim.init_reduce_acc(), cfg.duration_s, cfg.meter_max_w, None,
+               None)
+    ms = time_ms(lambda: k3.block_step_acc(*k6_args, site=site))
+    plain = time_ms(lambda: k3.block_step_plain(*k6_args, site=site), reps=1)
+    g_table_bytes = sum(t.numel() * 4 for t in gtables.values())
+    g_in = (g_table_bytes + n * 8 * 2 + n * 4 * 3 * 2 + n * 4 * 6 + 12 * 4
+            + gins.rows_i.numel() * 4 + gins.rows_f.numel() * 4)
+    out["K6"] = (ms, plain, *bound(
+        int_ops, n * T * (K3_SECOND_F + K6_SITE_SECOND_F + draws_f)
+        + T * K6_TIME_F, g_in + n * 4 * 7 * 2))
     for name, (ms, plain, bms, by) in out.items():
         print(f"timing {name}: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
               f"bound {bms:.4f} ms ({by})")
-    t0 = time.perf_counter()
-    for bi in range(sim.n_blocks):
-        sim.host_inputs(bi)
-    host_ms = (time.perf_counter() - t0) * 1e3 / sim.n_blocks
-    print(f"timing host_inputs: {host_ms:.3f} ms per block (host clock, "
-          f"mean of {sim.n_blocks})")
+    for label, s in (("shared site", sim), ("site grid", gsim)):
+        t0 = time.perf_counter()
+        for bi in range(s.n_blocks):
+            s.host_arrays(bi)
+        host_ms = (time.perf_counter() - t0) * 1e3 / s.n_blocks
+        print(f"timing host_arrays ({label}): {host_ms:.3f} ms per block "
+              f"(host clock, mean of {s.n_blocks}; overlapped with the card "
+              "by the loops' one-block lookahead)")
     return out
 
 
@@ -392,21 +832,45 @@ def phase_reference(dev):
         ref = json.load(f)
     if ref["config"] != SMALL:
         fail(f"reference file config {ref['config']} != {SMALL}")
-    got = Simulation(SimConfig(**SMALL), device=dev).run_reduced()
-    worst = 0.0
-    for name, want in ref["reduced"].items():
-        want = np.asarray(want)
-        have = got[name]
-        if name == "n_seconds":
-            if not np.array_equal(have, want):
-                fail("reference: n_seconds differs from the JAX package")
-            continue
-        if not np.allclose(have, want, rtol=2e-5, atol=1e-2):
-            fail(f"reference: {name} {have} vs JAX {want}")
-        worst = max(worst, float(np.max(np.abs(have - want)
-                                        / np.maximum(np.abs(want), 1e-30))))
-    print(f"reference: small_config on the card matches the JAX package "
-          f"(max rel err {worst:.3g})")
+    worst = {}
+
+    def held(what, have, want):
+        have, want = np.asarray(have, np.float64), np.asarray(want,
+                                                              np.float64)
+        if have.shape != want.shape or \
+                not np.allclose(have, want, rtol=TOL[0], atol=TOL[1]):
+            fail(f"reference: {what} differs from the JAX package "
+                 f"(shapes {have.shape} {want.shape})")
+        worst[what] = float(np.max(np.abs(have - want)
+                                   / np.maximum(np.abs(want), 1.0)))
+
+    def stats(what, got, want):
+        for name, w in want.items():
+            if name == "n_seconds":
+                if not np.array_equal(got[name], np.asarray(w)):
+                    fail(f"reference: {what} n_seconds differs")
+                continue
+            held(f"{what} {name}", got[name], w)
+
+    stats("reduce", Simulation(SimConfig(**SMALL), device=dev).run_reduced(),
+          ref["reduced"])
+    blocks = list(Simulation(SimConfig(**SMALL), device=dev).run_ensemble())
+    for k in ("meter", "pv"):
+        held(f"ensemble {k}", np.concatenate([getattr(b, k)[0]
+                                              for b in blocks]),
+             ref["ensemble"][k])
+    blocks = list(Simulation(SimConfig(**SMALL), device=dev).run_blocks())
+    tr = ref["trace"]
+    for k in ("meter", "pv"):
+        held(f"trace {k}", getattr(blocks[0], k)[tr["chain"], :len(tr[k])],
+             tr[k])
+    grid = SiteGrid.regular(*ref["site_grid"]["regular"])
+    stats("site-grid", Simulation(SimConfig(**dict(SMALL, site_grid=grid)),
+                                  device=dev).run_reduced(),
+          ref["site_grid"]["reduced"])
+    print("reference: small_config on the card matches the JAX package "
+          "(max relative error, relative to max(|JAX|, 1)): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
 
 
 def main() -> int:
@@ -414,28 +878,49 @@ def main() -> int:
         fail("torch.cuda.is_available() is False: this smoke run needs a "
              "CUDA card")
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     phase_build()
     smi = smi_line()
     print(f"card: {smi}")
     err1 = phase_k1(dev)
     err2 = phase_k2(dev)
     err3 = phase_k3(dev)
-    sim, launches = phase_main(dev)
-    timing = phase_timing(sim, dev)
+    err_s, err_r = phase_k4_series(dev)
+    err_t = phase_k4_trace(dev)
+    err6 = phase_k6(dev)
+    torch.cuda.empty_cache()
+    _, launch_r = phase_path_r(dev)
+    launch_a = phase_path_a(dev)
+    launch_b = phase_path_b(dev)
+    launch_c = phase_path_c(dev)
+    phase_path_d()
+    torch.cuda.empty_cache()
+    timing = phase_timing(dev)
     phase_reference(dev)
-    src = {"K1": ("threefry_fill", "tmhpvsim_torch/csrc/threefry.cu",
-                  "tmhpvsim_tpu/models/clearsky_index.py:278", err1),
-           "K2": ("sampler_windows", "tmhpvsim_torch/csrc/windows.cu",
-                  "tmhpvsim_tpu/engine/simulation.py:785", err2),
-           "K3": ("block_step", "tmhpvsim_torch/csrc/block_step.cu",
-                  "tmhpvsim_tpu/engine/simulation.py:1276", err3)}
+    sim_py = "tmhpvsim_tpu/engine/simulation.py"
+    src = "tmhpvsim_torch/csrc/block_step.cu"
+    rows_of = {
+        "K1": ("threefry_fill", "tmhpvsim_torch/csrc/threefry.cu",
+               "tmhpvsim_tpu/models/clearsky_index.py:278", err1, launch_r),
+        "K2": ("sampler_windows", "tmhpvsim_torch/csrc/windows.cu",
+               f"{sim_py}:785", err2, launch_r),
+        "K3": ("block_step", src, f"{sim_py}:1276", err3, launch_r),
+        "K4S": ("block_step_series", src, f"{sim_py}:1692", err_s,
+                launch_a),
+        "K4R": ("series_sum", src, f"{sim_py}:1703", err_r, launch_a),
+        "K4T": ("block_step_trace", src, f"{sim_py}:844", err_t, launch_c),
+        "K6": ("block_step_site", src, "tmhpvsim_tpu/models/solar.py:434",
+               err6, launch_b),
+    }
     rows = []
-    for key, (name, source, replaces, err) in src.items():
+    for key, (name, source, replaces, err, launches) in rows_of.items():
         ms, plain, bms, by = timing[key]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err, "ms": ms, "plain_ms": plain,
                      "bound_ms": bms, "bound_by": by, "library_ms": None})
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,10 @@
-"""The port's reduce-mode engine and CLI against the JAX package, on the CPU.
+"""The port's engine (reduce, ensemble and trace output, shared site and
+site grid) and CLI against the JAX package, on the CPU.
 
 Tolerance (the bound the JAX package holds its own formulations to,
-tests/test_engine.py): ``n_seconds`` exact, every other statistic
-rtol 2e-5 / atol 1e-2.  Chain keys are bit-exact.  Within the port a
+tests/test_engine.py): ``n_seconds`` exact, every other statistic and
+every per-second value rtol 2e-5 / atol 1e-2; the time axis (epochs, the
+CSV ``time`` column) exact.  Chain keys are bit-exact.  Within the port a
 different block partition folds the same seconds in the same order, so it
 must give identical bits.
 """
@@ -25,6 +27,9 @@ from tmhpvsim_tpu.engine import Simulation as JSim
 
 SMALL = dict(start="2019-09-05 10:00:00", duration_s=7200, n_chains=3,
              seed=7, block_s=3600)
+#: the site grid of the grid checks (tests/test_engine.py:153-164)
+GRID = ((46, 50), (9, 13), 2, 2)
+OUTPUTS = ("meter", "pv", "residual")
 REF = os.path.join(os.path.dirname(__file__), "data",
                    "torch_port_reference.json")
 
@@ -53,6 +58,38 @@ def port():
     return sim, sim.run_reduced()
 
 
+@pytest.fixture(scope="module")
+def jax_ensemble():
+    return list(_jax_sim().run_ensemble())
+
+
+@pytest.fixture(scope="module")
+def jax_trace():
+    return list(_jax_sim().run_blocks())
+
+
+@pytest.fixture(scope="module")
+def jax_grid():
+    sim = _jax_sim(site_grid=jcfg.SiteGrid.regular(*GRID))
+    return sim, sim.run_reduced()
+
+
+def _port_sim(**kw):
+    return TSim(tcfg.SimConfig(**dict(SMALL, **kw)), device="cpu")
+
+
+def _assert_blocks_close(want, got):
+    assert len(got) == len(want)
+    for w, g in zip(want, got):
+        assert g.offset == w.offset
+        np.testing.assert_array_equal(g.epoch, w.epoch)
+        for k in OUTPUTS:
+            wk = np.asarray(getattr(w, k))
+            assert getattr(g, k).shape == wk.shape, k
+            np.testing.assert_allclose(getattr(g, k), wk, rtol=2e-5,
+                                       atol=1e-2, err_msg=k)
+
+
 def test_reduce_matches_jax_scan(jax_scan, port):
     _assert_engine_close(jax_scan[1], port[1])
     je, te = jax_scan[0].ensemble_stats(), port[0].ensemble_stats()
@@ -66,18 +103,103 @@ def test_reduce_matches_jax_wide(port):
     _assert_engine_close(_jax_sim("wide").run_reduced(), port[1])
 
 
-def test_reference_file_tracks_jax(jax_scan):
-    """tests/data/torch_port_reference.json holds the JAX package's
-    statistics at this shape for chip_smoke.py's reference phase; it is
-    written when missing and must equal what the JAX package computes."""
-    doc = {"config": SMALL, "reduced": {
-        k: np.asarray(v).tolist() for k, v in jax_scan[1].items()}}
+def _f32_list(a):
+    """Shortest decimals that give back the float32 values."""
+    return [float(np.format_float_positional(x, unique=True, trim="-"))
+            for x in np.asarray(a, np.float32).ravel()]
+
+
+def test_reference_file_tracks_jax(jax_scan, jax_ensemble, jax_trace,
+                                   jax_grid):
+    """tests/data/torch_port_reference.json holds the JAX package's results
+    at this shape for chip_smoke.py's reference phase — the reduce
+    statistics, every per-second ensemble mean, chain 0's trace over the
+    first hour, and the site-grid reduce statistics; it is written when
+    missing and must equal what the JAX package computes."""
+    doc = {
+        "config": SMALL,
+        "reduced": {k: np.asarray(v).tolist()
+                    for k, v in jax_scan[1].items()},
+        "ensemble": {k: _f32_list(np.concatenate(
+            [np.asarray(getattr(b, k))[0] for b in jax_ensemble]))
+            for k in ("meter", "pv")},
+        "trace": {"chain": 0, **{k: _f32_list(
+            np.asarray(getattr(jax_trace[0], k))[0, :3600])
+            for k in ("meter", "pv")}},
+        "site_grid": {"regular": GRID, "reduced": {
+            k: np.asarray(v).tolist() for k, v in jax_grid[1].items()}},
+    }
     if not os.path.exists(REF):
         os.makedirs(os.path.dirname(REF), exist_ok=True)
         with open(REF, "w") as f:
-            json.dump(doc, f, indent=1)
+            json.dump(doc, f, separators=(",", ":"))
+    assert os.path.getsize(REF) < 300_000
     with open(REF) as f:
         assert json.load(f) == json.loads(json.dumps(doc))
+
+
+def test_ensemble_matches_jax_scan(jax_ensemble):
+    """run_ensemble against the JAX scan formulation's fleet means."""
+    got = list(_port_sim().run_ensemble())
+    assert got[0].meter.shape == (1, SMALL["block_s"])
+    _assert_blocks_close(jax_ensemble, got)
+
+
+def test_trace_matches_jax(jax_trace):
+    """run_blocks against the JAX package's per-chain trace."""
+    got = list(_port_sim().run_blocks())
+    assert got[0].pv.shape == (SMALL["n_chains"], SMALL["block_s"])
+    _assert_blocks_close(jax_trace, got)
+
+
+@pytest.mark.parametrize("overlap", ["off", "auto"])
+def test_trace_padding_and_overlap(overlap):
+    """A duration that is not a whole number of blocks trims the last
+    block's padding seconds; the double-buffered loop yields the same
+    blocks as the serial one."""
+    kw = dict(duration_s=5400, n_chains=2)
+    want = list(_port_sim(output_overlap="off", **kw).run_blocks())
+    got = list(_port_sim(output_overlap=overlap, **kw).run_blocks())
+    assert [b.pv.shape[1] for b in got] == [3600, 1800]
+    for w, g in zip(want, got):
+        for k in OUTPUTS:
+            assert np.array_equal(getattr(g, k), getattr(w, k)), k
+
+
+def test_site_grid_reduce_matches_jax_scan(jax_grid):
+    grid = tcfg.SiteGrid.regular(*GRID)
+    sim = _port_sim(site_grid=grid)
+    assert sim.config.n_chains == len(grid) == 4
+    _assert_engine_close(jax_grid[1], sim.run_reduced())
+
+
+def test_grid_state_converts(jax_grid):
+    """The site leaves ride the state both ways, equal to the JAX
+    package's."""
+    js = _jax_state_numpy(jax_grid[0].state)
+    tstate = convert.state_from_numpy(js, "cpu")
+    fresh = _port_sim(site_grid=tcfg.SiteGrid.regular(*GRID)).init_state()
+    for k in convert.SITE_FIELDS:
+        assert torch.equal(tstate["site"][k], fresh["site"][k]), k
+        assert np.array_equal(convert.state_to_numpy(tstate)["site"][k],
+                              js["site"][k]), k
+
+
+def test_identical_grid_matches_shared_site():
+    """A grid of n copies of the default site reproduces the shared-site
+    run (tests/test_sitegrid.py:146-166): the same seed gives the same
+    meter; pv differs only by the geometry path (host float64 against
+    device float32 split time), sub-watt on a ~250 W plant."""
+    n, site = 4, tcfg.Site()
+    grid = tcfg.SiteGrid(**{f: (getattr(site, f),) * n for f in (
+        "latitude", "longitude", "altitude", "surface_tilt",
+        "surface_azimuth", "albedo")})
+    kw = dict(duration_s=300, block_s=300, n_chains=n)
+    blk_g = next(_port_sim(site_grid=grid, **kw).run_blocks())
+    blk_s = next(_port_sim(**kw).run_blocks())
+    np.testing.assert_array_equal(blk_g.meter, blk_s.meter)
+    assert np.abs(blk_g.pv - blk_s.pv).max() < 1.0
+    assert blk_g.pv.max() > 10.0
 
 
 def test_state_after_two_blocks(jax_scan, port):
@@ -118,6 +240,8 @@ def _jax_state_numpy(state):
     for k in convert.FLOAT_LEAVES:
         out[k] = np.asarray(state[k])
     out["carry"] = {k: np.asarray(v) for k, v in state["carry"].items()}
+    if "site" in state:
+        out["site"] = {k: np.asarray(v) for k, v in state["site"].items()}
     return out
 
 
@@ -176,6 +300,47 @@ def test_cli_matches_jax_cli(tmp_path):
         got = np.asarray(tr[1:], np.float64)
         assert got[-1] == want[-1]  # n_seconds
         np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-2)
+
+
+@pytest.mark.parametrize("mode", ["trace", "ensemble"])
+def test_cli_output_matches_jax_cli(tmp_path, mode):
+    """The per-second CSVs of both CLIs from the same seed: identical
+    header and time column, the numbers within the engine tolerance."""
+    from click.testing import CliRunner
+
+    from tmhpvsim_torch.cli import main
+    from tmhpvsim_tpu.cli import pvsim
+
+    common = ["--output", mode, "--no-realtime", "--chains", "3",
+              "--duration", "7200", "--block-s", "3600", "--seed", "7",
+              "--start", SMALL["start"]]
+    jpath, tpath = str(tmp_path / "jax.csv"), str(tmp_path / "torch.csv")
+    res = CliRunner().invoke(pvsim, [jpath, "--backend", "jax",
+                                     "--block-impl", "scan",
+                                     "--compile-cache", "off"] + common)
+    assert res.exit_code == 0, res.output
+    assert main(["pvsim", tpath, "--device", "cpu"] + common) == 0
+    jrows, trows = _read_csv(jpath), _read_csv(tpath)
+    assert len(trows) == len(jrows) == 1 + SMALL["duration_s"]
+    assert trows[0] == jrows[0] == ["time", "meter", "pv", "residual load"]
+    assert [r[0] for r in trows] == [r[0] for r in jrows]
+    want = np.asarray([r[1:] for r in jrows[1:]], np.float64)
+    got = np.asarray([r[1:] for r in trows[1:]], np.float64)
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-2)
+
+
+@pytest.mark.parametrize("argv, match", [
+    (["--output", "reduce"], "--no-realtime"),
+    (["--output", "ensemble", "--no-realtime", "--chain", "1"], "--chain"),
+    (["--no-realtime", "--chain", "5"], "out of range"),
+    (["--no-realtime", "--site-grid", "46:50"], "--site-grid"),
+])
+def test_cli_refuses_bad_requests(tmp_path, argv, match):
+    from tmhpvsim_torch.cli import main
+
+    with pytest.raises(SystemExit, match=match):
+        main(["pvsim", str(tmp_path / "x.csv"), "--duration", "60",
+              "--device", "cpu"] + argv)
 
 
 def test_without_device_needs_cuda(tmp_path):

@@ -2,10 +2,15 @@
 
 On the CPU every wrapper must run its plain torch version (and count no
 launch); on a CUDA tensor it launches its kernel, which the ``cuda``-marked
-tests hold against the plain version bit for bit (K1, K2) or to the engine
-tolerance (K3: rtol 2e-5 / atol 1e-2, n_seconds exact).  Those skip where
-there is no card; ``python3 chip_smoke.py`` runs the same checks at the
-main path's shapes.
+tests hold against the plain version bit for bit (K1, K2, the K4 trace's
+meter) or to the engine tolerance (K3, K6 and the K4 trace's pv:
+rtol 2e-5 / atol 1e-2, n_seconds exact; the K4 series sums, reduced in
+another order: rtol 1e-6).  Those skip where there is no card;
+``python3 chip_smoke.py`` runs the same checks at the main path's shapes.
+
+The three epilogues of the block step share one body: the trace summed
+over seconds in second order is the acc fold bit for bit, and the series
+is the trace summed over chains.
 """
 
 import ast
@@ -20,17 +25,19 @@ import pytest
 import torch
 
 from tmhpvsim_torch import kernels, rng
-from tmhpvsim_torch.config import SimConfig
+from tmhpvsim_torch.config import SimConfig, SiteGrid
 from tmhpvsim_torch.engine.simulation import Simulation
 from tmhpvsim_torch.kernels import block_step as k3
 from tmhpvsim_torch.kernels import build
 from tmhpvsim_torch.kernels import threefry as k1
 from tmhpvsim_torch.kernels import windows as k2
+from tmhpvsim_torch.models import solar
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "tmhpvsim_torch")
 CFG = dict(start="2019-09-05 11:00:00", duration_s=2400, n_chains=6,
            seed=5, block_s=1200)
+GRID = SiteGrid.regular((46, 50), (9, 13), 2, 3)
 
 
 def _port_files():
@@ -93,6 +100,94 @@ def test_cpu_wrappers_run_plain_versions():
     assert float(ap["pv_max"].max()) > 10
 
 
+def _epilogue_inputs(site_grid, duration_s=2400, block_i=1):
+    """One block's inputs (the last one padded when ``duration_s`` ends
+    inside it), on the CPU."""
+    cfg = SimConfig(**dict(CFG, duration_s=duration_s, site_grid=site_grid))
+    sim = Simulation(cfg, device="cpu")
+    state, ins = _block(sim, block_i)
+    tables, _ = k2.sampler_windows(
+        state["k_arr"], state["k_min"], state["cc_carry"], state["cc0"],
+        ins.bounds, ins.mh_idx, ins.mh_frac)
+    head = (tables, ins.rows_i, ins.rows_f, state["k_scan"],
+            state["k_meter"], state["carry"])
+    return sim, state, ins, head, sim.geometry_args(state)
+
+
+@pytest.mark.parametrize("grid", [None, GRID], ids=["shared", "site"])
+def test_epilogues_share_one_body(grid):
+    """acc, series and trace (plain and through the CPU wrappers) run the
+    same per-second body: the trace folded over seconds in second order is
+    the acc fold bit for bit, its sums over chains are the series, and
+    every epilogue leaves the same renewal carry."""
+    kernels.reset_counts()
+    sim, state, ins, head, (tilt, alb, site) = _epilogue_inputs(
+        grid, duration_s=2000)
+    dur, mw = sim.config.duration_s, sim.config.meter_max_w
+    carry_a, acc = k3.block_step_acc(*head, sim.init_reduce_acc(), dur, mw,
+                                     tilt, alb, site=site)
+    carry_t, meter, pv_ = k3.block_step_trace(*head, mw, tilt, alb,
+                                              site=site)
+    carry_s, m_sum, p_sum = k3.block_step_series(*head, mw, tilt, alb,
+                                                 site=site)
+    assert all(c.launches == 0 for c in kernels.COUNTERS)
+    for c in (carry_t, carry_s):
+        for k in k3.CARRY:
+            assert torch.equal(c[k], carry_a[k]), k
+    T, n = meter.shape
+    assert (T, n) == (1200, sim.config.n_chains)
+    valid = ins.rows_i[0] < dur
+    assert int(valid.sum()) == 800  # the last 400 s are padding
+    fold = {k: torch.zeros(n) for k in ("pv_sum", "meter_sum",
+                                        "residual_sum")}
+    for s in range(T):
+        if valid[s]:
+            fold["pv_sum"] = fold["pv_sum"] + pv_[s]
+            fold["meter_sum"] = fold["meter_sum"] + meter[s]
+            fold["residual_sum"] = fold["residual_sum"] + (meter[s] - pv_[s])
+    for k, v in fold.items():
+        assert torch.equal(acc[k], v), k
+    res = (meter - pv_)[valid]
+    assert torch.equal(acc["pv_max"], pv_[valid].max(0).values)
+    assert torch.equal(acc["residual_min"], res.min(0).values)
+    assert torch.equal(acc["residual_max"], res.max(0).values)
+    assert torch.equal(acc["n_seconds"], torch.full((n,), 800,
+                                                    dtype=torch.int32))
+    # the series sums every second, padding included (trimmed by the engine)
+    assert torch.equal(m_sum, meter.double().sum(1).float())
+    assert torch.equal(p_sum, pv_.double().sum(1).float())
+    torch.testing.assert_close(p_sum[valid].double().sum(),
+                               acc["pv_sum"].double().sum(), rtol=1e-6,
+                               atol=0.0)
+    assert float(pv_.max()) > 10.0
+
+
+def test_device_geometry_fields_cpu_is_plain():
+    """The geometry test entry runs ``solar.device_geometry`` on the CPU,
+    one ``(T, n)`` plane per field."""
+    sim, state, ins, _, (_, _, site) = _epilogue_inputs(GRID)
+    got = k3.device_geometry_fields(ins.rows_f, site)
+    assert got.shape == (len(k3.GEOM_FIELDS), 1200, len(GRID))
+    r = {k: ins.rows_f[i][:, None] for i, k in enumerate(k3.ROWS_F_SITE)}
+    s = site.site
+    want = solar.device_geometry(
+        r["day2000"], r["sec_of_day"], r["doy"], s["latitude"],
+        s["longitude"], s["altitude"], s["surface_tilt"],
+        s["surface_azimuth"], s["albedo"], site.turbidity)
+    for i, k in enumerate(k3.GEOM_FIELDS):
+        assert torch.equal(got[i], torch.broadcast_to(want[k], got[i].shape))
+    assert torch.equal(got, k3.geometry_fields_plain(ins.rows_f, site))
+
+
+@pytest.mark.parametrize("fn", ["block_step_series", "block_step_trace"])
+def test_epilogue_wrappers_refuse_other_devices(fn):
+    _, _, _, head, (_, _, site) = _epilogue_inputs(GRID)
+    k_scan = head[3].to(torch.device("meta"))
+    with pytest.raises(ValueError):  # neither cpu nor cuda
+        getattr(k3, fn)(*head[:3], k_scan, *head[4:], 9000.0, None, None,
+                        site=site)
+
+
 def test_wrappers_refuse_other_devices():
     keys = torch.zeros((4, 2), dtype=torch.int64, device="meta")
     with pytest.raises(ValueError):
@@ -122,6 +217,11 @@ def test_build_flags():
     assert "fast_math" not in flags and "fast-math" not in flags
     for src in build.SOURCES + build.HEADERS:
         assert os.path.exists(os.path.join(build.CSRC, src))
+    # one C entry per epilogue, the cross-CTA sum and the geometry entry
+    text = open(os.path.join(build.CSRC, "block_step.cu")).read()
+    for entry in ("block_step_acc", "block_step_series", "block_step_trace",
+                  "series_sum", "device_geometry_fields"):
+        assert re.search(rf'extern "C" int {entry}\(', text), entry
 
 
 def test_build_without_nvcc_raises(monkeypatch):
@@ -199,7 +299,49 @@ def test_port_on_card_matches_cpu(card):
     want = Simulation(cfg, device="cpu").run_reduced()
     kernels.reset_counts()
     got = Simulation(cfg, device=card).run_reduced()
-    assert all(c.launches > 0 for c in kernels.COUNTERS)
+    assert all(c.launches > 0 for c in (k1.K1, k2.K2, k3.K3))
     np.testing.assert_array_equal(got["n_seconds"], want["n_seconds"])
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=2e-5, atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [None, GRID], ids=["shared", "site"])
+def test_k4_k6_match_plain_on_card(card, grid):
+    cfg = SimConfig(**dict(CFG, n_chains=512, site_grid=grid))
+    sim = Simulation(cfg, device=card)
+    state, ins = _block(sim)
+    tables, _ = k2.sampler_windows(
+        state["k_arr"], state["k_min"], state["cc_carry"], state["cc0"],
+        ins.bounds, ins.mh_idx, ins.mh_frac)
+    tilt, alb, site = sim.geometry_args(state)
+    head = (tables, ins.rows_i, ins.rows_f, state["k_scan"],
+            state["k_meter"])
+    mw = cfg.meter_max_w
+
+    def carry():
+        return {k: v.clone() for k, v in state["carry"].items()}
+
+    _, ak = k3.block_step_acc(*head, carry(), sim.init_reduce_acc(),
+                              cfg.duration_s, mw, tilt, alb, site=site)
+    _, ap = k3.block_step_plain(*head, carry(), sim.init_reduce_acc(),
+                                cfg.duration_s, mw, tilt, alb, site=site)
+    assert torch.equal(ak["n_seconds"], ap["n_seconds"])
+    for k in ap:
+        torch.testing.assert_close(ak[k], ap[k], rtol=2e-5, atol=1e-2)
+    _, mk, pk = k3.block_step_trace(*head, carry(), mw, tilt, alb, site=site)
+    _, mp, pp = k3.trace_plain(*head, carry(), mw, tilt, alb, site=site)
+    assert torch.equal(mk, mp)
+    torch.testing.assert_close(pk, pp, rtol=2e-5, atol=1e-2)
+    _, sk, qk = k3.block_step_series(*head, carry(), mw, tilt, alb,
+                                     site=site)
+    _, sk2, qk2 = k3.block_step_series(*head, carry(), mw, tilt, alb,
+                                       site=site)
+    _, sp, qp = k3.series_plain(*head, carry(), mw, tilt, alb, site=site)
+    assert torch.equal(sk, sk2) and torch.equal(qk, qk2)
+    torch.testing.assert_close(sk, sp, rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(qk, qp, rtol=1e-6, atol=1e-3)
+    if site is not None:
+        torch.testing.assert_close(
+            k3.device_geometry_fields(ins.rows_f, site),
+            k3.geometry_fields_plain(ins.rows_f, site), rtol=1e-5, atol=1e-5)

@@ -16,7 +16,13 @@ Tolerances:
   torch's differ by an ULP or two, and the DISC / SAPM chain amplifies a
   few of them (a log of a small irradiance, a cancellation in the
   inverter's quadratic): 2e-3 W absolute (1e-5 of the 250 W rating) plus
-  2e-5 relative, with the share of bit-exact outputs reported.
+  2e-5 relative, with the share of bit-exact outputs reported;
+* float32 site geometry from the split time: the bounds the JAX package
+  holds it to against its float64 host path (tests/test_sitegrid.py):
+  4e-4 rad of zenith, 4e-4 of cos(AOI), 1 W/m2 of clear-sky GHI.  Both
+  sides evaluate the same float32 expressions, so the port stays far
+  inside them (the sin of a ~130 rad ephemeris argument is where libms
+  differ most).
 """
 
 import dataclasses
@@ -72,12 +78,17 @@ def _close(want, got, rtol, atol=0.0):
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("cls", ["Site", "ModelOptions", "SimConfig"])
+@pytest.mark.parametrize("cls", ["Site", "ModelOptions", "SimConfig",
+                                 "SiteGrid"])
 def test_config_fields_and_defaults_match(cls):
     jf = {f.name: f for f in dataclasses.fields(getattr(jcfg, cls))}
     tf = {f.name: f for f in dataclasses.fields(getattr(tcfg, cls))}
     assert list(jf) == list(tf)
-    j, t = getattr(jcfg, cls)(), getattr(tcfg, cls)()
+    if cls == "SiteGrid":  # no defaults for the per-site fields
+        j = jcfg.SiteGrid.regular((47, 55), (6, 15), 3, 4)
+        t = tcfg.SiteGrid.regular((47, 55), (6, 15), 3, 4)
+    else:
+        j, t = getattr(jcfg, cls)(), getattr(tcfg, cls)()
     for name in jf:
         jv, tv = getattr(j, name), getattr(t, name)
         if dataclasses.is_dataclass(jv):
@@ -90,7 +101,7 @@ def test_config_fields_and_defaults_match(cls):
     ("site_grid", object()), ("fleet", object()), ("telemetry", "light"),
     ("analytics", "risk"), ("compute_dtype", "bf16"),
     ("kernel_impl", "table"), ("geom_stride", 60), ("block_impl", "wide"),
-    ("prng_impl", "rbg"), ("output", "ensemble"), ("dtype", "bfloat16"),
+    ("prng_impl", "rbg"), ("output", "nonsense"), ("dtype", "bfloat16"),
     ("tune", "auto"), ("blocks_per_dispatch", 4), ("rng_batch", "block"),
 ])
 def test_config_outside_slice_raises(field, value):
@@ -155,6 +166,151 @@ def test_block_geometry_bit_exact(start, site):
     assert list(jg) == list(tg)
     for k in jg:
         assert np.array_equal(jg[k], tg[k]), k
+
+
+def test_slice_grid_matches():
+    j = jcfg.slice_grid(jcfg.SiteGrid.regular((46, 50), (9, 13), 3, 3), 2, 4)
+    t = tcfg.slice_grid(tcfg.SiteGrid.regular((46, 50), (9, 13), 3, 3), 2, 4)
+    assert dataclasses.astuple(j) == dataclasses.astuple(t)
+    assert tcfg.slice_grid(None, 0, 1) is None
+
+
+def _sites_csv(tmp_path, text):
+    p = tmp_path / "sites.csv"
+    p.write_text(text)
+    return str(p)
+
+
+@pytest.mark.parametrize("text", [
+    "latitude,longitude,altitude,surface_tilt,surface_azimuth,albedo,owner\n"
+    "48.1,11.6,520,30,180,0.2,alice\n47.0,9.5,800,45,170,0.3,bob\n",
+    "latitude,longitude\n48.1,11.6\n47.0,9.5\n",
+], ids=["full-columns", "defaults"])
+def test_sites_csv_matches_jax(tmp_path, text):
+    path = _sites_csv(tmp_path, text)
+    assert dataclasses.astuple(tcfg.SiteGrid.from_csv(path)) == \
+        dataclasses.astuple(jcfg.SiteGrid.from_csv(path))
+
+
+@pytest.mark.parametrize("text, match", [
+    ("latitude,altitude\n48.1,100\n", "longitude"),
+    ("latitude,longitude\n48.1,11.6\n48.2,oops\n", "line 3"),
+    ("latitude,longitude\n", "no data rows"),
+    ("latitude,longitude\n48.1,11.6\n95.0,11.6\n",
+     r"line 3: latitude=95\.0 outside \[-90, 90\]"),
+    ("latitude,longitude\n48.1,11.6\n48.1,191.0\n",
+     r"line 3: longitude=191\.0 outside"),
+    ("latitude,longitude,albedo\n48.1,11.6,0.2\n48.1,11.6,1.5\n",
+     r"line 3: albedo=1\.5 outside \[0, 1\]"),
+    ("latitude,longitude,surface_tilt\n48.1,11.6,0.2\n48.1,11.6,120\n",
+     r"line 3: surface_tilt=120\.0 outside"),
+    ("latitude,longitude\n48.1,11.6\nnan,11.6\n", "line 3"),
+    ("latitude,longitude\n48.1\n", "line 2.*required"),
+    ("latitude,longitude\n,11.6\n", "line 2.*required"),
+    ("latitude,longitude\n48.1,11.6\n\n47.0,9.5\n48.2,oops\n", "line 5"),
+], ids=["missing-column", "bad-value", "empty", "latitude-range",
+        "longitude-range", "albedo-range", "tilt-range", "non-finite",
+        "ragged-row", "blank-cell", "line-after-blank"])
+def test_sites_csv_errors(tmp_path, text, match):
+    """A bad site list is refused by the CLI with the JAX package's message
+    (tests/test_sitegrid.py:204-300), naming the offending line."""
+    from tmhpvsim_torch.cli import main
+
+    path = _sites_csv(tmp_path, text)
+    with pytest.raises(ValueError, match=match):
+        jcfg.SiteGrid.from_csv(path)
+    with pytest.raises(SystemExit, match=match):
+        main(["pvsim", str(tmp_path / "out.csv"), "--sites-csv", path,
+              "--output", "reduce", "--no-realtime", "--duration", "60",
+              "--device", "cpu"])
+
+
+def test_cli_sites_csv_end_to_end(tmp_path):
+    from tmhpvsim_torch.cli import main
+
+    sites = _sites_csv(tmp_path, "latitude,longitude\n48.1,11.6\n47.0,9.5"
+                                 "\n46.0,8.0\n45.0,7.0\n")
+    out = tmp_path / "fleet.csv"
+    assert main(["pvsim", str(out), "--no-realtime", "--duration", "120",
+                 "--seed", "5", "--sites-csv", sites, "--output", "reduce",
+                 "--start", "2019-09-05 10:00:00", "--device", "cpu"]) == 0
+    lines = out.read_text().splitlines()
+    assert len(lines) == 1 + 4 + 1  # header + 4 sites + ensemble row
+
+
+# --------------------------------------------------------------------------
+# float32 site geometry (the site-grid path)
+# --------------------------------------------------------------------------
+
+#: a handful of sites: the default Munich roof, the southern hemisphere
+#: facing north, a high east-facing plant, the tropics, the far north
+GEO_SITES = [
+    (48.12, 11.60, 34.0, 48.12, 180.0, 0.25),
+    (-33.9, 18.4, 500.0, 30.0, 0.0, 0.2),
+    (46.5, 9.8, 2500.0, 20.0, 90.0, 0.3),
+    (1.3, 103.8, 15.0, 5.0, 180.0, 0.15),
+    (69.6, 18.9, 10.0, 70.0, 200.0, 0.5),
+]
+
+
+def _split_day(day="2019-09-05 00:00:00", n=86400, step=60):
+    spec = jtg.TimeGridSpec.from_local_start(day, n, "Europe/Berlin")
+    b = spec.block(0, n)
+    ep = b.epoch[::step]
+    return ((ep // 86400 - 10957).astype(np.float32),
+            (ep % 86400).astype(np.float32), b.doy[::step].astype(np.float32))
+
+
+def _geo_inputs(sites, day="2019-09-05 00:00:00"):
+    d2k, sec, doy = _split_day(day)
+    cols = np.asarray(sites, np.float32).T        # (6, n)
+    return (d2k[:, None], sec[:, None], doy[:, None]), cols
+
+
+@pytest.mark.parametrize("day", ["2019-09-05 00:00:00",
+                                 "2019-12-21 00:00:00"])
+def test_sun_position_split(day):
+    (d2k, sec, _), cols = _geo_inputs(GEO_SITES, day)
+    want = jsol.sun_position_split(jnp.asarray(d2k), jnp.asarray(sec),
+                                   jnp.asarray(cols[0]), jnp.asarray(cols[1]),
+                                   xp=jnp)
+    got = tsol.sun_position_split(torch.from_numpy(d2k),
+                                  torch.from_numpy(sec),
+                                  torch.from_numpy(cols[0]),
+                                  torch.from_numpy(cols[1]))
+    for k, bound in (("zenith", 4e-4), ("cos_zenith", 4e-4)):
+        err = np.abs(np.asarray(want[k], np.float64) - got[k].numpy())
+        assert err.max() < bound, (k, err.max())
+    daz = np.asarray(want["azimuth"], np.float64) - got["azimuth"].numpy()
+    daz = np.abs((daz + np.pi) % (2 * np.pi) - np.pi)
+    assert daz.max() < 4e-4
+
+
+@pytest.mark.parametrize("day", ["2019-09-05 00:00:00",
+                                 "2019-06-21 00:00:00"])
+def test_device_geometry(day):
+    (d2k, sec, doy), cols = _geo_inputs(GEO_SITES, day)
+    turb = np.asarray(jcfg.Site().linke_turbidity_monthly, np.float32)
+    want = jsol.device_geometry(
+        jnp.asarray(d2k), jnp.asarray(sec), jnp.asarray(doy),
+        *(jnp.asarray(c) for c in cols), jnp.asarray(turb), xp=jnp)
+    got = tsol.device_geometry(
+        torch.from_numpy(d2k), torch.from_numpy(sec), torch.from_numpy(doy),
+        *(torch.from_numpy(c) for c in cols), torch.from_numpy(turb))
+    assert list(got) == list(want)
+    bounds = {"zenith": 4e-4, "cos_zenith": 4e-4, "apparent_zenith": 4e-4,
+              "cos_aoi": 4e-4, "ghi_clear": 1.0, "csi_cap": 1e-3,
+              "dni_extra": 1e-3, "airmass_abs": 1e-3}
+    for k, bound in bounds.items():
+        w = np.broadcast_to(np.asarray(want[k], np.float64), (len(d2k), 5))
+        g = got[k].numpy().astype(np.float64)
+        # the airmass and the csi cap grow without bound at night: hold
+        # them relative where the sun is up
+        day_ = np.asarray(want["zenith"]) < np.radians(88.0)
+        err = np.abs(w - g) / (np.abs(w) if k in ("airmass_abs", "csi_cap")
+                               else 1.0)
+        assert err[day_].max() < bound, (k, err[day_].max())
+        assert np.isfinite(g).all(), k
 
 
 # --------------------------------------------------------------------------

@@ -1,14 +1,24 @@
-"""Reduce-mode ``pvsim`` on the port: per-chain summary statistics of a
-multi-chain PV + meter simulation, written as CSV (the JAX package's
-``pvsim --backend jax --output reduce`` file format)."""
+"""``pvsim`` on the port: a multi-chain PV + meter simulation written as CSV,
+in the JAX package's ``pvsim --backend jax`` file formats.
+
+* ``trace`` (the default): one chain's per-second rows ``time, meter, pv,
+  residual load`` (the reference CSV format);
+* ``ensemble``: the same rows for the per-second fleet means;
+* ``reduce``: per-chain summary statistics plus one fleet ``ensemble`` row.
+
+Each runs for a shared site or a per-chain ``SiteGrid``.
+"""
 
 from __future__ import annotations
 
 import csv
+import dataclasses
 import time
+from zoneinfo import ZoneInfo
 
 from tmhpvsim_torch.config import SimConfig
-from tmhpvsim_torch.engine.simulation import REDUCE_STATS, Simulation
+from tmhpvsim_torch.engine.simulation import (REDUCE_STATS, Simulation,
+                                              write_csv)
 
 
 def write_reduced_csv(path: str, reduced: dict, ensemble: dict,
@@ -25,22 +35,69 @@ def write_reduced_csv(path: str, reduced: dict, ensemble: dict,
         w.writerow(["ensemble"] + [ensemble[k] for k in keys])
 
 
-def pvsim_reduce(file: str, duration_s: int, n_chains: int, seed: int,
-                 start: str, block_s: int | None = None,
-                 device: str = "cuda") -> Simulation:
-    """Run reduce mode and write ``file``; returns the Simulation."""
+def _paced(blk, rate: float = 1.0):
+    """Re-emit a BlockResult as single-row blocks on the wall-clock grid
+    (``--realtime``)."""
+    t0 = time.monotonic()
+    for i in range(len(blk.epoch)):
+        behind = (time.monotonic() - t0) - i / rate
+        if behind < 0:
+            time.sleep(-behind)
+        yield dataclasses.replace(
+            blk, offset=blk.offset + i, epoch=blk.epoch[i:i + 1],
+            meter=blk.meter[:, i:i + 1], pv=blk.pv[:, i:i + 1],
+            residual=blk.residual[:, i:i + 1])
+
+
+def pvsim(file: str, duration_s: int, n_chains: int, seed: int, start: str,
+          chain: int = 0, block_s: int | None = None, realtime: bool = False,
+          site_grid=None, output: str = "trace",
+          output_overlap: str = "auto", device: str = "cuda") -> Simulation:
+    """Run one simulation and write ``file``; returns the Simulation.
+
+    A site grid sets the chain count (one chain per site).  ``realtime``
+    releases trace / ensemble rows on the 1 Hz wall-clock grid; reduce
+    mode has no rows to pace and refuses it."""
     if block_s is None:
         block_s = min(8640, max(60, (duration_s // 60) * 60))
     cfg = SimConfig(start=start, duration_s=duration_s, n_chains=n_chains,
-                    seed=seed, block_s=block_s, output="reduce")
+                    seed=seed, block_s=block_s, site_grid=site_grid,
+                    output=output, output_overlap=output_overlap)
     sim = Simulation(cfg, device=device)
+    cfg = sim.config  # a site grid sets n_chains
     t0 = time.perf_counter()
-    reduced = sim.run_reduced()
+    if output == "reduce":
+        if realtime:
+            raise ValueError("reduce mode has no per-second rows to pace; "
+                             "drop --realtime")
+        reduced = sim.run_reduced()
+        wall = time.perf_counter() - t0
+        ensemble = sim.ensemble_stats()
+        write_reduced_csv(file, reduced, ensemble)
+        print(f"pvsim[reduce]: {cfg.n_chains} chains x {duration_s} s on "
+              f"{sim.device} in {wall:.3f} s "
+              f"({cfg.n_chains * duration_s / wall:.4g} site-s/s incl. "
+              f"set-up); fleet pv_max {ensemble['pv_max']:.1f} W")
+        return sim
+    if output == "ensemble" and chain != 0:
+        raise ValueError("ensemble mode writes the fleet mean; --chain "
+                         "does not apply (drop it or use trace mode)")
+    if not 0 <= chain < cfg.n_chains:
+        raise ValueError(f"--chain {chain} out of range for "
+                         f"{cfg.n_chains} chains")
+    runner = sim.run_ensemble if output == "ensemble" else sim.run_blocks
+
+    def blocks():
+        for blk in runner():
+            if realtime:
+                yield from _paced(blk)
+            else:
+                yield blk
+
+    write_csv(file, blocks(), chain=chain, tz=ZoneInfo(sim.timezone))
     wall = time.perf_counter() - t0
-    ensemble = sim.ensemble_stats()
-    write_reduced_csv(file, reduced, ensemble)
-    print(f"pvsim[reduce]: {n_chains} chains x {duration_s} s on "
+    print(f"pvsim[{output}]: {cfg.n_chains} chains x {duration_s} s on "
           f"{sim.device} in {wall:.3f} s "
-          f"({n_chains * duration_s / wall:.4g} site-s/s incl. set-up); "
-          f"fleet pv_max {ensemble['pv_max']:.1f} W")
+          f"({cfg.n_chains * duration_s / wall:.4g} site-s/s incl. set-up "
+          "and CSV)")
     return sim

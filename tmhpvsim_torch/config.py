@@ -1,18 +1,23 @@
 """Configuration of a port run (own copy of tmhpvsim_tpu/config.py).
 
-``Site``, ``ModelOptions`` and ``SimConfig`` carry the JAX package's field
-names and defaults, so the same keyword arguments describe the same run in
-both packages.  The port implements one slice of that space — a shared
-site, float32, threefry2x32, exact transcendentals, the scan formulation,
-reduce mode — and every field outside it raises ``NotImplementedError``
-when it is set to anything but its default (or a value that means the same
-run).  Nothing is silently ignored.
+``Site``, ``SiteGrid``, ``ModelOptions`` and ``SimConfig`` carry the JAX
+package's field names and defaults, so the same keyword arguments describe
+the same run in both packages.  The port implements one slice of that
+space — a shared site or a per-chain ``SiteGrid``, float32, threefry2x32,
+exact transcendentals, the scan formulation, trace / reduce / ensemble
+output, per-block dispatch — and every field outside it raises
+``NotImplementedError`` when it is set to anything but its default (or a
+value that means the same run).  Nothing is silently ignored.
 """
 
 from __future__ import annotations
 
+import csv
 import dataclasses
+import math
 from typing import Optional
+
+import numpy as np
 
 from tmhpvsim_torch.data import LINKE_TURBIDITY_MONTHLY_MUNICH
 
@@ -30,6 +35,141 @@ class Site:
     albedo: float = 0.25
     timezone: str = "Europe/Berlin"
     linke_turbidity_monthly: tuple = LINKE_TURBIDITY_MONTHLY_MUNICH
+
+
+#: columns SiteGrid.from_csv reads (others in the file are ignored)
+_SITE_CSV_COLUMNS = frozenset({
+    "latitude", "longitude", "altitude", "surface_tilt",
+    "surface_azimuth", "albedo",
+})
+
+#: valid ranges of the geometry columns, inclusive: a CSV row outside them
+#: is a data-entry error, refused by line
+_SITE_CSV_RANGES = {
+    "latitude": (-90.0, 90.0),
+    "longitude": (-180.0, 180.0),
+    "altitude": (-430.0, 9000.0),
+    "surface_tilt": (0.0, 90.0),
+    "surface_azimuth": (0.0, 360.0),
+    "albedo": (0.0, 1.0),
+}
+
+
+def _check_csv_range(path, line_num, name, value) -> None:
+    lo, hi = _SITE_CSV_RANGES[name]
+    if not (math.isfinite(value) and lo <= value <= hi):
+        raise ValueError(
+            f"{path} line {line_num}: {name}={value!r} outside "
+            f"[{lo:g}, {hi:g}]")
+
+
+@dataclasses.dataclass(frozen=True)
+class SiteGrid:
+    """Per-chain site parameters of a multi-site run: chain i simulates
+    site i, with its solar geometry evaluated on the device from the
+    float32-safe split time (models/solar.py ``device_geometry``).  Each
+    field is a length-n sequence; the timezone (and so the calendar of the
+    stochastic model) and the turbidity climatology are shared."""
+
+    latitude: tuple
+    longitude: tuple
+    altitude: tuple
+    surface_tilt: tuple
+    surface_azimuth: tuple
+    albedo: tuple = None
+    timezone: str = "Europe/Berlin"
+    linke_turbidity_monthly: tuple = LINKE_TURBIDITY_MONTHLY_MUNICH
+
+    def __post_init__(self):
+        n = len(self.latitude)
+        for f in ("longitude", "altitude", "surface_tilt",
+                  "surface_azimuth"):
+            if len(getattr(self, f)) != n:
+                raise ValueError(f"SiteGrid.{f} must have length {n}")
+        if self.albedo is None:
+            object.__setattr__(self, "albedo", (0.25,) * n)
+        elif len(self.albedo) != n:
+            raise ValueError(f"SiteGrid.albedo must have length {n}")
+
+    def __len__(self):
+        return len(self.latitude)
+
+    @classmethod
+    def from_csv(cls, path: str, **kw):
+        """A site list from a CSV with header.  Required columns
+        ``latitude``, ``longitude``; optional ``altitude`` (default 100 m),
+        ``surface_tilt`` (default: the site's latitude), ``surface_azimuth``
+        (default 180 = south), ``albedo`` (default 0.25).  Other columns
+        are ignored; a bad or out-of-range value is refused with its line
+        number."""
+        rows = []
+        with open(path, newline="") as f:
+            reader = csv.DictReader(f)
+            cols = set(reader.fieldnames or ()) & _SITE_CSV_COLUMNS
+            missing = {"latitude", "longitude"} - cols
+            if missing:
+                raise ValueError(
+                    f"{path}: missing required column(s) {sorted(missing)}")
+            for row in reader:
+                vals = {}
+                for k in cols:
+                    v = row.get(k)
+                    if v is None or v == "":  # ragged row / blank cell
+                        continue
+                    try:
+                        vals[k] = float(v)
+                    except ValueError:
+                        raise ValueError(
+                            f"{path} line {reader.line_num}: bad value "
+                            f"{v!r} for {k}") from None
+                    _check_csv_range(path, reader.line_num, k, vals[k])
+                if "latitude" not in vals or "longitude" not in vals:
+                    raise ValueError(
+                        f"{path} line {reader.line_num}: latitude and "
+                        "longitude are required in every row")
+                rows.append(vals)
+        if not rows:
+            raise ValueError(f"{path}: no data rows")
+
+        def col(name, default=None):
+            return tuple(r.get(name, r["latitude"] if default == "latitude"
+                               else default) for r in rows)
+
+        return cls(latitude=col("latitude"), longitude=col("longitude"),
+                   altitude=col("altitude", 100.0),
+                   surface_tilt=col("surface_tilt", "latitude"),
+                   surface_azimuth=col("surface_azimuth", 180.0),
+                   albedo=col("albedo", 0.25), **kw)
+
+    @classmethod
+    def regular(cls, lat_range, lon_range, n_lat: int, n_lon: int,
+                altitude: float = 100.0, tilt=None, azimuth: float = 180.0,
+                **kw):
+        """A regular n_lat x n_lon lat/lon mesh; tilt defaults to the
+        latitude."""
+        lats = np.linspace(*lat_range, n_lat)
+        lons = np.linspace(*lon_range, n_lon)
+        glat, glon = np.meshgrid(lats, lons, indexing="ij")
+        glat, glon = glat.ravel(), glon.ravel()
+        tilts = glat if tilt is None else np.full_like(glat, tilt)
+        n = glat.size
+        return cls(latitude=tuple(glat), longitude=tuple(glon),
+                   altitude=(altitude,) * n, surface_tilt=tuple(tilts),
+                   surface_azimuth=(azimuth,) * n, **kw)
+
+
+#: SiteGrid's per-site fields, in the order the engine carries them
+SITE_FIELDS = ("latitude", "longitude", "altitude", "surface_tilt",
+               "surface_azimuth", "albedo")
+
+
+def slice_grid(grid: Optional[SiteGrid], off: int, n: int
+               ) -> Optional[SiteGrid]:
+    """``grid`` restricted to sites [off, off+n); None passes through."""
+    if grid is None:
+        return None
+    return dataclasses.replace(grid, **{
+        f: tuple(getattr(grid, f)[off:off + n]) for f in SITE_FIELDS})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +193,8 @@ class ModelOptions:
 #: SimConfig fields the port accepts beyond their defaults: field -> the
 #: values that select this slice ('auto' knobs resolve to these on a GPU).
 _SLICE_VALUES = {
-    "output": ("trace", "reduce"),
+    "output": ("trace", "reduce", "ensemble"),
+    "output_overlap": ("auto", "off"),
     "block_impl": ("auto", "scan"),
     "compute_dtype": ("auto", "f32"),
     "kernel_impl": ("auto", "exact"),
@@ -65,7 +206,8 @@ _SLICE_VALUES = {
 #: fields whose every value belongs to the slice
 _FREE_FIELDS = frozenset({
     "start", "duration_s", "n_chains", "seed", "n_chains_total",
-    "chain_offset", "site", "options", "meter_max_w", "block_s",
+    "chain_offset", "site", "site_grid", "options", "meter_max_w",
+    "block_s",
 })
 
 
@@ -85,7 +227,7 @@ class SimConfig:
     n_chains_total: Optional[int] = None
     chain_offset: int = 0
     site: Site = dataclasses.field(default_factory=Site)
-    site_grid: Optional[object] = None
+    site_grid: Optional[SiteGrid] = None
     fleet: Optional[object] = None
     options: ModelOptions = dataclasses.field(default_factory=ModelOptions)
     #: meter demand upper bound [W]; demand is uniform on [0, meter_max_w)
@@ -123,6 +265,11 @@ class SimConfig:
     preempt_grace_s: float = 0.0
 
     def __post_init__(self):
+        if self.site_grid is not None and \
+                not isinstance(self.site_grid, SiteGrid):
+            raise NotImplementedError(
+                "SimConfig.site_grid must be tmhpvsim_torch.config.SiteGrid "
+                f"(got {type(self.site_grid).__name__})")
         for f in dataclasses.fields(self):
             if f.name in _FREE_FIELDS:
                 continue
@@ -137,7 +284,8 @@ class SimConfig:
             if not ok:
                 raise NotImplementedError(
                     f"SimConfig.{f.name}={value!r} is outside the torch "
-                    "port's slice (shared site, float32, threefry2x32, "
-                    "exact kernels, scan formulation, reduce mode)")
+                    "port's slice (shared site or site grid, float32, "
+                    "threefry2x32, exact kernels, scan formulation, "
+                    "per-block dispatch)")
         if self.block_s % 60 != 0:
             raise ValueError("block_s must be a multiple of 60 (minute grid)")

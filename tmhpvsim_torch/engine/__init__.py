@@ -1,3 +1,4 @@
-"""Reduce-mode engine of the torch port."""
+"""Engine of the torch port: trace, reduce and ensemble runs."""
 
-from tmhpvsim_torch.engine.simulation import REDUCE_STATS, Simulation  # noqa: F401
+from tmhpvsim_torch.engine.simulation import (  # noqa: F401
+    REDUCE_STATS, BlockResult, Simulation, write_csv)

@@ -2,15 +2,18 @@
 
 The JAX package's reduce-mode state pytree, as numpy (keys as
 ``jax.random.key_data``: uint32 ``(..., 2)``), becomes the port's state on
-a device, and back; the same for the accumulator.  A JAX run stopped after
-N blocks continues in the port from block N and gives the JAX result
-(tests/test_torch_engine.py).
+a device, and back; the same for the accumulator.  A site-grid run's
+state also carries the six per-chain site scalars (``state["site"]``).  A
+JAX run stopped after N blocks continues in the port from block N and
+gives the JAX result (tests/test_torch_engine.py).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from tmhpvsim_torch.config import SITE_FIELDS
 
 KEY_LEAVES = ("k_arr", "k_min", "k_scan", "k_meter")
 FLOAT_LEAVES = ("cc_carry", "cc0", "cloudy_pair")
@@ -20,10 +23,10 @@ CARRY_LEAVES = ("cloud_end", "total_end", "sec")
 def state_from_numpy(tree: dict, device) -> dict:
     """JAX-layout state (numpy leaves) -> the port's state on ``device``."""
     expected = set(KEY_LEAVES) | set(FLOAT_LEAVES) | {"carry"}
-    if set(tree) != expected:
+    if set(tree) - {"site"} != expected:
         raise ValueError(
-            f"state leaves {sorted(tree)} are not the shared-site reduce "
-            f"state {sorted(expected)}")
+            f"state leaves {sorted(tree)} are not the chain state "
+            f"{sorted(expected)} (plus 'site' for a site grid)")
     out = {}
     for k in KEY_LEAVES:
         a = np.asarray(tree[k])
@@ -35,6 +38,12 @@ def state_from_numpy(tree: dict, device) -> dict:
         out[k] = _tensor(tree[k], np.float32, device)
     out["carry"] = {k: _tensor(tree["carry"][k], np.float32, device)
                     for k in CARRY_LEAVES}
+    if "site" in tree:
+        if set(tree["site"]) != set(SITE_FIELDS):
+            raise ValueError(f"site leaves {sorted(tree['site'])} are not "
+                             f"{sorted(SITE_FIELDS)}")
+        out["site"] = {k: _tensor(tree["site"][k], np.float32, device)
+                       for k in SITE_FIELDS}
     return out
 
 
@@ -49,6 +58,9 @@ def state_to_numpy(state: dict) -> dict:
     for k in FLOAT_LEAVES:
         out[k] = state[k].cpu().numpy()
     out["carry"] = {k: state["carry"][k].cpu().numpy() for k in CARRY_LEAVES}
+    if "site" in state:
+        out["site"] = {k: state["site"][k].cpu().numpy()
+                       for k in SITE_FIELDS}
     return out
 
 

@@ -1,35 +1,45 @@
-"""Blockwise reduce-mode simulation on torch (own port of the reduce path
-of tmhpvsim_tpu/engine/simulation.py).
+"""Blockwise simulation on torch (own port of the trace, reduce and ensemble
+paths of tmhpvsim_tpu/engine/simulation.py).
 
 Time runs in blocks of ``config.block_s`` seconds, padded to whole blocks
-(padding seconds are masked out of every statistic by ``t < duration_s``).
-Per block:
+(padding seconds are masked out of every statistic by ``t < duration_s``
+and trimmed from every per-second output).  Per block:
 
-1. the host computes the block's calendar and shared-site solar geometry
-   in float64 numpy and ships ~17 float32 rows per second
-   (``host_inputs``);
+1. the host computes the block's calendar in numpy and, for a shared
+   site, the whole chain-independent solar geometry in float64; a site
+   grid instead ships the float32-safe split time and evaluates its
+   geometry per chain on the device (``host_arrays``); the loop computes
+   block N+1's inputs, and enqueues their pinned non-blocking copies, right
+   after it has enqueued block N, so they overlap the card's work on N;
 2. K2 regenerates each chain's sampler windows from global-index-keyed
    draws and advances the Markov carry;
-3. K3 runs every second of the block for every chain and folds the
-   reduce statistics into the on-device accumulator.
+3. the block-step kernel runs every second of the block for every chain
+   with one of three epilogues: K3 folds the reduce statistics into the
+   on-device accumulator (``run_reduced``), K4 sums meter and pv over the
+   chains per second (``run_ensemble``) or writes every chain-second
+   (``run_blocks``); a site grid runs its K6 geometry mode.
 
 The chain state is O(1) per chain: threefry keys, the Markov carry, the
-renewal carry and three construction-time scalars.  With the block offset
-it is a complete checkpoint; ``engine/convert.py`` moves it to and from the
-JAX package's layout.  Every kernel wrapper runs its plain torch version on
-CPU tensors, so ``Simulation(config, device="cpu")`` is the reference
-implementation of the same run.
+renewal carry, three construction-time scalars and, for a grid, the six
+site scalars.  With the block offset it is a complete checkpoint;
+``engine/convert.py`` moves it to and from the JAX package's layout.
+Every kernel wrapper runs its plain torch version on CPU tensors, so
+``Simulation(config, device="cpu")`` is the reference implementation of
+the same run.
 """
 
 from __future__ import annotations
 
+import csv
 import dataclasses
+import datetime as _dt
+from typing import Callable, Iterator
 
 import numpy as np
 import torch
 
 from tmhpvsim_torch import rng
-from tmhpvsim_torch.config import SimConfig
+from tmhpvsim_torch.config import SITE_FIELDS, SimConfig
 from tmhpvsim_torch.kernels import block_step as k3
 from tmhpvsim_torch.kernels import threefry as k1
 from tmhpvsim_torch.kernels import windows as k2
@@ -68,28 +78,62 @@ def resolve_device(device) -> torch.device:
 
 
 @dataclasses.dataclass
+class BlockResult:
+    """One simulated block on the host (trace and ensemble output).
+
+    Arrays are ``(n_chains, length)`` (a leading axis of 1 for the fleet
+    mean); ``epoch`` is ``(length,)`` int64 UTC epoch seconds; ``offset``
+    is the block start in simulation seconds."""
+
+    offset: int
+    epoch: np.ndarray
+    meter: np.ndarray
+    pv: np.ndarray
+    residual: np.ndarray
+
+
+@dataclasses.dataclass
+class HostArrays:
+    """One block's chain-independent inputs as numpy (``host_arrays``)."""
+
+    bounds: k2.Bounds
+    mh_idx: np.ndarray      # (n_min,) int32 hour index into the window
+    mh_frac: np.ndarray     # (n_min,) float32 hour fraction
+    rows_i: np.ndarray      # (4, T) int32
+    rows_f: np.ndarray      # (13, T) float32, or (6, T) for a site grid
+    epoch: np.ndarray       # (T,) int64 UTC epoch seconds
+
+
+@dataclasses.dataclass
 class BlockInputs:
     """One block's chain-independent inputs, on the simulation's device."""
 
     bounds: k2.Bounds
-    mh_idx: torch.Tensor     # (n_min,) int32 hour index into the window
-    mh_frac: torch.Tensor    # (n_min,) float32 hour fraction
-    rows_i: torch.Tensor     # (4, T) int32
-    rows_f: torch.Tensor     # (13, T) float32
+    mh_idx: torch.Tensor
+    mh_frac: torch.Tensor
+    rows_i: torch.Tensor
+    rows_f: torch.Tensor
+    epoch: np.ndarray
 
 
 class Simulation:
-    """Reduce-mode simulation of ``config.n_chains`` chains on ``device``
-    (default: the CUDA card).
+    """Simulation of ``config.n_chains`` chains (one per site of
+    ``config.site_grid`` when given) on ``device`` (default: the card).
 
         sim = Simulation(config)
-        stats = sim.run_reduced()      # dict of (n_chains,) numpy arrays
-        fleet = sim.ensemble_stats()   # float64 / int64 fleet aggregates
+        stats = sim.run_reduced()        # dict of (n_chains,) numpy arrays
+        fleet = sim.ensemble_stats()     # float64 / int64 fleet aggregates
+        for blk in sim.run_blocks(): ... # per-chain BlockResults
+        for blk in sim.run_ensemble(): ...  # fleet-mean BlockResults
     """
 
     def __init__(self, config: SimConfig, device=None):
         if config.block_s % 60 != 0:
             raise ValueError("block_s must be a multiple of 60 (minute grid)")
+        grid = config.site_grid
+        if grid is not None and config.n_chains != len(grid):
+            config = dataclasses.replace(config, n_chains=len(grid))
+        # slab bounds after the grid override, which rewrites n_chains
         if config.n_chains_total is not None:
             if (config.chain_offset < 0 or config.chain_offset
                     + config.n_chains > config.n_chains_total):
@@ -101,9 +145,11 @@ class Simulation:
             raise ValueError("chain_offset requires n_chains_total")
         self.config = config
         self.device = resolve_device(device)
+        self.timezone = (grid.timezone if grid is not None
+                         else config.site.timezone)
         self._padded_s = _round_up(config.duration_s, config.block_s)
         self.spec = TimeGridSpec.from_local_start(
-            config.start, self._padded_s, config.site.timezone)
+            config.start, self._padded_s, self.timezone)
         self._f0_hour = ci.start_hour_fraction(self.spec)
         self.n_blocks = self._padded_s // config.block_s
         self._n_minute_vals = None
@@ -115,7 +161,13 @@ class Simulation:
         self._w_days = bs // 86400 + 3
         self._w_cd = self._w_hours + self._w_days
         self._k_chains = rng.split(rng.key(config.seed), 2)[0]
+        self._turbidity = None if grid is None else torch.tensor(
+            np.asarray(grid.linke_turbidity_monthly, np.float32),
+            device=self.device)
+        self._output_overlap = config.output_overlap == "auto"
         self._last_acc = None
+        self.state = None
+        self.state_block = 0
 
     # ------------------------------------------------------------------
     # chain state
@@ -126,7 +178,8 @@ class Simulation:
         ``split(split(key(seed))[0], n_chains_total)`` sliced at
         ``chain_offset``, the 5- and 4-way key splits, the two primer cloud
         covers, the first windspeed, the renewal carry and the
-        construction-time cloudy pair.  On the card this is K1 and K2
+        construction-time cloudy pair; for a grid also the per-chain site
+        scalars (``state["site"]``).  On the card this is K1 and K2
         launches plus elementwise torch (K2 derives the 4-way split of
         ``k_arr`` itself, as it does every block)."""
         cfg = self.config
@@ -157,7 +210,7 @@ class Simulation:
         u_cycle = k1.uniform(kr[:, 0, :].contiguous())
         u_phase = k1.uniform(kr[:, 1, :].contiguous())
         carry = renewal.init_from_u(u_cycle, u_phase, cc01[0], t1["ws"][0])
-        return {
+        state = {
             "cc_carry": ones.clone(),
             "cc0": cc0,
             "cloudy_pair": t2["cloudy"].T.contiguous(),
@@ -167,6 +220,13 @@ class Simulation:
             "k_scan": k_scan,
             "k_meter": k_meter,
         }
+        grid = cfg.site_grid
+        if grid is not None:
+            state["site"] = {
+                f: torch.tensor(np.asarray(getattr(grid, f), np.float32),
+                                device=dev)
+                for f in SITE_FIELDS}
+        return state
 
     def init_reduce_acc(self):
         """Zero accumulator: one ``(n_chains,)`` tensor per statistic."""
@@ -182,13 +242,14 @@ class Simulation:
         }
 
     # ------------------------------------------------------------------
-    # host-side per-block inputs (chain-independent, float64 precompute)
+    # host-side per-block inputs (chain-independent)
     # ------------------------------------------------------------------
 
-    def host_inputs(self, block_i: int) -> BlockInputs:
-        """The block's calendar rows, shared-site geometry rows, minute
+    def host_arrays(self, block_i: int) -> HostArrays:
+        """The block's calendar rows, geometry rows (shared site: float64
+        ``block_geometry`` cast to float32; grid: the split time), minute
         features and sampler-window bounds (indices rebased to the
-        windows)."""
+        windows), as numpy."""
         cfg = self.config
         off = block_i * cfg.block_s
         blk = self.spec.block(off, cfg.block_s)
@@ -228,37 +289,192 @@ class Simulation:
 
         block_idx["hour_idx"] = block_idx["hour_idx"] - np.int32(hour_lo)
         block_idx["day_idx"] = block_idx["day_idx"] - np.int32(day_lo)
-        geom = solar.block_geometry(blk.epoch.astype(np.float64),
-                                    blk.doy.astype(np.float64), cfg.site)
-        rows_i, rows_f = k3.block_rows(block_idx, mlo, geom)
-        dev = self.device
-        return BlockInputs(
+        if cfg.site_grid is None:
+            geom = solar.block_geometry(blk.epoch.astype(np.float64),
+                                        blk.doy.astype(np.float64), cfg.site)
+            rows_i, rows_f = k3.block_rows(block_idx, mlo, geom)
+        else:
+            # per-chain sites: the float32-safe split time; the geometry
+            # is evaluated per chain on the device
+            rows_i, rows_f = k3.site_rows(block_idx, mlo, {
+                "day2000": np.asarray(blk.epoch // 86400 - 10957,
+                                      np.float32),
+                "sec_of_day": np.asarray(blk.epoch % 86400, np.float32),
+                "doy": np.asarray(blk.doy, np.float32),
+            })
+        return HostArrays(
             bounds=k2.Bounds(hour_lo, self._w_hours, self._w_hours,
                              hour_next_lo, cd_lo, self._w_cd, day_lo,
                              self._w_days, mlo),
-            mh_idx=torch.from_numpy(
-                np.asarray(h_idx - hour_lo, np.int32)).to(dev),
-            mh_frac=torch.from_numpy(np.asarray(h_frac, np.float32)).to(dev),
-            rows_i=torch.from_numpy(rows_i).to(dev),
-            rows_f=torch.from_numpy(rows_f).to(dev),
-        )
+            mh_idx=np.asarray(h_idx - hour_lo, np.int32),
+            mh_frac=np.asarray(h_frac, np.float32),
+            rows_i=rows_i, rows_f=rows_f,
+            epoch=np.asarray(blk.epoch, np.int64))
+
+    def to_device(self, h: HostArrays) -> BlockInputs:
+        """Move one block's numpy inputs to the device: on the card through
+        pinned buffers with non-blocking copies on the current stream (the
+        caching host allocator keeps a pinned buffer from reuse until its
+        copy has run)."""
+        def put(a):
+            t = torch.from_numpy(a)
+            if self.device.type == "cuda":
+                return t.pin_memory().to(self.device, non_blocking=True)
+            return t
+
+        return BlockInputs(bounds=h.bounds, mh_idx=put(h.mh_idx),
+                           mh_frac=put(h.mh_frac), rows_i=put(h.rows_i),
+                           rows_f=put(h.rows_f), epoch=h.epoch)
+
+    def host_inputs(self, block_i: int) -> BlockInputs:
+        """``host_arrays`` of the block, on the device."""
+        return self.to_device(self.host_arrays(block_i))
+
+    def _inputs_ahead(self, block_i: int):
+        """The loops' one-block lookahead: called once block ``block_i -
+        1`` is enqueued, so the host computes ``block_i``'s inputs while
+        the card runs the previous block (past the last block: ``None``)."""
+        return self.host_inputs(block_i) if block_i < self.n_blocks else None
 
     # ------------------------------------------------------------------
     # the block step
     # ------------------------------------------------------------------
 
-    def step_acc(self, state, inputs: BlockInputs, acc):
-        """One block: K2 windows, then K3 folds every second into ``acc``.
-        Returns ``(state, acc)`` (on the card both are updated in place)."""
-        cfg = self.config
-        tables, cc_carry = k2.sampler_windows(
+    def _windows(self, state, inputs: BlockInputs):
+        return k2.sampler_windows(
             state["k_arr"], state["k_min"], state["cc_carry"], state["cc0"],
             inputs.bounds, inputs.mh_idx, inputs.mh_frac)
+
+    def geometry_args(self, state):
+        """``(surface_tilt, albedo, site)`` of the block-step wrappers."""
+        if self.config.site_grid is None:
+            site = self.config.site
+            return site.surface_tilt, site.albedo, None
+        return None, None, k3.SiteGeometry(state["site"], self._turbidity)
+
+    def step_acc(self, state, inputs: BlockInputs, acc):
+        """One reduce block: K2 windows, then K3 (K6 for a grid) folds
+        every second into ``acc``.  Returns ``(state, acc)`` (on the card
+        both are updated in place)."""
+        cfg = self.config
+        tables, cc_carry = self._windows(state, inputs)
+        tilt, albedo, site = self.geometry_args(state)
         carry, acc = k3.block_step_acc(
             tables, inputs.rows_i, inputs.rows_f, state["k_scan"],
             state["k_meter"], state["carry"], acc, cfg.duration_s,
-            cfg.meter_max_w, cfg.site.surface_tilt, cfg.site.albedo)
+            cfg.meter_max_w, tilt, albedo, site=site)
         return dict(state, carry=carry, cc_carry=cc_carry), acc
+
+    def step_series(self, state, inputs: BlockInputs):
+        """One ensemble block: ``(state, meter_sum, pv_sum)``, the sums
+        ``(block_s,)`` over chains per second (padding included)."""
+        tables, cc_carry = self._windows(state, inputs)
+        tilt, albedo, site = self.geometry_args(state)
+        carry, m_sum, p_sum = k3.block_step_series(
+            tables, inputs.rows_i, inputs.rows_f, state["k_scan"],
+            state["k_meter"], state["carry"], self.config.meter_max_w, tilt,
+            albedo, site=site)
+        return dict(state, carry=carry, cc_carry=cc_carry), m_sum, p_sum
+
+    def step_trace(self, state, inputs: BlockInputs):
+        """One trace block: ``(state, meter, pv)``, time-major
+        ``(block_s, n_chains)``."""
+        tables, cc_carry = self._windows(state, inputs)
+        tilt, albedo, site = self.geometry_args(state)
+        carry, meter, pv_ = k3.block_step_trace(
+            tables, inputs.rows_i, inputs.rows_f, state["k_scan"],
+            state["k_meter"], state["carry"], self.config.meter_max_w, tilt,
+            albedo, site=site)
+        return dict(state, carry=carry, cc_carry=cc_carry), meter, pv_
+
+    # ------------------------------------------------------------------
+    # run loops
+    # ------------------------------------------------------------------
+
+    def _to_host(self, t: torch.Tensor):
+        """Start copying a block output to the host: ``(host tensor,
+        event)``; on the card a non-blocking copy into pinned memory,
+        finished when the event is."""
+        if self.device.type != "cuda":
+            return t, None
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        return h, ev
+
+    def _gather_result(self, pend, make_result) -> BlockResult:
+        """Finish one block: wait for its copies and build the result."""
+        bi, epoch, outs = pend
+        for _, ev in outs:
+            if ev is not None:
+                ev.synchronize()
+        off = bi * self.config.block_s
+        n_valid = min(self.config.block_s, self.config.duration_s - off)
+        return make_result(off, epoch[:n_valid], outs[0][0].numpy(),
+                           outs[1][0].numpy(), n_valid)
+
+    def _iter_blocks(self, state, start_block: int, step: Callable,
+                     make_result: Callable) -> Iterator[BlockResult]:
+        """The per-block loop of the per-second modes: ``step(state,
+        inputs) -> (state, a, b)`` on the device, ``make_result(off,
+        epoch, a, b, n_valid)`` on the host (padding trimmed).
+
+        With ``output_overlap='auto'`` block N+1 is dispatched before block
+        N's result is built and yielded, so the card computes N+1 while
+        the host consumes N; N's outputs are copied (ordered after N's
+        kernels, before N+1's) into their own pinned buffers.
+        ``self.state`` is then a block ahead of the yielded result
+        (``self.state_block == block_index + 2``)."""
+        self.state = (self.init_state() if state is None
+                      else _clone(state))
+        self.state_block = start_block
+        nxt = self._inputs_ahead(start_block)
+        pend = None
+        for bi in range(start_block, self.n_blocks):
+            inputs = nxt
+            self.state, a, b = step(self.state, inputs)
+            self.state_block = bi + 1
+            cur = (bi, inputs.epoch, (self._to_host(a), self._to_host(b)))
+            nxt = self._inputs_ahead(bi + 1)
+            if not self._output_overlap:
+                yield self._gather_result(cur, make_result)
+                continue
+            if pend is not None:
+                yield self._gather_result(pend, make_result)
+            pend = cur
+        if pend is not None:
+            yield self._gather_result(pend, make_result)
+
+    def run_blocks(self, state=None, start_block: int = 0
+                   ) -> Iterator[BlockResult]:
+        """Trace mode: yield per-chain BlockResults (``(n_chains,
+        n_valid)`` meter, pv and residual) in time order."""
+
+        def make(off, epoch, meter, pv_, n_valid):
+            m = meter.T[:, :n_valid]       # (T, n) time-major -> (n, T)
+            p = pv_.T[:, :n_valid]
+            return BlockResult(offset=off, epoch=epoch, meter=m, pv=p,
+                               residual=m - p)
+
+        return self._iter_blocks(state, start_block, self.step_trace, make)
+
+    def run_ensemble(self, state=None, start_block: int = 0
+                     ) -> Iterator[BlockResult]:
+        """Fleet-level 1 Hz series: per-second means of meter, pv and
+        residual over all chains, as BlockResults with a leading axis of 1
+        (the fleet mean), so every trace consumer works unchanged.  Only
+        ``(block_s,)`` sums reach the host; the mean is ``sum * (1 /
+        n_chains)`` in host float32, as the JAX package takes it."""
+        inv_n = 1.0 / self.config.n_chains
+
+        def make(off, epoch, m_sum, p_sum, n_valid):
+            m = m_sum[None, :n_valid] * inv_n
+            p = p_sum[None, :n_valid] * inv_n
+            return BlockResult(offset=off, epoch=epoch, meter=m, pv=p,
+                               residual=m - p)
+
+        return self._iter_blocks(state, start_block, self.step_series, make)
 
     def run_reduced(self, state=None, on_block=None, acc=None,
                     start_block: int = 0):
@@ -267,7 +483,9 @@ class Simulation:
         Returns a dict of ``(n_chains,)`` numpy arrays, one per
         ``REDUCE_STATS`` entry.  ``state``/``acc``/``start_block`` resume a
         run (``acc`` is required with ``start_block > 0``);
-        ``on_block(block_index, state, acc)`` runs after each block."""
+        ``on_block(block_index, state, acc)`` runs after each block.  The
+        host's inputs of block bi+1 are computed while block bi runs
+        (``_inputs_ahead``)."""
         if start_block > 0 and acc is None:
             raise ValueError(
                 "resuming run_reduced needs the accumulator: pass acc= "
@@ -275,9 +493,13 @@ class Simulation:
         state = self.init_state() if state is None else _clone(state)
         acc = self.init_reduce_acc() if acc is None else _clone(acc)
         self.state = state
+        self.state_block = start_block
+        nxt = self._inputs_ahead(start_block)
         for bi in range(start_block, self.n_blocks):
-            state, acc = self.step_acc(state, self.host_inputs(bi), acc)
+            state, acc = self.step_acc(state, nxt, acc)
+            nxt = self._inputs_ahead(bi + 1)
             self.state = state
+            self.state_block = bi + 1
             if on_block is not None:
                 on_block(bi, state, acc)
         self._last_acc = acc
@@ -300,3 +522,26 @@ def _clone(tree):
     if isinstance(tree, dict):
         return {k: _clone(v) for k, v in tree.items()}
     return tree.clone()
+
+
+def write_csv(path: str, blocks: Iterator[BlockResult], chain: int = 0,
+              tz=None, append: bool = False):
+    """Write the reference CSV format — header ``time,meter,pv,residual
+    load``, one row per second — for one selected chain.
+
+    ``tz`` converts the grid's UTC epochs to wall time for the ``time``
+    column, written as naive local datetimes (default: the process's local
+    timezone).  ``append`` skips the header and adds to an existing
+    file."""
+    mode = "a" if append else "w"
+    with open(path, mode=mode, newline="", buffering=1) as f:
+        w = csv.writer(f)
+        if not append:
+            w.writerow(["time", "meter", "pv", "residual load"])
+        for blk in blocks:
+            for e, m, p, r in zip(blk.epoch, blk.meter[chain],
+                                  blk.pv[chain], blk.residual[chain]):
+                t = _dt.datetime.fromtimestamp(int(e), tz)
+                if tz is not None:
+                    t = t.replace(tzinfo=None)
+                w.writerow([t, m, p, r])

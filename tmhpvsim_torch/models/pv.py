@@ -8,7 +8,8 @@ it: python-float sub-expressions fold to one float32 constant, integer
 powers expand by repeated squaring, and every division is a single
 rounding.  Geometry fields are float32 tensors that broadcast against
 ``csi`` (one block row per second); ``surface_tilt`` and ``albedo`` are
-python floats.  The CUDA kernel K3 (csrc/block_step.cu) evaluates the same
+python floats, or per-chain float32 tensors on the site-grid path.  The
+CUDA kernel K3 (csrc/block_step.cu) evaluates the same
 expressions, with the per-second ones (``second_terms``) hoisted.
 """
 
@@ -78,8 +79,11 @@ def second_terms(g, module):
           + module["B3"] * _ipow(aoi_deg, 3)
           + module["B4"] * _ipow(aoi_deg, 4)
           + module["B5"] * _ipow(aoi_deg, 5))
-    cos_tilt = torch.cos(torch.tensor(g["surface_tilt"] * DEG,
-                                      dtype=torch.float32))
+    tilt = g["surface_tilt"]
+    if isinstance(tilt, torch.Tensor):  # per-chain sites (float32 tilt)
+        cos_tilt = torch.cos(tilt * DEG)
+    else:
+        cos_tilt = torch.cos(torch.tensor(tilt * DEG, dtype=torch.float32))
     return {
         "csi_cap": g["csi_cap"],
         "ghi_clear": g["ghi_clear"],

@@ -1,13 +1,20 @@
-"""Solar geometry on the host, float64 numpy (own copy of the host side
-of tmhpvsim_tpu/models/solar.py).
+"""Solar geometry (own copy of tmhpvsim_tpu/models/solar.py).
 
-The shared-site main path evaluates the whole chain-independent geometry
-of a block here, once, in float64, and ships the fields to the card as
-float32 rows (engine/simulation.py ``host_inputs``).  These are the
-functions ``block_geometry(xp=np)`` reaches in the JAX package, with the
-transcendentals bound to numpy; the same inputs give the same bits
-(tests/test_torch_models.py).  The float32 device geometry of site grids
-(``device_geometry``) and the strided forms belong to the site-grid slice.
+Two forms of the same models:
+
+* float64 numpy on the host.  The shared-site path evaluates the whole
+  chain-independent geometry of a block once, in float64, and ships the
+  fields to the card as float32 rows (engine/simulation.py
+  ``host_inputs``).  These are the functions ``block_geometry(xp=np)``
+  reaches in the JAX package; the same inputs give the same bits
+  (tests/test_torch_models.py).
+* float32 torch on the device (``sun_position_split``, ``device_geometry``
+  and the ``*_f32`` helpers).  Site grids evaluate the geometry per chain
+  and second from the float32-safe split time; these are the plain
+  versions of the site-geometry mode of the block-step kernel
+  (csrc/block_step.cu) and follow the JAX package's float32 operation
+  order (python constants rounded to float32, every division rounded
+  once).  The strided forms (``interp_sampled``) are not ported.
 
 PSA sun position (Blanco-Muriel et al. 2001, 2020 coefficients), NREL SPA
 refraction, Kasten-Young airmass, Spencer extraterrestrial irradiance,
@@ -18,6 +25,9 @@ the angle of incidence.  All angles in radians unless suffixed ``_deg``.
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from tmhpvsim_torch.rng import cdiv, rdiv
 
 TWO_PI = 2.0 * np.pi
 DEG = np.pi / 180.0
@@ -289,4 +299,170 @@ def block_geometry(epoch_s, doy, site):
         "doy": np.asarray(doy),
         "surface_tilt": site.surface_tilt,
         "albedo": site.albedo,
+    }
+
+
+# ---------------------------------------------------------------------------
+# float32 device geometry (torch): the per-chain site-grid path
+# ---------------------------------------------------------------------------
+
+#: mid-month day-of-year anchors of the Linke climatology (365-day year)
+LINKE_MIDS = (15.5, 45.0, 74.5, 105.0, 135.5, 166.0, 196.5, 227.5, 258.0,
+              288.5, 319.0, 349.5)
+
+
+def _fmod_floor(x, m: float):
+    """``x % m`` as ``jnp.remainder`` computes it: the exact ``fmod``,
+    moved into ``[0, m)`` (``m > 0``)."""
+    r = torch.fmod(x, m)
+    return torch.where(r < 0, r + m, r)
+
+
+def sun_position_split(day2000, sec_of_day, latitude_deg, longitude_deg):
+    """PSA+ sun position from the float32-safe split time: ``day2000``
+    whole UT days since 2000-01-01, ``sec_of_day`` seconds within that UT
+    day.  Each ephemeris term multiplies its coefficient by the day and
+    the fraction separately, so the ~1.7e9 epoch never forms in float32.
+    Arguments are broadcastable float32 tensors.  Same return dict as
+    :func:`sun_position`."""
+    lat = latitude_deg * DEG
+    lon = longitude_deg * DEG
+    frac = cdiv(sec_of_day, 86400.0) - 0.5  # days relative to 12:00 UT
+    hour_ut = cdiv(sec_of_day, 3600.0)
+
+    def lin(const, coeff):
+        return (const + coeff * day2000) + coeff * frac
+
+    omega = lin(2.267127827e0, -9.300339267e-4)
+    mean_lon = lin(4.895036035e0, 1.720279602e-2)
+    mean_anom = lin(6.239468336e0, 1.720200135e-2)
+    ecl_lon = (
+        mean_lon
+        + 3.338320972e-2 * torch.sin(mean_anom)
+        + 3.497596876e-4 * torch.sin(2.0 * mean_anom)
+        - 1.544353226e-4
+        - 8.689729360e-6 * torch.sin(omega)
+    )
+    obliquity = lin(4.090904909e-1, -6.213605399e-9) \
+        + 4.418094944e-5 * torch.cos(omega)
+    sin_l = torch.sin(ecl_lon)
+    ra = _fmod_floor(torch.atan2(torch.cos(obliquity) * sin_l,
+                                 torch.cos(ecl_lon)), TWO_PI)
+    dec = torch.asin(torch.sin(obliquity) * sin_l)
+    gmst_h = _fmod_floor(6.697096103e0 + 6.570984737e-2 * day2000, 24.0) \
+        + 6.570984737e-2 * frac + hour_ut
+    lmst = gmst_h * 15.0 * DEG + lon
+    ha = lmst - ra
+    cos_lat, sin_lat = torch.cos(lat), torch.sin(lat)
+    cos_dec, sin_dec = torch.cos(dec), torch.sin(dec)
+    cos_ha = torch.cos(ha)
+    cos_zen = torch.clamp(cos_lat * cos_ha * cos_dec + sin_dec * sin_lat,
+                          -1.0, 1.0)
+    zenith = torch.acos(cos_zen)
+    azimuth = _fmod_floor(torch.atan2(
+        -torch.sin(ha), torch.tan(dec) * cos_lat - sin_lat * cos_ha),
+        TWO_PI)
+    zenith = zenith + _PARALLAX * torch.sin(zenith)
+    return {"zenith": zenith, "azimuth": azimuth,
+            "cos_zenith": torch.cos(zenith)}
+
+
+def alt2pres_f32(altitude_m):
+    """:func:`alt2pres` on float32 tensors."""
+    return STD_PRESSURE * (1.0 - 2.25577e-5 * altitude_m) ** 5.25588
+
+
+def apparent_elevation_f32(zenith, pressure, temperature_c=12.0):
+    """:func:`apparent_elevation` on float32 tensors."""
+    e_deg = cdiv(np.pi / 2.0 - zenith, DEG)
+    p_mbar = cdiv(pressure, 100.0)
+    de = (cdiv(p_mbar, 1010.0) * (283.0 / (273.0 + temperature_c)) * 1.02
+          / (60.0 * torch.tan((e_deg + rdiv(10.3, e_deg + 5.11)) * DEG)))
+    de = torch.where(e_deg >= -(0.26667 + 0.5667), de, torch.zeros_like(de))
+    return (e_deg + de) * DEG
+
+
+def airmass_kasten_young_f32(apparent_zenith):
+    """:func:`relative_airmass_kasten_young` on float32 tensors."""
+    z_deg = torch.clamp(cdiv(apparent_zenith, DEG), 0.0, 90.0)
+    return rdiv(1.0, torch.cos(z_deg * DEG)
+                + 0.50572 * (96.07995 - z_deg) ** -1.6364)
+
+
+def linke_turbidity_f32(doy, monthly):
+    """:func:`linke_turbidity` on float32 tensors (``monthly``: ``(12,)``)."""
+    mids = torch.tensor(LINKE_MIDS, dtype=torch.float32, device=doy.device)
+    ext_mids = torch.cat([mids[-1:] - 365.0, mids, mids[:1] + 365.0])
+    ext_vals = torch.cat([monthly[-1:], monthly, monthly[:1]])
+    i = torch.clamp(torch.searchsorted(ext_mids, doy.contiguous(),
+                                       right=True) - 1, 0, 12)
+    f = (doy - ext_mids[i]) / (ext_mids[i + 1] - ext_mids[i])
+    return ext_vals[i] * (1.0 - f) + ext_vals[i + 1] * f
+
+
+def ineichen_ghi_f32(apparent_zenith, airmass_absolute, tl, altitude_m,
+                     dni_extra):
+    """:func:`ineichen_ghi` on float32 tensors."""
+    fh1 = torch.exp(cdiv(-altitude_m, 8000.0))
+    fh2 = torch.exp(cdiv(-altitude_m, 1250.0))
+    cg1 = 5.09e-5 * altitude_m + 0.868
+    cg2 = 3.92e-5 * altitude_m + 0.0387
+    cos_zen = torch.clamp_min(torch.cos(apparent_zenith), 0.0)
+    ghi = (cg1 * dni_extra * cos_zen
+           * torch.exp(-cg2 * airmass_absolute * (fh1 + fh2 * (tl - 1.0))))
+    return torch.clamp_min(ghi, 0.0)
+
+
+def csi_zenith_cap_f32(zenith):
+    """:func:`csi_zenith_cap` on float32 tensors."""
+    cos_z = torch.cos(zenith)
+    cap = (27.21 * torch.exp(-114.0 * cos_z)
+           + 1.665 * torch.exp(-4.494 * cos_z) + 1.08)
+    return torch.clamp_max(cap, 1e6)
+
+
+def angle_of_incidence_cos_f32(surface_tilt_deg, surface_azimuth_deg,
+                               zenith, azimuth):
+    """:func:`angle_of_incidence_cos` on float32 tensors."""
+    tilt = surface_tilt_deg * DEG
+    saz = surface_azimuth_deg * DEG
+    return (torch.cos(tilt) * torch.cos(zenith)
+            + torch.sin(tilt) * torch.sin(zenith) * torch.cos(azimuth - saz))
+
+
+def device_geometry(day2000, sec_of_day, doy, latitude_deg, longitude_deg,
+                    altitude_m, surface_tilt_deg, surface_azimuth_deg,
+                    albedo, turbidity_monthly):
+    """Every geometry feature from split time and per-site scalars, in
+    float32 (the site-grid path).  Time rows and site tensors broadcast
+    against each other (``(T, 1)`` against ``(n,)`` gives ``(T, n)``
+    fields).  Same dict as :func:`block_geometry`; ``surface_tilt`` and
+    ``albedo`` are the site tensors."""
+    from tmhpvsim_torch.models.pv import extra_radiation_spencer
+
+    pos = sun_position_split(day2000, sec_of_day, latitude_deg,
+                             longitude_deg)
+    pressure = alt2pres_f32(altitude_m)
+    app_zen = np.pi / 2.0 - apparent_elevation_f32(pos["zenith"], pressure)
+    am_abs = cdiv(airmass_kasten_young_f32(app_zen) * pressure,
+                  STD_PRESSURE)
+    dni_extra = extra_radiation_spencer(doy, SOLAR_CONSTANT)
+    tl = linke_turbidity_f32(doy, turbidity_monthly)
+    ghi_clear = ineichen_ghi_f32(app_zen, am_abs, tl, altitude_m, dni_extra)
+    cos_aoi = angle_of_incidence_cos_f32(surface_tilt_deg,
+                                         surface_azimuth_deg, app_zen,
+                                         pos["azimuth"])
+    return {
+        "zenith": pos["zenith"],
+        "cos_zenith": pos["cos_zenith"],
+        "apparent_zenith": app_zen,
+        "azimuth": pos["azimuth"],
+        "csi_cap": csi_zenith_cap_f32(pos["zenith"]),
+        "ghi_clear": ghi_clear,
+        "dni_extra": dni_extra,
+        "airmass_abs": am_abs,
+        "cos_aoi": cos_aoi,
+        "doy": doy,
+        "surface_tilt": surface_tilt_deg,
+        "albedo": albedo,
     }
