@@ -21,6 +21,18 @@ Phases (any failure exits non-zero and prints no result line):
    residual to the K3 tolerance, and each chain's sums over the trace
    against the acc kernel's); K6 (the site-geometry mode through the acc
    epilogue at 65536 sites, and the geometry fields on their own);
+   then the fleet kernels on 2 blocks of path F's fleet: K7 (the regime
+   gather of K2 at init_state's launch and two blocks, bit for bit; the
+   transforms through acc, trace and series), K8 (telemetry full), K9
+   (analytics full, with 3 cohorts in shared memory, with 64 through
+   global atomics, and with 30000 bins, where the residual histogram and
+   the exceedance slots count through global atomics too) and K8+K9
+   (both at level full with the fleet's cohorts, the instantiation path F
+   launches): per-chain leaves, counts, histograms and extrema bit for
+   bit, sums over chains within 1e-6 of the float64 plain sums, a rerun
+   bit-identical; then the collapse on K8+K9's own per-CTA partial rows,
+   bit for bit against an index-order float64 fold on the host and within
+   1e-12 (of the rows' absolute sum) of its plain version;
 5. the paths, every launch counter set to 0 just before each and read
    just after; each must launch every kernel it needs:
    R. reduce, shared site: ``run_reduced`` at 65536 chains x 86400 s,
@@ -33,13 +45,25 @@ Phases (any failure exits non-zero and prints no result line):
       chain's (65536, 1080) arrays gathered to the host;
    D. the CLI: ``pvsim OUT.csv --no-realtime --duration 86400 --start
       "2019-09-05 00:00:00"`` (1 chain, trace), 86400 rows plus a header;
+   F. the fleet: ``run_reduced`` of ``FleetParams.synthetic(65536,
+      seed=0)`` x 86400 s in 1080 s blocks with telemetry and analytics
+      at level full (the main path of this slice);
+   G. the fleet CLI: ``pvsim OUT.csv --output reduce --fleet-synth 4096
+      --analytics risk --duration 3600 --no-realtime --start "2019-09-05
+      11:00:00" --run-report R.json`` (reduce mode needs --no-realtime);
+   H. path F's fleet over 3 blocks from 11:00 with one observer
+      instantiation each: none (H0, the fleet transforms alone),
+      telemetry full (H8), analytics full (H9); the observers leave the
+      statistics bit-identical;
 6. each kernel and its plain version timed with CUDA events at the main
-   paths' shapes;
+   paths' shapes (the fleet kernels on path F's noon block);
 7. the port on the card at the JAX suite's ``small_config`` shape against
    the JAX package's results in ``tests/data/torch_port_reference.json``:
    reduce statistics, every per-second ensemble mean, chain 0's trace
    over the first hour and the site-grid reduce statistics (n_seconds
-   exact, the rest rtol 2e-5 / atol 1e-2).
+   exact, the rest rtol 2e-5 / atol 1e-2), and the fleet run's reduce
+   statistics and fleet summary (counts within a few samples, quantiles
+   within one sketch bin, other floats rtol 1e-4).
 
 The line before the card line is the ``{"kernels": [...]}`` record; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -47,6 +71,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -61,6 +86,7 @@ try:
     from tmhpvsim_torch import kernels, rng
     from tmhpvsim_torch.config import SimConfig, SiteGrid
     from tmhpvsim_torch.engine.simulation import BlockInputs, Simulation
+    from tmhpvsim_torch.fleet import FleetParams
     from tmhpvsim_torch.kernels import block_step as k3
     from tmhpvsim_torch.kernels import build
     from tmhpvsim_torch.kernels import threefry as k1
@@ -116,6 +142,21 @@ TRACE_SECOND_F = K3_SECOND_F - 12
 #: and ~35 float ops)
 K6_TIME_F = 15 * TRANS_F + 35
 K6_SITE_SECOND_F = 17 * TRANS_F + 2 * POW_F + 95
+#: K7 per chain-second: pv scale and clip, the demand multiply-add (2)
+K7_SECOND_F = 4
+#: K8 per chain-second: per field isfinite, the NaN test, 2 extrema, 2
+#: selects, the sum and the sum of squares (an FMA, 2): 10 float32 ops x 4
+#: fields, plus the csi bin (divide, 2 clamps, convert) and 3 int32 ops
+#: per field for the counters, the covered count and the shared atomic
+TEL_SECOND_F = 4 * 10 + 4
+TEL_SECOND_I = 4 * 3 + 3
+#: K9 per chain-second: the bin (subtract, multiply, 2 clamps, floor), 7
+#: threshold compares, 2 extrema, the capacity compare, 3 ramp grids (a
+#: select, |difference|, a max, 2 selects), 6 masked sums (select + add):
+#: ~45 float32 ops; int32: the slot index, 3 shared atomics, the run
+#: length and its 2 tests, 3 modulos, the use count: ~20
+FLT_SECOND_F = 5 + 7 + 2 + 1 + 3 * 5 + 6 * 2 + 3
+FLT_SECOND_I = 20
 
 HEADLINE = dict(start="2019-09-05 00:00:00", duration_s=86400,
                 n_chains=65536, seed=0, block_s=1080, output="reduce")
@@ -128,10 +169,29 @@ PATH_C = dict(HEADLINE, start="2019-09-05 10:00:00", duration_s=4320,
 #: path D: BASELINE config 1 through the CLI
 PATH_D_ARGS = ["--no-realtime", "--duration", "86400", "--start",
                "2019-09-05 00:00:00"]
+#: path G: the fleet CLI in reduce mode with analytics and a run report
+PATH_G_SITES = 4096
+PATH_G_ARGS = ["--output", "reduce", "--fleet-synth", str(PATH_G_SITES),
+               "--analytics", "risk", "--duration", "3600", "--no-realtime",
+               "--start", "2019-09-05 11:00:00"]
 #: same-call pairs of path R's two loops (the first slice's, the lookahead)
 LOOP_PAIRS = 10
 #: the check blocks: two daylight blocks from 11:00
 CHECK_START = "2019-09-05 11:00:00"
+#: path F's fleet: FleetParams.synthetic(65536, seed=FLEET_SEED), the JAX
+#: CLI's --fleet-synth 65536 (a Germany-like national fleet: 3 weather
+#: regimes, 3 cohorts, ~30% inverter-clipped, per-site demand)
+FLEET_SEED = 0
+#: K9's check blocks use a lower capacity and a shorter run length than
+#: the defaults (7200 W, 60 s), so that loss-of-load runs occur in them
+K9_CAPACITY = 4000.0
+K9_LOLP_K = 5
+#: a cohort count whose histogram (64 x 2050 int32) exceeds the shared
+#: memory budget: K9's global-atomics path
+K9_MANY_COHORTS = 64
+#: past ~24500 bins the residual histogram leaves shared memory
+K9_WIDE_BINS = 30000
+PATH_H_BLOCKS = 3
 #: the JAX suite's small_config (tests/test_engine.py)
 SMALL = dict(start="2019-09-05 10:00:00", duration_s=7200, n_chains=3,
              seed=7, block_s=3600)
@@ -523,6 +583,434 @@ def phase_k6(dev):
     return err
 
 
+# ---------------------------------------------------------------------------
+# the fleet slice: K7 (regime gather, fleet transforms), K8, K9
+
+
+_FLEET = {}
+
+
+def fleet_f():
+    """Path F's fleet, ``FleetParams.synthetic(65536, seed=0)`` (built once:
+    the host sampler and its range checks take a few seconds)."""
+    if "f" not in _FLEET:
+        _FLEET["f"] = FleetParams.synthetic(HEADLINE["n_chains"],
+                                            seed=FLEET_SEED)
+    return _FLEET["f"]
+
+
+def fleet_blocks(cfg, dev):
+    """``check_blocks`` for a fleet: the two check blocks with their K2
+    tables drawn from each chain's regime table."""
+    sim = Simulation(cfg, device=dev)
+    state = sim.init_state()
+    out = []
+    for bi in (0, 1):
+        ins = sim.host_inputs(bi)
+        tables, cc_carry = sim._windows(state, ins)
+        state = dict(state, cc_carry=cc_carry)
+        out.append((ins, tables))
+    return sim, state, out
+
+
+def check_sketch(what, k, p, p64, tol=1e-6):
+    """A collapsed delta ``k`` against the plain one ``p``: integer leaves
+    and extrema bit-identical, float sums within ``tol`` (relative) of the
+    plain float64 sums ``p64``.  Returns the largest (relative, absolute)
+    error of the sums."""
+    rel = err = 0.0
+    for name, v in p.items():
+        a, b = k[name], v
+        if name in p64:
+            want = p64[name]
+            d = (a.double() - want).abs()
+            e = float((d / want.abs().clamp_min(1e-30)).max())
+            if e > tol:
+                fail(f"{what} {name}: {e:.3g} from the float64 plain sum")
+            rel, err = max(rel, e), max(err, float(d.max()))
+        elif not torch.equal(a, b):
+            fail(f"{what} {name} differs from the plain version")
+    return rel, err
+
+
+def check_chain(what, k, p):
+    """Per-chain leaves of the kernel against the plain fold's, bit for
+    bit, wherever both have the leaf."""
+    shared = [n for n in k if n in p]
+    for name in shared:
+        if not torch.equal(k[name], p[name]):
+            bad = int((k[name] != p[name]).sum())
+            fail(f"{what} per-chain {name} differs from the plain fold at "
+                 f"{bad} chains")
+    return len(shared)
+
+
+def same_out(a, b):
+    return all(torch.equal(a[d][k], b[d][k]) for d in a if a[d] is not None
+               for k in a[d])
+
+
+def phase_k7(dev):
+    fp = fleet_f()
+    cfg = SimConfig(**dict(HEADLINE, start=CHECK_START, fleet=fp))
+    sim = Simulation(cfg, device=dev)
+    state = sim.init_state()
+    regime = state["fleet"]["regime"]
+    n = sim.config.n_chains
+    counts = torch.bincount(regime.long(), minlength=3).tolist()
+    if min(counts) == 0:
+        fail(f"K7: the check fleet misses a regime ({counts})")
+    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    no_min = (torch.zeros(0, dtype=torch.int32, device=dev),
+              torch.zeros(0, dtype=torch.float32, device=dev))
+    err = 0.0
+    cc_same = 0
+
+    def check(what, *args):
+        nonlocal err, cc_same
+        tk, ck = k2.sampler_windows(*args, regime=regime)
+        tp, cp = k2.windows_plain(*args, regime=regime)
+        torch.cuda.synchronize()
+        if not (torch.equal(tk["cc"], tp["cc"]) and torch.equal(ck, cp)):
+            fail(f"K7 regime gather: the Markov window or carry differs "
+                 f"from the plain version in {what}")
+        cc_same += tk["cc"].numel()
+        for name in tk:
+            if not torch.allclose(tk[name], tp[name], rtol=1e-6, atol=1e-6):
+                fail(f"K7 regime gather: table {name} differs from the "
+                     f"plain version in {what}")
+            err = max(err, max_abs(tk[name], tp[name]))
+        return ck
+
+    check("init cc01/ws0", state["k_arr"], state["k_min"], ones, ones,
+          k2.Bounds(0, 2, 0, 0, 0, 0, 0, 1), *no_min)
+    cc = state["cc_carry"]
+    for bi in (0, 1):
+        ins = sim.host_inputs(bi)
+        cc = check(f"block {bi}", state["k_arr"], state["k_min"], cc,
+                   state["cc0"], ins.bounds, ins.mh_idx, ins.mh_frac)
+    # the regimes change the draws of every chain outside regime 0
+    ins = sim.host_inputs(0)
+    t0, _ = k2.sampler_windows(state["k_arr"], state["k_min"],
+                               state["cc_carry"], state["cc0"], ins.bounds,
+                               ins.mh_idx, ins.mh_frac)
+    tr, _ = k2.sampler_windows(state["k_arr"], state["k_min"],
+                               state["cc_carry"], state["cc0"], ins.bounds,
+                               ins.mh_idx, ins.mh_frac, regime=regime)
+    moved = (t0["cc"] != tr["cc"]).any(0)
+    if bool(moved[regime == 0].any()) or \
+            float(moved[regime != 0].double().mean()) < 0.9:
+        fail("K7 regime gather: the regimes do not select the tables")
+    print(f"K7 regime gather vs plain at {n} chains (regimes {counts}), "
+          f"init_state's launch and 2 blocks: {cc_same} Markov values and "
+          f"the carry bit-identical, other tables max abs {err:.3g}")
+    # the transforms: acc (site geometry, the fleet's grid) and trace
+    sim, state, blocks = fleet_blocks(cfg, dev)
+    _, _, site = sim.geometry_args(state)
+    fleet = sim.fleet_leaves(state)
+    mw = cfg.meter_max_w
+    acc_k, acc_p = sim.init_reduce_acc(), sim.init_reduce_acc()
+    carry_k, carry_p = clone(state["carry"]), clone(state["carry"])
+    for ins, tables in blocks:
+        head = head_of(state, ins, tables)
+        carry_k, acc_k = k3.block_step_acc(
+            *head, carry_k, acc_k, cfg.duration_s, mw, None, None,
+            site=site, fleet=fleet)
+        carry_p, acc_p = k3.block_step_plain(
+            *head, carry_p, acc_p, cfg.duration_s, mw, None, None,
+            site=site, fleet=fleet)
+    torch.cuda.synchronize()
+    terr = 0.0
+    for name in acc_k:
+        a, b = acc_k[name], acc_p[name]
+        if name == "n_seconds":
+            if not torch.equal(a, b):
+                fail("K7 n_seconds differs from the plain version")
+            continue
+        if not close(a, b):
+            fail(f"K7 {name} differs from the plain version: max abs "
+                 f"{max_abs(a, b)}")
+        terr = max(terr, max_abs(a, b))
+    same = int(sum(torch.equal(acc_k[k], acc_p[k]) for k in acc_k))
+    ins, tables = blocks[0]
+    head = head_of(state, ins, tables)
+    _, mk, pk = k3.block_step_trace(*head, clone(state["carry"]), mw, None,
+                                    None, site=site, fleet=fleet)
+    _, mp, pp = k3.trace_plain(*head, clone(state["carry"]), mw, None, None,
+                               site=site, fleet=fleet)
+    torch.cuda.synchronize()
+    if not torch.equal(mk, mp):
+        fail(f"K7 trace meter differs from the plain version: max abs "
+             f"{max_abs(mk, mp)}")
+    if not close(pk, pp):
+        fail(f"K7 trace pv differs from the plain version: max abs "
+             f"{max_abs(pk, pp)}")
+    limited = fleet.ac_limit_w < float("inf")
+    if not bool((pk[:, limited] <= fleet.ac_limit_w[limited]).all()):
+        fail("K7 trace: pv above an inverter limit")
+    _, sk, qk = k3.block_step_series(*head, clone(state["carry"]), mw, None,
+                                     None, site=site, fleet=fleet)
+    _, sp, qp = k3.series_plain(*head, clone(state["carry"]), mw, None, None,
+                                site=site, fleet=fleet)
+    torch.cuda.synchronize()
+    for what, a, b in (("meter", sk, sp), ("pv", qk, qp)):
+        if not close(a, b, rtol=1e-6, atol=0.0):
+            fail(f"K7 series {what} sums differ from the plain version: "
+                 f"max abs {max_abs(a, b)}")
+    print(f"K7 transforms vs plain on 2 blocks x {n} fleet sites (site "
+          f"geometry): max abs {terr:.3g} ({same}/7 statistics "
+          f"bit-identical); trace block: meter bit-identical, pv max abs "
+          f"{max_abs(pk, pp):.3g}, every limited site within its limit; "
+          f"series sums within rtol 1e-6 (max abs {max_abs(sk, sp):.3g} W)")
+    return err, terr
+
+
+def _plain_sums(chain, names, cohort=None, n_cohorts=0):
+    """The float64 sums over chains of per-chain float leaves (grouped by
+    cohort for ``cohort_sum_*``)."""
+    out = {}
+    for collapsed, leaf in names:
+        v = chain[leaf].double()
+        if collapsed.startswith("cohort_sum_"):
+            out[collapsed] = torch.zeros(
+                n_cohorts, dtype=torch.float64,
+                device=v.device).index_add_(0, cohort.long(), v)
+        else:
+            out[collapsed] = v.sum()
+    return out
+
+
+def phase_k8(dev):
+    fp = fleet_f()
+    cfg = SimConfig(**dict(HEADLINE, start=CHECK_START, fleet=fp,
+                           telemetry="full"))
+    sim, state, blocks = fleet_blocks(cfg, dev)
+    _, _, site = sim.geometry_args(state)
+    fleet = sim.fleet_leaves(state)
+    mw, dur = cfg.meter_max_w, cfg.duration_s
+    obs = k3.Observers(telemetry="full", per_chain=True)
+    sums = [(f"{k}_{f}", f"{k}_{f}") for f in ("meter", "csi", "pv",
+                                              "residual")
+            for k in ("sum", "sumsq")]
+    rel = err = 0.0
+    n_leaves = 0
+    for ins, tables in blocks:
+        head = head_of(state, ins, tables)
+        common = (cfg.duration_s, mw, None, None)
+        _, acc_k, out_k = k3.block_step_obs(
+            *head, clone(state["carry"]), sim.init_reduce_acc(), *common,
+            site=site, fleet=fleet, obs=obs)
+        _, _, out_2 = k3.block_step_obs(
+            *head, clone(state["carry"]), sim.init_reduce_acc(), *common,
+            site=site, fleet=fleet, obs=obs)
+        _, acc_a = k3.block_step_acc(
+            *head, clone(state["carry"]), sim.init_reduce_acc(), *common,
+            site=site, fleet=fleet)
+        _, _, out_p = k3.block_step_obs_plain(
+            *head, clone(state["carry"]), sim.init_reduce_acc(), *common,
+            site=site, fleet=fleet, obs=obs)
+        torch.cuda.synchronize()
+        if not same_out(out_k, out_2):
+            fail("K8: a second run on the same inputs is not bit-identical")
+        if not all(torch.equal(acc_k[k], acc_a[k]) for k in acc_k):
+            fail("K8: the statistics differ from the acc kernel's")
+        n_leaves = check_chain("K8", out_k["telemetry_chain"],
+                               out_p["telemetry_chain"])
+        p64 = _plain_sums(out_p["telemetry_chain"], sums)
+        r, e = check_sketch("K8", out_k["telemetry"], out_p["telemetry"],
+                            p64)
+        rel, err = max(rel, r), max(err, e)
+        if int(out_k["telemetry"]["csi_hist"].sum()) != \
+                int((ins.rows_i[0] < dur).sum()) * cfg.n_chains:
+            fail("K8: the csi histogram does not hold every chain-second")
+    print(f"K8 vs plain on 2 blocks x {cfg.n_chains} fleet sites (site "
+          f"geometry, level full): {n_leaves} per-chain leaves, counts, "
+          f"extrema and the csi histogram bit-identical; float sums within "
+          f"{rel:.3g} (relative; {err:.3g} absolute) of the float64 plain "
+          "sums; a rerun bit-identical; the statistics equal the acc "
+          "kernel's")
+    return rel, err
+
+
+def phase_k9(dev):
+    fp = fleet_f()
+    cfg = SimConfig(**dict(HEADLINE, start=CHECK_START, fleet=fp,
+                           analytics="full"))
+    sim, state, blocks = fleet_blocks(cfg, dev)
+    _, _, site = sim.geometry_args(state)
+    fleet = sim.fleet_leaves(state)
+    mw, n = cfg.meter_max_w, cfg.n_chains
+    params = dataclasses.replace(sim._fleet_params, capacity_w=K9_CAPACITY,
+                                 lolp_k=K9_LOLP_K)
+    many = torch.arange(n, device=dev, dtype=torch.int32) % K9_MANY_COHORTS
+    wide = dataclasses.replace(params, bins=K9_WIDE_BINS)
+    own = state["fleet"]["cohort"], sim._n_cohorts
+    runs = (("3 cohorts, shared-memory histograms", *own, params,
+             (True, True)),
+            (f"{K9_MANY_COHORTS} cohorts, global-atomics cohort histogram",
+             many, K9_MANY_COHORTS, params, (True, False)),
+            (f"{K9_WIDE_BINS} bins, global-atomics residual, exceedance "
+             "and cohort histograms", *own, wide, (False, False)))
+    rel = err = 0.0
+    report = []
+    for label, cohort, C, prm, paths in runs:
+        obs = k3.Observers(analytics="full", params=prm, cohort=cohort,
+                           n_cohorts=C, per_chain=True)
+        hist_bytes = 4 * (prm.bins + len(prm.thresholds) + 3)
+        coh_bytes = 4 * C * (prm.bins + 2)
+        if (hist_bytes <= k3.SMEM_MAX,
+                hist_bytes + coh_bytes <= k3.SMEM_MAX) != paths:
+            fail(f"K9: the {label} run would not take that path")
+        sums = [(f"{k}_{f}", f"{k}_{f}") for f in ("meter", "pv", "residual")
+                for k in ("sum", "cov_sum", "cohort_sum")]
+        events = 0
+        for ins, tables in blocks:
+            head = head_of(state, ins, tables)
+            common = (cfg.duration_s, mw, None, None)
+            _, _, out_k = k3.block_step_obs(
+                *head, clone(state["carry"]), sim.init_reduce_acc(), *common,
+                site=site, fleet=fleet, obs=obs)
+            _, _, out_2 = k3.block_step_obs(
+                *head, clone(state["carry"]), sim.init_reduce_acc(), *common,
+                site=site, fleet=fleet, obs=obs)
+            _, _, out_p = k3.block_step_obs_plain(
+                *head, clone(state["carry"]), sim.init_reduce_acc(), *common,
+                site=site, fleet=fleet, obs=obs)
+            torch.cuda.synchronize()
+            if not same_out(out_k, out_2):
+                fail(f"K9 ({label}): a second run is not bit-identical")
+            nl = check_chain(f"K9 ({label})", out_k["fleet_chain"],
+                             out_p["fleet_chain"])
+            p64 = _plain_sums(out_p["fleet_chain"], sums, cohort, C)
+            r, e = check_sketch(f"K9 ({label})", out_k["fleet"],
+                                out_p["fleet"], p64)
+            rel, err = max(rel, r), max(err, e)
+            d = out_k["fleet"]
+            total = int(d["count"])
+            for leaf in ("res_hist", "exceed", "cohort_count", "cohort_hist"):
+                if int(d[leaf].sum()) != total:
+                    fail(f"K9 ({label}): {leaf} does not hold every sample")
+            events += int(d["lol_events"])
+        if events == 0:
+            fail(f"K9 ({label}): the check blocks saw no loss-of-load run")
+        report.append(f"{label}: {nl} per-chain leaves, every count, "
+                      f"histogram and extremum bit-identical, {events} LOLP "
+                      "events")
+    print(f"K9 vs plain on 2 blocks x {n} fleet sites (site geometry, level "
+          f"full, capacity {K9_CAPACITY} W, lolp_k {K9_LOLP_K}): "
+          + "; ".join(report) + f"; float sums within {rel:.3g} "
+          f"(relative; {err:.3g} absolute) of the float64 plain sums; "
+          "reruns bit-identical")
+    return rel, err
+
+
+def index_order(part, kinds):
+    """The collapse's plain fold on the host: the per-CTA rows combined in
+    index order, sums in float64 (python floats), by kind."""
+    rows = part.cpu().tolist()
+    out = list(rows[0])
+    for row in rows[1:]:
+        out = [x + y if k == 0 else (min(x, y) if k == 1 else max(x, y))
+               for x, y, k in zip(out, row, kinds)]
+    return torch.tensor(out, dtype=torch.float64)
+
+
+def check_collapse(partials, n_cohorts):
+    """collapse_partials on the kernel's per-CTA rows: bit for bit against
+    the host's index-order fold, and within 1e-12 of the rows' absolute
+    sum from collapse_plain.  Returns the largest (absolute, relative)
+    difference from collapse_plain."""
+    err = rel = 0.0
+    for name, part in partials.items():
+        kinds = k3.PART_KINDS[name]
+        if name == "coh_part":
+            kinds = kinds * n_cohorts
+        got = k3.collapse_partials(part, kinds)
+        plain = k3.collapse_plain(part, kinds)
+        torch.cuda.synchronize()
+        if not torch.equal(got.cpu(), index_order(part, kinds)):
+            fail(f"collapse of {name}: not the index-order fold")
+        d = (got - plain).abs()
+        scale = part.abs().sum(0)
+        if bool((d > 1e-12 * scale).any()):
+            fail(f"collapse of {name}: {float(d.max()):.3g} from the plain "
+                 "version")
+        err = max(err, float(d.max()))
+        rel = max(rel, float((d / scale.clamp_min(1e-300)).max()))
+    return err, rel
+
+
+def phase_k89(dev):
+    """K8 and K9 in one launch, the instantiation path F runs: both
+    observers at level full with the fleet's own cohorts, on path F's
+    config and two check blocks; then the collapse on its partial rows."""
+    fp = fleet_f()
+    cfg = SimConfig(**dict(HEADLINE, start=CHECK_START, fleet=fp,
+                           telemetry="full", analytics="full"))
+    sim, state, blocks = fleet_blocks(cfg, dev)
+    _, _, site = sim.geometry_args(state)
+    fleet = sim.fleet_leaves(state)
+    obs = dataclasses.replace(sim.observers(state), per_chain=True)
+    C = obs.n_cohorts
+    tel_sums = [(f"{k}_{f}", f"{k}_{f}") for f in ("meter", "csi", "pv",
+                                                  "residual")
+                for k in ("sum", "sumsq")]
+    flt_sums = [(f"{k}_{f}", f"{k}_{f}") for f in ("meter", "pv",
+                                                  "residual")
+                for k in ("sum", "cov_sum", "cohort_sum")]
+    rel = err = c_err = c_rel = 0.0
+    n_leaves = 0
+    for ins, tables in blocks:
+        head = head_of(state, ins, tables)
+        common = (cfg.duration_s, cfg.meter_max_w, None, None)
+        args = dict(site=site, fleet=fleet, obs=obs)
+        _, acc_k, out_k = k3.block_step_obs(
+            *head, clone(state["carry"]), sim.init_reduce_acc(), *common,
+            **args)
+        _, _, out_2 = k3.block_step_obs(
+            *head, clone(state["carry"]), sim.init_reduce_acc(), *common,
+            **args)
+        _, acc_a = k3.block_step_acc(
+            *head, clone(state["carry"]), sim.init_reduce_acc(), *common,
+            site=site, fleet=fleet)
+        _, _, out_p = k3.block_step_obs_plain(
+            *head, clone(state["carry"]), sim.init_reduce_acc(), *common,
+            **args)
+        torch.cuda.synchronize()
+        if not same_out(out_k, out_2):
+            fail("K8+K9: a second run on the same inputs is not "
+                 "bit-identical")
+        if not all(torch.equal(acc_k[k], acc_a[k]) for k in acc_k):
+            fail("K8+K9: the statistics differ from the acc kernel's")
+        n_leaves = check_chain("K8+K9", out_k["telemetry_chain"],
+                               out_p["telemetry_chain"]) + \
+            check_chain("K8+K9", out_k["fleet_chain"], out_p["fleet_chain"])
+        for d, sums in (("telemetry", tel_sums), ("fleet", flt_sums)):
+            p64 = _plain_sums(out_p[f"{d}_chain"], sums, obs.cohort, C)
+            r, e = check_sketch(f"K8+K9 {d}", out_k[d], out_p[d], p64)
+            rel, err = max(rel, r), max(err, e)
+        total = int(out_k["fleet"]["count"])
+        if int(out_k["telemetry"]["csi_hist"].sum()) != total or total != \
+                int((ins.rows_i[0] < cfg.duration_s).sum()) * cfg.n_chains:
+            fail("K8+K9: the csi histogram or the sketch misses samples")
+        for leaf in ("res_hist", "exceed", "cohort_count", "cohort_hist"):
+            if int(out_k["fleet"][leaf].sum()) != total:
+                fail(f"K8+K9: {leaf} does not hold every sample")
+        e, r = check_collapse(out_k["partials"], C)
+        c_err, c_rel = max(c_err, e), max(c_rel, r)
+    print(f"K8+K9 vs plain on 2 blocks x {cfg.n_chains} fleet sites (site "
+          f"geometry, both level full, {C} cohorts: path F's launch): "
+          f"{n_leaves} per-chain leaves, counts, extrema and histograms "
+          f"bit-identical; float sums within {rel:.3g} (relative; "
+          f"{err:.3g} absolute) of the float64 plain sums; a rerun "
+          "bit-identical; the statistics equal the acc kernel's")
+    print(f"collapse on K8+K9's per-CTA rows ({', '.join(out_k['partials'])}"
+          f"; 2 blocks): bit-identical to the host's index-order float64 "
+          f"fold; max abs {c_err:.3g} (relative {c_rel:.3g}) from "
+          "collapse_plain")
+    return (rel, err), (c_rel, c_err)
+
+
 def run_path(name, need, fn):
     """Drive one path with every counter at 0 before; returns
     ``(result, wall seconds, launches)``."""
@@ -723,6 +1211,129 @@ def phase_path_d():
     return launches
 
 
+def phase_path_f(dev):
+    fp = fleet_f()
+    cfg = SimConfig(**dict(HEADLINE, fleet=fp, telemetry="full",
+                           analytics="full"))
+    sim = Simulation(cfg, device=dev)
+    # the wall ends with the run total on the host, as a user reads it
+    (reduced, summary), wall, launches = run_path(
+        "F", ("threefry_fill", "sampler_windows", "sampler_windows_regime",
+              "block_step_site", "block_step_fleet",
+              "block_step_tel_analytics", "chainwise_collapse"),
+        lambda: (sim.run_reduced(), sim.fleet_summary()))
+    n = sim.config.n_chains
+    pv_max = check_reduced("F", reduced, cfg.duration_s)
+    total = n * cfg.duration_s
+    if summary["count"] != total or \
+            sum(c["count"] for c in summary["cohorts"]) != total or \
+            summary["regimes"]["covered"]["seconds"] + \
+            summary["regimes"]["clear"]["seconds"] != total:
+        fail(f"path F: the fleet sketch holds {summary['count']} of "
+             f"{total} site-seconds")
+    hist = sim._fleet_total["res_hist"]
+    if int(hist.sum()) != total or int(sim._fleet_total["exceed"].sum()) \
+            != total:
+        fail("path F: the residual histogram or exceedance slots lose "
+             "samples")
+    tel_s = sim.tel_summary
+    if tel_s["count"] != n * cfg.block_s or any(
+            f["nan"] or f["inf"] for f in tel_s["fields"].values()):
+        fail(f"path F: the last block's telemetry: {tel_s}")
+    limited = np.isfinite(np.asarray(fp.ac_limit_w))
+    over = reduced["pv_max"][limited] > np.asarray(
+        fp.ac_limit_w, np.float32)[limited]
+    if over.any():
+        fail(f"path F: {int(over.sum())} clipped sites above their limit")
+    q = summary["residual"]["quantiles"]
+    print(f"path F (fleet reduce, synthetic({n}, seed={FLEET_SEED}), "
+          f"analytics and telemetry full): {n} sites x {cfg.duration_s} s "
+          f"in {sim.n_blocks} blocks: {wall:.3f} s wall, "
+          f"{total / wall:.6g} site-s/s; fleet pv_max {pv_max:.2f} W, every "
+          f"clipped site within its limit; residual p1/p50/p99 "
+          f"{q['p1']:.1f}/{q['p50']:.1f}/{q['p99']:.1f} W, LOLP "
+          f"{summary['lolp']['prob']:.3g} ({summary['lolp']['events']} "
+          f"events), ramps {summary['ramp']}; last block's telemetry: csi "
+          f"mean {tel_s['fields']['csi']['mean']:.4f}, covered "
+          f"{tel_s['cloud_occupancy']['covered']:.0f} of {tel_s['count']:.0f}"
+          f"; launches {launches}")
+    return launches
+
+
+def phase_path_g():
+    from tmhpvsim_torch.cli import main as cli
+
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    out = os.path.join(build.BUILD_DIR, "path_g_reduce.csv")
+    rep = os.path.join(build.BUILD_DIR, "path_g_report.json")
+    try:
+        rc, wall, launches = run_path(
+            "G", ("sampler_windows_regime", "block_step_site",
+                  "block_step_fleet", "block_step_analytics",
+                  "chainwise_collapse"),
+            lambda: cli(["pvsim", out] + PATH_G_ARGS + ["--run-report", rep]))
+        if rc != 0:
+            fail(f"path G: the CLI returned {rc}")
+        with open(out) as f:
+            rows = f.read().splitlines()
+        with open(rep) as f:
+            report = json.load(f)
+    finally:
+        for path in (out, rep):
+            if os.path.exists(path):
+                os.remove(path)
+    n = PATH_G_SITES
+    if len(rows) != n + 2 or rows[-1].split(",")[0] != "ensemble":
+        fail(f"path G: {len(rows)} CSV lines")
+    fleet = report.get("fleet")
+    if fleet is None or fleet["level"] != "risk" or \
+            fleet["count"] != n * 3600 or len(fleet["cohorts"]) != 3:
+        fail(f"path G: run report fleet section {fleet}")
+    print(f"path G (CLI pvsim --output reduce --fleet-synth {n} --analytics "
+          f"risk --duration 3600 --run-report): {wall:.3f} s wall incl. "
+          f"the CSV and the report; {n} chain rows plus the ensemble row; "
+          f"report fleet count {fleet['count']}, p50 "
+          f"{fleet['residual']['quantiles']['p50']:.1f} W; launches "
+          f"{launches}")
+    return launches
+
+
+def phase_path_h(dev):
+    """Path F's fleet over 3 blocks with each observer instantiation on
+    its own: none, telemetry only, analytics only.  Returns each run's
+    launches."""
+    fp = fleet_f()
+    base = dict(HEADLINE, start=CHECK_START, duration_s=PATH_H_BLOCKS *
+                HEADLINE["block_s"], fleet=fp)
+    runs = (("H0", {}, ("sampler_windows_regime", "block_step_site",
+                        "block_step_fleet")),
+            ("H8", dict(telemetry="full"), ("block_step_tel",)),
+            ("H9", dict(analytics="full"), ("block_step_analytics",
+                                            "chainwise_collapse")))
+    out, first, walls = {}, None, []
+    for name, obs, need in runs:
+        sim = Simulation(SimConfig(**dict(base, **obs)), device=dev)
+        reduced, wall, out[name] = run_path(name, need, sim.run_reduced)
+        check_reduced(name, reduced, base["duration_s"])
+        if first is None:
+            first = reduced
+        elif any(not np.array_equal(reduced[k], first[k]) for k in first):
+            fail(f"path {name}: the observers change the statistics")
+        n = sim.config.n_chains
+        if name == "H8" and sim.tel_summary["count"] != n * base["block_s"]:
+            fail(f"path H8: the last block's telemetry {sim.tel_summary}")
+        if name == "H9" and sim.fleet_summary()["count"] != \
+                n * base["duration_s"]:
+            fail("path H9: the fleet sketch misses site-seconds")
+        walls.append(f"{name} {wall:.3f} s")
+    print(f"path H (path F's fleet, {PATH_H_BLOCKS} blocks from "
+          f"{CHECK_START}, one observer instantiation each): "
+          f"{', '.join(walls)} wall; the statistics bit-identical across "
+          f"the three; launches "
+          f"{ {k: {c: v for c, v in d.items() if v} for k, d in out.items()} }")
+    return out
+
+
 def phase_timing(dev):
     """Each kernel and its plain version at the main paths' shapes."""
     cfg = SimConfig(**HEADLINE)
@@ -826,6 +1437,94 @@ def phase_timing(dev):
     return out
 
 
+def phase_timing_fleet(dev):
+    """K7, K8, K9 and the collapse, and their plain versions, on path F's
+    noon block (65536 fleet sites x 1080 s)."""
+    fp = fleet_f()
+    cfg = SimConfig(**dict(HEADLINE, fleet=fp, telemetry="full",
+                           analytics="full"))
+    sim = Simulation(cfg, device=dev)
+    n, T = sim.config.n_chains, cfg.block_s
+    state = sim.init_state()
+    ins = sim.host_inputs(40)
+    regime = state["fleet"]["regime"]
+    args = (state["k_arr"], state["k_min"], state["cc_carry"], state["cc0"],
+            ins.bounds, ins.mh_idx, ins.mh_frac)
+    b = ins.bounds
+    n_min = int(ins.mh_idx.shape[0])
+    out = {}
+    ms = time_ms(lambda: k2.sampler_windows(*args, regime=regime))
+    plain = time_ms(lambda: k2.windows_plain(*args, regime=regime), reps=2)
+    # K2's work (the regime adds one int32 load and an index per chain)
+    hashes = 4 + b.n_hours * 6 + b.n_cloudy * 6 + b.n_cd * 2 + \
+        b.n_days * 8 + n_min * 5
+    f32 = (b.n_hours * 30 + b.n_cloudy * 40 + b.n_cd * NORMAL_F
+           + b.n_days * 60 + n_min * (2 * NORMAL_F + 12))
+    nbytes = n * (8 * 2 + 8 + 4) + 4 * n * (2 * b.n_hours + b.n_cd +
+                                             b.n_days + 2 * n_min + 1)
+    out["K7R"] = (ms, plain, *bound(n * hashes * HASH_I, n * f32, nbytes))
+    tables, _ = k2.sampler_windows(*args, regime=regime)
+    _, _, site = sim.geometry_args(state)
+    fleet = sim.fleet_leaves(state)
+    head = (tables, ins.rows_i, ins.rows_f, state["k_scan"],
+            state["k_meter"], clone(state["carry"]))
+    tail = (cfg.duration_s, cfg.meter_max_w, None, None)
+    int_ops = n * (T * K3_SECOND_I + (T // 60) * K3_MINUTE_I)
+    table_bytes = sum(t.numel() * 4 for t in tables.values())
+    in_bytes = (table_bytes + n * 8 * 2 + n * 4 * 3 * 2 + n * 4 * 6 + 12 * 4
+                + ins.rows_i.numel() * 4 + ins.rows_f.numel() * 4
+                + n * 4 * 4)
+    f_k7 = n * T * (K3_SECOND_F + K6_SITE_SECOND_F + NORMAL_F + UNIFORM_F
+                    + 1 + K7_SECOND_F) + T * K6_TIME_F
+    acc = sim.init_reduce_acc()
+    ms = time_ms(lambda: k3.block_step_acc(*head, acc, *tail, site=site,
+                                           fleet=fleet))
+    plain = time_ms(lambda: k3.block_step_plain(*head, acc, *tail, site=site,
+                                                fleet=fleet), reps=1)
+    out["K7T"] = (ms, plain, *bound(int_ops, f_k7, in_bytes + n * 4 * 7 * 2))
+    n_ctas = (n + k3.THREADS - 1) // k3.THREADS
+    obs_t = k3.Observers(telemetry="full")
+    obs_f = sim.observers(state)
+    obs_f = dataclasses.replace(obs_f, telemetry="off")
+    obs_tf = sim.observers(state)
+    nb = sim._fleet_params.bins + 2
+    C = sim._n_cohorts
+    tel_b = n_ctas * 25 * 8 + 9 * 4
+    flt_b = (n_ctas * (15 + 6 * C) * 8 + n * 4 + 4 * (nb + 8 + C * nb))
+    for key, obs, f_extra, i_extra, b_extra in (
+            ("K8", obs_t, TEL_SECOND_F, TEL_SECOND_I, tel_b),
+            ("K9", obs_f, FLT_SECOND_F, FLT_SECOND_I, flt_b),
+            ("K89", obs_tf, TEL_SECOND_F + FLT_SECOND_F,
+             TEL_SECOND_I + FLT_SECOND_I, tel_b + flt_b)):
+        ms = time_ms(lambda: k3.block_step_obs(*head, acc, *tail, site=site,
+                                               fleet=fleet, obs=obs))
+        plain = time_ms(lambda: k3.block_step_obs_plain(
+            *head, acc, *tail, site=site, fleet=fleet, obs=obs), reps=1)
+        out[key] = (ms, plain, *bound(
+            int_ops + n * T * i_extra, f_k7 + n * T * f_extra,
+            in_bytes + n * 4 * 7 * 2 + b_extra))
+    # the collapse on its own: the three per-CTA row sets of this block's
+    # K8+K9 launch, as path F collapses them per block
+    _, _, o = k3.block_step_obs(*head, acc, *tail, site=site, fleet=fleet,
+                                obs=dataclasses.replace(obs_tf,
+                                                        per_chain=True))
+    parts = [(v, k3.PART_KINDS[k] * (C if k == "coh_part" else 1))
+             for k, v in o["partials"].items()]
+
+    def collapse(fn):
+        return [fn(v, kinds) for v, kinds in parts]
+
+    ms = time_ms(lambda: collapse(k3.collapse_partials), reps=20)
+    plain = time_ms(lambda: collapse(k3.collapse_plain), reps=5)
+    numel = sum(v.numel() for v, _ in parts)
+    out["KC"] = (ms, plain, *bound(0, numel, numel * 8 + sum(
+        v.shape[1] * 8 for v, _ in parts)))
+    for name, (ms, plain, bms, by) in out.items():
+        print(f"timing {name}: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
+              f"bound {bms:.4f} ms ({by})")
+    return out
+
+
 def phase_reference(dev):
     path = os.path.join(HERE, "tests", "data", "torch_port_reference.json")
     with open(path) as f:
@@ -868,9 +1567,69 @@ def phase_reference(dev):
     stats("site-grid", Simulation(SimConfig(**dict(SMALL, site_grid=grid)),
                                   device=dev).run_reduced(),
           ref["site_grid"]["reduced"])
+    fr = ref["fleet"]
+    n_f, seed_f = fr["synthetic"]
+    sim = Simulation(SimConfig(**dict(
+        SMALL, fleet=FleetParams.synthetic(n_f, seed=seed_f),
+        **fr["config"])), device=dev)
+    stats("fleet", sim.run_reduced(), fr["reduced"])
+    summary = sim.fleet_summary()
+    slack = max(2, int(1e-4 * fr["summary"]["count"]))
+    width = fr["summary"]["sketch"]["width_w"]
+    worst_int = held_summary("fleet summary", summary, fr["summary"], slack,
+                             width)
     print("reference: small_config on the card matches the JAX package "
           "(max relative error, relative to max(|JAX|, 1)): "
-          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + f"; fleet summary (synthetic({n_f}, seed={seed_f}), analytics "
+          f"full): floats within rtol 1e-4 (quantiles within one sketch bin,"
+          f" {width:.3g} W), counts within {slack} (largest difference "
+          f"{worst_int})")
+
+
+def held_summary(what, have, want, slack, width):
+    """A fleet summary against the JAX package's: the same keys and
+    Nones; integer counts within ``slack`` (``count`` exact; a residual a
+    few float32 ULP off on the card can cross a sketch bin edge); quantiles
+    within one sketch bin ``width``; other floats rtol 1e-4 / atol 1e-2.
+    Returns the largest integer difference."""
+    worst = 0
+    if isinstance(want, dict):
+        if set(have) != set(want):
+            fail(f"reference: {what} keys {sorted(have)} != {sorted(want)}")
+        for k in want:
+            sub = f"{what}.{k}"
+            if k == "count" and isinstance(want[k], int):
+                if have[k] != want[k]:
+                    fail(f"reference: {sub} {have[k]} != {want[k]}")
+                continue
+            w = width if k.startswith("p") and k[1:].isdigit() else None
+            if w is not None:
+                if abs(have[k] - want[k]) > w:
+                    fail(f"reference: {sub} {have[k]} vs {want[k]}")
+                continue
+            worst = max(worst, held_summary(sub, have[k], want[k], slack,
+                                            width))
+        return worst
+    if isinstance(want, list):
+        if len(have) != len(want):
+            fail(f"reference: {what} has {len(have)} entries")
+        for i, (h, w) in enumerate(zip(have, want)):
+            worst = max(worst, held_summary(f"{what}[{i}]", h, w, slack,
+                                            width))
+        return worst
+    if want is None or isinstance(want, str):
+        if have != want:
+            fail(f"reference: {what} {have!r} != {want!r}")
+        return 0
+    if isinstance(want, int) and not isinstance(want, bool):
+        d = abs(int(have) - want)
+        if d > slack:
+            fail(f"reference: {what} {have} != {want}")
+        return d
+    if not np.isclose(float(have), float(want), rtol=1e-4, atol=1e-2):
+        fail(f"reference: {what} {have} vs {want}")
+    return 0
 
 
 def main() -> int:
@@ -888,14 +1647,22 @@ def main() -> int:
     err_s, err_r = phase_k4_series(dev)
     err_t = phase_k4_trace(dev)
     err6 = phase_k6(dev)
+    err7r, err7t = phase_k7(dev)
+    err8 = phase_k8(dev)
+    err9 = phase_k9(dev)
+    err89, err_c = phase_k89(dev)
     torch.cuda.empty_cache()
     _, launch_r = phase_path_r(dev)
     launch_a = phase_path_a(dev)
     launch_b = phase_path_b(dev)
     launch_c = phase_path_c(dev)
     phase_path_d()
+    launch_f = phase_path_f(dev)
+    phase_path_g()
+    launch_h = phase_path_h(dev)
     torch.cuda.empty_cache()
     timing = phase_timing(dev)
+    timing.update(phase_timing_fleet(dev))
     phase_reference(dev)
     sim_py = "tmhpvsim_tpu/engine/simulation.py"
     src = "tmhpvsim_torch/csrc/block_step.cu"
@@ -911,14 +1678,29 @@ def main() -> int:
         "K4T": ("block_step_trace", src, f"{sim_py}:844", err_t, launch_c),
         "K6": ("block_step_site", src, "tmhpvsim_tpu/models/solar.py:434",
                err6, launch_b),
+        "K7R": ("sampler_windows_regime", "tmhpvsim_torch/csrc/windows.cu",
+                "tmhpvsim_tpu/models/markov_hourly.py:70", err7r, launch_f),
+        "K7T": ("block_step_fleet", src, f"{sim_py}:1228", err7t,
+                launch_h["H0"]),
+        "K8": ("block_step_tel", src, "tmhpvsim_tpu/obs/telemetry.py:110",
+               err8, launch_h["H8"]),
+        "K9": ("block_step_analytics", src,
+               "tmhpvsim_tpu/obs/analytics.py:223", err9, launch_h["H9"]),
+        "K89": ("block_step_tel_analytics", src, f"{sim_py}:1524", err89,
+                launch_f),
+        "KC": ("chainwise_collapse", src,
+               "tmhpvsim_tpu/obs/analytics.py:311", err_c, launch_f),
     }
     rows = []
     for key, (name, source, replaces, err, launches) in rows_of.items():
         ms, plain, bms, by = timing[key]
+        # the observers' sums are checked relative to float64: both errors
+        rel, err = err if isinstance(err, tuple) else (None, err)
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                     "bound_ms": bms, "bound_by": by, "library_ms": None})
+                     "bound_ms": bms, "bound_by": by, "library_ms": None,
+                     **({} if rel is None else {"max_rel_err": rel})})
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

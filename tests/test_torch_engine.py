@@ -1,5 +1,5 @@
-"""The port's engine (reduce, ensemble and trace output, shared site and
-site grid) and CLI against the JAX package, on the CPU.
+"""The port's engine (reduce, ensemble and trace output, shared site, site
+grid and heterogeneous fleet) and CLI against the JAX package, on the CPU.
 
 Tolerance (the bound the JAX package holds its own formulations to,
 tests/test_engine.py): ``n_seconds`` exact, every other statistic and
@@ -7,6 +7,15 @@ every per-second value rtol 2e-5 / atol 1e-2; the time axis (epochs, the
 CSV ``time`` column) exact.  Chain keys are bit-exact.  Within the port a
 different block partition folds the same seconds in the same order, so it
 must give identical bits.
+
+The fleet run's observers: integer counts exact where the per-second
+residual is bit-identical to the JAX package's (checked first, on the
+fleet's trace); where it is not, a count may differ by at most the number
+of residual samples that differ (the suite runs JAX with x64, which
+evaluates part of its physics in float64, so most daylight residuals
+differ by a few float32 ULP and a sample can cross a sketch bin edge).
+Extrema and sums rel 1e-4 (float32 physics through another libm; sums
+over chains reassociated).
 """
 
 import csv
@@ -22,8 +31,12 @@ from tmhpvsim_torch import config as tcfg
 from tmhpvsim_torch.engine import convert
 from tmhpvsim_torch.engine.simulation import REDUCE_STATS
 from tmhpvsim_torch.engine.simulation import Simulation as TSim
+from tmhpvsim_torch.fleet import FleetParams as TFleet
+from tmhpvsim_torch.obs import telemetry as ttel
 from tmhpvsim_tpu import config as jcfg
 from tmhpvsim_tpu.engine import Simulation as JSim
+from tmhpvsim_tpu.fleet import FleetParams as JFleet
+from tmhpvsim_tpu.obs import telemetry as jtel
 
 SMALL = dict(start="2019-09-05 10:00:00", duration_s=7200, n_chains=3,
              seed=7, block_s=3600)
@@ -32,6 +45,13 @@ GRID = ((46, 50), (9, 13), 2, 2)
 OUTPUTS = ("meter", "pv", "residual")
 REF = os.path.join(os.path.dirname(__file__), "data",
                    "torch_port_reference.json")
+#: the fleet run: FleetParams.synthetic(12, seed=3) (weather regimes 0-2,
+#: 3 cohorts, clipped inverters, per-site demand) with both observers at
+#: level full; a lower capacity and a 5 s run length so that loss-of-load
+#: runs occur in two hours
+FLEET_SYNTH = (12, 3)
+FLEET_KW = dict(telemetry="full", analytics="full",
+                analytics_capacity_w=6000.0, analytics_lolp_k=5)
 
 
 def _jax_sim(impl="scan", **kw):
@@ -74,6 +94,35 @@ def jax_grid():
     return sim, sim.run_reduced()
 
 
+@pytest.fixture(scope="module")
+def jax_fleet():
+    sim = _jax_sim(fleet=JFleet.synthetic(FLEET_SYNTH[0],
+                                          seed=FLEET_SYNTH[1]), **FLEET_KW)
+    return sim, sim.run_reduced()
+
+
+@pytest.fixture(scope="module")
+def fleet_traces():
+    """The fleet run's per-second trace on both sides, and how many
+    residual samples differ in their bits."""
+    want = list(_jax_sim(fleet=JFleet.synthetic(FLEET_SYNTH[0],
+                                                seed=FLEET_SYNTH[1]))
+                .run_blocks())
+    got = list(_port_sim(fleet=TFleet.synthetic(FLEET_SYNTH[0],
+                                                seed=FLEET_SYNTH[1]))
+               .run_blocks())
+    n_diff = sum(int((np.asarray(w.residual) != g.residual).sum())
+                 for w, g in zip(want, got))
+    return want, got, n_diff
+
+
+@pytest.fixture(scope="module")
+def port_fleet():
+    sim = _port_sim(fleet=TFleet.synthetic(FLEET_SYNTH[0],
+                                           seed=FLEET_SYNTH[1]), **FLEET_KW)
+    return sim, sim.run_reduced()
+
+
 def _port_sim(**kw):
     return TSim(tcfg.SimConfig(**dict(SMALL, **kw)), device="cpu")
 
@@ -110,12 +159,13 @@ def _f32_list(a):
 
 
 def test_reference_file_tracks_jax(jax_scan, jax_ensemble, jax_trace,
-                                   jax_grid):
+                                   jax_grid, jax_fleet):
     """tests/data/torch_port_reference.json holds the JAX package's results
     at this shape for chip_smoke.py's reference phase — the reduce
     statistics, every per-second ensemble mean, chain 0's trace over the
-    first hour, and the site-grid reduce statistics; it is written when
-    missing and must equal what the JAX package computes."""
+    first hour, the site-grid reduce statistics, and the fleet run's
+    reduce statistics and fleet summary; it is written when missing and
+    must equal what the JAX package computes."""
     doc = {
         "config": SMALL,
         "reduced": {k: np.asarray(v).tolist()
@@ -128,6 +178,10 @@ def test_reference_file_tracks_jax(jax_scan, jax_ensemble, jax_trace,
             for k in ("meter", "pv")}},
         "site_grid": {"regular": GRID, "reduced": {
             k: np.asarray(v).tolist() for k, v in jax_grid[1].items()}},
+        "fleet": {"synthetic": FLEET_SYNTH, "config": FLEET_KW,
+                  "reduced": {k: np.asarray(v).tolist()
+                              for k, v in jax_fleet[1].items()},
+                  "summary": jax_fleet[0].fleet_summary()},
     }
     if not os.path.exists(REF):
         os.makedirs(os.path.dirname(REF), exist_ok=True)
@@ -240,8 +294,9 @@ def _jax_state_numpy(state):
     for k in convert.FLOAT_LEAVES:
         out[k] = np.asarray(state[k])
     out["carry"] = {k: np.asarray(v) for k, v in state["carry"].items()}
-    if "site" in state:
-        out["site"] = {k: np.asarray(v) for k, v in state["site"].items()}
+    for tree in ("site", "fleet"):
+        if tree in state:
+            out[tree] = {k: np.asarray(v) for k, v in state[tree].items()}
     return out
 
 
@@ -355,3 +410,145 @@ def test_without_device_needs_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["pvsim", str(tmp_path / "x.csv"), "--output", "reduce",
               "--no-realtime", "--duration", "60", "--seed", "1"])
+
+
+# --------------------------------------------------------------------------
+# heterogeneous fleet with telemetry and analytics
+# --------------------------------------------------------------------------
+
+
+def _assert_summary(got, want, path="", slack=0):
+    """Host summaries: same structure, ints within ``slack`` (``count``
+    exact), floats rel 1e-4 (plus, for the probabilities, ``slack``
+    samples' worth)."""
+    if isinstance(want, dict):
+        assert set(got) == set(want), path
+        for k in want:
+            _assert_summary(got[k], want[k], f"{path}.{k}",
+                            0 if k == "count" else slack)
+    elif isinstance(want, list):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            _assert_summary(g, w, f"{path}[{i}]", slack)
+    elif want is None or isinstance(want, (bool, str)):
+        assert got == want, path
+    elif isinstance(want, int):
+        assert abs(got - want) <= slack, path
+    else:
+        assert got == pytest.approx(want, rel=1e-4, abs=1e-6), path
+
+
+def test_fleet_reduce_matches_jax(jax_fleet, port_fleet):
+    assert port_fleet[0].config.n_chains == FLEET_SYNTH[0]
+    assert port_fleet[0].config.site_grid is not None
+    _assert_engine_close(jax_fleet[1], port_fleet[1])
+
+
+def test_fleet_trace_matches_jax(fleet_traces):
+    """The fleet's per-second trace against the JAX package's (the engine
+    tolerance), and every clipped site within its AC limit."""
+    want, got, _ = fleet_traces
+    _assert_blocks_close(want, got)
+    limit = np.asarray(TFleet.synthetic(FLEET_SYNTH[0],
+                                        seed=FLEET_SYNTH[1]).ac_limit_w,
+                       np.float32)
+    for blk in got:
+        assert (blk.pv <= limit[:, None]).all()
+    assert max(float(b.pv.max()) for b in got) > 10.0
+
+
+def test_fleet_summary_matches_jax(jax_fleet, port_fleet, fleet_traces):
+    """The run totals (int64 / float64 host merges of each block's delta)
+    and the fleet section: counts exact if every residual sample is
+    bit-identical, else each within the number that is not; count and
+    the cohort counts always exact; the rest rel 1e-4."""
+    slack = fleet_traces[2]
+    jt, tt = jax_fleet[0]._fleet_total, port_fleet[0]._fleet_total
+    assert set(jt) == set(tt)
+    for k, want in jt.items():
+        want = np.asarray(want)
+        assert tt[k].dtype == want.dtype, k
+        if k in ("count", "cohort_count", "regime_observed"):
+            assert np.array_equal(tt[k], want), k
+        elif want.dtype.kind == "i":
+            assert np.abs(tt[k] - want).max() <= slack, k
+        else:
+            np.testing.assert_allclose(tt[k], want, rtol=1e-4, err_msg=k)
+    want = jax_fleet[0].fleet_summary()
+    got = port_fleet[0].fleet_summary()
+    _assert_summary(got, want, slack=slack)
+    assert got["lolp"]["events"] > 0 and len(got["cohorts"]) == 3
+    assert got["regimes"]["covered"]["seconds"] > 0
+
+
+def test_fleet_telemetry_matches_jax(jax_fleet, port_fleet):
+    """The last block's telemetry delta (and its summary) against the JAX
+    package's: counts, the csi histogram and the occupancy exact, the
+    moments rel 1e-4."""
+    want = {k: np.asarray(v) for k, v in jax_fleet[0]._tel_last.items()}
+    got = port_fleet[0]._tel_last
+    assert set(got) == set(want)
+    for k, w in want.items():
+        g = got[k].numpy()
+        assert g.dtype == w.dtype and g.shape == w.shape, k
+        if k.startswith(("min_", "max_", "sum_", "sumsq_")):
+            np.testing.assert_allclose(g, w, rtol=1e-4, err_msg=k)
+        else:
+            assert np.array_equal(g, w), k
+    _assert_summary(port_fleet[0].tel_summary, jtel.summarize(want))
+    assert port_fleet[0].tel_summary == ttel.summarize(got)
+
+
+def test_fleet_state_converts(jax_fleet, port_fleet):
+    """The fleet leaves ride the state both ways, equal to the JAX
+    package's."""
+    js = _jax_state_numpy(jax_fleet[0].state)
+    assert set(js["fleet"]) == {"demand_scale", "demand_shift_w",
+                                "pv_scale", "ac_limit_w", "regime",
+                                "cohort"}
+    tstate = convert.state_from_numpy(js, "cpu")
+    fresh = port_fleet[0].init_state()
+    for k, v in js["fleet"].items():
+        assert torch.equal(tstate["fleet"][k], fresh["fleet"][k]), k
+        back = convert.state_to_numpy(tstate)["fleet"][k]
+        assert back.dtype == v.dtype and np.array_equal(back, v), k
+
+
+def test_cli_fleet_run_report(tmp_path):
+    """--fleet-synth with --analytics in reduce mode: one CSV row per site
+    and a run report whose fleet section is the run's fleet_summary()."""
+    from tmhpvsim_torch.cli import main
+
+    out, rep = str(tmp_path / "r.csv"), str(tmp_path / "r.json")
+    argv = ["--output", "reduce", "--no-realtime", "--fleet-synth", "6",
+            "--fleet-seed", "2", "--analytics", "risk", "--duration", "1800",
+            "--seed", "7", "--start", SMALL["start"]]
+    assert main(["pvsim", out, "--device", "cpu", "--run-report", rep]
+                + argv) == 0
+    rows = _read_csv(out)
+    assert len(rows) == 1 + 6 + 1 and rows[-1][0] == "ensemble"
+    with open(rep) as f:
+        report = json.load(f)
+    sim = TSim(tcfg.SimConfig(
+        fleet=TFleet.synthetic(6, seed=2), analytics="risk", seed=7,
+        start=SMALL["start"], duration_s=1800, block_s=1800,
+        output="reduce"), device="cpu")
+    sim.run_reduced()
+    assert report == {"fleet": json.loads(json.dumps(sim.fleet_summary()))}
+    assert report["fleet"]["level"] == "risk"
+
+
+@pytest.mark.parametrize("argv, match", [
+    (["--fleet-synth", "3", "--fleet-csv", "f.csv"], "not allowed"),
+    (["--fleet-synth", "3", "--site-grid", "46:50:2,9:13:2"], "not allowed"),
+    (["--fleet-synth", "0"], "--fleet-synth"),
+    (["--fleet-csv", "missing.csv"], "missing.csv"),
+])
+def test_cli_fleet_refuses(tmp_path, capsys, argv, match):
+    from tmhpvsim_torch.cli import main
+
+    with pytest.raises(SystemExit) as e:
+        main(["pvsim", str(tmp_path / "x.csv"), "--output", "reduce",
+              "--no-realtime", "--duration", "60", "--device", "cpu"]
+             + argv)
+    assert match in str(e.value) + capsys.readouterr().err

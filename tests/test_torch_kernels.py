@@ -14,6 +14,7 @@ is the trace summed over chains.
 """
 
 import ast
+import dataclasses
 import os
 import re
 import shutil
@@ -31,6 +32,7 @@ from tmhpvsim_torch.kernels import block_step as k3
 from tmhpvsim_torch.kernels import build
 from tmhpvsim_torch.kernels import threefry as k1
 from tmhpvsim_torch.kernels import windows as k2
+from tmhpvsim_torch.fleet import FleetParams
 from tmhpvsim_torch.models import solar
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -248,6 +250,113 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
     assert res.returncode != 0 and '"ok"' not in res.stdout
 
 
+def _fleet_block(n=8, device="cpu", **kw):
+    """One daylight block of a synthetic fleet with both observers at
+    level full: (sim, state, head, tail, site, fleet, obs)."""
+    cfg = SimConfig(**dict(CFG, fleet=FleetParams.synthetic(n, seed=1),
+                           telemetry="full", analytics="full", **kw))
+    sim = Simulation(cfg, device=device)
+    state = sim.init_state()
+    ins = sim.host_inputs(0)
+    tables, _ = sim._windows(state, ins)
+    head = (tables, ins.rows_i, ins.rows_f, state["k_scan"],
+            state["k_meter"])
+    tail = (cfg.duration_s, cfg.meter_max_w, None, None)
+    _, _, site = sim.geometry_args(state)
+    return (sim, state, head, tail, site, sim.fleet_leaves(state),
+            sim.observers(state))
+
+
+def test_cpu_fleet_and_observer_wrappers_run_plain():
+    """On the CPU the fleet and observer entries are their plain versions
+    (no launch counted); the observers' statistics are the acc fold's, and
+    the trace with the fleet folds to them."""
+    kernels.reset_counts()
+    sim, state, head, tail, site, fleet, obs = _fleet_block()
+    assert obs.n_cohorts >= 2 and fleet.pv_scale is not None
+    carry = state["carry"]
+    _, acc_o, out = k3.block_step_obs(*head, carry, sim.init_reduce_acc(),
+                                      *tail, site=site, fleet=fleet, obs=obs)
+    _, acc_p, out_p = k3.block_step_obs_plain(
+        *head, carry, sim.init_reduce_acc(), *tail, site=site, fleet=fleet,
+        obs=obs)
+    _, acc_a = k3.block_step_acc(*head, carry, sim.init_reduce_acc(), *tail,
+                                 site=site, fleet=fleet)
+    for k in acc_a:
+        assert torch.equal(acc_o[k], acc_a[k]) and \
+            torch.equal(acc_p[k], acc_a[k]), k
+    for d in ("telemetry", "fleet"):
+        assert out[d].keys() == out_p[d].keys()
+        for k in out[d]:
+            assert torch.equal(out[d][k], out_p[d][k]), (d, k)
+    _, meter, pv_ = k3.block_step_trace(*head, carry, tail[1], None, None,
+                                        site=site, fleet=fleet)
+    fold = {"meter": torch.zeros(meter.shape[1]),
+            "pv": torch.zeros(meter.shape[1])}
+    for s in range(meter.shape[0]):
+        fold["meter"] = fold["meter"] + meter[s]
+        fold["pv"] = fold["pv"] + pv_[s]
+    for k, v in fold.items():
+        assert torch.equal(v, acc_a[f"{k}_sum"]), k
+    assert int(out["fleet"]["count"]) == meter.numel()
+    assert all(c.launches == 0 for c in kernels.COUNTERS)
+
+
+def test_observer_layout_mirrors_the_kernel():
+    """The wrapper's ctypes ``Obs`` has the kernel struct's fields in order,
+    and the collapse kinds have the kernel's partial-row lengths."""
+    text = open(os.path.join(build.CSRC, "block_step.cu")).read()
+    body = re.search(r"struct Obs \{(.*?)\n\};", text, re.S).group(1)
+    names = []
+    for line in body.splitlines():
+        line = line.split("//")[0].strip().rstrip(";")
+        line = re.sub(r"^const\s+", "", line)
+        if not line:
+            continue
+        decl = line.split(None, 1)[1]
+        names += [re.sub(r"[\*\s]|\[\d+\]", "", d) for d in decl.split(",")]
+    assert names == [f for f, _ in k3._Obs._fields_]
+    assert len(k3.TEL_KINDS) == int(re.search(r"#define TEL_LEAVES (\d+)",
+                                              text).group(1))
+    flt_enum = re.search(r"enum FltLeaf \{(.*?)\};", text, re.S).group(1)
+    assert len(k3.FLT_KINDS) == flt_enum.count(",")
+    assert len(k3.COH_KINDS) == int(re.search(r"#define COH_LEAVES (\d+)",
+                                              text).group(1))
+    assert len(k3.TEL_CHAIN_I) == int(re.search(
+        r"#define TEL_CHAIN_I (\d+)", text).group(1))
+    assert len(k3.FLT_CHAIN_F) == int(re.search(
+        r"#define FLT_CHAIN_F (\d+)", text).group(1))
+    for entry in ("collapse_partials", "obs_struct_size"):
+        assert re.search(rf'extern "C" int {entry}\(', text), entry
+
+
+@pytest.mark.parametrize("kw, match", [
+    (dict(analytics="risk"), "params"),
+    (dict(telemetry="heavy"), "telemetry"),
+    (dict(n_cohorts=3), "cohort"),
+    (dict(n_cohorts=3, cohort=torch.tensor([0, 3], dtype=torch.int32)),
+     "outside"),
+])
+def test_observers_refuse_bad_arguments(kw, match):
+    with pytest.raises(ValueError, match=match):
+        k3.Observers(**kw)
+
+
+def test_observer_counts_stay_within_int32():
+    """One block's counts are int32: the kernel's buffers refuse a block
+    of 2**31 chain-seconds or more (65536 x 1080 is 2**26.1)."""
+    obs = k3.Observers(telemetry="light")
+    k3._obs_buffers(obs, 65536, 1080, torch.device("cpu"))
+    with pytest.raises(ValueError, match="int32"):
+        k3._obs_buffers(obs, 2 ** 21, 1080, torch.device("cpu"))
+
+
+def test_collapse_plain_combines_by_kind():
+    part = torch.tensor([[1.0, 5.0, -2.0], [2.0, 3.0, 7.0], [4.0, 9.0, 1.0]],
+                        dtype=torch.float64)
+    assert k3.collapse_plain(part, (0, 1, 2)).tolist() == [7.0, 3.0, 7.0]
+
+
 # --------------------------------------------------------------------------
 # on the card
 # --------------------------------------------------------------------------
@@ -345,3 +454,58 @@ def test_k4_k6_match_plain_on_card(card, grid):
         torch.testing.assert_close(
             k3.device_geometry_fields(ins.rows_f, site),
             k3.geometry_fields_plain(ins.rows_f, site), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hist", ["shared", "cohort", "all"],
+                         ids=["shared-hist", "global-hist",
+                              "global-residual-hist"])
+def test_k7_k8_k9_match_plain_on_card(card, hist):
+    """The fleet transforms, telemetry and analytics kernels against their
+    plain versions: per-chain leaves, counts, histograms and extrema bit
+    for bit, sums over chains within 1e-6 of float64; with 64 cohorts the
+    cohort histogram counts with global atomics, and with 30000 bins the
+    residual histogram and the exceedance slots do too."""
+    sim, state, head, tail, site, fleet, obs = _fleet_block(512, card)
+    if hist == "cohort":
+        obs = dataclasses.replace(obs, n_cohorts=64, cohort=(torch.arange(
+            512, device=card, dtype=torch.int32) % 64))
+    if hist == "all":
+        obs = dataclasses.replace(obs, params=dataclasses.replace(
+            obs.params, bins=30000))
+    obs = dataclasses.replace(obs, per_chain=True)
+
+    def carry():
+        return {k: v.clone() for k, v in state["carry"].items()}
+
+    _, ak, ok = k3.block_step_obs(*head, carry(), sim.init_reduce_acc(),
+                                  *tail, site=site, fleet=fleet, obs=obs)
+    _, ap, op = k3.block_step_obs_plain(*head, carry(), sim.init_reduce_acc(),
+                                        *tail, site=site, fleet=fleet,
+                                        obs=obs)
+    for k in ap:
+        torch.testing.assert_close(ak[k], ap[k], rtol=2e-5, atol=1e-2)
+    for d in ("telemetry_chain", "fleet_chain"):
+        for k in ok[d]:
+            if k in op[d]:
+                assert torch.equal(ok[d][k], op[d][k]), (d, k)
+    for d in ("telemetry", "fleet"):
+        for k, v in op[d].items():
+            if v.dtype == torch.float32 and "sum" in k:
+                torch.testing.assert_close(ok[d][k], v, rtol=1e-6, atol=0.0)
+            else:
+                assert torch.equal(ok[d][k], v), (d, k)
+    # the transforms in the other two epilogues
+    mw = tail[1]
+    _, mk, pk = k3.block_step_trace(*head, carry(), mw, None, None,
+                                    site=site, fleet=fleet)
+    _, mp, pp = k3.trace_plain(*head, carry(), mw, None, None, site=site,
+                               fleet=fleet)
+    assert torch.equal(mk, mp)
+    torch.testing.assert_close(pk, pp, rtol=2e-5, atol=1e-2)
+    _, sk, qk = k3.block_step_series(*head, carry(), mw, None, None,
+                                     site=site, fleet=fleet)
+    _, sp, qp = k3.series_plain(*head, carry(), mw, None, None, site=site,
+                                fleet=fleet)
+    torch.testing.assert_close(sk, sp, rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(qk, qp, rtol=1e-6, atol=1e-3)

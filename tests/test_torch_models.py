@@ -98,8 +98,8 @@ def test_config_fields_and_defaults_match(cls):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("site_grid", object()), ("fleet", object()), ("telemetry", "light"),
-    ("analytics", "risk"), ("compute_dtype", "bf16"),
+    ("site_grid", object()), ("fleet", object()), ("telemetry_strict", True),
+    ("phase_obs", "on"), ("compute_dtype", "bf16"),
     ("kernel_impl", "table"), ("geom_stride", 60), ("block_impl", "wide"),
     ("prng_impl", "rbg"), ("output", "nonsense"), ("dtype", "bfloat16"),
     ("tune", "auto"), ("blocks_per_dispatch", 4), ("rng_batch", "block"),
@@ -120,6 +120,7 @@ def test_parameters_match():
 
     assert tdata.MARKOV_STEP_BINS == jp.MARKOV_STEP_BINS
     assert tdata.MARKOV_STEP_PARAMS == jp.MARKOV_STEP_PARAMS
+    assert tdata.MARKOV_STEP_PARAMS_REGIMES == jp.MARKOV_STEP_PARAMS_REGIMES
     assert tdata.SAPM_MODULE == jp.SAPM_MODULE
     assert tdata.SANDIA_INVERTER == jp.SANDIA_INVERTER
     assert tdata.LINKE_TURBIDITY_MONTHLY_MUNICH == \

@@ -6,13 +6,16 @@ in the JAX package's ``pvsim --backend jax`` file formats.
 * ``ensemble``: the same rows for the per-second fleet means;
 * ``reduce``: per-chain summary statistics plus one fleet ``ensemble`` row.
 
-Each runs for a shared site or a per-chain ``SiteGrid``.
+Each runs for a shared site, a per-chain ``SiteGrid`` or a heterogeneous
+fleet; reduce mode can fold the fleet analytics, whose run totals
+``run_report`` writes as the ``fleet`` section of a JSON.
 """
 
 from __future__ import annotations
 
 import csv
 import dataclasses
+import json
 import time
 from zoneinfo import ZoneInfo
 
@@ -49,22 +52,35 @@ def _paced(blk, rate: float = 1.0):
             residual=blk.residual[:, i:i + 1])
 
 
+def write_run_report(path: str, sim: Simulation) -> None:
+    """The run report's ``fleet`` section, as ``sim.fleet_summary()``
+    gives it (None without analytics)."""
+    with open(path, "w") as f:
+        json.dump({"fleet": sim.fleet_summary()}, f, indent=1)
+
+
 def pvsim(file: str, duration_s: int, n_chains: int, seed: int, start: str,
           chain: int = 0, block_s: int | None = None, realtime: bool = False,
           site_grid=None, output: str = "trace",
-          output_overlap: str = "auto", device: str = "cuda") -> Simulation:
+          output_overlap: str = "auto", device: str = "cuda", fleet=None,
+          analytics: str = "off", run_report: str | None = None
+          ) -> Simulation:
     """Run one simulation and write ``file``; returns the Simulation.
 
-    A site grid sets the chain count (one chain per site).  ``realtime``
-    releases trace / ensemble rows on the 1 Hz wall-clock grid; reduce
-    mode has no rows to pace and refuses it."""
+    A site grid or a fleet sets the chain count (one chain per site).
+    ``realtime`` releases trace / ensemble rows on the 1 Hz wall-clock
+    grid; reduce mode has no rows to pace and refuses it.  ``analytics``
+    folds the fleet-risk sketches in reduce mode (other modes ignore it,
+    as the JAX package does); ``run_report`` names the JSON their run
+    totals go to."""
     if block_s is None:
         block_s = min(8640, max(60, (duration_s // 60) * 60))
     cfg = SimConfig(start=start, duration_s=duration_s, n_chains=n_chains,
                     seed=seed, block_s=block_s, site_grid=site_grid,
-                    output=output, output_overlap=output_overlap)
+                    fleet=fleet, output=output,
+                    output_overlap=output_overlap, analytics=analytics)
     sim = Simulation(cfg, device=device)
-    cfg = sim.config  # a site grid sets n_chains
+    cfg = sim.config  # a site grid or a fleet sets n_chains
     t0 = time.perf_counter()
     if output == "reduce":
         if realtime:
@@ -78,6 +94,8 @@ def pvsim(file: str, duration_s: int, n_chains: int, seed: int, start: str,
               f"{sim.device} in {wall:.3f} s "
               f"({cfg.n_chains * duration_s / wall:.4g} site-s/s incl. "
               f"set-up); fleet pv_max {ensemble['pv_max']:.1f} W")
+        if run_report:
+            write_run_report(run_report, sim)
         return sim
     if output == "ensemble" and chain != 0:
         raise ValueError("ensemble mode writes the fleet mean; --chain "
@@ -100,4 +118,6 @@ def pvsim(file: str, duration_s: int, n_chains: int, seed: int, start: str,
           f"{sim.device} in {wall:.3f} s "
           f"({cfg.n_chains * duration_s / wall:.4g} site-s/s incl. set-up "
           "and CSV)")
+    if run_report:
+        write_run_report(run_report, sim)
     return sim

@@ -2,8 +2,11 @@
 
 The flags mirror the JAX package's ``pvsim --backend jax`` flags of the
 ported slice: the three output modes, ``--chain``, site grids
-(``--site-grid`` / ``--sites-csv``), ``--output-overlap`` and
-``--realtime``.
+(``--site-grid`` / ``--sites-csv``), heterogeneous fleets (``--fleet-csv``
+/ ``--fleet-synth`` with ``--fleet-seed``), reduce-mode fleet analytics
+(``--analytics``), ``--output-overlap`` and ``--realtime``.
+``--run-report PATH`` writes a JSON with the run's ``fleet`` section (the
+key the JAX package's RunReport fills from ``fleet_summary()``).
 """
 
 from __future__ import annotations
@@ -59,6 +62,18 @@ def _parser() -> argparse.ArgumentParser:
     pv.add_argument("--start", default=None,
                     help="start time 'YYYY-MM-DD HH:MM:SS' (default: now)")
     grid = pv.add_mutually_exclusive_group()
+    grid.add_argument("--fleet-csv", default=None,
+                      help="heterogeneous fleet from a CSV (columns "
+                           "latitude, longitude [, altitude, surface_tilt, "
+                           "surface_azimuth, albedo, dc_capacity_scale, "
+                           "ac_limit_w, weather_regime, demand_scale, "
+                           "demand_shift_w, cohort]): one chain per row, "
+                           "per-site parameters on the device (overrides "
+                           "--chains)")
+    grid.add_argument("--fleet-synth", type=int, default=None, metavar="N",
+                      help="synthetic seeded national fleet of N sites "
+                           "(fleet.FleetParams.synthetic; overrides "
+                           "--chains)")
     grid.add_argument("--site-grid", default=None,
                       help="multi-site lat/lon grid "
                            "'LAT0:LAT1:NLAT,LON0:LON1:NLON': one chain per "
@@ -69,6 +84,20 @@ def _parser() -> argparse.ArgumentParser:
                            "longitude [, altitude, surface_tilt, "
                            "surface_azimuth, albedo]): one chain per row "
                            "(overrides --chains)")
+    pv.add_argument("--fleet-seed", type=int, default=0,
+                    help="seed of the --fleet-synth sampler (independent "
+                         "of --seed, which drives the weather and demand "
+                         "draws)")
+    pv.add_argument("--analytics", choices=["off", "risk", "full"],
+                    default="off",
+                    help="on-device fleet-risk analytics (reduce mode): "
+                         "risk = residual quantile sketch, exceedance "
+                         "curve, loss-of-load probability, ramp extrema "
+                         "and the per-cohort group-by; full adds "
+                         "per-regime sums; reported by --run-report")
+    pv.add_argument("--run-report", default=None, metavar="PATH",
+                    help="write a JSON with the run's 'fleet' section "
+                         "after the run")
     pv.add_argument("--output-overlap", choices=["auto", "off"],
                     default="auto",
                     help="auto: dispatch block N+1 before writing block N's "
@@ -83,6 +112,18 @@ def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     if args.realtime and args.output == "reduce":
         raise SystemExit("pvsim: reduce mode needs --no-realtime")
+    if args.fleet_synth is not None and args.fleet_synth < 1:
+        raise SystemExit("pvsim: --fleet-synth must be >= 1")
+    fleet = None
+    if args.fleet_csv or args.fleet_synth is not None:
+        from tmhpvsim_torch.fleet import FleetParams
+
+        try:
+            fleet = (FleetParams.from_csv(args.fleet_csv) if args.fleet_csv
+                     else FleetParams.synthetic(args.fleet_synth,
+                                                seed=args.fleet_seed))
+        except (OSError, ValueError) as e:
+            raise SystemExit(f"pvsim: {e}") from e
     if args.sites_csv:
         from tmhpvsim_torch.config import SiteGrid
 
@@ -101,7 +142,8 @@ def main(argv=None) -> int:
               chain=args.chain, block_s=args.block_s,
               realtime=args.realtime, site_grid=site_grid,
               output=args.output, output_overlap=args.output_overlap,
-              device=args.device)
+              device=args.device, fleet=fleet, analytics=args.analytics,
+              run_report=args.run_report)
     except ValueError as e:
         raise SystemExit(f"pvsim: {e}") from e
     return 0

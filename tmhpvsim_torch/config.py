@@ -3,9 +3,11 @@
 ``Site``, ``SiteGrid``, ``ModelOptions`` and ``SimConfig`` carry the JAX
 package's field names and defaults, so the same keyword arguments describe
 the same run in both packages.  The port implements one slice of that
-space — a shared site or a per-chain ``SiteGrid``, float32, threefry2x32,
-exact transcendentals, the scan formulation, trace / reduce / ensemble
-output, per-block dispatch — and every field outside it raises
+space — a shared site, a per-chain ``SiteGrid`` or a heterogeneous
+``FleetParams`` fleet, float32, threefry2x32, exact transcendentals, the
+scan formulation, trace / reduce / ensemble output with reduce-mode
+telemetry and fleet analytics, per-block dispatch — and every field
+outside it raises
 ``NotImplementedError`` when it is set to anything but its default (or a
 value that means the same run).  Nothing is silently ignored.
 """
@@ -203,12 +205,19 @@ _SLICE_VALUES = {
     "blocks_per_dispatch": (0, 1),
 }
 
-#: fields whose every value belongs to the slice
+#: fields whose every value belongs to the slice (``telemetry``,
+#: ``analytics`` and ``fleet`` are checked on their own below)
 _FREE_FIELDS = frozenset({
     "start", "duration_s", "n_chains", "seed", "n_chains_total",
-    "chain_offset", "site", "site_grid", "options", "meter_max_w",
-    "block_s",
+    "chain_offset", "site", "site_grid", "fleet", "options", "meter_max_w",
+    "block_s", "telemetry", "analytics", "analytics_bins",
+    "analytics_capacity_w", "analytics_lolp_k", "analytics_thresholds",
 })
+
+#: valid values of SimConfig.telemetry / --telemetry (obs/telemetry.py)
+TELEMETRY_LEVELS = ("off", "light", "full")
+#: valid values of SimConfig.analytics / --analytics (obs/analytics.py)
+ANALYTICS_LEVELS = ("off", "risk", "full")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,6 +237,9 @@ class SimConfig:
     chain_offset: int = 0
     site: Site = dataclasses.field(default_factory=Site)
     site_grid: Optional[SiteGrid] = None
+    #: heterogeneous fleet (tmhpvsim_torch.fleet.FleetParams): chain i is
+    #: fleet row i (overrides n_chains); a non-uniform geometry derives
+    #: site_grid, a uniform one runs on the shared-site path
     fleet: Optional[object] = None
     options: ModelOptions = dataclasses.field(default_factory=ModelOptions)
     #: meter demand upper bound [W]; demand is uniform on [0, meter_max_w)
@@ -247,12 +259,23 @@ class SimConfig:
     rng_batch: str = "auto"
     geom_stride: int = 0
     output_overlap: str = "auto"
+    #: in-graph numerics telemetry, reduce mode only: 'off', 'light'
+    #: (NaN / non-finite counters and moments per field) or 'full'
+    #: (light + csi histogram + cloud occupancy)
     telemetry: str = "off"
     telemetry_strict: bool = False
+    #: fleet-risk analytics, reduce mode only: 'off', 'risk' (residual
+    #: sketch, exceedance, LOLP, ramps, per-cohort group-by) or 'full'
+    #: (risk + per-cloud-regime sums)
     analytics: str = "off"
+    #: interior bins of the residual sketch
     analytics_bins: int = 2048
+    #: loss-of-load capacity [W]; None -> 0.8 * meter_max_w
     analytics_capacity_w: Optional[float] = None
+    #: consecutive loss seconds before a run counts as loss of load
     analytics_lolp_k: int = 60
+    #: exceedance thresholds [W], ascending; None -> 1/8..7/8 of
+    #: meter_max_w
     analytics_thresholds: Optional[tuple] = None
     pod_obs: str = "off"
     pod_straggler_factor: float = 2.0
@@ -270,6 +293,19 @@ class SimConfig:
             raise NotImplementedError(
                 "SimConfig.site_grid must be tmhpvsim_torch.config.SiteGrid "
                 f"(got {type(self.site_grid).__name__})")
+        if self.fleet is not None:
+            from tmhpvsim_torch.fleet import FleetParams
+
+            if not isinstance(self.fleet, FleetParams):
+                raise NotImplementedError(
+                    "SimConfig.fleet must be tmhpvsim_torch.fleet."
+                    f"FleetParams (got {type(self.fleet).__name__})")
+        if self.telemetry not in TELEMETRY_LEVELS:
+            raise ValueError(f"telemetry must be 'off', 'light' or 'full', "
+                             f"got {self.telemetry!r}")
+        if self.analytics not in ANALYTICS_LEVELS:
+            raise ValueError(f"analytics must be 'off', 'risk' or 'full', "
+                             f"got {self.analytics!r}")
         for f in dataclasses.fields(self):
             if f.name in _FREE_FIELDS:
                 continue
@@ -284,8 +320,8 @@ class SimConfig:
             if not ok:
                 raise NotImplementedError(
                     f"SimConfig.{f.name}={value!r} is outside the torch "
-                    "port's slice (shared site or site grid, float32, "
-                    "threefry2x32, exact kernels, scan formulation, "
-                    "per-block dispatch)")
+                    "port's slice (shared site, site grid or fleet, "
+                    "float32, threefry2x32, exact kernels, scan "
+                    "formulation, per-block dispatch)")
         if self.block_s % 60 != 0:
             raise ValueError("block_s must be a multiple of 60 (minute grid)")

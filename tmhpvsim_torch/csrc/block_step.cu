@@ -1,6 +1,7 @@
-// K3 / K4 / K6: one block, one thread per chain, looping over the block's
-// seconds; a template over the epilogue (acc | series | trace) and the
-// geometry mode (shared rows | per-chain site).
+// K3 / K4 / K6 / K7 / K8 / K9: one block, one thread per chain, looping
+// over the block's seconds; a template over the epilogue (acc | series |
+// trace), the geometry mode (shared rows | per-chain site) and, for acc,
+// the two reduce-mode observers (telemetry | fleet analytics).
 //
 // Replaces (tmhpvsim_tpu/engine/simulation.py):
 //   acc    Simulation._block_step_scan_acc (:1276), i.e.
@@ -11,10 +12,19 @@
 //   trace  _block_step (:844-956), every chain's meter and pv -- K4;
 //   site   solar.device_geometry (models/solar.py:434-486, called from the
 //          scan step at :1204-1213) per chain and second -- K6;
+//   fleet  the per-site transforms of a heterogeneous fleet (:1228-1238;
+//          :931-938 in the wide step), in every epilogue -- K7;
+//   TEL    _make_acc_tel_body / _block_step_scan_acc_tel (:1298-1337):
+//          obs/telemetry.py fold_second (:110) + reduce_chainwise (:157)
+//          -- K8;
+//   FLT    _make_acc_fleet_body / _block_step_scan_acc_fleet (:1394,
+//          :1481; with TEL :1436, :1524): obs/analytics.py fold_second
+//          (:223) + reduce_chainwise (:311) -- K9;
 // and the pre-drawn streams of clearsky_index.scan_draws_tmajor /
 // meter_block_tmajor (:278-319).  Plain versions:
 // tmhpvsim_torch/kernels/block_step.py block_step_plain, series_plain,
-// trace_plain, and models/solar.py device_geometry.
+// trace_plain, block_step_obs_plain, and models/solar.py device_geometry
+// (with obs/telemetry.py and obs/analytics.py fold_second).
 //
 // Design.  The per-second pipeline is written once, in block_step_kernel's
 // loop over a tile's seconds: the table lerps, the renewal step, csi,
@@ -43,6 +53,30 @@
 // (consecutive threads are consecutive chains); the engine hands the host
 // an (n, T) view.
 //
+// K7.  Each chain loads its fleet leaves once per block; a column that is
+// homogeneous passes a null pointer and its transform is skipped, so a
+// fleet without heterogeneous columns runs the no-fleet arithmetic.  The
+// demand transform is one fmaf: the JAX scan contracts meter * scale +
+// shift into a multiply-add (tests/test_torch_fleet.py settles it).
+//
+// K8 / K9 (acc only).  Per-chain leaves live in registers for the block:
+// telemetry's NaN / non-finite counts and min / max / sum / sum of squares
+// of meter, csi, pv and residual (plus the covered count); analytics'
+// residual extrema, LOLP run, loss seconds / events, three ramp slots and,
+// for cohorts or level full, the per-chain sums.  Shared histograms
+// (telemetry's 8 csi bins; analytics' bins+2 residual slots, the exceedance
+// slots and, when it fits in shared memory, the C x (bins+2) cohort
+// histogram) count with shared atomicAdd and are added to the zeroed
+// global histograms with one atomicAdd per non-zero slot at block end;
+// a cohort histogram too large for shared memory counts with global
+// atomics.  Integer atomics commute, so every count is exact and
+// order-free.  At block end each CTA reduces its chains' leaves (warp
+// butterflies in double, then the 4 warps in order) into a per-CTA
+// partial row; collapse_partials then combines the rows over CTAs in
+// index order (reduce_chainwise): sums in double, rounded once by the
+// caller, so reruns give the same bits.  Cohort sums go per cohort over
+// the CTA's chains in chain order, then over CTAs in order.
+//
 // Bound: operations for acc and series (per site-second about three
 // 20-round threefry hashes, XLA's erfinv and log1p polynomials, accurate
 // expf and logf, plus powf x2 on a redraw; the site mode adds about 30
@@ -62,6 +96,20 @@
 #define WARPS (THREADS / 32)
 
 enum Epilogue { ACC = 0, SERIES = 1, TRACE = 2 };
+
+// per-CTA partial leaves: telemetry 6 per field x 4 fields + the covered
+// count; analytics (see FltLeaf); per cohort 6 (count, sums of meter, pv,
+// residual, min, max of residual)
+#define TEL_LEAVES 25
+#define TEL_CHAIN_I 9
+#define TEL_CHAIN_F 16
+#define CSI_BINS 8
+enum FltLeaf { F_COUNT = 0, F_MIN, F_MAX, F_LOLS, F_LOLE, F_R1, F_R2, F_R3,
+               F_COV, F_SM, F_SP, F_SR, F_CSM, F_CSP, F_CSR, FLT_LEAVES };
+#define FLT_CHAIN_I 8
+#define FLT_CHAIN_F 14
+#define COH_LEAVES 6
+enum Kind { K_SUM = 0, K_MIN = 1, K_MAX = 2 };
 
 // one second's calendar: global second, rebased indices and fractions
 struct Cal {
@@ -106,6 +154,30 @@ enum RowF { HF = 0, DF, MF, ZENITH, COS_ZENITH, APP_ZENITH, AZIMUTH, CSI_CAP,
             GHI_CLEAR, DNI_EXTRA, AIRMASS_ABS, COS_AOI, DOY };
 enum RowFSite { DAY2000 = 3, SEC_OF_DAY, SDOY };
 
+// the observers' arguments (acc epilogue; ignored by the others)
+struct Obs {
+  // K8 telemetry
+  int tel_full;
+  double* tel_part;      // (n_ctas, TEL_LEAVES)
+  int* csi_hist;         // (CSI_BINS,), zeroed by the caller
+  float* tel_count;      // (1,)
+  int* tel_chain_i;      // optional (TEL_CHAIN_I, n)
+  float* tel_chain_f;    // optional (TEL_CHAIN_F, n)
+  // K9 analytics
+  int flt_full, bins, n_thr, lolp_k, n_cohorts, hist_shared, coh_shared;
+  int ramp_w[3];
+  float lo, inv_w, capacity;
+  const float* thr;      // (n_thr,)
+  int* res_hist;         // (bins + 2,), zeroed by the caller
+  int* exceed;           // (n_thr + 1,), zeroed
+  int* cohort_hist;      // (n_cohorts, bins + 2), zeroed
+  const int* cohort;     // (n,)
+  double* flt_part;      // (n_ctas, FLT_LEAVES)
+  double* coh_part;      // (n_ctas, n_cohorts, COH_LEAVES)
+  int* flt_chain_i;      // optional (FLT_CHAIN_I, n)
+  float* flt_chain_f;    // optional (FLT_CHAIN_F, n)
+};
+
 struct Args {
   int64_t n;
   int T, duration_s;
@@ -115,6 +187,8 @@ struct Args {
   const float *t_cc, *t_cloudy, *t_cd, *t_ws, *t_ml, *t_mc;
   const int64_t *k_scan, *k_meter;
   const float *lat, *lon, *alt, *tilt, *azi, *alb, *turb;
+  // K7 fleet leaves (nullptr: the column is homogeneous)
+  const float *pv_scale, *ac_limit, *dem_scale, *dem_shift;
   float *cloud_end, *total_end, *sec;
   // acc
   float *pv_sum, *pv_max, *meter_sum, *residual_sum, *residual_min,
@@ -122,6 +196,7 @@ struct Args {
   int* n_seconds;
   // series partials (n_ctas, T) / trace outputs (T, n)
   float *out_meter, *out_pv;
+  Obs o;
 };
 
 __device__ __forceinline__ void load_cal(Cal& C, const int* rows_i,
@@ -366,13 +441,96 @@ __device__ __forceinline__ float power(float csi, const Phys& S,
   return fmaxf(ac, 0.0f);
 }
 
-template <int EPI, bool SITE>
+// one telemetry field's per-chain leaves (obs/telemetry.py fold_second)
+struct TelField {
+  int nan = 0, nf = 0;
+  float mn = FLT_MAX, mx = -FLT_MAX, sum = 0.0f, sumsq = 0.0f;
+
+  __device__ __forceinline__ void fold(float v, bool valid) {
+    const bool use = valid && isfinite(v);
+    nan += (valid && v != v) ? 1 : 0;
+    nf += (valid && !use) ? 1 : 0;
+    mn = fminf(mn, use ? v : FLT_MAX);
+    mx = fmaxf(mx, use ? v : -FLT_MAX);
+    const float v0 = use ? v : 0.0f;
+    sum = sum + v0;
+    // the JAX scan contracts sumsq + v0 * v0 into a multiply-add
+    sumsq = fmaf(v0, v0, sumsq);
+  }
+};
+
+// the analytics per-chain leaves (obs/analytics.py fold_second)
+struct FltChain {
+  int n_use = 0, lol_run = 0, lol_s = 0, lol_e = 0, cov = 0;
+  int seen[3] = {0, 0, 0};
+  float mn = FLT_MAX, mx = -FLT_MAX;
+  float ramp[3] = {-FLT_MAX, -FLT_MAX, -FLT_MAX};
+  float prev[3] = {0.0f, 0.0f, 0.0f};
+  float sm = 0.0f, sp = 0.0f, sr = 0.0f, cm = 0.0f, cp = 0.0f, cr = 0.0f;
+};
+
+template <int KIND>
+__device__ __forceinline__ double combine(double x, double y) {
+  return KIND == K_SUM ? x + y : (KIND == K_MIN ? fmin(x, y) : fmax(x, y));
+}
+
+// one leaf over the warp: an xor butterfly, the same order every run
+template <int KIND>
+__device__ __forceinline__ double warp_reduce(double v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = combine<KIND>(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// the CTA's partial row of L leaves: each warp reduces every leaf, lane 0
+// stages it, then thread l combines leaf l over the warps in order
+template <int L>
+__device__ __forceinline__ void cta_partials(double (&v)[L],
+                                             const int (&kind)[L],
+                                             double* s_stage, double* row) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    double x = kind[l] == K_SUM   ? warp_reduce<K_SUM>(v[l])
+               : kind[l] == K_MIN ? warp_reduce<K_MIN>(v[l])
+                                  : warp_reduce<K_MAX>(v[l]);
+    if (lane == 0) s_stage[warp * L + l] = x;
+  }
+  __syncthreads();
+  for (int l = threadIdx.x; l < L; l += blockDim.x) {
+    double x = s_stage[l];
+    for (int w = 1; w < WARPS; ++w) {
+      const double y = s_stage[w * L + l];
+      x = kind[l] == K_SUM ? x + y : (kind[l] == K_MIN ? fmin(x, y)
+                                                        : fmax(x, y));
+    }
+    row[l] = x;
+  }
+  __syncthreads();
+}
+
+// a shared histogram's counts added to its global copy (one atomic per
+// non-zero slot), when it was counted in shared memory
+__device__ __forceinline__ void flush_hist(const int* s, int* g, int len) {
+  for (int k = threadIdx.x; k < len; k += blockDim.x)
+    if (s[k]) atomicAdd(&g[k], s[k]);
+}
+
+template <int EPI, bool SITE, bool TEL, bool FLT>
 __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
   using Second =
       typename std::conditional<SITE, SiteSecond, SharedSecond>::type;
   __shared__ Second tile[TILE];
   __shared__ float red_m[EPI == SERIES ? WARPS : 1][TILE];
   __shared__ float red_p[EPI == SERIES ? WARPS : 1][TILE];
+  constexpr bool OBS = TEL || FLT;
+  __shared__ double s_stage[OBS ? WARPS * TEL_LEAVES : 1];
+  __shared__ int s_csi[TEL ? CSI_BINS : 1];
+  // analytics: the cohort partials' staging, one entry per chain
+  __shared__ int s_cid[FLT ? THREADS : 1], s_cuse[FLT ? THREADS : 1];
+  __shared__ float s_cval[FLT ? 5 : 1][FLT ? THREADS : 1];
+  extern __shared__ int s_dyn[];
   const int64_t n = a.n;
   const int T = a.T;
   const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
@@ -401,8 +559,37 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
     cos_tilt = site.cos_tilt;
     albedo = site.albedo;
   }
+  // K7: the chain's fleet leaves, once per block
+  const bool het_power = a.pv_scale != nullptr;
+  const bool het_demand = a.dem_scale != nullptr;
+  const float pv_scale = het_power ? a.pv_scale[ii] : 1.0f;
+  const float ac_limit = het_power ? a.ac_limit[ii] : 0.0f;
+  const float dem_scale = het_demand ? a.dem_scale[ii] : 1.0f;
+  const float dem_shift = het_demand ? a.dem_shift[ii] : 0.0f;
   const tf::Key ks = tf::load_key(a.k_scan, ii),
                 km0 = tf::load_key(a.k_meter, ii);
+
+  // K8 / K9 state
+  TelField tel[4];
+  int occ = 0;
+  FltChain f;
+  const int nb = a.o.bins + 2, ne = a.o.n_thr + 1;
+  int *hist = nullptr, *exc = nullptr, *coh_hist = nullptr;
+  int cohort = 0;
+  if constexpr (TEL) {
+    for (int k = threadIdx.x; k < CSI_BINS; k += blockDim.x) s_csi[k] = 0;
+  }
+  if constexpr (FLT) {
+    const int coh_off = a.o.hist_shared ? nb + ne : 0;
+    const int len = coh_off + (a.o.coh_shared ? a.o.n_cohorts * nb : 0);
+    for (int k = threadIdx.x; k < len; k += blockDim.x) s_dyn[k] = 0;
+    hist = a.o.hist_shared ? s_dyn : a.o.res_hist;
+    exc = a.o.hist_shared ? s_dyn + nb : a.o.exceed;
+    if (a.o.n_cohorts) {
+      coh_hist = a.o.coh_shared ? s_dyn + coh_off : a.o.cohort_hist;
+      cohort = a.o.cohort[ii];
+    }
+  }
 
   for (int base = 0; base < T; base += TILE) {
     __syncthreads();
@@ -480,8 +667,11 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
                a.t_mc[(S.m + 1) * n + ii] * S.mf;
       }
       const float csi = base_v * (nmin + noise_sec);
-      const float ac = power(csi, *P, cos_tilt, albedo);
-      const float meter = a.meter_max_w * tf::uniform(km, (uint32_t)s);
+      float ac = power(csi, *P, cos_tilt, albedo);
+      float meter = a.meter_max_w * tf::uniform(km, (uint32_t)s);
+      // K7: the heterogeneous columns' transforms
+      if (het_power) ac = fminf(ac * pv_scale, ac_limit);
+      if (het_demand) meter = fmaf(meter, dem_scale, dem_shift);
       if (EPI == ACC) {
         const float residual = meter - ac;
         const bool valid = S.t < a.duration_s;
@@ -493,6 +683,59 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
         residual_min = fminf(residual_min, valid ? residual : FLT_MAX);
         residual_max = fmaxf(residual_max, valid ? residual : -FLT_MAX);
         n_seconds += valid ? 1 : 0;
+        if constexpr (TEL) {  // K8: obs/telemetry.py fold_second
+          tel[0].fold(meter, valid);
+          tel[1].fold(csi, valid);
+          tel[2].fold(ac, valid);
+          tel[3].fold(residual, valid);
+          if (a.o.tel_full) {
+            if (valid && isfinite(csi))
+              atomicAdd(&s_csi[(int)fminf(fmaxf(csi / 0.25f, 0.0f),
+                                          (float)(CSI_BINS - 1))],
+                        1);
+            occ += (valid && covered) ? 1 : 0;
+          }
+        }
+        if constexpr (FLT) {  // K9: obs/analytics.py fold_second
+          const float r = residual;
+          const bool use = valid && isfinite(r);
+          if (use) {
+            f.n_use += 1;
+            float b = (r - a.o.lo) * a.o.inv_w;
+            b = fminf(fmaxf(b, -1.0f), (float)a.o.bins);
+            const int idx = (int)floorf(b) + 1;
+            atomicAdd(&hist[idx], 1);
+            int slot = 0;
+            for (int j = 0; j < a.o.n_thr; ++j) slot += a.o.thr[j] < r ? 1 : 0;
+            atomicAdd(&exc[slot], 1);
+            if (coh_hist != nullptr) atomicAdd(&coh_hist[cohort * nb + idx], 1);
+          }
+          f.mn = fminf(f.mn, use ? r : FLT_MAX);
+          f.mx = fmaxf(f.mx, use ? r : -FLT_MAX);
+          f.lol_run = (use && r > a.o.capacity) ? f.lol_run + 1 : 0;
+          f.lol_e += f.lol_run == a.o.lolp_k ? 1 : 0;
+          f.lol_s += f.lol_run >= a.o.lolp_k ? 1 : 0;
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            const int w = a.o.ramp_w[k];
+            if (w == 1 || (S.t + 1) % w == 0) {
+              if (use && f.seen[k] > 0)
+                f.ramp[k] = fmaxf(f.ramp[k], fabsf(r - f.prev[k]));
+              if (use) f.prev[k] = r;
+              f.seen[k] = use ? 1 : 0;
+            }
+          }
+          f.sm = f.sm + (use ? meter : 0.0f);
+          f.sp = f.sp + (use ? ac : 0.0f);
+          f.sr = f.sr + (use ? r : 0.0f);
+          if (a.o.flt_full) {
+            const bool cv = covered && use;
+            f.cov += cv ? 1 : 0;
+            f.cm = f.cm + (cv ? meter : 0.0f);
+            f.cp = f.cp + (cv ? ac : 0.0f);
+            f.cr = f.cr + (cv ? r : 0.0f);
+          }
+        }
       } else if (EPI == TRACE) {
         const int64_t o = (int64_t)(base + s) * n + i;
         a.out_meter[o] = meter;
@@ -523,19 +766,139 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
       }
     }
   }
-  if (!live) return;
-  a.cloud_end[i] = cloud_end;
-  a.total_end[i] = total_end;
-  a.sec[i] = sec;
-  if (EPI == ACC) {
-    a.pv_sum[i] = pv_sum;
-    a.pv_max[i] = pv_max;
-    a.meter_sum[i] = meter_sum;
-    a.residual_sum[i] = residual_sum;
-    a.residual_min[i] = residual_min;
-    a.residual_max[i] = residual_max;
-    a.n_seconds[i] = n_seconds;
+  if (live) {
+    a.cloud_end[i] = cloud_end;
+    a.total_end[i] = total_end;
+    a.sec[i] = sec;
+    if (EPI == ACC) {
+      a.pv_sum[i] = pv_sum;
+      a.pv_max[i] = pv_max;
+      a.meter_sum[i] = meter_sum;
+      a.residual_sum[i] = residual_sum;
+      a.residual_min[i] = residual_min;
+      a.residual_max[i] = residual_max;
+      a.n_seconds[i] = n_seconds;
+    }
   }
+  // reduce_chainwise, first pass: the CTA's partial rows (every thread
+  // takes part; a dead thread holds the identities)
+  if constexpr (TEL) {
+    if (live && a.o.tel_chain_i != nullptr) {
+      for (int k = 0; k < 4; ++k) {
+        a.o.tel_chain_i[(2 * k) * n + i] = tel[k].nan;
+        a.o.tel_chain_i[(2 * k + 1) * n + i] = tel[k].nf;
+        a.o.tel_chain_f[(4 * k) * n + i] = tel[k].mn;
+        a.o.tel_chain_f[(4 * k + 1) * n + i] = tel[k].mx;
+        a.o.tel_chain_f[(4 * k + 2) * n + i] = tel[k].sum;
+        a.o.tel_chain_f[(4 * k + 3) * n + i] = tel[k].sumsq;
+      }
+      a.o.tel_chain_i[8 * n + i] = occ;
+    }
+    double v[TEL_LEAVES];
+    int kind[TEL_LEAVES];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v[6 * k] = tel[k].nan;
+      v[6 * k + 1] = tel[k].nf;
+      v[6 * k + 2] = tel[k].mn;
+      v[6 * k + 3] = tel[k].mx;
+      v[6 * k + 4] = tel[k].sum;
+      v[6 * k + 5] = tel[k].sumsq;
+      kind[6 * k] = kind[6 * k + 1] = kind[6 * k + 4] = kind[6 * k + 5] =
+          K_SUM;
+      kind[6 * k + 2] = K_MIN;
+      kind[6 * k + 3] = K_MAX;
+    }
+    v[24] = occ;
+    kind[24] = K_SUM;
+    cta_partials(v, kind, s_stage, a.o.tel_part + blockIdx.x * TEL_LEAVES);
+    flush_hist(s_csi, a.o.csi_hist, CSI_BINS);
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      // the count leaf: valid seconds x n, added in float32 per second
+      float count = 0.0f;
+      for (int s = 0; s < T; ++s)
+        if (a.rows_i[s] < a.duration_s) count = count + (float)n;
+      a.o.tel_count[0] = count;
+    }
+  }
+  if constexpr (FLT) {
+    if (live && a.o.flt_chain_i != nullptr) {
+      const int vi[FLT_CHAIN_I] = {f.lol_s,   f.lol_e,   f.lol_run, f.seen[0],
+                                   f.seen[1], f.seen[2], f.cov,     f.n_use};
+      const float vf[FLT_CHAIN_F] = {f.mn,      f.mx,      f.ramp[0],
+                                     f.ramp[1], f.ramp[2], f.prev[0],
+                                     f.prev[1], f.prev[2], f.sm,
+                                     f.sp,      f.sr,      f.cm,
+                                     f.cp,      f.cr};
+      for (int k = 0; k < FLT_CHAIN_I; ++k) a.o.flt_chain_i[k * n + i] = vi[k];
+      for (int k = 0; k < FLT_CHAIN_F; ++k) a.o.flt_chain_f[k * n + i] = vf[k];
+    }
+    double v[FLT_LEAVES] = {(double)f.n_use, f.mn, f.mx, (double)f.lol_s,
+                            (double)f.lol_e, f.ramp[0], f.ramp[1], f.ramp[2],
+                            (double)f.cov, f.sm, f.sp, f.sr, f.cm, f.cp, f.cr};
+    int kind[FLT_LEAVES];
+#pragma unroll
+    for (int k = 0; k < FLT_LEAVES; ++k) kind[k] = K_SUM;
+    kind[F_MIN] = K_MIN;
+    kind[F_MAX] = kind[F_R1] = kind[F_R2] = kind[F_R3] = K_MAX;
+    cta_partials(v, kind, s_stage, a.o.flt_part + blockIdx.x * FLT_LEAVES);
+    if (a.o.hist_shared) {
+      flush_hist(s_dyn, a.o.res_hist, nb);
+      flush_hist(s_dyn + nb, a.o.exceed, ne);
+    }
+    const int C = a.o.n_cohorts;
+    if (C) {
+      if (a.o.coh_shared)
+        flush_hist(s_dyn + (a.o.hist_shared ? nb + ne : 0), a.o.cohort_hist,
+                   C * nb);
+      // per cohort over the CTA's chains in chain order
+      s_cid[threadIdx.x] = live ? cohort : -1;
+      s_cuse[threadIdx.x] = f.n_use;
+      s_cval[0][threadIdx.x] = f.sm;
+      s_cval[1][threadIdx.x] = f.sp;
+      s_cval[2][threadIdx.x] = f.sr;
+      s_cval[3][threadIdx.x] = f.mn;
+      s_cval[4][threadIdx.x] = f.mx;
+      __syncthreads();
+      for (int c = threadIdx.x; c < C; c += blockDim.x) {
+        double cnt = 0.0, sm = 0.0, sp = 0.0, sr = 0.0;
+        float mn = FLT_MAX, mx = -FLT_MAX;
+        for (int k = 0; k < THREADS; ++k) {
+          if (s_cid[k] != c) continue;
+          cnt += s_cuse[k];
+          sm += s_cval[0][k];
+          sp += s_cval[1][k];
+          sr += s_cval[2][k];
+          mn = fminf(mn, s_cval[3][k]);
+          mx = fmaxf(mx, s_cval[4][k]);
+        }
+        double* row = a.o.coh_part + ((int64_t)blockIdx.x * C + c) * COH_LEAVES;
+        row[0] = cnt;
+        row[1] = sm;
+        row[2] = sp;
+        row[3] = sr;
+        row[4] = mn;
+        row[5] = mx;
+      }
+    }
+  }
+}
+
+// reduce_chainwise, second pass: leaf l of the per-CTA partial rows
+// combined over the CTAs in index order (sum in double, min or max by
+// kinds[l]); the caller rounds the sums to float32 once
+__global__ void collapse_kernel(int n_parts, int L, const int* kinds,
+                                const double* __restrict__ part,
+                                double* out) {
+  const int l = blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= L) return;
+  const int kind = kinds[l];
+  double x = part[l];
+  for (int c = 1; c < n_parts; ++c) {
+    const double y = part[(int64_t)c * L + l];
+    x = kind == K_SUM ? x + y : (kind == K_MIN ? fmin(x, y) : fmax(x, y));
+  }
+  out[l] = x;
 }
 
 // the series epilogue's second pass: per second, the CTA partials summed
@@ -579,18 +942,43 @@ __global__ void geometry_kernel(int64_t n, int T, const float* rows_f,
   }
 }
 
-template <int EPI>
-static int launch(int per_site, const Args& a, void* stream) {
-  if (a.T % TILE) return (int)cudaErrorInvalidValue;
-  if (a.n > 0) {
-    const unsigned blocks = (unsigned)((a.n + THREADS - 1) / THREADS);
-    cudaStream_t st = (cudaStream_t)stream;
-    if (per_site)
-      block_step_kernel<EPI, true><<<blocks, THREADS, 0, st>>>(a);
-    else
-      block_step_kernel<EPI, false><<<blocks, THREADS, 0, st>>>(a);
+template <int EPI, bool SITE, bool TEL, bool FLT>
+static int launch_one(const Args& a, unsigned blocks, int smem,
+                      cudaStream_t st) {
+  auto kernel = block_step_kernel<EPI, SITE, TEL, FLT>;
+  if (smem > 48 * 1024) {  // above 48 KB only after opting in
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
   }
+  kernel<<<blocks, THREADS, smem, st>>>(a);
   return (int)cudaGetLastError();
+}
+
+// one instantiation per (geometry mode, telemetry on, analytics on); the
+// observers exist only for the acc epilogue
+template <int EPI>
+static int launch(int per_site, const Args& a, void* stream, int tel = 0,
+                  int flt = 0, int smem = 0) {
+  if (a.T % TILE) return (int)cudaErrorInvalidValue;
+  if (a.n <= 0) return (int)cudaGetLastError();
+  const unsigned blocks = (unsigned)((a.n + THREADS - 1) / THREADS);
+  cudaStream_t st = (cudaStream_t)stream;
+  if constexpr (EPI != ACC) {
+    return per_site ? launch_one<EPI, true, false, false>(a, blocks, 0, st)
+                    : launch_one<EPI, false, false, false>(a, blocks, 0, st);
+  } else {
+    switch ((per_site ? 4 : 0) + (tel ? 2 : 0) + (flt ? 1 : 0)) {
+      case 0: return launch_one<ACC, false, false, false>(a, blocks, smem, st);
+      case 1: return launch_one<ACC, false, false, true>(a, blocks, smem, st);
+      case 2: return launch_one<ACC, false, true, false>(a, blocks, smem, st);
+      case 3: return launch_one<ACC, false, true, true>(a, blocks, smem, st);
+      case 4: return launch_one<ACC, true, false, false>(a, blocks, smem, st);
+      case 5: return launch_one<ACC, true, false, true>(a, blocks, smem, st);
+      case 6: return launch_one<ACC, true, true, false>(a, blocks, smem, st);
+      default: return launch_one<ACC, true, true, true>(a, blocks, smem, st);
+    }
+  }
 }
 
 static Args common(int64_t n, int T, int duration_s, float meter_max_w,
@@ -601,7 +989,9 @@ static Args common(int64_t n, int T, int duration_s, float meter_max_w,
                    const int64_t* k_scan, const int64_t* k_meter,
                    const float* lat, const float* lon, const float* alt,
                    const float* tilt, const float* azi, const float* alb,
-                   const float* turb, float* cloud_end, float* total_end,
+                   const float* turb, const float* pv_scale,
+                   const float* ac_limit, const float* dem_scale,
+                   const float* dem_shift, float* cloud_end, float* total_end,
                    float* sec) {
   Args a = {};
   a.n = n;
@@ -627,6 +1017,10 @@ static Args common(int64_t n, int T, int duration_s, float meter_max_w,
   a.azi = azi;
   a.alb = alb;
   a.turb = turb;
+  a.pv_scale = pv_scale;
+  a.ac_limit = ac_limit;
+  a.dem_scale = dem_scale;
+  a.dem_shift = dem_shift;
   a.cloud_end = cloud_end;
   a.total_end = total_end;
   a.sec = sec;
@@ -641,16 +1035,21 @@ static Args common(int64_t n, int T, int duration_s, float meter_max_w,
       const int64_t *k_scan, const int64_t *k_meter, const float *lat,       \
       const float *lon, const float *alt, const float *tilt,                 \
       const float *azi, const float *alb, const float *turb,                 \
-      float *cloud_end, float *total_end, float *sec
+      const float *pv_scale, const float *ac_limit, const float *dem_scale,  \
+      const float *dem_shift, float *cloud_end, float *total_end, float *sec
 #define COMMON_ARGS                                                          \
   n, T, duration_s, meter_max_w, cos_tilt, albedo, rows_i, rows_f, t_cc,     \
       t_cloudy, t_cd, t_ws, t_ml, t_mc, k_scan, k_meter, lat, lon, alt, tilt, \
-      azi, alb, turb, cloud_end, total_end, sec
+      azi, alb, turb, pv_scale, ac_limit, dem_scale, dem_shift, cloud_end,   \
+      total_end, sec
 
+// obs: the observers' arguments (nullptr with tel and flt 0); smem: the
+// analytics' dynamic shared histograms, in bytes
 extern "C" int block_step_acc(COMMON_PARAMS, float* pv_sum, float* pv_max,
                               float* meter_sum, float* residual_sum,
                               float* residual_min, float* residual_max,
-                              int* n_seconds, void* stream) {
+                              int* n_seconds, const Obs* obs, int tel,
+                              int flt, int smem, void* stream) {
   Args a = common(COMMON_ARGS);
   a.pv_sum = pv_sum;
   a.pv_max = pv_max;
@@ -659,7 +1058,25 @@ extern "C" int block_step_acc(COMMON_PARAMS, float* pv_sum, float* pv_max,
   a.residual_min = residual_min;
   a.residual_max = residual_max;
   a.n_seconds = n_seconds;
-  return launch<ACC>(per_site, a, stream);
+  if (obs != nullptr) a.o = *obs;
+  return launch<ACC>(per_site, a, stream, tel, flt, smem);
+}
+
+// the layout check of the wrapper's ctypes mirror of Obs
+extern "C" int obs_struct_size(void* stream) {
+  (void)stream;
+  return (int)sizeof(Obs);
+}
+
+extern "C" int collapse_partials(int n_parts, int L, const int* kinds,
+                                 const double* part, double* out,
+                                 void* stream) {
+  if (L > 0) {
+    const unsigned blocks = (unsigned)((L + 127) / 128);
+    collapse_kernel<<<blocks, 128, 0, (cudaStream_t)stream>>>(
+        n_parts, L, kinds, part, out);
+  }
+  return (int)cudaGetLastError();
 }
 
 extern "C" int block_step_series(COMMON_PARAMS, float* part_meter,

@@ -1,11 +1,18 @@
-// K2: one block's sampler windows, one thread per chain.
+// K2: one block's sampler windows, one thread per chain; with a regime
+// vector also K7's regime gather.
 //
 // Replaces: Simulation._windows_one_chain (tmhpvsim_tpu/engine/
 // simulation.py:785-828) vmapped over chains, i.e. clearsky_index.cc_window
 // -> markov_hourly.chain_window (:96), cloudy_window (:134),
 // clear_day_window (:153), ws_window (:165), minute_noise_values_device
-// (:212) and value_major_tables (:447).  Plain version:
-// tmhpvsim_torch/kernels/windows.py windows_plain.
+// (:212) and value_major_tables (:447); K7: markov_hourly.select_regime
+// (:70) as the vmapped window gathers it (engine/simulation.py:800-806).
+// Plain version: tmhpvsim_torch/kernels/windows.py windows_plain.
+//
+// Regimes: the three stacked 6-bin step tables (3 x 6 x 5 floats) live in
+// constant memory, flattened regime-major; a chain reads row
+// regime * 6 + bin.  Without a regime vector every chain reads regime 0,
+// the Munich table, with the arithmetic of the single-table kernel.
 //
 // Each thread runs its chain's sequential hour loop of Markov transitions
 // (asymmetric-Laplace or Student-t steps chosen by a 6-bin search, clipped
@@ -41,12 +48,14 @@ __device__ __forceinline__ float al_ppf(float q, float kappa) {
   return -(1.0f / kappa) * tf::xla_log(fmaxf(one_k2 * (1.0f - q), 1e-38f));
 }
 
-// markov_hourly.transition for one chain
-__device__ __forceinline__ float transition(tf::Key key, float state) {
+// markov_hourly.transition for one chain, from its regime's table
+__device__ __forceinline__ float transition(tf::Key key, float state,
+                                            int regime) {
   int idx = 0;
 #pragma unroll
   for (int b = 0; b < 6; ++b) idx += MK_BINS[b] < state ? 1 : 0;
   if (idx > 5) idx = 5;
+  idx += regime * 6;
   const float loc = MK_LOC[idx], scale = MK_SCALE[idx];
   float step;
   if (MK_IS_T[idx] > 0.5f) {
@@ -61,7 +70,8 @@ __device__ __forceinline__ float transition(tf::Key key, float state) {
 __global__ void sampler_windows_kernel(
     int64_t n, const int64_t* __restrict__ k_arr,
     const int64_t* __restrict__ k_min, const float* __restrict__ cc_carry,
-    const float* __restrict__ cc0, int hour_lo, int n_hours, int n_cloudy,
+    const float* __restrict__ cc0, const int* __restrict__ regimes,
+    int hour_lo, int n_hours, int n_cloudy,
     int hour_next_lo, int cd_lo, int n_cd, int day_lo, int n_days,
     int min_lo, int n_min, const int* __restrict__ mh_idx,
     const float* __restrict__ mh_frac, float* __restrict__ out_cc,
@@ -77,9 +87,11 @@ __global__ void sampler_windows_kernel(
   // hourly cloud cover: the chain's sequential Markov loop
   float cc[MAX_HOURS];
   const float carry_in = cc_carry[i];
+  const int regime = regimes != nullptr ? regimes[i] : 0;
   float state = carry_in;
   for (int j = 0; j < n_hours; ++j) {
-    state = transition(tf::fold_in(k_cc, (uint32_t)(hour_lo + j)), state);
+    state = transition(tf::fold_in(k_cc, (uint32_t)(hour_lo + j)), state,
+                       regime);
     cc[j] = state;
     out_cc[j * n + i] = state;
   }
@@ -141,9 +153,9 @@ __global__ void sampler_windows_kernel(
 
 extern "C" int sampler_windows(
     int64_t n, const int64_t* k_arr, const int64_t* k_min,
-    const float* cc_carry, const float* cc0, int hour_lo, int n_hours,
-    int n_cloudy, int hour_next_lo, int cd_lo, int n_cd, int day_lo,
-    int n_days, int min_lo, int n_min, const int* mh_idx,
+    const float* cc_carry, const float* cc0, const int* regimes,
+    int hour_lo, int n_hours, int n_cloudy, int hour_next_lo, int cd_lo,
+    int n_cd, int day_lo, int n_days, int min_lo, int n_min, const int* mh_idx,
     const float* mh_frac, float* out_cc, float* out_cloudy, float* out_cd,
     float* out_ws, float* out_ml, float* out_mc, float* out_carry,
     void* stream) {
@@ -152,7 +164,7 @@ extern "C" int sampler_windows(
     const int threads = 128;
     const unsigned blocks = (unsigned)((n + threads - 1) / threads);
     sampler_windows_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        n, k_arr, k_min, cc_carry, cc0, hour_lo, n_hours, n_cloudy,
+        n, k_arr, k_min, cc_carry, cc0, regimes, hour_lo, n_hours, n_cloudy,
         hour_next_lo, cd_lo, n_cd, day_lo, n_days, min_lo, n_min, mh_idx,
         mh_frac, out_cc, out_cloudy, out_cd, out_ws, out_ml, out_mc,
         out_carry);

@@ -1,8 +1,8 @@
 """Vendored model parameters (own copy of tmhpvsim_tpu/data/parameters.py).
 
 The port reads the Munich Markov fit, the SAPM module, the Sandia inverter
-and the Munich turbidity climatology; the weather-regime tables of
-heterogeneous fleets stay with the fleet slice.  The JAX package's
+the Munich turbidity climatology and the weather-regime tables of
+heterogeneous fleets.  The JAX package's
 ``TMHPVSIM_SAM_*`` environment overrides are not copied: nothing here
 reads the environment, so the port always runs the vendored nominal set.
 
@@ -71,6 +71,44 @@ MARKOV_STEP_PARAMS = (
     (2.302422019848737e-02, 0.04174291229198726, 1.9354719304310923, 1.0, 0.0),
     # ( 0.99, 1.00]   asymmetric Laplace
     (1.4829967380125997e-06, 0.0063110602544872866, 2.23750187345364, 1.0, 0.0),
+)
+
+# --------------------------------------------------------------------------
+# 1b. Weather-regime step-distribution tables (heterogeneous fleets).
+#
+# The per-site ``weather_regime`` id of ``tmhpvsim_torch.fleet.FleetParams``
+# selects which table drives that chain's hourly Markov step.  Regime 0 IS
+# the Munich fit above (the same tuple object), so a regime-0 chain draws
+# the steps of the single-table simulation bit for bit; regimes 1 and 2
+# are same-shape refits for contrasting climates.  All tables share
+# ``MARKOV_STEP_BINS`` and the (loc, scale, kappa, df, is_t) encoding.
+# --------------------------------------------------------------------------
+
+#: Regime 1: maritime / coastal — broader steps, bias toward overcast.
+MARKOV_STEP_PARAMS_MARITIME = (
+    (2.1e-03, 0.05210, 0.5480, 1.0, 0.0),
+    (-3.05e-02, 0.14630, 0.5910, 1.0, 0.0),
+    (2.84e-02, 0.21080, 1.0, 8.92, 1.0),
+    (8.93e-02, 0.12740, 1.4210, 1.0, 0.0),
+    (3.11e-02, 0.05890, 1.6730, 1.0, 0.0),
+    (6.2e-06, 0.00941, 1.9820, 1.0, 0.0),
+)
+
+#: Regime 2: continental-dry — small steps, bias toward clearing.
+MARKOV_STEP_PARAMS_CONTINENTAL_DRY = (
+    (-8.4e-04, 0.02110, 0.7150, 1.0, 0.0),
+    (-5.62e-02, 0.08120, 0.7890, 1.0, 0.0),
+    (-1.12e-02, 0.14210, 1.0, 13.34, 1.0),
+    (6.01e-02, 0.08930, 1.9470, 1.0, 0.0),
+    (1.48e-02, 0.03120, 2.2910, 1.0, 0.0),
+    (9.1e-07, 0.00442, 2.6120, 1.0, 0.0),
+)
+
+#: Stacked regime tables, indexed by ``FleetParams.weather_regime``.
+MARKOV_STEP_PARAMS_REGIMES = (
+    MARKOV_STEP_PARAMS,
+    MARKOV_STEP_PARAMS_MARITIME,
+    MARKOV_STEP_PARAMS_CONTINENTAL_DRY,
 )
 
 # --------------------------------------------------------------------------

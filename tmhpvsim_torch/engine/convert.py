@@ -3,7 +3,9 @@
 The JAX package's reduce-mode state pytree, as numpy (keys as
 ``jax.random.key_data``: uint32 ``(..., 2)``), becomes the port's state on
 a device, and back; the same for the accumulator.  A site-grid run's
-state also carries the six per-chain site scalars (``state["site"]``).  A
+state also carries the six per-chain site scalars (``state["site"]``), a
+fleet run its heterogeneous columns (``state["fleet"]``: float32 transform
+leaves, int32 ``regime`` and ``cohort``).  A
 JAX run stopped after N blocks continues in the port from block N and
 gives the JAX result (tests/test_torch_engine.py).
 """
@@ -18,15 +20,20 @@ from tmhpvsim_torch.config import SITE_FIELDS
 KEY_LEAVES = ("k_arr", "k_min", "k_scan", "k_meter")
 FLOAT_LEAVES = ("cc_carry", "cc0", "cloudy_pair")
 CARRY_LEAVES = ("cloud_end", "total_end", "sec")
+#: the fleet leaves a state may hold, with their dtypes
+FLEET_LEAVES = {"demand_scale": np.float32, "demand_shift_w": np.float32,
+                "pv_scale": np.float32, "ac_limit_w": np.float32,
+                "regime": np.int32, "cohort": np.int32}
 
 
 def state_from_numpy(tree: dict, device) -> dict:
     """JAX-layout state (numpy leaves) -> the port's state on ``device``."""
     expected = set(KEY_LEAVES) | set(FLOAT_LEAVES) | {"carry"}
-    if set(tree) - {"site"} != expected:
+    if set(tree) - {"site", "fleet"} != expected:
         raise ValueError(
             f"state leaves {sorted(tree)} are not the chain state "
-            f"{sorted(expected)} (plus 'site' for a site grid)")
+            f"{sorted(expected)} (plus 'site' for a site grid, 'fleet' "
+            "for a fleet)")
     out = {}
     for k in KEY_LEAVES:
         a = np.asarray(tree[k])
@@ -44,6 +51,12 @@ def state_from_numpy(tree: dict, device) -> dict:
                              f"{sorted(SITE_FIELDS)}")
         out["site"] = {k: _tensor(tree["site"][k], np.float32, device)
                        for k in SITE_FIELDS}
+    if "fleet" in tree:
+        extra = set(tree["fleet"]) - set(FLEET_LEAVES)
+        if extra:
+            raise ValueError(f"unknown fleet leaves {sorted(extra)}")
+        out["fleet"] = {k: _tensor(v, FLEET_LEAVES[k], device)
+                        for k, v in tree["fleet"].items()}
     return out
 
 
@@ -61,6 +74,9 @@ def state_to_numpy(state: dict) -> dict:
     if "site" in state:
         out["site"] = {k: state["site"][k].cpu().numpy()
                        for k in SITE_FIELDS}
+    if "fleet" in state:
+        out["fleet"] = {k: v.cpu().numpy() for k, v in
+                        state["fleet"].items()}
     return out
 
 

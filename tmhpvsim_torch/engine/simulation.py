@@ -19,10 +19,20 @@ and trimmed from every per-second output).  Per block:
    chains per second (``run_ensemble``) or writes every chain-second
    (``run_blocks``); a site grid runs its K6 geometry mode.
 
+A heterogeneous fleet (``config.fleet``) adds K7: each chain's Markov
+steps come from its weather regime's table (in K2) and its pv and meter
+take its capacity, inverter-limit and demand transforms (in every
+epilogue).  In reduce mode the telemetry (K8) and fleet analytics (K9)
+fold in the same block-step launch; each block's deltas come out
+zero-initialised and collapsed, and the host keeps the last telemetry
+delta with its summary and merges the analytics into run totals
+(``fleet_summary``).
+
 The chain state is O(1) per chain: threefry keys, the Markov carry, the
-renewal carry, three construction-time scalars and, for a grid, the six
-site scalars.  With the block offset it is a complete checkpoint;
-``engine/convert.py`` moves it to and from the JAX package's layout.
+renewal carry, three construction-time scalars, for a grid the six site
+scalars and, for a fleet, its heterogeneous columns (``state["fleet"]``).
+With the block offset it is a complete checkpoint; ``engine/convert.py``
+moves it to and from the JAX package's layout.
 Every kernel wrapper runs its plain torch version on CPU tensors, so
 ``Simulation(config, device="cpu")`` is the reference implementation of
 the same run.
@@ -46,6 +56,8 @@ from tmhpvsim_torch.kernels import windows as k2
 from tmhpvsim_torch.models import clearsky_index as ci
 from tmhpvsim_torch.models import renewal, solar
 from tmhpvsim_torch.models.timegrid import TimeGridSpec
+from tmhpvsim_torch.obs import analytics as flt
+from tmhpvsim_torch.obs import telemetry as tel
 
 #: Reduce-mode statistics: name -> (reduction kind, dtype kind); the
 #: accumulator, the ensemble fold and the summary-CSV columns follow it.
@@ -118,11 +130,13 @@ class BlockInputs:
 
 class Simulation:
     """Simulation of ``config.n_chains`` chains (one per site of
-    ``config.site_grid`` when given) on ``device`` (default: the card).
+    ``config.site_grid`` or row of ``config.fleet`` when given) on
+    ``device`` (default: the card).
 
         sim = Simulation(config)
         stats = sim.run_reduced()        # dict of (n_chains,) numpy arrays
         fleet = sim.ensemble_stats()     # float64 / int64 fleet aggregates
+        risk = sim.fleet_summary()       # analytics on: the run's totals
         for blk in sim.run_blocks(): ... # per-chain BlockResults
         for blk in sim.run_ensemble(): ...  # fleet-mean BlockResults
     """
@@ -130,6 +144,23 @@ class Simulation:
     def __init__(self, config: SimConfig, device=None):
         if config.block_s % 60 != 0:
             raise ValueError("block_s must be a multiple of 60 (minute grid)")
+        # a fleet: chain i simulates fleet row i; a uniform geometry runs
+        # on the shared-site path, any other derives the site grid; a
+        # site grid given beside the fleet must pair 1:1 with it
+        fp = config.fleet
+        if fp is not None:
+            if config.site_grid is None:
+                if fp.uniform_geometry:
+                    config = dataclasses.replace(
+                        config, n_chains=len(fp), site=fp.uniform_site())
+                else:
+                    config = dataclasses.replace(
+                        config, site_grid=fp.site_grid())
+            elif len(config.site_grid) != len(fp):
+                raise ValueError(
+                    f"fleet has {len(fp)} sites but site_grid has "
+                    f"{len(config.site_grid)} — they must pair 1:1 on "
+                    "the chain axis")
         grid = config.site_grid
         if grid is not None and config.n_chains != len(grid):
             config = dataclasses.replace(config, n_chains=len(grid))
@@ -168,6 +199,27 @@ class Simulation:
         self._last_acc = None
         self.state = None
         self.state_block = 0
+        # only a fleet's heterogeneous columns become state leaves and
+        # transforms; a neutral column changes nothing
+        self._het_demand = fp is not None and fp.het_demand
+        self._het_power = fp is not None and fp.het_power
+        self._het_regime = fp is not None and fp.het_regime
+        # reduce-mode observers; the cohort group-by needs >= 2 cohorts
+        self._telemetry = config.telemetry
+        self._analytics = config.analytics
+        self._fleet_params = (flt.params_from_config(config)
+                              if self._analytics != "off" else None)
+        self._n_cohorts = (fp.n_cohorts if fp is not None
+                           and self._analytics != "off"
+                           and fp.n_cohorts > 1 else 0)
+        #: the last block's telemetry delta
+        self._tel_last = None
+        #: the last block's analytics delta; the run total (int64 /
+        #: float64, on the run's device)
+        self._fleet_last = None
+        self._fleet_run = None
+        #: Observers of the state whose cohort ids they checked
+        self._obs = (None, None)
 
     # ------------------------------------------------------------------
     # chain state
@@ -191,14 +243,17 @@ class Simulation:
         k_arr, k_min, k_renew, k_scan, k_meter = (
             s5[:, i, :].contiguous() for i in range(5))
         n = cfg.n_chains
+        fp = cfg.fleet
+        regime = (torch.tensor(np.asarray(fp.weather_regime, np.int32),
+                               device=dev) if self._het_regime else None)
         ones = torch.ones(n, dtype=torch.float32, device=dev)
         no_min = (torch.zeros(0, dtype=torch.int32, device=dev),
                   torch.zeros(0, dtype=torch.float32, device=dev))
         # construction-time primers: cc at global hours 0, 1 from state
-        # 1.0, and the first windspeed
+        # 1.0 (from the chain's own regime table), and the first windspeed
         t1, _ = k2.sampler_windows(
             k_arr, k_min, ones, ones,
-            k2.Bounds(0, 2, 0, 0, 0, 0, 0, 1), *no_min)
+            k2.Bounds(0, 2, 0, 0, 0, 0, 0, 1), *no_min, regime=regime)
         cc01 = t1["cc"]                                      # (2, n)
         f0 = self._f0_hour
         cc0 = (cc01[0] * (1 - f0) + cc01[1] * f0).contiguous()
@@ -226,6 +281,24 @@ class Simulation:
                 f: torch.tensor(np.asarray(getattr(grid, f), np.float32),
                                 device=dev)
                 for f in SITE_FIELDS}
+
+        def f32(col):
+            return torch.tensor(np.asarray(col, np.float32), device=dev)
+
+        fleet = {}
+        if self._het_demand:
+            fleet["demand_scale"] = f32(fp.demand_scale)
+            fleet["demand_shift_w"] = f32(fp.demand_shift_w)
+        if self._het_power:
+            fleet["pv_scale"] = f32(fp.dc_capacity_scale)
+            fleet["ac_limit_w"] = f32(fp.ac_limit_w)
+        if regime is not None:
+            fleet["regime"] = regime
+        if self._n_cohorts:
+            fleet["cohort"] = torch.tensor(np.asarray(fp.cohort, np.int32),
+                                           device=dev)
+        if fleet:
+            state["fleet"] = fleet
         return state
 
     def init_reduce_acc(self):
@@ -341,9 +414,35 @@ class Simulation:
     # ------------------------------------------------------------------
 
     def _windows(self, state, inputs: BlockInputs):
+        regime = state["fleet"]["regime"] if self._het_regime else None
         return k2.sampler_windows(
             state["k_arr"], state["k_min"], state["cc_carry"], state["cc0"],
-            inputs.bounds, inputs.mh_idx, inputs.mh_frac)
+            inputs.bounds, inputs.mh_idx, inputs.mh_frac, regime=regime)
+
+    def fleet_leaves(self, state):
+        """K7's per-chain transform leaves of ``state``, or None."""
+        if not (self._het_power or self._het_demand):
+            return None
+        fl = state["fleet"]
+        return k3.FleetLeaves(
+            pv_scale=fl.get("pv_scale"), ac_limit_w=fl.get("ac_limit_w"),
+            demand_scale=fl.get("demand_scale"),
+            demand_shift_w=fl.get("demand_shift_w"))
+
+    def observers(self, state):
+        """The reduce-mode observers of this run, or None when both are
+        off."""
+        if self._telemetry == "off" and self._analytics == "off":
+            return None
+        cohort = state["fleet"]["cohort"] if self._n_cohorts else None
+        if self._obs[1] is None or self._obs[0] is not cohort:
+            # Observers reads the cohort ids back to check them: once per
+            # run, not once per block
+            self._obs = (cohort, k3.Observers(
+                telemetry=self._telemetry, analytics=self._analytics,
+                params=self._fleet_params, n_cohorts=self._n_cohorts,
+                cohort=cohort))
+        return self._obs[1]
 
     def geometry_args(self, state):
         """``(surface_tilt, albedo, site)`` of the block-step wrappers."""
@@ -354,15 +453,25 @@ class Simulation:
 
     def step_acc(self, state, inputs: BlockInputs, acc):
         """One reduce block: K2 windows, then K3 (K6 for a grid) folds
-        every second into ``acc``.  Returns ``(state, acc)`` (on the card
-        both are updated in place)."""
+        every second into ``acc``, with the observers (K8, K9) in the same
+        launch when they are on; their block deltas land in
+        ``_tel_last`` / ``_fleet_last``.  Returns ``(state, acc)`` (on
+        the card both are updated in place)."""
         cfg = self.config
         tables, cc_carry = self._windows(state, inputs)
         tilt, albedo, site = self.geometry_args(state)
-        carry, acc = k3.block_step_acc(
-            tables, inputs.rows_i, inputs.rows_f, state["k_scan"],
-            state["k_meter"], state["carry"], acc, cfg.duration_s,
-            cfg.meter_max_w, tilt, albedo, site=site)
+        args = (tables, inputs.rows_i, inputs.rows_f, state["k_scan"],
+                state["k_meter"], state["carry"], acc, cfg.duration_s,
+                cfg.meter_max_w, tilt, albedo)
+        obs = self.observers(state)
+        fleet = self.fleet_leaves(state)
+        if obs is None:
+            carry, acc = k3.block_step_acc(*args, site=site, fleet=fleet)
+        else:
+            carry, acc, out = k3.block_step_obs(*args, site=site,
+                                                fleet=fleet, obs=obs)
+            self._tel_last, self._fleet_last = out["telemetry"], \
+                out["fleet"]
         return dict(state, carry=carry, cc_carry=cc_carry), acc
 
     def step_series(self, state, inputs: BlockInputs):
@@ -373,7 +482,7 @@ class Simulation:
         carry, m_sum, p_sum = k3.block_step_series(
             tables, inputs.rows_i, inputs.rows_f, state["k_scan"],
             state["k_meter"], state["carry"], self.config.meter_max_w, tilt,
-            albedo, site=site)
+            albedo, site=site, fleet=self.fleet_leaves(state))
         return dict(state, carry=carry, cc_carry=cc_carry), m_sum, p_sum
 
     def step_trace(self, state, inputs: BlockInputs):
@@ -384,7 +493,7 @@ class Simulation:
         carry, meter, pv_ = k3.block_step_trace(
             tables, inputs.rows_i, inputs.rows_f, state["k_scan"],
             state["k_meter"], state["carry"], self.config.meter_max_w, tilt,
-            albedo, site=site)
+            albedo, site=site, fleet=self.fleet_leaves(state))
         return dict(state, carry=carry, cc_carry=cc_carry), meter, pv_
 
     # ------------------------------------------------------------------
@@ -485,7 +594,10 @@ class Simulation:
         run (``acc`` is required with ``start_block > 0``);
         ``on_block(block_index, state, acc)`` runs after each block.  The
         host's inputs of block bi+1 are computed while block bi runs
-        (``_inputs_ahead``)."""
+        (``_inputs_ahead``).  With the observers on, each block's
+        analytics delta is merged into the run total on the device; the
+        host reads the totals (``fleet_summary``) and the last block's
+        telemetry (``tel_summary``) when asked."""
         if start_block > 0 and acc is None:
             raise ValueError(
                 "resuming run_reduced needs the accumulator: pass acc= "
@@ -500,10 +612,36 @@ class Simulation:
             nxt = self._inputs_ahead(bi + 1)
             self.state = state
             self.state_block = bi + 1
+            if self._analytics != "off":
+                self._fleet_run = flt.merge(self._fleet_run,
+                                            self._fleet_last)
             if on_block is not None:
                 on_block(bi, state, acc)
         self._last_acc = acc
         return {k: v.cpu().numpy() for k, v in acc.items()}
+
+    @property
+    def tel_summary(self):
+        """The last block's telemetry summary (``obs.telemetry.summarize``),
+        or None when telemetry is off or no block has run."""
+        return None if self._tel_last is None else \
+            tel.summarize(self._tel_last)
+
+    @property
+    def _fleet_total(self):
+        """The analytics run total on the host: numpy int64 counts,
+        float64 sums, extrema in float32 (None before a block)."""
+        if self._fleet_run is None:
+            return None
+        return {k: v.cpu().numpy() for k, v in self._fleet_run.items()}
+
+    def fleet_summary(self):
+        """The run-total ``fleet`` section (``obs.analytics.summarize``
+        of the merged totals), or None when analytics is off or no block
+        has run."""
+        if self._fleet_total is None or self._fleet_params is None:
+            return None
+        return flt.summarize(self._fleet_total, self._fleet_params)
 
     def ensemble_stats(self) -> dict:
         """Fleet-wide aggregates of the last ``run_reduced``, folded on the

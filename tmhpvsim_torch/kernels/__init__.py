@@ -1,19 +1,21 @@
 """Hand-written CUDA kernels of the port and their plain torch versions.
 
-K1 threefry (kernels/threefry.py), K2 sampler windows (kernels/windows.py),
-and the fused per-second block step (kernels/block_step.py): K3 (the
-reduce fold), K4 (the ensemble series with its cross-CTA sum, and the
-trace) and K6 (per-chain site geometry), one template over epilogue and
-geometry mode.  Each wrapper runs its plain version on CPU tensors and its
+K1 threefry (kernels/threefry.py), K2 sampler windows (kernels/windows.py,
+with K7's weather-regime gather), and the fused per-second block step
+(kernels/block_step.py): K3 (the reduce fold), K4 (the ensemble series
+with its cross-CTA sum, and the trace), K6 (per-chain site geometry), K7
+(fleet transforms), K8 (telemetry) and K9 (fleet analytics) with their
+chainwise collapse, one template over epilogue, geometry mode and
+observers.  Each wrapper runs its plain version on CPU tensors and its
 kernel on CUDA tensors, and counts its launches.
 """
 
 from tmhpvsim_torch.kernels import block_step as _block_step
 from tmhpvsim_torch.kernels.threefry import K1
-from tmhpvsim_torch.kernels.windows import K2
+from tmhpvsim_torch.kernels.windows import K2, K7_REGIME
 
 #: every kernel's launch counter, in path order
-COUNTERS = (K1, K2) + _block_step.COUNTERS
+COUNTERS = (K1, K2, K7_REGIME) + _block_step.COUNTERS
 
 
 def reset_counts() -> None:

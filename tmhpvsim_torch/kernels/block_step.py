@@ -13,16 +13,23 @@ Replaces, in tmhpvsim_tpu/engine/simulation.py:
 * K6 ``solar.device_geometry`` (models/solar.py:434-486, from the scan
   step at :1204-1213) — per-chain solar geometry of a site grid (the
   ``site`` geometry mode; the shared mode reads the block's host-computed
-  rows instead).
+  rows instead);
+* K7 the per-site transforms of a heterogeneous fleet (:1228-1238), in
+  every epilogue (``FleetLeaves``);
+* K8 the TelemetryAcc fold of ``_block_step_scan_acc_tel`` (:1298-1337)
+  and K9 the FleetAcc fold of ``_block_step_scan_acc_fleet`` (:1394-1481;
+  both at once :1436, :1524), each with its ``reduce_chainwise`` collapse
+  (``block_step_obs``; obs/telemetry.py, obs/analytics.py).
 
 Every epilogue shares one pre-fold body: for every chain and second the
 table lerps, the renewal step (a new cycle from ``cycle_from_u`` on
 redraw), the csi composition, ``pv.power_from_csi`` and the meter, fed by
 ``scan_draws_tmajor`` / ``meter_block_tmajor`` (models/clearsky_index.py
-:278-319).  ``block_step_plain``, ``series_plain`` and ``trace_plain`` are
-that body (``_body_plain``) plus their epilogue, so the three cannot
-drift apart; the CUDA kernel (csrc/block_step.cu) is one template over
-the epilogue and the geometry mode.
+:278-319).  ``block_step_plain``, ``series_plain``, ``trace_plain`` and
+``block_step_obs_plain`` are that body (``_body_plain``) plus their
+epilogue, so they cannot drift apart; the CUDA kernel
+(csrc/block_step.cu) is one template over the epilogue, the geometry mode
+and the observers.
 
 Each wrapper runs its plain version on CPU tensors and launches the
 kernel on CUDA tensors; every variant counts its launches.  The kernels
@@ -40,12 +47,15 @@ import math
 import numpy as np
 import torch
 
+from tmhpvsim_torch import rng
 from tmhpvsim_torch.config import SITE_FIELDS
 from tmhpvsim_torch.data import SANDIA_INVERTER, SAPM_MODULE
 from tmhpvsim_torch.kernels import build
 from tmhpvsim_torch.models import clearsky_index as ci
 from tmhpvsim_torch.models import distributions as dist
 from tmhpvsim_torch.models import pv, renewal, solar
+from tmhpvsim_torch.obs import analytics as flt
+from tmhpvsim_torch.obs import telemetry as tel
 
 K3 = build.LaunchCounter("block_step")
 K6 = build.LaunchCounter("block_step_site")
@@ -54,9 +64,18 @@ K4_SERIES_SITE = build.LaunchCounter("block_step_series_site")
 K4_SUM = build.LaunchCounter("series_sum")
 K4_TRACE = build.LaunchCounter("block_step_trace")
 K4_TRACE_SITE = build.LaunchCounter("block_step_trace_site")
+#: block-step launches (any epilogue) that apply fleet transforms
+K7_FLEET = build.LaunchCounter("block_step_fleet")
+#: acc launches of the observer instantiations: telemetry only, analytics
+#: only, both
+K8 = build.LaunchCounter("block_step_tel")
+K9 = build.LaunchCounter("block_step_analytics")
+K89 = build.LaunchCounter("block_step_tel_analytics")
+#: the second pass of reduce_chainwise (per-CTA partials over CTAs)
+COLLAPSE = build.LaunchCounter("chainwise_collapse")
 #: every counter of this module, in (epilogue, geometry) order
 COUNTERS = (K3, K6, K4_SERIES, K4_SERIES_SITE, K4_SUM, K4_TRACE,
-            K4_TRACE_SITE)
+            K4_TRACE_SITE, K7_FLEET, K8, K9, K89, COLLAPSE)
 
 #: per-second integer rows: global second, rebased hour / day / minute index
 ROWS_I = ("t", "h", "d", "m")
@@ -79,6 +98,30 @@ ACC_F = ("pv_sum", "pv_max", "meter_sum", "residual_sum", "residual_min",
 
 #: threads per CTA of the block-step kernel (one chain per thread)
 THREADS = 128
+#: the analytics' shared-memory histograms may take this many bytes per
+#: CTA (beyond, they count with global atomics)
+SMEM_MAX = 96 * 1024
+
+#: the kernel's per-chain observer leaves (``per_chain=True``), in row order
+TEL_CHAIN_I = tuple(f"{k}_{f}" for f in tel.TELEMETRY_FIELDS
+                    for k in ("nan", "nf")) + ("occ_cov",)
+TEL_CHAIN_F = tuple(f"{k}_{f}" for f in tel.TELEMETRY_FIELDS
+                    for k in ("min", "max", "sum", "sumsq"))
+FLT_CHAIN_I = ("lol_seconds", "lol_events", "lol_run", "seen_ramp_1s",
+               "seen_ramp_60s", "seen_ramp_3600s", "cov_count", "n_use")
+FLT_CHAIN_F = ("min_res", "max_res", "max_ramp_1s", "max_ramp_60s",
+               "max_ramp_3600s", "prev_ramp_1s", "prev_ramp_60s",
+               "prev_ramp_3600s", "cohort_sum_meter", "cohort_sum_pv",
+               "cohort_sum_residual", "cov_sum_meter", "cov_sum_pv",
+               "cov_sum_residual")
+#: collapse kinds of the per-CTA partial rows: 0 sum, 1 min, 2 max
+TEL_KINDS = (0, 0, 1, 2, 0, 0) * 4 + (0,)
+FLT_KINDS = (0, 1, 2, 0, 0, 2, 2, 2, 0, 0, 0, 0, 0, 0, 0)
+COH_KINDS = (0, 0, 0, 0, 1, 2)
+#: the kernel's per-CTA partial rows and the kinds of one row (the cohort
+#: row repeats ``COH_KINDS`` per cohort)
+PART_KINDS = {"tel_part": TEL_KINDS, "flt_part": FLT_KINDS,
+              "coh_part": COH_KINDS}
 
 _BIG = float(np.finfo(np.float32).max)
 
@@ -91,6 +134,60 @@ class SiteGeometry:
 
     site: dict
     turbidity: torch.Tensor
+
+
+@dataclasses.dataclass
+class FleetLeaves:
+    """K7's per-chain inputs: ``(n,)`` float32 tensors of the fleet's
+    heterogeneous columns (``None`` for a homogeneous one; the power pair
+    and the demand pair go together)."""
+
+    pv_scale: torch.Tensor | None = None
+    ac_limit_w: torch.Tensor | None = None
+    demand_scale: torch.Tensor | None = None
+    demand_shift_w: torch.Tensor | None = None
+
+    def __post_init__(self):
+        for a, b in (("pv_scale", "ac_limit_w"),
+                     ("demand_scale", "demand_shift_w")):
+            if (getattr(self, a) is None) != (getattr(self, b) is None):
+                raise ValueError(f"FleetLeaves: {a} and {b} go together")
+
+    def tensors(self):
+        return [self.pv_scale, self.ac_limit_w, self.demand_scale,
+                self.demand_shift_w]
+
+
+@dataclasses.dataclass
+class Observers:
+    """The reduce-mode observers of one acc block: the telemetry level,
+    the analytics level with its sketch ``params``, the chains' ``cohort``
+    ids (``(n,)`` int32) when ``n_cohorts`` >= 2; ``per_chain`` also
+    returns every per-chain leaf and, on the card, the per-CTA partial
+    rows under ``partials`` (for checks)."""
+
+    telemetry: str = "off"
+    analytics: str = "off"
+    params: flt.FleetParams | None = None
+    cohort: torch.Tensor | None = None
+    n_cohorts: int = 0
+    per_chain: bool = False
+
+    def __post_init__(self):
+        if self.telemetry not in tel.TELEMETRY_LEVELS:
+            raise ValueError(f"Observers: telemetry {self.telemetry!r}")
+        if self.analytics not in flt.ANALYTICS_LEVELS:
+            raise ValueError(f"Observers: analytics {self.analytics!r}")
+        if self.analytics != "off" and self.params is None:
+            raise ValueError("Observers: analytics needs params")
+        if (self.n_cohorts >= 2) != (self.cohort is not None):
+            raise ValueError("Observers: cohort ids go with n_cohorts >= 2")
+        if self.cohort is not None and self.cohort.numel() and not (
+                int(self.cohort.min()) >= 0
+                and int(self.cohort.max()) < self.n_cohorts):
+            # the kernel indexes its cohort histograms with these ids
+            raise ValueError(f"Observers: cohort ids outside "
+                             f"[0, {self.n_cohorts})")
 
 
 def kernel_constants() -> dict:
@@ -169,12 +266,25 @@ def _geometry(rows_f, surface_tilt, albedo, site: SiteGeometry | None):
         s["surface_azimuth"], s["albedo"], site.turbidity)
 
 
+def fleet_transform_plain(meter, ac, fleet: FleetLeaves | None):
+    """K7's plain version: ``ac = min(ac * pv_scale, ac_limit_w)`` and
+    ``meter = meter * demand_scale + demand_shift_w`` rounded once (the
+    JAX scan's contraction), for the columns the fleet makes
+    heterogeneous; ``(T, n)`` or ``(n,)`` against ``(n,)`` leaves."""
+    if fleet is not None and fleet.pv_scale is not None:
+        ac = torch.minimum(ac * fleet.pv_scale, fleet.ac_limit_w)
+    if fleet is not None and fleet.demand_scale is not None:
+        meter = rng.fma(meter, fleet.demand_scale, fleet.demand_shift_w)
+    return meter, ac
+
+
 def _body_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
-                meter_max_w, surface_tilt, albedo, site):
+                meter_max_w, surface_tilt, albedo, site, fleet=None):
     """The pre-fold body every epilogue shares: everything carry-
     independent over the whole block at once, the renewal compare/select
-    second by second.  Returns ``(carry, meter, ac)`` with time-major
-    ``(T, n)`` meter and ac."""
+    second by second, then the fleet transforms.  Returns ``(carry,
+    meter, ac, csi, covered)`` with time-major ``(T, n)`` arrays (csi
+    before the cap, as the telemetry reads it)."""
     T = rows_i.shape[1]
     g0 = int(rows_i[0, 0]) // 60
     u, z = ci.scan_draws_tmajor(k_scan, g0, T // 60)
@@ -192,18 +302,14 @@ def _body_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
     ac = pv.power_from_csi(csi, _geometry(rows_f, surface_tilt, albedo,
                                           site),
                            SAPM_MODULE, SANDIA_INVERTER)
-    return carry, meter, ac
+    meter, ac = fleet_transform_plain(meter, ac, fleet)
+    return carry, meter, ac, csi, covered
 
 
-def block_step_plain(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
-                     duration_s: int, meter_max_w: float,
-                     surface_tilt, albedo, site: SiteGeometry | None = None):
-    """Plain torch K3 / K6 (the ``acc`` epilogue): the shared body, then
-    the statistics fold second by second (in second order, as the scan
-    adds).  Returns ``(carry, acc)``."""
-    carry, meter, ac = _body_plain(tables, rows_i, rows_f, k_scan, k_meter,
-                                   carry, meter_max_w, surface_tilt, albedo,
-                                   site)
+def _stats_fold_plain(acc, rows_i, duration_s, meter, ac, second_hook=None):
+    """The statistics fold second by second (in second order, as the scan
+    adds); ``second_hook(s, valid, residual_s)`` runs after each second's
+    fold (the observers)."""
     residual = meter - ac
     T = rows_i.shape[1]
     valid = rows_i[0] < duration_s
@@ -222,30 +328,93 @@ def block_step_plain(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
         acc["residual_max"] = torch.maximum(
             acc["residual_max"], torch.where(ok, residual[s], -big))
         acc["n_seconds"] = acc["n_seconds"] + ok.to(torch.int32)
-    return carry, acc
+        if second_hook is not None:
+            second_hook(s, ok, residual[s])
+    return acc
+
+
+def block_step_plain(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
+                     duration_s: int, meter_max_w: float,
+                     surface_tilt, albedo, site: SiteGeometry | None = None,
+                     fleet: FleetLeaves | None = None):
+    """Plain torch K3 / K6 (the ``acc`` epilogue, with K7's transforms):
+    the shared body, then the statistics fold.  Returns ``(carry,
+    acc)``."""
+    carry, meter, ac, _, _ = _body_plain(
+        tables, rows_i, rows_f, k_scan, k_meter, carry, meter_max_w,
+        surface_tilt, albedo, site, fleet)
+    return carry, _stats_fold_plain(acc, rows_i, duration_s, meter, ac)
+
+
+def block_step_obs_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
+                         acc, duration_s: int, meter_max_w: float,
+                         surface_tilt, albedo,
+                         site: SiteGeometry | None = None,
+                         fleet: FleetLeaves | None = None,
+                         obs: Observers = None):
+    """Plain K8 / K9: the acc epilogue with the observers' per-chain folds
+    (obs/telemetry.py and obs/analytics.py ``fold_second``, zero-
+    initialised for the block) beside the statistics, then their
+    ``reduce_chainwise``.  Returns ``(carry, acc, out)``; ``out`` holds
+    the block's collapsed ``telemetry`` and ``fleet`` deltas (None when
+    off) and, with ``obs.per_chain``, the per-chain accs under
+    ``telemetry_chain`` / ``fleet_chain``."""
+    carry, meter, ac, csi, covered = _body_plain(
+        tables, rows_i, rows_f, k_scan, k_meter, carry, meter_max_w,
+        surface_tilt, albedo, site, fleet)
+    n, dev = ac.shape[1], ac.device
+    cohorts = obs.n_cohorts if obs.n_cohorts >= 2 else 0
+    st = {"ta": None if obs.telemetry == "off" else
+          tel.init_acc(obs.telemetry, n, dev),
+          "fa": None if obs.analytics == "off" else
+          flt.init_acc(obs.analytics, n, params=obs.params,
+                       cohorts=cohorts, device=dev)}
+    t_rows = rows_i[0].tolist()
+
+    def hook(s, ok, res):
+        if st["ta"] is not None:
+            st["ta"] = tel.fold_second(
+                st["ta"], obs.telemetry, meter=meter[s], pv=ac[s],
+                csi=csi[s], residual=res, covered=covered[s], valid=ok)
+        if st["fa"] is not None:
+            st["fa"] = flt.fold_second(
+                st["fa"], obs.analytics, obs.params, meter=meter[s],
+                pv=ac[s], residual=res, covered=covered[s], t=t_rows[s],
+                valid=ok, cohort=obs.cohort)
+
+    acc = _stats_fold_plain(acc, rows_i, duration_s, meter, ac, hook)
+    ta, fa = st["ta"], st["fa"]
+    out = {"telemetry": None if ta is None else tel.reduce_chainwise(ta),
+           "fleet": None if fa is None else
+           flt.reduce_chainwise(fa, cohort=obs.cohort)}
+    if obs.per_chain:
+        out["telemetry_chain"], out["fleet_chain"] = ta, fa
+    return carry, acc, out
 
 
 def series_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
                  meter_max_w: float, surface_tilt, albedo,
-                 site: SiteGeometry | None = None):
+                 site: SiteGeometry | None = None,
+                 fleet: FleetLeaves | None = None):
     """Plain K4 series: the shared body, then each second's cross-chain
     sums of meter and pv (accumulated in float64, rounded once to
     float32).  Returns ``(carry, meter_sum, pv_sum)``, each ``(T,)``;
     padding seconds are summed too (the engine trims them)."""
-    carry, meter, ac = _body_plain(tables, rows_i, rows_f, k_scan, k_meter,
-                                   carry, meter_max_w, surface_tilt, albedo,
-                                   site)
+    carry, meter, ac, _, _ = _body_plain(
+        tables, rows_i, rows_f, k_scan, k_meter, carry, meter_max_w,
+        surface_tilt, albedo, site, fleet)
     return (carry, meter.double().sum(1).float(),
             ac.double().sum(1).float())
 
 
 def trace_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
                 meter_max_w: float, surface_tilt, albedo,
-                site: SiteGeometry | None = None):
+                site: SiteGeometry | None = None,
+                fleet: FleetLeaves | None = None):
     """Plain K4 trace: the shared body's every chain-second.  Returns
     ``(carry, meter, pv)`` with time-major ``(T, n)`` arrays."""
     return _body_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
-                       meter_max_w, surface_tilt, albedo, site)
+                       meter_max_w, surface_tilt, albedo, site, fleet)[:3]
 
 
 def cos_tilt(surface_tilt: float) -> float:
@@ -261,7 +430,23 @@ def cos_tilt(surface_tilt: float) -> float:
 _P = ctypes.c_void_p
 #: the arguments every block-step entry takes, before its outputs
 _COMMON = ([ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_float, ctypes.c_float] + [_P] * 17)
+            ctypes.c_float, ctypes.c_float, ctypes.c_float] + [_P] * 21)
+
+
+class _Obs(ctypes.Structure):
+    """ctypes mirror of csrc/block_step.cu's ``Obs``."""
+
+    _fields_ = [("tel_full", ctypes.c_int), ("tel_part", _P),
+                ("csi_hist", _P), ("tel_count", _P), ("tel_chain_i", _P),
+                ("tel_chain_f", _P), ("flt_full", ctypes.c_int),
+                ("bins", ctypes.c_int), ("n_thr", ctypes.c_int),
+                ("lolp_k", ctypes.c_int), ("n_cohorts", ctypes.c_int),
+                ("hist_shared", ctypes.c_int), ("coh_shared", ctypes.c_int),
+                ("ramp_w", ctypes.c_int * 3), ("lo", ctypes.c_float),
+                ("inv_w", ctypes.c_float), ("capacity", ctypes.c_float),
+                ("thr", _P), ("res_hist", _P), ("exceed", _P),
+                ("cohort_hist", _P), ("cohort", _P), ("flt_part", _P),
+                ("coh_part", _P), ("flt_chain_i", _P), ("flt_chain_f", _P)]
 
 
 def _check(t, dtype, dev, what):
@@ -271,7 +456,8 @@ def _check(t, dtype, dev, what):
 
 
 def _common_args(tables, rows_i, rows_f, k_scan, k_meter, carry,
-                 duration_s, meter_max_w, surface_tilt, albedo, site):
+                 duration_s, meter_max_w, surface_tilt, albedo, site,
+                 fleet=None):
     """Validate the shared inputs and return the C arguments they fill."""
     n = k_scan.shape[0]
     T = rows_i.shape[1]
@@ -309,40 +495,242 @@ def _common_args(tables, rows_i, rows_f, k_scan, k_meter, carry,
             raise ValueError("block_step: turbidity must be (12,)")
         geo = [p(site.site[k]) for k in SITE_FIELDS] + [p(site.turbidity)]
         ct, alb = 0.0, 0.0
+    leaves = [None] * 4 if fleet is None else fleet.tensors()
+    for t in leaves:
+        if t is not None:
+            _check(t, torch.float32, dev, "fleet leaf")
+            if t.shape != (n,):
+                raise ValueError(f"block_step: fleet leaves must be ({n},)")
     args = [int(site is not None), n, T, int(duration_s), meter_max_w, ct,
             alb, p(rows_i), p(rows_f),
             *(p(tables[k]) for k in ("cc", "cloudy", "clear_day", "ws", "ml",
                                      "mc")),
-            p(k_scan), p(k_meter), *geo]
+            p(k_scan), p(k_meter), *geo,
+            *(None if t is None else p(t) for t in leaves)]
     return n, T, dev, args
 
 
+def _count(site, fleet, shared: build.LaunchCounter,
+           per_site: build.LaunchCounter):
+    (shared if site is None else per_site).launches += 1
+    if fleet is not None and any(t is not None for t in fleet.tensors()):
+        K7_FLEET.launches += 1
+
+
+_consts: dict = {}
+
+
+def _const_tensor(values, dtype, dev):
+    """A small constant tensor on ``dev``, made once (no copy per block)."""
+    key = (tuple(values), dtype, str(dev))
+    t = _consts.get(key)
+    if t is None:
+        t = _consts[key] = torch.tensor(list(values), dtype=dtype,
+                                        device=dev)
+    return t
+
+
+def collapse_plain(part, kinds):
+    """Plain second pass: ``(n_parts, L)`` float64 partial rows combined
+    over the rows, by kind (0 sum, 1 min, 2 max); ``(L,)`` float64."""
+    k = torch.as_tensor(kinds, device=part.device)
+    return torch.where(k == 0, part.sum(0),
+                       torch.where(k == 1, part.min(0).values,
+                                   part.max(0).values))
+
+
+def collapse_partials(part, kinds):
+    """reduce_chainwise's second pass on the card: the ``(n_parts, L)``
+    float64 per-CTA partial rows combined over the rows in index order
+    (sums in float64), one thread per leaf."""
+    n_parts, L = part.shape
+    out = torch.empty(L, dtype=torch.float64, device=part.device)
+    fn = build.entry("block_step.cu", "collapse_partials",
+                     [ctypes.c_int, ctypes.c_int] + [_P] * 3)
+    p = build.ptr
+    rc = fn(n_parts, L, p(_const_tensor(kinds, torch.int32, part.device)),
+            p(part), p(out), build.stream_ptr(part.device))
+    build.check(rc, "collapse_partials")
+    COLLAPSE.launches += 1
+    return out
+
+
+def _obs_buffers(obs: Observers, n: int, T: int, dev):
+    """The observers' outputs and the kernel's ``Obs`` argument."""
+    if n * T >= 2 ** 31:
+        raise ValueError(f"block_step: {n} chains x {T} s passes the int32 "
+                         "counts of one block")
+    p = build.ptr
+    n_ctas = (n + THREADS - 1) // THREADS
+    o = _Obs()
+    buf = {}
+
+    def zeros(name, shape, dtype):
+        buf[name] = torch.zeros(shape, dtype=dtype, device=dev)
+        return p(buf[name])
+
+    def empty(name, shape, dtype):
+        buf[name] = torch.empty(shape, dtype=dtype, device=dev)
+        return p(buf[name])
+
+    smem = 0
+    if obs.telemetry != "off":
+        o.tel_full = int(obs.telemetry == "full")
+        o.tel_part = empty("tel_part", (n_ctas, len(TEL_KINDS)),
+                           torch.float64)
+        o.csi_hist = zeros("csi_hist", (tel.CSI_HIST_BINS,), torch.int32)
+        o.tel_count = empty("tel_count", (1,), torch.float32)
+        if obs.per_chain:
+            o.tel_chain_i = empty("tel_chain_i", (len(TEL_CHAIN_I), n),
+                                  torch.int32)
+            o.tel_chain_f = empty("tel_chain_f", (len(TEL_CHAIN_F), n),
+                                  torch.float32)
+    if obs.analytics != "off":
+        prm = obs.params
+        if len(prm.ramp_windows) != 3:
+            raise ValueError("block_step: the kernel folds exactly three "
+                             "ramp windows")
+        nb, ne = prm.bins + 2, len(prm.thresholds) + 1
+        C = obs.n_cohorts if obs.cohort is not None else 0
+        hist_bytes, coh_bytes = 4 * (nb + ne), 4 * C * nb
+        hist_shared = hist_bytes <= SMEM_MAX
+        coh_shared = bool(C) and hist_shared and \
+            hist_bytes + coh_bytes <= SMEM_MAX
+        smem = hist_bytes * hist_shared + coh_bytes * coh_shared
+        o.flt_full = int(obs.analytics == "full")
+        o.bins, o.n_thr, o.lolp_k = prm.bins, ne - 1, prm.lolp_k
+        o.n_cohorts, o.hist_shared, o.coh_shared = C, hist_shared, coh_shared
+        o.ramp_w[:] = list(prm.ramp_windows)
+        o.lo, o.inv_w, o.capacity = prm.lo, prm.inv_w, prm.capacity_w
+        o.thr = p(_const_tensor(prm.thresholds, torch.float32, dev))
+        o.res_hist = zeros("res_hist", (nb,), torch.int32)
+        o.exceed = zeros("exceed", (ne,), torch.int32)
+        o.flt_part = empty("flt_part", (n_ctas, len(FLT_KINDS)),
+                           torch.float64)
+        if C:
+            _check(obs.cohort, torch.int32, dev, "cohort")
+            o.cohort = p(obs.cohort)
+            o.cohort_hist = zeros("cohort_hist", (C, nb), torch.int32)
+            o.coh_part = empty("coh_part", (n_ctas, C * len(COH_KINDS)),
+                               torch.float64)
+        if obs.per_chain:
+            o.flt_chain_i = empty("flt_chain_i", (len(FLT_CHAIN_I), n),
+                                  torch.int32)
+            o.flt_chain_f = empty("flt_chain_f", (len(FLT_CHAIN_F), n),
+                                  torch.float32)
+    return o, buf, smem
+
+
+def _obs_outputs(obs: Observers, buf: dict, T: int) -> dict:
+    """The observers' collapsed deltas (the JAX package's leaf names and
+    dtypes) from the kernel's partial rows and histograms."""
+    out = {"telemetry": None, "fleet": None}
+    if obs.telemetry != "off":
+        t = collapse_partials(buf["tel_part"], TEL_KINDS)
+        count = buf["tel_count"][0]
+        d = {"count": count}
+        for k, f in enumerate(tel.TELEMETRY_FIELDS):
+            o = 6 * k
+            d[f"nan_{f}"] = t[o].to(torch.int32)
+            d[f"inf_{f}"] = (t[o + 1] - t[o]).to(torch.int32)
+            d[f"min_{f}"] = t[o + 2].float()
+            d[f"max_{f}"] = t[o + 3].float()
+            d[f"sum_{f}"] = t[o + 4].float()
+            d[f"sumsq_{f}"] = t[o + 5].float()
+        if obs.telemetry == "full":
+            d["csi_hist"] = buf["csi_hist"].float()
+            cov = t[24].float()
+            d["occupancy"] = torch.stack([count - cov, cov])
+        out["telemetry"] = d
+        if obs.per_chain:
+            out["telemetry_chain"] = {
+                **dict(zip(TEL_CHAIN_I, buf["tel_chain_i"])),
+                **dict(zip(TEL_CHAIN_F, buf["tel_chain_f"]))}
+    if obs.analytics != "off":
+        prm = obs.params
+        f = collapse_partials(buf["flt_part"], FLT_KINDS)
+        d = {"count": f[0].to(torch.int32), "res_hist": buf["res_hist"],
+             "exceed": buf["exceed"], "min_res": f[1].float(),
+             "max_res": f[2].float(), "lol_seconds": f[3].to(torch.int32),
+             "lol_events": f[4].to(torch.int32)}
+        for k, w in enumerate(prm.ramp_windows):
+            d[f"max_ramp_{w}s"] = f[5 + k].float()
+        if "coh_part" in buf:
+            C = obs.n_cohorts
+            c = collapse_partials(buf["coh_part"],
+                                  COH_KINDS * C).view(C, len(COH_KINDS))
+            d["cohort_count"] = c[:, 0].to(torch.int32)
+            d["cohort_hist"] = buf["cohort_hist"]
+            d["min_cohort_res"] = c[:, 4].float()
+            d["max_cohort_res"] = c[:, 5].float()
+            for k, name in enumerate(("meter", "pv", "residual")):
+                d[f"cohort_sum_{name}"] = c[:, 1 + k].float()
+        if obs.analytics == "full":
+            d["regime_observed"] = _const_tensor((int(T > 0),),
+                                                 torch.int32, f.device)[0]
+            d["cov_count"] = f[8].to(torch.int32)
+            for k, name in enumerate(("meter", "pv", "residual")):
+                d[f"sum_{name}"] = f[9 + k].float()
+                d[f"cov_sum_{name}"] = f[12 + k].float()
+        out["fleet"] = d
+        if obs.per_chain:
+            out["fleet_chain"] = {
+                **dict(zip(FLT_CHAIN_I, buf["flt_chain_i"])),
+                **dict(zip(FLT_CHAIN_F, buf["flt_chain_f"]))}
+    if obs.per_chain:
+        out["partials"] = {k: buf[k] for k in PART_KINDS if k in buf}
+    return out
+
+
+_obs_size_checked = False
+
+
 def _block_step_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
-                     duration_s, meter_max_w, surface_tilt, albedo, site):
+                     duration_s, meter_max_w, surface_tilt, albedo, site,
+                     fleet=None, obs: Observers | None = None):
+    global _obs_size_checked
     n, T, dev, args = _common_args(tables, rows_i, rows_f, k_scan, k_meter,
                                    carry, duration_s, meter_max_w,
-                                   surface_tilt, albedo, site)
+                                   surface_tilt, albedo, site, fleet)
     for k in ACC_F:
         _check(acc[k], torch.float32, dev, f"acc {k}")
     _check(acc["n_seconds"], torch.int32, dev, "acc n_seconds")
-    fn = build.entry("block_step.cu", "block_step_acc", _COMMON + [_P] * 10)
+    fn = build.entry("block_step.cu", "block_step_acc",
+                     _COMMON + [_P] * 11 + [ctypes.c_int] * 3)
+    tel_on = obs is not None and obs.telemetry != "off"
+    flt_on = obs is not None and obs.analytics != "off"
+    o, buf, smem = (None, {}, 0)
+    if tel_on or flt_on:
+        if not _obs_size_checked:
+            size = build.entry("block_step.cu", "obs_struct_size", [])
+            if size(None) != ctypes.sizeof(_Obs):
+                raise RuntimeError("block_step: the Obs layout differs "
+                                   "between the kernel and its wrapper")
+            _obs_size_checked = True
+        o, buf, smem = _obs_buffers(obs, n, T, dev)
     p = build.ptr
     rc = fn(*args, *(p(carry[k]) for k in CARRY),
             *(p(acc[k]) for k in ACC_F), p(acc["n_seconds"]),
-            build.stream_ptr(dev))
+            None if o is None else ctypes.byref(o), int(tel_on),
+            int(flt_on), smem, build.stream_ptr(dev))
     build.check(rc, "block_step_acc")
-    (K3 if site is None else K6).launches += 1
-    return carry, acc
+    _count(site, fleet, K3, K6)
+    if tel_on or flt_on:
+        (K89 if tel_on and flt_on else K8 if tel_on else K9).launches += 1
+    if o is None:
+        return carry, acc
+    return carry, acc, _obs_outputs(obs, buf, T)
 
 
 def series_partials_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry,
-                         meter_max_w, surface_tilt, albedo, site=None):
+                         meter_max_w, surface_tilt, albedo, site=None,
+                         fleet=None):
     """The series kernel's first pass on the card: ``(carry, partials)``
     with ``partials[0 | 1]`` the ``(n_ctas, T)`` per-CTA sums of meter |
     pv."""
     n, T, dev, args = _common_args(tables, rows_i, rows_f, k_scan, k_meter,
                                    carry, 0, meter_max_w, surface_tilt,
-                                   albedo, site)
+                                   albedo, site, fleet)
     n_ctas = (n + THREADS - 1) // THREADS
     part = torch.empty((2, n_ctas, T), dtype=torch.float32, device=dev)
     p = build.ptr
@@ -350,7 +738,7 @@ def series_partials_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry,
     rc = fn(*args, *(p(carry[k]) for k in CARRY), p(part[0]), p(part[1]),
             build.stream_ptr(dev))
     build.check(rc, "block_step_series")
-    (K4_SERIES if site is None else K4_SERIES_SITE).launches += 1
+    _count(site, fleet, K4_SERIES, K4_SERIES_SITE)
     return carry, part
 
 
@@ -384,71 +772,92 @@ def series_sum(part):
 
 
 def _series_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry,
-                 meter_max_w, surface_tilt, albedo, site):
+                 meter_max_w, surface_tilt, albedo, site, fleet=None):
     carry, part = series_partials_cuda(tables, rows_i, rows_f, k_scan,
                                        k_meter, carry, meter_max_w,
-                                       surface_tilt, albedo, site)
+                                       surface_tilt, albedo, site, fleet)
     out = series_sum(part)
     return carry, out[0], out[1]
 
 
 def _trace_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry,
-                meter_max_w, surface_tilt, albedo, site):
+                meter_max_w, surface_tilt, albedo, site, fleet=None):
     n, T, dev, args = _common_args(tables, rows_i, rows_f, k_scan, k_meter,
                                    carry, 0, meter_max_w, surface_tilt,
-                                   albedo, site)
+                                   albedo, site, fleet)
     out = torch.empty((2, T, n), dtype=torch.float32, device=dev)
     p = build.ptr
     fn = build.entry("block_step.cu", "block_step_trace", _COMMON + [_P] * 5)
     rc = fn(*args, *(p(carry[k]) for k in CARRY), p(out[0]), p(out[1]),
             build.stream_ptr(dev))
     build.check(rc, "block_step_trace")
-    (K4_TRACE if site is None else K4_TRACE_SITE).launches += 1
+    _count(site, fleet, K4_TRACE, K4_TRACE_SITE)
     return carry, out[0], out[1]
 
 
-def _dispatch(k_scan, cuda_fn, plain_fn, *args):
+def _dispatch(k_scan, cuda_fn, plain_fn, *args, **kw):
     if k_scan.device.type == "cuda":
-        return cuda_fn(*args)
+        return cuda_fn(*args, **kw)
     if k_scan.device.type != "cpu":
         raise ValueError(f"unsupported device {k_scan.device}")
-    return plain_fn(*args)
+    return plain_fn(*args, **kw)
 
 
 def block_step_acc(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
                    duration_s: int, meter_max_w: float, surface_tilt,
-                   albedo, site: SiteGeometry | None = None):
+                   albedo, site: SiteGeometry | None = None,
+                   fleet: FleetLeaves | None = None):
     """Fold one block into the accumulator; returns ``(carry, acc)``.
 
     ``tables``: value-major K2 tables; ``rows_i``/``rows_f``: the block's
     rows (``block_rows``, or ``site_rows`` with ``site=``, when
     ``surface_tilt`` and ``albedo`` are None); ``carry``/``acc``: dicts of
     ``(n,)`` tensors (``CARRY`` float32; ``ACC_F`` float32 and int32
-    ``n_seconds``)."""
+    ``n_seconds``); ``fleet``: K7's per-chain leaves."""
     return _dispatch(k_scan, _block_step_cuda, block_step_plain, tables,
                      rows_i, rows_f, k_scan, k_meter, carry, acc,
-                     duration_s, meter_max_w, surface_tilt, albedo, site)
+                     duration_s, meter_max_w, surface_tilt, albedo, site,
+                     fleet)
+
+
+def block_step_obs(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
+                   duration_s: int, meter_max_w: float, surface_tilt,
+                   albedo, site: SiteGeometry | None = None,
+                   fleet: FleetLeaves | None = None,
+                   obs: Observers = None):
+    """``block_step_acc`` with the reduce-mode observers (K8 telemetry, K9
+    analytics) folded in the same launch: ``(carry, acc, out)``, ``out``
+    as ``block_step_obs_plain`` returns it (on the card the per-block
+    deltas come zero-initialised out of the kernel and its collapse)."""
+    if obs is None or (obs.telemetry == "off" and obs.analytics == "off"):
+        raise ValueError("block_step_obs: no observer is on")
+    return _dispatch(k_scan, _block_step_cuda, block_step_obs_plain, tables,
+                     rows_i, rows_f, k_scan, k_meter, carry, acc,
+                     duration_s, meter_max_w, surface_tilt, albedo, site,
+                     fleet=fleet, obs=obs)
 
 
 def block_step_series(tables, rows_i, rows_f, k_scan, k_meter, carry,
                       meter_max_w: float, surface_tilt, albedo,
-                      site: SiteGeometry | None = None):
+                      site: SiteGeometry | None = None,
+                      fleet: FleetLeaves | None = None):
     """One ensemble block: ``(carry, meter_sum, pv_sum)``, the sums
     ``(T,)`` over chains per second.  On the card a fixed-order reduction
     (per CTA, then over CTAs in index order): a repeated run gives the
     same bits."""
     return _dispatch(k_scan, _series_cuda, series_plain, tables, rows_i,
                      rows_f, k_scan, k_meter, carry, meter_max_w,
-                     surface_tilt, albedo, site)
+                     surface_tilt, albedo, site, fleet)
 
 
 def block_step_trace(tables, rows_i, rows_f, k_scan, k_meter, carry,
                      meter_max_w: float, surface_tilt, albedo,
-                     site: SiteGeometry | None = None):
+                     site: SiteGeometry | None = None,
+                     fleet: FleetLeaves | None = None):
     """One trace block: ``(carry, meter, pv)``, time-major ``(T, n)``."""
     return _dispatch(k_scan, _trace_cuda, trace_plain, tables, rows_i,
                      rows_f, k_scan, k_meter, carry, meter_max_w,
-                     surface_tilt, albedo, site)
+                     surface_tilt, albedo, site, fleet)
 
 
 def geometry_fields_plain(rows_f, site: SiteGeometry):

@@ -7,9 +7,15 @@ sequential hour loop), the cloudy, clear-day and windspeed draws, the two
 minute-noise streams, and the advanced Markov carry.  Tables come out
 value-major ``(values, chains)`` so K3 reads them coalesced.
 
+K7 (half of it): with a heterogeneous fleet's ``regime`` vector each chain
+draws its Markov steps from its own weather-regime table
+(``markov_hourly.select_regime``, tmhpvsim_tpu/models/markov_hourly.py:70,
+gathered per chain as at engine/simulation.py:800-806); the kernel holds
+the three stacked 6-bin tables in constant memory.
+
 ``sampler_windows`` runs ``windows_plain`` on CPU tensors and launches the
 CUDA kernel (csrc/windows.cu) on CUDA tensors; ``K2.launches`` counts the
-launches.
+launches, ``K7_REGIME.launches`` those with a regime vector.
 """
 
 from __future__ import annotations
@@ -21,13 +27,14 @@ import numpy as np
 import torch
 
 from tmhpvsim_torch import rng
-from tmhpvsim_torch.data import MARKOV_STEP_BINS, MARKOV_STEP_PARAMS
+from tmhpvsim_torch.data import MARKOV_STEP_BINS, MARKOV_STEP_PARAMS_REGIMES
 from tmhpvsim_torch.kernels import build
 from tmhpvsim_torch.models import clearsky_index as ci
 from tmhpvsim_torch.models import distributions as dist
 from tmhpvsim_torch.models import markov_hourly
 
 K2 = build.LaunchCounter("sampler_windows")
+K7_REGIME = build.LaunchCounter("sampler_windows_regime")
 
 #: longest hour window one kernel thread holds (csrc/windows.cu MAX_HOURS)
 MAX_HOURS = 64
@@ -56,13 +63,17 @@ class Bounds:
 
 
 def kernel_constants() -> dict:
-    """The constants csrc/windows.cu reads, from the models."""
-    p = np.asarray(MARKOV_STEP_PARAMS, dtype=np.float64)
+    """The constants csrc/windows.cu reads, from the models.  The Markov
+    step tables are every weather regime's, flattened regime-major
+    (entry ``regime * 6 + bin``); regime 0 is the Munich fit."""
+    p = np.asarray(MARKOV_STEP_PARAMS_REGIMES, dtype=np.float64)
     return {
         "MK_BINS": list(MARKOV_STEP_BINS),
-        "MK_LOC": list(p[:, 0]), "MK_SCALE": list(p[:, 1]),
-        "MK_KAPPA": list(p[:, 2]), "MK_DF": list(p[:, 3]),
-        "MK_IS_T": list(p[:, 4]),
+        "MK_LOC": list(p[..., 0].ravel()),
+        "MK_SCALE": list(p[..., 1].ravel()),
+        "MK_KAPPA": list(p[..., 2].ravel()),
+        "MK_DF": list(p[..., 3].ravel()),
+        "MK_IS_T": list(p[..., 4].ravel()),
         "CD_LOC": ci.CSI_CLEAR_DAY_LOC, "CD_SCALE": ci.CSI_CLEAR_DAY_SCALE,
         "CL_LOC": ci.CSI_CLOUDY_NORM_LOC, "CL_SCALE": ci.CSI_CLOUDY_NORM_SCALE,
         "CL_MID_A": ci.CSI_CLOUDY_GAMMA_MID[0],
@@ -78,16 +89,20 @@ def kernel_constants() -> dict:
     }
 
 
-def windows_plain(k_arr, k_min, cc_carry, cc0, b: Bounds, mh_idx, mh_frac):
+def windows_plain(k_arr, k_min, cc_carry, cc0, b: Bounds, mh_idx, mh_frac,
+                  regime=None):
     """Plain torch K2 (the models' window functions, batched over chains).
 
     Returns ``(tables, new_cc_carry)`` with value-major tables ``cc``,
     ``cloudy``, ``clear_day``, ``ws``, ``ml`` (clear minute noise) and
-    ``mc`` (cloudy minute noise)."""
+    ``mc`` (cloudy minute noise).  ``regime`` (an ``(n,)`` integer tensor)
+    gives each chain its weather-regime step table."""
     ks = rng.split(k_arr, 4)
     k_cc, k_cloudy, k_day, k_ws = (ks[:, i, :] for i in range(4))
+    params = None if regime is None else markov_hourly.select_regime(
+        markov_hourly.regime_step_params(k_arr.device), regime)
     cc_w, _ = markov_hourly.chain_window(k_cc, b.hour_lo, b.n_hours,
-                                         cc_carry)
+                                         cc_carry, params)
     if b.n_hours:
         adv = min(max(b.hour_next_lo - b.hour_lo - 1, 0), b.n_hours - 1)
         carry = (cc_carry if b.hour_next_lo == b.hour_lo
@@ -110,18 +125,25 @@ def windows_plain(k_arr, k_min, cc_carry, cc0, b: Bounds, mh_idx, mh_frac):
     return ci.value_major_tables(arrays, mvals), carry
 
 
-def _windows_cuda(k_arr, k_min, cc_carry, cc0, b: Bounds, mh_idx, mh_frac):
+def _windows_cuda(k_arr, k_min, cc_carry, cc0, b: Bounds, mh_idx, mh_frac,
+                  regime):
     if b.n_hours > MAX_HOURS or b.n_cloudy > MAX_HOURS:
         raise ValueError(f"hour window longer than {MAX_HOURS}")
     n = k_arr.shape[0]
     dev = k_arr.device
     n_min = int(mh_idx.shape[0])
     args = [k_arr, k_min, cc_carry, cc0]
-    for t, dt in zip(args, (torch.int64, torch.int64, torch.float32,
-                            torch.float32)):
+    dts = [torch.int64, torch.int64, torch.float32, torch.float32]
+    if regime is not None:
+        args.append(regime)
+        dts.append(torch.int32)
+        if regime.shape != (n,):
+            raise ValueError(f"sampler_windows: regime must be ({n},)")
+    for t, dt in zip(args, dts):
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
             raise ValueError("sampler_windows: inputs must be contiguous "
-                             "tensors on one device (int64 keys, float32)")
+                             "tensors on one device (int64 keys, float32, "
+                             "int32 regime)")
     mh_idx = mh_idx.to(device=dev, dtype=torch.int32).contiguous()
     mh_frac = mh_frac.to(device=dev, dtype=torch.float32).contiguous()
 
@@ -133,10 +155,11 @@ def _windows_cuda(k_arr, k_min, cc_carry, cc0, b: Bounds, mh_idx, mh_frac):
               "ml": out(n_min), "mc": out(n_min)}
     carry = torch.empty_like(cc_carry)
     fn = build.entry("windows.cu", "sampler_windows",
-                     [ctypes.c_int64] + [ctypes.c_void_p] * 4
+                     [ctypes.c_int64] + [ctypes.c_void_p] * 5
                      + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 9)
     p = build.ptr
     rc = fn(n, p(k_arr), p(k_min), p(cc_carry), p(cc0),
+            None if regime is None else p(regime),
             b.hour_lo, b.n_hours, b.n_cloudy, b.hour_next_lo, b.cd_lo,
             b.n_cd, b.day_lo, b.n_days, b.min_lo, n_min,
             p(mh_idx), p(mh_frac),
@@ -145,22 +168,25 @@ def _windows_cuda(k_arr, k_min, cc_carry, cc0, b: Bounds, mh_idx, mh_frac):
             build.stream_ptr(dev))
     build.check(rc, "sampler_windows")
     K2.launches += 1
+    if regime is not None:
+        K7_REGIME.launches += 1
     return tables, carry
 
 
 def sampler_windows(k_arr, k_min, cc_carry, cc0, bounds: Bounds,
-                    mh_idx, mh_frac):
+                    mh_idx, mh_frac, regime=None):
     """One block's value-major sampler tables and the advanced Markov carry.
 
     ``k_arr``/``k_min`` are the chains' ``(n, 2)`` keys, ``cc_carry`` the
     Markov state before ``bounds.hour_lo``, ``cc0`` the construction-time
     cloud cover the primer cloudy draws see; ``mh_idx``/``mh_frac`` give
     each minute-noise value's hour index (into the hour window) and hour
-    fraction at its draw instant."""
+    fraction at its draw instant; ``regime`` (``(n,)`` int32, or None for
+    the Munich table) each chain's weather regime."""
     if k_arr.device.type == "cuda":
         return _windows_cuda(k_arr, k_min, cc_carry, cc0, bounds, mh_idx,
-                             mh_frac)
+                             mh_frac, regime)
     if k_arr.device.type != "cpu":
         raise ValueError(f"unsupported device {k_arr.device}")
     return windows_plain(k_arr, k_min, cc_carry, cc0, bounds, mh_idx,
-                         mh_frac)
+                         mh_frac, regime)

@@ -7,7 +7,9 @@ The step comes from one of six fitted distributions, picked by the bin the
 state falls in (searchsorted over the right edges): five asymmetric-Laplace
 bins and one Student-t bin (data/parameters.py).  Both variates are drawn
 from independent key splits and the bin's mark selects one, as in the JAX
-package, so the draws match key for key.
+package, so the draws match key for key.  A heterogeneous fleet gives each
+chain its own weather-regime table (``regime_step_params`` /
+``select_regime``).
 """
 
 from __future__ import annotations
@@ -16,36 +18,69 @@ import numpy as np
 import torch
 
 from tmhpvsim_torch import rng
-from tmhpvsim_torch.data import MARKOV_STEP_BINS, MARKOV_STEP_PARAMS
+from tmhpvsim_torch.data import (MARKOV_STEP_BINS, MARKOV_STEP_PARAMS,
+                                 MARKOV_STEP_PARAMS_REGIMES)
 from tmhpvsim_torch.models import distributions as dist
 
 
-def step_params(device=None):
-    """Stacked per-bin step-distribution parameters (float32 tensors)."""
-    p = np.asarray(MARKOV_STEP_PARAMS, dtype=np.float64)
+def _stacked(table, device):
+    """Per-bin leaves of ``table`` ((..., 6, 5) rows) as float32 tensors,
+    each (..., 6), plus the shared bin edges."""
+    p = np.asarray(table, dtype=np.float64)
 
     def f32(v):
         return torch.tensor(np.asarray(v, np.float32), device=device)
 
     return {
         "bins": f32(MARKOV_STEP_BINS),
-        "loc": f32(p[:, 0]),
-        "scale": f32(p[:, 1]),
-        "kappa": f32(p[:, 2]),
-        "df": f32(p[:, 3]),
-        "is_t": f32(p[:, 4]),
+        "loc": f32(p[..., 0]),
+        "scale": f32(p[..., 1]),
+        "kappa": f32(p[..., 2]),
+        "df": f32(p[..., 3]),
+        "is_t": f32(p[..., 4]),
     }
 
 
+def step_params(device=None):
+    """Stacked per-bin step-distribution parameters (float32 tensors)."""
+    return _stacked(MARKOV_STEP_PARAMS, device)
+
+
+def regime_step_params(device=None):
+    """Every weather-regime table stacked on a leading regime axis: each
+    per-bin leaf becomes (n_regimes, 6), ``bins`` stays shared.  Row 0 is
+    the Munich fit, so ``select_regime(regime_step_params(), 0)`` equals
+    ``step_params()`` exactly."""
+    return _stacked(MARKOV_STEP_PARAMS_REGIMES, device)
+
+
+def select_regime(regime_params, regime):
+    """The step tables of ``regime``: an int gives (6,) leaves, an
+    ``(n,)`` integer tensor one (6,) row per chain, ``(n, 6)``."""
+    if isinstance(regime, torch.Tensor):
+        regime = regime.long()
+    return {k: (v if k == "bins" else v[regime])
+            for k, v in regime_params.items()}
+
+
+def _take(v, idx):
+    """``v[idx]`` for shared (6,) leaves; per-chain (n, 6) leaves take
+    each chain's own row."""
+    if v.dim() == 1:
+        return v[idx]
+    return v.gather(-1, idx.unsqueeze(-1)).squeeze(-1)
+
+
 def transition(keys, state, params):
-    """One Markov transition of ``state`` (any shape; keys ``(*shape, 2)``)."""
+    """One Markov transition of ``state`` (any shape; keys ``(*shape, 2)``;
+    per-chain ``params`` leaves ``(*shape, 6)`` from ``select_regime``)."""
     idx = torch.searchsorted(params["bins"], state.contiguous(), right=False)
-    idx = torch.clamp(idx, 0, params["loc"].shape[0] - 1)
-    loc = params["loc"][idx]
-    scale = params["scale"][idx]
-    kappa = params["kappa"][idx]
-    df = params["df"][idx]
-    is_t = params["is_t"][idx]
+    idx = torch.clamp(idx, 0, params["loc"].shape[-1] - 1)
+    loc = _take(params["loc"], idx)
+    scale = _take(params["scale"], idx)
+    kappa = _take(params["kappa"], idx)
+    df = _take(params["df"], idx)
+    is_t = _take(params["is_t"], idx)
     ks = rng.split(keys, 2)
     d_al = dist.asymmetric_laplace(ks[..., 0, :], loc, scale, kappa)
     d_t = dist.student_t(ks[..., 1, :], loc, scale, df)
