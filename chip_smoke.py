@@ -32,7 +32,15 @@ Phases (any failure exits non-zero and prints no result line):
    bit, sums over chains within 1e-6 of the float64 plain sums, a rerun
    bit-identical; then the collapse on K8+K9's own per-CTA partial rows,
    bit for bit against an index-order float64 fold on the host and within
-   1e-12 (of the rows' absolute sum) of its plain version;
+   1e-12 (of the rows' absolute sum) of its plain version; then K10 (the
+   scenario fold) on the main path's noon block, 65536 chains x 1080 s x
+   16 scenario rows (neutral, padding, a horizon ending mid-block, demand
+   scale / shift, DC scale x weather bias, a binding curtailment cap and
+   seeded mixtures) against its plain version, again for 6 of the rows
+   with a 30000-bin sketch (histograms in global memory), each row
+   against a batch-of-1 launch of it and the neutral row against K3's
+   launch, timed at 1, 4 and 16 rows; and on 2 blocks of path F's fleet
+   with the site and cohort selectors;
 5. the paths, every launch counter set to 0 just before each and read
    just after; each must launch every kernel it needs:
    R. reduce, shared site: ``run_reduced`` at 65536 chains x 86400 s,
@@ -55,6 +63,12 @@ Phases (any failure exits non-zero and prints no result line):
       instantiation each: none (H0, the fleet transforms alone),
       telemetry full (H8), analytics full (H9); the observers leave the
       statistics bit-identical;
+   S. scenario serving with window batching: an in-process
+      ``ScenarioServer`` on ``local://`` answering 16 ``ScenarioClient``s
+      x 2 requests (reduce, fleet and quantiles modes, horizons 3600 s to
+      86400 s) from a 65536-chain x 86400 s simulation in 1080 s blocks;
+   S-c. the same requests with continuous batching: every reply
+      byte-equal (as JSON) to path S's;
 6. each kernel and its plain version timed with CUDA events at the main
    paths' shapes (the fleet kernels on path F's noon block);
 7. the port on the card at the JAX suite's ``small_config`` shape against
@@ -71,6 +85,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import asyncio
 import dataclasses
 import json
 import os
@@ -91,6 +106,8 @@ try:
     from tmhpvsim_torch.kernels import build
     from tmhpvsim_torch.kernels import threefry as k1
     from tmhpvsim_torch.kernels import windows as k2
+    from tmhpvsim_torch.serve import schema
+    from tmhpvsim_torch.serve.schema import Scenario
 except ImportError as _e:
     print(f"chip_smoke: FAIL: cannot import the port ({_e}); run it from a "
           "checkout of the repository", file=sys.stderr)
@@ -192,6 +209,36 @@ K9_MANY_COHORTS = 64
 #: past ~24500 bins the residual histogram leaves shared memory
 K9_WIDE_BINS = 30000
 PATH_H_BLOCKS = 3
+#: K10's check: the main path's noon block, one bucket of 16 rows
+K10_BLOCK = 40
+K10_B = 16
+#: the fleet check's site selector (a chain of path F's fleet)
+K10_FLEET_SITE = 12345
+#: K10 after K3's step, read off the kernel, counting what the scenario
+#: fold needs.  Per second: the duration compare and the tests of the two
+#: ramp grids wider than 1 s (a modulo and a compare each), 5 int32 ops;
+#: per (row, second) the horizon compare; per (row, chain) the site and
+#: cohort selectors.  Per valid (row, chain, second) sample: the transform
+#: (a multiply-add, a multiply, a min, the residual: 4), 3 sums and 3
+#: extrema, the finite test, the bin (subtract, multiply, 2 clamps,
+#: floor: 5), 7 threshold compares, 2 extrema and the capacity compare,
+#: 26 float32 ops; int32: n_seconds, n_use, the bin index, 2 atomics, the
+#: run length and its 2 tests, 8.  Per valid sample on a second of a ramp
+#: grid (every second of the 1 s grid, one in w of the w-second grid):
+#: |difference| (2) and a max, 3 float32 ops, and the seen flag
+K10_SECOND_I, K10_ROW_SECOND_I, K10_ROW_CHAIN_I = 5, 1, 2
+K10_VALID_F, K10_VALID_I = 26, 8
+K10_GRID_F, K10_GRID_I = 3, 1
+#: K10's global-atomics histograms: a sketch this wide leaves shared
+#: memory; the check runs the first K10_WIDE_ROWS check rows through it
+K10_WIDE_BINS = 30000
+K10_WIDE_ROWS = 6
+#: path S: the served simulation (the main path's), 16 clients x 2
+#: requests, at most 16 per dispatch (the JAX CLI's serve default)
+PATH_S = dict(HEADLINE)
+PATH_S_CLIENTS = 16
+PATH_S_PER_CLIENT = 2
+PATH_S_WINDOW = 0.02
 #: the JAX suite's small_config (tests/test_engine.py)
 SMALL = dict(start="2019-09-05 10:00:00", duration_s=7200, n_chains=3,
              seed=7, block_s=3600)
@@ -1525,6 +1572,334 @@ def phase_timing_fleet(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# scenario serving: K10, paths S and S-c
+
+
+def k10_rows(t0, duration_s):
+    """K10's 16 check rows: neutral, padding, a horizon ending 500 s into
+    the block starting at ``t0``, demand scale / shift, DC scale x
+    weather bias, a binding curtailment cap, then seeded mixtures."""
+    gen = np.random.default_rng(0)
+    rows = [Scenario(horizon_s=duration_s), Scenario(horizon_s=0),
+            Scenario(horizon_s=t0 + 500),
+            Scenario(demand_scale=1.3, demand_shift_w=-400.0,
+                     horizon_s=duration_s),
+            Scenario(dc_capacity_scale=1.5, weather_bias=0.7,
+                     horizon_s=duration_s),
+            Scenario(curtail_w=120.0, horizon_s=duration_s)]
+    while len(rows) < K10_B:
+        rows.append(Scenario(
+            demand_scale=float(gen.uniform(0.2, 3.0)),
+            demand_shift_w=float(gen.uniform(-2000.0, 2000.0)),
+            dc_capacity_scale=float(gen.uniform(0.0, 4.0)),
+            weather_bias=float(gen.uniform(0.25, 4.0)),
+            curtail_w=float(gen.uniform(50.0, 400.0)),
+            horizon_s=int(gen.integers(t0 + 1, duration_s + 1))))
+    return rows
+
+
+def check_scenario(what, ak, dk, ap, dp):
+    """K10's outputs against the plain version's: n_seconds, extrema and
+    every FleetAcc count, histogram, extremum and per-chain leaf bit for
+    bit; the float sums bit-identical or (printed) within the engine
+    tolerance.  Returns (max abs of the sums, statistics bit-identical)."""
+    err, same = 0.0, 0
+    for k, b in ap.items():
+        a = ak[k]
+        if torch.equal(a, b):
+            same += 1
+            continue
+        if k in ("n_seconds", "pv_max", "residual_min", "residual_max"):
+            fail(f"K10 ({what}) {k} differs from the plain version")
+        if not close(a, b):
+            fail(f"K10 ({what}) {k} differs from the plain version: max "
+                 f"abs {max_abs(a, b)}")
+        err = max(err, max_abs(a, b))
+        print(f"K10 ({what}): {k} not bit-identical to the plain version: "
+              f"{int((a != b).sum())} of {a.numel()} (row, chain) sums "
+              f"differ, max abs {max_abs(a, b):.4g}")
+    for k, v in dp.items():
+        if k == "chain":
+            for c in v:
+                if not torch.equal(dk["chain"][c], v[c]):
+                    fail(f"K10 ({what}) per-chain {c} differs from the "
+                         "plain fold")
+        elif not torch.equal(dk[k], v):
+            fail(f"K10 ({what}) FleetAcc {k} differs from the plain fold")
+    return err, same
+
+
+def phase_k10(dev):
+    """K10 on the main path's noon block: the check (also with the
+    global-atomics histograms), batch-of-1 identity, the neutral row
+    against K3, and the times at 1, 4 and 16 rows.
+    Returns the kernels-line figures."""
+    cfg = SimConfig(**HEADLINE)
+    sim = Simulation(cfg, device=dev)
+    state = sim.init_state()
+    ins = sim.host_inputs(K10_BLOCK)
+    tables, _ = sim._windows(state, ins)
+    head = head_of(state, ins, tables)
+    tail = (cfg.duration_s, cfg.meter_max_w, cfg.site.surface_tilt,
+            cfg.site.albedo)
+    n, T = cfg.n_chains, cfg.block_s
+    t0 = K10_BLOCK * T
+    rows = k10_rows(t0, cfg.duration_s)
+    params = sim.scenario_fleet_params()
+
+    def launch(fn, scs, per_chain=True, prm=params):
+        scen = schema.encode_batch(scs, len(scs), device=dev)
+        return fn(*head, clone(state["carry"]),
+                  sim.init_scenario_acc(len(scs)), *tail, scen=scen,
+                  params=prm, per_chain=per_chain)
+
+    _, ak, dk = launch(k3.block_step_scenario, rows)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    _, ap, dp = launch(k3.scenario_plain, rows)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err, same = check_scenario(f"{n} chains x {K10_B} rows", ak, dk, ap, dp)
+    del ap, dp
+    # the global-atomics histograms of a sketch too wide for shared memory
+    wide = dataclasses.replace(params, bins=K10_WIDE_BINS)
+    if k3.SCN_STAGE_BYTES + 4 * (wide.bins + 2 + len(wide.thresholds)
+                                 + 1) <= k3.SMEM_MAX:
+        fail(f"K10's {K10_WIDE_BINS}-bin check would not leave shared "
+             "memory")
+    wk = launch(k3.block_step_scenario, rows[:K10_WIDE_ROWS], prm=wide)
+    wp = launch(k3.scenario_plain, rows[:K10_WIDE_ROWS], prm=wide)
+    torch.cuda.synchronize()
+    werr, wsame = check_scenario(
+        f"{K10_WIDE_BINS} bins, global atomics", *wk[1:], *wp[1:])
+    err = max(err, werr)
+    del wk, wp
+    # row i of the batch-of-16 launch is a batch-of-1 launch of row i
+    for i, row in enumerate(rows):
+        _, a1, d1 = launch(k3.block_step_scenario, [row], per_chain=False)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a1[k][0], ak[k][i]) for k in a1) or \
+                not all(torch.equal(d1[k][0], dk[k][i]) for k in d1):
+            fail(f"K10 row {i} of the batch-of-{K10_B} launch differs from "
+                 "its batch-of-1 launch")
+    _, acc = k3.block_step_acc(*head, clone(state["carry"]),
+                               sim.init_reduce_acc(), *tail)
+    torch.cuda.synchronize()
+    if not all(torch.equal(ak[k][0], acc[k]) for k in acc):
+        fail("K10's neutral row differs from K3's launch")
+    acc0 = sim.init_scenario_acc(1)
+    ns = ak["n_seconds"]
+    if not all(torch.equal(ak[k][1], acc0[k][0]) for k in acc0) or \
+            int(dk["count"][1]) != 0:
+        fail("K10's padding row folded something")
+    if not bool((ns[2] == 500).all()) or int(dk["count"][2]) != 500 * n:
+        fail("K10's mid-block horizon row folded the wrong seconds")
+    if float(ak["pv_max"][5].max()) > 120.0 or \
+            float(ak["pv_max"][0].max()) <= 120.0:
+        fail("K10's curtailment cap does not bind")
+    # the times at 1, 4 and 16 rows, and the bound at 16 from this
+    # block's valid samples
+    ms = {}
+    for b in (1, 4, K10_B):
+        scen = schema.encode_batch(rows[:b], b, device=dev)
+        acc_b = sim.init_scenario_acc(b)
+        ms[b] = time_ms(lambda: k3.block_step_scenario(
+            *head, clone(state["carry"]), acc_b, *tail, scen=scen,
+            params=params))
+    # the valid seconds of a (row, chain) are the first ns of the block,
+    # so the ramp grids' valid samples are counted exactly
+    valid = int(ns.sum())
+    nsl = ns.long()
+    grid = sum(int(((t0 + nsl) // w - t0 // w).sum())
+               for w in params.ramp_windows)
+    int_ops = n * (T * K3_SECOND_I + (T // 60) * K3_MINUTE_I) + \
+        T * (K10_SECOND_I + K10_B * K10_ROW_SECOND_I) + \
+        K10_B * n * K10_ROW_CHAIN_I + valid * K10_VALID_I + \
+        grid * K10_GRID_I
+    f32_ops = n * T * (K3_SECOND_F + NORMAL_F + UNIFORM_F + 1) + \
+        valid * K10_VALID_F + grid * K10_GRID_F
+    table_bytes = sum(t.numel() * 4 for t in tables.values())
+    nb, ne = params.bins + 2, len(params.thresholds) + 1
+    nbytes = (table_bytes + n * 8 * 2 + n * 4 * 3 * 2
+              + ins.rows_i.numel() * 4 + ins.rows_f.numel() * 4
+              + K10_B * (n * 4 * 7 * 2 + 4 * (nb + ne) + 8 * 4))
+    bms, by = bound(int_ops, f32_ops, nbytes)
+    print(f"K10 vs plain on the noon block x {n} chains x {K10_B} rows: "
+          f"{same}/7 statistics bit-identical (float sums max abs "
+          f"{err:.3g}), every FleetAcc count, histogram, extremum and "
+          f"per-chain leaf bit-identical; each row equals its batch-of-1 "
+          f"launch; the neutral row equals K3's launch; the padding row "
+          f"folded nothing; {valid} valid (row, chain)-seconds of "
+          f"{K10_B * n * T}; with {K10_WIDE_BINS} bins (global-atomics "
+          f"histograms, {K10_WIDE_ROWS} rows) {wsame}/7 statistics "
+          f"bit-identical, every FleetAcc leaf bit-identical")
+    print(f"timing K10: kernel {ms[1]:.4f} ms (1 row), {ms[4]:.4f} ms "
+          f"(4 rows), {ms[K10_B]:.4f} ms ({K10_B} rows); plain "
+          f"{plain_ms:.1f} ms ({K10_B} rows); bound {bms:.4f} ms ({by})")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by}
+
+
+def phase_k10_fleet(dev):
+    """K10 on 2 blocks of path F's fleet (site geometry, the fleet
+    transforms) with the site and cohort selectors."""
+    fp = fleet_f()
+    cfg = SimConfig(**dict(HEADLINE, start=CHECK_START, fleet=fp))
+    sim, state, blocks = fleet_blocks(cfg, dev)
+    _, _, site = sim.geometry_args(state)
+    fleet = sim.fleet_leaves(state)
+    cohort = sim.scenario_cohort()
+    dur = cfg.duration_s
+    rows = [Scenario(horizon_s=dur),
+            Scenario(site_index=K10_FLEET_SITE, horizon_s=dur),
+            Scenario(cohort=1, demand_scale=1.2, horizon_s=dur),
+            Scenario(cohort=2, curtail_w=100.0, dc_capacity_scale=2.0,
+                     horizon_s=dur),
+            Scenario(demand_shift_w=-600.0, weather_bias=0.5,
+                     horizon_s=1800),
+            Scenario(horizon_s=0)]
+    scen = schema.encode_batch(rows, len(rows), device=dev)
+    params = sim.scenario_fleet_params()
+    acc_k = sim.init_scenario_acc(len(rows))
+    acc_p = sim.init_scenario_acc(len(rows))
+    carry_k, carry_p = clone(state["carry"]), clone(state["carry"])
+    err, n_same = 0.0, 0
+    for bi, (ins, tables) in enumerate(blocks):
+        head = head_of(state, ins, tables)
+        tail = (dur, cfg.meter_max_w, None, None)
+        kw = dict(site=site, fleet=fleet, scen=scen, params=params,
+                  cohort=cohort, per_chain=True)
+        carry_k, acc_k, dk = k3.block_step_scenario(*head, carry_k, acc_k,
+                                                    *tail, **kw)
+        carry_p, acc_p, dp = k3.scenario_plain(*head, carry_p, acc_p,
+                                               *tail, **kw)
+        torch.cuda.synchronize()
+        e, n_same = check_scenario(f"fleet block {bi}", acc_k, dk, acc_p,
+                                   dp)
+        err = max(err, e)
+        # the next block's plain fold continues from the kernel's
+        # statistics, so each block is held on its own
+        acc_p = {k: v.clone() for k, v in acc_k.items()}
+    for k in carry_k:
+        if not torch.equal(carry_k[k], carry_p[k]):
+            fail(f"K10 (fleet) renewal carry {k} differs from the plain "
+                 "version")
+    ns = acc_k["n_seconds"]
+    t2 = 2 * cfg.block_s
+    c1 = int((cohort == 1).sum())
+    if int(ns[1].sum()) != t2 or int(ns[1][K10_FLEET_SITE]) != t2 or \
+            int(ns[2].sum()) != t2 * c1 or int(ns[4][0]) != 1800:
+        fail("K10 (fleet): a selector or horizon folded the wrong samples")
+    print(f"K10 vs plain on 2 blocks x {sim.config.n_chains} fleet sites "
+          f"(site geometry, fleet transforms, {len(rows)} rows with a site "
+          f"selector, 2 cohort selectors, a short horizon and padding): "
+          f"{n_same}/7 statistics bit-identical in the last block (float "
+          f"sums max abs {err:.3g}), every FleetAcc count, histogram, "
+          f"extremum and per-chain leaf bit-identical, the renewal carry "
+          f"bit-identical")
+    return err
+
+
+def path_s_requests():
+    """Path S's 32 requests: (rid, scenario, mode), horizons from 1/24 of
+    the served duration to all of it (3600 s to 86400 s) in mixed order,
+    the three modes, knobs varied."""
+    hour = PATH_S["duration_s"] // 24
+    out = []
+    for j in range(PATH_S_CLIENTS * PATH_S_PER_CLIENT):
+        doc = {"horizon_s": hour * (1 + (j * 7) % 24),
+               "demand_scale": round(0.8 + 0.05 * (j % 9), 2),
+               "demand_shift_w": 25.0 * (j % 5) - 50.0}
+        if j % 3 == 1:
+            doc.update(dc_capacity_scale=1.5, weather_bias=0.8)
+        if j % 4 == 2:
+            doc["curtail_w"] = 200.0
+        out.append((f"s{j:02d}", doc,
+                    ("reduce", "fleet", "quantiles")[j % 3]))
+    return out
+
+
+def phase_path_s(name, batching, dev):
+    """Serve path S's requests through an in-process server with the
+    given batching; returns ({rid: result as JSON}, launches)."""
+    from tmhpvsim_torch.obs.metrics import MetricsRegistry
+    from tmhpvsim_torch.serve.server import (ScenarioClient, ScenarioServer,
+                                             ServeConfig)
+
+    cfg = ServeConfig(sim=SimConfig(**PATH_S), url="local://smoke-serve",
+                      max_batch=16, window_s=PATH_S_WINDOW,
+                      batching=batching, timeout_s=900.0, device=dev)
+    reqs = path_s_requests()
+    reg = MetricsRegistry()
+
+    async def serve():
+        t0 = time.perf_counter()
+        server = ScenarioServer(cfg, registry=reg)
+        await server.start()
+        warm = time.perf_counter() - t0
+        clients = [ScenarioClient(cfg.url) for _ in range(PATH_S_CLIENTS)]
+        try:
+            for c in clients:
+                await c.__aenter__()
+            k = PATH_S_PER_CLIENT
+
+            async def client(ci):
+                return await asyncio.gather(*[
+                    clients[ci].request(doc, mode=mode, rid=rid,
+                                        timeout=900.0)
+                    for rid, doc, mode in reqs[ci * k:(ci + 1) * k]])
+
+            t1 = time.perf_counter()
+            got = await asyncio.gather(*[client(ci)
+                                         for ci in range(len(clients))])
+            wall = time.perf_counter() - t1
+        finally:
+            for c in clients:
+                await c.__aexit__(None, None, None)
+            await server.stop()
+        return warm, wall, [r for g in got for r in g]
+
+    (warm, wall, replies), _, launches = run_path(
+        name, ("threefry_fill", "sampler_windows", "block_step_scenario"),
+        lambda: asyncio.run(serve()))
+    n = PATH_S["n_chains"]
+    results = {}
+    for (rid, doc, mode), r in zip(reqs, replies):
+        if not r.get("ok") or r["id"] != rid:
+            fail(f"path {name}: request {rid} answered {r}")
+        res = r["result"]
+        h = doc["horizon_s"]
+        count = (res["stats"]["n_seconds"] if mode == "reduce" else
+                 res["fleet"]["count"] if mode == "fleet" else res["count"])
+        if count != h * n or res["horizon_s"] != h:
+            fail(f"path {name}: request {rid} folded {count} site-seconds, "
+                 f"not {h * n}")
+        text = json.dumps(res, sort_keys=True)
+        if "NaN" in text or "Infinity" in text:
+            fail(f"path {name}: request {rid} has a non-finite value")
+        results[rid] = text
+    lat = np.asarray([r["t"]["reply_latency_s"] for r in replies])
+    snap = reg.snapshot()
+    batches = snap["counters"]["serve.batches_total"]
+    rows = snap["histograms"]["serve.batch_occupancy"]["mean"]
+    folded = sum(doc["horizon_s"] for _, doc, _ in reqs) * n
+    print(f"path {name} ({batching} batching, {PATH_S_CLIENTS} clients x "
+          f"{PATH_S_PER_CLIENT} requests, {n} chains x "
+          f"{PATH_S['duration_s']} s in {PATH_S['block_s']} s blocks): "
+          f"{wall:.3f} s wall for {len(reqs)} requests after a {warm:.3f} s "
+          f"start, {len(reqs) / wall:.4g} requests/s, reply latency p50 "
+          f"{np.percentile(lat, 50):.3f} s p99 {np.percentile(lat, 99):.3f}"
+          f" s, {len(reqs) / batches:.3g} requests per dispatch "
+          f"({batches:.0f} dispatches of {rows:.3g} scheduled rows on "
+          f"average), {folded / wall:.6g} "
+          f"scenario-site-seconds folded per second; launches {launches}")
+    return results, launches
+
+
 def phase_reference(dev):
     path = os.path.join(HERE, "tests", "data", "torch_port_reference.json")
     with open(path) as f:
@@ -1651,6 +2026,8 @@ def main() -> int:
     err8 = phase_k8(dev)
     err9 = phase_k9(dev)
     err89, err_c = phase_k89(dev)
+    k10 = phase_k10(dev)
+    err10f = phase_k10_fleet(dev)
     torch.cuda.empty_cache()
     _, launch_r = phase_path_r(dev)
     launch_a = phase_path_a(dev)
@@ -1660,6 +2037,16 @@ def main() -> int:
     launch_f = phase_path_f(dev)
     phase_path_g()
     launch_h = phase_path_h(dev)
+    replies_s, launch_s = phase_path_s("S", "window", dev)
+    replies_c, launch_sc = phase_path_s("S-c", "continuous", dev)
+    if replies_c != replies_s:
+        bad = sorted(r for r in replies_s if replies_c.get(r) !=
+                     replies_s[r])
+        fail(f"path S-c: replies {bad} differ from path S's")
+    print(f"path S-c: all {len(replies_s)} replies byte-equal to path S's "
+          f"(block_step_scenario launches: S "
+          f"{launch_s['block_step_scenario']}, S-c "
+          f"{launch_sc['block_step_scenario']})")
     torch.cuda.empty_cache()
     timing = phase_timing(dev)
     timing.update(phase_timing_fleet(dev))
@@ -1701,6 +2088,16 @@ def main() -> int:
                      "max_abs_err": err, "ms": ms, "plain_ms": plain,
                      "bound_ms": bms, "bound_by": by, "library_ms": None,
                      **({} if rel is None else {"max_rel_err": rel})})
+    # K10: timed at 16 rows; launches on path S (path S-c's beside them)
+    rows.append({"name": "block_step_scenario", "route": "cuda",
+                 "source": src, "replaces": f"{sim_py}:1871",
+                 "launches": launch_s["block_step_scenario"],
+                 "launches_continuous": launch_sc["block_step_scenario"],
+                 "max_abs_err": max(k10["err"], err10f),
+                 "ms": k10["ms"][K10_B], "ms_1_row": k10["ms"][1],
+                 "ms_4_rows": k10["ms"][4], "plain_ms": k10["plain_ms"],
+                 "bound_ms": k10["bound_ms"], "bound_by": k10["bound_by"],
+                 "library_ms": None})
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

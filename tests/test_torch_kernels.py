@@ -509,3 +509,97 @@ def test_k7_k8_k9_match_plain_on_card(card, hist):
                                 fleet=fleet)
     torch.testing.assert_close(sk, sp, rtol=1e-6, atol=0.0)
     torch.testing.assert_close(qk, qp, rtol=1e-6, atol=1e-3)
+
+
+def _k10_rows(duration_s, cohorts):
+    """16 scenario rows for K10: neutral, padding, a horizon that ends
+    mid-block, demand scale / shift, DC scale x weather bias, a binding
+    curtailment cap, a site selector, a cohort selector (with cohorts),
+    and seeded mixtures."""
+    from tmhpvsim_torch.serve.schema import Scenario
+
+    gen = np.random.default_rng(4)
+    rows = [Scenario(horizon_s=duration_s), Scenario(horizon_s=0),
+            Scenario(horizon_s=600),
+            Scenario(demand_scale=1.7, demand_shift_w=350.0,
+                     horizon_s=duration_s),
+            Scenario(dc_capacity_scale=1.6, weather_bias=0.6,
+                     horizon_s=duration_s),
+            Scenario(curtail_w=150.0, horizon_s=duration_s),
+            Scenario(site_index=3, horizon_s=duration_s),
+            Scenario(cohort=1 if cohorts else -1, horizon_s=duration_s)]
+    while len(rows) < 16:
+        rows.append(Scenario(
+            demand_scale=float(gen.uniform(0.2, 3.0)),
+            demand_shift_w=float(gen.uniform(-2000.0, 2000.0)),
+            dc_capacity_scale=float(gen.uniform(0.0, 4.0)),
+            weather_bias=float(gen.uniform(0.25, 4.0)),
+            curtail_w=float(gen.uniform(50.0, 400.0)),
+            horizon_s=int(gen.integers(1, duration_s + 1))))
+    return rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["shared", "fleet", "wide"])
+def test_k10_matches_plain_on_card(card, case):
+    """K10 against scenario_plain at 512 chains x 16 rows: statistics
+    (n_seconds, extrema) and every FleetAcc count, histogram, extremum
+    and per-chain leaf bit for bit, sums to the engine tolerance; row i
+    of the batch-of-16 launch equals a batch-of-1 launch of row i, and
+    the neutral row equals K3's acc launch.  ``wide``: 30000 bins, whose
+    histograms leave shared memory for global atomics."""
+    from tmhpvsim_torch.serve import schema
+
+    if case == "fleet":
+        sim, state, head, tail, site, fleet, _ = _fleet_block(512, card)
+        tilt = alb = None
+    else:
+        sim = Simulation(SimConfig(**dict(CFG, n_chains=512)), device=card)
+        state, ins = _block(sim)
+        tables, _ = sim._windows(state, ins)
+        head = (tables, ins.rows_i, ins.rows_f, state["k_scan"],
+                state["k_meter"])
+        tail = (CFG["duration_s"], 9000.0, 48.12, 0.25)
+        site = fleet = None
+    cohort = sim.scenario_cohort()
+    rows = _k10_rows(CFG["duration_s"], cohort is not None)
+    params = sim.scenario_fleet_params()
+    if case == "wide":
+        params = dataclasses.replace(params, bins=30000)
+        hist_bytes = 4 * (params.bins + 2 + len(params.thresholds) + 1)
+        assert k3.SCN_STAGE_BYTES + hist_bytes > k3.SMEM_MAX
+
+    def carry():
+        return {k: v.clone() for k, v in state["carry"].items()}
+
+    def launch(fn, scs):
+        scen = schema.encode_batch(scs, len(scs), device=card)
+        return fn(*head, carry(), sim.init_scenario_acc(len(scs)), *tail,
+                  site=site, fleet=fleet, scen=scen, params=params,
+                  cohort=cohort, per_chain=True)
+
+    _, ak, dk = launch(k3.block_step_scenario, rows)
+    _, ap, dp = launch(k3.scenario_plain, rows)
+    for k in ap:
+        if k in ("n_seconds", "pv_max", "residual_min", "residual_max"):
+            assert torch.equal(ak[k], ap[k]), k
+        else:
+            torch.testing.assert_close(ak[k], ap[k], rtol=2e-5, atol=1e-2)
+    for k, v in dp.items():
+        if k == "chain":
+            for c in v:
+                assert torch.equal(dk["chain"][c], v[c]), c
+        else:
+            assert torch.equal(dk[k], v), k
+    assert int(dk["count"][1]) == 0 and int(dk["count"][0]) > 0
+    for i, row in enumerate(rows):
+        _, a1, d1 = launch(k3.block_step_scenario, [row])
+        for k in a1:
+            assert torch.equal(a1[k][0], ak[k][i]), (i, k)
+        for k in dp:
+            if k != "chain":
+                assert torch.equal(d1[k][0], dk[k][i]), (i, k)
+    _, acc = k3.block_step_acc(*head, carry(), sim.init_reduce_acc(), *tail,
+                               site=site, fleet=fleet)
+    for k in acc:
+        assert torch.equal(ak[k][0], acc[k]), k

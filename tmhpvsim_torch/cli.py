@@ -1,4 +1,5 @@
-"""Command line of the torch port: ``python -m tmhpvsim_torch pvsim ...``.
+"""Command line of the torch port: ``python -m tmhpvsim_torch pvsim ...``
+and ``python -m tmhpvsim_torch serve ...``.
 
 The flags mirror the JAX package's ``pvsim --backend jax`` flags of the
 ported slice: the three output modes, ``--chain``, site grids
@@ -7,6 +8,10 @@ ported slice: the three output modes, ``--chain``, site grids
 (``--analytics``), ``--output-overlap`` and ``--realtime``.
 ``--run-report PATH`` writes a JSON with the run's ``fleet`` section (the
 key the JAX package's RunReport fills from ``fleet_summary()``).
+
+``serve`` runs the scenario server (serve/server.py) with the JAX
+package's ``pvsim serve`` defaults on an in-process ``local://``
+transport, until SIGINT / SIGTERM.
 """
 
 from __future__ import annotations
@@ -105,11 +110,89 @@ def _parser() -> argparse.ArgumentParser:
     pv.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="cuda (default) runs the kernels; cpu runs their "
                          "plain torch versions")
+
+    sv = sub.add_parser("serve", help="long-lived scenario server: a warm "
+                        "simulation answering what-if queries")
+    sv.add_argument("--amqp-url", default="local://default",
+                    help="transport URL the server listens on; local://NAME "
+                         "(in-process) is the one ported")
+    sv.add_argument("--exchange", default="scenario",
+                    help="request exchange; replies go to each request's "
+                         "reply_to exchange")
+    sv.add_argument("-v", "--verbose", action="count", default=0)
+    sv.add_argument("--seed", type=int, default=0)
+    sv.add_argument("--duration", type=int, default=86_400,
+                    help="longest scenario horizon in simulated seconds")
+    sv.add_argument("--start", default=None,
+                    help="simulation start 'YYYY-MM-DD HH:MM:SS'")
+    sv.add_argument("--chains", type=int, default=1024,
+                    help="stochastic chains per scenario evaluation")
+    sv.add_argument("--block-s", type=int, default=None,
+                    help="seconds per block, a multiple of 60 (default: "
+                         "min(8640, duration))")
+    sv.add_argument("--window-ms", type=float, default=10.0,
+                    help="the first pending request waits at most this "
+                         "long for company")
+    sv.add_argument("--max-batch", type=int, default=16,
+                    help="most requests per fused dispatch")
+    sv.add_argument("--batch-sizes", default=None, metavar="B1,B2,...",
+                    help="batch buckets (default: powers of two up to "
+                         "--max-batch)")
+    sv.add_argument("--queue-limit", type=int, default=1024,
+                    help="pending requests beyond this get a typed 'busy'")
+    sv.add_argument("--timeout-s", type=float, default=60.0,
+                    help="per-request wall clock before a typed 'timeout'")
+    sv.add_argument("--drain-timeout", type=float, default=30.0,
+                    help="shutdown drain budget in seconds")
+    sv.add_argument("--batching", choices=["window", "continuous"],
+                    default="window",
+                    help="window: every row of a dispatch retires together; "
+                         "continuous: freed slots backfill every block")
+    sv.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="cuda (default) runs the kernels; cpu runs their "
+                         "plain torch versions")
     return p
+
+
+def serve(args) -> int:
+    import asyncio
+    import logging
+
+    from tmhpvsim_torch.config import SimConfig
+    from tmhpvsim_torch.serve.server import ServeConfig, serve_main
+
+    logging.basicConfig(
+        level=max(logging.DEBUG, logging.WARNING - 10 * args.verbose),
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    sim_kw = dict(duration_s=args.duration, n_chains=args.chains,
+                  seed=args.seed, output="reduce",
+                  block_s=args.block_s or min(8640, args.duration))
+    if args.start:
+        sim_kw["start"] = args.start
+    try:
+        buckets = tuple(int(b) for b in args.batch_sizes.split(",")) \
+            if args.batch_sizes else ()
+    except ValueError as e:
+        raise SystemExit(f"serve: bad --batch-sizes {args.batch_sizes!r} "
+                         "(want B1,B2,...)") from e
+    try:
+        cfg = ServeConfig(
+            sim=SimConfig(**sim_kw), url=args.amqp_url,
+            exchange=args.exchange, window_s=args.window_ms / 1e3,
+            max_batch=args.max_batch, batch_sizes=buckets,
+            queue_limit=args.queue_limit, timeout_s=args.timeout_s,
+            drain_timeout_s=args.drain_timeout, batching=args.batching,
+            device=args.device)
+        asyncio.run(serve_main(cfg))
+    except (ValueError, NotImplementedError, RuntimeError) as e:
+        raise SystemExit(f"serve: {e}") from e
+    return 0
 
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
+    if args.command == "serve":
+        return serve(args)
     if args.realtime and args.output == "reduce":
         raise SystemExit("pvsim: reduce mode needs --no-realtime")
     if args.fleet_synth is not None and args.fleet_synth < 1:

@@ -212,6 +212,7 @@ _FREE_FIELDS = frozenset({
     "chain_offset", "site", "site_grid", "fleet", "options", "meter_max_w",
     "block_s", "telemetry", "analytics", "analytics_bins",
     "analytics_capacity_w", "analytics_lolp_k", "analytics_thresholds",
+    "serve_batch_sizes",
 })
 
 #: valid values of SimConfig.telemetry / --telemetry (obs/telemetry.py)

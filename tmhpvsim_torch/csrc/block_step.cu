@@ -1,7 +1,8 @@
-// K3 / K4 / K6 / K7 / K8 / K9: one block, one thread per chain, looping
-// over the block's seconds; a template over the epilogue (acc | series |
-// trace), the geometry mode (shared rows | per-chain site) and, for acc,
-// the two reduce-mode observers (telemetry | fleet analytics).
+// K3 / K4 / K6 / K7 / K8 / K9 / K10: one block, one thread per chain,
+// looping over the block's seconds; a template over the epilogue (acc |
+// series | trace | scenario), the geometry mode (shared rows | per-chain
+// site) and, for acc, the two reduce-mode observers (telemetry | fleet
+// analytics).
 //
 // Replaces (tmhpvsim_tpu/engine/simulation.py):
 //   acc    Simulation._block_step_scan_acc (:1276), i.e.
@@ -20,10 +21,15 @@
 //   FLT    _make_acc_fleet_body / _block_step_scan_acc_fleet (:1394,
 //          :1481; with TEL :1436, :1524): obs/analytics.py fold_second
 //          (:223) + reduce_chainwise (:311) -- K9;
+//   scen   _block_step_scan_scenario / _scenario_block_core (:1834,
+//          :1871-1937): per scenario row the knob transform, selectors,
+//          horizon mask, the seven statistics and a risk FleetAcc with its
+//          reduce_chainwise -- K10;
 // and the pre-drawn streams of clearsky_index.scan_draws_tmajor /
 // meter_block_tmajor (:278-319).  Plain versions:
 // tmhpvsim_torch/kernels/block_step.py block_step_plain, series_plain,
-// trace_plain, block_step_obs_plain, and models/solar.py device_geometry
+// trace_plain, block_step_obs_plain, scenario_plain, and models/solar.py
+// device_geometry
 // (with obs/telemetry.py and obs/analytics.py fold_second).
 //
 // Design.  The per-second pipeline is written once, in block_step_kernel's
@@ -77,6 +83,23 @@
 // caller, so reruns give the same bits.  Cohort sums go per cohort over
 // the CTA's chains in chain order, then over CTAs in order.
 //
+// K10 (scenario).  The step is K3's, unchanged (so a neutral row folds
+// K3's statistics bit for bit).  Each 60-second tile of every chain's
+// meter and pv is staged in dynamic shared memory (61 KB per CTA); then
+// the CTA loops over the B scenario rows: each thread loads its chain's
+// row from global memory (the seven statistics, (B, n); the risk leaves
+// of the block so far, a (leaf, B, n) scratch that the first tile
+// initialises), folds the tile's 60 seconds of the row's transform
+//   meter_i = fmaf(meter, demand_scale, demand_shift_w)  (the JAX scan
+//             contracts it: tests/test_torch_serve.py),
+//   pv_i    = fminf(ac * (pv_scale * weather_bias), curtail_w),
+// masked by the site / cohort selectors, t < duration_s and t < horizon_s,
+// in second order, and stores the row back.  The row's residual histogram
+// and exceedance slots count in shared memory (reset and added to the
+// row's global copy at every tile) or, when too large, with global
+// atomics.  At the last tile each row's risk leaves become a per-(CTA,
+// row) partial row for collapse_partials.
+//
 // Bound: operations for acc and series (per site-second about three
 // 20-round threefry hashes, XLA's erfinv and log1p polynomials, accurate
 // expf and logf, plus powf x2 on a redraw; the site mode adds about 30
@@ -95,7 +118,7 @@
 #define THREADS 128
 #define WARPS (THREADS / 32)
 
-enum Epilogue { ACC = 0, SERIES = 1, TRACE = 2 };
+enum Epilogue { ACC = 0, SERIES = 1, TRACE = 2, SCEN = 3 };
 
 // per-CTA partial leaves: telemetry 6 per field x 4 fields + the covered
 // count; analytics (see FltLeaf); per cohort 6 (count, sums of meter, pv,
@@ -109,6 +132,11 @@ enum FltLeaf { F_COUNT = 0, F_MIN, F_MAX, F_LOLS, F_LOLE, F_R1, F_R2, F_R3,
 #define FLT_CHAIN_I 8
 #define FLT_CHAIN_F 14
 #define COH_LEAVES 6
+// scenario: per-(scenario, chain) risk leaves kept between tiles (int,
+// float), and the per-(CTA, scenario) partial row
+#define SCN_CHAIN_I 7
+#define SCN_CHAIN_F 8
+#define SCN_LEAVES 8
 enum Kind { K_SUM = 0, K_MIN = 1, K_MAX = 2 };
 
 // one second's calendar: global second, rebased indices and fractions
@@ -178,6 +206,24 @@ struct Obs {
   float* flt_chain_f;    // optional (FLT_CHAIN_F, n)
 };
 
+// the scenario epilogue's arguments
+struct Scen {
+  int B, bins, n_thr, lolp_k, hist_shared;
+  int ramp_w[3];
+  float lo, inv_w, capacity;
+  const float* thr;        // (n_thr,)
+  // (B,) knobs: demand_scale, demand_shift_w, pv_scale, weather_bias,
+  // curtail_w; horizon_s, site_index, cohort
+  const float* knob_f[5];
+  const int* knob_i[3];
+  const int* cohort;       // (n,) chains' cohort ids; nullptr: no selector
+  int* res_hist;           // (B, bins + 2), zeroed by the caller
+  int* exceed;             // (B, n_thr + 1), zeroed
+  int* chain_i;            // (SCN_CHAIN_I, B, n) risk leaves
+  float* chain_f;          // (SCN_CHAIN_F, B, n)
+  double* part;            // (n_ctas, B, SCN_LEAVES)
+};
+
 struct Args {
   int64_t n;
   int T, duration_s;
@@ -190,13 +236,14 @@ struct Args {
   // K7 fleet leaves (nullptr: the column is homogeneous)
   const float *pv_scale, *ac_limit, *dem_scale, *dem_shift;
   float *cloud_end, *total_end, *sec;
-  // acc
+  // acc ((n,); the scenario epilogue's are (B, n))
   float *pv_sum, *pv_max, *meter_sum, *residual_sum, *residual_min,
       *residual_max;
   int* n_seconds;
   // series partials (n_ctas, T) / trace outputs (T, n)
   float *out_meter, *out_pv;
   Obs o;
+  Scen q;
 };
 
 __device__ __forceinline__ void load_cal(Cal& C, const int* rows_i,
@@ -469,6 +516,18 @@ struct FltChain {
   float sm = 0.0f, sp = 0.0f, sr = 0.0f, cm = 0.0f, cp = 0.0f, cr = 0.0f;
 };
 
+// one (scenario, chain) row of the scenario fold: the seven statistics
+// and the risk leaves (obs/analytics.py fold_second at level risk)
+struct ScnRow {
+  float pv_sum, pv_max, meter_sum, residual_sum, residual_min, residual_max;
+  int n_seconds;
+  int n_use = 0, lol_run = 0, lol_s = 0, lol_e = 0;
+  int seen[3] = {0, 0, 0};
+  float mn = FLT_MAX, mx = -FLT_MAX;
+  float ramp[3] = {-FLT_MAX, -FLT_MAX, -FLT_MAX};
+  float prev[3] = {0.0f, 0.0f, 0.0f};
+};
+
 template <int KIND>
 __device__ __forceinline__ double combine(double x, double y) {
   return KIND == K_SUM ? x + y : (KIND == K_MIN ? fmin(x, y) : fmax(x, y));
@@ -525,12 +584,16 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
   __shared__ float red_m[EPI == SERIES ? WARPS : 1][TILE];
   __shared__ float red_p[EPI == SERIES ? WARPS : 1][TILE];
   constexpr bool OBS = TEL || FLT;
-  __shared__ double s_stage[OBS ? WARPS * TEL_LEAVES : 1];
+  __shared__ double s_stage[OBS || EPI == SCEN ? WARPS * TEL_LEAVES : 1];
   __shared__ int s_csi[TEL ? CSI_BINS : 1];
   // analytics: the cohort partials' staging, one entry per chain
   __shared__ int s_cid[FLT ? THREADS : 1], s_cuse[FLT ? THREADS : 1];
   __shared__ float s_cval[FLT ? 5 : 1][FLT ? THREADS : 1];
   extern __shared__ int s_dyn[];
+  // scenario: the tile's meter and pv ([s][thread]), then its histograms
+  float* const stage_m = reinterpret_cast<float*>(s_dyn);
+  float* const stage_a = stage_m + TILE * THREADS;
+  int* const s_hist = s_dyn + 2 * TILE * THREADS;
   const int64_t n = a.n;
   const int T = a.T;
   const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
@@ -605,8 +668,9 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
       }
     }
     __syncthreads();
-    // series keeps every thread in the loop for the warp reductions
-    if (EPI != SERIES && !live) continue;
+    // series keeps every thread in the loop for the warp reductions, the
+    // scenario fold for its barriers
+    if (EPI != SERIES && EPI != SCEN && !live) continue;
     // blocks are minute-aligned: the tile is global minute t / 60
     const uint32_t g = (uint32_t)(tile[0].c.t / 60);
     const tf::Key kg = tf::fold_in(ks, g);
@@ -740,6 +804,9 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
         const int64_t o = (int64_t)(base + s) * n + i;
         a.out_meter[o] = meter;
         a.out_pv[o] = ac;
+      } else if (EPI == SCEN) {
+        stage_m[s * THREADS + threadIdx.x] = meter;
+        stage_a[s * THREADS + threadIdx.x] = ac;
       } else {
         float m = live ? meter : 0.0f, p = live ? ac : 0.0f;
         for (int off = 16; off > 0; off >>= 1) {
@@ -749,6 +816,136 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
         if ((threadIdx.x & 31) == 0) {
           red_m[threadIdx.x >> 5][s] = m;
           red_p[threadIdx.x >> 5][s] = p;
+        }
+      }
+    }
+    if constexpr (EPI == SCEN) {  // K10: every scenario row over the tile
+      const Scen& q = a.q;
+      const int nbq = q.bins + 2, neq = q.n_thr + 1;
+      const int B = q.B;
+      for (int b = 0; b < B; ++b) {
+        int* hist = q.res_hist + (int64_t)b * nbq;
+        int* exc = q.exceed + (int64_t)b * neq;
+        if (q.hist_shared) {
+          __syncthreads();  // the previous row's counts are flushed
+          for (int k = threadIdx.x; k < nbq + neq; k += blockDim.x)
+            s_hist[k] = 0;
+          __syncthreads();
+          hist = s_hist;
+          exc = s_hist + nbq;
+        }
+        ScnRow c;
+        if (live) {
+          const int64_t o = (int64_t)b * n + i;
+          c.pv_sum = a.pv_sum[o];
+          c.pv_max = a.pv_max[o];
+          c.meter_sum = a.meter_sum[o];
+          c.residual_sum = a.residual_sum[o];
+          c.residual_min = a.residual_min[o];
+          c.residual_max = a.residual_max[o];
+          c.n_seconds = a.n_seconds[o];
+          const int64_t plane = (int64_t)B * n;
+          if (base > 0) {  // the block's leaves so far (the first tile
+                           // starts from zero, as the JAX fold does)
+            const int* ci = q.chain_i + o;
+            const float* cf = q.chain_f + o;
+            c.n_use = ci[0];
+            c.lol_run = ci[plane];
+            c.lol_s = ci[2 * plane];
+            c.lol_e = ci[3 * plane];
+            for (int k = 0; k < 3; ++k) c.seen[k] = ci[(4 + k) * plane];
+            c.mn = cf[0];
+            c.mx = cf[plane];
+            for (int k = 0; k < 3; ++k) {
+              c.ramp[k] = cf[(2 + k) * plane];
+              c.prev[k] = cf[(5 + k) * plane];
+            }
+          }
+          const float ds = q.knob_f[0][b], dsh = q.knob_f[1][b];
+          const float pvw = q.knob_f[2][b] * q.knob_f[3][b];
+          const float cap = q.knob_f[4][b];
+          const int horizon = q.knob_i[0][b], site_sel = q.knob_i[1][b];
+          const int coh_sel = q.knob_i[2][b];
+          const bool sel =
+              (site_sel < 0 || i == site_sel) &&
+              (q.cohort == nullptr || coh_sel < 0 || q.cohort[i] == coh_sel);
+          for (int s = 0; s < TILE; ++s) {
+            const int t = tile[s].c.t;
+            const float meter =
+                fmaf(stage_m[s * THREADS + threadIdx.x], ds, dsh);
+            const float pv = fminf(stage_a[s * THREADS + threadIdx.x] * pvw,
+                                   cap);
+            const float r = meter - pv;
+            const bool valid = sel && t < a.duration_s && t < horizon;
+            const float vz = valid ? 1.0f : 0.0f;
+            c.pv_sum = c.pv_sum + pv * vz;
+            c.pv_max = fmaxf(c.pv_max, valid ? pv : -FLT_MAX);
+            c.meter_sum = c.meter_sum + meter * vz;
+            c.residual_sum = c.residual_sum + r * vz;
+            c.residual_min = fminf(c.residual_min, valid ? r : FLT_MAX);
+            c.residual_max = fmaxf(c.residual_max, valid ? r : -FLT_MAX);
+            c.n_seconds += valid ? 1 : 0;
+            const bool use = valid && isfinite(r);
+            if (use) {
+              c.n_use += 1;
+              float bf = (r - q.lo) * q.inv_w;
+              bf = fminf(fmaxf(bf, -1.0f), (float)q.bins);
+              atomicAdd(&hist[(int)floorf(bf) + 1], 1);
+              int slot = 0;
+              for (int j = 0; j < q.n_thr; ++j) slot += q.thr[j] < r ? 1 : 0;
+              atomicAdd(&exc[slot], 1);
+            }
+            c.mn = fminf(c.mn, use ? r : FLT_MAX);
+            c.mx = fmaxf(c.mx, use ? r : -FLT_MAX);
+            c.lol_run = (use && r > q.capacity) ? c.lol_run + 1 : 0;
+            c.lol_e += c.lol_run == q.lolp_k ? 1 : 0;
+            c.lol_s += c.lol_run >= q.lolp_k ? 1 : 0;
+#pragma unroll
+            for (int k = 0; k < 3; ++k) {
+              const int w = q.ramp_w[k];
+              if (w == 1 || (t + 1) % w == 0) {
+                if (use && c.seen[k] > 0)
+                  c.ramp[k] = fmaxf(c.ramp[k], fabsf(r - c.prev[k]));
+                if (use) c.prev[k] = r;
+                c.seen[k] = use ? 1 : 0;
+              }
+            }
+          }
+          a.pv_sum[o] = c.pv_sum;
+          a.pv_max[o] = c.pv_max;
+          a.meter_sum[o] = c.meter_sum;
+          a.residual_sum[o] = c.residual_sum;
+          a.residual_min[o] = c.residual_min;
+          a.residual_max[o] = c.residual_max;
+          a.n_seconds[o] = c.n_seconds;
+          int* ci = q.chain_i + o;
+          float* cf = q.chain_f + o;
+          ci[0] = c.n_use;
+          ci[plane] = c.lol_run;
+          ci[2 * plane] = c.lol_s;
+          ci[3 * plane] = c.lol_e;
+          for (int k = 0; k < 3; ++k) ci[(4 + k) * plane] = c.seen[k];
+          cf[0] = c.mn;
+          cf[plane] = c.mx;
+          for (int k = 0; k < 3; ++k) {
+            cf[(2 + k) * plane] = c.ramp[k];
+            cf[(5 + k) * plane] = c.prev[k];
+          }
+        }
+        if (q.hist_shared) {
+          __syncthreads();
+          flush_hist(s_hist, q.res_hist + (int64_t)b * nbq, nbq);
+          flush_hist(s_hist + nbq, q.exceed + (int64_t)b * neq, neq);
+        }
+        if (base + TILE >= T) {  // the row's partial row (dead threads
+                                 // hold the identities)
+          double v[SCN_LEAVES] = {(double)c.n_use, c.mn,      c.mx,
+                                  (double)c.lol_s, (double)c.lol_e,
+                                  c.ramp[0],       c.ramp[1], c.ramp[2]};
+          const int kind[SCN_LEAVES] = {K_SUM, K_MIN, K_MAX, K_SUM,
+                                        K_SUM, K_MAX, K_MAX, K_MAX};
+          cta_partials(v, kind, s_stage,
+                       q.part + ((int64_t)blockIdx.x * B + b) * SCN_LEAVES);
         }
       }
     }
@@ -964,7 +1161,11 @@ static int launch(int per_site, const Args& a, void* stream, int tel = 0,
   if (a.n <= 0) return (int)cudaGetLastError();
   const unsigned blocks = (unsigned)((a.n + THREADS - 1) / THREADS);
   cudaStream_t st = (cudaStream_t)stream;
-  if constexpr (EPI != ACC) {
+  if constexpr (EPI == SCEN) {
+    return per_site ? launch_one<SCEN, true, false, false>(a, blocks, smem, st)
+                    : launch_one<SCEN, false, false, false>(a, blocks, smem,
+                                                            st);
+  } else if constexpr (EPI != ACC) {
     return per_site ? launch_one<EPI, true, false, false>(a, blocks, 0, st)
                     : launch_one<EPI, false, false, false>(a, blocks, 0, st);
   } else {
@@ -1066,6 +1267,32 @@ extern "C" int block_step_acc(COMMON_PARAMS, float* pv_sum, float* pv_max,
 extern "C" int obs_struct_size(void* stream) {
   (void)stream;
   return (int)sizeof(Obs);
+}
+
+// K10: acc holds the (B, n) statistics; q the knobs, the sketch and the
+// outputs; smem the stage plus, when they fit, the histograms, in bytes
+extern "C" int block_step_scenario(COMMON_PARAMS, float* pv_sum,
+                                   float* pv_max, float* meter_sum,
+                                   float* residual_sum, float* residual_min,
+                                   float* residual_max, int* n_seconds,
+                                   const Scen* q, int smem, void* stream) {
+  Args a = common(COMMON_ARGS);
+  a.pv_sum = pv_sum;
+  a.pv_max = pv_max;
+  a.meter_sum = meter_sum;
+  a.residual_sum = residual_sum;
+  a.residual_min = residual_min;
+  a.residual_max = residual_max;
+  a.n_seconds = n_seconds;
+  a.q = *q;
+  if (a.q.B <= 0) return (int)cudaErrorInvalidValue;
+  return launch<SCEN>(per_site, a, stream, 0, 0, smem);
+}
+
+// the layout check of the wrapper's ctypes mirror of Scen
+extern "C" int scen_struct_size(void* stream) {
+  (void)stream;
+  return (int)sizeof(Scen);
 }
 
 extern "C" int collapse_partials(int n_parts, int L, const int* kinds,

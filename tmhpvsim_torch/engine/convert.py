@@ -7,7 +7,10 @@ state also carries the six per-chain site scalars (``state["site"]``), a
 fleet run its heterogeneous columns (``state["fleet"]``: float32 transform
 leaves, int32 ``regime`` and ``cohort``).  A
 JAX run stopped after N blocks continues in the port from block N and
-gives the JAX result (tests/test_torch_engine.py).
+gives the JAX result (tests/test_torch_engine.py).  Scenario serving adds
+the ``(B, n)`` scenario accumulator (``acc_*`` take any leading shape),
+the ``(B,)`` knob tree ``scen`` and a block's ``fleet_delta``
+(tests/test_torch_serve.py).
 """
 
 from __future__ import annotations
@@ -94,3 +97,28 @@ def acc_from_numpy(acc: dict, device) -> dict:
 def acc_to_numpy(acc: dict) -> dict:
     """The port's accumulator -> numpy (int32 / float32 leaves)."""
     return {k: v.cpu().numpy() for k, v in acc.items()}
+
+
+def scen_from_numpy(scen: dict, device) -> dict:
+    """The JAX package's encoded scenario batch (``serve.schema
+    .encode_batch``, numpy) -> the port's knob tensors on ``device``."""
+    from tmhpvsim_torch.kernels.block_step import SCEN_F, SCEN_I
+
+    if set(scen) != set(SCEN_F + SCEN_I):
+        raise ValueError(f"scenario leaves {sorted(scen)} are not "
+                         f"{sorted(SCEN_F + SCEN_I)}")
+    return {k: _tensor(v, np.float32 if k in SCEN_F else np.int32, device)
+            for k, v in scen.items()}
+
+
+def fleet_delta_to_numpy(delta: dict) -> dict:
+    """A FleetAcc delta (any leading shape) -> numpy: int32 counts,
+    float32 extrema."""
+    return {k: v.cpu().numpy() for k, v in delta.items()}
+
+
+def fleet_delta_from_numpy(delta: dict, device) -> dict:
+    """The JAX package's FleetAcc delta (numpy) -> tensors on ``device``
+    (integer leaves int32, float leaves float32)."""
+    return {k: _tensor(v, np.float32 if np.asarray(v).dtype.kind == "f"
+                       else np.int32, device) for k, v in delta.items()}

@@ -28,6 +28,12 @@ zero-initialised and collapsed, and the host keeps the last telemetry
 delta with its summary and merges the analytics into run totals
 (``fleet_summary``).
 
+Scenario serving (``serve/``) runs the reduce step batched over scenario
+rows: ``scenario_step`` launches K10, which takes each second's meter and
+pv once per chain and folds every row's knob transform of them into a
+``(B, n)`` accumulator (``init_scenario_acc``) and a per-block ``risk``
+FleetAcc delta of the sketch ``scenario_fleet_params``.
+
 The chain state is O(1) per chain: threefry keys, the Markov carry, the
 renewal carry, three construction-time scalars, for a grid the six site
 scalars and, for a fleet, its heterogeneous columns (``state["fleet"]``).
@@ -220,6 +226,10 @@ class Simulation:
         self._fleet_run = None
         #: Observers of the state whose cohort ids they checked
         self._obs = (None, None)
+        #: the scenario fold's sketch and, for a fleet with two or more
+        #: cohorts, the chains' cohort ids of its cohort selector
+        self._scn_params = None
+        self._scn_cohort = None
 
     # ------------------------------------------------------------------
     # chain state
@@ -495,6 +505,65 @@ class Simulation:
             state["k_meter"], state["carry"], self.config.meter_max_w, tilt,
             albedo, site=site, fleet=self.fleet_leaves(state))
         return dict(state, carry=carry, cc_carry=cc_carry), meter, pv_
+
+    # ------------------------------------------------------------------
+    # scenario-batched serving dispatch (serve/)
+    # ------------------------------------------------------------------
+
+    def scenario_fleet_params(self) -> flt.FleetParams:
+        """The sketch of the scenario fold's ``risk`` FleetAcc, from the
+        config whatever ``analytics`` is (any request may ask for the
+        fleet result mode)."""
+        if self._scn_params is None:
+            self._scn_params = flt.params_from_config(self.config)
+        return self._scn_params
+
+    def scenario_cohort(self):
+        """The chains' cohort ids ``(n,)`` int32 for the cohort
+        selector, or None when the run is no fleet of two or more
+        cohorts (the JAX package folds no selector then)."""
+        fp = self.config.fleet
+        if self._scn_cohort is None and fp is not None and \
+                fp.n_cohorts > 1:
+            self._scn_cohort = torch.tensor(
+                np.asarray(fp.cohort, np.int32), device=self.device)
+        return self._scn_cohort
+
+    def init_scenario_acc(self, batch: int) -> dict:
+        """Zero accumulator with a leading scenario axis: one ``(batch,
+        n_chains)`` tensor per statistic, with ``init_reduce_acc``'s
+        values, so row ``i`` of a batch-of-N run folds exactly what a
+        batch-of-1 run of scenario ``i`` folds."""
+        b, n = int(batch), self.config.n_chains
+        big = float(np.finfo(np.float32).max)
+        init = {"sum": 0.0, "max": -big, "min": big}
+        return {
+            name: (torch.zeros((b, n), dtype=torch.int32, device=self.device)
+                   if dkind == "i" else
+                   torch.full((b, n), init[kind], dtype=torch.float32,
+                              device=self.device))
+            for name, (kind, dkind) in REDUCE_STATS.items()
+        }
+
+    def scenario_step(self, state, inputs: BlockInputs, acc, scen):
+        """One scenario-batched block: K2 windows, then K10 (the step
+        once per chain-second, every row of ``scen`` folding its own
+        transform).  ``scen``: ``(B,)`` knob tensors
+        (``serve.schema.encode_batch``); ``acc``: ``init_scenario_acc(B)``
+        (updated in place on the card).  Returns ``(state, acc,
+        fleet_delta)``; ``fleet_delta`` is the block's ``risk`` FleetAcc
+        per row, ``(B, ...)`` leaves, zero-initialised for the block."""
+        cfg = self.config
+        tables, cc_carry = self._windows(state, inputs)
+        tilt, albedo, site = self.geometry_args(state)
+        carry, acc, delta = k3.block_step_scenario(
+            tables, inputs.rows_i, inputs.rows_f, state["k_scan"],
+            state["k_meter"], state["carry"], acc, cfg.duration_s,
+            cfg.meter_max_w, tilt, albedo, site=site,
+            fleet=self.fleet_leaves(state), scen=scen,
+            params=self.scenario_fleet_params(),
+            cohort=self.scenario_cohort())
+        return dict(state, carry=carry, cc_carry=cc_carry), acc, delta
 
     # ------------------------------------------------------------------
     # run loops

@@ -5,8 +5,8 @@ with K7's weather-regime gather), and the fused per-second block step
 (kernels/block_step.py): K3 (the reduce fold), K4 (the ensemble series
 with its cross-CTA sum, and the trace), K6 (per-chain site geometry), K7
 (fleet transforms), K8 (telemetry) and K9 (fleet analytics) with their
-chainwise collapse, one template over epilogue, geometry mode and
-observers.  Each wrapper runs its plain version on CPU tensors and its
+chainwise collapse, and K10 (the scenario fold of scenario serving), one
+template over epilogue, geometry mode and observers.  Each wrapper runs its plain version on CPU tensors and its
 kernel on CUDA tensors, and counts its launches.
 """
 

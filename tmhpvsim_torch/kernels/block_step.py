@@ -19,17 +19,22 @@ Replaces, in tmhpvsim_tpu/engine/simulation.py:
 * K8 the TelemetryAcc fold of ``_block_step_scan_acc_tel`` (:1298-1337)
   and K9 the FleetAcc fold of ``_block_step_scan_acc_fleet`` (:1394-1481;
   both at once :1436, :1524), each with its ``reduce_chainwise`` collapse
-  (``block_step_obs``; obs/telemetry.py, obs/analytics.py).
+  (``block_step_obs``; obs/telemetry.py, obs/analytics.py);
+* K10 the scenario fold of ``_block_step_scan_scenario`` /
+  ``_scenario_block_core`` (:1834, :1871-1937): each scenario row's
+  transform of the step's meter and pv, its selectors and horizon, the
+  seven statistics per (scenario, chain) and a ``risk`` FleetAcc per
+  scenario with its ``reduce_chainwise`` (``block_step_scenario``).
 
 Every epilogue shares one pre-fold body: for every chain and second the
 table lerps, the renewal step (a new cycle from ``cycle_from_u`` on
 redraw), the csi composition, ``pv.power_from_csi`` and the meter, fed by
 ``scan_draws_tmajor`` / ``meter_block_tmajor`` (models/clearsky_index.py
-:278-319).  ``block_step_plain``, ``series_plain``, ``trace_plain`` and
-``block_step_obs_plain`` are that body (``_body_plain``) plus their
-epilogue, so they cannot drift apart; the CUDA kernel
-(csrc/block_step.cu) is one template over the epilogue, the geometry mode
-and the observers.
+:278-319).  ``block_step_plain``, ``series_plain``, ``trace_plain``,
+``block_step_obs_plain`` and ``scenario_plain`` are that body
+(``_body_plain``) plus their epilogue, so they cannot drift apart; the
+CUDA kernel (csrc/block_step.cu) is one template over the epilogue, the
+geometry mode and the observers.
 
 Each wrapper runs its plain version on CPU tensors and launches the
 kernel on CUDA tensors; every variant counts its launches.  The kernels
@@ -73,9 +78,11 @@ K9 = build.LaunchCounter("block_step_analytics")
 K89 = build.LaunchCounter("block_step_tel_analytics")
 #: the second pass of reduce_chainwise (per-CTA partials over CTAs)
 COLLAPSE = build.LaunchCounter("chainwise_collapse")
+#: the scenario epilogue (either geometry mode)
+K10 = build.LaunchCounter("block_step_scenario")
 #: every counter of this module, in (epilogue, geometry) order
 COUNTERS = (K3, K6, K4_SERIES, K4_SERIES_SITE, K4_SUM, K4_TRACE,
-            K4_TRACE_SITE, K7_FLEET, K8, K9, K89, COLLAPSE)
+            K4_TRACE_SITE, K7_FLEET, K8, K9, K89, COLLAPSE, K10)
 
 #: per-second integer rows: global second, rebased hour / day / minute index
 ROWS_I = ("t", "h", "d", "m")
@@ -101,6 +108,10 @@ THREADS = 128
 #: the analytics' shared-memory histograms may take this many bytes per
 #: CTA (beyond, they count with global atomics)
 SMEM_MAX = 96 * 1024
+#: the scenario epilogue's stage: one 60-second tile of every chain's
+#: meter and pv, in dynamic shared memory (its histograms follow when
+#: they fit under ``SMEM_MAX``)
+SCN_STAGE_BYTES = 60 * THREADS * 2 * 4
 
 #: the kernel's per-chain observer leaves (``per_chain=True``), in row order
 TEL_CHAIN_I = tuple(f"{k}_{f}" for f in tel.TELEMETRY_FIELDS
@@ -122,6 +133,21 @@ COH_KINDS = (0, 0, 0, 0, 1, 2)
 #: row repeats ``COH_KINDS`` per cohort)
 PART_KINDS = {"tel_part": TEL_KINDS, "flt_part": FLT_KINDS,
               "coh_part": COH_KINDS}
+#: the scenario epilogue's per-(scenario, chain) risk leaves, kept between
+#: its tiles, in row order
+SCN_CHAIN_I = ("n_use", "lol_run", "lol_seconds", "lol_events",
+               "seen_ramp_1s", "seen_ramp_60s", "seen_ramp_3600s")
+SCN_CHAIN_F = ("min_res", "max_res", "max_ramp_1s", "max_ramp_60s",
+               "max_ramp_3600s", "prev_ramp_1s", "prev_ramp_60s",
+               "prev_ramp_3600s")
+#: the kinds of its per-(CTA, scenario) partial row: count, min_res,
+#: max_res, lol_seconds, lol_events and the three max_ramp leaves
+SCN_KINDS = (0, 1, 2, 0, 0, 2, 2, 2)
+#: the scenario knob leaves (``serve.schema.encode_batch``), float32 then
+#: int32
+SCEN_F = ("demand_scale", "demand_shift_w", "pv_scale", "weather_bias",
+          "curtail_w")
+SCEN_I = ("horizon_s", "site_index", "cohort")
 
 _BIG = float(np.finfo(np.float32).max)
 
@@ -306,13 +332,16 @@ def _body_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
     return carry, meter, ac, csi, covered
 
 
-def _stats_fold_plain(acc, rows_i, duration_s, meter, ac, second_hook=None):
+def _stats_fold_plain(acc, rows_i, duration_s, meter, ac, second_hook=None,
+                      valid=None):
     """The statistics fold second by second (in second order, as the scan
     adds); ``second_hook(s, valid, residual_s)`` runs after each second's
-    fold (the observers)."""
+    fold (the observers).  ``valid``: a ``(T, n)`` mask in place of the
+    duration mask ``t < duration_s`` (the scenario fold's)."""
     residual = meter - ac
     T = rows_i.shape[1]
-    valid = rows_i[0] < duration_s
+    if valid is None:
+        valid = rows_i[0] < duration_s
     vz = valid.to(torch.float32)
     big = torch.tensor(_BIG, dtype=torch.float32, device=ac.device)
     acc = dict(acc)
@@ -392,6 +421,91 @@ def block_step_obs_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
     return carry, acc, out
 
 
+def _scenario_check(scen):
+    """The knob leaves of a scenario batch: ``(B,)`` float32 ``SCEN_F``
+    and int32 ``SCEN_I`` tensors.  Returns ``B``."""
+    B = scen["horizon_s"].shape[0]
+    for k in SCEN_F + SCEN_I:
+        t = scen[k]
+        want = torch.float32 if k in SCEN_F else torch.int32
+        if t.dtype != want or t.shape != (B,):
+            raise ValueError(f"block_step_scenario: scen[{k!r}] must be a "
+                             f"({B},) {want} tensor")
+    return B
+
+
+def scenario_transform_plain(meter, ac, scen, b):
+    """Row ``b``'s transform of the step's meter and pv:
+    ``meter * demand_scale + demand_shift_w`` rounded once (the JAX scan
+    contracts it into a multiply-add; tests/test_torch_serve.py settles
+    it), ``min(ac * (pv_scale * weather_bias), curtail_w)``, and the
+    residual."""
+    m = rng.fma(meter, scen["demand_scale"][b], scen["demand_shift_w"][b])
+    p = torch.minimum(ac * (scen["pv_scale"][b] * scen["weather_bias"][b]),
+                      scen["curtail_w"][b])
+    return m, p, m - p
+
+
+def scenario_valid_plain(rows_i, duration_s, scen, b, n, cohort=None):
+    """Row ``b``'s ``(T, n)`` validity: the site selector (the chain's
+    index against ``site_index``), the cohort selector (when ``cohort``,
+    the chains' ids, is given), ``t < duration_s`` and ``t < horizon_s``."""
+    dev = rows_i.device
+    iota = torch.arange(n, device=dev, dtype=torch.int32)
+    site = scen["site_index"][b]
+    sel = (site < 0) | (iota == site)
+    if cohort is not None:
+        c = scen["cohort"][b]
+        sel = sel & ((c < 0) | (cohort == c))
+    t = rows_i[0]
+    return sel[None, :] & ((t < duration_s) & (t < scen["horizon_s"][b])
+                           )[:, None]
+
+
+def scenario_plain(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
+                   duration_s: int, meter_max_w: float, surface_tilt,
+                   albedo, site: SiteGeometry | None = None,
+                   fleet: FleetLeaves | None = None, scen: dict = None,
+                   params: flt.FleetParams = None, cohort=None,
+                   per_chain: bool = False):
+    """Plain K10: the shared body (K3's step with K7's transforms), then
+    for each scenario row its transform, validity and the statistics fold
+    into ``acc`` (``(B, n)`` leaves) beside a zero-initialised ``risk``
+    FleetAcc (obs/analytics.py ``fold_second`` / ``reduce_chainwise``).
+    Returns ``(carry, acc, delta)``: ``delta`` holds the block's collapsed
+    FleetAcc of each row (``(B, ...)`` leaves) and, with ``per_chain``,
+    ``chain``, each row's per-chain FleetAcc (``(B, n)`` leaves)."""
+    B = _scenario_check(scen)
+    carry, meter, ac, _, _ = _body_plain(
+        tables, rows_i, rows_f, k_scan, k_meter, carry, meter_max_w,
+        surface_tilt, albedo, site, fleet)
+    n, dev = ac.shape[1], ac.device
+    t_rows = rows_i[0].tolist()
+    out = {k: v.clone() for k, v in acc.items()}
+    deltas, chains = [], []
+    for b in range(B):
+        m, p, r = scenario_transform_plain(meter, ac, scen, b)
+        valid = scenario_valid_plain(rows_i, duration_s, scen, b, n, cohort)
+        st = {"fa": flt.init_acc("risk", n, params=params, device=dev)}
+
+        def hook(s, ok, res):
+            st["fa"] = flt.fold_second(
+                st["fa"], "risk", params, meter=m[s], pv=p[s], residual=res,
+                covered=None, t=t_rows[s], valid=ok)
+
+        row = _stats_fold_plain({k: v[b] for k, v in acc.items()}, rows_i,
+                                duration_s, m, p, hook, valid=valid)
+        for k, v in row.items():
+            out[k][b] = v
+        deltas.append(flt.reduce_chainwise(st["fa"]))
+        chains.append(st["fa"])
+    delta = {k: torch.stack([d[k] for d in deltas]) for k in deltas[0]}
+    if per_chain:
+        delta["chain"] = {k: torch.stack([c[k] for c in chains])
+                          for k in chains[0] if chains[0][k].shape == (n,)}
+    return carry, out, delta
+
+
 def series_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
                  meter_max_w: float, surface_tilt, albedo,
                  site: SiteGeometry | None = None,
@@ -447,6 +561,19 @@ class _Obs(ctypes.Structure):
                 ("thr", _P), ("res_hist", _P), ("exceed", _P),
                 ("cohort_hist", _P), ("cohort", _P), ("flt_part", _P),
                 ("coh_part", _P), ("flt_chain_i", _P), ("flt_chain_f", _P)]
+
+
+class _Scen(ctypes.Structure):
+    """ctypes mirror of csrc/block_step.cu's ``Scen``."""
+
+    _fields_ = [("B", ctypes.c_int), ("bins", ctypes.c_int),
+                ("n_thr", ctypes.c_int), ("lolp_k", ctypes.c_int),
+                ("hist_shared", ctypes.c_int), ("ramp_w", ctypes.c_int * 3),
+                ("lo", ctypes.c_float), ("inv_w", ctypes.c_float),
+                ("capacity", ctypes.c_float), ("thr", _P),
+                ("knob_f", _P * len(SCEN_F)), ("knob_i", _P * len(SCEN_I)),
+                ("cohort", _P), ("res_hist", _P), ("exceed", _P),
+                ("chain_i", _P), ("chain_f", _P), ("part", _P)]
 
 
 def _check(t, dtype, dev, what):
@@ -722,6 +849,95 @@ def _block_step_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
     return carry, acc, _obs_outputs(obs, buf, T)
 
 
+_scen_size_checked = False
+
+
+def _scenario_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
+                   duration_s, meter_max_w, surface_tilt, albedo, site=None,
+                   fleet=None, scen=None, params=None, cohort=None,
+                   per_chain=False):
+    global _scen_size_checked
+    n, T, dev, args = _common_args(tables, rows_i, rows_f, k_scan, k_meter,
+                                   carry, duration_s, meter_max_w,
+                                   surface_tilt, albedo, site, fleet)
+    B = _scenario_check(scen)
+    for k in SCEN_F + SCEN_I:
+        _check(scen[k], scen[k].dtype, dev, f"scen {k}")
+    for k in ACC_F:
+        _check(acc[k], torch.float32, dev, f"acc {k}")
+        if acc[k].shape != (B, n):
+            raise ValueError(f"block_step_scenario: acc {k} must be "
+                             f"({B}, {n})")
+    _check(acc["n_seconds"], torch.int32, dev, "acc n_seconds")
+    if acc["n_seconds"].shape != (B, n):
+        raise ValueError(f"block_step_scenario: acc n_seconds must be "
+                         f"({B}, {n})")
+    if len(params.ramp_windows) != 3:
+        raise ValueError("block_step_scenario: the kernel folds exactly "
+                         "three ramp windows")
+    if n * T >= 2 ** 31:
+        raise ValueError(f"block_step_scenario: {n} chains x {T} s passes "
+                         "the int32 counts of one block")
+    if not _scen_size_checked:
+        size = build.entry("block_step.cu", "scen_struct_size", [])
+        if size(None) != ctypes.sizeof(_Scen):
+            raise RuntimeError("block_step_scenario: the Scen layout "
+                               "differs between the kernel and its wrapper")
+        _scen_size_checked = True
+    nb, ne = params.bins + 2, len(params.thresholds) + 1
+    n_ctas = (n + THREADS - 1) // THREADS
+    hist_bytes = 4 * (nb + ne)
+    stage = SCN_STAGE_BYTES
+    hist_shared = stage + hist_bytes <= SMEM_MAX
+    p = build.ptr
+    buf = {"res_hist": torch.zeros((B, nb), dtype=torch.int32, device=dev),
+           "exceed": torch.zeros((B, ne), dtype=torch.int32, device=dev),
+           "chain_i": torch.empty((len(SCN_CHAIN_I), B, n),
+                                  dtype=torch.int32, device=dev),
+           "chain_f": torch.empty((len(SCN_CHAIN_F), B, n),
+                                  dtype=torch.float32, device=dev),
+           "part": torch.empty((n_ctas, B * len(SCN_KINDS)),
+                               dtype=torch.float64, device=dev)}
+    q = _Scen()
+    q.B, q.bins, q.n_thr, q.lolp_k = B, params.bins, ne - 1, params.lolp_k
+    q.hist_shared = int(hist_shared)
+    q.ramp_w[:] = list(params.ramp_windows)
+    q.lo, q.inv_w, q.capacity = params.lo, params.inv_w, params.capacity_w
+    q.thr = p(_const_tensor(params.thresholds, torch.float32, dev))
+    q.knob_f[:] = [p(scen[k]) for k in SCEN_F]
+    q.knob_i[:] = [p(scen[k]) for k in SCEN_I]
+    if cohort is not None:
+        _check(cohort, torch.int32, dev, "cohort")
+        if cohort.shape != (n,):
+            raise ValueError(f"block_step_scenario: cohort must be ({n},)")
+        q.cohort = p(cohort)
+    for k in ("res_hist", "exceed", "chain_i", "chain_f", "part"):
+        setattr(q, k, p(buf[k]))
+    smem = stage + hist_bytes * hist_shared
+    fn = build.entry("block_step.cu", "block_step_scenario",
+                     _COMMON + [_P] * 11 + [ctypes.c_int])
+    rc = fn(*args, *(p(carry[k]) for k in CARRY),
+            *(p(acc[k]) for k in ACC_F), p(acc["n_seconds"]),
+            ctypes.byref(q), smem, build.stream_ptr(dev))
+    build.check(rc, "block_step_scenario")
+    K10.launches += 1
+    if fleet is not None and any(t is not None for t in fleet.tensors()):
+        K7_FLEET.launches += 1
+    L = len(SCN_KINDS)
+    f = collapse_partials(buf["part"], SCN_KINDS * B).view(B, L)
+    delta = {"count": f[:, 0].to(torch.int32), "res_hist": buf["res_hist"],
+             "exceed": buf["exceed"], "min_res": f[:, 1].float(),
+             "max_res": f[:, 2].float(),
+             "lol_seconds": f[:, 3].to(torch.int32),
+             "lol_events": f[:, 4].to(torch.int32)}
+    for k, w in enumerate(params.ramp_windows):
+        delta[f"max_ramp_{w}s"] = f[:, 5 + k].float()
+    if per_chain:
+        delta["chain"] = {**dict(zip(SCN_CHAIN_I, buf["chain_i"])),
+                          **dict(zip(SCN_CHAIN_F, buf["chain_f"]))}
+    return carry, acc, delta
+
+
 def series_partials_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry,
                          meter_max_w, surface_tilt, albedo, site=None,
                          fleet=None):
@@ -835,6 +1051,31 @@ def block_step_obs(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
                      rows_i, rows_f, k_scan, k_meter, carry, acc,
                      duration_s, meter_max_w, surface_tilt, albedo, site,
                      fleet=fleet, obs=obs)
+
+
+def block_step_scenario(tables, rows_i, rows_f, k_scan, k_meter, carry,
+                        acc, duration_s: int, meter_max_w: float,
+                        surface_tilt, albedo,
+                        site: SiteGeometry | None = None,
+                        fleet: FleetLeaves | None = None, scen: dict = None,
+                        params: flt.FleetParams = None, cohort=None,
+                        per_chain: bool = False):
+    """One scenario-batched block (K10): the step once per chain-second,
+    then each row of ``scen`` (``(B,)`` knob tensors,
+    ``serve.schema.encode_batch``) folds its own transform of it into
+    ``acc`` (``(B, n)`` statistics, updated in place on the card) and
+    into the block's zero-initialised ``risk`` FleetAcc of the sketch
+    ``params``.  ``cohort``: the chains' ids for the cohort selector
+    (None: no selector).  Returns ``(carry, acc, delta)`` with ``delta``
+    the block's collapsed FleetAcc per row (``(B, ...)`` leaves; with
+    ``per_chain`` also each row's per-chain leaves under ``chain``)."""
+    if scen is None or params is None:
+        raise ValueError("block_step_scenario: needs scen= and params=")
+    return _dispatch(k_scan, _scenario_cuda, scenario_plain, tables, rows_i,
+                     rows_f, k_scan, k_meter, carry, acc, duration_s,
+                     meter_max_w, surface_tilt, albedo, site, fleet,
+                     scen=scen, params=params, cohort=cohort,
+                     per_chain=per_chain)
 
 
 def block_step_series(tables, rows_i, rows_f, k_scan, k_meter, carry,
