@@ -40,7 +40,18 @@ Phases (any failure exits non-zero and prints no result line):
    with a 30000-bin sketch (histograms in global memory), each row
    against a batch-of-1 launch of it and the neutral row against K3's
    launch, timed at 1, 4 and 16 rows; and on 2 blocks of path F's fleet
-   with the site and cohort selectors;
+   with the site and cohort selectors; then the precision levers' kernels: K11
+   (the table transcendentals) on its own, each function on 2**20 seeded
+   arguments over its ``ARG_RANGES`` bit for bit against its plain
+   version (and the site geometry with the table set on path B's grid),
+   and K6s (the strided site geometry, stride 60) through the acc
+   epilogue at 65536 sites x 2 daylight blocks with the exact and the
+   table set (statistics and the renewal carry bit-identical, a rerun
+   bit-identical), and with both levers on 2 blocks of path F's fleet:
+   the trace (every value bit-identical), K10 at 16 rows, and K8+K9
+   (path F-L's launch, checked as K8+K9 above); and the port with both
+   levers at the JAX suite's ``small_config`` shape (shared site, a
+   4-site grid, a 12-site fleet) bit-identical to the host's plain run;
 5. the paths, every launch counter set to 0 just before each and read
    just after; each must launch every kernel it needs:
    R. reduce, shared site: ``run_reduced`` at 65536 chains x 86400 s,
@@ -69,8 +80,19 @@ Phases (any failure exits non-zero and prints no result line):
       86400 s) from a 65536-chain x 86400 s simulation in 1080 s blocks;
    S-c. the same requests with continuous batching: every reply
       byte-equal (as JSON) to path S's;
+   R-T. path R with ``kernel_impl='table'`` (K11 in the per-chain
+      physics only: the shared geometry is the host's, exact);
+   B-L. path B with ``geom_stride=60, kernel_impl='table'`` (the levers'
+      main path);
+   F-L. path F with both levers;
+   G-L. the CLI: ``pvsim OUT.csv --output reduce --site-grid
+      47:55:64,6:15:64 --geom-stride 60 --kernel-impl table --duration
+      3600 --no-realtime --start "2019-09-05 11:00:00" --run-report R``,
+      whose precision section must name both levers;
 6. each kernel and its plain version timed with CUDA events at the main
-   paths' shapes (the fleet kernels on path F's noon block);
+   paths' shapes (the fleet kernels on path F's noon block; K11 and K6s
+   on paths R-T's and B-L's noon blocks, and the K10 row reset of
+   continuous batching at 16 rows);
 7. the port on the card at the JAX suite's ``small_config`` shape against
    the JAX package's results in ``tests/data/torch_port_reference.json``:
    reduce statistics, every per-second ensemble mean, chain 0's trace
@@ -102,8 +124,10 @@ try:
     from tmhpvsim_torch.config import SimConfig, SiteGrid
     from tmhpvsim_torch.engine.simulation import BlockInputs, Simulation
     from tmhpvsim_torch.fleet import FleetParams
+    from tmhpvsim_torch.models import tables as mtables
     from tmhpvsim_torch.kernels import block_step as k3
     from tmhpvsim_torch.kernels import build
+    from tmhpvsim_torch.kernels import tables as k11
     from tmhpvsim_torch.kernels import threefry as k1
     from tmhpvsim_torch.kernels import windows as k2
     from tmhpvsim_torch.serve import schema
@@ -239,6 +263,67 @@ PATH_S = dict(HEADLINE)
 PATH_S_CLIENTS = 16
 PATH_S_PER_CLIENT = 2
 PATH_S_WINDOW = 0.02
+#: K11's check: seeded arguments per function over ARG_RANGES
+K11_N = 1 << 20
+#: the constant exponents powc takes on the path (Kasten-Young, Kasten 1966)
+POWC_EXPONENTS = (-1.6364, -1.253)
+#: the two precision levers, as their paths run them
+LEVERS = dict(geom_stride=60, kernel_impl="table")
+#: path G-L: the site-grid CLI with both levers and a run report
+PATH_GL_SITES = 64 * 64
+PATH_GL_ARGS = ["--output", "reduce", "--site-grid", "47:55:64,6:15:64",
+                "--geom-stride", "60", "--kernel-impl", "table",
+                "--duration", "3600", "--no-realtime", "--start",
+                "2019-09-05 11:00:00"]
+#: the strided mode's lerp per chain-second: 1 - f, then per field a
+#: multiply and a multiply-add (8 fields)
+LERP_SECOND_F = 1 + 8 * 3
+
+
+def trans_f(name, ks):
+    """Float32 ops of one call of a transcendental of the kernel set: the
+    libm estimate (16, powf 32) for the exact set, the polynomial's own
+    count (kernels/tables.py OPS, from csrc/tables.cuh) for the table
+    set."""
+    if ks == "table":
+        return k11.OPS[name]
+    return POW_F if name == "powc" else TRANS_F
+
+
+def k3_second_f(ks):
+    """K3 per chain-second outside the draws (one exp, one log)."""
+    return K3_SECOND_F - 2 * TRANS_F + trans_f("exp", ks) + \
+        trans_f("log", ks)
+
+
+def phys_f(ks):
+    """The physics terms per chain-second from a chain's geometry: cos of
+    the zenith and of the apparent zenith, Kasten 1966 (cos, powc), acos
+    of the AOI and ~35 float ops."""
+    return 3 * trans_f("cos", ks) + trans_f("powc", ks) + \
+        trans_f("arccos", ks) + 35
+
+
+def geo_site_f(ks):
+    """The site half of the geometry per chain and time point: the hour
+    angle's cos and sin, acos and the parallax sin of the zenith, its cos,
+    atan2 and fmod of the azimuth, the refraction's tan, Kasten-Young (cos,
+    powc), Ineichen (cos, exp), the cap's 2 exp, the AOI's sin and cos;
+    ~60 float ops."""
+    return (5 * trans_f("cos", ks) + 3 * trans_f("sin", ks)
+            + trans_f("arccos", ks) + trans_f("arctan2", ks) + TRANS_F
+            + trans_f("tan", ks) + 3 * trans_f("exp", ks)
+            + trans_f("powc", ks) + 60)
+
+
+def geo_time_f(ks):
+    """The time half of the geometry per time point: 5 sin, 4 cos, atan2,
+    asin, tan and 2 fmod of the PSA ephemeris, ~35 float ops."""
+    return (5 * trans_f("sin", ks) + 4 * trans_f("cos", ks)
+            + trans_f("arctan2", ks) + trans_f("arcsin", ks)
+            + trans_f("tan", ks) + 2 * TRANS_F + 35)
+
+
 #: the JAX suite's small_config (tests/test_engine.py)
 SMALL = dict(start="2019-09-05 10:00:00", duration_s=7200, n_chains=3,
              seed=7, block_s=3600)
@@ -987,14 +1072,17 @@ def check_collapse(partials, n_cohorts):
     return err, rel
 
 
-def phase_k89(dev):
+def phase_k89(dev, levers=None, label="K8+K9"):
     """K8 and K9 in one launch, the instantiation path F runs: both
     observers at level full with the fleet's own cohorts, on path F's
-    config and two check blocks; then the collapse on its partial rows."""
+    config and two check blocks; then the collapse on its partial rows.
+    ``levers``: the precision levers (path F-L's launch)."""
     fp = fleet_f()
     cfg = SimConfig(**dict(HEADLINE, start=CHECK_START, fleet=fp,
-                           telemetry="full", analytics="full"))
+                           telemetry="full", analytics="full",
+                           **(levers or {})))
     sim, state, blocks = fleet_blocks(cfg, dev)
+    ks = sim.plan.kernel_impl
     _, _, site = sim.geometry_args(state)
     fleet = sim.fleet_leaves(state)
     obs = dataclasses.replace(sim.observers(state), per_chain=True)
@@ -1010,7 +1098,7 @@ def phase_k89(dev):
     for ins, tables in blocks:
         head = head_of(state, ins, tables)
         common = (cfg.duration_s, cfg.meter_max_w, None, None)
-        args = dict(site=site, fleet=fleet, obs=obs)
+        args = dict(site=site, fleet=fleet, obs=obs, kernels=ks)
         _, acc_k, out_k = k3.block_step_obs(
             *head, clone(state["carry"]), sim.init_reduce_acc(), *common,
             **args)
@@ -1019,39 +1107,40 @@ def phase_k89(dev):
             **args)
         _, acc_a = k3.block_step_acc(
             *head, clone(state["carry"]), sim.init_reduce_acc(), *common,
-            site=site, fleet=fleet)
+            site=site, fleet=fleet, kernels=ks)
         _, _, out_p = k3.block_step_obs_plain(
             *head, clone(state["carry"]), sim.init_reduce_acc(), *common,
             **args)
         torch.cuda.synchronize()
         if not same_out(out_k, out_2):
-            fail("K8+K9: a second run on the same inputs is not "
+            fail(f"{label}: a second run on the same inputs is not "
                  "bit-identical")
         if not all(torch.equal(acc_k[k], acc_a[k]) for k in acc_k):
-            fail("K8+K9: the statistics differ from the acc kernel's")
-        n_leaves = check_chain("K8+K9", out_k["telemetry_chain"],
+            fail(f"{label}: the statistics differ from the acc kernel's")
+        n_leaves = check_chain(label, out_k["telemetry_chain"],
                                out_p["telemetry_chain"]) + \
-            check_chain("K8+K9", out_k["fleet_chain"], out_p["fleet_chain"])
+            check_chain(label, out_k["fleet_chain"], out_p["fleet_chain"])
         for d, sums in (("telemetry", tel_sums), ("fleet", flt_sums)):
             p64 = _plain_sums(out_p[f"{d}_chain"], sums, obs.cohort, C)
-            r, e = check_sketch(f"K8+K9 {d}", out_k[d], out_p[d], p64)
+            r, e = check_sketch(f"{label} {d}", out_k[d], out_p[d], p64)
             rel, err = max(rel, r), max(err, e)
         total = int(out_k["fleet"]["count"])
         if int(out_k["telemetry"]["csi_hist"].sum()) != total or total != \
                 int((ins.rows_i[0] < cfg.duration_s).sum()) * cfg.n_chains:
-            fail("K8+K9: the csi histogram or the sketch misses samples")
+            fail(f"{label}: the csi histogram or the sketch misses samples")
         for leaf in ("res_hist", "exceed", "cohort_count", "cohort_hist"):
             if int(out_k["fleet"][leaf].sum()) != total:
-                fail(f"K8+K9: {leaf} does not hold every sample")
+                fail(f"{label}: {leaf} does not hold every sample")
         e, r = check_collapse(out_k["partials"], C)
         c_err, c_rel = max(c_err, e), max(c_rel, r)
-    print(f"K8+K9 vs plain on 2 blocks x {cfg.n_chains} fleet sites (site "
-          f"geometry, both level full, {C} cohorts: path F's launch): "
+    print(f"{label} vs plain on 2 blocks x {cfg.n_chains} fleet sites "
+          f"({site.mode} geometry, {ks} set, both level full, {C} cohorts: "
+          f"path {'F-L' if levers else 'F'}'s launch): "
           f"{n_leaves} per-chain leaves, counts, extrema and histograms "
           f"bit-identical; float sums within {rel:.3g} (relative; "
           f"{err:.3g} absolute) of the float64 plain sums; a rerun "
           "bit-identical; the statistics equal the acc kernel's")
-    print(f"collapse on K8+K9's per-CTA rows ({', '.join(out_k['partials'])}"
+    print(f"collapse on {label}'s per-CTA rows ({', '.join(out_k['partials'])}"
           f"; 2 blocks): bit-identical to the host's index-order float64 "
           f"fold; max abs {c_err:.3g} (relative {c_rel:.3g}) from "
           "collapse_plain")
@@ -2007,6 +2096,431 @@ def held_summary(what, have, want, slack, width):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# the precision levers: K11 (the table transcendentals) and K6s (strided site
+# geometry), behind kernel_impl='table' and geom_stride
+
+
+def levers_cfg(**kw):
+    """The main paths' shape with both precision levers on."""
+    return SimConfig(**{**HEADLINE, **LEVERS, **kw})
+
+
+def k11_args(name, gen, dev, n=K11_N):
+    """``n`` seeded arguments of ``name`` over its ``ARG_RANGES`` (log
+    log-uniform; atan2 both arguments in [-1e3, 1e3]): ``(x, y)``."""
+    if name == "arctan2":
+        x, y = (gen.uniform(-1e3, 1e3, n) for _ in range(2))
+        return (torch.from_numpy(x.astype(np.float32)).to(dev),
+                torch.from_numpy(y.astype(np.float32)).to(dev))
+    lo, hi = mtables.ARG_RANGES[name]
+    x = (np.exp(gen.uniform(np.log(lo), np.log(hi), n)) if name == "log"
+         else gen.uniform(lo, hi, n))
+    return torch.from_numpy(x.astype(np.float32)).to(dev), None
+
+
+def phase_k11(dev):
+    """Each table function on the card against its plain version on the
+    same 2**20 arguments, bit for bit, and timed (with torch's own libm
+    call of the function beside it); then the site geometry with the
+    table set on its own, bit for bit.  Returns ``({function: figures},
+    the largest abs difference seen)``."""
+    gen = np.random.default_rng(0)
+    lib = {"sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
+           "arcsin": torch.asin, "arccos": torch.acos,
+           "arctan2": torch.atan2, "exp": torch.exp, "log": torch.log,
+           "powc": torch.pow}
+    out, err = {}, 0.0
+    for name in k11.FUNCS:
+        x, y = k11_args(name, gen, dev)
+        for p in (POWC_EXPONENTS if name == "powc" else (None,)):
+            got = k11.table_eval(name, x, y, p)
+            want = k11.table_eval_plain(name, x, y, p)
+            torch.cuda.synchronize()
+            err = max(err, max_abs(got, want))
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                bad = int((got.view(torch.int32) !=
+                           want.view(torch.int32)).sum())
+                fail(f"K11 {name}: {bad} of {K11_N} values differ from the "
+                     f"plain version (max ULP {ulp_diff(got, want)})")
+            ms = time_ms(lambda: k11.table_eval(name, x, y, p), reps=20)
+            plain = time_ms(lambda: k11.table_eval_plain(name, x, y, p),
+                            reps=5)
+            if name == "spencer_factor":
+                lib_ms = None
+            else:
+                args = (x, y) if name == "arctan2" else \
+                    (x, p) if name == "powc" else (x,)
+                lib_ms = time_ms(lambda: lib[name](*args), reps=20)
+            n_in = 2 if y is not None else 1
+            bms, by = bound(0, K11_N * k11.OPS[name],
+                            K11_N * 4 * (n_in + 1))
+            key = name if p is None else f"{name}({p})"
+            out[key] = {"ms": ms, "plain_ms": plain, "bound_ms": bms,
+                        "bound_by": by, "library_ms": lib_ms}
+    # the geometry device function with the table set on its own
+    cfg = SimConfig(**dict(HEADLINE, start=CHECK_START, site_grid=grid_b(),
+                           kernel_impl="table"))
+    sim = Simulation(cfg, device=dev)
+    state = sim.init_state()
+    _, _, site = sim.geometry_args(state)
+    rows = sim.host_inputs(0).rows_f[:, :240].contiguous()
+    got = k3.device_geometry_fields(rows, site, kernels="table")
+    want = k3.geometry_fields_plain(rows, site, kernels="table")
+    torch.cuda.synchronize()
+    err = max(err, max_abs(got, want))
+    if not torch.equal(got, want):
+        fail(f"K11 geometry fields differ from the plain version: max abs "
+             f"{max_abs(got, want)}")
+    print(f"K11 vs plain on {K11_N} arguments per function over ARG_RANGES "
+          f"(powc at exponents {POWC_EXPONENTS}): every value bit-identical;"
+          f" the site geometry with the table set on 240 s x "
+          f"{cfg.n_chains} sites bit-identical")
+    for key, f in out.items():
+        lib_ms = "-" if f["library_ms"] is None else \
+            f"{f['library_ms']:.4f} ms"
+        print(f"timing K11 {key}: kernel {f['ms']:.4f} ms, plain "
+              f"{f['plain_ms']:.3f} ms, torch's libm call {lib_ms}, bound "
+              f"{f['bound_ms']:.4f} ms ({f['bound_by']})")
+    return out, err
+
+
+def check_same(what, k, p):
+    """Every tensor of ``k`` equal to ``p``'s bit for bit."""
+    for name in p:
+        if not torch.equal(k[name], p[name]):
+            fail(f"{what} {name} differs from the plain version: "
+                 f"{int((k[name] != p[name]).sum())} of {k[name].numel()} "
+                 f"values, max abs {max_abs(k[name], p[name])}")
+
+
+def phase_k6s(dev):
+    """K6s: the strided block step (stride 60) against its plain version,
+    the exact and the table set, at the main paths' shape on path B's
+    grid and on path F's fleet, 2 daylight blocks each: acc (statistics
+    and the renewal carry bit-identical, a rerun bit-identical), trace
+    (every meter and pv bit-identical) and K10 at 16 rows (check_scenario);
+    first the same acc check of the shared step with the table set (path
+    R-T's launch); the observers of path F-L's launch in phase_k89.
+    Returns the largest abs difference of the K10 float sums (0 where
+    bit-identical)."""
+    for ks, grid, stride in (("table", None, 0), ("exact", grid_b(), 60),
+                             ("table", grid_b(), 60)):
+        cfg = SimConfig(**dict(HEADLINE, start=CHECK_START, site_grid=grid,
+                               geom_stride=stride, kernel_impl=ks))
+        sim, state, blocks = check_blocks(cfg, dev)
+        tilt, alb, site = sim.geometry_args(state)
+        mw = cfg.meter_max_w
+        acc_k, acc_p = sim.init_reduce_acc(), sim.init_reduce_acc()
+        carry_k, carry_p = clone(state["carry"]), clone(state["carry"])
+        what = f"{'K11' if site is None else 'K6s'} ({ks})"
+        for ins, tables in blocks:
+            head = head_of(state, ins, tables)
+            tail = (cfg.duration_s, mw, tilt, alb)
+            c2, a2 = clone(carry_k), clone(acc_k)
+            carry_k, acc_k = k3.block_step_acc(*head, carry_k, acc_k, *tail,
+                                               site=site, kernels=ks)
+            c2, a2 = k3.block_step_acc(*head, c2, a2, *tail, site=site,
+                                       kernels=ks)
+            carry_p, acc_p = k3.block_step_plain(*head, carry_p, acc_p,
+                                                 *tail, site=site,
+                                                 kernels=ks)
+            torch.cuda.synchronize()
+            check_same(f"{what} rerun", a2, acc_k)
+            check_same(f"{what} rerun carry", c2, carry_k)
+            check_same(what, acc_k, acc_p)
+            check_same(f"{what} renewal carry", carry_k, carry_p)
+        if float(acc_k["pv_max"].max()) <= 10.0:
+            fail(f"{what} check blocks saw no daylight")
+        print(f"{what} vs plain on 2 blocks x {cfg.n_chains} "
+              f"{'chains (shared site)' if site is None else 'sites'}"
+              f"{'' if site is None else ', stride 60'}: 7/7 statistics and "
+              "the renewal carry bit-identical; a rerun bit-identical")
+    # path F-L's fleet: trace and K10
+    fp = fleet_f()
+    cfg = SimConfig(**dict(HEADLINE, start=CHECK_START, fleet=fp, **LEVERS))
+    sim, state, blocks = fleet_blocks(cfg, dev)
+    _, _, site = sim.geometry_args(state)
+    fleet = sim.fleet_leaves(state)
+    ks = sim.plan.kernel_impl
+    mw = cfg.meter_max_w
+    carry_k, carry_p = clone(state["carry"]), clone(state["carry"])
+    for ins, tables in blocks:
+        head = head_of(state, ins, tables)
+        carry_k, mk, pk = k3.block_step_trace(*head, carry_k, mw, None, None,
+                                              site=site, fleet=fleet,
+                                              kernels=ks)
+        carry_p, mp, pp = k3.trace_plain(*head, carry_p, mw, None, None,
+                                         site=site, fleet=fleet, kernels=ks)
+        torch.cuda.synchronize()
+        check_same("K6s trace (fleet, table set)", {"meter": mk, "pv": pk},
+                   {"meter": mp, "pv": pp})
+        del mk, pk, mp, pp
+    check_same("K6s trace renewal carry", carry_k, carry_p)
+    rows = k10_rows(0, cfg.duration_s)
+    scen = schema.encode_batch(rows, len(rows), device=dev)
+    params = sim.scenario_fleet_params()
+    cohort = sim.scenario_cohort()
+    acc_k = sim.init_scenario_acc(len(rows))
+    carry_k, carry_p = clone(state["carry"]), clone(state["carry"])
+    err, n_same = 0.0, 0
+    for bi, (ins, tables) in enumerate(blocks):
+        head = head_of(state, ins, tables)
+        tail = (cfg.duration_s, mw, None, None)
+        kw = dict(site=site, fleet=fleet, scen=scen, params=params,
+                  cohort=cohort, per_chain=True, kernels=ks)
+        acc_p = {k: v.clone() for k, v in acc_k.items()}
+        carry_k, acc_k, dk = k3.block_step_scenario(*head, carry_k, acc_k,
+                                                    *tail, **kw)
+        carry_p, acc_p, dp = k3.scenario_plain(*head, carry_p, acc_p,
+                                               *tail, **kw)
+        torch.cuda.synchronize()
+        e, n_same = check_scenario(f"strided fleet block {bi}", acc_k, dk,
+                                   acc_p, dp)
+        err = max(err, e)
+    check_same("K10 (strided fleet) renewal carry", carry_k, carry_p)
+    print(f"K6s trace (table set, stride 60) vs plain on 2 blocks x "
+          f"{sim.config.n_chains} fleet sites: every meter and pv value "
+          f"bit-identical; K10 there at {len(rows)} rows: {n_same}/7 "
+          f"statistics bit-identical in the last block (float sums max abs "
+          f"{err:.3g}), every FleetAcc count, histogram, extremum and "
+          "per-chain leaf bit-identical")
+    return err
+
+
+def phase_reference_levers(dev):
+    """The port with both levers at the JAX suite's ``small_config`` shape
+    for a shared site, the 4-site grid of tests/test_geom_stride.py and a
+    12-site synthetic fleet, on the card and through the plain versions
+    on the host CPU (which tests/test_torch_stride.py holds against the
+    JAX package): every reduce statistic bit-identical."""
+    grid = SiteGrid(latitude=(0.0, 48.12, 52.5, 70.0),
+                    longitude=(11.6, 11.6, 13.4, 20.0),
+                    altitude=(10.0, 520.0, 34.0, 5.0),
+                    surface_tilt=(10.0, 30.0, 35.0, 60.0),
+                    surface_azimuth=(180.0, 180.0, 175.0, 180.0))
+    for what, kw in (("shared site", {}), ("grid", {"site_grid": grid}),
+                     ("fleet", {"fleet": FleetParams.synthetic(12, seed=3)})):
+        cfg = SimConfig(**dict(SMALL, output="reduce", **LEVERS, **kw))
+        got = Simulation(cfg, device=dev).run_reduced()
+        want = Simulation(cfg, device="cpu").run_reduced()
+        for k in want:
+            if not np.array_equal(got[k], want[k]):
+                fail(f"levers at small_config ({what}): {k} on the card "
+                     "differs from the host's plain run")
+        if float(want["pv_max"].max()) <= 10.0:
+            fail(f"levers at small_config ({what}): no daylight")
+    print("levers at small_config (shared site, 4-site grid, 12-site fleet; "
+          "geom_stride=60, kernel_impl=table): every reduce statistic on the "
+          "card bit-identical to the host's plain run")
+
+
+def phase_path_rt(dev):
+    cfg = levers_cfg(geom_stride=0)
+    sim = Simulation(cfg, device=dev)
+    reduced, wall, launches = run_path(
+        "R-T", ("threefry_fill", "sampler_windows", "block_step_table"),
+        sim.run_reduced)
+    pv_max = check_reduced("R-T", reduced, cfg.duration_s)
+    print(f"path R-T (reduce, shared site, kernel_impl=table): "
+          f"{cfg.n_chains} chains x {cfg.duration_s} s in {sim.n_blocks} "
+          f"blocks: {wall:.3f} s wall, "
+          f"{cfg.n_chains * cfg.duration_s / wall:.6g} site-s/s; fleet "
+          f"pv_max {pv_max:.2f} W; launches {launches}")
+    return launches, sim.ensemble_stats()
+
+
+def phase_path_bl(dev):
+    cfg = levers_cfg(site_grid=grid_b())
+    sim = Simulation(cfg, device=dev)
+    reduced, wall, launches = run_path(
+        "B-L", ("threefry_fill", "sampler_windows",
+                "block_step_strided_table"), sim.run_reduced)
+    n = sim.config.n_chains
+    pv_max = check_reduced("B-L", reduced, cfg.duration_s)
+    print(f"path B-L (site-grid reduce, geom_stride=60, kernel_impl=table; "
+          f"the levers' main path): {n} sites x {cfg.duration_s} s in "
+          f"{sim.n_blocks} blocks: {wall:.3f} s wall, "
+          f"{n * cfg.duration_s / wall:.6g} site-s/s; fleet pv_max "
+          f"{pv_max:.2f} W; pv_sum over sites min/max "
+          f"{float(reduced['pv_sum'].min()):.4g}/"
+          f"{float(reduced['pv_sum'].max()):.4g} Ws; launches {launches}")
+    return launches, sim.ensemble_stats()
+
+
+def phase_path_fl(dev):
+    fp = fleet_f()
+    cfg = levers_cfg(fleet=fp, telemetry="full", analytics="full")
+    sim = Simulation(cfg, device=dev)
+    (reduced, summary), wall, launches = run_path(
+        "F-L", ("threefry_fill", "sampler_windows_regime",
+                "block_step_strided_table", "block_step_fleet",
+                "block_step_tel_analytics", "chainwise_collapse"),
+        lambda: (sim.run_reduced(), sim.fleet_summary()))
+    n = sim.config.n_chains
+    pv_max = check_reduced("F-L", reduced, cfg.duration_s)
+    total = n * cfg.duration_s
+    if summary["count"] != total:
+        fail(f"path F-L: the fleet sketch holds {summary['count']} of "
+             f"{total} site-seconds")
+    q = summary["residual"]["quantiles"]
+    print(f"path F-L (path F's fleet reduce with geom_stride=60, "
+          f"kernel_impl=table): {n} sites x {cfg.duration_s} s in "
+          f"{sim.n_blocks} blocks: {wall:.3f} s wall, {total / wall:.6g} "
+          f"site-s/s; fleet pv_max {pv_max:.2f} W; residual p1/p50/p99 "
+          f"{q['p1']:.1f}/{q['p50']:.1f}/{q['p99']:.1f} W, LOLP "
+          f"{summary['lolp']['prob']:.3g}; launches {launches}")
+    return launches, sim.ensemble_stats()
+
+
+def phase_path_gl():
+    from tmhpvsim_torch.cli import main as cli
+
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    out = os.path.join(build.BUILD_DIR, "path_gl_reduce.csv")
+    rep = os.path.join(build.BUILD_DIR, "path_gl_report.json")
+    try:
+        rc, wall, launches = run_path(
+            "G-L", ("sampler_windows", "block_step_strided_table"),
+            lambda: cli(["pvsim", out] + PATH_GL_ARGS + ["--run-report",
+                                                        rep]))
+        if rc != 0:
+            fail(f"path G-L: the CLI returned {rc}")
+        with open(out) as f:
+            rows = f.read().splitlines()
+        with open(rep) as f:
+            report = json.load(f)
+    finally:
+        for path in (out, rep):
+            if os.path.exists(path):
+                os.remove(path)
+    n = PATH_GL_SITES
+    if len(rows) != n + 2 or rows[-1].split(",")[0] != "ensemble":
+        fail(f"path G-L: {len(rows)} CSV lines")
+    prec = report.get("precision")
+    if prec is None or prec["kernel_impl"] != "table" or \
+            prec["geom_stride"] != 60:
+        fail(f"path G-L: run report precision section {prec}")
+    print(f"path G-L (CLI pvsim --output reduce --site-grid "
+          f"47:55:64,6:15:64 --geom-stride 60 --kernel-impl table "
+          f"--duration 3600 --run-report): {wall:.3f} s wall incl. the CSV "
+          f"and the report; {n} site rows plus the ensemble row; report "
+          f"precision {json.dumps(prec)}; launches {launches}")
+    return launches
+
+
+def strided_f32(ks, n, T, stride):
+    """Float32 operations of one strided acc block: per chain-second K3's
+    (with the set's exp and log), the lerp and the physics terms from the
+    lerped geometry; per chain and stride sample the site half of the
+    geometry; per sample its time half."""
+    S = T // stride + 1
+    return (n * T * (k3_second_f(ks) + NORMAL_F + UNIFORM_F + 1
+                     + LERP_SECOND_F + phys_f(ks))
+            + n * S * geo_site_f(ks) + S * geo_time_f(ks))
+
+
+def phase_timing_levers(dev):
+    """K11 through the shared acc step (path R-T's launch) and K6s (path
+    B-L's launch, and the same with the exact set) on the noon block, with
+    their plain versions; then the K10 row reset of continuous batching.
+    Bounds as phase_timing's, with the table set's own operation counts."""
+    from tmhpvsim_torch.serve.schema import Request
+    from tmhpvsim_torch.serve.server import RollingSession, ScenarioEngine
+
+    out = {}
+    n, T = HEADLINE["n_chains"], HEADLINE["block_s"]
+    int_ops = n * (T * K3_SECOND_I + (T // 60) * K3_MINUTE_I)
+    draws_f = NORMAL_F + UNIFORM_F + 1
+    # K11: the shared acc step with the table set (path R-T)
+    sim = Simulation(levers_cfg(geom_stride=0), device=dev)
+    state = sim.init_state()
+    ins = sim.host_inputs(40)
+    tables, _ = sim._windows(state, ins)
+    site = sim.config.site
+    args = (tables, ins.rows_i, ins.rows_f, state["k_scan"],
+            state["k_meter"], clone(state["carry"]), sim.init_reduce_acc(),
+            sim.config.duration_s, sim.config.meter_max_w, site.surface_tilt,
+            site.albedo)
+    table_bytes = sum(t.numel() * 4 for t in tables.values())
+    in_bytes = (table_bytes + n * 8 * 2 + n * 4 * 3 * 2
+                + ins.rows_i.numel() * 4 + ins.rows_f.numel() * 4)
+    ms = time_ms(lambda: k3.block_step_acc(*args, kernels="table"))
+    plain = time_ms(lambda: k3.block_step_plain(*args, kernels="table"),
+                    reps=1)
+    out["K11"] = (ms, plain, *bound(
+        int_ops, n * T * (k3_second_f("table") + draws_f),
+        in_bytes + n * 4 * 7 * 2))
+    # K6s: path B-L's grid on its noon block, both kernel sets
+    for key, ks in (("K6s", "table"), ("K6sX", "exact")):
+        gsim = Simulation(levers_cfg(site_grid=grid_b(), kernel_impl=ks),
+                          device=dev)
+        gstate = gsim.init_state()
+        gins = gsim.host_inputs(40)
+        gtables, _ = gsim._windows(gstate, gins)
+        _, _, gsite = gsim.geometry_args(gstate)
+        gargs = (gtables, gins.rows_i, gins.rows_f, gstate["k_scan"],
+                 gstate["k_meter"], clone(gstate["carry"]),
+                 gsim.init_reduce_acc(), gsim.config.duration_s,
+                 gsim.config.meter_max_w, None, None)
+        ms = time_ms(lambda: k3.block_step_acc(*gargs, site=gsite,
+                                               kernels=ks))
+        plain = time_ms(lambda: k3.block_step_plain(*gargs, site=gsite,
+                                                    kernels=ks), reps=1)
+        g_table_bytes = sum(t.numel() * 4 for t in gtables.values())
+        g_in = (g_table_bytes + n * 8 * 2 + n * 4 * 3 * 2 + n * 4 * 6
+                + 12 * 4 + gins.rows_i.numel() * 4
+                + gins.rows_f.numel() * 4)
+        out[key] = (ms, plain, *bound(int_ops, strided_f32(ks, n, T, 60),
+                                      g_in + n * 4 * 7 * 2))
+    # path F-L's launch: K8+K9 in the strided table-set step of the fleet
+    fsim = Simulation(levers_cfg(fleet=fleet_f(), telemetry="full",
+                                 analytics="full"), device=dev)
+    fstate = fsim.init_state()
+    fins = fsim.host_inputs(40)
+    ftables, _ = fsim._windows(fstate, fins)
+    _, _, fsite = fsim.geometry_args(fstate)
+    obs = fsim.observers(fstate)
+    fargs = (ftables, fins.rows_i, fins.rows_f, fstate["k_scan"],
+             fstate["k_meter"], clone(fstate["carry"]),
+             fsim.init_reduce_acc(), fsim.config.duration_s,
+             fsim.config.meter_max_w, None, None)
+    fkw = dict(site=fsite, fleet=fsim.fleet_leaves(fstate), obs=obs,
+               kernels="table")
+    ms = time_ms(lambda: k3.block_step_obs(*fargs, **fkw))
+    plain = time_ms(lambda: k3.block_step_obs_plain(*fargs, **fkw), reps=1)
+    n_ctas = (n + k3.THREADS - 1) // k3.THREADS
+    nb, C = fsim._fleet_params.bins + 2, fsim._n_cohorts
+    f_bytes = (sum(t.numel() * 4 for t in ftables.values()) + n * 8 * 2
+               + n * 4 * 3 * 2 + n * 4 * 6 + 12 * 4
+               + fins.rows_i.numel() * 4 + fins.rows_f.numel() * 4
+               + n * 4 * 4 + n * 4 * 7 * 2 + n_ctas * 25 * 8 + 9 * 4
+               + n_ctas * (15 + 6 * C) * 8 + n * 4 + 4 * (nb + 8 + C * nb))
+    out["K89L"] = (ms, plain, *bound(
+        int_ops + n * T * (TEL_SECOND_I + FLT_SECOND_I),
+        strided_f32("table", n, T, 60)
+        + n * T * (K7_SECOND_F + TEL_SECOND_F + FLT_SECOND_F), f_bytes))
+    for name, (ms, plain, bms, by) in out.items():
+        print(f"timing {name}: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
+              f"bound {bms:.4f} ms ({by})")
+    # the K10 row reset: every slot of a 16-row session admitted at once
+    engine = ScenarioEngine(SimConfig(**HEADLINE), (K10_B,), device=dev)
+    sess = RollingSession(engine, K10_B)
+    items = [(i, Request(id=f"r{i}", reply_to="x", mode="reduce",
+                         scenario=sc))
+             for i, sc in enumerate(k10_rows(0, HEADLINE["duration_s"]))]
+    ms = time_ms(lambda: sess.admit_rows(items), reps=20)
+    nbytes = sum(3 * v.numel() * v.element_size()
+                 for tree in (sess.acc, sess.total) for v in tree.values())
+    bms, by = bound(0, 0, nbytes)
+    out["K10R"] = (ms, None, bms, by)
+    print(f"timing K10 row reset (RollingSession.admit_rows, {K10_B} rows "
+          f"x {n} chains, plain torch.where): {ms:.4f} ms per admission; "
+          f"bound {bms:.4f} ms ({by}: {nbytes} bytes, pristine and current "
+          "read, the new rows written)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a "
@@ -2028,6 +2542,10 @@ def main() -> int:
     err89, err_c = phase_k89(dev)
     k10 = phase_k10(dev)
     err10f = phase_k10_fleet(dev)
+    k11_fn, err11 = phase_k11(dev)
+    err6s = phase_k6s(dev)
+    err89l, _ = phase_k89(dev, LEVERS, "K8+K9 (F-L)")
+    phase_reference_levers(dev)
     torch.cuda.empty_cache()
     _, launch_r = phase_path_r(dev)
     launch_a = phase_path_a(dev)
@@ -2047,12 +2565,19 @@ def main() -> int:
           f"(block_step_scenario launches: S "
           f"{launch_s['block_step_scenario']}, S-c "
           f"{launch_sc['block_step_scenario']})")
+    launch_rt, ens_rt = phase_path_rt(dev)
+    launch_bl, ens_bl = phase_path_bl(dev)
+    launch_fl, ens_fl = phase_path_fl(dev)
+    launch_gl = phase_path_gl()
+    print(f"the levers' fleet aggregates (R-T, B-L, F-L): "
+          f"{json.dumps([ens_rt, ens_bl, ens_fl])}")
     torch.cuda.empty_cache()
     timing = phase_timing(dev)
     timing.update(phase_timing_fleet(dev))
+    timing.update(phase_timing_levers(dev))
     phase_reference(dev)
     sim_py = "tmhpvsim_tpu/engine/simulation.py"
-    src = "tmhpvsim_torch/csrc/block_step.cu"
+    src = "tmhpvsim_torch/csrc/block_step.cuh"
     rows_of = {
         "K1": ("threefry_fill", "tmhpvsim_torch/csrc/threefry.cu",
                "tmhpvsim_tpu/models/clearsky_index.py:278", err1, launch_r),
@@ -2098,6 +2623,39 @@ def main() -> int:
                  "ms_4_rows": k10["ms"][4], "plain_ms": k10["plain_ms"],
                  "bound_ms": k10["bound_ms"], "bound_by": k10["bound_by"],
                  "library_ms": None})
+    # K6s: path B-L's launch (strided, table set), the exact set's beside
+    ms, plain, bms, by = timing["K6s"]
+    ms_x, plain_x, bms_x, _ = timing["K6sX"]
+    rows.append({"name": "block_step_strided_table", "route": "cuda",
+                 "source": src,
+                 "replaces": "tmhpvsim_tpu/models/solar.py:587",
+                 "launches": launch_bl["block_step_strided_table"],
+                 "launches_fl": launch_fl["block_step_strided_table"],
+                 "launches_gl": launch_gl["block_step_strided_table"],
+                 "max_abs_err": err6s, "ms": ms, "plain_ms": plain,
+                 "bound_ms": bms, "bound_by": by, "library_ms": None,
+                 "ms_exact_set": ms_x, "plain_ms_exact_set": plain_x,
+                 "bound_ms_exact_set": bms_x})
+    # path F-L's launch: K8+K9 in the strided table-set step
+    ms, plain, bms, by = timing["K89L"]
+    rel, err = err89l
+    rows.append({"name": "block_step_strided_table+tel_analytics",
+                 "route": "cuda", "source": src,
+                 "replaces": f"{sim_py}:1524",
+                 "launches": launch_fl["block_step_tel_analytics"],
+                 "max_abs_err": err, "max_rel_err": rel, "ms": ms,
+                 "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                 "library_ms": None})
+    # K11: path R-T's launch (the shared step with the table set), and
+    # each function on its own (table_eval)
+    ms, plain, bms, by = timing["K11"]
+    rows.append({"name": "block_step_table", "route": "cuda",
+                 "source": "tmhpvsim_torch/csrc/tables.cuh",
+                 "replaces": "tmhpvsim_tpu/models/tables.py:354",
+                 "launches": launch_rt["block_step_table"],
+                 "max_abs_err": err11, "ms": ms,
+                 "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                 "library_ms": None, "functions": k11_fn})
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -516,7 +516,8 @@ def test_fleet_state_converts(jax_fleet, port_fleet):
 
 def test_cli_fleet_run_report(tmp_path):
     """--fleet-synth with --analytics in reduce mode: one CSV row per site
-    and a run report whose fleet section is the run's fleet_summary()."""
+    and a run report whose fleet section is the run's fleet_summary() (and
+    no precision section: both levers at their defaults)."""
     from tmhpvsim_torch.cli import main
 
     out, rep = str(tmp_path / "r.csv"), str(tmp_path / "r.json")
@@ -534,7 +535,8 @@ def test_cli_fleet_run_report(tmp_path):
         start=SMALL["start"], duration_s=1800, block_s=1800,
         output="reduce"), device="cpu")
     sim.run_reduced()
-    assert report == {"fleet": json.loads(json.dumps(sim.fleet_summary()))}
+    assert report == {"fleet": json.loads(json.dumps(sim.fleet_summary())),
+                      "precision": None}
     assert report["fleet"]["level"] == "risk"
 
 

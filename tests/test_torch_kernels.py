@@ -30,6 +30,7 @@ from tmhpvsim_torch.config import SimConfig, SiteGrid
 from tmhpvsim_torch.engine.simulation import Simulation
 from tmhpvsim_torch.kernels import block_step as k3
 from tmhpvsim_torch.kernels import build
+from tmhpvsim_torch.kernels import tables as k11
 from tmhpvsim_torch.kernels import threefry as k1
 from tmhpvsim_torch.kernels import windows as k2
 from tmhpvsim_torch.fleet import FleetParams
@@ -40,6 +41,9 @@ PKG = os.path.join(ROOT, "tmhpvsim_torch")
 CFG = dict(start="2019-09-05 11:00:00", duration_s=2400, n_chains=6,
            seed=5, block_s=1200)
 GRID = SiteGrid.regular((46, 50), (9, 13), 2, 3)
+#: the precision levers: the table set alone, and with the stride
+TABLE = dict(kernel_impl="table")
+LEVERS = dict(kernel_impl="table", geom_stride=60)
 
 
 def _port_files():
@@ -102,10 +106,11 @@ def test_cpu_wrappers_run_plain_versions():
     assert float(ap["pv_max"].max()) > 10
 
 
-def _epilogue_inputs(site_grid, duration_s=2400, block_i=1):
+def _epilogue_inputs(site_grid, duration_s=2400, block_i=1, levers=None):
     """One block's inputs (the last one padded when ``duration_s`` ends
     inside it), on the CPU."""
-    cfg = SimConfig(**dict(CFG, duration_s=duration_s, site_grid=site_grid))
+    cfg = SimConfig(**dict(CFG, duration_s=duration_s, site_grid=site_grid,
+                           **(levers or {})))
     sim = Simulation(cfg, device="cpu")
     state, ins = _block(sim, block_i)
     tables, _ = k2.sampler_windows(
@@ -116,22 +121,26 @@ def _epilogue_inputs(site_grid, duration_s=2400, block_i=1):
     return sim, state, ins, head, sim.geometry_args(state)
 
 
-@pytest.mark.parametrize("grid", [None, GRID], ids=["shared", "site"])
-def test_epilogues_share_one_body(grid):
+@pytest.mark.parametrize("grid, levers", [
+    (None, None), (GRID, None), (None, TABLE), (GRID, LEVERS)],
+    ids=["shared", "site", "shared-table", "strided-table"])
+def test_epilogues_share_one_body(grid, levers):
     """acc, series and trace (plain and through the CPU wrappers) run the
     same per-second body: the trace folded over seconds in second order is
     the acc fold bit for bit, its sums over chains are the series, and
-    every epilogue leaves the same renewal carry."""
+    every epilogue leaves the same renewal carry (with either kernel set
+    and in the strided mode too)."""
     kernels.reset_counts()
     sim, state, ins, head, (tilt, alb, site) = _epilogue_inputs(
-        grid, duration_s=2000)
+        grid, duration_s=2000, levers=levers)
     dur, mw = sim.config.duration_s, sim.config.meter_max_w
+    ks = sim.plan.kernel_impl
     carry_a, acc = k3.block_step_acc(*head, sim.init_reduce_acc(), dur, mw,
-                                     tilt, alb, site=site)
+                                     tilt, alb, site=site, kernels=ks)
     carry_t, meter, pv_ = k3.block_step_trace(*head, mw, tilt, alb,
-                                              site=site)
+                                              site=site, kernels=ks)
     carry_s, m_sum, p_sum = k3.block_step_series(*head, mw, tilt, alb,
-                                                 site=site)
+                                                 site=site, kernels=ks)
     assert all(c.launches == 0 for c in kernels.COUNTERS)
     for c in (carry_t, carry_s):
         for k in k3.CARRY:
@@ -181,6 +190,48 @@ def test_device_geometry_fields_cpu_is_plain():
     assert torch.equal(got, k3.geometry_fields_plain(ins.rows_f, site))
 
 
+def test_every_instantiation_counts_its_launches():
+    """One launch counter per (epilogue, geometry mode, kernel set); the
+    exact set's keep their names from before the kernel sets."""
+    for epi in ("acc", "series", "trace", "scen"):
+        for geo in k3.GEOMS:
+            for ks in ("exact", "table"):
+                assert k3.STEP[epi, geo, ks] in kernels.COUNTERS
+    names = kernels.counts()
+    for name in ("block_step", "block_step_site", "block_step_series_site",
+                 "block_step_trace", "block_step_scenario",
+                 "block_step_strided", "block_step_strided_table",
+                 "block_step_table", "block_step_scenario_table",
+                 "table_eval"):
+        assert name in names, name
+    assert k3.STEP["scen", "site", "table"] is \
+        k3.STEP["scen", "strided", "table"]
+
+
+def test_strided_rows_carry_the_sample_grid():
+    """The strided mode's rows: calendar, the second's doy, then the
+    stride samples' split time and doy, padded to the block."""
+    sim, state, ins, _, (_, _, site) = _epilogue_inputs(GRID, levers=LEVERS)
+    T = CFG["block_s"]
+    S = T // 60 + 1
+    rows = ins.rows_f
+    assert rows.shape == (len(k3.ROWS_F_STRIDE), T)
+    assert site.stride == 60 and site.mode == "strided"
+    blk = sim.spec.block(T, T)  # block 1
+    ep_s, doy_s = solar.stride_samples(blk.epoch, blk.doy, 60)
+    assert torch.equal(rows[3], torch.from_numpy(
+        np.asarray(blk.doy, np.float32)))
+    assert torch.equal(rows[4, :S], torch.from_numpy(
+        np.asarray(ep_s // 86400 - 10957, np.float32)))
+    assert torch.equal(rows[5, :S], torch.from_numpy(
+        np.asarray(ep_s % 86400, np.float32)))
+    assert torch.equal(rows[6, :S], torch.from_numpy(
+        np.asarray(doy_s, np.float32)))
+    assert not bool(rows[4:, S:].any())
+    with pytest.raises(ValueError, match="stride 1"):
+        k3.device_geometry_fields(rows, site)
+
+
 @pytest.mark.parametrize("fn", ["block_step_series", "block_step_trace"])
 def test_epilogue_wrappers_refuse_other_devices(fn):
     _, _, _, head, (_, _, site) = _epilogue_inputs(GRID)
@@ -202,7 +253,8 @@ def test_kernel_constants_are_the_models():
     header = build.consts_header()
     for table, src in ((rng.kernel_constants(), "threefry.cuh"),
                        (k2.kernel_constants(), "windows.cu"),
-                       (k3.kernel_constants(), "block_step.cu")):
+                       (k3.kernel_constants(), "block_step.cuh"),
+                       (k11.kernel_constants(), "tables.cuh")):
         text = open(os.path.join(build.CSRC, src)).read()
         for name, value in table.items():
             assert re.search(rf"\b{name}\b", text), f"{src} never reads {name}"
@@ -219,11 +271,19 @@ def test_build_flags():
     assert "fast_math" not in flags and "fast-math" not in flags
     for src in build.SOURCES + build.HEADERS:
         assert os.path.exists(os.path.join(build.CSRC, src))
-    # one C entry per epilogue, the cross-CTA sum and the geometry entry
-    text = open(os.path.join(build.CSRC, "block_step.cu")).read()
+    # one C entry per epilogue, the cross-CTA sum and the geometry entry,
+    # in the template both kernel sets' translation units include
+    text = open(os.path.join(build.CSRC, "block_step.cuh")).read()
     for entry in ("block_step_acc", "block_step_series", "block_step_trace",
                   "series_sum", "device_geometry_fields"):
         assert re.search(rf'extern "C" int {entry}\(', text), entry
+    for src, kset in (("block_step.cu", "Exact"),
+                      ("block_step_table.cu", "Table")):
+        text = open(os.path.join(build.CSRC, src)).read()
+        assert f"#define KSET {kset}" in text
+        assert '#include "block_step.cuh"' in text
+    assert re.search(r'extern "C" int table_eval\(', open(
+        os.path.join(build.CSRC, "tables.cu")).read())
 
 
 def test_build_without_nvcc_raises(monkeypatch):
@@ -305,7 +365,7 @@ def test_cpu_fleet_and_observer_wrappers_run_plain():
 def test_observer_layout_mirrors_the_kernel():
     """The wrapper's ctypes ``Obs`` has the kernel struct's fields in order,
     and the collapse kinds have the kernel's partial-row lengths."""
-    text = open(os.path.join(build.CSRC, "block_step.cu")).read()
+    text = open(os.path.join(build.CSRC, "block_step.cuh")).read()
     body = re.search(r"struct Obs \{(.*?)\n\};", text, re.S).group(1)
     names = []
     for line in body.splitlines():
@@ -603,3 +663,85 @@ def test_k10_matches_plain_on_card(card, case):
                                site=site, fleet=fleet)
     for k in acc:
         assert torch.equal(ak[k][0], acc[k]), k
+
+
+@pytest.mark.cuda
+def test_k11_matches_plain_on_card(card):
+    """Each table function on the card, bit for bit against its plain
+    version on the same 65536 seeded arguments."""
+    gen = np.random.default_rng(0)
+    n = 1 << 16
+    for name in k11.FUNCS:
+        if name == "arctan2":
+            x, y = (torch.from_numpy(gen.uniform(-1e3, 1e3, n)
+                                     .astype(np.float32)).to(card)
+                    for _ in range(2))
+        else:
+            lo, hi = (1e-6, 1e4) if name == "log" else \
+                (0.5, 100.0) if name == "powc" else (-400.0, 400.0)
+            if name == "spencer_factor":
+                lo, hi = 1.0, 366.0
+            x = torch.from_numpy(gen.uniform(lo, hi, n).astype(np.float32)
+                                 ).to(card)
+            y = None
+        p = -1.6364 if name == "powc" else None
+        got = k11.table_eval(name, x, y, p)
+        want = k11.table_eval_plain(name, x, y, p)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levers", [TABLE, dict(geom_stride=60), LEVERS],
+                         ids=["table", "strided", "strided-table"])
+def test_k6s_k11_match_plain_on_card(card, levers):
+    """The block step with either lever against its plain version: acc and
+    trace bit for bit, the series to rtol 1e-6 and bit-identical on a
+    rerun, the K10 fold's statistics and FleetAcc leaves bit for bit."""
+    grid = GRID if "geom_stride" in levers else None
+    cfg = SimConfig(**dict(CFG, n_chains=512, site_grid=grid, **levers))
+    sim = Simulation(cfg, device=card)
+    state, ins = _block(sim)
+    tables, _ = sim._windows(state, ins)
+    tilt, alb, site = sim.geometry_args(state)
+    ks = sim.plan.kernel_impl
+    head = (tables, ins.rows_i, ins.rows_f, state["k_scan"],
+            state["k_meter"])
+    mw = cfg.meter_max_w
+
+    def carry():
+        return {k: v.clone() for k, v in state["carry"].items()}
+
+    kw = dict(site=site, kernels=ks)
+    _, ak = k3.block_step_acc(*head, carry(), sim.init_reduce_acc(),
+                              cfg.duration_s, mw, tilt, alb, **kw)
+    _, ap = k3.block_step_plain(*head, carry(), sim.init_reduce_acc(),
+                                cfg.duration_s, mw, tilt, alb, **kw)
+    for k in ap:
+        assert torch.equal(ak[k], ap[k]), k
+    _, mk, pk = k3.block_step_trace(*head, carry(), mw, tilt, alb, **kw)
+    _, mp, pp = k3.trace_plain(*head, carry(), mw, tilt, alb, **kw)
+    assert torch.equal(mk, mp) and torch.equal(pk, pp)
+    _, sk, qk = k3.block_step_series(*head, carry(), mw, tilt, alb, **kw)
+    _, sk2, qk2 = k3.block_step_series(*head, carry(), mw, tilt, alb, **kw)
+    _, sp, qp = k3.series_plain(*head, carry(), mw, tilt, alb, **kw)
+    assert torch.equal(sk, sk2) and torch.equal(qk, qk2)
+    torch.testing.assert_close(sk, sp, rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(qk, qp, rtol=1e-6, atol=1e-3)
+    from tmhpvsim_torch.serve import schema
+
+    rows = [schema.Scenario(horizon_s=cfg.duration_s),
+            schema.Scenario(demand_scale=1.3, curtail_w=150.0,
+                            horizon_s=cfg.duration_s)]
+    scen = schema.encode_batch(rows, len(rows), device=card)
+    prm = sim.scenario_fleet_params()
+    _, sak, sdk = k3.block_step_scenario(
+        *head, carry(), sim.init_scenario_acc(2), cfg.duration_s, mw, tilt,
+        alb, scen=scen, params=prm, **kw)
+    _, sap, sdp = k3.scenario_plain(
+        *head, carry(), sim.init_scenario_acc(2), cfg.duration_s, mw, tilt,
+        alb, scen=scen, params=prm, **kw)
+    for k in sap:
+        assert torch.equal(sak[k], sap[k]), k
+    for k in sdp:
+        assert torch.equal(sdk[k], sdp[k]), k

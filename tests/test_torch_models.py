@@ -99,14 +99,27 @@ def test_config_fields_and_defaults_match(cls):
 
 @pytest.mark.parametrize("field,value", [
     ("site_grid", object()), ("fleet", object()), ("telemetry_strict", True),
-    ("phase_obs", "on"), ("compute_dtype", "bf16"),
-    ("kernel_impl", "table"), ("geom_stride", 60), ("block_impl", "wide"),
+    ("phase_obs", "on"), ("compute_dtype", "bf16"), ("block_impl", "wide"),
     ("prng_impl", "rbg"), ("output", "nonsense"), ("dtype", "bfloat16"),
     ("tune", "auto"), ("blocks_per_dispatch", 4), ("rng_batch", "block"),
 ])
 def test_config_outside_slice_raises(field, value):
     with pytest.raises(NotImplementedError):
         tcfg.SimConfig(**{field: value})
+
+
+@pytest.mark.parametrize("field,value,plan", [
+    ("kernel_impl", "table", ("table", 1)),
+    ("kernel_impl", "auto", ("exact", 1)),
+    ("geom_stride", 60, ("exact", 60)),
+    ("geom_stride", 30, ("exact", 30)),
+    ("geom_stride", 0, ("exact", 1)),
+])
+def test_config_levers_inside_slice(field, value, plan):
+    """kernel_impl and geom_stride are inside the slice;
+    'auto' and 0 resolve as the JAX package resolves them untuned."""
+    p = tcfg.resolve_plan(tcfg.SimConfig(**{field: value}))
+    assert (p.kernel_impl, p.geom_stride) == plan
 
 
 def test_model_options_outside_slice_raise():

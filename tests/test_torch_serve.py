@@ -999,7 +999,7 @@ def test_scenario_wrapper_runs_plain_on_cpu():
 def test_scen_layout_mirrors_the_kernel():
     """The wrapper's ctypes ``Scen`` has the kernel struct's fields in
     order, and the leaf tables the kernel's lengths."""
-    text = open(os.path.join(build.CSRC, "block_step.cu")).read()
+    text = open(os.path.join(build.CSRC, "block_step.cuh")).read()
     body = re.search(r"struct Scen \{(.*?)\n\};", text, re.S).group(1)
     names = []
     for line in body.splitlines():

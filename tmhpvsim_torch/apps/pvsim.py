@@ -8,7 +8,8 @@ in the JAX package's ``pvsim --backend jax`` file formats.
 
 Each runs for a shared site, a per-chain ``SiteGrid`` or a heterogeneous
 fleet; reduce mode can fold the fleet analytics, whose run totals
-``run_report`` writes as the ``fleet`` section of a JSON.
+``run_report`` writes as the ``fleet`` section of a JSON, beside the
+``precision`` section of the levers ``kernel_impl`` and ``geom_stride``.
 """
 
 from __future__ import annotations
@@ -54,17 +55,20 @@ def _paced(blk, rate: float = 1.0):
 
 def write_run_report(path: str, sim: Simulation) -> None:
     """The run report's ``fleet`` section, as ``sim.fleet_summary()``
-    gives it (None without analytics)."""
+    gives it (None without analytics), and its ``precision`` section, as
+    ``sim.precision_doc()`` gives it (None with both levers at their
+    defaults)."""
     with open(path, "w") as f:
-        json.dump({"fleet": sim.fleet_summary()}, f, indent=1)
+        json.dump({"fleet": sim.fleet_summary(),
+                   "precision": sim.precision_doc()}, f, indent=1)
 
 
 def pvsim(file: str, duration_s: int, n_chains: int, seed: int, start: str,
           chain: int = 0, block_s: int | None = None, realtime: bool = False,
           site_grid=None, output: str = "trace",
           output_overlap: str = "auto", device: str = "cuda", fleet=None,
-          analytics: str = "off", run_report: str | None = None
-          ) -> Simulation:
+          analytics: str = "off", run_report: str | None = None,
+          kernel_impl: str = "auto", geom_stride: int = 0) -> Simulation:
     """Run one simulation and write ``file``; returns the Simulation.
 
     A site grid or a fleet sets the chain count (one chain per site).
@@ -72,13 +76,15 @@ def pvsim(file: str, duration_s: int, n_chains: int, seed: int, start: str,
     grid; reduce mode has no rows to pace and refuses it.  ``analytics``
     folds the fleet-risk sketches in reduce mode (other modes ignore it,
     as the JAX package does); ``run_report`` names the JSON their run
-    totals go to."""
+    totals go to.  ``kernel_impl`` ('auto' | 'exact' | 'table') and
+    ``geom_stride`` (0 = auto | 1 | 30 | 60) are the precision levers."""
     if block_s is None:
         block_s = min(8640, max(60, (duration_s // 60) * 60))
     cfg = SimConfig(start=start, duration_s=duration_s, n_chains=n_chains,
                     seed=seed, block_s=block_s, site_grid=site_grid,
                     fleet=fleet, output=output,
-                    output_overlap=output_overlap, analytics=analytics)
+                    output_overlap=output_overlap, analytics=analytics,
+                    kernel_impl=kernel_impl, geom_stride=geom_stride)
     sim = Simulation(cfg, device=device)
     cfg = sim.config  # a site grid or a fleet sets n_chains
     t0 = time.perf_counter()

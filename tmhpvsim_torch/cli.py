@@ -5,9 +5,12 @@ The flags mirror the JAX package's ``pvsim --backend jax`` flags of the
 ported slice: the three output modes, ``--chain``, site grids
 (``--site-grid`` / ``--sites-csv``), heterogeneous fleets (``--fleet-csv``
 / ``--fleet-synth`` with ``--fleet-seed``), reduce-mode fleet analytics
-(``--analytics``), ``--output-overlap`` and ``--realtime``.
-``--run-report PATH`` writes a JSON with the run's ``fleet`` section (the
-key the JAX package's RunReport fills from ``fleet_summary()``).
+(``--analytics``), the two precision levers ``--kernel-impl`` and
+``--geom-stride`` (the JAX package's choices, defaults and errors),
+``--output-overlap`` and ``--realtime``.  ``--run-report PATH`` writes a
+JSON with the run's ``fleet`` and ``precision`` sections (the keys the
+JAX package's RunReport fills from ``fleet_summary()`` and
+``precision_doc()``).
 
 ``serve`` runs the scenario server (serve/server.py) with the JAX
 package's ``pvsim serve`` defaults on an in-process ``local://``
@@ -101,8 +104,21 @@ def _parser() -> argparse.ArgumentParser:
                          "and the per-cohort group-by; full adds "
                          "per-regime sums; reported by --run-report")
     pv.add_argument("--run-report", default=None, metavar="PATH",
-                    help="write a JSON with the run's 'fleet' section "
-                         "after the run")
+                    help="write a JSON with the run's 'fleet' and "
+                         "'precision' sections after the run")
+    pv.add_argument("--kernel-impl", choices=["auto", "exact", "table"],
+                    default="auto",
+                    help="transcendental kernels of the solar / pv models: "
+                         "exact = CUDA's libm, table = minimax polynomials "
+                         "+ day-of-year LUT (models/tables.py MAX_ULP); "
+                         "auto = exact")
+    pv.add_argument("--geom-stride", choices=["0", "1", "30", "60"],
+                    default="0",
+                    help="solar-geometry stride seconds: evaluate the "
+                         "geometry every S seconds and lerp the trig-free "
+                         "fields to 1 Hz (models/solar.py "
+                         "STRIDE_MAX_ABS_ERR); 1 = every second, 0 = auto "
+                         "(1)")
     pv.add_argument("--output-overlap", choices=["auto", "off"],
                     default="auto",
                     help="auto: dispatch block N+1 before writing block N's "
@@ -226,7 +242,8 @@ def main(argv=None) -> int:
               realtime=args.realtime, site_grid=site_grid,
               output=args.output, output_overlap=args.output_overlap,
               device=args.device, fleet=fleet, analytics=args.analytics,
-              run_report=args.run_report)
+              run_report=args.run_report, kernel_impl=args.kernel_impl,
+              geom_stride=int(args.geom_stride))
     except ValueError as e:
         raise SystemExit(f"pvsim: {e}") from e
     return 0

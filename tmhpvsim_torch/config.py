@@ -4,10 +4,11 @@
 package's field names and defaults, so the same keyword arguments describe
 the same run in both packages.  The port implements one slice of that
 space — a shared site, a per-chain ``SiteGrid`` or a heterogeneous
-``FleetParams`` fleet, float32, threefry2x32, exact transcendentals, the
-scan formulation, trace / reduce / ensemble output with reduce-mode
-telemetry and fleet analytics, per-block dispatch — and every field
-outside it raises
+``FleetParams`` fleet, float32, threefry2x32, exact or table
+transcendentals (``kernel_impl``), per-second or strided solar geometry
+(``geom_stride``), the scan formulation, trace / reduce / ensemble output
+with reduce-mode telemetry and fleet analytics, per-block dispatch — and
+every field outside it raises
 ``NotImplementedError`` when it is set to anything but its default (or a
 value that means the same run).  Nothing is silently ignored.
 """
@@ -199,20 +200,20 @@ _SLICE_VALUES = {
     "output_overlap": ("auto", "off"),
     "block_impl": ("auto", "scan"),
     "compute_dtype": ("auto", "f32"),
-    "kernel_impl": ("auto", "exact"),
     "rng_batch": ("auto", "scan"),
-    "geom_stride": (0, 1),
     "blocks_per_dispatch": (0, 1),
 }
 
 #: fields whose every value belongs to the slice (``telemetry``,
-#: ``analytics`` and ``fleet`` are checked on their own below)
+#: ``analytics`` and ``fleet`` are checked on their own below;
+#: ``kernel_impl`` and ``geom_stride`` by ``resolve_plan``, with the JAX
+#: package's errors)
 _FREE_FIELDS = frozenset({
     "start", "duration_s", "n_chains", "seed", "n_chains_total",
     "chain_offset", "site", "site_grid", "fleet", "options", "meter_max_w",
     "block_s", "telemetry", "analytics", "analytics_bins",
     "analytics_capacity_w", "analytics_lolp_k", "analytics_thresholds",
-    "serve_batch_sizes",
+    "serve_batch_sizes", "kernel_impl", "geom_stride",
 })
 
 #: valid values of SimConfig.telemetry / --telemetry (obs/telemetry.py)
@@ -326,3 +327,37 @@ class SimConfig:
                     "formulation, per-block dispatch)")
         if self.block_s % 60 != 0:
             raise ValueError("block_s must be a multiple of 60 (minute grid)")
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """The resolved precision levers of a run (the two ``Plan`` fields of
+    the JAX package the port implements): ``kernel_impl`` 'exact' or
+    'table' (models/tables.py) and ``geom_stride`` 1, 30 or 60
+    (models/solar.py ``STRIDES``)."""
+
+    kernel_impl: str = "exact"
+    geom_stride: int = 1
+
+
+def resolve_plan(config: SimConfig) -> Plan:
+    """``config``'s levers resolved as the JAX package resolves them
+    without the autotuner: 'auto' is the exact set and 0 a stride of 1.
+    Raises ``ValueError`` with the JAX package's messages for a value
+    outside the choices or a stride that does not divide ``block_s``."""
+    ki = config.kernel_impl
+    if ki == "auto":
+        ki = "exact"
+    elif ki not in ("exact", "table"):
+        raise ValueError(
+            f"kernel_impl must be 'auto', 'exact' or 'table', got {ki!r}")
+    gs = int(config.geom_stride)
+    if gs == 0:
+        gs = 1
+    elif gs not in (1, 30, 60):
+        raise ValueError(
+            f"geom_stride must be 0 (auto), 1, 30 or 60, got {gs!r}")
+    if gs > 1 and config.block_s % gs:
+        raise ValueError(f"geom_stride {gs} must divide block_s "
+                         f"{config.block_s}")
+    return Plan(kernel_impl=ki, geom_stride=gs)

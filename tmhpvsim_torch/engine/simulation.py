@@ -19,6 +19,15 @@ and trimmed from every per-second output).  Per block:
    chains per second (``run_ensemble``) or writes every chain-second
    (``run_blocks``); a site grid runs its K6 geometry mode.
 
+Two precision levers (``self.plan``, resolved as the JAX package resolves
+them): ``kernel_impl='table'`` runs every transcendental of the solar / pv
+chain through the table set (K11: the block step's Table instantiations;
+the shared site's float64 host geometry stays exact, as in the JAX
+package); ``geom_stride`` 30 or 60 evaluates the geometry on a stride grid
+and lerps it to 1 Hz — on the host in float64 for a shared site (the
+kernel is unchanged), on the card per chain for a site grid (K6s, the
+block step's strided mode, fed the sample grid's split time).
+
 A heterogeneous fleet (``config.fleet``) adds K7: each chain's Markov
 steps come from its weather regime's table (in K2) and its pv and meter
 take its capacity, inverter-limit and demand transforms (in every
@@ -55,7 +64,7 @@ import numpy as np
 import torch
 
 from tmhpvsim_torch import rng
-from tmhpvsim_torch.config import SITE_FIELDS, SimConfig
+from tmhpvsim_torch.config import SITE_FIELDS, SimConfig, resolve_plan
 from tmhpvsim_torch.kernels import block_step as k3
 from tmhpvsim_torch.kernels import threefry as k1
 from tmhpvsim_torch.kernels import windows as k2
@@ -118,7 +127,7 @@ class HostArrays:
     mh_idx: np.ndarray      # (n_min,) int32 hour index into the window
     mh_frac: np.ndarray     # (n_min,) float32 hour fraction
     rows_i: np.ndarray      # (4, T) int32
-    rows_f: np.ndarray      # (13, T) float32, or (6, T) for a site grid
+    rows_f: np.ndarray      # (13, T) float32; site grid (6, T), strided (7, T)
     epoch: np.ndarray       # (T,) int64 UTC epoch seconds
 
 
@@ -181,6 +190,8 @@ class Simulation:
         elif config.chain_offset:
             raise ValueError("chain_offset requires n_chains_total")
         self.config = config
+        #: the resolved precision levers (kernel_impl, geom_stride)
+        self.plan = resolve_plan(config)
         self.device = resolve_device(device)
         self.timezone = (grid.timezone if grid is not None
                          else config.site.timezone)
@@ -372,10 +383,23 @@ class Simulation:
 
         block_idx["hour_idx"] = block_idx["hour_idx"] - np.int32(hour_lo)
         block_idx["day_idx"] = block_idx["day_idx"] - np.int32(day_lo)
+        stride = self.plan.geom_stride
         if cfg.site_grid is None:
-            geom = solar.block_geometry(blk.epoch.astype(np.float64),
-                                        blk.doy.astype(np.float64), cfg.site)
+            # the stride is a host lever here: the float64 geometry on the
+            # stride grid, lerped back to 1 Hz; the rows keep their shapes
+            geom = solar.strided_block_geometry(
+                blk.epoch.astype(np.float64), blk.doy.astype(np.float64),
+                cfg.site, stride)
             rows_i, rows_f = k3.block_rows(block_idx, mlo, geom)
+        elif stride > 1:
+            # the stride grid's split time (T // s + 1 samples, the last
+            # the exact next second, its doy clamped to the block's last)
+            ep_s, doy_s = solar.stride_samples(blk.epoch, blk.doy, stride)
+            rows_i, rows_f = k3.strided_rows(
+                block_idx, mlo, np.asarray(blk.doy, np.float32), {
+                    "day2000": np.asarray(ep_s // 86400 - 10957, np.float32),
+                    "sec_of_day": np.asarray(ep_s % 86400, np.float32),
+                    "doy": np.asarray(doy_s, np.float32)})
         else:
             # per-chain sites: the float32-safe split time; the geometry
             # is evaluated per chain on the device
@@ -459,7 +483,8 @@ class Simulation:
         if self.config.site_grid is None:
             site = self.config.site
             return site.surface_tilt, site.albedo, None
-        return None, None, k3.SiteGeometry(state["site"], self._turbidity)
+        return None, None, k3.SiteGeometry(state["site"], self._turbidity,
+                                           self.plan.geom_stride)
 
     def step_acc(self, state, inputs: BlockInputs, acc):
         """One reduce block: K2 windows, then K3 (K6 for a grid) folds
@@ -475,11 +500,14 @@ class Simulation:
                 cfg.meter_max_w, tilt, albedo)
         obs = self.observers(state)
         fleet = self.fleet_leaves(state)
+        ks = self.plan.kernel_impl
         if obs is None:
-            carry, acc = k3.block_step_acc(*args, site=site, fleet=fleet)
+            carry, acc = k3.block_step_acc(*args, site=site, fleet=fleet,
+                                           kernels=ks)
         else:
             carry, acc, out = k3.block_step_obs(*args, site=site,
-                                                fleet=fleet, obs=obs)
+                                                fleet=fleet, obs=obs,
+                                                kernels=ks)
             self._tel_last, self._fleet_last = out["telemetry"], \
                 out["fleet"]
         return dict(state, carry=carry, cc_carry=cc_carry), acc
@@ -492,7 +520,8 @@ class Simulation:
         carry, m_sum, p_sum = k3.block_step_series(
             tables, inputs.rows_i, inputs.rows_f, state["k_scan"],
             state["k_meter"], state["carry"], self.config.meter_max_w, tilt,
-            albedo, site=site, fleet=self.fleet_leaves(state))
+            albedo, site=site, fleet=self.fleet_leaves(state),
+            kernels=self.plan.kernel_impl)
         return dict(state, carry=carry, cc_carry=cc_carry), m_sum, p_sum
 
     def step_trace(self, state, inputs: BlockInputs):
@@ -503,7 +532,8 @@ class Simulation:
         carry, meter, pv_ = k3.block_step_trace(
             tables, inputs.rows_i, inputs.rows_f, state["k_scan"],
             state["k_meter"], state["carry"], self.config.meter_max_w, tilt,
-            albedo, site=site, fleet=self.fleet_leaves(state))
+            albedo, site=site, fleet=self.fleet_leaves(state),
+            kernels=self.plan.kernel_impl)
         return dict(state, carry=carry, cc_carry=cc_carry), meter, pv_
 
     # ------------------------------------------------------------------
@@ -562,7 +592,7 @@ class Simulation:
             cfg.meter_max_w, tilt, albedo, site=site,
             fleet=self.fleet_leaves(state), scen=scen,
             params=self.scenario_fleet_params(),
-            cohort=self.scenario_cohort())
+            cohort=self.scenario_cohort(), kernels=self.plan.kernel_impl)
         return dict(state, carry=carry, cc_carry=cc_carry), acc, delta
 
     # ------------------------------------------------------------------
@@ -711,6 +741,22 @@ class Simulation:
         if self._fleet_total is None or self._fleet_params is None:
             return None
         return flt.summarize(self._fleet_total, self._fleet_params)
+
+    def precision_doc(self):
+        """The run report's ``precision`` section when a lever is off its
+        default (``kernel_impl`` 'table' or ``geom_stride`` > 1), else
+        None; the JAX package's keys, with its defaults for the levers
+        the port does not have (float32, per-minute RNG draws)."""
+        if self.plan.kernel_impl == "exact" and self.plan.geom_stride == 1:
+            return None
+        return {
+            "compute_dtype": "f32",
+            "kernel_impl": self.plan.kernel_impl,
+            "rng_batch": "scan",
+            "geom_stride": self.plan.geom_stride,
+            "telemetry": self._telemetry,
+            "output_overlap": bool(self._output_overlap),
+        }
 
     def ensemble_stats(self) -> dict:
         """Fleet-wide aggregates of the last ``run_reduced``, folded on the

@@ -5,17 +5,21 @@ with K7's weather-regime gather), and the fused per-second block step
 (kernels/block_step.py): K3 (the reduce fold), K4 (the ensemble series
 with its cross-CTA sum, and the trace), K6 (per-chain site geometry), K7
 (fleet transforms), K8 (telemetry) and K9 (fleet analytics) with their
-chainwise collapse, and K10 (the scenario fold of scenario serving), one
-template over epilogue, geometry mode and observers.  Each wrapper runs its plain version on CPU tensors and its
-kernel on CUDA tensors, and counts its launches.
+chainwise collapse, K10 (the scenario fold of scenario serving) and K6s
+(strided site geometry), one template over kernel set, epilogue,
+geometry mode and observers, whose Table instantiations inline K11 (the
+table transcendentals, also on their own in kernels/tables.py).  Each
+wrapper runs its plain version on CPU tensors and its kernel on CUDA
+tensors, and counts its launches.
 """
 
 from tmhpvsim_torch.kernels import block_step as _block_step
+from tmhpvsim_torch.kernels import tables as _tables
 from tmhpvsim_torch.kernels.threefry import K1
 from tmhpvsim_torch.kernels.windows import K2, K7_REGIME
 
 #: every kernel's launch counter, in path order
-COUNTERS = (K1, K2, K7_REGIME) + _block_step.COUNTERS
+COUNTERS = (K1, K2, K7_REGIME) + _block_step.COUNTERS + _tables.COUNTERS
 
 
 def reset_counts() -> None:

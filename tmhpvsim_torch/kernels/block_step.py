@@ -1,5 +1,5 @@
-"""K3, K4 and K6: the fused per-second step of one block, with three
-epilogues and two geometry modes.
+"""K3, K4, K6, K6s and K11: the fused per-second step of one block, with
+four epilogues, three geometry modes and two kernel sets.
 
 Replaces, in tmhpvsim_tpu/engine/simulation.py:
 
@@ -14,6 +14,13 @@ Replaces, in tmhpvsim_tpu/engine/simulation.py:
   step at :1204-1213) — per-chain solar geometry of a site grid (the
   ``site`` geometry mode; the shared mode reads the block's host-computed
   rows instead);
+* K6s the strided site geometry (``geom_stride`` 30 / 60): the sample-grid
+  ``device_geometry`` (:1144-1166, the wide step :868-900) and
+  ``solar.interp_sampled`` (models/solar.py:587) per second (the
+  ``strided`` geometry mode, ``SiteGeometry.stride``);
+* K11 the table transcendentals (models/tables.py:354,
+  ``kernel_impl='table'``): the same step with the table kernel set, its
+  own library (csrc/block_step_table.cu), selected by ``kernels=``;
 * K7 the per-site transforms of a heterogeneous fleet (:1228-1238), in
   every epilogue (``FleetLeaves``);
 * K8 the TelemetryAcc fold of ``_block_step_scan_acc_tel`` (:1298-1337)
@@ -33,11 +40,12 @@ redraw), the csi composition, ``pv.power_from_csi`` and the meter, fed by
 :278-319).  ``block_step_plain``, ``series_plain``, ``trace_plain``,
 ``block_step_obs_plain`` and ``scenario_plain`` are that body
 (``_body_plain``) plus their epilogue, so they cannot drift apart; the
-CUDA kernel (csrc/block_step.cu) is one template over the epilogue, the
-geometry mode and the observers.
+CUDA kernel (csrc/block_step.cuh) is one template over the kernel set,
+the epilogue, the geometry mode and the observers.
 
 Each wrapper runs its plain version on CPU tensors and launches the
-kernel on CUDA tensors; every variant counts its launches.  The kernels
+kernel on CUDA tensors; every (epilogue, geometry, kernel set)
+instantiation counts its launches (``STEP``).  The kernels
 update ``carry`` (and ``acc``) in place (one chain per thread, each
 reading and writing only its own entries); the plain versions return new
 tensors.
@@ -59,16 +67,30 @@ from tmhpvsim_torch.kernels import build
 from tmhpvsim_torch.models import clearsky_index as ci
 from tmhpvsim_torch.models import distributions as dist
 from tmhpvsim_torch.models import pv, renewal, solar
+from tmhpvsim_torch.models.tables import KERNEL_IMPLS, get_kernels
 from tmhpvsim_torch.obs import analytics as flt
 from tmhpvsim_torch.obs import telemetry as tel
 
-K3 = build.LaunchCounter("block_step")
-K6 = build.LaunchCounter("block_step_site")
-K4_SERIES = build.LaunchCounter("block_step_series")
-K4_SERIES_SITE = build.LaunchCounter("block_step_series_site")
+#: the geometry modes (csrc/block_step.cuh ``Geom``)
+GEOMS = ("shared", "site", "strided")
+#: the block-step instantiations' launch counters, by (epilogue, geometry
+#: mode, kernel set); the scenario epilogue counts per kernel set
+STEP = {}
+for _epi, _base in (("acc", "block_step"), ("series", "block_step_series"),
+                    ("trace", "block_step_trace")):
+    for _geo in GEOMS:
+        for _ks in KERNEL_IMPLS:
+            STEP[_epi, _geo, _ks] = build.LaunchCounter(
+                _base + ("" if _geo == "shared" else "_" + _geo)
+                + ("" if _ks == "exact" else "_" + _ks))
+for _ks in KERNEL_IMPLS:
+    _scen = build.LaunchCounter("block_step_scenario"
+                                + ("" if _ks == "exact" else "_" + _ks))
+    for _geo in GEOMS:
+        STEP["scen", _geo, _ks] = _scen
+#: K3: the acc epilogue, shared site, exact set
+K3 = STEP["acc", "shared", "exact"]
 K4_SUM = build.LaunchCounter("series_sum")
-K4_TRACE = build.LaunchCounter("block_step_trace")
-K4_TRACE_SITE = build.LaunchCounter("block_step_trace_site")
 #: block-step launches (any epilogue) that apply fleet transforms
 K7_FLEET = build.LaunchCounter("block_step_fleet")
 #: acc launches of the observer instantiations: telemetry only, analytics
@@ -78,11 +100,10 @@ K9 = build.LaunchCounter("block_step_analytics")
 K89 = build.LaunchCounter("block_step_tel_analytics")
 #: the second pass of reduce_chainwise (per-CTA partials over CTAs)
 COLLAPSE = build.LaunchCounter("chainwise_collapse")
-#: the scenario epilogue (either geometry mode)
-K10 = build.LaunchCounter("block_step_scenario")
-#: every counter of this module, in (epilogue, geometry) order
-COUNTERS = (K3, K6, K4_SERIES, K4_SERIES_SITE, K4_SUM, K4_TRACE,
-            K4_TRACE_SITE, K7_FLEET, K8, K9, K89, COLLAPSE, K10)
+#: every counter of this module: the instantiations in (epilogue,
+#: geometry, kernel set) order, then the rest
+COUNTERS = tuple(dict.fromkeys(STEP.values())) + (
+    K4_SUM, K7_FLEET, K8, K9, K89, COLLAPSE)
 
 #: per-second integer rows: global second, rebased hour / day / minute index
 ROWS_I = ("t", "h", "d", "m")
@@ -94,6 +115,11 @@ ROWS_F = ("hf", "df", "mf", "zenith", "cos_zenith", "apparent_zenith",
 #: per-second float rows of the site mode: calendar fractions, then the
 #: float32-safe split time (the geometry is per chain, on the device)
 ROWS_F_SITE = ("hf", "df", "mf", "day2000", "sec_of_day", "doy")
+#: per-second float rows of the strided mode: calendar fractions, the
+#: second's doy, then the stride samples' split time and doy (``T //
+#: stride + 1`` entries, padded to ``T``)
+ROWS_F_STRIDE = ("hf", "df", "mf", "doy", "s_day2000", "s_sec_of_day",
+                 "s_doy")
 #: the geometry fields the site mode derives per chain and second (the
 #: order of ``device_geometry_fields``' output)
 GEOM_FIELDS = ("zenith", "cos_zenith", "apparent_zenith", "azimuth",
@@ -154,12 +180,19 @@ _BIG = float(np.finfo(np.float32).max)
 
 @dataclasses.dataclass
 class SiteGeometry:
-    """The per-chain inputs of the site-geometry mode: ``site`` maps each
-    ``config.SITE_FIELDS`` entry to an ``(n,)`` float32 tensor, ``turbidity`` is the
-    grid's ``(12,)`` monthly Linke climatology."""
+    """The per-chain inputs of the site-geometry modes: ``site`` maps each
+    ``config.SITE_FIELDS`` entry to an ``(n,)`` float32 tensor,
+    ``turbidity`` is the grid's ``(12,)`` monthly Linke climatology;
+    ``stride`` > 1 selects the strided mode (K6s; the rows are then
+    ``strided_rows``)."""
 
     site: dict
     turbidity: torch.Tensor
+    stride: int = 1
+
+    @property
+    def mode(self) -> str:
+        return "site" if self.stride <= 1 else "strided"
 
 
 @dataclasses.dataclass
@@ -232,6 +265,7 @@ def kernel_constants() -> dict:
         "PV_TWO_PI": pv.TWO_PI, "PV_DEG": pv.DEG,
         "PV_ZEN_MAX": 87.0 * pv.DEG,
         "EXP_T": math.exp(m["T_a"] + m["T_b"] * 0.0),
+        "EXP_T_TABLE": pv.cell_temp_factor(m, get_kernels("table")),
         "T_DELTA": m["T_deltaT"], "FD": m["FD"],
         "N_BOLTZ": m["N"] * pv.BOLTZMANN, "ELEM_CHARGE": pv.ELEM_CHARGE,
         "IMPO": m["Impo"], "SC0": m["C0"], "SC1": m["C1"],
@@ -267,6 +301,20 @@ def site_rows(block_idx: dict, mlo: int, time_split: dict):
     return _rows(block_idx, mlo, [time_split[k] for k in ROWS_F_SITE[3:]])
 
 
+def strided_rows(block_idx: dict, mlo: int, doy, samples: dict):
+    """The strided mode's rows: ``(4, T)`` int32 and ``(7, T)`` float32
+    (the calendar fractions, the second's doy, then the ``S = T // stride
+    + 1`` stride samples' ``day2000``, ``sec_of_day`` and ``doy`` from
+    ``samples``, zero-padded to ``T``)."""
+    T = len(doy)
+    pad = []
+    for k in ("day2000", "sec_of_day", "doy"):
+        v = np.zeros(T, np.float32)
+        v[:len(samples[k])] = samples[k]
+        pad.append(v)
+    return _rows(block_idx, mlo, [doy] + pad)
+
+
 def _rows(block_idx, mlo, tail):
     ints = np.stack([block_idx["t"], block_idx["hour_idx"],
                      block_idx["day_idx"],
@@ -276,20 +324,43 @@ def _rows(block_idx, mlo, tail):
     return ints, np.stack(fl).astype(np.float32)
 
 
-def _geometry(rows_f, surface_tilt, albedo, site: SiteGeometry | None):
+def _geometry(rows_f, surface_tilt, albedo, site: SiteGeometry | None,
+              kernels: str = "exact"):
     """The ``power_from_csi`` geometry of a block: the shared rows as
-    ``(T, 1)`` columns, or every chain's device geometry ``(T, n)``."""
+    ``(T, 1)`` columns, or every chain's device geometry ``(T, n)``; in
+    the strided mode the device geometry of the ``(S, n)`` sample grid,
+    lerped to ``(T, n)`` as the JAX scan does (``interp_sampled``) with
+    the second's own doy."""
     if site is None:
         g = {k: rows_f[i][:, None] for i, k in enumerate(ROWS_F)}
         g["surface_tilt"] = surface_tilt
         g["albedo"] = albedo
         return g
-    r = {k: rows_f[i][:, None] for i, k in enumerate(ROWS_F_SITE)}
     s = site.site
-    return solar.device_geometry(
-        r["day2000"], r["sec_of_day"], r["doy"], s["latitude"],
-        s["longitude"], s["altitude"], s["surface_tilt"],
-        s["surface_azimuth"], s["albedo"], site.turbidity)
+    ks = get_kernels(kernels)
+    if site.stride <= 1:
+        r = {k: rows_f[i][:, None] for i, k in enumerate(ROWS_F_SITE)}
+        return solar.device_geometry(
+            r["day2000"], r["sec_of_day"], r["doy"], s["latitude"],
+            s["longitude"], s["altitude"], s["surface_tilt"],
+            s["surface_azimuth"], s["albedo"], site.turbidity, ks)
+    T = rows_f.shape[1]
+    solar.check_stride(T, site.stride)
+    S = T // site.stride + 1
+    r = {k: rows_f[i][:, None] for i, k in enumerate(ROWS_F_STRIDE)}
+    samp = solar.device_geometry(
+        r["s_day2000"][:S], r["s_sec_of_day"][:S], r["s_doy"][:S],
+        s["latitude"], s["longitude"], s["altitude"], s["surface_tilt"],
+        s["surface_azimuth"], s["albedo"], site.turbidity, ks)
+    gi, gf = solar.stride_weights(T, site.stride)
+    dev = rows_f.device
+    g = solar.interp_sampled(
+        samp, torch.from_numpy(gi).long().to(dev),
+        torch.from_numpy(gf.astype(np.float32)).to(dev))
+    g["doy"] = r["doy"]
+    g["surface_tilt"] = s["surface_tilt"]
+    g["albedo"] = s["albedo"]
+    return g
 
 
 def fleet_transform_plain(meter, ac, fleet: FleetLeaves | None):
@@ -305,7 +376,8 @@ def fleet_transform_plain(meter, ac, fleet: FleetLeaves | None):
 
 
 def _body_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
-                meter_max_w, surface_tilt, albedo, site, fleet=None):
+                meter_max_w, surface_tilt, albedo, site, fleet=None,
+                kernels="exact"):
     """The pre-fold body every epilogue shares: everything carry-
     independent over the whole block at once, the renewal compare/select
     second by second, then the fleet transforms.  Returns ``(carry,
@@ -326,8 +398,8 @@ def _body_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
         carry, covered[s] = renewal.step_from_cycle(carry, cloud[s], total[s])
     csi = ci.compose(ins, covered)
     ac = pv.power_from_csi(csi, _geometry(rows_f, surface_tilt, albedo,
-                                          site),
-                           SAPM_MODULE, SANDIA_INVERTER)
+                                          site, kernels),
+                           SAPM_MODULE, SANDIA_INVERTER, get_kernels(kernels))
     meter, ac = fleet_transform_plain(meter, ac, fleet)
     return carry, meter, ac, csi, covered
 
@@ -365,13 +437,14 @@ def _stats_fold_plain(acc, rows_i, duration_s, meter, ac, second_hook=None,
 def block_step_plain(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
                      duration_s: int, meter_max_w: float,
                      surface_tilt, albedo, site: SiteGeometry | None = None,
-                     fleet: FleetLeaves | None = None):
-    """Plain torch K3 / K6 (the ``acc`` epilogue, with K7's transforms):
-    the shared body, then the statistics fold.  Returns ``(carry,
-    acc)``."""
+                     fleet: FleetLeaves | None = None,
+                     kernels: str = "exact"):
+    """Plain torch K3 / K6 / K6s (the ``acc`` epilogue, with K7's
+    transforms): the shared body, then the statistics fold.  Returns
+    ``(carry, acc)``."""
     carry, meter, ac, _, _ = _body_plain(
         tables, rows_i, rows_f, k_scan, k_meter, carry, meter_max_w,
-        surface_tilt, albedo, site, fleet)
+        surface_tilt, albedo, site, fleet, kernels)
     return carry, _stats_fold_plain(acc, rows_i, duration_s, meter, ac)
 
 
@@ -380,7 +453,7 @@ def block_step_obs_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
                          surface_tilt, albedo,
                          site: SiteGeometry | None = None,
                          fleet: FleetLeaves | None = None,
-                         obs: Observers = None):
+                         obs: Observers = None, kernels: str = "exact"):
     """Plain K8 / K9: the acc epilogue with the observers' per-chain folds
     (obs/telemetry.py and obs/analytics.py ``fold_second``, zero-
     initialised for the block) beside the statistics, then their
@@ -390,7 +463,7 @@ def block_step_obs_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
     ``telemetry_chain`` / ``fleet_chain``."""
     carry, meter, ac, csi, covered = _body_plain(
         tables, rows_i, rows_f, k_scan, k_meter, carry, meter_max_w,
-        surface_tilt, albedo, site, fleet)
+        surface_tilt, albedo, site, fleet, kernels)
     n, dev = ac.shape[1], ac.device
     cohorts = obs.n_cohorts if obs.n_cohorts >= 2 else 0
     st = {"ta": None if obs.telemetry == "off" else
@@ -467,7 +540,7 @@ def scenario_plain(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
                    albedo, site: SiteGeometry | None = None,
                    fleet: FleetLeaves | None = None, scen: dict = None,
                    params: flt.FleetParams = None, cohort=None,
-                   per_chain: bool = False):
+                   per_chain: bool = False, kernels: str = "exact"):
     """Plain K10: the shared body (K3's step with K7's transforms), then
     for each scenario row its transform, validity and the statistics fold
     into ``acc`` (``(B, n)`` leaves) beside a zero-initialised ``risk``
@@ -478,7 +551,7 @@ def scenario_plain(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
     B = _scenario_check(scen)
     carry, meter, ac, _, _ = _body_plain(
         tables, rows_i, rows_f, k_scan, k_meter, carry, meter_max_w,
-        surface_tilt, albedo, site, fleet)
+        surface_tilt, albedo, site, fleet, kernels)
     n, dev = ac.shape[1], ac.device
     t_rows = rows_i[0].tolist()
     out = {k: v.clone() for k, v in acc.items()}
@@ -509,14 +582,14 @@ def scenario_plain(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
 def series_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
                  meter_max_w: float, surface_tilt, albedo,
                  site: SiteGeometry | None = None,
-                 fleet: FleetLeaves | None = None):
+                 fleet: FleetLeaves | None = None, kernels: str = "exact"):
     """Plain K4 series: the shared body, then each second's cross-chain
     sums of meter and pv (accumulated in float64, rounded once to
     float32).  Returns ``(carry, meter_sum, pv_sum)``, each ``(T,)``;
     padding seconds are summed too (the engine trims them)."""
     carry, meter, ac, _, _ = _body_plain(
         tables, rows_i, rows_f, k_scan, k_meter, carry, meter_max_w,
-        surface_tilt, albedo, site, fleet)
+        surface_tilt, albedo, site, fleet, kernels)
     return (carry, meter.double().sum(1).float(),
             ac.double().sum(1).float())
 
@@ -524,17 +597,19 @@ def series_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
 def trace_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
                 meter_max_w: float, surface_tilt, albedo,
                 site: SiteGeometry | None = None,
-                fleet: FleetLeaves | None = None):
+                fleet: FleetLeaves | None = None, kernels: str = "exact"):
     """Plain K4 trace: the shared body's every chain-second.  Returns
     ``(carry, meter, pv)`` with time-major ``(T, n)`` arrays."""
     return _body_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
-                       meter_max_w, surface_tilt, albedo, site, fleet)[:3]
+                       meter_max_w, surface_tilt, albedo, site, fleet,
+                       kernels)[:3]
 
 
-def cos_tilt(surface_tilt: float) -> float:
-    """cos of the panel tilt as the plain version computes it (float32)."""
-    return float(torch.cos(torch.tensor(surface_tilt * pv.DEG,
-                                        dtype=torch.float32)))
+def cos_tilt(surface_tilt: float, kernels: str = "exact") -> float:
+    """cos of the panel tilt as the plain version computes it (float32,
+    with the kernel set's cos)."""
+    return float(get_kernels(kernels).cos(
+        torch.tensor(surface_tilt * pv.DEG, dtype=torch.float32)))
 
 
 # ---------------------------------------------------------------------------
@@ -543,8 +618,11 @@ def cos_tilt(surface_tilt: float) -> float:
 
 _P = ctypes.c_void_p
 #: the arguments every block-step entry takes, before its outputs
-_COMMON = ([ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_float, ctypes.c_float] + [_P] * 21)
+_COMMON = ([ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+            ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float]
+           + [_P] * 21)
+#: the block-step library of each kernel set
+_LIBRARY = {"exact": "block_step.cu", "table": "block_step_table.cu"}
 
 
 class _Obs(ctypes.Structure):
@@ -582,16 +660,26 @@ def _check(t, dtype, dev, what):
                          f"{dtype} tensor on {dev}")
 
 
+def _geo_mode(site: SiteGeometry | None) -> str:
+    return "shared" if site is None else site.mode
+
+
 def _common_args(tables, rows_i, rows_f, k_scan, k_meter, carry,
                  duration_s, meter_max_w, surface_tilt, albedo, site,
-                 fleet=None):
+                 fleet=None, kernels="exact"):
     """Validate the shared inputs and return the C arguments they fill."""
     n = k_scan.shape[0]
     T = rows_i.shape[1]
     dev = k_scan.device
     if T % 60:
         raise ValueError("block length must be a multiple of 60 seconds")
-    names = ROWS_F if site is None else ROWS_F_SITE
+    if kernels not in _LIBRARY:
+        raise ValueError(f"block_step: unknown kernel set {kernels!r}")
+    geo = _geo_mode(site)
+    if geo == "strided":
+        solar.check_stride(T, site.stride)
+    names = {"shared": ROWS_F, "site": ROWS_F_SITE,
+             "strided": ROWS_F_STRIDE}[geo]
     if rows_i.shape != (len(ROWS_I), T) or rows_f.shape != (len(names), T):
         raise ValueError(f"block_step: rows must be ({len(ROWS_I)}, T) int32 "
                          f"and ({len(names)}, T) float32")
@@ -607,8 +695,8 @@ def _common_args(tables, rows_i, rows_f, k_scan, k_meter, carry,
     _check(k_meter, torch.int64, dev, "k_meter")
     p = build.ptr
     if site is None:
-        geo = [None] * 7
-        ct, alb = cos_tilt(surface_tilt), albedo
+        geo_p = [None] * 7
+        ct, alb = cos_tilt(surface_tilt, kernels), albedo
     else:
         if surface_tilt is not None or albedo is not None:
             raise ValueError("block_step: the site mode takes tilt and "
@@ -620,7 +708,7 @@ def _common_args(tables, rows_i, rows_f, k_scan, k_meter, carry,
         _check(site.turbidity, torch.float32, dev, "turbidity")
         if site.turbidity.shape != (12,):
             raise ValueError("block_step: turbidity must be (12,)")
-        geo = [p(site.site[k]) for k in SITE_FIELDS] + [p(site.turbidity)]
+        geo_p = [p(site.site[k]) for k in SITE_FIELDS] + [p(site.turbidity)]
         ct, alb = 0.0, 0.0
     leaves = [None] * 4 if fleet is None else fleet.tensors()
     for t in leaves:
@@ -628,18 +716,17 @@ def _common_args(tables, rows_i, rows_f, k_scan, k_meter, carry,
             _check(t, torch.float32, dev, "fleet leaf")
             if t.shape != (n,):
                 raise ValueError(f"block_step: fleet leaves must be ({n},)")
-    args = [int(site is not None), n, T, int(duration_s), meter_max_w, ct,
-            alb, p(rows_i), p(rows_f),
+    args = [GEOMS.index(geo), 1 if site is None else site.stride, n, T,
+            int(duration_s), meter_max_w, ct, alb, p(rows_i), p(rows_f),
             *(p(tables[k]) for k in ("cc", "cloudy", "clear_day", "ws", "ml",
                                      "mc")),
-            p(k_scan), p(k_meter), *geo,
+            p(k_scan), p(k_meter), *geo_p,
             *(None if t is None else p(t) for t in leaves)]
     return n, T, dev, args
 
 
-def _count(site, fleet, shared: build.LaunchCounter,
-           per_site: build.LaunchCounter):
-    (shared if site is None else per_site).launches += 1
+def _count(epi: str, site, fleet, kernels: str):
+    STEP[epi, _geo_mode(site), kernels].launches += 1
     if fleet is not None and any(t is not None for t in fleet.tensors()):
         K7_FLEET.launches += 1
 
@@ -814,22 +901,24 @@ _obs_size_checked = False
 
 def _block_step_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
                      duration_s, meter_max_w, surface_tilt, albedo, site,
-                     fleet=None, obs: Observers | None = None):
+                     fleet=None, obs: Observers | None = None,
+                     kernels="exact"):
     global _obs_size_checked
     n, T, dev, args = _common_args(tables, rows_i, rows_f, k_scan, k_meter,
                                    carry, duration_s, meter_max_w,
-                                   surface_tilt, albedo, site, fleet)
+                                   surface_tilt, albedo, site, fleet, kernels)
+    lib = _LIBRARY[kernels]
     for k in ACC_F:
         _check(acc[k], torch.float32, dev, f"acc {k}")
     _check(acc["n_seconds"], torch.int32, dev, "acc n_seconds")
-    fn = build.entry("block_step.cu", "block_step_acc",
+    fn = build.entry(lib, "block_step_acc",
                      _COMMON + [_P] * 11 + [ctypes.c_int] * 3)
     tel_on = obs is not None and obs.telemetry != "off"
     flt_on = obs is not None and obs.analytics != "off"
     o, buf, smem = (None, {}, 0)
     if tel_on or flt_on:
         if not _obs_size_checked:
-            size = build.entry("block_step.cu", "obs_struct_size", [])
+            size = build.entry(lib, "obs_struct_size", [])
             if size(None) != ctypes.sizeof(_Obs):
                 raise RuntimeError("block_step: the Obs layout differs "
                                    "between the kernel and its wrapper")
@@ -841,7 +930,7 @@ def _block_step_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
             None if o is None else ctypes.byref(o), int(tel_on),
             int(flt_on), smem, build.stream_ptr(dev))
     build.check(rc, "block_step_acc")
-    _count(site, fleet, K3, K6)
+    _count("acc", site, fleet, kernels)
     if tel_on or flt_on:
         (K89 if tel_on and flt_on else K8 if tel_on else K9).launches += 1
     if o is None:
@@ -855,11 +944,12 @@ _scen_size_checked = False
 def _scenario_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
                    duration_s, meter_max_w, surface_tilt, albedo, site=None,
                    fleet=None, scen=None, params=None, cohort=None,
-                   per_chain=False):
+                   per_chain=False, kernels="exact"):
     global _scen_size_checked
     n, T, dev, args = _common_args(tables, rows_i, rows_f, k_scan, k_meter,
                                    carry, duration_s, meter_max_w,
-                                   surface_tilt, albedo, site, fleet)
+                                   surface_tilt, albedo, site, fleet, kernels)
+    lib = _LIBRARY[kernels]
     B = _scenario_check(scen)
     for k in SCEN_F + SCEN_I:
         _check(scen[k], scen[k].dtype, dev, f"scen {k}")
@@ -879,7 +969,7 @@ def _scenario_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
         raise ValueError(f"block_step_scenario: {n} chains x {T} s passes "
                          "the int32 counts of one block")
     if not _scen_size_checked:
-        size = build.entry("block_step.cu", "scen_struct_size", [])
+        size = build.entry(lib, "scen_struct_size", [])
         if size(None) != ctypes.sizeof(_Scen):
             raise RuntimeError("block_step_scenario: the Scen layout "
                                "differs between the kernel and its wrapper")
@@ -914,15 +1004,13 @@ def _scenario_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
     for k in ("res_hist", "exceed", "chain_i", "chain_f", "part"):
         setattr(q, k, p(buf[k]))
     smem = stage + hist_bytes * hist_shared
-    fn = build.entry("block_step.cu", "block_step_scenario",
+    fn = build.entry(lib, "block_step_scenario",
                      _COMMON + [_P] * 11 + [ctypes.c_int])
     rc = fn(*args, *(p(carry[k]) for k in CARRY),
             *(p(acc[k]) for k in ACC_F), p(acc["n_seconds"]),
             ctypes.byref(q), smem, build.stream_ptr(dev))
     build.check(rc, "block_step_scenario")
-    K10.launches += 1
-    if fleet is not None and any(t is not None for t in fleet.tensors()):
-        K7_FLEET.launches += 1
+    _count("scen", site, fleet, kernels)
     L = len(SCN_KINDS)
     f = collapse_partials(buf["part"], SCN_KINDS * B).view(B, L)
     delta = {"count": f[:, 0].to(torch.int32), "res_hist": buf["res_hist"],
@@ -940,21 +1028,22 @@ def _scenario_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
 
 def series_partials_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry,
                          meter_max_w, surface_tilt, albedo, site=None,
-                         fleet=None):
+                         fleet=None, kernels="exact"):
     """The series kernel's first pass on the card: ``(carry, partials)``
     with ``partials[0 | 1]`` the ``(n_ctas, T)`` per-CTA sums of meter |
     pv."""
     n, T, dev, args = _common_args(tables, rows_i, rows_f, k_scan, k_meter,
                                    carry, 0, meter_max_w, surface_tilt,
-                                   albedo, site, fleet)
+                                   albedo, site, fleet, kernels)
     n_ctas = (n + THREADS - 1) // THREADS
     part = torch.empty((2, n_ctas, T), dtype=torch.float32, device=dev)
     p = build.ptr
-    fn = build.entry("block_step.cu", "block_step_series", _COMMON + [_P] * 5)
+    fn = build.entry(_LIBRARY[kernels], "block_step_series",
+                     _COMMON + [_P] * 5)
     rc = fn(*args, *(p(carry[k]) for k in CARRY), p(part[0]), p(part[1]),
             build.stream_ptr(dev))
     build.check(rc, "block_step_series")
-    _count(site, fleet, K4_SERIES, K4_SERIES_SITE)
+    _count("series", site, fleet, kernels)
     return carry, part
 
 
@@ -988,26 +1077,30 @@ def series_sum(part):
 
 
 def _series_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry,
-                 meter_max_w, surface_tilt, albedo, site, fleet=None):
+                 meter_max_w, surface_tilt, albedo, site, fleet=None,
+                 kernels="exact"):
     carry, part = series_partials_cuda(tables, rows_i, rows_f, k_scan,
                                        k_meter, carry, meter_max_w,
-                                       surface_tilt, albedo, site, fleet)
+                                       surface_tilt, albedo, site, fleet,
+                                       kernels)
     out = series_sum(part)
     return carry, out[0], out[1]
 
 
 def _trace_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry,
-                meter_max_w, surface_tilt, albedo, site, fleet=None):
+                meter_max_w, surface_tilt, albedo, site, fleet=None,
+                kernels="exact"):
     n, T, dev, args = _common_args(tables, rows_i, rows_f, k_scan, k_meter,
                                    carry, 0, meter_max_w, surface_tilt,
-                                   albedo, site, fleet)
+                                   albedo, site, fleet, kernels)
     out = torch.empty((2, T, n), dtype=torch.float32, device=dev)
     p = build.ptr
-    fn = build.entry("block_step.cu", "block_step_trace", _COMMON + [_P] * 5)
+    fn = build.entry(_LIBRARY[kernels], "block_step_trace",
+                     _COMMON + [_P] * 5)
     rc = fn(*args, *(p(carry[k]) for k in CARRY), p(out[0]), p(out[1]),
             build.stream_ptr(dev))
     build.check(rc, "block_step_trace")
-    _count(site, fleet, K4_TRACE, K4_TRACE_SITE)
+    _count("trace", site, fleet, kernels)
     return carry, out[0], out[1]
 
 
@@ -1022,25 +1115,26 @@ def _dispatch(k_scan, cuda_fn, plain_fn, *args, **kw):
 def block_step_acc(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
                    duration_s: int, meter_max_w: float, surface_tilt,
                    albedo, site: SiteGeometry | None = None,
-                   fleet: FleetLeaves | None = None):
+                   fleet: FleetLeaves | None = None, kernels: str = "exact"):
     """Fold one block into the accumulator; returns ``(carry, acc)``.
 
     ``tables``: value-major K2 tables; ``rows_i``/``rows_f``: the block's
     rows (``block_rows``, or ``site_rows`` with ``site=``, when
     ``surface_tilt`` and ``albedo`` are None); ``carry``/``acc``: dicts of
     ``(n,)`` tensors (``CARRY`` float32; ``ACC_F`` float32 and int32
-    ``n_seconds``); ``fleet``: K7's per-chain leaves."""
+    ``n_seconds``); ``fleet``: K7's per-chain leaves; ``kernels``: the
+    transcendental set, 'exact' or 'table' (K11)."""
     return _dispatch(k_scan, _block_step_cuda, block_step_plain, tables,
                      rows_i, rows_f, k_scan, k_meter, carry, acc,
                      duration_s, meter_max_w, surface_tilt, albedo, site,
-                     fleet)
+                     fleet, kernels=kernels)
 
 
 def block_step_obs(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
                    duration_s: int, meter_max_w: float, surface_tilt,
                    albedo, site: SiteGeometry | None = None,
                    fleet: FleetLeaves | None = None,
-                   obs: Observers = None):
+                   obs: Observers = None, kernels: str = "exact"):
     """``block_step_acc`` with the reduce-mode observers (K8 telemetry, K9
     analytics) folded in the same launch: ``(carry, acc, out)``, ``out``
     as ``block_step_obs_plain`` returns it (on the card the per-block
@@ -1050,7 +1144,7 @@ def block_step_obs(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
     return _dispatch(k_scan, _block_step_cuda, block_step_obs_plain, tables,
                      rows_i, rows_f, k_scan, k_meter, carry, acc,
                      duration_s, meter_max_w, surface_tilt, albedo, site,
-                     fleet=fleet, obs=obs)
+                     fleet=fleet, obs=obs, kernels=kernels)
 
 
 def block_step_scenario(tables, rows_i, rows_f, k_scan, k_meter, carry,
@@ -1059,7 +1153,7 @@ def block_step_scenario(tables, rows_i, rows_f, k_scan, k_meter, carry,
                         site: SiteGeometry | None = None,
                         fleet: FleetLeaves | None = None, scen: dict = None,
                         params: flt.FleetParams = None, cohort=None,
-                        per_chain: bool = False):
+                        per_chain: bool = False, kernels: str = "exact"):
     """One scenario-batched block (K10): the step once per chain-second,
     then each row of ``scen`` (``(B,)`` knob tensors,
     ``serve.schema.encode_batch``) folds its own transform of it into
@@ -1075,50 +1169,57 @@ def block_step_scenario(tables, rows_i, rows_f, k_scan, k_meter, carry,
                      rows_f, k_scan, k_meter, carry, acc, duration_s,
                      meter_max_w, surface_tilt, albedo, site, fleet,
                      scen=scen, params=params, cohort=cohort,
-                     per_chain=per_chain)
+                     per_chain=per_chain, kernels=kernels)
 
 
 def block_step_series(tables, rows_i, rows_f, k_scan, k_meter, carry,
                       meter_max_w: float, surface_tilt, albedo,
                       site: SiteGeometry | None = None,
-                      fleet: FleetLeaves | None = None):
+                      fleet: FleetLeaves | None = None,
+                      kernels: str = "exact"):
     """One ensemble block: ``(carry, meter_sum, pv_sum)``, the sums
     ``(T,)`` over chains per second.  On the card a fixed-order reduction
     (per CTA, then over CTAs in index order): a repeated run gives the
     same bits."""
     return _dispatch(k_scan, _series_cuda, series_plain, tables, rows_i,
                      rows_f, k_scan, k_meter, carry, meter_max_w,
-                     surface_tilt, albedo, site, fleet)
+                     surface_tilt, albedo, site, fleet, kernels=kernels)
 
 
 def block_step_trace(tables, rows_i, rows_f, k_scan, k_meter, carry,
                      meter_max_w: float, surface_tilt, albedo,
                      site: SiteGeometry | None = None,
-                     fleet: FleetLeaves | None = None):
+                     fleet: FleetLeaves | None = None,
+                     kernels: str = "exact"):
     """One trace block: ``(carry, meter, pv)``, time-major ``(T, n)``."""
     return _dispatch(k_scan, _trace_cuda, trace_plain, tables, rows_i,
                      rows_f, k_scan, k_meter, carry, meter_max_w,
-                     surface_tilt, albedo, site, fleet)
+                     surface_tilt, albedo, site, fleet, kernels=kernels)
 
 
-def geometry_fields_plain(rows_f, site: SiteGeometry):
+def geometry_fields_plain(rows_f, site: SiteGeometry,
+                          kernels: str = "exact"):
     """Plain ``device_geometry_fields``: ``solar.device_geometry`` stacked
     into ``(9, T, n)``."""
-    g = _geometry(rows_f, None, None, site)
+    g = _geometry(rows_f, None, None, site, kernels)
     shape = (rows_f.shape[1], site.site["latitude"].shape[0])
     return torch.stack([torch.broadcast_to(g[k], shape)
                         for k in GEOM_FIELDS])
 
 
-def device_geometry_fields(rows_f, site: SiteGeometry):
+def device_geometry_fields(rows_f, site: SiteGeometry,
+                           kernels: str = "exact"):
     """The site mode's per-chain geometry on its own: ``(9, T, n)``
     float32, the ``GEOM_FIELDS`` of every chain and second of the block
     whose site rows are ``rows_f`` (``(6, T)``).  A test entry of the
     kernel's geometry device function; on the CPU, the plain
     ``solar.device_geometry``."""
     dev = rows_f.device
+    if site.stride > 1:
+        raise ValueError("device_geometry_fields: the site mode's rows "
+                         "(stride 1)")
     if dev.type == "cpu":
-        return geometry_fields_plain(rows_f, site)
+        return geometry_fields_plain(rows_f, site, kernels)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     T = rows_f.shape[1]
@@ -1132,7 +1233,7 @@ def device_geometry_fields(rows_f, site: SiteGeometry):
     out = torch.empty((len(GEOM_FIELDS), T, n), dtype=torch.float32,
                       device=dev)
     p = build.ptr
-    fn = build.entry("block_step.cu", "device_geometry_fields",
+    fn = build.entry(_LIBRARY[kernels], "device_geometry_fields",
                      [ctypes.c_int64, ctypes.c_int] + [_P] * 9)
     rc = fn(n, T, p(rows_f), *(p(site.site[k]) for k in SITE_FIELDS),
             p(site.turbidity), p(out), build.stream_ptr(dev))

@@ -29,8 +29,9 @@ import numpy as np
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
-SOURCES = ("threefry.cu", "windows.cu", "block_step.cu")
-HEADERS = ("threefry.cuh",)
+SOURCES = ("threefry.cu", "windows.cu", "block_step.cu",
+           "block_step_table.cu", "tables.cu")
+HEADERS = ("threefry.cuh", "block_step.cuh", "tables.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")
@@ -59,12 +60,13 @@ def f32_literal(x) -> str:
 def consts_header() -> str:
     """``consts.cuh``: every model constant the kernels read."""
     from tmhpvsim_torch import rng
-    from tmhpvsim_torch.kernels import block_step, windows
+    from tmhpvsim_torch.kernels import block_step, tables, windows
 
     lines = ["// generated from the Python models by kernels/build.py",
              "#pragma once"]
     for table in (rng.kernel_constants(), windows.kernel_constants(),
-                  block_step.kernel_constants()):
+                  block_step.kernel_constants(),
+                  tables.kernel_constants()):
         for name, value in table.items():
             if isinstance(value, (list, tuple)):
                 vals = ", ".join(f32_literal(v) for v in value)

@@ -14,7 +14,16 @@ Two forms of the same models:
   versions of the site-geometry mode of the block-step kernel
   (csrc/block_step.cu) and follow the JAX package's float32 operation
   order (python constants rounded to float32, every division rounded
-  once).  The strided forms (``interp_sampled``) are not ported.
+  once).  ``kernels=`` selects the transcendental set
+  (models/tables.py, ``SimConfig.kernel_impl``); the default is the exact
+  torch ops.
+
+Strided geometry (``SimConfig.geom_stride``): ``strided_block_geometry``
+evaluates the host geometry on a stride grid and lerps it back to 1 Hz in
+float64 (the shared-site lever); ``interp_sampled`` is that lerp, on
+numpy for the host and on float32 torch for the site grid, whose sample
+grid the device evaluates (``device_geometry`` on the sample rows; kernel
+K6s, csrc/block_step.cuh STRIDED mode).
 
 PSA sun position (Blanco-Muriel et al. 2001, 2020 coefficients), NREL SPA
 refraction, Kasten-Young airmass, Spencer extraterrestrial irradiance,
@@ -27,7 +36,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tmhpvsim_torch.rng import cdiv, rdiv
+from tmhpvsim_torch.models.tables import EXACT
+from tmhpvsim_torch.rng import cdiv, fma, rdiv
 
 TWO_PI = 2.0 * np.pi
 DEG = np.pi / 180.0
@@ -318,13 +328,15 @@ def _fmod_floor(x, m: float):
     return torch.where(r < 0, r + m, r)
 
 
-def sun_position_split(day2000, sec_of_day, latitude_deg, longitude_deg):
+def sun_position_split(day2000, sec_of_day, latitude_deg, longitude_deg,
+                       kernels=None):
     """PSA+ sun position from the float32-safe split time: ``day2000``
     whole UT days since 2000-01-01, ``sec_of_day`` seconds within that UT
     day.  Each ephemeris term multiplies its coefficient by the day and
     the fraction separately, so the ~1.7e9 epoch never forms in float32.
     Arguments are broadcastable float32 tensors.  Same return dict as
     :func:`sun_position`."""
+    k = kernels or EXACT
     lat = latitude_deg * DEG
     lon = longitude_deg * DEG
     frac = cdiv(sec_of_day, 86400.0) - 0.5  # days relative to 12:00 UT
@@ -338,55 +350,58 @@ def sun_position_split(day2000, sec_of_day, latitude_deg, longitude_deg):
     mean_anom = lin(6.239468336e0, 1.720200135e-2)
     ecl_lon = (
         mean_lon
-        + 3.338320972e-2 * torch.sin(mean_anom)
-        + 3.497596876e-4 * torch.sin(2.0 * mean_anom)
+        + 3.338320972e-2 * k.sin(mean_anom)
+        + 3.497596876e-4 * k.sin(2.0 * mean_anom)
         - 1.544353226e-4
-        - 8.689729360e-6 * torch.sin(omega)
+        - 8.689729360e-6 * k.sin(omega)
     )
     obliquity = lin(4.090904909e-1, -6.213605399e-9) \
-        + 4.418094944e-5 * torch.cos(omega)
-    sin_l = torch.sin(ecl_lon)
-    ra = _fmod_floor(torch.atan2(torch.cos(obliquity) * sin_l,
-                                 torch.cos(ecl_lon)), TWO_PI)
-    dec = torch.asin(torch.sin(obliquity) * sin_l)
+        + 4.418094944e-5 * k.cos(omega)
+    sin_l = k.sin(ecl_lon)
+    ra = _fmod_floor(k.arctan2(k.cos(obliquity) * sin_l, k.cos(ecl_lon)),
+                     TWO_PI)
+    dec = k.arcsin(k.sin(obliquity) * sin_l)
     gmst_h = _fmod_floor(6.697096103e0 + 6.570984737e-2 * day2000, 24.0) \
         + 6.570984737e-2 * frac + hour_ut
     lmst = gmst_h * 15.0 * DEG + lon
     ha = lmst - ra
-    cos_lat, sin_lat = torch.cos(lat), torch.sin(lat)
-    cos_dec, sin_dec = torch.cos(dec), torch.sin(dec)
-    cos_ha = torch.cos(ha)
+    cos_lat, sin_lat = k.cos(lat), k.sin(lat)
+    cos_dec, sin_dec = k.cos(dec), k.sin(dec)
+    cos_ha = k.cos(ha)
     cos_zen = torch.clamp(cos_lat * cos_ha * cos_dec + sin_dec * sin_lat,
                           -1.0, 1.0)
-    zenith = torch.acos(cos_zen)
-    azimuth = _fmod_floor(torch.atan2(
-        -torch.sin(ha), torch.tan(dec) * cos_lat - sin_lat * cos_ha),
-        TWO_PI)
-    zenith = zenith + _PARALLAX * torch.sin(zenith)
+    zenith = k.arccos(cos_zen)
+    azimuth = _fmod_floor(k.arctan2(
+        -k.sin(ha), k.tan(dec) * cos_lat - sin_lat * cos_ha), TWO_PI)
+    zenith = zenith + _PARALLAX * k.sin(zenith)
     return {"zenith": zenith, "azimuth": azimuth,
-            "cos_zenith": torch.cos(zenith)}
+            "cos_zenith": k.cos(zenith)}
 
 
 def alt2pres_f32(altitude_m):
-    """:func:`alt2pres` on float32 tensors."""
+    """:func:`alt2pres` on float32 tensors (a libm ``pow`` in either
+    kernel set, as in the JAX package)."""
     return STD_PRESSURE * (1.0 - 2.25577e-5 * altitude_m) ** 5.25588
 
 
-def apparent_elevation_f32(zenith, pressure, temperature_c=12.0):
+def apparent_elevation_f32(zenith, pressure, temperature_c=12.0,
+                           kernels=None):
     """:func:`apparent_elevation` on float32 tensors."""
+    k = kernels or EXACT
     e_deg = cdiv(np.pi / 2.0 - zenith, DEG)
     p_mbar = cdiv(pressure, 100.0)
     de = (cdiv(p_mbar, 1010.0) * (283.0 / (273.0 + temperature_c)) * 1.02
-          / (60.0 * torch.tan((e_deg + rdiv(10.3, e_deg + 5.11)) * DEG)))
+          / (60.0 * k.tan((e_deg + rdiv(10.3, e_deg + 5.11)) * DEG)))
     de = torch.where(e_deg >= -(0.26667 + 0.5667), de, torch.zeros_like(de))
     return (e_deg + de) * DEG
 
 
-def airmass_kasten_young_f32(apparent_zenith):
+def airmass_kasten_young_f32(apparent_zenith, kernels=None):
     """:func:`relative_airmass_kasten_young` on float32 tensors."""
+    k = kernels or EXACT
     z_deg = torch.clamp(cdiv(apparent_zenith, DEG), 0.0, 90.0)
-    return rdiv(1.0, torch.cos(z_deg * DEG)
-                + 0.50572 * (96.07995 - z_deg) ** -1.6364)
+    return rdiv(1.0, k.cos(z_deg * DEG)
+                + 0.50572 * k.powc(96.07995 - z_deg, -1.6364))
 
 
 def linke_turbidity_f32(doy, monthly):
@@ -401,38 +416,41 @@ def linke_turbidity_f32(doy, monthly):
 
 
 def ineichen_ghi_f32(apparent_zenith, airmass_absolute, tl, altitude_m,
-                     dni_extra):
+                     dni_extra, kernels=None):
     """:func:`ineichen_ghi` on float32 tensors."""
-    fh1 = torch.exp(cdiv(-altitude_m, 8000.0))
-    fh2 = torch.exp(cdiv(-altitude_m, 1250.0))
+    k = kernels or EXACT
+    fh1 = k.exp(cdiv(-altitude_m, 8000.0))
+    fh2 = k.exp(cdiv(-altitude_m, 1250.0))
     cg1 = 5.09e-5 * altitude_m + 0.868
     cg2 = 3.92e-5 * altitude_m + 0.0387
-    cos_zen = torch.clamp_min(torch.cos(apparent_zenith), 0.0)
+    cos_zen = torch.clamp_min(k.cos(apparent_zenith), 0.0)
     ghi = (cg1 * dni_extra * cos_zen
-           * torch.exp(-cg2 * airmass_absolute * (fh1 + fh2 * (tl - 1.0))))
+           * k.exp(-cg2 * airmass_absolute * (fh1 + fh2 * (tl - 1.0))))
     return torch.clamp_min(ghi, 0.0)
 
 
-def csi_zenith_cap_f32(zenith):
+def csi_zenith_cap_f32(zenith, kernels=None):
     """:func:`csi_zenith_cap` on float32 tensors."""
-    cos_z = torch.cos(zenith)
-    cap = (27.21 * torch.exp(-114.0 * cos_z)
-           + 1.665 * torch.exp(-4.494 * cos_z) + 1.08)
+    k = kernels or EXACT
+    cos_z = k.cos(zenith)
+    cap = (27.21 * k.exp(-114.0 * cos_z)
+           + 1.665 * k.exp(-4.494 * cos_z) + 1.08)
     return torch.clamp_max(cap, 1e6)
 
 
 def angle_of_incidence_cos_f32(surface_tilt_deg, surface_azimuth_deg,
-                               zenith, azimuth):
+                               zenith, azimuth, kernels=None):
     """:func:`angle_of_incidence_cos` on float32 tensors."""
+    k = kernels or EXACT
     tilt = surface_tilt_deg * DEG
     saz = surface_azimuth_deg * DEG
-    return (torch.cos(tilt) * torch.cos(zenith)
-            + torch.sin(tilt) * torch.sin(zenith) * torch.cos(azimuth - saz))
+    return (k.cos(tilt) * k.cos(zenith)
+            + k.sin(tilt) * k.sin(zenith) * k.cos(azimuth - saz))
 
 
 def device_geometry(day2000, sec_of_day, doy, latitude_deg, longitude_deg,
                     altitude_m, surface_tilt_deg, surface_azimuth_deg,
-                    albedo, turbidity_monthly):
+                    albedo, turbidity_monthly, kernels=None):
     """Every geometry feature from split time and per-site scalars, in
     float32 (the site-grid path).  Time rows and site tensors broadcast
     against each other (``(T, 1)`` against ``(n,)`` gives ``(T, n)``
@@ -441,23 +459,25 @@ def device_geometry(day2000, sec_of_day, doy, latitude_deg, longitude_deg,
     from tmhpvsim_torch.models.pv import extra_radiation_spencer
 
     pos = sun_position_split(day2000, sec_of_day, latitude_deg,
-                             longitude_deg)
+                             longitude_deg, kernels)
     pressure = alt2pres_f32(altitude_m)
-    app_zen = np.pi / 2.0 - apparent_elevation_f32(pos["zenith"], pressure)
-    am_abs = cdiv(airmass_kasten_young_f32(app_zen) * pressure,
+    app_zen = np.pi / 2.0 - apparent_elevation_f32(pos["zenith"], pressure,
+                                                   kernels=kernels)
+    am_abs = cdiv(airmass_kasten_young_f32(app_zen, kernels) * pressure,
                   STD_PRESSURE)
-    dni_extra = extra_radiation_spencer(doy, SOLAR_CONSTANT)
+    dni_extra = extra_radiation_spencer(doy, SOLAR_CONSTANT, kernels)
     tl = linke_turbidity_f32(doy, turbidity_monthly)
-    ghi_clear = ineichen_ghi_f32(app_zen, am_abs, tl, altitude_m, dni_extra)
+    ghi_clear = ineichen_ghi_f32(app_zen, am_abs, tl, altitude_m, dni_extra,
+                                 kernels)
     cos_aoi = angle_of_incidence_cos_f32(surface_tilt_deg,
                                          surface_azimuth_deg, app_zen,
-                                         pos["azimuth"])
+                                         pos["azimuth"], kernels)
     return {
         "zenith": pos["zenith"],
         "cos_zenith": pos["cos_zenith"],
         "apparent_zenith": app_zen,
         "azimuth": pos["azimuth"],
-        "csi_cap": csi_zenith_cap_f32(pos["zenith"]),
+        "csi_cap": csi_zenith_cap_f32(pos["zenith"], kernels),
         "ghi_clear": ghi_clear,
         "dni_extra": dni_extra,
         "airmass_abs": am_abs,
@@ -466,3 +486,113 @@ def device_geometry(day2000, sec_of_day, doy, latitude_deg, longitude_deg,
         "surface_tilt": surface_tilt_deg,
         "albedo": albedo,
     }
+
+
+# ---------------------------------------------------------------------------
+# strided geometry (SimConfig.geom_stride): evaluate every s seconds, lerp
+# ---------------------------------------------------------------------------
+
+#: geometry fields linearly interpolated between stride samples: the
+#: trig-free outputs of the chain, smooth at the apparent solar rate.
+#: ``azimuth`` wraps at 2 pi and nothing downstream of ``cos_aoi`` reads
+#: it, so it is held at the left sample; ``doy`` keeps its exact
+#: per-second value.
+STRIDE_LERP_FIELDS = (
+    "zenith", "cos_zenith", "apparent_zenith", "csi_cap",
+    "ghi_clear", "dni_extra", "airmass_abs", "cos_aoi",
+)
+
+#: published float64-oracle error bounds of ``geom_stride=60`` in each
+#: field's units: max |strided - per-second float64 oracle| over every
+#: daytime second (``cos_zenith >= 0.01``) across solstice / equinox days
+#: at equatorial, mid-latitude and polar sites (the JAX package's
+#: tests/test_geom_stride.py measures them)
+STRIDE_MAX_ABS_ERR = {
+    "zenith": 5e-4,
+    "cos_zenith": 1e-5,
+    "apparent_zenith": 5e-4,
+    "csi_cap": 0.3,
+    "ghi_clear": 0.5,
+    "dni_extra": 0.05,
+    "airmass_abs": 0.2,
+    "cos_aoi": 1e-4,
+}
+
+#: the strides SimConfig.geom_stride resolves to (30 and 60 divide 60, so
+#: a stride window never straddles a minute or a block boundary)
+STRIDES = (1, 30, 60)
+
+
+def interp_sampled(sampled, i, f):
+    """Lerp the :data:`STRIDE_LERP_FIELDS` of a stride-sampled geometry
+    dict at sample index ``i`` plus fraction ``f`` in [0, 1).
+
+    ``sampled`` holds arrays with a leading sample axis; ``i`` / ``f``
+    index and weight it per second.  numpy arrays (the host's float64
+    geometry) lerp as ``lo * (1 - f) + hi * f``; float32 torch tensors
+    (the site grid's samples, ``(S, n)`` against ``(T,)`` weights) with
+    the JAX scan's contraction, ``fma(lo, 1 - f, hi * f)``.  Returns only
+    the interpolated fields."""
+    out = {}
+    for k in STRIDE_LERP_FIELDS:
+        v = sampled[k]
+        lo, hi = v[i], v[i + 1]
+        if isinstance(v, torch.Tensor):
+            fa = f.reshape(f.shape + (1,) * (lo.dim() - f.dim()))
+            out[k] = fma(lo, 1.0 - fa, hi * fa)
+        else:
+            fa = np.asarray(f)
+            fa = fa.reshape(fa.shape + (1,) * (lo.ndim - fa.ndim))
+            out[k] = lo * (1.0 - fa) + hi * fa
+    return out
+
+
+def stride_samples(epoch, doy, stride: int):
+    """The sample grid of a block for ``stride``: ``T // stride + 1``
+    epochs and days of year, every ``stride`` seconds from the block's
+    first, the last being the exact next second after the block with its
+    doy clamped to the block's last second (numpy; ``epoch`` int64 or
+    float64)."""
+    ep_s = np.concatenate([epoch[::stride], epoch[-1:] + 1])
+    doy_s = np.concatenate([doy[::stride], doy[-1:]])
+    return ep_s, doy_s
+
+
+def stride_weights(T: int, stride: int):
+    """Per second of a ``T``-second block: the sample index (int32) and
+    the lerp fraction ``(s % stride) / stride`` (float64)."""
+    pos = np.arange(T)
+    return (pos // stride).astype(np.int32), (pos % stride) / float(stride)
+
+
+def check_stride(T: int, stride: int) -> None:
+    """Raise as the JAX package does for a stride outside ``STRIDES`` or
+    one that does not divide the block."""
+    if stride not in STRIDES:
+        raise ValueError(f"geom_stride must be one of {STRIDES}, "
+                         f"got {stride}")
+    if T % stride:
+        raise ValueError(f"block length {T} not a multiple of "
+                         f"geom_stride {stride}")
+
+
+def strided_block_geometry(epoch_s, doy, site, stride):
+    """:func:`block_geometry` evaluated on a stride grid and lerped back
+    to 1 Hz in float64 (the shared-site ``geom_stride`` lever: the rows
+    shipped to the card keep their shapes, the kernel is unchanged).  The
+    sample grid is :func:`stride_samples`; ``stride=1`` is
+    :func:`block_geometry` itself."""
+    epoch_s = np.asarray(epoch_s)
+    doy = np.asarray(doy)
+    T = epoch_s.shape[0]
+    if stride <= 1:
+        return block_geometry(epoch_s, doy, site)
+    check_stride(T, stride)
+    ep_s, doy_s = stride_samples(epoch_s, doy, stride)
+    geom_s = block_geometry(ep_s, doy_s, site)
+    i, f = stride_weights(T, stride)
+    out = dict(geom_s)
+    out.update(interp_sampled(geom_s, i, f))
+    out["doy"] = doy                       # exact per-second day index
+    out["azimuth"] = geom_s["azimuth"][i]  # held: wraps at 2 pi, unused
+    return out
