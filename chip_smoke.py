@@ -52,6 +52,16 @@ Phases (any failure exits non-zero and prints no result line):
    (path F-L's launch, checked as K8+K9 above); and the port with both
    levers at the JAX suite's ``small_config`` shape (shared site, a
    4-site grid, a 12-site fleet) bit-identical to the host's plain run;
+   then the K4 merges on the K4 trace of 2 daylight blocks x 65536
+   chains: the wide fold (acc only; acc with telemetry; acc with
+   telemetry and analytics on path F's fleet with its 3 cohorts; analytics
+   with 64 cohorts and with 30000 bins, the global-memory branches)
+   against its plain version (statistics, per-chain leaves, counts,
+   histograms and extrema bit for bit, observer sums within 1e-6 of the
+   float64 plain sums, a rerun bit-identical) and against K3's acc on the
+   same blocks, the wide series against its plain version (rtol 1e-6, a
+   rerun bit-identical) and the scan's series kernel; and the wide fused
+   topology (the acc launch) on 2 blocks against path R's;
 5. the paths, every launch counter set to 0 just before each and read
    just after; each must launch every kernel it needs:
    R. reduce, shared site: ``run_reduced`` at 65536 chains x 86400 s,
@@ -89,17 +99,34 @@ Phases (any failure exits non-zero and prints no result line):
       47:55:64,6:15:64 --geom-stride 60 --kernel-impl table --duration
       3600 --no-realtime --start "2019-09-05 11:00:00" --run-report R``,
       whose precision section must name both levers;
+   R-W. path R with ``block_impl='wide', stats_fusion='split'`` (the K4
+      trace, then the wide fold): its statistics against path R's;
+   A-W. path A with ``block_impl='wide'`` (the trace, then the wide
+      series): its means against path A's;
+   F-W. path F with ``block_impl='wide'``: the trace, then the wide fold
+      with both observers; its statistics against path F's;
+   R-K. path R with ``blocks_per_dispatch=8, block_impl='scan2',
+      rng_batch='block'``: bit-identical to path R;
+   G-W. the CLI: ``pvsim OUT.csv --output reduce --block-impl wide
+      --blocks-per-dispatch 4 --chains 4096 --duration 3600 --no-realtime
+      --start "2019-09-05 11:00:00" --run-report R``, whose report must
+      pass the port's ``validate_report`` and whose plan must name the
+      three knobs;
 6. each kernel and its plain version timed with CUDA events at the main
    paths' shapes (the fleet kernels on path F's noon block; K11 and K6s
-   on paths R-T's and B-L's noon blocks, and the K10 row reset of
-   continuous batching at 16 rows);
+   on paths R-T's and B-L's noon blocks, the K10 row reset of
+   continuous batching at 16 rows, the wide fold on paths R's and F's
+   noon blocks and the wide series on R's, with ``torch.sum(dim=1)``
+   beside it and ``part.sum(1)`` beside ``series_sum``);
 7. the port on the card at the JAX suite's ``small_config`` shape against
    the JAX package's results in ``tests/data/torch_port_reference.json``:
    reduce statistics, every per-second ensemble mean, chain 0's trace
    over the first hour and the site-grid reduce statistics (n_seconds
    exact, the rest rtol 2e-5 / atol 1e-2), and the fleet run's reduce
    statistics and fleet summary (counts within a few samples, quantiles
-   within one sketch bin, other floats rtol 1e-4).
+   within one sketch bin, other floats rtol 1e-4); and the same in the
+   wide formulation: reduce statistics, the first half hour's ensemble
+   means and the fleet run.
 
 The line before the card line is the ``{"kernels": [...]}`` record; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -129,7 +156,9 @@ try:
     from tmhpvsim_torch.kernels import build
     from tmhpvsim_torch.kernels import tables as k11
     from tmhpvsim_torch.kernels import threefry as k1
+    from tmhpvsim_torch.kernels import wide as k4m
     from tmhpvsim_torch.kernels import windows as k2
+    from tmhpvsim_torch.obs.report import validate_report
     from tmhpvsim_torch.serve import schema
     from tmhpvsim_torch.serve.schema import Scenario
 except ImportError as _e:
@@ -278,6 +307,23 @@ PATH_GL_ARGS = ["--output", "reduce", "--site-grid", "47:55:64,6:15:64",
 #: the strided mode's lerp per chain-second: 1 - f, then per field a
 #: multiply and a multiply-add (8 fields)
 LERP_SECOND_F = 1 + 8 * 3
+#: path R-K: path R with the knobs that give its bits
+KNOBS = dict(blocks_per_dispatch=8, block_impl="scan2", rng_batch="block")
+#: path G-W: the CLI in the wide formulation, 4 blocks per dispatch
+PATH_GW_CHAINS = 4096
+PATH_GW_ARGS = ["--output", "reduce", "--block-impl", "wide",
+                "--blocks-per-dispatch", "4", "--chains",
+                str(PATH_GW_CHAINS), "--duration", "3600", "--no-realtime",
+                "--start", "2019-09-05 11:00:00"]
+#: the wide fold per chain-second, read off csrc/wide_fold.cu: the seven
+#: statistics (the residual, the valid select, 3 multiplies and 3 adds, 3
+#: extrema with their selects: 12 float32 ops; the duration compare and
+#: n_seconds: 2 int32); with TEL K8's 10 float32 and 3 int32 ops per field
+#: for meter, pv and residual; with FLT K9's, less the level-full
+#: regime sums (3 masked sums: 6 float32 ops)
+WIDE_SECOND_F, WIDE_SECOND_I = 12, 2
+WIDE_TEL_SECOND_F, WIDE_TEL_SECOND_I = 3 * 10, 3 * 3
+WIDE_FLT_SECOND_F, WIDE_FLT_SECOND_I = FLT_SECOND_F - 6, FLT_SECOND_I
 
 
 def trans_f(name, ks):
@@ -1212,7 +1258,7 @@ def phase_path_r(dev):
                     f"max {max(v):.4f} ("
                     + ", ".join(f"{w:.4f}" for w in v) + ")"
                     for k, v in walls.items()))
-    return sim, launches
+    return sim, launches, reduced, wall
 
 
 def first_slice_loop(sim, dev):
@@ -1231,6 +1277,8 @@ def phase_path_a(dev):
     cfg = SimConfig(**dict(HEADLINE, output="ensemble"))
     sim = Simulation(cfg, device=dev)
 
+    means = ([], [])
+
     def run():
         rows, pv_max, n_blocks = 0, 0.0, 0
         for blk in sim.run_ensemble():
@@ -1243,6 +1291,8 @@ def phase_path_a(dev):
             rows += blk.pv.shape[1]
             n_blocks += 1
             pv_max = max(pv_max, float(blk.pv.max()))
+            means[0].append(blk.meter[0])
+            means[1].append(blk.pv[0])
         return rows, pv_max, n_blocks
 
     (rows, pv_max, n_blocks), wall, launches = run_path(
@@ -1257,7 +1307,7 @@ def phase_path_a(dev):
           f"{cfg.n_chains * cfg.duration_s / wall:.6g} site-s/s; "
           f"{rows} fleet-mean rows; fleet-mean pv max {pv_max:.3f} W; "
           f"launches {launches}")
-    return launches
+    return launches, tuple(np.concatenate(m) for m in means)
 
 
 def phase_path_b(dev):
@@ -1393,7 +1443,7 @@ def phase_path_f(dev):
           f"mean {tel_s['fields']['csi']['mean']:.4f}, covered "
           f"{tel_s['cloud_occupancy']['covered']:.0f} of {tel_s['count']:.0f}"
           f"; launches {launches}")
-    return launches
+    return launches, reduced
 
 
 def phase_path_g():
@@ -2042,7 +2092,26 @@ def phase_reference(dev):
     width = fr["summary"]["sketch"]["width_w"]
     worst_int = held_summary("fleet summary", summary, fr["summary"], slack,
                              width)
-    print("reference: small_config on the card matches the JAX package "
+    # the wide formulation (K4 trace, then the K4 merges)
+    wr = ref["wide"]
+    stats("wide reduce", Simulation(SimConfig(**dict(
+        SMALL, block_impl="wide", stats_fusion="split")),
+        device=dev).run_reduced(), wr["reduced"])
+    blocks = list(Simulation(SimConfig(**dict(SMALL, block_impl="wide")),
+                             device=dev).run_ensemble())
+    for k in ("meter", "pv"):
+        want = wr["ensemble"][k]
+        held(f"wide ensemble {k}", np.concatenate(
+            [getattr(b, k)[0] for b in blocks])[:len(want)], want)
+    sim = Simulation(SimConfig(**dict(
+        SMALL, fleet=FleetParams.synthetic(n_f, seed=seed_f),
+        block_impl="wide", **fr["config"])), device=dev)
+    stats("wide fleet", sim.run_reduced(), wr["fleet"]["reduced"])
+    worst_int = max(worst_int, held_summary(
+        "wide fleet summary", sim.fleet_summary(), wr["fleet"]["summary"],
+        slack, width))
+    print("reference: small_config on the card matches the JAX package, "
+          "scan and wide formulations "
           "(max relative error, relative to max(|JAX|, 1)): "
           + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
           + f"; fleet summary (synthetic({n_f}, seed={seed_f}), analytics "
@@ -2521,6 +2590,461 @@ def phase_timing_levers(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the wide formulation: K4 merges (wide_fold, wide_series) and the plan
+# knobs that give the scan's bits
+
+
+def wide_traces(cfg, dev):
+    """The K4 trace of ``cfg``'s two check blocks, with each block's
+    carry before it: ``(sim, state, [(inputs, tables, carry, meter, pv),
+    ...])``."""
+    sim, state, blocks = (fleet_blocks if cfg.fleet is not None
+                          else check_blocks)(cfg, dev)
+    tilt, alb, site = sim.geometry_args(state)
+    fleet = sim.fleet_leaves(state)
+    carry = clone(state["carry"])
+    out = []
+    for ins, tables in blocks:
+        head = head_of(state, ins, tables)
+        before = clone(carry)
+        carry, meter, pv = k3.block_step_trace(
+            *head, carry, cfg.meter_max_w, tilt, alb, site=site, fleet=fleet)
+        out.append((ins, tables, before, meter, pv))
+    return sim, state, out
+
+
+def check_wide_fold(label, sim, traces, obs, dur):
+    """K4m fold against its plain version on each trace block: the seven
+    statistics (n_seconds and extrema bit for bit, sums to rtol 1e-6),
+    with ``obs`` the per-chain leaves, counts, histograms and extrema bit
+    for bit and the sums within 1e-6 of the float64 plain sums, and a
+    rerun bit-identical.  Returns ``(rel, err, stat_err, events, same)``:
+    the observers' largest sum errors, the statistics' largest absolute
+    error, the LOLP events and the statistics bit-identical to the plain
+    fold (of 7 per block)."""
+    rel = err = stat_err = 0.0
+    events = same = 0
+    tel_sums = [(f"{k}_{f}", f"{k}_{f}") for f in ("meter", "pv",
+                                                  "residual")
+                for k in ("sum", "sumsq")]
+    flt_sums = [(f"cohort_sum_{f}", f"cohort_sum_{f}")
+                for f in ("meter", "pv", "residual")]
+    for ins, _, _, meter, pv in traces:
+        t = ins.rows_i[0]
+        acc_k, out_k = k4m.wide_fold(meter, pv, t, dur, sim.init_reduce_acc(),
+                                     obs)
+        acc_2, out_2 = k4m.wide_fold(meter, pv, t, dur, sim.init_reduce_acc(),
+                                     obs)
+        acc_p, out_p = k4m.wide_fold_plain(meter, pv, t, dur,
+                                           sim.init_reduce_acc(), obs)
+        torch.cuda.synchronize()
+        if not (all(torch.equal(acc_k[k], acc_2[k]) for k in acc_k)
+                and same_out(out_k, out_2)):
+            fail(f"K4m fold ({label}): a second run is not bit-identical")
+        for k in acc_p:
+            a, b = acc_k[k], acc_p[k]
+            if k.endswith("_sum"):
+                if not close(a, b, rtol=1e-6, atol=0.0):
+                    fail(f"K4m fold ({label}) {k} differs from the plain "
+                         f"version: max abs {max_abs(a, b)}")
+                stat_err = max(stat_err, max_abs(a, b))
+            elif not torch.equal(a, b):
+                fail(f"K4m fold ({label}) {k} differs from the plain version")
+            same += int(torch.equal(a, b))
+        if obs is None:
+            continue
+        C = obs.n_cohorts if obs.cohort is not None else 0
+        for d, sums in (("telemetry", tel_sums), ("fleet", flt_sums)):
+            if out_p[d] is None:
+                continue
+            check_chain(f"K4m fold ({label}) {d}", out_k[f"{d}_chain"],
+                        out_p[f"{d}_chain"])
+            p64 = _plain_sums(out_p[f"{d}_chain"],
+                              [x for x in sums if x[1] in out_p[f"{d}_chain"]],
+                              obs.cohort, C)
+            r, e = check_sketch(f"K4m fold ({label}) {d}", out_k[d],
+                                out_p[d], p64)
+            rel, err = max(rel, r), max(err, e)
+        if out_k["fleet"] is not None:
+            f = out_k["fleet"]
+            total = int(f["count"])
+            for leaf in ("res_hist", "exceed", "cohort_count",
+                         "cohort_hist"):
+                if leaf in f and int(f[leaf].sum()) != total:
+                    fail(f"K4m fold ({label}): {leaf} does not hold every "
+                         "sample")
+            events += int(f["lol_events"])
+    return rel, err, stat_err, events, same
+
+
+def phase_k4m(dev):
+    """K4m fold and series against their plain versions on the K4 trace
+    of 2 daylight blocks x 65536 chains: acc only (and against K3's acc on
+    the same blocks), acc with TEL, acc with TEL + FLT on path F's fleet
+    (level full, 3 cohorts), FLT with 64 cohorts and with 30000 bins (the
+    global-memory branches); the series against its plain version and
+    against the scan's series kernel on the same blocks."""
+    cfg = SimConfig(**dict(HEADLINE, start=CHECK_START))
+    sim, state, traces = wide_traces(cfg, dev)
+    dur, mw = cfg.duration_s, cfg.meter_max_w
+    tilt, alb, _ = sim.geometry_args(state)
+    report = []
+    rel = err = stat_err = 0.0
+    for label, obs in (("acc", None),
+                       ("acc + TEL full", k3.Observers(telemetry="full",
+                                                       per_chain=True))):
+        r, e, se, _, same = check_wide_fold(label, sim, traces, obs, dur)
+        rel, err, stat_err = max(rel, r), max(err, e), max(stat_err, se)
+        report.append(f"{label}: {same}/{7 * len(traces)} statistics "
+                      "bit-identical to the plain fold")
+    # the fold on the trace against K3's acc on the same blocks
+    k3_same = k3_chains = 0
+    for ins, tables, before, meter, pv in traces:
+        head = head_of(state, ins, tables)
+        _, acc3 = k3.block_step_acc(*head, clone(before),
+                                    sim.init_reduce_acc(), dur, mw, tilt,
+                                    alb)
+        accw, _ = k4m.wide_fold(meter, pv, ins.rows_i[0], dur,
+                                sim.init_reduce_acc())
+        torch.cuda.synchronize()
+        k3_same += int(sum(torch.equal(acc3[k], accw[k]) for k in acc3))
+        k3_chains += int(torch.stack([acc3[k] == accw[k]
+                                      for k in k3.ACC_F]).all(0).sum())
+        for k in acc3:
+            if not close(acc3[k], accw[k]):
+                fail(f"K4m fold: {k} on the trace differs from K3's acc "
+                     f"beyond the engine tolerance: max abs "
+                     f"{max_abs(acc3[k], accw[k])}")
+    # the series: against its plain version and the scan's series kernel
+    s_err = 0.0
+    s_same = 0
+    for ins, tables, before, meter, pv in traces:
+        head = head_of(state, ins, tables)
+        ms, ps = k4m.wide_series(meter, pv)
+        ms2, ps2 = k4m.wide_series(meter, pv)
+        mp, pp = k4m.wide_series_plain(meter, pv)
+        _, part = k3.series_partials_cuda(*head, clone(before), mw, tilt,
+                                          alb)
+        scan = k3.series_sum(part)
+        torch.cuda.synchronize()
+        if not (torch.equal(ms, ms2) and torch.equal(ps, ps2)):
+            fail("K4m series: a second run is not bit-identical")
+        for what, a, b in (("meter", ms, mp), ("pv", ps, pp)):
+            if not close(a, b, rtol=1e-6, atol=0.0):
+                fail(f"K4m series {what} sums differ from the plain "
+                     f"version: max abs {max_abs(a, b)}")
+            s_err = max(s_err, max_abs(a, b))
+        s_same += int(torch.equal(ms, scan[0])) + int(torch.equal(ps,
+                                                                  scan[1]))
+    del traces
+    # path F's fleet: TEL + FLT (F-W's launch), many cohorts, wide bins
+    fp = fleet_f()
+    fcfg = SimConfig(**dict(HEADLINE, start=CHECK_START, fleet=fp,
+                            telemetry="full", analytics="full"))
+    fsim, fstate, ftraces = wide_traces(fcfg, dev)
+    n = fsim.config.n_chains
+    params = dataclasses.replace(fsim._fleet_params, capacity_w=K9_CAPACITY,
+                                 lolp_k=K9_LOLP_K)
+    own = fstate["fleet"]["cohort"], fsim._n_cohorts
+    many = torch.arange(n, device=dev, dtype=torch.int32) % K9_MANY_COHORTS
+    wide_bins = dataclasses.replace(params, bins=K9_WIDE_BINS)
+    for label, obs, paths in (
+            ("TEL + FLT full, 3 cohorts (path F-W's launch)",
+             k3.Observers(telemetry="full", analytics="full", params=params,
+                          cohort=own[0], n_cohorts=own[1], per_chain=True),
+             (True, True)),
+            (f"FLT, {K9_MANY_COHORTS} cohorts, global cohort histogram",
+             k3.Observers(analytics="full", params=params, cohort=many,
+                          n_cohorts=K9_MANY_COHORTS, per_chain=True),
+             (True, False)),
+            (f"FLT, {K9_WIDE_BINS} bins, global residual, exceedance and "
+             "cohort histograms",
+             k3.Observers(analytics="full", params=wide_bins, cohort=own[0],
+                          n_cohorts=own[1], per_chain=True), (False, False))):
+        prm, C = obs.params, obs.n_cohorts
+        hist_bytes = 4 * (prm.bins + len(prm.thresholds) + 3)
+        coh_bytes = 4 * C * (prm.bins + 2)
+        if (hist_bytes <= k3.SMEM_MAX,
+                hist_bytes + coh_bytes <= k3.SMEM_MAX) != paths:
+            fail(f"K4m fold: the {label} run would not take that path")
+        r, e, se, events, same = check_wide_fold(label, fsim, ftraces, obs,
+                                                 fcfg.duration_s)
+        if events == 0:
+            fail(f"K4m fold ({label}): no loss-of-load run in the blocks")
+        rel, err, stat_err = max(rel, r), max(err, e), max(stat_err, se)
+        report.append(f"{label}: {same}/{7 * len(ftraces)} statistics "
+                      f"bit-identical, {events} LOLP events")
+    print(f"K4m fold vs plain on the K4 trace of 2 blocks x {n} chains "
+          f"(capacity {K9_CAPACITY} W, lolp_k {K9_LOLP_K} for FLT): "
+          + "; ".join(report) + f"; statistics' sums within rtol 1e-6 (max "
+          f"abs {stat_err:.3g}), every per-chain leaf, count, histogram and "
+          f"extremum bit-identical, observer sums within {rel:.3g} "
+          f"(relative; {err:.3g} absolute) of the float64 plain sums; "
+          "reruns bit-identical")
+    print(f"K4m fold on the trace vs K3's acc on the same 2 blocks: "
+          f"{k3_same}/14 statistics bit-identical, {k3_chains}/"
+          f"{2 * cfg.n_chains} chains with every float statistic "
+          "bit-identical")
+    print(f"K4m series vs plain on 2 blocks: per-second sums within rtol "
+          f"1e-6 (max abs {s_err:.3g} W), a rerun bit-identical; "
+          f"{s_same}/4 per-second series bit-identical to the scan's "
+          "series kernel on the same blocks")
+    return stat_err, (rel, err), s_err
+
+
+def phase_wide_fused(dev):
+    """The wide formulation's fused topology launches the acc epilogue
+    (producer, statistics and merge in one): 2 blocks against path R's
+    launch on the same blocks, bit for bit."""
+    base = dict(HEADLINE, start=CHECK_START,
+                duration_s=2 * HEADLINE["block_s"])
+    want = Simulation(SimConfig(**base), device=dev).run_reduced()
+    sim = Simulation(SimConfig(**dict(base, block_impl="wide",
+                                      stats_fusion="fused")), device=dev)
+    got, _, launches = run_path("wide fused", ("block_step",),
+                                sim.run_reduced)
+    if launches.get("wide_fold") or launches.get("block_step_trace"):
+        fail(f"wide fused launched the split topology: {launches}")
+    for k in want:
+        if not np.array_equal(got[k], want[k]):
+            fail(f"wide fused: {k} differs from path R's launch")
+    print(f"wide fused topology: 2 blocks x {sim.config.n_chains} chains "
+          f"bit-identical to path R's launch; launches {launches}")
+
+
+def phase_path_rw(dev, reduced_r):
+    cfg = SimConfig(**dict(HEADLINE, block_impl="wide",
+                           stats_fusion="split"))
+    sim = Simulation(cfg, device=dev)
+    reduced, wall, launches = run_path(
+        "R-W", ("threefry_fill", "sampler_windows", "block_step_trace",
+                "wide_fold"), sim.run_reduced)
+    if launches.get("block_step"):
+        fail("path R-W launched the acc epilogue")
+    pv_max = check_reduced("R-W", reduced, cfg.duration_s)
+    same = held_reduced("R-W", reduced, reduced_r)
+    print(f"path R-W (reduce, shared site, block_impl=wide, "
+          f"stats_fusion=split): {cfg.n_chains} chains x {cfg.duration_s} s "
+          f"in {sim.n_blocks} blocks: {wall:.3f} s wall, "
+          f"{cfg.n_chains * cfg.duration_s / wall:.6g} site-s/s; fleet "
+          f"pv_max {pv_max:.2f} W; {same}/7 statistics bit-identical to "
+          f"path R's (the rest within the engine tolerance); launches "
+          f"{launches}")
+    return launches
+
+
+def held_reduced(name, got, want):
+    """Reduce statistics against another path's: n_seconds exact, the
+    rest at the engine tolerance.  Returns how many are bit-identical."""
+    for k in want:
+        if k == "n_seconds":
+            if not np.array_equal(got[k], want[k]):
+                fail(f"path {name}: n_seconds differs")
+        elif not np.allclose(got[k], want[k], rtol=TOL[0], atol=TOL[1]):
+            fail(f"path {name}: {k} differs beyond the engine tolerance: "
+                 f"max abs {np.max(np.abs(got[k] - want[k]))}")
+    return sum(int(np.array_equal(got[k], want[k])) for k in want)
+
+
+def phase_path_aw(dev, means_a):
+    cfg = SimConfig(**dict(HEADLINE, output="ensemble", block_impl="wide"))
+    sim = Simulation(cfg, device=dev)
+
+    def run():
+        return [(blk.meter[0], blk.pv[0]) for blk in sim.run_ensemble()]
+
+    blocks, wall, launches = run_path(
+        "A-W", ("sampler_windows", "block_step_trace", "wide_series",
+                "series_sum"), run)
+    if launches.get("block_step_series"):
+        fail("path A-W launched the series epilogue")
+    same = 0
+    for i, (k, want) in enumerate(zip(("meter", "pv"), means_a)):
+        got = np.concatenate([b[i] for b in blocks])
+        if got.shape != want.shape or not np.isfinite(got).all():
+            fail(f"path A-W: {k} means of shape {got.shape}")
+        if not np.allclose(got, want, rtol=TOL[0], atol=TOL[1]):
+            fail(f"path A-W: {k} means differ from path A's beyond the "
+                 "engine tolerance")
+        same += int((got == want).sum())
+    print(f"path A-W (ensemble, shared site, block_impl=wide): "
+          f"{cfg.n_chains} chains x {cfg.duration_s} s in {sim.n_blocks} "
+          f"blocks: {wall:.3f} s wall, "
+          f"{cfg.n_chains * cfg.duration_s / wall:.6g} site-s/s; "
+          f"{same}/{2 * cfg.duration_s} per-second means bit-identical to "
+          f"path A's; launches {launches}")
+    return launches
+
+
+def phase_path_fw(dev, reduced_f):
+    fp = fleet_f()
+    cfg = SimConfig(**dict(HEADLINE, fleet=fp, telemetry="full",
+                           analytics="full", block_impl="wide"))
+    sim = Simulation(cfg, device=dev)
+    (reduced, summary), wall, launches = run_path(
+        "F-W", ("sampler_windows_regime", "block_step_trace_site",
+                "block_step_fleet", "wide_fold", "wide_fold_tel",
+                "wide_fold_analytics", "chainwise_collapse"),
+        lambda: (sim.run_reduced(), sim.fleet_summary()))
+    n = sim.config.n_chains
+    check_reduced("F-W", reduced, cfg.duration_s)
+    same = held_reduced("F-W", reduced, reduced_f)
+    total = n * cfg.duration_s
+    if summary["count"] != total or \
+            sum(c["count"] for c in summary["cohorts"]) != total or \
+            summary["regimes"] is not None:
+        fail(f"path F-W: fleet summary count {summary['count']} of {total}"
+             f", regimes {summary['regimes']}")
+    tel_s = sim.tel_summary
+    if tel_s["count"] != n * cfg.block_s or \
+            tel_s["fields"]["csi"]["observed"]:
+        fail(f"path F-W: the last block's telemetry {tel_s}")
+    q = summary["residual"]["quantiles"]
+    print(f"path F-W (path F with block_impl=wide): {n} sites x "
+          f"{cfg.duration_s} s in {sim.n_blocks} blocks: {wall:.3f} s wall, "
+          f"{total / wall:.6g} site-s/s; {same}/7 statistics bit-identical "
+          f"to path F's (the rest within the engine tolerance); residual "
+          f"p1/p50/p99 {q['p1']:.1f}/{q['p50']:.1f}/{q['p99']:.1f} W, LOLP "
+          f"{summary['lolp']['prob']:.3g}, regimes and csi unobserved; "
+          f"launches {launches}")
+    return launches
+
+
+def phase_path_rk(dev, reduced_r, wall_r):
+    cfg = SimConfig(**dict(HEADLINE, **KNOBS))
+    sim = Simulation(cfg, device=dev)
+    reduced, wall, launches = run_path(
+        "R-K", ("threefry_fill", "sampler_windows", "block_step"),
+        sim.run_reduced)
+    for k in reduced_r:
+        if not np.array_equal(reduced[k], reduced_r[k]):
+            fail(f"path R-K: {k} differs from path R's")
+    print(f"path R-K (path R with blocks_per_dispatch=8, block_impl=scan2, "
+          f"rng_batch=block): {wall:.3f} s wall (path R {wall_r:.3f} s in "
+          f"this call), {cfg.n_chains * cfg.duration_s / wall:.6g} "
+          f"site-s/s; every statistic bit-identical to path R's; launches "
+          f"{launches}")
+    return launches
+
+
+def phase_path_gw():
+    from tmhpvsim_torch.cli import main as cli
+
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    out = os.path.join(build.BUILD_DIR, "path_gw_reduce.csv")
+    rep = os.path.join(build.BUILD_DIR, "path_gw_report.json")
+    try:
+        # no observer and the fused topology (the JAX CLI's default on an
+        # accelerator): the acc launch
+        rc, wall, launches = run_path(
+            "G-W", ("sampler_windows", "block_step"),
+            lambda: cli(["pvsim", out] + PATH_GW_ARGS + ["--run-report",
+                                                        rep]))
+        if rc != 0:
+            fail(f"path G-W: the CLI returned {rc}")
+        with open(out) as f:
+            rows = f.read().splitlines()
+        with open(rep) as f:
+            report = json.load(f)
+    finally:
+        for path in (out, rep):
+            if os.path.exists(path):
+                os.remove(path)
+    n = PATH_GW_CHAINS
+    if len(rows) != n + 2 or rows[-1].split(",")[0] != "ensemble":
+        fail(f"path G-W: {len(rows)} CSV lines")
+    try:
+        validate_report(report)
+    except ValueError as e:
+        fail(f"path G-W: the run report fails validation: {e}")
+    plan = report["plan"]
+    knobs = {k: plan[k] for k in ("block_impl", "stats_fusion",
+                                  "blocks_per_dispatch", "rng_batch")}
+    if knobs != {"block_impl": "wide", "stats_fusion": "fused",
+                 "blocks_per_dispatch": 4, "rng_batch": "scan"} or \
+            report["device"]["platform"] != "gpu":
+        fail(f"path G-W: run report plan {plan}, device {report['device']}")
+    print(f"path G-W (CLI pvsim --output reduce --block-impl wide "
+          f"--blocks-per-dispatch 4 --chains {n} --duration 3600 "
+          f"--run-report): {wall:.3f} s wall incl. the CSV and the report; "
+          f"{n} chain rows plus the ensemble row; the report validates, "
+          f"plan {json.dumps(knobs)}, device "
+          f"{report['device']['device_kind']}; launches {launches}")
+    return launches
+
+
+def phase_timing_wide(dev):
+    """K4m fold (acc only on path R's noon block; TEL + FLT, path F-W's
+    launch, on path F's) and K4m series on path R's noon block, with their
+    plain versions, bounds and, for the series, ``torch.sum(x, dim=1)`` on
+    each array; and ``part.sum(1)`` beside ``series_sum``."""
+    out = {}
+    n, T = HEADLINE["n_chains"], HEADLINE["block_s"]
+    sim = Simulation(SimConfig(**HEADLINE), device=dev)
+    state = sim.init_state()
+    ins = sim.host_inputs(40)
+    tables, _ = sim._windows(state, ins)
+    tilt, alb, _ = sim.geometry_args(state)
+    _, meter, pv = k3.block_step_trace(
+        tables, ins.rows_i, ins.rows_f, state["k_scan"], state["k_meter"],
+        clone(state["carry"]), sim.config.meter_max_w, tilt, alb)
+    t, dur = ins.rows_i[0], sim.config.duration_s
+    acc = sim.init_reduce_acc()
+    trace_bytes = 2 * n * T * 4
+    ms = time_ms(lambda: k4m.wide_fold(meter, pv, t, dur, acc), reps=20)
+    plain = time_ms(lambda: k4m.wide_fold_plain(meter, pv, t, dur, acc),
+                    reps=1)
+    out["K4MF"] = (ms, plain, *bound(
+        n * T * WIDE_SECOND_I, n * T * WIDE_SECOND_F,
+        trace_bytes + T * 4 + n * 4 * 7 * 2), None)
+    part = k4m.wide_series_partials_cuda(meter, pv)
+    ms = time_ms(lambda: k4m.wide_series_partials_cuda(meter, pv), reps=20)
+    plain = time_ms(lambda: k4m.wide_series_plain(meter, pv), reps=5)
+    lib = time_ms(lambda: (torch.sum(meter, dim=1), torch.sum(pv, dim=1)),
+                  reps=20)
+    out["K4MS"] = (ms, plain, *bound(0, 2 * n * T,
+                                     trace_bytes + part.numel() * 4), lib)
+    whole = time_ms(lambda: k4m.wide_series(meter, pv), reps=20)
+    lib_sum = time_ms(lambda: part.sum(1), reps=20)
+    del meter, pv
+    # path F-W's launch: TEL + FLT on the fleet's noon block
+    fsim = Simulation(SimConfig(**dict(HEADLINE, fleet=fleet_f(),
+                                       telemetry="full", analytics="full")),
+                      device=dev)
+    fstate = fsim.init_state()
+    fins = fsim.host_inputs(40)
+    ftables, _ = fsim._windows(fstate, fins)
+    _, _, fsite = fsim.geometry_args(fstate)
+    _, meter, pv = k3.block_step_trace(
+        ftables, fins.rows_i, fins.rows_f, fstate["k_scan"],
+        fstate["k_meter"], clone(fstate["carry"]), fsim.config.meter_max_w,
+        None, None, site=fsite, fleet=fsim.fleet_leaves(fstate))
+    obs = fsim.observers(fstate)
+    ft = fins.rows_i[0]
+    ms = time_ms(lambda: k4m.wide_fold(meter, pv, ft, dur, acc, obs),
+                 reps=20)
+    plain = time_ms(lambda: k4m.wide_fold_plain(meter, pv, ft, dur, acc,
+                                                obs), reps=1)
+    n_ctas = (n + k3.THREADS - 1) // k3.THREADS
+    nb, C = fsim._fleet_params.bins + 2, fsim._n_cohorts
+    obs_bytes = (n_ctas * 25 * 8 + 4 + n_ctas * (15 + 6 * C) * 8 + n * 4
+                 + 4 * (nb + 8 + C * nb))
+    out["K4MF89"] = (ms, plain, *bound(
+        n * T * (WIDE_SECOND_I + WIDE_TEL_SECOND_I + WIDE_FLT_SECOND_I),
+        n * T * (WIDE_SECOND_F + WIDE_TEL_SECOND_F + WIDE_FLT_SECOND_F),
+        trace_bytes + T * 4 + n * 4 * 7 * 2 + obs_bytes), None)
+    for name, (ms, plain, bms, by, lib) in out.items():
+        print(f"timing {name}: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
+              f"bound {bms:.4f} ms ({by})"
+              + ("" if lib is None else f", torch.sum(dim=1) x 2 "
+                 f"{lib:.4f} ms"))
+    print(f"timing K4m series with series_sum: {whole:.4f} ms; "
+          f"part.sum(1) on its (2, {n_ctas}, {T}) partials: "
+          f"{lib_sum:.4f} ms")
+    return out, lib_sum
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a "
@@ -2546,13 +3070,15 @@ def main() -> int:
     err6s = phase_k6s(dev)
     err89l, _ = phase_k89(dev, LEVERS, "K8+K9 (F-L)")
     phase_reference_levers(dev)
+    err4mf, err4mo, err4ms = phase_k4m(dev)
+    phase_wide_fused(dev)
     torch.cuda.empty_cache()
-    _, launch_r = phase_path_r(dev)
-    launch_a = phase_path_a(dev)
+    _, launch_r, reduced_r, wall_r = phase_path_r(dev)
+    launch_a, means_a = phase_path_a(dev)
     launch_b = phase_path_b(dev)
     launch_c = phase_path_c(dev)
     phase_path_d()
-    launch_f = phase_path_f(dev)
+    launch_f, reduced_f = phase_path_f(dev)
     phase_path_g()
     launch_h = phase_path_h(dev)
     replies_s, launch_s = phase_path_s("S", "window", dev)
@@ -2572,9 +3098,16 @@ def main() -> int:
     print(f"the levers' fleet aggregates (R-T, B-L, F-L): "
           f"{json.dumps([ens_rt, ens_bl, ens_fl])}")
     torch.cuda.empty_cache()
+    launch_rw = phase_path_rw(dev, reduced_r)
+    launch_aw = phase_path_aw(dev, means_a)
+    launch_fw = phase_path_fw(dev, reduced_f)
+    phase_path_rk(dev, reduced_r, wall_r)
+    phase_path_gw()
+    torch.cuda.empty_cache()
     timing = phase_timing(dev)
     timing.update(phase_timing_fleet(dev))
     timing.update(phase_timing_levers(dev))
+    timing_wide, lib_sum = phase_timing_wide(dev)
     phase_reference(dev)
     sim_py = "tmhpvsim_tpu/engine/simulation.py"
     src = "tmhpvsim_torch/csrc/block_step.cuh"
@@ -2604,6 +3137,8 @@ def main() -> int:
                "tmhpvsim_tpu/obs/analytics.py:311", err_c, launch_f),
     }
     rows = []
+    # one PyTorch call computes series_sum's function: part.sum(1)
+    library = {"K4R": lib_sum}
     for key, (name, source, replaces, err, launches) in rows_of.items():
         ms, plain, bms, by = timing[key]
         # the observers' sums are checked relative to float64: both errors
@@ -2611,7 +3146,23 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                     "bound_ms": bms, "bound_by": by, "library_ms": None,
+                     "bound_ms": bms, "bound_by": by,
+                     "library_ms": library.get(key),
+                     **({} if rel is None else {"max_rel_err": rel})})
+    # the K4 merges: the fold (path R-W's launch; path F-W's, with both
+    # observers, beside it) and the series (path A-W's)
+    wsrc = "tmhpvsim_torch/csrc/wide_fold.cu"
+    for key, name, replaces, err, launches in (
+            ("K4MF", "wide_fold", f"{sim_py}:958", err4mf, launch_rw),
+            ("K4MF89", "wide_fold_analytics",
+             "tmhpvsim_tpu/obs/analytics.py:337", err4mo, launch_fw),
+            ("K4MS", "wide_series", f"{sim_py}:983", err4ms, launch_aw)):
+        ms, plain, bms, by, lib = timing_wide[key]
+        rel, err = err if isinstance(err, tuple) else (None, err)
+        rows.append({"name": name, "route": "cuda", "source": wsrc,
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "bound_ms": bms, "bound_by": by, "library_ms": lib,
                      **({} if rel is None else {"max_rel_err": rel})})
     # K10: timed at 16 rows; launches on path S (path S-c's beside them)
     rows.append({"name": "block_step_scenario", "route": "cuda",

@@ -102,6 +102,19 @@ def jax_fleet():
 
 
 @pytest.fixture(scope="module")
+def jax_wide_runs():
+    """The JAX package's wide formulation at this shape: the reduce
+    statistics, the ensemble blocks and the fleet run (reduce statistics
+    and fleet summary)."""
+    fleet = _jax_sim("wide", fleet=JFleet.synthetic(FLEET_SYNTH[0],
+                                                    seed=FLEET_SYNTH[1]),
+                     **FLEET_KW)
+    return {"reduced": _jax_sim("wide").run_reduced(),
+            "ensemble": list(_jax_sim("wide").run_ensemble()),
+            "fleet": (fleet.run_reduced(), fleet.fleet_summary())}
+
+
+@pytest.fixture(scope="module")
 def fleet_traces():
     """The fleet run's per-second trace on both sides, and how many
     residual samples differ in their bits."""
@@ -158,14 +171,21 @@ def _f32_list(a):
             for x in np.asarray(a, np.float32).ravel()]
 
 
+#: seconds of the wide ensemble's per-second means the reference file keeps
+WIDE_ENSEMBLE_S = 1800
+
+
 def test_reference_file_tracks_jax(jax_scan, jax_ensemble, jax_trace,
-                                   jax_grid, jax_fleet):
+                                   jax_grid, jax_fleet, jax_wide_runs):
     """tests/data/torch_port_reference.json holds the JAX package's results
     at this shape for chip_smoke.py's reference phase — the reduce
     statistics, every per-second ensemble mean, chain 0's trace over the
-    first hour, the site-grid reduce statistics, and the fleet run's
-    reduce statistics and fleet summary; it is written when missing and
-    must equal what the JAX package computes."""
+    first hour, the site-grid reduce statistics, the fleet run's reduce
+    statistics and fleet summary, and the wide formulation's reduce
+    statistics, ensemble means over the first half hour and fleet run; it
+    is written when missing and must equal what the JAX package
+    computes."""
+    jw = jax_wide_runs
     doc = {
         "config": SMALL,
         "reduced": {k: np.asarray(v).tolist()
@@ -182,6 +202,16 @@ def test_reference_file_tracks_jax(jax_scan, jax_ensemble, jax_trace,
                   "reduced": {k: np.asarray(v).tolist()
                               for k, v in jax_fleet[1].items()},
                   "summary": jax_fleet[0].fleet_summary()},
+        "wide": {
+            "reduced": {k: np.asarray(v).tolist()
+                        for k, v in jw["reduced"].items()},
+            "ensemble": {k: _f32_list(np.concatenate(
+                [np.asarray(getattr(b, k))[0] for b in jw["ensemble"]])
+                [:WIDE_ENSEMBLE_S]) for k in ("meter", "pv")},
+            "fleet": {"reduced": {k: np.asarray(v).tolist()
+                                  for k, v in jw["fleet"][0].items()},
+                      "summary": jw["fleet"][1]},
+        },
     }
     if not os.path.exists(REF):
         os.makedirs(os.path.dirname(REF), exist_ok=True)
@@ -516,8 +546,9 @@ def test_fleet_state_converts(jax_fleet, port_fleet):
 
 def test_cli_fleet_run_report(tmp_path):
     """--fleet-synth with --analytics in reduce mode: one CSV row per site
-    and a run report whose fleet section is the run's fleet_summary() (and
-    no precision section: both levers at their defaults)."""
+    and a run report (the JAX package's RunReport schema) whose fleet
+    section is the run's fleet_summary() (and no precision section: the
+    levers at their defaults)."""
     from tmhpvsim_torch.cli import main
 
     out, rep = str(tmp_path / "r.csv"), str(tmp_path / "r.json")
@@ -535,8 +566,13 @@ def test_cli_fleet_run_report(tmp_path):
         start=SMALL["start"], duration_s=1800, block_s=1800,
         output="reduce"), device="cpu")
     sim.run_reduced()
-    assert report == {"fleet": json.loads(json.dumps(sim.fleet_summary())),
-                      "precision": None}
+    from tmhpvsim_tpu.obs.report import validate_report
+
+    validate_report(report)
+    assert report["kind"] == "tmhpvsim_tpu.run_report" and \
+        report["app"] == "pvsim"
+    assert report["fleet"] == json.loads(json.dumps(sim.fleet_summary()))
+    assert report["precision"] is None
     assert report["fleet"]["level"] == "risk"
 
 

@@ -364,8 +364,11 @@ def test_cpu_fleet_and_observer_wrappers_run_plain():
 
 def test_observer_layout_mirrors_the_kernel():
     """The wrapper's ctypes ``Obs`` has the kernel struct's fields in order,
-    and the collapse kinds have the kernel's partial-row lengths."""
-    text = open(os.path.join(build.CSRC, "block_step.cuh")).read()
+    and the collapse kinds have the kernel's partial-row lengths (the
+    struct and the leaf counts in fold.cuh, which the block step and the
+    wide fold share)."""
+    text = "".join(open(os.path.join(build.CSRC, f)).read()
+                   for f in ("block_step.cuh", "fold.cuh"))
     body = re.search(r"struct Obs \{(.*?)\n\};", text, re.S).group(1)
     names = []
     for line in body.splitlines():

@@ -99,13 +99,40 @@ def test_config_fields_and_defaults_match(cls):
 
 @pytest.mark.parametrize("field,value", [
     ("site_grid", object()), ("fleet", object()), ("telemetry_strict", True),
-    ("phase_obs", "on"), ("compute_dtype", "bf16"), ("block_impl", "wide"),
-    ("prng_impl", "rbg"), ("output", "nonsense"), ("dtype", "bfloat16"),
-    ("tune", "auto"), ("blocks_per_dispatch", 4), ("rng_batch", "block"),
+    ("phase_obs", "on"), ("compute_dtype", "bf16"), ("prng_impl", "rbg"),
+    ("output", "nonsense"), ("dtype", "bfloat16"), ("tune", "auto"),
+    ("mesh_scenario", 2), ("pod_obs", "on"), ("checkpoint_async", "on"),
 ])
 def test_config_outside_slice_raises(field, value):
     with pytest.raises(NotImplementedError):
         tcfg.SimConfig(**{field: value})
+
+
+def test_refusal_names_what_is_still_to_port():
+    with pytest.raises(NotImplementedError) as e:
+        tcfg.SimConfig(compute_dtype="bf16")
+    msg = str(e.value)
+    assert "compute_dtype='bf16' and prng_impl='rbg' are still to port" \
+        in msg and "exact kernels" not in msg
+
+
+@pytest.mark.parametrize("field,value,plan", [
+    ("block_impl", "wide", ("wide", "fused", 8, 1, "scan")),
+    ("block_impl", "scan2", ("scan2", "fused", 8, 1, "scan")),
+    ("block_impl", "auto", ("scan", "fused", 8, 1, "scan")),
+    ("stats_fusion", "split", ("scan", "split", 8, 1, "scan")),
+    ("scan_unroll", 1, ("scan", "fused", 1, 1, "scan")),
+    ("blocks_per_dispatch", 4, ("scan", "fused", 8, 4, "scan")),
+    ("blocks_per_dispatch", 0, ("scan", "fused", 8, 1, "scan")),
+    ("rng_batch", "block", ("scan", "fused", 8, 1, "block")),
+])
+def test_config_knobs_inside_slice(field, value, plan):
+    """The plan knobs the JAX package holds to the same run are inside the
+    slice; 'auto' and 0 resolve as the JAX package resolves them on an
+    accelerator."""
+    p = tcfg.resolve_plan(tcfg.SimConfig(**{field: value}))
+    assert (p.block_impl, p.stats_fusion, p.scan_unroll,
+            p.blocks_per_dispatch, p.rng_batch) == plan
 
 
 @pytest.mark.parametrize("field,value,plan", [
@@ -499,3 +526,97 @@ def test_power_from_csi(seed):
                                 for k, v in g.items()}, T_MOD, T_INV).numpy()
     _close(want, got, rtol=2e-5, atol=2e-3)
     assert (want == got).mean() > 0.8
+
+
+# --------------------------------------------------------------------------
+# the SAM database overrides (data/sam.py), read at import time
+# --------------------------------------------------------------------------
+
+#: a realistic module row of tests/test_sam.py's synthetic module CSV
+#: (its reference-named row is a column-mapping check of small primes)
+SAM_MODULE_ROW = "Other Module [2010]"
+
+_SAM_RUN = """
+import json, sys
+from tmhpvsim_{pkg} import data
+out = {{"module": data.SAPM_MODULE, "inverter": data.SANDIA_INVERTER}}
+SMALL = dict(start="2019-09-05 10:00:00", duration_s=7200, n_chains=3,
+             seed=7, block_s=3600)
+if "{pkg}" == "tpu":
+    from tmhpvsim_tpu.config import SimConfig
+    from tmhpvsim_tpu.engine import Simulation
+    sim = Simulation(SimConfig(block_impl="scan", dtype="float32", **SMALL))
+else:
+    from tmhpvsim_torch.config import SimConfig
+    from tmhpvsim_torch.engine.simulation import Simulation
+    from tmhpvsim_torch.kernels import block_step
+    sim = Simulation(SimConfig(**SMALL), device="cpu")
+    c = block_step.kernel_constants()
+    out["consts"] = {{"PACO": c["PACO"], "IMPO": c["IMPO"]}}
+out["reduced"] = {{k: [float(x) for x in v]
+                  for k, v in sim.run_reduced().items()}}
+json.dump(out, sys.stdout)
+"""
+
+
+@pytest.fixture(scope="module")
+def sam_runs(tmp_path_factory):
+    """Both packages' coefficients and a small_config reduce run, each in
+    its own process with the SAM variables pointing at the synthetic
+    CSVs of tests/test_sam.py."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "_sam_csvs", os.path.join(os.path.dirname(__file__), "test_sam.py"))
+    sam = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sam)
+    d = tmp_path_factory.mktemp("sam")
+    (d / "modules.csv").write_text(sam.MODULE_CSV)
+    (d / "inverters.csv").write_text(sam.INVERTER_CSV)
+    env = dict(os.environ, TMHPVSIM_SAM_MODULES=str(d / "modules.csv"),
+               TMHPVSIM_SAM_INVERTERS=str(d / "inverters.csv"),
+               TMHPVSIM_SAM_MODULE_NAME=SAM_MODULE_ROW, JAX_PLATFORMS="cpu")
+    out = {}
+    for pkg in ("tpu", "torch"):
+        r = subprocess.run([sys.executable, "-c", _SAM_RUN.format(pkg=pkg)],
+                           capture_output=True, text=True, timeout=600,
+                           env=env)
+        assert r.returncode == 0, r.stderr[-2000:]
+        out[pkg] = json.loads(r.stdout.strip().splitlines()[-1])
+    return out
+
+
+def test_sam_overrides_reach_both_packages(sam_runs):
+    from tmhpvsim_torch import data as tdata
+
+    j, t = sam_runs["tpu"], sam_runs["torch"]
+    assert t["module"] == j["module"] and t["inverter"] == j["inverter"]
+    assert t["module"] != tdata.SAPM_MODULE
+    assert t["inverter"]["Paco"] == 3 and t["module"]["Cells_in_Series"] == 60
+    # the kernels' generated constants read the overridden rows
+    assert t["consts"] == {"PACO": 3.0, "IMPO": 8.2}
+
+
+def test_sam_override_run_matches_jax(sam_runs):
+    want, got = sam_runs["tpu"]["reduced"], sam_runs["torch"]["reduced"]
+    assert got["n_seconds"] == want["n_seconds"]
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=2e-5, atol=1e-2,
+                                   err_msg=k)
+    assert max(got["pv_max"]) > 0.0
+
+
+def test_bad_sam_override_fails_at_import(tmp_path):
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, TMHPVSIM_SAM_MODULES=str(tmp_path / "none.csv"))
+    r = subprocess.run([sys.executable, "-c", "import tmhpvsim_torch.data"],
+                       capture_output=True, text=True, timeout=120, env=env)
+    assert r.returncode != 0 and "none.csv" in r.stderr

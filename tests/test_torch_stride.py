@@ -290,8 +290,10 @@ def test_strided_plain_geometry_is_the_lerped_sample_grid():
             for k in tsolar.STRIDE_LERP_FIELDS:
                 assert torch.equal(g[k][s], samp[k][j]), k
     assert torch.equal(g["doy"][:, 0], rows[3])
-    assert dataclasses.asdict(sim.plan) == {"kernel_impl": "table",
-                                            "geom_stride": 60}
+    assert dataclasses.asdict(sim.plan) == {
+        "kernel_impl": "table", "geom_stride": 60, "block_impl": "scan",
+        "stats_fusion": "fused", "scan_unroll": 8, "blocks_per_dispatch": 1,
+        "rng_batch": "scan"}
 
 
 def test_scenario_engine_serves_with_levers():

@@ -7,22 +7,25 @@ in the JAX package's ``pvsim --backend jax`` file formats.
 * ``reduce``: per-chain summary statistics plus one fleet ``ensemble`` row.
 
 Each runs for a shared site, a per-chain ``SiteGrid`` or a heterogeneous
-fleet; reduce mode can fold the fleet analytics, whose run totals
-``run_report`` writes as the ``fleet`` section of a JSON, beside the
-``precision`` section of the levers ``kernel_impl`` and ``geom_stride``.
+fleet, in the scan or the wide formulation (``block_impl``), with any
+number of blocks per dispatch; reduce mode can fold the fleet analytics.
+``run_report`` writes the run report (obs/report.py: the JAX package's
+RunReport schema) with the run's config, its resolved plan, the
+analytics' run totals as the ``fleet`` section and the ``precision``
+section of the levers ``kernel_impl``, ``rng_batch`` and ``geom_stride``.
 """
 
 from __future__ import annotations
 
 import csv
 import dataclasses
-import json
 import time
 from zoneinfo import ZoneInfo
 
 from tmhpvsim_torch.config import SimConfig
 from tmhpvsim_torch.engine.simulation import (REDUCE_STATS, Simulation,
                                               write_csv)
+from tmhpvsim_torch.obs.report import simulation_report, write_report
 
 
 def write_reduced_csv(path: str, reduced: dict, ensemble: dict,
@@ -53,14 +56,13 @@ def _paced(blk, rate: float = 1.0):
             residual=blk.residual[:, i:i + 1])
 
 
-def write_run_report(path: str, sim: Simulation) -> None:
-    """The run report's ``fleet`` section, as ``sim.fleet_summary()``
-    gives it (None without analytics), and its ``precision`` section, as
-    ``sim.precision_doc()`` gives it (None with both levers at their
-    defaults)."""
-    with open(path, "w") as f:
-        json.dump({"fleet": sim.fleet_summary(),
-                   "precision": sim.precision_doc()}, f, indent=1)
+def write_run_report(path: str, sim: Simulation) -> dict:
+    """The run report of a finished run (``obs.report.simulation_report``):
+    config, plan and device, the ``fleet`` section as
+    ``sim.fleet_summary()`` gives it (None without analytics) and the
+    ``precision`` section as ``sim.precision_doc()`` gives it (None with
+    the levers at their defaults).  Returns the document."""
+    return write_report(path, simulation_report("pvsim", sim))
 
 
 def pvsim(file: str, duration_s: int, n_chains: int, seed: int, start: str,
@@ -68,7 +70,9 @@ def pvsim(file: str, duration_s: int, n_chains: int, seed: int, start: str,
           site_grid=None, output: str = "trace",
           output_overlap: str = "auto", device: str = "cuda", fleet=None,
           analytics: str = "off", run_report: str | None = None,
-          kernel_impl: str = "auto", geom_stride: int = 0) -> Simulation:
+          kernel_impl: str = "auto", geom_stride: int = 0,
+          block_impl: str = "auto", blocks_per_dispatch: int = 0,
+          rng_batch: str = "auto") -> Simulation:
     """Run one simulation and write ``file``; returns the Simulation.
 
     A site grid or a fleet sets the chain count (one chain per site).
@@ -77,14 +81,20 @@ def pvsim(file: str, duration_s: int, n_chains: int, seed: int, start: str,
     folds the fleet-risk sketches in reduce mode (other modes ignore it,
     as the JAX package does); ``run_report`` names the JSON their run
     totals go to.  ``kernel_impl`` ('auto' | 'exact' | 'table') and
-    ``geom_stride`` (0 = auto | 1 | 30 | 60) are the precision levers."""
+    ``geom_stride`` (0 = auto | 1 | 30 | 60) are the precision levers;
+    ``block_impl`` ('auto' | 'wide' | 'scan' | 'scan2'),
+    ``blocks_per_dispatch`` (0 = auto | K) and ``rng_batch`` ('auto' |
+    'scan' | 'block') the plan knobs that give the same run."""
     if block_s is None:
         block_s = min(8640, max(60, (duration_s // 60) * 60))
     cfg = SimConfig(start=start, duration_s=duration_s, n_chains=n_chains,
                     seed=seed, block_s=block_s, site_grid=site_grid,
                     fleet=fleet, output=output,
                     output_overlap=output_overlap, analytics=analytics,
-                    kernel_impl=kernel_impl, geom_stride=geom_stride)
+                    kernel_impl=kernel_impl, geom_stride=geom_stride,
+                    block_impl=block_impl,
+                    blocks_per_dispatch=blocks_per_dispatch,
+                    rng_batch=rng_batch)
     sim = Simulation(cfg, device=device)
     cfg = sim.config  # a site grid or a fleet sets n_chains
     t0 = time.perf_counter()

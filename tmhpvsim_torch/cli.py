@@ -5,12 +5,12 @@ The flags mirror the JAX package's ``pvsim --backend jax`` flags of the
 ported slice: the three output modes, ``--chain``, site grids
 (``--site-grid`` / ``--sites-csv``), heterogeneous fleets (``--fleet-csv``
 / ``--fleet-synth`` with ``--fleet-seed``), reduce-mode fleet analytics
-(``--analytics``), the two precision levers ``--kernel-impl`` and
-``--geom-stride`` (the JAX package's choices, defaults and errors),
-``--output-overlap`` and ``--realtime``.  ``--run-report PATH`` writes a
-JSON with the run's ``fleet`` and ``precision`` sections (the keys the
-JAX package's RunReport fills from ``fleet_summary()`` and
-``precision_doc()``).
+(``--analytics``), the precision levers ``--kernel-impl``,
+``--geom-stride`` and ``--rng-batch``, the formulation ``--block-impl``
+and ``--blocks-per-dispatch`` (the JAX package's choices, defaults and
+errors), ``--output-overlap`` and ``--realtime``.  ``--run-report PATH``
+writes the run report (the JAX package's RunReport schema: config, the
+resolved plan, device, and the ``fleet`` and ``precision`` sections).
 
 ``serve`` runs the scenario server (serve/server.py) with the JAX
 package's ``pvsim serve`` defaults on an in-process ``local://``
@@ -104,8 +104,9 @@ def _parser() -> argparse.ArgumentParser:
                          "and the per-cohort group-by; full adds "
                          "per-regime sums; reported by --run-report")
     pv.add_argument("--run-report", default=None, metavar="PATH",
-                    help="write a JSON with the run's 'fleet' and "
-                         "'precision' sections after the run")
+                    help="write the run report (the JAX package's RunReport "
+                         "schema: config, plan, device, 'fleet' and "
+                         "'precision' sections) after the run")
     pv.add_argument("--kernel-impl", choices=["auto", "exact", "table"],
                     default="auto",
                     help="transcendental kernels of the solar / pv models: "
@@ -119,6 +120,22 @@ def _parser() -> argparse.ArgumentParser:
                          "fields to 1 Hz (models/solar.py "
                          "STRIDE_MAX_ABS_ERR); 1 = every second, 0 = auto "
                          "(1)")
+    pv.add_argument("--block-impl",
+                    choices=["auto", "wide", "scan", "scan2"],
+                    default="auto",
+                    help="reduce/ensemble block formulation: wide "
+                         "materialises each block's meter and pv and folds "
+                         "them with the K4 merges; scan and scan2 fold "
+                         "inside the block step; auto = scan")
+    pv.add_argument("--blocks-per-dispatch", type=int, default=0,
+                    help="blocks whose inputs go to the card in one copy "
+                         "and whose launches are enqueued back to back: "
+                         "0 = auto (1); the same results for every K")
+    pv.add_argument("--rng-batch", choices=["auto", "scan", "block"],
+                    default="auto",
+                    help="second-noise draws per minute tile (scan) or "
+                         "hoisted per block (block): the same bits; "
+                         "auto = scan")
     pv.add_argument("--output-overlap", choices=["auto", "off"],
                     default="auto",
                     help="auto: dispatch block N+1 before writing block N's "
@@ -243,7 +260,9 @@ def main(argv=None) -> int:
               output=args.output, output_overlap=args.output_overlap,
               device=args.device, fleet=fleet, analytics=args.analytics,
               run_report=args.run_report, kernel_impl=args.kernel_impl,
-              geom_stride=int(args.geom_stride))
+              geom_stride=int(args.geom_stride), block_impl=args.block_impl,
+              blocks_per_dispatch=args.blocks_per_dispatch,
+              rng_batch=args.rng_batch)
     except ValueError as e:
         raise SystemExit(f"pvsim: {e}") from e
     return 0

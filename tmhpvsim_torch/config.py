@@ -6,11 +6,13 @@ the same run in both packages.  The port implements one slice of that
 space — a shared site, a per-chain ``SiteGrid`` or a heterogeneous
 ``FleetParams`` fleet, float32, threefry2x32, exact or table
 transcendentals (``kernel_impl``), per-second or strided solar geometry
-(``geom_stride``), the scan formulation, trace / reduce / ensemble output
-with reduce-mode telemetry and fleet analytics, per-block dispatch — and
-every field outside it raises
-``NotImplementedError`` when it is set to anything but its default (or a
-value that means the same run).  Nothing is silently ignored.
+(``geom_stride``), the wide, scan and scan2 formulations with either
+reduce topology (``block_impl``, ``stats_fusion``), any ``scan_unroll``,
+``rng_batch`` and ``blocks_per_dispatch``, trace / reduce / ensemble
+output with reduce-mode telemetry and fleet analytics — and every field
+outside it raises ``NotImplementedError`` when it is set to anything but
+its default (or a value that means the same run).  Nothing is silently
+ignored.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from __future__ import annotations
 import csv
 import dataclasses
 import math
+import numbers
 from typing import Optional
 
 import numpy as np
@@ -198,22 +201,19 @@ class ModelOptions:
 _SLICE_VALUES = {
     "output": ("trace", "reduce", "ensemble"),
     "output_overlap": ("auto", "off"),
-    "block_impl": ("auto", "scan"),
     "compute_dtype": ("auto", "f32"),
-    "rng_batch": ("auto", "scan"),
-    "blocks_per_dispatch": (0, 1),
 }
 
 #: fields whose every value belongs to the slice (``telemetry``,
-#: ``analytics`` and ``fleet`` are checked on their own below;
-#: ``kernel_impl`` and ``geom_stride`` by ``resolve_plan``, with the JAX
-#: package's errors)
+#: ``analytics`` and ``fleet`` are checked on their own below; the plan's
+#: fields by ``resolve_plan``, with the JAX package's errors)
 _FREE_FIELDS = frozenset({
     "start", "duration_s", "n_chains", "seed", "n_chains_total",
     "chain_offset", "site", "site_grid", "fleet", "options", "meter_max_w",
     "block_s", "telemetry", "analytics", "analytics_bins",
     "analytics_capacity_w", "analytics_lolp_k", "analytics_thresholds",
-    "serve_batch_sizes", "kernel_impl", "geom_stride",
+    "serve_batch_sizes", "kernel_impl", "geom_stride", "block_impl",
+    "scan_unroll", "stats_fusion", "blocks_per_dispatch", "rng_batch",
 })
 
 #: valid values of SimConfig.telemetry / --telemetry (obs/telemetry.py)
@@ -322,29 +322,62 @@ class SimConfig:
             if not ok:
                 raise NotImplementedError(
                     f"SimConfig.{f.name}={value!r} is outside the torch "
-                    "port's slice (shared site, site grid or fleet, "
-                    "float32, threefry2x32, exact kernels, scan "
-                    "formulation, per-block dispatch)")
+                    "port's slice: it computes in float32 with "
+                    "threefry2x32 keys (compute_dtype='bf16' and "
+                    "prng_impl='rbg' are still to port) under the static "
+                    "plan, with no autotuner, mesh, pod or phase "
+                    "observers, profiler trace, strict telemetry or "
+                    "checkpoint options")
         if self.block_s % 60 != 0:
             raise ValueError("block_s must be a multiple of 60 (minute grid)")
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """The resolved precision levers of a run (the two ``Plan`` fields of
-    the JAX package the port implements): ``kernel_impl`` 'exact' or
-    'table' (models/tables.py) and ``geom_stride`` 1, 30 or 60
-    (models/solar.py ``STRIDES``)."""
+    """The resolved plan of a run: the ``Plan`` fields of the JAX package
+    that the port implements.
+
+    Two precision levers: ``kernel_impl`` 'exact' or 'table'
+    (models/tables.py) and ``geom_stride`` 1, 30 or 60 (models/solar.py
+    ``STRIDES``).  The formulation: ``block_impl`` 'wide' (the trace
+    launch, then the wide fold or series kernel, kernels/wide.py), 'scan'
+    or 'scan2', and the reduce topology ``stats_fusion`` of the wide
+    formulation ('split': the trace and the fold; 'fused': the block
+    step's acc epilogue, producer, statistics and merge in one launch).
+    Three dispatch knobs that give the same bits: ``scan_unroll``,
+    ``rng_batch`` ('scan' or 'block') and ``blocks_per_dispatch`` (blocks
+    whose inputs go to the card in one copy and whose launches are
+    enqueued back to back).
+
+    'auto' resolves as the JAX package resolves it on an accelerator,
+    whatever the device: ``block_impl`` 'scan', ``stats_fusion`` 'fused',
+    ``rng_batch`` 'scan', ``blocks_per_dispatch`` 0 to 1.  The CPU path
+    runs the card's kernels' plain versions, so the tests cover what the
+    card runs.  'scan' and 'scan2' and every ``scan_unroll`` and
+    ``rng_batch`` run the port's one scan kernel, which draws each
+    minute's random tile in registers (what scan2 and the block hoist are
+    for on the TPU): they give the default run's bits."""
 
     kernel_impl: str = "exact"
     geom_stride: int = 1
+    block_impl: str = "scan"
+    stats_fusion: str = "fused"
+    scan_unroll: int = 8
+    blocks_per_dispatch: int = 1
+    rng_batch: str = "scan"
+
+
+def _is_int(v) -> bool:
+    return isinstance(v, numbers.Integral) and not isinstance(v, bool)
 
 
 def resolve_plan(config: SimConfig) -> Plan:
-    """``config``'s levers resolved as the JAX package resolves them
-    without the autotuner: 'auto' is the exact set and 0 a stride of 1.
-    Raises ``ValueError`` with the JAX package's messages for a value
-    outside the choices or a stride that does not divide ``block_s``."""
+    """``config``'s plan resolved as the JAX package resolves it without
+    the autotuner on an accelerator: 'auto' is the exact set, the scan
+    formulation, the fused topology and per-minute draws, a stride of 0 is
+    1 and 0 blocks per dispatch is 1.  Raises ``ValueError`` with the JAX
+    package's messages for a value outside the choices or a stride that
+    does not divide ``block_s``."""
     ki = config.kernel_impl
     if ki == "auto":
         ki = "exact"
@@ -360,4 +393,33 @@ def resolve_plan(config: SimConfig) -> Plan:
     if gs > 1 and config.block_s % gs:
         raise ValueError(f"geom_stride {gs} must divide block_s "
                          f"{config.block_s}")
-    return Plan(kernel_impl=ki, geom_stride=gs)
+    impl = config.block_impl
+    if impl == "auto":
+        impl = "scan"
+    elif impl not in ("wide", "scan", "scan2"):
+        raise ValueError(
+            f"block_impl must be 'auto', 'wide', 'scan' or 'scan2', "
+            f"got {impl!r}")
+    fusion = config.stats_fusion
+    if fusion == "auto":
+        fusion = "fused"
+    elif fusion not in ("fused", "split"):
+        raise ValueError(
+            f"stats_fusion must be 'auto', 'fused' or 'split', "
+            f"got {fusion!r}")
+    rb = config.rng_batch
+    if rb == "auto":
+        rb = "scan"
+    elif rb not in ("scan", "block"):
+        raise ValueError(
+            f"rng_batch must be 'auto', 'scan' or 'block', got {rb!r}")
+    unroll = config.scan_unroll
+    if not _is_int(unroll) or unroll < 1:
+        raise ValueError(f"scan_unroll must be an int >= 1, got {unroll!r}")
+    k = config.blocks_per_dispatch
+    if not _is_int(k) or k < 0:
+        raise ValueError(
+            f"blocks_per_dispatch must be an int >= 0 (0 = auto), got {k!r}")
+    return Plan(kernel_impl=ki, geom_stride=gs, block_impl=impl,
+                stats_fusion=fusion, scan_unroll=int(unroll),
+                blocks_per_dispatch=max(1, int(k)), rng_batch=rb)

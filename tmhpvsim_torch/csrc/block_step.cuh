@@ -141,35 +141,21 @@
 #include <type_traits>
 
 #include "consts.cuh"
+#include "fold.cuh"
 #include "threefry.cuh"
 #ifdef TMHPVSIM_TABLE_SET
 #include "tables.cuh"
 #endif
 
 #define TILE 60
-#define THREADS 128
-#define WARPS (THREADS / 32)
 
 enum Epilogue { ACC = 0, SERIES = 1, TRACE = 2, SCEN = 3 };
 
-// per-CTA partial leaves: telemetry 6 per field x 4 fields + the covered
-// count; analytics (see FltLeaf); per cohort 6 (count, sums of meter, pv,
-// residual, min, max of residual)
-#define TEL_LEAVES 25
-#define TEL_CHAIN_I 9
-#define TEL_CHAIN_F 16
-#define CSI_BINS 8
-enum FltLeaf { F_COUNT = 0, F_MIN, F_MAX, F_LOLS, F_LOLE, F_R1, F_R2, F_R3,
-               F_COV, F_SM, F_SP, F_SR, F_CSM, F_CSP, F_CSR, FLT_LEAVES };
-#define FLT_CHAIN_I 8
-#define FLT_CHAIN_F 14
-#define COH_LEAVES 6
 // scenario: per-(scenario, chain) risk leaves kept between tiles (int,
 // float), and the per-(CTA, scenario) partial row
 #define SCN_CHAIN_I 7
 #define SCN_CHAIN_F 8
 #define SCN_LEAVES 8
-enum Kind { K_SUM = 0, K_MIN = 1, K_MAX = 2 };
 
 // one second's calendar: global second, rebased indices and fractions
 struct Cal {
@@ -229,30 +215,6 @@ enum RowFStride { TDOY = 3, SAMP_DAY2000, SAMP_SEC, SAMP_DOY };
 enum Geom { SHARED = 0, SITE = 1, STRIDED = 2 };
 // the most stride samples a 60-second tile touches (stride 30)
 #define MAX_SAMP 3
-
-// the observers' arguments (acc epilogue; ignored by the others)
-struct Obs {
-  // K8 telemetry
-  int tel_full;
-  double* tel_part;      // (n_ctas, TEL_LEAVES)
-  int* csi_hist;         // (CSI_BINS,), zeroed by the caller
-  float* tel_count;      // (1,)
-  int* tel_chain_i;      // optional (TEL_CHAIN_I, n)
-  float* tel_chain_f;    // optional (TEL_CHAIN_F, n)
-  // K9 analytics
-  int flt_full, bins, n_thr, lolp_k, n_cohorts, hist_shared, coh_shared;
-  int ramp_w[3];
-  float lo, inv_w, capacity;
-  const float* thr;      // (n_thr,)
-  int* res_hist;         // (bins + 2,), zeroed by the caller
-  int* exceed;           // (n_thr + 1,), zeroed
-  int* cohort_hist;      // (n_cohorts, bins + 2), zeroed
-  const int* cohort;     // (n,)
-  double* flt_part;      // (n_ctas, FLT_LEAVES)
-  double* coh_part;      // (n_ctas, n_cohorts, COH_LEAVES)
-  int* flt_chain_i;      // optional (FLT_CHAIN_I, n)
-  float* flt_chain_f;    // optional (FLT_CHAIN_F, n)
-};
 
 // the scenario epilogue's arguments
 struct Scen {
@@ -592,34 +554,6 @@ __device__ __forceinline__ float power(float csi, const Phys& S,
   return fmaxf(ac, 0.0f);
 }
 
-// one telemetry field's per-chain leaves (obs/telemetry.py fold_second)
-struct TelField {
-  int nan = 0, nf = 0;
-  float mn = FLT_MAX, mx = -FLT_MAX, sum = 0.0f, sumsq = 0.0f;
-
-  __device__ __forceinline__ void fold(float v, bool valid) {
-    const bool use = valid && isfinite(v);
-    nan += (valid && v != v) ? 1 : 0;
-    nf += (valid && !use) ? 1 : 0;
-    mn = fminf(mn, use ? v : FLT_MAX);
-    mx = fmaxf(mx, use ? v : -FLT_MAX);
-    const float v0 = use ? v : 0.0f;
-    sum = sum + v0;
-    // the JAX scan contracts sumsq + v0 * v0 into a multiply-add
-    sumsq = fmaf(v0, v0, sumsq);
-  }
-};
-
-// the analytics per-chain leaves (obs/analytics.py fold_second)
-struct FltChain {
-  int n_use = 0, lol_run = 0, lol_s = 0, lol_e = 0, cov = 0;
-  int seen[3] = {0, 0, 0};
-  float mn = FLT_MAX, mx = -FLT_MAX;
-  float ramp[3] = {-FLT_MAX, -FLT_MAX, -FLT_MAX};
-  float prev[3] = {0.0f, 0.0f, 0.0f};
-  float sm = 0.0f, sp = 0.0f, sr = 0.0f, cm = 0.0f, cp = 0.0f, cr = 0.0f;
-};
-
 // one (scenario, chain) row of the scenario fold: the seven statistics
 // and the risk leaves (obs/analytics.py fold_second at level risk)
 struct ScnRow {
@@ -631,54 +565,6 @@ struct ScnRow {
   float ramp[3] = {-FLT_MAX, -FLT_MAX, -FLT_MAX};
   float prev[3] = {0.0f, 0.0f, 0.0f};
 };
-
-template <int KIND>
-__device__ __forceinline__ double combine(double x, double y) {
-  return KIND == K_SUM ? x + y : (KIND == K_MIN ? fmin(x, y) : fmax(x, y));
-}
-
-// one leaf over the warp: an xor butterfly, the same order every run
-template <int KIND>
-__device__ __forceinline__ double warp_reduce(double v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = combine<KIND>(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-// the CTA's partial row of L leaves: each warp reduces every leaf, lane 0
-// stages it, then thread l combines leaf l over the warps in order
-template <int L>
-__device__ __forceinline__ void cta_partials(double (&v)[L],
-                                             const int (&kind)[L],
-                                             double* s_stage, double* row) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int l = 0; l < L; ++l) {
-    double x = kind[l] == K_SUM   ? warp_reduce<K_SUM>(v[l])
-               : kind[l] == K_MIN ? warp_reduce<K_MIN>(v[l])
-                                  : warp_reduce<K_MAX>(v[l]);
-    if (lane == 0) s_stage[warp * L + l] = x;
-  }
-  __syncthreads();
-  for (int l = threadIdx.x; l < L; l += blockDim.x) {
-    double x = s_stage[l];
-    for (int w = 1; w < WARPS; ++w) {
-      const double y = s_stage[w * L + l];
-      x = kind[l] == K_SUM ? x + y : (kind[l] == K_MIN ? fmin(x, y)
-                                                        : fmax(x, y));
-    }
-    row[l] = x;
-  }
-  __syncthreads();
-}
-
-// a shared histogram's counts added to its global copy (one atomic per
-// non-zero slot), when it was counted in shared memory
-__device__ __forceinline__ void flush_hist(const int* s, int* g, int len) {
-  for (int k = threadIdx.x; k < len; k += blockDim.x)
-    if (s[k]) atomicAdd(&g[k], s[k]);
-}
 
 template <class KS, int EPI, int GEO, bool TEL, bool FLT>
 __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
@@ -913,36 +799,8 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
         }
         if constexpr (FLT) {  // K9: obs/analytics.py fold_second
           const float r = residual;
-          const bool use = valid && isfinite(r);
-          if (use) {
-            f.n_use += 1;
-            float b = (r - a.o.lo) * a.o.inv_w;
-            b = fminf(fmaxf(b, -1.0f), (float)a.o.bins);
-            const int idx = (int)floorf(b) + 1;
-            atomicAdd(&hist[idx], 1);
-            int slot = 0;
-            for (int j = 0; j < a.o.n_thr; ++j) slot += a.o.thr[j] < r ? 1 : 0;
-            atomicAdd(&exc[slot], 1);
-            if (coh_hist != nullptr) atomicAdd(&coh_hist[cohort * nb + idx], 1);
-          }
-          f.mn = fminf(f.mn, use ? r : FLT_MAX);
-          f.mx = fmaxf(f.mx, use ? r : -FLT_MAX);
-          f.lol_run = (use && r > a.o.capacity) ? f.lol_run + 1 : 0;
-          f.lol_e += f.lol_run == a.o.lolp_k ? 1 : 0;
-          f.lol_s += f.lol_run >= a.o.lolp_k ? 1 : 0;
-#pragma unroll
-          for (int k = 0; k < 3; ++k) {
-            const int w = a.o.ramp_w[k];
-            if (w == 1 || (S.t + 1) % w == 0) {
-              if (use && f.seen[k] > 0)
-                f.ramp[k] = fmaxf(f.ramp[k], fabsf(r - f.prev[k]));
-              if (use) f.prev[k] = r;
-              f.seen[k] = use ? 1 : 0;
-            }
-          }
-          f.sm = f.sm + (use ? meter : 0.0f);
-          f.sp = f.sp + (use ? ac : 0.0f);
-          f.sr = f.sr + (use ? r : 0.0f);
+          const bool use = flt_second(f, a.o, meter, ac, r, valid, S.t, hist,
+                                      exc, coh_hist, cohort);
           if (a.o.flt_full) {
             const bool cv = covered && use;
             f.cov += cv ? 1 : 0;
@@ -1131,35 +989,7 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
   // reduce_chainwise, first pass: the CTA's partial rows (every thread
   // takes part; a dead thread holds the identities)
   if constexpr (TEL) {
-    if (live && a.o.tel_chain_i != nullptr) {
-      for (int k = 0; k < 4; ++k) {
-        a.o.tel_chain_i[(2 * k) * n + i] = tel[k].nan;
-        a.o.tel_chain_i[(2 * k + 1) * n + i] = tel[k].nf;
-        a.o.tel_chain_f[(4 * k) * n + i] = tel[k].mn;
-        a.o.tel_chain_f[(4 * k + 1) * n + i] = tel[k].mx;
-        a.o.tel_chain_f[(4 * k + 2) * n + i] = tel[k].sum;
-        a.o.tel_chain_f[(4 * k + 3) * n + i] = tel[k].sumsq;
-      }
-      a.o.tel_chain_i[8 * n + i] = occ;
-    }
-    double v[TEL_LEAVES];
-    int kind[TEL_LEAVES];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      v[6 * k] = tel[k].nan;
-      v[6 * k + 1] = tel[k].nf;
-      v[6 * k + 2] = tel[k].mn;
-      v[6 * k + 3] = tel[k].mx;
-      v[6 * k + 4] = tel[k].sum;
-      v[6 * k + 5] = tel[k].sumsq;
-      kind[6 * k] = kind[6 * k + 1] = kind[6 * k + 4] = kind[6 * k + 5] =
-          K_SUM;
-      kind[6 * k + 2] = K_MIN;
-      kind[6 * k + 3] = K_MAX;
-    }
-    v[24] = occ;
-    kind[24] = K_SUM;
-    cta_partials(v, kind, s_stage, a.o.tel_part + blockIdx.x * TEL_LEAVES);
+    tel_epilogue(tel, occ, a.o, n, i, live, s_stage);
     flush_hist(s_csi, a.o.csi_hist, CSI_BINS);
     if (blockIdx.x == 0 && threadIdx.x == 0) {
       // the count leaf: valid seconds x n, added in float32 per second
@@ -1170,64 +1000,16 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
     }
   }
   if constexpr (FLT) {
-    if (live && a.o.flt_chain_i != nullptr) {
-      const int vi[FLT_CHAIN_I] = {f.lol_s,   f.lol_e,   f.lol_run, f.seen[0],
-                                   f.seen[1], f.seen[2], f.cov,     f.n_use};
-      const float vf[FLT_CHAIN_F] = {f.mn,      f.mx,      f.ramp[0],
-                                     f.ramp[1], f.ramp[2], f.prev[0],
-                                     f.prev[1], f.prev[2], f.sm,
-                                     f.sp,      f.sr,      f.cm,
-                                     f.cp,      f.cr};
-      for (int k = 0; k < FLT_CHAIN_I; ++k) a.o.flt_chain_i[k * n + i] = vi[k];
-      for (int k = 0; k < FLT_CHAIN_F; ++k) a.o.flt_chain_f[k * n + i] = vf[k];
-    }
-    double v[FLT_LEAVES] = {(double)f.n_use, f.mn, f.mx, (double)f.lol_s,
-                            (double)f.lol_e, f.ramp[0], f.ramp[1], f.ramp[2],
-                            (double)f.cov, f.sm, f.sp, f.sr, f.cm, f.cp, f.cr};
-    int kind[FLT_LEAVES];
-#pragma unroll
-    for (int k = 0; k < FLT_LEAVES; ++k) kind[k] = K_SUM;
-    kind[F_MIN] = K_MIN;
-    kind[F_MAX] = kind[F_R1] = kind[F_R2] = kind[F_R3] = K_MAX;
-    cta_partials(v, kind, s_stage, a.o.flt_part + blockIdx.x * FLT_LEAVES);
+    flt_epilogue(f, true, a.o, n, i, live, s_stage);
     if (a.o.hist_shared) {
       flush_hist(s_dyn, a.o.res_hist, nb);
       flush_hist(s_dyn + nb, a.o.exceed, ne);
     }
-    const int C = a.o.n_cohorts;
-    if (C) {
+    if (a.o.n_cohorts) {
       if (a.o.coh_shared)
         flush_hist(s_dyn + (a.o.hist_shared ? nb + ne : 0), a.o.cohort_hist,
-                   C * nb);
-      // per cohort over the CTA's chains in chain order
-      s_cid[threadIdx.x] = live ? cohort : -1;
-      s_cuse[threadIdx.x] = f.n_use;
-      s_cval[0][threadIdx.x] = f.sm;
-      s_cval[1][threadIdx.x] = f.sp;
-      s_cval[2][threadIdx.x] = f.sr;
-      s_cval[3][threadIdx.x] = f.mn;
-      s_cval[4][threadIdx.x] = f.mx;
-      __syncthreads();
-      for (int c = threadIdx.x; c < C; c += blockDim.x) {
-        double cnt = 0.0, sm = 0.0, sp = 0.0, sr = 0.0;
-        float mn = FLT_MAX, mx = -FLT_MAX;
-        for (int k = 0; k < THREADS; ++k) {
-          if (s_cid[k] != c) continue;
-          cnt += s_cuse[k];
-          sm += s_cval[0][k];
-          sp += s_cval[1][k];
-          sr += s_cval[2][k];
-          mn = fminf(mn, s_cval[3][k]);
-          mx = fmaxf(mx, s_cval[4][k]);
-        }
-        double* row = a.o.coh_part + ((int64_t)blockIdx.x * C + c) * COH_LEAVES;
-        row[0] = cnt;
-        row[1] = sm;
-        row[2] = sp;
-        row[3] = sr;
-        row[4] = mn;
-        row[5] = mx;
-      }
+                   a.o.n_cohorts * nb);
+      cohort_partials(f, a.o, live, cohort, s_cid, s_cuse, s_cval);
     }
   }
 }

@@ -28,6 +28,18 @@ and lerps it to 1 Hz — on the host in float64 for a shared site (the
 kernel is unchanged), on the card per chain for a site grid (K6s, the
 block step's strided mode, fed the sample grid's split time).
 
+The formulation (``plan.block_impl``): 'scan' and 'scan2' run the block
+step above (the port's one scan kernel draws each minute's random tile in
+registers, so 'scan2', ``scan_unroll`` and ``rng_batch`` give the same
+bits); 'wide' materialises each block's time-major ``(block_s, n)``
+meter and pv with the trace launch, then folds them with the K4 merges
+(kernels/wide.py): the statistics, or with an observer on the wide
+telemetry and fleet folds, into ``acc`` (``stats_fusion='split'``; 'fused'
+is the acc launch, producer, statistics and merge in one), and per
+second the sums over chains in ensemble mode.  ``blocks_per_dispatch``
+groups blocks: a group's inputs reach the card in one copy and its
+launches are enqueued back to back.
+
 A heterogeneous fleet (``config.fleet``) adds K7: each chain's Markov
 steps come from its weather regime's table (in K2) and its pv and meter
 take its capacity, inverter-limit and demand transforms (in every
@@ -67,12 +79,18 @@ from tmhpvsim_torch import rng
 from tmhpvsim_torch.config import SITE_FIELDS, SimConfig, resolve_plan
 from tmhpvsim_torch.kernels import block_step as k3
 from tmhpvsim_torch.kernels import threefry as k1
+from tmhpvsim_torch.kernels import wide
 from tmhpvsim_torch.kernels import windows as k2
 from tmhpvsim_torch.models import clearsky_index as ci
 from tmhpvsim_torch.models import renewal, solar
 from tmhpvsim_torch.models.timegrid import TimeGridSpec
 from tmhpvsim_torch.obs import analytics as flt
 from tmhpvsim_torch.obs import telemetry as tel
+
+#: BlockInputs' tensors, in the order ``to_device`` packs them
+_DEVICE_FIELDS = ("mh_idx", "mh_frac", "rows_i", "rows_f")
+_TORCH_DTYPES = {np.dtype(np.int32): torch.int32,
+                 np.dtype(np.float32): torch.float32}
 
 #: Reduce-mode statistics: name -> (reduction kind, dtype kind); the
 #: accumulator, the ensemble fold and the summary-CSV columns follow it.
@@ -418,30 +436,44 @@ class Simulation:
             rows_i=rows_i, rows_f=rows_f,
             epoch=np.asarray(blk.epoch, np.int64))
 
-    def to_device(self, h: HostArrays) -> BlockInputs:
-        """Move one block's numpy inputs to the device: on the card through
-        pinned buffers with non-blocking copies on the current stream (the
-        caching host allocator keeps a pinned buffer from reuse until its
-        copy has run)."""
-        def put(a):
-            t = torch.from_numpy(a)
-            if self.device.type == "cuda":
-                return t.pin_memory().to(self.device, non_blocking=True)
-            return t
-
-        return BlockInputs(bounds=h.bounds, mh_idx=put(h.mh_idx),
-                           mh_frac=put(h.mh_frac), rows_i=put(h.rows_i),
-                           rows_f=put(h.rows_f), epoch=h.epoch)
+    def to_device(self, hs: list) -> list:
+        """Move blocks' numpy inputs (a list of HostArrays) to the device:
+        every array of every block packed into one buffer and, on the
+        card, through one pinned buffer in one non-blocking copy on the
+        current stream (the caching host allocator keeps a pinned buffer
+        from reuse until its copy has run).  Returns a BlockInputs per
+        block, whose tensors are views of that buffer."""
+        arrays = [np.ascontiguousarray(getattr(h, f)) for h in hs
+                  for f in _DEVICE_FIELDS]
+        ends = np.cumsum([0] + [a.nbytes for a in arrays])
+        buf = torch.empty(int(ends[-1]), dtype=torch.uint8,
+                          pin_memory=self.device.type == "cuda")
+        packed = buf.numpy()
+        for a, lo, hi in zip(arrays, ends[:-1], ends[1:]):
+            packed[lo:hi] = a.view(np.uint8).ravel()
+        if self.device.type == "cuda":
+            buf = buf.to(self.device, non_blocking=True)
+        views = [buf[lo:hi].view(_TORCH_DTYPES[a.dtype]).view(a.shape)
+                 for a, lo, hi in zip(arrays, ends[:-1], ends[1:])]
+        k = len(_DEVICE_FIELDS)
+        return [BlockInputs(h.bounds, *views[k * j:k * j + k], h.epoch)
+                for j, h in enumerate(hs)]
 
     def host_inputs(self, block_i: int) -> BlockInputs:
         """``host_arrays`` of the block, on the device."""
-        return self.to_device(self.host_arrays(block_i))
+        return self.to_device([self.host_arrays(block_i)])[0]
 
-    def _inputs_ahead(self, block_i: int):
-        """The loops' one-block lookahead: called once block ``block_i -
-        1`` is enqueued, so the host computes ``block_i``'s inputs while
-        the card runs the previous block (past the last block: ``None``)."""
-        return self.host_inputs(block_i) if block_i < self.n_blocks else None
+    def _inputs_ahead(self, block_i: int) -> list:
+        """The loops' lookahead: the inputs of the dispatch group starting
+        at ``block_i`` (``plan.blocks_per_dispatch`` blocks, fewer at the
+        end; none past the last block), computed and uploaded together.
+        Called once the previous group is enqueued, so the host computes
+        them while the card runs it."""
+        stop = min(block_i + self.plan.blocks_per_dispatch, self.n_blocks)
+        if block_i >= stop:
+            return []
+        return self.to_device([self.host_arrays(bi)
+                               for bi in range(block_i, stop)])
 
     # ------------------------------------------------------------------
     # the block step
@@ -490,15 +522,28 @@ class Simulation:
         """One reduce block: K2 windows, then K3 (K6 for a grid) folds
         every second into ``acc``, with the observers (K8, K9) in the same
         launch when they are on; their block deltas land in
-        ``_tel_last`` / ``_fleet_last``.  Returns ``(state, acc)`` (on
-        the card both are updated in place)."""
+        ``_tel_last`` / ``_fleet_last``.  The wide formulation's split
+        topology, and as in the JAX package any wide run with an observer
+        on, instead launches the trace and then the wide fold (K4 merges,
+        with the wide observer folds); its fused topology is the acc
+        launch, producer, statistics and merge in one.  Returns ``(state,
+        acc)`` (on the card both are updated in place)."""
         cfg = self.config
+        obs = self.observers(state)
+        if self.plan.block_impl == "wide" and (
+                obs is not None or self.plan.stats_fusion == "split"):
+            state, meter, pv_ = self.step_trace(state, inputs)
+            acc, out = wide.wide_fold(meter, pv_, inputs.rows_i[0],
+                                      cfg.duration_s, acc, obs)
+            if obs is not None:
+                self._tel_last, self._fleet_last = out["telemetry"], \
+                    out["fleet"]
+            return state, acc
         tables, cc_carry = self._windows(state, inputs)
         tilt, albedo, site = self.geometry_args(state)
         args = (tables, inputs.rows_i, inputs.rows_f, state["k_scan"],
                 state["k_meter"], state["carry"], acc, cfg.duration_s,
                 cfg.meter_max_w, tilt, albedo)
-        obs = self.observers(state)
         fleet = self.fleet_leaves(state)
         ks = self.plan.kernel_impl
         if obs is None:
@@ -514,7 +559,11 @@ class Simulation:
 
     def step_series(self, state, inputs: BlockInputs):
         """One ensemble block: ``(state, meter_sum, pv_sum)``, the sums
-        ``(block_s,)`` over chains per second (padding included)."""
+        ``(block_s,)`` over chains per second (padding included); the wide
+        formulation launches the trace and then the wide series kernel."""
+        if self.plan.block_impl == "wide":
+            state, meter, pv_ = self.step_trace(state, inputs)
+            return (state, *wide.wide_series(meter, pv_))
         tables, cc_carry = self._windows(state, inputs)
         tilt, albedo, site = self.geometry_args(state)
         carry, m_sum, p_sum = k3.block_step_series(
@@ -637,14 +686,15 @@ class Simulation:
         self.state = (self.init_state() if state is None
                       else _clone(state))
         self.state_block = start_block
-        nxt = self._inputs_ahead(start_block)
+        group, g0 = self._inputs_ahead(start_block), start_block
         pend = None
         for bi in range(start_block, self.n_blocks):
-            inputs = nxt
+            inputs = group[bi - g0]
             self.state, a, b = step(self.state, inputs)
             self.state_block = bi + 1
             cur = (bi, inputs.epoch, (self._to_host(a), self._to_host(b)))
-            nxt = self._inputs_ahead(bi + 1)
+            if bi + 1 == g0 + len(group):
+                group, g0 = self._inputs_ahead(bi + 1), bi + 1
             if not self._output_overlap:
                 yield self._gather_result(cur, make_result)
                 continue
@@ -691,12 +741,20 @@ class Simulation:
         Returns a dict of ``(n_chains,)`` numpy arrays, one per
         ``REDUCE_STATS`` entry.  ``state``/``acc``/``start_block`` resume a
         run (``acc`` is required with ``start_block > 0``);
-        ``on_block(block_index, state, acc)`` runs after each block.  The
-        host's inputs of block bi+1 are computed while block bi runs
-        (``_inputs_ahead``).  With the observers on, each block's
-        analytics delta is merged into the run total on the device; the
-        host reads the totals (``fleet_summary``) and the last block's
-        telemetry (``tel_summary``) when asked."""
+        ``on_block(block_index, state, acc)`` runs after each block.
+
+        Blocks go in dispatch groups of ``plan.blocks_per_dispatch`` (the
+        last one may be shorter): a group's host inputs are computed while
+        the card runs the previous group and reach the card in one copy
+        (``_inputs_ahead``), and its blocks are enqueued back to back.  As
+        in the JAX package's K-block dispatch, ``on_block`` then runs for
+        each block of the group after the group, with the group's end
+        state and the block's own accumulator (a copy kept only when a
+        callback is given); the results are the same bits whatever the
+        group size.  With the observers on, each block's analytics delta
+        is merged into the run total on the device; the host reads the
+        totals (``fleet_summary``) and the last block's telemetry
+        (``tel_summary``) when asked."""
         if start_block > 0 and acc is None:
             raise ValueError(
                 "resuming run_reduced needs the accumulator: pass acc= "
@@ -705,17 +763,24 @@ class Simulation:
         acc = self.init_reduce_acc() if acc is None else _clone(acc)
         self.state = state
         self.state_block = start_block
-        nxt = self._inputs_ahead(start_block)
-        for bi in range(start_block, self.n_blocks):
-            state, acc = self.step_acc(state, nxt, acc)
-            nxt = self._inputs_ahead(bi + 1)
+        bi, group = start_block, self._inputs_ahead(start_block)
+        while group:
+            snaps = []
+            for inputs in group:
+                state, acc = self.step_acc(state, inputs, acc)
+                if self._analytics != "off":
+                    self._fleet_run = flt.merge(self._fleet_run,
+                                                self._fleet_last)
+                if on_block is not None and len(group) > 1:
+                    snaps.append(_clone(acc))
+            k = len(group)
+            group = self._inputs_ahead(bi + k)
             self.state = state
-            self.state_block = bi + 1
-            if self._analytics != "off":
-                self._fleet_run = flt.merge(self._fleet_run,
-                                            self._fleet_last)
+            self.state_block = bi + k
             if on_block is not None:
-                on_block(bi, state, acc)
+                for j in range(k):
+                    on_block(bi + j, state, snaps[j] if snaps else acc)
+            bi += k
         self._last_acc = acc
         return {k: v.cpu().numpy() for k, v in acc.items()}
 
@@ -744,16 +809,18 @@ class Simulation:
 
     def precision_doc(self):
         """The run report's ``precision`` section when a lever is off its
-        default (``kernel_impl`` 'table' or ``geom_stride`` > 1), else
-        None; the JAX package's keys, with its defaults for the levers
-        the port does not have (float32, per-minute RNG draws)."""
-        if self.plan.kernel_impl == "exact" and self.plan.geom_stride == 1:
+        default (``kernel_impl`` 'table', ``rng_batch`` 'block' or
+        ``geom_stride`` > 1), else None; the JAX package's keys, with
+        float32 for the one lever the port does not have."""
+        p = self.plan
+        if p.kernel_impl == "exact" and p.rng_batch == "scan" and \
+                p.geom_stride == 1:
             return None
         return {
             "compute_dtype": "f32",
-            "kernel_impl": self.plan.kernel_impl,
-            "rng_batch": "scan",
-            "geom_stride": self.plan.geom_stride,
+            "kernel_impl": p.kernel_impl,
+            "rng_batch": p.rng_batch,
+            "geom_stride": p.geom_stride,
             "telemetry": self._telemetry,
             "output_overlap": bool(self._output_overlap),
         }

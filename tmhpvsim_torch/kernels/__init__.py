@@ -8,18 +8,22 @@ with its cross-CTA sum, and the trace), K6 (per-chain site geometry), K7
 chainwise collapse, K10 (the scenario fold of scenario serving) and K6s
 (strided site geometry), one template over kernel set, epilogue,
 geometry mode and observers, whose Table instantiations inline K11 (the
-table transcendentals, also on their own in kernels/tables.py).  Each
+table transcendentals, also on their own in kernels/tables.py); and the
+K4 merges of the wide formulation (kernels/wide.py: the statistics fold
+with the wide observer folds, and the per-second series).  Each
 wrapper runs its plain version on CPU tensors and its kernel on CUDA
 tensors, and counts its launches.
 """
 
 from tmhpvsim_torch.kernels import block_step as _block_step
 from tmhpvsim_torch.kernels import tables as _tables
+from tmhpvsim_torch.kernels import wide as _wide
 from tmhpvsim_torch.kernels.threefry import K1
 from tmhpvsim_torch.kernels.windows import K2, K7_REGIME
 
 #: every kernel's launch counter, in path order
-COUNTERS = (K1, K2, K7_REGIME) + _block_step.COUNTERS + _tables.COUNTERS
+COUNTERS = (K1, K2, K7_REGIME) + _block_step.COUNTERS + _tables.COUNTERS \
+    + _wide.COUNTERS
 
 
 def reset_counts() -> None:

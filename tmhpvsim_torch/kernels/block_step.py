@@ -404,16 +404,17 @@ def _body_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
     return carry, meter, ac, csi, covered
 
 
-def _stats_fold_plain(acc, rows_i, duration_s, meter, ac, second_hook=None,
-                      valid=None):
-    """The statistics fold second by second (in second order, as the scan
-    adds); ``second_hook(s, valid, residual_s)`` runs after each second's
-    fold (the observers).  ``valid``: a ``(T, n)`` mask in place of the
-    duration mask ``t < duration_s`` (the scenario fold's)."""
+def stats_fold_plain(acc, t, duration_s, meter, ac, second_hook=None,
+                     valid=None):
+    """The statistics fold of time-major ``(T, n)`` meter and pv second by
+    second (in second order, as the scan adds; ``t``: the ``(T,)`` global
+    seconds); ``second_hook(s, valid, residual_s)`` runs after each
+    second's fold (the observers).  ``valid``: a ``(T, n)`` mask in place
+    of the duration mask ``t < duration_s`` (the scenario fold's)."""
     residual = meter - ac
-    T = rows_i.shape[1]
+    T = t.shape[0]
     if valid is None:
-        valid = rows_i[0] < duration_s
+        valid = t < duration_s
     vz = valid.to(torch.float32)
     big = torch.tensor(_BIG, dtype=torch.float32, device=ac.device)
     acc = dict(acc)
@@ -445,7 +446,7 @@ def block_step_plain(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
     carry, meter, ac, _, _ = _body_plain(
         tables, rows_i, rows_f, k_scan, k_meter, carry, meter_max_w,
         surface_tilt, albedo, site, fleet, kernels)
-    return carry, _stats_fold_plain(acc, rows_i, duration_s, meter, ac)
+    return carry, stats_fold_plain(acc, rows_i[0], duration_s, meter, ac)
 
 
 def block_step_obs_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
@@ -484,7 +485,7 @@ def block_step_obs_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
                 pv=ac[s], residual=res, covered=covered[s], t=t_rows[s],
                 valid=ok, cohort=obs.cohort)
 
-    acc = _stats_fold_plain(acc, rows_i, duration_s, meter, ac, hook)
+    acc = stats_fold_plain(acc, rows_i[0], duration_s, meter, ac, hook)
     ta, fa = st["ta"], st["fa"]
     out = {"telemetry": None if ta is None else tel.reduce_chainwise(ta),
            "fleet": None if fa is None else
@@ -566,8 +567,8 @@ def scenario_plain(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
                 st["fa"], "risk", params, meter=m[s], pv=p[s], residual=res,
                 covered=None, t=t_rows[s], valid=ok)
 
-        row = _stats_fold_plain({k: v[b] for k, v in acc.items()}, rows_i,
-                                duration_s, m, p, hook, valid=valid)
+        row = stats_fold_plain({k: v[b] for k, v in acc.items()}, rows_i[0],
+                               duration_s, m, p, hook, valid=valid)
         for k, v in row.items():
             out[k][b] = v
         deltas.append(flt.reduce_chainwise(st["fa"]))

@@ -267,6 +267,109 @@ def fold_second(acc: dict, level: str, params: FleetParams, *, meter, pv,
     return out
 
 
+def fold_wide_chains(params: FleetParams, *, meter, pv, t, duration_s,
+                     cohort=None, n_cohorts: int = 0) -> dict:
+    """The per-chain acc of one block's wide fold: what ``fold_second``
+    at level ``risk`` folds from a zero acc over the block's time-major
+    ``(T, n)`` meter and pv, second by second (``t``: the ``(T,)`` global
+    seconds), vectorised over the block where the order does not matter.
+    Counts and histograms are exact in any order, extrema too; the loss
+    run is ``fold_second``'s counter (a run length from the last
+    non-loss second); the ramp slots pair consecutive seconds of each
+    window's grid; ``cohort_sum_*`` adds each chain's seconds in order in
+    float32.  The wide kernel's per-chain registers (kernels/wide.py)."""
+    T, n = meter.shape
+    dev = meter.device
+    C = int(n_cohorts) if cohort is not None else 0
+    acc = init_acc("risk", n, params=params, cohorts=C, device=dev)
+    r = meter - pv
+    use = (t < duration_s)[:, None] & torch.isfinite(r)
+    uz = use.to(torch.int32)
+    acc["count"] = uz.sum(dtype=torch.int32)
+    lo = _f32(params.lo, dev)
+    b = torch.where(use, (r - lo) * _f32(params.inv_w, dev), _f32(0.0, dev))
+    idx = torch.floor(torch.clamp(b, -1.0, float(params.bins))).to(
+        torch.int64) + 1
+    acc["res_hist"] = torch.bincount(idx[use], minlength=params.bins + 2
+                                     ).to(torch.int32)
+    th = torch.tensor(params.thresholds, dtype=torch.float32, device=dev)
+    slot = torch.searchsorted(th, torch.where(use, r, lo).contiguous())
+    acc["exceed"] = torch.bincount(
+        slot[use], minlength=len(params.thresholds) + 1).to(torch.int32)
+    acc["min_res"] = torch.where(use, r, _BIG).min(0).values
+    acc["max_res"] = torch.where(use, r, -_BIG).max(0).values
+    # the loss run at each second: seconds since the last non-loss one
+    exc = (r > _f32(params.capacity_w, dev)) & use
+    tidx = torch.arange(T, device=dev)[:, None]
+    run = torch.where(exc, tidx - torch.cummax(
+        torch.where(exc, -1, tidx), dim=0).values, 0)
+    acc["lol_events"] = (run == params.lolp_k).sum(0, dtype=torch.int32)
+    acc["lol_seconds"] = (run >= params.lolp_k).sum(0, dtype=torch.int32)
+    acc["lol_run"] = run[-1].to(torch.int32)
+    for w in params.ramp_windows:
+        at = torch.nonzero((t + 1) % w == 0).flatten()
+        if not len(at):
+            continue
+        ra, ua = r[at], use[at]
+        if len(at) > 1:
+            d = torch.where(ua[1:] & ua[:-1], torch.abs(ra[1:] - ra[:-1]),
+                            -_BIG)
+            acc[f"max_ramp_{w}s"] = d.max(0).values
+        # the slots after the grid's last second: its use flag and the
+        # residual of its last used second
+        acc[f"seen_ramp_{w}s"] = ua[-1].to(torch.int32)
+        j = torch.arange(len(at), device=dev)[:, None]
+        last = torch.where(ua, j, -1).max(0).values
+        acc[f"prev_ramp_{w}s"] = torch.where(
+            last >= 0, ra.gather(0, last.clamp_min(0)[None])[0],
+            _f32(0.0, dev))
+    if C:
+        cid = cohort.to(torch.int64)
+        acc["cohort_count"] = acc["cohort_count"].index_add(
+            0, cid, uz.sum(0, dtype=torch.int32))
+        acc["cohort_hist"] = acc["cohort_hist"].index_put(
+            (cid.expand(T, n), idx), uz, accumulate=True)
+        acc["min_cohort_res"] = acc["min_cohort_res"].scatter_reduce(
+            0, cid, acc["min_res"], "amin")
+        acc["max_cohort_res"] = acc["max_cohort_res"].scatter_reduce(
+            0, cid, acc["max_res"], "amax")
+        for name, v in (("meter", meter), ("pv", pv), ("residual", r)):
+            v0 = torch.where(use, v, torch.zeros_like(v))
+            total = acc[f"cohort_sum_{name}"]
+            for s in range(T):
+                total = total + v0[s]
+            acc[f"cohort_sum_{name}"] = total
+    return acc
+
+
+def fold_wide(acc: dict, level: str, params: FleetParams, *, meter, pv,
+              t, duration_s, cohort=None) -> dict:
+    """Fold one block's materialised time-major ``(T, n)`` meter and pv
+    into the collapsed ``acc`` (the JAX package's ``fold_wide``, its
+    arrays transposed): the per-chain fold (``fold_wide_chains``), then
+    ``reduce_chainwise``.  The wide formulation never materialises the
+    cloud state, so the ``full`` level's regime leaves stay unfolded and
+    ``regime_observed`` 0 (``summarize`` reports regimes as unobserved).
+    Loss runs and ramp pairs restart at the block's start, as in the JAX
+    fold.  ``cohort``: the chains' ids, for an acc with cohort leaves."""
+    C = acc["cohort_count"].shape[0] if "cohort_count" in acc else 0
+    if C and cohort is None:
+        raise ValueError("fold_wide: the acc has cohort leaves; pass "
+                         "cohort=")
+    delta = reduce_chainwise(fold_wide_chains(
+        params, meter=meter, pv=pv, t=t, duration_s=duration_s,
+        cohort=cohort if C else None, n_cohorts=C),
+        cohort=cohort if C else None)
+    if level == "full":
+        zero = init_acc("full", params=params, device=meter.device)
+        for k in ("regime_observed", "cov_count", *(
+                f"{p}sum_{f}" for p in ("", "cov_") for f in _SUMMED)):
+            delta[k] = zero[k]
+    kinds = leaf_kinds(acc)
+    op = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum}
+    return {k: op[kinds[k]](acc[k], delta[k]) for k in acc}
+
+
 def reduce_chainwise(acc: dict, cohort=None) -> dict:
     """Collapse a per-chain FleetAcc to the per-block form: the carry-only
     slots dropped, integer leaves summed exactly, extrema taken, float

@@ -1,0 +1,269 @@
+"""The run report (own copy of the parts of the JAX package's obs/report.py
+that assemble and validate the sections the port writes).
+
+A report is the JAX package's schema-versioned RunReport document: the
+same ``kind`` and ``schema_version``, so the repository's readers
+(``tools/fleet_report.py``, ``tools/precision_report.py``, the JAX
+package's ``validate_report``) pick it out and check it.  The port fills
+``device`` (from torch: platform ``gpu`` with the card's name, or
+``cpu``), ``config`` (the SimConfig echo; a site grid or fleet by its
+identity, not its rows), ``plan`` (the resolved plan in the JAX plan
+echo's keys), ``fleet`` (``fleet_summary()``) and ``precision``
+(``precision_doc()``); every other section is None.
+
+``validate_report`` is the JAX validator's top level: required keys,
+types, no unknown keys, the fleet section's cohort rows, and a
+JSON-serialisable document.  The sections the port never writes and has
+no validator for (``cost``, ``mesh``, ``pod``, ``attribution``) are
+refused when they are not None.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+from typing import Optional
+
+import torch
+
+#: the JAX package's RunReport schema version and kind (obs/report.py)
+REPORT_SCHEMA_VERSION = 16
+REPORT_KIND = "tmhpvsim_tpu.run_report"
+
+_NUM = (int, float)
+_OPT_DICT = (dict, type(None))
+
+#: top-level schema: name -> (required, allowed types)
+_TOP_SCHEMA = {
+    "schema_version": (True, int),
+    "kind": (True, str),
+    "app": (True, str),
+    "created_utc": (True, str),
+    "device": (True, dict),
+    "config": (False, _OPT_DICT),
+    "plan": (False, _OPT_DICT),
+    "timing": (False, _OPT_DICT),
+    "checkpoint": (False, _OPT_DICT),
+    "slabs": (False, _OPT_DICT),
+    "realtime": (False, _OPT_DICT),
+    "headline": (False, _OPT_DICT),
+    "metrics": (False, _OPT_DICT),
+    "profile": (False, _OPT_DICT),
+    "processes": (False, (list, type(None))),
+    "telemetry": (False, _OPT_DICT),
+    "streaming": (False, _OPT_DICT),
+    "executor": (False, _OPT_DICT),
+    "fleet": (False, _OPT_DICT),
+    "serving": (False, _OPT_DICT),
+    "resilience": (False, _OPT_DICT),
+    "precision": (False, _OPT_DICT),
+    "probe": (False, _OPT_DICT),
+    "cost": (False, _OPT_DICT),
+    "mesh": (False, _OPT_DICT),
+    "pod": (False, _OPT_DICT),
+    "attribution": (False, _OPT_DICT),
+}
+
+_DEVICE_SCHEMA = {
+    "platform": (True, (str, type(None))),
+    "device_kind": (False, (str, type(None))),
+    "n_devices": (False, int),
+    "process_count": (False, int),
+    "process_index": (False, int),
+    "memory_stats": (False, _OPT_DICT),
+}
+
+_TIMING_SCHEMA = {
+    "compile_s": (False, _NUM + (type(None),)),
+    "steady_block_s": (False, _NUM + (type(None),)),
+    "first_block_s": (False, _NUM + (type(None),)),
+    "n_blocks_timed": (False, int),
+    "site_seconds_per_s": (False, _NUM + (type(None),)),
+    "rate_includes_compile": (False, bool),
+}
+
+#: sections whose validators live in JAX-only modules; the port writes
+#: none of them
+_UNCHECKED = ("cost", "mesh", "pod", "attribution")
+
+
+def _check_fields(doc: dict, schema: dict, where: str,
+                  closed: bool = False) -> None:
+    for key, (required, types) in schema.items():
+        if key not in doc:
+            if required:
+                raise ValueError(f"run report {where}: missing required "
+                                 f"key {key!r}")
+            continue
+        if not isinstance(doc[key], types):
+            names = types if isinstance(types, tuple) else (types,)
+            raise ValueError(
+                f"run report {where}: {key!r} has type "
+                f"{type(doc[key]).__name__}, expected "
+                f"{'/'.join(t.__name__ for t in names)}")
+    if closed:
+        unknown = set(doc) - set(schema)
+        if unknown:
+            raise ValueError(f"run report {where}: unknown keys "
+                             f"{sorted(unknown)}")
+
+
+def validate_fleet_section(sec: dict) -> list:
+    """Shape-check the ``fleet`` section's cohort rows; returns a list of
+    error strings (empty = valid).  A section without cohorts (``cohorts``
+    absent or null) is valid by construction."""
+    errors = []
+    co = sec.get("cohorts")
+    if co is None:
+        return errors
+    if not isinstance(co, list):
+        return [f"cohorts: expected a list or null, "
+                f"got {type(co).__name__}"]
+    for i, row in enumerate(co):
+        if not isinstance(row, dict):
+            errors.append(f"cohorts[{i}]: expected an object")
+            continue
+        for key in ("cohort", "count"):
+            if not isinstance(row.get(key), int):
+                errors.append(f"cohorts[{i}].{key}: expected an integer")
+        for key in ("residual_min", "residual_max", "meter_mean",
+                    "pv_mean", "residual_mean"):
+            if key in row and not isinstance(
+                    row[key], _NUM + (type(None),)):
+                errors.append(f"cohorts[{i}].{key}: expected a number "
+                              "or null")
+        if "quantiles" in row and not isinstance(row["quantiles"],
+                                                 _OPT_DICT):
+            errors.append(f"cohorts[{i}].quantiles: expected an object "
+                          "or null")
+    return errors
+
+
+def validate_report(doc) -> dict:
+    """Validate ``doc`` against the versioned schema; returns it.
+
+    Raises ValueError on: non-dict, wrong kind / schema_version, missing
+    required fields, mistyped fields, unknown top-level keys, a section
+    the port cannot check, or a document json.dumps cannot serialise."""
+    if not isinstance(doc, dict):
+        raise ValueError(f"run report must be a dict, got "
+                         f"{type(doc).__name__}")
+    _check_fields(doc, _TOP_SCHEMA, "top level", closed=True)
+    if doc["kind"] != REPORT_KIND:
+        raise ValueError(f"run report kind {doc['kind']!r} != "
+                         f"{REPORT_KIND!r}")
+    if not 1 <= doc["schema_version"] <= REPORT_SCHEMA_VERSION:
+        raise ValueError(
+            f"run report schema_version {doc['schema_version']!r} outside "
+            f"[1, {REPORT_SCHEMA_VERSION}] (this build); newer documents "
+            "need a newer reader")
+    _check_fields(doc["device"], _DEVICE_SCHEMA, "device")
+    if isinstance(doc.get("timing"), dict):
+        _check_fields(doc["timing"], _TIMING_SCHEMA, "timing")
+    if isinstance(doc.get("fleet"), dict):
+        errors = validate_fleet_section(doc["fleet"])
+        if errors:
+            raise ValueError("run report fleet: " + "; ".join(errors))
+    for key in _UNCHECKED:
+        if doc.get(key) is not None:
+            raise ValueError(f"run report {key}: the port writes no such "
+                             "section and cannot validate it")
+    try:
+        json.dumps(doc)
+    except (TypeError, ValueError) as e:
+        raise ValueError(f"run report is not JSON-serialisable: {e}") from e
+    return doc
+
+
+def device_info(device) -> dict:
+    """The ``device`` section of a run on ``device``: platform ``gpu``
+    with the card's name, the card count and its allocator's byte
+    counts, or ``cpu``."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return {"platform": "gpu",
+                "device_kind": torch.cuda.get_device_name(dev),
+                "n_devices": torch.cuda.device_count(),
+                "process_count": 1, "process_index": 0,
+                "memory_stats": {
+                    "bytes_in_use": int(torch.cuda.memory_allocated(dev)),
+                    "peak_bytes_in_use":
+                        int(torch.cuda.max_memory_allocated(dev))}}
+    return {"platform": "cpu", "device_kind": "cpu", "n_devices": 1,
+            "process_count": 1, "process_index": 0, "memory_stats": None}
+
+
+def _jsonable(v):
+    for cast in (int, float, str):
+        try:
+            return cast(v)
+        except (TypeError, ValueError):
+            continue
+    return repr(v)
+
+
+def config_doc(config) -> Optional[dict]:
+    """JSON-able echo of a SimConfig: a site grid by its size, a fleet by
+    its identity (size, cohort width, content digest), never their rows;
+    tuples as lists."""
+    if config is None:
+        return None
+    doc = {f.name: getattr(config, f.name)
+           for f in dataclasses.fields(config)}
+    for name in ("site", "options"):
+        doc[name] = dataclasses.asdict(doc[name])
+    if config.site_grid is not None:
+        doc["site_grid"] = {"n_sites": len(config.site_grid)}
+    if config.fleet is not None:
+        fp = config.fleet
+        doc["fleet"] = {"n_sites": len(fp), "n_cohorts": fp.n_cohorts,
+                        "digest": fp.digest()}
+    return json.loads(json.dumps(doc, default=_jsonable))
+
+
+def plan_doc(plan) -> Optional[dict]:
+    """The resolved plan in the JAX plan echo's keys: the port computes
+    in float32, runs no chain slabs and has no autotuner."""
+    if plan is None:
+        return None
+    return {"block_impl": plan.block_impl,
+            "scan_unroll": int(plan.scan_unroll),
+            "stats_fusion": plan.stats_fusion,
+            "slab_chains": None,
+            "blocks_per_dispatch": int(plan.blocks_per_dispatch),
+            "compute_dtype": "f32",
+            "kernel_impl": plan.kernel_impl,
+            "rng_batch": plan.rng_batch,
+            "geom_stride": int(plan.geom_stride),
+            "source": "static"}
+
+
+def simulation_report(app: str, sim) -> dict:
+    """The validated report of a finished Simulation run: its device,
+    config and plan, the ``fleet`` section (``fleet_summary()``) and the
+    ``precision`` section (``precision_doc()``); every other section is
+    None."""
+    doc = {k: None for k in _TOP_SCHEMA}
+    doc.update(schema_version=REPORT_SCHEMA_VERSION, kind=REPORT_KIND,
+               app=app,
+               created_utc=time.strftime("%Y-%m-%dT%H:%M:%SZ",
+                                         time.gmtime()),
+               device=device_info(sim.device), config=config_doc(sim.config),
+               plan=plan_doc(sim.plan), fleet=sim.fleet_summary(),
+               precision=sim.precision_doc())
+    return validate_report(doc)
+
+
+def write_report(path: str, doc: dict) -> dict:
+    """Validate and write the report JSON (atomic tmp + rename)."""
+    validate_report(doc)
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(doc, f, indent=1)
+    os.replace(tmp, path)
+    return doc

@@ -88,6 +88,23 @@ def leaf_kinds(acc: dict) -> dict:
             for k in acc}
 
 
+def _fold_field(out: dict, acc: dict, name: str, v, valid) -> None:
+    """One field's per-chain leaves of one second: the NaN and
+    non-finite counts, extrema and sums of the finite valid samples (the
+    sum of squares as one multiply-add)."""
+    isn = v != v
+    use = torch.isfinite(v) & valid
+    out[f"nan_{name}"] = acc[f"nan_{name}"] + (isn & valid).to(torch.int32)
+    out[f"nf_{name}"] = acc[f"nf_{name}"] + (valid ^ use).to(torch.int32)
+    v0 = torch.where(use, v, torch.zeros_like(v))
+    out[f"min_{name}"] = torch.minimum(acc[f"min_{name}"],
+                                       torch.where(use, v, _BIG))
+    out[f"max_{name}"] = torch.maximum(acc[f"max_{name}"],
+                                       torch.where(use, v, -_BIG))
+    out[f"sum_{name}"] = acc[f"sum_{name}"] + v0
+    out[f"sumsq_{name}"] = rng.fma(v0, v0, acc[f"sumsq_{name}"])
+
+
 def fold_second(acc: dict, level: str, *, meter, pv, csi, residual,
                 covered, valid) -> dict:
     """Fold one second of ``(n,)`` vectors into a per-chain acc.
@@ -104,17 +121,7 @@ def fold_second(acc: dict, level: str, *, meter, pv, csi, residual,
     out["count"] = acc["count"] + vz * n
     for name, v in (("meter", meter), ("csi", csi), ("pv", pv),
                     ("residual", residual)):
-        isn = v != v
-        use = torch.isfinite(v) & valid
-        out[f"nan_{name}"] = acc[f"nan_{name}"] + (isn & valid).to(torch.int32)
-        out[f"nf_{name}"] = acc[f"nf_{name}"] + (valid ^ use).to(torch.int32)
-        v0 = torch.where(use, v, torch.zeros_like(v))
-        out[f"min_{name}"] = torch.minimum(
-            acc[f"min_{name}"], torch.where(use, v, _BIG))
-        out[f"max_{name}"] = torch.maximum(
-            acc[f"max_{name}"], torch.where(use, v, -_BIG))
-        out[f"sum_{name}"] = acc[f"sum_{name}"] + v0
-        out[f"sumsq_{name}"] = rng.fma(v0, v0, acc[f"sumsq_{name}"])
+        _fold_field(out, acc, name, v, valid)
     if level == "full":
         fin_c = torch.isfinite(csi)
         bins = torch.clamp(csi / CSI_HIST_WIDTH, 0, CSI_HIST_BINS - 1)
@@ -125,6 +132,54 @@ def fold_second(acc: dict, level: str, *, meter, pv, csi, residual,
         out["occ_cov"] = acc["occ_cov"] + ((covered != 0) & valid).to(
             torch.int32)
     return out
+
+
+def fold_wide_chains(meter, pv, t, duration_s) -> dict:
+    """The per-chain leaves of the wide fold: each chain folds meter, pv
+    and residual of its ``(T, n)`` time-major block second by second, as
+    ``fold_second`` does (csi stays at its identities), zero-initialised.
+    The wide kernel's per-chain registers (kernels/wide.py)."""
+    T, n = meter.shape
+    acc = init_acc("light", n, device=meter.device)
+    out = dict(acc)
+    valid = t < duration_s
+    residual = meter - pv
+    for s in range(T):
+        for name, v in (("meter", meter), ("pv", pv),
+                        ("residual", residual)):
+            _fold_field(out, out, name, v[s], valid[s])
+    return out
+
+
+def fold_wide(acc: dict, level: str, *, meter, pv, t, duration_s) -> dict:
+    """Fold one block's materialised time-major ``(T, n)`` meter and pv
+    into the collapsed ``acc`` (the JAX package's ``fold_wide``, its
+    arrays transposed).
+
+    The wide formulation never materialises csi, so only meter, pv and
+    residual are folded and csi stays unobserved; the ``full`` level's
+    histogram and occupancy stay zero too.  ``count`` adds the valid
+    seconds times the chains, in float32 as the JAX fold takes it.  The
+    per-chain folds (``fold_wide_chains``) are summed over chains in
+    float64 and rounded once, as ``reduce_chainwise`` does."""
+    valid = t < duration_s
+    n = meter.shape[1]
+    delta = reduce_chainwise(fold_wide_chains(meter, pv, t, duration_s))
+    delta["count"] = valid.to(torch.float32).sum() * n
+    if level == "full":
+        delta["csi_hist"] = torch.zeros(CSI_HIST_BINS, dtype=torch.float32,
+                                        device=meter.device)
+        delta["occupancy"] = torch.zeros(2, dtype=torch.float32,
+                                         device=meter.device)
+    return merge(acc, delta)
+
+
+def merge(acc: dict, delta: dict) -> dict:
+    """Two collapsed TelemetryAccs combined leaf by leaf (counts and sums
+    added, extrema taken)."""
+    op = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum}
+    kinds = leaf_kinds(acc)
+    return {k: op[kinds[k]](acc[k], delta[k]) for k in acc}
 
 
 def _sum_f64(v):
