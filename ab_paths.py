@@ -1,0 +1,87 @@
+"""Time reduce paths of one tree of the port on the card, to compare two
+trees (a parent commit unpacked beside the change) in one call.
+
+    python3 ab_paths.py --root DIR --paths F,H8,R-H --reps 3
+
+``--root`` is the directory that holds the ``tmhpvsim_torch`` package to
+time (default: this script's own).  Each path is run once to warm up (the
+kernels' build, the sentinel's first imports), then ``--reps`` times; a
+run's wall is ``run_reduced`` from a synchronised card to a synchronised
+card, as ``chip_smoke.py``'s paths measure it.  Prints one JSON line per
+path: ``{"tree": ..., "path": ..., "walls_s": [...]}``.  Paths (the shapes
+of ``chip_smoke.py``'s paths of the same names):
+
+- R: 65536 chains x 86400 s, shared site, float32, no observer;
+- F: path R's shape on ``FleetParams.synthetic(65536, seed=0)``, telemetry
+  and analytics full;
+- H8: path F's fleet over 3 blocks from 11:00, telemetry full;
+- R-H: path R with ``compute_dtype='bf16'`` and a strict sentinel.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+HEADLINE = dict(start="2019-09-05 00:00:00", duration_s=86400,
+                n_chains=65536, seed=0, block_s=1080, output="reduce")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
+        __file__)))
+    ap.add_argument("--paths", default="R,F,H8,R-H")
+    ap.add_argument("--reps", type=int, default=3)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, os.path.abspath(args.root))
+    import torch
+
+    from tmhpvsim_torch import SimConfig
+    from tmhpvsim_torch.engine.simulation import Simulation
+    from tmhpvsim_torch.fleet import FleetParams
+    from tmhpvsim_torch.kernels import build
+
+    if not torch.cuda.is_available():
+        print("ab_paths: no CUDA card", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    build.build_all()
+    fleet = None
+
+    def config(name):
+        nonlocal fleet
+        if name in ("F", "H8") and fleet is None:
+            fleet = FleetParams.synthetic(HEADLINE["n_chains"], seed=0)
+        return {
+            "R": lambda: dict(HEADLINE),
+            "F": lambda: dict(HEADLINE, fleet=fleet, telemetry="full",
+                              analytics="full"),
+            "H8": lambda: dict(HEADLINE, start="2019-09-05 11:00:00",
+                               duration_s=3 * HEADLINE["block_s"],
+                               fleet=fleet, telemetry="full"),
+            "R-H": lambda: dict(HEADLINE, compute_dtype="bf16",
+                                telemetry_strict=True),
+        }[name]()
+
+    for name in args.paths.split(","):
+        cfg = SimConfig(**config(name))
+        walls = []
+        for rep in range(args.reps + 1):
+            sim = Simulation(cfg, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sim.run_reduced()
+            torch.cuda.synchronize()
+            if rep:
+                walls.append(time.perf_counter() - t0)
+        print(json.dumps({"tree": args.root, "path": name, "walls_s": walls}),
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -61,7 +61,15 @@ Phases (any failure exits non-zero and prints no result line):
    float64 plain sums, a rerun bit-identical) and against K3's acc on the
    same blocks, the wide series against its plain version (rtol 1e-6, a
    rerun bit-identical) and the scan's series kernel; and the wide fused
-   topology (the acc launch) on 2 blocks against path R's;
+   topology (the acc launch) on 2 blocks against path R's; then K12 (the
+   block step under ``compute_dtype='bf16'``) against its plain bf16
+   version at 65536 chains x 2 daylight blocks, bit for bit: acc on a
+   shared site, on path B's grid and, strided with the table set, on path
+   B's grid; the series (sums rtol 1e-6) and the trace on a shared site,
+   the trace on path B's grid;
+   K8 + K9 on path F's fleet (path F-H's launch, checked as K8+K9 above);
+   a difference prints its size in bf16 ULP and the bf16 step it starts
+   at, and fails;
 5. the paths, every launch counter set to 0 just before each and read
    just after; each must launch every kernel it needs:
    R. reduce, shared site: ``run_reduced`` at 65536 chains x 86400 s,
@@ -112,12 +120,25 @@ Phases (any failure exits non-zero and prints no result line):
       --start "2019-09-05 11:00:00" --run-report R``, whose report must
       pass the port's ``validate_report`` and whose plan must name the
       three knobs;
+   R-H. path R with ``compute_dtype='bf16', telemetry_strict=True``:
+      telemetry raised to light, the drift sentinel strict over all 80
+      blocks (verdict ok);
+   A-H. path A on the bf16 path; B-H path B, B-HL path B-L on it; F-H
+      path F on it; C-H path C on it (the per-second paths' block means
+      through a strict sentinel, as the reference checks reduce mode only);
+   R-HW. path R-H with ``block_impl='wide'``: the K4 trace under bf16,
+      then the wide fold with telemetry;
+   G-H. the CLI: ``pvsim OUT.csv --output reduce --compute-dtype bf16
+      --telemetry light --telemetry-strict --chains 4096 --duration 3600
+      --no-realtime --start "2019-09-05 11:00:00" --run-report R``, whose
+      report must validate and name bf16 and the sentinel's verdict;
 6. each kernel and its plain version timed with CUDA events at the main
    paths' shapes (the fleet kernels on path F's noon block; K11 and K6s
    on paths R-T's and B-L's noon blocks, the K10 row reset of
    continuous batching at 16 rows, the wide fold on paths R's and F's
    noon blocks and the wide series on R's, with ``torch.sum(dim=1)``
-   beside it and ``part.sum(1)`` beside ``series_sum``);
+   beside it and ``part.sum(1)`` beside ``series_sum``; K12's
+   instantiations that the bf16 paths launch on their noon blocks);
 7. the port on the card at the JAX suite's ``small_config`` shape against
    the JAX package's results in ``tests/data/torch_port_reference.json``:
    reduce statistics, every per-second ensemble mean, chain 0's trace
@@ -126,7 +147,9 @@ Phases (any failure exits non-zero and prints no result line):
    statistics and fleet summary (counts within a few samples, quantiles
    within one sketch bin, other floats rtol 1e-4); and the same in the
    wide formulation: reduce statistics, the first half hour's ensemble
-   means and the fleet run.
+   means and the fleet run; and under bf16 (paths R-H's and F-H's
+   configurations) the reduce statistics and the fleet run against the
+   JAX package's bf16 runs.
 
 The line before the card line is the ``{"kernels": [...]}`` record; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -1118,17 +1141,18 @@ def check_collapse(partials, n_cohorts):
     return err, rel
 
 
-def phase_k89(dev, levers=None, label="K8+K9"):
+def phase_k89(dev, levers=None, label="K8+K9", path=None):
     """K8 and K9 in one launch, the instantiation path F runs: both
     observers at level full with the fleet's own cohorts, on path F's
     config and two check blocks; then the collapse on its partial rows.
-    ``levers``: the precision levers (path F-L's launch)."""
+    ``levers``: the precision levers or the compute dtype (path F-L's and
+    F-H's launches), ``path``: the path named."""
     fp = fleet_f()
     cfg = SimConfig(**dict(HEADLINE, start=CHECK_START, fleet=fp,
                            telemetry="full", analytics="full",
                            **(levers or {})))
     sim, state, blocks = fleet_blocks(cfg, dev)
-    ks = sim.plan.kernel_impl
+    ks, cd = sim.plan.kernel_impl, sim.plan.compute_dtype
     _, _, site = sim.geometry_args(state)
     fleet = sim.fleet_leaves(state)
     obs = dataclasses.replace(sim.observers(state), per_chain=True)
@@ -1144,7 +1168,8 @@ def phase_k89(dev, levers=None, label="K8+K9"):
     for ins, tables in blocks:
         head = head_of(state, ins, tables)
         common = (cfg.duration_s, cfg.meter_max_w, None, None)
-        args = dict(site=site, fleet=fleet, obs=obs, kernels=ks)
+        args = dict(site=site, fleet=fleet, obs=obs, kernels=ks,
+                    compute_dtype=cd)
         _, acc_k, out_k = k3.block_step_obs(
             *head, clone(state["carry"]), sim.init_reduce_acc(), *common,
             **args)
@@ -1153,7 +1178,7 @@ def phase_k89(dev, levers=None, label="K8+K9"):
             **args)
         _, acc_a = k3.block_step_acc(
             *head, clone(state["carry"]), sim.init_reduce_acc(), *common,
-            site=site, fleet=fleet, kernels=ks)
+            site=site, fleet=fleet, kernels=ks, compute_dtype=cd)
         _, _, out_p = k3.block_step_obs_plain(
             *head, clone(state["carry"]), sim.init_reduce_acc(), *common,
             **args)
@@ -1180,8 +1205,8 @@ def phase_k89(dev, levers=None, label="K8+K9"):
         e, r = check_collapse(out_k["partials"], C)
         c_err, c_rel = max(c_err, e), max(c_rel, r)
     print(f"{label} vs plain on 2 blocks x {cfg.n_chains} fleet sites "
-          f"({site.mode} geometry, {ks} set, both level full, {C} cohorts: "
-          f"path {'F-L' if levers else 'F'}'s launch): "
+          f"({site.mode} geometry, {ks} set, {cd}, both level full, {C} "
+          f"cohorts: path {path or ('F-L' if levers else 'F')}'s launch): "
           f"{n_leaves} per-chain leaves, counts, extrema and histograms "
           f"bit-identical; float sums within {rel:.3g} (relative; "
           f"{err:.3g} absolute) of the float64 plain sums; a rerun "
@@ -3045,6 +3070,604 @@ def phase_timing_wide(dev):
     return out, lib_sum
 
 
+# ---------------------------------------------------------------------------
+# K12: compute_dtype='bf16'
+# ---------------------------------------------------------------------------
+
+#: the bf16 compute path, as its paths run it: telemetry is raised to at
+#: least 'light' and the drift sentinel is strict
+BF16 = dict(compute_dtype="bf16", telemetry_strict=True)
+#: path G-H: the CLI on the bf16 path with strict telemetry and a report
+PATH_GH_CHAINS = 4096
+PATH_GH_ARGS = ["--output", "reduce", "--compute-dtype", "bf16",
+                "--telemetry", "light", "--telemetry-strict", "--chains",
+                str(PATH_GH_CHAINS), "--duration", "3600", "--no-realtime",
+                "--start", "2019-09-05 11:00:00"]
+#: K12's draws per chain-second: the bf16 z is a table lookup (the low
+#: byte of the word, a shift, an index: 3 int32 ops) and the meter's
+#: float32 uniform; the cycle uniform only on a redraw, as K3's
+K12_DRAWS_F = UNIFORM_F + 1
+K12_DRAWS_I = 3
+#: the telemetry sums held to float64: (collapsed leaf, per-chain leaf)
+TEL_SUMS = [(f"{k}_{f}", f"{k}_{f}") for f in ("meter", "csi", "pv",
+                                              "residual")
+            for k in ("sum", "sumsq")]
+
+
+def bf16_ulp(a, b) -> float:
+    """The largest |a - b| in units of the bf16 spacing at |b| (2**(e-7)
+    for b in [2**e, 2**(e+1)))."""
+    d = (a.double() - b.double()).abs()
+    if d.numel() == 0 or float(d.max()) == 0.0:
+        return 0.0
+    e = torch.floor(torch.log2(b.double().abs().clamp_min(2.0 ** -126)))
+    return float((d / torch.pow(2.0, e - 7)).max())
+
+
+def k12_where(head, carry, mw, tilt, alb, site, fleet, ks, pv_k):
+    """Where a K12 launch departs from its plain version: the first
+    (second, chain) whose pv differs, and the source lines of the plain
+    version's bf16 steps whose float32 value lies within one float32 ULP
+    of a bf16 rounding tie there (the steps a float32 difference upstream
+    would round the other way)."""
+    import traceback
+
+    from tmhpvsim_torch.models import bf16 as mx
+
+    _, _, pv_p = k3.trace_plain(*head, clone(carry), mw, tilt, alb,
+                                site=site, fleet=fleet, kernels=ks,
+                                compute_dtype="bf16")
+    bad = (pv_k != pv_p).nonzero()
+    if not len(bad):
+        return "the trace agrees; the draws or the fold differ"
+    s, c = (int(v) for v in bad[0])
+    steps = []
+    orig = mx.M.__init__
+
+    def spy(self, v, kind, raw=None):
+        orig(self, v, kind, raw)
+        if kind == mx.BF16 and raw is not None and raw.dim() == 2:
+            frame = next(f for f in reversed(traceback.extract_stack()[:-1])
+                         if not f.filename.endswith("bf16.py"))
+            steps.append((raw, f"{os.path.basename(frame.filename)}:"
+                               f"{frame.lineno}"))
+
+    mx.M.__init__ = spy
+    try:
+        k3.trace_plain(*head, clone(carry), mw, tilt, alb, site=site,
+                       fleet=fleet, kernels=ks, compute_dtype="bf16")
+    finally:
+        mx.M.__init__ = orig
+    near = []
+    for raw, where in steps:
+        x = raw[min(s, raw.shape[0] - 1), min(c, raw.shape[1] - 1)]
+        x64 = float(x)
+        if x64 == 0.0:
+            continue
+        half = 2.0 ** (np.floor(np.log2(abs(x64))) - 8)   # half a bf16 step
+        ulp = float(torch.nextafter(x, torch.tensor(np.inf)) - x)
+        if abs(abs(x64 - float(mx.rnd(x))) - half) <= ulp:
+            near.append(where)
+    return (f"second {s}, chain {c}: pv {float(pv_k[s, c])} against "
+            f"{float(pv_p[s, c])}; bf16 steps within an ULP of a tie there: "
+            f"{', '.join(dict.fromkeys(near)) or 'none'}")
+
+
+def phase_k12(dev):
+    """K12 against its plain bf16 version at the main paths' shape,
+    65536 chains x 1080 s, 2 daylight blocks each, bit for bit: the acc
+    step with telemetry light, the launch paths R-H, B-H and B-HL make
+    (the plan raises telemetry under bf16), on a shared site (the exact
+    set), on path B's grid (site geometry) and on path B's grid with both
+    levers (strided, table set): statistics, renewal carry, per-chain
+    telemetry leaves, counts and extrema bit for bit, telemetry sums
+    within 1e-6 of the float64 plain sums, and the statistics equal to
+    the no-observer launch's; then the series and the trace on a shared
+    site, the trace on path B's grid, and K8 + K9 on path F's fleet
+    (phase_k89).  A difference prints its size in bf16 ULP and where it
+    starts, and fails.  Returns each check's measured largest difference
+    by its timing key (``(relative, absolute)`` where telemetry sums are
+    held to float64)."""
+    errs = {}
+    for key, label, extra in (
+            ("K12", "acc + K8 light, shared site", {}),
+            ("K12B", "acc + K8 light, site grid", dict(site_grid=grid_b())),
+            ("K12BL", "acc + K8 light, strided",
+             dict(site_grid=grid_b(), **LEVERS))):
+        cfg = SimConfig(**dict(HEADLINE, start=CHECK_START, **BF16, **extra))
+        sim, state, blocks = check_blocks(cfg, dev)
+        tilt, alb, site = sim.geometry_args(state)
+        ks = sim.plan.kernel_impl
+        obs = sim.observers(state)
+        if obs is None or obs.telemetry != "light" or obs.analytics != "off":
+            fail(f"K12 ({label}): the plan's observers are {obs}, not "
+                 "telemetry light alone")
+        obs = dataclasses.replace(obs, per_chain=True)
+        mw = cfg.meter_max_w
+        kw = dict(site=site, kernels=ks, compute_dtype="bf16")
+        acc_k, acc_a, acc_p = (sim.init_reduce_acc() for _ in range(3))
+        carry_k, carry_a, carry_p = (clone(state["carry"]) for _ in range(3))
+        rel = err = 0.0
+        n_leaves = 0
+        for ins, tables in blocks:
+            head = head_of(state, ins, tables)
+            tail = (cfg.duration_s, mw, tilt, alb)
+            start = clone(carry_k)
+            carry_k, acc_k, out_k = k3.block_step_obs(
+                *head, carry_k, acc_k, *tail, obs=obs, **kw)
+            carry_a, acc_a = k3.block_step_acc(*head, carry_a, acc_a, *tail,
+                                               **kw)
+            carry_p, acc_p, out_p = k3.block_step_obs_plain(
+                *head, carry_p, acc_p, *tail, obs=obs, **kw)
+            torch.cuda.synchronize()
+            for name in list(acc_p) + ["carry"]:
+                a, b = (carry_k, carry_p) if name == "carry" else \
+                    (acc_k[name], acc_p[name])
+                same = all(torch.equal(a[k], b[k]) for k in a) \
+                    if name == "carry" else torch.equal(a, b)
+                if not same:
+                    pk = k3.block_step_trace(*head, clone(start), mw, tilt,
+                                             alb, **kw)[2]
+                    ulp = bf16_ulp(a, b) if name != "carry" else None
+                    fail(f"K12 ({label}) {name} differs from the plain "
+                         f"version: {ulp} bf16 ULP at most; "
+                         + k12_where(head, start, mw, tilt, alb, site, None,
+                                     ks, pk))
+                err = max(err, max_abs(a, b) if name != "carry" else
+                          max(max_abs(a[k], b[k]) for k in a))
+            if not (all(torch.equal(acc_k[k], acc_a[k]) for k in acc_k)
+                    and all(torch.equal(carry_k[k], carry_a[k])
+                            for k in carry_k)):
+                fail(f"K12 ({label}): the statistics or the carry differ "
+                     "from the no-observer launch's")
+            n_leaves = check_chain(f"K12 ({label})", out_k["telemetry_chain"],
+                                   out_p["telemetry_chain"])
+            p64 = _plain_sums(out_p["telemetry_chain"], TEL_SUMS)
+            r, e = check_sketch(f"K12 ({label}) telemetry", out_k["telemetry"],
+                                out_p["telemetry"], p64)
+            rel, err = max(rel, r), max(err, e)
+            if float(out_k["telemetry"]["count"]) != \
+                    int((ins.rows_i[0] < cfg.duration_s).sum()) * cfg.n_chains:
+                fail(f"K12 ({label}): the telemetry count misses samples")
+        if float(acc_k["pv_max"].max()) <= 10.0:
+            fail(f"K12 ({label}) check blocks saw no daylight")
+        errs[key] = (rel, err)
+        print(f"K12 ({label}, {ks} set) vs plain on 2 blocks x "
+              f"{cfg.n_chains} chains: 7/7 statistics, the renewal carry, "
+              f"{n_leaves} per-chain telemetry leaves, counts and extrema "
+              f"bit-identical; telemetry sums within {rel:.3g} (relative; "
+              f"{err:.3g} absolute) of the float64 plain sums; the "
+              "statistics and carry equal the no-observer launch's")
+    cfg = SimConfig(**dict(HEADLINE, start=CHECK_START, **BF16))
+    sim, state, blocks = check_blocks(cfg, dev)
+    tilt, alb, _ = sim.geometry_args(state)
+    mw = cfg.meter_max_w
+    carry_s, carry_sp = clone(state["carry"]), clone(state["carry"])
+    carry_t, carry_tp = clone(state["carry"]), clone(state["carry"])
+    err = t_err = 0.0
+    for ins, tables in blocks:
+        head = head_of(state, ins, tables)
+        start = clone(carry_t)
+        carry_s, part = k3.series_partials_cuda(*head, carry_s, mw, tilt, alb,
+                                                compute_dtype="bf16")
+        out = k3.series_sum(part)
+        carry_sp, m_p, p_p = k3.series_plain(*head, carry_sp, mw, tilt, alb,
+                                             compute_dtype="bf16")
+        carry_t, mk, pk = k3.block_step_trace(*head, carry_t, mw, tilt, alb,
+                                              compute_dtype="bf16")
+        carry_tp, mp, pp = k3.trace_plain(*head, carry_tp, mw, tilt, alb,
+                                          compute_dtype="bf16")
+        torch.cuda.synchronize()
+        for what, a, b in (("meter", out[0], m_p), ("pv", out[1], p_p)):
+            if not close(a, b, rtol=1e-6, atol=0.0):
+                fail(f"K12 series {what} sums differ from the plain version:"
+                     f" max abs {max_abs(a, b)}")
+            err = max(err, max_abs(a, b))
+        check_same("K12 series renewal carry", carry_s, carry_sp)
+        t_err = max(t_err, max_abs(mk, mp), max_abs(pk, pp))
+        if not (torch.equal(mk, mp) and torch.equal(pk, pp)):
+            fail(f"K12 trace differs from the plain version: pv "
+                 f"{bf16_ulp(pk, pp)} bf16 ULP at most; "
+                 + k12_where(head, start, mw, tilt, alb, None, None,
+                             "exact", pk))
+        check_same("K12 trace renewal carry", carry_t, carry_tp)
+        del mk, pk, mp, pp
+    print(f"K12 series and trace vs plain on 2 blocks x {cfg.n_chains} "
+          f"chains: per-second sums within rtol 1e-6 (max abs {err:.3g} W), "
+          "every trace value and both renewal carries bit-identical")
+    # the trace on path B's grid: the wide formulation's producer there
+    cfg = SimConfig(**dict(HEADLINE, start=CHECK_START, site_grid=grid_b(),
+                           **BF16))
+    sim, state, blocks = check_blocks(cfg, dev)
+    _, _, site = sim.geometry_args(state)
+    carry_t, carry_tp = clone(state["carry"]), clone(state["carry"])
+    for ins, tables in blocks:
+        head = head_of(state, ins, tables)
+        start = clone(carry_t)
+        carry_t, mk, pk = k3.block_step_trace(*head, carry_t, mw, None, None,
+                                              site=site,
+                                              compute_dtype="bf16")
+        carry_tp, mp, pp = k3.trace_plain(*head, carry_tp, mw, None, None,
+                                          site=site, compute_dtype="bf16")
+        torch.cuda.synchronize()
+        t_err = max(t_err, max_abs(mk, mp), max_abs(pk, pp))
+        if not (torch.equal(mk, mp) and torch.equal(pk, pp)):
+            fail(f"K12 trace (site grid) differs from the plain version: pv "
+                 f"{bf16_ulp(pk, pp)} bf16 ULP at most; "
+                 + k12_where(head, start, mw, None, None, site, None,
+                             "exact", pk))
+        del mk, pk, mp, pp
+    check_same("K12 trace (site grid) renewal carry", carry_t, carry_tp)
+    print(f"K12 trace on path B's grid vs plain on 2 blocks x {cfg.n_chains}"
+          " sites: every value and the renewal carry bit-identical")
+    obs_err, _ = phase_k89(dev, BF16, "K12 K8+K9", path="F-H")
+    return dict(errs, K12S=err, K12T=t_err, K12F=obs_err)
+
+
+def k12_sentinel(name, cfg, blocks, n_chains):
+    """The drift sentinel, strict, over a per-second path's blocks (the
+    reference checks reduce mode only; here each block's meter, pv and
+    residual means stand in for its telemetry summary)."""
+    from tmhpvsim_torch.obs.sentinel import DriftSentinel
+
+    sen = DriftSentinel(cfg, level="light", strict=True)
+    for bi, (meter, pv_, res, n_valid) in enumerate(blocks):
+        fields = {}
+        for f, v in (("meter", meter), ("pv", pv_), ("residual", res)):
+            v = np.asarray(v, np.float64)
+            fields[f] = {"nan": int(np.isnan(v).sum()),
+                         "inf": int(np.isinf(v).sum()), "observed": True,
+                         "mean": float(np.mean(v)), "min": None, "max": None,
+                         "std": 0.0}
+        sen.observe_block(bi, {"count": float(n_valid * n_chains),
+                               "fields": fields})
+    if sen.verdict != "ok":
+        fail(f"path {name}: sentinel verdict {sen.verdict}")
+    return sen.report()
+
+
+def check_sentinel(name, sim, n_blocks):
+    rep = sim.sentinel.report() if sim.sentinel is not None else None
+    if rep is None or rep["verdict"] != "ok" or not rep["strict"] or \
+            rep["blocks_checked"] != n_blocks:
+        fail(f"path {name}: sentinel report {rep}")
+    return rep
+
+
+def phase_path_rh(dev, reduced_r):
+    cfg = SimConfig(**dict(HEADLINE, **BF16))
+    sim = Simulation(cfg, device=dev)
+    if sim.plan.telemetry != "light":
+        fail(f"path R-H: telemetry {sim.plan.telemetry}, not raised to light")
+    reduced, wall, launches = run_path(
+        "R-H", ("sampler_windows", "block_step_bf16", "block_step_tel",
+                "chainwise_collapse"), sim.run_reduced)
+    pv_max = check_reduced("R-H", reduced, cfg.duration_s)
+    rep = check_sentinel("R-H", sim, sim.n_blocks)
+    diff = {k: float(np.max(np.abs(reduced[k].astype(np.float64)
+                                   - reduced_r[k]))
+                     / max(float(np.max(np.abs(reduced_r[k]))), 1.0))
+            for k in reduced}
+    rate = cfg.n_chains * cfg.duration_s / wall
+    print(f"path R-H (reduce, shared site, bf16, telemetry light, strict "
+          f"sentinel): {wall:.3f} s wall, {rate:.6g} site-s/s (incl. init, "
+          f"host inputs, the per-block telemetry read-back and the golden "
+          f"reference); fleet pv_max {pv_max:.2f} W; sentinel "
+          f"{json.dumps(rep)}; field-scale difference from path R (f32): "
+          f"{json.dumps({k: round(v, 6) for k, v in diff.items()})}; "
+          f"launches {launches}")
+    print(f"ensemble (R-H): {json.dumps(sim.ensemble_stats())}")
+    return launches, reduced
+
+
+def phase_path_rhw(dev, reduced_rh):
+    """Path R-H in the wide formulation: the K4 trace under bf16 (float32
+    draws, as the JAX wide step), then the wide fold with telemetry."""
+    cfg = SimConfig(**dict(HEADLINE, block_impl="wide", **BF16))
+    sim = Simulation(cfg, device=dev)
+    reduced, wall, launches = run_path(
+        "R-HW", ("sampler_windows", "block_step_trace_bf16", "wide_fold_tel"),
+        sim.run_reduced)
+    pv_max = check_reduced("R-HW", reduced, cfg.duration_s)
+    rep = check_sentinel("R-HW", sim, sim.n_blocks)
+    diff = max(float(np.max(np.abs(reduced[k].astype(np.float64)
+                                   - reduced_rh[k])))
+               / max(float(np.max(np.abs(reduced_rh[k]))), 1.0)
+               for k in reduced)
+    print(f"path R-HW (path R-H, block_impl=wide): {wall:.3f} s wall, "
+          f"{cfg.n_chains * cfg.duration_s / wall:.6g} site-s/s; fleet "
+          f"pv_max {pv_max:.2f} W; sentinel {json.dumps(rep)}; largest "
+          f"field-scale difference from R-H {diff:.3g} (the wide step draws "
+          f"float32, another stream); launches {launches}")
+    return launches
+
+
+def phase_path_ah(dev):
+    cfg = SimConfig(**dict(HEADLINE, output="ensemble", **BF16))
+    sim = Simulation(cfg, device=dev)
+    blocks, wall, launches = run_path(
+        "A-H", ("sampler_windows", "block_step_series_bf16", "series_sum"),
+        lambda: list(sim.run_ensemble()))
+    n_rows = sum(b.pv.shape[1] for b in blocks)
+    pv = np.concatenate([b.pv[0] for b in blocks])
+    if n_rows != cfg.duration_s or not np.isfinite(pv).all() or \
+            pv.max() <= 10.0:
+        fail(f"path A-H: {n_rows} seconds, pv max {pv.max()}")
+    rep = k12_sentinel("A-H", cfg, [(b.meter[0], b.pv[0], b.residual[0],
+                                     b.pv.shape[1]) for b in blocks],
+                       cfg.n_chains)
+    print(f"path A-H (ensemble, bf16): {wall:.3f} s wall, "
+          f"{cfg.n_chains * cfg.duration_s / wall:.6g} site-s/s; "
+          f"{n_rows} per-second means, fleet-mean pv max {pv.max():.2f} W; "
+          f"sentinel over the block means {json.dumps(rep)}; launches "
+          f"{launches}")
+    return launches
+
+
+def phase_path_bh(dev, name="B-H", levers=None):
+    cfg = SimConfig(**dict(HEADLINE, site_grid=grid_b(), **BF16,
+                           **(levers or {})))
+    sim = Simulation(cfg, device=dev)
+    inst = "block_step_strided_table_bf16" if levers else \
+        "block_step_site_bf16"
+    reduced, wall, launches = run_path(
+        name, ("sampler_windows", inst, "block_step_tel"), sim.run_reduced)
+    pv_max = check_reduced(name, reduced, cfg.duration_s)
+    rep = check_sentinel(name, sim, sim.n_blocks)
+    print(f"path {name} (site-grid reduce, 256 x 256 sites, bf16"
+          f"{', geom_stride 60, table set' if levers else ''}): {wall:.3f} "
+          f"s wall, {cfg.n_chains * cfg.duration_s / wall:.6g} site-s/s; "
+          f"fleet pv_max {pv_max:.2f} W; sentinel {json.dumps(rep)}; "
+          f"launches {launches}")
+    return launches
+
+
+def phase_path_fh(dev):
+    cfg = SimConfig(**dict(HEADLINE, fleet=fleet_f(), telemetry="full",
+                           analytics="full", **BF16))
+    sim = Simulation(cfg, device=dev)
+    reduced, wall, launches = run_path(
+        "F-H", ("sampler_windows_regime", "block_step_site_bf16",
+                "block_step_tel_analytics", "chainwise_collapse"),
+        sim.run_reduced)
+    pv_max = check_reduced("F-H", reduced, cfg.duration_s)
+    rep = check_sentinel("F-H", sim, sim.n_blocks)
+    summary = sim.fleet_summary()
+    if summary is None or summary["count"] != cfg.n_chains * cfg.duration_s:
+        fail(f"path F-H: fleet summary count "
+             f"{None if summary is None else summary['count']}")
+    print(f"path F-H (fleet reduce, bf16, telemetry and analytics full, "
+          f"strict sentinel): {wall:.3f} s wall, "
+          f"{cfg.n_chains * cfg.duration_s / wall:.6g} site-s/s; fleet "
+          f"pv_max {pv_max:.2f} W; {summary['count']} samples in the sketch;"
+          f" sentinel {json.dumps(rep)}; launches {launches}")
+    return launches
+
+
+def phase_path_ch(dev):
+    cfg = SimConfig(**dict(PATH_C, **BF16))
+    sim = Simulation(cfg, device=dev)
+
+    def run():
+        out = []
+        for b in sim.run_blocks():
+            if b.pv.shape != (cfg.n_chains, cfg.block_s):
+                fail(f"path C-H: block of shape {b.pv.shape}")
+            if not (np.isfinite(b.pv).all() and np.isfinite(b.meter).all()):
+                fail("path C-H: non-finite trace values")
+            out.append((float(b.meter.mean()), float(b.pv.mean()),
+                        float(b.residual.mean()), b.pv.shape[1],
+                        float(b.pv.max())))
+        return out
+
+    blocks, wall, launches = run_path(
+        "C-H", ("sampler_windows", "block_step_trace_bf16"), run)
+    rep = k12_sentinel("C-H", cfg, [b[:4] for b in blocks], cfg.n_chains)
+    print(f"path C-H (trace, bf16, 4 blocks from 10:00): {wall:.3f} s wall, "
+          f"{cfg.n_chains * cfg.duration_s / wall:.6g} site-s/s incl. the "
+          f"gather; pv max {max(b[4] for b in blocks):.2f} W; sentinel over "
+          f"the block means {json.dumps(rep)}; launches {launches}")
+    return launches
+
+
+def phase_path_gh():
+    from tmhpvsim_torch.cli import main as cli
+
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    out = os.path.join(build.BUILD_DIR, "path_gh_reduce.csv")
+    rep = os.path.join(build.BUILD_DIR, "path_gh_report.json")
+    try:
+        rc, wall, launches = run_path(
+            "G-H", ("sampler_windows", "block_step_bf16", "block_step_tel"),
+            lambda: cli(["pvsim", out] + PATH_GH_ARGS + ["--run-report",
+                                                        rep]))
+        if rc != 0:
+            fail(f"path G-H: the CLI returned {rc}")
+        with open(out) as f:
+            rows = f.read().splitlines()
+        with open(rep) as f:
+            report = json.load(f)
+    finally:
+        for path in (out, rep):
+            if os.path.exists(path):
+                os.remove(path)
+    n = PATH_GH_CHAINS
+    if len(rows) != n + 2 or rows[-1].split(",")[0] != "ensemble":
+        fail(f"path G-H: {len(rows)} CSV lines")
+    try:
+        validate_report(report)
+    except ValueError as e:
+        fail(f"path G-H: the run report fails validation: {e}")
+    tel, prec = report["telemetry"], report["precision"]
+    if report["plan"]["compute_dtype"] != "bf16" or prec is None or \
+            prec["compute_dtype"] != "bf16" or prec["telemetry"] != "light" \
+            or tel is None or tel["verdict"] != "ok" or not tel["strict"]:
+        fail(f"path G-H: plan {report['plan']}, precision {prec}, "
+             f"telemetry {tel}")
+    print(f"path G-H (CLI pvsim --output reduce --compute-dtype bf16 "
+          f"--telemetry light --telemetry-strict --chains {n} --duration "
+          f"3600 --run-report): {wall:.3f} s wall incl. the CSV, the golden "
+          f"reference and the report; the report validates, plan "
+          f"compute_dtype bf16, telemetry {json.dumps(tel)}; launches "
+          f"{launches}")
+    return launches
+
+
+def phase_reference_bf16(dev):
+    """Paths R-H's and F-H's configurations at the reference file's bf16
+    shape (``small_config``'s chains over 2 x 600 s) against the JAX
+    package's bf16 results (its ``bf16`` section): n_seconds exact, the
+    rest rtol 2e-5 / atol 1e-2; the fleet summary as phase_reference holds
+    it."""
+    path = os.path.join(HERE, "tests", "data", "torch_port_reference.json")
+    with open(path) as f:
+        ref = json.load(f)
+    br = ref["bf16"]
+    worst = 0.0
+
+    def stats(what, got, want):
+        nonlocal worst
+        for name, w in want.items():
+            w = np.asarray(w, np.float64)
+            g = np.asarray(got[name], np.float64)
+            if name == "n_seconds":
+                if not np.array_equal(g, w):
+                    fail(f"reference bf16: {what} n_seconds differs")
+                continue
+            if not np.allclose(g, w, rtol=TOL[0], atol=TOL[1]):
+                fail(f"reference bf16: {what} {name} differs from the JAX "
+                     f"package: max abs {float(np.max(np.abs(g - w)))}")
+            worst = max(worst, float(np.max(np.abs(g - w)
+                                            / np.maximum(np.abs(w), 1.0))))
+
+    shape = br["config"]
+    stats("reduce", Simulation(SimConfig(**dict(shape, **BF16)),
+                               device=dev).run_reduced(), br["reduced"])
+    fr = br["fleet"]
+    n_f, seed_f = ref["fleet"]["synthetic"]
+    sim = Simulation(SimConfig(**dict(
+        shape, fleet=FleetParams.synthetic(n_f, seed=seed_f),
+        **ref["fleet"]["config"], **BF16)), device=dev)
+    stats("fleet", sim.run_reduced(), fr["reduced"])
+    slack = max(2, int(1e-4 * fr["summary"]["count"]))
+    width = fr["summary"]["sketch"]["width_w"]
+    worst_int = held_summary("bf16 fleet summary", sim.fleet_summary(),
+                             fr["summary"], slack, width)
+    print(f"reference bf16: R-H's and F-H's configurations at the reference "
+          f"file's bf16 shape on the card match the JAX package's bf16 runs "
+          f"(max relative "
+          f"error {worst:.3g}; fleet summary counts within {slack}, largest "
+          f"difference {worst_int})")
+
+
+def phase_timing_k12(dev):
+    """K12's instantiations that the paths launch, and their plain
+    versions, on a noon block at the main paths' shape: acc with telemetry
+    light (R-H's), the series (A-H's), the trace (C-H's), acc with
+    telemetry on path B's grid (B-H's) and with both levers (B-HL's), and
+    K8 + K9 on path F's fleet (F-H's)."""
+    out = {}
+    n, T = HEADLINE["n_chains"], HEADLINE["block_s"]
+    draws_f = K12_DRAWS_F
+
+    def setup(**extra):
+        cfg = SimConfig(**dict(HEADLINE, **BF16, **extra))
+        sim = Simulation(cfg, device=dev)
+        state = sim.init_state()
+        ins = sim.host_inputs(40)
+        tables, _ = sim._windows(state, ins)
+        tilt, alb, site = sim.geometry_args(state)
+        head = (tables, ins.rows_i, ins.rows_f, state["k_scan"],
+                state["k_meter"])
+        table_bytes = sum(t.numel() * 4 for t in tables.values())
+        in_bytes = (table_bytes + n * 8 * 2 + n * 4 * 3 * 2
+                    + ins.rows_i.numel() * 4 + ins.rows_f.numel() * 4)
+        return cfg, sim, state, head, (tilt, alb, site), in_bytes
+
+    int_ops = n * (T * (K3_SECOND_I + K12_DRAWS_I) + (T // 60) * K3_MINUTE_I)
+    tel_f, tel_i = n * T * TEL_SECOND_F, n * T * TEL_SECOND_I
+    # acc + telemetry light, shared site (R-H)
+    cfg, sim, state, head, (tilt, alb, site), in_b = setup()
+    obs = sim.observers(state)
+    a1 = (*head, clone(state["carry"]), sim.init_reduce_acc(),
+          cfg.duration_s, cfg.meter_max_w, tilt, alb)
+    a2 = (*head, clone(state["carry"]), sim.init_reduce_acc(),
+          cfg.duration_s, cfg.meter_max_w, tilt, alb)
+    ms = time_ms(lambda: k3.block_step_obs(*a1, obs=obs,
+                                           compute_dtype="bf16"))
+    plain = time_ms(lambda: k3.block_step_obs_plain(*a2, obs=obs,
+                                                    compute_dtype="bf16"),
+                    reps=1)
+    out["K12"] = (ms, plain, *bound(int_ops + tel_i,
+                                    n * T * (K3_SECOND_F + draws_f) + tel_f,
+                                    in_b + n * 4 * 7 * 2))
+    # the series and the trace (A-H, C-H)
+    c1 = clone(state["carry"])
+    tail = (cfg.meter_max_w, tilt, alb)
+    ms = time_ms(lambda: k3.series_partials_cuda(*head, c1, *tail,
+                                                 compute_dtype="bf16"))
+    plain = time_ms(lambda: k3.series_plain(*head, clone(state["carry"]),
+                                            *tail, compute_dtype="bf16"),
+                    reps=1)
+    out["K12S"] = (ms, plain, *bound(
+        int_ops, n * T * (SERIES_SECOND_F + draws_f), in_b + 2 * T * 4))
+    ms = time_ms(lambda: k3.block_step_trace(*head, c1, *tail,
+                                             compute_dtype="bf16"))
+    plain = time_ms(lambda: k3.trace_plain(*head, clone(state["carry"]),
+                                           *tail, compute_dtype="bf16"),
+                    reps=1)
+    # the trace draws its u / z in float32, as K4's
+    out["K12T"] = (ms, plain, *bound(
+        n * (T * K3_SECOND_I + (T // 60) * K3_MINUTE_I),
+        n * T * (TRACE_SECOND_F + NORMAL_F + UNIFORM_F + 1),
+        in_b + 2 * n * T * 4))
+    # acc + telemetry on path B's grid, plain and strided table set
+    for key, extra in (("K12B", {}), ("K12BL", LEVERS)):
+        cfg, sim, state, head, (_, _, site), in_b = setup(
+            site_grid=grid_b(), **extra)
+        obs = sim.observers(state)
+        ks = sim.plan.kernel_impl
+        a1 = (*head, clone(state["carry"]), sim.init_reduce_acc(),
+              cfg.duration_s, cfg.meter_max_w, None, None)
+        ms = time_ms(lambda: k3.block_step_obs(*a1, site=site, obs=obs,
+                                               kernels=ks,
+                                               compute_dtype="bf16"))
+        plain = time_ms(lambda: k3.block_step_obs_plain(
+            *head, clone(state["carry"]), sim.init_reduce_acc(),
+            cfg.duration_s, cfg.meter_max_w, None, None, site=site,
+            obs=obs, kernels=ks, compute_dtype="bf16"), reps=1)
+        if extra:  # K6s's count, the bf16 draws in place of the normal
+            f32 = strided_f32(ks, n, T, LEVERS["geom_stride"]) - \
+                n * T * NORMAL_F
+        else:  # K6's count
+            f32 = n * T * (K3_SECOND_F + K6_SITE_SECOND_F + draws_f) + \
+                T * K6_TIME_F
+        out[key] = (ms, plain, *bound(int_ops + tel_i, f32 + tel_f,
+                                      in_b + n * 4 * 6 + n * 4 * 7 * 2))
+    # K8 + K9 on path F's fleet (F-H)
+    cfg, sim, state, head, (_, _, site), in_b = setup(
+        fleet=fleet_f(), telemetry="full", analytics="full")
+    obs = sim.observers(state)
+    fleet = sim.fleet_leaves(state)
+    a1 = (*head, clone(state["carry"]), sim.init_reduce_acc(),
+          cfg.duration_s, cfg.meter_max_w, None, None)
+    ms = time_ms(lambda: k3.block_step_obs(*a1, site=site, fleet=fleet,
+                                           obs=obs, compute_dtype="bf16"))
+    plain = time_ms(lambda: k3.block_step_obs_plain(
+        *head, clone(state["carry"]), sim.init_reduce_acc(),
+        cfg.duration_s, cfg.meter_max_w, None, None, site=site, fleet=fleet,
+        obs=obs, compute_dtype="bf16"), reps=1)
+    out["K12F"] = (ms, plain, *bound(
+        int_ops + tel_i + n * T * FLT_SECOND_I,
+        n * T * (K3_SECOND_F + draws_f + K7_SECOND_F + K6_SITE_SECOND_F
+                 + FLT_SECOND_F) + tel_f + T * K6_TIME_F,
+        in_b + n * 4 * (6 + 4) + n * 4 * 7 * 2))
+    for name, (ms, plain, bms, by) in out.items():
+        print(f"timing {name}: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
+              f"bound {bms:.4f} ms ({by})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a "
@@ -3072,6 +3695,7 @@ def main() -> int:
     phase_reference_levers(dev)
     err4mf, err4mo, err4ms = phase_k4m(dev)
     phase_wide_fused(dev)
+    err12 = phase_k12(dev)
     torch.cuda.empty_cache()
     _, launch_r, reduced_r, wall_r = phase_path_r(dev)
     launch_a, means_a = phase_path_a(dev)
@@ -3104,11 +3728,22 @@ def main() -> int:
     phase_path_rk(dev, reduced_r, wall_r)
     phase_path_gw()
     torch.cuda.empty_cache()
+    launch_rh, reduced_rh = phase_path_rh(dev, reduced_r)
+    phase_path_rhw(dev, reduced_rh)
+    launch_ah = phase_path_ah(dev)
+    launch_bh = phase_path_bh(dev)
+    launch_bhl = phase_path_bh(dev, "B-HL", LEVERS)
+    launch_fh = phase_path_fh(dev)
+    launch_ch = phase_path_ch(dev)
+    launch_gh = phase_path_gh()
+    torch.cuda.empty_cache()
     timing = phase_timing(dev)
     timing.update(phase_timing_fleet(dev))
     timing.update(phase_timing_levers(dev))
     timing_wide, lib_sum = phase_timing_wide(dev)
+    timing_k12 = phase_timing_k12(dev)
     phase_reference(dev)
+    phase_reference_bf16(dev)
     sim_py = "tmhpvsim_tpu/engine/simulation.py"
     src = "tmhpvsim_torch/csrc/block_step.cuh"
     rows_of = {
@@ -3207,6 +3842,33 @@ def main() -> int:
                  "max_abs_err": err11, "ms": ms,
                  "plain_ms": plain, "bound_ms": bms, "bound_by": by,
                  "library_ms": None, "functions": k11_fn})
+    # K12: each bf16 instantiation a path launches, with that path's count
+    bsrc = "tmhpvsim_torch/csrc/block_step_bf16.cu"
+    for key, name, source, replaces, launches, path in (
+            ("K12", "block_step_bf16", bsrc, f"{sim_py}:1129", launch_rh,
+             "R-H"),
+            ("K12S", "block_step_series_bf16", bsrc, f"{sim_py}:1600",
+             launch_ah, "A-H"),
+            ("K12T", "block_step_trace_bf16", bsrc, f"{sim_py}:911",
+             launch_ch, "C-H"),
+            ("K12B", "block_step_site_bf16", bsrc, f"{sim_py}:830",
+             launch_bh, "B-H"),
+            ("K12BL", "block_step_strided_table_bf16",
+             "tmhpvsim_torch/csrc/block_step_bf16_table.cu", f"{sim_py}:765",
+             launch_bhl, "B-HL"),
+            ("K12F", "block_step_site_bf16+tel_analytics", bsrc,
+             f"{sim_py}:1218", launch_fh, "F-H")):
+        ms, plain, bms, by = timing_k12[key]
+        counter = name.split("+")[0]
+        rel, err = err12[key] if isinstance(err12[key], tuple) else \
+            (None, err12[key])
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches[counter],
+                     "path": path, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                     "library_ms": None,
+                     **({} if rel is None else {"max_rel_err": rel})})
+    rows[-6]["launches_gh"] = launch_gh["block_step_bf16"]
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

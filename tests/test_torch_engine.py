@@ -101,6 +101,27 @@ def jax_fleet():
     return sim, sim.run_reduced()
 
 
+#: the bf16 compute path's JAX runs: this shape over 2 x 600 s (a short
+#: depth keeps tests/test_torch_precision.py's port runs against them
+#: cheap); scan_unroll 1 only compiles faster, the JAX package gives every
+#: unroll the same bits
+BF16_SHAPE = dict(duration_s=1200, block_s=600)
+BF16_KW = dict(compute_dtype="bf16", scan_unroll=1, **BF16_SHAPE)
+
+
+@pytest.fixture(scope="module")
+def jax_bf16_runs():
+    """The JAX package's bf16 reduce runs at this shape's chains over
+    ``BF16_SHAPE``, the main path's (shared site) and the fleet run's:
+    reduce statistics, and for the fleet the fleet summary."""
+    sim = _jax_sim(**BF16_KW)
+    fleet = _jax_sim(fleet=JFleet.synthetic(FLEET_SYNTH[0],
+                                            seed=FLEET_SYNTH[1]),
+                     **FLEET_KW, **BF16_KW)
+    return {"reduced": sim.run_reduced(), "sentinel": sim.sentinel.report(),
+            "fleet": (fleet.run_reduced(), fleet.fleet_summary())}
+
+
 @pytest.fixture(scope="module")
 def jax_wide_runs():
     """The JAX package's wide formulation at this shape: the reduce
@@ -176,16 +197,19 @@ WIDE_ENSEMBLE_S = 1800
 
 
 def test_reference_file_tracks_jax(jax_scan, jax_ensemble, jax_trace,
-                                   jax_grid, jax_fleet, jax_wide_runs):
+                                   jax_grid, jax_fleet, jax_wide_runs,
+                                   jax_bf16_runs):
     """tests/data/torch_port_reference.json holds the JAX package's results
     at this shape for chip_smoke.py's reference phase — the reduce
     statistics, every per-second ensemble mean, chain 0's trace over the
     first hour, the site-grid reduce statistics, the fleet run's reduce
-    statistics and fleet summary, and the wide formulation's reduce
-    statistics, ensemble means over the first half hour and fleet run; it
-    is written when missing and must equal what the JAX package
-    computes."""
+    statistics and fleet summary, the wide formulation's reduce
+    statistics, ensemble means over the first half hour and fleet run, and
+    under ``compute_dtype='bf16'`` the reduce statistics with the drift
+    sentinel's report, and the fleet run (section ``bf16``); it is written
+    when missing and must equal what the JAX package computes."""
     jw = jax_wide_runs
+    jb = jax_bf16_runs
     doc = {
         "config": SMALL,
         "reduced": {k: np.asarray(v).tolist()
@@ -211,6 +235,15 @@ def test_reference_file_tracks_jax(jax_scan, jax_ensemble, jax_trace,
             "fleet": {"reduced": {k: np.asarray(v).tolist()
                                   for k, v in jw["fleet"][0].items()},
                       "summary": jw["fleet"][1]},
+        },
+        "bf16": {
+            "config": dict(SMALL, **BF16_SHAPE),
+            "reduced": {k: np.asarray(v).tolist()
+                        for k, v in jb["reduced"].items()},
+            "sentinel": jb["sentinel"],
+            "fleet": {"reduced": {k: np.asarray(v).tolist()
+                                  for k, v in jb["fleet"][0].items()},
+                      "summary": jb["fleet"][1]},
         },
     }
     if not os.path.exists(REF):

@@ -748,3 +748,45 @@ def test_k6s_k11_match_plain_on_card(card, levers):
         assert torch.equal(sak[k], sap[k]), k
     for k in sdp:
         assert torch.equal(sdk[k], sdp[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levers", [{}, dict(site_grid=GRID), LEVERS],
+                         ids=["shared", "site", "strided-table"])
+def test_k12_matches_plain_on_card(card, levers):
+    """K12 (the block step under compute_dtype='bf16') against its plain
+    bf16 version: acc with telemetry and the trace bit for bit, the series
+    to rtol 1e-6."""
+    grid = GRID if "geom_stride" in levers else levers.get("site_grid")
+    cfg = SimConfig(**dict(CFG, n_chains=512, compute_dtype="bf16",
+                           **dict(levers, site_grid=grid)))
+    sim = Simulation(cfg, device=card)
+    state, ins = _block(sim)
+    tables, _ = sim._windows(state, ins)
+    tilt, alb, site = sim.geometry_args(state)
+    head = (tables, ins.rows_i, ins.rows_f, state["k_scan"],
+            state["k_meter"])
+    mw = cfg.meter_max_w
+    kw = dict(site=site, kernels=sim.plan.kernel_impl, compute_dtype="bf16")
+
+    def carry():
+        return {k: v.clone() for k, v in state["carry"].items()}
+
+    obs = sim.observers(state)
+    _, ak, ok = k3.block_step_obs(*head, carry(), sim.init_reduce_acc(),
+                                  cfg.duration_s, mw, tilt, alb, obs=obs,
+                                  **kw)
+    _, ap, op = k3.block_step_obs_plain(*head, carry(), sim.init_reduce_acc(),
+                                        cfg.duration_s, mw, tilt, alb,
+                                        obs=obs, **kw)
+    for k in ap:
+        assert torch.equal(ak[k], ap[k]), k
+    for k in ("nan_pv", "min_pv", "max_pv", "min_csi", "max_csi"):
+        assert torch.equal(ok["telemetry"][k], op["telemetry"][k]), k
+    _, mk, pk = k3.block_step_trace(*head, carry(), mw, tilt, alb, **kw)
+    _, mp, pp = k3.trace_plain(*head, carry(), mw, tilt, alb, **kw)
+    assert torch.equal(mk, mp) and torch.equal(pk, pp)
+    _, sk, qk = k3.block_step_series(*head, carry(), mw, tilt, alb, **kw)
+    _, sp, qp = k3.series_plain(*head, carry(), mw, tilt, alb, **kw)
+    torch.testing.assert_close(sk, sp, rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(qk, qp, rtol=1e-6, atol=1e-3)

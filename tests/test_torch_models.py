@@ -98,8 +98,8 @@ def test_config_fields_and_defaults_match(cls):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("site_grid", object()), ("fleet", object()), ("telemetry_strict", True),
-    ("phase_obs", "on"), ("compute_dtype", "bf16"), ("prng_impl", "rbg"),
+    ("site_grid", object()), ("fleet", object()), ("trace", "t.json"),
+    ("phase_obs", "on"), ("prng_impl", "unsafe_rbg"), ("prng_impl", "rbg"),
     ("output", "nonsense"), ("dtype", "bfloat16"), ("tune", "auto"),
     ("mesh_scenario", 2), ("pod_obs", "on"), ("checkpoint_async", "on"),
 ])
@@ -110,10 +110,10 @@ def test_config_outside_slice_raises(field, value):
 
 def test_refusal_names_what_is_still_to_port():
     with pytest.raises(NotImplementedError) as e:
-        tcfg.SimConfig(compute_dtype="bf16")
+        tcfg.SimConfig(prng_impl="rbg")
     msg = str(e.value)
-    assert "compute_dtype='bf16' and prng_impl='rbg' are still to port" \
-        in msg and "exact kernels" not in msg
+    assert "prng_impl='rbg' is still to port" in msg \
+        and "float32 or bf16" in msg and "exact kernels" not in msg
 
 
 @pytest.mark.parametrize("field,value,plan", [

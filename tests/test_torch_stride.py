@@ -293,7 +293,7 @@ def test_strided_plain_geometry_is_the_lerped_sample_grid():
     assert dataclasses.asdict(sim.plan) == {
         "kernel_impl": "table", "geom_stride": 60, "block_impl": "scan",
         "stats_fusion": "fused", "scan_unroll": 8, "blocks_per_dispatch": 1,
-        "rng_batch": "scan"}
+        "rng_batch": "scan", "compute_dtype": "f32", "telemetry": "off"}
 
 
 def test_scenario_engine_serves_with_levers():

@@ -9,10 +9,14 @@ in the JAX package's ``pvsim --backend jax`` file formats.
 Each runs for a shared site, a per-chain ``SiteGrid`` or a heterogeneous
 fleet, in the scan or the wide formulation (``block_impl``), with any
 number of blocks per dispatch; reduce mode can fold the fleet analytics.
-``run_report`` writes the run report (obs/report.py: the JAX package's
-RunReport schema) with the run's config, its resolved plan, the
-analytics' run totals as the ``fleet`` section and the ``precision``
-section of the levers ``kernel_impl``, ``rng_batch`` and ``geom_stride``.
+``compute_dtype='bf16'`` runs the bf16 block step (K12) watched by the
+telemetry and, in reduce mode, the drift sentinel (``telemetry``,
+``telemetry_strict``).  ``run_report`` writes the run report
+(obs/report.py: the JAX package's RunReport schema) with the run's
+config, its resolved plan, the analytics' run totals as the ``fleet``
+section, the sentinel's verdict as the ``telemetry`` section and the
+``precision`` section of the levers ``compute_dtype``, ``kernel_impl``,
+``rng_batch`` and ``geom_stride``.
 """
 
 from __future__ import annotations
@@ -59,9 +63,11 @@ def _paced(blk, rate: float = 1.0):
 def write_run_report(path: str, sim: Simulation) -> dict:
     """The run report of a finished run (``obs.report.simulation_report``):
     config, plan and device, the ``fleet`` section as
-    ``sim.fleet_summary()`` gives it (None without analytics) and the
-    ``precision`` section as ``sim.precision_doc()`` gives it (None with
-    the levers at their defaults).  Returns the document."""
+    ``sim.fleet_summary()`` gives it (None without analytics), the
+    ``telemetry`` section as ``sim.sentinel.report()`` gives it (None when
+    no block was observed) and the ``precision`` section as
+    ``sim.precision_doc()`` gives it (None with the levers at their
+    defaults).  Returns the document."""
     return write_report(path, simulation_report("pvsim", sim))
 
 
@@ -72,7 +78,9 @@ def pvsim(file: str, duration_s: int, n_chains: int, seed: int, start: str,
           analytics: str = "off", run_report: str | None = None,
           kernel_impl: str = "auto", geom_stride: int = 0,
           block_impl: str = "auto", blocks_per_dispatch: int = 0,
-          rng_batch: str = "auto") -> Simulation:
+          rng_batch: str = "auto", compute_dtype: str = "auto",
+          telemetry: str = "off",
+          telemetry_strict: bool = False) -> Simulation:
     """Run one simulation and write ``file``; returns the Simulation.
 
     A site grid or a fleet sets the chain count (one chain per site).
@@ -84,7 +92,12 @@ def pvsim(file: str, duration_s: int, n_chains: int, seed: int, start: str,
     ``geom_stride`` (0 = auto | 1 | 30 | 60) are the precision levers;
     ``block_impl`` ('auto' | 'wide' | 'scan' | 'scan2'),
     ``blocks_per_dispatch`` (0 = auto | K) and ``rng_batch`` ('auto' |
-    'scan' | 'block') the plan knobs that give the same run."""
+    'scan' | 'block') the plan knobs that give the same run.
+    ``compute_dtype`` ('auto' = 'f32' | 'f32' | 'bf16') the compute path;
+    ``telemetry`` ('off' | 'light' | 'full', reduce mode) folds the
+    numerics telemetry that the drift sentinel checks every block ('off'
+    becomes 'light' under bf16), and ``telemetry_strict`` turns the
+    sentinel's warnings into ``DriftError``."""
     if block_s is None:
         block_s = min(8640, max(60, (duration_s // 60) * 60))
     cfg = SimConfig(start=start, duration_s=duration_s, n_chains=n_chains,
@@ -94,7 +107,8 @@ def pvsim(file: str, duration_s: int, n_chains: int, seed: int, start: str,
                     kernel_impl=kernel_impl, geom_stride=geom_stride,
                     block_impl=block_impl,
                     blocks_per_dispatch=blocks_per_dispatch,
-                    rng_batch=rng_batch)
+                    rng_batch=rng_batch, compute_dtype=compute_dtype,
+                    telemetry=telemetry, telemetry_strict=telemetry_strict)
     sim = Simulation(cfg, device=device)
     cfg = sim.config  # a site grid or a fleet sets n_chains
     t0 = time.perf_counter()

@@ -5,12 +5,14 @@ The flags mirror the JAX package's ``pvsim --backend jax`` flags of the
 ported slice: the three output modes, ``--chain``, site grids
 (``--site-grid`` / ``--sites-csv``), heterogeneous fleets (``--fleet-csv``
 / ``--fleet-synth`` with ``--fleet-seed``), reduce-mode fleet analytics
-(``--analytics``), the precision levers ``--kernel-impl``,
-``--geom-stride`` and ``--rng-batch``, the formulation ``--block-impl``
-and ``--blocks-per-dispatch`` (the JAX package's choices, defaults and
-errors), ``--output-overlap`` and ``--realtime``.  ``--run-report PATH``
-writes the run report (the JAX package's RunReport schema: config, the
-resolved plan, device, and the ``fleet`` and ``precision`` sections).
+(``--analytics``), the precision levers ``--compute-dtype``,
+``--kernel-impl``, ``--geom-stride`` and ``--rng-batch``, the numerics
+telemetry and its drift sentinel (``--telemetry``, ``--telemetry-strict``),
+the formulation ``--block-impl`` and ``--blocks-per-dispatch`` (the JAX
+package's choices, defaults and errors), ``--output-overlap`` and
+``--realtime``.  ``--run-report PATH`` writes the run report (the JAX
+package's RunReport schema: config, the resolved plan, device, and the
+``fleet``, ``telemetry`` and ``precision`` sections).
 
 ``serve`` runs the scenario server (serve/server.py) with the JAX
 package's ``pvsim serve`` defaults on an in-process ``local://``
@@ -136,6 +138,23 @@ def _parser() -> argparse.ArgumentParser:
                     help="second-noise draws per minute tile (scan) or "
                          "hoisted per block (block): the same bits; "
                          "auto = scan")
+    pv.add_argument("--compute-dtype", choices=["auto", "f32", "bf16"],
+                    default="auto",
+                    help="mixed-precision compute path: bf16 narrows the "
+                         "per-second RNG streams and the physics chain "
+                         "(K12); accumulators and the carry stay f32 and "
+                         "the drift sentinel gates it -- telemetry "
+                         "auto-escalates to 'light'; auto = f32")
+    pv.add_argument("--telemetry", choices=["off", "light", "full"],
+                    default="off",
+                    help="numerics telemetry (reduce mode): light = "
+                         "NaN/Inf counters + moments folded on the card, "
+                         "checked per block by the drift sentinel; full "
+                         "adds the csi histogram + cloud occupancy; off "
+                         "pays nothing")
+    pv.add_argument("--telemetry-strict", action="store_true",
+                    help="escalate drift-sentinel WARNs (NaN/Inf, "
+                         "reference band escape) to a hard error")
     pv.add_argument("--output-overlap", choices=["auto", "off"],
                     default="auto",
                     help="auto: dispatch block N+1 before writing block N's "
@@ -250,6 +269,7 @@ def main(argv=None) -> int:
     else:
         site_grid = _parse_site_grid(args.site_grid)
     from tmhpvsim_torch.apps.pvsim import pvsim
+    from tmhpvsim_torch.obs.sentinel import DriftError
 
     start = args.start or _dt.datetime.now().replace(
         microsecond=0).isoformat(" ")
@@ -262,8 +282,10 @@ def main(argv=None) -> int:
               run_report=args.run_report, kernel_impl=args.kernel_impl,
               geom_stride=int(args.geom_stride), block_impl=args.block_impl,
               blocks_per_dispatch=args.blocks_per_dispatch,
-              rng_batch=args.rng_batch)
-    except ValueError as e:
+              rng_batch=args.rng_batch, compute_dtype=args.compute_dtype,
+              telemetry=args.telemetry,
+              telemetry_strict=args.telemetry_strict)
+    except (ValueError, DriftError) as e:
         raise SystemExit(f"pvsim: {e}") from e
     return 0
 

@@ -201,7 +201,6 @@ class ModelOptions:
 _SLICE_VALUES = {
     "output": ("trace", "reduce", "ensemble"),
     "output_overlap": ("auto", "off"),
-    "compute_dtype": ("auto", "f32"),
 }
 
 #: fields whose every value belongs to the slice (``telemetry``,
@@ -214,6 +213,7 @@ _FREE_FIELDS = frozenset({
     "analytics_capacity_w", "analytics_lolp_k", "analytics_thresholds",
     "serve_batch_sizes", "kernel_impl", "geom_stride", "block_impl",
     "scan_unroll", "stats_fusion", "blocks_per_dispatch", "rng_batch",
+    "compute_dtype", "telemetry_strict",
 })
 
 #: valid values of SimConfig.telemetry / --telemetry (obs/telemetry.py)
@@ -322,12 +322,11 @@ class SimConfig:
             if not ok:
                 raise NotImplementedError(
                     f"SimConfig.{f.name}={value!r} is outside the torch "
-                    "port's slice: it computes in float32 with "
-                    "threefry2x32 keys (compute_dtype='bf16' and "
-                    "prng_impl='rbg' are still to port) under the static "
-                    "plan, with no autotuner, mesh, pod or phase "
-                    "observers, profiler trace, strict telemetry or "
-                    "checkpoint options")
+                    "port's slice: it computes in float32 or bf16 with "
+                    "threefry2x32 keys (prng_impl='rbg' is still to port) "
+                    "under the static plan, with no autotuner, mesh, pod "
+                    "or phase observers, profiler trace or checkpoint "
+                    "options")
         if self.block_s % 60 != 0:
             raise ValueError("block_s must be a multiple of 60 (minute grid)")
 
@@ -344,7 +343,12 @@ class Plan:
     or 'scan2', and the reduce topology ``stats_fusion`` of the wide
     formulation ('split': the trace and the fold; 'fused': the block
     step's acc epilogue, producer, statistics and merge in one launch).
-    Three dispatch knobs that give the same bits: ``scan_unroll``,
+    The compute dtype ``compute_dtype``: 'f32', or 'bf16' (K12: the
+    per-second draws, the geometry and the PV physics in bfloat16, every
+    accumulator and the carry in float32), and ``telemetry``, the
+    telemetry level the run folds: bf16 never runs unwatched, so 'off'
+    escalates to 'light' under it (the drift sentinel then checks every
+    block).  Three dispatch knobs that give the same bits: ``scan_unroll``,
     ``rng_batch`` ('scan' or 'block') and ``blocks_per_dispatch`` (blocks
     whose inputs go to the card in one copy and whose launches are
     enqueued back to back).
@@ -365,6 +369,17 @@ class Plan:
     scan_unroll: int = 8
     blocks_per_dispatch: int = 1
     rng_batch: str = "scan"
+    compute_dtype: str = "f32"
+    telemetry: str = "off"
+
+
+def escalate_telemetry(level: str, compute_dtype: str) -> str:
+    """bf16 never runs unwatched: a telemetry level of 'off' becomes
+    'light' when the compute dtype is bf16 (the JAX package's
+    ``_escalate_telemetry``)."""
+    if compute_dtype == "bf16" and level == "off":
+        return "light"
+    return level
 
 
 def _is_int(v) -> bool:
@@ -373,11 +388,18 @@ def _is_int(v) -> bool:
 
 def resolve_plan(config: SimConfig) -> Plan:
     """``config``'s plan resolved as the JAX package resolves it without
-    the autotuner on an accelerator: 'auto' is the exact set, the scan
-    formulation, the fused topology and per-minute draws, a stride of 0 is
-    1 and 0 blocks per dispatch is 1.  Raises ``ValueError`` with the JAX
-    package's messages for a value outside the choices or a stride that
-    does not divide ``block_s``."""
+    the autotuner on an accelerator: 'auto' is the exact set, float32,
+    the scan formulation, the fused topology and per-minute draws, a stride
+    of 0 is 1 and 0 blocks per dispatch is 1; the telemetry level escalates
+    under bf16.  Raises ``ValueError`` with the JAX package's messages for
+    a value outside the choices or a stride that does not divide
+    ``block_s``."""
+    cd = config.compute_dtype
+    if cd == "auto":
+        cd = "f32"
+    elif cd not in ("f32", "bf16"):
+        raise ValueError(
+            f"compute_dtype must be 'auto', 'f32' or 'bf16', got {cd!r}")
     ki = config.kernel_impl
     if ki == "auto":
         ki = "exact"
@@ -422,4 +444,6 @@ def resolve_plan(config: SimConfig) -> Plan:
             f"blocks_per_dispatch must be an int >= 0 (0 = auto), got {k!r}")
     return Plan(kernel_impl=ki, geom_stride=gs, block_impl=impl,
                 stats_fusion=fusion, scan_unroll=int(unroll),
-                blocks_per_dispatch=max(1, int(k)), rng_batch=rb)
+                blocks_per_dispatch=max(1, int(k)), rng_batch=rb,
+                compute_dtype=cd,
+                telemetry=escalate_telemetry(config.telemetry, cd))

@@ -1,11 +1,13 @@
-// K3 / K4 / K6 / K6s / K7 / K8 / K9 / K10 (with K11 inlined): one block,
-// one thread per chain, looping over the block's seconds; a template over
-// the kernel set (Exact | Table), the epilogue (acc | series | trace |
-// scenario), the geometry mode (shared rows | per-chain site | per-chain
-// strided) and, for acc, the two reduce-mode observers (telemetry | fleet
-// analytics).  block_step.cu instantiates it for the Exact set,
-// block_step_table.cu for the Table set (K11, tables.cuh): each is its
-// own library, built by its own nvcc process.
+// K3 / K4 / K6 / K6s / K7 / K8 / K9 / K10 / K12 (with K11 inlined): one
+// block, one thread per chain, looping over the block's seconds; a template
+// over the kernel set (Exact | Table), the compute dtype (F32 | BF16, K12),
+// the epilogue (acc | series | trace | scenario), the geometry mode (shared
+// rows | per-chain site | per-chain strided) and, for acc, the two
+// reduce-mode observers (telemetry | fleet analytics).  block_step.cu
+// instantiates it for the Exact set, block_step_table.cu for the Table set
+// (K11, tables.cuh), block_step_bf16.cu and block_step_bf16_table.cu for
+// both sets under BF16: each is its own library, built by its own nvcc
+// process.
 //
 // Replaces (tmhpvsim_tpu/engine/simulation.py):
 //   acc    Simulation._block_step_scan_acc (:1276), i.e.
@@ -75,6 +77,20 @@
 // minimax polynomials and the Spencer table (tables.cuh).  The renewal's
 // powf is no member of the set and stays libm, as in the JAX package.
 //
+// K12 (BF16; tmhpvsim_tpu/engine/simulation.py:1129-1132, :713-733, :765,
+// :830-842, :911-912, :1218).  The acc and series epilogues draw the
+// per-second u / z in bf16 from the same threefry words (jax's 8-bit
+// random_bits are the words' low 8 bits; their upper 7 are k: u = k / 128
+// exactly, z = Z_BF16[k], the 128 bf16 normals tabulated by the plain
+// version); the trace epilogue, the JAX _block_step, draws in float32.  The
+// geometry reaches the physics in bf16: the shared rows arrive rounded by
+// the host, the per-chain geometry is evaluated in float32 and narrowed,
+// the strided samples are narrowed and lerped in bf16.  csi is narrowed
+// before the physics, which runs with the JAX graph's types (bf16.cuh:
+// phys_terms_bf, power_bf); its float32 steps are power()'s own.  The
+// renewal and csi carry, the meter and every accumulator stay float32.
+// BF16 has no scenario epilogue (the JAX scenario engine has no bf16).
+//
 // Epilogues.  acc folds in second order, chain by chain, as the scan adds.
 // series reduces each second's meter and pv over the CTA's chains in a
 // fixed order (a warp xor-butterfly, then the 4 warps in index order) into
@@ -134,12 +150,13 @@
 // operation time.
 //
 // The including translation unit defines KSET (Exact, or Table after
-// TMHPVSIM_TABLE_SET).
+// TMHPVSIM_TABLE_SET) and may define CDTYPE (F32 by default, or BF16).
 #include <cfloat>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <type_traits>
 
+#include "bf16.cuh"
 #include "consts.cuh"
 #include "fold.cuh"
 #include "threefry.cuh"
@@ -148,8 +165,15 @@
 #endif
 
 #define TILE 60
+#ifndef CDTYPE
+#define CDTYPE F32
+#endif
 
 enum Epilogue { ACC = 0, SERIES = 1, TRACE = 2, SCEN = 3 };
+
+// compute dtypes (Plan.compute_dtype)
+struct F32 {};
+struct BF16 {};
 
 // scenario: per-(scenario, chain) risk leaves kept between tiles (int,
 // float), and the per-(CTA, scenario) partial row
@@ -498,13 +522,11 @@ __device__ __forceinline__ Geo geometry(const TimeC& ts, const SiteC& c) {
   return g;
 }
 
-// pv.power_from_terms for one chain-second
+// solar.disc_dni of one chain-second from its GHI and the second's terms;
+// ghi_pos: GHI > 0
 template <class KS>
-__device__ __forceinline__ float power(float csi, const Phys& S,
-                                       float cos_tilt, float albedo) {
-  csi = fminf(csi, S.csi_cap);
-  const float ghi = csi * S.ghi_clear;
-  // DISC
+__device__ __forceinline__ float disc(float ghi, bool ghi_pos,
+                                      const Phys& S) {
   const float kt = fminf(fmaxf(ghi / S.i0h, 0.0f), 2.0f);
   const float kt2 = kt * kt;
   const float kt3 = kt2 * kt;
@@ -516,15 +538,14 @@ __device__ __forceinline__ float power(float csi, const Phys& S,
   const float c = hi ? -47.01f + 184.2f * kt - 222.0f * kt2 + 73.81f * kt3
                      : -0.28f + 0.932f * kt - 2.048f * kt2;
   const float delta_kn = a + b * KS::exp(fminf(c * S.am, 40.0f));
-  float dni = (S.knc - delta_kn) * S.i0;
-  dni = (S.zen_ok && ghi > 0.0f) ? fmaxf(dni, 0.0f) : 0.0f;
-  const float dhi = fmaxf(ghi - dni * S.cos_zenith, 0.0f);
-  // Hay-Davies POA + isotropic ground
-  const float ai = dni / S.dni_extra;
-  const float sky = dhi * (ai * S.rb + (1.0f - ai) * 0.5f * (1.0f + cos_tilt));
-  const float ground = ghi * albedo * 0.5f * (1.0f - cos_tilt);
-  const float pdir = fmaxf(dni * S.cos_aoi, 0.0f);
-  const float pdiff = fmaxf(sky, 0.0f) + ground;
+  const float dni = (S.knc - delta_kn) * S.i0;
+  return (S.zen_ok && ghi_pos) ? fmaxf(dni, 0.0f) : 0.0f;
+}
+
+// the SAPM and Sandia steps from the plane-of-array irradiance
+template <class KS>
+__device__ __forceinline__ float sapm_sandia(float pdir, float pdiff,
+                                             const Phys& S) {
   const float pglob = pdir + pdiff;
   // SAPM temperature, effective irradiance, DC
   const float t_cell = pglob * KS::exp_t() + 20.0f + pglob / 1000.0f * T_DELTA;
@@ -554,6 +575,123 @@ __device__ __forceinline__ float power(float csi, const Phys& S,
   return fmaxf(ac, 0.0f);
 }
 
+// pv.power_from_terms for one chain-second
+template <class KS>
+__device__ __forceinline__ float power(float csi, const Phys& S,
+                                       float cos_tilt, float albedo) {
+  csi = fminf(csi, S.csi_cap);
+  const float ghi = csi * S.ghi_clear;
+  const float dni = disc<KS>(ghi, ghi > 0.0f, S);
+  const float dhi = fmaxf(ghi - dni * S.cos_zenith, 0.0f);
+  // Hay-Davies POA + isotropic ground
+  const float ai = dni / S.dni_extra;
+  const float sky = dhi * (ai * S.rb + (1.0f - ai) * 0.5f * (1.0f + cos_tilt));
+  const float ground = ghi * albedo * 0.5f * (1.0f - cos_tilt);
+  const float pdir = fmaxf(dni * S.cos_aoi, 0.0f);
+  const float pdiff = fmaxf(sky, 0.0f) + ground;
+  return sapm_sandia<KS>(pdir, pdiff, S);
+}
+
+// K12: pv.second_terms_bf16 -- the csi-independent terms from bf16
+// geometry, in the JAX graph's types (bf16.cuh); csi_cap and ghi_clear keep
+// their bf16 values, the rest their float32 widening
+template <class KS>
+__device__ __forceinline__ void phys_terms_bf(Phys& P, float i0, b16::bf zen,
+                                              b16::bf app, b16::bf ama,
+                                              b16::bf cos_aoi) {
+  using namespace b16;
+  using X = Fns<KS, std::is_same<KS, Exact>::value>;
+  P.i0 = i0;
+  P.i0h = i0 * w32(vmax(X::cos(zen), K(0.065)));
+  // DISC's Kasten 1966 airmass and knc
+  const bf z_deg = clip(zen / K(PV_DEG), K(0.0), K(93.0));
+  const auto am = K(1.0) / (X::cos(z_deg * K(PV_DEG)) +
+                             K(0.15) * X::powc(K(93.885) - z_deg,
+                                                K(-1.253)));
+  const auto knc = K(0.866) - K(0.122) * am + K(0.0121) * am * am -
+                   K(0.000653) * ipow3(am) + K(1.4e-5) * ipow4(am);
+  P.am = w32(am);
+  P.knc = w32(knc);
+  P.zen_ok = lt(zen, K(PV_ZEN_MAX));
+  // Hay-Davies beam ratio
+  P.rb = w32(vmax(cos_aoi, K(0.0)) / vmax(X::cos(app), K(0.01745)));
+  // SAPM spectral (airmass) and angle-of-incidence polynomials
+  P.f1 = w32(K(MA[0]) + K(MA[1]) * ama + K(MA[2]) * ipow2(ama) +
+             K(MA[3]) * ipow3(ama) + K(MA[4]) * ipow4(ama));
+  const auto aoi = X::acos(clip(cos_aoi, K(-1.0), K(1.0))) / K(PV_DEG);
+  P.f2 = w32(vmax(K(MB[0]) + K(MB[1]) * aoi + K(MB[2]) * ipow2(aoi) +
+                      K(MB[3]) * ipow3(aoi) + K(MB[4]) * ipow4(aoi) +
+                      K(MB[5]) * ipow5(aoi),
+                  K(0.0)));
+}
+
+// K12: the geometry fields that phys_terms_bf does not take, as power_bf
+// reads them: csi_cap and ghi_clear rounded, the others widened
+__device__ __forceinline__ void phys_fields_bf(Phys& P, b16::bf csi_cap,
+                                               b16::bf ghi_clear,
+                                               b16::bf cos_zenith,
+                                               b16::bf dni_extra,
+                                               b16::bf cos_aoi) {
+  P.csi_cap = csi_cap.v;
+  P.ghi_clear = ghi_clear.v;
+  P.cos_zenith = cos_zenith.r;
+  P.dni_extra = dni_extra.r;
+  P.cos_aoi = cos_aoi.r;
+}
+
+// K12: pv.power_from_terms_bf16 for one chain-second: csi narrowed, the
+// clear-sky GHI and the ground reflection in bf16, the rest power()'s
+// float32 steps.  CT / AL: the types of cos(tilt) and the albedo (python
+// floats of a shared site: weak; per chain: bf16; the Table set's cos:
+// float32)
+template <class KS, class CT, class AL>
+__device__ __forceinline__ float power_bf(float csi, const Phys& S,
+                                          CT cos_tilt, AL albedo) {
+  using namespace b16;
+  const bf c = vmin(narrow(csi), in(S.csi_cap));
+  const bf ghi = c * in(S.ghi_clear);
+  const float dni = disc<KS>(ghi.r, ghi.v > 0.0f, S);
+  const float dhi = fmaxf(ghi.r - dni * S.cos_zenith, 0.0f);
+  const float ai = dni / S.dni_extra;
+  const float sky =
+      dhi * (ai * S.rb + (1.0f - ai) * 0.5f * w32(K(1.0) + cos_tilt));
+  const auto ground = ghi * albedo * K(0.5) * (K(1.0) - cos_tilt);
+  const float pdir = fmaxf(dni * S.cos_aoi, 0.0f);
+  const float pdiff = fmaxf(sky, 0.0f) + w32(ground);
+  return sapm_sandia<KS>(pdir, pdiff, S);
+}
+
+// K12, shared mode: one second's terms from the host's rows (rounded to
+// bf16 by the host; doy float32)
+template <class KS>
+__device__ __forceinline__ void shared_second_bf(SharedSecond& S,
+                                                 const int* rows_i,
+                                                 const float* r, int T,
+                                                 int s) {
+  using b16::in;
+  load_cal(S.c, rows_i, r, T, s);
+  const b16::bf cos_aoi = in(r[COS_AOI * T + s]);
+  phys_fields_bf(S.p, in(r[CSI_CAP * T + s]), in(r[GHI_CLEAR * T + s]),
+                 in(r[COS_ZENITH * T + s]), in(r[DNI_EXTRA * T + s]),
+                 cos_aoi);
+  phys_terms_bf<KS>(S.p, 1370.0f * KS::spencer(r[DOY * T + s]),
+                    in(r[ZENITH * T + s]), in(r[APP_ZENITH * T + s]),
+                    in(r[AIRMASS_ABS * T + s]), cos_aoi);
+}
+
+// K12: a stride sample's lerped fields narrowed to bf16
+__device__ __forceinline__ void narrow_geo(Geo& g) {
+  using b16::rn;
+  g.zenith = rn(g.zenith);
+  g.cos_zenith = rn(g.cos_zenith);
+  g.app_zen = rn(g.app_zen);
+  g.csi_cap = rn(g.csi_cap);
+  g.ghi_clear = rn(g.ghi_clear);
+  g.dni_extra = rn(g.dni_extra);
+  g.airmass_abs = rn(g.airmass_abs);
+  g.cos_aoi = rn(g.cos_aoi);
+}
+
 // one (scenario, chain) row of the scenario fold: the seven statistics
 // and the risk leaves (obs/analytics.py fold_second at level risk)
 struct ScnRow {
@@ -566,9 +704,13 @@ struct ScnRow {
   float prev[3] = {0.0f, 0.0f, 0.0f};
 };
 
-template <class KS, int EPI, int GEO, bool TEL, bool FLT>
+template <class KS, class CD, int EPI, int GEO, bool TEL, bool FLT>
 __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
   constexpr bool PER_CHAIN = GEO != SHARED;  // geometry per chain
+  // K12: bf16 physics; bf16 u / z draws but in the trace epilogue
+  constexpr bool BF = std::is_same<CD, BF16>::value;
+  constexpr bool BF_DRAWS = BF && EPI != TRACE;
+  using X = b16::Fns<KS, std::is_same<KS, Exact>::value>;
   using Second = typename std::conditional<
       GEO == SITE, SiteSecond,
       typename std::conditional<GEO == STRIDED, StrideSecond,
@@ -584,6 +726,8 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
   // analytics: the cohort partials' staging, one entry per chain
   __shared__ int s_cid[FLT ? THREADS : 1], s_cuse[FLT ? THREADS : 1];
   __shared__ float s_cval[FLT ? 5 : 1][FLT ? THREADS : 1];
+  // K12: the 128 bf16 normals
+  __shared__ float s_z[BF_DRAWS ? 128 : 1];
   extern __shared__ int s_dyn[];
   // scenario: the tile's meter and pv ([s][thread]), then its histograms
   float* const stage_m = reinterpret_cast<float*>(s_dyn);
@@ -616,6 +760,25 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
                            a.azi[ii], a.alb[ii]);
     cos_tilt = site.cos_tilt;
     albedo = site.albedo;
+  }
+  // K12: cos(tilt) and the albedo in the JAX graph's types -- a shared
+  // site's python floats (weak), per chain the narrowed site scalars
+  using CT = decltype(X::cos(
+      typename std::conditional<PER_CHAIN, b16::bf, b16::wk>::type{}));
+  using AL = typename std::conditional<PER_CHAIN, b16::bf, b16::wk>::type;
+  CT ct_b{};
+  AL al_b{};
+  if constexpr (BF) {
+    if constexpr (PER_CHAIN) {
+      ct_b = X::cos(b16::stored(a.tilt[ii]) * b16::K(PV_DEG));
+      al_b = b16::stored(a.alb[ii]);
+    } else {
+      ct_b = CT{a.cos_tilt};
+      al_b = b16::wk{a.albedo};
+    }
+  }
+  if constexpr (BF_DRAWS) {
+    for (int k = threadIdx.x; k < 128; k += blockDim.x) s_z[k] = Z_BF16[k];
   }
   // K7: the chain's fleet leaves, once per block
   const bool het_power = a.pv_scale != nullptr;
@@ -668,6 +831,9 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
                  base + threadIdx.x);
         tile[threadIdx.x].i0 =
             1370.0f * KS::spencer(a.rows_f[TDOY * T + base + threadIdx.x]);
+      } else if constexpr (BF) {
+        shared_second_bf<KS>(tile[threadIdx.x], a.rows_i, a.rows_f, T,
+                             base + threadIdx.x);
       } else {
         shared_second<KS>(tile[threadIdx.x], a.rows_i, a.rows_f, T,
                           base + threadIdx.x);
@@ -695,11 +861,43 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
       else g_s[0] = per_tile == 2 ? g_s[2] : g_s[1];
       g_s[1] = geometry<KS>(samp[1], site);
       if (per_tile == 2) g_s[2] = geometry<KS>(samp[2], site);
+      if constexpr (BF) {  // K12: the samples narrowed
+        if (base == 0) narrow_geo(g_s[0]);
+        narrow_geo(g_s[1]);
+        if (per_tile == 2) narrow_geo(g_s[2]);
+      }
     }
     for (int s = 0; s < TILE; ++s) {
       const Cal& S = tile[s].c;
       Phys local;
-      if constexpr (GEO == SITE) {
+      if constexpr (GEO == SITE && BF) {
+        using b16::stored;
+        const Geo geo = geometry<KS>(tile[s].ts, site);
+        const b16::bf cos_aoi = stored(geo.cos_aoi);
+        phys_fields_bf(local, stored(geo.csi_cap), stored(geo.ghi_clear),
+                       stored(geo.cos_zenith), stored(geo.dni_extra),
+                       cos_aoi);
+        phys_terms_bf<KS>(local, tile[s].ts.i0, stored(geo.zenith),
+                          stored(geo.app_zen), stored(geo.airmass_abs),
+                          cos_aoi);
+      } else if constexpr (GEO == STRIDED && BF) {
+        // solar.interp_sampled in bf16: lo * (1 - f) + hi * f, the
+        // fraction rounded to bf16
+        using b16::in;
+        const bool upper = s >= stride;
+        const b16::bf fb =
+            in(b16::rn((float)(s % stride) / (float)stride));
+        const b16::bf omf = b16::K(1.0) - fb;
+        const Geo& lo = upper ? g_s[1] : g_s[0];
+        const Geo& hi = upper ? g_s[2] : g_s[1];
+#define LERP(x) (in(lo.x) * omf + in(hi.x) * fb)
+        const b16::bf cos_aoi = LERP(cos_aoi);
+        phys_fields_bf(local, LERP(csi_cap), LERP(ghi_clear),
+                       LERP(cos_zenith), LERP(dni_extra), cos_aoi);
+        phys_terms_bf<KS>(local, tile[s].i0, LERP(zenith), LERP(app_zen),
+                          LERP(airmass_abs), cos_aoi);
+#undef LERP
+      } else if constexpr (GEO == SITE) {
         const Geo geo = geometry<KS>(tile[s].ts, site);
         local.csi_cap = geo.csi_cap;
         local.ghi_clear = geo.ghi_clear;
@@ -735,14 +933,25 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
       // sampler lerps (value-major tables)
       const float cc_t = a.t_cc[S.h * n + ii] * S.one_m_hf +
                          a.t_cc[(S.h + 1) * n + ii] * S.hf;
-      const float z = tf::normal(kz, (uint32_t)s);
+      float z;
+      if constexpr (BF_DRAWS) {  // K12: jax's 8-bit bits, the low byte
+        z = s_z[(tf::bits(kz, (uint32_t)s) & 0xFFu) >> 1];
+      } else {
+        z = tf::normal(kz, (uint32_t)s);
+      }
       const float noise_sec = SIGMA_SEC * (SEC_S0 + SEC_S1X8 * cc_t) * z;
       // renewal: a new cycle only on redraw
       sec = sec + 1.0f;
       if (sec >= total_end) {
         const float ws_t = a.t_ws[S.d * n + ii] * S.one_m_df +
                            a.t_ws[(S.d + 1) * n + ii] * S.df;
-        const float u = tf::uniform(ku, (uint32_t)s);
+        float u;
+        if constexpr (BF_DRAWS) {
+          u = (float)((tf::bits(ku, (uint32_t)s) & 0xFFu) >> 1) *
+              (1.0f / 128.0f);
+        } else {
+          u = tf::uniform(ku, (uint32_t)s);
+        }
         const float cc = fminf(fmaxf(cc_t, RN_CC_MIN), RN_CC_MAX);
         const float cap_m = RN_MAX_CYCLE * cc * ws_t;
         const float xmax = fmaxf(cap_m, RN_XMAX_FLOOR);
@@ -768,7 +977,12 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
                a.t_mc[(S.m + 1) * n + ii] * S.mf;
       }
       const float csi = base_v * (nmin + noise_sec);
-      float ac = power<KS>(csi, *P, cos_tilt, albedo);
+      float ac;
+      if constexpr (BF) {
+        ac = power_bf<KS>(csi, *P, ct_b, al_b);
+      } else {
+        ac = power<KS>(csi, *P, cos_tilt, albedo);
+      }
       float meter = a.meter_max_w * tf::uniform(km, (uint32_t)s);
       // K7: the heterogeneous columns' transforms
       if (het_power) ac = fminf(ac * pv_scale, ac_limit);
@@ -1076,7 +1290,7 @@ __global__ void geometry_kernel(int64_t n, int T, const float* rows_f,
 template <int EPI, int GEO, bool TEL, bool FLT>
 static int launch_one(const Args& a, unsigned blocks, int smem,
                       cudaStream_t st) {
-  auto kernel = block_step_kernel<KSET, EPI, GEO, TEL, FLT>;
+  auto kernel = block_step_kernel<KSET, CDTYPE, EPI, GEO, TEL, FLT>;
   if (smem > 48 * 1024) {  // above 48 KB only after opting in
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1124,6 +1338,17 @@ static int launch(int geo, const Args& a, void* stream, int tel = 0,
                                                                st)
                          : launch_one<EPI, STRIDED, false, false>(a, blocks,
                                                                   sm, st);
+  }
+}
+
+// the scenario epilogue exists in float32 only (the JAX scenario engine
+// has no bf16 path)
+template <class C>
+static int launch_scen(int geo, const Args& a, void* stream, int smem) {
+  if constexpr (std::is_same<C, BF16>::value) {
+    return (int)cudaErrorNotSupported;
+  } else {
+    return launch<SCEN>(geo, a, stream, 0, 0, smem);
   }
 }
 
@@ -1234,7 +1459,7 @@ extern "C" int block_step_scenario(COMMON_PARAMS, float* pv_sum,
   a.n_seconds = n_seconds;
   a.q = *q;
   if (a.q.B <= 0) return (int)cudaErrorInvalidValue;
-  return launch<SCEN>(geo, a, stream, 0, 0, smem);
+  return launch_scen<CDTYPE>(geo, a, stream, smem);
 }
 
 // the layout check of the wrapper's ctypes mirror of Scen

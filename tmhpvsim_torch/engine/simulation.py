@@ -19,14 +19,21 @@ and trimmed from every per-second output).  Per block:
    chains per second (``run_ensemble``) or writes every chain-second
    (``run_blocks``); a site grid runs its K6 geometry mode.
 
-Two precision levers (``self.plan``, resolved as the JAX package resolves
-them): ``kernel_impl='table'`` runs every transcendental of the solar / pv
-chain through the table set (K11: the block step's Table instantiations;
-the shared site's float64 host geometry stays exact, as in the JAX
-package); ``geom_stride`` 30 or 60 evaluates the geometry on a stride grid
-and lerps it to 1 Hz — on the host in float64 for a shared site (the
-kernel is unchanged), on the card per chain for a site grid (K6s, the
-block step's strided mode, fed the sample grid's split time).
+Three precision levers (``self.plan``, resolved as the JAX package
+resolves them): ``kernel_impl='table'`` runs every transcendental of the
+solar / pv chain through the table set (K11: the block step's Table
+instantiations; the shared site's float64 host geometry stays exact, as in
+the JAX package); ``geom_stride`` 30 or 60 evaluates the geometry on a
+stride grid and lerps it to 1 Hz — on the host in float64 for a shared
+site (the kernel is unchanged), on the card per chain for a site grid
+(K6s, the block step's strided mode, fed the sample grid's split time);
+``compute_dtype='bf16'`` runs K12, the block step's bf16 instantiations
+(the shared site's geometry rows rounded to bf16 on the host, ``doy``
+kept float32).  bf16 never runs unwatched: its plan raises telemetry to at
+least 'light', and in reduce mode every block's telemetry summary goes to
+the metrics registry and to the drift sentinel (obs/sentinel.py, against
+the float64 golden model), which raises ``DriftError`` under
+``telemetry_strict``.
 
 The formulation (``plan.block_impl``): 'scan' and 'scan2' run the block
 step above (the port's one scan kernel draws each minute's random tile in
@@ -70,6 +77,7 @@ from __future__ import annotations
 import csv
 import dataclasses
 import datetime as _dt
+import math
 from typing import Callable, Iterator
 
 import numpy as np
@@ -85,6 +93,7 @@ from tmhpvsim_torch.models import clearsky_index as ci
 from tmhpvsim_torch.models import renewal, solar
 from tmhpvsim_torch.models.timegrid import TimeGridSpec
 from tmhpvsim_torch.obs import analytics as flt
+from tmhpvsim_torch.obs import metrics as obs_metrics
 from tmhpvsim_torch.obs import telemetry as tel
 
 #: BlockInputs' tensors, in the order ``to_device`` packs them
@@ -208,8 +217,9 @@ class Simulation:
         elif config.chain_offset:
             raise ValueError("chain_offset requires n_chains_total")
         self.config = config
-        #: the resolved precision levers (kernel_impl, geom_stride)
+        #: the resolved plan (precision levers, formulation, knobs)
         self.plan = resolve_plan(config)
+        self._cd = self.plan.compute_dtype
         self.device = resolve_device(device)
         self.timezone = (grid.timezone if grid is not None
                          else config.site.timezone)
@@ -239,8 +249,9 @@ class Simulation:
         self._het_demand = fp is not None and fp.het_demand
         self._het_power = fp is not None and fp.het_power
         self._het_regime = fp is not None and fp.het_regime
-        # reduce-mode observers; the cohort group-by needs >= 2 cohorts
-        self._telemetry = config.telemetry
+        # reduce-mode observers (telemetry as the plan escalates it); the
+        # cohort group-by needs >= 2 cohorts
+        self._telemetry = self.plan.telemetry
         self._analytics = config.analytics
         self._fleet_params = (flt.params_from_config(config)
                               if self._analytics != "off" else None)
@@ -249,6 +260,10 @@ class Simulation:
                            and fp.n_cohorts > 1 else 0)
         #: the last block's telemetry delta
         self._tel_last = None
+        #: the drift sentinel, built when telemetry observes its first
+        #: block (reduce mode); the metrics registry it publishes into
+        self.sentinel = None
+        self.metrics = obs_metrics.get_registry()
         #: the last block's analytics delta; the run total (int64 /
         #: float64, on the run's device)
         self._fleet_last = None
@@ -409,6 +424,11 @@ class Simulation:
                 blk.epoch.astype(np.float64), blk.doy.astype(np.float64),
                 cfg.site, stride)
             rows_i, rows_f = k3.block_rows(block_idx, mlo, geom)
+            if self._cd == "bf16":
+                # the geometry cast once to bf16 (through float32, as
+                # numpy's bfloat16 casts a float64); doy stays float32
+                rows_f[k3.BF16_ROWS] = torch.from_numpy(
+                    rows_f[k3.BF16_ROWS]).to(torch.bfloat16).float().numpy()
         elif stride > 1:
             # the stride grid's split time (T // s + 1 samples, the last
             # the exact next second, its doy clamped to the block's last)
@@ -548,11 +568,12 @@ class Simulation:
         ks = self.plan.kernel_impl
         if obs is None:
             carry, acc = k3.block_step_acc(*args, site=site, fleet=fleet,
-                                           kernels=ks)
+                                           kernels=ks, compute_dtype=self._cd)
         else:
             carry, acc, out = k3.block_step_obs(*args, site=site,
                                                 fleet=fleet, obs=obs,
-                                                kernels=ks)
+                                                kernels=ks,
+                                                compute_dtype=self._cd)
             self._tel_last, self._fleet_last = out["telemetry"], \
                 out["fleet"]
         return dict(state, carry=carry, cc_carry=cc_carry), acc
@@ -570,7 +591,7 @@ class Simulation:
             tables, inputs.rows_i, inputs.rows_f, state["k_scan"],
             state["k_meter"], state["carry"], self.config.meter_max_w, tilt,
             albedo, site=site, fleet=self.fleet_leaves(state),
-            kernels=self.plan.kernel_impl)
+            kernels=self.plan.kernel_impl, compute_dtype=self._cd)
         return dict(state, carry=carry, cc_carry=cc_carry), m_sum, p_sum
 
     def step_trace(self, state, inputs: BlockInputs):
@@ -582,7 +603,7 @@ class Simulation:
             tables, inputs.rows_i, inputs.rows_f, state["k_scan"],
             state["k_meter"], state["carry"], self.config.meter_max_w, tilt,
             albedo, site=site, fleet=self.fleet_leaves(state),
-            kernels=self.plan.kernel_impl)
+            kernels=self.plan.kernel_impl, compute_dtype=self._cd)
         return dict(state, carry=carry, cc_carry=cc_carry), meter, pv_
 
     # ------------------------------------------------------------------
@@ -754,7 +775,12 @@ class Simulation:
         group size.  With the observers on, each block's analytics delta
         is merged into the run total on the device; the host reads the
         totals (``fleet_summary``) and the last block's telemetry
-        (``tel_summary``) when asked."""
+        (``tel_summary``) when asked.  With telemetry on, each block's
+        summary goes to the metrics registry and the drift sentinel: with
+        ``on_block``, once its group is enqueued and before the callback
+        sees the block (a strict sentinel's ``DriftError`` keeps it from
+        the callback); without, once the next group is enqueued, so the
+        card does not wait on the host."""
         if start_block > 0 and acc is None:
             raise ValueError(
                 "resuming run_reduced needs the accumulator: pass acc= "
@@ -764,13 +790,17 @@ class Simulation:
         self.state = state
         self.state_block = start_block
         bi, group = start_block, self._inputs_ahead(start_block)
+        #: (block index, telemetry delta) not yet observed
+        tels = []
         while group:
             snaps = []
-            for inputs in group:
+            for j, inputs in enumerate(group):
                 state, acc = self.step_acc(state, inputs, acc)
                 if self._analytics != "off":
                     self._fleet_run = flt.merge(self._fleet_run,
                                                 self._fleet_last)
+                if self._telemetry != "off":
+                    tels.append((bi + j, self._tel_to_host(self._tel_last)))
                 if on_block is not None and len(group) > 1:
                     snaps.append(_clone(acc))
             k = len(group)
@@ -778,11 +808,56 @@ class Simulation:
             self.state = state
             self.state_block = bi + k
             if on_block is not None:
+                self._observe_telemetry(tels)
+                tels = []
                 for j in range(k):
                     on_block(bi + j, state, snaps[j] if snaps else acc)
+            else:
+                # no callback: the previous group's telemetry is observed
+                # now that this one is enqueued; its copies were recorded
+                # before this group's launches, so the host waits for
+                # them only and the card runs this group meanwhile (a
+                # strict sentinel's DriftError comes one group late)
+                self._observe_telemetry([t for t in tels if t[0] < bi])
+                tels = [t for t in tels if t[0] >= bi]
             bi += k
+        self._observe_telemetry(tels)
         self._last_acc = acc
         return {k: v.cpu().numpy() for k, v in acc.items()}
+
+    def _tel_to_host(self, delta: dict):
+        """Start reading a block's telemetry delta back, right after its
+        launch: the leaves packed on the device into one float64 buffer
+        (exact for every count and float32 extremum) and copied as
+        ``_to_host`` copies.  Returns ``(layout, (host buffer, event))``
+        for ``_observe_telemetry``."""
+        layout = [(k, v.shape, v.dtype) for k, v in delta.items()]
+        flat = torch.cat([v.reshape(-1).double() for v in delta.values()])
+        return layout, self._to_host(flat)
+
+    def _observe_telemetry(self, deltas) -> None:
+        """The telemetry flush of blocks ``[(block index, pending copy),
+        ...]`` (the JAX package's ``_observe_telemetry``): each block's
+        copy (``_tel_to_host``) waited for, summarised, published into the
+        metrics registry under ``device.*`` and handed to the drift
+        sentinel, built at the first block."""
+        for bi, (layout, (buf, ev)) in deltas:
+            if ev is not None:
+                ev.synchronize()
+            delta, o = {}, 0
+            for k, shape, dtype in layout:
+                n = math.prod(shape)
+                delta[k] = buf[o:o + n].to(dtype).reshape(shape)
+                o += n
+            summary = tel.summarize(delta)
+            tel.publish(self.metrics, summary)
+            if self.sentinel is None:
+                from tmhpvsim_torch.obs.sentinel import DriftSentinel
+
+                self.sentinel = DriftSentinel(
+                    self.config, level=self._telemetry,
+                    strict=self.config.telemetry_strict)
+            self.sentinel.observe_block(bi, summary)
 
     @property
     def tel_summary(self):
@@ -809,15 +884,15 @@ class Simulation:
 
     def precision_doc(self):
         """The run report's ``precision`` section when a lever is off its
-        default (``kernel_impl`` 'table', ``rng_batch`` 'block' or
-        ``geom_stride`` > 1), else None; the JAX package's keys, with
-        float32 for the one lever the port does not have."""
+        default (``compute_dtype`` 'bf16', ``kernel_impl`` 'table',
+        ``rng_batch`` 'block' or ``geom_stride`` > 1), else None; the JAX
+        package's keys."""
         p = self.plan
-        if p.kernel_impl == "exact" and p.rng_batch == "scan" and \
-                p.geom_stride == 1:
+        if p.compute_dtype == "f32" and p.kernel_impl == "exact" and \
+                p.rng_batch == "scan" and p.geom_stride == 1:
             return None
         return {
-            "compute_dtype": "f32",
+            "compute_dtype": p.compute_dtype,
             "kernel_impl": p.kernel_impl,
             "rng_batch": p.rng_batch,
             "geom_stride": p.geom_stride,

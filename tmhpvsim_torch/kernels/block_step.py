@@ -31,7 +31,17 @@ Replaces, in tmhpvsim_tpu/engine/simulation.py:
   ``_scenario_block_core`` (:1834, :1871-1937): each scenario row's
   transform of the step's meter and pv, its selectors and horizon, the
   seven statistics per (scenario, chain) and a ``risk`` FleetAcc per
-  scenario with its ``reduce_chainwise`` (``block_step_scenario``).
+  scenario with its ``reduce_chainwise`` (``block_step_scenario``);
+* K12 the same step under ``compute_dtype='bf16'`` (:1129-1132, :713-733,
+  :765, :830-842, :911-912, :1218): the acc and series epilogues draw the
+  per-second u / z in bf16 (the trace epilogue, the JAX ``_block_step``,
+  draws them in float32), the geometry reaches the physics in bf16 (the
+  shared rows rounded on the host, the per-chain and strided geometry
+  narrowed after its float32 evaluation, the stride lerp in bf16) and the
+  csi handed to ``pv.power_from_csi`` is rounded to bf16, whose chain then
+  runs with the JAX graph's types (models/bf16.py); the carry, the meter
+  and every accumulator stay float32 (``compute_dtype=``; its own
+  libraries csrc/block_step_bf16.cu and block_step_bf16_table.cu).
 
 Every epilogue shares one pre-fold body: for every chain and second the
 table lerps, the renewal step (a new cycle from ``cycle_from_u`` on
@@ -66,6 +76,7 @@ from tmhpvsim_torch.data import SANDIA_INVERTER, SAPM_MODULE
 from tmhpvsim_torch.kernels import build
 from tmhpvsim_torch.models import clearsky_index as ci
 from tmhpvsim_torch.models import distributions as dist
+from tmhpvsim_torch.models import bf16 as mx
 from tmhpvsim_torch.models import pv, renewal, solar
 from tmhpvsim_torch.models.tables import KERNEL_IMPLS, get_kernels
 from tmhpvsim_torch.obs import analytics as flt
@@ -73,23 +84,34 @@ from tmhpvsim_torch.obs import telemetry as tel
 
 #: the geometry modes (csrc/block_step.cuh ``Geom``)
 GEOMS = ("shared", "site", "strided")
+_EPI_BASE = (("acc", "block_step"), ("series", "block_step_series"),
+             ("trace", "block_step_trace"))
+
+
+def _counters(suffix: str) -> dict:
+    """One launch counter per (epilogue, geometry mode, kernel set) of a
+    compute dtype, named ``{base}[_{geometry}][_{set}]{suffix}``."""
+    return {(epi, geo, ks): build.LaunchCounter(
+        base + ("" if geo == "shared" else "_" + geo)
+        + ("" if ks == "exact" else "_" + ks) + suffix)
+        for epi, base in _EPI_BASE for geo in GEOMS for ks in KERNEL_IMPLS}
+
+
 #: the block-step instantiations' launch counters, by (epilogue, geometry
 #: mode, kernel set); the scenario epilogue counts per kernel set
-STEP = {}
-for _epi, _base in (("acc", "block_step"), ("series", "block_step_series"),
-                    ("trace", "block_step_trace")):
-    for _geo in GEOMS:
-        for _ks in KERNEL_IMPLS:
-            STEP[_epi, _geo, _ks] = build.LaunchCounter(
-                _base + ("" if _geo == "shared" else "_" + _geo)
-                + ("" if _ks == "exact" else "_" + _ks))
+STEP = _counters("")
 for _ks in KERNEL_IMPLS:
     _scen = build.LaunchCounter("block_step_scenario"
                                 + ("" if _ks == "exact" else "_" + _ks))
     for _geo in GEOMS:
         STEP["scen", _geo, _ks] = _scen
+#: K12's instantiations (compute_dtype 'bf16'); the scenario epilogue has
+#: none
+STEP_BF16 = _counters("_bf16")
 #: K3: the acc epilogue, shared site, exact set
 K3 = STEP["acc", "shared", "exact"]
+#: the values of ``compute_dtype=`` (Plan.compute_dtype)
+COMPUTE_DTYPES = ("f32", "bf16")
 K4_SUM = build.LaunchCounter("series_sum")
 #: block-step launches (any epilogue) that apply fleet transforms
 K7_FLEET = build.LaunchCounter("block_step_fleet")
@@ -102,8 +124,8 @@ K89 = build.LaunchCounter("block_step_tel_analytics")
 COLLAPSE = build.LaunchCounter("chainwise_collapse")
 #: every counter of this module: the instantiations in (epilogue,
 #: geometry, kernel set) order, then the rest
-COUNTERS = tuple(dict.fromkeys(STEP.values())) + (
-    K4_SUM, K7_FLEET, K8, K9, K89, COLLAPSE)
+COUNTERS = tuple(dict.fromkeys(STEP.values())) + tuple(
+    STEP_BF16.values()) + (K4_SUM, K7_FLEET, K8, K9, K89, COLLAPSE)
 
 #: per-second integer rows: global second, rebased hour / day / minute index
 ROWS_I = ("t", "h", "d", "m")
@@ -112,6 +134,9 @@ ROWS_I = ("t", "h", "d", "m")
 ROWS_F = ("hf", "df", "mf", "zenith", "cos_zenith", "apparent_zenith",
           "azimuth", "csi_cap", "ghi_clear", "dni_extra", "airmass_abs",
           "cos_aoi", "doy")
+#: the shared rows the host rounds to bf16 under compute_dtype='bf16' (the
+#: geometry fields but ``doy``, as the JAX host casts them)
+BF16_ROWS = slice(ROWS_F.index("zenith"), ROWS_F.index("doy"))
 #: per-second float rows of the site mode: calendar fractions, then the
 #: float32-safe split time (the geometry is per chain, on the device)
 ROWS_F_SITE = ("hf", "df", "mf", "day2000", "sec_of_day", "doy")
@@ -285,6 +310,8 @@ def kernel_constants() -> dict:
         "GEO_STD_PRESSURE": solar.STD_PRESSURE,
         "GEO_SOLAR_CONSTANT": solar.SOLAR_CONSTANT,
         "LINKE_MIDS": list(solar.LINKE_MIDS),
+        # K12: the 128 values of a bf16 normal draw
+        "Z_BF16": [float(v) for v in rng.normal_bf16_table()],
     }
 
 
@@ -344,22 +371,57 @@ def _geometry(rows_f, surface_tilt, albedo, site: SiteGeometry | None,
             r["day2000"], r["sec_of_day"], r["doy"], s["latitude"],
             s["longitude"], s["altitude"], s["surface_tilt"],
             s["surface_azimuth"], s["albedo"], site.turbidity, ks)
+    samp, gi, gf = _stride_samples(rows_f, site, kernels)
+    g = solar.interp_sampled(samp, gi, gf)
+    g["doy"] = rows_f[ROWS_F_STRIDE.index("doy")][:, None]
+    g["surface_tilt"] = s["surface_tilt"]
+    g["albedo"] = s["albedo"]
+    return g
+
+
+def _stride_samples(rows_f, site: SiteGeometry, kernels: str):
+    """The strided mode's float32 device geometry on the ``(S, n)``
+    sample grid, and each second's sample index and fraction."""
+    s = site.site
     T = rows_f.shape[1]
     solar.check_stride(T, site.stride)
     S = T // site.stride + 1
-    r = {k: rows_f[i][:, None] for i, k in enumerate(ROWS_F_STRIDE)}
+    r = {k: rows_f[i][:S, None] for i, k in enumerate(ROWS_F_STRIDE)}
     samp = solar.device_geometry(
-        r["s_day2000"][:S], r["s_sec_of_day"][:S], r["s_doy"][:S],
-        s["latitude"], s["longitude"], s["altitude"], s["surface_tilt"],
-        s["surface_azimuth"], s["albedo"], site.turbidity, ks)
+        r["s_day2000"], r["s_sec_of_day"], r["s_doy"], s["latitude"],
+        s["longitude"], s["altitude"], s["surface_tilt"],
+        s["surface_azimuth"], s["albedo"], site.turbidity,
+        get_kernels(kernels))
     gi, gf = solar.stride_weights(T, site.stride)
     dev = rows_f.device
-    g = solar.interp_sampled(
-        samp, torch.from_numpy(gi).long().to(dev),
-        torch.from_numpy(gf.astype(np.float32)).to(dev))
-    g["doy"] = r["doy"]
-    g["surface_tilt"] = s["surface_tilt"]
-    g["albedo"] = s["albedo"]
+    return (samp, torch.from_numpy(gi).long().to(dev),
+            torch.from_numpy(gf.astype(np.float32)).to(dev))
+
+
+def _geometry_bf16(rows_f, surface_tilt, albedo, site: SiteGeometry | None,
+                   kernels: str = "exact"):
+    """:func:`_geometry` on the bf16 path, as models/bf16.py values: the
+    shared rows (rounded to bf16 by the host, ``doy`` float32) with the
+    site's python-float tilt and albedo; per chain the float32 device
+    geometry narrowed to bf16 (tilt and albedo too, ``doy`` float32); in
+    the strided mode the samples narrowed, then lerped in bf16 at the
+    fraction rounded to bf16."""
+    if site is None:
+        g = {k: mx.bf16_input(rows_f[i][:, None])
+             for i, k in enumerate(ROWS_F) if k != "doy"}
+        g["doy"] = rows_f[ROWS_F.index("doy")][:, None]
+        g["surface_tilt"] = surface_tilt
+        g["albedo"] = albedo
+        return g
+    if site.stride <= 1:
+        g = _geometry(rows_f, None, None, site, kernels)
+        return {k: v if k == "doy" else mx.bf16_input(v)
+                for k, v in g.items()}
+    s = site.site
+    g = solar.interp_sampled_bf16(*_stride_samples(rows_f, site, kernels))
+    g["doy"] = rows_f[ROWS_F_STRIDE.index("doy")][:, None]
+    g["surface_tilt"] = mx.bf16_input(s["surface_tilt"])
+    g["albedo"] = mx.bf16_input(s["albedo"])
     return g
 
 
@@ -377,15 +439,21 @@ def fleet_transform_plain(meter, ac, fleet: FleetLeaves | None):
 
 def _body_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
                 meter_max_w, surface_tilt, albedo, site, fleet=None,
-                kernels="exact"):
+                kernels="exact", compute_dtype="f32", bf16_draws=True):
     """The pre-fold body every epilogue shares: everything carry-
     independent over the whole block at once, the renewal compare/select
     second by second, then the fleet transforms.  Returns ``(carry,
     meter, ac, csi, covered)`` with time-major ``(T, n)`` arrays (csi
-    before the cap, as the telemetry reads it)."""
+    before the cap, as the telemetry reads it).  ``compute_dtype='bf16'``
+    runs K12's arithmetic: u / z drawn in bf16 when ``bf16_draws`` (the
+    acc and series epilogues), the physics on bf16 geometry and csi."""
     T = rows_i.shape[1]
     g0 = int(rows_i[0, 0]) // 60
-    u, z = ci.scan_draws_tmajor(k_scan, g0, T // 60)
+    bf = compute_dtype == "bf16"
+    u, z = ci.scan_draws_tmajor(
+        k_scan, g0, T // 60,
+        torch.bfloat16 if bf and bf16_draws else torch.float32)
+    u, z = u.float(), z.float()
     meter = ci.meter_block_tmajor(k_meter, g0, T // 60, meter_max_w)
     x = {"h": rows_i[1].long(), "d": rows_i[2].long(), "m": rows_i[3].long(),
          "hf": rows_f[0][:, None], "df": rows_f[1][:, None],
@@ -397,9 +465,15 @@ def _body_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
     for s in range(T):
         carry, covered[s] = renewal.step_from_cycle(carry, cloud[s], total[s])
     csi = ci.compose(ins, covered)
-    ac = pv.power_from_csi(csi, _geometry(rows_f, surface_tilt, albedo,
-                                          site, kernels),
-                           SAPM_MODULE, SANDIA_INVERTER, get_kernels(kernels))
+    if bf:
+        ac = pv.power_from_csi_bf16(
+            csi, _geometry_bf16(rows_f, surface_tilt, albedo, site, kernels),
+            SAPM_MODULE, SANDIA_INVERTER, kernels)
+    else:
+        ac = pv.power_from_csi(csi, _geometry(rows_f, surface_tilt, albedo,
+                                              site, kernels),
+                               SAPM_MODULE, SANDIA_INVERTER,
+                               get_kernels(kernels))
     meter, ac = fleet_transform_plain(meter, ac, fleet)
     return carry, meter, ac, csi, covered
 
@@ -439,13 +513,13 @@ def block_step_plain(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
                      duration_s: int, meter_max_w: float,
                      surface_tilt, albedo, site: SiteGeometry | None = None,
                      fleet: FleetLeaves | None = None,
-                     kernels: str = "exact"):
-    """Plain torch K3 / K6 / K6s (the ``acc`` epilogue, with K7's
+                     kernels: str = "exact", compute_dtype: str = "f32"):
+    """Plain torch K3 / K6 / K6s / K12 (the ``acc`` epilogue, with K7's
     transforms): the shared body, then the statistics fold.  Returns
     ``(carry, acc)``."""
     carry, meter, ac, _, _ = _body_plain(
         tables, rows_i, rows_f, k_scan, k_meter, carry, meter_max_w,
-        surface_tilt, albedo, site, fleet, kernels)
+        surface_tilt, albedo, site, fleet, kernels, compute_dtype)
     return carry, stats_fold_plain(acc, rows_i[0], duration_s, meter, ac)
 
 
@@ -454,7 +528,8 @@ def block_step_obs_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
                          surface_tilt, albedo,
                          site: SiteGeometry | None = None,
                          fleet: FleetLeaves | None = None,
-                         obs: Observers = None, kernels: str = "exact"):
+                         obs: Observers = None, kernels: str = "exact",
+                         compute_dtype: str = "f32"):
     """Plain K8 / K9: the acc epilogue with the observers' per-chain folds
     (obs/telemetry.py and obs/analytics.py ``fold_second``, zero-
     initialised for the block) beside the statistics, then their
@@ -464,7 +539,7 @@ def block_step_obs_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
     ``telemetry_chain`` / ``fleet_chain``."""
     carry, meter, ac, csi, covered = _body_plain(
         tables, rows_i, rows_f, k_scan, k_meter, carry, meter_max_w,
-        surface_tilt, albedo, site, fleet, kernels)
+        surface_tilt, albedo, site, fleet, kernels, compute_dtype)
     n, dev = ac.shape[1], ac.device
     cohorts = obs.n_cohorts if obs.n_cohorts >= 2 else 0
     st = {"ta": None if obs.telemetry == "off" else
@@ -583,14 +658,15 @@ def scenario_plain(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
 def series_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
                  meter_max_w: float, surface_tilt, albedo,
                  site: SiteGeometry | None = None,
-                 fleet: FleetLeaves | None = None, kernels: str = "exact"):
+                 fleet: FleetLeaves | None = None, kernels: str = "exact",
+                 compute_dtype: str = "f32"):
     """Plain K4 series: the shared body, then each second's cross-chain
     sums of meter and pv (accumulated in float64, rounded once to
     float32).  Returns ``(carry, meter_sum, pv_sum)``, each ``(T,)``;
     padding seconds are summed too (the engine trims them)."""
     carry, meter, ac, _, _ = _body_plain(
         tables, rows_i, rows_f, k_scan, k_meter, carry, meter_max_w,
-        surface_tilt, albedo, site, fleet, kernels)
+        surface_tilt, albedo, site, fleet, kernels, compute_dtype)
     return (carry, meter.double().sum(1).float(),
             ac.double().sum(1).float())
 
@@ -598,12 +674,14 @@ def series_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
 def trace_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
                 meter_max_w: float, surface_tilt, albedo,
                 site: SiteGeometry | None = None,
-                fleet: FleetLeaves | None = None, kernels: str = "exact"):
+                fleet: FleetLeaves | None = None, kernels: str = "exact",
+                compute_dtype: str = "f32"):
     """Plain K4 trace: the shared body's every chain-second.  Returns
-    ``(carry, meter, pv)`` with time-major ``(T, n)`` arrays."""
+    ``(carry, meter, pv)`` with time-major ``(T, n)`` arrays.  Under bf16
+    the u / z draws stay float32, as in the JAX ``_block_step``."""
     return _body_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
                        meter_max_w, surface_tilt, albedo, site, fleet,
-                       kernels)[:3]
+                       kernels, compute_dtype, bf16_draws=False)[:3]
 
 
 def cos_tilt(surface_tilt: float, kernels: str = "exact") -> float:
@@ -622,8 +700,11 @@ _P = ctypes.c_void_p
 _COMMON = ([ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
             ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float]
            + [_P] * 21)
-#: the block-step library of each kernel set
-_LIBRARY = {"exact": "block_step.cu", "table": "block_step_table.cu"}
+#: the block-step library of each (kernel set, compute dtype)
+_LIBRARY = {("exact", "f32"): "block_step.cu",
+            ("table", "f32"): "block_step_table.cu",
+            ("exact", "bf16"): "block_step_bf16.cu",
+            ("table", "bf16"): "block_step_bf16_table.cu"}
 
 
 class _Obs(ctypes.Structure):
@@ -674,7 +755,7 @@ def _common_args(tables, rows_i, rows_f, k_scan, k_meter, carry,
     dev = k_scan.device
     if T % 60:
         raise ValueError("block length must be a multiple of 60 seconds")
-    if kernels not in _LIBRARY:
+    if kernels not in KERNEL_IMPLS:
         raise ValueError(f"block_step: unknown kernel set {kernels!r}")
     geo = _geo_mode(site)
     if geo == "strided":
@@ -726,8 +807,18 @@ def _common_args(tables, rows_i, rows_f, k_scan, k_meter, carry,
     return n, T, dev, args
 
 
-def _count(epi: str, site, fleet, kernels: str):
-    STEP[epi, _geo_mode(site), kernels].launches += 1
+def _library(kernels: str, compute_dtype: str) -> str:
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"block_step: compute_dtype {compute_dtype!r} "
+                         f"must be one of {COMPUTE_DTYPES}")
+    return _LIBRARY[kernels, compute_dtype]
+
+
+def _count(epi: str, site, fleet, kernels: str, compute_dtype: str = "f32"):
+    if compute_dtype == "bf16":
+        STEP_BF16[epi, _geo_mode(site), kernels].launches += 1
+    else:
+        STEP[epi, _geo_mode(site), kernels].launches += 1
     if fleet is not None and any(t is not None for t in fleet.tensors()):
         K7_FLEET.launches += 1
 
@@ -903,12 +994,12 @@ _obs_size_checked = False
 def _block_step_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
                      duration_s, meter_max_w, surface_tilt, albedo, site,
                      fleet=None, obs: Observers | None = None,
-                     kernels="exact"):
+                     kernels="exact", compute_dtype="f32"):
     global _obs_size_checked
     n, T, dev, args = _common_args(tables, rows_i, rows_f, k_scan, k_meter,
                                    carry, duration_s, meter_max_w,
                                    surface_tilt, albedo, site, fleet, kernels)
-    lib = _LIBRARY[kernels]
+    lib = _library(kernels, compute_dtype)
     for k in ACC_F:
         _check(acc[k], torch.float32, dev, f"acc {k}")
     _check(acc["n_seconds"], torch.int32, dev, "acc n_seconds")
@@ -931,7 +1022,7 @@ def _block_step_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
             None if o is None else ctypes.byref(o), int(tel_on),
             int(flt_on), smem, build.stream_ptr(dev))
     build.check(rc, "block_step_acc")
-    _count("acc", site, fleet, kernels)
+    _count("acc", site, fleet, kernels, compute_dtype)
     if tel_on or flt_on:
         (K89 if tel_on and flt_on else K8 if tel_on else K9).launches += 1
     if o is None:
@@ -950,7 +1041,7 @@ def _scenario_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
     n, T, dev, args = _common_args(tables, rows_i, rows_f, k_scan, k_meter,
                                    carry, duration_s, meter_max_w,
                                    surface_tilt, albedo, site, fleet, kernels)
-    lib = _LIBRARY[kernels]
+    lib = _library(kernels, "f32")
     B = _scenario_check(scen)
     for k in SCEN_F + SCEN_I:
         _check(scen[k], scen[k].dtype, dev, f"scen {k}")
@@ -1029,7 +1120,7 @@ def _scenario_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
 
 def series_partials_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry,
                          meter_max_w, surface_tilt, albedo, site=None,
-                         fleet=None, kernels="exact"):
+                         fleet=None, kernels="exact", compute_dtype="f32"):
     """The series kernel's first pass on the card: ``(carry, partials)``
     with ``partials[0 | 1]`` the ``(n_ctas, T)`` per-CTA sums of meter |
     pv."""
@@ -1039,12 +1130,12 @@ def series_partials_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry,
     n_ctas = (n + THREADS - 1) // THREADS
     part = torch.empty((2, n_ctas, T), dtype=torch.float32, device=dev)
     p = build.ptr
-    fn = build.entry(_LIBRARY[kernels], "block_step_series",
+    fn = build.entry(_library(kernels, compute_dtype), "block_step_series",
                      _COMMON + [_P] * 5)
     rc = fn(*args, *(p(carry[k]) for k in CARRY), p(part[0]), p(part[1]),
             build.stream_ptr(dev))
     build.check(rc, "block_step_series")
-    _count("series", site, fleet, kernels)
+    _count("series", site, fleet, kernels, compute_dtype)
     return carry, part
 
 
@@ -1079,33 +1170,37 @@ def series_sum(part):
 
 def _series_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry,
                  meter_max_w, surface_tilt, albedo, site, fleet=None,
-                 kernels="exact"):
+                 kernels="exact", compute_dtype="f32"):
     carry, part = series_partials_cuda(tables, rows_i, rows_f, k_scan,
                                        k_meter, carry, meter_max_w,
                                        surface_tilt, albedo, site, fleet,
-                                       kernels)
+                                       kernels, compute_dtype)
     out = series_sum(part)
     return carry, out[0], out[1]
 
 
 def _trace_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry,
                 meter_max_w, surface_tilt, albedo, site, fleet=None,
-                kernels="exact"):
+                kernels="exact", compute_dtype="f32"):
     n, T, dev, args = _common_args(tables, rows_i, rows_f, k_scan, k_meter,
                                    carry, 0, meter_max_w, surface_tilt,
                                    albedo, site, fleet, kernels)
     out = torch.empty((2, T, n), dtype=torch.float32, device=dev)
     p = build.ptr
-    fn = build.entry(_LIBRARY[kernels], "block_step_trace",
+    fn = build.entry(_library(kernels, compute_dtype), "block_step_trace",
                      _COMMON + [_P] * 5)
     rc = fn(*args, *(p(carry[k]) for k in CARRY), p(out[0]), p(out[1]),
             build.stream_ptr(dev))
     build.check(rc, "block_step_trace")
-    _count("trace", site, fleet, kernels)
+    _count("trace", site, fleet, kernels, compute_dtype)
     return carry, out[0], out[1]
 
 
 def _dispatch(k_scan, cuda_fn, plain_fn, *args, **kw):
+    if kw.get("compute_dtype", "f32") not in COMPUTE_DTYPES:
+        raise ValueError(f"block_step: compute_dtype "
+                         f"{kw['compute_dtype']!r} must be one of "
+                         f"{COMPUTE_DTYPES}")
     if k_scan.device.type == "cuda":
         return cuda_fn(*args, **kw)
     if k_scan.device.type != "cpu":
@@ -1116,7 +1211,8 @@ def _dispatch(k_scan, cuda_fn, plain_fn, *args, **kw):
 def block_step_acc(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
                    duration_s: int, meter_max_w: float, surface_tilt,
                    albedo, site: SiteGeometry | None = None,
-                   fleet: FleetLeaves | None = None, kernels: str = "exact"):
+                   fleet: FleetLeaves | None = None, kernels: str = "exact",
+                   compute_dtype: str = "f32"):
     """Fold one block into the accumulator; returns ``(carry, acc)``.
 
     ``tables``: value-major K2 tables; ``rows_i``/``rows_f``: the block's
@@ -1124,18 +1220,20 @@ def block_step_acc(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
     ``surface_tilt`` and ``albedo`` are None); ``carry``/``acc``: dicts of
     ``(n,)`` tensors (``CARRY`` float32; ``ACC_F`` float32 and int32
     ``n_seconds``); ``fleet``: K7's per-chain leaves; ``kernels``: the
-    transcendental set, 'exact' or 'table' (K11)."""
+    transcendental set, 'exact' or 'table' (K11); ``compute_dtype``:
+    'f32' or 'bf16' (K12)."""
     return _dispatch(k_scan, _block_step_cuda, block_step_plain, tables,
                      rows_i, rows_f, k_scan, k_meter, carry, acc,
                      duration_s, meter_max_w, surface_tilt, albedo, site,
-                     fleet, kernels=kernels)
+                     fleet, kernels=kernels, compute_dtype=compute_dtype)
 
 
 def block_step_obs(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
                    duration_s: int, meter_max_w: float, surface_tilt,
                    albedo, site: SiteGeometry | None = None,
                    fleet: FleetLeaves | None = None,
-                   obs: Observers = None, kernels: str = "exact"):
+                   obs: Observers = None, kernels: str = "exact",
+                   compute_dtype: str = "f32"):
     """``block_step_acc`` with the reduce-mode observers (K8 telemetry, K9
     analytics) folded in the same launch: ``(carry, acc, out)``, ``out``
     as ``block_step_obs_plain`` returns it (on the card the per-block
@@ -1145,7 +1243,8 @@ def block_step_obs(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
     return _dispatch(k_scan, _block_step_cuda, block_step_obs_plain, tables,
                      rows_i, rows_f, k_scan, k_meter, carry, acc,
                      duration_s, meter_max_w, surface_tilt, albedo, site,
-                     fleet=fleet, obs=obs, kernels=kernels)
+                     fleet=fleet, obs=obs, kernels=kernels,
+                     compute_dtype=compute_dtype)
 
 
 def block_step_scenario(tables, rows_i, rows_f, k_scan, k_meter, carry,
@@ -1177,25 +1276,27 @@ def block_step_series(tables, rows_i, rows_f, k_scan, k_meter, carry,
                       meter_max_w: float, surface_tilt, albedo,
                       site: SiteGeometry | None = None,
                       fleet: FleetLeaves | None = None,
-                      kernels: str = "exact"):
+                      kernels: str = "exact", compute_dtype: str = "f32"):
     """One ensemble block: ``(carry, meter_sum, pv_sum)``, the sums
     ``(T,)`` over chains per second.  On the card a fixed-order reduction
     (per CTA, then over CTAs in index order): a repeated run gives the
     same bits."""
     return _dispatch(k_scan, _series_cuda, series_plain, tables, rows_i,
                      rows_f, k_scan, k_meter, carry, meter_max_w,
-                     surface_tilt, albedo, site, fleet, kernels=kernels)
+                     surface_tilt, albedo, site, fleet, kernels=kernels,
+                     compute_dtype=compute_dtype)
 
 
 def block_step_trace(tables, rows_i, rows_f, k_scan, k_meter, carry,
                      meter_max_w: float, surface_tilt, albedo,
                      site: SiteGeometry | None = None,
                      fleet: FleetLeaves | None = None,
-                     kernels: str = "exact"):
+                     kernels: str = "exact", compute_dtype: str = "f32"):
     """One trace block: ``(carry, meter, pv)``, time-major ``(T, n)``."""
     return _dispatch(k_scan, _trace_cuda, trace_plain, tables, rows_i,
                      rows_f, k_scan, k_meter, carry, meter_max_w,
-                     surface_tilt, albedo, site, fleet, kernels=kernels)
+                     surface_tilt, albedo, site, fleet, kernels=kernels,
+                     compute_dtype=compute_dtype)
 
 
 def geometry_fields_plain(rows_f, site: SiteGeometry,
@@ -1234,7 +1335,7 @@ def device_geometry_fields(rows_f, site: SiteGeometry,
     out = torch.empty((len(GEOM_FIELDS), T, n), dtype=torch.float32,
                       device=dev)
     p = build.ptr
-    fn = build.entry(_LIBRARY[kernels], "device_geometry_fields",
+    fn = build.entry(_library(kernels, "f32"), "device_geometry_fields",
                      [ctypes.c_int64, ctypes.c_int] + [_P] * 9)
     rc = fn(n, T, p(rows_f), *(p(site.site[k]) for k in SITE_FIELDS),
             p(site.turbidity), p(out), build.stream_ptr(dev))

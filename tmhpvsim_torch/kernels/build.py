@@ -4,8 +4,10 @@ bound with ctypes).
 Each source of ``SOURCES`` — ``threefry.cu`` (K1), ``windows.cu`` (K2,
 K7's regime gather), ``block_step.cu`` and ``block_step_table.cu`` (the
 block-step template of ``block_step.cuh`` for the exact and the table
-kernel set), ``tables.cu`` (K11 on its own) and ``wide_fold.cu`` (the K4
-merges) — compiles, in parallel with the others, into its own shared
+kernel set), ``block_step_bf16.cu`` and ``block_step_bf16_table.cu`` (the
+same under ``compute_dtype='bf16'``, K12), ``tables.cu`` (K11 on its own)
+and ``wide_fold.cu`` (the K4 merges) — compiles, in parallel with the
+others, into its own shared
 library with a plain C interface, for ``sm_90a``; the headers of
 ``HEADERS`` key every library's hash.  The model
 constants the kernels use are not copied into the sources: they are
@@ -35,8 +37,10 @@ import numpy as np
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
 SOURCES = ("threefry.cu", "windows.cu", "block_step.cu",
-           "block_step_table.cu", "tables.cu", "wide_fold.cu")
-HEADERS = ("threefry.cuh", "block_step.cuh", "tables.cuh", "fold.cuh")
+           "block_step_table.cu", "block_step_bf16.cu",
+           "block_step_bf16_table.cu", "tables.cu", "wide_fold.cu")
+HEADERS = ("threefry.cuh", "block_step.cuh", "tables.cuh", "fold.cuh",
+           "bf16.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")

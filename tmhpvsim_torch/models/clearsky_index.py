@@ -117,14 +117,15 @@ def minute_noise_values(k_min, cc, lo: int, feats):
     }
 
 
-def scan_draws_tmajor(keys, g0: int, n_groups: int):
+def scan_draws_tmajor(keys, g0: int, n_groups: int, dtype=torch.float32):
     """Per-second (u_cycle, z_sec) streams of a minute-aligned block,
     time-major ``(n_groups*60, chains)``: second s reads slot s % 60 of
-    ``fold_in(fold_in(k_scan, g0 + s//60), 0 | 1)``."""
+    ``fold_in(fold_in(k_scan, g0 + s//60), 0 | 1)``; ``dtype`` float32 or
+    (``compute_dtype='bf16'``) bfloat16."""
     g = _idx(g0, n_groups, keys.device)
     kg = rng.fold_in(keys[:, None, :], g)                   # (n, G, 2)
-    u = rng.uniform(rng.fold_in(kg, 0), (60,))              # (n, G, 60)
-    z = rng.normal(rng.fold_in(kg, 1), (60,))
+    u = rng.uniform(rng.fold_in(kg, 0), (60,), dtype=dtype)  # (n, G, 60)
+    z = rng.normal(rng.fold_in(kg, 1), (60,), dtype=dtype)
     n = keys.shape[0]
     return (u.reshape(n, -1).T.contiguous(), z.reshape(n, -1).T.contiguous())
 

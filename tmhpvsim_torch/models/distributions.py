@@ -47,6 +47,7 @@ def student_t(keys, loc, scale, df):
 
 CLOUD_LENGTH_BETA = 1.66
 CLOUD_LENGTH_XMIN_M = 0.1e3
+CLOUD_LENGTH_XMAX_M = 1e6
 
 
 def truncated_powerlaw_from_u(u, xmin, xmax, beta):

@@ -103,3 +103,41 @@ def chain_window(keys, start: int, n: int, state, params=None):
     if not out:
         return state.new_empty(state.shape + (0,)), state
     return torch.stack(out, dim=-1), state
+
+
+# ---------------------------------------------------------------------------
+# float64 numpy chain (the golden model's, engine/golden.py)
+# ---------------------------------------------------------------------------
+
+_BINS64 = np.asarray(MARKOV_STEP_BINS, dtype=np.float64)
+_PARAMS64 = np.asarray(MARKOV_STEP_PARAMS, dtype=np.float64)
+
+
+def transition_numpy(rng: np.random.Generator, state: float) -> float:
+    """One float64 transition from numpy draws (the JAX package's
+    ``transition_numpy``): the same model as :func:`transition`, an
+    independent code path and random stream (inverse-CDF from a numpy
+    uniform, or ``standard_t``)."""
+    idx = np.searchsorted(_BINS64, state, side="left")
+    loc, scale, kappa, df, is_t = _PARAMS64[min(idx, len(_PARAMS64) - 1)]
+    if is_t > 0.5:
+        step = loc + scale * rng.standard_t(df)
+    else:
+        u = rng.uniform()
+        k2 = kappa * kappa
+        if u < k2 / (1 + k2):
+            x = kappa * np.log((1 + k2) / k2 * u)
+        else:
+            x = -np.log((1 + k2) * (1 - u)) / kappa
+        step = loc + scale * x
+    return float(np.clip(state + step, 0.0, 1.0))
+
+
+def chain_numpy(rng: np.random.Generator, n_samples, initial_state=1.0):
+    """A float64 persistent chain of ``n_samples`` states."""
+    state = float(np.clip(initial_state, 0.0, 1.0))
+    out = np.empty(n_samples)
+    for i in range(n_samples):
+        state = transition_numpy(rng, state)
+        out[i] = state
+    return out

@@ -547,6 +547,22 @@ def interp_sampled(sampled, i, f):
     return out
 
 
+def interp_sampled_bf16(sampled, i, f):
+    """:func:`interp_sampled` on the bf16 path (models/bf16.py values):
+    the float32 samples narrowed to bf16 (the engine stores them so), the
+    fraction ``f`` rounded to bf16, and the lerp ``lo * (1 - f) + hi * f``
+    in bf16, each step rounded."""
+    from tmhpvsim_torch.models import bf16 as mx
+
+    fb = mx.bf16_input(f.reshape(f.shape + (1,)))
+    out = {}
+    for k in STRIDE_LERP_FIELDS:
+        v = sampled[k]
+        out[k] = mx.bf16_input(v[i]) * (1.0 - fb) + \
+            mx.bf16_input(v[i + 1]) * fb
+    return out
+
+
 def stride_samples(epoch, doy, stride: int):
     """The sample grid of a block for ``stride``: ``T // stride + 1``
     epochs and days of year, every ``stride`` seconds from the block's

@@ -8,8 +8,9 @@ package's ``validate_report``) pick it out and check it.  The port fills
 ``device`` (from torch: platform ``gpu`` with the card's name, or
 ``cpu``), ``config`` (the SimConfig echo; a site grid or fleet by its
 identity, not its rows), ``plan`` (the resolved plan in the JAX plan
-echo's keys), ``fleet`` (``fleet_summary()``) and ``precision``
-(``precision_doc()``); every other section is None.
+echo's keys), ``fleet`` (``fleet_summary()``), ``precision``
+(``precision_doc()``) and ``telemetry`` (the drift sentinel's report, when
+telemetry observed the run); every other section is None.
 
 ``validate_report`` is the JAX validator's top level: required keys,
 types, no unknown keys, the fleet section's cohort rows, and a
@@ -224,8 +225,8 @@ def config_doc(config) -> Optional[dict]:
 
 
 def plan_doc(plan) -> Optional[dict]:
-    """The resolved plan in the JAX plan echo's keys: the port computes
-    in float32, runs no chain slabs and has no autotuner."""
+    """The resolved plan in the JAX plan echo's keys: the port runs no
+    chain slabs and has no autotuner."""
     if plan is None:
         return None
     return {"block_impl": plan.block_impl,
@@ -233,7 +234,7 @@ def plan_doc(plan) -> Optional[dict]:
             "stats_fusion": plan.stats_fusion,
             "slab_chains": None,
             "blocks_per_dispatch": int(plan.blocks_per_dispatch),
-            "compute_dtype": "f32",
+            "compute_dtype": plan.compute_dtype,
             "kernel_impl": plan.kernel_impl,
             "rng_batch": plan.rng_batch,
             "geom_stride": int(plan.geom_stride),
@@ -242,9 +243,10 @@ def plan_doc(plan) -> Optional[dict]:
 
 def simulation_report(app: str, sim) -> dict:
     """The validated report of a finished Simulation run: its device,
-    config and plan, the ``fleet`` section (``fleet_summary()``) and the
-    ``precision`` section (``precision_doc()``); every other section is
-    None."""
+    config and plan, the ``fleet`` section (``fleet_summary()``), the
+    ``precision`` section (``precision_doc()``) and the ``telemetry``
+    section (``sim.sentinel.report()`` once the sentinel has checked a
+    block); every other section is None."""
     doc = {k: None for k in _TOP_SCHEMA}
     doc.update(schema_version=REPORT_SCHEMA_VERSION, kind=REPORT_KIND,
                app=app,
@@ -252,7 +254,9 @@ def simulation_report(app: str, sim) -> dict:
                                          time.gmtime()),
                device=device_info(sim.device), config=config_doc(sim.config),
                plan=plan_doc(sim.plan), fleet=sim.fleet_summary(),
-               precision=sim.precision_doc())
+               precision=sim.precision_doc(),
+               telemetry=(None if sim.sentinel is None
+                          else sim.sentinel.report()))
     return validate_report(doc)
 
 

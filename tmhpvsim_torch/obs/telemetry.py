@@ -254,3 +254,27 @@ def summarize(acc: dict) -> dict:
             "covered": float(host["occupancy"][1]),
         }
     return out
+
+
+def publish(registry, summary: dict) -> None:
+    """Flush one block summary into the metrics registry (``device.*``):
+    counters accumulate across blocks (NaN / Inf totals, histogram mass,
+    occupancy seconds), gauges hold the latest block's moments."""
+    registry.counter("device.telemetry.blocks_total").inc()
+    for f, s in summary["fields"].items():
+        registry.counter(f"device.nan_total.{f}").inc(s["nan"])
+        registry.counter(f"device.inf_total.{f}").inc(s["inf"])
+        if not s["observed"]:
+            continue
+        registry.gauge(f"device.{f}.mean").set(s["mean"])
+        registry.gauge(f"device.{f}.std").set(s["std"])
+        if s["min"] is not None:
+            registry.gauge(f"device.{f}.min").set(s["min"])
+        if s["max"] is not None:
+            registry.gauge(f"device.{f}.max").set(s["max"])
+    for i, v in enumerate(summary.get("csi_hist") or ()):
+        if v:
+            registry.counter(f"device.csi_hist.bin{i}").inc(v)
+    for k, v in (summary.get("cloud_occupancy") or {}).items():
+        if v:
+            registry.counter(f"device.cloud_occupancy.{k}").inc(v)

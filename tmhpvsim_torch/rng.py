@@ -58,6 +58,9 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
 _F32 = torch.float32
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _SQRT2_F32 = float(np.float32(np.sqrt(2.0)))
+#: the bfloat16 draws' constants: nextafter(-1, 0) and sqrt 2 in bf16
+_NORMAL_LO_BF16 = -(1.0 - 2.0 ** -8)
+_SQRT2_BF16 = 1.4140625
 _TINY_F32 = float(np.finfo(np.float32).tiny)
 
 
@@ -234,12 +237,34 @@ def bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
 
 
 def uniform(keys: torch.Tensor, shape=(), minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
+            maxval: float = 1.0, dtype=_F32) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, dtype, minval, maxval)``, dtype
+    float32 or bfloat16.
+
+    bfloat16 takes jax's 8-bit ``random_bits``: the low 8 bits of the word
+    the float32 draw uses, whose upper 7 become the mantissa of a bf16 in
+    [1, 2); the affine steps are bf16 operations, each rounded."""
+    if dtype == torch.bfloat16:
+        return _uniform_bf16(keys, shape, minval, maxval)
     lo = torch.tensor(minval, dtype=_F32, device=keys.device)
     hi = torch.tensor(maxval, dtype=_F32, device=keys.device)
     f = bits_to_unit(random_bits(keys, shape))
     return torch.maximum(lo, f * (hi - lo) + lo)
+
+
+def _bf(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to bfloat16 (ties to even), held in float32."""
+    return x.to(torch.bfloat16).to(_F32)
+
+
+def _uniform_bf16(keys, shape, minval, maxval):
+    dev = keys.device
+    lo = _bf(torch.tensor(minval, dtype=_F32, device=dev))
+    hi = _bf(torch.tensor(maxval, dtype=_F32, device=dev))
+    k = (random_bits(keys, shape) & 0xFF) >> 1
+    f = k.to(_F32) * (1.0 / 128.0)           # (1 + k/128) - 1, exact
+    r = torch.maximum(lo, _bf(_bf(f * _bf(hi - lo)) + lo))
+    return r.to(torch.bfloat16)
 
 
 def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
@@ -257,10 +282,23 @@ def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 
 
-def normal(keys: torch.Tensor, shape=()) -> torch.Tensor:
-    """``jax.random.normal(key, shape, float32)``."""
+def normal(keys: torch.Tensor, shape=(), dtype=_F32) -> torch.Tensor:
+    """``jax.random.normal(key, shape, dtype)``, dtype float32 or
+    bfloat16 (``sqrt 2`` and ``nextafter(-1, 0)`` in bf16, and XLA's bf16
+    ``erf_inv``: the float32 one, rounded)."""
+    if dtype == torch.bfloat16:
+        u = uniform(keys, shape, _NORMAL_LO_BF16, 1.0, dtype).to(_F32)
+        return _bf(_SQRT2_BF16 * _bf(erfinv_f32(u))).to(torch.bfloat16)
     u = uniform(keys, shape, _NORMAL_LO, 1.0)
     return _SQRT2_F32 * erfinv_f32(u)
+
+
+def normal_bf16_table() -> np.ndarray:
+    """The 128 values a bf16 ``normal`` takes: entry k is the draw whose
+    8-bit word has upper bits k (its uniform is ``(4k - 255) / 256``)."""
+    u = torch.tensor([(4.0 * k - 255.0) / 256.0 for k in range(128)],
+                     dtype=_F32)
+    return _bf(_SQRT2_BF16 * _bf(erfinv_f32(u))).numpy()
 
 
 def gamma(keys: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
