@@ -69,7 +69,17 @@ Phases (any failure exits non-zero and prints no result line):
    the trace on path B's grid;
    K8 + K9 on path F's fleet (path F-H's launch, checked as K8+K9 above);
    a difference prints its size in bf16 ULP and the bf16 step it starts
-   at, and fails;
+   at, and fails; then K13 (``prng_impl='rbg'``, Philox4x32-10): the bits
+   launch on 2**26 words from a key whose 128-bit counter carries,
+   per-key bits, batched uniform and normal and init_state's rbg launches
+   bit for bit; K2's rbg instantiation (init_state's launches, two
+   blocks) bit for bit; the rbg block step on 2 daylight blocks x 65536
+   chains (acc in the scan, scan2 and trace layouts, series, trace, the
+   site grid, bf16 acc with telemetry light; the strided table set in
+   float32 and bf16; path F's fleet: its regime windows and K8+K9 at
+   level full; the scenario epilogue at 16 rows); then K12 in K10 (the
+   bf16 scenario epilogue) against its plain bf16 version at 1, 4 and 16
+   rows;
 5. the paths, every launch counter set to 0 just before each and read
    just after; each must launch every kernel it needs:
    R. reduce, shared site: ``run_reduced`` at 65536 chains x 86400 s,
@@ -132,13 +142,22 @@ Phases (any failure exits non-zero and prints no result line):
       --telemetry light --telemetry-strict --chains 4096 --duration 3600
       --no-realtime --start "2019-09-05 11:00:00" --run-report R``, whose
       report must validate and name bf16 and the sentinel's verdict;
+   R-P. path R through the CLI with ``--prng-impl rbg``, its CSV's
+      statistics checked as path R's; ``run_reduced`` under rbg timed
+      against path R's in alternating pairs;
+   S-H. path S's 32 requests served under ``compute_dtype='bf16'``, each
+      reply's sums within 1 % of the field's scale of path S's; then the
+      same requests at 4096 chains x two blocks against the plain bf16
+      scenario, every reply within the engine tolerance;
 6. each kernel and its plain version timed with CUDA events at the main
    paths' shapes (the fleet kernels on path F's noon block; K11 and K6s
    on paths R-T's and B-L's noon blocks, the K10 row reset of
    continuous batching at 16 rows, the wide fold on paths R's and F's
    noon blocks and the wide series on R's, with ``torch.sum(dim=1)``
    beside it and ``part.sum(1)`` beside ``series_sum``; K12's
-   instantiations that the bf16 paths launch on their noon blocks);
+   instantiations that the bf16 paths launch on their noon blocks; K13's
+   bits and the rbg windows and step that path R-P launches, with
+   ``torch.rand`` beside the bits as a yardstick);
 7. the port on the card at the JAX suite's ``small_config`` shape against
    the JAX package's results in ``tests/data/torch_port_reference.json``:
    reduce statistics, every per-second ensemble mean, chain 0's trace
@@ -149,7 +168,8 @@ Phases (any failure exits non-zero and prints no result line):
    wide formulation: reduce statistics, the first half hour's ensemble
    means and the fleet run; and under bf16 (paths R-H's and F-H's
    configurations) the reduce statistics and the fleet run against the
-   JAX package's bf16 runs.
+   JAX package's bf16 runs; and under rbg each formulation's reduce
+   statistics and chain 0's trace against the JAX package's rbg runs.
 
 The line before the card line is the ``{"kernels": [...]}`` record; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -1987,14 +2007,18 @@ def path_s_requests():
     return out
 
 
-def phase_path_s(name, batching, dev):
+def phase_path_s(name, batching, dev, extra=None,
+                 need=("threefry_fill", "sampler_windows",
+                       "block_step_scenario")):
     """Serve path S's requests through an in-process server with the
-    given batching; returns ({rid: result as JSON}, launches)."""
+    given batching (``extra``: SimConfig overrides); returns ({rid:
+    result as JSON}, launches)."""
     from tmhpvsim_torch.obs.metrics import MetricsRegistry
     from tmhpvsim_torch.serve.server import (ScenarioClient, ScenarioServer,
                                              ServeConfig)
 
-    cfg = ServeConfig(sim=SimConfig(**PATH_S), url="local://smoke-serve",
+    cfg = ServeConfig(sim=SimConfig(**dict(PATH_S, **(extra or {}))),
+                      url="local://smoke-serve",
                       max_batch=16, window_s=PATH_S_WINDOW,
                       batching=batching, timeout_s=900.0, device=dev)
     reqs = path_s_requests()
@@ -2028,8 +2052,7 @@ def phase_path_s(name, batching, dev):
         return warm, wall, [r for g in got for r in g]
 
     (warm, wall, replies), _, launches = run_path(
-        name, ("threefry_fill", "sampler_windows", "block_step_scenario"),
-        lambda: asyncio.run(serve()))
+        name, need, lambda: asyncio.run(serve()))
     n = PATH_S["n_chains"]
     results = {}
     for (rid, doc, mode), r in zip(reqs, replies):
@@ -3668,6 +3691,797 @@ def phase_timing_k12(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# K13 (prng_impl='rbg') and K12 in K10 (bf16 scenario serving)
+# ---------------------------------------------------------------------------
+
+#: K13's check size: 2**26 words, from a key whose 128-bit counter carries
+#: from w2 through w3 into w0 within the first 2**24 Philox calls
+K13_WORDS = 1 << 26
+K13_KEY = (0x12345678, 0x9ABCDEF0, 0xFFF00000, 0xFFFFFFFF)
+#: one Philox4x32-10 call (four words): 10 rounds of two 32-bit multiplies
+#: (hi and lo halves, 4 ops), 4 xors and the 2 key bumps, plus the 128-bit
+#: counter add (6) and the word select (2)
+PHILOX_I = 10 * (2 * 2 + 4 + 2) + 6 + 2
+#: one rbg key derivation (split or fold_in): threefry on each half
+RBG_KEY_I = 2 * HASH_I
+#: the rbg block step per chain-second: the z and meter words at a quarter
+#: Philox call each (four batched words share a call), and the bits'
+#: conversions; once per block in the scan layout, not per chain, the
+#: three keys all chains read: chain 0's key folded with the block's first
+#: minute, then 0 | 1, and the meter's (4 derivations)
+RBG_SECOND_I = 2 * PHILOX_I // 4 + 10
+RBG_KEYS_I = 4 * RBG_KEY_I
+#: one gamma draw from an rbg key, one Marsaglia-Tsang round (a rejection
+#: is rare and not counted): 8 key derivations, the normal's and the
+#: uniform's Philox call (one word each, from a key of its own), the
+#: acceptance test's two logs; a shape below 1 adds a call and a powf
+GAMMA_I = 8 * RBG_KEY_I + 2 * PHILOX_I
+GAMMA_F = NORMAL_F + UNIFORM_F + 2 * TRANS_F + 12
+GAMMA_BOOST_I, GAMMA_BOOST_F = PHILOX_I, POW_F + UNIFORM_F
+RBG = dict(prng_impl="rbg")
+#: path R-P through the entry point: path R's shape with --prng-impl rbg
+PATH_RP_ARGS = ["--output", "reduce", "--no-realtime", "--chains",
+                str(HEADLINE["n_chains"]), "--duration",
+                str(HEADLINE["duration_s"]), "--block-s",
+                str(HEADLINE["block_s"]), "--seed", str(HEADLINE["seed"]),
+                "--start", HEADLINE["start"], "--prng-impl", "rbg"]
+#: path S-H's plain check: path S's requests served at this width and two
+#: blocks' depth (horizons clipped to it), so that the renewal and Markov
+#: carry cross a block under bf16 serving, by the kernels and by the plain
+#: bf16 scenario (the plain fold is a Python loop per second: a full-depth
+#: plain run of 32 requests would take hours)
+PATH_SH_CHECK = dict(PATH_S, n_chains=4096,
+                     duration_s=2 * HEADLINE["block_s"], start=CHECK_START)
+
+
+def rbg_sim(cfg, dev):
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        return Simulation(cfg, device=dev)
+
+
+def phase_k13(dev):
+    """K13's bits launch against rng's Philox: 2**26 words from a key whose
+    counter carries, batched (one key, flat words) and per key (65536
+    keys x 60 words), bit for bit; init_state's two rbg launches (the
+    renewal uniforms) bit for bit; timed beside its plain version and
+    torch.rand for the same word count."""
+    key = torch.tensor(K13_KEY, dtype=torch.int64, device=dev)
+    a = k1.philox_fill("bits", key[None], K13_WORDS)[0]
+    b = rng.rbg_stream(key, K13_WORDS)
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        bad = int((a != b).nonzero()[0, 0])
+        fail(f"K13 bits differ from the plain Philox from word {bad}")
+    err = max_abs(a, b)
+    del a, b
+    q_end = (K13_WORDS - 1) // 4
+    if K13_KEY[2] + q_end < 2 ** 32 or K13_KEY[3] != 0xFFFFFFFF:
+        fail("K13's check key does not carry")
+    n = HEADLINE["n_chains"]
+    keys = rng.split(rng.rbg_key(99, dev), n)
+    pk = k1.philox_fill("bits", keys, 60, per_key=True)
+    pp = rng.random_bits(keys, (60,), per_key=True)
+    if not torch.equal(pk, pp):
+        fail("K13 per-key bits differ from the plain version")
+    err = max(err, max_abs(pk, pp))
+    for op, plain in (("uniform", rng.uniform(keys, ())),
+                      ("normal", rng.normal(keys, ()))):
+        got = getattr(k1, op)(keys)
+        torch.cuda.synchronize()
+        if not torch.equal(got, plain):
+            fail(f"K13 batched {op} differs from the plain version")
+        err = max(err, max_abs(got, plain))
+    # init_state's launches on the very keys it makes them on: K1 on the
+    # key halves, then the two batched renewal uniforms (K13)
+    root = rng.split(rng.rbg_key(HEADLINE["seed"], dev), 2)[0]
+    chains = k1.split(root, n)
+    s5 = k1.split(chains, 5)
+    if not (torch.equal(chains, rng.split(root, n))
+            and torch.equal(s5, rng.split(chains, 5))):
+        fail("K1 on rbg key halves differs from the plain split")
+    kr = k1.split(s5[:, 2, :].contiguous(), 2)
+    for j in (0, 1):
+        k = kr[:, j, :].contiguous()
+        got, plain = k1.uniform(k), rng.uniform(k, ())
+        if not torch.equal(got, plain):
+            fail(f"K13 init_state uniform(kr[{j}]) differs from the plain "
+                 "version")
+        err = max(err, max_abs(got, plain))
+    sim = rbg_sim(SimConfig(**dict(HEADLINE, **RBG)), dev)
+    if sim.init_state()["k_scan"].shape != (n, 4):
+        fail("rbg init_state's keys are not (n, 4)")
+    ms = time_ms(lambda: k1.philox_fill("bits", key[None], K13_WORDS))
+    ms_u = time_ms(lambda: k1.philox_fill("uniform", key[None], K13_WORDS))
+    plain = time_ms(lambda: rng.rbg_stream(key, K13_WORDS), reps=2)
+    yard = time_ms(lambda: torch.rand(K13_WORDS, device=dev))
+    # the function's words are uint32 (4 bytes; the port holds the bits
+    # in int64, the uniforms path R-P draws in float32)
+    bms, by = bound(K13_WORDS // 4 * PHILOX_I, 0, 32 + K13_WORDS * 4)
+    bms_u, by_u = bound(K13_WORDS // 4 * PHILOX_I, K13_WORDS * UNIFORM_F,
+                        32 + K13_WORDS * 4)
+    print(f"K13 vs plain: {K13_WORDS} words bit-identical (counter carried "
+          f"from w2 through w3 into w0), {n} keys x 60 per-key words "
+          f"bit-identical, batched uniform and normal bit-identical; "
+          f"init_state's rbg splits and renewal uniforms bit-identical")
+    print(f"timing K13: kernel {ms:.4f} ms for {K13_WORDS} words, plain "
+          f"{plain:.3f} ms, bound {bms:.4f} ms ({by}); as float32 "
+          f"uniforms (path R-P's op) {ms_u:.4f} ms, bound {bms_u:.4f} ms "
+          f"({by_u}); torch.rand for the same count (another key and "
+          f"counter layout, a yardstick only) {yard:.4f} ms; largest "
+          f"difference {err:.3g}")
+    return {"err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms,
+            "bound_by": by, "ms_uniform": ms_u, "bound_ms_uniform": bms_u,
+            "torch_rand_ms": yard}
+
+
+def phase_k13_k2(dev):
+    """K2's rbg instantiation against its plain version at 65536 chains:
+    init_state's two launches and two consecutive blocks, bit for bit.
+    Returns the largest difference measured."""
+    sim = rbg_sim(SimConfig(**dict(HEADLINE, **RBG)), dev)
+    state = sim.init_state()
+    k_arr, k_min = state["k_arr"], state["k_min"]
+    ones = torch.ones(sim.config.n_chains, dtype=torch.float32, device=dev)
+    no_min = (torch.zeros(0, dtype=torch.int32, device=dev),
+              torch.zeros(0, dtype=torch.float32, device=dev))
+
+    err = []
+
+    def check(what, *args):
+        tk, ck = k2.sampler_windows(*args)
+        tp, cp = k2.windows_plain(*args)
+        torch.cuda.synchronize()
+        for name in tk:
+            if not torch.equal(tk[name], tp[name]):
+                fail(f"K13 in K2: table {name} differs from the plain "
+                     f"version in {what}: max abs "
+                     f"{max_abs(tk[name], tp[name])}")
+            err.append(max_abs(tk[name], tp[name]))
+        if not torch.equal(ck, cp):
+            fail(f"K13 in K2: Markov carry differs in {what}")
+        err.append(max_abs(ck, cp))
+        return ck
+
+    check("init cc01/ws0", k_arr, k_min, ones, ones,
+          k2.Bounds(0, 2, 0, 0, 0, 0, 0, 1), *no_min)
+    check("init cloudy pair", k_arr, k_min, ones, state["cc0"],
+          k2.Bounds(0, 0, 2, 0, 0, 0, 0, 0), *no_min)
+    cc_carry = state["cc_carry"]
+    for bi in (40, 41):
+        ins = sim.host_inputs(bi)
+        cc_carry = check(f"block {bi}", k_arr, k_min, cc_carry, state["cc0"],
+                         ins.bounds, ins.mh_idx, ins.mh_frac)
+    print(f"K13 in K2 vs plain at {sim.config.n_chains} chains, init_state's"
+          " 2 launches and blocks 40-41: every table and the carry "
+          f"bit-identical (largest difference {max(err):.3g})")
+    return max(err)
+
+
+def rbg_acc_held(what, ak, ap):
+    """An rbg acc's statistics against the plain version's: n_seconds
+    exact, the rest bit-identical or within the engine tolerance.
+    Returns (statistics bit-identical, largest difference)."""
+    same, worst = 0, 0.0
+    for name in ak:
+        a, b = ak[name], ap[name]
+        if torch.equal(a, b):
+            same += 1
+            continue
+        if name == "n_seconds" or not close(a, b):
+            fail(f"{what} {name} differs from the plain version: max abs "
+                 f"{max_abs(a, b)}")
+        worst = max(worst, max_abs(a, b))
+    return same, worst
+
+
+def phase_k13_k3(dev):
+    """The block step's rbg instantiations against their plain versions at
+    65536 chains x 2 daylight blocks: acc in the scan, scan2 and trace
+    layouts (statistics within the engine tolerance, the count of
+    bit-identical ones printed; the renewal carry), the series (sums rtol
+    1e-6), the trace (meter, the Philox stream alone, bit for bit; pv at
+    the K3 tolerance), the site grid's acc, and the bf16 acc with
+    telemetry light (path R-H's instantiation under rbg) bit for bit."""
+    worst = 0.0
+    cfg = SimConfig(**dict(HEADLINE, start=CHECK_START, **RBG))
+    sim = rbg_sim(cfg, dev)
+    state = sim.init_state()
+    blocks = []
+    cc_carry = state["cc_carry"]
+    for bi in (0, 1):
+        ins = sim.host_inputs(bi)
+        tables, cc_carry = sim._windows(dict(state, cc_carry=cc_carry), ins)
+        blocks.append((ins, tables))
+    tilt, alb, _ = sim.geometry_args(state)
+    mw = cfg.meter_max_w
+    report = []
+    for layout in ("scan", "scan2", "trace"):
+        acc_k, acc_p = sim.init_reduce_acc(), sim.init_reduce_acc()
+        ck, cp = clone(state["carry"]), clone(state["carry"])
+        for ins, tables in blocks:
+            head = head_of(state, ins, tables)
+            tail = (cfg.duration_s, mw, tilt, alb)
+            ck, acc_k = k3.block_step_acc(*head, ck, acc_k, *tail,
+                                          layout=layout)
+            cp, acc_p = k3.block_step_plain(*head, cp, acc_p, *tail,
+                                            layout=layout)
+        torch.cuda.synchronize()
+        same, e = rbg_acc_held(f"K13 acc ({layout} layout)", acc_k, acc_p)
+        worst = max(worst, e)
+        for name in ck:
+            if not close(ck[name], cp[name], rtol=1e-5, atol=1e-3):
+                fail(f"K13 acc ({layout}) renewal carry {name} differs")
+        report.append(f"acc {layout} layout {same}/7")
+        if float(acc_k["pv_max"].max()) <= 10.0:
+            fail("K13 check blocks saw no daylight")
+    cs, csp = clone(state["carry"]), clone(state["carry"])
+    ct, ctp = clone(state["carry"]), clone(state["carry"])
+    same_pv = True
+    for ins, tables in blocks:
+        head = head_of(state, ins, tables)
+        cs, part = k3.series_partials_cuda(*head, cs, mw, tilt, alb)
+        out = k3.series_sum(part)
+        csp, m_p, p_p = k3.series_plain(*head, csp, mw, tilt, alb)
+        ct, mk, pk = k3.block_step_trace(*head, ct, mw, tilt, alb)
+        ctp, mp, pp = k3.trace_plain(*head, ctp, mw, tilt, alb)
+        torch.cuda.synchronize()
+        for what, a, b in (("meter", out[0], m_p), ("pv", out[1], p_p)):
+            if not close(a, b, rtol=1e-6, atol=0.0):
+                fail(f"K13 series {what} sums differ: max abs "
+                     f"{max_abs(a, b)}")
+        if not torch.equal(mk, mp):
+            fail("K13 trace meter (the Philox stream in the trace layout) "
+                 "differs from the plain version")
+        if not close(pk, pp):
+            fail(f"K13 trace pv differs: max abs {max_abs(pk, pp)}")
+        same_pv = same_pv and torch.equal(pk, pp)
+        worst = max(worst, max_abs(pk, pp))
+        del mk, pk, mp, pp
+    report.append("series sums rtol 1e-6, trace meter bit-identical, pv "
+                  + ("bit-identical" if same_pv else "within the tolerance"))
+    # the site grid (K6 under rbg) on one block
+    cfg_b = SimConfig(**dict(HEADLINE, start=CHECK_START, site_grid=grid_b(),
+                             **RBG))
+    sim_b = rbg_sim(cfg_b, dev)
+    st_b = sim_b.init_state()
+    ins = sim_b.host_inputs(0)
+    tables, _ = sim_b._windows(st_b, ins)
+    head = head_of(st_b, ins, tables)
+    _, _, site = sim_b.geometry_args(st_b)
+    tail = (cfg_b.duration_s, mw, None, None)
+    _, ak = k3.block_step_acc(*head, clone(st_b["carry"]),
+                              sim_b.init_reduce_acc(), *tail, site=site)
+    _, ap = k3.block_step_plain(*head, clone(st_b["carry"]),
+                                sim_b.init_reduce_acc(), *tail, site=site)
+    torch.cuda.synchronize()
+    same, e = rbg_acc_held("K13 acc (site grid)", ak, ap)
+    worst = max(worst, e)
+    report.append(f"site-grid acc {same}/7")
+    del sim_b, st_b, tables, head
+    # bf16 acc with telemetry light (R-H's instantiation under rbg)
+    cfg_h = SimConfig(**dict(HEADLINE, start=CHECK_START, compute_dtype="bf16",
+                             **RBG))
+    sim_h = rbg_sim(cfg_h, dev)
+    st_h = sim_h.init_state()
+    obs = sim_h.observers(st_h)
+    ck, cp = clone(st_h["carry"]), clone(st_h["carry"])
+    acc_k, acc_p = sim_h.init_reduce_acc(), sim_h.init_reduce_acc()
+    cc_carry = st_h["cc_carry"]
+    for bi in (0, 1):
+        ins = sim_h.host_inputs(bi)
+        tables, cc_carry = sim_h._windows(dict(st_h, cc_carry=cc_carry), ins)
+        head = head_of(st_h, ins, tables)
+        tail = (cfg_h.duration_s, mw, tilt, alb)
+        ck, acc_k, ok = k3.block_step_obs(*head, ck, acc_k, *tail, obs=obs,
+                                          compute_dtype="bf16")
+        cp, acc_p, op = k3.block_step_obs_plain(*head, cp, acc_p, *tail,
+                                                obs=obs,
+                                                compute_dtype="bf16")
+        torch.cuda.synchronize()
+        for k in acc_k:
+            if not torch.equal(acc_k[k], acc_p[k]):
+                fail(f"K13 bf16 acc {k} differs from the plain version: "
+                     f"{bf16_ulp(acc_k[k], acc_p[k])} bf16 ULP at most")
+        check_same("K13 bf16 renewal carry", ck, cp)
+        for k, v in op["telemetry"].items():
+            if not v.is_floating_point() and not torch.equal(
+                    ok["telemetry"][k], v):
+                fail(f"K13 bf16 telemetry {k} differs")
+    report.append("bf16 acc + K8 light 7/7 and the carry bit-identical")
+    print(f"K13 in the block step vs plain on 2 blocks x {cfg.n_chains} "
+          f"chains: " + "; ".join(report)
+          + f"; largest difference {worst:.3g}")
+    return worst
+
+
+def phase_k13_rest(dev):
+    """The rbg instantiations phase_k13_k3 leaves out, against their
+    plain versions at the main paths' width: the strided table set in
+    float32 and bf16 (block_step_rbg_table.cu, block_step_rbg_bf16_table
+    .cu) on path B's grid, 2 blocks of acc; path F's fleet under rbg: its
+    regime windows (K7 in K13's K2) and its acc with K8 + K9 at level
+    full (phase_k89); the scenario epilogue (K10 under rbg) at 16 rows on
+    the noon block, and its neutral row against the rbg acc launch.
+    Returns (largest difference from a plain version, the K8 + K9 sums'
+    relative difference from float64)."""
+    import warnings
+
+    worst, report = 0.0, []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        for cd in ("f32", "bf16"):
+            cfg = SimConfig(**dict(HEADLINE, start=CHECK_START,
+                                   site_grid=grid_b(), compute_dtype=cd,
+                                   **LEVERS, **RBG))
+            sim, state, blocks = check_blocks(cfg, dev)
+            tilt, alb, site = sim.geometry_args(state)
+            ck, cp = clone(state["carry"]), clone(state["carry"])
+            acc_k, acc_p = sim.init_reduce_acc(), sim.init_reduce_acc()
+            kw = dict(site=site, kernels="table", compute_dtype=cd)
+            for ins, tables in blocks:
+                head = head_of(state, ins, tables)
+                tail = (cfg.duration_s, cfg.meter_max_w, tilt, alb)
+                ck, acc_k = k3.block_step_acc(*head, ck, acc_k, *tail, **kw)
+                cp, acc_p = k3.block_step_plain(*head, cp, acc_p, *tail,
+                                                **kw)
+            torch.cuda.synchronize()
+            what = f"K13 acc (strided table set, {cd})"
+            if cd == "bf16":
+                check_same(what, acc_k, acc_p)
+                check_same(f"{what} renewal carry", ck, cp)
+                same = len(acc_k)
+            else:
+                same, e = rbg_acc_held(what, acc_k, acc_p)
+                worst = max(worst, e)
+                for name in ck:
+                    if not close(ck[name], cp[name], rtol=1e-5, atol=1e-3):
+                        fail(f"{what} renewal carry {name} differs")
+            if float(acc_k["pv_max"].max()) <= 10.0:
+                fail(f"{what}: the check blocks saw no daylight")
+            report.append(f"strided table set {cd} acc {same}/7")
+            del sim, state, blocks
+        fp = fleet_f()
+        cfg = SimConfig(**dict(HEADLINE, start=CHECK_START, fleet=fp, **RBG))
+        sim = Simulation(cfg, device=dev)
+        state = sim.init_state()
+        ins = sim.host_inputs(0)
+        regime = state["fleet"]["regime"]
+        args = (state["k_arr"], state["k_min"], state["cc_carry"],
+                state["cc0"], ins.bounds, ins.mh_idx, ins.mh_frac)
+        tk, ck = k2.sampler_windows(*args, regime=regime)
+        tp, cp = k2.windows_plain(*args, regime=regime)
+        torch.cuda.synchronize()
+        check_same("K13 in K7's regime windows", dict(tk, carry=ck),
+                   dict(tp, carry=cp))
+        report.append("the fleet's regime windows bit-identical")
+        del sim, state, tk, tp
+        (rel89, _), _ = phase_k89(dev, RBG, "K8+K9 (rbg)",
+                                  path="F's fleet under rbg")
+        cfg = SimConfig(**dict(HEADLINE, **RBG))
+        sim = Simulation(cfg, device=dev)
+        state = sim.init_state()
+    ins = sim.host_inputs(K10_BLOCK)
+    tables, _ = sim._windows(state, ins)
+    head = head_of(state, ins, tables)
+    tail = (cfg.duration_s, cfg.meter_max_w, cfg.site.surface_tilt,
+            cfg.site.albedo)
+    rows = k10_rows(K10_BLOCK * cfg.block_s, cfg.duration_s)
+    scen = schema.encode_batch(rows, K10_B, device=dev)
+    params = sim.scenario_fleet_params()
+    ck, ak, dk = k3.block_step_scenario(
+        *head, clone(state["carry"]), sim.init_scenario_acc(K10_B), *tail,
+        scen=scen, params=params, per_chain=True)
+    cp, ap, dp = k3.scenario_plain(
+        *head, clone(state["carry"]), sim.init_scenario_acc(K10_B), *tail,
+        scen=scen, params=params, per_chain=True)
+    _, acc = k3.block_step_acc(*head, clone(state["carry"]),
+                               sim.init_reduce_acc(), *tail)
+    torch.cuda.synchronize()
+    e, same = check_scenario(f"rbg keys, {K10_B} rows", ak, dk, ap, dp)
+    worst = max(worst, e)
+    for name in ck:
+        if not close(ck[name], cp[name], rtol=1e-5, atol=1e-3):
+            fail(f"K10 (rbg keys) renewal carry {name} differs")
+    if not all(torch.equal(ak[k][0], acc[k]) for k in acc):
+        fail("K10 (rbg keys): the neutral row differs from the rbg acc "
+             "launch")
+    report.append(f"scenario at {K10_B} rows {same}/7 with every FleetAcc "
+                  "leaf bit-identical, its neutral row equal to the rbg "
+                  "acc launch")
+    print(f"K13 in the other instantiations vs plain at "
+          f"{HEADLINE['n_chains']} chains or sites: " + "; ".join(report)
+          + f"; K8+K9 under rbg as above; largest difference {worst:.3g}")
+    return worst, rel89
+
+
+def phase_k12_k10(dev):
+    """K12 in K10: the bf16 scenario epilogue against its plain bf16
+    version on the main path's noon block at 1, 4 and 16 rows (every
+    statistic and FleetAcc leaf as phase_k10 checks them), each row
+    against its batch-of-1 launch, timed at 1, 4 and 16 rows."""
+    cfg = SimConfig(**dict(HEADLINE, compute_dtype="bf16"))
+    sim = Simulation(cfg, device=dev)
+    state = sim.init_state()
+    ins = sim.host_inputs(K10_BLOCK)
+    tables, _ = sim._windows(state, ins)
+    head = head_of(state, ins, tables)
+    tail = (cfg.duration_s, cfg.meter_max_w, cfg.site.surface_tilt,
+            cfg.site.albedo)
+    n, T = cfg.n_chains, cfg.block_s
+    t0 = K10_BLOCK * T
+    rows = k10_rows(t0, cfg.duration_s)
+    params = sim.scenario_fleet_params()
+
+    def launch(fn, scs, per_chain=True):
+        scen = schema.encode_batch(scs, len(scs), device=dev)
+        return fn(*head, clone(state["carry"]),
+                  sim.init_scenario_acc(len(scs)), *tail, scen=scen,
+                  params=params, per_chain=per_chain, compute_dtype="bf16")
+
+    err, same_all = 0.0, []
+    plain_ms = None
+    for b in (1, 4, K10_B):
+        _, ak, dk = launch(k3.block_step_scenario, rows[:b])
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, ap, dp = launch(k3.scenario_plain, rows[:b])
+        end.record()
+        torch.cuda.synchronize()
+        if b == K10_B:
+            plain_ms = start.elapsed_time(end)
+        e, same = check_scenario(f"bf16, {b} rows", ak, dk, ap, dp)
+        err = max(err, e)
+        same_all.append(same)
+        del ap, dp
+    for i, row in enumerate(rows):
+        _, a1, d1 = launch(k3.block_step_scenario, [row], per_chain=False)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a1[k][0], ak[k][i]) for k in a1) or \
+                not all(torch.equal(d1[k][0], dk[k][i]) for k in d1):
+            fail(f"K12 in K10: row {i} of the batch-of-{K10_B} launch "
+                 "differs from its batch-of-1 launch")
+    _, acc = k3.block_step_acc(*head, clone(state["carry"]),
+                               sim.init_reduce_acc(), *tail,
+                               compute_dtype="bf16")
+    torch.cuda.synchronize()
+    if not all(torch.equal(ak[k][0], acc[k]) for k in acc):
+        fail("K12 in K10: the neutral row differs from K12's acc launch")
+    ms = {}
+    for b in (1, 4, K10_B):
+        scen = schema.encode_batch(rows[:b], b, device=dev)
+        acc_b = sim.init_scenario_acc(b)
+        ms[b] = time_ms(lambda: k3.block_step_scenario(
+            *head, clone(state["carry"]), acc_b, *tail, scen=scen,
+            params=params, compute_dtype="bf16"))
+    ns = ak["n_seconds"]
+    valid = int(ns.sum())
+    nsl = ns.long()
+    grid = sum(int(((t0 + nsl) // w - t0 // w).sum())
+               for w in params.ramp_windows)
+    int_ops = n * (T * (K3_SECOND_I + K12_DRAWS_I) + (T // 60) * K3_MINUTE_I)\
+        + T * (K10_SECOND_I + K10_B * K10_ROW_SECOND_I) + \
+        K10_B * n * K10_ROW_CHAIN_I + valid * K10_VALID_I + \
+        grid * K10_GRID_I
+    f32_ops = n * T * (K3_SECOND_F + K12_DRAWS_F) + valid * K10_VALID_F + \
+        grid * K10_GRID_F
+    table_bytes = sum(t.numel() * 4 for t in tables.values())
+    nb, ne = params.bins + 2, len(params.thresholds) + 1
+    nbytes = (table_bytes + n * 8 * 2 + n * 4 * 3 * 2
+              + ins.rows_i.numel() * 4 + ins.rows_f.numel() * 4
+              + K10_B * (n * 4 * 7 * 2 + 4 * (nb + ne) + 8 * 4))
+    bms, by = bound(int_ops, f32_ops, nbytes)
+    print(f"K12 in K10 vs plain bf16 on the noon block x {n} chains at 1, 4 "
+          f"and {K10_B} rows: {same_all} of 7 statistics bit-identical "
+          f"(float sums max abs {err:.3g}), every FleetAcc leaf "
+          f"bit-identical; each row equals its batch-of-1 launch; the "
+          f"neutral row equals K12's acc launch")
+    print(f"timing K12 in K10: kernel {ms[1]:.4f} ms (1 row), {ms[4]:.4f} "
+          f"ms (4 rows), {ms[K10_B]:.4f} ms ({K10_B} rows); plain "
+          f"{plain_ms:.1f} ms ({K10_B} rows); bound {bms:.4f} ms ({by})")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by}
+
+
+def phase_path_rp(dev, reduced_r, wall_r):
+    """Path R-P: path R's shape under prng_impl='rbg', through the entry
+    point (``python -m tmhpvsim_torch pvsim --prng-impl rbg``), its CSV's
+    statistics checked as check_reduced does; then the engine's
+    run_reduced under rbg and path R's, timed in alternating pairs in
+    this call."""
+    import warnings
+
+    from tmhpvsim_torch.cli import main as cli
+
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    out = os.path.join(build.BUILD_DIR, "path_rp_reduce.csv")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            rc, wall, launches = run_path(
+                "R-P", ("threefry_fill", "philox_fill", "sampler_windows_rbg",
+                        "block_step_rbg"),
+                lambda: cli(["pvsim", out] + PATH_RP_ARGS))
+        if rc != 0:
+            fail(f"path R-P: the CLI returned {rc}")
+        with open(out) as f:
+            header = f.readline().strip().split(",")
+            lines = f.read().splitlines()
+    finally:
+        if os.path.exists(out):
+            os.remove(out)
+    n = HEADLINE["n_chains"]
+    if len(lines) != n + 1 or not lines[-1].startswith("ensemble,"):
+        fail(f"path R-P: {len(lines)} CSV rows, not {n} chains + ensemble")
+    data = np.asarray([[float(v) for v in ln.split(",")]
+                       for ln in lines[:n]])
+    reduced = {k: data[:, header.index(k)] for k in reduced_r}
+    pv_max = check_reduced("R-P", reduced, HEADLINE["duration_s"])
+    diff = {k: float(np.mean(reduced[k]) / max(abs(float(np.mean(
+        reduced_r[k]))), 1.0)) for k in ("pv_sum", "meter_sum")}
+    # the engine loop under rbg against path R's, alternating pairs
+    walls = {"R": [], "R-P": []}
+    for pair in range(3):
+        for name in (("R", "R-P") if pair % 2 == 0 else ("R-P", "R")):
+            cfg = SimConfig(**dict(HEADLINE, **(RBG if name == "R-P"
+                                                else {})))
+            s = rbg_sim(cfg, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.run_reduced()
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+    print(f"path R-P (CLI pvsim --output reduce --prng-impl rbg, {n} chains "
+          f"x {HEADLINE['duration_s']} s): {wall:.3f} s wall incl. the CSV; "
+          f"fleet pv_max {pv_max:.2f} W; all chains n_seconds="
+          f"{HEADLINE['duration_s']}; mean pv_sum / meter_sum relative to "
+          f"path R's {json.dumps(diff)}; launches {launches}")
+    print("paths R and R-P (run_reduced), same call, 3 alternating pairs: "
+          + "; ".join(f"{k} median {np.median(v):.4f} s ("
+                      + ", ".join(f"{w:.4f}" for w in v) + ")"
+                      for k, v in walls.items())
+          + f" (path R's own run {wall_r:.4f} s)")
+    return launches, walls
+
+
+def phase_path_sh(dev, replies_s):
+    """Path S-H: path S's 32 requests served under bf16 (an in-process
+    server over local://, window batching) at 65536 chains x 86400 s, each
+    reply checked as path S's are and against path S's float32 reply
+    (sums within 1 % of the field's scale); then the same
+    requests at PATH_SH_CHECK's width and two blocks' depth, every reply
+    of the kernels' engine against the plain bf16 scenario's."""
+    replies, launches = phase_path_s(
+        "S-H", "window", dev, extra=dict(compute_dtype="bf16"),
+        need=("threefry_fill", "sampler_windows",
+              "block_step_scenario_bf16"))
+    # each reply's sums against path S's, at the field's scale (the
+    # largest of path S's sums of that field): a dawn horizon's pv sums
+    # are tiny, and there bf16 differs by a large fraction of nothing
+    sums = {k: [json.loads(replies_s[rid])["stats"][k]
+                for rid in replies_s
+                if json.loads(replies_s[rid])["mode"] == "reduce"]
+            for k in ("pv_sum_w", "meter_sum_w")}
+    scale = {k: max(max(abs(v) for v in vs), 1.0) for k, vs in sums.items()}
+    worst, n_cmp = 0.0, 0
+    for rid, text in replies.items():
+        got, want = json.loads(text), json.loads(replies_s[rid])
+        if want["mode"] != "reduce":
+            continue
+        for k in ("pv_sum_w", "meter_sum_w"):
+            g, w = got["stats"][k], want["stats"][k]
+            rel = abs(g - w) / scale[k]
+            worst, n_cmp = max(worst, rel), n_cmp + 1
+            if rel > 0.01:
+                fail(f"path S-H: request {rid} {k} {g} differs from path "
+                     f"S's {w} by {rel:.3g} of the field's scale")
+    if n_cmp == 0 or worst == 0.0:
+        fail("path S-H: its replies were not compared with path S's, or "
+             "equal them (not bf16)")
+    print(f"path S-H: the reduce replies' sums within {worst:.3g} of the "
+          f"field's scale of path S's float32 replies ({n_cmp} sums)")
+    # every reply against the plain bf16 scenario, at the check's size
+    from tmhpvsim_torch.serve.schema import Request, parse_scenario
+    from tmhpvsim_torch.serve.server import ScenarioEngine
+
+    cfg = SimConfig(**dict(PATH_SH_CHECK, compute_dtype="bf16"))
+    eng = ScenarioEngine(cfg, (K10_B,), device=dev)
+    reqs = []
+    for rid, doc, mode in path_s_requests():
+        doc = dict(doc, horizon_s=min(doc["horizon_s"], cfg.duration_s))
+        reqs.append(Request(id=rid, reply_to="r", mode=mode,
+                            scenario=parse_scenario(
+                                doc, max_horizon_s=cfg.duration_s)))
+    got = []
+    for j in range(0, len(reqs), K10_B):
+        got += eng.run(reqs[j:j + K10_B])
+    orig = eng.sim.scenario_step
+
+    def plain_step(state, inputs, acc, scen):
+        s = eng.sim
+        tables, cc_carry = s._windows(state, inputs)
+        tilt, alb, site = s.geometry_args(state)
+        carry, acc, delta = k3.scenario_plain(
+            tables, inputs.rows_i, inputs.rows_f, state["k_scan"],
+            state["k_meter"], state["carry"], acc, s.config.duration_s,
+            s.config.meter_max_w, tilt, alb, site=site,
+            fleet=s.fleet_leaves(state), scen=scen,
+            params=s.scenario_fleet_params(), cohort=s.scenario_cohort(),
+            kernels=s.plan.kernel_impl, compute_dtype="bf16")
+        return dict(state, carry=carry, cc_carry=cc_carry), acc, delta
+
+    eng.sim.scenario_step = plain_step
+    try:
+        want = []
+        for j in range(0, len(reqs), K10_B):
+            want += eng.run(reqs[j:j + K10_B])
+    finally:
+        eng.sim.scenario_step = orig
+    def same(g, w, where):
+        """Ints, strings and Nones equal; floats within the engine
+        tolerance."""
+        if isinstance(w, dict):
+            if set(g) != set(w):
+                fail(f"path S-H check: {where} keys differ")
+            for k in w:
+                same(g[k], w[k], f"{where}.{k}")
+        elif isinstance(w, list):
+            if len(g) != len(w):
+                fail(f"path S-H check: {where} lengths differ")
+            for i, (a, b) in enumerate(zip(g, w)):
+                same(a, b, f"{where}[{i}]")
+        elif isinstance(w, float):
+            if not np.isclose(g, w, rtol=TOL[0], atol=TOL[1]):
+                fail(f"path S-H check: {where} {g} != plain {w}")
+        elif g != w:
+            fail(f"path S-H check: {where} {g!r} != plain {w!r}")
+
+    exact = 0
+    for r, g, w in zip(reqs, got, want):
+        exact += int(g == w)
+        same(g, w, r.id)
+    print(f"path S-H check ({cfg.n_chains} chains x {cfg.duration_s} s, "
+          f"horizons clipped to it): {exact}/{len(reqs)} replies equal to "
+          f"the plain bf16 scenario's, the rest within the engine "
+          f"tolerance")
+    return launches
+
+
+def rbg_windows_ops(tables, cc_carry, cc0, ins):
+    """(int32, float32) operations K13 in K2 needs on this block's data
+    (shared site, regime 0).  Batched words (the Markov step's uniform or
+    the Student-t's normal, the cloudy values outside the gamma bands,
+    clear-day values, both minute noises) at a quarter Philox call each,
+    since four consecutive words of chain 0's stream share a call; chain
+    0's key derivations once per value index; each gamma draw (the
+    Student-t steps, cloudy values in the gamma bands, windspeed) with
+    the derivations of the chain's own key that lead to it."""
+    kc = k2.kernel_constants()
+    dev = cc0.device
+    bins = torch.tensor(kc["MK_BINS"], device=dev)
+    is_t = torch.tensor(kc["MK_IS_T"][:6], device=dev) > 0.5
+    half_df = torch.tensor(kc["MK_DF"][:6], device=dev) / 2
+    b = ins.bounds
+    n, n_min = cc0.shape[0], int(ins.mh_idx.shape[0])
+    cc = tables["cc"]
+    # the Markov step of hour j reads the state before it: its bin
+    # chooses asymmetric Laplace (a batched uniform) or Student-t
+    prev = torch.cat([cc_carry[None], cc[:-1]])
+    idx = (bins < prev[..., None]).sum(-1).clamp(max=5)
+    t = is_t[idx]
+    t_boost = int((t & (half_df[idx] < 1.0)).sum())
+    # cloudy value j reads the cover of the hour before it (the kernel's
+    # clamp); the gamma bands start at 0.75
+    w = max(b.n_hours, 1)
+    at = []
+    for j in range(b.n_cloudy):
+        h = b.hour_lo + j
+        at.append(cc[min(max(h - 1 - b.hour_lo, 0), w - 1)] if h >= 2
+                  else cc0)
+    g_cl = (torch.stack(at) >= 0.75) if at else         torch.zeros((0, n), dtype=torch.bool, device=dev)
+    n_t, n_gcl = int(t.sum()), int(g_cl.sum())
+    n_ws = n * b.n_days
+    words = n * b.n_hours + (n * b.n_cloudy - n_gcl) + n * (b.n_cd
+                                                            + 2 * n_min)
+    keys = (n + int(t.any(0).sum()) + int(g_cl.any(0).sum())
+            + 4 * b.n_hours + 9)
+    int_ops = (words * PHILOX_I / 4 + keys * RBG_KEY_I
+               + n_t * (3 * RBG_KEY_I + GAMMA_I) + t_boost * GAMMA_BOOST_I
+               + n_gcl * (2 * RBG_KEY_I + GAMMA_I)
+               + n_ws * (RBG_KEY_I + GAMMA_I))
+    n_al = n * b.n_hours - n_t
+    f32_ops = ((words - n_al) * (NORMAL_F + 2) + n_al * (UNIFORM_F + TRANS_F
+                                                         + 8)
+               + n * b.n_hours * 8 + (n_t + n_gcl + n_ws) * (GAMMA_F + 4)
+               + t_boost * GAMMA_BOOST_F + n * n_min * 9)
+    return int_ops, f32_ops
+
+
+def phase_timing_k13(dev):
+    """The rbg block step (path R-P's launch) and its plain version on a
+    noon block at the main path's shape; the rbg windows (K13 in K2)."""
+    n, T = HEADLINE["n_chains"], HEADLINE["block_s"]
+    cfg = SimConfig(**dict(HEADLINE, **RBG))
+    sim = rbg_sim(cfg, dev)
+    state = sim.init_state()
+    ins = sim.host_inputs(40)
+    tables, _ = sim._windows(state, ins)
+    head = head_of(state, ins, tables)
+    tilt, alb, _ = sim.geometry_args(state)
+    tail = (cfg.duration_s, cfg.meter_max_w, tilt, alb)
+    a1 = (*head, clone(state["carry"]), sim.init_reduce_acc(), *tail)
+    ms = time_ms(lambda: k3.block_step_acc(*a1))
+    plain = time_ms(lambda: k3.block_step_plain(
+        *head, clone(state["carry"]), sim.init_reduce_acc(), *tail), reps=1)
+    table_bytes = sum(t.numel() * 4 for t in tables.values())
+    in_b = (table_bytes + 2 * 32 + n * 4 * 3 * 2
+            + ins.rows_i.numel() * 4 + ins.rows_f.numel() * 4)
+    out = {"K13S": (ms, plain, *bound(
+        n * T * (K3_SECOND_I - 2 * HASH_I + RBG_SECOND_I) + RBG_KEYS_I,
+        n * T * (K3_SECOND_F + NORMAL_F + UNIFORM_F + 1),
+        in_b + n * 4 * 7 * 2))}
+    args = (state["k_arr"], state["k_min"], state["cc_carry"], state["cc0"],
+            ins.bounds, ins.mh_idx, ins.mh_frac)
+    ms = time_ms(lambda: k2.sampler_windows(*args))
+    plain = time_ms(lambda: k2.windows_plain(*args), reps=1)
+    int_ops, f32_ops = rbg_windows_ops(tables, state["cc_carry"],
+                                       state["cc0"], ins)
+    b = ins.bounds
+    n_min = int(ins.mh_idx.shape[0])
+    # outputs, the carry and cc0 in float32, the two keys as 4 uint32
+    out_b = n * 4 * (b.n_hours + b.n_cloudy + b.n_cd + b.n_days
+                     + 2 * n_min + 1)
+    out["K13W"] = (ms, plain, *bound(int_ops, f32_ops,
+                                     out_b + n * 4 * 2 + n * 16 * 2))
+    for name, (ms, plain, bms, by) in out.items():
+        print(f"timing {name}: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
+              f"bound {bms:.4f} ms ({by})")
+    return out
+
+
+def phase_reference_rbg(dev):
+    """The ``rbg`` section of the reference file: each formulation's reduce
+    statistics at ``small_config`` under rbg (the draws of the scan, scan2
+    and wide formulations differ, as in the JAX package) and chain 0's
+    trace over the first hour, against the JAX package's on the CPU."""
+    path = os.path.join(HERE, "tests", "data", "torch_port_reference.json")
+    with open(path) as f:
+        ref = json.load(f)["rbg"]
+    if ref["config"] != SMALL:
+        fail(f"reference rbg config {ref['config']} != {SMALL}")
+    worst = {}
+    for name, (impl, rb) in ref["forms"].items():
+        got = rbg_sim(SimConfig(**dict(SMALL, block_impl=impl, rng_batch=rb,
+                                       **RBG)), dev).run_reduced()
+        for k, w in ref["reduced"][name].items():
+            w = np.asarray(w)
+            if k == "n_seconds":
+                if not np.array_equal(got[k], w):
+                    fail(f"reference rbg {name}: n_seconds differs")
+                continue
+            if not np.allclose(got[k], w, rtol=TOL[0], atol=TOL[1]):
+                fail(f"reference rbg {name}: {k} differs from the JAX "
+                     "package")
+            worst[f"{name} {k}"] = float(np.max(np.abs(got[k] - w)
+                                                / np.maximum(np.abs(w), 1.0)))
+    blocks = list(rbg_sim(SimConfig(**dict(SMALL, **RBG)),
+                          dev).run_blocks())
+    tr = ref["trace"]
+    for k in ("meter", "pv"):
+        have = getattr(blocks[0], k)[tr["chain"], :len(tr[k])]
+        if not np.allclose(have, tr[k], rtol=TOL[0], atol=TOL[1]):
+            fail(f"reference rbg trace {k} differs from the JAX package")
+    print("reference (rbg): small_config on the card matches the JAX "
+          "package's rbg runs, scan / scan2 / scan2 with rng_batch block / "
+          "wide and chain 0's trace; largest relative error "
+          f"{max(worst.values()):.3g}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a "
@@ -3696,6 +4510,11 @@ def main() -> int:
     err4mf, err4mo, err4ms = phase_k4m(dev)
     phase_wide_fused(dev)
     err12 = phase_k12(dev)
+    k13 = phase_k13(dev)
+    err13w = phase_k13_k2(dev)
+    err13 = phase_k13_k3(dev)
+    err13r, rel13r = phase_k13_rest(dev)
+    k12s = phase_k12_k10(dev)
     torch.cuda.empty_cache()
     _, launch_r, reduced_r, wall_r = phase_path_r(dev)
     launch_a, means_a = phase_path_a(dev)
@@ -3737,13 +4556,18 @@ def main() -> int:
     launch_ch = phase_path_ch(dev)
     launch_gh = phase_path_gh()
     torch.cuda.empty_cache()
+    launch_rp, _ = phase_path_rp(dev, reduced_r, wall_r)
+    launch_sh = phase_path_sh(dev, replies_s)
+    torch.cuda.empty_cache()
     timing = phase_timing(dev)
     timing.update(phase_timing_fleet(dev))
     timing.update(phase_timing_levers(dev))
     timing_wide, lib_sum = phase_timing_wide(dev)
     timing_k12 = phase_timing_k12(dev)
+    timing_k13 = phase_timing_k13(dev)
     phase_reference(dev)
     phase_reference_bf16(dev)
+    phase_reference_rbg(dev)
     sim_py = "tmhpvsim_tpu/engine/simulation.py"
     src = "tmhpvsim_torch/csrc/block_step.cuh"
     rows_of = {
@@ -3869,6 +4693,44 @@ def main() -> int:
                      "library_ms": None,
                      **({} if rel is None else {"max_rel_err": rel})})
     rows[-6]["launches_gh"] = launch_gh["block_step_bf16"]
+    # K13: the Philox bits launch (timed on 2**26 words; its launches on
+    # path R-P are init_state's renewal uniforms), the rbg windows and the
+    # rbg block step path R-P launches
+    rows.append({"name": "philox_fill", "route": "cuda",
+                 "source": "tmhpvsim_torch/csrc/philox.cu",
+                 "replaces": f"{sim_py}:333",
+                 "launches": launch_rp["philox_fill"], "path": "R-P",
+                 "max_abs_err": k13["err"], "ms": k13["ms"],
+                 "plain_ms": k13["plain_ms"], "bound_ms": k13["bound_ms"],
+                 "bound_by": k13["bound_by"], "library_ms": None,
+                 "words": K13_WORDS, "ms_uniform": k13["ms_uniform"],
+                 "bound_ms_uniform": k13["bound_ms_uniform"],
+                 "torch_rand_ms": k13["torch_rand_ms"]})
+    for key, name, source, replaces, err in (
+            ("K13W", "sampler_windows_rbg", "tmhpvsim_torch/csrc/windows.cu",
+             f"{sim_py}:785", err13w),
+            ("K13S", "block_step_rbg",
+             "tmhpvsim_torch/csrc/block_step_rbg.cu", f"{sim_py}:1130",
+             err13)):
+        ms, plain, bms, by = timing_k13[key]
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launch_rp[name],
+                     "path": "R-P", "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                     "library_ms": None})
+    # the rbg instantiations no path launches (phase_k13_rest)
+    rows[-1].update(max_abs_err_other_instantiations=err13r,
+                    max_rel_err_k89_rbg=rel13r)
+    # K12 in K10: timed at 16 rows; launches on path S-H
+    rows.append({"name": "block_step_scenario_bf16", "route": "cuda",
+                 "source": "tmhpvsim_torch/csrc/block_step_bf16.cu",
+                 "replaces": f"{sim_py}:1887",
+                 "launches": launch_sh["block_step_scenario_bf16"],
+                 "path": "S-H", "max_abs_err": k12s["err"],
+                 "ms": k12s["ms"][K10_B], "ms_1_row": k12s["ms"][1],
+                 "ms_4_rows": k12s["ms"][4], "plain_ms": k12s["plain_ms"],
+                 "bound_ms": k12s["bound_ms"], "bound_by": k12s["bound_by"],
+                 "library_ms": None})
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -207,7 +207,8 @@ def test_reference_file_tracks_jax(jax_scan, jax_ensemble, jax_trace,
     statistics, ensemble means over the first half hour and fleet run, and
     under ``compute_dtype='bf16'`` the reduce statistics with the drift
     sentinel's report, and the fleet run (section ``bf16``); it is written
-    when missing and must equal what the JAX package computes."""
+    when missing and must equal what the JAX package computes (its ``rbg``
+    section is tests/test_torch_rbg.py's)."""
     jw = jax_wide_runs
     jb = jax_bf16_runs
     doc = {
@@ -252,7 +253,8 @@ def test_reference_file_tracks_jax(jax_scan, jax_ensemble, jax_trace,
             json.dump(doc, f, separators=(",", ":"))
     assert os.path.getsize(REF) < 300_000
     with open(REF) as f:
-        assert json.load(f) == json.loads(json.dumps(doc))
+        held = {k: v for k, v in json.load(f).items() if k != "rbg"}
+    assert held == json.loads(json.dumps(doc))
 
 
 def test_ensemble_matches_jax_scan(jax_ensemble):

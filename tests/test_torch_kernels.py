@@ -278,10 +278,15 @@ def test_build_flags():
                   "series_sum", "device_geometry_fields"):
         assert re.search(rf'extern "C" int {entry}\(', text), entry
     for src, kset in (("block_step.cu", "Exact"),
-                      ("block_step_table.cu", "Table")):
+                      ("block_step_table.cu", "Table"),
+                      ("block_step_rbg.cu", "Exact"),
+                      ("block_step_rbg_table.cu", "Table"),
+                      ("block_step_rbg_bf16.cu", "Exact"),
+                      ("block_step_rbg_bf16_table.cu", "Table")):
         text = open(os.path.join(build.CSRC, src)).read()
         assert f"#define KSET {kset}" in text
         assert '#include "block_step.cuh"' in text
+        assert ("#define PRNG RBG" in text) == ("rbg" in src)
     assert re.search(r'extern "C" int table_eval\(', open(
         os.path.join(build.CSRC, "tables.cu")).read())
 
@@ -292,6 +297,43 @@ def test_build_without_nvcc_raises(monkeypatch):
     monkeypatch.setattr(build, "BUILD_DIR", "/nonexistent-unused")
     with pytest.raises(RuntimeError, match="nvcc"):
         build._nvcc()
+
+
+def test_compile_cache_chooses_the_build_dir(monkeypatch, tmp_path):
+    """``--compile-cache DIR`` (pvsim and serve) makes DIR the directory the
+    kernels are built into and loaded from: the generated header lands
+    there before nvcc would run, and the package's default directory is
+    not written (nvcc stubbed out, so no compiler is needed)."""
+    from tmhpvsim_torch.cli import main
+
+    monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR)
+
+    def no_nvcc():
+        raise RuntimeError("nvcc stubbed out")
+
+    monkeypatch.setattr(build, "_nvcc", no_nvcc)
+    cache = tmp_path / "kernels"
+    out = str(tmp_path / "r.csv")
+    assert main(["pvsim", out, "--output", "reduce", "--no-realtime",
+                 "--duration", "120", "--block-s", "60", "--device", "cpu",
+                 "--start", "2019-09-05 12:00:00",
+                 "--compile-cache", str(cache)]) == 0
+    assert build.BUILD_DIR == str(cache)
+    before = (set(os.listdir(build.DEFAULT_BUILD_DIR))
+              if os.path.isdir(build.DEFAULT_BUILD_DIR) else set())
+    with pytest.raises(RuntimeError, match="stubbed"):
+        build.build_all()
+    gen = [d for d in os.listdir(cache) if d.startswith("include-")]
+    assert len(gen) == 1
+    assert os.path.exists(os.path.join(cache, gen[0], "consts.cuh"))
+    after = (set(os.listdir(build.DEFAULT_BUILD_DIR))
+             if os.path.isdir(build.DEFAULT_BUILD_DIR) else set())
+    assert after == before
+    from tmhpvsim_torch.cli import _parser
+
+    assert _parser().parse_args(["serve", "--compile-cache", "d"]
+                                ).compile_cache == "d"
+    assert build.set_build_dir(None) == build.DEFAULT_BUILD_DIR
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
@@ -790,3 +832,43 @@ def test_k12_matches_plain_on_card(card, levers):
     _, sp, qp = k3.series_plain(*head, carry(), mw, tilt, alb, **kw)
     torch.testing.assert_close(sk, sp, rtol=1e-6, atol=0.0)
     torch.testing.assert_close(qk, qp, rtol=1e-6, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_k13_matches_plain_on_card(card):
+    """K13: the Philox bits of rbg keys on the card, batched (a counter
+    that carries) and per key, and the rbg windows and block step, bit
+    for bit against their plain versions."""
+    from tmhpvsim_torch import rng
+    from tmhpvsim_torch.kernels import threefry as k1
+
+    key = torch.tensor([1, 2, 0xFFFFFFF0, 0xFFFFFFFF], dtype=torch.int64,
+                       device=card)
+    assert torch.equal(k1.philox_fill("bits", key[None], 1 << 12)[0],
+                       rng.rbg_stream(key, 1 << 12))
+    keys = rng.split(rng.rbg_key(3, card), 512)
+    assert torch.equal(k1.philox_fill("bits", keys, 8, per_key=True),
+                       rng.random_bits(keys, (8,), per_key=True))
+    assert torch.equal(k1.uniform(keys), rng.uniform(keys, ()))
+    cfg = SimConfig(start="2019-09-05 11:00:00", duration_s=2160,
+                    n_chains=512, block_s=1080, prng_impl="rbg")
+    with pytest.warns(RuntimeWarning, match="rbg"):
+        sim = Simulation(cfg, device=card)
+    state = sim.init_state()
+    ins = sim.host_inputs(0)
+    args = (state["k_arr"], state["k_min"], state["cc_carry"], state["cc0"],
+            ins.bounds, ins.mh_idx, ins.mh_frac)
+    tk, ck = k2.sampler_windows(*args)
+    tp, cp = k2.windows_plain(*args)
+    assert all(torch.equal(tk[k], tp[k]) for k in tk) and torch.equal(ck, cp)
+    head = (tk, ins.rows_i, ins.rows_f, state["k_scan"], state["k_meter"])
+    tail = (cfg.duration_s, cfg.meter_max_w, cfg.site.surface_tilt,
+            cfg.site.albedo)
+    for layout in ("scan", "scan2", "trace"):
+        _, ak = k3.block_step_acc(
+            *head, {k: v.clone() for k, v in state["carry"].items()},
+            sim.init_reduce_acc(), *tail, layout=layout)
+        _, ap = k3.block_step_plain(
+            *head, {k: v.clone() for k, v in state["carry"].items()},
+            sim.init_reduce_acc(), *tail, layout=layout)
+        assert all(torch.equal(ak[k], ap[k]) for k in ak), layout

@@ -99,7 +99,7 @@ def test_config_fields_and_defaults_match(cls):
 
 @pytest.mark.parametrize("field,value", [
     ("site_grid", object()), ("fleet", object()), ("trace", "t.json"),
-    ("phase_obs", "on"), ("prng_impl", "unsafe_rbg"), ("prng_impl", "rbg"),
+    ("phase_obs", "on"), ("prng_impl", "unsafe_rbg"), ("prng_impl", "philox"),
     ("output", "nonsense"), ("dtype", "bfloat16"), ("tune", "auto"),
     ("mesh_scenario", 2), ("pod_obs", "on"), ("checkpoint_async", "on"),
 ])
@@ -109,11 +109,13 @@ def test_config_outside_slice_raises(field, value):
 
 
 def test_refusal_names_what_is_still_to_port():
+    assert tcfg.SimConfig(prng_impl="rbg").prng_impl == "rbg"
     with pytest.raises(NotImplementedError) as e:
-        tcfg.SimConfig(prng_impl="rbg")
+        tcfg.SimConfig(prng_impl="unsafe_rbg")
     msg = str(e.value)
-    assert "prng_impl='rbg' is still to port" in msg \
-        and "float32 or bf16" in msg and "exact kernels" not in msg
+    assert "prng_impl='unsafe_rbg' is still to port" in msg \
+        and "float32 or bf16" in msg and "threefry2x32 or rbg" in msg \
+        and "exact kernels" not in msg
 
 
 @pytest.mark.parametrize("field,value,plan", [

@@ -10,9 +10,9 @@ port, and the CLI with its run report.
   verdicts and ``report()``; a NaN counter trips it; a doctored ensemble
   bias raises ``DriftError`` under strict, as tests/test_precision.py
   does in JAX.
-* Config and CLI: bf16 with telemetry 'off' resolves to 'light'; scenario
-  bf16 and ``prng_impl='rbg'`` raise ``NotImplementedError`` naming what is
-  still to port; ``pvsim --output reduce --compute-dtype bf16
+* Config and CLI: bf16 with telemetry 'off' resolves to 'light'; the
+  scenario engine builds under bf16, and a strict rbg config raises as
+  the JAX package's does; ``pvsim --output reduce --compute-dtype bf16
   --telemetry-strict --run-report`` writes a report whose plan and
   precision sections say bf16 and whose telemetry section is the
   sentinel's.
@@ -167,13 +167,26 @@ def test_doctored_bias_trips_strict_sentinel(monkeypatch):
 
 
 def test_refusals_name_what_is_still_to_port():
+    """What the port once refused now runs: a bf16 scenario engine builds
+    (K12 in K10) and an rbg config is accepted; a strict rbg run raises
+    as the JAX package's does (engine/simulation.py:296-301);
+    'unsafe_rbg' stays refused by name."""
     from tmhpvsim_torch.serve.server import ScenarioEngine
+    from tmhpvsim_tpu import config as jcfg
+    from tmhpvsim_tpu.engine import Simulation as JSim
 
-    with pytest.raises(NotImplementedError, match="K10"):
-        ScenarioEngine(tcfg.SimConfig(**CFG, compute_dtype="bf16"), (1,),
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="rbg"):
-        tcfg.SimConfig(prng_impl="rbg")
+    eng = ScenarioEngine(tcfg.SimConfig(**CFG, compute_dtype="bf16"), (1,),
+                         device="cpu")
+    assert eng.sim.plan.compute_dtype == "bf16"
+    strict = dict(prng_impl="rbg", telemetry_strict=True)
+    with pytest.raises(ValueError, match="rbg") as want:
+        JSim(jcfg.SimConfig(**strict))
+    with pytest.raises(ValueError, match="rbg") as got:
+        TSim(tcfg.SimConfig(**strict), device="cpu")
+    assert "prng_impl='rbg'" in str(want.value) \
+        and "prng_impl='rbg'" in str(got.value)
+    with pytest.raises(NotImplementedError, match="unsafe_rbg"):
+        tcfg.SimConfig(prng_impl="unsafe_rbg")
 
 
 def test_cli_bf16_strict_run_report(tmp_path):

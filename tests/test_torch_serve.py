@@ -1017,3 +1017,80 @@ def test_scen_layout_mirrors_the_kernel():
                                            text).group(1)), name
     for entry in ("block_step_scenario", "scen_struct_size"):
         assert re.search(rf'extern "C" int {entry}\(', text), entry
+
+
+# --------------------------------------------------------------------------
+# bf16 and rbg serving (K12 in K10; K13 in K10)
+# --------------------------------------------------------------------------
+
+
+def _bf16_or_rbg(kind):
+    return (dict(compute_dtype="bf16") if kind == "bf16"
+            else dict(prng_impl="rbg"))
+
+
+@pytest.mark.filterwarnings("ignore:prng_impl='rbg'")
+@pytest.mark.parametrize("kind", ["bf16", "rbg"])
+def test_lever_engine_replies_match_jax(kind, slack):
+    """``ScenarioEngine.run`` under bf16 (the JAX ScenarioEngine runs its
+    step in the compute dtype) and under rbg keys, against the JAX engine
+    with ``block_impl='scan'`` pinned: one batch of 4 in all three
+    modes."""
+    kw = _bf16_or_rbg(kind)
+    with j_use_registry(JRegistry()):
+        jeng = JEngine(jcfg(**kw), BUCKETS)
+    teng = tserver.ScenarioEngine(tcfg(**kw), BUCKETS, device="cpu")
+    assert teng.sim.plan.compute_dtype == ("bf16" if kind == "bf16"
+                                           else "f32")
+    jreqs = [req(jschema, f"r{i}", scen_of(jschema, d), m)
+             for i, (d, m) in enumerate(SCENARIOS)]
+    treqs = [req(tschema, f"r{i}", scen_of(tschema, d), m)
+             for i, (d, m) in enumerate(SCENARIOS)]
+    with j_use_registry(JRegistry()):
+        want = jeng.run(jreqs)
+    got = teng.run(treqs)
+    width = (teng.params.hi - teng.params.lo) / teng.params.bins
+    for g, w in zip(got, want):
+        _same_reply(g, w, slack, width)
+    assert got[0]["stats"]["n_seconds"] == 120 * 4
+
+
+def test_bf16_scenario_step_is_the_bf16_step():
+    """The bf16 scenario fold's neutral row folds the bf16 acc step's
+    statistics bit for bit (plain versions on the CPU)."""
+    sim = TSim(tcfg(compute_dtype="bf16"), device="cpu")
+    scs = [tschema.parse_scenario({"horizon_s": 120}, max_horizon_s=120)]
+    scen = tschema.encode_batch(scs, 1, device="cpu")
+    state, acc = sim.init_state(), sim.init_scenario_acc(1)
+    for bi in range(sim.n_blocks):
+        state, acc, _ = sim.scenario_step(state, sim.host_inputs(bi), acc,
+                                          scen)
+    ref = TSim(tcfg(compute_dtype="bf16"), device="cpu").run_reduced()
+    for k in REDUCE_STATS:
+        np.testing.assert_array_equal(acc[k][0].numpy(), ref[k], err_msg=k)
+
+
+def test_bf16_server_round_trip():
+    """One request over local:// to a bf16 server with the strict
+    telemetry gate set: the reply is the bf16 engine's."""
+    cfg = tserver.ServeConfig(
+        sim=tcfg(compute_dtype="bf16", telemetry_strict=True),
+        url="local://torch-bf16", window_s=0.05, batch_sizes=(1,),
+        timeout_s=300.0, device="cpu")
+    doc = {"demand_scale": 1.2, "horizon_s": 120}
+
+    async def main():
+        server = tserver.ScenarioServer(cfg, registry=TRegistry())
+        await server.start()
+        try:
+            async with tserver.ScenarioClient(cfg.url) as c:
+                return await c.request(doc, rid="h0", timeout=300)
+        finally:
+            await server.stop()
+
+    reply = _run(main())
+    assert reply["ok"], reply
+    eng = tserver.ScenarioEngine(cfg.sim, (1,), device="cpu")
+    assert eng.sim.plan.telemetry == "light"
+    want = eng.run([req(tschema, "h0", scen_of(tschema, doc))])[0]
+    assert reply["result"] == want

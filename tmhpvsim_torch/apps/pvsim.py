@@ -80,7 +80,8 @@ def pvsim(file: str, duration_s: int, n_chains: int, seed: int, start: str,
           block_impl: str = "auto", blocks_per_dispatch: int = 0,
           rng_batch: str = "auto", compute_dtype: str = "auto",
           telemetry: str = "off",
-          telemetry_strict: bool = False) -> Simulation:
+          telemetry_strict: bool = False,
+          prng_impl: str = "threefry2x32") -> Simulation:
     """Run one simulation and write ``file``; returns the Simulation.
 
     A site grid or a fleet sets the chain count (one chain per site).
@@ -97,7 +98,9 @@ def pvsim(file: str, duration_s: int, n_chains: int, seed: int, start: str,
     ``telemetry`` ('off' | 'light' | 'full', reduce mode) folds the
     numerics telemetry that the drift sentinel checks every block ('off'
     becomes 'light' under bf16), and ``telemetry_strict`` turns the
-    sentinel's warnings into ``DriftError``."""
+    sentinel's warnings into ``DriftError``.  ``prng_impl``
+    ('threefry2x32' | 'rbg') the key implementation (rbg: K13's Philox
+    bits on the card)."""
     if block_s is None:
         block_s = min(8640, max(60, (duration_s // 60) * 60))
     cfg = SimConfig(start=start, duration_s=duration_s, n_chains=n_chains,
@@ -108,7 +111,8 @@ def pvsim(file: str, duration_s: int, n_chains: int, seed: int, start: str,
                     block_impl=block_impl,
                     blocks_per_dispatch=blocks_per_dispatch,
                     rng_batch=rng_batch, compute_dtype=compute_dtype,
-                    telemetry=telemetry, telemetry_strict=telemetry_strict)
+                    telemetry=telemetry, telemetry_strict=telemetry_strict,
+                    prng_impl=prng_impl)
     sim = Simulation(cfg, device=device)
     cfg = sim.config  # a site grid or a fleet sets n_chains
     t0 = time.perf_counter()

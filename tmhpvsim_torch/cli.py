@@ -8,6 +8,7 @@ ported slice: the three output modes, ``--chain``, site grids
 (``--analytics``), the precision levers ``--compute-dtype``,
 ``--kernel-impl``, ``--geom-stride`` and ``--rng-batch``, the numerics
 telemetry and its drift sentinel (``--telemetry``, ``--telemetry-strict``),
+the key implementation ``--prng-impl`` (threefry2x32 | rbg),
 the formulation ``--block-impl`` and ``--blocks-per-dispatch`` (the JAX
 package's choices, defaults and errors), ``--output-overlap`` and
 ``--realtime``.  ``--run-report PATH`` writes the run report (the JAX
@@ -17,6 +18,10 @@ package's RunReport schema: config, the resolved plan, device, and the
 ``serve`` runs the scenario server (serve/server.py) with the JAX
 package's ``pvsim serve`` defaults on an in-process ``local://``
 transport, until SIGINT / SIGTERM.
+
+``--compile-cache DIR`` (both commands) builds and loads the CUDA kernels'
+libraries under DIR instead of inside the package (kernels/build.py), so
+that an installed, read-only package can build them.
 """
 
 from __future__ import annotations
@@ -159,6 +164,12 @@ def _parser() -> argparse.ArgumentParser:
                     default="auto",
                     help="auto: dispatch block N+1 before writing block N's "
                          "rows; off: one block at a time")
+    pv.add_argument("--prng-impl", choices=["threefry2x32", "rbg"],
+                    default="threefry2x32",
+                    help="PRNG: threefry2x32 = fully counter-based "
+                         "(default); rbg = threefry-derived keys with "
+                         "Philox bits, drawn as jax batches them (K13; "
+                         "see config.SimConfig.prng_impl)")
     pv.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="cuda (default) runs the kernels; cpu runs their "
                          "plain torch versions")
@@ -203,6 +214,11 @@ def _parser() -> argparse.ArgumentParser:
     sv.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="cuda (default) runs the kernels; cpu runs their "
                          "plain torch versions")
+    for sp in (pv, sv):
+        sp.add_argument("--compile-cache", default=None, metavar="DIR",
+                        help="directory the CUDA kernels are built into "
+                             "and loaded from (default: _build inside "
+                             "the package)")
     return p
 
 
@@ -243,6 +259,10 @@ def serve(args) -> int:
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
+    if args.compile_cache is not None:
+        from tmhpvsim_torch.kernels import build
+
+        build.set_build_dir(args.compile_cache)
     if args.command == "serve":
         return serve(args)
     if args.realtime and args.output == "reduce":
@@ -284,7 +304,8 @@ def main(argv=None) -> int:
               blocks_per_dispatch=args.blocks_per_dispatch,
               rng_batch=args.rng_batch, compute_dtype=args.compute_dtype,
               telemetry=args.telemetry,
-              telemetry_strict=args.telemetry_strict)
+              telemetry_strict=args.telemetry_strict,
+              prng_impl=args.prng_impl)
     except (ValueError, DriftError) as e:
         raise SystemExit(f"pvsim: {e}") from e
     return 0

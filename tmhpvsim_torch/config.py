@@ -201,6 +201,7 @@ class ModelOptions:
 _SLICE_VALUES = {
     "output": ("trace", "reduce", "ensemble"),
     "output_overlap": ("auto", "off"),
+    "prng_impl": ("threefry2x32", "rbg"),
 }
 
 #: fields whose every value belongs to the slice (``telemetry``,
@@ -323,10 +324,10 @@ class SimConfig:
                 raise NotImplementedError(
                     f"SimConfig.{f.name}={value!r} is outside the torch "
                     "port's slice: it computes in float32 or bf16 with "
-                    "threefry2x32 keys (prng_impl='rbg' is still to port) "
-                    "under the static plan, with no autotuner, mesh, pod "
-                    "or phase observers, profiler trace or checkpoint "
-                    "options")
+                    "threefry2x32 or rbg keys (prng_impl='unsafe_rbg' is "
+                    "still to port) under the static plan, with no "
+                    "autotuner, mesh, pod or phase observers, profiler "
+                    "trace or checkpoint options")
         if self.block_s % 60 != 0:
             raise ValueError("block_s must be a multiple of 60 (minute grid)")
 
@@ -351,7 +352,11 @@ class Plan:
     block).  Three dispatch knobs that give the same bits: ``scan_unroll``,
     ``rng_batch`` ('scan' or 'block') and ``blocks_per_dispatch`` (blocks
     whose inputs go to the card in one copy and whose launches are
-    enqueued back to back).
+    enqueued back to back).  ``prng_impl`` echoes the config's key
+    implementation: under 'rbg' each batched draw takes its batch's first
+    key (tmhpvsim_torch/rng.py), so the formulation and ``rng_batch``
+    choose which values a chain draws (``clearsky_index.DRAW_LAYOUTS``),
+    as they do in the JAX package.
 
     'auto' resolves as the JAX package resolves it on an accelerator,
     whatever the device: ``block_impl`` 'scan', ``stats_fusion`` 'fused',
@@ -371,6 +376,7 @@ class Plan:
     rng_batch: str = "scan"
     compute_dtype: str = "f32"
     telemetry: str = "off"
+    prng_impl: str = "threefry2x32"
 
 
 def escalate_telemetry(level: str, compute_dtype: str) -> str:
@@ -446,4 +452,5 @@ def resolve_plan(config: SimConfig) -> Plan:
                 stats_fusion=fusion, scan_unroll=int(unroll),
                 blocks_per_dispatch=max(1, int(k)), rng_batch=rb,
                 compute_dtype=cd,
-                telemetry=escalate_telemetry(config.telemetry, cd))
+                telemetry=escalate_telemetry(config.telemetry, cd),
+                prng_impl=config.prng_impl)

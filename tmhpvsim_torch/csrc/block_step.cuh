@@ -89,7 +89,28 @@
 // before the physics, which runs with the JAX graph's types (bf16.cuh:
 // phys_terms_bf, power_bf); its float32 steps are power()'s own.  The
 // renewal and csi carry, the meter and every accumulator stay float32.
-// BF16 has no scenario epilogue (the JAX scenario engine has no bf16).
+// The scenario epilogue runs under BF16 too (K12 in K10: the JAX
+// ScenarioEngine runs _scan_block_setup's step in the compute dtype,
+// :1887), with the acc epilogue's bf16 draws.
+//
+// K13 (RBG; prng_impl='rbg', tmhpvsim_tpu/engine/simulation.py:333).  The
+// keys are 4 words and every u / z / meter word comes from Philox
+// (philox.cuh).  jax draws a vmapped batch from its FIRST key, so all the
+// chains of the block read one key's stream (chain 0's k_scan and
+// k_meter), each at its own offset, which the JAX formulation fixes
+// (Args::layout; models/clearsky_index.py DRAW_LAYOUTS):
+//   0 scan   scan_draws_tmajor (:1130; groups outside, chains inside):
+//            key fold_in(fold_in(k0, g0), 0 | 1), word (g n + c) 60 + s;
+//   1 scan2  the nested scan's per-minute draws (:1622-1636): key
+//            fold_in(fold_in(k0, g0 + g), 0 | 1), word c 60 + s;
+//   2 trace  _block_step's minute-grouped draws (:844-956; chains outside,
+//            groups inside, T / 60 + 1 groups): key as scan, word
+//            (c (T / 60 + 1) + g) 60 + s;
+// with g0 the block's first minute, g the tile, c the chain, s the second
+// of the tile; the meter's key is fold_in(k0_meter, the same minute),
+// without the 0 | 1.  Each thread derives the tile's three keys itself
+// (two threefry hashes per half and key) and draws z and the meter four
+// words per Philox call; u only on a redraw.
 //
 // Epilogues.  acc folds in second order, chain by chain, as the scan adds.
 // series reduces each second's meter and pv over the CTA's chains in a
@@ -159,6 +180,7 @@
 #include "bf16.cuh"
 #include "consts.cuh"
 #include "fold.cuh"
+#include "philox.cuh"
 #include "threefry.cuh"
 #ifdef TMHPVSIM_TABLE_SET
 #include "tables.cuh"
@@ -168,12 +190,18 @@
 #ifndef CDTYPE
 #define CDTYPE F32
 #endif
+#ifndef PRNG
+#define PRNG TF
+#endif
 
 enum Epilogue { ACC = 0, SERIES = 1, TRACE = 2, SCEN = 3 };
 
 // compute dtypes (Plan.compute_dtype)
 struct F32 {};
 struct BF16 {};
+// the key implementation: threefry2x32 (K1) or rbg (K13)
+struct TF {};
+struct RBG {};
 
 // scenario: per-(scenario, chain) risk leaves kept between tiles (int,
 // float), and the per-(CTA, scenario) partial row
@@ -261,6 +289,7 @@ struct Scen {
 struct Args {
   int64_t n;
   int T, duration_s, stride;
+  int layout;  // RBG: the draw layout (0 scan, 1 scan2, 2 trace)
   float meter_max_w, cos_tilt, albedo;
   const int* rows_i;
   const float* rows_f;
@@ -704,8 +733,9 @@ struct ScnRow {
   float prev[3] = {0.0f, 0.0f, 0.0f};
 };
 
-template <class KS, class CD, int EPI, int GEO, bool TEL, bool FLT>
+template <class KS, class CD, class RG, int EPI, int GEO, bool TEL, bool FLT>
 __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
+  constexpr bool RB = std::is_same<RG, RBG>::value;
   constexpr bool PER_CHAIN = GEO != SHARED;  // geometry per chain
   // K12: bf16 physics; bf16 u / z draws but in the trace epilogue
   constexpr bool BF = std::is_same<CD, BF16>::value;
@@ -787,8 +817,16 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
   const float ac_limit = het_power ? a.ac_limit[ii] : 0.0f;
   const float dem_scale = het_demand ? a.dem_scale[ii] : 1.0f;
   const float dem_shift = het_demand ? a.dem_shift[ii] : 0.0f;
-  const tf::Key ks = tf::load_key(a.k_scan, ii),
-                km0 = tf::load_key(a.k_meter, ii);
+  tf::Key ks{}, km0{};
+  ph::Key4 rs0{}, rm0{};
+  if constexpr (RB) {  // K13: the batch's first keys
+    rs0 = ph::load_key(a.k_scan, 0);
+    rm0 = ph::load_key(a.k_meter, 0);
+  } else {
+    ks = tf::load_key(a.k_scan, ii);
+    km0 = tf::load_key(a.k_meter, ii);
+  }
+  const uint32_t g_first = (uint32_t)(a.rows_i[0] / 60);
 
   // K8 / K9 state
   TelField tel[4];
@@ -851,9 +889,26 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
     if (EPI != SERIES && EPI != SCEN && !live) continue;
     // blocks are minute-aligned: the tile is global minute t / 60
     const uint32_t g = (uint32_t)(tile[0].c.t / 60);
-    const tf::Key kg = tf::fold_in(ks, g);
-    const tf::Key ku = tf::fold_in(kg, 0u), kz = tf::fold_in(kg, 1u);
-    const tf::Key km = tf::fold_in(km0, g);
+    tf::Key ku{}, kz{}, km{};
+    ph::Key4 ru{}, rz{}, rm{};
+    uint64_t wb = 0;  // K13: the word of the tile's second 0
+    if constexpr (RB) {
+      const uint64_t gl = (uint64_t)(base / TILE);
+      const uint32_t gk = a.layout == 1 ? g : g_first;
+      const ph::Key4 kb = ph::fold_in(rs0, gk);
+      ru = ph::fold_in(kb, 0u);
+      rz = ph::fold_in(kb, 1u);
+      rm = ph::fold_in(rm0, gk);
+      wb = a.layout == 0   ? (gl * (uint64_t)n + (uint64_t)ii) * TILE
+           : a.layout == 1 ? (uint64_t)ii * TILE
+                           : ((uint64_t)ii * (T / TILE + 1) + gl) * TILE;
+    } else {
+      const tf::Key kg = tf::fold_in(ks, g);
+      ku = tf::fold_in(kg, 0u);
+      kz = tf::fold_in(kg, 1u);
+      km = tf::fold_in(km0, g);
+    }
+    uint4 zq = make_uint4(0u, 0u, 0u, 0u), mq = zq;
     if constexpr (GEO == STRIDED) {
       // the previous tile's upper sample (selects, not an indexed load,
       // keep g_s in registers)
@@ -869,6 +924,20 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
     }
     for (int s = 0; s < TILE; ++s) {
       const Cal& S = tile[s].c;
+      // the second's z and meter words (K13: four per Philox call; the
+      // tile's first word is a multiple of 4)
+      uint32_t zb, mb;
+      if constexpr (RB) {
+        if ((s & 3) == 0) {
+          zq = ph::block(rz, (wb + s) >> 2);
+          mq = ph::block(rm, (wb + s) >> 2);
+        }
+        zb = ph::pick(zq, s & 3);
+        mb = ph::pick(mq, s & 3);
+      } else {
+        zb = tf::bits(kz, (uint32_t)s);
+        mb = tf::bits(km, (uint32_t)s);
+      }
       Phys local;
       if constexpr (GEO == SITE && BF) {
         using b16::stored;
@@ -935,9 +1004,9 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
                          a.t_cc[(S.h + 1) * n + ii] * S.hf;
       float z;
       if constexpr (BF_DRAWS) {  // K12: jax's 8-bit bits, the low byte
-        z = s_z[(tf::bits(kz, (uint32_t)s) & 0xFFu) >> 1];
+        z = s_z[(zb & 0xFFu) >> 1];
       } else {
-        z = tf::normal(kz, (uint32_t)s);
+        z = tf::normal_from_bits(zb);
       }
       const float noise_sec = SIGMA_SEC * (SEC_S0 + SEC_S1X8 * cc_t) * z;
       // renewal: a new cycle only on redraw
@@ -945,12 +1014,17 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
       if (sec >= total_end) {
         const float ws_t = a.t_ws[S.d * n + ii] * S.one_m_df +
                            a.t_ws[(S.d + 1) * n + ii] * S.df;
+        uint32_t ub;
+        if constexpr (RB) {
+          ub = ph::word(ru, wb + s);
+        } else {
+          ub = tf::bits(ku, (uint32_t)s);
+        }
         float u;
         if constexpr (BF_DRAWS) {
-          u = (float)((tf::bits(ku, (uint32_t)s) & 0xFFu) >> 1) *
-              (1.0f / 128.0f);
+          u = (float)((ub & 0xFFu) >> 1) * (1.0f / 128.0f);
         } else {
-          u = tf::uniform(ku, (uint32_t)s);
+          u = tf::uniform_range(ub, 0.0f, 1.0f);
         }
         const float cc = fminf(fmaxf(cc_t, RN_CC_MIN), RN_CC_MAX);
         const float cap_m = RN_MAX_CYCLE * cc * ws_t;
@@ -983,7 +1057,7 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
       } else {
         ac = power<KS>(csi, *P, cos_tilt, albedo);
       }
-      float meter = a.meter_max_w * tf::uniform(km, (uint32_t)s);
+      float meter = a.meter_max_w * tf::uniform_range(mb, 0.0f, 1.0f);
       // K7: the heterogeneous columns' transforms
       if (het_power) ac = fminf(ac * pv_scale, ac_limit);
       if (het_demand) meter = fmaf(meter, dem_scale, dem_shift);
@@ -1290,7 +1364,7 @@ __global__ void geometry_kernel(int64_t n, int T, const float* rows_f,
 template <int EPI, int GEO, bool TEL, bool FLT>
 static int launch_one(const Args& a, unsigned blocks, int smem,
                       cudaStream_t st) {
-  auto kernel = block_step_kernel<KSET, CDTYPE, EPI, GEO, TEL, FLT>;
+  auto kernel = block_step_kernel<KSET, CDTYPE, PRNG, EPI, GEO, TEL, FLT>;
   if (smem > 48 * 1024) {  // above 48 KB only after opting in
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1341,18 +1415,8 @@ static int launch(int geo, const Args& a, void* stream, int tel = 0,
   }
 }
 
-// the scenario epilogue exists in float32 only (the JAX scenario engine
-// has no bf16 path)
-template <class C>
-static int launch_scen(int geo, const Args& a, void* stream, int smem) {
-  if constexpr (std::is_same<C, BF16>::value) {
-    return (int)cudaErrorNotSupported;
-  } else {
-    return launch<SCEN>(geo, a, stream, 0, 0, smem);
-  }
-}
 
-static Args common(int64_t n, int T, int stride, int duration_s,
+static Args common(int64_t n, int T, int stride, int layout, int duration_s,
                    float meter_max_w,
                    float cos_tilt, float albedo, const int* rows_i,
                    const float* rows_f, const float* t_cc,
@@ -1369,6 +1433,7 @@ static Args common(int64_t n, int T, int stride, int duration_s,
   a.n = n;
   a.T = T;
   a.stride = stride;
+  a.layout = layout;
   a.duration_s = duration_s;
   a.meter_max_w = meter_max_w;
   a.cos_tilt = cos_tilt;
@@ -1401,7 +1466,7 @@ static Args common(int64_t n, int T, int stride, int duration_s,
 }
 
 #define COMMON_PARAMS                                                        \
-  int geo, int stride, int64_t n, int T, int duration_s, float meter_max_w, \
+  int geo, int stride, int layout, int64_t n, int T, int duration_s, float meter_max_w, \
       float cos_tilt, float albedo, const int *rows_i, const float *rows_f,  \
       const float *t_cc, const float *t_cloudy, const float *t_cd,           \
       const float *t_ws, const float *t_ml, const float *t_mc,               \
@@ -1411,7 +1476,7 @@ static Args common(int64_t n, int T, int stride, int duration_s,
       const float *pv_scale, const float *ac_limit, const float *dem_scale,  \
       const float *dem_shift, float *cloud_end, float *total_end, float *sec
 #define COMMON_ARGS                                                          \
-  n, T, stride, duration_s, meter_max_w, cos_tilt, albedo, rows_i, rows_f,  \
+  n, T, stride, layout, duration_s, meter_max_w, cos_tilt, albedo, rows_i, rows_f,  \
       t_cc,                                                                  \
       t_cloudy, t_cd, t_ws, t_ml, t_mc, k_scan, k_meter, lat, lon, alt, tilt, \
       azi, alb, turb, pv_scale, ac_limit, dem_scale, dem_shift, cloud_end,   \
@@ -1459,7 +1524,7 @@ extern "C" int block_step_scenario(COMMON_PARAMS, float* pv_sum,
   a.n_seconds = n_seconds;
   a.q = *q;
   if (a.q.B <= 0) return (int)cudaErrorInvalidValue;
-  return launch_scen<CDTYPE>(geo, a, stream, smem);
+  return launch<SCEN>(geo, a, stream, 0, 0, smem);
 }
 
 // the layout check of the wrapper's ctypes mirror of Scen

@@ -1,0 +1,7 @@
+// K13: the block step (block_step.cuh) under prng_impl='rbg' (Philox
+// draws, philox.cuh) for the Table kernel set.
+// Its own library, so it builds beside the threefry ones.
+#define TMHPVSIM_TABLE_SET
+#define KSET Table
+#define PRNG RBG
+#include "block_step.cuh"

@@ -155,31 +155,35 @@ __device__ __forceinline__ float uniform_tiny(Key k) {
 }
 
 // jax.random.gamma(key, alpha, (), float32): Marsaglia-Tsang with jax's key
-// splits (jax._src.random._gamma_one), one draw per key.  Both loops carry
+// splits (jax._src.random._gamma_one), one draw per key; K is tf::Key or
+// (philox.cuh) ph::Key4, whose split_at / normal / uniform overloads are
+// found by argument-dependent lookup: jax draws an rbg gamma per key, its
+// lax.map over the keys never batched.  Both loops carry
 // an iteration cap that only guards the card against a fault: a draw
 // accepts with probability > 0.9 per outer iteration and the inner redraw
 // repeats with probability < 0.01, so no sample ever reaches the caps.
-__device__ inline float gamma(Key key, float alpha) {
+template <class K>
+__device__ inline float gamma(K key, float alpha) {
   key = split_at(key, 0u);  // _gamma_impl: split(key, 1)[0]
   const bool boost = alpha >= 1.0f;
   const float a = boost ? alpha : alpha + 1.0f;
   const float third = 0.333333343f;  // float32(1/3)
   const float d = a - third;
   const float c = third * (1.0f / sqrtf(d));  // XLA: third * rsqrt(d)
-  Key subkey = split_at(key, 1u);
+  K subkey = split_at(key, 1u);
   key = split_at(key, 0u);
   float X = 0.0f, V = 1.0f, U = 2.0f;
   for (int outer = 0; outer < 1000 &&
        (U >= fmaf(-0.0331f, X * X, 1.0f)) &&
        (xla_log(U) >= fmaf(X, 0.5f, d * ((1.0f - V) + xla_log(V))));
        ++outer) {
-    Key nkey = split_at(key, 0u);
-    Key xk = split_at(key, 1u);
-    Key uk = split_at(key, 2u);
+    K nkey = split_at(key, 0u);
+    K xk = split_at(key, 1u);
+    K uk = split_at(key, 2u);
     key = nkey;
     float x = 0.0f, v = -1.0f;
     for (int inner = 0; inner < 1000 && v <= 0.0f; ++inner) {
-      Key sub = split_at(xk, 1u);
+      K sub = split_at(xk, 1u);
       xk = split_at(xk, 0u);
       x = normal(sub, 0u);
       v = fmaf(x, c, 1.0f);

@@ -1,7 +1,9 @@
 """Carry a run's state between the JAX package and the port.
 
 The JAX package's reduce-mode state pytree, as numpy (keys as
-``jax.random.key_data``: uint32 ``(..., 2)``), becomes the port's state on
+``jax.random.key_data``: uint32 ``(..., 2)`` threefry or ``(..., 4)`` rbg
+data, int64 tensors masked to 32 bits in the port), becomes the port's
+state on
 a device, and back; the same for the accumulator.  A site-grid run's
 state also carries the six per-chain site scalars (``state["site"]``), a
 fleet run its heterogeneous columns (``state["fleet"]``: float32 transform
@@ -40,9 +42,10 @@ def state_from_numpy(tree: dict, device) -> dict:
     out = {}
     for k in KEY_LEAVES:
         a = np.asarray(tree[k])
-        if a.dtype != np.uint32 or a.shape[-1:] != (2,):
-            raise ValueError(f"{k}: expected uint32 (..., 2) key data, got "
-                             f"{a.dtype} {a.shape}")
+        if a.dtype != np.uint32 or a.shape[-1] not in (2, 4):
+            raise ValueError(f"{k}: expected uint32 (..., 2) threefry or "
+                             f"(..., 4) rbg key data, got {a.dtype} "
+                             f"{a.shape}")
         out[k] = _tensor(a, np.int64, device)
     for k in FLOAT_LEAVES:
         out[k] = _tensor(tree[k], np.float32, device)

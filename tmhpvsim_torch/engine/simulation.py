@@ -62,8 +62,15 @@ pv once per chain and folds every row's knob transform of them into a
 ``(B, n)`` accumulator (``init_scenario_acc``) and a per-block ``risk``
 FleetAcc delta of the sketch ``scenario_fleet_params``.
 
-The chain state is O(1) per chain: threefry keys, the Markov carry, the
-renewal carry, three construction-time scalars, for a grid the six site
+``prng_impl='rbg'`` keys (``(n, 4)``) draw their bits from Philox
+(K13, csrc/philox.cuh, inlined in K2 and the block step): jax draws a
+vmapped batch from its first key, so a chain's values depend on its batch
+and on the formulation's draw layout (``_draw_layout``), and the port
+reproduces each JAX formulation's own layout.
+
+The chain state is O(1) per chain: threefry (or rbg) keys, the Markov
+carry, the renewal carry, three construction-time scalars, for a grid the
+six site
 scalars and, for a fleet, its heterogeneous columns (``state["fleet"]``).
 With the block offset it is a complete checkpoint; ``engine/convert.py``
 moves it to and from the JAX package's layout.
@@ -236,7 +243,22 @@ class Simulation:
         self._w_hours = bs // 3600 + 5
         self._w_days = bs // 86400 + 3
         self._w_cd = self._w_hours + self._w_days
-        self._k_chains = rng.split(rng.key(config.seed), 2)[0]
+        if self.plan.prng_impl == "rbg":
+            # the JAX package's build-time rbg warning; a strict run
+            # refuses it, as there
+            msg = ("prng_impl='rbg': jax draws a vmapped batch of rbg "
+                   "keys from its first key, so a chain's draws depend on "
+                   "its batch and formulation, and XLA's RngBitGenerator "
+                   "is not guaranteed stable across backends; use "
+                   "threefry2x32 unless you are measuring the rbg path "
+                   "itself")
+            if config.telemetry_strict:
+                raise ValueError(msg)
+            import warnings
+
+            warnings.warn(msg, RuntimeWarning, stacklevel=2)
+        self._k_chains = rng.split(
+            rng.root_key(config.seed, self.plan.prng_impl), 2)[0]
         self._turbidity = None if grid is None else torch.tensor(
             np.asarray(grid.linke_turbidity_monthly, np.float32),
             device=self.device)
@@ -280,14 +302,17 @@ class Simulation:
     # ------------------------------------------------------------------
 
     def init_state(self):
-        """Initial chain state: per-chain keys from
+        """Initial chain state: per-chain keys (threefry ``(n, 2)`` or
+        rbg ``(n, 4)``) from
         ``split(split(key(seed))[0], n_chains_total)`` sliced at
         ``chain_offset``, the 5- and 4-way key splits, the two primer cloud
         covers, the first windspeed, the renewal carry and the
         construction-time cloudy pair; for a grid also the per-chain site
         scalars (``state["site"]``).  On the card this is K1 and K2
         launches plus elementwise torch (K2 derives the 4-way split of
-        ``k_arr`` itself, as it does every block)."""
+        ``k_arr`` itself, as it does every block); under rbg the splits
+        are K1 on each key half and the renewal uniforms K13 launches,
+        drawn as jax's vmapped init draws them (the batch's first key)."""
         cfg = self.config
         dev = self.device
         total = cfg.n_chains_total or cfg.n_chains
@@ -499,6 +524,20 @@ class Simulation:
     # the block step
     # ------------------------------------------------------------------
 
+    def _draw_layout(self) -> str:
+        """The per-second draw layout of the JAX formulation the acc and
+        series launches stand for (``clearsky_index.DRAW_LAYOUTS``; only
+        rbg keys tell them apart): a wide run is the JAX ``_block_step``
+        ('trace', as every trace launch), the nested scan with per-minute
+        draws 'scan2', every other scan run the flat scan's pre-drawn
+        streams ('scan', as the scenario engine's)."""
+        p = self.plan
+        if p.block_impl == "wide":
+            return "trace"
+        if p.block_impl == "scan2" and p.rng_batch == "scan":
+            return "scan2"
+        return "scan"
+
     def _windows(self, state, inputs: BlockInputs):
         regime = state["fleet"]["regime"] if self._het_regime else None
         return k2.sampler_windows(
@@ -566,14 +605,17 @@ class Simulation:
                 cfg.meter_max_w, tilt, albedo)
         fleet = self.fleet_leaves(state)
         ks = self.plan.kernel_impl
+        lay = self._draw_layout()
         if obs is None:
             carry, acc = k3.block_step_acc(*args, site=site, fleet=fleet,
-                                           kernels=ks, compute_dtype=self._cd)
+                                           kernels=ks, compute_dtype=self._cd,
+                                           layout=lay)
         else:
             carry, acc, out = k3.block_step_obs(*args, site=site,
                                                 fleet=fleet, obs=obs,
                                                 kernels=ks,
-                                                compute_dtype=self._cd)
+                                                compute_dtype=self._cd,
+                                                layout=lay)
             self._tel_last, self._fleet_last = out["telemetry"], \
                 out["fleet"]
         return dict(state, carry=carry, cc_carry=cc_carry), acc
@@ -591,7 +633,8 @@ class Simulation:
             tables, inputs.rows_i, inputs.rows_f, state["k_scan"],
             state["k_meter"], state["carry"], self.config.meter_max_w, tilt,
             albedo, site=site, fleet=self.fleet_leaves(state),
-            kernels=self.plan.kernel_impl, compute_dtype=self._cd)
+            kernels=self.plan.kernel_impl, compute_dtype=self._cd,
+            layout=self._draw_layout())
         return dict(state, carry=carry, cc_carry=cc_carry), m_sum, p_sum
 
     def step_trace(self, state, inputs: BlockInputs):
@@ -603,7 +646,8 @@ class Simulation:
             tables, inputs.rows_i, inputs.rows_f, state["k_scan"],
             state["k_meter"], state["carry"], self.config.meter_max_w, tilt,
             albedo, site=site, fleet=self.fleet_leaves(state),
-            kernels=self.plan.kernel_impl, compute_dtype=self._cd)
+            kernels=self.plan.kernel_impl, compute_dtype=self._cd,
+            layout="trace")
         return dict(state, carry=carry, cc_carry=cc_carry), meter, pv_
 
     # ------------------------------------------------------------------
@@ -662,7 +706,8 @@ class Simulation:
             cfg.meter_max_w, tilt, albedo, site=site,
             fleet=self.fleet_leaves(state), scen=scen,
             params=self.scenario_fleet_params(),
-            cohort=self.scenario_cohort(), kernels=self.plan.kernel_impl)
+            cohort=self.scenario_cohort(), kernels=self.plan.kernel_impl,
+            compute_dtype=self._cd)
         return dict(state, carry=carry, cc_carry=cc_carry), acc, delta
 
     # ------------------------------------------------------------------

@@ -41,7 +41,17 @@ Replaces, in tmhpvsim_tpu/engine/simulation.py:
   csi handed to ``pv.power_from_csi`` is rounded to bf16, whose chain then
   runs with the JAX graph's types (models/bf16.py); the carry, the meter
   and every accumulator stay float32 (``compute_dtype=``; its own
-  libraries csrc/block_step_bf16.cu and block_step_bf16_table.cu).
+  libraries csrc/block_step_bf16.cu and block_step_bf16_table.cu); the
+  scenario epilogue too (K12 in K10, the JAX ``ScenarioEngine`` under
+  bf16: ``_scan_block_setup``'s step in the compute dtype, :1887);
+* K13 the same step under ``prng_impl='rbg'`` (engine/simulation.py:333):
+  every draw from Philox4x32-10 (csrc/philox.cuh) at the offsets of the
+  JAX formulation it stands for (``layout=``, models/clearsky_index.py
+  ``DRAW_LAYOUTS``: the flat scan's ``scan_draws_tmajor`` :1130, the
+  nested scan's per-minute draws :1622-1636, the trace step's
+  minute-grouped draws :844-956), each batched draw from its batch's
+  first key as jax's batching rule has it; its own four libraries
+  (csrc/block_step_rbg*.cu), chosen by the keys' width.
 
 Every epilogue shares one pre-fold body: for every chain and second the
 table lerps, the renewal step (a new cycle from ``cycle_from_u`` on
@@ -90,24 +100,34 @@ _EPI_BASE = (("acc", "block_step"), ("series", "block_step_series"),
 
 def _counters(suffix: str) -> dict:
     """One launch counter per (epilogue, geometry mode, kernel set) of a
-    compute dtype, named ``{base}[_{geometry}][_{set}]{suffix}``."""
-    return {(epi, geo, ks): build.LaunchCounter(
+    compute dtype and key implementation, named
+    ``{base}[_{geometry}][_{set}]{suffix}``; the scenario epilogue counts
+    per kernel set."""
+    out = {(epi, geo, ks): build.LaunchCounter(
         base + ("" if geo == "shared" else "_" + geo)
         + ("" if ks == "exact" else "_" + ks) + suffix)
         for epi, base in _EPI_BASE for geo in GEOMS for ks in KERNEL_IMPLS}
+    for ks in KERNEL_IMPLS:
+        scen = build.LaunchCounter("block_step_scenario"
+                                   + ("" if ks == "exact" else "_" + ks)
+                                   + suffix)
+        for geo in GEOMS:
+            out["scen", geo, ks] = scen
+    return out
 
 
 #: the block-step instantiations' launch counters, by (epilogue, geometry
-#: mode, kernel set); the scenario epilogue counts per kernel set
+#: mode, kernel set)
 STEP = _counters("")
-for _ks in KERNEL_IMPLS:
-    _scen = build.LaunchCounter("block_step_scenario"
-                                + ("" if _ks == "exact" else "_" + _ks))
-    for _geo in GEOMS:
-        STEP["scen", _geo, _ks] = _scen
-#: K12's instantiations (compute_dtype 'bf16'); the scenario epilogue has
-#: none
+#: K12's instantiations (compute_dtype 'bf16'), the scenario epilogue's
+#: ("K12 in K10") included
 STEP_BF16 = _counters("_bf16")
+#: K13's instantiations (prng_impl 'rbg'), float32 and bf16
+STEP_RBG = _counters("_rbg")
+STEP_RBG_BF16 = _counters("_rbg_bf16")
+#: the counters of each (rbg keys, compute dtype)
+_STEPS = {(False, "f32"): STEP, (False, "bf16"): STEP_BF16,
+          (True, "f32"): STEP_RBG, (True, "bf16"): STEP_RBG_BF16}
 #: K3: the acc epilogue, shared site, exact set
 K3 = STEP["acc", "shared", "exact"]
 #: the values of ``compute_dtype=`` (Plan.compute_dtype)
@@ -124,8 +144,9 @@ K89 = build.LaunchCounter("block_step_tel_analytics")
 COLLAPSE = build.LaunchCounter("chainwise_collapse")
 #: every counter of this module: the instantiations in (epilogue,
 #: geometry, kernel set) order, then the rest
-COUNTERS = tuple(dict.fromkeys(STEP.values())) + tuple(
-    STEP_BF16.values()) + (K4_SUM, K7_FLEET, K8, K9, K89, COLLAPSE)
+COUNTERS = tuple(dict.fromkeys(
+    [*STEP.values(), *STEP_BF16.values(), *STEP_RBG.values(),
+     *STEP_RBG_BF16.values()])) + (K4_SUM, K7_FLEET, K8, K9, K89, COLLAPSE)
 
 #: per-second integer rows: global second, rebased hour / day / minute index
 ROWS_I = ("t", "h", "d", "m")
@@ -439,22 +460,26 @@ def fleet_transform_plain(meter, ac, fleet: FleetLeaves | None):
 
 def _body_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
                 meter_max_w, surface_tilt, albedo, site, fleet=None,
-                kernels="exact", compute_dtype="f32", bf16_draws=True):
+                kernels="exact", compute_dtype="f32", bf16_draws=True,
+                layout="scan"):
     """The pre-fold body every epilogue shares: everything carry-
     independent over the whole block at once, the renewal compare/select
     second by second, then the fleet transforms.  Returns ``(carry,
     meter, ac, csi, covered)`` with time-major ``(T, n)`` arrays (csi
     before the cap, as the telemetry reads it).  ``compute_dtype='bf16'``
     runs K12's arithmetic: u / z drawn in bf16 when ``bf16_draws`` (the
-    acc and series epilogues), the physics on bf16 geometry and csi."""
+    acc and series epilogues), the physics on bf16 geometry and csi.
+    ``layout`` is the JAX formulation's draw layout
+    (``clearsky_index.DRAW_LAYOUTS``), which only rbg keys tell apart."""
     T = rows_i.shape[1]
     g0 = int(rows_i[0, 0]) // 60
     bf = compute_dtype == "bf16"
+    lay = layout if rng.is_rbg(k_scan) else "scan"
     u, z = ci.scan_draws_tmajor(
         k_scan, g0, T // 60,
-        torch.bfloat16 if bf and bf16_draws else torch.float32)
+        torch.bfloat16 if bf and bf16_draws else torch.float32, lay)
     u, z = u.float(), z.float()
-    meter = ci.meter_block_tmajor(k_meter, g0, T // 60, meter_max_w)
+    meter = ci.meter_block_tmajor(k_meter, g0, T // 60, meter_max_w, lay)
     x = {"h": rows_i[1].long(), "d": rows_i[2].long(), "m": rows_i[3].long(),
          "hf": rows_f[0][:, None], "df": rows_f[1][:, None],
          "mf": rows_f[2][:, None], "z": z}
@@ -513,13 +538,15 @@ def block_step_plain(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
                      duration_s: int, meter_max_w: float,
                      surface_tilt, albedo, site: SiteGeometry | None = None,
                      fleet: FleetLeaves | None = None,
-                     kernels: str = "exact", compute_dtype: str = "f32"):
-    """Plain torch K3 / K6 / K6s / K12 (the ``acc`` epilogue, with K7's
-    transforms): the shared body, then the statistics fold.  Returns
+                     kernels: str = "exact", compute_dtype: str = "f32",
+                     layout: str = "scan"):
+    """Plain torch K3 / K6 / K6s / K12 / K13 (the ``acc`` epilogue, with
+    K7's transforms): the shared body, then the statistics fold.  Returns
     ``(carry, acc)``."""
     carry, meter, ac, _, _ = _body_plain(
         tables, rows_i, rows_f, k_scan, k_meter, carry, meter_max_w,
-        surface_tilt, albedo, site, fleet, kernels, compute_dtype)
+        surface_tilt, albedo, site, fleet, kernels, compute_dtype,
+        layout=layout)
     return carry, stats_fold_plain(acc, rows_i[0], duration_s, meter, ac)
 
 
@@ -529,7 +556,7 @@ def block_step_obs_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
                          site: SiteGeometry | None = None,
                          fleet: FleetLeaves | None = None,
                          obs: Observers = None, kernels: str = "exact",
-                         compute_dtype: str = "f32"):
+                         compute_dtype: str = "f32", layout: str = "scan"):
     """Plain K8 / K9: the acc epilogue with the observers' per-chain folds
     (obs/telemetry.py and obs/analytics.py ``fold_second``, zero-
     initialised for the block) beside the statistics, then their
@@ -539,7 +566,8 @@ def block_step_obs_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
     ``telemetry_chain`` / ``fleet_chain``."""
     carry, meter, ac, csi, covered = _body_plain(
         tables, rows_i, rows_f, k_scan, k_meter, carry, meter_max_w,
-        surface_tilt, albedo, site, fleet, kernels, compute_dtype)
+        surface_tilt, albedo, site, fleet, kernels, compute_dtype,
+        layout=layout)
     n, dev = ac.shape[1], ac.device
     cohorts = obs.n_cohorts if obs.n_cohorts >= 2 else 0
     st = {"ta": None if obs.telemetry == "off" else
@@ -616,8 +644,10 @@ def scenario_plain(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
                    albedo, site: SiteGeometry | None = None,
                    fleet: FleetLeaves | None = None, scen: dict = None,
                    params: flt.FleetParams = None, cohort=None,
-                   per_chain: bool = False, kernels: str = "exact"):
-    """Plain K10: the shared body (K3's step with K7's transforms), then
+                   per_chain: bool = False, kernels: str = "exact",
+                   compute_dtype: str = "f32"):
+    """Plain K10 (under bf16 K12 in K10): the shared body (K3's step with
+    K7's transforms, the flat scan's draw layout), then
     for each scenario row its transform, validity and the statistics fold
     into ``acc`` (``(B, n)`` leaves) beside a zero-initialised ``risk``
     FleetAcc (obs/analytics.py ``fold_second`` / ``reduce_chainwise``).
@@ -627,7 +657,7 @@ def scenario_plain(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
     B = _scenario_check(scen)
     carry, meter, ac, _, _ = _body_plain(
         tables, rows_i, rows_f, k_scan, k_meter, carry, meter_max_w,
-        surface_tilt, albedo, site, fleet, kernels)
+        surface_tilt, albedo, site, fleet, kernels, compute_dtype)
     n, dev = ac.shape[1], ac.device
     t_rows = rows_i[0].tolist()
     out = {k: v.clone() for k, v in acc.items()}
@@ -659,14 +689,15 @@ def series_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
                  meter_max_w: float, surface_tilt, albedo,
                  site: SiteGeometry | None = None,
                  fleet: FleetLeaves | None = None, kernels: str = "exact",
-                 compute_dtype: str = "f32"):
+                 compute_dtype: str = "f32", layout: str = "scan"):
     """Plain K4 series: the shared body, then each second's cross-chain
     sums of meter and pv (accumulated in float64, rounded once to
     float32).  Returns ``(carry, meter_sum, pv_sum)``, each ``(T,)``;
     padding seconds are summed too (the engine trims them)."""
     carry, meter, ac, _, _ = _body_plain(
         tables, rows_i, rows_f, k_scan, k_meter, carry, meter_max_w,
-        surface_tilt, albedo, site, fleet, kernels, compute_dtype)
+        surface_tilt, albedo, site, fleet, kernels, compute_dtype,
+        layout=layout)
     return (carry, meter.double().sum(1).float(),
             ac.double().sum(1).float())
 
@@ -675,13 +706,14 @@ def trace_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
                 meter_max_w: float, surface_tilt, albedo,
                 site: SiteGeometry | None = None,
                 fleet: FleetLeaves | None = None, kernels: str = "exact",
-                compute_dtype: str = "f32"):
+                compute_dtype: str = "f32", layout: str = "trace"):
     """Plain K4 trace: the shared body's every chain-second.  Returns
     ``(carry, meter, pv)`` with time-major ``(T, n)`` arrays.  Under bf16
     the u / z draws stay float32, as in the JAX ``_block_step``."""
     return _body_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
                        meter_max_w, surface_tilt, albedo, site, fleet,
-                       kernels, compute_dtype, bf16_draws=False)[:3]
+                       kernels, compute_dtype, bf16_draws=False,
+                       layout=layout)[:3]
 
 
 def cos_tilt(surface_tilt: float, kernels: str = "exact") -> float:
@@ -697,14 +729,20 @@ def cos_tilt(surface_tilt: float, kernels: str = "exact") -> float:
 
 _P = ctypes.c_void_p
 #: the arguments every block-step entry takes, before its outputs
-_COMMON = ([ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
-            ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float]
-           + [_P] * 21)
-#: the block-step library of each (kernel set, compute dtype)
-_LIBRARY = {("exact", "f32"): "block_step.cu",
-            ("table", "f32"): "block_step_table.cu",
-            ("exact", "bf16"): "block_step_bf16.cu",
-            ("table", "bf16"): "block_step_bf16_table.cu"}
+_COMMON = ([ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+            ctypes.c_float] + [_P] * 21)
+#: the block-step library of each (kernel set, compute dtype, rbg keys)
+_LIBRARY = {("exact", "f32", False): "block_step.cu",
+            ("table", "f32", False): "block_step_table.cu",
+            ("exact", "bf16", False): "block_step_bf16.cu",
+            ("table", "bf16", False): "block_step_bf16_table.cu",
+            ("exact", "f32", True): "block_step_rbg.cu",
+            ("table", "f32", True): "block_step_rbg_table.cu",
+            ("exact", "bf16", True): "block_step_rbg_bf16.cu",
+            ("table", "bf16", True): "block_step_rbg_bf16_table.cu"}
+#: the kernel's code of each draw layout (csrc/block_step.cuh ``Layout``)
+LAYOUTS = {"scan": 0, "scan2": 1, "trace": 2}
 
 
 class _Obs(ctypes.Structure):
@@ -748,9 +786,16 @@ def _geo_mode(site: SiteGeometry | None) -> str:
 
 def _common_args(tables, rows_i, rows_f, k_scan, k_meter, carry,
                  duration_s, meter_max_w, surface_tilt, albedo, site,
-                 fleet=None, kernels="exact"):
+                 fleet=None, kernels="exact", layout="scan"):
     """Validate the shared inputs and return the C arguments they fill."""
     n = k_scan.shape[0]
+    if layout not in LAYOUTS:
+        raise ValueError(f"block_step: unknown draw layout {layout!r}")
+    width = k_scan.shape[-1]
+    if k_scan.shape != (n, width) or width not in (2, 4) or \
+            k_meter.shape != (n, width):
+        raise ValueError("block_step: k_scan and k_meter must be (n, 2) "
+                         "threefry or (n, 4) rbg keys")
     T = rows_i.shape[1]
     dev = k_scan.device
     if T % 60:
@@ -798,7 +843,8 @@ def _common_args(tables, rows_i, rows_f, k_scan, k_meter, carry,
             _check(t, torch.float32, dev, "fleet leaf")
             if t.shape != (n,):
                 raise ValueError(f"block_step: fleet leaves must be ({n},)")
-    args = [GEOMS.index(geo), 1 if site is None else site.stride, n, T,
+    args = [GEOMS.index(geo), 1 if site is None else site.stride,
+            LAYOUTS[layout], n, T,
             int(duration_s), meter_max_w, ct, alb, p(rows_i), p(rows_f),
             *(p(tables[k]) for k in ("cc", "cloudy", "clear_day", "ws", "ml",
                                      "mc")),
@@ -807,18 +853,17 @@ def _common_args(tables, rows_i, rows_f, k_scan, k_meter, carry,
     return n, T, dev, args
 
 
-def _library(kernels: str, compute_dtype: str) -> str:
+def _library(kernels: str, compute_dtype: str, rbg: bool = False) -> str:
     if compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"block_step: compute_dtype {compute_dtype!r} "
                          f"must be one of {COMPUTE_DTYPES}")
-    return _LIBRARY[kernels, compute_dtype]
+    return _LIBRARY[kernels, compute_dtype, bool(rbg)]
 
 
-def _count(epi: str, site, fleet, kernels: str, compute_dtype: str = "f32"):
-    if compute_dtype == "bf16":
-        STEP_BF16[epi, _geo_mode(site), kernels].launches += 1
-    else:
-        STEP[epi, _geo_mode(site), kernels].launches += 1
+def _count(epi: str, site, fleet, kernels: str, compute_dtype: str = "f32",
+           rbg: bool = False):
+    _STEPS[bool(rbg), compute_dtype][epi, _geo_mode(site),
+                                     kernels].launches += 1
     if fleet is not None and any(t is not None for t in fleet.tensors()):
         K7_FLEET.launches += 1
 
@@ -988,18 +1033,19 @@ def _obs_outputs(obs: Observers, buf: dict, T: int) -> dict:
     return out
 
 
-_obs_size_checked = False
+_obs_size_checked: set = set()
 
 
 def _block_step_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
                      duration_s, meter_max_w, surface_tilt, albedo, site,
                      fleet=None, obs: Observers | None = None,
-                     kernels="exact", compute_dtype="f32"):
-    global _obs_size_checked
+                     kernels="exact", compute_dtype="f32", layout="scan"):
     n, T, dev, args = _common_args(tables, rows_i, rows_f, k_scan, k_meter,
                                    carry, duration_s, meter_max_w,
-                                   surface_tilt, albedo, site, fleet, kernels)
-    lib = _library(kernels, compute_dtype)
+                                   surface_tilt, albedo, site, fleet, kernels,
+                                   layout)
+    rbg = rng.is_rbg(k_scan)
+    lib = _library(kernels, compute_dtype, rbg)
     for k in ACC_F:
         _check(acc[k], torch.float32, dev, f"acc {k}")
     _check(acc["n_seconds"], torch.int32, dev, "acc n_seconds")
@@ -1009,12 +1055,12 @@ def _block_step_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
     flt_on = obs is not None and obs.analytics != "off"
     o, buf, smem = (None, {}, 0)
     if tel_on or flt_on:
-        if not _obs_size_checked:
+        if lib not in _obs_size_checked:
             size = build.entry(lib, "obs_struct_size", [])
             if size(None) != ctypes.sizeof(_Obs):
                 raise RuntimeError("block_step: the Obs layout differs "
                                    "between the kernel and its wrapper")
-            _obs_size_checked = True
+            _obs_size_checked.add(lib)
         o, buf, smem = _obs_buffers(obs, n, T, dev)
     p = build.ptr
     rc = fn(*args, *(p(carry[k]) for k in CARRY),
@@ -1022,7 +1068,7 @@ def _block_step_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
             None if o is None else ctypes.byref(o), int(tel_on),
             int(flt_on), smem, build.stream_ptr(dev))
     build.check(rc, "block_step_acc")
-    _count("acc", site, fleet, kernels, compute_dtype)
+    _count("acc", site, fleet, kernels, compute_dtype, rbg)
     if tel_on or flt_on:
         (K89 if tel_on and flt_on else K8 if tel_on else K9).launches += 1
     if o is None:
@@ -1030,18 +1076,18 @@ def _block_step_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
     return carry, acc, _obs_outputs(obs, buf, T)
 
 
-_scen_size_checked = False
+_scen_size_checked: set = set()
 
 
 def _scenario_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
                    duration_s, meter_max_w, surface_tilt, albedo, site=None,
                    fleet=None, scen=None, params=None, cohort=None,
-                   per_chain=False, kernels="exact"):
-    global _scen_size_checked
+                   per_chain=False, kernels="exact", compute_dtype="f32"):
     n, T, dev, args = _common_args(tables, rows_i, rows_f, k_scan, k_meter,
                                    carry, duration_s, meter_max_w,
                                    surface_tilt, albedo, site, fleet, kernels)
-    lib = _library(kernels, "f32")
+    rbg = rng.is_rbg(k_scan)
+    lib = _library(kernels, compute_dtype, rbg)
     B = _scenario_check(scen)
     for k in SCEN_F + SCEN_I:
         _check(scen[k], scen[k].dtype, dev, f"scen {k}")
@@ -1060,12 +1106,12 @@ def _scenario_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
     if n * T >= 2 ** 31:
         raise ValueError(f"block_step_scenario: {n} chains x {T} s passes "
                          "the int32 counts of one block")
-    if not _scen_size_checked:
+    if lib not in _scen_size_checked:
         size = build.entry(lib, "scen_struct_size", [])
         if size(None) != ctypes.sizeof(_Scen):
             raise RuntimeError("block_step_scenario: the Scen layout "
                                "differs between the kernel and its wrapper")
-        _scen_size_checked = True
+        _scen_size_checked.add(lib)
     nb, ne = params.bins + 2, len(params.thresholds) + 1
     n_ctas = (n + THREADS - 1) // THREADS
     hist_bytes = 4 * (nb + ne)
@@ -1102,7 +1148,7 @@ def _scenario_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
             *(p(acc[k]) for k in ACC_F), p(acc["n_seconds"]),
             ctypes.byref(q), smem, build.stream_ptr(dev))
     build.check(rc, "block_step_scenario")
-    _count("scen", site, fleet, kernels)
+    _count("scen", site, fleet, kernels, compute_dtype, rbg)
     L = len(SCN_KINDS)
     f = collapse_partials(buf["part"], SCN_KINDS * B).view(B, L)
     delta = {"count": f[:, 0].to(torch.int32), "res_hist": buf["res_hist"],
@@ -1120,22 +1166,24 @@ def _scenario_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
 
 def series_partials_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry,
                          meter_max_w, surface_tilt, albedo, site=None,
-                         fleet=None, kernels="exact", compute_dtype="f32"):
+                         fleet=None, kernels="exact", compute_dtype="f32",
+                         layout="scan"):
     """The series kernel's first pass on the card: ``(carry, partials)``
     with ``partials[0 | 1]`` the ``(n_ctas, T)`` per-CTA sums of meter |
     pv."""
     n, T, dev, args = _common_args(tables, rows_i, rows_f, k_scan, k_meter,
                                    carry, 0, meter_max_w, surface_tilt,
-                                   albedo, site, fleet, kernels)
+                                   albedo, site, fleet, kernels, layout)
+    rbg = rng.is_rbg(k_scan)
     n_ctas = (n + THREADS - 1) // THREADS
     part = torch.empty((2, n_ctas, T), dtype=torch.float32, device=dev)
     p = build.ptr
-    fn = build.entry(_library(kernels, compute_dtype), "block_step_series",
-                     _COMMON + [_P] * 5)
+    fn = build.entry(_library(kernels, compute_dtype, rbg),
+                     "block_step_series", _COMMON + [_P] * 5)
     rc = fn(*args, *(p(carry[k]) for k in CARRY), p(part[0]), p(part[1]),
             build.stream_ptr(dev))
     build.check(rc, "block_step_series")
-    _count("series", site, fleet, kernels, compute_dtype)
+    _count("series", site, fleet, kernels, compute_dtype, rbg)
     return carry, part
 
 
@@ -1170,29 +1218,30 @@ def series_sum(part):
 
 def _series_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry,
                  meter_max_w, surface_tilt, albedo, site, fleet=None,
-                 kernels="exact", compute_dtype="f32"):
+                 kernels="exact", compute_dtype="f32", layout="scan"):
     carry, part = series_partials_cuda(tables, rows_i, rows_f, k_scan,
                                        k_meter, carry, meter_max_w,
                                        surface_tilt, albedo, site, fleet,
-                                       kernels, compute_dtype)
+                                       kernels, compute_dtype, layout)
     out = series_sum(part)
     return carry, out[0], out[1]
 
 
 def _trace_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry,
                 meter_max_w, surface_tilt, albedo, site, fleet=None,
-                kernels="exact", compute_dtype="f32"):
+                kernels="exact", compute_dtype="f32", layout="trace"):
     n, T, dev, args = _common_args(tables, rows_i, rows_f, k_scan, k_meter,
                                    carry, 0, meter_max_w, surface_tilt,
-                                   albedo, site, fleet, kernels)
+                                   albedo, site, fleet, kernels, layout)
+    rbg = rng.is_rbg(k_scan)
     out = torch.empty((2, T, n), dtype=torch.float32, device=dev)
     p = build.ptr
-    fn = build.entry(_library(kernels, compute_dtype), "block_step_trace",
-                     _COMMON + [_P] * 5)
+    fn = build.entry(_library(kernels, compute_dtype, rbg),
+                     "block_step_trace", _COMMON + [_P] * 5)
     rc = fn(*args, *(p(carry[k]) for k in CARRY), p(out[0]), p(out[1]),
             build.stream_ptr(dev))
     build.check(rc, "block_step_trace")
-    _count("trace", site, fleet, kernels, compute_dtype)
+    _count("trace", site, fleet, kernels, compute_dtype, rbg)
     return carry, out[0], out[1]
 
 
@@ -1212,7 +1261,7 @@ def block_step_acc(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
                    duration_s: int, meter_max_w: float, surface_tilt,
                    albedo, site: SiteGeometry | None = None,
                    fleet: FleetLeaves | None = None, kernels: str = "exact",
-                   compute_dtype: str = "f32"):
+                   compute_dtype: str = "f32", layout: str = "scan"):
     """Fold one block into the accumulator; returns ``(carry, acc)``.
 
     ``tables``: value-major K2 tables; ``rows_i``/``rows_f``: the block's
@@ -1221,11 +1270,14 @@ def block_step_acc(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
     ``(n,)`` tensors (``CARRY`` float32; ``ACC_F`` float32 and int32
     ``n_seconds``); ``fleet``: K7's per-chain leaves; ``kernels``: the
     transcendental set, 'exact' or 'table' (K11); ``compute_dtype``:
-    'f32' or 'bf16' (K12)."""
+    'f32' or 'bf16' (K12); ``layout``: the draw layout of rbg keys
+    (``clearsky_index.DRAW_LAYOUTS``; threefry keys draw the same values
+    in every layout)."""
     return _dispatch(k_scan, _block_step_cuda, block_step_plain, tables,
                      rows_i, rows_f, k_scan, k_meter, carry, acc,
                      duration_s, meter_max_w, surface_tilt, albedo, site,
-                     fleet, kernels=kernels, compute_dtype=compute_dtype)
+                     fleet, kernels=kernels, compute_dtype=compute_dtype,
+                     layout=layout)
 
 
 def block_step_obs(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
@@ -1233,7 +1285,7 @@ def block_step_obs(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
                    albedo, site: SiteGeometry | None = None,
                    fleet: FleetLeaves | None = None,
                    obs: Observers = None, kernels: str = "exact",
-                   compute_dtype: str = "f32"):
+                   compute_dtype: str = "f32", layout: str = "scan"):
     """``block_step_acc`` with the reduce-mode observers (K8 telemetry, K9
     analytics) folded in the same launch: ``(carry, acc, out)``, ``out``
     as ``block_step_obs_plain`` returns it (on the card the per-block
@@ -1244,7 +1296,7 @@ def block_step_obs(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
                      rows_i, rows_f, k_scan, k_meter, carry, acc,
                      duration_s, meter_max_w, surface_tilt, albedo, site,
                      fleet=fleet, obs=obs, kernels=kernels,
-                     compute_dtype=compute_dtype)
+                     compute_dtype=compute_dtype, layout=layout)
 
 
 def block_step_scenario(tables, rows_i, rows_f, k_scan, k_meter, carry,
@@ -1253,8 +1305,10 @@ def block_step_scenario(tables, rows_i, rows_f, k_scan, k_meter, carry,
                         site: SiteGeometry | None = None,
                         fleet: FleetLeaves | None = None, scen: dict = None,
                         params: flt.FleetParams = None, cohort=None,
-                        per_chain: bool = False, kernels: str = "exact"):
-    """One scenario-batched block (K10): the step once per chain-second,
+                        per_chain: bool = False, kernels: str = "exact",
+                        compute_dtype: str = "f32"):
+    """One scenario-batched block (K10; under bf16 K12 in K10): the step
+    once per chain-second,
     then each row of ``scen`` (``(B,)`` knob tensors,
     ``serve.schema.encode_batch``) folds its own transform of it into
     ``acc`` (``(B, n)`` statistics, updated in place on the card) and
@@ -1269,14 +1323,16 @@ def block_step_scenario(tables, rows_i, rows_f, k_scan, k_meter, carry,
                      rows_f, k_scan, k_meter, carry, acc, duration_s,
                      meter_max_w, surface_tilt, albedo, site, fleet,
                      scen=scen, params=params, cohort=cohort,
-                     per_chain=per_chain, kernels=kernels)
+                     per_chain=per_chain, kernels=kernels,
+                     compute_dtype=compute_dtype)
 
 
 def block_step_series(tables, rows_i, rows_f, k_scan, k_meter, carry,
                       meter_max_w: float, surface_tilt, albedo,
                       site: SiteGeometry | None = None,
                       fleet: FleetLeaves | None = None,
-                      kernels: str = "exact", compute_dtype: str = "f32"):
+                      kernels: str = "exact", compute_dtype: str = "f32",
+                      layout: str = "scan"):
     """One ensemble block: ``(carry, meter_sum, pv_sum)``, the sums
     ``(T,)`` over chains per second.  On the card a fixed-order reduction
     (per CTA, then over CTAs in index order): a repeated run gives the
@@ -1284,19 +1340,20 @@ def block_step_series(tables, rows_i, rows_f, k_scan, k_meter, carry,
     return _dispatch(k_scan, _series_cuda, series_plain, tables, rows_i,
                      rows_f, k_scan, k_meter, carry, meter_max_w,
                      surface_tilt, albedo, site, fleet, kernels=kernels,
-                     compute_dtype=compute_dtype)
+                     compute_dtype=compute_dtype, layout=layout)
 
 
 def block_step_trace(tables, rows_i, rows_f, k_scan, k_meter, carry,
                      meter_max_w: float, surface_tilt, albedo,
                      site: SiteGeometry | None = None,
                      fleet: FleetLeaves | None = None,
-                     kernels: str = "exact", compute_dtype: str = "f32"):
+                     kernels: str = "exact", compute_dtype: str = "f32",
+                     layout: str = "trace"):
     """One trace block: ``(carry, meter, pv)``, time-major ``(T, n)``."""
     return _dispatch(k_scan, _trace_cuda, trace_plain, tables, rows_i,
                      rows_f, k_scan, k_meter, carry, meter_max_w,
                      surface_tilt, albedo, site, fleet, kernels=kernels,
-                     compute_dtype=compute_dtype)
+                     compute_dtype=compute_dtype, layout=layout)
 
 
 def geometry_fields_plain(rows_f, site: SiteGeometry,

@@ -1,12 +1,14 @@
 """Build and load the hand-written CUDA kernels (nvcc into shared libraries,
 bound with ctypes).
 
-Each source of ``SOURCES`` — ``threefry.cu`` (K1), ``windows.cu`` (K2,
-K7's regime gather), ``block_step.cu`` and ``block_step_table.cu`` (the
-block-step template of ``block_step.cuh`` for the exact and the table
-kernel set), ``block_step_bf16.cu`` and ``block_step_bf16_table.cu`` (the
-same under ``compute_dtype='bf16'``, K12), ``tables.cu`` (K11 on its own)
-and ``wide_fold.cu`` (the K4 merges) — compiles, in parallel with the
+Each source of ``SOURCES`` — ``threefry.cu`` (K1), ``philox.cu`` (K13),
+``windows.cu`` (K2, K7's regime gather, K13's window draws),
+``block_step.cu`` and ``block_step_table.cu`` (the block-step template of
+``block_step.cuh`` for the exact and the table kernel set),
+``block_step_bf16.cu`` and ``block_step_bf16_table.cu`` (the same under
+``compute_dtype='bf16'``, K12), the four ``block_step_rbg*.cu`` (the same
+four under ``prng_impl='rbg'``, K13), ``tables.cu`` (K11 on its own) and
+``wide_fold.cu`` (the K4 merges) — compiles, in parallel with the
 others, into its own shared
 library with a plain C interface, for ``sm_90a``; the headers of
 ``HEADERS`` key every library's hash.  The model
@@ -15,7 +17,9 @@ generated from the Python models as exact float32 hex literals into
 ``consts.cuh`` in the build directory, so the kernels and their plain torch
 versions read the same numbers.  Libraries are named by a hash of their
 sources and of that header and are rebuilt only when one changes; the
-build directory is ``tmhpvsim_torch/_build`` (git-ignored).
+build directory is ``tmhpvsim_torch/_build`` (git-ignored) unless
+``set_build_dir`` (the CLI's ``--compile-cache DIR``) chooses another,
+so that an installed, read-only package can build.
 
 Compile flags: ``-fmad=false`` keeps every float multiply and add rounded
 on its own, in the order the plain versions (and float32 jax) compute
@@ -35,12 +39,17 @@ import threading
 import numpy as np
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
-SOURCES = ("threefry.cu", "windows.cu", "block_step.cu",
-           "block_step_table.cu", "block_step_bf16.cu",
-           "block_step_bf16_table.cu", "tables.cu", "wide_fold.cu")
-HEADERS = ("threefry.cuh", "block_step.cuh", "tables.cuh", "fold.cuh",
-           "bf16.cuh")
+#: the default build directory, inside the package (git-ignored)
+DEFAULT_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                                 "_build")
+BUILD_DIR = DEFAULT_BUILD_DIR
+SOURCES = ("block_step.cu", "block_step_table.cu", "block_step_bf16.cu",
+           "block_step_bf16_table.cu", "block_step_rbg.cu",
+           "block_step_rbg_table.cu", "block_step_rbg_bf16.cu",
+           "block_step_rbg_bf16_table.cu", "threefry.cu", "philox.cu",
+           "windows.cu", "tables.cu", "wide_fold.cu")
+HEADERS = ("threefry.cuh", "philox.cuh", "block_step.cuh", "tables.cuh",
+           "fold.cuh", "bf16.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")
@@ -56,6 +65,16 @@ class LaunchCounter:
     def __init__(self, name: str):
         self.name = name
         self.launches = 0
+
+
+def set_build_dir(path) -> str:
+    """Build and load the kernels' libraries under ``path`` (created when
+    missing; None: the default inside the package).  Libraries already
+    loaded stay loaded.  Returns the directory now in use."""
+    global BUILD_DIR
+    BUILD_DIR = (DEFAULT_BUILD_DIR if path is None
+                 else os.path.abspath(os.path.expanduser(str(path))))
+    return BUILD_DIR
 
 
 def f32_literal(x) -> str:

@@ -13,9 +13,16 @@ draws its Markov steps from its own weather-regime table
 gathered per chain as at engine/simulation.py:800-806); the kernel holds
 the three stacked 6-bin tables in constant memory.
 
+K13 (half of it): with ``(n, 4)`` rbg keys the kernel's rbg
+instantiation draws from Philox (csrc/philox.cuh) as jax's batching rule
+has it (each batched draw from the batch's first key, the gamma draws per
+key; csrc/windows.cu); ``windows_plain`` is the same model functions on
+rbg keys.
+
 ``sampler_windows`` runs ``windows_plain`` on CPU tensors and launches the
 CUDA kernel (csrc/windows.cu) on CUDA tensors; ``K2.launches`` counts the
-launches, ``K7_REGIME.launches`` those with a regime vector.
+launches, ``K7_REGIME.launches`` those with a regime vector,
+``K2_RBG.launches`` those with rbg keys.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from tmhpvsim_torch.models import markov_hourly
 
 K2 = build.LaunchCounter("sampler_windows")
 K7_REGIME = build.LaunchCounter("sampler_windows_regime")
+K2_RBG = build.LaunchCounter("sampler_windows_rbg")
 
 #: longest hour window one kernel thread holds (csrc/windows.cu MAX_HOURS)
 MAX_HOURS = 64
@@ -132,6 +140,11 @@ def _windows_cuda(k_arr, k_min, cc_carry, cc0, b: Bounds, mh_idx, mh_frac,
     n = k_arr.shape[0]
     dev = k_arr.device
     n_min = int(mh_idx.shape[0])
+    width = k_arr.shape[-1]
+    if k_arr.shape != (n, width) or width not in (2, 4) or \
+            k_min.shape != (n, width):
+        raise ValueError("sampler_windows: k_arr and k_min must be (n, 2) "
+                         "threefry or (n, 4) rbg keys")
     args = [k_arr, k_min, cc_carry, cc0]
     dts = [torch.int64, torch.int64, torch.float32, torch.float32]
     if regime is not None:
@@ -156,7 +169,8 @@ def _windows_cuda(k_arr, k_min, cc_carry, cc0, b: Bounds, mh_idx, mh_frac,
     carry = torch.empty_like(cc_carry)
     fn = build.entry("windows.cu", "sampler_windows",
                      [ctypes.c_int64] + [ctypes.c_void_p] * 5
-                     + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 9)
+                     + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 9
+                     + [ctypes.c_int])
     p = build.ptr
     rc = fn(n, p(k_arr), p(k_min), p(cc_carry), p(cc0),
             None if regime is None else p(regime),
@@ -165,9 +179,11 @@ def _windows_cuda(k_arr, k_min, cc_carry, cc0, b: Bounds, mh_idx, mh_frac,
             p(mh_idx), p(mh_frac),
             p(tables["cc"]), p(tables["cloudy"]), p(tables["clear_day"]),
             p(tables["ws"]), p(tables["ml"]), p(tables["mc"]), p(carry),
-            build.stream_ptr(dev))
+            int(width == 4), build.stream_ptr(dev))
     build.check(rc, "sampler_windows")
     K2.launches += 1
+    if width == 4:
+        K2_RBG.launches += 1
     if regime is not None:
         K7_REGIME.launches += 1
     return tables, carry

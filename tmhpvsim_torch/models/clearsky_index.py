@@ -117,25 +117,58 @@ def minute_noise_values(k_min, cc, lo: int, feats):
     }
 
 
-def scan_draws_tmajor(keys, g0: int, n_groups: int, dtype=torch.float32):
+#: the per-second draw layouts of the JAX formulations: 'scan' the flat
+#: scan's ``scan_draws_tmajor`` (groups outside, chains inside), 'scan2'
+#: the nested scan's per-minute draws, 'trace' the wide / trace step's
+#: per-chain ``_minute_grouped_draws`` (chains outside, groups inside).
+#: threefry keys draw the same values in each; rbg keys do not (each
+#: batched draw takes its batch's first key, rng.py)
+DRAW_LAYOUTS = ("scan", "scan2", "trace")
+
+
+def _tmajor(keys, draw, g0: int, n_groups: int, layout: str):
+    """``draw(per-group keys)`` -> ``(..., 60)`` values laid out time-major
+    ``(n_groups*60, chains)``, with the key batch of ``layout``."""
+    if layout not in DRAW_LAYOUTS:
+        raise ValueError(f"draw layout must be one of {DRAW_LAYOUTS}, "
+                         f"got {layout!r}")
+    n = keys.shape[0]
+    if layout == "trace":
+        # minute_grouped_keys: (T + 119) // 60 groups, one spare
+        g = _idx(g0, n_groups + 1, keys.device)
+        v = draw(rng.fold_in(keys[:, None, :], g))[:, :n_groups]
+        return v.permute(1, 2, 0).reshape(n_groups * 60, n).contiguous()
+    if layout == "scan2":
+        v = torch.stack([draw(rng.fold_in(keys, g0 + j))
+                         for j in range(n_groups)])
+    else:
+        g = _idx(g0, n_groups, keys.device)
+        v = draw(rng.fold_in(keys[None, :, :], g[:, None]))  # (G, n, 60)
+    return v.permute(0, 2, 1).reshape(n_groups * 60, n).contiguous()
+
+
+def scan_draws_tmajor(keys, g0: int, n_groups: int, dtype=torch.float32,
+                      layout: str = "scan"):
     """Per-second (u_cycle, z_sec) streams of a minute-aligned block,
     time-major ``(n_groups*60, chains)``: second s reads slot s % 60 of
     ``fold_in(fold_in(k_scan, g0 + s//60), 0 | 1)``; ``dtype`` float32 or
-    (``compute_dtype='bf16'``) bfloat16."""
-    g = _idx(g0, n_groups, keys.device)
-    kg = rng.fold_in(keys[:, None, :], g)                   # (n, G, 2)
-    u = rng.uniform(rng.fold_in(kg, 0), (60,), dtype=dtype)  # (n, G, 60)
-    z = rng.normal(rng.fold_in(kg, 1), (60,), dtype=dtype)
-    n = keys.shape[0]
-    return (u.reshape(n, -1).T.contiguous(), z.reshape(n, -1).T.contiguous())
+    (``compute_dtype='bf16'``) bfloat16; ``layout`` one of
+    ``DRAW_LAYOUTS``."""
+    u = _tmajor(keys, lambda kg: rng.uniform(rng.fold_in(kg, 0), (60,),
+                                             dtype=dtype),
+                g0, n_groups, layout)
+    z = _tmajor(keys, lambda kg: rng.normal(rng.fold_in(kg, 1), (60,),
+                                            dtype=dtype),
+                g0, n_groups, layout)
+    return u, z
 
 
-def meter_block_tmajor(keys, g0: int, n_groups: int, max_w: float):
+def meter_block_tmajor(keys, g0: int, n_groups: int, max_w: float,
+                       layout: str = "scan"):
     """Time-major meter stream ``(n_groups*60, chains)``:
     ``max_w * uniform(fold_in(k_meter, g), (60,))``."""
-    g = _idx(g0, n_groups, keys.device)
-    u = rng.uniform(rng.fold_in(keys[:, None, :], g), (60,))
-    return max_w * u.reshape(keys.shape[0], -1).T.contiguous()
+    return max_w * _tmajor(keys, lambda kg: rng.uniform(kg, (60,)),
+                           g0, n_groups, layout)
 
 
 def value_major_tables(arrays, minute_vals):

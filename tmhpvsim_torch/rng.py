@@ -32,8 +32,23 @@ each single-use multiply feeding an add into one fused multiply-add.
 ``xla_log``, ``xla_log1p`` and ``fma`` reproduce that (read off XLA's
 generated code), so normals, gamma and t draws are bit-exact too.
 
+``prng_impl='rbg'`` keys are ``(..., 4)`` (``jax.random.key(seed,
+impl='rbg')``: ``[hi, lo, hi, lo]`` of the seed).  jax derives them with
+threefry, one hash per 2-word half (``split`` and ``fold_in`` here take
+either width), and draws their bits with XLA's ``RngBitGenerator``, which
+is Philox4x32-10 on the CPU: for key data ``[w0, w1, w2, w3]`` the 32-bit
+stream is ``philox4x32_10(counter=(w2, w3, w0, w1) + q, key=(w0, w1))``,
+four words per 128-bit counter value ``q``, in flat order; 8- and 16-bit
+draws take the low bits of the same words.  Under ``vmap`` jax draws the
+whole batch from its FIRST key (``_rng_bit_generator_batching_rule``):
+``random_bits`` of a ``(*B, 4)`` key array is the ``(*B, *shape)`` block
+of ``keys[0, ..., 0]``'s stream, the batch dims in vmap nesting order,
+outermost first.  ``gamma`` alone draws per key (jax maps it serially
+over its keys for a non-threefry impl), as ``per_key=True`` does.
+
 Every function here works on tensors of any device; the CUDA kernels in
-``tmhpvsim_torch/csrc/threefry.cuh`` implement the same arithmetic.
+``tmhpvsim_torch/csrc/threefry.cuh`` and ``philox.cuh`` implement the
+same arithmetic.
 """
 
 from __future__ import annotations
@@ -203,8 +218,37 @@ def _counter(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int64, device=like.device)
 
 
+def rbg_key(seed: int, device=None) -> torch.Tensor:
+    """The key data of ``jax.random.key(seed, impl='rbg')``: the threefry
+    key twice, ``[hi, lo, hi, lo]``."""
+    k = key(seed, device)
+    return torch.cat([k, k])
+
+
+def root_key(seed: int, prng_impl: str = "threefry2x32", device=None):
+    """The root key of a run under ``prng_impl``."""
+    if prng_impl == "rbg":
+        return rbg_key(seed, device)
+    if prng_impl != "threefry2x32":
+        raise ValueError(f"unsupported prng_impl {prng_impl!r}")
+    return key(seed, device)
+
+
+def is_rbg(keys: torch.Tensor) -> bool:
+    """Whether ``keys`` are 4-word rbg keys (else 2-word threefry)."""
+    return keys.shape[-1] == 4
+
+
+def _halves(keys: torch.Tensor) -> torch.Tensor:
+    return keys.reshape(*keys.shape[:-1], 2, 2)
+
+
 def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split``: ``(..., 2) -> (..., num, 2)``."""
+    """``jax.random.split``: ``(..., 2) -> (..., num, 2)``; rbg keys
+    ``(..., 4) -> (..., num, 4)``, each half split by threefry."""
+    if is_rbg(keys):
+        s = split(_halves(keys), num)                   # (..., 2, num, 2)
+        return s.transpose(-3, -2).reshape(*keys.shape[:-1], num, 4)
     k0 = keys[..., 0, None]
     k1 = keys[..., 1, None]
     y0, y1 = threefry2x32(k0, k1, torch.zeros_like(k0), _counter(num, keys))
@@ -214,15 +258,113 @@ def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
 def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``; ``data`` is an int or an integer tensor that
     broadcasts against ``keys[..., 0]`` (taken modulo 2**32, as jax's
-    uint32 cast does)."""
+    uint32 cast does).  rbg keys fold ``data`` into each half."""
     d = torch.as_tensor(data, dtype=torch.int64, device=keys.device) & MASK32
+    if is_rbg(keys):
+        f = fold_in(_halves(keys), d[..., None] if d.dim() else d)
+        return f.reshape(*f.shape[:-2], 4)
     y0, y1 = threefry2x32(keys[..., 0], keys[..., 1], torch.zeros_like(d), d)
     return torch.stack([y0, y1], dim=-1)
 
 
-def random_bits(keys: torch.Tensor, shape=()) -> torch.Tensor:
-    """32-bit ``jax.random.bits``: ``(..., 2) -> (..., *shape)`` int64."""
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo(m: int, x: torch.Tensor):
+    """``(hi, lo)`` 32-bit words of the 64-bit product ``m * x`` (``m`` a
+    32-bit constant, ``x`` int64-held 32-bit words), in 16-bit pieces so
+    that no int64 intermediate overflows."""
+    mid = m * (x >> 16)                     # < 2**48
+    lo = m * (x & 0xFFFF) + ((mid & 0xFFFF) << 16)
+    return (mid >> 16) + (lo >> 32), lo & MASK32
+
+
+def philox4x32_10(c0, c1, c2, c3, k0, k1):
+    """The Philox-4x32 block function, 10 rounds, on int64-held words
+    (broadcasting); returns the four output words."""
+    for r in range(10):
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        if r < 9:
+            k0 = (k0 + _PHILOX_W[0]) & MASK32
+            k1 = (k1 + _PHILOX_W[1]) & MASK32
+    return c0, c1, c2, c3
+
+
+def _philox_at(keys: torch.Tensor, q: torch.Tensor):
+    """The four words of counter value ``q`` (int64, broadcasting against
+    ``keys[..., 0]``) of rbg keys: counter ``(w2, w3, w0, w1) + q`` as one
+    128-bit add, keyed ``(w0, w1)``."""
+    w0, w1, w2, w3 = (keys[..., j] for j in range(4))
+    c0 = w2 + (q & MASK32)
+    c1 = w3 + (q >> 32) + (c0 >> 32)
+    c2 = w0 + (c1 >> 32)
+    c3 = (w1 + (c2 >> 32)) & MASK32
+    return philox4x32_10(c0 & MASK32, c1 & MASK32, c2 & MASK32, c3, w0, w1)
+
+
+def rbg_words(keys: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
+    """Word ``words`` (int64 index, broadcasting against ``keys[..., 0]``)
+    of each rbg key's 32-bit stream."""
+    out = torch.stack(_philox_at(keys, words >> 2), dim=-1)
+    return out.gather(-1, (words & 3).expand(out.shape[:-1])[..., None]
+                      )[..., 0]
+
+
+def rbg_stream(key4: torch.Tensor, count: int) -> torch.Tensor:
+    """Words ``[0, count)`` of one rbg key's stream, ``(count,)`` int64
+    (one Philox call per four words)."""
+    q = torch.arange((count + 3) // 4, dtype=torch.int64,
+                     device=key4.device)
+    return torch.stack(_philox_at(key4, q), dim=-1).reshape(-1)[:count]
+
+
+def rbg_bits_batched(keys: torch.Tensor, shape=()) -> torch.Tensor:
+    """``random_bits`` of rbg ``keys`` ``(*B, 4)`` under ``vmap`` over
+    the batch dims ``B`` (jax's batching rule): the ``(*B, *shape)``
+    block of the first key's stream."""
     shape = tuple(shape)
+    lead = keys.shape[:-1]
+    if keys.numel() == 0:
+        return torch.zeros((*lead, *shape), dtype=torch.int64,
+                           device=keys.device)
+    first = keys.reshape(-1, 4)[0]
+    return rbg_stream(first, math.prod(lead) * math.prod(shape)).reshape(
+        (*lead, *shape))
+
+
+def rbg_bits_per_key(keys: torch.Tensor, shape=()) -> torch.Tensor:
+    """Each rbg key's own draw of ``shape`` (the unbatched draw, per key,
+    as jax's serial ``lax.map`` makes it): ``(..., *shape)``."""
+    shape = tuple(shape)
+    w = torch.arange(math.prod(shape), dtype=torch.int64,
+                     device=keys.device)
+    return rbg_words(keys[..., None, :], w).reshape(
+        (*keys.shape[:-1], *shape))
+
+
+def rbg_bits(key4: torch.Tensor, shape=(), width: int = 32) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint{width})`` of one rbg key, width
+    8, 16 or 32: the low ``width`` bits of the stream's words."""
+    if width not in (8, 16, 32):
+        raise ValueError(f"width must be 8, 16 or 32, got {width}")
+    return rbg_bits_batched(key4, shape) & ((1 << width) - 1)
+
+
+def random_bits(keys: torch.Tensor, shape=(), per_key: bool = False
+                ) -> torch.Tensor:
+    """32-bit ``jax.random.bits``: ``(..., 2) -> (..., *shape)`` int64.
+
+    rbg keys ``(..., 4)`` follow jax's batching rule (the first key's
+    stream, ``rbg_bits_batched``) unless ``per_key`` (each key its own
+    stream, ``rbg_bits_per_key``); a threefry draw is per key either way.
+    """
+    shape = tuple(shape)
+    if is_rbg(keys):
+        return (rbg_bits_per_key(keys, shape) if per_key
+                else rbg_bits_batched(keys, shape))
     n = math.prod(shape)
     k0 = keys[..., 0, None]
     k1 = keys[..., 1, None]
@@ -237,7 +379,8 @@ def bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
 
 
 def uniform(keys: torch.Tensor, shape=(), minval: float = 0.0,
-            maxval: float = 1.0, dtype=_F32) -> torch.Tensor:
+            maxval: float = 1.0, dtype=_F32, per_key: bool = False
+            ) -> torch.Tensor:
     """``jax.random.uniform(key, shape, dtype, minval, maxval)``, dtype
     float32 or bfloat16.
 
@@ -245,10 +388,10 @@ def uniform(keys: torch.Tensor, shape=(), minval: float = 0.0,
     the float32 draw uses, whose upper 7 become the mantissa of a bf16 in
     [1, 2); the affine steps are bf16 operations, each rounded."""
     if dtype == torch.bfloat16:
-        return _uniform_bf16(keys, shape, minval, maxval)
+        return _uniform_bf16(keys, shape, minval, maxval, per_key)
     lo = torch.tensor(minval, dtype=_F32, device=keys.device)
     hi = torch.tensor(maxval, dtype=_F32, device=keys.device)
-    f = bits_to_unit(random_bits(keys, shape))
+    f = bits_to_unit(random_bits(keys, shape, per_key))
     return torch.maximum(lo, f * (hi - lo) + lo)
 
 
@@ -257,11 +400,11 @@ def _bf(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(_F32)
 
 
-def _uniform_bf16(keys, shape, minval, maxval):
+def _uniform_bf16(keys, shape, minval, maxval, per_key=False):
     dev = keys.device
     lo = _bf(torch.tensor(minval, dtype=_F32, device=dev))
     hi = _bf(torch.tensor(maxval, dtype=_F32, device=dev))
-    k = (random_bits(keys, shape) & 0xFF) >> 1
+    k = (random_bits(keys, shape, per_key) & 0xFF) >> 1
     f = k.to(_F32) * (1.0 / 128.0)           # (1 + k/128) - 1, exact
     r = torch.maximum(lo, _bf(_bf(f * _bf(hi - lo)) + lo))
     return r.to(torch.bfloat16)
@@ -282,14 +425,16 @@ def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 
 
-def normal(keys: torch.Tensor, shape=(), dtype=_F32) -> torch.Tensor:
+def normal(keys: torch.Tensor, shape=(), dtype=_F32, per_key: bool = False
+           ) -> torch.Tensor:
     """``jax.random.normal(key, shape, dtype)``, dtype float32 or
     bfloat16 (``sqrt 2`` and ``nextafter(-1, 0)`` in bf16, and XLA's bf16
     ``erf_inv``: the float32 one, rounded)."""
     if dtype == torch.bfloat16:
-        u = uniform(keys, shape, _NORMAL_LO_BF16, 1.0, dtype).to(_F32)
+        u = uniform(keys, shape, _NORMAL_LO_BF16, 1.0, dtype,
+                    per_key).to(_F32)
         return _bf(_SQRT2_BF16 * _bf(erfinv_f32(u))).to(torch.bfloat16)
-    u = uniform(keys, shape, _NORMAL_LO, 1.0)
+    u = uniform(keys, shape, _NORMAL_LO, 1.0, per_key=per_key)
     return _SQRT2_F32 * erfinv_f32(u)
 
 
@@ -309,6 +454,7 @@ def gamma(keys: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     (boosting ``alpha < 1`` to ``alpha + 1``) with a fresh three-way split
     per outer iteration and a two-way split per inner normal redraw.  The
     loops run on masks, so each element sees exactly its scalar loop.
+    Every draw is the key's own (jax maps rbg keys' gamma serially).
     """
     keys = split(keys, 1)[..., 0, :]
     alpha = torch.as_tensor(alpha, dtype=_F32, device=keys.device)
@@ -336,26 +482,27 @@ def gamma(keys: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
         inner = active.clone()
         while bool(inner.any()):
             k2 = split(k, 2)
-            xn = normal(k2[..., 1, :])
+            xn = normal(k2[..., 1, :], per_key=True)
             vn = fma(xn, c, 1.0)
             k = torch.where(inner[..., None], k2[..., 0, :], k)
             x = torch.where(inner, xn, x)
             v = torch.where(inner, vn, v)
             inner = inner & (v <= 0.0)
-        un = uniform(u_key)
+        un = uniform(u_key, per_key=True)
         key_ = torch.where(active[..., None], key_n, key_)
         X = torch.where(active, x * x, X)
         V = torch.where(active, (v * v) * v, V)
         U = torch.where(active, un, U)
         active = active & cond(X, V, U)
-    samples = 1.0 - uniform(subkey)
+    samples = 1.0 - uniform(subkey, per_key=True)
     boost_f = torch.where(boost, torch.ones_like(a),
                           torch.pow(samples, rdiv(1.0, alpha)))
     return (d * V) * boost_f
 
 
 def t(keys: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
-    """One ``jax.random.t(key, df, (), float32)`` draw per key."""
+    """One ``jax.random.t(key, df, (), float32)`` draw per key (rbg: the
+    normal under the batching rule, the gamma per key)."""
     ks = split(keys, 2)
     n = normal(ks[..., 0, :])
     half_df = torch.as_tensor(df, dtype=_F32, device=keys.device) / 2.0

@@ -47,7 +47,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from tmhpvsim_torch.config import SimConfig, resolve_plan
+from tmhpvsim_torch.config import SimConfig
 from tmhpvsim_torch.obs import analytics as flt
 from tmhpvsim_torch.obs import metrics as obs_metrics
 from tmhpvsim_torch.runtime.broker import make_transport
@@ -149,11 +149,6 @@ class ScenarioEngine:
             raise ValueError(f"batch sizes {batch_sizes} must be >= 1")
         cfg = dataclasses.replace(sim_config, output="reduce",
                                   serve_batch_sizes=self.buckets)
-        if resolve_plan(cfg).compute_dtype != "f32":
-            raise NotImplementedError(
-                "the scenario engine computes in float32: "
-                "compute_dtype='bf16' in K10's epilogue is still to port "
-                "(the JAX pvsim serve has no --compute-dtype either)")
         self.sim = Simulation(cfg, device=device)
         self.device = self.sim.device
         self.max_horizon_s = cfg.duration_s
