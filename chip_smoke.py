@@ -77,9 +77,17 @@ Phases (any failure exits non-zero and prints no result line):
    chains (acc in the scan, scan2 and trace layouts, series, trace, the
    site grid, bf16 acc with telemetry light; the strided table set in
    float32 and bf16; path F's fleet: its regime windows and K8+K9 at
-   level full; the scenario epilogue at 16 rows); then K12 in K10 (the
-   bf16 scenario epilogue) against its plain bf16 version at 1, 4 and 16
-   rows;
+   level full; the scenario epilogue at 16 rows); then K14
+   (``prng_impl='unsafe_rbg'``: Philox key derivations, batched as jax's
+   vmap batches them) bit for bit: K14 in K1 (init_state's unbatched and
+   batched splits at 65536 chains, per-key splits, batched and scalar
+   fold_in, init_state's keys with and without a chain slab); K2's
+   unsafe_rbg instantiation (init_state's launches, two blocks, a block
+   of path B's grid); the unsafe_rbg block step as K13's above, with the
+   bf16 acc in every layout, and the scenario epilogue at 1, 4 and 16
+   rows; then K12 in K10 (the bf16 scenario epilogue) against its plain
+   bf16 version at 1, 4 and 16 rows.  The plain scenario fold folds all
+   of a block's rows at once over a leading row axis;
 5. the paths, every launch counter set to 0 just before each and read
    just after; each must launch every kernel it needs:
    R. reduce, shared site: ``run_reduced`` at 65536 chains x 86400 s,
@@ -145,6 +153,10 @@ Phases (any failure exits non-zero and prints no result line):
    R-P. path R through the CLI with ``--prng-impl rbg``, its CSV's
       statistics checked as path R's; ``run_reduced`` under rbg timed
       against path R's in alternating pairs;
+   R-U. path R under ``prng_impl='unsafe_rbg'`` through the Python API
+      (``Simulation(SimConfig(prng_impl='unsafe_rbg')).run_reduced()``;
+      the CLI offers no unsafe_rbg, as the JAX one), checked as path R's
+      and timed against it in alternating pairs;
    S-H. path S's 32 requests served under ``compute_dtype='bf16'``, each
       reply's sums within 1 % of the field's scale of path S's; then the
       same requests at 4096 chains x two blocks against the plain bf16
@@ -157,7 +169,8 @@ Phases (any failure exits non-zero and prints no result line):
    beside it and ``part.sum(1)`` beside ``series_sum``; K12's
    instantiations that the bf16 paths launch on their noon blocks; K13's
    bits and the rbg windows and step that path R-P launches, with
-   ``torch.rand`` beside the bits as a yardstick);
+   ``torch.rand`` beside the bits as a yardstick; K14's derivations, the
+   unsafe_rbg windows and step that path R-U launches);
 7. the port on the card at the JAX suite's ``small_config`` shape against
    the JAX package's results in ``tests/data/torch_port_reference.json``:
    reduce statistics, every per-second ensemble mean, chain 0's trace
@@ -168,11 +181,14 @@ Phases (any failure exits non-zero and prints no result line):
    wide formulation: reduce statistics, the first half hour's ensemble
    means and the fleet run; and under bf16 (paths R-H's and F-H's
    configurations) the reduce statistics and the fleet run against the
-   JAX package's bf16 runs; and under rbg each formulation's reduce
-   statistics and chain 0's trace against the JAX package's rbg runs.
+   JAX package's bf16 runs; and under rbg and unsafe_rbg each
+   formulation's reduce statistics and chain 0's trace against the JAX
+   package's runs.
 
-The line before the card line is the ``{"kernels": [...]}`` record; the
-last line is ``{"ok": true, "device": {...}}``.
+Each phase prints its seconds on a line of its own (``phase NAME: S
+s``), and all of them once more as ``{"phase_s": {...}}`` after the
+run's total.  The line before the card line is the ``{"kernels":
+[...]}`` record; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -194,6 +210,7 @@ try:
     from tmhpvsim_torch.config import SimConfig, SiteGrid
     from tmhpvsim_torch.engine.simulation import BlockInputs, Simulation
     from tmhpvsim_torch.fleet import FleetParams
+    from tmhpvsim_torch.models import renewal
     from tmhpvsim_torch.models import tables as mtables
     from tmhpvsim_torch.kernels import block_step as k3
     from tmhpvsim_torch.kernels import build
@@ -480,6 +497,19 @@ def clone(tree):
 # ---------------------------------------------------------------------------
 
 
+#: each phase's seconds in this run, in the order run
+PHASE_S = {}
+
+
+def timed(name, fn, *args, **kw):
+    """Run one phase, print its seconds on a line of its own."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    PHASE_S[name] = round(time.perf_counter() - t0, 1)
+    print(f"phase {name}: {PHASE_S[name]:.1f} s", flush=True)
+    return out
+
+
 def phase_build():
     t0 = time.perf_counter()
     paths = build.build_all()
@@ -647,7 +677,7 @@ def check_blocks(cfg, dev):
         ins = sim.host_inputs(bi)
         tables, cc_carry = k2.sampler_windows(
             state["k_arr"], state["k_min"], cc_carry, state["cc0"],
-            ins.bounds, ins.mh_idx, ins.mh_frac)
+            ins.bounds, ins.mh_idx, ins.mh_frac, impl=sim.plan.prng_impl)
         out.append((ins, tables))
     return sim, state, out
 
@@ -1173,6 +1203,7 @@ def phase_k89(dev, levers=None, label="K8+K9", path=None):
                            **(levers or {})))
     sim, state, blocks = fleet_blocks(cfg, dev)
     ks, cd = sim.plan.kernel_impl, sim.plan.compute_dtype
+    impl = sim.plan.prng_impl
     _, _, site = sim.geometry_args(state)
     fleet = sim.fleet_leaves(state)
     obs = dataclasses.replace(sim.observers(state), per_chain=True)
@@ -1189,7 +1220,7 @@ def phase_k89(dev, levers=None, label="K8+K9", path=None):
         head = head_of(state, ins, tables)
         common = (cfg.duration_s, cfg.meter_max_w, None, None)
         args = dict(site=site, fleet=fleet, obs=obs, kernels=ks,
-                    compute_dtype=cd)
+                    compute_dtype=cd, impl=impl)
         _, acc_k, out_k = k3.block_step_obs(
             *head, clone(state["carry"]), sim.init_reduce_acc(), *common,
             **args)
@@ -1198,7 +1229,7 @@ def phase_k89(dev, levers=None, label="K8+K9", path=None):
             **args)
         _, acc_a = k3.block_step_acc(
             *head, clone(state["carry"]), sim.init_reduce_acc(), *common,
-            site=site, fleet=fleet, kernels=ks, compute_dtype=cd)
+            site=site, fleet=fleet, kernels=ks, compute_dtype=cd, impl=impl)
         _, _, out_p = k3.block_step_obs_plain(
             *head, clone(state["carry"]), sim.init_reduce_acc(), *common,
             **args)
@@ -1666,6 +1697,74 @@ def phase_timing(dev):
               f"(host clock, mean of {s.n_blocks}; overlapped with the card "
               "by the loops' one-block lookahead)")
     return out
+
+
+def k5_plain(sim):
+    """init_state's keys and primers from the plain versions on the
+    card: the K1 / K13 / K14 draws and derivations and K2's windows as
+    their plain torch functions compute them."""
+    cfg, dev, impl = sim.config, sim.device, sim.plan.prng_impl
+    total = cfg.n_chains_total or cfg.n_chains
+    keys = rng.split(sim._k_chains.to(dev), total, impl)[
+        cfg.chain_offset:cfg.chain_offset + cfg.n_chains]
+    s5 = rng.split(keys, 5, impl)
+    k_arr, k_min, k_renew = (s5[:, i, :].contiguous() for i in range(3))
+    ones = torch.ones(cfg.n_chains, dtype=torch.float32, device=dev)
+    no_min = (torch.zeros(0, dtype=torch.int32, device=dev),
+              torch.zeros(0, dtype=torch.float32, device=dev))
+    t1, _ = k2.windows_plain(k_arr, k_min, ones, ones,
+                             k2.Bounds(0, 2, 0, 0, 0, 0, 0, 1), *no_min,
+                             impl=impl)
+    f0 = sim._f0_hour
+    cc0 = t1["cc"][0] * (1 - f0) + t1["cc"][1] * f0
+    t2, _ = k2.windows_plain(k_arr, k_min, ones, cc0,
+                             k2.Bounds(0, 0, 2, 0, 0, 0, 0, 0), *no_min,
+                             impl=impl)
+    kr = rng.split(k_renew, 2, impl)
+    carry = renewal.init_from_u(rng.uniform(kr[:, 0, :], impl=impl),
+                                rng.uniform(kr[:, 1, :], impl=impl),
+                                t1["cc"][0], t1["ws"][0])
+    return {"cc0": cc0, "cloudy_pair": t2["cloudy"].T, "carry": carry,
+            "k_arr": k_arr, "k_min": k_min, "k_scan": s5[:, 3, :],
+            "k_meter": s5[:, 4, :]}
+
+
+def phase_timing_k5(dev):
+    """K5, ``init_state`` (engine/simulation.py:509-536 ``one`` vmapped
+    over the chains, and :546's split), on the main path at 65536 chains:
+    the state bit-identical to its plain composition on the card, its
+    launches counted, timed beside the plain composition.  Its work: per
+    chain the 5-way split and the root split's hash, K2's two primer
+    launches (a 4-way split, two Markov hours, the first windspeed's
+    gamma, two cloudy draws) and the renewal split and two uniforms."""
+    cfg = SimConfig(**HEADLINE)
+    sim = Simulation(cfg, device=dev)
+    n = cfg.n_chains
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    state = sim.init_state()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.counts().items() if v}
+    plain = k5_plain(sim)
+    torch.cuda.synchronize()
+    for k, v in plain.items():
+        if k == "carry":
+            check_same("K5 renewal carry", state[k], v)
+        elif not torch.equal(state[k], v):
+            fail(f"K5 {k} differs from its plain composition: max abs "
+                 f"{max_abs(state[k].double(), v.double())}")
+    ms = time_ms(sim.init_state)
+    plain_ms = time_ms(lambda: k5_plain(sim), reps=2)
+    hashes = 1 + 5 + (4 + 2 * 6 + 8) + (4 + 2 * 6) + 4
+    f32 = 2 * 30 + 60 + 2 * 40 + 2 * UNIFORM_F + 2 * POW_F + 12
+    nbytes = n * (4 * 8 + 7 * 4)
+    bms, by = bound(n * hashes * HASH_I, n * f32, nbytes)
+    print(f"K5 (init_state) vs its plain composition at {n} chains: every "
+          f"key and primer bit-identical; launches {launches}")
+    print(f"timing K5: init_state {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bms:.4f} ms ({by})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "launches": launches}
 
 
 def phase_timing_fleet(dev):
@@ -3719,7 +3818,17 @@ RBG_KEYS_I = 4 * RBG_KEY_I
 GAMMA_I = 8 * RBG_KEY_I + 2 * PHILOX_I
 GAMMA_F = NORMAL_F + UNIFORM_F + 2 * TRANS_F + 12
 GAMMA_BOOST_I, GAMMA_BOOST_F = PHILOX_I, POW_F + UNIFORM_F
+#: K14: an unsafe_rbg key derivation is one Philox call (a row of a
+#: draw); the step's three tile keys (chain 0's keys folded with the
+#: block's first minute, then 0 | 1, and the meter's: a Philox row each)
+#: are shared by every chain and counted once; one gamma draw: its entry
+#: row, seven splits and two draws
+URBG_KEYS_I = 3 * PHILOX_I
+URBG_GAMMA_I = 10 * PHILOX_I
 RBG = dict(prng_impl="rbg")
+URBG = dict(prng_impl="unsafe_rbg")
+#: the kernel route of each non-threefry key implementation
+K_OF = {"rbg": "K13", "unsafe_rbg": "K14"}
 #: path R-P through the entry point: path R's shape with --prng-impl rbg
 PATH_RP_ARGS = ["--output", "reduce", "--no-realtime", "--chains",
                 str(HEADLINE["n_chains"]), "--duration",
@@ -3762,31 +3871,32 @@ def phase_k13(dev):
     if K13_KEY[2] + q_end < 2 ** 32 or K13_KEY[3] != 0xFFFFFFFF:
         fail("K13's check key does not carry")
     n = HEADLINE["n_chains"]
-    keys = rng.split(rng.rbg_key(99, dev), n)
+    R = "rbg"
+    keys = rng.split(rng.rbg_key(99, dev), n, R)
     pk = k1.philox_fill("bits", keys, 60, per_key=True)
-    pp = rng.random_bits(keys, (60,), per_key=True)
+    pp = rng.random_bits(keys, (60,), per_key=True, impl=R)
     if not torch.equal(pk, pp):
         fail("K13 per-key bits differ from the plain version")
     err = max(err, max_abs(pk, pp))
-    for op, plain in (("uniform", rng.uniform(keys, ())),
-                      ("normal", rng.normal(keys, ()))):
-        got = getattr(k1, op)(keys)
+    for op, plain in (("uniform", rng.uniform(keys, (), impl=R)),
+                      ("normal", rng.normal(keys, (), impl=R))):
+        got = getattr(k1, op)(keys, impl=R)
         torch.cuda.synchronize()
         if not torch.equal(got, plain):
             fail(f"K13 batched {op} differs from the plain version")
         err = max(err, max_abs(got, plain))
     # init_state's launches on the very keys it makes them on: K1 on the
     # key halves, then the two batched renewal uniforms (K13)
-    root = rng.split(rng.rbg_key(HEADLINE["seed"], dev), 2)[0]
-    chains = k1.split(root, n)
-    s5 = k1.split(chains, 5)
-    if not (torch.equal(chains, rng.split(root, n))
-            and torch.equal(s5, rng.split(chains, 5))):
+    root = rng.split(rng.rbg_key(HEADLINE["seed"], dev), 2, R)[0]
+    chains = k1.split(root, n, R)
+    s5 = k1.split(chains, 5, R)
+    if not (torch.equal(chains, rng.split(root, n, R))
+            and torch.equal(s5, rng.split(chains, 5, R))):
         fail("K1 on rbg key halves differs from the plain split")
-    kr = k1.split(s5[:, 2, :].contiguous(), 2)
+    kr = k1.split(s5[:, 2, :].contiguous(), 2, R)
     for j in (0, 1):
         k = kr[:, j, :].contiguous()
-        got, plain = k1.uniform(k), rng.uniform(k, ())
+        got, plain = k1.uniform(k, impl=R), rng.uniform(k, (), impl=R)
         if not torch.equal(got, plain):
             fail(f"K13 init_state uniform(kr[{j}]) differs from the plain "
                  "version")
@@ -3818,11 +3928,14 @@ def phase_k13(dev):
             "torch_rand_ms": yard}
 
 
-def phase_k13_k2(dev):
-    """K2's rbg instantiation against its plain version at 65536 chains:
-    init_state's two launches and two consecutive blocks, bit for bit.
-    Returns the largest difference measured."""
-    sim = rbg_sim(SimConfig(**dict(HEADLINE, **RBG)), dev)
+def phase_k13_k2(dev, keys=RBG):
+    """K2's rbg (``keys=RBG``, K13) or unsafe_rbg (``URBG``, K14)
+    instantiation against its plain version at 65536 chains: init_state's
+    two launches and two consecutive blocks, and (K14) a block of path B's
+    site grid, bit for bit.  Returns the largest difference measured."""
+    impl = keys["prng_impl"]
+    label = f"{K_OF[impl]} in K2"
+    sim = rbg_sim(SimConfig(**dict(HEADLINE, **keys)), dev)
     state = sim.init_state()
     k_arr, k_min = state["k_arr"], state["k_min"]
     ones = torch.ones(sim.config.n_chains, dtype=torch.float32, device=dev)
@@ -3832,17 +3945,17 @@ def phase_k13_k2(dev):
     err = []
 
     def check(what, *args):
-        tk, ck = k2.sampler_windows(*args)
-        tp, cp = k2.windows_plain(*args)
+        tk, ck = k2.sampler_windows(*args, impl=impl)
+        tp, cp = k2.windows_plain(*args, impl=impl)
         torch.cuda.synchronize()
         for name in tk:
             if not torch.equal(tk[name], tp[name]):
-                fail(f"K13 in K2: table {name} differs from the plain "
+                fail(f"{label}: table {name} differs from the plain "
                      f"version in {what}: max abs "
                      f"{max_abs(tk[name], tp[name])}")
             err.append(max_abs(tk[name], tp[name]))
         if not torch.equal(ck, cp):
-            fail(f"K13 in K2: Markov carry differs in {what}")
+            fail(f"{label}: Markov carry differs in {what}")
         err.append(max_abs(ck, cp))
         return ck
 
@@ -3855,8 +3968,19 @@ def phase_k13_k2(dev):
         ins = sim.host_inputs(bi)
         cc_carry = check(f"block {bi}", k_arr, k_min, cc_carry, state["cc0"],
                          ins.bounds, ins.mh_idx, ins.mh_frac)
-    print(f"K13 in K2 vs plain at {sim.config.n_chains} chains, init_state's"
-          " 2 launches and blocks 40-41: every table and the carry "
+    site = ""
+    if impl == "unsafe_rbg":
+        sim_b = rbg_sim(SimConfig(**dict(HEADLINE, start=CHECK_START,
+                                         site_grid=grid_b(), **keys)), dev)
+        st_b = sim_b.init_state()
+        ins = sim_b.host_inputs(0)
+        check("path B's grid, block 0", st_b["k_arr"], st_b["k_min"],
+              st_b["cc_carry"], st_b["cc0"], ins.bounds, ins.mh_idx,
+              ins.mh_frac)
+        site = f" and block 0 of path B's {sim_b.config.n_chains}-site grid"
+        del sim_b, st_b
+    print(f"{label} vs plain at {sim.config.n_chains} chains, init_state's"
+          f" 2 launches and blocks 40-41{site}: every table and the carry "
           f"bit-identical (largest difference {max(err):.3g})")
     return max(err)
 
@@ -3878,16 +4002,28 @@ def rbg_acc_held(what, ak, ap):
     return same, worst
 
 
-def phase_k13_k3(dev):
-    """The block step's rbg instantiations against their plain versions at
-    65536 chains x 2 daylight blocks: acc in the scan, scan2 and trace
-    layouts (statistics within the engine tolerance, the count of
-    bit-identical ones printed; the renewal carry), the series (sums rtol
-    1e-6), the trace (meter, the Philox stream alone, bit for bit; pv at
-    the K3 tolerance), the site grid's acc, and the bf16 acc with
-    telemetry light (path R-H's instantiation under rbg) bit for bit."""
+def phase_k13_k3(dev, keys=RBG):
+    """The block step's rbg (``keys=RBG``, K13) or unsafe_rbg (``URBG``,
+    K14) instantiations against their plain versions at 65536 chains x 2
+    daylight blocks: acc in the scan, scan2 and trace layouts (the
+    renewal carry with it), the series (sums rtol 1e-6: the kernel's
+    fixed-order float32 sums against float64), the trace (meter, the
+    Philox stream alone, bit for bit; pv), the site grid's acc, and the
+    bf16 acc with telemetry light (path R-H's instantiation; under K14 in
+    each layout).  K13's float32 statistics are held within the engine
+    tolerance (the count of bit-identical ones printed), every K14 check
+    bit for bit."""
+    impl = keys["prng_impl"]
+    K, strict = K_OF[impl], impl == "unsafe_rbg"
+
+    def held(what, ak, ap):
+        if strict:
+            check_same(what, ak, ap)
+            return len(ak), 0.0
+        return rbg_acc_held(what, ak, ap)
+
     worst = 0.0
-    cfg = SimConfig(**dict(HEADLINE, start=CHECK_START, **RBG))
+    cfg = SimConfig(**dict(HEADLINE, start=CHECK_START, **keys))
     sim = rbg_sim(cfg, dev)
     state = sim.init_state()
     blocks = []
@@ -3906,46 +4042,51 @@ def phase_k13_k3(dev):
             head = head_of(state, ins, tables)
             tail = (cfg.duration_s, mw, tilt, alb)
             ck, acc_k = k3.block_step_acc(*head, ck, acc_k, *tail,
-                                          layout=layout)
+                                          layout=layout, impl=impl)
             cp, acc_p = k3.block_step_plain(*head, cp, acc_p, *tail,
-                                            layout=layout)
+                                            layout=layout, impl=impl)
         torch.cuda.synchronize()
-        same, e = rbg_acc_held(f"K13 acc ({layout} layout)", acc_k, acc_p)
+        same, e = held(f"{K} acc ({layout} layout)", acc_k, acc_p)
         worst = max(worst, e)
+        if strict:
+            check_same(f"{K} acc ({layout}) renewal carry", ck, cp)
         for name in ck:
             if not close(ck[name], cp[name], rtol=1e-5, atol=1e-3):
-                fail(f"K13 acc ({layout}) renewal carry {name} differs")
+                fail(f"{K} acc ({layout}) renewal carry {name} differs")
         report.append(f"acc {layout} layout {same}/7")
         if float(acc_k["pv_max"].max()) <= 10.0:
-            fail("K13 check blocks saw no daylight")
+            fail(f"{K} check blocks saw no daylight")
     cs, csp = clone(state["carry"]), clone(state["carry"])
     ct, ctp = clone(state["carry"]), clone(state["carry"])
     same_pv = True
     for ins, tables in blocks:
         head = head_of(state, ins, tables)
-        cs, part = k3.series_partials_cuda(*head, cs, mw, tilt, alb)
+        cs, part = k3.series_partials_cuda(*head, cs, mw, tilt, alb,
+                                           impl=impl)
         out = k3.series_sum(part)
-        csp, m_p, p_p = k3.series_plain(*head, csp, mw, tilt, alb)
-        ct, mk, pk = k3.block_step_trace(*head, ct, mw, tilt, alb)
-        ctp, mp, pp = k3.trace_plain(*head, ctp, mw, tilt, alb)
+        csp, m_p, p_p = k3.series_plain(*head, csp, mw, tilt, alb,
+                                        impl=impl)
+        ct, mk, pk = k3.block_step_trace(*head, ct, mw, tilt, alb,
+                                         impl=impl)
+        ctp, mp, pp = k3.trace_plain(*head, ctp, mw, tilt, alb, impl=impl)
         torch.cuda.synchronize()
         for what, a, b in (("meter", out[0], m_p), ("pv", out[1], p_p)):
             if not close(a, b, rtol=1e-6, atol=0.0):
-                fail(f"K13 series {what} sums differ: max abs "
+                fail(f"{K} series {what} sums differ: max abs "
                      f"{max_abs(a, b)}")
         if not torch.equal(mk, mp):
-            fail("K13 trace meter (the Philox stream in the trace layout) "
+            fail(f"{K} trace meter (the Philox stream in the trace layout) "
                  "differs from the plain version")
-        if not close(pk, pp):
-            fail(f"K13 trace pv differs: max abs {max_abs(pk, pp)}")
+        if not close(pk, pp) or (strict and not torch.equal(pk, pp)):
+            fail(f"{K} trace pv differs: max abs {max_abs(pk, pp)}")
         same_pv = same_pv and torch.equal(pk, pp)
         worst = max(worst, max_abs(pk, pp))
         del mk, pk, mp, pp
     report.append("series sums rtol 1e-6, trace meter bit-identical, pv "
                   + ("bit-identical" if same_pv else "within the tolerance"))
-    # the site grid (K6 under rbg) on one block
+    # the site grid (K6 under rbg / unsafe_rbg) on one block
     cfg_b = SimConfig(**dict(HEADLINE, start=CHECK_START, site_grid=grid_b(),
-                             **RBG))
+                             **keys))
     sim_b = rbg_sim(cfg_b, dev)
     st_b = sim_b.init_state()
     ins = sim_b.host_inputs(0)
@@ -3953,75 +4094,90 @@ def phase_k13_k3(dev):
     head = head_of(st_b, ins, tables)
     _, _, site = sim_b.geometry_args(st_b)
     tail = (cfg_b.duration_s, mw, None, None)
-    _, ak = k3.block_step_acc(*head, clone(st_b["carry"]),
-                              sim_b.init_reduce_acc(), *tail, site=site)
-    _, ap = k3.block_step_plain(*head, clone(st_b["carry"]),
-                                sim_b.init_reduce_acc(), *tail, site=site)
+    ck, ak = k3.block_step_acc(*head, clone(st_b["carry"]),
+                               sim_b.init_reduce_acc(), *tail, site=site,
+                               impl=impl)
+    cp, ap = k3.block_step_plain(*head, clone(st_b["carry"]),
+                                 sim_b.init_reduce_acc(), *tail, site=site,
+                                 impl=impl)
     torch.cuda.synchronize()
-    same, e = rbg_acc_held("K13 acc (site grid)", ak, ap)
+    same, e = held(f"{K} acc (site grid)", ak, ap)
+    if strict:
+        check_same(f"{K} acc (site grid) renewal carry", ck, cp)
     worst = max(worst, e)
     report.append(f"site-grid acc {same}/7")
     del sim_b, st_b, tables, head
-    # bf16 acc with telemetry light (R-H's instantiation under rbg)
+    # bf16 acc with telemetry light (R-H's instantiation under rbg /
+    # unsafe_rbg)
     cfg_h = SimConfig(**dict(HEADLINE, start=CHECK_START, compute_dtype="bf16",
-                             **RBG))
+                             **keys))
     sim_h = rbg_sim(cfg_h, dev)
     st_h = sim_h.init_state()
     obs = sim_h.observers(st_h)
-    ck, cp = clone(st_h["carry"]), clone(st_h["carry"])
-    acc_k, acc_p = sim_h.init_reduce_acc(), sim_h.init_reduce_acc()
+    hblocks = []
     cc_carry = st_h["cc_carry"]
     for bi in (0, 1):
         ins = sim_h.host_inputs(bi)
         tables, cc_carry = sim_h._windows(dict(st_h, cc_carry=cc_carry), ins)
-        head = head_of(st_h, ins, tables)
-        tail = (cfg_h.duration_s, mw, tilt, alb)
-        ck, acc_k, ok = k3.block_step_obs(*head, ck, acc_k, *tail, obs=obs,
-                                          compute_dtype="bf16")
-        cp, acc_p, op = k3.block_step_obs_plain(*head, cp, acc_p, *tail,
-                                                obs=obs,
-                                                compute_dtype="bf16")
-        torch.cuda.synchronize()
-        for k in acc_k:
-            if not torch.equal(acc_k[k], acc_p[k]):
-                fail(f"K13 bf16 acc {k} differs from the plain version: "
-                     f"{bf16_ulp(acc_k[k], acc_p[k])} bf16 ULP at most")
-        check_same("K13 bf16 renewal carry", ck, cp)
-        for k, v in op["telemetry"].items():
-            if not v.is_floating_point() and not torch.equal(
-                    ok["telemetry"][k], v):
-                fail(f"K13 bf16 telemetry {k} differs")
-    report.append("bf16 acc + K8 light 7/7 and the carry bit-identical")
-    print(f"K13 in the block step vs plain on 2 blocks x {cfg.n_chains} "
+        hblocks.append((ins, tables))
+    for layout in ("scan", "scan2", "trace") if strict else ("scan",):
+        ck, cp = clone(st_h["carry"]), clone(st_h["carry"])
+        acc_k, acc_p = sim_h.init_reduce_acc(), sim_h.init_reduce_acc()
+        for ins, tables in hblocks:
+            head = head_of(st_h, ins, tables)
+            tail = (cfg_h.duration_s, mw, tilt, alb)
+            kw = dict(obs=obs, compute_dtype="bf16", layout=layout,
+                      impl=impl)
+            ck, acc_k, ok = k3.block_step_obs(*head, ck, acc_k, *tail, **kw)
+            cp, acc_p, op = k3.block_step_obs_plain(*head, cp, acc_p, *tail,
+                                                    **kw)
+            torch.cuda.synchronize()
+            for k in acc_k:
+                if not torch.equal(acc_k[k], acc_p[k]):
+                    fail(f"{K} bf16 acc ({layout}) {k} differs from the "
+                         f"plain version: "
+                         f"{bf16_ulp(acc_k[k], acc_p[k])} bf16 ULP at most")
+            check_same(f"{K} bf16 ({layout}) renewal carry", ck, cp)
+            for k, v in op["telemetry"].items():
+                if not v.is_floating_point() and not torch.equal(
+                        ok["telemetry"][k], v):
+                    fail(f"{K} bf16 ({layout}) telemetry {k} differs")
+        report.append(f"bf16 acc + K8 light ({layout} layout) 7/7 and the "
+                      "carry bit-identical")
+    print(f"{K} in the block step vs plain on 2 blocks x {cfg.n_chains} "
           f"chains: " + "; ".join(report)
           + f"; largest difference {worst:.3g}")
     return worst
 
 
-def phase_k13_rest(dev):
-    """The rbg instantiations phase_k13_k3 leaves out, against their
-    plain versions at the main paths' width: the strided table set in
-    float32 and bf16 (block_step_rbg_table.cu, block_step_rbg_bf16_table
-    .cu) on path B's grid, 2 blocks of acc; path F's fleet under rbg: its
-    regime windows (K7 in K13's K2) and its acc with K8 + K9 at level
-    full (phase_k89); the scenario epilogue (K10 under rbg) at 16 rows on
-    the noon block, and its neutral row against the rbg acc launch.
-    Returns (largest difference from a plain version, the K8 + K9 sums'
-    relative difference from float64)."""
+def phase_k13_rest(dev, keys=RBG):
+    """The rbg (``keys=RBG``, K13) or unsafe_rbg (``URBG``, K14)
+    instantiations phase_k13_k3 leaves out, against their plain versions
+    at the main paths' width: the strided table set in float32 and bf16
+    (block_step_{rbg,urbg}_table.cu, block_step_{rbg,urbg}_bf16_table.cu)
+    on path B's grid, 2 blocks of acc; path F's fleet: its regime windows
+    (K7 in K2) and its acc with K8 + K9 at level full (phase_k89); the
+    scenario epilogue (K10) on the noon block at 16 rows (K14: at 1, 4
+    and 16), and its neutral row against the acc launch.  Every K14 check
+    bit for bit.  Returns (largest difference from a plain version, the
+    K8 + K9 sums' relative difference from float64)."""
     import warnings
 
+    impl = keys["prng_impl"]
+    K, strict = K_OF[impl], impl == "unsafe_rbg"
     worst, report = 0.0, []
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)
         for cd in ("f32", "bf16"):
             cfg = SimConfig(**dict(HEADLINE, start=CHECK_START,
                                    site_grid=grid_b(), compute_dtype=cd,
-                                   **LEVERS, **RBG))
+                                   **LEVERS, **keys))
             sim, state, blocks = check_blocks(cfg, dev)
             tilt, alb, site = sim.geometry_args(state)
             ck, cp = clone(state["carry"]), clone(state["carry"])
             acc_k, acc_p = sim.init_reduce_acc(), sim.init_reduce_acc()
-            kw = dict(site=site, kernels="table", compute_dtype=cd)
+            kw = dict(site=site, kernels="table", compute_dtype=cd,
+                      impl=impl)
             for ins, tables in blocks:
                 head = head_of(state, ins, tables)
                 tail = (cfg.duration_s, cfg.meter_max_w, tilt, alb)
@@ -4029,8 +4185,8 @@ def phase_k13_rest(dev):
                 cp, acc_p = k3.block_step_plain(*head, cp, acc_p, *tail,
                                                 **kw)
             torch.cuda.synchronize()
-            what = f"K13 acc (strided table set, {cd})"
-            if cd == "bf16":
+            what = f"{K} acc (strided table set, {cd})"
+            if cd == "bf16" or strict:
                 check_same(what, acc_k, acc_p)
                 check_same(f"{what} renewal carry", ck, cp)
                 same = len(acc_k)
@@ -4045,23 +4201,24 @@ def phase_k13_rest(dev):
             report.append(f"strided table set {cd} acc {same}/7")
             del sim, state, blocks
         fp = fleet_f()
-        cfg = SimConfig(**dict(HEADLINE, start=CHECK_START, fleet=fp, **RBG))
+        cfg = SimConfig(**dict(HEADLINE, start=CHECK_START, fleet=fp,
+                               **keys))
         sim = Simulation(cfg, device=dev)
         state = sim.init_state()
         ins = sim.host_inputs(0)
         regime = state["fleet"]["regime"]
         args = (state["k_arr"], state["k_min"], state["cc_carry"],
                 state["cc0"], ins.bounds, ins.mh_idx, ins.mh_frac)
-        tk, ck = k2.sampler_windows(*args, regime=regime)
-        tp, cp = k2.windows_plain(*args, regime=regime)
+        tk, ck = k2.sampler_windows(*args, regime=regime, impl=impl)
+        tp, cp = k2.windows_plain(*args, regime=regime, impl=impl)
         torch.cuda.synchronize()
-        check_same("K13 in K7's regime windows", dict(tk, carry=ck),
+        check_same(f"{K} in K7's regime windows", dict(tk, carry=ck),
                    dict(tp, carry=cp))
         report.append("the fleet's regime windows bit-identical")
         del sim, state, tk, tp
-        (rel89, _), _ = phase_k89(dev, RBG, "K8+K9 (rbg)",
-                                  path="F's fleet under rbg")
-        cfg = SimConfig(**dict(HEADLINE, **RBG))
+        (rel89, _), _ = phase_k89(dev, keys, f"K8+K9 ({impl})",
+                                  path=f"F's fleet under {impl}")
+        cfg = SimConfig(**dict(HEADLINE, **keys))
         sim = Simulation(cfg, device=dev)
         state = sim.init_state()
     ins = sim.host_inputs(K10_BLOCK)
@@ -4070,31 +4227,38 @@ def phase_k13_rest(dev):
     tail = (cfg.duration_s, cfg.meter_max_w, cfg.site.surface_tilt,
             cfg.site.albedo)
     rows = k10_rows(K10_BLOCK * cfg.block_s, cfg.duration_s)
-    scen = schema.encode_batch(rows, K10_B, device=dev)
     params = sim.scenario_fleet_params()
-    ck, ak, dk = k3.block_step_scenario(
-        *head, clone(state["carry"]), sim.init_scenario_acc(K10_B), *tail,
-        scen=scen, params=params, per_chain=True)
-    cp, ap, dp = k3.scenario_plain(
-        *head, clone(state["carry"]), sim.init_scenario_acc(K10_B), *tail,
-        scen=scen, params=params, per_chain=True)
     _, acc = k3.block_step_acc(*head, clone(state["carry"]),
-                               sim.init_reduce_acc(), *tail)
-    torch.cuda.synchronize()
-    e, same = check_scenario(f"rbg keys, {K10_B} rows", ak, dk, ap, dp)
-    worst = max(worst, e)
-    for name in ck:
-        if not close(ck[name], cp[name], rtol=1e-5, atol=1e-3):
-            fail(f"K10 (rbg keys) renewal carry {name} differs")
-    if not all(torch.equal(ak[k][0], acc[k]) for k in acc):
-        fail("K10 (rbg keys): the neutral row differs from the rbg acc "
-             "launch")
-    report.append(f"scenario at {K10_B} rows {same}/7 with every FleetAcc "
-                  "leaf bit-identical, its neutral row equal to the rbg "
-                  "acc launch")
-    print(f"K13 in the other instantiations vs plain at "
+                               sim.init_reduce_acc(), *tail, impl=impl)
+    sames = []
+    for b in (1, 4, K10_B) if strict else (K10_B,):
+        scen = schema.encode_batch(rows[:b], b, device=dev)
+        ck, ak, dk = k3.block_step_scenario(
+            *head, clone(state["carry"]), sim.init_scenario_acc(b), *tail,
+            scen=scen, params=params, per_chain=True, impl=impl)
+        cp, ap, dp = k3.scenario_plain(
+            *head, clone(state["carry"]), sim.init_scenario_acc(b), *tail,
+            scen=scen, params=params, per_chain=True, impl=impl)
+        torch.cuda.synchronize()
+        e, same = check_scenario(f"{impl} keys, {b} rows", ak, dk, ap, dp)
+        if strict:
+            check_same(f"K10 ({impl} keys, {b} rows)", ak, ap)
+            check_same(f"K10 ({impl} keys, {b} rows) renewal carry", ck, cp)
+        worst = max(worst, e)
+        sames.append(same)
+        for name in ck:
+            if not close(ck[name], cp[name], rtol=1e-5, atol=1e-3):
+                fail(f"K10 ({impl} keys) renewal carry {name} differs")
+        if not all(torch.equal(ak[k][0], acc[k]) for k in acc):
+            fail(f"K10 ({impl} keys): the neutral row differs from the "
+                 "acc launch")
+    report.append(f"scenario at {'1, 4 and ' if strict else ''}{K10_B} "
+                  f"rows {sames}/7 with every FleetAcc leaf bit-identical, "
+                  f"its neutral row equal to the {impl} acc launch")
+    print(f"{K} in the other instantiations vs plain at "
           f"{HEADLINE['n_chains']} chains or sites: " + "; ".join(report)
-          + f"; K8+K9 under rbg as above; largest difference {worst:.3g}")
+          + f"; K8+K9 under {impl} as above; largest difference "
+          f"{worst:.3g}")
     return worst, rel89
 
 
@@ -4402,11 +4566,52 @@ def rbg_windows_ops(tables, cc_carry, cc0, ins):
     return int_ops, f32_ops
 
 
-def phase_timing_k13(dev):
-    """The rbg block step (path R-P's launch) and its plain version on a
-    noon block at the main path's shape; the rbg windows (K13 in K2)."""
+def urbg_windows_ops(tables, cc_carry, cc0, ins):
+    """(int32, float32) operations K14 in K2 needs on this block's data
+    (shared site, regime 0): K13's batched words and float work, with the
+    keys every chain shares derived once (per hour chain 0's fold and
+    four rows, per window a handful: a Philox call each) and each gamma
+    draw's own key chain at one Philox call per derivation (its entry row
+    of the batched split, then seven splits and two draws of one
+    Marsaglia-Tsang round)."""
+    int_rbg, f32_ops = rbg_windows_ops(tables, cc_carry, cc0, ins)
+    kc = k2.kernel_constants()
+    dev = cc0.device
+    bins = torch.tensor(kc["MK_BINS"], device=dev)
+    is_t = torch.tensor(kc["MK_IS_T"][:6], device=dev) > 0.5
+    half_df = torch.tensor(kc["MK_DF"][:6], device=dev) / 2
+    b = ins.bounds
+    n, n_min = cc0.shape[0], int(ins.mh_idx.shape[0])
+    cc = tables["cc"]
+    prev = torch.cat([cc_carry[None], cc[:-1]])
+    idx = (bins < prev[..., None]).sum(-1).clamp(max=5)
+    t = is_t[idx]
+    t_boost = int((t & (half_df[idx] < 1.0)).sum())
+    w = max(b.n_hours, 1)
+    at = [cc[min(max(b.hour_lo + j - 1 - b.hour_lo, 0), w - 1)]
+          if b.hour_lo + j >= 2 else cc0 for j in range(b.n_cloudy)]
+    g_cl = (torch.stack(at) >= 0.75) if at else \
+        torch.zeros((0, n), dtype=torch.bool, device=dev)
+    n_t, n_gcl = int(t.sum()), int(g_cl.sum())
+    n_ws = n * b.n_days
+    words = n * b.n_hours + (n * b.n_cloudy - n_gcl) + n * (b.n_cd
+                                                            + 2 * n_min)
+    shared = 5 * b.n_hours + 12
+    int_ops = (words * PHILOX_I / 4 + shared * PHILOX_I
+               + (n_t + n_gcl + n_ws) * URBG_GAMMA_I
+               + t_boost * GAMMA_BOOST_I)
+    return int_ops, f32_ops
+
+
+def phase_timing_k13(dev, keys=RBG):
+    """The rbg (``keys=RBG``) or unsafe_rbg (``URBG``) block step (path
+    R-P's or R-U's launch) and its plain version on a noon block at the
+    main path's shape; the K2 windows under the same keys; under URBG
+    also K14 in K1 (init_state's batched 5-way split of 65536 chains)."""
+    impl = keys["prng_impl"]
+    K = K_OF[impl]
     n, T = HEADLINE["n_chains"], HEADLINE["block_s"]
-    cfg = SimConfig(**dict(HEADLINE, **RBG))
+    cfg = SimConfig(**dict(HEADLINE, **keys))
     sim = rbg_sim(cfg, dev)
     state = sim.init_state()
     ins = sim.host_inputs(40)
@@ -4415,71 +4620,182 @@ def phase_timing_k13(dev):
     tilt, alb, _ = sim.geometry_args(state)
     tail = (cfg.duration_s, cfg.meter_max_w, tilt, alb)
     a1 = (*head, clone(state["carry"]), sim.init_reduce_acc(), *tail)
-    ms = time_ms(lambda: k3.block_step_acc(*a1))
+    ms = time_ms(lambda: k3.block_step_acc(*a1, impl=impl))
     plain = time_ms(lambda: k3.block_step_plain(
-        *head, clone(state["carry"]), sim.init_reduce_acc(), *tail), reps=1)
+        *head, clone(state["carry"]), sim.init_reduce_acc(), *tail,
+        impl=impl), reps=1)
     table_bytes = sum(t.numel() * 4 for t in tables.values())
     in_b = (table_bytes + 2 * 32 + n * 4 * 3 * 2
             + ins.rows_i.numel() * 4 + ins.rows_f.numel() * 4)
-    out = {"K13S": (ms, plain, *bound(
-        n * T * (K3_SECOND_I - 2 * HASH_I + RBG_SECOND_I) + RBG_KEYS_I,
+    keys_i = RBG_KEYS_I if impl == "rbg" else URBG_KEYS_I
+    out = {f"{K}S": (ms, plain, *bound(
+        n * T * (K3_SECOND_I - 2 * HASH_I + RBG_SECOND_I) + keys_i,
         n * T * (K3_SECOND_F + NORMAL_F + UNIFORM_F + 1),
         in_b + n * 4 * 7 * 2))}
     args = (state["k_arr"], state["k_min"], state["cc_carry"], state["cc0"],
             ins.bounds, ins.mh_idx, ins.mh_frac)
-    ms = time_ms(lambda: k2.sampler_windows(*args))
-    plain = time_ms(lambda: k2.windows_plain(*args), reps=1)
-    int_ops, f32_ops = rbg_windows_ops(tables, state["cc_carry"],
-                                       state["cc0"], ins)
+    ms = time_ms(lambda: k2.sampler_windows(*args, impl=impl))
+    plain = time_ms(lambda: k2.windows_plain(*args, impl=impl), reps=1)
+    ops = rbg_windows_ops if impl == "rbg" else urbg_windows_ops
+    int_ops, f32_ops = ops(tables, state["cc_carry"], state["cc0"], ins)
     b = ins.bounds
     n_min = int(ins.mh_idx.shape[0])
     # outputs, the carry and cc0 in float32, the two keys as 4 uint32
     out_b = n * 4 * (b.n_hours + b.n_cloudy + b.n_cd + b.n_days
                      + 2 * n_min + 1)
-    out["K13W"] = (ms, plain, *bound(int_ops, f32_ops,
-                                     out_b + n * 4 * 2 + n * 16 * 2))
+    out[f"{K}W"] = (ms, plain, *bound(int_ops, f32_ops,
+                                      out_b + n * 4 * 2 + n * 16 * 2))
+    if impl == "unsafe_rbg":
+        # K14 in K1: init_state's batched 5-way split of the chains' keys
+        chains = k1.split(rng.split(rng.root_key(7, impl, dev), 2, impl)[0],
+                          n, impl)
+        ms = time_ms(lambda: k1.split(chains, 5, impl))
+        plain = time_ms(lambda: rng.split(chains, 5, impl), reps=2)
+        out["K14D"] = (ms, plain, *bound(5 * n * PHILOX_I, 0,
+                                         16 + n * 5 * 16))
     for name, (ms, plain, bms, by) in out.items():
         print(f"timing {name}: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
               f"bound {bms:.4f} ms ({by})")
     return out
 
 
-def phase_reference_rbg(dev):
-    """The ``rbg`` section of the reference file: each formulation's reduce
-    statistics at ``small_config`` under rbg (the draws of the scan, scan2
-    and wide formulations differ, as in the JAX package) and chain 0's
-    trace over the first hour, against the JAX package's on the CPU."""
+def phase_reference_rbg(dev, keys=RBG):
+    """The ``rbg`` (``keys=RBG``) or ``unsafe_rbg`` (``URBG``) section of
+    the reference file: each formulation's reduce statistics at
+    ``small_config`` under those keys (the draws of the scan, scan2 and
+    wide formulations differ, as in the JAX package) and chain 0's trace
+    over the section's first seconds, against the JAX package's on the
+    CPU."""
+    impl = keys["prng_impl"]
     path = os.path.join(HERE, "tests", "data", "torch_port_reference.json")
     with open(path) as f:
-        ref = json.load(f)["rbg"]
+        ref = json.load(f)[impl]
     if ref["config"] != SMALL:
-        fail(f"reference rbg config {ref['config']} != {SMALL}")
+        fail(f"reference {impl} config {ref['config']} != {SMALL}")
     worst = {}
-    for name, (impl, rb) in ref["forms"].items():
-        got = rbg_sim(SimConfig(**dict(SMALL, block_impl=impl, rng_batch=rb,
-                                       **RBG)), dev).run_reduced()
+    for name, (form, rb) in ref["forms"].items():
+        got = rbg_sim(SimConfig(**dict(SMALL, block_impl=form, rng_batch=rb,
+                                       **keys)), dev).run_reduced()
         for k, w in ref["reduced"][name].items():
             w = np.asarray(w)
             if k == "n_seconds":
                 if not np.array_equal(got[k], w):
-                    fail(f"reference rbg {name}: n_seconds differs")
+                    fail(f"reference {impl} {name}: n_seconds differs")
                 continue
             if not np.allclose(got[k], w, rtol=TOL[0], atol=TOL[1]):
-                fail(f"reference rbg {name}: {k} differs from the JAX "
+                fail(f"reference {impl} {name}: {k} differs from the JAX "
                      "package")
             worst[f"{name} {k}"] = float(np.max(np.abs(got[k] - w)
                                                 / np.maximum(np.abs(w), 1.0)))
-    blocks = list(rbg_sim(SimConfig(**dict(SMALL, **RBG)),
+    blocks = list(rbg_sim(SimConfig(**dict(SMALL, **keys)),
                           dev).run_blocks())
     tr = ref["trace"]
     for k in ("meter", "pv"):
         have = getattr(blocks[0], k)[tr["chain"], :len(tr[k])]
         if not np.allclose(have, tr[k], rtol=TOL[0], atol=TOL[1]):
-            fail(f"reference rbg trace {k} differs from the JAX package")
-    print("reference (rbg): small_config on the card matches the JAX "
-          "package's rbg runs, scan / scan2 / scan2 with rng_batch block / "
-          "wide and chain 0's trace; largest relative error "
-          f"{max(worst.values()):.3g}")
+            fail(f"reference {impl} trace {k} differs from the JAX package")
+    print(f"reference ({impl}): small_config on the card matches the JAX "
+          f"package's {impl} runs, scan / scan2 / scan2 with rng_batch "
+          f"block / wide and chain 0's first {len(tr['meter'])} s of "
+          f"trace; largest relative error {max(worst.values()):.3g}")
+
+
+def phase_k14(dev):
+    """K14 in K1 (philox_derive) against the plain unsafe_rbg derivations
+    at 65536 chains, bit for bit: init_state's unbatched
+    split(k_chains, n), the batched 5-way split of the chains' keys, the
+    renewal split, a per-key split, a batched fold_in over the chains and
+    a scalar one; the renewal uniforms (K13) on those keys; and the keys
+    of init_state itself (with a chain slab, whose batched splits start
+    at the slab's first key) against the plain functions on the card."""
+    U = "unsafe_rbg"
+    n = HEADLINE["n_chains"]
+    root = rng.split(rng.root_key(HEADLINE["seed"], U, dev), 2, U)[0]
+    chains = k1.split(root, n, U)
+    checks = [("split(k_chains, n)", chains, rng.split(root, n, U))]
+    s5 = k1.split(chains, 5, U)
+    checks.append(("split(chains, 5)", s5, rng.split(chains, 5, U)))
+    k_renew = s5[:, 2, :].contiguous()
+    kr = k1.split(k_renew, 2, U)
+    checks.append(("split(k_renew, 2)", kr, rng.split(k_renew, 2, U)))
+    checks.append(("per-key split(chains, 3)",
+                   k1.split(chains, 3, U, per_key=True),
+                   rng.split(chains, 3, U, per_key=True)))
+    d = torch.arange(n, dtype=torch.int64, device=dev) + 1000
+    checks.append(("batched fold_in(chains, 1000 + c)",
+                   k1.fold_in(chains, d, U), rng.fold_in(chains, d, U)))
+    checks.append(("fold_in(chains, 7)", k1.fold_in(chains, 7, U),
+                   rng.fold_in(chains, 7, U)))
+    for j in (0, 1):
+        k = kr[:, j, :].contiguous()
+        checks.append((f"uniform(kr[{j}]) (K13)", k1.uniform(k, impl=U),
+                       rng.uniform(k, (), impl=U)))
+    for slab in (dict(), dict(n_chains=n // 2, n_chains_total=n,
+                             chain_offset=n // 4)):
+        sim = rbg_sim(SimConfig(**dict(HEADLINE, **slab, **URBG)), dev)
+        st = sim.init_state()
+        cfg = sim.config
+        total = cfg.n_chains_total or cfg.n_chains
+        ks = rng.split(rng.split(rng.root_key(cfg.seed, U, dev), 2, U)[0],
+                       total, U)[cfg.chain_offset:cfg.chain_offset
+                                 + cfg.n_chains]
+        p5 = rng.split(ks, 5, U)
+        for i, name in enumerate(("k_arr", "k_min", "k_renew", "k_scan",
+                                  "k_meter")):
+            if name != "k_renew":
+                checks.append((f"init_state {name} {slab or ''}", st[name],
+                               p5[:, i, :]))
+    torch.cuda.synchronize()
+    err = 0.0
+    for what, a, b in checks:
+        if not torch.equal(a, b):
+            fail(f"K14 in K1: {what} differs from the plain version: "
+                 f"{int((a != b).sum())} of {a.numel()} words")
+        err = max(err, max_abs(a.double(), b.double()))
+    print(f"K14 in K1 vs plain at {n} chains: {len(checks)} derivations "
+          "and draws bit-identical (init_state's splits, per-key and "
+          "batched split and fold_in, the renewal uniforms, init_state's "
+          "keys with and without a chain slab)")
+    return err
+
+
+def phase_path_ru(dev, reduced_r, wall_r):
+    """Path R-U: path R's shape under prng_impl='unsafe_rbg' through the
+    Python API (``Simulation(SimConfig(prng_impl='unsafe_rbg'))
+    .run_reduced()``; the JAX CLI offers no unsafe_rbg, so neither does
+    the port's), its statistics checked as check_reduced does; then
+    run_reduced under unsafe_rbg and path R's, timed in alternating pairs
+    in this call."""
+    sim = rbg_sim(SimConfig(**dict(HEADLINE, **URBG)), dev)
+    reduced, wall, launches = run_path(
+        "R-U", ("philox_derive", "philox_fill", "sampler_windows_urbg",
+                "block_step_urbg"), sim.run_reduced)
+    pv_max = check_reduced("R-U", reduced, HEADLINE["duration_s"])
+    diff = {k: float(np.mean(reduced[k]) / max(abs(float(np.mean(
+        reduced_r[k]))), 1.0)) for k in ("pv_sum", "meter_sum")}
+    walls = {"R": [], "R-U": []}
+    for pair in range(3):
+        for name in (("R", "R-U") if pair % 2 == 0 else ("R-U", "R")):
+            cfg = SimConfig(**dict(HEADLINE, **(URBG if name == "R-U"
+                                                else {})))
+            s = rbg_sim(cfg, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.run_reduced()
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+    n = HEADLINE["n_chains"]
+    print(f"path R-U (Simulation(SimConfig(prng_impl='unsafe_rbg'))"
+          f".run_reduced(), {n} chains x {HEADLINE['duration_s']} s): "
+          f"{wall:.3f} s wall; fleet pv_max {pv_max:.2f} W; all chains "
+          f"n_seconds={HEADLINE['duration_s']}; mean pv_sum / meter_sum "
+          f"relative to path R's {json.dumps(diff)}; launches {launches}")
+    print("paths R and R-U (run_reduced), same call, 3 alternating pairs: "
+          + "; ".join(f"{k} median {np.median(v):.4f} s ("
+                      + ", ".join(f"{w:.4f}" for w in v) + ")"
+                      for k, v in walls.items())
+          + f" (path R's own run {wall_r:.4f} s)")
+    return launches, walls
 
 
 def main() -> int:
@@ -4488,44 +4804,49 @@ def main() -> int:
              "CUDA card")
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
-    phase_build()
+    timed("build", phase_build)
     smi = smi_line()
     print(f"card: {smi}")
-    err1 = phase_k1(dev)
-    err2 = phase_k2(dev)
-    err3 = phase_k3(dev)
-    err_s, err_r = phase_k4_series(dev)
-    err_t = phase_k4_trace(dev)
-    err6 = phase_k6(dev)
-    err7r, err7t = phase_k7(dev)
-    err8 = phase_k8(dev)
-    err9 = phase_k9(dev)
-    err89, err_c = phase_k89(dev)
-    k10 = phase_k10(dev)
-    err10f = phase_k10_fleet(dev)
-    k11_fn, err11 = phase_k11(dev)
-    err6s = phase_k6s(dev)
-    err89l, _ = phase_k89(dev, LEVERS, "K8+K9 (F-L)")
-    phase_reference_levers(dev)
-    err4mf, err4mo, err4ms = phase_k4m(dev)
-    phase_wide_fused(dev)
-    err12 = phase_k12(dev)
-    k13 = phase_k13(dev)
-    err13w = phase_k13_k2(dev)
-    err13 = phase_k13_k3(dev)
-    err13r, rel13r = phase_k13_rest(dev)
-    k12s = phase_k12_k10(dev)
+    err1 = timed("k1", phase_k1, dev)
+    err2 = timed("k2", phase_k2, dev)
+    err3 = timed("k3", phase_k3, dev)
+    err_s, err_r = timed("k4_series", phase_k4_series, dev)
+    err_t = timed("k4_trace", phase_k4_trace, dev)
+    err6 = timed("k6", phase_k6, dev)
+    err7r, err7t = timed("k7", phase_k7, dev)
+    err8 = timed("k8", phase_k8, dev)
+    err9 = timed("k9", phase_k9, dev)
+    err89, err_c = timed("k89", phase_k89, dev)
+    k10 = timed("k10", phase_k10, dev)
+    err10f = timed("k10_fleet", phase_k10_fleet, dev)
+    k11_fn, err11 = timed("k11", phase_k11, dev)
+    err6s = timed("k6s", phase_k6s, dev)
+    err89l, _ = timed("k89_fl", phase_k89, dev, LEVERS, "K8+K9 (F-L)")
+    timed("reference_levers", phase_reference_levers, dev)
+    err4mf, err4mo, err4ms = timed("k4m", phase_k4m, dev)
+    timed("wide_fused", phase_wide_fused, dev)
+    err12 = timed("k12", phase_k12, dev)
+    k13 = timed("k13", phase_k13, dev)
+    err14d = timed("k14", phase_k14, dev)
+    err13w = timed("k13_k2", phase_k13_k2, dev)
+    err14w = timed("k14_k2", phase_k13_k2, dev, URBG)
+    err13 = timed("k13_k3", phase_k13_k3, dev)
+    err14 = timed("k14_k3", phase_k13_k3, dev, URBG)
+    err13r, rel13r = timed("k13_rest", phase_k13_rest, dev)
+    err14r, rel14r = timed("k14_rest", phase_k13_rest, dev, URBG)
+    k12s = timed("k12_k10", phase_k12_k10, dev)
     torch.cuda.empty_cache()
-    _, launch_r, reduced_r, wall_r = phase_path_r(dev)
-    launch_a, means_a = phase_path_a(dev)
-    launch_b = phase_path_b(dev)
-    launch_c = phase_path_c(dev)
-    phase_path_d()
-    launch_f, reduced_f = phase_path_f(dev)
-    phase_path_g()
-    launch_h = phase_path_h(dev)
-    replies_s, launch_s = phase_path_s("S", "window", dev)
-    replies_c, launch_sc = phase_path_s("S-c", "continuous", dev)
+    _, launch_r, reduced_r, wall_r = timed("path_r", phase_path_r, dev)
+    launch_a, means_a = timed("path_a", phase_path_a, dev)
+    launch_b = timed("path_b", phase_path_b, dev)
+    launch_c = timed("path_c", phase_path_c, dev)
+    timed("path_d", phase_path_d)
+    launch_f, reduced_f = timed("path_f", phase_path_f, dev)
+    timed("path_g", phase_path_g)
+    launch_h = timed("path_h", phase_path_h, dev)
+    replies_s, launch_s = timed("path_s", phase_path_s, "S", "window", dev)
+    replies_c, launch_sc = timed("path_sc", phase_path_s, "S-c",
+                                 "continuous", dev)
     if replies_c != replies_s:
         bad = sorted(r for r in replies_s if replies_c.get(r) !=
                      replies_s[r])
@@ -4534,40 +4855,45 @@ def main() -> int:
           f"(block_step_scenario launches: S "
           f"{launch_s['block_step_scenario']}, S-c "
           f"{launch_sc['block_step_scenario']})")
-    launch_rt, ens_rt = phase_path_rt(dev)
-    launch_bl, ens_bl = phase_path_bl(dev)
-    launch_fl, ens_fl = phase_path_fl(dev)
-    launch_gl = phase_path_gl()
+    launch_rt, ens_rt = timed("path_rt", phase_path_rt, dev)
+    launch_bl, ens_bl = timed("path_bl", phase_path_bl, dev)
+    launch_fl, ens_fl = timed("path_fl", phase_path_fl, dev)
+    launch_gl = timed("path_gl", phase_path_gl)
     print(f"the levers' fleet aggregates (R-T, B-L, F-L): "
           f"{json.dumps([ens_rt, ens_bl, ens_fl])}")
     torch.cuda.empty_cache()
-    launch_rw = phase_path_rw(dev, reduced_r)
-    launch_aw = phase_path_aw(dev, means_a)
-    launch_fw = phase_path_fw(dev, reduced_f)
-    phase_path_rk(dev, reduced_r, wall_r)
-    phase_path_gw()
+    launch_rw = timed("path_rw", phase_path_rw, dev, reduced_r)
+    launch_aw = timed("path_aw", phase_path_aw, dev, means_a)
+    launch_fw = timed("path_fw", phase_path_fw, dev, reduced_f)
+    timed("path_rk", phase_path_rk, dev, reduced_r, wall_r)
+    timed("path_gw", phase_path_gw)
     torch.cuda.empty_cache()
-    launch_rh, reduced_rh = phase_path_rh(dev, reduced_r)
-    phase_path_rhw(dev, reduced_rh)
-    launch_ah = phase_path_ah(dev)
-    launch_bh = phase_path_bh(dev)
-    launch_bhl = phase_path_bh(dev, "B-HL", LEVERS)
-    launch_fh = phase_path_fh(dev)
-    launch_ch = phase_path_ch(dev)
-    launch_gh = phase_path_gh()
+    launch_rh, reduced_rh = timed("path_rh", phase_path_rh, dev, reduced_r)
+    timed("path_rhw", phase_path_rhw, dev, reduced_rh)
+    launch_ah = timed("path_ah", phase_path_ah, dev)
+    launch_bh = timed("path_bh", phase_path_bh, dev)
+    launch_bhl = timed("path_bhl", phase_path_bh, dev, "B-HL", LEVERS)
+    launch_fh = timed("path_fh", phase_path_fh, dev)
+    launch_ch = timed("path_ch", phase_path_ch, dev)
+    launch_gh = timed("path_gh", phase_path_gh)
     torch.cuda.empty_cache()
-    launch_rp, _ = phase_path_rp(dev, reduced_r, wall_r)
-    launch_sh = phase_path_sh(dev, replies_s)
+    launch_rp, _ = timed("path_rp", phase_path_rp, dev, reduced_r, wall_r)
+    launch_ru, walls_ru = timed("path_ru", phase_path_ru, dev, reduced_r,
+                                wall_r)
+    launch_sh = timed("path_sh", phase_path_sh, dev, replies_s)
     torch.cuda.empty_cache()
-    timing = phase_timing(dev)
-    timing.update(phase_timing_fleet(dev))
-    timing.update(phase_timing_levers(dev))
-    timing_wide, lib_sum = phase_timing_wide(dev)
-    timing_k12 = phase_timing_k12(dev)
-    timing_k13 = phase_timing_k13(dev)
-    phase_reference(dev)
-    phase_reference_bf16(dev)
-    phase_reference_rbg(dev)
+    timing = timed("timing", phase_timing, dev)
+    timing.update(timed("timing_fleet", phase_timing_fleet, dev))
+    timing.update(timed("timing_levers", phase_timing_levers, dev))
+    timing_wide, lib_sum = timed("timing_wide", phase_timing_wide, dev)
+    timing_k12 = timed("timing_k12", phase_timing_k12, dev)
+    timing_k5 = timed("timing_k5", phase_timing_k5, dev)
+    timing_k13 = timed("timing_k13", phase_timing_k13, dev)
+    timing_k14 = timed("timing_k14", phase_timing_k13, dev, URBG)
+    timed("reference", phase_reference, dev)
+    timed("reference_bf16", phase_reference_bf16, dev)
+    timed("reference_rbg", phase_reference_rbg, dev)
+    timed("reference_urbg", phase_reference_rbg, dev, URBG)
     sim_py = "tmhpvsim_tpu/engine/simulation.py"
     src = "tmhpvsim_torch/csrc/block_step.cuh"
     rows_of = {
@@ -4731,8 +5057,35 @@ def main() -> int:
                  "ms_4_rows": k12s["ms"][4], "plain_ms": k12s["plain_ms"],
                  "bound_ms": k12s["bound_ms"], "bound_by": k12s["bound_by"],
                  "library_ms": None})
+    # K14: the derivations launch (timed on init_state's batched 5-way
+    # split of 65536 chains), the unsafe_rbg windows and block step; their
+    # launches on path R-U
+    ms, plain, bms, by = timing_k14["K14D"]
+    rows.append({"name": "philox_derive", "route": "cuda",
+                 "source": "tmhpvsim_torch/csrc/philox.cu",
+                 "replaces": f"{sim_py}:510",
+                 "launches": launch_ru["philox_derive"], "path": "R-U",
+                 "max_abs_err": err14d, "ms": ms, "plain_ms": plain,
+                 "bound_ms": bms, "bound_by": by, "library_ms": None})
+    for key, name, source, replaces, err in (
+            ("K14W", "sampler_windows_urbg",
+             "tmhpvsim_torch/csrc/windows.cu", f"{sim_py}:798", err14w),
+            ("K14S", "block_step_urbg",
+             "tmhpvsim_torch/csrc/block_step_urbg.cu", f"{sim_py}:1130",
+             err14)):
+        ms, plain, bms, by = timing_k14[key]
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launch_ru[name],
+                     "path": "R-U", "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                     "library_ms": None})
+    rows[-1].update(max_abs_err_other_instantiations=err14r,
+                    max_rel_err_k89_urbg=rel14r,
+                    r_u_median_s=float(np.median(walls_ru["R-U"])),
+                    r_median_s=float(np.median(walls_ru["R"])))
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"phase_s": PHASE_S}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

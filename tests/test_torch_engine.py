@@ -208,7 +208,8 @@ def test_reference_file_tracks_jax(jax_scan, jax_ensemble, jax_trace,
     under ``compute_dtype='bf16'`` the reduce statistics with the drift
     sentinel's report, and the fleet run (section ``bf16``); it is written
     when missing and must equal what the JAX package computes (its ``rbg``
-    section is tests/test_torch_rbg.py's)."""
+    section is tests/test_torch_rbg.py's, its ``unsafe_rbg`` section
+    tests/test_torch_urbg.py's)."""
     jw = jax_wide_runs
     jb = jax_bf16_runs
     doc = {
@@ -253,7 +254,8 @@ def test_reference_file_tracks_jax(jax_scan, jax_ensemble, jax_trace,
             json.dump(doc, f, separators=(",", ":"))
     assert os.path.getsize(REF) < 300_000
     with open(REF) as f:
-        held = {k: v for k, v in json.load(f).items() if k != "rbg"}
+        held = {k: v for k, v in json.load(f).items()
+                if k not in ("rbg", "unsafe_rbg")}
     assert held == json.loads(json.dumps(doc))
 
 
@@ -296,12 +298,12 @@ def test_grid_state_converts(jax_grid):
     """The site leaves ride the state both ways, equal to the JAX
     package's."""
     js = _jax_state_numpy(jax_grid[0].state)
-    tstate = convert.state_from_numpy(js, "cpu")
+    tstate = convert.state_from_numpy(js, "cpu", "threefry2x32")
     fresh = _port_sim(site_grid=tcfg.SiteGrid.regular(*GRID)).init_state()
     for k in convert.SITE_FIELDS:
         assert torch.equal(tstate["site"][k], fresh["site"][k]), k
-        assert np.array_equal(convert.state_to_numpy(tstate)["site"][k],
-                              js["site"][k]), k
+        back = convert.state_to_numpy(tstate, "threefry2x32")
+        assert np.array_equal(back["site"][k], js["site"][k]), k
 
 
 def test_identical_grid_matches_shared_site():
@@ -374,8 +376,8 @@ def test_jax_state_continues_in_port(jax_scan):
                               sim.init_reduce_acc())
     state_np = _jax_state_numpy(state)
     acc_np = {k: np.asarray(v) for k, v in acc.items()}
-    tstate = convert.state_from_numpy(state_np, "cpu")
-    back = convert.state_to_numpy(tstate)
+    tstate = convert.state_from_numpy(state_np, "cpu", "threefry2x32")
+    back = convert.state_to_numpy(tstate, "threefry2x32")
     for k in convert.KEY_LEAVES + convert.FLOAT_LEAVES:
         assert np.array_equal(back[k], state_np[k])
     tacc = convert.acc_from_numpy(acc_np, "cpu")
@@ -571,11 +573,11 @@ def test_fleet_state_converts(jax_fleet, port_fleet):
     assert set(js["fleet"]) == {"demand_scale", "demand_shift_w",
                                 "pv_scale", "ac_limit_w", "regime",
                                 "cohort"}
-    tstate = convert.state_from_numpy(js, "cpu")
+    tstate = convert.state_from_numpy(js, "cpu", "threefry2x32")
     fresh = port_fleet[0].init_state()
     for k, v in js["fleet"].items():
         assert torch.equal(tstate["fleet"][k], fresh["fleet"][k]), k
-        back = convert.state_to_numpy(tstate)["fleet"][k]
+        back = convert.state_to_numpy(tstate, "threefry2x32")["fleet"][k]
         assert back.dtype == v.dtype and np.array_equal(back, v), k
 
 

@@ -846,10 +846,12 @@ def test_k13_matches_plain_on_card(card):
                        device=card)
     assert torch.equal(k1.philox_fill("bits", key[None], 1 << 12)[0],
                        rng.rbg_stream(key, 1 << 12))
-    keys = rng.split(rng.rbg_key(3, card), 512)
+    keys = rng.split(rng.rbg_key(3, card), 512, "rbg")
     assert torch.equal(k1.philox_fill("bits", keys, 8, per_key=True),
-                       rng.random_bits(keys, (8,), per_key=True))
-    assert torch.equal(k1.uniform(keys), rng.uniform(keys, ()))
+                       rng.random_bits(keys, (8,), per_key=True,
+                                       impl="rbg"))
+    assert torch.equal(k1.uniform(keys, impl="rbg"),
+                       rng.uniform(keys, (), impl="rbg"))
     cfg = SimConfig(start="2019-09-05 11:00:00", duration_s=2160,
                     n_chains=512, block_s=1080, prng_impl="rbg")
     with pytest.warns(RuntimeWarning, match="rbg"):
@@ -858,8 +860,8 @@ def test_k13_matches_plain_on_card(card):
     ins = sim.host_inputs(0)
     args = (state["k_arr"], state["k_min"], state["cc_carry"], state["cc0"],
             ins.bounds, ins.mh_idx, ins.mh_frac)
-    tk, ck = k2.sampler_windows(*args)
-    tp, cp = k2.windows_plain(*args)
+    tk, ck = k2.sampler_windows(*args, impl="rbg")
+    tp, cp = k2.windows_plain(*args, impl="rbg")
     assert all(torch.equal(tk[k], tp[k]) for k in tk) and torch.equal(ck, cp)
     head = (tk, ins.rows_i, ins.rows_f, state["k_scan"], state["k_meter"])
     tail = (cfg.duration_s, cfg.meter_max_w, cfg.site.surface_tilt,
@@ -867,8 +869,48 @@ def test_k13_matches_plain_on_card(card):
     for layout in ("scan", "scan2", "trace"):
         _, ak = k3.block_step_acc(
             *head, {k: v.clone() for k, v in state["carry"].items()},
-            sim.init_reduce_acc(), *tail, layout=layout)
+            sim.init_reduce_acc(), *tail, layout=layout, impl="rbg")
         _, ap = k3.block_step_plain(
             *head, {k: v.clone() for k, v in state["carry"].items()},
-            sim.init_reduce_acc(), *tail, layout=layout)
+            sim.init_reduce_acc(), *tail, layout=layout, impl="rbg")
+        assert all(torch.equal(ak[k], ap[k]) for k in ak), layout
+
+
+@pytest.mark.cuda
+def test_k14_matches_plain_on_card(card):
+    """K14: unsafe_rbg's Philox key derivations on the card (init_state's
+    unbatched and batched splits, a batched fold_in), and the unsafe_rbg
+    windows and block step in each draw layout, bit for bit against their
+    plain versions."""
+    from tmhpvsim_torch import rng
+    from tmhpvsim_torch.kernels import threefry as k1
+
+    U = "unsafe_rbg"
+    root = rng.split(rng.root_key(3, U, card), 2, U)[0]
+    keys = k1.split(root, 512, U)
+    assert torch.equal(keys, rng.split(root, 512, U))
+    assert torch.equal(k1.split(keys, 5, U), rng.split(keys, 5, U))
+    d = torch.arange(512, device=card) + 40
+    assert torch.equal(k1.fold_in(keys, d, U), rng.fold_in(keys, d, U))
+    cfg = SimConfig(start="2019-09-05 11:00:00", duration_s=2160,
+                    n_chains=512, block_s=1080, prng_impl=U)
+    with pytest.warns(RuntimeWarning, match=U):
+        sim = Simulation(cfg, device=card)
+    state = sim.init_state()
+    ins = sim.host_inputs(0)
+    args = (state["k_arr"], state["k_min"], state["cc_carry"], state["cc0"],
+            ins.bounds, ins.mh_idx, ins.mh_frac)
+    tk, ck = k2.sampler_windows(*args, impl=U)
+    tp, cp = k2.windows_plain(*args, impl=U)
+    assert all(torch.equal(tk[k], tp[k]) for k in tk) and torch.equal(ck, cp)
+    head = (tk, ins.rows_i, ins.rows_f, state["k_scan"], state["k_meter"])
+    tail = (cfg.duration_s, cfg.meter_max_w, cfg.site.surface_tilt,
+            cfg.site.albedo)
+    for layout in ("scan", "scan2", "trace"):
+        _, ak = k3.block_step_acc(
+            *head, {k: v.clone() for k, v in state["carry"].items()},
+            sim.init_reduce_acc(), *tail, layout=layout, impl=U)
+        _, ap = k3.block_step_plain(
+            *head, {k: v.clone() for k, v in state["carry"].items()},
+            sim.init_reduce_acc(), *tail, layout=layout, impl=U)
         assert all(torch.equal(ak[k], ap[k]) for k in ak), layout

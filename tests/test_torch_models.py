@@ -99,7 +99,7 @@ def test_config_fields_and_defaults_match(cls):
 
 @pytest.mark.parametrize("field,value", [
     ("site_grid", object()), ("fleet", object()), ("trace", "t.json"),
-    ("phase_obs", "on"), ("prng_impl", "unsafe_rbg"), ("prng_impl", "philox"),
+    ("phase_obs", "on"), ("prng_impl", "philox"),
     ("output", "nonsense"), ("dtype", "bfloat16"), ("tune", "auto"),
     ("mesh_scenario", 2), ("pod_obs", "on"), ("checkpoint_async", "on"),
 ])
@@ -108,13 +108,24 @@ def test_config_outside_slice_raises(field, value):
         tcfg.SimConfig(**{field: value})
 
 
+@pytest.mark.parametrize("impl", ["threefry2x32", "rbg", "unsafe_rbg"])
+def test_config_prng_impls_inside_slice(impl):
+    """Every key implementation the JAX SimConfig takes is in the slice,
+    and the plan echoes it."""
+    cfg = tcfg.SimConfig(prng_impl=impl)
+    assert cfg.prng_impl == impl
+    assert tcfg.resolve_plan(cfg).prng_impl == impl
+
+
 def test_refusal_names_what_is_still_to_port():
     assert tcfg.SimConfig(prng_impl="rbg").prng_impl == "rbg"
+    assert tcfg.SimConfig(prng_impl="unsafe_rbg").prng_impl == "unsafe_rbg"
     with pytest.raises(NotImplementedError) as e:
-        tcfg.SimConfig(prng_impl="unsafe_rbg")
+        tcfg.SimConfig(prng_impl="philox")
     msg = str(e.value)
-    assert "prng_impl='unsafe_rbg' is still to port" in msg \
-        and "float32 or bf16" in msg and "threefry2x32 or rbg" in msg \
+    assert "prng_impl='philox'" in msg and "still to port" not in msg \
+        and "float32 or bf16" in msg \
+        and "threefry2x32, rbg or unsafe_rbg" in msg \
         and "exact kernels" not in msg
 
 

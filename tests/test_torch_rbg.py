@@ -50,6 +50,7 @@ from tmhpvsim_tpu.models import markov_hourly as jmh
 from tmhpvsim_tpu.models import renewal as jren
 
 F32 = jnp.float32
+R = "rbg"
 #: key data with counters that carry: w2 into w3, w3 into w0
 KEY_DATA = ([11, 22, 33, 44], [0, 7, 0, 7], [5, 6, 0xFFFFFFFE, 9],
             [1, 2, 0xFFFFFFFE, 0xFFFFFFFF], [5, 6, 0xFFFFFFFF, 0xFFFFFFFF])
@@ -123,14 +124,14 @@ def test_rbg_key_from_seed(seed):
 def test_split_and_fold_in_exact(x32, data):
     k = _jkey(data)
     t = torch.tensor(data, dtype=torch.int64)
-    assert torch.equal(_kd(jax.random.split(k, 5)), rng.split(t, 5))
+    assert torch.equal(_kd(jax.random.split(k, 5)), rng.split(t, 5, R))
     for d in (0, 1, 123456, 2 ** 32 - 1):
-        assert torch.equal(_kd(jax.random.fold_in(k, d)), rng.fold_in(t, d))
+        assert torch.equal(_kd(jax.random.fold_in(k, d)), rng.fold_in(t, d, R))
     ks = jax.random.split(k, 4)
     idx = jnp.arange(6)
     want = jax.vmap(lambda kk: jax.vmap(
         lambda i: jax.random.fold_in(kk, i))(idx))(ks)
-    got = rng.fold_in(_kd(ks)[:, None, :], torch.arange(6))
+    got = rng.fold_in(_kd(ks)[:, None, :], torch.arange(6), R)
     assert torch.equal(_kd(want), got)
 
 
@@ -146,9 +147,10 @@ def test_batched_draw_takes_the_first_key(x32):
                         for k in jk])
     assert np.array_equal(want[0], per_key[0])
     assert not np.array_equal(want[1:], per_key[1:])
-    assert np.array_equal(want, rng.random_bits(tk, (5,)).numpy())
+    assert np.array_equal(want, rng.random_bits(tk, (5,), impl=R).numpy())
     assert np.array_equal(per_key,
-                          rng.random_bits(tk, (5,), per_key=True).numpy())
+                          rng.random_bits(tk, (5,), per_key=True,
+                                           impl=R).numpy())
 
 
 def test_two_vmap_levels(x32):
@@ -158,7 +160,7 @@ def test_two_vmap_levels(x32):
     ks2 = jax.vmap(lambda k: jax.random.split(k, 4))(jk)       # (3, 4)
     want = jax.vmap(jax.vmap(
         lambda k: jax.random.bits(k, (6,), jnp.uint32)))(ks2)
-    got = rng.random_bits(_kd(ks2), (6,))
+    got = rng.random_bits(_kd(ks2), (6,), impl=R)
     assert np.array_equal(np.asarray(want).astype(np.int64), got.numpy())
 
 
@@ -173,20 +175,20 @@ def test_draws_exact(x32, kind):
                                                            torch.float32)
         want = jax.vmap(jax.vmap(lambda k: getattr(jax.random, name)(
             k, (4,), jd)))(ks2)
-        got = getattr(rng, name)(_kd(ks2), (4,), dtype=td)
+        got = getattr(rng, name)(_kd(ks2), (4,), dtype=td, impl=R)
         assert np.array_equal(np.asarray(want).astype(np.float32),
                               got.float().numpy())
     elif kind == "gamma":
         for a in (2.69, 5.0, 3.5624):
             want = jax.vmap(lambda k: jax.random.gamma(
                 k, np.float32(a), (), F32))(jk)
-            got = rng.gamma(tk, torch.tensor(a, dtype=torch.float32))
+            got = rng.gamma(tk, torch.tensor(a, dtype=torch.float32), R)
             assert np.array_equal(np.asarray(want), got.numpy())
     else:
         df = np.float32(11.150488007085713)
         want = jax.vmap(lambda k: jax.random.t(k, df, (), F32))(jk)
         assert np.array_equal(np.asarray(want),
-                              rng.t(tk, torch.tensor(df)).numpy())
+                              rng.t(tk, torch.tensor(df), R).numpy())
 
 
 # --------------------------------------------------------------------------
@@ -200,7 +202,8 @@ def test_markov_chain_window(x32, seed):
     state = jnp.linspace(0.1, 0.9, 5, dtype=F32)
     want, wfin = jax.vmap(lambda k, s: jmh.chain_window(k, 40, 6, s))(
         jk, state)
-    got, gfin = tmh.chain_window(tk, 40, 6, torch.tensor(np.asarray(state)))
+    got, gfin = tmh.chain_window(tk, 40, 6, torch.tensor(np.asarray(state)),
+                                 impl=R)
     assert np.array_equal(np.asarray(want), got.numpy())
     assert np.array_equal(np.asarray(wfin), gfin.numpy())
 
@@ -214,19 +217,19 @@ def test_window_functions(x32):
     want = jax.vmap(lambda k, c, c0: jci.cloudy_window(k, 3, 7, c, 3, c0))(
         jk, cc, cc0)
     got = tci.cloudy_window(tk, 3, 7, torch.tensor(np.asarray(cc)),
-                            3, torch.tensor(np.asarray(cc0)))
+                            3, torch.tensor(np.asarray(cc0)), R)
     assert np.array_equal(np.asarray(want), got.numpy())
     want = jax.vmap(lambda k: jci.clear_day_window(k, 12, 9))(jk)
     assert np.array_equal(np.asarray(want),
-                          tci.clear_day_window(tk, 12, 9).numpy())
+                          tci.clear_day_window(tk, 12, 9, R).numpy())
     want = jax.vmap(lambda k: jci.ws_window(k, 2, 3))(jk)
-    assert np.array_equal(np.asarray(want), tci.ws_window(tk, 2, 3).numpy())
+    assert np.array_equal(np.asarray(want), tci.ws_window(tk, 2, 3, R).numpy())
     h_idx = np.arange(10, dtype=np.int32) // 4
     h_frac = np.linspace(0, 0.9, 10).astype(np.float32)
     want = jax.vmap(lambda k, c: jci.minute_noise_values_device(
         k, c, 600, (jnp.asarray(h_idx), jnp.asarray(h_frac))))(jk, cc)
     got = tci.minute_noise_values(tk, torch.tensor(np.asarray(cc)), 600, (
-        torch.tensor(h_idx).long(), torch.tensor(h_frac)))
+        torch.tensor(h_idx).long(), torch.tensor(h_frac)), R)
     for k in want:
         assert np.array_equal(np.asarray(want[k]), got[k].numpy()), k
 
@@ -239,13 +242,13 @@ def test_renewal_init(x32):
     for j in (0, 1):
         want = jax.vmap(lambda k: jax.random.uniform(
             jax.random.split(k)[j], (), F32))(jk)
-        got = rng.uniform(rng.split(tk, 2)[:, j, :], ())
+        got = rng.uniform(rng.split(tk, 2, R)[:, j, :], (), impl=R)
         assert np.array_equal(np.asarray(want), got.numpy())
     cc = jnp.linspace(0.1, 0.9, 6, dtype=F32)
     ws = jnp.linspace(1.0, 6.0, 6, dtype=F32)
     want = jax.vmap(lambda k, c, w: jren.init(k, c, w, F32))(jk, cc, ws)
     got = tren.init(tk, torch.tensor(np.asarray(cc)),
-                    torch.tensor(np.asarray(ws)))
+                    torch.tensor(np.asarray(ws)), R)
     for k in want:
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
                                    rtol=2e-6, err_msg=k)
@@ -293,7 +296,7 @@ def test_block_draw_layouts(x32, layout, dtype):
     jd, td = (F32, torch.float32) if dtype == "f32" else (jnp.bfloat16,
                                                            torch.bfloat16)
     ju, jz = _jax_layout(layout, jk, 21, 3, jd, meter=False)
-    tu, tz = tci.scan_draws_tmajor(tk, 21, 3, td, layout)
+    tu, tz = tci.scan_draws_tmajor(tk, 21, 3, td, layout, R)
     assert np.array_equal(np.asarray(ju).astype(np.float32),
                           tu.float().numpy())
     assert np.array_equal(np.asarray(jz).astype(np.float32),
@@ -301,14 +304,14 @@ def test_block_draw_layouts(x32, layout, dtype):
     jm = _jax_layout(layout, jk, 21, 3, F32, meter=True)
     assert np.array_equal(np.asarray(jm),
                           tci.meter_block_tmajor(tk, 21, 3, 1.0,
-                                                 layout).numpy())
+                                                 layout, R).numpy())
 
 
 def test_layouts_differ_under_rbg_not_threefry():
     """Finding 3 in the port: the three layouts give three streams under
     rbg and one under threefry."""
     _, tk = _keys(13, 5)
-    draws = [tci.scan_draws_tmajor(tk, 21, 3, layout=lay)[0]
+    draws = [tci.scan_draws_tmajor(tk, 21, 3, layout=lay, impl=R)[0]
              for lay in tci.DRAW_LAYOUTS]
     assert not torch.equal(draws[0], draws[1])
     assert not torch.equal(draws[0], draws[2])
@@ -399,13 +402,13 @@ def test_init_state_matches_jax():
     want = {k: np.asarray(jax.random.key_data(v) if k.startswith("k_")
                           else v) if k != "carry" else v
             for k, v in js.init_state().items()}
-    got = convert.state_to_numpy(ts.init_state())
+    got = convert.state_to_numpy(ts.init_state(), R)
     for k in convert.KEY_LEAVES:
         assert got[k].shape == (3, 4)
         assert np.array_equal(got[k], want[k]), k
     for k in convert.FLOAT_LEAVES:
         np.testing.assert_allclose(got[k], want[k], rtol=2e-6, err_msg=k)
-    back = convert.state_from_numpy(got, "cpu")
+    back = convert.state_from_numpy(got, "cpu", R)
     assert back["k_scan"].shape == (3, 4)
     assert torch.equal(back["k_scan"], ts.init_state()["k_scan"])
 

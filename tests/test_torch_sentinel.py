@@ -168,9 +168,10 @@ def test_doctored_bias_trips_strict_sentinel(monkeypatch):
 
 def test_refusals_name_what_is_still_to_port():
     """What the port once refused now runs: a bf16 scenario engine builds
-    (K12 in K10) and an rbg config is accepted; a strict rbg run raises
-    as the JAX package's does (engine/simulation.py:296-301);
-    'unsafe_rbg' stays refused by name."""
+    (K12 in K10) and rbg and unsafe_rbg configs are accepted; a strict
+    rbg or unsafe_rbg run raises as the JAX package's does
+    (engine/simulation.py:296-301); an unknown key implementation
+    ('philox') stays refused by name."""
     from tmhpvsim_torch.serve.server import ScenarioEngine
     from tmhpvsim_tpu import config as jcfg
     from tmhpvsim_tpu.engine import Simulation as JSim
@@ -185,8 +186,16 @@ def test_refusals_name_what_is_still_to_port():
         TSim(tcfg.SimConfig(**strict), device="cpu")
     assert "prng_impl='rbg'" in str(want.value) \
         and "prng_impl='rbg'" in str(got.value)
-    with pytest.raises(NotImplementedError, match="unsafe_rbg"):
-        tcfg.SimConfig(prng_impl="unsafe_rbg")
+    ustrict = dict(prng_impl="unsafe_rbg", telemetry_strict=True)
+    with pytest.raises(ValueError, match="unsafe_rbg") as want:
+        JSim(jcfg.SimConfig(**ustrict))
+    with pytest.raises(ValueError, match="unsafe_rbg") as got:
+        TSim(tcfg.SimConfig(**ustrict), device="cpu")
+    assert "prng_impl='unsafe_rbg'" in str(want.value) \
+        and "prng_impl='unsafe_rbg'" in str(got.value)
+    assert tcfg.SimConfig(prng_impl="unsafe_rbg").prng_impl == "unsafe_rbg"
+    with pytest.raises(NotImplementedError, match="philox"):
+        tcfg.SimConfig(prng_impl="philox")
 
 
 def test_cli_bf16_strict_run_report(tmp_path):

@@ -292,7 +292,8 @@ def test_scenario_step_matches_jax(slack):
     jacc = js.init_scenario_acc(4)
     for bi in range(js.n_blocks):
         np_state = _jax_state_numpy(jstate)
-        tstate = convert.state_from_numpy(np_state, "cpu")
+        tstate = convert.state_from_numpy(np_state, "cpu",
+                                          ts.plan.prng_impl)
         tacc = convert.acc_from_numpy(
             {k: np.asarray(v) for k, v in jacc.items()}, "cpu")
         jstate, jacc, jdelta = js.scenario_step(
@@ -304,7 +305,7 @@ def test_scenario_step_matches_jax(slack):
                     {k: np.asarray(v) for k, v in jacc.items()})
         _same_delta(convert.fleet_delta_to_numpy(tdelta),
                     {k: np.asarray(v) for k, v in jdelta.items()}, slack)
-        got = convert.state_to_numpy(tstate)
+        got = convert.state_to_numpy(tstate, ts.plan.prng_impl)
         want = _jax_state_numpy(jstate)
         for k in convert.KEY_LEAVES:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)

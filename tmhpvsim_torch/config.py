@@ -201,7 +201,7 @@ class ModelOptions:
 _SLICE_VALUES = {
     "output": ("trace", "reduce", "ensemble"),
     "output_overlap": ("auto", "off"),
-    "prng_impl": ("threefry2x32", "rbg"),
+    "prng_impl": ("threefry2x32", "rbg", "unsafe_rbg"),
 }
 
 #: fields whose every value belongs to the slice (``telemetry``,
@@ -324,10 +324,9 @@ class SimConfig:
                 raise NotImplementedError(
                     f"SimConfig.{f.name}={value!r} is outside the torch "
                     "port's slice: it computes in float32 or bf16 with "
-                    "threefry2x32 or rbg keys (prng_impl='unsafe_rbg' is "
-                    "still to port) under the static plan, with no "
-                    "autotuner, mesh, pod or phase observers, profiler "
-                    "trace or checkpoint options")
+                    "threefry2x32, rbg or unsafe_rbg keys under the static "
+                    "plan, with no autotuner, mesh, pod or phase "
+                    "observers, profiler trace or checkpoint options")
         if self.block_s % 60 != 0:
             raise ValueError("block_s must be a multiple of 60 (minute grid)")
 
@@ -356,7 +355,8 @@ class Plan:
     implementation: under 'rbg' each batched draw takes its batch's first
     key (tmhpvsim_torch/rng.py), so the formulation and ``rng_batch``
     choose which values a chain draws (``clearsky_index.DRAW_LAYOUTS``),
-    as they do in the JAX package.
+    as they do in the JAX package; under 'unsafe_rbg' the key derivations
+    are batched draws as well.
 
     'auto' resolves as the JAX package resolves it on an accelerator,
     whatever the device: ``block_impl`` 'scan', ``stats_fusion`` 'fused',

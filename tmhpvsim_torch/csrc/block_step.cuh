@@ -112,6 +112,17 @@
 // (two threefry hashes per half and key) and draws z and the meter four
 // words per Philox call; u only on a redraw.
 //
+// K14 (URBG; prng_impl='unsafe_rbg').  K13's draws at K13's offsets, but
+// the tile's keys come from unsafe_rbg's fold_in (philox.cuh UKey: the key
+// XOR a Philox row of the datum's seed, jax/_src/prng.py
+// _unsafe_rbg_fold_in).  The fold over the block's minutes is a batched
+// datum in the scan and trace layouts (the first minute's seed, its row
+// 10 p + 9 for minute p); the batch's first key is chain 0's at minute 0
+// of the block, so the key is fold_in(k0, g0) in those layouts and
+// fold_in(k0, g0 + g) in scan2, then fold_in(., 0 | 1), as in K13.  One
+// thread of each CTA derives the tile's three keys (three Philox calls)
+// into shared memory for all its chains.
+//
 // Epilogues.  acc folds in second order, chain by chain, as the scan adds.
 // series reduces each second's meter and pv over the CTA's chains in a
 // fixed order (a warp xor-butterfly, then the 4 warps in index order) into
@@ -199,9 +210,10 @@ enum Epilogue { ACC = 0, SERIES = 1, TRACE = 2, SCEN = 3 };
 // compute dtypes (Plan.compute_dtype)
 struct F32 {};
 struct BF16 {};
-// the key implementation: threefry2x32 (K1) or rbg (K13)
+// the key implementation: threefry2x32 (K1), rbg (K13) or unsafe_rbg (K14)
 struct TF {};
 struct RBG {};
+struct URBG {};
 
 // scenario: per-(scenario, chain) risk leaves kept between tiles (int,
 // float), and the per-(CTA, scenario) partial row
@@ -289,7 +301,7 @@ struct Scen {
 struct Args {
   int64_t n;
   int T, duration_s, stride;
-  int layout;  // RBG: the draw layout (0 scan, 1 scan2, 2 trace)
+  int layout;  // RBG, URBG: the draw layout (0 scan, 1 scan2, 2 trace)
   float meter_max_w, cos_tilt, albedo;
   const int* rows_i;
   const float* rows_f;
@@ -735,7 +747,9 @@ struct ScnRow {
 
 template <class KS, class CD, class RG, int EPI, int GEO, bool TEL, bool FLT>
 __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
-  constexpr bool RB = std::is_same<RG, RBG>::value;
+  // K13 and K14 draw alike; K14 derives the tile's keys its own way
+  constexpr bool UR = std::is_same<RG, URBG>::value;
+  constexpr bool RB = std::is_same<RG, RBG>::value || UR;
   constexpr bool PER_CHAIN = GEO != SHARED;  // geometry per chain
   // K12: bf16 physics; bf16 u / z draws but in the trace epilogue
   constexpr bool BF = std::is_same<CD, BF16>::value;
@@ -758,6 +772,8 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
   __shared__ float s_cval[FLT ? 5 : 1][FLT ? THREADS : 1];
   // K12: the 128 bf16 normals
   __shared__ float s_z[BF_DRAWS ? 128 : 1];
+  // K14: the tile's u, z and meter keys
+  __shared__ ph::Key4 s_rk[UR ? 3 : 1];
   extern __shared__ int s_dyn[];
   // scenario: the tile's meter and pv ([s][thread]), then its histograms
   float* const stage_m = reinterpret_cast<float*>(s_dyn);
@@ -883,6 +899,16 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
         time_terms<KS>(samp[k], a.rows_f, T, base / stride + k, a.turb,
                        SAMP_DAY2000);
     }
+    if constexpr (UR) {  // K14: the tile's keys, once per CTA
+      if (threadIdx.x == THREADS - 1) {
+        const uint32_t gk =
+            a.layout == 1 ? (uint32_t)(a.rows_i[base] / 60) : g_first;
+        const ph::UKey kb = ph::fold_in(ph::load_ukey(a.k_scan, 0), gk);
+        s_rk[0] = ph::as_rbg(ph::fold_in(kb, 0u));
+        s_rk[1] = ph::as_rbg(ph::fold_in(kb, 1u));
+        s_rk[2] = ph::as_rbg(ph::fold_in(ph::load_ukey(a.k_meter, 0), gk));
+      }
+    }
     __syncthreads();
     // series keeps every thread in the loop for the warp reductions, the
     // scenario fold for its barriers
@@ -894,11 +920,17 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
     uint64_t wb = 0;  // K13: the word of the tile's second 0
     if constexpr (RB) {
       const uint64_t gl = (uint64_t)(base / TILE);
-      const uint32_t gk = a.layout == 1 ? g : g_first;
-      const ph::Key4 kb = ph::fold_in(rs0, gk);
-      ru = ph::fold_in(kb, 0u);
-      rz = ph::fold_in(kb, 1u);
-      rm = ph::fold_in(rm0, gk);
+      if constexpr (UR) {
+        ru = s_rk[0];
+        rz = s_rk[1];
+        rm = s_rk[2];
+      } else {
+        const uint32_t gk = a.layout == 1 ? g : g_first;
+        const ph::Key4 kb = ph::fold_in(rs0, gk);
+        ru = ph::fold_in(kb, 0u);
+        rz = ph::fold_in(kb, 1u);
+        rm = ph::fold_in(rm0, gk);
+      }
       wb = a.layout == 0   ? (gl * (uint64_t)n + (uint64_t)ii) * TILE
            : a.layout == 1 ? (uint64_t)ii * TILE
                            : ((uint64_t)ii * (T / TILE + 1) + gl) * TILE;

@@ -1,0 +1,8 @@
+// K14: the block step (block_step.cuh) under prng_impl='unsafe_rbg' (Philox
+// draws and key derivations, philox.cuh) for the Exact kernel set
+// under compute_dtype='bf16'.
+// Its own library, so it builds beside the threefry and rbg ones.
+#define KSET Exact
+#define CDTYPE BF16
+#define PRNG URBG
+#include "block_step.cuh"

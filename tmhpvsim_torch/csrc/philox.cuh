@@ -16,6 +16,19 @@
 // draw of chain c is word c (or its offset in a wider block) of ONE key's
 // stream: the callers pass that key and the word index.
 //
+// K14: prng_impl='unsafe_rbg' keys (UKey below) are rbg key data with the
+// same bits, but split and fold_in are Philox rows themselves
+// (jax/_src/prng.py _unsafe_rbg_split / _unsafe_rbg_fold_in):
+// split(k, n)[i] is counter value 10 i of k's stream (the four words of
+// row 10 i of a (10 n, 4) draw), fold_in(k, d) is k ^ counter value 9 of
+// the stream of _rbg_seed(d) = [0, d, 0, d].  Under vmap these draws take
+// their batch's first key too: member p of a batched split(., n) is
+// counter 10 (p n + i) of the first key, datum p of a batched fold_in is
+// counter 10 p + 9 of the first datum's seed (split_batched / fold_row).
+// The gamma's entry split is batched over its keys (threefry.cuh
+// gamma_from takes the entered key), its loop per key (UKey's overloads).
+// Plain version: tmhpvsim_torch/rng.py (_urbg_split, urbg_fold_rows).
+//
 // Bound: integer operations.  One Philox call is 10 rounds of two 32-bit
 // multiplies (hi and lo halves) and four xors, plus the key bumps, for
 // four words; there is no memory traffic beyond the key.
@@ -97,6 +110,64 @@ __device__ __forceinline__ float uniform(Key4 k, uint32_t i) {
 }
 __device__ __forceinline__ float normal(Key4 k, uint32_t i) {
   return tf::normal_from_bits(bits(k, i));
+}
+
+// ---------------------------------------------------------------- K14
+// an unsafe_rbg key: the same four words, its own split / fold_in
+struct UKey {
+  uint32_t w0, w1, w2, w3;
+};
+
+__device__ __forceinline__ Key4 as_rbg(UKey k) {
+  Key4 o = {k.w0, k.w1, k.w2, k.w3};
+  return o;
+}
+__device__ __forceinline__ UKey as_urbg(uint4 v) {
+  UKey o = {v.x, v.y, v.z, v.w};
+  return o;
+}
+__device__ __forceinline__ UKey load_ukey(const int64_t* p, int64_t i) {
+  const Key4 k = load_key(p, i);
+  UKey o = {k.w0, k.w1, k.w2, k.w3};
+  return o;
+}
+__device__ __forceinline__ UKey operator^(UKey k, uint4 v) {
+  UKey o = {k.w0 ^ v.x, k.w1 ^ v.y, k.w2 ^ v.z, k.w3 ^ v.w};
+  return o;
+}
+
+// counter value q of the key's stream, as a key
+__device__ __forceinline__ UKey row(UKey k, uint64_t q) {
+  return as_urbg(block(as_rbg(k), q));
+}
+// split(key, n)[i], unbatched (per key)
+__device__ __forceinline__ UKey split_at(UKey k, uint32_t i) {
+  return row(k, 10ull * i);
+}
+// member p of a batched split(., n): from the batch's first key k0
+__device__ __forceinline__ UKey split_batched(UKey k0, uint64_t p,
+                                              uint32_t n, uint32_t i) {
+  return row(k0, 10ull * (p * n + i));
+}
+// the row fold_in XORs in: datum p of a batch whose first datum is d0
+// (p = 0 for an unbatched datum)
+__device__ __forceinline__ uint4 fold_row(uint32_t d0, uint64_t p) {
+  const Key4 seed = {0u, d0, 0u, d0};
+  return block(seed, 10ull * p + 9ull);
+}
+__device__ __forceinline__ UKey fold_in(UKey k, uint32_t d) {
+  return k ^ fold_row(d, 0ull);
+}
+
+__device__ __forceinline__ uint32_t word(UKey k, uint64_t w) {
+  return word(as_rbg(k), w);
+}
+// the unbatched draws of one key, as gamma's serial loop draws them
+__device__ __forceinline__ float uniform(UKey k, uint32_t i) {
+  return tf::uniform_range(word(k, i), 0.0f, 1.0f);
+}
+__device__ __forceinline__ float normal(UKey k, uint32_t i) {
+  return tf::normal_from_bits(word(k, i));
 }
 
 }  // namespace ph

@@ -156,15 +156,18 @@ __device__ __forceinline__ float uniform_tiny(Key k) {
 
 // jax.random.gamma(key, alpha, (), float32): Marsaglia-Tsang with jax's key
 // splits (jax._src.random._gamma_one), one draw per key; K is tf::Key or
-// (philox.cuh) ph::Key4, whose split_at / normal / uniform overloads are
-// found by argument-dependent lookup: jax draws an rbg gamma per key, its
-// lax.map over the keys never batched.  Both loops carry
+// (philox.cuh) ph::Key4 or ph::UKey, whose split_at / normal / uniform
+// overloads are found by argument-dependent lookup: jax draws a non-
+// threefry gamma per key, its lax.map over the keys never batched.
+// gamma_from takes the key after _gamma_impl's entry split(key, 1)[0],
+// which jax makes under vmap over the flattened keys: per key for
+// threefry and rbg (gamma), batched for unsafe_rbg (its callers pass
+// ph::split_batched).  Both loops carry
 // an iteration cap that only guards the card against a fault: a draw
 // accepts with probability > 0.9 per outer iteration and the inner redraw
 // repeats with probability < 0.01, so no sample ever reaches the caps.
 template <class K>
-__device__ inline float gamma(K key, float alpha) {
-  key = split_at(key, 0u);  // _gamma_impl: split(key, 1)[0]
+__device__ inline float gamma_from(K key, float alpha) {
   const bool boost = alpha >= 1.0f;
   const float a = boost ? alpha : alpha + 1.0f;
   const float third = 0.333333343f;  // float32(1/3)
@@ -198,6 +201,11 @@ __device__ inline float gamma(K key, float alpha) {
     boost_f = powf(samples, 1.0f / alpha);
   }
   return (d * V) * boost_f;
+}
+
+template <class K>
+__device__ inline float gamma(K key, float alpha) {
+  return gamma_from(split_at(key, 0u), alpha);  // split(key, 1)[0]
 }
 
 // jax.random.t(key, df, (), float32)

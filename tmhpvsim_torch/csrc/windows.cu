@@ -35,6 +35,22 @@
 // maps them.  sampler_windows_rbg_kernel draws so; its plain version is
 // the same windows_plain on rbg keys.
 //
+// K14 (prng_impl='unsafe_rbg'): the same bits, but split and fold_in are
+// Philox rows too (philox.cuh UKey), batched as jax batches them: the
+// 4-way split of k_arr under the chain vmap takes chain 0's k_arr
+// (member c at counter 40 c + 10 i), the hour loop's fold_in(k_cc, h)
+// is per key (a scan index) and the transition's split and the
+// Student-t's split are batched over the chains; the windows' fold_in
+// over the value index is a batched datum (value j: counter 10 j + 9 of
+// the seed of the window's first index), and the cloudy draw's split, the
+// gamma entry splits (cloudy, Student-t, windspeed) and every draw are
+// batched over (chain, value), member p = c w + j.  Only chain 0's keys
+// and each member's position enter a chain's values, so the keys every
+// chain shares (per hour three, per window six) are derived once per CTA
+// into shared memory; each thread derives its own gamma entry keys.
+// sampler_windows_urbg_kernel; plain version windows_plain on unsafe_rbg
+// keys.
+//
 // Bound: operations.  Per chain and block it does ~(w_hours + w_cd +
 // 2 * n_min) draws of a few hashes each, plus Marsaglia-Tsang loops for
 // the gamma and Student-t draws; it writes (2 w_hours + w_cd + w_days +
@@ -165,7 +181,8 @@ __device__ void windows_rbg(
         WS_SCALE * tf::gamma(ph::fold_in(k_ws, (uint32_t)(day_lo + j)),
                              WS_SHAPE);
   const ph::Key4 km = ph::fold_in(ph::load_key(k_min, 0), (uint32_t)min_lo);
-  const ph::Key4 km_cloudy = ph::fold_in(km, 0u), km_clear = ph::fold_in(km, 1u);
+  const ph::Key4 km_cloudy = ph::fold_in(km, 0u),
+                 km_clear = ph::fold_in(km, 1u);
   for (int j = 0; j < n_min; ++j) {
     const int h = mh_idx[j];
     const float f = mh_frac[j];
@@ -177,6 +194,154 @@ __device__ void windows_rbg(
         1.0f + s_cloudy * tf::normal_from_bits(ph::word(km_cloudy, w));
     out_ml[j * n + i] =
         1.0f + s_clear * tf::normal_from_bits(ph::word(km_clear, w));
+  }
+}
+
+// the K14 keys a CTA shares: per hour the Markov step's AL key, the
+// Student-t's normal key and gamma key (of chain 0, the batch's first);
+// per window the cloudy normal / gamma keys, the clear-day, windspeed and
+// two minute-noise keys (of chain 0 and value 0)
+struct UShared {
+  ph::UKey al[MAX_HOURS], tn[MAX_HOURS], tg[MAX_HOURS];
+  ph::UKey cl_n, cl_g, cd, ws, mc, ml;
+};
+
+__device__ void urbg_shared(UShared& S, const int64_t* __restrict__ k_arr,
+                            const int64_t* __restrict__ k_min, int hour_lo,
+                            int n_hours, int cd_lo, int day_lo, int min_lo) {
+  const int t = threadIdx.x;
+  if (t < n_hours) {
+    const ph::UKey ka0 = ph::load_ukey(k_arr, 0);
+    const ph::UKey kh =
+        ph::row(ka0, 0ull) ^ ph::fold_row((uint32_t)(hour_lo + t), 0ull);
+    S.al[t] = ph::row(kh, 0ull);
+    const ph::UKey kt = ph::row(kh, 10ull);
+    S.tn[t] = ph::row(kt, 0ull);
+    S.tg[t] = ph::row(kt, 10ull);
+  } else if (t == MAX_HOURS) {
+    const ph::UKey k =
+        ph::row(ph::load_ukey(k_arr, 0), 10ull) ^
+        ph::fold_row((uint32_t)hour_lo, 0ull);
+    S.cl_n = ph::row(k, 0ull);
+    S.cl_g = ph::row(k, 10ull);
+  } else if (t == MAX_HOURS + 1) {
+    S.cd = ph::row(ph::load_ukey(k_arr, 0), 20ull) ^
+           ph::fold_row((uint32_t)cd_lo, 0ull);
+  } else if (t == MAX_HOURS + 2) {
+    S.ws = ph::row(ph::load_ukey(k_arr, 0), 30ull) ^
+           ph::fold_row((uint32_t)day_lo, 0ull);
+  } else if (t == MAX_HOURS + 3) {
+    const ph::UKey km =
+        ph::load_ukey(k_min, 0) ^ ph::fold_row((uint32_t)min_lo, 0ull);
+    S.mc = ph::fold_in(km, 0u);
+    S.ml = ph::fold_in(km, 1u);
+  }
+}
+
+// markov_hourly.transition under unsafe_rbg for chain c at hour j
+__device__ __forceinline__ float transition_urbg(const UShared& S, int j,
+                                                 uint64_t c, float state,
+                                                 int regime) {
+  int idx = 0;
+#pragma unroll
+  for (int b = 0; b < 6; ++b) idx += MK_BINS[b] < state ? 1 : 0;
+  if (idx > 5) idx = 5;
+  idx += regime * 6;
+  const float loc = MK_LOC[idx], scale = MK_SCALE[idx];
+  float step;
+  if (MK_IS_T[idx] > 0.5f) {
+    // jax.random.t: split and normal batched, the gamma's entry batched
+    const float nrm = tf::normal_from_bits(ph::word(S.tn[j], c));
+    const float half_df = MK_DF[idx] / 2.0f;
+    const float g =
+        tf::gamma_from(ph::split_batched(S.tg[j], c, 1u, 0u), half_df);
+    step = fmaf(scale, nrm * sqrtf(half_df / g), loc);
+  } else {
+    const float q =
+        tf::uniform_range(ph::word(S.al[j], c), 1.17549435e-38f, 1.0f);
+    step = fmaf(scale, al_ppf(q, MK_KAPPA[idx]), loc);
+  }
+  return fminf(fmaxf(state + step, 0.0f), 1.0f);
+}
+
+// K14: the windows from unsafe_rbg keys, the carry advanced as above
+__global__ void sampler_windows_urbg_kernel(
+    int64_t n, const int64_t* __restrict__ k_arr,
+    const int64_t* __restrict__ k_min, const float* __restrict__ cc_carry,
+    const float* __restrict__ cc0, const int* __restrict__ regimes,
+    int hour_lo, int n_hours, int n_cloudy,
+    int hour_next_lo, int cd_lo, int n_cd, int day_lo, int n_days,
+    int min_lo, int n_min, const int* __restrict__ mh_idx,
+    const float* __restrict__ mh_frac, float* __restrict__ out_cc,
+    float* __restrict__ out_cloudy, float* __restrict__ out_cd,
+    float* __restrict__ out_ws, float* __restrict__ out_ml,
+    float* __restrict__ out_mc, float* __restrict__ out_carry) {
+  __shared__ UShared S;
+  urbg_shared(S, k_arr, k_min, hour_lo, n_hours, cd_lo, day_lo, min_lo);
+  __syncthreads();
+  const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const uint64_t c = (uint64_t)i;
+  const int regime = regimes != nullptr ? regimes[i] : 0;
+  float cc[MAX_HOURS];
+  const float carry_in = cc_carry[i];
+  float state = carry_in;
+  for (int j = 0; j < n_hours; ++j) {
+    state = transition_urbg(S, j, c, state, regime);
+    cc[j] = state;
+    out_cc[j * n + i] = state;
+  }
+  float carry = carry_in;
+  if (n_hours > 0 && hour_next_lo != hour_lo) {
+    int adv = hour_next_lo - hour_lo - 1;
+    adv = adv < 0 ? 0 : (adv > n_hours - 1 ? n_hours - 1 : adv);
+    carry = cc[adv];
+  }
+  out_carry[i] = carry;
+
+  const float c0 = cc0[i];
+  for (int j = 0; j < n_cloudy; ++j) {
+    const int idx = hour_lo + j;
+    float cc_at = c0;
+    if (idx >= 2) {
+      int pos = idx - 1 - hour_lo;
+      const int w = n_hours > 0 ? n_hours : 1;
+      pos = pos < 0 ? 0 : (pos > w - 1 ? w - 1 : pos);
+      cc_at = cc[pos];
+    }
+    const uint64_t p = c * (uint64_t)n_cloudy + (uint64_t)j;
+    float v;
+    if (cc_at < 0.75f) {
+      v = CL_LOC + CL_SCALE * tf::normal_from_bits(ph::word(S.cl_n, p));
+    } else {
+      const bool mid = cc_at < 0.875f;
+      const float a = mid ? CL_MID_A : CL_HIGH_A;
+      const float sc = mid ? CL_MID_SCALE : CL_HIGH_SCALE;
+      v = sc * tf::gamma_from(ph::split_batched(S.cl_g, p, 1u, 0u), a);
+    }
+    out_cloudy[j * n + i] = v;
+  }
+  for (int j = 0; j < n_cd; ++j)
+    out_cd[j * n + i] =
+        CD_LOC + CD_SCALE * tf::normal_from_bits(ph::word(
+                                S.cd, c * (uint64_t)n_cd + (uint64_t)j));
+  for (int j = 0; j < n_days; ++j)
+    out_ws[j * n + i] =
+        WS_SCALE *
+        tf::gamma_from(ph::split_batched(
+                           S.ws, c * (uint64_t)n_days + (uint64_t)j, 1u, 0u),
+                       WS_SHAPE);
+  for (int j = 0; j < n_min; ++j) {
+    const int h = mh_idx[j];
+    const float f = mh_frac[j];
+    const float cc_at = cc[h] * (1.0f - f) + cc[h + 1] * f;
+    const float s_cloudy = SIGMA_MIN * (MN_CLOUDY_S0 + MN_CLOUDY_S1X8 * cc_at);
+    const float s_clear = SIGMA_MIN * (MN_CLEAR_S0 + MN_CLEAR_S1X8 * cc_at);
+    const uint64_t w = c * (uint64_t)n_min + (uint64_t)j;
+    out_mc[j * n + i] =
+        1.0f + s_cloudy * tf::normal_from_bits(ph::word(S.mc, w));
+    out_ml[j * n + i] =
+        1.0f + s_clear * tf::normal_from_bits(ph::word(S.ml, w));
   }
 }
 
@@ -302,12 +467,16 @@ extern "C" int sampler_windows(
     int n_cd, int day_lo, int n_days, int min_lo, int n_min, const int* mh_idx,
     const float* mh_frac, float* out_cc, float* out_cloudy, float* out_cd,
     float* out_ws, float* out_ml, float* out_mc, float* out_carry,
-    int rbg, void* stream) {
+    int impl, void* stream) {
   if (n_hours > MAX_HOURS || n_cloudy > MAX_HOURS) return (int)cudaErrorInvalidValue;
   if (n > 0) {
+    // at least MAX_HOURS + 4 threads: urbg_shared's derivations
     const int threads = 128;
     const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-    auto kernel = rbg ? sampler_windows_rbg_kernel : sampler_windows_kernel;
+    // impl: 0 threefry2x32, 1 rbg, 2 unsafe_rbg
+    auto kernel = impl == 2   ? sampler_windows_urbg_kernel
+                  : impl == 1 ? sampler_windows_rbg_kernel
+                              : sampler_windows_kernel;
     kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         n, k_arr, k_min, cc_carry, cc0, regimes, hour_lo, n_hours, n_cloudy,
         hour_next_lo, cd_lo, n_cd, day_lo, n_days, min_lo, n_min, mh_idx,

@@ -2,9 +2,12 @@
 
 The JAX package's reduce-mode state pytree, as numpy (keys as
 ``jax.random.key_data``: uint32 ``(..., 2)`` threefry or ``(..., 4)`` rbg
-data, int64 tensors masked to 32 bits in the port), becomes the port's
-state on
-a device, and back; the same for the accumulator.  A site-grid run's
+or unsafe_rbg data, int64 tensors masked to 32 bits in the port), becomes
+the port's state on a device, and back; the same for the accumulator.
+Key data carries no implementation, and rbg and unsafe_rbg data look
+alike, so the caller names it (``prng_impl``, the run's
+``SimConfig.prng_impl``): the key leaves are checked against that
+implementation's width, never used to infer it.  A site-grid run's
 state also carries the six per-chain site scalars (``state["site"]``), a
 fleet run its heterogeneous columns (``state["fleet"]``: float32 transform
 leaves, int32 ``regime`` and ``cohort``).  A
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from tmhpvsim_torch.config import SITE_FIELDS
+from tmhpvsim_torch.rng import KEY_WIDTH
 
 KEY_LEAVES = ("k_arr", "k_min", "k_scan", "k_meter")
 FLOAT_LEAVES = ("cc_carry", "cc0", "cloudy_pair")
@@ -31,20 +35,24 @@ FLEET_LEAVES = {"demand_scale": np.float32, "demand_shift_w": np.float32,
                 "regime": np.int32, "cohort": np.int32}
 
 
-def state_from_numpy(tree: dict, device) -> dict:
-    """JAX-layout state (numpy leaves) -> the port's state on ``device``."""
+def state_from_numpy(tree: dict, device, prng_impl: str) -> dict:
+    """JAX-layout state (numpy leaves) of a ``prng_impl`` run -> the
+    port's state on ``device``."""
     expected = set(KEY_LEAVES) | set(FLOAT_LEAVES) | {"carry"}
     if set(tree) - {"site", "fleet"} != expected:
         raise ValueError(
             f"state leaves {sorted(tree)} are not the chain state "
             f"{sorted(expected)} (plus 'site' for a site grid, 'fleet' "
             "for a fleet)")
+    if prng_impl not in KEY_WIDTH:
+        raise ValueError(f"unsupported prng_impl {prng_impl!r}")
+    width = KEY_WIDTH[prng_impl]
     out = {}
     for k in KEY_LEAVES:
         a = np.asarray(tree[k])
-        if a.dtype != np.uint32 or a.shape[-1] not in (2, 4):
-            raise ValueError(f"{k}: expected uint32 (..., 2) threefry or "
-                             f"(..., 4) rbg key data, got {a.dtype} "
+        if a.dtype != np.uint32 or a.shape[-1:] != (width,):
+            raise ValueError(f"{k}: expected uint32 (..., {width}) "
+                             f"{prng_impl} key data, got {a.dtype} "
                              f"{a.shape}")
         out[k] = _tensor(a, np.int64, device)
     for k in FLOAT_LEAVES:
@@ -71,8 +79,15 @@ def _tensor(a, dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
 
 
-def state_to_numpy(state: dict) -> dict:
-    """The port's state -> JAX layout (uint32 key data, float32 leaves)."""
+def state_to_numpy(state: dict, prng_impl: str) -> dict:
+    """The port's state of a ``prng_impl`` run -> JAX layout (uint32 key
+    data, float32 leaves)."""
+    if prng_impl not in KEY_WIDTH:
+        raise ValueError(f"unsupported prng_impl {prng_impl!r}")
+    for k in KEY_LEAVES:
+        if state[k].shape[-1:] != (KEY_WIDTH[prng_impl],):
+            raise ValueError(f"{k}: not {prng_impl} keys: "
+                             f"{tuple(state[k].shape)}")
     out = {k: state[k].cpu().numpy().astype(np.uint32) for k in KEY_LEAVES}
     for k in FLOAT_LEAVES:
         out[k] = state[k].cpu().numpy()

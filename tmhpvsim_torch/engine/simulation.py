@@ -66,7 +66,14 @@ FleetAcc delta of the sketch ``scenario_fleet_params``.
 (K13, csrc/philox.cuh, inlined in K2 and the block step): jax draws a
 vmapped batch from its first key, so a chain's values depend on its batch
 and on the formulation's draw layout (``_draw_layout``), and the port
-reproduces each JAX formulation's own layout.
+reproduces each JAX formulation's own layout.  ``prng_impl='unsafe_rbg'``
+keys draw the same bits and derive their keys from Philox rows too (K14:
+``split`` / ``fold_in`` are draws, batched by the same rule), so a
+chain's keys come from chain 0's and its position in the batch, and a
+batched fold over a window's values from the window's first index.  The
+key implementation is the plan's ``prng_impl``, passed to every
+derivation, draw and launch (``self._impl``); nothing reads it off a
+key's shape.
 
 The chain state is O(1) per chain: threefry (or rbg) keys, the Markov
 carry, the renewal carry, three construction-time scalars, for a grid the
@@ -243,22 +250,27 @@ class Simulation:
         self._w_hours = bs // 3600 + 5
         self._w_days = bs // 86400 + 3
         self._w_cd = self._w_hours + self._w_days
-        if self.plan.prng_impl == "rbg":
-            # the JAX package's build-time rbg warning; a strict run
-            # refuses it, as there
-            msg = ("prng_impl='rbg': jax draws a vmapped batch of rbg "
-                   "keys from its first key, so a chain's draws depend on "
-                   "its batch and formulation, and XLA's RngBitGenerator "
-                   "is not guaranteed stable across backends; use "
-                   "threefry2x32 unless you are measuring the rbg path "
-                   "itself")
+        #: the key implementation of every derivation, draw and launch
+        self._impl = self.plan.prng_impl
+        if self._impl in ("rbg", "unsafe_rbg"):
+            # the JAX package's build-time rbg / unsafe_rbg warning; a
+            # strict run refuses it, as there
+            derive = ("; its split and fold_in are draws too, so a "
+                      "chain's keys depend on its batch as well"
+                      if self._impl == "unsafe_rbg" else "")
+            msg = (f"prng_impl={self._impl!r}: jax draws a vmapped batch "
+                   "of rbg keys from its first key, so a chain's draws "
+                   f"depend on its batch and formulation{derive}, and "
+                   "XLA's RngBitGenerator is not guaranteed stable across "
+                   "backends; use threefry2x32 unless you are measuring "
+                   f"the {self._impl} path itself")
             if config.telemetry_strict:
                 raise ValueError(msg)
             import warnings
 
             warnings.warn(msg, RuntimeWarning, stacklevel=2)
         self._k_chains = rng.split(
-            rng.root_key(config.seed, self.plan.prng_impl), 2)[0]
+            rng.root_key(config.seed, self._impl), 2, self._impl)[0]
         self._turbidity = None if grid is None else torch.tensor(
             np.asarray(grid.linke_turbidity_monthly, np.float32),
             device=self.device)
@@ -302,8 +314,8 @@ class Simulation:
     # ------------------------------------------------------------------
 
     def init_state(self):
-        """Initial chain state: per-chain keys (threefry ``(n, 2)`` or
-        rbg ``(n, 4)``) from
+        """Initial chain state: per-chain keys (threefry ``(n, 2)``, rbg or
+        unsafe_rbg ``(n, 4)``) from
         ``split(split(key(seed))[0], n_chains_total)`` sliced at
         ``chain_offset``, the 5- and 4-way key splits, the two primer cloud
         covers, the first windspeed, the renewal carry and the
@@ -312,13 +324,17 @@ class Simulation:
         launches plus elementwise torch (K2 derives the 4-way split of
         ``k_arr`` itself, as it does every block); under rbg the splits
         are K1 on each key half and the renewal uniforms K13 launches,
-        drawn as jax's vmapped init draws them (the batch's first key)."""
+        drawn as jax's vmapped init draws them (the batch's first key);
+        under unsafe_rbg the splits are K14 launches, the chains' 5-way
+        split (and K2's 4-way split) batched over the slab, so the keys
+        depend on ``chain_offset`` through the slab's first key."""
         cfg = self.config
         dev = self.device
+        impl = self._impl
         total = cfg.n_chains_total or cfg.n_chains
-        keys = k1.split(self._k_chains.to(dev), total)
+        keys = k1.split(self._k_chains.to(dev), total, impl)
         keys = keys[cfg.chain_offset:cfg.chain_offset + cfg.n_chains]
-        s5 = k1.split(keys.contiguous(), 5)
+        s5 = k1.split(keys.contiguous(), 5, impl)
         k_arr, k_min, k_renew, k_scan, k_meter = (
             s5[:, i, :].contiguous() for i in range(5))
         n = cfg.n_chains
@@ -332,17 +348,18 @@ class Simulation:
         # 1.0 (from the chain's own regime table), and the first windspeed
         t1, _ = k2.sampler_windows(
             k_arr, k_min, ones, ones,
-            k2.Bounds(0, 2, 0, 0, 0, 0, 0, 1), *no_min, regime=regime)
+            k2.Bounds(0, 2, 0, 0, 0, 0, 0, 1), *no_min, regime=regime,
+            impl=impl)
         cc01 = t1["cc"]                                      # (2, n)
         f0 = self._f0_hour
         cc0 = (cc01[0] * (1 - f0) + cc01[1] * f0).contiguous()
         # the frozen cloudy pair (global indices 0, 1) sees cc0
         t2, _ = k2.sampler_windows(
             k_arr, k_min, ones, cc0,
-            k2.Bounds(0, 0, 2, 0, 0, 0, 0, 0), *no_min)
-        kr = k1.split(k_renew, 2)
-        u_cycle = k1.uniform(kr[:, 0, :].contiguous())
-        u_phase = k1.uniform(kr[:, 1, :].contiguous())
+            k2.Bounds(0, 0, 2, 0, 0, 0, 0, 0), *no_min, impl=impl)
+        kr = k1.split(k_renew, 2, impl)
+        u_cycle = k1.uniform(kr[:, 0, :].contiguous(), impl=impl)
+        u_phase = k1.uniform(kr[:, 1, :].contiguous(), impl=impl)
         carry = renewal.init_from_u(u_cycle, u_phase, cc01[0], t1["ws"][0])
         state = {
             "cc_carry": ones.clone(),
@@ -527,7 +544,8 @@ class Simulation:
     def _draw_layout(self) -> str:
         """The per-second draw layout of the JAX formulation the acc and
         series launches stand for (``clearsky_index.DRAW_LAYOUTS``; only
-        rbg keys tell them apart): a wide run is the JAX ``_block_step``
+        rbg and unsafe_rbg keys tell them apart): a wide run is the JAX
+        ``_block_step``
         ('trace', as every trace launch), the nested scan with per-minute
         draws 'scan2', every other scan run the flat scan's pre-drawn
         streams ('scan', as the scenario engine's)."""
@@ -542,7 +560,8 @@ class Simulation:
         regime = state["fleet"]["regime"] if self._het_regime else None
         return k2.sampler_windows(
             state["k_arr"], state["k_min"], state["cc_carry"], state["cc0"],
-            inputs.bounds, inputs.mh_idx, inputs.mh_frac, regime=regime)
+            inputs.bounds, inputs.mh_idx, inputs.mh_frac, regime=regime,
+            impl=self._impl)
 
     def fleet_leaves(self, state):
         """K7's per-chain transform leaves of ``state``, or None."""
@@ -609,13 +628,13 @@ class Simulation:
         if obs is None:
             carry, acc = k3.block_step_acc(*args, site=site, fleet=fleet,
                                            kernels=ks, compute_dtype=self._cd,
-                                           layout=lay)
+                                           layout=lay, impl=self._impl)
         else:
             carry, acc, out = k3.block_step_obs(*args, site=site,
                                                 fleet=fleet, obs=obs,
                                                 kernels=ks,
                                                 compute_dtype=self._cd,
-                                                layout=lay)
+                                                layout=lay, impl=self._impl)
             self._tel_last, self._fleet_last = out["telemetry"], \
                 out["fleet"]
         return dict(state, carry=carry, cc_carry=cc_carry), acc
@@ -634,7 +653,7 @@ class Simulation:
             state["k_meter"], state["carry"], self.config.meter_max_w, tilt,
             albedo, site=site, fleet=self.fleet_leaves(state),
             kernels=self.plan.kernel_impl, compute_dtype=self._cd,
-            layout=self._draw_layout())
+            layout=self._draw_layout(), impl=self._impl)
         return dict(state, carry=carry, cc_carry=cc_carry), m_sum, p_sum
 
     def step_trace(self, state, inputs: BlockInputs):
@@ -647,7 +666,7 @@ class Simulation:
             state["k_meter"], state["carry"], self.config.meter_max_w, tilt,
             albedo, site=site, fleet=self.fleet_leaves(state),
             kernels=self.plan.kernel_impl, compute_dtype=self._cd,
-            layout="trace")
+            layout="trace", impl=self._impl)
         return dict(state, carry=carry, cc_carry=cc_carry), meter, pv_
 
     # ------------------------------------------------------------------
@@ -707,7 +726,7 @@ class Simulation:
             fleet=self.fleet_leaves(state), scen=scen,
             params=self.scenario_fleet_params(),
             cohort=self.scenario_cohort(), kernels=self.plan.kernel_impl,
-            compute_dtype=self._cd)
+            compute_dtype=self._cd, impl=self._impl)
         return dict(state, carry=carry, cc_carry=cc_carry), acc, delta
 
     # ------------------------------------------------------------------

@@ -51,7 +51,14 @@ Replaces, in tmhpvsim_tpu/engine/simulation.py:
   nested scan's per-minute draws :1622-1636, the trace step's
   minute-grouped draws :844-956), each batched draw from its batch's
   first key as jax's batching rule has it; its own four libraries
-  (csrc/block_step_rbg*.cu), chosen by the keys' width.
+  (csrc/block_step_rbg*.cu);
+* K14 the same step under ``prng_impl='unsafe_rbg'``: K13's draws, with
+  the tile keys derived by unsafe_rbg's Philox ``fold_in`` (jax/_src/
+  prng.py ``_unsafe_rbg_fold_in``; in the flat scan and trace layouts a
+  batched datum, the block's first minute's seed), once per CTA; its own
+  four libraries (csrc/block_step_urbg*.cu).  The wrappers pick the
+  libraries by ``impl=``, the run's ``prng_impl``, never by the keys'
+  width.
 
 Every epilogue shares one pre-fold body: for every chain and second the
 table lerps, the renewal step (a new cycle from ``cycle_from_u`` on
@@ -125,9 +132,14 @@ STEP_BF16 = _counters("_bf16")
 #: K13's instantiations (prng_impl 'rbg'), float32 and bf16
 STEP_RBG = _counters("_rbg")
 STEP_RBG_BF16 = _counters("_rbg_bf16")
-#: the counters of each (rbg keys, compute dtype)
-_STEPS = {(False, "f32"): STEP, (False, "bf16"): STEP_BF16,
-          (True, "f32"): STEP_RBG, (True, "bf16"): STEP_RBG_BF16}
+#: K14's instantiations (prng_impl 'unsafe_rbg'), float32 and bf16
+STEP_URBG = _counters("_urbg")
+STEP_URBG_BF16 = _counters("_urbg_bf16")
+#: the counters of each (key implementation, compute dtype)
+_STEPS = {("threefry2x32", "f32"): STEP, ("threefry2x32", "bf16"): STEP_BF16,
+          ("rbg", "f32"): STEP_RBG, ("rbg", "bf16"): STEP_RBG_BF16,
+          ("unsafe_rbg", "f32"): STEP_URBG,
+          ("unsafe_rbg", "bf16"): STEP_URBG_BF16}
 #: K3: the acc epilogue, shared site, exact set
 K3 = STEP["acc", "shared", "exact"]
 #: the values of ``compute_dtype=`` (Plan.compute_dtype)
@@ -146,7 +158,8 @@ COLLAPSE = build.LaunchCounter("chainwise_collapse")
 #: geometry, kernel set) order, then the rest
 COUNTERS = tuple(dict.fromkeys(
     [*STEP.values(), *STEP_BF16.values(), *STEP_RBG.values(),
-     *STEP_RBG_BF16.values()])) + (K4_SUM, K7_FLEET, K8, K9, K89, COLLAPSE)
+     *STEP_RBG_BF16.values(), *STEP_URBG.values(),
+     *STEP_URBG_BF16.values()])) + (K4_SUM, K7_FLEET, K8, K9, K89, COLLAPSE)
 
 #: per-second integer rows: global second, rebased hour / day / minute index
 ROWS_I = ("t", "h", "d", "m")
@@ -461,7 +474,7 @@ def fleet_transform_plain(meter, ac, fleet: FleetLeaves | None):
 def _body_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
                 meter_max_w, surface_tilt, albedo, site, fleet=None,
                 kernels="exact", compute_dtype="f32", bf16_draws=True,
-                layout="scan"):
+                layout="scan", impl="threefry2x32"):
     """The pre-fold body every epilogue shares: everything carry-
     independent over the whole block at once, the renewal compare/select
     second by second, then the fleet transforms.  Returns ``(carry,
@@ -470,16 +483,18 @@ def _body_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
     runs K12's arithmetic: u / z drawn in bf16 when ``bf16_draws`` (the
     acc and series epilogues), the physics on bf16 geometry and csi.
     ``layout`` is the JAX formulation's draw layout
-    (``clearsky_index.DRAW_LAYOUTS``), which only rbg keys tell apart."""
+    (``clearsky_index.DRAW_LAYOUTS``), which only rbg and unsafe_rbg keys
+    (``impl``) tell apart."""
     T = rows_i.shape[1]
     g0 = int(rows_i[0, 0]) // 60
     bf = compute_dtype == "bf16"
-    lay = layout if rng.is_rbg(k_scan) else "scan"
+    lay = layout if impl != "threefry2x32" else "scan"
     u, z = ci.scan_draws_tmajor(
         k_scan, g0, T // 60,
-        torch.bfloat16 if bf and bf16_draws else torch.float32, lay)
+        torch.bfloat16 if bf and bf16_draws else torch.float32, lay, impl)
     u, z = u.float(), z.float()
-    meter = ci.meter_block_tmajor(k_meter, g0, T // 60, meter_max_w, lay)
+    meter = ci.meter_block_tmajor(k_meter, g0, T // 60, meter_max_w, lay,
+                                  impl)
     x = {"h": rows_i[1].long(), "d": rows_i[2].long(), "m": rows_i[3].long(),
          "hf": rows_f[0][:, None], "df": rows_f[1][:, None],
          "mf": rows_f[2][:, None], "z": z}
@@ -514,24 +529,28 @@ def stats_fold_plain(acc, t, duration_s, meter, ac, second_hook=None,
     T = t.shape[0]
     if valid is None:
         valid = t < duration_s
-    vz = valid.to(torch.float32)
     big = torch.tensor(_BIG, dtype=torch.float32, device=ac.device)
     acc = dict(acc)
     for s in range(T):
-        ok, w = valid[s], vz[s]
-        acc["pv_sum"] = acc["pv_sum"] + ac[s] * w
-        acc["pv_max"] = torch.maximum(acc["pv_max"],
-                                      torch.where(ok, ac[s], -big))
-        acc["meter_sum"] = acc["meter_sum"] + meter[s] * w
-        acc["residual_sum"] = acc["residual_sum"] + residual[s] * w
-        acc["residual_min"] = torch.minimum(
-            acc["residual_min"], torch.where(ok, residual[s], big))
-        acc["residual_max"] = torch.maximum(
-            acc["residual_max"], torch.where(ok, residual[s], -big))
-        acc["n_seconds"] = acc["n_seconds"] + ok.to(torch.int32)
+        _fold_stats_second(acc, valid[s], meter[s], ac[s], residual[s], big)
         if second_hook is not None:
-            second_hook(s, ok, residual[s])
+            second_hook(s, valid[s], residual[s])
     return acc
+
+
+def _fold_stats_second(acc, ok, meter, ac, residual, big):
+    """Fold one second into ``acc`` (in place): ``ok`` its validity mask,
+    the rest its values, all of one shape; ``big`` float32's max."""
+    w = ok.to(torch.float32)
+    acc["pv_sum"] = acc["pv_sum"] + ac * w
+    acc["pv_max"] = torch.maximum(acc["pv_max"], torch.where(ok, ac, -big))
+    acc["meter_sum"] = acc["meter_sum"] + meter * w
+    acc["residual_sum"] = acc["residual_sum"] + residual * w
+    acc["residual_min"] = torch.minimum(acc["residual_min"],
+                                        torch.where(ok, residual, big))
+    acc["residual_max"] = torch.maximum(acc["residual_max"],
+                                        torch.where(ok, residual, -big))
+    acc["n_seconds"] = acc["n_seconds"] + ok.to(torch.int32)
 
 
 def block_step_plain(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
@@ -539,14 +558,14 @@ def block_step_plain(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
                      surface_tilt, albedo, site: SiteGeometry | None = None,
                      fleet: FleetLeaves | None = None,
                      kernels: str = "exact", compute_dtype: str = "f32",
-                     layout: str = "scan"):
-    """Plain torch K3 / K6 / K6s / K12 / K13 (the ``acc`` epilogue, with
-    K7's transforms): the shared body, then the statistics fold.  Returns
-    ``(carry, acc)``."""
+                     layout: str = "scan", impl: str = "threefry2x32"):
+    """Plain torch K3 / K6 / K6s / K12 / K13 / K14 (the ``acc`` epilogue,
+    with K7's transforms): the shared body, then the statistics fold.
+    Returns ``(carry, acc)``."""
     carry, meter, ac, _, _ = _body_plain(
         tables, rows_i, rows_f, k_scan, k_meter, carry, meter_max_w,
         surface_tilt, albedo, site, fleet, kernels, compute_dtype,
-        layout=layout)
+        layout=layout, impl=impl)
     return carry, stats_fold_plain(acc, rows_i[0], duration_s, meter, ac)
 
 
@@ -556,7 +575,8 @@ def block_step_obs_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
                          site: SiteGeometry | None = None,
                          fleet: FleetLeaves | None = None,
                          obs: Observers = None, kernels: str = "exact",
-                         compute_dtype: str = "f32", layout: str = "scan"):
+                         compute_dtype: str = "f32", layout: str = "scan",
+                         impl: str = "threefry2x32"):
     """Plain K8 / K9: the acc epilogue with the observers' per-chain folds
     (obs/telemetry.py and obs/analytics.py ``fold_second``, zero-
     initialised for the block) beside the statistics, then their
@@ -567,7 +587,7 @@ def block_step_obs_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
     carry, meter, ac, csi, covered = _body_plain(
         tables, rows_i, rows_f, k_scan, k_meter, carry, meter_max_w,
         surface_tilt, albedo, site, fleet, kernels, compute_dtype,
-        layout=layout)
+        layout=layout, impl=impl)
     n, dev = ac.shape[1], ac.device
     cohorts = obs.n_cohorts if obs.n_cohorts >= 2 else 0
     st = {"ta": None if obs.telemetry == "off" else
@@ -612,7 +632,9 @@ def _scenario_check(scen):
 
 
 def scenario_transform_plain(meter, ac, scen, b):
-    """Row ``b``'s transform of the step's meter and pv:
+    """Row ``b``'s transform of the step's meter and pv (every row's at
+    once, over a row axis, when ``scen``'s leaves are ``(B, 1)`` and
+    ``b`` a slice):
     ``meter * demand_scale + demand_shift_w`` rounded once (the JAX scan
     contracts it into a multiply-add; tests/test_torch_serve.py settles
     it), ``min(ac * (pv_scale * weather_bias), curtail_w)``, and the
@@ -624,19 +646,22 @@ def scenario_transform_plain(meter, ac, scen, b):
 
 
 def scenario_valid_plain(rows_i, duration_s, scen, b, n, cohort=None):
-    """Row ``b``'s ``(T, n)`` validity: the site selector (the chain's
-    index against ``site_index``), the cohort selector (when ``cohort``,
-    the chains' ids, is given), ``t < duration_s`` and ``t < horizon_s``."""
+    """Row ``b``'s validity as ``(selected chains (n,), valid seconds
+    (T,))`` (with ``b`` a slice of rows, the rows' ``(B, n)`` and ``(T,
+    B)``): the site selector (the chain's index against ``site_index``),
+    the cohort selector (when ``cohort``, the chains' ids, is given),
+    ``t < duration_s`` and ``t < horizon_s``; a second's ``(n,)`` mask is
+    ``sel & tv[s][..., None]``."""
     dev = rows_i.device
     iota = torch.arange(n, device=dev, dtype=torch.int32)
-    site = scen["site_index"][b]
+    site = scen["site_index"][b][..., None]
     sel = (site < 0) | (iota == site)
     if cohort is not None:
-        c = scen["cohort"][b]
+        c = scen["cohort"][b][..., None]
         sel = sel & ((c < 0) | (cohort == c))
-    t = rows_i[0]
-    return sel[None, :] & ((t < duration_s) & (t < scen["horizon_s"][b])
-                           )[:, None]
+    h = scen["horizon_s"][b]
+    t = rows_i[0].reshape(-1, *([1] * h.dim()))
+    return sel, (t < duration_s) & (t < h)
 
 
 def scenario_plain(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
@@ -645,43 +670,42 @@ def scenario_plain(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
                    fleet: FleetLeaves | None = None, scen: dict = None,
                    params: flt.FleetParams = None, cohort=None,
                    per_chain: bool = False, kernels: str = "exact",
-                   compute_dtype: str = "f32"):
+                   compute_dtype: str = "f32", impl: str = "threefry2x32"):
     """Plain K10 (under bf16 K12 in K10): the shared body (K3's step with
-    K7's transforms, the flat scan's draw layout), then
-    for each scenario row its transform, validity and the statistics fold
-    into ``acc`` (``(B, n)`` leaves) beside a zero-initialised ``risk``
-    FleetAcc (obs/analytics.py ``fold_second`` / ``reduce_chainwise``).
-    Returns ``(carry, acc, delta)``: ``delta`` holds the block's collapsed
-    FleetAcc of each row (``(B, ...)`` leaves) and, with ``per_chain``,
-    ``chain``, each row's per-chain FleetAcc (``(B, n)`` leaves)."""
+    K7's transforms, the flat scan's draw layout), then every scenario
+    row's transform, validity and statistics fold into ``acc`` (``(B, n)``
+    leaves) beside a zero-initialised ``risk`` FleetAcc (obs/analytics.py
+    ``fold_second`` / ``reduce_chainwise``), all rows at once over a
+    leading row axis (each row's arithmetic, in second order, is the one
+    row's).  Returns ``(carry, acc, delta)``: ``delta`` holds the block's
+    collapsed FleetAcc of each row (``(B, ...)`` leaves) and, with
+    ``per_chain``, ``chain``, each row's per-chain FleetAcc (``(B, n)``
+    leaves)."""
     B = _scenario_check(scen)
     carry, meter, ac, _, _ = _body_plain(
         tables, rows_i, rows_f, k_scan, k_meter, carry, meter_max_w,
-        surface_tilt, albedo, site, fleet, kernels, compute_dtype)
+        surface_tilt, albedo, site, fleet, kernels, compute_dtype,
+        impl=impl)
     n, dev = ac.shape[1], ac.device
     t_rows = rows_i[0].tolist()
-    out = {k: v.clone() for k, v in acc.items()}
-    deltas, chains = [], []
-    for b in range(B):
-        m, p, r = scenario_transform_plain(meter, ac, scen, b)
-        valid = scenario_valid_plain(rows_i, duration_s, scen, b, n, cohort)
-        st = {"fa": flt.init_acc("risk", n, params=params, device=dev)}
-
-        def hook(s, ok, res):
-            st["fa"] = flt.fold_second(
-                st["fa"], "risk", params, meter=m[s], pv=p[s], residual=res,
-                covered=None, t=t_rows[s], valid=ok)
-
-        row = stats_fold_plain({k: v[b] for k, v in acc.items()}, rows_i[0],
-                               duration_s, m, p, hook, valid=valid)
-        for k, v in row.items():
-            out[k][b] = v
-        deltas.append(flt.reduce_chainwise(st["fa"]))
-        chains.append(st["fa"])
+    rows, col = slice(None), {k: v[:, None] for k, v in scen.items()}
+    sel, tv = scenario_valid_plain(rows_i, duration_s, scen, rows, n, cohort)
+    fa0 = flt.init_acc("risk", n, params=params, device=dev)
+    fa = {k: v.expand(B, *v.shape).clone() for k, v in fa0.items()}
+    big = torch.tensor(_BIG, dtype=torch.float32, device=dev)
+    out = dict(acc)
+    for s in range(len(t_rows)):
+        # the second's (B, n) transform and mask, one second at a time
+        m, p, r = scenario_transform_plain(meter[s], ac[s], col, rows)
+        ok = sel & tv[s][:, None]
+        _fold_stats_second(out, ok, m, p, r, big)
+        fa = flt.fold_second(fa, "risk", params, meter=m, pv=p, residual=r,
+                             covered=None, t=t_rows[s], valid=ok)
+    deltas = [flt.reduce_chainwise({k: v[b] for k, v in fa.items()})
+              for b in range(B)]
     delta = {k: torch.stack([d[k] for d in deltas]) for k in deltas[0]}
     if per_chain:
-        delta["chain"] = {k: torch.stack([c[k] for c in chains])
-                          for k in chains[0] if chains[0][k].shape == (n,)}
+        delta["chain"] = {k: v for k, v in fa.items() if v.shape == (B, n)}
     return carry, out, delta
 
 
@@ -689,7 +713,8 @@ def series_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
                  meter_max_w: float, surface_tilt, albedo,
                  site: SiteGeometry | None = None,
                  fleet: FleetLeaves | None = None, kernels: str = "exact",
-                 compute_dtype: str = "f32", layout: str = "scan"):
+                 compute_dtype: str = "f32", layout: str = "scan",
+                 impl: str = "threefry2x32"):
     """Plain K4 series: the shared body, then each second's cross-chain
     sums of meter and pv (accumulated in float64, rounded once to
     float32).  Returns ``(carry, meter_sum, pv_sum)``, each ``(T,)``;
@@ -697,7 +722,7 @@ def series_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
     carry, meter, ac, _, _ = _body_plain(
         tables, rows_i, rows_f, k_scan, k_meter, carry, meter_max_w,
         surface_tilt, albedo, site, fleet, kernels, compute_dtype,
-        layout=layout)
+        layout=layout, impl=impl)
     return (carry, meter.double().sum(1).float(),
             ac.double().sum(1).float())
 
@@ -706,14 +731,15 @@ def trace_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
                 meter_max_w: float, surface_tilt, albedo,
                 site: SiteGeometry | None = None,
                 fleet: FleetLeaves | None = None, kernels: str = "exact",
-                compute_dtype: str = "f32", layout: str = "trace"):
+                compute_dtype: str = "f32", layout: str = "trace",
+                impl: str = "threefry2x32"):
     """Plain K4 trace: the shared body's every chain-second.  Returns
     ``(carry, meter, pv)`` with time-major ``(T, n)`` arrays.  Under bf16
     the u / z draws stay float32, as in the JAX ``_block_step``."""
     return _body_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
                        meter_max_w, surface_tilt, albedo, site, fleet,
                        kernels, compute_dtype, bf16_draws=False,
-                       layout=layout)[:3]
+                       layout=layout, impl=impl)[:3]
 
 
 def cos_tilt(surface_tilt: float, kernels: str = "exact") -> float:
@@ -732,15 +758,14 @@ _P = ctypes.c_void_p
 _COMMON = ([ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
             ctypes.c_float] + [_P] * 21)
-#: the block-step library of each (kernel set, compute dtype, rbg keys)
-_LIBRARY = {("exact", "f32", False): "block_step.cu",
-            ("table", "f32", False): "block_step_table.cu",
-            ("exact", "bf16", False): "block_step_bf16.cu",
-            ("table", "bf16", False): "block_step_bf16_table.cu",
-            ("exact", "f32", True): "block_step_rbg.cu",
-            ("table", "f32", True): "block_step_rbg_table.cu",
-            ("exact", "bf16", True): "block_step_rbg_bf16.cu",
-            ("table", "bf16", True): "block_step_rbg_bf16_table.cu"}
+#: the block-step library of each (kernel set, compute dtype, key
+#: implementation): block_step{_rbg|_urbg}{_bf16}{_table}.cu
+_LIBRARY = {(ks, cd, impl): "block_step"
+            + {"threefry2x32": "", "rbg": "_rbg", "unsafe_rbg": "_urbg"}[impl]
+            + ("_bf16" if cd == "bf16" else "")
+            + ("_table" if ks == "table" else "") + ".cu"
+            for ks in ("exact", "table") for cd in ("f32", "bf16")
+            for impl in rng.IMPLS}
 #: the kernel's code of each draw layout (csrc/block_step.cuh ``Layout``)
 LAYOUTS = {"scan": 0, "scan2": 1, "trace": 2}
 
@@ -786,16 +811,16 @@ def _geo_mode(site: SiteGeometry | None) -> str:
 
 def _common_args(tables, rows_i, rows_f, k_scan, k_meter, carry,
                  duration_s, meter_max_w, surface_tilt, albedo, site,
-                 fleet=None, kernels="exact", layout="scan"):
+                 fleet=None, kernels="exact", layout="scan",
+                 impl="threefry2x32"):
     """Validate the shared inputs and return the C arguments they fill."""
     n = k_scan.shape[0]
     if layout not in LAYOUTS:
         raise ValueError(f"block_step: unknown draw layout {layout!r}")
-    width = k_scan.shape[-1]
-    if k_scan.shape != (n, width) or width not in (2, 4) or \
-            k_meter.shape != (n, width):
-        raise ValueError("block_step: k_scan and k_meter must be (n, 2) "
-                         "threefry or (n, 4) rbg keys")
+    width = rng.KEY_WIDTH[impl]
+    if k_scan.shape != (n, width) or k_meter.shape != (n, width):
+        raise ValueError(f"block_step: k_scan and k_meter must be "
+                         f"(n, {width}) {impl} keys")
     T = rows_i.shape[1]
     dev = k_scan.device
     if T % 60:
@@ -853,17 +878,18 @@ def _common_args(tables, rows_i, rows_f, k_scan, k_meter, carry,
     return n, T, dev, args
 
 
-def _library(kernels: str, compute_dtype: str, rbg: bool = False) -> str:
+def _library(kernels: str, compute_dtype: str,
+             impl: str = "threefry2x32") -> str:
     if compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"block_step: compute_dtype {compute_dtype!r} "
                          f"must be one of {COMPUTE_DTYPES}")
-    return _LIBRARY[kernels, compute_dtype, bool(rbg)]
+    return _LIBRARY[kernels, compute_dtype, impl]
 
 
 def _count(epi: str, site, fleet, kernels: str, compute_dtype: str = "f32",
-           rbg: bool = False):
-    _STEPS[bool(rbg), compute_dtype][epi, _geo_mode(site),
-                                     kernels].launches += 1
+           impl: str = "threefry2x32"):
+    _STEPS[impl, compute_dtype][epi, _geo_mode(site),
+                                kernels].launches += 1
     if fleet is not None and any(t is not None for t in fleet.tensors()):
         K7_FLEET.launches += 1
 
@@ -1039,13 +1065,13 @@ _obs_size_checked: set = set()
 def _block_step_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
                      duration_s, meter_max_w, surface_tilt, albedo, site,
                      fleet=None, obs: Observers | None = None,
-                     kernels="exact", compute_dtype="f32", layout="scan"):
+                     kernels="exact", compute_dtype="f32", layout="scan",
+                     impl="threefry2x32"):
     n, T, dev, args = _common_args(tables, rows_i, rows_f, k_scan, k_meter,
                                    carry, duration_s, meter_max_w,
                                    surface_tilt, albedo, site, fleet, kernels,
-                                   layout)
-    rbg = rng.is_rbg(k_scan)
-    lib = _library(kernels, compute_dtype, rbg)
+                                   layout, impl)
+    lib = _library(kernels, compute_dtype, impl)
     for k in ACC_F:
         _check(acc[k], torch.float32, dev, f"acc {k}")
     _check(acc["n_seconds"], torch.int32, dev, "acc n_seconds")
@@ -1068,7 +1094,7 @@ def _block_step_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
             None if o is None else ctypes.byref(o), int(tel_on),
             int(flt_on), smem, build.stream_ptr(dev))
     build.check(rc, "block_step_acc")
-    _count("acc", site, fleet, kernels, compute_dtype, rbg)
+    _count("acc", site, fleet, kernels, compute_dtype, impl)
     if tel_on or flt_on:
         (K89 if tel_on and flt_on else K8 if tel_on else K9).launches += 1
     if o is None:
@@ -1082,12 +1108,13 @@ _scen_size_checked: set = set()
 def _scenario_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
                    duration_s, meter_max_w, surface_tilt, albedo, site=None,
                    fleet=None, scen=None, params=None, cohort=None,
-                   per_chain=False, kernels="exact", compute_dtype="f32"):
+                   per_chain=False, kernels="exact", compute_dtype="f32",
+                   impl="threefry2x32"):
     n, T, dev, args = _common_args(tables, rows_i, rows_f, k_scan, k_meter,
                                    carry, duration_s, meter_max_w,
-                                   surface_tilt, albedo, site, fleet, kernels)
-    rbg = rng.is_rbg(k_scan)
-    lib = _library(kernels, compute_dtype, rbg)
+                                   surface_tilt, albedo, site, fleet, kernels,
+                                   impl=impl)
+    lib = _library(kernels, compute_dtype, impl)
     B = _scenario_check(scen)
     for k in SCEN_F + SCEN_I:
         _check(scen[k], scen[k].dtype, dev, f"scen {k}")
@@ -1148,7 +1175,7 @@ def _scenario_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
             *(p(acc[k]) for k in ACC_F), p(acc["n_seconds"]),
             ctypes.byref(q), smem, build.stream_ptr(dev))
     build.check(rc, "block_step_scenario")
-    _count("scen", site, fleet, kernels, compute_dtype, rbg)
+    _count("scen", site, fleet, kernels, compute_dtype, impl)
     L = len(SCN_KINDS)
     f = collapse_partials(buf["part"], SCN_KINDS * B).view(B, L)
     delta = {"count": f[:, 0].to(torch.int32), "res_hist": buf["res_hist"],
@@ -1167,23 +1194,23 @@ def _scenario_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
 def series_partials_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry,
                          meter_max_w, surface_tilt, albedo, site=None,
                          fleet=None, kernels="exact", compute_dtype="f32",
-                         layout="scan"):
+                         layout="scan", impl="threefry2x32"):
     """The series kernel's first pass on the card: ``(carry, partials)``
     with ``partials[0 | 1]`` the ``(n_ctas, T)`` per-CTA sums of meter |
     pv."""
     n, T, dev, args = _common_args(tables, rows_i, rows_f, k_scan, k_meter,
                                    carry, 0, meter_max_w, surface_tilt,
-                                   albedo, site, fleet, kernels, layout)
-    rbg = rng.is_rbg(k_scan)
+                                   albedo, site, fleet, kernels, layout,
+                                   impl)
     n_ctas = (n + THREADS - 1) // THREADS
     part = torch.empty((2, n_ctas, T), dtype=torch.float32, device=dev)
     p = build.ptr
-    fn = build.entry(_library(kernels, compute_dtype, rbg),
+    fn = build.entry(_library(kernels, compute_dtype, impl),
                      "block_step_series", _COMMON + [_P] * 5)
     rc = fn(*args, *(p(carry[k]) for k in CARRY), p(part[0]), p(part[1]),
             build.stream_ptr(dev))
     build.check(rc, "block_step_series")
-    _count("series", site, fleet, kernels, compute_dtype, rbg)
+    _count("series", site, fleet, kernels, compute_dtype, impl)
     return carry, part
 
 
@@ -1218,30 +1245,31 @@ def series_sum(part):
 
 def _series_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry,
                  meter_max_w, surface_tilt, albedo, site, fleet=None,
-                 kernels="exact", compute_dtype="f32", layout="scan"):
+                 kernels="exact", compute_dtype="f32", layout="scan",
+                 impl="threefry2x32"):
     carry, part = series_partials_cuda(tables, rows_i, rows_f, k_scan,
                                        k_meter, carry, meter_max_w,
                                        surface_tilt, albedo, site, fleet,
-                                       kernels, compute_dtype, layout)
+                                       kernels, compute_dtype, layout, impl)
     out = series_sum(part)
     return carry, out[0], out[1]
 
 
 def _trace_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry,
                 meter_max_w, surface_tilt, albedo, site, fleet=None,
-                kernels="exact", compute_dtype="f32", layout="trace"):
+                kernels="exact", compute_dtype="f32", layout="trace",
+                impl="threefry2x32"):
     n, T, dev, args = _common_args(tables, rows_i, rows_f, k_scan, k_meter,
                                    carry, 0, meter_max_w, surface_tilt,
-                                   albedo, site, fleet, kernels, layout)
-    rbg = rng.is_rbg(k_scan)
+                                   albedo, site, fleet, kernels, layout, impl)
     out = torch.empty((2, T, n), dtype=torch.float32, device=dev)
     p = build.ptr
-    fn = build.entry(_library(kernels, compute_dtype, rbg),
+    fn = build.entry(_library(kernels, compute_dtype, impl),
                      "block_step_trace", _COMMON + [_P] * 5)
     rc = fn(*args, *(p(carry[k]) for k in CARRY), p(out[0]), p(out[1]),
             build.stream_ptr(dev))
     build.check(rc, "block_step_trace")
-    _count("trace", site, fleet, kernels, compute_dtype, rbg)
+    _count("trace", site, fleet, kernels, compute_dtype, impl)
     return carry, out[0], out[1]
 
 
@@ -1250,6 +1278,7 @@ def _dispatch(k_scan, cuda_fn, plain_fn, *args, **kw):
         raise ValueError(f"block_step: compute_dtype "
                          f"{kw['compute_dtype']!r} must be one of "
                          f"{COMPUTE_DTYPES}")
+    rng.check_keys(k_scan, kw.get("impl", "threefry2x32"))
     if k_scan.device.type == "cuda":
         return cuda_fn(*args, **kw)
     if k_scan.device.type != "cpu":
@@ -1261,7 +1290,8 @@ def block_step_acc(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
                    duration_s: int, meter_max_w: float, surface_tilt,
                    albedo, site: SiteGeometry | None = None,
                    fleet: FleetLeaves | None = None, kernels: str = "exact",
-                   compute_dtype: str = "f32", layout: str = "scan"):
+                   compute_dtype: str = "f32", layout: str = "scan",
+                   impl: str = "threefry2x32"):
     """Fold one block into the accumulator; returns ``(carry, acc)``.
 
     ``tables``: value-major K2 tables; ``rows_i``/``rows_f``: the block's
@@ -1270,14 +1300,15 @@ def block_step_acc(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
     ``(n,)`` tensors (``CARRY`` float32; ``ACC_F`` float32 and int32
     ``n_seconds``); ``fleet``: K7's per-chain leaves; ``kernels``: the
     transcendental set, 'exact' or 'table' (K11); ``compute_dtype``:
-    'f32' or 'bf16' (K12); ``layout``: the draw layout of rbg keys
-    (``clearsky_index.DRAW_LAYOUTS``; threefry keys draw the same values
-    in every layout)."""
+    'f32' or 'bf16' (K12); ``layout``: the draw layout of rbg and
+    unsafe_rbg keys (``clearsky_index.DRAW_LAYOUTS``; threefry keys draw
+    the same values in every layout); ``impl``: the keys' implementation
+    (the run's ``prng_impl``: K13 rbg, K14 unsafe_rbg)."""
     return _dispatch(k_scan, _block_step_cuda, block_step_plain, tables,
                      rows_i, rows_f, k_scan, k_meter, carry, acc,
                      duration_s, meter_max_w, surface_tilt, albedo, site,
                      fleet, kernels=kernels, compute_dtype=compute_dtype,
-                     layout=layout)
+                     layout=layout, impl=impl)
 
 
 def block_step_obs(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
@@ -1285,7 +1316,8 @@ def block_step_obs(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
                    albedo, site: SiteGeometry | None = None,
                    fleet: FleetLeaves | None = None,
                    obs: Observers = None, kernels: str = "exact",
-                   compute_dtype: str = "f32", layout: str = "scan"):
+                   compute_dtype: str = "f32", layout: str = "scan",
+                   impl: str = "threefry2x32"):
     """``block_step_acc`` with the reduce-mode observers (K8 telemetry, K9
     analytics) folded in the same launch: ``(carry, acc, out)``, ``out``
     as ``block_step_obs_plain`` returns it (on the card the per-block
@@ -1296,7 +1328,7 @@ def block_step_obs(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
                      rows_i, rows_f, k_scan, k_meter, carry, acc,
                      duration_s, meter_max_w, surface_tilt, albedo, site,
                      fleet=fleet, obs=obs, kernels=kernels,
-                     compute_dtype=compute_dtype, layout=layout)
+                     compute_dtype=compute_dtype, layout=layout, impl=impl)
 
 
 def block_step_scenario(tables, rows_i, rows_f, k_scan, k_meter, carry,
@@ -1306,7 +1338,8 @@ def block_step_scenario(tables, rows_i, rows_f, k_scan, k_meter, carry,
                         fleet: FleetLeaves | None = None, scen: dict = None,
                         params: flt.FleetParams = None, cohort=None,
                         per_chain: bool = False, kernels: str = "exact",
-                        compute_dtype: str = "f32"):
+                        compute_dtype: str = "f32",
+                        impl: str = "threefry2x32"):
     """One scenario-batched block (K10; under bf16 K12 in K10): the step
     once per chain-second,
     then each row of ``scen`` (``(B,)`` knob tensors,
@@ -1324,7 +1357,7 @@ def block_step_scenario(tables, rows_i, rows_f, k_scan, k_meter, carry,
                      meter_max_w, surface_tilt, albedo, site, fleet,
                      scen=scen, params=params, cohort=cohort,
                      per_chain=per_chain, kernels=kernels,
-                     compute_dtype=compute_dtype)
+                     compute_dtype=compute_dtype, impl=impl)
 
 
 def block_step_series(tables, rows_i, rows_f, k_scan, k_meter, carry,
@@ -1332,7 +1365,7 @@ def block_step_series(tables, rows_i, rows_f, k_scan, k_meter, carry,
                       site: SiteGeometry | None = None,
                       fleet: FleetLeaves | None = None,
                       kernels: str = "exact", compute_dtype: str = "f32",
-                      layout: str = "scan"):
+                      layout: str = "scan", impl: str = "threefry2x32"):
     """One ensemble block: ``(carry, meter_sum, pv_sum)``, the sums
     ``(T,)`` over chains per second.  On the card a fixed-order reduction
     (per CTA, then over CTAs in index order): a repeated run gives the
@@ -1340,7 +1373,7 @@ def block_step_series(tables, rows_i, rows_f, k_scan, k_meter, carry,
     return _dispatch(k_scan, _series_cuda, series_plain, tables, rows_i,
                      rows_f, k_scan, k_meter, carry, meter_max_w,
                      surface_tilt, albedo, site, fleet, kernels=kernels,
-                     compute_dtype=compute_dtype, layout=layout)
+                     compute_dtype=compute_dtype, layout=layout, impl=impl)
 
 
 def block_step_trace(tables, rows_i, rows_f, k_scan, k_meter, carry,
@@ -1348,12 +1381,12 @@ def block_step_trace(tables, rows_i, rows_f, k_scan, k_meter, carry,
                      site: SiteGeometry | None = None,
                      fleet: FleetLeaves | None = None,
                      kernels: str = "exact", compute_dtype: str = "f32",
-                     layout: str = "trace"):
+                     layout: str = "trace", impl: str = "threefry2x32"):
     """One trace block: ``(carry, meter, pv)``, time-major ``(T, n)``."""
     return _dispatch(k_scan, _trace_cuda, trace_plain, tables, rows_i,
                      rows_f, k_scan, k_meter, carry, meter_max_w,
                      surface_tilt, albedo, site, fleet, kernels=kernels,
-                     compute_dtype=compute_dtype, layout=layout)
+                     compute_dtype=compute_dtype, layout=layout, impl=impl)
 
 
 def geometry_fields_plain(rows_f, site: SiteGeometry,

@@ -1,13 +1,15 @@
 """Build and load the hand-written CUDA kernels (nvcc into shared libraries,
 bound with ctypes).
 
-Each source of ``SOURCES`` — ``threefry.cu`` (K1), ``philox.cu`` (K13),
-``windows.cu`` (K2, K7's regime gather, K13's window draws),
+Each source of ``SOURCES`` — ``threefry.cu`` (K1), ``philox.cu`` (K13 and
+K14's standalone derivations), ``windows.cu`` (K2, K7's regime gather,
+K13's and K14's windows),
 ``block_step.cu`` and ``block_step_table.cu`` (the block-step template of
 ``block_step.cuh`` for the exact and the table kernel set),
 ``block_step_bf16.cu`` and ``block_step_bf16_table.cu`` (the same under
 ``compute_dtype='bf16'``, K12), the four ``block_step_rbg*.cu`` (the same
-four under ``prng_impl='rbg'``, K13), ``tables.cu`` (K11 on its own) and
+four under ``prng_impl='rbg'``, K13), the four ``block_step_urbg*.cu`` (under
+``prng_impl='unsafe_rbg'``, K14), ``tables.cu`` (K11 on its own) and
 ``wide_fold.cu`` (the K4 merges) — compiles, in parallel with the
 others, into its own shared
 library with a plain C interface, for ``sm_90a``; the headers of
@@ -46,7 +48,9 @@ BUILD_DIR = DEFAULT_BUILD_DIR
 SOURCES = ("block_step.cu", "block_step_table.cu", "block_step_bf16.cu",
            "block_step_bf16_table.cu", "block_step_rbg.cu",
            "block_step_rbg_table.cu", "block_step_rbg_bf16.cu",
-           "block_step_rbg_bf16_table.cu", "threefry.cu", "philox.cu",
+           "block_step_rbg_bf16_table.cu", "block_step_urbg.cu",
+           "block_step_urbg_table.cu", "block_step_urbg_bf16.cu",
+           "block_step_urbg_bf16_table.cu", "threefry.cu", "philox.cu",
            "windows.cu", "tables.cu", "wide_fold.cu")
 HEADERS = ("threefry.cuh", "philox.cuh", "block_step.cuh", "tables.cuh",
            "fold.cuh", "bf16.cuh")

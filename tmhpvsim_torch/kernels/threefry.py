@@ -1,16 +1,22 @@
-"""K1 and K13 wrappers: split / fold_in / bits / uniform / normal.
+"""K1, K13 and K14 wrappers: split / fold_in / bits / uniform / normal.
 
 K1 is threefry2x32 (``threefry_fill``, csrc/threefry.cu).  K13 is the
-Philox4x32-10 bits of ``prng_impl='rbg'`` keys (``philox_fill``,
-csrc/philox.cu with csrc/philox.cuh; replaces the XLA ``RngBitGenerator``
-behind ``jax.random.key(seed, impl='rbg')``, tmhpvsim_tpu/engine/
-simulation.py:333): rbg keys are ``(..., 4)``, split and folded by K1 on
-each 2-word half, their draws taken under jax's batching rule (the first
-key's stream, flat) unless ``per_key``.
+Philox4x32-10 bits of ``prng_impl='rbg'`` and ``'unsafe_rbg'`` keys
+(``philox_fill``, csrc/philox.cu with csrc/philox.cuh; replaces the XLA
+``RngBitGenerator`` behind ``jax.random.key(seed, impl='rbg')``,
+tmhpvsim_tpu/engine/simulation.py:333): those keys are ``(..., 4)``, their
+draws taken under jax's batching rule (the first key's stream, flat)
+unless ``per_key``.  rbg keys are split and folded by K1 on each 2-word
+half; unsafe_rbg keys by K14 (``philox_derive``, csrc/philox.cu), whose
+split and fold_in are Philox rows themselves (jax/_src/prng.py
+``_unsafe_rbg_split`` / ``_unsafe_rbg_fold_in``), batched as jax's vmap
+batches them (tmhpvsim_torch/rng.py).
 
-On a CPU tensor each wrapper runs its plain torch version
-(tmhpvsim_torch/rng.py); on a CUDA tensor it launches its kernel or
-raises.  ``K1.launches`` and ``K13.launches`` count the launches.
+Every wrapper takes the key implementation ``impl`` (the run's
+``prng_impl``) and refuses keys of another width.  On a CPU tensor each
+wrapper runs its plain torch version (tmhpvsim_torch/rng.py); on a CUDA
+tensor it launches its kernel or raises.  ``K1.launches``,
+``K13.launches`` and ``K14.launches`` count the launches.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from tmhpvsim_torch.kernels import build
 
 K1 = build.LaunchCounter("threefry_fill")
 K13 = build.LaunchCounter("philox_fill")
+K14 = build.LaunchCounter("philox_derive")
 
 _OPS = {"split": 0, "fold_in": 1, "bits": 2, "uniform": 3, "normal": 4}
 
@@ -59,30 +66,81 @@ def _on_card(keys: torch.Tensor) -> bool:
     return False
 
 
-def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``(..., 2) -> (..., num, 2)``; rbg ``(..., 4) -> (..., num, 4)``
-    (K1 on each half)."""
-    if _on_card(keys):
-        if rng.is_rbg(keys):
-            h = split(keys.reshape(*keys.shape[:-1], 2, 2), num)
-            return h.transpose(-3, -2).reshape(*keys.shape[:-1], num, 4)
-        return _fill("split", keys, num)
-    return rng.split(keys, num)
+_TF = "threefry2x32"
 
 
-def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
-    """One ``fold_in`` per key; ``data`` an int or a tensor of
-    ``keys.shape[:-1]``; rbg keys fold it into each half (K1)."""
-    if _on_card(keys):
-        d = torch.as_tensor(data, dtype=torch.int64, device=keys.device)
-        d = d.expand(keys.shape[:-1]).contiguous()
-        if rng.is_rbg(keys):
-            h = keys.reshape(*keys.shape[:-1], 2, 2)
-            f = _fill("fold_in", h,
-                      1, d[..., None].expand(h.shape[:-1]).contiguous())
-            return f.reshape(*keys.shape[:-1], 4)
-        return _fill("fold_in", keys, 1, d)
-    return rng.fold_in(keys, data)
+def _derive(op: str, keys: torch.Tensor, num: int = 1, batched: bool = True,
+            data: torch.Tensor = None, pos: torch.Tensor = None
+            ) -> torch.Tensor:
+    """K14 on the card: unsafe_rbg ``split`` of ``(m, 4)`` keys into
+    ``(m, num, 4)`` (``batched``: every row from the first key at counter
+    ``10 (row num + i)``; else each key's own rows ``10 i``), or
+    ``fold_in``: ``keys[r] ^`` row ``10 pos[r] + 9`` of the seed of
+    ``data[0]``."""
+    keys = keys.contiguous()
+    m = keys.shape[0]
+    if op == "split":
+        out = torch.empty((m, num, 4), dtype=torch.int64, device=keys.device)
+    else:
+        out = torch.empty_like(keys)
+    fn = build.entry("philox.cu", "philox_derive",
+                     [ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_void_p])
+    null = ctypes.c_void_p(0)
+    rc = fn(0 if op == "split" else 1, build.ptr(keys), m, num,
+            int(batched),
+            build.ptr(data) if data is not None else null,
+            build.ptr(pos) if pos is not None else null, build.ptr(out),
+            build.stream_ptr(keys.device))
+    build.check(rc, "philox_derive")
+    K14.launches += 1
+    return out
+
+
+def split(keys: torch.Tensor, num: int = 2, impl: str = _TF,
+          per_key: bool = False) -> torch.Tensor:
+    """``(..., w) -> (..., num, w)``: threefry (K1), rbg (K1 on each
+    half) or unsafe_rbg (K14, batched over the leading dims unless
+    ``per_key``)."""
+    rng.check_keys(keys, impl)
+    if not _on_card(keys):
+        return rng.split(keys, num, impl, per_key)
+    lead = keys.shape[:-1]
+    if impl == "unsafe_rbg":
+        batched = bool(lead) and not per_key
+        out = _derive("split", keys.reshape(-1, 4), num, batched)
+        return out.reshape(*lead, num, 4)
+    if impl == "rbg":
+        h = split(keys.reshape(*lead, 2, 2), num)
+        return h.transpose(-3, -2).reshape(*lead, num, 4)
+    return _fill("split", keys, num)
+
+
+def fold_in(keys: torch.Tensor, data, impl: str = _TF) -> torch.Tensor:
+    """One ``fold_in`` per key; ``data`` an int or a tensor broadcasting
+    against ``keys.shape[:-1]``; rbg keys fold it into each half (K1);
+    unsafe_rbg keys take a row of the datum's seed (K14; a batch of data
+    from the first datum's, at its flat position)."""
+    rng.check_keys(keys, impl)
+    if not _on_card(keys):
+        return rng.fold_in(keys, data, impl)
+    d = torch.as_tensor(data, dtype=torch.int64, device=keys.device)
+    shape = torch.broadcast_shapes(keys.shape[:-1], d.shape)
+    if impl == "unsafe_rbg":
+        pos = rng.positions(d.shape, d.device).expand(shape)
+        k = keys.expand(*shape, 4).reshape(-1, 4)
+        out = _derive("fold_in", k, data=d.reshape(-1)[:1].contiguous(),
+                      pos=pos.reshape(-1).contiguous())
+        return out.reshape(*shape, 4)
+    d = d.expand(shape).contiguous()
+    keys = keys.expand(*shape, keys.shape[-1])
+    if impl == "rbg":
+        h = keys.reshape(*shape, 2, 2)
+        f = _fill("fold_in", h,
+                  1, d[..., None].expand(h.shape[:-1]).contiguous())
+        return f.reshape(*shape, 4)
+    return _fill("fold_in", keys, 1, d)
 
 
 _PH_OPS = {"bits": 0, "uniform": 1, "normal": 2}
@@ -114,35 +172,36 @@ def philox_fill(op: str, keys: torch.Tensor, count: int,
     return out
 
 
-def bits(keys: torch.Tensor, count: int) -> torch.Tensor:
-    """32-bit draws ``(..., count)`` held in int64 (rbg keys: the batch's
-    draw, as jax's vmap makes it)."""
+def _draw(op: str, keys: torch.Tensor, count: int, impl: str):
+    rng.check_keys(keys, impl)
+    if impl == _TF:
+        return _fill(op, keys, count)
+    return philox_fill(op, keys, count)
+
+
+def bits(keys: torch.Tensor, count: int, impl: str = _TF) -> torch.Tensor:
+    """32-bit draws ``(..., count)`` held in int64 (rbg / unsafe_rbg keys:
+    the batch's draw, as jax's vmap makes it)."""
     if _on_card(keys):
-        if rng.is_rbg(keys):
-            return philox_fill("bits", keys, count)
-        return _fill("bits", keys, count)
-    return rng.random_bits(keys, (count,))
+        return _draw("bits", keys, count, impl)
+    return rng.random_bits(keys, (count,), impl=impl)
 
 
-def uniform(keys: torch.Tensor, count: int = 0) -> torch.Tensor:
+def uniform(keys: torch.Tensor, count: int = 0, impl: str = _TF
+            ) -> torch.Tensor:
     """``uniform(key, (count,))``; ``count=0`` draws one scalar per key
-    (rbg keys: the batch's draw, as jax's vmap makes it)."""
+    (rbg / unsafe_rbg keys: the batch's draw, as jax's vmap makes it)."""
     if _on_card(keys):
-        if rng.is_rbg(keys):
-            out = philox_fill("uniform", keys, max(count, 1))
-            return out if count else out[..., 0]
-        out = _fill("uniform", keys, max(count, 1))
+        out = _draw("uniform", keys, max(count, 1), impl)
         return out if count else out[..., 0]
-    return rng.uniform(keys, (count,) if count else ())
+    return rng.uniform(keys, (count,) if count else (), impl=impl)
 
 
-def normal(keys: torch.Tensor, count: int = 0) -> torch.Tensor:
+def normal(keys: torch.Tensor, count: int = 0, impl: str = _TF
+           ) -> torch.Tensor:
     """``normal(key, (count,))``; ``count=0`` draws one scalar per key
-    (rbg keys: the batch's draw, as jax's vmap makes it)."""
+    (rbg / unsafe_rbg keys: the batch's draw, as jax's vmap makes it)."""
     if _on_card(keys):
-        if rng.is_rbg(keys):
-            out = philox_fill("normal", keys, max(count, 1))
-            return out if count else out[..., 0]
-        out = _fill("normal", keys, max(count, 1))
+        out = _draw("normal", keys, max(count, 1), impl)
         return out if count else out[..., 0]
-    return rng.normal(keys, (count,) if count else ())
+    return rng.normal(keys, (count,) if count else (), impl=impl)

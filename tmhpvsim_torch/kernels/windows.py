@@ -19,10 +19,19 @@ has it (each batched draw from the batch's first key, the gamma draws per
 key; csrc/windows.cu); ``windows_plain`` is the same model functions on
 rbg keys.
 
+K14 (half of it): with ``impl='unsafe_rbg'`` the kernel's unsafe_rbg
+instantiation also derives the keys from Philox rows, batched as jax's
+vmap batches them (the chains' 4-way split from chain 0's ``k_arr``, a
+window's fold_in over its values from the seed of its first index, each
+gamma's entry split over (chain, value); csrc/windows.cu), the keys every
+chain shares once per CTA; ``windows_plain`` is the same model functions
+on unsafe_rbg keys.
+
 ``sampler_windows`` runs ``windows_plain`` on CPU tensors and launches the
 CUDA kernel (csrc/windows.cu) on CUDA tensors; ``K2.launches`` counts the
 launches, ``K7_REGIME.launches`` those with a regime vector,
-``K2_RBG.launches`` those with rbg keys.
+``K2_RBG.launches`` those with rbg keys, ``K2_URBG.launches`` those with
+unsafe_rbg keys.
 """
 
 from __future__ import annotations
@@ -43,6 +52,9 @@ from tmhpvsim_torch.models import markov_hourly
 K2 = build.LaunchCounter("sampler_windows")
 K7_REGIME = build.LaunchCounter("sampler_windows_regime")
 K2_RBG = build.LaunchCounter("sampler_windows_rbg")
+K2_URBG = build.LaunchCounter("sampler_windows_urbg")
+#: the kernel's key-implementation argument (csrc/windows.cu)
+_IMPL_CODE = {"threefry2x32": 0, "rbg": 1, "unsafe_rbg": 2}
 
 #: longest hour window one kernel thread holds (csrc/windows.cu MAX_HOURS)
 MAX_HOURS = 64
@@ -98,19 +110,20 @@ def kernel_constants() -> dict:
 
 
 def windows_plain(k_arr, k_min, cc_carry, cc0, b: Bounds, mh_idx, mh_frac,
-                  regime=None):
+                  regime=None, impl="threefry2x32"):
     """Plain torch K2 (the models' window functions, batched over chains).
 
     Returns ``(tables, new_cc_carry)`` with value-major tables ``cc``,
     ``cloudy``, ``clear_day``, ``ws``, ``ml`` (clear minute noise) and
     ``mc`` (cloudy minute noise).  ``regime`` (an ``(n,)`` integer tensor)
-    gives each chain its weather-regime step table."""
-    ks = rng.split(k_arr, 4)
+    gives each chain its weather-regime step table; ``impl`` is the keys'
+    implementation."""
+    ks = rng.split(k_arr, 4, impl)
     k_cc, k_cloudy, k_day, k_ws = (ks[:, i, :] for i in range(4))
     params = None if regime is None else markov_hourly.select_regime(
         markov_hourly.regime_step_params(k_arr.device), regime)
     cc_w, _ = markov_hourly.chain_window(k_cc, b.hour_lo, b.n_hours,
-                                         cc_carry, params)
+                                         cc_carry, params, impl)
     if b.n_hours:
         adv = min(max(b.hour_next_lo - b.hour_lo - 1, 0), b.n_hours - 1)
         carry = (cc_carry if b.hour_next_lo == b.hour_lo
@@ -120,13 +133,13 @@ def windows_plain(k_arr, k_min, cc_carry, cc0, b: Bounds, mh_idx, mh_frac,
     arrays = {
         "cc": cc_w,
         "cloudy": ci.cloudy_window(k_cloudy, b.hour_lo, b.n_cloudy, cc_w,
-                                   b.hour_lo, cc0),
-        "clear_day": ci.clear_day_window(k_day, b.cd_lo, b.n_cd),
-        "ws": ci.ws_window(k_ws, b.day_lo, b.n_days),
+                                   b.hour_lo, cc0, impl),
+        "clear_day": ci.clear_day_window(k_day, b.cd_lo, b.n_cd, impl),
+        "ws": ci.ws_window(k_ws, b.day_lo, b.n_days, impl),
     }
     if mh_idx.shape[0]:
         mvals = ci.minute_noise_values(k_min, cc_w, b.min_lo,
-                                       (mh_idx.long(), mh_frac))
+                                       (mh_idx.long(), mh_frac), impl)
     else:
         empty = cc_carry.new_empty((cc_carry.shape[0], 0))
         mvals = {"noise_min_cloudy": empty, "noise_min_clear": empty}
@@ -134,17 +147,16 @@ def windows_plain(k_arr, k_min, cc_carry, cc0, b: Bounds, mh_idx, mh_frac,
 
 
 def _windows_cuda(k_arr, k_min, cc_carry, cc0, b: Bounds, mh_idx, mh_frac,
-                  regime):
+                  regime, impl):
     if b.n_hours > MAX_HOURS or b.n_cloudy > MAX_HOURS:
         raise ValueError(f"hour window longer than {MAX_HOURS}")
     n = k_arr.shape[0]
     dev = k_arr.device
     n_min = int(mh_idx.shape[0])
-    width = k_arr.shape[-1]
-    if k_arr.shape != (n, width) or width not in (2, 4) or \
-            k_min.shape != (n, width):
-        raise ValueError("sampler_windows: k_arr and k_min must be (n, 2) "
-                         "threefry or (n, 4) rbg keys")
+    width = rng.KEY_WIDTH[impl]
+    if k_arr.shape != (n, width) or k_min.shape != (n, width):
+        raise ValueError(f"sampler_windows: k_arr and k_min must be "
+                         f"(n, {width}) {impl} keys")
     args = [k_arr, k_min, cc_carry, cc0]
     dts = [torch.int64, torch.int64, torch.float32, torch.float32]
     if regime is not None:
@@ -179,30 +191,34 @@ def _windows_cuda(k_arr, k_min, cc_carry, cc0, b: Bounds, mh_idx, mh_frac,
             p(mh_idx), p(mh_frac),
             p(tables["cc"]), p(tables["cloudy"]), p(tables["clear_day"]),
             p(tables["ws"]), p(tables["ml"]), p(tables["mc"]), p(carry),
-            int(width == 4), build.stream_ptr(dev))
+            _IMPL_CODE[impl], build.stream_ptr(dev))
     build.check(rc, "sampler_windows")
     K2.launches += 1
-    if width == 4:
+    if impl == "rbg":
         K2_RBG.launches += 1
+    elif impl == "unsafe_rbg":
+        K2_URBG.launches += 1
     if regime is not None:
         K7_REGIME.launches += 1
     return tables, carry
 
 
 def sampler_windows(k_arr, k_min, cc_carry, cc0, bounds: Bounds,
-                    mh_idx, mh_frac, regime=None):
+                    mh_idx, mh_frac, regime=None, impl="threefry2x32"):
     """One block's value-major sampler tables and the advanced Markov carry.
 
-    ``k_arr``/``k_min`` are the chains' ``(n, 2)`` keys, ``cc_carry`` the
+    ``k_arr``/``k_min`` are the chains' ``(n, w)`` keys of ``impl`` (the
+    run's ``prng_impl``), ``cc_carry`` the
     Markov state before ``bounds.hour_lo``, ``cc0`` the construction-time
     cloud cover the primer cloudy draws see; ``mh_idx``/``mh_frac`` give
     each minute-noise value's hour index (into the hour window) and hour
     fraction at its draw instant; ``regime`` (``(n,)`` int32, or None for
     the Munich table) each chain's weather regime."""
+    rng.check_keys(k_arr, impl)
     if k_arr.device.type == "cuda":
         return _windows_cuda(k_arr, k_min, cc_carry, cc0, bounds, mh_idx,
-                             mh_frac, regime)
+                             mh_frac, regime, impl)
     if k_arr.device.type != "cpu":
         raise ValueError(f"unsupported device {k_arr.device}")
     return windows_plain(k_arr, k_min, cc_carry, cc0, bounds, mh_idx,
-                         mh_frac, regime)
+                         mh_frac, regime, impl)

@@ -9,12 +9,15 @@ it touches: hourly cloud cover (a Markov chain, the only sequential
 dependency above 1 s), hourly cloudy csi, clear-day csi (advancing on hour
 and day rollovers), daily windspeed, and the two minute-noise streams.
 
-Window functions take ``(chains, 2)`` keys and return ``(chains, n)``
-values; ``value_major_tables`` turns them into the ``(n, chains)`` tables
-the per-second step reads row by row.  The hourly cloud cover is
-``markov_hourly.chain_window`` (the persistent chain; the JAX package's
-``cc_window`` also offers the reference's i.i.d. compat mode, which the
-port's ModelOptions refuse).
+Window functions take ``(chains, w)`` keys of the run's implementation
+(``impl=``, tmhpvsim_torch/rng.py) and return ``(chains, n)`` values,
+their tensors' dims laid out in the JAX call site's vmap nesting (chains
+outside, the window's values inside), which is what decides every batched
+derivation and draw under rbg and unsafe_rbg; ``value_major_tables`` turns
+them into the ``(n, chains)`` tables the per-second step reads row by row.
+The hourly cloud cover is ``markov_hourly.chain_window`` (the persistent
+chain; the JAX package's ``cc_window`` also offers the reference's i.i.d.
+compat mode, which the port's ModelOptions refuse).
 """
 
 from __future__ import annotations
@@ -51,16 +54,17 @@ def _f32(v, device):
     return torch.tensor(v, dtype=torch.float32, device=device)
 
 
-def cloudy_csi_draw(keys, cc):
+def cloudy_csi_draw(keys, cc, impl="threefry2x32"):
     """One cloudy-csi sample per key given the cloud cover at the draw."""
-    ks = rng.split(keys, 2)
-    z = dist.normal(ks[..., 0, :], CSI_CLOUDY_NORM_LOC, CSI_CLOUDY_NORM_SCALE)
+    ks = rng.split(keys, 2, impl)
+    z = dist.normal(ks[..., 0, :], CSI_CLOUDY_NORM_LOC, CSI_CLOUDY_NORM_SCALE,
+                    impl)
     mid = cc < 7 / 8
     a = torch.where(mid, _f32(CSI_CLOUDY_GAMMA_MID[0], cc.device),
                     _f32(CSI_CLOUDY_GAMMA_HIGH[0], cc.device))
     scale = torch.where(mid, _f32(CSI_CLOUDY_GAMMA_MID[1], cc.device),
                         _f32(CSI_CLOUDY_GAMMA_HIGH[1], cc.device))
-    g = scale * rng.gamma(ks[..., 1, :], a)
+    g = scale * rng.gamma(ks[..., 1, :], a, impl)
     return torch.where(cc < 6 / 8, z, g)
 
 
@@ -68,7 +72,8 @@ def _idx(lo: int, n: int, device):
     return lo + torch.arange(n, dtype=torch.int64, device=device)
 
 
-def cloudy_window(k_cloudy, lo: int, n: int, cc_vals, cc_lo: int, cc0):
+def cloudy_window(k_cloudy, lo: int, n: int, cc_vals, cc_lo: int, cc0,
+                  impl="threefry2x32"):
     """Cloudy csi for global indices [lo, lo+n).  Value k >= 2 is drawn at
     hour rollover k-1 and sees cc[k-1] (from the window ``cc_vals`` that
     starts at global ``cc_lo``); the primers k < 2 see ``cc0``."""
@@ -78,23 +83,23 @@ def cloudy_window(k_cloudy, lo: int, n: int, cc_vals, cc_lo: int, cc0):
     gathered = (cc_vals[:, pos] if cc_vals.shape[-1]
                 else cc0[:, None].expand(-1, n))
     cc_at = torch.where(idx < 2, cc0[:, None], gathered)
-    keys = rng.fold_in(k_cloudy[:, None, :], idx)
-    return cloudy_csi_draw(keys, cc_at)
+    keys = rng.fold_in(k_cloudy[:, None, :], idx, impl)
+    return cloudy_csi_draw(keys, cc_at, impl)
 
 
-def clear_day_window(k_day, lo: int, n: int):
+def clear_day_window(k_day, lo: int, n: int, impl="threefry2x32"):
     """Clear-sky-day values for global pair indices [lo, lo+n)."""
-    keys = rng.fold_in(k_day[:, None, :], _idx(lo, n, k_day.device))
-    return dist.normal(keys, CSI_CLEAR_DAY_LOC, CSI_CLEAR_DAY_SCALE)
+    keys = rng.fold_in(k_day[:, None, :], _idx(lo, n, k_day.device), impl)
+    return dist.normal(keys, CSI_CLEAR_DAY_LOC, CSI_CLEAR_DAY_SCALE, impl)
 
 
-def ws_window(k_ws, lo: int, n: int):
+def ws_window(k_ws, lo: int, n: int, impl="threefry2x32"):
     """Daily windspeed values for global day indices [lo, lo+n)."""
     return dist.windspeed(
-        rng.fold_in(k_ws[:, None, :], _idx(lo, n, k_ws.device)))
+        rng.fold_in(k_ws[:, None, :], _idx(lo, n, k_ws.device), impl), impl)
 
 
-def minute_noise_values(k_min, cc, lo: int, feats):
+def minute_noise_values(k_min, cc, lo: int, feats, impl="threefry2x32"):
     """Minute-noise values for global indices [lo, lo+len(feats)).
 
     Value i uses ``fold_in(fold_in(key, i), 0 | 1)`` (cloudy | clear);
@@ -105,11 +110,12 @@ def minute_noise_values(k_min, cc, lo: int, feats):
     h_idx, h_frac = feats
     cc_at = cc[:, h_idx] * (1 - h_frac) + cc[:, h_idx + 1] * h_frac
     keys = rng.fold_in(k_min[:, None, :], _idx(lo, h_idx.shape[0],
-                                                k_min.device))
+                                                k_min.device), impl)
 
     def draw(sub, s0, s1):
         sigma = SIGMA_MIN_FACTOR * (s0 + s1 * 8.0 * cc_at)
-        return 1.0 + sigma * rng.normal(rng.fold_in(keys, sub))
+        return 1.0 + sigma * rng.normal(rng.fold_in(keys, sub, impl),
+                                        impl=impl)
 
     return {
         "noise_min_cloudy": draw(0, *NOISE_CLOUDY),
@@ -121,12 +127,14 @@ def minute_noise_values(k_min, cc, lo: int, feats):
 #: scan's ``scan_draws_tmajor`` (groups outside, chains inside), 'scan2'
 #: the nested scan's per-minute draws, 'trace' the wide / trace step's
 #: per-chain ``_minute_grouped_draws`` (chains outside, groups inside).
-#: threefry keys draw the same values in each; rbg keys do not (each
-#: batched draw takes its batch's first key, rng.py)
+#: threefry keys draw the same values in each; rbg and unsafe_rbg keys do
+#: not (each batched draw takes its batch's first key, and under
+#: unsafe_rbg a batched fold of the minutes takes the first minute's
+#: seed, rng.py)
 DRAW_LAYOUTS = ("scan", "scan2", "trace")
 
 
-def _tmajor(keys, draw, g0: int, n_groups: int, layout: str):
+def _tmajor(keys, draw, g0: int, n_groups: int, layout: str, impl: str):
     """``draw(per-group keys)`` -> ``(..., 60)`` values laid out time-major
     ``(n_groups*60, chains)``, with the key batch of ``layout``."""
     if layout not in DRAW_LAYOUTS:
@@ -136,39 +144,40 @@ def _tmajor(keys, draw, g0: int, n_groups: int, layout: str):
     if layout == "trace":
         # minute_grouped_keys: (T + 119) // 60 groups, one spare
         g = _idx(g0, n_groups + 1, keys.device)
-        v = draw(rng.fold_in(keys[:, None, :], g))[:, :n_groups]
+        v = draw(rng.fold_in(keys[:, None, :], g, impl))[:, :n_groups]
         return v.permute(1, 2, 0).reshape(n_groups * 60, n).contiguous()
     if layout == "scan2":
-        v = torch.stack([draw(rng.fold_in(keys, g0 + j))
+        v = torch.stack([draw(rng.fold_in(keys, g0 + j, impl))
                          for j in range(n_groups)])
     else:
         g = _idx(g0, n_groups, keys.device)
-        v = draw(rng.fold_in(keys[None, :, :], g[:, None]))  # (G, n, 60)
+        v = draw(rng.fold_in(keys[None, :, :], g[:, None], impl))  # (G, n)
     return v.permute(0, 2, 1).reshape(n_groups * 60, n).contiguous()
 
 
 def scan_draws_tmajor(keys, g0: int, n_groups: int, dtype=torch.float32,
-                      layout: str = "scan"):
+                      layout: str = "scan", impl: str = "threefry2x32"):
     """Per-second (u_cycle, z_sec) streams of a minute-aligned block,
     time-major ``(n_groups*60, chains)``: second s reads slot s % 60 of
     ``fold_in(fold_in(k_scan, g0 + s//60), 0 | 1)``; ``dtype`` float32 or
     (``compute_dtype='bf16'``) bfloat16; ``layout`` one of
     ``DRAW_LAYOUTS``."""
-    u = _tmajor(keys, lambda kg: rng.uniform(rng.fold_in(kg, 0), (60,),
-                                             dtype=dtype),
-                g0, n_groups, layout)
-    z = _tmajor(keys, lambda kg: rng.normal(rng.fold_in(kg, 1), (60,),
-                                            dtype=dtype),
-                g0, n_groups, layout)
+    u = _tmajor(keys, lambda kg: rng.uniform(rng.fold_in(kg, 0, impl),
+                                             (60,), dtype=dtype, impl=impl),
+                g0, n_groups, layout, impl)
+    z = _tmajor(keys, lambda kg: rng.normal(rng.fold_in(kg, 1, impl), (60,),
+                                            dtype=dtype, impl=impl),
+                g0, n_groups, layout, impl)
     return u, z
 
 
 def meter_block_tmajor(keys, g0: int, n_groups: int, max_w: float,
-                       layout: str = "scan"):
+                       layout: str = "scan", impl: str = "threefry2x32"):
     """Time-major meter stream ``(n_groups*60, chains)``:
     ``max_w * uniform(fold_in(k_meter, g), (60,))``."""
-    return max_w * _tmajor(keys, lambda kg: rng.uniform(kg, (60,)),
-                           g0, n_groups, layout)
+    return max_w * _tmajor(keys, lambda kg: rng.uniform(kg, (60,),
+                                                         impl=impl),
+                           g0, n_groups, layout, impl)
 
 
 def value_major_tables(arrays, minute_vals):

@@ -1,13 +1,15 @@
 """Keyed samplers for the weather models, batched over leading dims
 (own copy of tmhpvsim_tpu/models/distributions.py in torch).
 
-Every sampler takes ``(..., 2)`` threefry keys (tmhpvsim_torch/rng.py) and
-parameters that broadcast against ``keys[..., 0]``; each key yields one
-scalar draw, exactly the draw the JAX function makes from that key on the
-CPU.  Where XLA's CPU code contracts a multiply into an add (the Student-t
-and asymmetric-Laplace steps, read off its output: a fused multiply-add
-per single-use product inside one fused loop), the port uses ``rng.fma``
-at the same place, and ``rng.xla_log`` for ``log``.
+Every sampler takes keys of the run's implementation ``impl``
+(tmhpvsim_torch/rng.py: ``(..., 2)`` threefry, ``(..., 4)`` rbg or
+unsafe_rbg, whose leading dims are the vmap batch dims) and parameters
+that broadcast against ``keys[..., 0]``; each key yields one scalar draw,
+exactly the draw the JAX function makes from that key on the CPU. Where
+XLA's CPU code contracts a multiply into an add (the Student-t and
+asymmetric-Laplace steps, read off its output: a fused multiply-add per
+single-use product inside one fused loop), the port uses ``rng.fma`` at
+the same place, and ``rng.xla_log`` for ``log``.
 """
 
 from __future__ import annotations
@@ -34,15 +36,15 @@ def asymmetric_laplace_ppf(q, kappa):
     return torch.where(q < split, lo, hi)
 
 
-def asymmetric_laplace(keys, loc, scale, kappa):
+def asymmetric_laplace(keys, loc, scale, kappa, impl="threefry2x32"):
     """loc + scale * AL(kappa) from ``uniform(key, minval=tiny)``."""
-    u = rng.asymmetric_laplace_uniform(keys)
+    u = rng.asymmetric_laplace_uniform(keys, impl)
     return rng.fma(scale, asymmetric_laplace_ppf(u, kappa), loc)
 
 
-def student_t(keys, loc, scale, df):
+def student_t(keys, loc, scale, df, impl="threefry2x32"):
     """loc + scale * t(df)."""
-    return rng.fma(scale, rng.t(keys, df), loc)
+    return rng.fma(scale, rng.t(keys, df, impl), loc)
 
 
 CLOUD_LENGTH_BETA = 1.66
@@ -72,12 +74,12 @@ WINDSPEED_SHAPE = 2.69
 WINDSPEED_SCALE = 2.14
 
 
-def windspeed(keys):
+def windspeed(keys, impl="threefry2x32"):
     """Gamma(2.69, scale=2.14) windspeed [m/s]."""
     a = torch.tensor(WINDSPEED_SHAPE, dtype=torch.float32, device=keys.device)
-    return WINDSPEED_SCALE * rng.gamma(keys, a)
+    return WINDSPEED_SCALE * rng.gamma(keys, a, impl)
 
 
-def normal(keys, loc, scale):
+def normal(keys, loc, scale, impl="threefry2x32"):
     """loc + scale * N(0, 1) (not contracted by XLA)."""
-    return loc + scale * rng.normal(keys)
+    return loc + scale * rng.normal(keys, impl=impl)

@@ -71,9 +71,10 @@ def _take(v, idx):
     return v.gather(-1, idx.unsqueeze(-1)).squeeze(-1)
 
 
-def transition(keys, state, params):
-    """One Markov transition of ``state`` (any shape; keys ``(*shape, 2)``;
-    per-chain ``params`` leaves ``(*shape, 6)`` from ``select_regime``)."""
+def transition(keys, state, params, impl="threefry2x32"):
+    """One Markov transition of ``state`` (any shape; keys ``(*shape, w)``
+    of ``impl``, batched over ``shape``; per-chain ``params`` leaves
+    ``(*shape, 6)`` from ``select_regime``)."""
     idx = torch.searchsorted(params["bins"], state.contiguous(), right=False)
     idx = torch.clamp(idx, 0, params["loc"].shape[-1] - 1)
     loc = _take(params["loc"], idx)
@@ -81,24 +82,27 @@ def transition(keys, state, params):
     kappa = _take(params["kappa"], idx)
     df = _take(params["df"], idx)
     is_t = _take(params["is_t"], idx)
-    ks = rng.split(keys, 2)
-    d_al = dist.asymmetric_laplace(ks[..., 0, :], loc, scale, kappa)
-    d_t = dist.student_t(ks[..., 1, :], loc, scale, df)
+    ks = rng.split(keys, 2, impl)
+    d_al = dist.asymmetric_laplace(ks[..., 0, :], loc, scale, kappa, impl)
+    d_t = dist.student_t(ks[..., 1, :], loc, scale, df, impl)
     step = torch.where(is_t > 0.5, d_t, d_al)
     return torch.clamp(state + step, 0.0, 1.0)
 
 
-def chain_window(keys, start: int, n: int, state, params=None):
+def chain_window(keys, start: int, n: int, state, params=None,
+                 impl="threefry2x32"):
     """``n`` successive states for global indices [start, start+n) of each
     chain, continuing from ``state`` (the state before transition
-    ``start``); transition i is keyed by ``fold_in(key, i)``.  ``keys`` is
-    ``(chains, 2)``, ``state`` ``(chains,)``.  Returns
+    ``start``); transition i is keyed by ``fold_in(key, i)`` (the JAX
+    scan's, one index per step, so never a batched datum).  ``keys`` is
+    ``(chains, w)``, ``state`` ``(chains,)``.  Returns
     ``(values (chains, n), final state)``."""
     if params is None:
         params = step_params(keys.device)
     out = []
     for i in range(n):
-        state = transition(rng.fold_in(keys, start + i), state, params)
+        state = transition(rng.fold_in(keys, start + i, impl), state,
+                           params, impl)
         out.append(state)
     if not out:
         return state.new_empty(state.shape + (0,)), state

@@ -37,10 +37,11 @@ def init_from_u(u_cycle, u_phase, cloudcover, windspeed):
     return {"cloud_end": cloud, "total_end": total, "sec": total * u_phase}
 
 
-def init(keys, cloudcover, windspeed):
+def init(keys, cloudcover, windspeed, impl="threefry2x32"):
     """Initial carry: ``k_cycle, k_phase = split(key)``, one uniform each."""
-    ks = rng.split(keys, 2)
-    return init_from_u(rng.uniform(ks[..., 0, :]), rng.uniform(ks[..., 1, :]),
+    ks = rng.split(keys, 2, impl)
+    return init_from_u(rng.uniform(ks[..., 0, :], impl=impl),
+                       rng.uniform(ks[..., 1, :], impl=impl),
                        cloudcover, windspeed)
 
 

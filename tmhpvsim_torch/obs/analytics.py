@@ -40,6 +40,7 @@ plain versions.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -187,9 +188,23 @@ def _f32(v, device):
     return torch.tensor(v, dtype=torch.float32, device=device)
 
 
+def _row_bincount(idx, use, nbins: int, rows) -> torch.Tensor:
+    """int32 counts of ``idx[use]`` in ``nbins`` bins, one histogram per
+    leading row (``rows``: the shape before the chain axis)."""
+    if not rows:
+        return torch.bincount(idx[use], minlength=nbins).to(torch.int32)
+    r = math.prod(rows)
+    off = torch.arange(r, dtype=torch.int64, device=idx.device).reshape(
+        *rows, 1) * nbins
+    return torch.bincount((idx + off)[use], minlength=r * nbins).reshape(
+        *rows, nbins).to(torch.int32)
+
+
 def fold_second(acc: dict, level: str, params: FleetParams, *, meter, pv,
                 residual, covered, t, valid, cohort=None) -> dict:
-    """Fold one second of ``(n,)`` vectors into a per-chain acc.
+    """Fold one second of ``(n,)`` vectors into a per-chain acc (or of
+    ``(B, n)`` rows into a stack of B accs, each row's counts and
+    histograms its own; without cohort leaves).
 
     ``t`` is the second's global index (it drives the ramp grids),
     ``valid`` its duration mask; a non-finite residual drops the sample
@@ -203,20 +218,20 @@ def fold_second(acc: dict, level: str, params: FleetParams, *, meter, pv,
     use = valid & torch.isfinite(r)
     uz = use.to(torch.int32)
     out = dict(acc)
-    out["count"] = acc["count"] + uz.sum(dtype=torch.int32)
+    rows = r.shape[:-1]
+    out["count"] = acc["count"] + uz.sum(-1, dtype=torch.int32)
     lo = _f32(params.lo, dev)
     b = torch.where(use, (r - lo) * _f32(params.inv_w, dev),
                     _f32(0.0, dev))
     b = torch.clamp(b, -1.0, float(params.bins))
     idx = torch.floor(b).to(torch.int64) + 1
     nb = params.bins + 2
-    out["res_hist"] = acc["res_hist"] + torch.bincount(
-        idx[use], minlength=nb).to(torch.int32)
+    out["res_hist"] = acc["res_hist"] + _row_bincount(idx, use, nb, rows)
     th = torch.tensor(params.thresholds, dtype=torch.float32, device=dev)
     rg = torch.where(use, r, lo)
     slot = torch.searchsorted(th, rg.contiguous(), right=False)
-    out["exceed"] = acc["exceed"] + torch.bincount(
-        slot[use], minlength=len(params.thresholds) + 1).to(torch.int32)
+    out["exceed"] = acc["exceed"] + _row_bincount(
+        slot, use, len(params.thresholds) + 1, rows)
     out["min_res"] = torch.minimum(acc["min_res"], torch.where(use, r, _BIG))
     out["max_res"] = torch.maximum(acc["max_res"],
                                    torch.where(use, r, -_BIG))

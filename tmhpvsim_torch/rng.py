@@ -34,8 +34,8 @@ generated code), so normals, gamma and t draws are bit-exact too.
 
 ``prng_impl='rbg'`` keys are ``(..., 4)`` (``jax.random.key(seed,
 impl='rbg')``: ``[hi, lo, hi, lo]`` of the seed).  jax derives them with
-threefry, one hash per 2-word half (``split`` and ``fold_in`` here take
-either width), and draws their bits with XLA's ``RngBitGenerator``, which
+threefry, one hash per 2-word half (``split`` and ``fold_in`` with
+``impl='rbg'``), and draws their bits with XLA's ``RngBitGenerator``, which
 is Philox4x32-10 on the CPU: for key data ``[w0, w1, w2, w3]`` the 32-bit
 stream is ``philox4x32_10(counter=(w2, w3, w0, w1) + q, key=(w0, w1))``,
 four words per 128-bit counter value ``q``, in flat order; 8- and 16-bit
@@ -45,6 +45,27 @@ whole batch from its FIRST key (``_rng_bit_generator_batching_rule``):
 of ``keys[0, ..., 0]``'s stream, the batch dims in vmap nesting order,
 outermost first.  ``gamma`` alone draws per key (jax maps it serially
 over its keys for a non-threefry impl), as ``per_key=True`` does.
+
+``prng_impl='unsafe_rbg'`` keys are rbg key data with rbg bits, but
+``split`` and ``fold_in`` are draws themselves (``jax/_src/prng.py``
+``_unsafe_rbg_split`` / ``_unsafe_rbg_fold_in``): ``split(k, n)[i]`` is
+row ``10 i`` of a ``(10 n, 4)`` draw from ``k``, i.e. the four words of
+Philox counter value ``10 i``; ``fold_in(k, d)`` is ``k ^`` row 9 of a
+``(10, 4)`` draw from ``_rbg_seed(d) = [0, d, 0, d]``.  Under ``vmap``
+those draws follow the same first-key rule: a split of a batch of keys
+takes member ``p``'s rows from the first key at counter ``10 (p n + i)``,
+a fold of a batch of data takes datum ``p``'s row from the first datum's
+seed at counter ``10 p + 9``.  So here, as for rbg bits, the leading
+dims of a key (or data) tensor are the vmap batch dims in nesting order,
+and a dim of size 1 is one the call is not batched over; ``per_key=True``
+asks for each key's own unbatched derivation.  jax's gamma splits its
+flattened keys under ``vmap`` before mapping them serially, so under
+unsafe_rbg its entry split is batched (over the broadcast of the keys'
+and ``alpha``'s batch) and the rest runs per key.
+
+Nothing here infers the key implementation from a key's shape: every
+function that derives or draws takes ``impl=`` (the run's ``prng_impl``)
+and refuses keys whose width is not that implementation's.
 
 Every function here works on tensors of any device; the CUDA kernels in
 ``tmhpvsim_torch/csrc/threefry.cuh`` and ``philox.cuh`` implement the
@@ -219,34 +240,58 @@ def _counter(n: int, like: torch.Tensor) -> torch.Tensor:
 
 
 def rbg_key(seed: int, device=None) -> torch.Tensor:
-    """The key data of ``jax.random.key(seed, impl='rbg')``: the threefry
-    key twice, ``[hi, lo, hi, lo]``."""
+    """The key data of ``jax.random.key(seed, impl='rbg')`` (and of
+    'unsafe_rbg', which shares ``_rbg_seed``): the threefry key twice,
+    ``[hi, lo, hi, lo]``."""
     k = key(seed, device)
     return torch.cat([k, k])
 
 
+#: the key implementations (SimConfig.prng_impl) and their key widths
+IMPLS = ("threefry2x32", "rbg", "unsafe_rbg")
+KEY_WIDTH = {"threefry2x32": 2, "rbg": 4, "unsafe_rbg": 4}
+
+
 def root_key(seed: int, prng_impl: str = "threefry2x32", device=None):
     """The root key of a run under ``prng_impl``."""
-    if prng_impl == "rbg":
+    if prng_impl in ("rbg", "unsafe_rbg"):
         return rbg_key(seed, device)
     if prng_impl != "threefry2x32":
         raise ValueError(f"unsupported prng_impl {prng_impl!r}")
     return key(seed, device)
 
 
-def is_rbg(keys: torch.Tensor) -> bool:
-    """Whether ``keys`` are 4-word rbg keys (else 2-word threefry)."""
-    return keys.shape[-1] == 4
+def check_keys(keys: torch.Tensor, impl: str) -> None:
+    """Refuse ``keys`` whose last dim is not ``impl``'s key width."""
+    if impl not in KEY_WIDTH:
+        raise ValueError(f"unsupported prng_impl {impl!r}")
+    if keys.shape[-1:] != (KEY_WIDTH[impl],):
+        raise ValueError(f"{impl} keys are (..., {KEY_WIDTH[impl]}), got "
+                         f"{tuple(keys.shape)}")
 
 
 def _halves(keys: torch.Tensor) -> torch.Tensor:
     return keys.reshape(*keys.shape[:-1], 2, 2)
 
 
-def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split``: ``(..., 2) -> (..., num, 2)``; rbg keys
-    ``(..., 4) -> (..., num, 4)``, each half split by threefry."""
-    if is_rbg(keys):
+def positions(shape, device) -> torch.Tensor:
+    """Each member's flat index in a batch of ``shape`` (row-major: the
+    vmap nesting order, outermost first)."""
+    return torch.arange(math.prod(shape), dtype=torch.int64,
+                        device=device).reshape(shape)
+
+
+def split(keys: torch.Tensor, num: int = 2, impl: str = "threefry2x32",
+          per_key: bool = False) -> torch.Tensor:
+    """``jax.random.split``: ``(..., w) -> (..., num, w)``.  threefry
+    hashes each key; rbg splits each 2-word half by threefry; unsafe_rbg
+    takes Philox rows, batched over the leading dims (the first key's
+    rows, member ``p`` at counter ``10 (p num + i)``) unless ``per_key``
+    (each key's own rows ``10 i``)."""
+    check_keys(keys, impl)
+    if impl == "unsafe_rbg":
+        return _urbg_split(keys, num, per_key)
+    if impl == "rbg":
         s = split(_halves(keys), num)                   # (..., 2, num, 2)
         return s.transpose(-3, -2).reshape(*keys.shape[:-1], num, 4)
     k0 = keys[..., 0, None]
@@ -255,12 +300,18 @@ def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
-def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
+def fold_in(keys: torch.Tensor, data, impl: str = "threefry2x32"
+            ) -> torch.Tensor:
     """``jax.random.fold_in``; ``data`` is an int or an integer tensor that
     broadcasts against ``keys[..., 0]`` (taken modulo 2**32, as jax's
-    uint32 cast does).  rbg keys fold ``data`` into each half."""
+    uint32 cast does).  rbg keys fold ``data`` into each half; unsafe_rbg
+    keys are XORed with a row drawn from the datum's seed, a batch of data
+    (its dims of size > 1) from the first datum's at ``10 p + 9``."""
+    check_keys(keys, impl)
     d = torch.as_tensor(data, dtype=torch.int64, device=keys.device) & MASK32
-    if is_rbg(keys):
+    if impl == "unsafe_rbg":
+        return keys ^ urbg_fold_rows(d)
+    if impl == "rbg":
         f = fold_in(_halves(keys), d[..., None] if d.dim() else d)
         return f.reshape(*f.shape[:-2], 4)
     y0, y1 = threefry2x32(keys[..., 0], keys[..., 1], torch.zeros_like(d), d)
@@ -321,6 +372,44 @@ def rbg_stream(key4: torch.Tensor, count: int) -> torch.Tensor:
     return torch.stack(_philox_at(key4, q), dim=-1).reshape(-1)[:count]
 
 
+def _rows(keys: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Row ``q`` (int64, broadcasting against ``keys[..., 0]``) of a
+    ``(rows, 4)`` uint32 draw from rbg key data: Philox counter value
+    ``q``'s four words, ``(..., 4)``."""
+    return torch.stack(_philox_at(keys, q), dim=-1)
+
+
+def _rbg_seed(d: torch.Tensor) -> torch.Tensor:
+    """``_rbg_seed`` of uint32 data: ``[0, d, 0, d]`` (threefry_seed of a
+    32-bit datum puts it in the low word, the high word zero), ``(...,
+    4)``."""
+    z = torch.zeros_like(d)
+    return torch.stack([z, d, z, d], dim=-1)
+
+
+def urbg_fold_rows(d: torch.Tensor) -> torch.Tensor:
+    """The rows unsafe_rbg's ``fold_in`` XORs into keys for uint32 data
+    ``d``: row 9 of ``_rbg_seed(d)``'s draw for a scalar; for a batch, the
+    first datum's rows ``10 p + 9`` (``(*d.shape, 4)``)."""
+    if d.dim() == 0:
+        return _rows(_rbg_seed(d), torch.tensor(9, device=d.device))
+    if d.numel() == 0:
+        return torch.zeros((*d.shape, 4), dtype=torch.int64,
+                           device=d.device)
+    p = positions(d.shape, d.device)
+    return _rows(_rbg_seed(d.reshape(-1)[0]), 10 * p + 9)
+
+
+def _urbg_split(keys: torch.Tensor, num: int, per_key: bool
+                ) -> torch.Tensor:
+    lead = keys.shape[:-1]
+    i = torch.arange(num, dtype=torch.int64, device=keys.device)
+    if per_key or not lead or keys.numel() == 0:
+        return _rows(keys[..., None, :], 10 * i)
+    p = positions(lead, keys.device)[..., None]
+    return _rows(keys.reshape(-1, 4)[0], 10 * (p * num + i))
+
+
 def rbg_bits_batched(keys: torch.Tensor, shape=()) -> torch.Tensor:
     """``random_bits`` of rbg ``keys`` ``(*B, 4)`` under ``vmap`` over
     the batch dims ``B`` (jax's batching rule): the ``(*B, *shape)``
@@ -353,16 +442,17 @@ def rbg_bits(key4: torch.Tensor, shape=(), width: int = 32) -> torch.Tensor:
     return rbg_bits_batched(key4, shape) & ((1 << width) - 1)
 
 
-def random_bits(keys: torch.Tensor, shape=(), per_key: bool = False
-                ) -> torch.Tensor:
-    """32-bit ``jax.random.bits``: ``(..., 2) -> (..., *shape)`` int64.
+def random_bits(keys: torch.Tensor, shape=(), per_key: bool = False,
+                impl: str = "threefry2x32") -> torch.Tensor:
+    """32-bit ``jax.random.bits``: ``(..., w) -> (..., *shape)`` int64.
 
-    rbg keys ``(..., 4)`` follow jax's batching rule (the first key's
+    rbg and unsafe_rbg keys follow jax's batching rule (the first key's
     stream, ``rbg_bits_batched``) unless ``per_key`` (each key its own
     stream, ``rbg_bits_per_key``); a threefry draw is per key either way.
     """
+    check_keys(keys, impl)
     shape = tuple(shape)
-    if is_rbg(keys):
+    if impl != "threefry2x32":
         return (rbg_bits_per_key(keys, shape) if per_key
                 else rbg_bits_batched(keys, shape))
     n = math.prod(shape)
@@ -379,8 +469,8 @@ def bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
 
 
 def uniform(keys: torch.Tensor, shape=(), minval: float = 0.0,
-            maxval: float = 1.0, dtype=_F32, per_key: bool = False
-            ) -> torch.Tensor:
+            maxval: float = 1.0, dtype=_F32, per_key: bool = False,
+            impl: str = "threefry2x32") -> torch.Tensor:
     """``jax.random.uniform(key, shape, dtype, minval, maxval)``, dtype
     float32 or bfloat16.
 
@@ -388,10 +478,10 @@ def uniform(keys: torch.Tensor, shape=(), minval: float = 0.0,
     the float32 draw uses, whose upper 7 become the mantissa of a bf16 in
     [1, 2); the affine steps are bf16 operations, each rounded."""
     if dtype == torch.bfloat16:
-        return _uniform_bf16(keys, shape, minval, maxval, per_key)
+        return _uniform_bf16(keys, shape, minval, maxval, per_key, impl)
     lo = torch.tensor(minval, dtype=_F32, device=keys.device)
     hi = torch.tensor(maxval, dtype=_F32, device=keys.device)
-    f = bits_to_unit(random_bits(keys, shape, per_key))
+    f = bits_to_unit(random_bits(keys, shape, per_key, impl))
     return torch.maximum(lo, f * (hi - lo) + lo)
 
 
@@ -400,11 +490,12 @@ def _bf(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(_F32)
 
 
-def _uniform_bf16(keys, shape, minval, maxval, per_key=False):
+def _uniform_bf16(keys, shape, minval, maxval, per_key=False,
+                  impl="threefry2x32"):
     dev = keys.device
     lo = _bf(torch.tensor(minval, dtype=_F32, device=dev))
     hi = _bf(torch.tensor(maxval, dtype=_F32, device=dev))
-    k = (random_bits(keys, shape, per_key) & 0xFF) >> 1
+    k = (random_bits(keys, shape, per_key, impl) & 0xFF) >> 1
     f = k.to(_F32) * (1.0 / 128.0)           # (1 + k/128) - 1, exact
     r = torch.maximum(lo, _bf(_bf(f * _bf(hi - lo)) + lo))
     return r.to(torch.bfloat16)
@@ -425,16 +516,16 @@ def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 
 
-def normal(keys: torch.Tensor, shape=(), dtype=_F32, per_key: bool = False
-           ) -> torch.Tensor:
+def normal(keys: torch.Tensor, shape=(), dtype=_F32, per_key: bool = False,
+           impl: str = "threefry2x32") -> torch.Tensor:
     """``jax.random.normal(key, shape, dtype)``, dtype float32 or
     bfloat16 (``sqrt 2`` and ``nextafter(-1, 0)`` in bf16, and XLA's bf16
     ``erf_inv``: the float32 one, rounded)."""
     if dtype == torch.bfloat16:
         u = uniform(keys, shape, _NORMAL_LO_BF16, 1.0, dtype,
-                    per_key).to(_F32)
+                    per_key, impl).to(_F32)
         return _bf(_SQRT2_BF16 * _bf(erfinv_f32(u))).to(torch.bfloat16)
-    u = uniform(keys, shape, _NORMAL_LO, 1.0, per_key=per_key)
+    u = uniform(keys, shape, _NORMAL_LO, 1.0, per_key=per_key, impl=impl)
     return _SQRT2_F32 * erfinv_f32(u)
 
 
@@ -446,7 +537,8 @@ def normal_bf16_table() -> np.ndarray:
     return _bf(_SQRT2_BF16 * _bf(erfinv_f32(u))).numpy()
 
 
-def gamma(keys: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+def gamma(keys: torch.Tensor, alpha: torch.Tensor,
+          impl: str = "threefry2x32") -> torch.Tensor:
     """One ``jax.random.gamma(key, alpha, (), float32)`` draw per key.
 
     ``alpha`` broadcasts against ``keys[..., 0]``.  jax first gives every
@@ -454,17 +546,22 @@ def gamma(keys: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     (boosting ``alpha < 1`` to ``alpha + 1``) with a fresh three-way split
     per outer iteration and a two-way split per inner normal redraw.  The
     loops run on masks, so each element sees exactly its scalar loop.
-    Every draw is the key's own (jax maps rbg keys' gamma serially).
+    After the entry split every draw is the key's own (jax maps non-
+    threefry keys' gamma serially); under unsafe_rbg that entry split is
+    a batched draw over the keys' and ``alpha``'s broadcast batch.
     """
-    keys = split(keys, 1)[..., 0, :]
+    check_keys(keys, impl)
     alpha = torch.as_tensor(alpha, dtype=_F32, device=keys.device)
-    alpha = alpha.expand(keys.shape[:-1]).contiguous()
+    batch = torch.broadcast_shapes(keys.shape[:-1], alpha.shape)
+    keys = keys.expand(*batch, keys.shape[-1])
+    keys = split(keys, 1, impl)[..., 0, :]
+    alpha = alpha.expand(batch).contiguous()
     boost = alpha >= 1.0
     a = torch.where(boost, alpha, alpha + 1.0)
     d = a - float(np.float32(1.0 / 3.0))
     # XLA rewrites (1/3) / sqrt(d) as (1/3) * rsqrt(d), rsqrt = 1 / sqrt
     c = float(np.float32(1.0 / 3.0)) * rdiv(1.0, sqrt_rn(d))
-    ks = split(keys, 2)
+    ks = split(keys, 2, impl, per_key=True)
     key_, subkey = ks[..., 0, :], ks[..., 1, :]
     X = torch.zeros_like(a)
     V = torch.ones_like(a)
@@ -476,37 +573,39 @@ def gamma(keys: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
 
     active = cond(X, V, U)
     while bool(active.any()):
-        k3 = split(key_, 3)
+        k3 = split(key_, 3, impl, per_key=True)
         key_n, x_key, u_key = k3[..., 0, :], k3[..., 1, :], k3[..., 2, :]
         k, x, v = x_key, torch.zeros_like(a), torch.full_like(a, -1.0)
         inner = active.clone()
         while bool(inner.any()):
-            k2 = split(k, 2)
-            xn = normal(k2[..., 1, :], per_key=True)
+            k2 = split(k, 2, impl, per_key=True)
+            xn = normal(k2[..., 1, :], per_key=True, impl=impl)
             vn = fma(xn, c, 1.0)
             k = torch.where(inner[..., None], k2[..., 0, :], k)
             x = torch.where(inner, xn, x)
             v = torch.where(inner, vn, v)
             inner = inner & (v <= 0.0)
-        un = uniform(u_key, per_key=True)
+        un = uniform(u_key, per_key=True, impl=impl)
         key_ = torch.where(active[..., None], key_n, key_)
         X = torch.where(active, x * x, X)
         V = torch.where(active, (v * v) * v, V)
         U = torch.where(active, un, U)
         active = active & cond(X, V, U)
-    samples = 1.0 - uniform(subkey, per_key=True)
+    samples = 1.0 - uniform(subkey, per_key=True, impl=impl)
     boost_f = torch.where(boost, torch.ones_like(a),
                           torch.pow(samples, rdiv(1.0, alpha)))
     return (d * V) * boost_f
 
 
-def t(keys: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
-    """One ``jax.random.t(key, df, (), float32)`` draw per key (rbg: the
-    normal under the batching rule, the gamma per key)."""
-    ks = split(keys, 2)
-    n = normal(ks[..., 0, :])
+def t(keys: torch.Tensor, df: torch.Tensor, impl: str = "threefry2x32"
+      ) -> torch.Tensor:
+    """One ``jax.random.t(key, df, (), float32)`` draw per key (rbg and
+    unsafe_rbg: the split and the normal under the batching rule, the
+    gamma as ``gamma`` draws it)."""
+    ks = split(keys, 2, impl)
+    n = normal(ks[..., 0, :], impl=impl)
     half_df = torch.as_tensor(df, dtype=_F32, device=keys.device) / 2.0
-    g = gamma(ks[..., 1, :], half_df)
+    g = gamma(ks[..., 1, :], half_df, impl)
     return n * sqrt_rn(half_df / g)
 
 
@@ -520,7 +619,8 @@ def kernel_constants() -> dict:
     }
 
 
-def asymmetric_laplace_uniform(keys: torch.Tensor) -> torch.Tensor:
+def asymmetric_laplace_uniform(keys: torch.Tensor,
+                               impl: str = "threefry2x32") -> torch.Tensor:
     """``uniform(key, (), float32, minval=finfo(float32).tiny, maxval=1)``,
     the draw behind ``distributions.asymmetric_laplace``."""
-    return uniform(keys, (), _TINY_F32, 1.0)
+    return uniform(keys, (), _TINY_F32, 1.0, impl=impl)
