@@ -17,7 +17,8 @@ Phases (any failure exits non-zero and prints no result line):
    65536 chains x 1080 s, on 2 daylight blocks, on the same K2 tables:
    K3 (acc epilogue: 7 statistics and the renewal carry); K4 series (the
    per-second sums to rtol 1e-6, a second run bit-identical, the
-   cross-CTA sum on its own); K4 trace (meter bit-identical, pv and
+   cross-CTA sum ``series_sum`` bit for bit against its plain version,
+   which holds within 1e-6 of the float64 sum); K4 trace (meter bit-identical, pv and
    residual to the K3 tolerance, and each chain's sums over the trace
    against the acc kernel's); K6 (the site-geometry mode through the acc
    epilogue at 65536 sites, and the geometry fields on their own);
@@ -33,14 +34,20 @@ Phases (any failure exits non-zero and prints no result line):
    bit-identical; then the collapse on K8+K9's own per-CTA partial rows,
    bit for bit against an index-order float64 fold on the host and within
    1e-12 (of the rows' absolute sum) of its plain version; then K10 (the
-   scenario fold) on the main path's noon block, 65536 chains x 1080 s x
-   16 scenario rows (neutral, padding, a horizon ending mid-block, demand
-   scale / shift, DC scale x weather bias, a binding curtailment cap and
-   seeded mixtures) against its plain version, again for 6 of the rows
-   with a 30000-bin sketch (histograms in global memory), each row
-   against a batch-of-1 launch of it and the neutral row against K3's
-   launch, timed at 1, 4 and 16 rows; and on 2 blocks of path F's fleet
-   with the site and cohort selectors; then the precision levers' kernels: K11
+   scenario producer and fold) on the main path's noon block, 65536
+   chains x 1080 s x 16 scenario rows (neutral, padding, a horizon ending
+   mid-block, demand scale / shift, DC scale x weather bias, a binding
+   curtailment cap and seeded mixtures) against its plain version, each
+   row against a batch-of-1 launch of it and the neutral row against K3's
+   launch; its two launches on their own (the producer's meter and carry
+   bit for bit and pv to the engine tolerance; the fold on the producer's
+   meter and pv bit for bit, with and without the producer's flags that
+   let a masked tail skip its loads, and for 6 of the rows with a
+   30000-bin sketch, still in shared memory, and a 60000-bin one,
+   through global atomics, and with ten exceedance thresholds, counted
+   with atomics where seven count in registers, at the default and the
+   60000-bin sketch), timed at 1, 4 and 16 rows; and
+   on 2 blocks of path F's fleet with the site and cohort selectors; then the precision levers' kernels: K11
    (the table transcendentals) on its own, each function on 2**20 seeded
    arguments over its ``ARG_RANGES`` bit for bit against its plain
    version (and the site geometry with the table set on path B's grid),
@@ -85,8 +92,9 @@ Phases (any failure exits non-zero and prints no result line):
    unsafe_rbg instantiation (init_state's launches, two blocks, a block
    of path B's grid); the unsafe_rbg block step as K13's above, with the
    bf16 acc in every layout, and the scenario epilogue at 1, 4 and 16
-   rows; then K12 in K10 (the bf16 scenario epilogue) against its plain
-   bf16 version at 1, 4 and 16 rows.  The plain scenario fold folds all
+   rows; then K12 in K10 (the bf16 scenario producer and the fold)
+   against its plain bf16 version at 1, 4 and 16 rows, its two launches
+   on their own as K10's.  The plain scenario fold folds all
    of a block's rows at once over a leading row axis;
 5. the paths, every launch counter set to 0 just before each and read
    just after; each must launch every kernel it needs:
@@ -166,7 +174,7 @@ Phases (any failure exits non-zero and prints no result line):
    on paths R-T's and B-L's noon blocks, the K10 row reset of
    continuous batching at 16 rows, the wide fold on paths R's and F's
    noon blocks and the wide series on R's, with ``torch.sum(dim=1)``
-   beside it and ``part.sum(1)`` beside ``series_sum``; K12's
+   beside it and ``part.sum(1)`` beside ``series_sum``, in turns; K12's
    instantiations that the bf16 paths launch on their noon blocks; K13's
    bits and the rbg windows and step that path R-P launches, with
    ``torch.rand`` beside the bits as a yardstick; K14's derivations, the
@@ -342,10 +350,14 @@ K10_FLEET_SITE = 12345
 K10_SECOND_I, K10_ROW_SECOND_I, K10_ROW_CHAIN_I = 5, 1, 2
 K10_VALID_F, K10_VALID_I = 26, 8
 K10_GRID_F, K10_GRID_I = 3, 1
-#: K10's global-atomics histograms: a sketch this wide leaves shared
-#: memory; the check runs the first K10_WIDE_ROWS check rows through it
+#: K10's wide sketches: 30000 bins still fit in the fold's shared memory
+#: (one row per thread), 60000 leave it for global atomics; each check
+#: runs the first K10_WIDE_ROWS check rows through the fold
 K10_WIDE_BINS = 30000
+K10_GLOBAL_BINS = 60000
 K10_WIDE_ROWS = 6
+#: ten ascending exceedance thresholds [W] (the default grid has seven)
+K10_MANY_THR = range(-4000, 6000, 1000)
 #: path S: the served simulation (the main path's), 16 clients x 2
 #: requests, at most 16 per dispatch (the JAX CLI's serve default)
 PATH_S = dict(HEADLINE)
@@ -470,6 +482,33 @@ def time_ms(fn, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_graph_ms(fn, reps: int = 20, rounds: int = 5) -> float:
+    """Mean device milliseconds of one ``fn()`` with ``reps`` of them
+    launched back to back from one CUDA graph: no host work between the
+    launches, so a launch of a few microseconds is timed, not its
+    wrapper's Python."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(rounds):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (rounds * reps)
 
 
 def bound(int_ops: float, f32_ops: float, nbytes: float):
@@ -693,7 +732,7 @@ def phase_k4_series(dev):
     tilt, alb, _ = sim.geometry_args(state)
     mw = cfg.meter_max_w
     carry_k, carry_p = clone(state["carry"]), clone(state["carry"])
-    err = sum_err = 0.0
+    err = sum_err = f64_err = 0.0
     for ins, tables in blocks:
         head = head_of(state, ins, tables)
         again = clone(carry_k)
@@ -709,10 +748,16 @@ def phase_k4_series(dev):
             fail("K4 series: a second run on the same inputs is not "
                  "bit-identical")
         want = k3.series_sum_plain(part)
-        if not close(out, want, rtol=1e-6, atol=0.0):
+        if not torch.equal(out, want):
             fail(f"K4 series_sum differs from its plain version: max abs "
                  f"{max_abs(out, want)}")
         sum_err = max(sum_err, max_abs(out, want))
+        # the plain version's strand order against a float64 sum
+        ref = part.double().sum(1)
+        if not close(want, ref, rtol=1e-6, atol=0.0):
+            fail(f"K4 series_sum_plain is not within 1e-6 of the float64 "
+                 f"sum: max abs {max_abs(want, ref)}")
+        f64_err = max(f64_err, max_abs(want, ref))
         for what, a, b in (("meter", out[0], m_p), ("pv", out[1], p_p)):
             if not close(a, b, rtol=1e-6, atol=0.0):
                 fail(f"K4 series {what} sums differ from the plain version: "
@@ -726,7 +771,9 @@ def phase_k4_series(dev):
                  "version")
     print(f"K4 series vs plain on 2 blocks x {cfg.n_chains} chains: per-"
           f"second sums within rtol 1e-6 (max abs {err:.3g} W), a second "
-          f"run bit-identical; series_sum vs plain max abs {sum_err:.3g}")
+          f"run bit-identical; series_sum bit-identical to its plain "
+          f"version (max abs {sum_err:.3g}), which is within max abs "
+          f"{f64_err:.3g} W of the float64 sum")
     return err, sum_err
 
 
@@ -1654,7 +1701,18 @@ def phase_timing(dev):
         int_ops, n * T * (SERIES_SECOND_F + draws_f), in_bytes + 2 * T * 4))
     _, part = k3.series_partials_cuda(*head, *tail)
     n_parts = part.shape[1]
-    ms = time_ms(lambda: k3.series_sum(part), reps=20)
+    # series_sum and part.sum(1), its library yardstick, in turns: per
+    # call (CUDA events around 20 calls, the measure of every other row
+    # and of the earlier PRs), and device time from CUDA graphs of 20
+    # launches beside it (no host work between the launches)
+    ms_k, ms_l, call_k, call_l = [], [], [], []
+    for kernel_first in (True, False, False, True):
+        for fn, to, call in ((lambda: k3.series_sum(part), ms_k, call_k),
+                             (lambda: part.sum(1), ms_l, call_l)
+                             )[::1 if kernel_first else -1]:
+            to.append(time_graph_ms(fn))
+            call.append(time_ms(fn, reps=20))
+    ms, lib_sum = float(np.mean(call_k)), float(np.mean(call_l))
     plain = time_ms(lambda: k3.series_sum_plain(part), reps=5)
     out["K4R"] = (ms, plain, *bound(0, 2 * n_parts * T,
                                     part.numel() * 4 + 2 * T * 4))
@@ -1688,6 +1746,11 @@ def phase_timing(dev):
     for name, (ms, plain, bms, by) in out.items():
         print(f"timing {name}: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
               f"bound {bms:.4f} ms ({by})")
+    print(f"timing series_sum beside part.sum(1) on its (2, {n_parts}, {T}) "
+          f"partials, in turns: per call {call_k} ms against {call_l} ms; "
+          f"device time from CUDA graphs {ms_k} ms against {ms_l} ms")
+    out["K4R_library"] = lib_sum
+    out["K4R_device"] = (float(np.mean(ms_k)), float(np.mean(ms_l)))
     for label, s in (("shared site", sim), ("site grid", gsim)):
         t0 = time.perf_counter()
         for bi in range(s.n_blocks):
@@ -1913,11 +1976,171 @@ def check_scenario(what, ak, dk, ap, dp):
     return err, same
 
 
+def k10_parts(label, sim, head, tail, rows, params, ms_rows, cd="f32",
+              sketches=True):
+    """K10's two launches on their own on one block: the producer against
+    its plain version (meter and the renewal carry bit for bit, pv to the
+    engine tolerance, as the K4 trace), then the fold against its plain
+    version on the producer's own meter and pv, with and without the
+    producer's flags that let a masked tail skip its loads (every
+    statistic, count, histogram, extremum and per-chain leaf bit for bit:
+    the same inputs, the same arithmetic), also with a sketch
+    that still fits in shared memory (K10_WIDE_BINS) and one that does not
+    (K10_GLOBAL_BINS), and with K10_MANY_THR thresholds at the default and
+    the global sketch, when ``sketches``.  ``ms_rows``: the whole wrapper's
+    times by rows, for the record.  Returns the times and bounds of both
+    launches and the largest difference the fold's checks saw."""
+    cfg = sim.config
+    dev = sim.device
+    n, T = cfg.n_chains, cfg.block_s
+    dur, mw, tilt, alb = tail
+    state_carry = head[5]
+    ck, mk, pk, tk = k3._scenario_producer_cuda(
+        *head[:5], clone(state_carry), mw, tilt, alb, compute_dtype=cd)
+    cp, mp, pp = k3.scenario_producer_plain(*head[:5], clone(state_carry),
+                                            mw, tilt, alb, compute_dtype=cd)
+    torch.cuda.synchronize()
+    if not torch.equal(mk, mp):
+        fail(f"{label} producer: meter differs from the plain version: max "
+             f"abs {max_abs(mk, mp)}")
+    if not close(pk, pp):
+        fail(f"{label} producer: pv differs from the plain version: max abs "
+             f"{max_abs(pk, pp)}")
+    for k in ck:
+        if not torch.equal(ck[k], cp[k]):
+            fail(f"{label} producer: renewal carry {k} differs from the "
+                 "plain version")
+    perr, psame = max_abs(pk, pp), int((pk == pp).sum())
+    del mp, pp, cp
+    t = head[1][0]
+    B = len(rows)
+
+    def fold_pair(scs, prm, tame=None):
+        scen = schema.encode_batch(scs, len(scs), device=dev)
+        got = k3.scenario_fold(mk, pk, t, sim.init_scenario_acc(len(scs)),
+                               dur, scen=scen, params=prm, per_chain=True,
+                               tame=tame)
+        return scen, got
+
+    scen, want = fold_pair(rows, params)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain = k3.scenario_fold_plain(mk, pk, t, sim.init_scenario_acc(B), dur,
+                                   scen, params, per_chain=True)
+    end.record()
+    torch.cuda.synchronize()
+    fold_plain_ms = start.elapsed_time(end)
+
+    fold_err = 0.0
+
+    def same(what, got, ref):
+        nonlocal fold_err
+        pairs = [(k, got[0][k], v) for k, v in ref[0].items()]
+        for k, v in ref[1].items():
+            pairs += ([(f"per-chain {c}", got[1]["chain"][c], v[c])
+                       for c in v] if k == "chain" else [(k, got[1][k], v)])
+        for k, a, b in pairs:
+            err = max_abs(a, b)
+            fold_err = max(fold_err, err)
+            if not torch.equal(a, b):
+                fail(f"{label} fold ({what}): {k} differs from the plain "
+                     f"fold: max abs {err}")
+
+    same(f"{B} rows", want, plain)
+    if int(tk.sum()) != n:
+        fail(f"{label} producer: a chain's values are not all finite")
+    same(f"{B} rows, the masked tails skipped", fold_pair(rows, params,
+                                                          tk)[1], plain)
+    del plain, want
+    many = tuple(float(x) for x in K10_MANY_THR)
+    for bins, shared, thr in ((K10_WIDE_BINS, True, params.thresholds),
+                              (K10_GLOBAL_BINS, False, params.thresholds),
+                              (params.bins, True, many),
+                              (K10_GLOBAL_BINS, False, many)
+                              ) if sketches else ():
+        prm = dataclasses.replace(params, bins=bins, thresholds=thr)
+        sketch = bins + 2 + (len(thr) + 1) * (len(thr) > k3.SCN_MAX_THR)
+        if k3.scenario_fold_layout(T, prm) != (shared,
+                                               4 * sketch * shared + T):
+            fail(f"{label} fold: the {bins}-bin sketch is not where the "
+                 "check expects it")
+        scs = rows[:K10_WIDE_ROWS]
+        sc, got = fold_pair(scs, prm)
+        same(f"{bins} bins, {len(thr)} thresholds, "
+             f"{'shared' if shared else 'global'} memory", got,
+             k3.scenario_fold_plain(mk, pk, t,
+                                    sim.init_scenario_acc(len(scs)), dur,
+                                    sc, prm, per_chain=True))
+        del got
+    # the times of each launch at the rows of ms_rows
+    ms_prod = time_ms(lambda: k3.scenario_producer(
+        *head[:5], clone(state_carry), mw, tilt, alb, compute_dtype=cd))
+    ms_fold = {}
+    for b in ms_rows:
+        sc = schema.encode_batch(rows[:b], b, device=dev)
+        acc_b = sim.init_scenario_acc(b)
+        ms_fold[b] = time_ms(lambda: k3.scenario_fold(
+            mk, pk, t, acc_b, dur, scen=sc, params=params, tame=tk))
+    # bounds: the producer is K3's step writing 8 bytes per chain-second;
+    # the fold's operations are this block's valid samples' and its bytes
+    # the meter and pv read once with the statistics read and written
+    acc_b = sim.init_scenario_acc(B)
+    k3.scenario_fold(mk, pk, t, acc_b, dur, scen=scen, params=params,
+                     tame=tk)
+    ns = acc_b["n_seconds"]
+    valid = int(ns.sum())
+    t0 = int(t[0])
+    nsl = ns.long()
+    grid = sum(int(((t0 + nsl) // w - t0 // w).sum())
+               for w in params.ramp_windows)
+    bf = cd == "bf16"
+    tables = head[0]
+    table_bytes = sum(v.numel() * 4 for v in tables.values())
+    in_bytes = (table_bytes + n * 8 * 2 + n * 4 * 3 * 2
+                + head[1].numel() * 4 + head[2].numel() * 4)
+    prod_int = n * (T * (K3_SECOND_I + (K12_DRAWS_I if bf else 0))
+                    + (T // 60) * K3_MINUTE_I)
+    prod_f = n * T * (TRACE_SECOND_F + (K12_DRAWS_F if bf else
+                                        NORMAL_F + UNIFORM_F + 1))
+    b_prod, by_prod = bound(prod_int, prod_f, in_bytes + 2 * n * T * 4)
+    nb, ne = params.bins + 2, len(params.thresholds) + 1
+    fold_int = T * (K10_SECOND_I + B * K10_ROW_SECOND_I) + \
+        B * n * K10_ROW_CHAIN_I + valid * K10_VALID_I + grid * K10_GRID_I
+    fold_f = valid * K10_VALID_F + grid * K10_GRID_F
+    b_fold, by_fold = bound(fold_int, fold_f, 2 * n * T * 4 + T * 4
+                            + B * (n * 4 * 7 * 2 + 4 * (nb + ne) + 8 * 4))
+    print(f"{label} producer vs plain on the noon block x {n} chains: meter "
+          f"and the renewal carry bit-identical, {psame}/{n * T} pv values "
+          f"bit-identical (max abs {perr:.3g}); the fold vs its plain "
+          f"version on the producer's meter and pv at {B} rows (with and "
+          "without the masked tails' skip)"
+          + (f", at {K10_WIDE_BINS} bins (shared "
+                                 f"memory) and {K10_GLOBAL_BINS} bins "
+                                 "(global atomics), and with "
+                                 f"{len(K10_MANY_THR)} thresholds at "
+                                 f"{params.bins} and {K10_GLOBAL_BINS} bins"
+                                 if sketches else "")
+          + ": every statistic, count, histogram, extremum and per-chain "
+          f"leaf bit-identical (max abs {fold_err})")
+    print(f"timing {label}: producer {ms_prod:.4f} ms (bound {b_prod:.4f} "
+          f"ms, {by_prod}); fold " + ", ".join(
+              f"{ms_fold[b]:.4f} ms ({b} rows)" for b in ms_rows)
+          + f" (bound at {B} rows {b_fold:.4f} ms, {by_fold}; plain "
+          f"{fold_plain_ms:.1f} ms); the whole wrapper " + ", ".join(
+              f"{ms_rows[b]:.4f} ms ({b} rows)" for b in ms_rows))
+    return {"ms_producer": ms_prod, "bound_ms_producer": b_prod,
+            "bound_by_producer": by_prod, "ms_fold": ms_fold,
+            "bound_ms_fold": b_fold,
+            "bound_by_fold": by_fold, "plain_ms_fold": fold_plain_ms,
+            "producer_max_abs_err": perr, "fold_max_abs_err": fold_err}
+
+
 def phase_k10(dev):
-    """K10 on the main path's noon block: the check (also with the
-    global-atomics histograms), batch-of-1 identity, the neutral row
-    against K3, and the times at 1, 4 and 16 rows.
-    Returns the kernels-line figures."""
+    """K10 on the main path's noon block: the whole wrapper against
+    scenario_plain, batch-of-1 identity, the neutral row against K3, its
+    two launches on their own (k10_parts), and the times at 1, 4 and 16
+    rows.  Returns the kernels-line figures."""
     cfg = SimConfig(**HEADLINE)
     sim = Simulation(cfg, device=dev)
     state = sim.init_state()
@@ -1948,19 +2171,6 @@ def phase_k10(dev):
     plain_ms = start.elapsed_time(end)
     err, same = check_scenario(f"{n} chains x {K10_B} rows", ak, dk, ap, dp)
     del ap, dp
-    # the global-atomics histograms of a sketch too wide for shared memory
-    wide = dataclasses.replace(params, bins=K10_WIDE_BINS)
-    if k3.SCN_STAGE_BYTES + 4 * (wide.bins + 2 + len(wide.thresholds)
-                                 + 1) <= k3.SMEM_MAX:
-        fail(f"K10's {K10_WIDE_BINS}-bin check would not leave shared "
-             "memory")
-    wk = launch(k3.block_step_scenario, rows[:K10_WIDE_ROWS], prm=wide)
-    wp = launch(k3.scenario_plain, rows[:K10_WIDE_ROWS], prm=wide)
-    torch.cuda.synchronize()
-    werr, wsame = check_scenario(
-        f"{K10_WIDE_BINS} bins, global atomics", *wk[1:], *wp[1:])
-    err = max(err, werr)
-    del wk, wp
     # row i of the batch-of-16 launch is a batch-of-1 launch of row i
     for i, row in enumerate(rows):
         _, a1, d1 = launch(k3.block_step_scenario, [row], per_chain=False)
@@ -1993,6 +2203,8 @@ def phase_k10(dev):
         ms[b] = time_ms(lambda: k3.block_step_scenario(
             *head, clone(state["carry"]), acc_b, *tail, scen=scen,
             params=params))
+    parts = k10_parts("K10", sim, head + (state["carry"],), tail, rows,
+                      params, ms)
     # the valid seconds of a (row, chain) are the first ns of the block,
     # so the ramp grids' valid samples are counted exactly
     valid = int(ns.sum())
@@ -2017,14 +2229,12 @@ def phase_k10(dev):
           f"per-chain leaf bit-identical; each row equals its batch-of-1 "
           f"launch; the neutral row equals K3's launch; the padding row "
           f"folded nothing; {valid} valid (row, chain)-seconds of "
-          f"{K10_B * n * T}; with {K10_WIDE_BINS} bins (global-atomics "
-          f"histograms, {K10_WIDE_ROWS} rows) {wsame}/7 statistics "
-          f"bit-identical, every FleetAcc leaf bit-identical")
+          f"{K10_B * n * T}")
     print(f"timing K10: kernel {ms[1]:.4f} ms (1 row), {ms[4]:.4f} ms "
           f"(4 rows), {ms[K10_B]:.4f} ms ({K10_B} rows); plain "
           f"{plain_ms:.1f} ms ({K10_B} rows); bound {bms:.4f} ms ({by})")
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by}
+            "bound_by": by, **parts}
 
 
 def phase_k10_fleet(dev):
@@ -2108,7 +2318,7 @@ def path_s_requests():
 
 def phase_path_s(name, batching, dev, extra=None,
                  need=("threefry_fill", "sampler_windows",
-                       "block_step_scenario")):
+                       "block_step_scenario", "scenario_fold")):
     """Serve path S's requests through an in-process server with the
     given batching (``extra``: SimConfig overrides); returns ({rid:
     result as JSON}, launches)."""
@@ -4266,7 +4476,8 @@ def phase_k12_k10(dev):
     """K12 in K10: the bf16 scenario epilogue against its plain bf16
     version on the main path's noon block at 1, 4 and 16 rows (every
     statistic and FleetAcc leaf as phase_k10 checks them), each row
-    against its batch-of-1 launch, timed at 1, 4 and 16 rows."""
+    against its batch-of-1 launch, timed at 1, 4 and 16 rows; its bf16
+    producer and the fold on their own (k10_parts)."""
     cfg = SimConfig(**dict(HEADLINE, compute_dtype="bf16"))
     sim = Simulation(cfg, device=dev)
     state = sim.init_state()
@@ -4348,8 +4559,10 @@ def phase_k12_k10(dev):
     print(f"timing K12 in K10: kernel {ms[1]:.4f} ms (1 row), {ms[4]:.4f} "
           f"ms (4 rows), {ms[K10_B]:.4f} ms ({K10_B} rows); plain "
           f"{plain_ms:.1f} ms ({K10_B} rows); bound {bms:.4f} ms ({by})")
+    parts = k10_parts("K12 in K10", sim, head + (state["carry"],), tail,
+                      rows, params, ms, cd="bf16", sketches=False)
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by}
+            "bound_by": by, **parts}
 
 
 def phase_path_rp(dev, reduced_r, wall_r):
@@ -4423,7 +4636,7 @@ def phase_path_sh(dev, replies_s):
     replies, launches = phase_path_s(
         "S-H", "window", dev, extra=dict(compute_dtype="bf16"),
         need=("threefry_fill", "sampler_windows",
-              "block_step_scenario_bf16"))
+              "block_step_scenario_bf16", "scenario_fold"))
     # each reply's sums against path S's, at the field's scale (the
     # largest of path S's sums of that field): a dawn horizon's pv sums
     # are tiny, and there bf16 differs by a large fraction of nothing
@@ -4922,8 +5135,10 @@ def main() -> int:
                "tmhpvsim_tpu/obs/analytics.py:311", err_c, launch_f),
     }
     rows = []
-    # one PyTorch call computes series_sum's function: part.sum(1)
-    library = {"K4R": lib_sum}
+    # one PyTorch call computes series_sum's function: part.sum(1), timed
+    # in turns with it
+    library = {"K4R": timing.pop("K4R_library")}
+    k4r_dev, k4r_dev_lib = timing.pop("K4R_device")
     for key, (name, source, replaces, err, launches) in rows_of.items():
         ms, plain, bms, by = timing[key]
         # the observers' sums are checked relative to float64: both errors
@@ -4934,6 +5149,9 @@ def main() -> int:
                      "bound_ms": bms, "bound_by": by,
                      "library_ms": library.get(key),
                      **({} if rel is None else {"max_rel_err": rel})})
+    # series_sum: per call as every row; device time from CUDA graphs too
+    next(r for r in rows if r["name"] == "series_sum").update(
+        device_ms=k4r_dev, library_device_ms=k4r_dev_lib)
     # the K4 merges: the fold (path R-W's launch; path F-W's, with both
     # observers, beside it) and the series (path A-W's)
     wsrc = "tmhpvsim_torch/csrc/wide_fold.cu"
@@ -4950,6 +5168,16 @@ def main() -> int:
                      "bound_ms": bms, "bound_by": by, "library_ms": lib,
                      **({} if rel is None else {"max_rel_err": rel})})
     # K10: timed at 16 rows; launches on path S (path S-c's beside them)
+    # K10: the whole wrapper (producer, fold, collapse) timed at 1, 4 and
+    # 16 rows; launches on path S (path S-c's beside them); the producer
+    # and the fold on their own beside it, and the fold's own row
+    def k10_keys(k):
+        return {"ms_producer": k["ms_producer"],
+                "bound_ms_producer": k["bound_ms_producer"],
+                "bound_by_producer": k["bound_by_producer"],
+                "producer_max_abs_err": k["producer_max_abs_err"],
+                "ms_fold": k["ms_fold"][K10_B]}
+
     rows.append({"name": "block_step_scenario", "route": "cuda",
                  "source": src, "replaces": f"{sim_py}:1871",
                  "launches": launch_s["block_step_scenario"],
@@ -4958,7 +5186,21 @@ def main() -> int:
                  "ms": k10["ms"][K10_B], "ms_1_row": k10["ms"][1],
                  "ms_4_rows": k10["ms"][4], "plain_ms": k10["plain_ms"],
                  "bound_ms": k10["bound_ms"], "bound_by": k10["bound_by"],
-                 "library_ms": None})
+                 "library_ms": None, **k10_keys(k10)})
+    rows.append({"name": "scenario_fold", "route": "cuda", "source": src,
+                 "replaces": f"{sim_py}:1890",
+                 "launches": launch_s["scenario_fold"],
+                 "launches_continuous": launch_sc["scenario_fold"],
+                 "launches_bf16": launch_sh["scenario_fold"],
+                 "max_abs_err": max(k10["fold_max_abs_err"],
+                                    k12s["fold_max_abs_err"]),
+                 "ms": k10["ms_fold"][K10_B],
+                 "ms_1_row": k10["ms_fold"][1],
+                 "ms_4_rows": k10["ms_fold"][4],
+                 "ms_bf16_producer_output": k12s["ms_fold"][K10_B],
+                 "plain_ms": k10["plain_ms_fold"],
+                 "bound_ms": k10["bound_ms_fold"],
+                 "bound_by": k10["bound_by_fold"], "library_ms": None})
     # K6s: path B-L's launch (strided, table set), the exact set's beside
     ms, plain, bms, by = timing["K6s"]
     ms_x, plain_x, bms_x, _ = timing["K6sX"]
@@ -5056,7 +5298,7 @@ def main() -> int:
                  "ms": k12s["ms"][K10_B], "ms_1_row": k12s["ms"][1],
                  "ms_4_rows": k12s["ms"][4], "plain_ms": k12s["plain_ms"],
                  "bound_ms": k12s["bound_ms"], "bound_by": k12s["bound_by"],
-                 "library_ms": None})
+                 "library_ms": None, **k10_keys(k12s)})
     # K14: the derivations launch (timed on init_state's batched 5-way
     # split of 65536 chains), the unsafe_rbg windows and block step; their
     # launches on path R-U

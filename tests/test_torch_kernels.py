@@ -106,6 +106,152 @@ def test_cpu_wrappers_run_plain_versions():
     assert float(ap["pv_max"].max()) > 10
 
 
+@pytest.mark.parametrize("shape", [(2, 512, 1080), (2, 37, 61), (2, 3, 60),
+                                   (2, 1, 7)],
+                         ids=["main-path", "ragged", "few-ctas", "one-cta"])
+def test_series_sum_plain_is_the_float64_sum(shape):
+    """series_sum_plain's strand order (the card kernel's) stays within
+    1e-6 of a float64 sum of the same partials, rounded once."""
+    gen = np.random.default_rng(shape[1])
+    part = torch.from_numpy(np.abs(gen.normal(2e5, 1e5, shape))
+                            .astype(np.float32))
+    got = k3.series_sum_plain(part)
+    want = part.double().sum(1)
+    assert got.dtype == torch.float32 and got.shape == (2, shape[2])
+    torch.testing.assert_close(got.double(), want, rtol=1e-6, atol=0.0)
+    assert torch.equal(k3.series_sum(part), got)  # the CPU wrapper
+
+
+def test_series_sum_plain_adds_in_strand_order():
+    """Strand j adds partials j, j + SUM_STRANDS, ... from 0.0 in double;
+    the strands are then added in index order from 0.0 and rounded once:
+    a scalar loop in that order gives the same bits."""
+    gen = np.random.default_rng(7)
+    C, T = 70, 5
+    part = gen.normal(0.0, 1e6, (2, C, T)).astype(np.float32)
+    want = np.empty((2, T), np.float32)
+    S = k3.SUM_STRANDS
+    for a in range(2):
+        for t in range(T):
+            strands = []
+            for j in range(S):
+                x = 0.0
+                for c in range(j, C, S):
+                    x = x + float(part[a, c, t])
+                strands.append(x)
+            tot = 0.0
+            for x in strands:
+                tot = tot + x
+            want[a, t] = np.float32(tot)
+    got = k3.series_sum_plain(torch.from_numpy(part))
+    assert np.array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    text = open(os.path.join(build.CSRC, "block_step.cuh")).read()
+    assert int(re.search(r"#define SUM_STRANDS (\d+)", text).group(1)) == S
+
+
+def _k10_inputs(compute_dtype="f32", n=200):
+    """A daylight block of ``n`` chains (the main path's shape cut to a
+    120 s block) with K10's 16 check rows: (sim, state, head, tail, rows,
+    scen, params)."""
+    from tmhpvsim_torch.serve import schema
+
+    cfg = SimConfig(**dict(CFG, n_chains=n, block_s=120, duration_s=240,
+                           compute_dtype=compute_dtype))
+    sim = Simulation(cfg, device="cpu")
+    state, ins = _block(sim, 1)
+    tables, _ = sim._windows(state, ins)
+    head = (tables, ins.rows_i, ins.rows_f, state["k_scan"],
+            state["k_meter"])
+    tail = (cfg.duration_s, cfg.meter_max_w, 48.12, 0.25)
+    rows = _k10_rows(cfg.duration_s, False)
+    rows[2] = schema.Scenario(horizon_s=180)  # ends inside the block
+    scen = schema.encode_batch(rows, len(rows), device="cpu")
+    return sim, state, head, tail, rows, scen, sim.scenario_fleet_params()
+
+
+@pytest.mark.parametrize("compute_dtype", ["f32", "bf16"])
+def test_k10_plain_composition_folds_each_row_alone(compute_dtype):
+    """scenario_plain is its producer (the acc step's meter and pv, bf16
+    draws under bf16) then its fold, all rows at once; each row equals an
+    independent fold of that row alone (the statistics fold with the
+    row's mask, a risk FleetAcc per second, reduce_chainwise), and the
+    CPU wrappers of the two launches compose to it."""
+    from tmhpvsim_torch.obs import analytics as flt
+
+    sim, state, head, tail, rows, scen, params = _k10_inputs(compute_dtype)
+    carry = state["carry"]
+    cw, aw, dw = k3.block_step_scenario(
+        *head, carry, sim.init_scenario_acc(len(rows)), *tail, scen=scen,
+        params=params, per_chain=True, compute_dtype=compute_dtype)
+    cp, meter, pv = k3.scenario_producer(*head, carry, *tail[1:],
+                                         compute_dtype=compute_dtype)
+    _, m2, p2 = k3.block_step_trace(*head, carry, *tail[1:],
+                                    compute_dtype=compute_dtype,
+                                    layout="scan")
+    assert torch.equal(meter, m2)
+    if compute_dtype == "f32":  # the trace draws float32 under bf16
+        assert torch.equal(pv, p2)
+    t = head[1][0]
+    af, df = k3.scenario_fold(meter, pv, t, sim.init_scenario_acc(len(rows)),
+                              tail[0], scen=scen, params=params,
+                              per_chain=True)
+    for k in aw:
+        assert torch.equal(af[k], aw[k]), k
+    for k in dw:
+        if k != "chain":
+            assert torch.equal(df[k], dw[k]), k
+    for k in cw:
+        assert torch.equal(cw[k], cp[k]), k
+    n = meter.shape[1]
+    iota = torch.arange(n, dtype=torch.int32)
+    for b in range(len(rows)):
+        one = {k: v[b] for k, v in scen.items()}
+        m = rng.fma(meter, one["demand_scale"], one["demand_shift_w"])
+        p = torch.minimum(pv * (one["pv_scale"] * one["weather_bias"]),
+                          one["curtail_w"])
+        sel = (one["site_index"] < 0) | (iota == one["site_index"])
+        ok = sel[None] & ((t < tail[0]) & (t < one["horizon_s"]))[:, None]
+        acc = {k: v[b] for k, v in sim.init_scenario_acc(len(rows)).items()}
+        acc = k3.stats_fold_plain(acc, t, tail[0], m, p, valid=ok)
+        fa = flt.init_acc("risk", n, params=params)
+        for s in range(t.shape[0]):
+            fa = flt.fold_second(fa, "risk", params, meter=m[s], pv=p[s],
+                                 residual=m[s] - p[s], covered=None,
+                                 t=int(t[s]), valid=ok[s])
+        delta = flt.reduce_chainwise(fa)
+        for k in acc:
+            assert torch.equal(aw[k][b], acc[k]), (b, k)
+        for k in delta:
+            assert torch.equal(dw[k][b], delta[k]), (b, k)
+        for k, v in dw["chain"].items():
+            assert torch.equal(v[b], fa[k]), (b, k)
+    assert int(dw["count"][1]) == 0
+    assert int(aw["n_seconds"][2].max()) == 180 - int(t[0])
+
+
+def test_scenario_fold_layout():
+    """Where the fold's sketch lives and its dynamic shared bytes: shared
+    memory while the sketch and the ramp flags fit in SCN_SMEM_MAX (a
+    30000-bin sketch too), global atomics beyond (60000 bins); past
+    SCN_MAX_THR thresholds the exceedance slots join the sketch."""
+    from tmhpvsim_torch.obs import analytics as flt
+
+    prm = flt.params_from_config(SimConfig(**CFG))
+    nb = 4 * (prm.bins + 2)
+    assert k3.scenario_fold_layout(1080, prm) == (True, nb + 1080)
+    assert k3.scenario_fold_layout(61, prm) == (True, nb + 64)
+    wide = dataclasses.replace(prm, bins=30000)
+    assert k3.scenario_fold_layout(1080, wide) == (True, 4 * 30002 + 1080)
+    wider = dataclasses.replace(prm, bins=60000)
+    assert k3.scenario_fold_layout(1080, wider) == (False, 1080)
+    many = dataclasses.replace(prm, thresholds=tuple(
+        float(x) for x in range(-4000, 5000, 1000)))
+    assert k3.scenario_fold_layout(60, many) == (
+        True, 4 * (prm.bins + 2 + 10) + 60)
+    with pytest.raises(ValueError, match="does not fit"):
+        k3.scenario_fold_layout(4 * k3.SCN_SMEM_MAX, prm)
+
+
 def _epilogue_inputs(site_grid, duration_s=2400, block_i=1, levers=None):
     """One block's inputs (the last one padded when ``duration_s`` ends
     inside it), on the CPU."""
@@ -202,7 +348,7 @@ def test_every_instantiation_counts_its_launches():
                  "block_step_trace", "block_step_scenario",
                  "block_step_strided", "block_step_strided_table",
                  "block_step_table", "block_step_scenario_table",
-                 "table_eval"):
+                 "table_eval", "scenario_fold"):
         assert name in names, name
     assert k3.STEP["scen", "site", "table"] is \
         k3.STEP["scen", "strided", "table"]
@@ -275,7 +421,8 @@ def test_build_flags():
     # in the template both kernel sets' translation units include
     text = open(os.path.join(build.CSRC, "block_step.cuh")).read()
     for entry in ("block_step_acc", "block_step_series", "block_step_trace",
-                  "series_sum", "device_geometry_fields"):
+                  "series_sum", "device_geometry_fields",
+                  "block_step_scenario", "scenario_fold"):
         assert re.search(rf'extern "C" int {entry}\(', text), entry
     for src, kset in (("block_step.cu", "Exact"),
                       ("block_step_table.cu", "Table"),
@@ -555,6 +702,17 @@ def test_k4_k6_match_plain_on_card(card, grid):
     assert torch.equal(sk, sk2) and torch.equal(qk, qk2)
     torch.testing.assert_close(sk, sp, rtol=1e-6, atol=0.0)
     torch.testing.assert_close(qk, qp, rtol=1e-6, atol=1e-3)
+    # series_sum bit for bit against its plain version, on these partials
+    # and on wide ones (512 CTAs of seeded values), and on a rerun
+    _, part = k3.series_partials_cuda(*head, carry(), mw, tilt, alb,
+                                      site=site)
+    gen = np.random.default_rng(2)
+    wide = torch.from_numpy(gen.normal(5e5, 1e5, (2, 512, 1080)).astype(
+        np.float32)).to(card)
+    for pt in (part, wide):
+        got = k3.series_sum(pt)
+        assert torch.equal(got, k3.series_sum_plain(pt))
+        assert torch.equal(got, k3.series_sum(pt))
     if site is not None:
         torch.testing.assert_close(
             k3.device_geometry_fields(ins.rows_f, site),
@@ -645,21 +803,35 @@ def _k10_rows(duration_s, cohorts):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["shared", "fleet", "wide"])
+@pytest.mark.parametrize("case", ["shared", "fleet", "wide", "global",
+                                  "thresholds", "thresholds_global",
+                                  "bf16", "rbg"])
 def test_k10_matches_plain_on_card(card, case):
-    """K10 against scenario_plain at 512 chains x 16 rows: statistics
-    (n_seconds, extrema) and every FleetAcc count, histogram, extremum
-    and per-chain leaf bit for bit, sums to the engine tolerance; row i
-    of the batch-of-16 launch equals a batch-of-1 launch of row i, and
-    the neutral row equals K3's acc launch.  ``wide``: 30000 bins, whose
-    histograms leave shared memory for global atomics."""
+    """K10 (its producer, then its fold) against scenario_plain at 512
+    chains x 16 rows: statistics (n_seconds, extrema) and every FleetAcc
+    count, histogram, extremum and per-chain leaf bit for bit, sums to the
+    engine tolerance; the fold alone bit for bit against its plain
+    version on the producer's meter and pv, with and without the
+    producer's flags that let a masked tail skip its loads; row i of the
+    batch-of-16 launch equals a batch-of-1 launch of row i, and
+    the neutral row equals the acc launch.  ``wide``: 30000 bins, whose
+    sketch still fits in the fold's shared memory; ``global``: 60000
+    bins, counted with global atomics; ``thresholds`` and
+    ``thresholds_global``: ten exceedance thresholds (the default is
+    seven), with the shared and the 60000-bin sketch; ``bf16`` and
+    ``rbg``: K12 in K10 and the rbg instantiation."""
     from tmhpvsim_torch.serve import schema
 
+    extra = {"bf16": dict(compute_dtype="bf16"),
+             "rbg": dict(prng_impl="rbg")}.get(case, {})
+    kw = {"bf16": dict(compute_dtype="bf16"),
+          "rbg": dict(impl="rbg")}.get(case, {})
     if case == "fleet":
         sim, state, head, tail, site, fleet, _ = _fleet_block(512, card)
         tilt = alb = None
     else:
-        sim = Simulation(SimConfig(**dict(CFG, n_chains=512)), device=card)
+        sim = Simulation(SimConfig(**dict(CFG, n_chains=512, **extra)),
+                         device=card)
         state, ins = _block(sim)
         tables, _ = sim._windows(state, ins)
         head = (tables, ins.rows_i, ins.rows_f, state["k_scan"],
@@ -669,10 +841,15 @@ def test_k10_matches_plain_on_card(card, case):
     cohort = sim.scenario_cohort()
     rows = _k10_rows(CFG["duration_s"], cohort is not None)
     params = sim.scenario_fleet_params()
-    if case == "wide":
-        params = dataclasses.replace(params, bins=30000)
-        hist_bytes = 4 * (params.bins + 2 + len(params.thresholds) + 1)
-        assert k3.SCN_STAGE_BYTES + hist_bytes > k3.SMEM_MAX
+    T = head[1].shape[1]
+    if case in ("wide", "global", "thresholds_global"):
+        params = dataclasses.replace(
+            params, bins=30000 if case == "wide" else 60000)
+        assert k3.scenario_fold_layout(T, params)[0] == (case == "wide")
+    if case.startswith("thresholds"):
+        params = dataclasses.replace(params, thresholds=tuple(
+            float(x) for x in range(-4000, 6000, 1000)))
+        assert len(params.thresholds) > k3.SCN_MAX_THR
 
     def carry():
         return {k: v.clone() for k, v in state["carry"].items()}
@@ -681,7 +858,7 @@ def test_k10_matches_plain_on_card(card, case):
         scen = schema.encode_batch(scs, len(scs), device=card)
         return fn(*head, carry(), sim.init_scenario_acc(len(scs)), *tail,
                   site=site, fleet=fleet, scen=scen, params=params,
-                  cohort=cohort, per_chain=True)
+                  cohort=cohort, per_chain=True, **kw)
 
     _, ak, dk = launch(k3.block_step_scenario, rows)
     _, ap, dp = launch(k3.scenario_plain, rows)
@@ -697,6 +874,29 @@ def test_k10_matches_plain_on_card(card, case):
         else:
             assert torch.equal(dk[k], v), k
     assert int(dk["count"][1]) == 0 and int(dk["count"][0]) > 0
+    # the fold on its own, on the producer's meter and pv
+    _, meter, pv = k3.scenario_producer(*head, carry(), *tail[1:],
+                                        site=site, fleet=fleet, **kw)
+    scen = schema.encode_batch(rows, len(rows), device=card)
+    fp = k3.scenario_fold_plain(meter, pv, head[1][0],
+                                sim.init_scenario_acc(len(rows)), tail[0],
+                                scen, params, cohort, per_chain=True)
+    # with and without the producer's flags (a masked tail's loads skipped)
+    tame = k3._scenario_producer_cuda(*head, carry(), *tail[1:], site=site,
+                                      fleet=fleet, **kw)[3]
+    for flags in (None, tame):
+        fk = k3.scenario_fold(meter, pv, head[1][0],
+                              sim.init_scenario_acc(len(rows)), tail[0],
+                              scen=scen, params=params, cohort=cohort,
+                              per_chain=True, tame=flags)
+        for k in fp[0]:
+            assert torch.equal(fk[0][k], fp[0][k]), k
+        for k, v in fp[1].items():
+            if k == "chain":
+                for c in v:
+                    assert torch.equal(fk[1]["chain"][c], v[c]), c
+            else:
+                assert torch.equal(fk[1][k], v), k
     for i, row in enumerate(rows):
         _, a1, d1 = launch(k3.block_step_scenario, [row])
         for k in a1:
@@ -705,7 +905,7 @@ def test_k10_matches_plain_on_card(card, case):
             if k != "chain":
                 assert torch.equal(d1[k][0], dk[k][i]), (i, k)
     _, acc = k3.block_step_acc(*head, carry(), sim.init_reduce_acc(), *tail,
-                               site=site, fleet=fleet)
+                               site=site, fleet=fleet, **kw)
     for k in acc:
         assert torch.equal(ak[k][0], acc[k]), k
 

@@ -32,13 +32,16 @@
 //          :1481; with TEL :1436, :1524): obs/analytics.py fold_second
 //          (:223) + reduce_chainwise (:311) -- K9;
 //   scen   _block_step_scan_scenario / _scenario_block_core (:1834,
-//          :1871-1937): per scenario row the knob transform, selectors,
-//          horizon mask, the seven statistics and a risk FleetAcc with its
-//          reduce_chainwise -- K10;
+//          :1871-1937), two launches: this epilogue, the producer, writes
+//          the step's meter and pv; scenario_fold_kernel folds, per
+//          scenario row, the knob transform, selectors, horizon mask, the
+//          seven statistics and a risk FleetAcc with its reduce_chainwise
+//          -- K10;
 // and the pre-drawn streams of clearsky_index.scan_draws_tmajor /
 // meter_block_tmajor (:278-319).  Plain versions:
 // tmhpvsim_torch/kernels/block_step.py block_step_plain, series_plain,
-// trace_plain, block_step_obs_plain, scenario_plain, and models/solar.py
+// series_sum_plain, trace_plain, block_step_obs_plain,
+// scenario_producer_plain, scenario_fold_plain, and models/solar.py
 // device_geometry
 // (with obs/telemetry.py and obs/analytics.py fold_second).
 //
@@ -126,11 +129,13 @@
 // Epilogues.  acc folds in second order, chain by chain, as the scan adds.
 // series reduces each second's meter and pv over the CTA's chains in a
 // fixed order (a warp xor-butterfly, then the 4 warps in index order) into
-// (n_ctas, T) partials; series_sum adds the partials over CTAs in index
-// order, one thread per second, in double.  No atomics: a repeated run
-// gives the same bits.  trace writes time-major (T, n) meter and pv, coalesced
-// (consecutive threads are consecutive chains); the engine hands the host
-// an (n, T) view.
+// (n_ctas, T) partials; series_sum adds the partials over CTAs in double in
+// a fixed strand order, spread over the whole card.  No atomics: a
+// repeated run gives the same bits.  trace writes time-major (T, n) meter
+// and pv, coalesced (consecutive threads are consecutive chains); the
+// engine hands the host an (n, T) view.  scen writes the same (T, n) meter
+// and pv with the acc epilogue's draws (the flat scan's layout; bf16 under
+// BF16), for the scenario fold.
 //
 // K7.  Each chain loads its fleet leaves once per block; a column that is
 // homogeneous passes a null pointer and its transform is skipped, so a
@@ -156,22 +161,13 @@
 // caller, so reruns give the same bits.  Cohort sums go per cohort over
 // the CTA's chains in chain order, then over CTAs in order.
 //
-// K10 (scenario).  The step is K3's, unchanged (so a neutral row folds
-// K3's statistics bit for bit).  Each 60-second tile of every chain's
-// meter and pv is staged in dynamic shared memory (61 KB per CTA); then
-// the CTA loops over the B scenario rows: each thread loads its chain's
-// row from global memory (the seven statistics, (B, n); the risk leaves
-// of the block so far, a (leaf, B, n) scratch that the first tile
-// initialises), folds the tile's 60 seconds of the row's transform
-//   meter_i = fmaf(meter, demand_scale, demand_shift_w)  (the JAX scan
-//             contracts it: tests/test_torch_serve.py),
-//   pv_i    = fminf(ac * (pv_scale * weather_bias), curtail_w),
-// masked by the site / cohort selectors, t < duration_s and t < horizon_s,
-// in second order, and stores the row back.  The row's residual histogram
-// and exceedance slots count in shared memory (reset and added to the
-// row's global copy at every tile) or, when too large, with global
-// atomics.  At the last tile each row's risk leaves become a per-(CTA,
-// row) partial row for collapse_partials.
+// K10 (scenario).  Two launches (kernels/block_step.py
+// block_step_scenario).  The producer is the step, K3's unchanged (so a
+// neutral row folds K3's statistics bit for bit), writing the block's
+// time-major meter and pv; scenario_fold_kernel then folds every scenario
+// row over them (its own comment says how).  The one-kernel form that
+// staged each 60-second tile in shared memory and looped over the rows
+// per tile spent ~95 % of its time in that row loop (k10_split.py).
 //
 // Bound: operations for acc and series (per site-second about three
 // 20-round threefry hashes, XLA's erfinv and log1p polynomials, accurate
@@ -183,7 +179,9 @@
 //
 // The including translation unit defines KSET (Exact, or Table after
 // TMHPVSIM_TABLE_SET) and may define CDTYPE (F32 by default, or BF16).
+#include <algorithm>
 #include <cfloat>
+#include <cmath>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <type_traits>
@@ -215,11 +213,19 @@ struct TF {};
 struct RBG {};
 struct URBG {};
 
-// scenario: per-(scenario, chain) risk leaves kept between tiles (int,
-// float), and the per-(CTA, scenario) partial row
+// scenario fold: the per-(scenario, chain) risk leaves (int, float), the
+// per-(chain group, scenario) partial row, and the most thresholds whose
+// exceedance slots count in registers
 #define SCN_CHAIN_I 7
 #define SCN_CHAIN_F 8
 #define SCN_LEAVES 8
+#define SCN_MAX_THR 8
+// the scenario fold's seconds per load chunk (blocks are whole minutes)
+#define SCN_CHUNK 4
+// a value at most this large in magnitude, times a knob at most this
+// large, stays finite
+#define SCN_TAME 1e18f
+static_assert(SCN_MAX_THR == 8, "Scen::thr_v holds SCN_MAX_THR floats");
 
 // one second's calendar: global second, rebased indices and fractions
 struct Cal {
@@ -280,22 +286,32 @@ enum Geom { SHARED = 0, SITE = 1, STRIDED = 2 };
 // the most stride samples a 60-second tile touches (stride 30)
 #define MAX_SAMP 3
 
-// the scenario epilogue's arguments
+// the scenario fold's arguments
 struct Scen {
-  int B, bins, n_thr, lolp_k, hist_shared;
+  int B, bins, n_thr, lolp_k, hist_shared, T, duration_s;
   int ramp_w[3];
   float lo, inv_w, capacity;
-  const float* thr;        // (n_thr,)
+  int64_t n;
+  const int* t;            // (T,) the block's global seconds
+  const float* meter;      // (T, n) the producer's meter
+  const float* pv;         // (T, n) and pv
+  const int* tame;         // (n,) the producer's flags, or nullptr
+  const float* thr;        // (n_thr,), ascending
+  float thr_v[8];          // the first SCN_MAX_THR of them, then +inf
   // (B,) knobs: demand_scale, demand_shift_w, pv_scale, weather_bias,
   // curtail_w; horizon_s, site_index, cohort
   const float* knob_f[5];
   const int* knob_i[3];
   const int* cohort;       // (n,) chains' cohort ids; nullptr: no selector
+  // (B, n) statistics: pv_sum, pv_max, meter_sum, residual_sum,
+  // residual_min, residual_max; n_seconds
+  float* stat_f[6];
+  int* n_seconds;
   int* res_hist;           // (B, bins + 2), zeroed by the caller
   int* exceed;             // (B, n_thr + 1), zeroed
-  int* chain_i;            // (SCN_CHAIN_I, B, n) risk leaves
-  float* chain_f;          // (SCN_CHAIN_F, B, n)
-  double* part;            // (n_ctas, B, SCN_LEAVES)
+  int* chain_i;            // (SCN_CHAIN_I, B, n) risk leaves, or nullptr
+  float* chain_f;          // (SCN_CHAIN_F, B, n), or nullptr
+  double* part;            // (n_groups, B, SCN_LEAVES)
 };
 
 struct Args {
@@ -311,14 +327,16 @@ struct Args {
   // K7 fleet leaves (nullptr: the column is homogeneous)
   const float *pv_scale, *ac_limit, *dem_scale, *dem_shift;
   float *cloud_end, *total_end, *sec;
-  // acc ((n,); the scenario epilogue's are (B, n))
+  // acc (n,)
   float *pv_sum, *pv_max, *meter_sum, *residual_sum, *residual_min,
       *residual_max;
   int* n_seconds;
-  // series partials (n_ctas, T) / trace outputs (T, n)
+  // series partials (n_ctas, T) / trace and scenario outputs (T, n)
   float *out_meter, *out_pv;
+  // scenario: per chain, whether every meter and pv value of the block
+  // is at most SCN_TAME in magnitude (so a masked second adds +-0)
+  int* out_tame;
   Obs o;
-  Scen q;
 };
 
 __device__ __forceinline__ void load_cal(Cal& C, const int* rows_i,
@@ -765,7 +783,7 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
   __shared__ float red_m[EPI == SERIES ? WARPS : 1][TILE];
   __shared__ float red_p[EPI == SERIES ? WARPS : 1][TILE];
   constexpr bool OBS = TEL || FLT;
-  __shared__ double s_stage[OBS || EPI == SCEN ? WARPS * TEL_LEAVES : 1];
+  __shared__ double s_stage[OBS ? WARPS * TEL_LEAVES : 1];
   __shared__ int s_csi[TEL ? CSI_BINS : 1];
   // analytics: the cohort partials' staging, one entry per chain
   __shared__ int s_cid[FLT ? THREADS : 1], s_cuse[FLT ? THREADS : 1];
@@ -775,10 +793,6 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
   // K14: the tile's u, z and meter keys
   __shared__ ph::Key4 s_rk[UR ? 3 : 1];
   extern __shared__ int s_dyn[];
-  // scenario: the tile's meter and pv ([s][thread]), then its histograms
-  float* const stage_m = reinterpret_cast<float*>(s_dyn);
-  float* const stage_a = stage_m + TILE * THREADS;
-  int* const s_hist = s_dyn + 2 * TILE * THREADS;
   const int64_t n = a.n;
   const int T = a.T;
   const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
@@ -844,6 +858,7 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
   }
   const uint32_t g_first = (uint32_t)(a.rows_i[0] / 60);
 
+  bool tame = true;  // the scenario producer's per-chain flag
   // K8 / K9 state
   TelField tel[4];
   int occ = 0;
@@ -910,9 +925,8 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
       }
     }
     __syncthreads();
-    // series keeps every thread in the loop for the warp reductions, the
-    // scenario fold for its barriers
-    if (EPI != SERIES && EPI != SCEN && !live) continue;
+    // series keeps every thread in the loop for the warp reductions
+    if (EPI != SERIES && !live) continue;
     // blocks are minute-aligned: the tile is global minute t / 60
     const uint32_t g = (uint32_t)(tile[0].c.t / 60);
     tf::Key ku{}, kz{}, km{};
@@ -1129,13 +1143,12 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
             f.cr = f.cr + (cv ? r : 0.0f);
           }
         }
-      } else if (EPI == TRACE) {
+      } else if (EPI == TRACE || EPI == SCEN) {
         const int64_t o = (int64_t)(base + s) * n + i;
         a.out_meter[o] = meter;
         a.out_pv[o] = ac;
-      } else if (EPI == SCEN) {
-        stage_m[s * THREADS + threadIdx.x] = meter;
-        stage_a[s * THREADS + threadIdx.x] = ac;
+        if (EPI == SCEN)
+          tame = tame && fabsf(meter) <= SCN_TAME && fabsf(ac) <= SCN_TAME;
       } else {
         float m = live ? meter : 0.0f, p = live ? ac : 0.0f;
         for (int off = 16; off > 0; off >>= 1) {
@@ -1145,136 +1158,6 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
         if ((threadIdx.x & 31) == 0) {
           red_m[threadIdx.x >> 5][s] = m;
           red_p[threadIdx.x >> 5][s] = p;
-        }
-      }
-    }
-    if constexpr (EPI == SCEN) {  // K10: every scenario row over the tile
-      const Scen& q = a.q;
-      const int nbq = q.bins + 2, neq = q.n_thr + 1;
-      const int B = q.B;
-      for (int b = 0; b < B; ++b) {
-        int* hist = q.res_hist + (int64_t)b * nbq;
-        int* exc = q.exceed + (int64_t)b * neq;
-        if (q.hist_shared) {
-          __syncthreads();  // the previous row's counts are flushed
-          for (int k = threadIdx.x; k < nbq + neq; k += blockDim.x)
-            s_hist[k] = 0;
-          __syncthreads();
-          hist = s_hist;
-          exc = s_hist + nbq;
-        }
-        ScnRow c;
-        if (live) {
-          const int64_t o = (int64_t)b * n + i;
-          c.pv_sum = a.pv_sum[o];
-          c.pv_max = a.pv_max[o];
-          c.meter_sum = a.meter_sum[o];
-          c.residual_sum = a.residual_sum[o];
-          c.residual_min = a.residual_min[o];
-          c.residual_max = a.residual_max[o];
-          c.n_seconds = a.n_seconds[o];
-          const int64_t plane = (int64_t)B * n;
-          if (base > 0) {  // the block's leaves so far (the first tile
-                           // starts from zero, as the JAX fold does)
-            const int* ci = q.chain_i + o;
-            const float* cf = q.chain_f + o;
-            c.n_use = ci[0];
-            c.lol_run = ci[plane];
-            c.lol_s = ci[2 * plane];
-            c.lol_e = ci[3 * plane];
-            for (int k = 0; k < 3; ++k) c.seen[k] = ci[(4 + k) * plane];
-            c.mn = cf[0];
-            c.mx = cf[plane];
-            for (int k = 0; k < 3; ++k) {
-              c.ramp[k] = cf[(2 + k) * plane];
-              c.prev[k] = cf[(5 + k) * plane];
-            }
-          }
-          const float ds = q.knob_f[0][b], dsh = q.knob_f[1][b];
-          const float pvw = q.knob_f[2][b] * q.knob_f[3][b];
-          const float cap = q.knob_f[4][b];
-          const int horizon = q.knob_i[0][b], site_sel = q.knob_i[1][b];
-          const int coh_sel = q.knob_i[2][b];
-          const bool sel =
-              (site_sel < 0 || i == site_sel) &&
-              (q.cohort == nullptr || coh_sel < 0 || q.cohort[i] == coh_sel);
-          for (int s = 0; s < TILE; ++s) {
-            const int t = tile[s].c.t;
-            const float meter =
-                fmaf(stage_m[s * THREADS + threadIdx.x], ds, dsh);
-            const float pv = fminf(stage_a[s * THREADS + threadIdx.x] * pvw,
-                                   cap);
-            const float r = meter - pv;
-            const bool valid = sel && t < a.duration_s && t < horizon;
-            const float vz = valid ? 1.0f : 0.0f;
-            c.pv_sum = c.pv_sum + pv * vz;
-            c.pv_max = fmaxf(c.pv_max, valid ? pv : -FLT_MAX);
-            c.meter_sum = c.meter_sum + meter * vz;
-            c.residual_sum = c.residual_sum + r * vz;
-            c.residual_min = fminf(c.residual_min, valid ? r : FLT_MAX);
-            c.residual_max = fmaxf(c.residual_max, valid ? r : -FLT_MAX);
-            c.n_seconds += valid ? 1 : 0;
-            const bool use = valid && isfinite(r);
-            if (use) {
-              c.n_use += 1;
-              float bf = (r - q.lo) * q.inv_w;
-              bf = fminf(fmaxf(bf, -1.0f), (float)q.bins);
-              atomicAdd(&hist[(int)floorf(bf) + 1], 1);
-              int slot = 0;
-              for (int j = 0; j < q.n_thr; ++j) slot += q.thr[j] < r ? 1 : 0;
-              atomicAdd(&exc[slot], 1);
-            }
-            c.mn = fminf(c.mn, use ? r : FLT_MAX);
-            c.mx = fmaxf(c.mx, use ? r : -FLT_MAX);
-            c.lol_run = (use && r > q.capacity) ? c.lol_run + 1 : 0;
-            c.lol_e += c.lol_run == q.lolp_k ? 1 : 0;
-            c.lol_s += c.lol_run >= q.lolp_k ? 1 : 0;
-#pragma unroll
-            for (int k = 0; k < 3; ++k) {
-              const int w = q.ramp_w[k];
-              if (w == 1 || (t + 1) % w == 0) {
-                if (use && c.seen[k] > 0)
-                  c.ramp[k] = fmaxf(c.ramp[k], fabsf(r - c.prev[k]));
-                if (use) c.prev[k] = r;
-                c.seen[k] = use ? 1 : 0;
-              }
-            }
-          }
-          a.pv_sum[o] = c.pv_sum;
-          a.pv_max[o] = c.pv_max;
-          a.meter_sum[o] = c.meter_sum;
-          a.residual_sum[o] = c.residual_sum;
-          a.residual_min[o] = c.residual_min;
-          a.residual_max[o] = c.residual_max;
-          a.n_seconds[o] = c.n_seconds;
-          int* ci = q.chain_i + o;
-          float* cf = q.chain_f + o;
-          ci[0] = c.n_use;
-          ci[plane] = c.lol_run;
-          ci[2 * plane] = c.lol_s;
-          ci[3 * plane] = c.lol_e;
-          for (int k = 0; k < 3; ++k) ci[(4 + k) * plane] = c.seen[k];
-          cf[0] = c.mn;
-          cf[plane] = c.mx;
-          for (int k = 0; k < 3; ++k) {
-            cf[(2 + k) * plane] = c.ramp[k];
-            cf[(5 + k) * plane] = c.prev[k];
-          }
-        }
-        if (q.hist_shared) {
-          __syncthreads();
-          flush_hist(s_hist, q.res_hist + (int64_t)b * nbq, nbq);
-          flush_hist(s_hist + nbq, q.exceed + (int64_t)b * neq, neq);
-        }
-        if (base + TILE >= T) {  // the row's partial row (dead threads
-                                 // hold the identities)
-          double v[SCN_LEAVES] = {(double)c.n_use, c.mn,      c.mx,
-                                  (double)c.lol_s, (double)c.lol_e,
-                                  c.ramp[0],       c.ramp[1], c.ramp[2]};
-          const int kind[SCN_LEAVES] = {K_SUM, K_MIN, K_MAX, K_SUM,
-                                        K_SUM, K_MAX, K_MAX, K_MAX};
-          cta_partials(v, kind, s_stage,
-                       q.part + ((int64_t)blockIdx.x * B + b) * SCN_LEAVES);
         }
       }
     }
@@ -1296,6 +1179,7 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
     a.cloud_end[i] = cloud_end;
     a.total_end[i] = total_end;
     a.sec[i] = sec;
+    if (EPI == SCEN) a.out_tame[i] = tame ? 1 : 0;
     if (EPI == ACC) {
       a.pv_sum[i] = pv_sum;
       a.pv_max[i] = pv_max;
@@ -1351,24 +1235,335 @@ __global__ void collapse_kernel(int n_parts, int L, const int* kinds,
   out[l] = x;
 }
 
-// the series epilogue's second pass: per second, the CTA partials summed
-// in CTA index order.  The running sum is a double, rounded once: a float
-// running sum over 512 partials would drift by ~1e-6 of the total, while
-// the per-CTA partials (a 32-lane butterfly, then 4 warps) err by a few
-// float ULP that average out over the CTAs.
-__global__ void series_sum_kernel(int n_parts, int T,
-                                  const float* __restrict__ part_m,
-                                  const float* __restrict__ part_p,
-                                  float* meter_sum, float* pv_sum) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= T) return;
-  double m = 0.0, p = 0.0;
-  for (int c = 0; c < n_parts; ++c) {
-    m = m + (double)part_m[(int64_t)c * T + t];
-    p = p + (double)part_p[(int64_t)c * T + t];
+// the series epilogue's second pass: per second, the (n_parts, T) CTA
+// partials summed over the CTAs in double, rounded once (a float running
+// sum over 512 partials would drift by ~1e-6 of the total, while the
+// per-CTA partials, a 32-lane butterfly and then 4 warps, err by a few
+// float ULP that average out).  The order is fixed: strand j (of
+// SUM_STRANDS) adds partials j, j + SUM_STRANDS, ... in index order from
+// 0.0, then the strands are added 0, 1, ... from 0.0 through shared
+// memory (kernels/block_step.py series_sum_plain adds in the same order).
+// No atomics, so a rerun gives the same bits.
+//
+// Bound: bytes (4.4 MB a 65536 x 1080 block, read once).  Design: CTA
+// (x, y) takes SUM_COLS seconds of array y (meter, pv) with one thread
+// per (strand, second): a warp reads SUM_COLS consecutive floats of 4
+// partial rows (32-byte sectors, coalesced), and ceil(T / SUM_COLS) x 2
+// CTAs (270 at T = 1080) spread the reads over every SM, where one
+// thread per second walking all 512 partials kept 5 SMs busy.
+#define SUM_STRANDS 32
+#define SUM_COLS 8
+__global__ void __launch_bounds__(SUM_STRANDS* SUM_COLS)
+    series_sum_kernel(int n_parts, int T, const float* __restrict__ part_m,
+                      const float* __restrict__ part_p, float* meter_sum,
+                      float* pv_sum) {
+  __shared__ double s_strand[SUM_STRANDS][SUM_COLS];
+  const int col = threadIdx.x % SUM_COLS, strand = threadIdx.x / SUM_COLS;
+  const int t = blockIdx.x * SUM_COLS + col;
+  const float* part = blockIdx.y ? part_p : part_m;
+  double x = 0.0;
+  if (t < T) {
+#pragma unroll 4
+    for (int c = strand; c < n_parts; c += SUM_STRANDS)
+      x = x + (double)part[(int64_t)c * T + t];
   }
-  meter_sum[t] = (float)m;
-  pv_sum[t] = (float)p;
+  s_strand[strand][col] = x;
+  __syncthreads();
+  if (strand == 0 && t < T) {
+    double tot = 0.0;
+    for (int j = 0; j < SUM_STRANDS; ++j) tot = tot + s_strand[j][col];
+    (blockIdx.y ? pv_sum : meter_sum)[t] = (float)tot;
+  }
+}
+
+// K10's second launch, the scenario fold (_scenario_block_core's rows,
+// tmhpvsim_tpu/engine/simulation.py:1890-1933): over the producer's
+// time-major (T, n) meter and pv, each (scenario row, chain) folds its
+// row's transform
+//   meter_i = fmaf(meter, demand_scale, demand_shift_w)  (the JAX scan
+//             contracts it: tests/test_torch_serve.py),
+//   pv_i    = fminf(ac * (pv_scale * weather_bias), curtail_w),
+// masked by the site / cohort selectors, t < duration_s and t < horizon_s,
+// in second order into the seven statistics and a risk FleetAcc
+// (obs/analytics.py fold_second).
+//
+// Design.  CTA (group set, row), the row fastest: its threads are the 128
+// chains of one chain group at a time (the step's CTA, so the per-(group,
+// row) partial rows keep their bits and order), one row each.  The CTAs
+// of a group set read the group's ~1.1 MB of meter and pv at about the
+// same time, so the rows after the first read it from L2; each thread
+// loads the next SCN_CHUNK seconds' pairs while it folds this chunk's
+// (with one second in flight the loads' latency bound the fold).  Every
+// (row, chain) keeps its statistics and risk leaves in registers for the
+// whole block: read once, written once.  A CTA walks groups_per_cta chain
+// groups (chosen by the launcher so the grid is one wave), so the row's
+// sketch lives in shared memory for all of them and is flushed once (one
+// atomicAdd per non-zero slot).  The exceedance slots count in registers
+// against the thresholds passed by value: with ascending thresholds slot
+// k's count is the used samples above threshold k - 1 less those above
+// threshold k, per-thread counters reduced over the warp before one
+// atomicAdd per slot (past SCN_MAX_THR thresholds, one shared atomicAdd
+// per used sample into the sketch's slots: counting the default seven
+// that way took the fold from 6.3 to 8.3 ms at 16 rows on an H100,
+// ab_kernels.py).  The residual bins count with one shared atomicAdd
+// per used sample, or in global memory when the sketch does not fit in
+// shared memory.  Integer counts commute, so every count is exact and
+// order-free.  Which ramp grids each second closes is worked out once per
+// CTA.  A (row, chain) past its last valid second (a row past its
+// horizon, a chain its selectors leave out) skips the rest of the block
+// when the producer's flag shows that it would fold only identities
+// (see "The tail" below): the serving paths' short horizons cost little.
+// (Folding 2 or 4 rows per thread, to read each value once for them, took
+// 160 and 239 registers, and so fewer warps, and was slower at 16 rows.)
+//
+// Bound: operations (per valid (row, chain, second) sample the transform,
+// the statistics, the bin, the threshold compares, the loss run and the
+// ramp grids); the meter and pv are read from device memory once.
+__global__ void __launch_bounds__(THREADS)
+    scenario_fold_kernel(const Scen q, int groups_per_cta) {
+  __shared__ double s_stage[WARPS * SCN_LEAVES];
+  extern __shared__ int s_dyn[];
+  const int B = q.B, T = q.T;
+  const int64_t n = q.n;
+  const int b = blockIdx.x % B;
+  const int n_groups = (int)((n + THREADS - 1) / THREADS);
+  const int g0 = (blockIdx.x / B) * groups_per_cta;
+  const int g1 = min(n_groups, g0 + groups_per_cta);
+  const int nbq = q.bins + 2, neq = q.n_thr + 1;
+  const bool exc_regs = q.n_thr <= SCN_MAX_THR;
+  // dynamic shared memory: the sketch (when shared), then per second which
+  // ramp grids it closes (bit k: window k)
+  const int sk_len = q.hist_shared ? nbq + (exc_regs ? 0 : neq) : 0;
+  unsigned char* const s_grid =
+      reinterpret_cast<unsigned char*>(s_dyn + sk_len);
+  const float ds = q.knob_f[0][b], dsh = q.knob_f[1][b];
+  const float pvw = q.knob_f[2][b] * q.knob_f[3][b], cap = q.knob_f[4][b];
+  const int horizon = q.knob_i[0][b], site_sel = q.knob_i[1][b];
+  const int coh_sel = q.knob_i[2][b];
+  const int lim = min(q.duration_s, horizon);
+  // s_info: the last second closing each ramp grid (-1: none), the
+  // seconds before the row's limit, and whether t ever fails to increase
+  __shared__ int s_info[5];
+  if (threadIdx.x < 5) s_info[threadIdx.x] = threadIdx.x < 3 ? -1 : 0;
+  for (int k = threadIdx.x; k < sk_len; k += blockDim.x) s_dyn[k] = 0;
+  __syncthreads();
+  for (int s = threadIdx.x; s < T; s += blockDim.x) {
+    const int t = q.t[s];
+    int bits = 0;
+    for (int k = 0; k < 3; ++k) {
+      const int w = q.ramp_w[k];
+      if (w == 1 || (t + 1) % w == 0) {
+        bits |= 1 << k;
+        atomicMax(&s_info[k], s);
+      }
+    }
+    s_grid[s] = (unsigned char)bits;
+    if (t < lim) atomicAdd(&s_info[3], 1);
+    if (s > 0 && q.t[s - 1] >= t) s_info[4] = 1;
+  }
+  __syncthreads();
+  // The tail: once a (row, chain) has no valid second left, each further
+  // second only adds x * 0 to its sums and the masks' identities to the
+  // rest.  That changes nothing when every value is finite after the
+  // transform (the producer's flag with knobs at most SCN_TAME), no sum is
+  // -0 and no extremum lies outside +-FLT_MAX; the rest of the block then
+  // needs no loads: the loss run ends and each ramp grid closing in it
+  // clears its seen flag.  With t increasing the valid seconds of a
+  // selected chain are the first s_info[3].
+  const bool early = q.tame != nullptr && !s_info[4] &&
+                     fabsf(ds) <= SCN_TAME && fabsf(dsh) <= SCN_TAME &&
+                     fabsf(pvw) <= SCN_TAME && !(cap < -SCN_TAME);
+  int* const g_hist = q.res_hist + (int64_t)b * nbq;
+  int* const g_exc = q.exceed + (int64_t)b * neq;
+  // the used samples and those above each threshold, over the CTA's chains
+  int used = 0, above[SCN_MAX_THR];
+#pragma unroll
+  for (int j = 0; j < SCN_MAX_THR; ++j) above[j] = 0;
+
+  for (int g = g0; g < g1; ++g) {
+    const int64_t i = (int64_t)g * THREADS + threadIdx.x;
+    const bool live = i < n;
+    ScnRow e;
+    if (live) {
+      const int64_t o = (int64_t)b * n + i;
+      e.pv_sum = q.stat_f[0][o];
+      e.pv_max = q.stat_f[1][o];
+      e.meter_sum = q.stat_f[2][o];
+      e.residual_sum = q.stat_f[3][o];
+      e.residual_min = q.stat_f[4][o];
+      e.residual_max = q.stat_f[5][o];
+      e.n_seconds = q.n_seconds[o];
+      const bool sel = (site_sel < 0 || i == site_sel) &&
+                       (q.cohort == nullptr || coh_sel < 0 ||
+                        q.cohort[i] == coh_sel);
+      const float* pm = q.meter + i;
+      const float* pa = q.pv + i;
+      // SCN_CHUNK seconds at a time, the next chunk's loads in flight
+      // while this one folds
+      float mc[SCN_CHUNK], ac[SCN_CHUNK];
+#pragma unroll
+      for (int u = 0; u < SCN_CHUNK; ++u) {
+        mc[u] = __ldg(pm + (int64_t)u * n);
+        ac[u] = __ldg(pa + (int64_t)u * n);
+      }
+      const int s_cut =
+          early && q.tame[i]
+              ? (sel ? s_info[3] + SCN_CHUNK - 1 : 0) / SCN_CHUNK * SCN_CHUNK
+              : T;
+      int s0 = 0;
+      for (; s0 < T; s0 += SCN_CHUNK) {
+        if (s0 >= s_cut && __float_as_uint(e.pv_sum) != 0x80000000u &&
+            __float_as_uint(e.meter_sum) != 0x80000000u &&
+            __float_as_uint(e.residual_sum) != 0x80000000u &&
+            e.pv_max >= -FLT_MAX && e.residual_min <= FLT_MAX &&
+            e.residual_max >= -FLT_MAX)
+          break;
+        float mx_[SCN_CHUNK], ax_[SCN_CHUNK];
+        const bool more = s0 + SCN_CHUNK < T;
+#pragma unroll
+        for (int u = 0; u < SCN_CHUNK; ++u) {
+          const int64_t o2 = (int64_t)(s0 + SCN_CHUNK + u) * n;
+          mx_[u] = more ? __ldg(pm + o2) : 0.0f;
+          ax_[u] = more ? __ldg(pa + o2) : 0.0f;
+        }
+#pragma unroll
+        for (int u = 0; u < SCN_CHUNK; ++u) {
+          const int s = s0 + u;
+          const float m0 = mc[u], a0 = ac[u];
+          const int t = __ldg(q.t + s);
+          const int grid = s_grid[s];
+          const float meter = fmaf(m0, ds, dsh);
+          const float pv = fminf(a0 * pvw, cap);
+          const float res = meter - pv;
+          const bool valid = sel && t < q.duration_s && t < horizon;
+          if (!valid) {
+            // an invalid second (a row past its horizon, a chain its
+            // selectors leave out) folds the identities: the same
+            // arithmetic as below with the mask 0, a masked sum still
+            // adding x * 0 (NaN for a non-finite x, as the JAX fold's)
+            e.pv_sum = e.pv_sum + pv * 0.0f;
+            e.pv_max = fmaxf(e.pv_max, -FLT_MAX);
+            e.meter_sum = e.meter_sum + meter * 0.0f;
+            e.residual_sum = e.residual_sum + res * 0.0f;
+            e.residual_min = fminf(e.residual_min, FLT_MAX);
+            e.residual_max = fmaxf(e.residual_max, -FLT_MAX);
+            e.mn = fminf(e.mn, FLT_MAX);
+            e.mx = fmaxf(e.mx, -FLT_MAX);
+            e.lol_run = 0;
+            e.lol_e += q.lolp_k == 0 ? 1 : 0;
+            e.lol_s += q.lolp_k <= 0 ? 1 : 0;
+  #pragma unroll
+            for (int k = 0; k < 3; ++k)
+              if (grid >> k & 1) e.seen[k] = 0;
+            continue;
+          }
+          e.pv_sum = e.pv_sum + pv * 1.0f;
+          e.pv_max = fmaxf(e.pv_max, pv);
+          e.meter_sum = e.meter_sum + meter * 1.0f;
+          e.residual_sum = e.residual_sum + res * 1.0f;
+          e.residual_min = fminf(e.residual_min, res);
+          e.residual_max = fmaxf(e.residual_max, res);
+          e.n_seconds += 1;
+          const bool use = isfinite(res);
+          if (use) {
+            e.n_use += 1;
+            float bf = (res - q.lo) * q.inv_w;
+            bf = fminf(fmaxf(bf, -1.0f), (float)q.bins);
+            const int idx = (int)floorf(bf) + 1;
+            if (q.hist_shared) atomicAdd(&s_dyn[idx], 1);
+            else atomicAdd(&g_hist[idx], 1);
+            if (exc_regs) {
+  #pragma unroll
+              for (int j = 0; j < SCN_MAX_THR; ++j)
+                above[j] += q.thr_v[j] < res ? 1 : 0;
+            } else {
+              int slot = 0;
+              for (int j = 0; j < q.n_thr; ++j)
+                slot += q.thr[j] < res ? 1 : 0;
+              if (q.hist_shared) atomicAdd(&s_dyn[nbq + slot], 1);
+              else atomicAdd(&g_exc[slot], 1);
+            }
+          }
+          e.mn = fminf(e.mn, use ? res : FLT_MAX);
+          e.mx = fmaxf(e.mx, use ? res : -FLT_MAX);
+          e.lol_run = (use && res > q.capacity) ? e.lol_run + 1 : 0;
+          e.lol_e += e.lol_run == q.lolp_k ? 1 : 0;
+          e.lol_s += e.lol_run >= q.lolp_k ? 1 : 0;
+  #pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            if (grid >> k & 1) {
+              if (use && e.seen[k] > 0)
+                e.ramp[k] = fmaxf(e.ramp[k], fabsf(res - e.prev[k]));
+              if (use) e.prev[k] = res;
+              e.seen[k] = use ? 1 : 0;
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < SCN_CHUNK; ++u) {
+          mc[u] = mx_[u];
+          ac[u] = ax_[u];
+        }
+      }
+      if (s0 < T) {  // the tail, without its loads
+        e.lol_run = 0;
+        e.lol_e += q.lolp_k == 0 ? T - s0 : 0;
+        e.lol_s += q.lolp_k <= 0 ? T - s0 : 0;
+        for (int k = 0; k < 3; ++k)
+          if (s_info[k] >= s0) e.seen[k] = 0;
+      }
+      q.stat_f[0][o] = e.pv_sum;
+      q.stat_f[1][o] = e.pv_max;
+      q.stat_f[2][o] = e.meter_sum;
+      q.stat_f[3][o] = e.residual_sum;
+      q.stat_f[4][o] = e.residual_min;
+      q.stat_f[5][o] = e.residual_max;
+      q.n_seconds[o] = e.n_seconds;
+      if (q.chain_i != nullptr) {
+        const int64_t plane = (int64_t)B * n;
+        int* ci = q.chain_i + o;
+        float* cf = q.chain_f + o;
+        ci[0] = e.n_use;
+        ci[plane] = e.lol_run;
+        ci[2 * plane] = e.lol_s;
+        ci[3 * plane] = e.lol_e;
+        for (int k = 0; k < 3; ++k) ci[(4 + k) * plane] = e.seen[k];
+        cf[0] = e.mn;
+        cf[plane] = e.mx;
+        for (int k = 0; k < 3; ++k) {
+          cf[(2 + k) * plane] = e.ramp[k];
+          cf[(5 + k) * plane] = e.prev[k];
+        }
+      }
+      used += e.n_use;
+    }
+    // the (group, row) partial row (dead threads hold the identities)
+    double v[SCN_LEAVES] = {(double)e.n_use, e.mn,      e.mx,
+                            (double)e.lol_s, (double)e.lol_e,
+                            e.ramp[0],       e.ramp[1], e.ramp[2]};
+    const int kind[SCN_LEAVES] = {K_SUM, K_MIN, K_MAX, K_SUM,
+                                  K_SUM, K_MAX, K_MAX, K_MAX};
+    cta_partials(v, kind, s_stage,
+                 q.part + ((int64_t)g * B + b) * SCN_LEAVES);
+  }
+  // the sketch, once per CTA
+  if (q.hist_shared) {
+    __syncthreads();
+    flush_hist(s_dyn, g_hist, nbq);
+    if (!exc_regs) flush_hist(s_dyn + nbq, g_exc, neq);
+  }
+  if (exc_regs) {
+    // slot k: the used samples above threshold k - 1 (all of them for
+    // k = 0) less those above threshold k
+#pragma unroll
+    for (int k = 0; k <= SCN_MAX_THR; ++k) {
+      if (k > q.n_thr) break;
+      const int hi = k == 0 ? used : above[k > 0 ? k - 1 : 0];
+      const int lo = k < q.n_thr ? above[k < SCN_MAX_THR ? k : 0] : 0;
+      const int cnt = __reduce_add_sync(0xffffffffu, hi - lo);
+      if ((threadIdx.x & 31) == 0 && cnt) atomicAdd(&g_exc[k], cnt);
+    }
+  }
 }
 
 // the site mode's geometry on its own (a test entry): out (9, T, n)
@@ -1437,13 +1632,12 @@ static int launch(int geo, const Args& a, void* stream, int tel = 0,
            : geo == SITE ? launch_acc<SITE>(a, blocks, smem, st, tel, flt)
                          : launch_acc<STRIDED>(a, blocks, smem, st, tel, flt);
   } else {
-    const int sm = EPI == SCEN ? smem : 0;
-    return geo == SHARED ? launch_one<EPI, SHARED, false, false>(a, blocks, sm,
+    return geo == SHARED ? launch_one<EPI, SHARED, false, false>(a, blocks, 0,
                                                                  st)
-           : geo == SITE ? launch_one<EPI, SITE, false, false>(a, blocks, sm,
+           : geo == SITE ? launch_one<EPI, SITE, false, false>(a, blocks, 0,
                                                                st)
                          : launch_one<EPI, STRIDED, false, false>(a, blocks,
-                                                                  sm, st);
+                                                                  0, st);
   }
 }
 
@@ -1539,24 +1733,49 @@ extern "C" int obs_struct_size(void* stream) {
   return (int)sizeof(Obs);
 }
 
-// K10: acc holds the (B, n) statistics; q the knobs, the sketch and the
-// outputs; smem the stage plus, when they fit, the histograms, in bytes
-extern "C" int block_step_scenario(COMMON_PARAMS, float* pv_sum,
-                                   float* pv_max, float* meter_sum,
-                                   float* residual_sum, float* residual_min,
-                                   float* residual_max, int* n_seconds,
-                                   const Scen* q, int smem, void* stream) {
+// K10's producer: the block's time-major (T, n) meter and pv, drawn in
+// the flat scan's layout (under BF16 with the acc epilogue's bf16 draws),
+// and each chain's SCN_TAME flag (n,)
+extern "C" int block_step_scenario(COMMON_PARAMS, float* meter, float* pv,
+                                   int* tame, void* stream) {
   Args a = common(COMMON_ARGS);
-  a.pv_sum = pv_sum;
-  a.pv_max = pv_max;
-  a.meter_sum = meter_sum;
-  a.residual_sum = residual_sum;
-  a.residual_min = residual_min;
-  a.residual_max = residual_max;
-  a.n_seconds = n_seconds;
-  a.q = *q;
-  if (a.q.B <= 0) return (int)cudaErrorInvalidValue;
-  return launch<SCEN>(geo, a, stream, 0, 0, smem);
+  a.out_meter = meter;
+  a.out_pv = pv;
+  a.out_tame = tame;
+  return launch<SCEN>(geo, a, stream);
+}
+
+// K10's fold: q the rows' knobs, the producer's meter and pv, the (B, n)
+// statistics (updated in place), the sketch and the partial rows; smem
+// the dynamic shared bytes: the sketch when q->hist_shared, then T bytes
+// of ramp flags.  One wave: as many CTAs as fit on the card at once, each
+// walking groups_per_cta chain groups of its row.
+extern "C" int scenario_fold(const Scen* q, int smem, void* stream) {
+  if (q->B <= 0 || q->T <= 0 || q->T % SCN_CHUNK)
+    return (int)cudaErrorInvalidValue;
+  if (q->n <= 0) return (int)cudaGetLastError();
+  auto kernel = scenario_fold_kernel;
+  if (smem > 48 * 1024) {  // above 48 KB only after opting in
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t n_groups = (q->n + THREADS - 1) / THREADS;
+  const int64_t wave = std::max<int64_t>(1, (int64_t)sms * per_sm);
+  const int64_t gpc =
+      std::max<int64_t>(1, (q->B * n_groups + wave - 1) / wave);
+  const int64_t blocks = q->B * ((n_groups + gpc - 1) / gpc);
+  kernel<<<(unsigned)blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      *q, (int)gpc);
+  return (int)cudaGetLastError();
 }
 
 // the layout check of the wrapper's ctypes mirror of Scen
@@ -1596,9 +1815,10 @@ extern "C" int series_sum(int n_parts, int T, const float* part_meter,
                           const float* part_pv, float* meter_sum,
                           float* pv_sum, void* stream) {
   if (T > 0) {
-    const unsigned blocks = (unsigned)((T + 255) / 256);
-    series_sum_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
-        n_parts, T, part_meter, part_pv, meter_sum, pv_sum);
+    const dim3 blocks((unsigned)((T + SUM_COLS - 1) / SUM_COLS), 2);
+    series_sum_kernel<<<blocks, SUM_STRANDS * SUM_COLS, 0,
+                        (cudaStream_t)stream>>>(n_parts, T, part_meter,
+                                                part_pv, meter_sum, pv_sum);
   }
   return (int)cudaGetLastError();
 }

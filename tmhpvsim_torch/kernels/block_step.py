@@ -28,10 +28,12 @@ Replaces, in tmhpvsim_tpu/engine/simulation.py:
   both at once :1436, :1524), each with its ``reduce_chainwise`` collapse
   (``block_step_obs``; obs/telemetry.py, obs/analytics.py);
 * K10 the scenario fold of ``_block_step_scan_scenario`` /
-  ``_scenario_block_core`` (:1834, :1871-1937): each scenario row's
-  transform of the step's meter and pv, its selectors and horizon, the
-  seven statistics per (scenario, chain) and a ``risk`` FleetAcc per
-  scenario with its ``reduce_chainwise`` (``block_step_scenario``);
+  ``_scenario_block_core`` (:1834, :1871-1937), two launches
+  (``block_step_scenario``): the step writes the block's time-major meter
+  and pv (``scenario_producer``), then each scenario row's transform of
+  them, its selectors and horizon, the seven statistics per (scenario,
+  chain) and a ``risk`` FleetAcc per scenario with its
+  ``reduce_chainwise`` (``scenario_fold``);
 * K12 the same step under ``compute_dtype='bf16'`` (:1129-1132, :713-733,
   :765, :830-842, :911-912, :1218): the acc and series epilogues draw the
   per-second u / z in bf16 (the trace epilogue, the JAX ``_block_step``,
@@ -65,10 +67,12 @@ table lerps, the renewal step (a new cycle from ``cycle_from_u`` on
 redraw), the csi composition, ``pv.power_from_csi`` and the meter, fed by
 ``scan_draws_tmajor`` / ``meter_block_tmajor`` (models/clearsky_index.py
 :278-319).  ``block_step_plain``, ``series_plain``, ``trace_plain``,
-``block_step_obs_plain`` and ``scenario_plain`` are that body
-(``_body_plain``) plus their epilogue, so they cannot drift apart; the
-CUDA kernel (csrc/block_step.cuh) is one template over the kernel set,
-the epilogue, the geometry mode and the observers.
+``block_step_obs_plain`` and ``scenario_producer_plain`` are that body
+(``_body_plain``) plus their epilogue, so they cannot drift apart
+(``scenario_plain`` is the producer's and ``scenario_fold_plain``'s
+composition); the CUDA kernel (csrc/block_step.cuh) is one template over
+the kernel set, the epilogue, the geometry mode and the observers, beside
+the scenario fold and the series' cross-CTA sum.
 
 Each wrapper runs its plain version on CPU tensors and launches the
 kernel on CUDA tensors; every (epilogue, geometry, kernel set)
@@ -154,12 +158,16 @@ K9 = build.LaunchCounter("block_step_analytics")
 K89 = build.LaunchCounter("block_step_tel_analytics")
 #: the second pass of reduce_chainwise (per-CTA partials over CTAs)
 COLLAPSE = build.LaunchCounter("chainwise_collapse")
+#: K10's second launch, the scenario fold over the producer's meter and pv
+#: (the producer counts as the scenario epilogue's instantiation)
+SCN_FOLD = build.LaunchCounter("scenario_fold")
 #: every counter of this module: the instantiations in (epilogue,
 #: geometry, kernel set) order, then the rest
 COUNTERS = tuple(dict.fromkeys(
     [*STEP.values(), *STEP_BF16.values(), *STEP_RBG.values(),
      *STEP_RBG_BF16.values(), *STEP_URBG.values(),
-     *STEP_URBG_BF16.values()])) + (K4_SUM, K7_FLEET, K8, K9, K89, COLLAPSE)
+     *STEP_URBG_BF16.values()])) + (K4_SUM, K7_FLEET, K8, K9, K89, COLLAPSE,
+                                     SCN_FOLD)
 
 #: per-second integer rows: global second, rebased hour / day / minute index
 ROWS_I = ("t", "h", "d", "m")
@@ -193,10 +201,16 @@ THREADS = 128
 #: the analytics' shared-memory histograms may take this many bytes per
 #: CTA (beyond, they count with global atomics)
 SMEM_MAX = 96 * 1024
-#: the scenario epilogue's stage: one 60-second tile of every chain's
-#: meter and pv, in dynamic shared memory (its histograms follow when
-#: they fit under ``SMEM_MAX``)
-SCN_STAGE_BYTES = 60 * THREADS * 2 * 4
+#: the scenario fold's shared sketch (its row's residual histogram, and
+#: its exceedance slots when they do not count in registers) and its ramp
+#: flags may take this many bytes per CTA; beyond, the sketch counts with
+#: global atomics
+SCN_SMEM_MAX = 200 * 1024
+#: the scenario fold counts the exceedance slots in registers up to this
+#: many thresholds (csrc/block_step.cuh ``SCN_MAX_THR``)
+SCN_MAX_THR = 8
+#: series_sum's strands per second (csrc/block_step.cuh ``SUM_STRANDS``)
+SUM_STRANDS = 32
 
 #: the kernel's per-chain observer leaves (``per_chain=True``), in row order
 TEL_CHAIN_I = tuple(f"{k}_{f}" for f in tel.TELEMETRY_FIELDS
@@ -218,8 +232,8 @@ COH_KINDS = (0, 0, 0, 0, 1, 2)
 #: row repeats ``COH_KINDS`` per cohort)
 PART_KINDS = {"tel_part": TEL_KINDS, "flt_part": FLT_KINDS,
               "coh_part": COH_KINDS}
-#: the scenario epilogue's per-(scenario, chain) risk leaves, kept between
-#: its tiles, in row order
+#: the scenario fold's per-(scenario, chain) risk leaves
+#: (``per_chain=True``), in row order
 SCN_CHAIN_I = ("n_use", "lol_run", "lol_seconds", "lol_events",
                "seen_ramp_1s", "seen_ramp_60s", "seen_ramp_3600s")
 SCN_CHAIN_F = ("min_res", "max_res", "max_ramp_1s", "max_ramp_60s",
@@ -664,32 +678,41 @@ def scenario_valid_plain(rows_i, duration_s, scen, b, n, cohort=None):
     return sel, (t < duration_s) & (t < h)
 
 
-def scenario_plain(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
-                   duration_s: int, meter_max_w: float, surface_tilt,
-                   albedo, site: SiteGeometry | None = None,
-                   fleet: FleetLeaves | None = None, scen: dict = None,
-                   params: flt.FleetParams = None, cohort=None,
-                   per_chain: bool = False, kernels: str = "exact",
-                   compute_dtype: str = "f32", impl: str = "threefry2x32"):
-    """Plain K10 (under bf16 K12 in K10): the shared body (K3's step with
-    K7's transforms, the flat scan's draw layout), then every scenario
-    row's transform, validity and statistics fold into ``acc`` (``(B, n)``
-    leaves) beside a zero-initialised ``risk`` FleetAcc (obs/analytics.py
-    ``fold_second`` / ``reduce_chainwise``), all rows at once over a
-    leading row axis (each row's arithmetic, in second order, is the one
-    row's).  Returns ``(carry, acc, delta)``: ``delta`` holds the block's
-    collapsed FleetAcc of each row (``(B, ...)`` leaves) and, with
-    ``per_chain``, ``chain``, each row's per-chain FleetAcc (``(B, n)``
-    leaves)."""
+def scenario_producer_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
+                            meter_max_w: float, surface_tilt, albedo,
+                            site: SiteGeometry | None = None,
+                            fleet: FleetLeaves | None = None,
+                            kernels: str = "exact",
+                            compute_dtype: str = "f32",
+                            impl: str = "threefry2x32"):
+    """Plain K10 producer: the shared body's meter and pv (K3's step with
+    K7's transforms, the flat scan's draw layout; under bf16 the acc
+    epilogue's bf16 draws).  Returns ``(carry, meter, pv)``, time-major
+    ``(T, n)``."""
+    return _body_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
+                       meter_max_w, surface_tilt, albedo, site, fleet,
+                       kernels, compute_dtype, impl=impl)[:3]
+
+
+def scenario_fold_plain(meter, ac, t, acc, duration_s: int, scen: dict,
+                        params: flt.FleetParams, cohort=None,
+                        per_chain: bool = False):
+    """Plain K10 fold: every scenario row's transform, validity and
+    statistics fold of the block's time-major ``(T, n)`` meter and pv
+    (``t``: the ``(T,)`` global seconds) into ``acc`` (``(B, n)``
+    leaves) beside a zero-initialised ``risk`` FleetAcc
+    (obs/analytics.py ``fold_second`` / ``reduce_chainwise``), all rows
+    at once over a leading row axis (each row's arithmetic, in second
+    order, is the one row's).  Returns ``(acc, delta)``: ``delta`` holds
+    the block's collapsed FleetAcc of each row (``(B, ...)`` leaves) and,
+    with ``per_chain``, ``chain``, each row's per-chain FleetAcc (``(B,
+    n)`` leaves)."""
     B = _scenario_check(scen)
-    carry, meter, ac, _, _ = _body_plain(
-        tables, rows_i, rows_f, k_scan, k_meter, carry, meter_max_w,
-        surface_tilt, albedo, site, fleet, kernels, compute_dtype,
-        impl=impl)
     n, dev = ac.shape[1], ac.device
-    t_rows = rows_i[0].tolist()
+    t_rows = t.tolist()
     rows, col = slice(None), {k: v[:, None] for k, v in scen.items()}
-    sel, tv = scenario_valid_plain(rows_i, duration_s, scen, rows, n, cohort)
+    sel, tv = scenario_valid_plain(t[None], duration_s, scen, rows, n,
+                                   cohort)
     fa0 = flt.init_acc("risk", n, params=params, device=dev)
     fa = {k: v.expand(B, *v.shape).clone() for k, v in fa0.items()}
     big = torch.tensor(_BIG, dtype=torch.float32, device=dev)
@@ -706,6 +729,25 @@ def scenario_plain(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
     delta = {k: torch.stack([d[k] for d in deltas]) for k in deltas[0]}
     if per_chain:
         delta["chain"] = {k: v for k, v in fa.items() if v.shape == (B, n)}
+    return out, delta
+
+
+def scenario_plain(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
+                   duration_s: int, meter_max_w: float, surface_tilt,
+                   albedo, site: SiteGeometry | None = None,
+                   fleet: FleetLeaves | None = None, scen: dict = None,
+                   params: flt.FleetParams = None, cohort=None,
+                   per_chain: bool = False, kernels: str = "exact",
+                   compute_dtype: str = "f32", impl: str = "threefry2x32"):
+    """Plain K10 (under bf16 K12 in K10), the kernels' composition: the
+    producer (``scenario_producer_plain``), then the fold
+    (``scenario_fold_plain``).  Returns ``(carry, acc, delta)``."""
+    _scenario_check(scen)
+    carry, meter, ac = scenario_producer_plain(
+        tables, rows_i, rows_f, k_scan, k_meter, carry, meter_max_w,
+        surface_tilt, albedo, site, fleet, kernels, compute_dtype, impl)
+    out, delta = scenario_fold_plain(meter, ac, rows_i[0], acc, duration_s,
+                                     scen, params, cohort, per_chain)
     return carry, out, delta
 
 
@@ -791,11 +833,16 @@ class _Scen(ctypes.Structure):
 
     _fields_ = [("B", ctypes.c_int), ("bins", ctypes.c_int),
                 ("n_thr", ctypes.c_int), ("lolp_k", ctypes.c_int),
-                ("hist_shared", ctypes.c_int), ("ramp_w", ctypes.c_int * 3),
+                ("hist_shared", ctypes.c_int), ("T", ctypes.c_int),
+                ("duration_s", ctypes.c_int), ("ramp_w", ctypes.c_int * 3),
                 ("lo", ctypes.c_float), ("inv_w", ctypes.c_float),
-                ("capacity", ctypes.c_float), ("thr", _P),
+                ("capacity", ctypes.c_float), ("n", ctypes.c_int64),
+                ("t", _P), ("meter", _P), ("pv", _P), ("tame", _P),
+                ("thr", _P),
+                ("thr_v", ctypes.c_float * SCN_MAX_THR),
                 ("knob_f", _P * len(SCEN_F)), ("knob_i", _P * len(SCEN_I)),
-                ("cohort", _P), ("res_hist", _P), ("exceed", _P),
+                ("cohort", _P), ("stat_f", _P * len(ACC_F)),
+                ("n_seconds", _P), ("res_hist", _P), ("exceed", _P),
                 ("chain_i", _P), ("chain_f", _P), ("part", _P)]
 
 
@@ -1105,16 +1152,53 @@ def _block_step_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
 _scen_size_checked: set = set()
 
 
-def _scenario_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
-                   duration_s, meter_max_w, surface_tilt, albedo, site=None,
-                   fleet=None, scen=None, params=None, cohort=None,
-                   per_chain=False, kernels="exact", compute_dtype="f32",
-                   impl="threefry2x32"):
+def _scenario_producer_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry,
+                            meter_max_w, surface_tilt, albedo, site=None,
+                            fleet=None, kernels="exact", compute_dtype="f32",
+                            impl="threefry2x32"):
     n, T, dev, args = _common_args(tables, rows_i, rows_f, k_scan, k_meter,
-                                   carry, duration_s, meter_max_w,
-                                   surface_tilt, albedo, site, fleet, kernels,
-                                   impl=impl)
-    lib = _library(kernels, compute_dtype, impl)
+                                   carry, 0, meter_max_w, surface_tilt,
+                                   albedo, site, fleet, kernels, impl=impl)
+    out = torch.empty((2, T, n), dtype=torch.float32, device=dev)
+    tame = torch.empty(n, dtype=torch.int32, device=dev)
+    p = build.ptr
+    fn = build.entry(_library(kernels, compute_dtype, impl),
+                     "block_step_scenario", _COMMON + [_P] * 6)
+    rc = fn(*args, *(p(carry[k]) for k in CARRY), p(out[0]), p(out[1]),
+            p(tame), build.stream_ptr(dev))
+    build.check(rc, "block_step_scenario")
+    _count("scen", site, fleet, kernels, compute_dtype, impl)
+    return carry, out[0], out[1], tame
+
+
+def scenario_fold_layout(T: int, params: flt.FleetParams):
+    """The scenario fold's shared memory for a ``T``-second block: ``(the
+    sketch in shared memory, dynamic shared bytes)``.  The sketch (the
+    row's residual bins, and its exceedance slots past ``SCN_MAX_THR``
+    thresholds) goes to global memory when it does not fit in
+    ``SCN_SMEM_MAX`` beside the T bytes of per-second ramp flags."""
+    nb, ne = params.bins + 2, len(params.thresholds) + 1
+    sketch = 4 * (nb + (0 if ne - 1 <= SCN_MAX_THR else ne))
+    flags = -(-T // 4) * 4
+    if flags > SCN_SMEM_MAX:
+        raise ValueError(f"scenario_fold: a {T} s block does not fit the "
+                         "fold's shared memory")
+    shared = sketch + flags <= SCN_SMEM_MAX
+    return shared, sketch * shared + flags
+
+
+def _scenario_fold_cuda(meter, ac, t, acc, duration_s, scen, params,
+                        cohort=None, per_chain=False, tame=None):
+    dev = meter.device
+    T, n = meter.shape
+    _check(meter, torch.float32, dev, "meter")
+    _check(ac, torch.float32, dev, "pv")
+    _check(t, torch.int32, dev, "t")
+    if ac.shape != (T, n) or t.shape != (T,):
+        raise ValueError(f"scenario_fold: meter and pv must be ({T}, n), "
+                         f"t ({T},)")
+    if T % 60:
+        raise ValueError("block length must be a multiple of 60 seconds")
     B = _scenario_check(scen)
     for k in SCEN_F + SCEN_I:
         _check(scen[k], scen[k].dtype, dev, f"scen {k}")
@@ -1133,32 +1217,43 @@ def _scenario_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
     if n * T >= 2 ** 31:
         raise ValueError(f"block_step_scenario: {n} chains x {T} s passes "
                          "the int32 counts of one block")
+    if (np.diff(np.asarray(params.thresholds, np.float32)) < 0).any():
+        raise ValueError("block_step_scenario: the thresholds must be "
+                         "ascending in float32")
+    thr = _const_tensor(params.thresholds, torch.float32, dev)
+    lib = "block_step.cu"
     if lib not in _scen_size_checked:
         size = build.entry(lib, "scen_struct_size", [])
         if size(None) != ctypes.sizeof(_Scen):
             raise RuntimeError("block_step_scenario: the Scen layout "
                                "differs between the kernel and its wrapper")
         _scen_size_checked.add(lib)
+    hist_shared, smem = scenario_fold_layout(T, params)
     nb, ne = params.bins + 2, len(params.thresholds) + 1
-    n_ctas = (n + THREADS - 1) // THREADS
-    hist_bytes = 4 * (nb + ne)
-    stage = SCN_STAGE_BYTES
-    hist_shared = stage + hist_bytes <= SMEM_MAX
+    n_groups = (n + THREADS - 1) // THREADS
     p = build.ptr
     buf = {"res_hist": torch.zeros((B, nb), dtype=torch.int32, device=dev),
            "exceed": torch.zeros((B, ne), dtype=torch.int32, device=dev),
-           "chain_i": torch.empty((len(SCN_CHAIN_I), B, n),
-                                  dtype=torch.int32, device=dev),
-           "chain_f": torch.empty((len(SCN_CHAIN_F), B, n),
-                                  dtype=torch.float32, device=dev),
-           "part": torch.empty((n_ctas, B * len(SCN_KINDS)),
+           "part": torch.empty((n_groups, B * len(SCN_KINDS)),
                                dtype=torch.float64, device=dev)}
+    if per_chain:
+        buf["chain_i"] = torch.empty((len(SCN_CHAIN_I), B, n),
+                                     dtype=torch.int32, device=dev)
+        buf["chain_f"] = torch.empty((len(SCN_CHAIN_F), B, n),
+                                     dtype=torch.float32, device=dev)
     q = _Scen()
     q.B, q.bins, q.n_thr, q.lolp_k = B, params.bins, ne - 1, params.lolp_k
-    q.hist_shared = int(hist_shared)
+    q.hist_shared, q.T, q.duration_s = int(hist_shared), T, int(duration_s)
     q.ramp_w[:] = list(params.ramp_windows)
     q.lo, q.inv_w, q.capacity = params.lo, params.inv_w, params.capacity_w
-    q.thr = p(_const_tensor(params.thresholds, torch.float32, dev))
+    q.n, q.t, q.meter, q.pv, q.thr = n, p(t), p(meter), p(ac), p(thr)
+    if tame is not None:
+        _check(tame, torch.int32, dev, "tame")
+        if tame.shape != (n,):
+            raise ValueError(f"scenario_fold: tame must be ({n},)")
+        q.tame = p(tame)
+    q.thr_v[:] = (list(params.thresholds[:SCN_MAX_THR])
+                  + [math.inf] * max(0, SCN_MAX_THR - ne + 1))
     q.knob_f[:] = [p(scen[k]) for k in SCEN_F]
     q.knob_i[:] = [p(scen[k]) for k in SCEN_I]
     if cohort is not None:
@@ -1166,16 +1261,14 @@ def _scenario_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
         if cohort.shape != (n,):
             raise ValueError(f"block_step_scenario: cohort must be ({n},)")
         q.cohort = p(cohort)
-    for k in ("res_hist", "exceed", "chain_i", "chain_f", "part"):
-        setattr(q, k, p(buf[k]))
-    smem = stage + hist_bytes * hist_shared
-    fn = build.entry(lib, "block_step_scenario",
-                     _COMMON + [_P] * 11 + [ctypes.c_int])
-    rc = fn(*args, *(p(carry[k]) for k in CARRY),
-            *(p(acc[k]) for k in ACC_F), p(acc["n_seconds"]),
-            ctypes.byref(q), smem, build.stream_ptr(dev))
-    build.check(rc, "block_step_scenario")
-    _count("scen", site, fleet, kernels, compute_dtype, impl)
+    q.stat_f[:] = [p(acc[k]) for k in ACC_F]
+    q.n_seconds = p(acc["n_seconds"])
+    for k, v in buf.items():
+        setattr(q, k, p(v))
+    fn = build.entry(lib, "scenario_fold", [_P, ctypes.c_int])
+    rc = fn(ctypes.byref(q), smem, build.stream_ptr(dev))
+    build.check(rc, "scenario_fold")
+    SCN_FOLD.launches += 1
     L = len(SCN_KINDS)
     f = collapse_partials(buf["part"], SCN_KINDS * B).view(B, L)
     delta = {"count": f[:, 0].to(torch.int32), "res_hist": buf["res_hist"],
@@ -1188,6 +1281,20 @@ def _scenario_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
     if per_chain:
         delta["chain"] = {**dict(zip(SCN_CHAIN_I, buf["chain_i"])),
                           **dict(zip(SCN_CHAIN_F, buf["chain_f"]))}
+    return acc, delta
+
+
+def _scenario_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
+                   duration_s, meter_max_w, surface_tilt, albedo, site=None,
+                   fleet=None, scen=None, params=None, cohort=None,
+                   per_chain=False, kernels="exact", compute_dtype="f32",
+                   impl="threefry2x32"):
+    _scenario_check(scen)
+    carry, meter, ac, tame = _scenario_producer_cuda(
+        tables, rows_i, rows_f, k_scan, k_meter, carry, meter_max_w,
+        surface_tilt, albedo, site, fleet, kernels, compute_dtype, impl)
+    acc, delta = _scenario_fold_cuda(meter, ac, rows_i[0], acc, duration_s,
+                                     scen, params, cohort, per_chain, tame)
     return carry, acc, delta
 
 
@@ -1215,29 +1322,48 @@ def series_partials_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry,
 
 
 def series_sum_plain(part):
-    """Plain cross-CTA sum: ``(2, n_ctas, T)`` partials -> ``(2, T)``
-    (accumulated in float64, rounded once)."""
-    return part.double().sum(1).float()
+    """Plain cross-CTA sum: ``(2, n_ctas, T)`` partials -> ``(2, T)``,
+    in float64 in the kernel's order, rounded once: strand ``j`` of
+    ``SUM_STRANDS`` adds partials ``j, j + SUM_STRANDS, ...`` from 0.0,
+    then the strands are added in index order from 0.0, so the kernel
+    equals it bit for bit."""
+    p = part.double()
+    x = torch.zeros((p.shape[0], SUM_STRANDS, p.shape[2]),
+                    dtype=torch.float64, device=p.device)
+    for k in range(0, p.shape[1], SUM_STRANDS):
+        blk = p[:, k:k + SUM_STRANDS]
+        x[:, :blk.shape[1]] = x[:, :blk.shape[1]] + blk
+    tot = torch.zeros((p.shape[0], p.shape[2]), dtype=torch.float64,
+                      device=p.device)
+    for j in range(SUM_STRANDS):
+        tot = tot + x[:, j]
+    return tot.float()
+
+
+_SUM_ARGTYPES = [ctypes.c_int, ctypes.c_int] + [_P] * 4
 
 
 def series_sum(part):
     """The series epilogue's second pass: the per-CTA partials summed over
-    CTAs, ``(2, n_ctas, T)`` -> ``(2, T)``; on the card in CTA index
-    order, one thread per second."""
+    CTAs, ``(2, n_ctas, T)`` -> ``(2, T)``; on the card in
+    ``series_sum_plain``'s fixed order (``SUM_STRANDS`` strands per
+    second, spread over the whole card)."""
     if part.device.type == "cpu":
         return series_sum_plain(part)
     if part.device.type != "cuda":
         raise ValueError(f"unsupported device {part.device}")
-    _check(part, torch.float32, part.device, "partials")
+    dev = part.device
+    _check(part, torch.float32, dev, "partials")
     if part.dim() != 3 or part.shape[0] != 2:
         raise ValueError("series_sum: partials must be (2, n_ctas, T)")
     _, n_ctas, T = part.shape
-    out = torch.empty((2, T), dtype=torch.float32, device=part.device)
-    p = build.ptr
-    fn = build.entry("block_step.cu", "series_sum",
-                     [ctypes.c_int, ctypes.c_int] + [_P] * 4)
-    rc = fn(n_ctas, T, p(part[0]), p(part[1]), p(out[0]), p(out[1]),
-            build.stream_ptr(part.device))
+    out = torch.empty((2, T), dtype=torch.float32, device=dev)
+    fn = build.entry("block_step.cu", "series_sum", _SUM_ARGTYPES)
+    # the halves' addresses from the base pointers (no views: this launch
+    # is short enough for the host's per-call work to show)
+    src, dst = part.data_ptr(), out.data_ptr()
+    rc = fn(n_ctas, T, src, src + 4 * n_ctas * T, dst, dst + 4 * T,
+            build.stream_ptr(dev))
     build.check(rc, "series_sum")
     K4_SUM.launches += 1
     return out
@@ -1341,9 +1467,10 @@ def block_step_scenario(tables, rows_i, rows_f, k_scan, k_meter, carry,
                         compute_dtype: str = "f32",
                         impl: str = "threefry2x32"):
     """One scenario-batched block (K10; under bf16 K12 in K10): the step
-    once per chain-second,
-    then each row of ``scen`` (``(B,)`` knob tensors,
-    ``serve.schema.encode_batch``) folds its own transform of it into
+    once per chain-second (on the card the producer launch, writing the
+    block's meter and pv), then each row of ``scen`` (``(B,)`` knob
+    tensors, ``serve.schema.encode_batch``) folds its own transform of
+    them (on the card the fold launch) into
     ``acc`` (``(B, n)`` statistics, updated in place on the card) and
     into the block's zero-initialised ``risk`` FleetAcc of the sketch
     ``params``.  ``cohort``: the chains' ids for the cohort selector
@@ -1358,6 +1485,49 @@ def block_step_scenario(tables, rows_i, rows_f, k_scan, k_meter, carry,
                      scen=scen, params=params, cohort=cohort,
                      per_chain=per_chain, kernels=kernels,
                      compute_dtype=compute_dtype, impl=impl)
+
+
+def scenario_producer(tables, rows_i, rows_f, k_scan, k_meter, carry,
+                      meter_max_w: float, surface_tilt, albedo,
+                      site: SiteGeometry | None = None,
+                      fleet: FleetLeaves | None = None,
+                      kernels: str = "exact", compute_dtype: str = "f32",
+                      impl: str = "threefry2x32"):
+    """K10's first launch on its own: ``(carry, meter, pv)``, the block's
+    time-major ``(T, n)`` meter and pv as the scenario fold reads them
+    (the flat scan's draws; under bf16 bf16 draws, as the acc epilogue).
+    On the card ``_scenario_producer_cuda`` also returns the chains'
+    flags that ``scenario_fold(tame=)`` takes."""
+    def cuda(*a, **kw):
+        return _scenario_producer_cuda(*a, **kw)[:3]
+
+    return _dispatch(k_scan, cuda, scenario_producer_plain, tables, rows_i,
+                     rows_f, k_scan, k_meter, carry, meter_max_w,
+                     surface_tilt, albedo, site, fleet, kernels=kernels,
+                     compute_dtype=compute_dtype, impl=impl)
+
+
+def scenario_fold(meter, pv, t, acc, duration_s: int, scen: dict = None,
+                  params: flt.FleetParams = None, cohort=None,
+                  per_chain: bool = False, tame=None):
+    """K10's second launch on its own: every row of ``scen`` folds its
+    transform of the ``(T, n)`` meter and pv (``t``: the block's ``(T,)``
+    int32 global seconds) into ``acc`` (updated in place on the card)
+    and a zero-initialised ``risk`` FleetAcc.  Returns ``(acc, delta)``
+    as ``block_step_scenario``'s.  ``tame``: on the card, the producer's
+    ``(n,)`` int32 flags (a chain's values all at most 1e18 in magnitude,
+    csrc/block_step.cuh ``SCN_TAME``), with which a (row, chain) past its
+    last valid second skips the rest of the block's loads; they change no
+    result."""
+    if scen is None or params is None:
+        raise ValueError("scenario_fold: needs scen= and params=")
+    if meter.device.type == "cuda":
+        return _scenario_fold_cuda(meter, pv, t, acc, duration_s, scen,
+                                   params, cohort, per_chain, tame)
+    if meter.device.type != "cpu":
+        raise ValueError(f"unsupported device {meter.device}")
+    return scenario_fold_plain(meter, pv, t, acc, duration_s, scen, params,
+                               cohort, per_chain)
 
 
 def block_step_series(tables, rows_i, rows_f, k_scan, k_meter, carry,

@@ -205,7 +205,13 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def stream_ptr(device) -> ctypes.c_void_p:
+def stream_ptr(device) -> int:
+    """The address of ``device``'s current CUDA stream (a ``cudaStream_t``),
+    read without building a ``torch.cuda.Stream`` (a launch of a few
+    microseconds is bounded by its wrapper's host work)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
