@@ -1,8 +1,9 @@
-"""Time ``series_sum`` and the scenario fold of one tree of the port on the
-card, to compare trees (a parent commit unpacked beside the change) in one
-call.
+"""Time ``series_sum``, the scenario fold and the block step's main
+instantiations of one tree of the port on the card, to compare trees (a
+parent commit unpacked beside the change) in one call.
 
     python3 ab_kernels.py --root DIR [--rows 16] [--rounds 3]
+        [--kernels K3,K6,K6s,K7T,K89,K89L,K12F]
 
 ``--root`` is the directory that holds the ``tmhpvsim_torch`` package (and
 ``chip_smoke.py``) to time (default: this script's own).  Prints one JSON
@@ -17,7 +18,24 @@ line per measurement, ``{"tree": ..., "kernel": ..., ...}``:
   ``chip_smoke.py``'s K10 check block (65536 chains x 1080 s, the noon
   block, its ``k10_rows``, with the producer's flags), with the default
   seven exceedance thresholds and with the ten of ``MANY_THR``
-  (``chip_smoke.K10_MANY_THR``), per call, each ``--rounds`` times.
+  (``chip_smoke.K10_MANY_THR``), per call, each ``--rounds`` times;
+- each block-step launch of ``--kernels`` on its path's noon block (block
+  40, 65536 chains or sites x 1080 s), per call (CUDA events around 5
+  calls), each ``--rounds`` times, with ``digest``, a SHA-256 of every
+  output of one launch from the same inputs (statistics, renewal carry,
+  the observers' deltas), so that two trees' lines show whether their
+  kernels give the same bits:
+
+  K3   path R's acc launch (shared site);
+  K6   path B's (the 256 x 256 grid of ``--site-grid
+       47:55:256,6:15:256``, site geometry);
+  K6s  path B-L's (that grid, ``geom_stride=60``, the table set);
+  K7T  path H0's (``FleetParams.synthetic(65536, seed=0)``, no
+       observer: K7's transforms with site geometry);
+  K89  path F's (that fleet, telemetry and analytics full: K7, K8 and
+       K9 in one launch);
+  K89L path F-L's (path F with ``geom_stride=60, kernel_impl='table'``);
+  K12F path F-H's (path F under ``compute_dtype='bf16'``).
 
 Run it once per tree, alternating (parent, change, change, parent), so a
 slow card or a warm cache shows as a spread between a tree's runs.
@@ -27,12 +45,94 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import sys
 
 #: ten ascending exceedance thresholds [W]
 MANY_THR = range(-4000, 6000, 1000)
+#: the paths' shape (chip_smoke.py HEADLINE) and the timed block (12:00)
+HEADLINE = dict(start="2019-09-05 00:00:00", duration_s=86400,
+                n_chains=65536, seed=0, block_s=1080, output="reduce")
+NOON = 40
+KERNELS = ("K3", "K6", "K6s", "K7T", "K89", "K89L", "K12F")
+
+
+def digest(tree) -> str:
+    """SHA-256 of every tensor of a (nested) dict or tuple, in key order."""
+    h = hashlib.sha256()
+
+    def walk(x):
+        if isinstance(x, dict):
+            for k in sorted(x):
+                h.update(str(k).encode())
+                walk(x[k])
+        elif isinstance(x, (tuple, list)):
+            for v in x:
+                walk(v)
+        elif x is not None:
+            h.update(x.detach().cpu().contiguous().numpy().tobytes())
+
+    walk(tree)
+    return h.hexdigest()[:16]
+
+
+def block_step_cases(names, dev):
+    """``{name: (launch, what)}``: each a function of no argument that
+    launches the block step once on its path's noon block from fresh
+    copies of the same inputs and returns its outputs."""
+    from tmhpvsim_torch import SimConfig
+    from tmhpvsim_torch.config import SiteGrid
+    from tmhpvsim_torch.engine.simulation import Simulation
+    from tmhpvsim_torch.fleet import FleetParams
+    from tmhpvsim_torch.kernels import block_step as k3
+
+    grid = SiteGrid.regular((47, 55), (6, 15), 256, 256)
+    fleet = FleetParams.synthetic(HEADLINE["n_chains"], seed=0) if any(
+        k in names for k in ("K7T", "K89", "K89L", "K12F")) else None
+    configs = {
+        "K3": (dict(HEADLINE), "path R's acc launch"),
+        "K6": (dict(HEADLINE, site_grid=grid), "path B's acc launch"),
+        "K6s": (dict(HEADLINE, site_grid=grid, geom_stride=60,
+                     kernel_impl="table"), "path B-L's acc launch"),
+        "K7T": (dict(HEADLINE, fleet=fleet), "path H0's launch"),
+        "K89": (dict(HEADLINE, fleet=fleet, telemetry="full",
+                     analytics="full"), "path F's launch"),
+        "K89L": (dict(HEADLINE, fleet=fleet, telemetry="full",
+                      analytics="full", geom_stride=60,
+                      kernel_impl="table"), "path F-L's launch"),
+        "K12F": (dict(HEADLINE, fleet=fleet, telemetry="full",
+                      analytics="full", compute_dtype="bf16"),
+                 "path F-H's launch"),
+    }
+    out = {}
+    for name in names:
+        kw, what = configs[name]
+        sim = Simulation(SimConfig(**kw), device=dev)
+        state = sim.init_state()
+        ins = sim.host_inputs(NOON)
+        tables, _ = sim._windows(state, ins)
+        tilt, alb, site = sim.geometry_args(state)
+        head = (tables, ins.rows_i, ins.rows_f, state["k_scan"],
+                state["k_meter"])
+        tail = (sim.config.duration_s, sim.config.meter_max_w, tilt, alb)
+        opts = dict(site=site, fleet=sim.fleet_leaves(state),
+                    kernels=sim.plan.kernel_impl,
+                    compute_dtype=sim.plan.compute_dtype)
+        obs = sim.observers(state)
+
+        def launch(sim=sim, state=state, head=head, tail=tail, opts=opts,
+                   obs=obs):
+            carry = {k: v.clone() for k, v in state["carry"].items()}
+            acc = sim.init_reduce_acc()
+            if obs is None:
+                return k3.block_step_acc(*head, carry, acc, *tail, **opts)
+            return k3.block_step_obs(*head, carry, acc, *tail, obs=obs,
+                                     **opts)
+
+        out[name] = (launch, what)
+    return out
 
 
 def main(argv=None) -> int:
@@ -41,6 +141,7 @@ def main(argv=None) -> int:
         __file__)))
     ap.add_argument("--rows", type=int, default=16)
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--kernels", default=",".join(KERNELS))
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -101,6 +202,13 @@ def main(argv=None) -> int:
     for name, (call, device) in times.items():
         emit(kernel=name, shape=list(part.shape), ms_per_call=call,
              device_ms=device)
+
+    names = [k for k in args.kernels.split(",") if k]
+    for name, (launch, what) in block_step_cases(names, dev).items():
+        sums = digest(launch())
+        torch.cuda.synchronize()
+        ms = [per_call_ms(launch, reps=5) for _ in range(args.rounds)]
+        emit(kernel=name, launch=what, ms_per_call=ms, digest=sums)
 
     if not hasattr(k3, "scenario_fold"):
         return 0

@@ -15,7 +15,11 @@ of ``chip_smoke.py``'s paths of the same names):
 - F: path R's shape on ``FleetParams.synthetic(65536, seed=0)``, telemetry
   and analytics full;
 - H8: path F's fleet over 3 blocks from 11:00, telemetry full;
-- R-H: path R with ``compute_dtype='bf16'`` and a strict sentinel.
+- R-H: path R with ``compute_dtype='bf16'`` and a strict sentinel;
+- B: path R's shape over the 256 x 256 site grid of ``--site-grid
+  47:55:256,6:15:256`` (the per-chain geometry);
+- B-L: path B with ``geom_stride=60, kernel_impl='table'``;
+- F-H: path F with ``compute_dtype='bf16'`` and a strict sentinel.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ def main(argv=None) -> int:
     import torch
 
     from tmhpvsim_torch import SimConfig
+    from tmhpvsim_torch.config import SiteGrid
     from tmhpvsim_torch.engine.simulation import Simulation
     from tmhpvsim_torch.fleet import FleetParams
     from tmhpvsim_torch.kernels import build
@@ -51,10 +56,11 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     build.build_all()
     fleet = None
+    grid = SiteGrid.regular((47, 55), (6, 15), 256, 256)
 
     def config(name):
         nonlocal fleet
-        if name in ("F", "H8") and fleet is None:
+        if name in ("F", "H8", "F-H") and fleet is None:
             fleet = FleetParams.synthetic(HEADLINE["n_chains"], seed=0)
         return {
             "R": lambda: dict(HEADLINE),
@@ -64,6 +70,12 @@ def main(argv=None) -> int:
                                duration_s=3 * HEADLINE["block_s"],
                                fleet=fleet, telemetry="full"),
             "R-H": lambda: dict(HEADLINE, compute_dtype="bf16",
+                                telemetry_strict=True),
+            "B": lambda: dict(HEADLINE, site_grid=grid),
+            "B-L": lambda: dict(HEADLINE, site_grid=grid, geom_stride=60,
+                                kernel_impl="table"),
+            "F-H": lambda: dict(HEADLINE, fleet=fleet, telemetry="full",
+                                analytics="full", compute_dtype="bf16",
                                 telemetry_strict=True),
         }[name]()
 

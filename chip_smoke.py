@@ -95,7 +95,14 @@ Phases (any failure exits non-zero and prints no result line):
    rows; then K12 in K10 (the bf16 scenario producer and the fold)
    against its plain bf16 version at 1, 4 and 16 rows, its two launches
    on their own as K10's.  The plain scenario fold folds all
-   of a block's rows at once over a leading row axis;
+   of a block's rows at once over a leading row axis; then NaNs and
+   signed zeros (``phase_nan``), each result NaN where its plain version
+   has one and every zero of the plain version's sign: the NaN-keeping
+   minimum, maximum and clamp on their own, K3 with fleet leaves that
+   carry NaNs and signed zeros in float32 and bf16 (K12), K8 + K9 on path
+   F's fleet with such leaves, the scenario fold with NaN and signed-zero
+   knobs, and the wide fold with both observers on a trace with NaN and
+   signed-zero values;
 5. the paths, every launch counter set to 0 just before each and read
    just after; each must launch every kernel it needs:
    R. reduce, shared site: ``run_reduced`` at 65536 chains x 86400 s,
@@ -178,7 +185,12 @@ Phases (any failure exits non-zero and prints no result line):
    instantiations that the bf16 paths launch on their noon blocks; K13's
    bits and the rbg windows and step that path R-P launches, with
    ``torch.rand`` beside the bits as a yardstick; K14's derivations, the
-   unsafe_rbg windows and step that path R-U launches);
+   unsafe_rbg windows and step that path R-U launches); every timed
+   kernel's issue bound beside its bound (``bound``'s third value:
+   int32 and float32 instructions on one issue rate); the site geometry
+   modes' launches (K6, K7 with site geometry, K8 + K9, K6s, K12 site and
+   fleet) beside their issue bounds (``print_geometry_timing``;
+   ab_kernels.py times them against the parent tree in one call);
 7. the port on the card at the JAX suite's ``small_config`` shape against
    the JAX package's results in ``tests/data/torch_port_reference.json``:
    reduce statistics, every per-second ensemble mean, chain 0's trace
@@ -272,8 +284,9 @@ TRACE_SECOND_F = K3_SECOND_F - 12
 #: ephemeris (sinf/cosf of omega, the mean anomaly and the ecliptic
 #: longitude, the obliquity terms, atan2f and fmodf for the right ascension,
 #: asinf for the declination, fmodf for the sidereal time, cosf/sinf/tanf of
-#: the declination: 15 transcendentals and ~35 float ops) is work per second,
-#: although the kernel repeats it for every site.  Per chain-second: the
+#: the declination: 15 transcendentals and ~35 float ops) is work per second
+#: (the kernel's ``sun_time``, once per second and CTA; counted once per
+#: second here, its least).  Per chain-second: the
 #: site's hour angle, zenith, azimuth, refraction, Kasten-Young, Ineichen,
 #: the csi cap and AOI (15 transcendentals, one powf, ~60 float ops) and the
 #: physics terms the shared mode computes once per second (cosf, acosf, powf
@@ -511,12 +524,23 @@ def time_graph_ms(fn, reps: int = 20, rounds: int = 5) -> float:
     return start.elapsed_time(end) / (rounds * reps)
 
 
+#: the issue bound's rate: int32 and float32 instructions charged to the
+#: same 4 x 32 lanes per SM per clock (132 SMs, 1.98 GHz boost), an FMA
+#: at its count of 2, as the operation bound counts it
+PEAK_ISSUE = 132 * 4 * 32 * 1.98e9
+
+
 def bound(int_ops: float, f32_ops: float, nbytes: float):
-    """(least milliseconds, what bounds it)."""
+    """(least milliseconds, what bounds it, issue bound in milliseconds).
+
+    The bound prices the int32 and float32 work each against its own peak
+    and takes the larger, which hides the float work of a kernel whose
+    int32 time is larger; the issue bound charges both to one issue rate
+    (``PEAK_ISSUE``)."""
     times = {"operations": max(int_ops / PEAK_I32, f32_ops / PEAK_F32),
              "bytes": nbytes / PEAK_BYTES}
     by = max(times, key=times.get)
-    return times[by] * 1e3, by
+    return times[by] * 1e3, by, (int_ops + f32_ops) / PEAK_ISSUE * 1e3
 
 
 def smi_line() -> str:
@@ -1658,7 +1682,8 @@ def phase_timing(dev):
     # a key is two 32-bit words (8 B) read or written, although the port
     # holds each word in an int64
     n_h = n * 5
-    out["K1"] = (ms, plain, *bound(n_h * HASH_I, 0, n * 8 + n_h * 8))
+    out["K1"] = (ms, plain, *bound(
+        n_h * HASH_I, 0, n * 8 + n_h * 8))
     # K2 and the block step on a daylight block (block 40 = 12:00 local)
     ins = sim.host_inputs(40)
     args = (state["k_arr"], state["k_min"], state["cc_carry"], state["cc0"],
@@ -1677,7 +1702,8 @@ def phase_timing(dev):
            + b.n_days * 60 + n_min * (2 * NORMAL_F + 12))
     nbytes = n * (8 * 2 + 8) + 4 * n * (2 * b.n_hours + b.n_cd + b.n_days
                                          + 2 * n_min + 1)
-    out["K2"] = (ms, plain, *bound(n * hashes * HASH_I, n * f32, nbytes))
+    out["K2"] = (ms, plain, *bound(
+        n * hashes * HASH_I, n * f32, nbytes))
     tables, _ = k2.sampler_windows(*args)
     carry = clone(state["carry"])
     acc = sim.init_reduce_acc()
@@ -1692,13 +1718,15 @@ def phase_timing(dev):
                 + ins.rows_i.numel() * 4 + ins.rows_f.numel() * 4)
     ms = time_ms(lambda: k3.block_step_acc(*k3_args))
     plain = time_ms(lambda: k3.block_step_plain(*k3_args), reps=1)
-    out["K3"] = (ms, plain, *bound(int_ops, n * T * (K3_SECOND_F + draws_f),
-                                   in_bytes + n * 4 * 7 * 2))
+    out["K3"] = (ms, plain, *bound(
+        int_ops, n * T * (K3_SECOND_F + draws_f),
+        in_bytes + n * 4 * 7 * 2))
     # K4 series: the first pass, then the cross-CTA sum on its partials
     ms = time_ms(lambda: k3.series_partials_cuda(*head, *tail))
     plain = time_ms(lambda: k3.series_plain(*head, *tail), reps=1)
     out["K4S"] = (ms, plain, *bound(
-        int_ops, n * T * (SERIES_SECOND_F + draws_f), in_bytes + 2 * T * 4))
+        int_ops, n * T * (SERIES_SECOND_F + draws_f),
+        in_bytes + 2 * T * 4))
     _, part = k3.series_partials_cuda(*head, *tail)
     n_parts = part.shape[1]
     # series_sum and part.sum(1), its library yardstick, in turns: per
@@ -1714,8 +1742,8 @@ def phase_timing(dev):
             call.append(time_ms(fn, reps=20))
     ms, lib_sum = float(np.mean(call_k)), float(np.mean(call_l))
     plain = time_ms(lambda: k3.series_sum_plain(part), reps=5)
-    out["K4R"] = (ms, plain, *bound(0, 2 * n_parts * T,
-                                    part.numel() * 4 + 2 * T * 4))
+    out["K4R"] = (ms, plain, *bound(
+        0, 2 * n_parts * T, part.numel() * 4 + 2 * T * 4))
     # K4 trace: 8 bytes per chain-second written
     ms = time_ms(lambda: k3.block_step_trace(*head, *tail))
     plain = time_ms(lambda: k3.trace_plain(*head, *tail), reps=1)
@@ -1741,11 +1769,13 @@ def phase_timing(dev):
     g_in = (g_table_bytes + n * 8 * 2 + n * 4 * 3 * 2 + n * 4 * 6 + 12 * 4
             + gins.rows_i.numel() * 4 + gins.rows_f.numel() * 4)
     out["K6"] = (ms, plain, *bound(
-        int_ops, n * T * (K3_SECOND_F + K6_SITE_SECOND_F + draws_f)
-        + T * K6_TIME_F, g_in + n * 4 * 7 * 2))
-    for name, (ms, plain, bms, by) in out.items():
+        int_ops,
+        n * T * (K3_SECOND_F + K6_SITE_SECOND_F + draws_f) + T * K6_TIME_F,
+        g_in + n * 4 * 7 * 2))
+    for name, (ms, plain, bms, by, ibms) in out.items():
         print(f"timing {name}: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
-              f"bound {bms:.4f} ms ({by})")
+              f"bound {bms:.4f} ms ({by}), issue bound "
+              f"{ibms:.4f} ms")
     print(f"timing series_sum beside part.sum(1) on its (2, {n_parts}, {T}) "
           f"partials, in turns: per call {call_k} ms against {call_l} ms; "
           f"device time from CUDA graphs {ms_k} ms against {ms_l} ms")
@@ -1821,13 +1851,13 @@ def phase_timing_k5(dev):
     hashes = 1 + 5 + (4 + 2 * 6 + 8) + (4 + 2 * 6) + 4
     f32 = 2 * 30 + 60 + 2 * 40 + 2 * UNIFORM_F + 2 * POW_F + 12
     nbytes = n * (4 * 8 + 7 * 4)
-    bms, by = bound(n * hashes * HASH_I, n * f32, nbytes)
+    bms, by, ibms = bound(n * hashes * HASH_I, n * f32, nbytes)
     print(f"K5 (init_state) vs its plain composition at {n} chains: every "
           f"key and primer bit-identical; launches {launches}")
     print(f"timing K5: init_state {ms:.4f} ms, plain {plain_ms:.3f} ms, "
           f"bound {bms:.4f} ms ({by})")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "launches": launches}
+            "issue_bound_ms": ibms, "launches": launches}
 
 
 def phase_timing_fleet(dev):
@@ -1855,7 +1885,8 @@ def phase_timing_fleet(dev):
            + b.n_days * 60 + n_min * (2 * NORMAL_F + 12))
     nbytes = n * (8 * 2 + 8 + 4) + 4 * n * (2 * b.n_hours + b.n_cd +
                                              b.n_days + 2 * n_min + 1)
-    out["K7R"] = (ms, plain, *bound(n * hashes * HASH_I, n * f32, nbytes))
+    out["K7R"] = (ms, plain, *bound(
+        n * hashes * HASH_I, n * f32, nbytes))
     tables, _ = k2.sampler_windows(*args, regime=regime)
     _, _, site = sim.geometry_args(state)
     fleet = sim.fleet_leaves(state)
@@ -1874,7 +1905,8 @@ def phase_timing_fleet(dev):
                                            fleet=fleet))
     plain = time_ms(lambda: k3.block_step_plain(*head, acc, *tail, site=site,
                                                 fleet=fleet), reps=1)
-    out["K7T"] = (ms, plain, *bound(int_ops, f_k7, in_bytes + n * 4 * 7 * 2))
+    out["K7T"] = (ms, plain, *bound(
+        int_ops, f_k7, in_bytes + n * 4 * 7 * 2))
     n_ctas = (n + k3.THREADS - 1) // k3.THREADS
     obs_t = k3.Observers(telemetry="full")
     obs_f = sim.observers(state)
@@ -1910,11 +1942,12 @@ def phase_timing_fleet(dev):
     ms = time_ms(lambda: collapse(k3.collapse_partials), reps=20)
     plain = time_ms(lambda: collapse(k3.collapse_plain), reps=5)
     numel = sum(v.numel() for v, _ in parts)
-    out["KC"] = (ms, plain, *bound(0, numel, numel * 8 + sum(
-        v.shape[1] * 8 for v, _ in parts)))
-    for name, (ms, plain, bms, by) in out.items():
+    out["KC"] = (ms, plain, *bound(
+        0, numel, numel * 8 + sum(v.shape[1] * 8 for v, _ in parts)))
+    for name, (ms, plain, bms, by, ibms) in out.items():
         print(f"timing {name}: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
-              f"bound {bms:.4f} ms ({by})")
+              f"bound {bms:.4f} ms ({by}), issue bound "
+              f"{ibms:.4f} ms")
     return out
 
 
@@ -2103,13 +2136,15 @@ def k10_parts(label, sim, head, tail, rows, params, ms_rows, cd="f32",
                     + (T // 60) * K3_MINUTE_I)
     prod_f = n * T * (TRACE_SECOND_F + (K12_DRAWS_F if bf else
                                         NORMAL_F + UNIFORM_F + 1))
-    b_prod, by_prod = bound(prod_int, prod_f, in_bytes + 2 * n * T * 4)
+    b_prod, by_prod, ib_prod = bound(prod_int, prod_f,
+                                     in_bytes + 2 * n * T * 4)
     nb, ne = params.bins + 2, len(params.thresholds) + 1
     fold_int = T * (K10_SECOND_I + B * K10_ROW_SECOND_I) + \
         B * n * K10_ROW_CHAIN_I + valid * K10_VALID_I + grid * K10_GRID_I
     fold_f = valid * K10_VALID_F + grid * K10_GRID_F
-    b_fold, by_fold = bound(fold_int, fold_f, 2 * n * T * 4 + T * 4
-                            + B * (n * 4 * 7 * 2 + 4 * (nb + ne) + 8 * 4))
+    b_fold, by_fold, ib_fold = bound(
+        fold_int, fold_f, 2 * n * T * 4 + T * 4
+        + B * (n * 4 * 7 * 2 + 4 * (nb + ne) + 8 * 4))
     print(f"{label} producer vs plain on the noon block x {n} chains: meter "
           f"and the renewal carry bit-identical, {psame}/{n * T} pv values "
           f"bit-identical (max abs {perr:.3g}); the fold vs its plain "
@@ -2130,9 +2165,10 @@ def k10_parts(label, sim, head, tail, rows, params, ms_rows, cd="f32",
           f"{fold_plain_ms:.1f} ms); the whole wrapper " + ", ".join(
               f"{ms_rows[b]:.4f} ms ({b} rows)" for b in ms_rows))
     return {"ms_producer": ms_prod, "bound_ms_producer": b_prod,
-            "bound_by_producer": by_prod, "ms_fold": ms_fold,
-            "bound_ms_fold": b_fold,
-            "bound_by_fold": by_fold, "plain_ms_fold": fold_plain_ms,
+            "bound_by_producer": by_prod,
+            "issue_bound_ms_producer": ib_prod, "ms_fold": ms_fold,
+            "bound_ms_fold": b_fold, "bound_by_fold": by_fold,
+            "issue_bound_ms_fold": ib_fold, "plain_ms_fold": fold_plain_ms,
             "producer_max_abs_err": perr, "fold_max_abs_err": fold_err}
 
 
@@ -2222,7 +2258,7 @@ def phase_k10(dev):
     nbytes = (table_bytes + n * 8 * 2 + n * 4 * 3 * 2
               + ins.rows_i.numel() * 4 + ins.rows_f.numel() * 4
               + K10_B * (n * 4 * 7 * 2 + 4 * (nb + ne) + 8 * 4))
-    bms, by = bound(int_ops, f32_ops, nbytes)
+    bms, by, ibms = bound(int_ops, f32_ops, nbytes)
     print(f"K10 vs plain on the noon block x {n} chains x {K10_B} rows: "
           f"{same}/7 statistics bit-identical (float sums max abs "
           f"{err:.3g}), every FleetAcc count, histogram, extremum and "
@@ -2234,7 +2270,7 @@ def phase_k10(dev):
           f"(4 rows), {ms[K10_B]:.4f} ms ({K10_B} rows); plain "
           f"{plain_ms:.1f} ms ({K10_B} rows); bound {bms:.4f} ms ({by})")
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by, **parts}
+            "bound_by": by, "issue_bound_ms": ibms, **parts}
 
 
 def phase_k10_fleet(dev):
@@ -2579,8 +2615,8 @@ def phase_k11(dev):
                     (x, p) if name == "powc" else (x,)
                 lib_ms = time_ms(lambda: lib[name](*args), reps=20)
             n_in = 2 if y is not None else 1
-            bms, by = bound(0, K11_N * k11.OPS[name],
-                            K11_N * 4 * (n_in + 1))
+            bms, by, _ = bound(0, K11_N * k11.OPS[name],
+                               K11_N * 4 * (n_in + 1))
             key = name if p is None else f"{name}({p})"
             out[key] = {"ms": ms, "plain_ms": plain, "bound_ms": bms,
                         "bound_by": by, "library_ms": lib_ms}
@@ -2897,8 +2933,8 @@ def phase_timing_levers(dev):
         g_in = (g_table_bytes + n * 8 * 2 + n * 4 * 3 * 2 + n * 4 * 6
                 + 12 * 4 + gins.rows_i.numel() * 4
                 + gins.rows_f.numel() * 4)
-        out[key] = (ms, plain, *bound(int_ops, strided_f32(ks, n, T, 60),
-                                      g_in + n * 4 * 7 * 2))
+        out[key] = (ms, plain, *bound(
+            int_ops, strided_f32(ks, n, T, 60), g_in + n * 4 * 7 * 2))
     # path F-L's launch: K8+K9 in the strided table-set step of the fleet
     fsim = Simulation(levers_cfg(fleet=fleet_f(), telemetry="full",
                                  analytics="full"), device=dev)
@@ -2924,11 +2960,12 @@ def phase_timing_levers(dev):
                + n_ctas * (15 + 6 * C) * 8 + n * 4 + 4 * (nb + 8 + C * nb))
     out["K89L"] = (ms, plain, *bound(
         int_ops + n * T * (TEL_SECOND_I + FLT_SECOND_I),
-        strided_f32("table", n, T, 60)
-        + n * T * (K7_SECOND_F + TEL_SECOND_F + FLT_SECOND_F), f_bytes))
-    for name, (ms, plain, bms, by) in out.items():
+        strided_f32("table", n, T, 60) + n * T * (K7_SECOND_F + TEL_SECOND_F +
+        FLT_SECOND_F), f_bytes))
+    for name, (ms, plain, bms, by, ibms) in out.items():
         print(f"timing {name}: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
-              f"bound {bms:.4f} ms ({by})")
+              f"bound {bms:.4f} ms ({by}), issue bound "
+              f"{ibms:.4f} ms")
     # the K10 row reset: every slot of a 16-row session admitted at once
     engine = ScenarioEngine(SimConfig(**HEADLINE), (K10_B,), device=dev)
     sess = RollingSession(engine, K10_B)
@@ -2938,8 +2975,8 @@ def phase_timing_levers(dev):
     ms = time_ms(lambda: sess.admit_rows(items), reps=20)
     nbytes = sum(3 * v.numel() * v.element_size()
                  for tree in (sess.acc, sess.total) for v in tree.values())
-    bms, by = bound(0, 0, nbytes)
-    out["K10R"] = (ms, None, bms, by)
+    bms, by, ibms = bound(0, 0, nbytes)
+    out["K10R"] = (ms, None, bms, by, ibms)
     print(f"timing K10 row reset (RollingSession.admit_rows, {K10_B} rows "
           f"x {n} chains, plain torch.where): {ms:.4f} ms per admission; "
           f"bound {bms:.4f} ms ({by}: {nbytes} bytes, pristine and current "
@@ -3360,8 +3397,8 @@ def phase_timing_wide(dev):
     plain = time_ms(lambda: k4m.wide_series_plain(meter, pv), reps=5)
     lib = time_ms(lambda: (torch.sum(meter, dim=1), torch.sum(pv, dim=1)),
                   reps=20)
-    out["K4MS"] = (ms, plain, *bound(0, 2 * n * T,
-                                     trace_bytes + part.numel() * 4), lib)
+    out["K4MS"] = (ms, plain, *bound(
+        0, 2 * n * T, trace_bytes + part.numel() * 4), lib)
     whole = time_ms(lambda: k4m.wide_series(meter, pv), reps=20)
     lib_sum = time_ms(lambda: part.sum(1), reps=20)
     del meter, pv
@@ -3391,9 +3428,10 @@ def phase_timing_wide(dev):
         n * T * (WIDE_SECOND_I + WIDE_TEL_SECOND_I + WIDE_FLT_SECOND_I),
         n * T * (WIDE_SECOND_F + WIDE_TEL_SECOND_F + WIDE_FLT_SECOND_F),
         trace_bytes + T * 4 + n * 4 * 7 * 2 + obs_bytes), None)
-    for name, (ms, plain, bms, by, lib) in out.items():
+    for name, (ms, plain, bms, by, ibms, lib) in out.items():
         print(f"timing {name}: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
-              f"bound {bms:.4f} ms ({by})"
+              f"bound {bms:.4f} ms ({by}), issue bound "
+              f"{ibms:.4f} ms"
               + ("" if lib is None else f", torch.sum(dim=1) x 2 "
                  f"{lib:.4f} ms"))
     print(f"timing K4m series with series_sum: {whole:.4f} ms; "
@@ -3930,9 +3968,9 @@ def phase_timing_k12(dev):
     plain = time_ms(lambda: k3.block_step_obs_plain(*a2, obs=obs,
                                                     compute_dtype="bf16"),
                     reps=1)
-    out["K12"] = (ms, plain, *bound(int_ops + tel_i,
-                                    n * T * (K3_SECOND_F + draws_f) + tel_f,
-                                    in_b + n * 4 * 7 * 2))
+    out["K12"] = (ms, plain, *bound(
+        int_ops + tel_i, n * T * (K3_SECOND_F + draws_f) + tel_f,
+        in_b + n * 4 * 7 * 2))
     # the series and the trace (A-H, C-H)
     c1 = clone(state["carry"])
     tail = (cfg.meter_max_w, tilt, alb)
@@ -3942,7 +3980,8 @@ def phase_timing_k12(dev):
                                             *tail, compute_dtype="bf16"),
                     reps=1)
     out["K12S"] = (ms, plain, *bound(
-        int_ops, n * T * (SERIES_SECOND_F + draws_f), in_b + 2 * T * 4))
+        int_ops, n * T * (SERIES_SECOND_F + draws_f),
+        in_b + 2 * T * 4))
     ms = time_ms(lambda: k3.block_step_trace(*head, c1, *tail,
                                              compute_dtype="bf16"))
     plain = time_ms(lambda: k3.trace_plain(*head, clone(state["carry"]),
@@ -3974,8 +4013,9 @@ def phase_timing_k12(dev):
         else:  # K6's count
             f32 = n * T * (K3_SECOND_F + K6_SITE_SECOND_F + draws_f) + \
                 T * K6_TIME_F
-        out[key] = (ms, plain, *bound(int_ops + tel_i, f32 + tel_f,
-                                      in_b + n * 4 * 6 + n * 4 * 7 * 2))
+        out[key] = (ms, plain, *bound(
+            int_ops + tel_i, f32 + tel_f,
+            in_b + n * 4 * 6 + n * 4 * 7 * 2))
     # K8 + K9 on path F's fleet (F-H)
     cfg, sim, state, head, (_, _, site), in_b = setup(
         fleet=fleet_f(), telemetry="full", analytics="full")
@@ -3991,12 +4031,13 @@ def phase_timing_k12(dev):
         obs=obs, compute_dtype="bf16"), reps=1)
     out["K12F"] = (ms, plain, *bound(
         int_ops + tel_i + n * T * FLT_SECOND_I,
-        n * T * (K3_SECOND_F + draws_f + K7_SECOND_F + K6_SITE_SECOND_F
-                 + FLT_SECOND_F) + tel_f + T * K6_TIME_F,
+        n * T * (K3_SECOND_F + draws_f + K7_SECOND_F + K6_SITE_SECOND_F +
+        FLT_SECOND_F) + tel_f + T * K6_TIME_F,
         in_b + n * 4 * (6 + 4) + n * 4 * 7 * 2))
-    for name, (ms, plain, bms, by) in out.items():
+    for name, (ms, plain, bms, by, ibms) in out.items():
         print(f"timing {name}: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
-              f"bound {bms:.4f} ms ({by})")
+              f"bound {bms:.4f} ms ({by}), issue bound "
+              f"{ibms:.4f} ms")
     return out
 
 
@@ -4120,9 +4161,9 @@ def phase_k13(dev):
     yard = time_ms(lambda: torch.rand(K13_WORDS, device=dev))
     # the function's words are uint32 (4 bytes; the port holds the bits
     # in int64, the uniforms path R-P draws in float32)
-    bms, by = bound(K13_WORDS // 4 * PHILOX_I, 0, 32 + K13_WORDS * 4)
-    bms_u, by_u = bound(K13_WORDS // 4 * PHILOX_I, K13_WORDS * UNIFORM_F,
-                        32 + K13_WORDS * 4)
+    bms, by, ibms = bound(K13_WORDS // 4 * PHILOX_I, 0, 32 + K13_WORDS * 4)
+    bms_u, by_u, _ = bound(K13_WORDS // 4 * PHILOX_I, K13_WORDS * UNIFORM_F,
+                           32 + K13_WORDS * 4)
     print(f"K13 vs plain: {K13_WORDS} words bit-identical (counter carried "
           f"from w2 through w3 into w0), {n} keys x 60 per-key words "
           f"bit-identical, batched uniform and normal bit-identical; "
@@ -4134,8 +4175,8 @@ def phase_k13(dev):
           f"counter layout, a yardstick only) {yard:.4f} ms; largest "
           f"difference {err:.3g}")
     return {"err": err, "ms": ms, "plain_ms": plain, "bound_ms": bms,
-            "bound_by": by, "ms_uniform": ms_u, "bound_ms_uniform": bms_u,
-            "torch_rand_ms": yard}
+            "bound_by": by, "issue_bound_ms": ibms, "ms_uniform": ms_u,
+            "bound_ms_uniform": bms_u, "torch_rand_ms": yard}
 
 
 def phase_k13_k2(dev, keys=RBG):
@@ -4550,7 +4591,7 @@ def phase_k12_k10(dev):
     nbytes = (table_bytes + n * 8 * 2 + n * 4 * 3 * 2
               + ins.rows_i.numel() * 4 + ins.rows_f.numel() * 4
               + K10_B * (n * 4 * 7 * 2 + 4 * (nb + ne) + 8 * 4))
-    bms, by = bound(int_ops, f32_ops, nbytes)
+    bms, by, ibms = bound(int_ops, f32_ops, nbytes)
     print(f"K12 in K10 vs plain bf16 on the noon block x {n} chains at 1, 4 "
           f"and {K10_B} rows: {same_all} of 7 statistics bit-identical "
           f"(float sums max abs {err:.3g}), every FleetAcc leaf "
@@ -4562,7 +4603,7 @@ def phase_k12_k10(dev):
     parts = k10_parts("K12 in K10", sim, head + (state["carry"],), tail,
                       rows, params, ms, cd="bf16", sketches=False)
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by, **parts}
+            "bound_by": by, "issue_bound_ms": ibms, **parts}
 
 
 def phase_path_rp(dev, reduced_r, wall_r):
@@ -4856,19 +4897,20 @@ def phase_timing_k13(dev, keys=RBG):
     # outputs, the carry and cc0 in float32, the two keys as 4 uint32
     out_b = n * 4 * (b.n_hours + b.n_cloudy + b.n_cd + b.n_days
                      + 2 * n_min + 1)
-    out[f"{K}W"] = (ms, plain, *bound(int_ops, f32_ops,
-                                      out_b + n * 4 * 2 + n * 16 * 2))
+    out[f"{K}W"] = (ms, plain, *bound(
+        int_ops, f32_ops, out_b + n * 4 * 2 + n * 16 * 2))
     if impl == "unsafe_rbg":
         # K14 in K1: init_state's batched 5-way split of the chains' keys
         chains = k1.split(rng.split(rng.root_key(7, impl, dev), 2, impl)[0],
                           n, impl)
         ms = time_ms(lambda: k1.split(chains, 5, impl))
         plain = time_ms(lambda: rng.split(chains, 5, impl), reps=2)
-        out["K14D"] = (ms, plain, *bound(5 * n * PHILOX_I, 0,
-                                         16 + n * 5 * 16))
-    for name, (ms, plain, bms, by) in out.items():
+        out["K14D"] = (ms, plain, *bound(
+            5 * n * PHILOX_I, 0, 16 + n * 5 * 16))
+    for name, (ms, plain, bms, by, ibms) in out.items():
         print(f"timing {name}: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
-              f"bound {bms:.4f} ms ({by})")
+              f"bound {bms:.4f} ms ({by}), issue bound "
+              f"{ibms:.4f} ms")
     return out
 
 
@@ -5011,6 +5053,310 @@ def phase_path_ru(dev, reduced_r, wall_r):
     return launches, walls
 
 
+# ---------------------------------------------------------------------------
+# NaNs and signed zeros: the kernels' minimum, maximum and clamp keep a NaN
+# and order -0.0 below +0.0, as jnp's and the plain versions' torch ones do
+# (csrc/nanminmax.cuh)
+
+
+#: every NAN_EVERY-th chain from an offset carries one case: a NaN fleet
+#: leaf (a NaN meter from the demand pair, a NaN pv from the power pair) or
+#: a signed zero (offsets 5-7: -0.0 DC scale, inverter limit, demand)
+NAN_EVERY = 997
+NAN_CASES = ((1, "demand_scale", float("nan")),
+             (2, "demand_shift_w", float("nan")),
+             (3, "pv_scale", float("nan")),
+             (4, "ac_limit_w", float("nan")),
+             (5, "pv_scale", -0.0), (6, "ac_limit_w", -0.0),
+             (7, "demand_scale", -0.0), (7, "demand_shift_w", -0.0))
+#: the power pair's inverter limit where a fleet has none [W]
+NAN_AC_LIMIT = 200.0
+
+
+def nan_chains(n, off, dev):
+    return torch.arange(off, n, NAN_EVERY, device=dev)
+
+
+def nan_fleet(leaves, n, dev):
+    """K7's leaves (``leaves``, or neutral pairs with a binding inverter
+    limit when None) with ``NAN_CASES`` set."""
+    def col(v, default):
+        return v.clone() if v is not None else torch.full(
+            (n,), default, dtype=torch.float32, device=dev)
+
+    leaves = leaves or k3.FleetLeaves()
+    out = k3.FleetLeaves(pv_scale=col(leaves.pv_scale, 1.0),
+                         ac_limit_w=col(leaves.ac_limit_w, NAN_AC_LIMIT),
+                         demand_scale=col(leaves.demand_scale, 1.0),
+                         demand_shift_w=col(leaves.demand_shift_w, 0.0))
+    for off, leaf, v in NAN_CASES:
+        getattr(out, leaf)[nan_chains(n, off, dev)] = v
+    return out
+
+
+def nan_acc(sim):
+    """``init_reduce_acc`` with signed-zero starts where NAN_CASES makes
+    the chain's values signed zeros: pv_max +0.0 against a -0.0 pv
+    (offsets 5, 6), -0.0 against a night's +0.0 (offset 8), and the
+    residual extrema +0.0 against -0.0 residuals (offset 7)."""
+    acc = sim.init_reduce_acc()
+    n, dev = sim.config.n_chains, sim.device
+    acc["pv_max"][nan_chains(n, 5, dev)] = 0.0
+    acc["pv_max"][nan_chains(n, 6, dev)] = 0.0
+    acc["pv_max"][nan_chains(n, 8, dev)] = -0.0
+    acc["residual_max"][nan_chains(n, 7, dev)] = 0.0
+    acc["residual_min"][nan_chains(n, 7, dev)] = 0.0
+    return acc
+
+
+def nan_held(what, got, want, rtol=None, atol=0.0):
+    """``got`` against its plain version ``want``, NaN-aware: NaN exactly
+    where ``want`` has one (not its payload: PTX gives the canonical NaN),
+    every zero of the same sign, every other value equal (``rtol``: within
+    rtol / atol); integers equal.  Returns (NaNs, signed zeros checked,
+    max abs difference)."""
+    if not want.dtype.is_floating_point:
+        if not torch.equal(got, want):
+            fail(f"{what} differs from the plain version")
+        return 0, 0, 0.0
+    gn, wn = got.isnan(), want.isnan()
+    if not torch.equal(gn, wn):
+        fail(f"{what}: NaN at {int((gn != wn).sum())} places where the "
+             "plain version has a number, or the other way round")
+    g, w = got[~wn], want[~wn]
+    z = (g == 0) & (w == 0)
+    if not torch.equal(g[z].signbit(), w[z].signbit()):
+        fail(f"{what}: {int((g[z].signbit() != w[z].signbit()).sum())} "
+             "zeros have the other sign than the plain version's")
+    if rtol is None:
+        if not torch.equal(g, w):
+            fail(f"{what} differs from the plain version: max abs "
+                 f"{max_abs(g, w)}")
+    elif not close(g, w, rtol=rtol, atol=atol):
+        fail(f"{what} differs from the plain version: max abs "
+             f"{max_abs(g, w)}")
+    return int(wn.sum()), int(z.sum()), max_abs(g, w)
+
+
+def nan_tree(what, got, want, **kw):
+    """``nan_held`` over every leaf of (nested) dicts; summed counts."""
+    nans = zeros = 0
+    err = 0.0
+    for k, w in want.items():
+        if isinstance(w, dict):
+            a, b, e = nan_tree(f"{what} {k}", got[k], w, **kw)
+        elif w is None:
+            continue
+        else:
+            a, b, e = nan_held(f"{what} {k}", got[k], w, **kw)
+        nans, zeros, err = nans + a, zeros + b, max(err, e)
+    return nans, zeros, err
+
+
+def phase_nan(dev):
+    """The NaN-keeping minimum, maximum and clamp on the card, against the
+    plain versions, NaN-aware (NaN where the plain version has one, zeros
+    of its sign): the helpers on their own over every pair of NaN,
+    infinities, signed zeros and numbers; K3 with a fleet whose leaves
+    carry NaNs and signed zeros (``NAN_CASES``) on a shared site, in
+    float32 (the statistics to the K3 tolerance) and in bf16 (K12, bit for
+    bit), on the night block and the noon block; K8 + K9 on path F's
+    fleet with those leaves (path F's launch; per-chain leaves, counts,
+    histograms and extrema bit for bit, sums within 1e-6 of the float64
+    plain sums); the scenario fold on the producer's noon block with NaN
+    knobs (demand scale, weather bias, cap, a demand shift on a horizon
+    ending mid-block) and signed-zero knobs and starts, with and without
+    the producer's flags; the wide fold with both observers on a seeded
+    trace with NaN meter and pv values and signed zeros."""
+    vals = (float("nan"), -float("inf"), -2.0, -1.0, -0.0, 0.0, 0.5, 1.0,
+            3.0, float("inf"))
+    a = torch.tensor([x for x in vals for _ in vals], device=dev)
+    b = torch.tensor([y for _ in vals for y in vals], device=dev)
+    got = k3.nan_minmax(a, b, 0.0, 1.0)
+    want = k3.nan_minmax_plain(a, b, 0.0, 1.0)
+    torch.cuda.synchronize()
+    counts = nan_held("nan_minmax", got, want)
+    print(f"NaN-keeping min / max / clamp vs torch.minimum / maximum / "
+          f"clamp on {len(vals)}^2 operand pairs: {counts[0]} NaNs where "
+          f"torch has them, {counts[1]} signed zeros of torch's sign, every "
+          "other value bit-identical")
+    cfg = SimConfig(**HEADLINE)
+    sim = Simulation(cfg, device=dev)
+    state = sim.init_state()
+    n = cfg.n_chains
+    fl = nan_fleet(None, n, dev)
+    tail = (cfg.duration_s, cfg.meter_max_w, cfg.site.surface_tilt,
+            cfg.site.albedo)
+    # the night block (pv +0.0 against the -0.0 cases) and the noon
+    # block; float32 to the K3 tolerance, bf16 bit for bit (a bf16 run's
+    # host rounds the shared rows to bf16: its own Simulation)
+    bsim = Simulation(SimConfig(**dict(HEADLINE, compute_dtype="bf16")),
+                      device=dev)
+    bstate = bsim.init_state()
+    for cd, s_, st_ in (("f32", sim, state), ("bf16", bsim, bstate)):
+        nans = zeros = 0
+        err = 0.0
+        for bi in (0, K10_BLOCK):
+            ins = s_.host_inputs(bi)
+            tables, _ = s_._windows(st_, ins)
+            head = head_of(st_, ins, tables)
+            _, ak = k3.block_step_acc(*head, clone(st_["carry"]),
+                                      nan_acc(s_), *tail, fleet=fl,
+                                      compute_dtype=cd)
+            _, ap = k3.block_step_plain(*head, clone(st_["carry"]),
+                                        nan_acc(s_), *tail, fleet=fl,
+                                        compute_dtype=cd)
+            torch.cuda.synchronize()
+            kw = {} if cd == "bf16" else dict(rtol=TOL[0], atol=TOL[1])
+            c = nan_tree(f"K3 ({cd}, block {bi}) with NaN fleet leaves",
+                         ak, ap, **kw)
+            nans, zeros, err = nans + c[0], zeros + c[1], max(err, c[2])
+        if nans == 0 or zeros == 0:
+            fail(f"K3 ({cd}) with NaN fleet leaves: the check saw no NaN "
+                 "or no signed zero")
+        print(f"K3 ({cd}) with NaN and signed-zero fleet leaves vs plain on "
+              f"the night and the noon block x {n} chains: {nans} NaN "
+              f"statistics where the plain "
+              f"version has them, {zeros} zeros of its sign, the rest max "
+              f"abs {err:.3g}" + (" (bit for bit)" if cd == "bf16" else ""))
+    # K10's fold on the producer's noon block
+    ins = sim.host_inputs(K10_BLOCK)
+    tables, _ = sim._windows(state, ins)
+    head = head_of(state, ins, tables)
+    _, mk, pk, tk = k3._scenario_producer_cuda(
+        *head, clone(state["carry"]), cfg.meter_max_w,
+        cfg.site.surface_tilt, cfg.site.albedo)
+    t = ins.rows_i[0]
+    B = 8
+    scen = schema.encode_batch([Scenario(horizon_s=cfg.duration_s)] * B, B,
+                               device=dev)
+    for knob, row, v in (("demand_scale", 1, float("nan")),
+                         ("weather_bias", 2, float("nan")),
+                         ("curtail_w", 3, float("nan")),
+                         ("demand_shift_w", 4, float("nan")),
+                         ("pv_scale", 5, -0.0), ("curtail_w", 6, -0.0),
+                         ("weather_bias", 7, -0.0), ("curtail_w", 7, 0.0)):
+        scen[knob][row] = v
+    scen["horizon_s"][4] = int(t[0]) + 500
+    acc0 = sim.init_scenario_acc(B)
+    acc0["pv_max"][5:8] = 0.0
+    params = sim.scenario_fleet_params()
+    want = k3.scenario_fold_plain(mk, pk, t, clone(acc0), cfg.duration_s,
+                                  scen, params, per_chain=True)
+    for tame in (None, tk):
+        got = k3.scenario_fold(mk, pk, t, clone(acc0), cfg.duration_s,
+                               scen=scen, params=params, per_chain=True,
+                               tame=tame)
+        torch.cuda.synchronize()
+        nans, zeros, _ = nan_tree("scenario fold with NaN knobs",
+                                  {"acc": got[0], "delta": got[1]},
+                                  {"acc": want[0], "delta": want[1]})
+    if nans == 0 or zeros == 0:
+        fail("scenario fold with NaN knobs: the check saw no NaN or no "
+             "signed zero")
+    print(f"scenario fold with NaN and signed-zero knobs vs plain at {B} "
+          f"rows x {n} chains (the noon block, with and without the "
+          f"producer's flags): {nans} NaN leaves where the plain fold has "
+          f"them, {zeros} zeros of its sign, every other leaf bit-identical")
+    del mk, pk
+    # K8 + K9 on path F's fleet, and the wide fold on a seeded trace
+    fcfg = SimConfig(**dict(HEADLINE, fleet=fleet_f(), telemetry="full",
+                            analytics="full"))
+    fsim = Simulation(fcfg, device=dev)
+    fstate = fsim.init_state()
+    ins = fsim.host_inputs(K10_BLOCK)
+    tables, _ = fsim._windows(fstate, ins)
+    head = head_of(fstate, ins, tables)
+    _, _, site = fsim.geometry_args(fstate)
+    ffl = nan_fleet(fsim.fleet_leaves(fstate), n, dev)
+    obs = dataclasses.replace(fsim.observers(fstate), per_chain=True)
+    C = obs.n_cohorts
+    args = (cfg.duration_s, cfg.meter_max_w, None, None)
+    _, ak, ok_ = k3.block_step_obs(*head, clone(fstate["carry"]),
+                                   nan_acc(fsim), *args, site=site,
+                                   fleet=ffl, obs=obs)
+    _, ap, op = k3.block_step_obs_plain(*head, clone(fstate["carry"]),
+                                        nan_acc(fsim), *args, site=site,
+                                        fleet=ffl, obs=obs)
+    torch.cuda.synchronize()
+    nans, zeros, err = nan_tree("K8+K9 with NaN fleet leaves", ak, ap,
+                                rtol=TOL[0], atol=TOL[1])
+    leaves = sum(check_chain("K8+K9 with NaN fleet leaves", ok_[d],
+                             op[d])
+                 for d in ("telemetry_chain", "fleet_chain"))
+    tel_sums = [(f"{k}_{f}", f"{k}_{f}") for f in ("meter", "csi", "pv",
+                                                  "residual")
+                for k in ("sum", "sumsq")]
+    flt_sums = [(f"{k}_{f}", f"{k}_{f}") for f in ("meter", "pv",
+                                                  "residual")
+                for k in ("sum", "cov_sum", "cohort_sum")]
+    rel = 0.0
+    for d, sums in (("telemetry", tel_sums), ("fleet", flt_sums)):
+        p64 = _plain_sums(op[f"{d}_chain"], sums, obs.cohort, C)
+        r, _ = check_sketch(f"K8+K9 with NaN fleet leaves {d}", ok_[d],
+                            op[d], p64)
+        rel = max(rel, r)
+    nan_meter = int(ok_["telemetry"]["nan_meter"])
+    if nans == 0 or nan_meter == 0:
+        fail("K8+K9 with NaN fleet leaves: the check saw no NaN")
+    print(f"K8+K9 with NaN and signed-zero fleet leaves vs plain on path F's "
+          f"noon block x {n} sites: {nans} NaN statistics where the plain "
+          f"version has them ({zeros} zeros of its sign; the rest max abs "
+          f"{err:.3g}), {nan_meter} NaN meter samples counted, {leaves} "
+          f"per-chain leaves, counts, histograms and extrema bit-identical, "
+          f"sums within {rel:.3g} of the float64 plain sums")
+    T = cfg.block_s
+    gen = torch.Generator(device=dev).manual_seed(0)
+    meter = torch.rand((T, n), generator=gen, device=dev) * 4000.0
+    pv = torch.rand((T, n), generator=gen, device=dev) * 250.0
+    c0, c1 = nan_chains(n, 5, dev), nan_chains(n, 6, dev)
+    pv[0::2, c0] = 0.0
+    pv[1::2, c0] = -0.0
+    meter[:, c0] = -0.0
+    meter[100:, nan_chains(n, 1, dev)] = float("nan")
+    pv[500, nan_chains(n, 3, dev)] = float("nan")
+    pv[:, c1] = float("nan")
+    acc_k, out_k = k4m.wide_fold(meter, pv, t, cfg.duration_s,
+                                 nan_acc(fsim), obs)
+    acc_p, out_p = k4m.wide_fold_plain(meter, pv, t, cfg.duration_s,
+                                       nan_acc(fsim), obs)
+    torch.cuda.synchronize()
+    nans = zeros = 0
+    for k in acc_p:
+        rtol = 1e-6 if k.endswith("_sum") else None
+        a, b, _ = nan_held(f"wide fold with NaN values {k}", acc_k[k],
+                           acc_p[k], rtol=rtol)
+        nans, zeros = nans + a, zeros + b
+    leaves = 0
+    for d, sums in (("telemetry", tel_sums), ("fleet", flt_sums)):
+        leaves += check_chain(f"wide fold with NaN values {d}",
+                              out_k[f"{d}_chain"], out_p[f"{d}_chain"])
+        p64 = _plain_sums(out_p[f"{d}_chain"],
+                          [x for x in sums if x[1] in out_p[f"{d}_chain"]],
+                          obs.cohort, C)
+        check_sketch(f"wide fold with NaN values {d}", out_k[d], out_p[d],
+                     p64)
+    if nans == 0 or zeros == 0:
+        fail("wide fold with NaN values: the check saw no NaN or no signed "
+             "zero")
+    print(f"wide fold (both observers) on a seeded {T} x {n} trace with NaN "
+          f"meter and pv values and signed zeros vs plain: {nans} NaN "
+          f"statistics where the plain fold has them, {zeros} zeros of its "
+          f"sign, extrema and n_seconds bit-identical, sums rtol 1e-6; "
+          f"{leaves} per-chain observer leaves, counts, histograms and "
+          "extrema bit-identical")
+
+
+def print_geometry_timing(timing, timing_k12):
+    """The launches of the site geometry modes, as this run's timing phases
+    measured them, beside their issue bounds (ab_kernels.py times them
+    against the parent tree in one call)."""
+    for key in ("K6", "K7T", "K89", "K12B", "K12F", "K6s", "K6sX", "K89L"):
+        ms, _, _, _, ibms = timing.get(key) or timing_k12[key]
+        print(f"timing geometry {key}: {ms:.4f} ms, issue bound "
+              f"{ibms:.4f} ms ({ms / ibms:.2f}x)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a "
@@ -5048,6 +5394,7 @@ def main() -> int:
     err13r, rel13r = timed("k13_rest", phase_k13_rest, dev)
     err14r, rel14r = timed("k14_rest", phase_k13_rest, dev, URBG)
     k12s = timed("k12_k10", phase_k12_k10, dev)
+    timed("nan", phase_nan, dev)
     torch.cuda.empty_cache()
     _, launch_r, reduced_r, wall_r = timed("path_r", phase_path_r, dev)
     launch_a, means_a = timed("path_a", phase_path_a, dev)
@@ -5103,6 +5450,7 @@ def main() -> int:
     timing_k5 = timed("timing_k5", phase_timing_k5, dev)
     timing_k13 = timed("timing_k13", phase_timing_k13, dev)
     timing_k14 = timed("timing_k14", phase_timing_k13, dev, URBG)
+    print_geometry_timing(timing, timing_k12)
     timed("reference", phase_reference, dev)
     timed("reference_bf16", phase_reference_bf16, dev)
     timed("reference_rbg", phase_reference_rbg, dev)
@@ -5140,13 +5488,13 @@ def main() -> int:
     library = {"K4R": timing.pop("K4R_library")}
     k4r_dev, k4r_dev_lib = timing.pop("K4R_device")
     for key, (name, source, replaces, err, launches) in rows_of.items():
-        ms, plain, bms, by = timing[key]
+        ms, plain, bms, by, ibms = timing[key]
         # the observers' sums are checked relative to float64: both errors
         rel, err = err if isinstance(err, tuple) else (None, err)
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                     "bound_ms": bms, "bound_by": by,
+                     "bound_ms": bms, "bound_by": by, "issue_bound_ms": ibms,
                      "library_ms": library.get(key),
                      **({} if rel is None else {"max_rel_err": rel})})
     # series_sum: per call as every row; device time from CUDA graphs too
@@ -5160,12 +5508,13 @@ def main() -> int:
             ("K4MF89", "wide_fold_analytics",
              "tmhpvsim_tpu/obs/analytics.py:337", err4mo, launch_fw),
             ("K4MS", "wide_series", f"{sim_py}:983", err4ms, launch_aw)):
-        ms, plain, bms, by, lib = timing_wide[key]
+        ms, plain, bms, by, ibms, lib = timing_wide[key]
         rel, err = err if isinstance(err, tuple) else (None, err)
         rows.append({"name": name, "route": "cuda", "source": wsrc,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                     "bound_ms": bms, "bound_by": by, "library_ms": lib,
+                     "bound_ms": bms, "bound_by": by,
+                     "issue_bound_ms": ibms, "library_ms": lib,
                      **({} if rel is None else {"max_rel_err": rel})})
     # K10: timed at 16 rows; launches on path S (path S-c's beside them)
     # K10: the whole wrapper (producer, fold, collapse) timed at 1, 4 and
@@ -5175,6 +5524,7 @@ def main() -> int:
         return {"ms_producer": k["ms_producer"],
                 "bound_ms_producer": k["bound_ms_producer"],
                 "bound_by_producer": k["bound_by_producer"],
+                "issue_bound_ms_producer": k["issue_bound_ms_producer"],
                 "producer_max_abs_err": k["producer_max_abs_err"],
                 "ms_fold": k["ms_fold"][K10_B]}
 
@@ -5186,6 +5536,7 @@ def main() -> int:
                  "ms": k10["ms"][K10_B], "ms_1_row": k10["ms"][1],
                  "ms_4_rows": k10["ms"][4], "plain_ms": k10["plain_ms"],
                  "bound_ms": k10["bound_ms"], "bound_by": k10["bound_by"],
+                 "issue_bound_ms": k10["issue_bound_ms"],
                  "library_ms": None, **k10_keys(k10)})
     rows.append({"name": "scenario_fold", "route": "cuda", "source": src,
                  "replaces": f"{sim_py}:1890",
@@ -5200,10 +5551,12 @@ def main() -> int:
                  "ms_bf16_producer_output": k12s["ms_fold"][K10_B],
                  "plain_ms": k10["plain_ms_fold"],
                  "bound_ms": k10["bound_ms_fold"],
-                 "bound_by": k10["bound_by_fold"], "library_ms": None})
+                 "bound_by": k10["bound_by_fold"],
+                 "issue_bound_ms": k10["issue_bound_ms_fold"],
+                 "library_ms": None})
     # K6s: path B-L's launch (strided, table set), the exact set's beside
-    ms, plain, bms, by = timing["K6s"]
-    ms_x, plain_x, bms_x, _ = timing["K6sX"]
+    ms, plain, bms, by, ibms = timing["K6s"]
+    ms_x, plain_x, bms_x, _, ibms_x = timing["K6sX"]
     rows.append({"name": "block_step_strided_table", "route": "cuda",
                  "source": src,
                  "replaces": "tmhpvsim_tpu/models/solar.py:587",
@@ -5211,11 +5564,13 @@ def main() -> int:
                  "launches_fl": launch_fl["block_step_strided_table"],
                  "launches_gl": launch_gl["block_step_strided_table"],
                  "max_abs_err": err6s, "ms": ms, "plain_ms": plain,
-                 "bound_ms": bms, "bound_by": by, "library_ms": None,
+                 "bound_ms": bms, "bound_by": by,
+                 "issue_bound_ms": ibms, "library_ms": None,
                  "ms_exact_set": ms_x, "plain_ms_exact_set": plain_x,
-                 "bound_ms_exact_set": bms_x})
+                 "bound_ms_exact_set": bms_x,
+                 "issue_bound_ms_exact_set": ibms_x})
     # path F-L's launch: K8+K9 in the strided table-set step
-    ms, plain, bms, by = timing["K89L"]
+    ms, plain, bms, by, ibms = timing["K89L"]
     rel, err = err89l
     rows.append({"name": "block_step_strided_table+tel_analytics",
                  "route": "cuda", "source": src,
@@ -5223,16 +5578,18 @@ def main() -> int:
                  "launches": launch_fl["block_step_tel_analytics"],
                  "max_abs_err": err, "max_rel_err": rel, "ms": ms,
                  "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                 "issue_bound_ms": ibms,
                  "library_ms": None})
     # K11: path R-T's launch (the shared step with the table set), and
     # each function on its own (table_eval)
-    ms, plain, bms, by = timing["K11"]
+    ms, plain, bms, by, ibms = timing["K11"]
     rows.append({"name": "block_step_table", "route": "cuda",
                  "source": "tmhpvsim_torch/csrc/tables.cuh",
                  "replaces": "tmhpvsim_tpu/models/tables.py:354",
                  "launches": launch_rt["block_step_table"],
                  "max_abs_err": err11, "ms": ms,
                  "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                 "issue_bound_ms": ibms,
                  "library_ms": None, "functions": k11_fn})
     # K12: each bf16 instantiation a path launches, with that path's count
     bsrc = "tmhpvsim_torch/csrc/block_step_bf16.cu"
@@ -5250,7 +5607,7 @@ def main() -> int:
              launch_bhl, "B-HL"),
             ("K12F", "block_step_site_bf16+tel_analytics", bsrc,
              f"{sim_py}:1218", launch_fh, "F-H")):
-        ms, plain, bms, by = timing_k12[key]
+        ms, plain, bms, by, ibms = timing_k12[key]
         counter = name.split("+")[0]
         rel, err = err12[key] if isinstance(err12[key], tuple) else \
             (None, err12[key])
@@ -5258,6 +5615,7 @@ def main() -> int:
                      "replaces": replaces, "launches": launches[counter],
                      "path": path, "max_abs_err": err, "ms": ms,
                      "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                     "issue_bound_ms": ibms,
                      "library_ms": None,
                      **({} if rel is None else {"max_rel_err": rel})})
     rows[-6]["launches_gh"] = launch_gh["block_step_bf16"]
@@ -5270,7 +5628,8 @@ def main() -> int:
                  "launches": launch_rp["philox_fill"], "path": "R-P",
                  "max_abs_err": k13["err"], "ms": k13["ms"],
                  "plain_ms": k13["plain_ms"], "bound_ms": k13["bound_ms"],
-                 "bound_by": k13["bound_by"], "library_ms": None,
+                 "bound_by": k13["bound_by"],
+                 "issue_bound_ms": k13["issue_bound_ms"], "library_ms": None,
                  "words": K13_WORDS, "ms_uniform": k13["ms_uniform"],
                  "bound_ms_uniform": k13["bound_ms_uniform"],
                  "torch_rand_ms": k13["torch_rand_ms"]})
@@ -5280,11 +5639,12 @@ def main() -> int:
             ("K13S", "block_step_rbg",
              "tmhpvsim_torch/csrc/block_step_rbg.cu", f"{sim_py}:1130",
              err13)):
-        ms, plain, bms, by = timing_k13[key]
+        ms, plain, bms, by, ibms = timing_k13[key]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launch_rp[name],
                      "path": "R-P", "max_abs_err": err, "ms": ms,
                      "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                     "issue_bound_ms": ibms,
                      "library_ms": None})
     # the rbg instantiations no path launches (phase_k13_rest)
     rows[-1].update(max_abs_err_other_instantiations=err13r,
@@ -5298,28 +5658,31 @@ def main() -> int:
                  "ms": k12s["ms"][K10_B], "ms_1_row": k12s["ms"][1],
                  "ms_4_rows": k12s["ms"][4], "plain_ms": k12s["plain_ms"],
                  "bound_ms": k12s["bound_ms"], "bound_by": k12s["bound_by"],
+                 "issue_bound_ms": k12s["issue_bound_ms"],
                  "library_ms": None, **k10_keys(k12s)})
     # K14: the derivations launch (timed on init_state's batched 5-way
     # split of 65536 chains), the unsafe_rbg windows and block step; their
     # launches on path R-U
-    ms, plain, bms, by = timing_k14["K14D"]
+    ms, plain, bms, by, ibms = timing_k14["K14D"]
     rows.append({"name": "philox_derive", "route": "cuda",
                  "source": "tmhpvsim_torch/csrc/philox.cu",
                  "replaces": f"{sim_py}:510",
                  "launches": launch_ru["philox_derive"], "path": "R-U",
                  "max_abs_err": err14d, "ms": ms, "plain_ms": plain,
-                 "bound_ms": bms, "bound_by": by, "library_ms": None})
+                 "bound_ms": bms, "bound_by": by,
+                 "issue_bound_ms": ibms, "library_ms": None})
     for key, name, source, replaces, err in (
             ("K14W", "sampler_windows_urbg",
              "tmhpvsim_torch/csrc/windows.cu", f"{sim_py}:798", err14w),
             ("K14S", "block_step_urbg",
              "tmhpvsim_torch/csrc/block_step_urbg.cu", f"{sim_py}:1130",
              err14)):
-        ms, plain, bms, by = timing_k14[key]
+        ms, plain, bms, by, ibms = timing_k14[key]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launch_ru[name],
                      "path": "R-U", "max_abs_err": err, "ms": ms,
                      "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                     "issue_bound_ms": ibms,
                      "library_ms": None})
     rows[-1].update(max_abs_err_other_instantiations=err14r,
                     max_rel_err_k89_urbg=rel14r,

@@ -147,6 +147,40 @@ def _fleet_sims(**kw):
     return js, ts
 
 
+#: the fleet leaves set to NaN, one chain each: a NaN meter (demand scale
+#: and shift), a NaN pv (DC scale) and a NaN inverter limit
+NAN_LEAVES = (("demand_scale", 1), ("demand_shift_w", 4), ("pv_scale", 7),
+              ("ac_limit_w", 10))
+
+
+def test_nan_fleet_leaves_match_jax():
+    """A NaN in one chain's fleet leaf (the demand transform's, the DC
+    scale or the inverter limit) goes through the plain acc step as it
+    goes through the JAX scan: every statistic is NaN where the JAX run's
+    is (the NaN-keeping maximum / minimum of pv_max and the residual
+    extrema included), the rest within the engine tolerance, n_seconds
+    exact."""
+    js, ts = _fleet_sims(duration_s=3600)
+    jstate, tstate = js.init_state(), ts.init_state()
+    for leaf, c in NAN_LEAVES:
+        jstate["fleet"][leaf] = jstate["fleet"][leaf].at[c].set(np.nan)
+        tstate["fleet"][leaf][c] = float("nan")
+    want = js.run_reduced(state=jstate)
+    got = ts.run_reduced(state=tstate)
+    for k in REDUCE_STATS:
+        w, g = np.asarray(want[k]), np.asarray(got[k])
+        if k == "n_seconds":
+            np.testing.assert_array_equal(g, w, err_msg=k)
+            continue
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=k)
+        np.testing.assert_allclose(g, w, rtol=2e-5, atol=1e-2, err_msg=k)
+    nan = {k: set(np.flatnonzero(np.isnan(np.asarray(got[k]))))
+           for k in REDUCE_STATS if k != "n_seconds"}
+    assert nan["meter_sum"] == {1, 4}
+    assert nan["residual_min"] == nan["residual_max"] == {1, 4, 7, 10}
+    assert nan["pv_max"] == nan["pv_sum"] == {7, 10}
+
+
 def test_windows_with_regimes_match_jax():
     """init_state's regime-primed cc0 and the first block's windows, drawn
     through each chain's regime table, against the JAX package's."""

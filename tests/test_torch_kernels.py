@@ -417,11 +417,11 @@ def test_build_flags():
     assert "fast_math" not in flags and "fast-math" not in flags
     for src in build.SOURCES + build.HEADERS:
         assert os.path.exists(os.path.join(build.CSRC, src))
-    # one C entry per epilogue, the cross-CTA sum and the geometry entry,
-    # in the template both kernel sets' translation units include
+    # one C entry per epilogue, the cross-CTA sum and the test entries of
+    # the geometry and the NaN-keeping helpers, in the template both kernel sets' translation units include
     text = open(os.path.join(build.CSRC, "block_step.cuh")).read()
     for entry in ("block_step_acc", "block_step_series", "block_step_trace",
-                  "series_sum", "device_geometry_fields",
+                  "series_sum", "device_geometry_fields", "nan_minmax",
                   "block_step_scenario", "scenario_fold"):
         assert re.search(rf'extern "C" int {entry}\(', text), entry
     for src, kset in (("block_step.cu", "Exact"),
@@ -436,6 +436,21 @@ def test_build_flags():
         assert ("#define PRNG RBG" in text) == ("rbg" in src)
     assert re.search(r'extern "C" int table_eval\(', open(
         os.path.join(build.CSRC, "tables.cu")).read())
+
+
+def test_kernels_keep_nans_in_min_max_and_clamp():
+    """The sources whose minimum, maximum and clamp can meet a NaN use the
+    NaN-keeping helpers of nanminmax.cuh (as jnp.minimum / maximum / clip
+    and the plain versions' torch ones), never CUDA's fminf / fmaxf, which
+    drop a NaN operand."""
+    assert "nanminmax.cuh" in build.HEADERS
+    for src in ("block_step.cuh", "fold.cuh", "wide_fold.cu", "bf16.cuh",
+                "tables.cuh"):
+        text = open(os.path.join(build.CSRC, src)).read()
+        code = re.sub(r"//[^\n]*", "", text)
+        assert not re.search(r"\bf(min|max)f\s*\(", code), src
+        assert '#include "nanminmax.cuh"' in text or \
+            '#include "fold.cuh"' in text, src
 
 
 def test_build_without_nvcc_raises(monkeypatch):
@@ -619,6 +634,23 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_nan_minmax_matches_plain_on_card(card):
+    """The NaN-keeping helpers on the card against torch.minimum, maximum
+    and clamp: NaN where torch has one (PTX gives the canonical NaN,
+    torch the operand's payload), every other value bit for bit, -0.0
+    against +0.0 in both orders included."""
+    vals = (float("nan"), -float("inf"), -2.0, -1.0, -0.0, 0.0, 0.5, 1.0,
+            3.0, float("inf"))
+    a = torch.tensor([x for x in vals for _ in vals], device=card)
+    b = torch.tensor([y for _ in vals for y in vals], device=card)
+    got = k3.nan_minmax(a, b, 0.0, 1.0)
+    want = k3.nan_minmax_plain(a, b, 0.0, 1.0)
+    assert torch.equal(got.isnan(), want.isnan())
+    ok = ~want.isnan()
+    assert torch.equal(got[ok].view(torch.int32), want[ok].view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -318,6 +318,61 @@ def test_scenario_step_matches_jax(slack):
                                       acc0[k][0], err_msg=k)
 
 
+def test_scenario_nan_knobs_match_jax(slack):
+    """NaN knobs through the plain scenario fold as through the JAX
+    engine's ``scenario_step``: a NaN demand scale (NaN meter), weather
+    bias (NaN pv) and curtailment cap, each on a full horizon, and a NaN
+    demand shift on a short horizon and with a site selector (a masked
+    second still adds NaN * 0 to the sums, as the JAX fold's).  Every
+    statistic is NaN where the JAX run's is, the rest within the engine
+    tolerance; the FleetAcc, which folds finite residuals only, as
+    ``_same_delta`` holds it."""
+    with j_use_registry(JRegistry()):
+        js = JSim(jcfg(serve_batch_sizes=(8,)))
+    ts = TSim(tcfg(), device="cpu")
+    docs = ({"horizon_s": 120}, {"horizon_s": 120}, {"horizon_s": 120},
+            {"horizon_s": 120}, {"horizon_s": 90},
+            {"site_index": 2, "horizon_s": 120}, {"horizon_s": 120})
+    scen = jschema.encode_batch(
+        [jschema.parse_scenario(d, max_horizon_s=120, n_sites=4)
+         for d in docs], 8,
+        np.float32)                                   # row 7: padding
+    for knob, row in (("demand_scale", 1), ("weather_bias", 2),
+                      ("curtail_w", 3), ("demand_shift_w", 4),
+                      ("demand_shift_w", 5)):
+        scen[knob] = np.array(scen[knob])
+        scen[knob][row] = np.nan
+    jstate = js.init_state()
+    jacc = js.init_scenario_acc(8)
+    tstate = convert.state_from_numpy(_jax_state_numpy(jstate), "cpu",
+                                      ts.plan.prng_impl)
+    tacc = convert.acc_from_numpy(
+        {k: np.asarray(v) for k, v in jacc.items()}, "cpu")
+    for bi in range(js.n_blocks):
+        jstate, jacc, jdelta = js.scenario_step(
+            jstate, js.host_inputs(bi)[0], jacc, scen)
+        tstate, tacc, tdelta = ts.scenario_step(
+            tstate, ts.host_inputs(bi), tacc,
+            convert.scen_from_numpy(scen, "cpu"))
+        got = convert.acc_to_numpy(tacc)
+        want = {k: np.asarray(v) for k, v in jacc.items()}
+        for k, w in want.items():
+            np.testing.assert_array_equal(np.isnan(got[k]), np.isnan(w),
+                                          err_msg=k)
+        _same_stats(got, want)
+        _same_delta(convert.fleet_delta_to_numpy(tdelta),
+                    {k: np.asarray(v) for k, v in jdelta.items()}, slack)
+    got = convert.acc_to_numpy(tacc)
+    nan_rows = {k: sorted(set(np.nonzero(np.isnan(got[k]))[0]))
+                for k in REDUCE_STATS if k != "n_seconds"}
+    assert nan_rows["meter_sum"] == [1, 4, 5]
+    assert nan_rows["pv_sum"] == nan_rows["pv_max"] == [2, 3]
+    assert nan_rows["residual_min"] == [1, 2, 3, 4, 5]
+    # a row's masked chains: NaN sums, untouched extrema
+    assert np.isnan(got["meter_sum"][5]).all()
+    assert not np.isnan(got["residual_min"][5][[0, 1, 3]]).any()
+
+
 #: the width of the K10 check against the JAX engine: a few hundred
 #: chains over BASE's two blocks
 WIDE_CHAINS = 256

@@ -23,6 +23,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "nanminmax.cuh"
+
 namespace b16 {
 
 __device__ __forceinline__ float rn(float x) {
@@ -85,20 +87,21 @@ B16_BINOP(*)
 B16_BINOP(/)
 #undef B16_BINOP
 
-// maximum / minimum: of bf16 operands, exact (no rounding to cancel)
+// maximum / minimum: of bf16 operands, exact (no rounding to cancel);
+// NaN-keeping, as jnp.maximum / jnp.minimum (nanminmax.cuh)
 __device__ __forceinline__ bf vmax(bf a, bf b) {
-  const float m = fmaxf(a.v, b.v);
+  const float m = nmaxf(a.v, b.v);
   return bf{m, m};
 }
 __device__ __forceinline__ bf vmax(bf a, wk b) { return vmax(a, in(rn(b.v))); }
-__device__ __forceinline__ float vmax(float a, wk b) { return fmaxf(a, b.v); }
+__device__ __forceinline__ float vmax(float a, wk b) { return nmaxf(a, b.v); }
 __device__ __forceinline__ bf vmin(bf a, bf b) {
-  const float m = fminf(a.v, b.v);
+  const float m = nminf(a.v, b.v);
   return bf{m, m};
 }
 // jnp.clip: the bounds take the operand's type
 __device__ __forceinline__ bf clip(bf x, wk lo, wk hi) {
-  const float c = fminf(fmaxf(x.v, rn(lo.v)), rn(hi.v));
+  const float c = nclampf(x.v, rn(lo.v), rn(hi.v));
   return bf{c, c};
 }
 __device__ __forceinline__ bool lt(bf a, wk b) { return a.v < rn(b.v); }

@@ -58,14 +58,18 @@
 // memory by the first 60 threads: in the shared mode with that second's
 // csi-independent physics terms (Spencer, DISC airmass and knc, the SAPM
 // spectral and angle-of-incidence polynomials, the Hay-Davies beam ratio),
-// once for all chains; in the site mode with only the doy terms (Spencer
-// at both constants, the Linke lerp), while every thread evaluates its
-// own site's geometry (PSA sun position from the split time, refraction,
-// Kasten-Young, Ineichen, AOI) and the physics terms from it.
+// once for all chains; in the site mode with the doy terms (Spencer at
+// both constants, the Linke lerp) and the site-independent half of the PSA
+// sun position (sun_time: the ephemeris of the split time, right
+// ascension, declination and sidereal angle: 15 transcendentals a second,
+// as the JAX function, which maps over the site scalars only, computes
+// them), while every thread evaluates its own site's half (hour angle,
+// zenith, azimuth), refraction, Kasten-Young, Ineichen and AOI, and the
+// physics terms from them.
 //
 // K6s (strided).  The tile stages the calendar and the DISC Spencer term
-// of each second (its exact doy) and the split time and doy terms of the
-// stride samples the tile touches (2 at stride 60, 3 at stride 30).  Each
+// of each second (its exact doy) and the doy terms and the sun's time half
+// of the stride samples the tile touches (2 at stride 60, 3 at stride 30).  Each
 // thread evaluates its site's geometry at those samples, in registers,
 // and carries the upper one into the next tile: one new evaluation per
 // tile at stride 60, two at stride 30, against 60 in the site mode.  Per
@@ -171,9 +175,10 @@
 //
 // Bound: operations for acc and series (per site-second about three
 // 20-round threefry hashes, XLA's erfinv and log1p polynomials, accurate
-// expf and logf, plus powf x2 on a redraw; the site mode adds about 30
-// accurate transcendentals of the sun position, the strided mode about
-// 30 per stride sample and 4 per second); trace adds 8 bytes per
+// expf and logf, plus powf x2 on a redraw; the site mode adds about 15
+// accurate transcendentals and a powf per site-second and 15 per second
+// for the CTA, the strided mode about as many per stride sample and 4 per
+// site-second); trace adds 8 bytes per
 // chain-second written, 566 MB per 65536 x 1080 block, still under the
 // operation time.
 //
@@ -189,6 +194,7 @@
 #include "bf16.cuh"
 #include "consts.cuh"
 #include "fold.cuh"
+#include "nanminmax.cuh"
 #include "philox.cuh"
 #include "threefry.cuh"
 #ifdef TMHPVSIM_TABLE_SET
@@ -240,9 +246,12 @@ struct Phys {
   int zen_ok;
 };
 
-// the site mode's shared per-second terms: split time and doy terms
+// the site mode's shared per-second terms (the strided mode's per stride
+// sample): the doy terms and the site-independent half of the PSA sun
+// position (right ascension, the declination's cos / sin / tan and the
+// sidereal angle gmst_h * 15 * PV_DEG)
 struct TimeC {
-  float day, sec, doy, i0, dni_extra, tl;
+  float i0, dni_extra, tl, ra, cos_dec, sin_dec, tan_dec, gmst_ang;
 };
 
 struct SharedSecond {
@@ -414,9 +423,9 @@ __device__ __forceinline__ void phys_terms(Phys& P, float i0, float zen,
                                            float cos_zen, float cos_app,
                                            float ama, float cos_aoi) {
   P.i0 = i0;
-  P.i0h = i0 * fmaxf(cos_zen, 0.065f);
+  P.i0h = i0 * nmaxf(cos_zen, 0.065f);
   // Kasten 1966 airmass and the DISC knc polynomial
-  const float z_deg = fminf(fmaxf(zen / PV_DEG, 0.0f), 93.0f);
+  const float z_deg = nclampf(zen / PV_DEG, 0.0f, 93.0f);
   const float am = 1.0f / (KS::cos(z_deg * PV_DEG) +
                            0.15f * KS::powc(93.885f - z_deg, -1.253f));
   const float am2 = am * am;
@@ -424,16 +433,16 @@ __device__ __forceinline__ void phys_terms(Phys& P, float i0, float zen,
   P.knc = 0.866f - 0.122f * am + 0.0121f * am * am - 0.000653f * (am * am2) +
           1.4e-5f * (am2 * am2);
   P.zen_ok = zen < PV_ZEN_MAX;
-  P.rb = fmaxf(cos_aoi, 0.0f) / fmaxf(cos_app, 0.01745f);
+  P.rb = nmaxf(cos_aoi, 0.0f) / nmaxf(cos_app, 0.01745f);
   // SAPM spectral (airmass) and angle-of-incidence polynomials
   const float ama2 = ama * ama;
   P.f1 = MA[0] + MA[1] * ama + MA[2] * ama2 + MA[3] * (ama * ama2) +
          MA[4] * (ama2 * ama2);
-  const float aoi = KS::acos(fminf(fmaxf(cos_aoi, -1.0f), 1.0f)) / PV_DEG;
+  const float aoi = KS::acos(nclampf(cos_aoi, -1.0f, 1.0f)) / PV_DEG;
   const float aoi2 = aoi * aoi, aoi4 = aoi2 * aoi2;
   const float f2 = MB[0] + MB[1] * aoi + MB[2] * aoi2 + MB[3] * (aoi * aoi2) +
                    MB[4] * aoi4 + MB[5] * (aoi * aoi4);
-  P.f2 = fmaxf(f2, 0.0f);
+  P.f2 = nmaxf(f2, 0.0f);
 }
 
 // shared mode: one second's terms from the host geometry rows
@@ -470,19 +479,57 @@ __device__ __forceinline__ float linke(float d, const float* monthly) {
   return v0 * (1.0f - f) + v1 * f;
 }
 
+// x % m as jnp.remainder computes it (m > 0): the exact fmod, into [0, m)
+__device__ __forceinline__ float fmod_floor(float x, float m) {
+  const float r = fmodf(x, m);
+  return r < 0.0f ? r + m : r;
+}
+
+// solar.sun_time_terms: the half of the PSA sun position (solar.
+// sun_position_split) that depends on the second only -- the ephemeris of
+// the split time up to the right ascension, the declination and the
+// sidereal time -- evaluated once per second (per stride sample) for every
+// chain of the CTA, with the float32 operations of the one-piece form in
+// its order
+template <class KS>
+__device__ __forceinline__ void sun_time(TimeC& S, float day, float sec) {
+  const float frac = sec / 86400.0f - 0.5f;
+  const float hour_ut = sec / 3600.0f;
+#define LIN(c0, c1) (((c0) + (c1) * day) + (c1) * frac)
+  const float omega = LIN(2.267127827f, -9.300339267e-4f);
+  const float mean_lon = LIN(4.895036035f, 1.720279602e-2f);
+  const float mean_anom = LIN(6.239468336f, 1.720200135e-2f);
+  const float ecl_lon = mean_lon + 3.338320972e-2f * KS::sin(mean_anom) +
+                        3.497596876e-4f * KS::sin(2.0f * mean_anom) -
+                        1.544353226e-4f - 8.689729360e-6f * KS::sin(omega);
+  const float obliquity =
+      LIN(4.090904909e-1f, -6.213605399e-9f) + 4.418094944e-5f * KS::cos(omega);
+#undef LIN
+  const float sin_l = KS::sin(ecl_lon);
+  S.ra = fmod_floor(KS::atan2(KS::cos(obliquity) * sin_l, KS::cos(ecl_lon)),
+                    PV_TWO_PI);
+  const float dec = KS::asin(KS::sin(obliquity) * sin_l);
+  const float gmst_h = fmod_floor(6.697096103f + 6.570984737e-2f * day,
+                                  24.0f) +
+                       6.570984737e-2f * frac + hour_ut;
+  S.gmst_ang = gmst_h * 15.0f * PV_DEG;
+  S.cos_dec = KS::cos(dec);
+  S.sin_dec = KS::sin(dec);
+  S.tan_dec = KS::tan(dec);
+}
+
 // site mode: one second's shared time terms (strided mode: one sample's,
-// from the sample rows)
+// from the sample rows): the doy terms and the sun's site-independent half
 template <class KS>
 __device__ __forceinline__ void time_terms(TimeC& S, const float* r, int T,
                                            int s, const float* turb,
                                            int row0 = DAY2000) {
-  S.day = r[row0 * T + s];
-  S.sec = r[(row0 + 1) * T + s];
-  S.doy = r[(row0 + 2) * T + s];
-  const float f = KS::spencer(S.doy);
+  const float doy = r[(row0 + 2) * T + s];
+  const float f = KS::spencer(doy);
   S.i0 = 1370.0f * f;
   S.dni_extra = GEO_SOLAR_CONSTANT * f;
-  S.tl = linke(S.doy, turb);
+  S.tl = linke(doy, turb);
+  sun_time<KS>(S, r[row0 * T + s], r[(row0 + 1) * T + s]);
 }
 
 template <class KS>
@@ -508,45 +555,20 @@ __device__ __forceinline__ SiteC site_consts(float lat_deg, float lon_deg,
   return c;
 }
 
-// x % m as jnp.remainder computes it (m > 0): the exact fmod, into [0, m)
-__device__ __forceinline__ float fmod_floor(float x, float m) {
-  const float r = fmodf(x, m);
-  return r < 0.0f ? r + m : r;
-}
-
-// solar.device_geometry for one site and second
+// solar.device_geometry for one site and second, from the second's shared
+// terms: the sun's site half (solar.sun_site_position) and the rest
 template <class KS>
 __device__ __forceinline__ Geo geometry(const TimeC& ts, const SiteC& c) {
   Geo g;
-  // PSA sun position from the split time (sun_position_split)
-  const float frac = ts.sec / 86400.0f - 0.5f;
-  const float hour_ut = ts.sec / 3600.0f;
-#define LIN(c0, c1) (((c0) + (c1) * ts.day) + (c1) * frac)
-  const float omega = LIN(2.267127827f, -9.300339267e-4f);
-  const float mean_lon = LIN(4.895036035f, 1.720279602e-2f);
-  const float mean_anom = LIN(6.239468336f, 1.720200135e-2f);
-  const float ecl_lon = mean_lon + 3.338320972e-2f * KS::sin(mean_anom) +
-                        3.497596876e-4f * KS::sin(2.0f * mean_anom) -
-                        1.544353226e-4f - 8.689729360e-6f * KS::sin(omega);
-  const float obliquity =
-      LIN(4.090904909e-1f, -6.213605399e-9f) + 4.418094944e-5f * KS::cos(omega);
-#undef LIN
-  const float sin_l = KS::sin(ecl_lon);
-  const float ra =
-      fmod_floor(KS::atan2(KS::cos(obliquity) * sin_l, KS::cos(ecl_lon)), PV_TWO_PI);
-  const float dec = KS::asin(KS::sin(obliquity) * sin_l);
-  const float gmst_h = fmod_floor(6.697096103f + 6.570984737e-2f * ts.day,
-                                  24.0f) +
-                       6.570984737e-2f * frac + hour_ut;
-  const float lmst = gmst_h * 15.0f * PV_DEG + c.lon;
-  const float ha = lmst - ra;
-  const float cos_dec = KS::cos(dec), sin_dec = KS::sin(dec);
+  // the hour angle from the sidereal angle and the site's longitude
+  const float lmst = ts.gmst_ang + c.lon;
+  const float ha = lmst - ts.ra;
   const float cos_ha = KS::cos(ha);
-  const float cos_zen = fminf(
-      fmaxf(c.cos_lat * cos_ha * cos_dec + sin_dec * c.sin_lat, -1.0f), 1.0f);
+  const float cos_zen = nclampf(
+      c.cos_lat * cos_ha * ts.cos_dec + ts.sin_dec * c.sin_lat, -1.0f, 1.0f);
   float zenith = KS::acos(cos_zen);
   g.azimuth = fmod_floor(
-      KS::atan2(-KS::sin(ha), KS::tan(dec) * c.cos_lat - c.sin_lat * cos_ha),
+      KS::atan2(-KS::sin(ha), ts.tan_dec * c.cos_lat - c.sin_lat * cos_ha),
       PV_TWO_PI);
   zenith = zenith + GEO_PARALLAX * KS::sin(zenith);
   g.zenith = zenith;
@@ -560,7 +582,7 @@ __device__ __forceinline__ Geo geometry(const TimeC& ts, const SiteC& c) {
   const float app_zen = GEO_HALF_PI - (e_deg + de) * PV_DEG;
   g.app_zen = app_zen;
   // Kasten-Young relative airmass, absolute at the site's pressure
-  const float zd = fminf(fmaxf(app_zen / PV_DEG, 0.0f), 90.0f);
+  const float zd = nclampf(app_zen / PV_DEG, 0.0f, 90.0f);
   const float am_rel = 1.0f / (KS::cos(zd * PV_DEG) +
                                0.50572f * KS::powc(96.07995f - zd, -1.6364f));
   g.airmass_abs = am_rel * c.pressure / GEO_STD_PRESSURE;
@@ -568,14 +590,14 @@ __device__ __forceinline__ Geo geometry(const TimeC& ts, const SiteC& c) {
   // Ineichen clear-sky GHI
   const float cos_app = KS::cos(app_zen);
   g.cos_app = cos_app;
-  const float ghi = c.cg1 * ts.dni_extra * fmaxf(cos_app, 0.0f) *
+  const float ghi = c.cg1 * ts.dni_extra * nmaxf(cos_app, 0.0f) *
                     KS::exp(-c.cg2 * g.airmass_abs *
                          (c.fh1 + c.fh2 * (ts.tl - 1.0f)));
-  g.ghi_clear = fmaxf(ghi, 0.0f);
+  g.ghi_clear = nmaxf(ghi, 0.0f);
   // clear-sky-index cap and the angle of incidence
   const float cap = 27.21f * KS::exp(-114.0f * g.cos_zenith) +
                     1.665f * KS::exp(-4.494f * g.cos_zenith) + 1.08f;
-  g.csi_cap = fminf(cap, 1e6f);
+  g.csi_cap = nminf(cap, 1e6f);
   g.cos_aoi = c.cos_tilt * cos_app +
               c.sin_tilt * KS::sin(app_zen) * KS::cos(g.azimuth - c.saz);
   return g;
@@ -586,7 +608,7 @@ __device__ __forceinline__ Geo geometry(const TimeC& ts, const SiteC& c) {
 template <class KS>
 __device__ __forceinline__ float disc(float ghi, bool ghi_pos,
                                       const Phys& S) {
-  const float kt = fminf(fmaxf(ghi / S.i0h, 0.0f), 2.0f);
+  const float kt = nclampf(ghi / S.i0h, 0.0f, 2.0f);
   const float kt2 = kt * kt;
   const float kt3 = kt2 * kt;
   const bool hi = kt > 0.6f;
@@ -596,9 +618,9 @@ __device__ __forceinline__ float disc(float ghi, bool ghi_pos,
                      : 0.37f + 0.962f * kt;
   const float c = hi ? -47.01f + 184.2f * kt - 222.0f * kt2 + 73.81f * kt3
                      : -0.28f + 0.932f * kt - 2.048f * kt2;
-  const float delta_kn = a + b * KS::exp(fminf(c * S.am, 40.0f));
+  const float delta_kn = a + b * KS::exp(nminf(c * S.am, 40.0f));
   const float dni = (S.knc - delta_kn) * S.i0;
-  return (S.zen_ok && ghi_pos) ? fmaxf(dni, 0.0f) : 0.0f;
+  return (S.zen_ok && ghi_pos) ? nmaxf(dni, 0.0f) : 0.0f;
 }
 
 // the SAPM and Sandia steps from the plane-of-array irradiance
@@ -609,7 +631,7 @@ __device__ __forceinline__ float sapm_sandia(float pdir, float pdiff,
   // SAPM temperature, effective irradiance, DC
   const float t_cell = pglob * KS::exp_t() + 20.0f + pglob / 1000.0f * T_DELTA;
   float ee = S.f1 * (pdir * S.f2 + FD * pdiff) / 1000.0f;
-  ee = fmaxf(ee, 0.0f);
+  ee = nmaxf(ee, 0.0f);
   const float dt = t_cell - 25.0f;
   const float delta = N_BOLTZ * (t_cell + 273.15f) / ELEM_CHARGE;
   const bool pos = ee > 0.0f;
@@ -618,8 +640,8 @@ __device__ __forceinline__ float sapm_sandia(float pdir, float pdiff,
   const float bvmp = BVMPO + MBVMP * (1.0f - ee);
   const float dl = delta * log_ee;
   float v_mp = VMPO + C2NS * delta * log_ee + C3NS * (dl * dl) + bvmp * dt;
-  i_mp = pos ? fmaxf(i_mp, 0.0f) : 0.0f;
-  v_mp = pos ? fmaxf(v_mp, 0.0f) : 0.0f;
+  i_mp = pos ? nmaxf(i_mp, 0.0f) : 0.0f;
+  v_mp = pos ? nmaxf(v_mp, 0.0f) : 0.0f;
   const float p_mp = i_mp * v_mp;
   // Sandia inverter
   const float dv = v_mp - VDCO;
@@ -629,25 +651,25 @@ __device__ __forceinline__ float sapm_sandia(float pdir, float pdiff,
   const float a_b = fabsf(ia - ib) > 1e-12f ? ia - ib : 1e-12f;
   const float pd = p_mp - ib;
   float ac = (PACO / a_b - ic * a_b) * pd + ic * pd * pd;
-  ac = fminf(ac, PACO);
+  ac = nminf(ac, PACO);
   ac = p_mp < PSO ? PNT_NEG : ac;
-  return fmaxf(ac, 0.0f);
+  return nmaxf(ac, 0.0f);
 }
 
 // pv.power_from_terms for one chain-second
 template <class KS>
 __device__ __forceinline__ float power(float csi, const Phys& S,
                                        float cos_tilt, float albedo) {
-  csi = fminf(csi, S.csi_cap);
+  csi = nminf(csi, S.csi_cap);
   const float ghi = csi * S.ghi_clear;
   const float dni = disc<KS>(ghi, ghi > 0.0f, S);
-  const float dhi = fmaxf(ghi - dni * S.cos_zenith, 0.0f);
+  const float dhi = nmaxf(ghi - dni * S.cos_zenith, 0.0f);
   // Hay-Davies POA + isotropic ground
   const float ai = dni / S.dni_extra;
   const float sky = dhi * (ai * S.rb + (1.0f - ai) * 0.5f * (1.0f + cos_tilt));
   const float ground = ghi * albedo * 0.5f * (1.0f - cos_tilt);
-  const float pdir = fmaxf(dni * S.cos_aoi, 0.0f);
-  const float pdiff = fmaxf(sky, 0.0f) + ground;
+  const float pdir = nmaxf(dni * S.cos_aoi, 0.0f);
+  const float pdiff = nmaxf(sky, 0.0f) + ground;
   return sapm_sandia<KS>(pdir, pdiff, S);
 }
 
@@ -710,13 +732,13 @@ __device__ __forceinline__ float power_bf(float csi, const Phys& S,
   const bf c = vmin(narrow(csi), in(S.csi_cap));
   const bf ghi = c * in(S.ghi_clear);
   const float dni = disc<KS>(ghi.r, ghi.v > 0.0f, S);
-  const float dhi = fmaxf(ghi.r - dni * S.cos_zenith, 0.0f);
+  const float dhi = nmaxf(ghi.r - dni * S.cos_zenith, 0.0f);
   const float ai = dni / S.dni_extra;
   const float sky =
       dhi * (ai * S.rb + (1.0f - ai) * 0.5f * w32(K(1.0) + cos_tilt));
   const auto ground = ghi * albedo * K(0.5) * (K(1.0) - cos_tilt);
-  const float pdir = fmaxf(dni * S.cos_aoi, 0.0f);
-  const float pdiff = fmaxf(sky, 0.0f) + w32(ground);
+  const float pdir = nmaxf(dni * S.cos_aoi, 0.0f);
+  const float pdiff = nmaxf(sky, 0.0f) + w32(ground);
   return sapm_sandia<KS>(pdir, pdiff, S);
 }
 
@@ -778,7 +800,8 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
       typename std::conditional<GEO == STRIDED, StrideSecond,
                                 SharedSecond>::type>::type;
   __shared__ Second tile[TILE];
-  // strided: the split time and doy terms of the tile's stride samples
+  // strided: the doy terms and the sun's time half of the tile's stride
+  // samples
   __shared__ TimeC samp[GEO == STRIDED ? MAX_SAMP : 1];
   __shared__ float red_m[EPI == SERIES ? WARPS : 1][TILE];
   __shared__ float red_p[EPI == SERIES ? WARPS : 1][TILE];
@@ -1072,9 +1095,9 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
         } else {
           u = tf::uniform_range(ub, 0.0f, 1.0f);
         }
-        const float cc = fminf(fmaxf(cc_t, RN_CC_MIN), RN_CC_MAX);
+        const float cc = nclampf(cc_t, RN_CC_MIN, RN_CC_MAX);
         const float cap_m = RN_MAX_CYCLE * cc * ws_t;
-        const float xmax = fmaxf(cap_m, RN_XMAX_FLOOR);
+        const float xmax = nmaxf(cap_m, RN_XMAX_FLOOR);
         const float pa = powf(xmax, RN_ONE_M_BETA);
         const float pd = RN_XMIN_POW - pa;
         const float cloud = powf(pa + pd * u, RN_INV_ONE_M_BETA) / ws_t;
@@ -1105,18 +1128,18 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
       }
       float meter = a.meter_max_w * tf::uniform_range(mb, 0.0f, 1.0f);
       // K7: the heterogeneous columns' transforms
-      if (het_power) ac = fminf(ac * pv_scale, ac_limit);
+      if (het_power) ac = nminf(ac * pv_scale, ac_limit);
       if (het_demand) meter = fmaf(meter, dem_scale, dem_shift);
       if (EPI == ACC) {
         const float residual = meter - ac;
         const bool valid = S.t < a.duration_s;
         const float vz = valid ? 1.0f : 0.0f;
         pv_sum = pv_sum + ac * vz;
-        pv_max = fmaxf(pv_max, valid ? ac : -FLT_MAX);
+        pv_max = nmaxf(pv_max, valid ? ac : -FLT_MAX);
         meter_sum = meter_sum + meter * vz;
         residual_sum = residual_sum + residual * vz;
-        residual_min = fminf(residual_min, valid ? residual : FLT_MAX);
-        residual_max = fmaxf(residual_max, valid ? residual : -FLT_MAX);
+        residual_min = nminf(residual_min, valid ? residual : FLT_MAX);
+        residual_max = nmaxf(residual_max, valid ? residual : -FLT_MAX);
         n_seconds += valid ? 1 : 0;
         if constexpr (TEL) {  // K8: obs/telemetry.py fold_second
           tel[0].fold(meter, valid);
@@ -1125,8 +1148,8 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
           tel[3].fold(residual, valid);
           if (a.o.tel_full) {
             if (valid && isfinite(csi))
-              atomicAdd(&s_csi[(int)fminf(fmaxf(csi / 0.25f, 0.0f),
-                                          (float)(CSI_BINS - 1))],
+              atomicAdd(&s_csi[(int)nclampf(csi / 0.25f, 0.0f,
+                                            (float)(CSI_BINS - 1))],
                         1);
             occ += (valid && covered) ? 1 : 0;
           }
@@ -1282,7 +1305,7 @@ __global__ void __launch_bounds__(SUM_STRANDS* SUM_COLS)
 // row's transform
 //   meter_i = fmaf(meter, demand_scale, demand_shift_w)  (the JAX scan
 //             contracts it: tests/test_torch_serve.py),
-//   pv_i    = fminf(ac * (pv_scale * weather_bias), curtail_w),
+//   pv_i    = nminf(ac * (pv_scale * weather_bias), curtail_w),
 // masked by the site / cohort selectors, t < duration_s and t < horizon_s,
 // in second order into the seven statistics and a risk FleetAcc
 // (obs/analytics.py fold_second).
@@ -1433,7 +1456,7 @@ __global__ void __launch_bounds__(THREADS)
           const int t = __ldg(q.t + s);
           const int grid = s_grid[s];
           const float meter = fmaf(m0, ds, dsh);
-          const float pv = fminf(a0 * pvw, cap);
+          const float pv = nminf(a0 * pvw, cap);
           const float res = meter - pv;
           const bool valid = sel && t < q.duration_s && t < horizon;
           if (!valid) {
@@ -1442,13 +1465,13 @@ __global__ void __launch_bounds__(THREADS)
             // arithmetic as below with the mask 0, a masked sum still
             // adding x * 0 (NaN for a non-finite x, as the JAX fold's)
             e.pv_sum = e.pv_sum + pv * 0.0f;
-            e.pv_max = fmaxf(e.pv_max, -FLT_MAX);
+            e.pv_max = nmaxf(e.pv_max, -FLT_MAX);
             e.meter_sum = e.meter_sum + meter * 0.0f;
             e.residual_sum = e.residual_sum + res * 0.0f;
-            e.residual_min = fminf(e.residual_min, FLT_MAX);
-            e.residual_max = fmaxf(e.residual_max, -FLT_MAX);
-            e.mn = fminf(e.mn, FLT_MAX);
-            e.mx = fmaxf(e.mx, -FLT_MAX);
+            e.residual_min = nminf(e.residual_min, FLT_MAX);
+            e.residual_max = nmaxf(e.residual_max, -FLT_MAX);
+            e.mn = nminf(e.mn, FLT_MAX);
+            e.mx = nmaxf(e.mx, -FLT_MAX);
             e.lol_run = 0;
             e.lol_e += q.lolp_k == 0 ? 1 : 0;
             e.lol_s += q.lolp_k <= 0 ? 1 : 0;
@@ -1458,17 +1481,17 @@ __global__ void __launch_bounds__(THREADS)
             continue;
           }
           e.pv_sum = e.pv_sum + pv * 1.0f;
-          e.pv_max = fmaxf(e.pv_max, pv);
+          e.pv_max = nmaxf(e.pv_max, pv);
           e.meter_sum = e.meter_sum + meter * 1.0f;
           e.residual_sum = e.residual_sum + res * 1.0f;
-          e.residual_min = fminf(e.residual_min, res);
-          e.residual_max = fmaxf(e.residual_max, res);
+          e.residual_min = nminf(e.residual_min, res);
+          e.residual_max = nmaxf(e.residual_max, res);
           e.n_seconds += 1;
           const bool use = isfinite(res);
           if (use) {
             e.n_use += 1;
             float bf = (res - q.lo) * q.inv_w;
-            bf = fminf(fmaxf(bf, -1.0f), (float)q.bins);
+            bf = nclampf(bf, -1.0f, (float)q.bins);
             const int idx = (int)floorf(bf) + 1;
             if (q.hist_shared) atomicAdd(&s_dyn[idx], 1);
             else atomicAdd(&g_hist[idx], 1);
@@ -1484,8 +1507,8 @@ __global__ void __launch_bounds__(THREADS)
               else atomicAdd(&g_exc[slot], 1);
             }
           }
-          e.mn = fminf(e.mn, use ? res : FLT_MAX);
-          e.mx = fmaxf(e.mx, use ? res : -FLT_MAX);
+          e.mn = nminf(e.mn, use ? res : FLT_MAX);
+          e.mx = nmaxf(e.mx, use ? res : -FLT_MAX);
           e.lol_run = (use && res > q.capacity) ? e.lol_run + 1 : 0;
           e.lol_e += e.lol_run == q.lolp_k ? 1 : 0;
           e.lol_s += e.lol_run >= q.lolp_k ? 1 : 0;
@@ -1493,7 +1516,7 @@ __global__ void __launch_bounds__(THREADS)
           for (int k = 0; k < 3; ++k) {
             if (grid >> k & 1) {
               if (use && e.seen[k] > 0)
-                e.ramp[k] = fmaxf(e.ramp[k], fabsf(res - e.prev[k]));
+                e.ramp[k] = nmaxf(e.ramp[k], fabsf(res - e.prev[k]));
               if (use) e.prev[k] = res;
               e.seen[k] = use ? 1 : 0;
             }
@@ -1833,6 +1856,27 @@ extern "C" int device_geometry_fields(int64_t n, int T, const float* rows_f,
     const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
     geometry_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
         n, T, rows_f, lat, lon, alt, tilt, azi, alb, turb, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// the NaN-keeping helpers of nanminmax.cuh on their own (a test entry):
+// out (3, n) = nminf(a, b), nmaxf(a, b), nclampf(a, lo, hi)
+__global__ void nan_minmax_kernel(int64_t n, const float* a, const float* b,
+                                  float lo, float hi, float* out) {
+  const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  out[i] = nminf(a[i], b[i]);
+  out[n + i] = nmaxf(a[i], b[i]);
+  out[2 * n + i] = nclampf(a[i], lo, hi);
+}
+
+extern "C" int nan_minmax(int64_t n, const float* a, const float* b,
+                          float lo, float hi, float* out, void* stream) {
+  if (n > 0) {
+    const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
+    nan_minmax_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        n, a, b, lo, hi, out);
   }
   return (int)cudaGetLastError();
 }

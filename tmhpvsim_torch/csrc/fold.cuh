@@ -18,6 +18,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "nanminmax.cuh"
+
 #define THREADS 128
 #define WARPS (THREADS / 32)
 
@@ -68,8 +70,8 @@ struct TelField {
     const bool use = valid && isfinite(v);
     nan += (valid && v != v) ? 1 : 0;
     nf += (valid && !use) ? 1 : 0;
-    mn = fminf(mn, use ? v : FLT_MAX);
-    mx = fmaxf(mx, use ? v : -FLT_MAX);
+    mn = nminf(mn, use ? v : FLT_MAX);
+    mx = nmaxf(mx, use ? v : -FLT_MAX);
     const float v0 = use ? v : 0.0f;
     sum = sum + v0;
     // the JAX scan contracts sumsq + v0 * v0 into a multiply-add
@@ -101,7 +103,7 @@ __device__ __forceinline__ bool flt_second(FltChain& f, const Obs& o,
   if (use) {
     f.n_use += 1;
     float b = (r - o.lo) * o.inv_w;
-    b = fminf(fmaxf(b, -1.0f), (float)o.bins);
+    b = nclampf(b, -1.0f, (float)o.bins);
     const int idx = (int)floorf(b) + 1;
     atomicAdd(&hist[idx], 1);
     int slot = 0;
@@ -109,8 +111,8 @@ __device__ __forceinline__ bool flt_second(FltChain& f, const Obs& o,
     atomicAdd(&exc[slot], 1);
     if (coh_hist != nullptr) atomicAdd(&coh_hist[cohort * (o.bins + 2) + idx], 1);
   }
-  f.mn = fminf(f.mn, use ? r : FLT_MAX);
-  f.mx = fmaxf(f.mx, use ? r : -FLT_MAX);
+  f.mn = nminf(f.mn, use ? r : FLT_MAX);
+  f.mx = nmaxf(f.mx, use ? r : -FLT_MAX);
   f.lol_run = (use && r > o.capacity) ? f.lol_run + 1 : 0;
   f.lol_e += f.lol_run == o.lolp_k ? 1 : 0;
   f.lol_s += f.lol_run >= o.lolp_k ? 1 : 0;
@@ -119,7 +121,7 @@ __device__ __forceinline__ bool flt_second(FltChain& f, const Obs& o,
     const int w = o.ramp_w[k];
     if (w == 1 || (t + 1) % w == 0) {
       if (use && f.seen[k] > 0)
-        f.ramp[k] = fmaxf(f.ramp[k], fabsf(r - f.prev[k]));
+        f.ramp[k] = nmaxf(f.ramp[k], fabsf(r - f.prev[k]));
       if (use) f.prev[k] = r;
       f.seen[k] = use ? 1 : 0;
     }
@@ -273,8 +275,8 @@ __device__ __forceinline__ void cohort_partials(const FltChain& f,
       sm += s_cval[0][k];
       sp += s_cval[1][k];
       sr += s_cval[2][k];
-      mn = fminf(mn, s_cval[3][k]);
-      mx = fmaxf(mx, s_cval[4][k]);
+      mn = nminf(mn, s_cval[3][k]);
+      mx = nmaxf(mx, s_cval[4][k]);
     }
     double* row = o.coh_part + ((int64_t)blockIdx.x * C + c) * COH_LEAVES;
     row[0] = cnt;

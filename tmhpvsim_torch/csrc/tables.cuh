@@ -26,11 +26,10 @@
 #pragma once
 #include <cfloat>
 
+#include "nanminmax.cuh"
+
 namespace tbl {
 
-__device__ __forceinline__ float clampf(float x, float lo, float hi) {
-  return x != x ? x : fminf(fmaxf(x, lo), hi);
-}
 
 template <int N>
 __device__ __forceinline__ float horner(const float (&c)[N], float x) {
@@ -46,7 +45,7 @@ __device__ __forceinline__ float exp2i(float k) {
 }
 
 __device__ __forceinline__ float exp(float x) {
-  x = clampf(x, -87.0f, 88.0f);
+  x = nclampf(x, -87.0f, 88.0f);
   const float kf = rintf(x * TB_LOG2E);
   const float r = fmaf(-kf, TB_LN2_LO, fmaf(-kf, TB_LN2_HI, x));
   float p = horner(TB_EXP_P, r);
@@ -119,7 +118,7 @@ __device__ __forceinline__ float tan(float x) {
 }
 
 __device__ __forceinline__ float acos(float x) {
-  x = clampf(x, -1.0f, 1.0f);
+  x = nclampf(x, -1.0f, 1.0f);
   const float a = fabsf(x);
   const float v = sqrtf(1.0f - a) * horner(TB_ACOS_P, a);
   return x < 0.0f ? TB_PI - v : v;
@@ -129,8 +128,8 @@ __device__ __forceinline__ float asin(float x) { return TB_HALF_PI - acos(x); }
 
 __device__ __forceinline__ float atan2(float y, float x) {
   const float ax = fabsf(x), ay = fabsf(y);
-  const float mx = fmaxf(ax, ay), mn = fminf(ax, ay);
-  const float t = mn / fmaxf(mx, TB_ATAN_TINY);
+  const float mx = nmaxf(ax, ay), mn = nminf(ax, ay);
+  const float t = mn / nmaxf(mx, TB_ATAN_TINY);
   const bool big = t > TB_TAN_PI8;
   const float u = big ? (t - 1.0f) / (t + 1.0f) : t;
   const float z = u * u;

@@ -99,11 +99,11 @@ __global__ void __launch_bounds__(THREADS) wide_fold_kernel(const WideArgs a) {
       const bool valid = t < a.duration_s;
       const float vz = valid ? 1.0f : 0.0f;
       pv_sum = pv_sum + ac * vz;
-      pv_max = fmaxf(pv_max, valid ? ac : -FLT_MAX);
+      pv_max = nmaxf(pv_max, valid ? ac : -FLT_MAX);
       meter_sum = meter_sum + meter * vz;
       residual_sum = residual_sum + residual * vz;
-      residual_min = fminf(residual_min, valid ? residual : FLT_MAX);
-      residual_max = fmaxf(residual_max, valid ? residual : -FLT_MAX);
+      residual_min = nminf(residual_min, valid ? residual : FLT_MAX);
+      residual_max = nmaxf(residual_max, valid ? residual : -FLT_MAX);
       n_seconds += valid ? 1 : 0;
       if constexpr (TEL) {
         tel[0].fold(meter, valid);

@@ -402,7 +402,9 @@ def _rows(block_idx, mlo, tail):
 def _geometry(rows_f, surface_tilt, albedo, site: SiteGeometry | None,
               kernels: str = "exact"):
     """The ``power_from_csi`` geometry of a block: the shared rows as
-    ``(T, 1)`` columns, or every chain's device geometry ``(T, n)``; in
+    ``(T, 1)`` columns, or every chain's device geometry ``(T, n)`` (the
+    sun's site-independent half on the ``(T, 1)`` time rows, once per
+    second, as the kernel's ``sun_time``: ``solar.sun_time_terms``); in
     the strided mode the device geometry of the ``(S, n)`` sample grid,
     lerped to ``(T, n)`` as the JAX scan does (``interp_sampled``) with
     the second's own doy."""
@@ -1600,4 +1602,36 @@ def device_geometry_fields(rows_f, site: SiteGeometry,
     rc = fn(n, T, p(rows_f), *(p(site.site[k]) for k in SITE_FIELDS),
             p(site.turbidity), p(out), build.stream_ptr(dev))
     build.check(rc, "device_geometry_fields")
+    return out
+
+
+def nan_minmax_plain(a, b, lo: float, hi: float):
+    """Plain ``nan_minmax``: ``torch.minimum(a, b)``, ``torch.maximum(a,
+    b)`` and ``torch.clamp(a, lo, hi)`` stacked into ``(3, n)``: the
+    NaN-keeping operations the kernels' helpers stand for."""
+    return torch.stack([torch.minimum(a, b), torch.maximum(a, b),
+                        torch.clamp(a, lo, hi)])
+
+
+def nan_minmax(a, b, lo: float, hi: float):
+    """The kernels' NaN-keeping minimum, maximum and clamp
+    (csrc/nanminmax.cuh) on their own, a test entry: ``(3, n)`` float32
+    of ``(n,)`` float32 ``a`` and ``b``; on the CPU, the plain version."""
+    dev = a.device
+    if dev.type == "cpu":
+        return nan_minmax_plain(a, b, lo, hi)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    n = a.shape[0]
+    if a.dim() != 1 or b.shape != a.shape:
+        raise ValueError("nan_minmax: a and b must be (n,) alike")
+    _check(a, torch.float32, dev, "a")
+    _check(b, torch.float32, dev, "b")
+    out = torch.empty((3, n), dtype=torch.float32, device=dev)
+    fn = build.entry("block_step.cu", "nan_minmax",
+                     [ctypes.c_int64, _P, _P, ctypes.c_float,
+                      ctypes.c_float, _P])
+    p = build.ptr
+    rc = fn(n, p(a), p(b), lo, hi, p(out), build.stream_ptr(dev))
+    build.check(rc, "nan_minmax")
     return out

@@ -53,7 +53,7 @@ SOURCES = ("block_step.cu", "block_step_table.cu", "block_step_bf16.cu",
            "block_step_urbg_bf16_table.cu", "threefry.cu", "philox.cu",
            "windows.cu", "tables.cu", "wide_fold.cu")
 HEADERS = ("threefry.cuh", "philox.cuh", "block_step.cuh", "tables.cuh",
-           "fold.cuh", "bf16.cuh")
+           "fold.cuh", "bf16.cuh", "nanminmax.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")

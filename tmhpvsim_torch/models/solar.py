@@ -328,17 +328,15 @@ def _fmod_floor(x, m: float):
     return torch.where(r < 0, r + m, r)
 
 
-def sun_position_split(day2000, sec_of_day, latitude_deg, longitude_deg,
-                       kernels=None):
-    """PSA+ sun position from the float32-safe split time: ``day2000``
-    whole UT days since 2000-01-01, ``sec_of_day`` seconds within that UT
-    day.  Each ephemeris term multiplies its coefficient by the day and
-    the fraction separately, so the ~1.7e9 epoch never forms in float32.
-    Arguments are broadcastable float32 tensors.  Same return dict as
-    :func:`sun_position`."""
+def sun_time_terms(day2000, sec_of_day, kernels=None):
+    """The site-independent half of :func:`sun_position_split`: the PSA+
+    ephemeris of the split time up to the sun's right ascension ``ra``,
+    the cos / sin / tan of its declination (``cos_dec``, ``sin_dec``,
+    ``tan_dec``) and the sidereal angle ``gmst_ang`` (``gmst_h * 15 *
+    DEG``, without the site's longitude).  It reads the time only, so the
+    site mode evaluates it once per second (``(T, 1)`` tensors), as the
+    block-step kernel's ``sun_time`` does for every chain of a CTA."""
     k = kernels or EXACT
-    lat = latitude_deg * DEG
-    lon = longitude_deg * DEG
     frac = cdiv(sec_of_day, 86400.0) - 0.5  # days relative to 12:00 UT
     hour_ut = cdiv(sec_of_day, 3600.0)
 
@@ -363,19 +361,43 @@ def sun_position_split(day2000, sec_of_day, latitude_deg, longitude_deg,
     dec = k.arcsin(k.sin(obliquity) * sin_l)
     gmst_h = _fmod_floor(6.697096103e0 + 6.570984737e-2 * day2000, 24.0) \
         + 6.570984737e-2 * frac + hour_ut
-    lmst = gmst_h * 15.0 * DEG + lon
-    ha = lmst - ra
+    return {"ra": ra, "cos_dec": k.cos(dec), "sin_dec": k.sin(dec),
+            "tan_dec": k.tan(dec), "gmst_ang": gmst_h * 15.0 * DEG}
+
+
+def sun_site_position(sun, latitude_deg, longitude_deg, kernels=None):
+    """The per-site half of :func:`sun_position_split`: the hour angle,
+    zenith (with parallax) and azimuth of a site from the second's
+    :func:`sun_time_terms` ``sun``.  Same return dict as
+    :func:`sun_position`."""
+    k = kernels or EXACT
+    lat = latitude_deg * DEG
+    lon = longitude_deg * DEG
+    lmst = sun["gmst_ang"] + lon
+    ha = lmst - sun["ra"]
     cos_lat, sin_lat = k.cos(lat), k.sin(lat)
-    cos_dec, sin_dec = k.cos(dec), k.sin(dec)
     cos_ha = k.cos(ha)
-    cos_zen = torch.clamp(cos_lat * cos_ha * cos_dec + sin_dec * sin_lat,
-                          -1.0, 1.0)
+    cos_zen = torch.clamp(cos_lat * cos_ha * sun["cos_dec"]
+                          + sun["sin_dec"] * sin_lat, -1.0, 1.0)
     zenith = k.arccos(cos_zen)
     azimuth = _fmod_floor(k.arctan2(
-        -k.sin(ha), k.tan(dec) * cos_lat - sin_lat * cos_ha), TWO_PI)
+        -k.sin(ha), sun["tan_dec"] * cos_lat - sin_lat * cos_ha), TWO_PI)
     zenith = zenith + _PARALLAX * k.sin(zenith)
     return {"zenith": zenith, "azimuth": azimuth,
             "cos_zenith": k.cos(zenith)}
+
+
+def sun_position_split(day2000, sec_of_day, latitude_deg, longitude_deg,
+                       kernels=None):
+    """PSA+ sun position from the float32-safe split time: ``day2000``
+    whole UT days since 2000-01-01, ``sec_of_day`` seconds within that UT
+    day.  Each ephemeris term multiplies its coefficient by the day and
+    the fraction separately, so the ~1.7e9 epoch never forms in float32.
+    Arguments are broadcastable float32 tensors.  The composition of the
+    second's :func:`sun_time_terms` and the site's
+    :func:`sun_site_position`; same return dict as :func:`sun_position`."""
+    return sun_site_position(sun_time_terms(day2000, sec_of_day, kernels),
+                             latitude_deg, longitude_deg, kernels)
 
 
 def alt2pres_f32(altitude_m):
@@ -458,8 +480,8 @@ def device_geometry(day2000, sec_of_day, doy, latitude_deg, longitude_deg,
     ``albedo`` are the site tensors."""
     from tmhpvsim_torch.models.pv import extra_radiation_spencer
 
-    pos = sun_position_split(day2000, sec_of_day, latitude_deg,
-                             longitude_deg, kernels)
+    pos = sun_site_position(sun_time_terms(day2000, sec_of_day, kernels),
+                            latitude_deg, longitude_deg, kernels)
     pressure = alt2pres_f32(altitude_m)
     app_zen = np.pi / 2.0 - apparent_elevation_f32(pos["zenith"], pressure,
                                                    kernels=kernels)
