@@ -3,7 +3,8 @@ instantiations of one tree of the port on the card, to compare trees (a
 parent commit unpacked beside the change) in one call.
 
     python3 ab_kernels.py --root DIR [--rows 16] [--rounds 3]
-        [--kernels K3,K6,K6s,K7T,K89,K89L,K12F]
+        [--kernels K3,K6,K6s,K7T,K8,K12B,K12BL,K89,K89L,K12F,K4M89]
+        [--skip-scenario]
 
 ``--root`` is the directory that holds the ``tmhpvsim_torch`` package (and
 ``chip_smoke.py``) to time (default: this script's own).  Prints one JSON
@@ -14,7 +15,8 @@ line per measurement, ``{"tree": ..., "kernel": ..., ...}``:
   blocks), in turns, each ``--rounds`` times: per call (CUDA events around
   20 calls, ``chip_smoke.py``'s measure) and device time (a CUDA graph of
   20 launches, no host work between them);
-- where the tree has it, ``scenario_fold`` alone at ``--rows`` rows on
+- where the tree has it (and without ``--skip-scenario``),
+  ``scenario_fold`` alone at ``--rows`` rows on
   ``chip_smoke.py``'s K10 check block (65536 chains x 1080 s, the noon
   block, its ``k10_rows``, with the producer's flags), with the default
   seven exceedance thresholds and with the ten of ``MANY_THR``
@@ -32,10 +34,24 @@ line per measurement, ``{"tree": ..., "kernel": ..., ...}``:
   K6s  path B-L's (that grid, ``geom_stride=60``, the table set);
   K7T  path H0's (``FleetParams.synthetic(65536, seed=0)``, no
        observer: K7's transforms with site geometry);
+  K8   path H8's (that fleet, telemetry full alone: the acc launch's
+       telemetry instantiation);
+  K12B path B-H's (path B's grid under ``compute_dtype='bf16'``,
+       telemetry light);
+  K12BL path B-HL's (path B-H with ``geom_stride=60``, the table set);
   K89  path F's (that fleet, telemetry and analytics full: K7, K8 and
-       K9 in one launch);
+       K9; one fused launch on a tree before the observer fold, the acc
+       producer and the observer fold on a tree with it, both with the
+       collapses of ``block_step_obs``);
   K89L path F-L's (path F with ``geom_stride=60, kernel_impl='table'``);
   K12F path F-H's (path F under ``compute_dtype='bf16'``).
+
+  K4M89 path F-W's wide fold with both observers, on the K4 trace of
+       path F's noon block (the trace made once, the fold timed).
+
+  On a tree with the observer fold, K89, K89L and K12F also print the
+  producer and the fold on their own (``ms_producer``, ``ms_fold``: the
+  fold's launch without the collapses).
 
 Run it once per tree, alternating (parent, change, change, parent), so a
 slow card or a warm cache shows as a spread between a tree's runs.
@@ -46,6 +62,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import hashlib
+import inspect
 import json
 import os
 import sys
@@ -56,7 +73,8 @@ MANY_THR = range(-4000, 6000, 1000)
 HEADLINE = dict(start="2019-09-05 00:00:00", duration_s=86400,
                 n_chains=65536, seed=0, block_s=1080, output="reduce")
 NOON = 40
-KERNELS = ("K3", "K6", "K6s", "K7T", "K89", "K89L", "K12F")
+KERNELS = ("K3", "K6", "K6s", "K7T", "K8", "K12B", "K12BL", "K89", "K89L",
+           "K12F", "K4M89")
 
 
 def digest(tree) -> str:
@@ -89,14 +107,24 @@ def block_step_cases(names, dev):
     from tmhpvsim_torch.kernels import block_step as k3
 
     grid = SiteGrid.regular((47, 55), (6, 15), 256, 256)
+    from tmhpvsim_torch.kernels import wide
+
     fleet = FleetParams.synthetic(HEADLINE["n_chains"], seed=0) if any(
-        k in names for k in ("K7T", "K89", "K89L", "K12F")) else None
+        k in names for k in ("K7T", "K8", "K89", "K89L", "K12F", "K4M89")) \
+        else None
     configs = {
         "K3": (dict(HEADLINE), "path R's acc launch"),
         "K6": (dict(HEADLINE, site_grid=grid), "path B's acc launch"),
         "K6s": (dict(HEADLINE, site_grid=grid, geom_stride=60,
                      kernel_impl="table"), "path B-L's acc launch"),
         "K7T": (dict(HEADLINE, fleet=fleet), "path H0's launch"),
+        "K8": (dict(HEADLINE, fleet=fleet, telemetry="full"),
+               "path H8's launch"),
+        "K12B": (dict(HEADLINE, site_grid=grid, compute_dtype="bf16",
+                      telemetry="light"), "path B-H's launch"),
+        "K12BL": (dict(HEADLINE, site_grid=grid, compute_dtype="bf16",
+                       telemetry="light", geom_stride=60,
+                       kernel_impl="table"), "path B-HL's launch"),
         "K89": (dict(HEADLINE, fleet=fleet, telemetry="full",
                      analytics="full"), "path F's launch"),
         "K89L": (dict(HEADLINE, fleet=fleet, telemetry="full",
@@ -105,6 +133,9 @@ def block_step_cases(names, dev):
         "K12F": (dict(HEADLINE, fleet=fleet, telemetry="full",
                       analytics="full", compute_dtype="bf16"),
                  "path F-H's launch"),
+        "K4M89": (dict(HEADLINE, fleet=fleet, telemetry="full",
+                       analytics="full", block_impl="wide"),
+                  "path F-W's wide fold with both observers"),
     }
     out = {}
     for name in names:
@@ -121,17 +152,51 @@ def block_step_cases(names, dev):
                     kernels=sim.plan.kernel_impl,
                     compute_dtype=sim.plan.compute_dtype)
         obs = sim.observers(state)
+        if name == "K4M89":
+            _, meter, pv = k3.block_step_trace(
+                *head, {k: v.clone() for k, v in state["carry"].items()},
+                tail[1], tilt, alb, **opts)
+
+            def fold(sim=sim, meter=meter, pv=pv, ins=ins, tail=tail,
+                     obs=obs):
+                return wide.wide_fold(meter, pv, ins.rows_i[0], tail[0],
+                                      sim.init_reduce_acc(), obs)
+
+            out[name] = (fold, what, None)
+            continue
+
+        # a tree whose producer arrays the caller holds keeps one set, as
+        # the engine does
+        keep = {"held": {}} if "held" in inspect.signature(
+            k3.block_step_obs).parameters else {}
 
         def launch(sim=sim, state=state, head=head, tail=tail, opts=opts,
-                   obs=obs):
+                   obs=obs, keep=keep):
             carry = {k: v.clone() for k, v in state["carry"].items()}
             acc = sim.init_reduce_acc()
             if obs is None:
                 return k3.block_step_acc(*head, carry, acc, *tail, **opts)
             return k3.block_step_obs(*head, carry, acc, *tail, obs=obs,
-                                     **opts)
+                                     **opts, **keep)
 
-        out[name] = (launch, what)
+        parts = None
+        if obs is not None and obs.analytics != "off" and \
+                hasattr(k3, "_obs_fold_launch"):
+            held = {}
+
+            def producer(sim=sim, state=state, head=head, tail=tail,
+                         opts=opts, obs=obs, held=held, keep=keep):
+                carry = {k: v.clone() for k, v in state["carry"].items()}
+                held["p"] = k3._obs_producer_cuda(
+                    *head, carry, sim.init_reduce_acc(), *tail, obs=obs,
+                    **opts, **keep)[2]
+
+            def fold(head=head, tail=tail, obs=obs, held=held):
+                return k3._obs_fold_launch(held["p"], head[1][0], tail[0],
+                                           obs)
+
+            parts = (producer, fold)
+        out[name] = (launch, what, parts)
     return out
 
 
@@ -142,6 +207,7 @@ def main(argv=None) -> int:
     ap.add_argument("--rows", type=int, default=16)
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--kernels", default=",".join(KERNELS))
+    ap.add_argument("--skip-scenario", action="store_true")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -204,13 +270,19 @@ def main(argv=None) -> int:
              device_ms=device)
 
     names = [k for k in args.kernels.split(",") if k]
-    for name, (launch, what) in block_step_cases(names, dev).items():
+    for name, (launch, what, parts) in block_step_cases(names, dev).items():
         sums = digest(launch())
         torch.cuda.synchronize()
         ms = [per_call_ms(launch, reps=5) for _ in range(args.rounds)]
-        emit(kernel=name, launch=what, ms_per_call=ms, digest=sums)
+        extra = {}
+        if parts is not None:
+            extra = {"ms_producer": [per_call_ms(parts[0], reps=5)
+                                     for _ in range(args.rounds)],
+                     "ms_fold": [per_call_ms(parts[1], reps=5)
+                                 for _ in range(args.rounds)]}
+        emit(kernel=name, launch=what, ms_per_call=ms, digest=sums, **extra)
 
-    if not hasattr(k3, "scenario_fold"):
+    if args.skip_scenario or not hasattr(k3, "scenario_fold"):
         return 0
     import chip_smoke as cs
     from tmhpvsim_torch import SimConfig

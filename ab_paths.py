@@ -19,7 +19,10 @@ of ``chip_smoke.py``'s paths of the same names):
 - B: path R's shape over the 256 x 256 site grid of ``--site-grid
   47:55:256,6:15:256`` (the per-chain geometry);
 - B-L: path B with ``geom_stride=60, kernel_impl='table'``;
-- F-H: path F with ``compute_dtype='bf16'`` and a strict sentinel.
+- F-H: path F with ``compute_dtype='bf16'`` and a strict sentinel;
+- F-L: path F with ``geom_stride=60, kernel_impl='table'``;
+- F-W: path F with ``block_impl='wide'`` (the trace, then the wide fold
+  with both observers).
 """
 
 from __future__ import annotations
@@ -60,7 +63,7 @@ def main(argv=None) -> int:
 
     def config(name):
         nonlocal fleet
-        if name in ("F", "H8", "F-H") and fleet is None:
+        if name in ("F", "H8", "F-H", "F-L", "F-W") and fleet is None:
             fleet = FleetParams.synthetic(HEADLINE["n_chains"], seed=0)
         return {
             "R": lambda: dict(HEADLINE),
@@ -77,6 +80,11 @@ def main(argv=None) -> int:
             "F-H": lambda: dict(HEADLINE, fleet=fleet, telemetry="full",
                                 analytics="full", compute_dtype="bf16",
                                 telemetry_strict=True),
+            "F-L": lambda: dict(HEADLINE, fleet=fleet, telemetry="full",
+                                analytics="full", geom_stride=60,
+                                kernel_impl="table"),
+            "F-W": lambda: dict(HEADLINE, fleet=fleet, telemetry="full",
+                                analytics="full", block_impl="wide"),
         }[name]()
 
     for name in args.paths.split(","):

@@ -27,13 +27,22 @@ Phases (any failure exits non-zero and prints no result line):
    transforms through acc, trace and series), K8 (telemetry full), K9
    (analytics full, with 3 cohorts in shared memory, with 64 through
    global atomics, and with 30000 bins, where the residual histogram and
-   the exceedance slots count through global atomics too) and K8+K9
-   (both at level full with the fleet's cohorts, the instantiation path F
-   launches): per-chain leaves, counts, histograms and extrema bit for
+   the exceedance slots count through global atomics too; with ten
+   exceedance thresholds, past the eight that count in registers, with
+   telemetry full and shared histograms and at 30000 bins, each past the
+   first on the second block; K9 is two launches, the acc producer and
+   the observer fold) and K8+K9 (both at
+   level full with the fleet's cohorts, path F's two launches) on path
+   F's night and noon blocks: the acc producer against its plain version
+   (statistics, carry, meter, csi and covered flags bit for bit, pv bit
+   for bit or to the engine tolerance) and the acc kernel's statistics,
+   the observer fold on the producer's own arrays against its plain
+   version (per-chain leaves, counts, histograms and extrema bit for
    bit, sums over chains within 1e-6 of the float64 plain sums, a rerun
-   bit-identical; then the collapse on K8+K9's own per-CTA partial rows,
-   bit for bit against an index-order float64 fold on the host and within
-   1e-12 (of the rows' absolute sum) of its plain version; then K10 (the
+   bit-identical), the path's entry equal to the two launches; then the
+   collapse on the fold's own per-group partial rows, bit for bit
+   against an index-order float64 fold on the host and within 1e-12 (of
+   the rows' absolute sum) of its plain version; then K10 (the
    scenario producer and fold) on the main path's noon block, 65536
    chains x 1080 s x 16 scenario rows (neutral, padding, a horizon ending
    mid-block, demand scale / shift, DC scale x weather bias, a binding
@@ -56,13 +65,15 @@ Phases (any failure exits non-zero and prints no result line):
    table set (statistics and the renewal carry bit-identical, a rerun
    bit-identical), and with both levers on 2 blocks of path F's fleet:
    the trace (every value bit-identical), K10 at 16 rows, and K8+K9
-   (path F-L's launch, checked as K8+K9 above); and the port with both
+   (path F-L's producer and the fold, checked as K8+K9 above); and the port with both
    levers at the JAX suite's ``small_config`` shape (shared site, a
    4-site grid, a 12-site fleet) bit-identical to the host's plain run;
    then the K4 merges on the K4 trace of 2 daylight blocks x 65536
    chains: the wide fold (acc only; acc with telemetry; acc with
    telemetry and analytics on path F's fleet with its 3 cohorts; analytics
-   with 64 cohorts and with 30000 bins, the global-memory branches)
+   with 64 cohorts and with 30000 bins, the global-memory branches, and
+   with ten exceedance thresholds in shared and in global memory, each
+   past F-W's launch on the second block)
    against its plain version (statistics, per-chain leaves, counts,
    histograms and extrema bit for bit, observer sums within 1e-6 of the
    float64 plain sums, a rerun bit-identical) and against K3's acc on the
@@ -74,7 +85,8 @@ Phases (any failure exits non-zero and prints no result line):
    shared site, on path B's grid and, strided with the table set, on path
    B's grid; the series (sums rtol 1e-6) and the trace on a shared site,
    the trace on path B's grid;
-   K8 + K9 on path F's fleet (path F-H's launch, checked as K8+K9 above);
+   K8 + K9 on path F's fleet (path F-H's producer and the fold, checked
+   as K8+K9 above);
    a difference prints its size in bf16 ULP and the bf16 step it starts
    at, and fails; then K13 (``prng_impl='rbg'``, Philox4x32-10): the bits
    launch on 2**26 words from a key whose 128-bit counter carries,
@@ -84,7 +96,8 @@ Phases (any failure exits non-zero and prints no result line):
    chains (acc in the scan, scan2 and trace layouts, series, trace, the
    site grid, bf16 acc with telemetry light; the strided table set in
    float32 and bf16; path F's fleet: its regime windows and K8+K9 at
-   level full; the scenario epilogue at 16 rows); then K14
+   level full, the rbg producer and the fold checked as K8+K9 above; the
+   scenario epilogue at 16 rows); then K14
    (``prng_impl='unsafe_rbg'``: Philox key derivations, batched as jax's
    vmap batches them) bit for bit: K14 in K1 (init_state's unbatched and
    batched splits at 65536 chains, per-key splits, batched and scalar
@@ -99,8 +112,9 @@ Phases (any failure exits non-zero and prints no result line):
    signed zeros (``phase_nan``), each result NaN where its plain version
    has one and every zero of the plain version's sign: the NaN-keeping
    minimum, maximum and clamp on their own, K3 with fleet leaves that
-   carry NaNs and signed zeros in float32 and bf16 (K12), K8 + K9 on path
-   F's fleet with such leaves, the scenario fold with NaN and signed-zero
+   carry NaNs and signed zeros in float32 and bf16 (K12), K8 + K9 (the
+   producer and the fold) on path F's fleet with such leaves, the
+   scenario fold with NaN and signed-zero
    knobs, and the wide fold with both observers on a trace with NaN and
    signed-zero values;
 5. the paths, every launch counter set to 0 just before each and read
@@ -117,7 +131,8 @@ Phases (any failure exits non-zero and prints no result line):
       "2019-09-05 00:00:00"`` (1 chain, trace), 86400 rows plus a header;
    F. the fleet: ``run_reduced`` of ``FleetParams.synthetic(65536,
       seed=0)`` x 86400 s in 1080 s blocks with telemetry and analytics
-      at level full (the main path of this slice);
+      at level full (each block the acc producer, the observer fold and
+      the collapses);
    G. the fleet CLI: ``pvsim OUT.csv --output reduce --fleet-synth 4096
       --analytics risk --duration 3600 --no-realtime --start "2019-09-05
       11:00:00" --run-report R.json`` (reduce mode needs --no-realtime);
@@ -185,12 +200,16 @@ Phases (any failure exits non-zero and prints no result line):
    instantiations that the bf16 paths launch on their noon blocks; K13's
    bits and the rbg windows and step that path R-P launches, with
    ``torch.rand`` beside the bits as a yardstick; K14's derivations, the
-   unsafe_rbg windows and step that path R-U launches); every timed
+   unsafe_rbg windows and step that path R-U launches; the acc producer
+   and the observer fold of paths F, F-L and F-H each on its own, the
+   fold's bound its 13 bytes a chain-second); every timed
    kernel's issue bound beside its bound (``bound``'s third value:
    int32 and float32 instructions on one issue rate); the site geometry
    modes' launches (K6, K7 with site geometry, K8 + K9, K6s, K12 site and
    fleet) beside their issue bounds (``print_geometry_timing``;
-   ab_kernels.py times them against the parent tree in one call);
+   ab_kernels.py times them against the parent tree in one call); every
+   block-step row's registers, CTAs per SM and waves at 65536 chains
+   (``add_shapes``; the observer fold's with its chain groups per CTA);
 7. the port on the card at the JAX suite's ``small_config`` shape against
    the JAX package's results in ``tests/data/torch_port_reference.json``:
    reduce statistics, every per-second ensemble mean, chain 0's trace
@@ -342,6 +361,9 @@ K9_LOLP_K = 5
 K9_MANY_COHORTS = 64
 #: past ~24500 bins the residual histogram leaves shared memory
 K9_WIDE_BINS = 30000
+#: ten ascending exceedance thresholds [W]: past MAX_THR (8) the observer
+#: and wide folds count the exceedance with atomics, not in registers
+K9_MANY_THR = tuple(float(x) for x in range(-4000, 6000, 1000))
 PATH_H_BLOCKS = 3
 #: K10's check: the main path's noon block, one bucket of 16 rows
 K10_BLOCK = 40
@@ -1166,18 +1188,27 @@ def phase_k9(dev):
                                  lolp_k=K9_LOLP_K)
     many = torch.arange(n, device=dev, dtype=torch.int32) % K9_MANY_COHORTS
     wide = dataclasses.replace(params, bins=K9_WIDE_BINS)
+    many_thr = dataclasses.replace(params, thresholds=K9_MANY_THR)
+    wide_thr = dataclasses.replace(wide, thresholds=K9_MANY_THR)
     own = state["fleet"]["cohort"], sim._n_cohorts
+    nt = len(K9_MANY_THR)
     runs = (("3 cohorts, shared-memory histograms", *own, params,
-             (True, True)),
+             (True, True), "off"),
             (f"{K9_MANY_COHORTS} cohorts, global-atomics cohort histogram",
-             many, K9_MANY_COHORTS, params, (True, False)),
+             many, K9_MANY_COHORTS, params, (True, False), "off"),
             (f"{K9_WIDE_BINS} bins, global-atomics residual, exceedance "
-             "and cohort histograms", *own, wide, (False, False)))
+             "and cohort histograms", *own, wide, (False, False), "off"),
+            (f"{nt} thresholds (exceedance by shared atomics) with "
+             "telemetry full", *own, many_thr, (True, True), "full"),
+            (f"{K9_WIDE_BINS} bins and {nt} thresholds (exceedance by "
+             "global atomics)", *own, wide_thr, (False, False), "off"))
+    if nt <= k3.MAX_THR:
+        fail(f"K9: {nt} thresholds would count in registers")
     rel = err = 0.0
     report = []
-    for label, cohort, C, prm, paths in runs:
-        obs = k3.Observers(analytics="full", params=prm, cohort=cohort,
-                           n_cohorts=C, per_chain=True)
+    for j, (label, cohort, C, prm, paths, tel_level) in enumerate(runs):
+        obs = k3.Observers(telemetry=tel_level, analytics="full", params=prm,
+                           cohort=cohort, n_cohorts=C, per_chain=True)
         hist_bytes = 4 * (prm.bins + len(prm.thresholds) + 3)
         coh_bytes = 4 * C * (prm.bins + 2)
         if (hist_bytes <= k3.SMEM_MAX,
@@ -1186,7 +1217,8 @@ def phase_k9(dev):
         sums = [(f"{k}_{f}", f"{k}_{f}") for f in ("meter", "pv", "residual")
                 for k in ("sum", "cov_sum", "cohort_sum")]
         events = 0
-        for ins, tables in blocks:
+        # the first run on both blocks, the other branches on the second
+        for ins, tables in (blocks if j == 0 else blocks[-1:]):
             head = head_of(state, ins, tables)
             common = (cfg.duration_s, mw, None, None)
             _, _, out_k = k3.block_step_obs(
@@ -1203,6 +1235,10 @@ def phase_k9(dev):
                 fail(f"K9 ({label}): a second run is not bit-identical")
             nl = check_chain(f"K9 ({label})", out_k["fleet_chain"],
                              out_p["fleet_chain"])
+            if tel_level != "off":
+                nl += check_chain(f"K9 ({label}) telemetry",
+                                  out_k["telemetry_chain"],
+                                  out_p["telemetry_chain"])
             p64 = _plain_sums(out_p["fleet_chain"], sums, cohort, C)
             r, e = check_sketch(f"K9 ({label})", out_k["fleet"],
                                 out_p["fleet"], p64)
@@ -1212,14 +1248,19 @@ def phase_k9(dev):
             for leaf in ("res_hist", "exceed", "cohort_count", "cohort_hist"):
                 if int(d[leaf].sum()) != total:
                     fail(f"K9 ({label}): {leaf} does not hold every sample")
+            if len(prm.thresholds) > k3.MAX_THR and \
+                    int((d["exceed"] > 0).sum()) < 3:
+                fail(f"K9 ({label}): the samples fill fewer than 3 "
+                     "exceedance slots")
             events += int(d["lol_events"])
         if events == 0:
             fail(f"K9 ({label}): the check blocks saw no loss-of-load run")
         report.append(f"{label}: {nl} per-chain leaves, every count, "
                       f"histogram and extremum bit-identical, {events} LOLP "
                       "events")
-    print(f"K9 vs plain on 2 blocks x {n} fleet sites (site geometry, level "
-          f"full, capacity {K9_CAPACITY} W, lolp_k {K9_LOLP_K}): "
+    print(f"K9 vs plain on 2 blocks x {n} fleet sites (the runs past the "
+          f"first on the second; site geometry, level full, capacity "
+          f"{K9_CAPACITY} W, lolp_k {K9_LOLP_K}): "
           + "; ".join(report) + f"; float sums within {rel:.3g} "
           f"(relative; {err:.3g} absolute) of the float64 plain sums; "
           "reruns bit-identical")
@@ -1262,17 +1303,30 @@ def check_collapse(partials, n_cohorts):
     return err, rel
 
 
+#: the observer checks' blocks of path F's day: the night block (00:00)
+#: and the noon block (12:00), 1080 s each
+OBS_BLOCKS = (("night", 0), ("noon", 40))
+
+
 def phase_k89(dev, levers=None, label="K8+K9", path=None):
-    """K8 and K9 in one launch, the instantiation path F runs: both
-    observers at level full with the fleet's own cohorts, on path F's
-    config and two check blocks; then the collapse on its partial rows.
-    ``levers``: the precision levers or the compute dtype (path F-L's and
-    F-H's launches), ``path``: the path named."""
+    """K8 and K9 on path F's config (both observers at level full with the
+    fleet's own cohorts), on its night and noon blocks: the acc producer
+    (``obs_producer``) against its plain version (statistics, carry,
+    meter, csi and covered bit for bit, pv bit for bit or to the engine
+    tolerance) and the acc kernel's statistics; the observer fold
+    (``obs_fold``) on the producer's own arrays against its plain version
+    (per-chain leaves, counts, extrema and histograms bit for bit, sums
+    within 1e-6 of the float64 plain sums, a rerun bit-identical); the
+    path's entry (``block_step_obs``: both launches) equal to the two on
+    their own; then the collapse on the fold's partial rows.  ``levers``:
+    the precision levers, the compute dtype or the key implementation
+    (paths F-L's, F-H's, R-P's and R-U's instantiations), ``path``: the
+    path named."""
     fp = fleet_f()
-    cfg = SimConfig(**dict(HEADLINE, start=CHECK_START, fleet=fp,
-                           telemetry="full", analytics="full",
-                           **(levers or {})))
-    sim, state, blocks = fleet_blocks(cfg, dev)
+    cfg = SimConfig(**dict(HEADLINE, fleet=fp, telemetry="full",
+                           analytics="full", **(levers or {})))
+    sim = Simulation(cfg, device=dev)
+    state = sim.init_state()
     ks, cd = sim.plan.kernel_impl, sim.plan.compute_dtype
     impl = sim.plan.prng_impl
     _, _, site = sim.geometry_args(state)
@@ -1285,58 +1339,100 @@ def phase_k89(dev, levers=None, label="K8+K9", path=None):
     flt_sums = [(f"{k}_{f}", f"{k}_{f}") for f in ("meter", "pv",
                                                   "residual")
                 for k in ("sum", "cov_sum", "cohort_sum")]
-    rel = err = c_err = c_rel = 0.0
-    n_leaves = 0
-    for ins, tables in blocks:
+    rel = err = c_err = c_rel = pv_err = 0.0
+    n_leaves = pv_same = pv_all = 0
+    dur, mw = cfg.duration_s, cfg.meter_max_w
+    for bname, bi in OBS_BLOCKS:
+        ins = sim.host_inputs(bi)
+        tables, _ = sim._windows(state, ins)
         head = head_of(state, ins, tables)
-        common = (cfg.duration_s, cfg.meter_max_w, None, None)
-        args = dict(site=site, fleet=fleet, obs=obs, kernels=ks,
-                    compute_dtype=cd, impl=impl)
-        _, acc_k, out_k = k3.block_step_obs(
-            *head, clone(state["carry"]), sim.init_reduce_acc(), *common,
-            **args)
-        _, _, out_2 = k3.block_step_obs(
-            *head, clone(state["carry"]), sim.init_reduce_acc(), *common,
-            **args)
-        _, acc_a = k3.block_step_acc(
-            *head, clone(state["carry"]), sim.init_reduce_acc(), *common,
-            site=site, fleet=fleet, kernels=ks, compute_dtype=cd, impl=impl)
-        _, _, out_p = k3.block_step_obs_plain(
-            *head, clone(state["carry"]), sim.init_reduce_acc(), *common,
-            **args)
+        t = ins.rows_i[0]
+        kw = dict(site=site, fleet=fleet, kernels=ks, compute_dtype=cd,
+                  impl=impl)
+        what = f"{label} ({bname} block)"
+        ck, ak, pk = k3.obs_producer(*head, clone(state["carry"]),
+                                     sim.init_reduce_acc(), dur, mw, None,
+                                     None, obs=obs, **kw)
+        cp, ap, pp = k3.obs_producer_plain(*head, clone(state["carry"]),
+                                           sim.init_reduce_acc(), dur, mw,
+                                           None, None, **kw)
+        _, aa = k3.block_step_acc(*head, clone(state["carry"]),
+                                  sim.init_reduce_acc(), dur, mw, None, None,
+                                  **kw)
+        torch.cuda.synchronize()
+        for name in ck:
+            if not torch.equal(ck[name], cp[name]):
+                fail(f"{what}: the producer's carry {name} differs from "
+                     "the plain version")
+        for name in ak:
+            if not torch.equal(ak[name], aa[name]):
+                fail(f"{what}: the producer's {name} differs from the acc "
+                     "kernel's")
+            if not close(ak[name], ap[name]):
+                fail(f"{what}: the producer's {name} differs from the "
+                     f"plain version: max abs {max_abs(ak[name], ap[name])}")
+        if not torch.equal(pk["meter"], pp["meter"]):
+            fail(f"{what}: the producer's meter differs from the plain "
+                 "version")
+        if not torch.equal(pk["csi"], pp["csi"]):
+            fail(f"{what}: the producer's csi differs from the plain "
+                 "version")
+        if not torch.equal(pk["covered"], pp["covered"].to(torch.uint8)):
+            fail(f"{what}: the producer's covered flags differ from the "
+                 "plain version")
+        if not close(pk["pv"], pp["pv"]):
+            fail(f"{what}: the producer's pv differs from the plain "
+                 f"version: max abs {max_abs(pk['pv'], pp['pv'])}")
+        pv_same += int((pk["pv"] == pp["pv"]).sum())
+        pv_all += pk["pv"].numel()
+        pv_err = max(pv_err, max_abs(pk["pv"], pp["pv"]))
+        # the fold, on the producer's own arrays
+        out_k = k3.obs_fold(pk, t, dur, obs)
+        out_2 = k3.obs_fold(pk, t, dur, obs)
+        out_p = k3.obs_fold_plain(dict(pk, covered=pk["covered"].bool()),
+                                  t, dur, obs)
+        _, ae, out_e = k3.block_step_obs(*head, clone(state["carry"]),
+                                         sim.init_reduce_acc(), dur, mw,
+                                         None, None, obs=obs, **kw)
         torch.cuda.synchronize()
         if not same_out(out_k, out_2):
-            fail(f"{label}: a second run on the same inputs is not "
+            fail(f"{what}: a second fold of the same arrays is not "
                  "bit-identical")
-        if not all(torch.equal(acc_k[k], acc_a[k]) for k in acc_k):
-            fail(f"{label}: the statistics differ from the acc kernel's")
-        n_leaves = check_chain(label, out_k["telemetry_chain"],
+        if not same_out(out_e, out_k) or \
+                not all(torch.equal(ae[k], ak[k]) for k in ak):
+            fail(f"{what}: block_step_obs differs from the producer and "
+                 "the fold on their own")
+        n_leaves = check_chain(what, out_k["telemetry_chain"],
                                out_p["telemetry_chain"]) + \
-            check_chain(label, out_k["fleet_chain"], out_p["fleet_chain"])
+            check_chain(what, out_k["fleet_chain"], out_p["fleet_chain"])
         for d, sums in (("telemetry", tel_sums), ("fleet", flt_sums)):
             p64 = _plain_sums(out_p[f"{d}_chain"], sums, obs.cohort, C)
-            r, e = check_sketch(f"{label} {d}", out_k[d], out_p[d], p64)
+            r, e = check_sketch(f"{what} {d}", out_k[d], out_p[d], p64)
             rel, err = max(rel, r), max(err, e)
         total = int(out_k["fleet"]["count"])
         if int(out_k["telemetry"]["csi_hist"].sum()) != total or total != \
-                int((ins.rows_i[0] < cfg.duration_s).sum()) * cfg.n_chains:
-            fail(f"{label}: the csi histogram or the sketch misses samples")
+                int((t < dur).sum()) * cfg.n_chains:
+            fail(f"{what}: the csi histogram or the sketch misses samples")
         for leaf in ("res_hist", "exceed", "cohort_count", "cohort_hist"):
             if int(out_k["fleet"][leaf].sum()) != total:
-                fail(f"{label}: {leaf} does not hold every sample")
+                fail(f"{what}: {leaf} does not hold every sample")
         e, r = check_collapse(out_k["partials"], C)
         c_err, c_rel = max(c_err, e), max(c_rel, r)
-    print(f"{label} vs plain on 2 blocks x {cfg.n_chains} fleet sites "
-          f"({site.mode} geometry, {ks} set, {cd}, both level full, {C} "
-          f"cohorts: path {path or ('F-L' if levers else 'F')}'s launch): "
-          f"{n_leaves} per-chain leaves, counts, extrema and histograms "
-          f"bit-identical; float sums within {rel:.3g} (relative; "
-          f"{err:.3g} absolute) of the float64 plain sums; a rerun "
-          "bit-identical; the statistics equal the acc kernel's")
-    print(f"collapse on {label}'s per-CTA rows ({', '.join(out_k['partials'])}"
-          f"; 2 blocks): bit-identical to the host's index-order float64 "
-          f"fold; max abs {c_err:.3g} (relative {c_rel:.3g}) from "
-          "collapse_plain")
+    mode = "site" if site.stride <= 1 else "strided"
+    print(f"{label} vs plain on path {path or ('F-L' if levers else 'F')}'s "
+          f"night and noon blocks x {cfg.n_chains} fleet sites ({mode} "
+          f"geometry, {ks} set, {cd}, {impl}, both level full, {C} "
+          "cohorts): the producer's statistics (the acc kernel's), carry, "
+          f"meter, csi and covered flags bit-identical, pv {pv_same}/"
+          f"{pv_all} bit-identical (max abs {pv_err:.3g}); the fold on its "
+          f"arrays: {n_leaves} per-chain leaves, counts, extrema and "
+          f"histograms bit-identical, float sums within {rel:.3g} "
+          f"(relative; {err:.3g} absolute) of the float64 plain sums, a "
+          "rerun bit-identical; block_step_obs equal to the two launches")
+    print(f"collapse on {label}'s per-group rows "
+          f"({', '.join(out_k['partials'])}; 2 blocks): bit-identical to the "
+          f"host's index-order float64 fold; max abs {c_err:.3g} (relative "
+          f"{c_rel:.3g}) from collapse_plain")
     return (rel, err), (c_rel, c_err)
 
 
@@ -1552,8 +1648,8 @@ def phase_path_f(dev):
     # the wall ends with the run total on the host, as a user reads it
     (reduced, summary), wall, launches = run_path(
         "F", ("threefry_fill", "sampler_windows", "sampler_windows_regime",
-              "block_step_site", "block_step_fleet",
-              "block_step_tel_analytics", "chainwise_collapse"),
+              "block_step_prod_site", "block_step_fleet",
+              "block_step_tel_analytics", "obs_fold", "chainwise_collapse"),
         lambda: (sim.run_reduced(), sim.fleet_summary()))
     n = sim.config.n_chains
     pv_max = check_reduced("F", reduced, cfg.duration_s)
@@ -1601,8 +1697,8 @@ def phase_path_g():
     rep = os.path.join(build.BUILD_DIR, "path_g_report.json")
     try:
         rc, wall, launches = run_path(
-            "G", ("sampler_windows_regime", "block_step_site",
-                  "block_step_fleet", "block_step_analytics",
+            "G", ("sampler_windows_regime", "block_step_prod_site",
+                  "block_step_fleet", "block_step_analytics", "obs_fold",
                   "chainwise_collapse"),
             lambda: cli(["pvsim", out] + PATH_G_ARGS + ["--run-report", rep]))
         if rc != 0:
@@ -1641,7 +1737,9 @@ def phase_path_h(dev):
     runs = (("H0", {}, ("sampler_windows_regime", "block_step_site",
                         "block_step_fleet")),
             ("H8", dict(telemetry="full"), ("block_step_tel",)),
-            ("H9", dict(analytics="full"), ("block_step_analytics",
+            ("H9", dict(analytics="full"), ("block_step_prod_site",
+                                            "block_step_analytics",
+                                            "obs_fold",
                                             "chainwise_collapse")))
     out, first, walls = {}, None, []
     for name, obs, need in runs:
@@ -1855,9 +1953,54 @@ def phase_timing_k5(dev):
     print(f"K5 (init_state) vs its plain composition at {n} chains: every "
           f"key and primer bit-identical; launches {launches}")
     print(f"timing K5: init_state {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {bms:.4f} ms ({by})")
+          f"bound {bms:.4f} ms ({by}), issue bound {ibms:.4f} ms")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "issue_bound_ms": ibms, "launches": launches}
+
+
+#: the observer fold's bytes per chain-second: float32 meter, pv and csi,
+#: uint8 covered flags (both observers, telemetry full)
+OBS_FOLD_BYTES = 13
+
+
+def obs_parts_ms(args, kw, obs):
+    """The acc producer and the observer fold of one block, each timed on
+    its own (CUDA events; the producer into the engine's reused buffers,
+    the fold without its collapses), and their plain versions: ``(producer
+    ms, fold ms, plain producer ms, plain fold ms)``."""
+    held, bufs = {}, {}
+
+    def producer():
+        held["p"] = k3._obs_producer_cuda(*args, obs=obs, **kw,
+                                          held=bufs)[2]
+
+    ms_p = time_ms(producer)
+    t, dur = args[1][0], args[7]
+    ms_f = time_ms(lambda: k3._obs_fold_launch(held["p"], t, dur, obs))
+    prod = dict(held["p"])
+    if "covered" in prod:
+        prod["covered"] = prod["covered"].bool()
+    plain_p = time_ms(lambda: k3.obs_producer_plain(*args, **kw), reps=1)
+    plain_f = time_ms(lambda: k3.obs_fold_plain(prod, t, dur, obs), reps=1)
+    return ms_p, ms_f, plain_p, plain_f
+
+
+def obs_fold_bound(n, T, obs):
+    """The observer fold's bound: its inputs read once (13 bytes a
+    chain-second with both observers at full) and its partial rows and
+    histograms written once; operations: the fused epilogue's per-sample
+    folds."""
+    n_ctas = (n + k3.THREADS - 1) // k3.THREADS
+    tel_on = obs.telemetry != "off"
+    per_s = 8 + 4 * tel_on + int(obs.telemetry == "full"
+                                 or obs.analytics == "full")
+    nb = obs.params.bins + 2
+    C = obs.n_cohorts if obs.cohort is not None else 0
+    out_b = n_ctas * ((25 * tel_on + 15 + 6 * C) * 8) + 4 * (
+        nb + 8 + C * nb + 8 * tel_on) + n * 4 * C
+    i_ops = n * T * (FLT_SECOND_I + TEL_SECOND_I * tel_on)
+    f_ops = n * T * (FLT_SECOND_F + TEL_SECOND_F * tel_on)
+    return bound(i_ops, f_ops, n * T * per_s + out_b + T * 4)
 
 
 def phase_timing_fleet(dev):
@@ -1928,6 +2071,13 @@ def phase_timing_fleet(dev):
         out[key] = (ms, plain, *bound(
             int_ops + n * T * i_extra, f_k7 + n * T * f_extra,
             in_bytes + n * 4 * 7 * 2 + b_extra))
+    # path F's two launches on their own: the producer (its bound: K7T's
+    # work, its arrays written once) and the observer fold
+    ms_p, ms_f, plain_p, plain_f = obs_parts_ms(
+        (*head, acc, *tail), dict(site=site, fleet=fleet), obs_tf)
+    out["K89P"] = (ms_p, plain_p, *bound(
+        int_ops, f_k7, in_bytes + n * 4 * 7 * 2 + n * T * OBS_FOLD_BYTES))
+    out["KF"] = (ms_f, plain_f, *obs_fold_bound(n, T, obs_tf))
     # the collapse on its own: the three per-CTA row sets of this block's
     # K8+K9 launch, as path F collapses them per block
     _, _, o = k3.block_step_obs(*head, acc, *tail, site=site, fleet=fleet,
@@ -2093,7 +2243,7 @@ def k10_parts(label, sim, head, tail, rows, params, ms_rows, cd="f32",
                               (K10_GLOBAL_BINS, False, many)
                               ) if sketches else ():
         prm = dataclasses.replace(params, bins=bins, thresholds=thr)
-        sketch = bins + 2 + (len(thr) + 1) * (len(thr) > k3.SCN_MAX_THR)
+        sketch = bins + 2 + (len(thr) + 1) * (len(thr) > k3.MAX_THR)
         if k3.scenario_fold_layout(T, prm) != (shared,
                                                4 * sketch * shared + T):
             fail(f"{label} fold: the {bins}-bin sketch is not where the "
@@ -2816,8 +2966,9 @@ def phase_path_fl(dev):
     sim = Simulation(cfg, device=dev)
     (reduced, summary), wall, launches = run_path(
         "F-L", ("threefry_fill", "sampler_windows_regime",
-                "block_step_strided_table", "block_step_fleet",
-                "block_step_tel_analytics", "chainwise_collapse"),
+                "block_step_prod_strided_table", "block_step_fleet",
+                "block_step_tel_analytics", "obs_fold",
+                "chainwise_collapse"),
         lambda: (sim.run_reduced(), sim.fleet_summary()))
     n = sim.config.n_chains
     pv_max = check_reduced("F-L", reduced, cfg.duration_s)
@@ -2951,6 +3102,8 @@ def phase_timing_levers(dev):
                kernels="table")
     ms = time_ms(lambda: k3.block_step_obs(*fargs, **fkw))
     plain = time_ms(lambda: k3.block_step_obs_plain(*fargs, **fkw), reps=1)
+    ms_p, ms_f, plain_p, plain_f = obs_parts_ms(
+        fargs, {k: v for k, v in fkw.items() if k != "obs"}, obs)
     n_ctas = (n + k3.THREADS - 1) // k3.THREADS
     nb, C = fsim._fleet_params.bins + 2, fsim._n_cohorts
     f_bytes = (sum(t.numel() * 4 for t in ftables.values()) + n * 8 * 2
@@ -2962,6 +3115,12 @@ def phase_timing_levers(dev):
         int_ops + n * T * (TEL_SECOND_I + FLT_SECOND_I),
         strided_f32("table", n, T, 60) + n * T * (K7_SECOND_F + TEL_SECOND_F +
         FLT_SECOND_F), f_bytes))
+    # its two launches on their own: the producer (K6s with K7, its arrays
+    # written once) and the observer fold
+    out["K89LP"] = (ms_p, plain_p, *bound(
+        int_ops, strided_f32("table", n, T, 60) + n * T * K7_SECOND_F,
+        f_bytes + n * T * OBS_FOLD_BYTES))
+    out["K89LF"] = (ms_f, plain_f, *obs_fold_bound(n, T, obs))
     for name, (ms, plain, bms, by, ibms) in out.items():
         print(f"timing {name}: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
               f"bound {bms:.4f} ms ({by}), issue bound "
@@ -3068,6 +3227,10 @@ def check_wide_fold(label, sim, traces, obs, dur):
                 if leaf in f and int(f[leaf].sum()) != total:
                     fail(f"K4m fold ({label}): {leaf} does not hold every "
                          "sample")
+            if len(obs.params.thresholds) > k3.MAX_THR and \
+                    int((f["exceed"] > 0).sum()) < 3:
+                fail(f"K4m fold ({label}): the samples fill fewer than 3 "
+                     "exceedance slots")
             events += int(f["lol_events"])
     return rel, err, stat_err, events, same
 
@@ -3143,6 +3306,7 @@ def phase_k4m(dev):
     own = fstate["fleet"]["cohort"], fsim._n_cohorts
     many = torch.arange(n, device=dev, dtype=torch.int32) % K9_MANY_COHORTS
     wide_bins = dataclasses.replace(params, bins=K9_WIDE_BINS)
+    nt = len(K9_MANY_THR)
     for label, obs, paths in (
             ("TEL + FLT full, 3 cohorts (path F-W's launch)",
              k3.Observers(telemetry="full", analytics="full", params=params,
@@ -3155,22 +3319,38 @@ def phase_k4m(dev):
             (f"FLT, {K9_WIDE_BINS} bins, global residual, exceedance and "
              "cohort histograms",
              k3.Observers(analytics="full", params=wide_bins, cohort=own[0],
-                          n_cohorts=own[1], per_chain=True), (False, False))):
+                          n_cohorts=own[1], per_chain=True), (False, False)),
+            (f"TEL + FLT full, {nt} thresholds (exceedance by shared "
+             "atomics)",
+             k3.Observers(telemetry="full", analytics="full",
+                          params=dataclasses.replace(
+                              params, thresholds=K9_MANY_THR),
+                          cohort=own[0], n_cohorts=own[1], per_chain=True),
+             (True, True)),
+            (f"FLT, {K9_WIDE_BINS} bins and {nt} thresholds (exceedance by "
+             "global atomics)",
+             k3.Observers(analytics="full", params=dataclasses.replace(
+                 wide_bins, thresholds=K9_MANY_THR), cohort=own[0],
+                 n_cohorts=own[1], per_chain=True), (False, False))):
+        # F-W's launch on both blocks, the other branches on the second
+        traces = ftraces if label.endswith("(path F-W's launch)") \
+            else ftraces[-1:]
         prm, C = obs.params, obs.n_cohorts
         hist_bytes = 4 * (prm.bins + len(prm.thresholds) + 3)
         coh_bytes = 4 * C * (prm.bins + 2)
         if (hist_bytes <= k3.SMEM_MAX,
                 hist_bytes + coh_bytes <= k3.SMEM_MAX) != paths:
             fail(f"K4m fold: the {label} run would not take that path")
-        r, e, se, events, same = check_wide_fold(label, fsim, ftraces, obs,
+        r, e, se, events, same = check_wide_fold(label, fsim, traces, obs,
                                                  fcfg.duration_s)
         if events == 0:
             fail(f"K4m fold ({label}): no loss-of-load run in the blocks")
         rel, err, stat_err = max(rel, r), max(err, e), max(stat_err, se)
-        report.append(f"{label}: {same}/{7 * len(ftraces)} statistics "
+        report.append(f"{label}: {same}/{7 * len(traces)} statistics "
                       f"bit-identical, {events} LOLP events")
     print(f"K4m fold vs plain on the K4 trace of 2 blocks x {n} chains "
-          f"(capacity {K9_CAPACITY} W, lolp_k {K9_LOLP_K} for FLT): "
+          f"(the fleet's branches past F-W's launch on the second; "
+          f"capacity {K9_CAPACITY} W, lolp_k {K9_LOLP_K} for FLT): "
           + "; ".join(report) + f"; statistics' sums within rtol 1e-6 (max "
           f"abs {stat_err:.3g}), every per-chain leaf, count, histogram and "
           f"extremum bit-identical, observer sums within {rel:.3g} "
@@ -3797,8 +3977,9 @@ def phase_path_fh(dev):
                            analytics="full", **BF16))
     sim = Simulation(cfg, device=dev)
     reduced, wall, launches = run_path(
-        "F-H", ("sampler_windows_regime", "block_step_site_bf16",
-                "block_step_tel_analytics", "chainwise_collapse"),
+        "F-H", ("sampler_windows_regime", "block_step_prod_site_bf16",
+                "block_step_tel_analytics", "obs_fold",
+                "chainwise_collapse"),
         sim.run_reduced)
     pv_max = check_reduced("F-H", reduced, cfg.duration_s)
     rep = check_sentinel("F-H", sim, sim.n_blocks)
@@ -4029,6 +4210,13 @@ def phase_timing_k12(dev):
         *head, clone(state["carry"]), sim.init_reduce_acc(),
         cfg.duration_s, cfg.meter_max_w, None, None, site=site, fleet=fleet,
         obs=obs, compute_dtype="bf16"), reps=1)
+    ms_p, ms_f, plain_p, plain_f = obs_parts_ms(
+        a1, dict(site=site, fleet=fleet, compute_dtype="bf16"), obs)
+    out["K12FP"] = (ms_p, plain_p, *bound(
+        int_ops, n * T * (K3_SECOND_F + draws_f + K7_SECOND_F +
+                          K6_SITE_SECOND_F) + T * K6_TIME_F,
+        in_b + n * 4 * (6 + 4) + n * 4 * 7 * 2 + n * T * OBS_FOLD_BYTES))
+    out["K12FF"] = (ms_f, plain_f, *obs_fold_bound(n, T, obs))
     out["K12F"] = (ms, plain, *bound(
         int_ops + tel_i + n * T * FLT_SECOND_I,
         n * T * (K3_SECOND_F + draws_f + K7_SECOND_F + K6_SITE_SECOND_F +
@@ -5357,6 +5545,102 @@ def print_geometry_timing(timing, timing_k12):
               f"{ibms:.4f} ms ({ms / ibms:.2f}x)")
 
 
+#: each block-step row's instantiation: (epilogue, geometry, telemetry,
+#: kernel set, compute dtype, key implementation); a pair row (the acc
+#: producer and the observer fold) names its producer
+STEP_SHAPES = {
+    "block_step": ("acc", "shared", False, "exact", "f32", "threefry2x32"),
+    "block_step_series": ("series", "shared", False, "exact", "f32",
+                          "threefry2x32"),
+    "block_step_trace": ("trace", "shared", False, "exact", "f32",
+                         "threefry2x32"),
+    "block_step_site": ("acc", "site", False, "exact", "f32",
+                        "threefry2x32"),
+    "block_step_fleet": ("acc", "site", False, "exact", "f32",
+                         "threefry2x32"),
+    "block_step_tel": ("acc", "site", True, "exact", "f32", "threefry2x32"),
+    "block_step_analytics": ("prod", "site", False, "exact", "f32",
+                             "threefry2x32"),
+    "block_step_tel_analytics": ("prod", "site", False, "exact", "f32",
+                                 "threefry2x32"),
+    "block_step_prod_site": ("prod", "site", False, "exact", "f32",
+                             "threefry2x32"),
+    "block_step_scenario": ("scen", "shared", False, "exact", "f32",
+                            "threefry2x32"),
+    "block_step_strided_table": ("acc", "strided", False, "table", "f32",
+                                 "threefry2x32"),
+    "block_step_prod_strided_table": ("prod", "strided", False, "table",
+                                      "f32", "threefry2x32"),
+    "block_step_strided_table+tel_analytics": (
+        "prod", "strided", False, "table", "f32", "threefry2x32"),
+    "block_step_table": ("acc", "shared", False, "table", "f32",
+                         "threefry2x32"),
+    "block_step_bf16": ("acc", "shared", True, "exact", "bf16",
+                        "threefry2x32"),
+    "block_step_series_bf16": ("series", "shared", False, "exact", "bf16",
+                               "threefry2x32"),
+    "block_step_trace_bf16": ("trace", "shared", False, "exact", "bf16",
+                              "threefry2x32"),
+    "block_step_site_bf16": ("acc", "site", True, "exact", "bf16",
+                             "threefry2x32"),
+    "block_step_strided_table_bf16": ("acc", "strided", True, "table",
+                                      "bf16", "threefry2x32"),
+    "block_step_prod_site_bf16": ("prod", "site", False, "exact", "bf16",
+                                  "threefry2x32"),
+    "block_step_prod_site_bf16+tel_analytics": (
+        "prod", "site", False, "exact", "bf16", "threefry2x32"),
+    "block_step_rbg": ("acc", "shared", False, "exact", "f32", "rbg"),
+    "block_step_scenario_bf16": ("scen", "shared", False, "exact", "bf16",
+                                 "threefry2x32"),
+    "block_step_urbg": ("acc", "shared", False, "exact", "f32",
+                        "unsafe_rbg"),
+}
+#: the main paths' chains, in 128-chain CTAs (one per chain group)
+SHAPE_CHAINS = 65536
+
+
+def waves(ctas_per_sm):
+    """Waves of the main paths' 512 CTAs at ``ctas_per_sm`` CTAs an SM."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    groups = -(-SHAPE_CHAINS // k3.THREADS)
+    return -(-groups // (sms * ctas_per_sm)) if ctas_per_sm else None
+
+
+def add_shapes(rows, fold_shape):
+    """Every block-step row's registers, CTAs per SM and waves of the
+    65536 chains; a pair row also the observer fold's."""
+    for r in rows:
+        key = STEP_SHAPES.get(r["name"])
+        if key is None:
+            continue
+        epi, geo, tel, ks, cd, impl = key
+        sh = k3.step_attrs(epi, geo, tel, ks, cd, impl)
+        r.update(regs=sh["regs"], ctas_per_sm=sh["ctas_per_sm"],
+                 local_bytes=sh["local_bytes"],
+                 waves_65536=waves(sh["ctas_per_sm"]))
+        if epi == "prod" and not r["name"].startswith("block_step_prod"):
+            r.update(fold_regs=fold_shape["regs"],
+                     fold_ctas_per_sm=fold_shape["ctas_per_sm"],
+                     fold_groups_per_cta=fold_shape["groups_per_cta"])
+        print(f"shape {r['name']}: {r['regs']} registers, "
+              f"{r['ctas_per_sm']} CTAs per SM, {r['local_bytes']} local "
+              f"bytes, {r['waves_65536']} wave(s) at {SHAPE_CHAINS} chains")
+
+
+def obs_fold_shape(dev):
+    """The observer fold's launch shape for path F's observers at 65536
+    chains x 1080 s."""
+    cfg = SimConfig(**dict(HEADLINE, fleet=fleet_f(), telemetry="full",
+                           analytics="full"))
+    sim = Simulation(cfg, device=dev)
+    obs = sim.observers(sim.init_state())
+    sh = k3.obs_fold_attrs(SHAPE_CHAINS, obs, cfg.block_s, dev)
+    print(f"shape obs_fold: {sh['regs']} registers, {sh['ctas_per_sm']} "
+          f"CTAs per SM, {sh['groups_per_cta']} chain group(s) per CTA, "
+          f"{sh['ctas']} CTAs (one wave), {sh['smem']} dynamic shared bytes")
+    return sh
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a "
@@ -5451,6 +5735,7 @@ def main() -> int:
     timing_k13 = timed("timing_k13", phase_timing_k13, dev)
     timing_k14 = timed("timing_k14", phase_timing_k13, dev, URBG)
     print_geometry_timing(timing, timing_k12)
+    fold_shape = obs_fold_shape(dev)
     timed("reference", phase_reference, dev)
     timed("reference_bf16", phase_reference_bf16, dev)
     timed("reference_rbg", phase_reference_rbg, dev)
@@ -5497,6 +5782,33 @@ def main() -> int:
                      "bound_ms": bms, "bound_by": by, "issue_bound_ms": ibms,
                      "library_ms": library.get(key),
                      **({} if rel is None else {"max_rel_err": rel})})
+    # the observers' two launches on path F: the acc producer and the
+    # observer fold (the fold's times on paths F-L's and F-H's arrays
+    # beside it)
+    ms, plain, bms, by, ibms = timing["K89P"]
+    rows.append({"name": "block_step_prod_site", "route": "cuda",
+                 "source": src, "replaces": f"{sim_py}:1436",
+                 "launches": launch_f["block_step_prod_site"],
+                 "launches_h9": launch_h["H9"]["block_step_prod_site"],
+                 "max_abs_err": err89[1], "ms": ms, "plain_ms": plain,
+                 "bound_ms": bms, "bound_by": by, "issue_bound_ms": ibms,
+                 "library_ms": None})
+    ms, plain, bms, by, ibms = timing["KF"]
+    rows.append({"name": "obs_fold", "route": "cuda",
+                 "source": "tmhpvsim_torch/csrc/wide_fold.cu",
+                 "replaces": "tmhpvsim_tpu/obs/analytics.py:223",
+                 "launches": launch_f["obs_fold"],
+                 "launches_h9": launch_h["H9"]["obs_fold"],
+                 "launches_fl": launch_fl["obs_fold"],
+                 "launches_fh": launch_fh["obs_fold"],
+                 "max_abs_err": err89[1], "max_rel_err": err89[0],
+                 "ms": ms, "plain_ms": plain, "bound_ms": bms,
+                 "bound_by": by, "issue_bound_ms": ibms, "library_ms": None,
+                 "ms_fl": timing["K89LF"][0], "ms_fh": timing_k12["K12FF"][0],
+                 "regs": fold_shape["regs"],
+                 "ctas_per_sm": fold_shape["ctas_per_sm"],
+                 "groups_per_cta": fold_shape["groups_per_cta"],
+                 "ctas": fold_shape["ctas"]})
     # series_sum: per call as every row; device time from CUDA graphs too
     next(r for r in rows if r["name"] == "series_sum").update(
         device_ms=k4r_dev, library_device_ms=k4r_dev_lib)
@@ -5561,7 +5873,6 @@ def main() -> int:
                  "source": src,
                  "replaces": "tmhpvsim_tpu/models/solar.py:587",
                  "launches": launch_bl["block_step_strided_table"],
-                 "launches_fl": launch_fl["block_step_strided_table"],
                  "launches_gl": launch_gl["block_step_strided_table"],
                  "max_abs_err": err6s, "ms": ms, "plain_ms": plain,
                  "bound_ms": bms, "bound_by": by,
@@ -5569,7 +5880,8 @@ def main() -> int:
                  "ms_exact_set": ms_x, "plain_ms_exact_set": plain_x,
                  "bound_ms_exact_set": bms_x,
                  "issue_bound_ms_exact_set": ibms_x})
-    # path F-L's launch: K8+K9 in the strided table-set step
+    # path F-L's K8+K9: the strided table-set producer and the observer
+    # fold (the pair, then the producer on its own)
     ms, plain, bms, by, ibms = timing["K89L"]
     rel, err = err89l
     rows.append({"name": "block_step_strided_table+tel_analytics",
@@ -5579,6 +5891,15 @@ def main() -> int:
                  "max_abs_err": err, "max_rel_err": rel, "ms": ms,
                  "plain_ms": plain, "bound_ms": bms, "bound_by": by,
                  "issue_bound_ms": ibms,
+                 "library_ms": None, "ms_producer": timing["K89LP"][0],
+                 "ms_fold": timing["K89LF"][0]})
+    ms, plain, bms, by, ibms = timing["K89LP"]
+    rows.append({"name": "block_step_prod_strided_table", "route": "cuda",
+                 "source": "tmhpvsim_torch/csrc/block_step_table.cu",
+                 "replaces": f"{sim_py}:1436",
+                 "launches": launch_fl["block_step_prod_strided_table"],
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                 "bound_ms": bms, "bound_by": by, "issue_bound_ms": ibms,
                  "library_ms": None})
     # K11: path R-T's launch (the shared step with the table set), and
     # each function on its own (table_eval)
@@ -5605,12 +5926,14 @@ def main() -> int:
             ("K12BL", "block_step_strided_table_bf16",
              "tmhpvsim_torch/csrc/block_step_bf16_table.cu", f"{sim_py}:765",
              launch_bhl, "B-HL"),
-            ("K12F", "block_step_site_bf16+tel_analytics", bsrc,
-             f"{sim_py}:1218", launch_fh, "F-H")):
+            ("K12F", "block_step_prod_site_bf16+tel_analytics", bsrc,
+             f"{sim_py}:1218", launch_fh, "F-H"),
+            ("K12FP", "block_step_prod_site_bf16", bsrc, f"{sim_py}:1436",
+             launch_fh, "F-H")):
         ms, plain, bms, by, ibms = timing_k12[key]
         counter = name.split("+")[0]
-        rel, err = err12[key] if isinstance(err12[key], tuple) else \
-            (None, err12[key])
+        e12 = err12["K12F" if key == "K12FP" else key]
+        rel, err = e12 if isinstance(e12, tuple) else (None, e12)
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[counter],
                      "path": path, "max_abs_err": err, "ms": ms,
@@ -5618,7 +5941,10 @@ def main() -> int:
                      "issue_bound_ms": ibms,
                      "library_ms": None,
                      **({} if rel is None else {"max_rel_err": rel})})
-    rows[-6]["launches_gh"] = launch_gh["block_step_bf16"]
+    rows[-7]["launches_gh"] = launch_gh["block_step_bf16"]
+    rows[-2].update(ms_producer=timing_k12["K12FP"][0],
+                    ms_fold=timing_k12["K12FF"][0],
+                    launches_pairs=launch_fh["block_step_tel_analytics"])
     # K13: the Philox bits launch (timed on 2**26 words; its launches on
     # path R-P are init_state's renewal uniforms), the rbg windows and the
     # rbg block step path R-P launches
@@ -5688,6 +6014,7 @@ def main() -> int:
                     max_rel_err_k89_urbg=rel14r,
                     r_u_median_s=float(np.median(walls_ru["R-U"])),
                     r_median_s=float(np.median(walls_ru["R"])))
+    add_shapes(rows, fold_shape)
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"phase_s": PHASE_S}))

@@ -233,7 +233,7 @@ def test_scenario_fold_layout():
     """Where the fold's sketch lives and its dynamic shared bytes: shared
     memory while the sketch and the ramp flags fit in SCN_SMEM_MAX (a
     30000-bin sketch too), global atomics beyond (60000 bins); past
-    SCN_MAX_THR thresholds the exceedance slots join the sketch."""
+    MAX_THR thresholds the exceedance slots join the sketch."""
     from tmhpvsim_torch.obs import analytics as flt
 
     prm = flt.params_from_config(SimConfig(**CFG))
@@ -339,7 +339,7 @@ def test_device_geometry_fields_cpu_is_plain():
 def test_every_instantiation_counts_its_launches():
     """One launch counter per (epilogue, geometry mode, kernel set); the
     exact set's keep their names from before the kernel sets."""
-    for epi in ("acc", "series", "trace", "scen"):
+    for epi in ("acc", "series", "trace", "scen", "prod"):
         for geo in k3.GEOMS:
             for ks in ("exact", "table"):
                 assert k3.STEP[epi, geo, ks] in kernels.COUNTERS
@@ -348,7 +348,8 @@ def test_every_instantiation_counts_its_launches():
                  "block_step_trace", "block_step_scenario",
                  "block_step_strided", "block_step_strided_table",
                  "block_step_table", "block_step_scenario_table",
-                 "table_eval", "scenario_fold"):
+                 "table_eval", "scenario_fold", "block_step_prod_site",
+                 "block_step_prod_strided_table", "obs_fold"):
         assert name in names, name
     assert k3.STEP["scen", "site", "table"] is \
         k3.STEP["scen", "strided", "table"]
@@ -422,8 +423,14 @@ def test_build_flags():
     text = open(os.path.join(build.CSRC, "block_step.cuh")).read()
     for entry in ("block_step_acc", "block_step_series", "block_step_trace",
                   "series_sum", "device_geometry_fields", "nan_minmax",
-                  "block_step_scenario", "scenario_fold"):
+                  "block_step_scenario", "scenario_fold", "block_step_prod",
+                  "step_attrs"):
         assert re.search(rf'extern "C" int {entry}\(', text), entry
+    # the observer fold, beside the wide fold (analytics left the step)
+    wide_text = open(os.path.join(build.CSRC, "wide_fold.cu")).read()
+    for entry in ("wide_fold", "obs_fold", "obs_fold_attrs"):
+        assert re.search(rf'extern "C" int {entry}\(', wide_text), entry
+    assert not re.search(r"\bbool FLT\b", text)
     for src, kset in (("block_step.cu", "Exact"),
                       ("block_step_table.cu", "Table"),
                       ("block_step_rbg.cu", "Exact"),
@@ -806,6 +813,74 @@ def test_k7_k8_k9_match_plain_on_card(card, hist):
     torch.testing.assert_close(qk, qp, rtol=1e-6, atol=1e-3)
 
 
+#: ten ascending exceedance thresholds [W], past k3.MAX_THR (8): the
+#: observer fold counts them with atomics, not in registers
+OBS_MANY_THR = tuple(float(x) for x in range(-4000, 6000, 1000))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["f32", "levers", "bf16", "thresholds",
+                                  "thresholds_global"])
+def test_obs_producer_and_fold_match_plain_on_card(card, case):
+    """K8 + K9's two launches on their own: the acc producer's
+    statistics, carry, meter, csi and covered flags bit for bit against
+    its plain version (pv to the engine tolerance), and the observer fold
+    on the producer's own arrays against its plain version: per-chain
+    leaves, counts, histograms and extrema bit for bit, sums within 1e-6
+    of float64.  ``levers``: the table set with stride 60; ``bf16``: K12;
+    ``thresholds`` and ``thresholds_global``: ten exceedance thresholds
+    (counted with atomics), with the shared histograms and with 30000
+    bins in global memory."""
+    levers = {"levers": LEVERS,
+              "bf16": {"compute_dtype": "bf16"}}.get(case, {})
+    sim, state, head, tail, site, fleet, obs = _fleet_block(512, card,
+                                                            **levers)
+    obs = dataclasses.replace(obs, per_chain=True)
+    if case.startswith("thresholds"):
+        prm = dataclasses.replace(obs.params, thresholds=OBS_MANY_THR)
+        if case == "thresholds_global":
+            prm = dataclasses.replace(prm, bins=30000)
+        obs = dataclasses.replace(obs, params=prm)
+        assert len(prm.thresholds) > k3.MAX_THR
+        hist_bytes = 4 * (prm.bins + len(prm.thresholds) + 3)
+        assert (hist_bytes <= k3.SMEM_MAX) == (case == "thresholds")
+    kw = dict(site=site, fleet=fleet, kernels=sim.plan.kernel_impl,
+              compute_dtype=sim.plan.compute_dtype)
+
+    def carry():
+        return {k: v.clone() for k, v in state["carry"].items()}
+
+    ck, ak, pk = k3.obs_producer(*head, carry(), sim.init_reduce_acc(),
+                                 *tail, obs=obs, **kw)
+    cp, ap, pp = k3.obs_producer_plain(*head, carry(), sim.init_reduce_acc(),
+                                       *tail, **kw)
+    for k in ck:
+        assert torch.equal(ck[k], cp[k]), k
+    for k in ak:
+        torch.testing.assert_close(ak[k], ap[k], rtol=2e-5, atol=1e-2)
+    assert torch.equal(pk["meter"], pp["meter"])
+    assert torch.equal(pk["csi"], pp["csi"])
+    assert torch.equal(pk["covered"], pp["covered"].to(torch.uint8))
+    torch.testing.assert_close(pk["pv"], pp["pv"], rtol=2e-5, atol=1e-2)
+    t = head[1][0]
+    ok = k3.obs_fold(pk, t, tail[0], obs)
+    op = k3.obs_fold_plain(dict(pk, covered=pk["covered"].bool()), t,
+                           tail[0], obs)
+    for d in ("telemetry_chain", "fleet_chain"):
+        for k in ok[d]:
+            if k in op[d]:
+                assert torch.equal(ok[d][k], op[d][k]), (d, k)
+    for d in ("telemetry", "fleet"):
+        for k, v in op[d].items():
+            if v.dtype == torch.float32 and "sum" in k:
+                torch.testing.assert_close(ok[d][k], v, rtol=1e-6, atol=0.0)
+            else:
+                assert torch.equal(ok[d][k], v), (d, k)
+    assert int(ok["fleet"]["exceed"].sum()) == int(ok["fleet"]["count"])
+    if case.startswith("thresholds"):
+        assert int((ok["fleet"]["exceed"] > 0).sum()) >= 3
+
+
 def _k10_rows(duration_s, cohorts):
     """16 scenario rows for K10: neutral, padding, a horizon that ends
     mid-block, demand scale / shift, DC scale x weather bias, a binding
@@ -881,7 +956,7 @@ def test_k10_matches_plain_on_card(card, case):
     if case.startswith("thresholds"):
         params = dataclasses.replace(params, thresholds=tuple(
             float(x) for x in range(-4000, 6000, 1000)))
-        assert len(params.thresholds) > k3.SCN_MAX_THR
+        assert len(params.thresholds) > k3.MAX_THR
 
     def carry():
         return {k: v.clone() for k, v in state["carry"].items()}

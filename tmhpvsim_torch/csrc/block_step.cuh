@@ -1,9 +1,9 @@
 // K3 / K4 / K6 / K6s / K7 / K8 / K9 / K10 / K12 (with K11 inlined): one
 // block, one thread per chain, looping over the block's seconds; a template
 // over the kernel set (Exact | Table), the compute dtype (F32 | BF16, K12),
-// the epilogue (acc | series | trace | scenario), the geometry mode (shared
-// rows | per-chain site | per-chain strided) and, for acc, the two
-// reduce-mode observers (telemetry | fleet analytics).  block_step.cu
+// the epilogue (acc | series | trace | scenario | acc producer), the
+// geometry mode (shared rows | per-chain site | per-chain strided) and,
+// for acc, the telemetry observer.  block_step.cu
 // instantiates it for the Exact set, block_step_table.cu for the Table set
 // (K11, tables.cuh), block_step_bf16.cu and block_step_bf16_table.cu for
 // both sets under BF16: each is its own library, built by its own nvcc
@@ -27,10 +27,14 @@
 //          :931-938 in the wide step), in every epilogue -- K7;
 //   TEL    _make_acc_tel_body / _block_step_scan_acc_tel (:1298-1337):
 //          obs/telemetry.py fold_second (:110) + reduce_chainwise (:157)
-//          -- K8;
-//   FLT    _make_acc_fleet_body / _block_step_scan_acc_fleet (:1394,
-//          :1481; with TEL :1436, :1524): obs/analytics.py fold_second
-//          (:223) + reduce_chainwise (:311) -- K9;
+//          -- K8 alone;
+//   prod   _make_acc_fleet_body / _block_step_scan_acc_fleet (:1394,
+//          :1481; with telemetry :1436, :1524), two launches: this
+//          epilogue, the acc producer, folds K3's statistics and writes
+//          the block's meter, pv, csi and covered flags; obs_fold
+//          (wide_fold.cu) folds obs/analytics.py fold_second (:223) +
+//          reduce_chainwise (:311) and, with telemetry, K8's over them
+//          -- K9, K8 + K9;
 //   scen   _block_step_scan_scenario / _scenario_block_core (:1834,
 //          :1871-1937), two launches: this epilogue, the producer, writes
 //          the step's meter and pv; scenario_fold_kernel folds, per
@@ -40,12 +44,13 @@
 // and the pre-drawn streams of clearsky_index.scan_draws_tmajor /
 // meter_block_tmajor (:278-319).  Plain versions:
 // tmhpvsim_torch/kernels/block_step.py block_step_plain, series_plain,
-// series_sum_plain, trace_plain, block_step_obs_plain,
-// scenario_producer_plain, scenario_fold_plain, and models/solar.py
+// series_sum_plain, trace_plain, block_step_obs_plain (obs_producer_plain
+// + obs_fold_plain), scenario_producer_plain, scenario_fold_plain, and
+// models/solar.py
 // device_geometry
 // (with obs/telemetry.py and obs/analytics.py fold_second).
 //
-// Design.  The per-second pipeline is written once, in block_step_kernel's
+// Design.  The per-second pipeline is written once, in block_step_body's
 // loop over a tile's seconds: the table lerps, the renewal step, csi,
 // power() and the meter.  The renewal carry (and the seven statistics of
 // the acc epilogue) stay in registers for the whole block.  The JAX scan
@@ -147,23 +152,28 @@
 // demand transform is one fmaf: the JAX scan contracts meter * scale +
 // shift into a multiply-add (tests/test_torch_fleet.py settles it).
 //
-// K8 / K9 (acc only).  Per-chain leaves live in registers for the block:
-// telemetry's NaN / non-finite counts and min / max / sum / sum of squares
-// of meter, csi, pv and residual (plus the covered count); analytics'
-// residual extrema, LOLP run, loss seconds / events, three ramp slots and,
-// for cohorts or level full, the per-chain sums.  Shared histograms
-// (telemetry's 8 csi bins; analytics' bins+2 residual slots, the exceedance
-// slots and, when it fits in shared memory, the C x (bins+2) cohort
-// histogram) count with shared atomicAdd and are added to the zeroed
-// global histograms with one atomicAdd per non-zero slot at block end;
-// a cohort histogram too large for shared memory counts with global
-// atomics.  Integer atomics commute, so every count is exact and
+// K8 alone (acc with TEL, analytics off).  Per-chain leaves live in
+// registers for the block: telemetry's NaN / non-finite counts and min /
+// max / sum / sum of squares of meter, csi, pv and residual (plus the
+// covered count).  The 8 csi bins count with shared atomicAdd and are
+// added to the zeroed global histogram with one atomicAdd per non-zero
+// slot at block end: integer atomics commute, so every count is exact and
 // order-free.  At block end each CTA reduces its chains' leaves (warp
 // butterflies in double, then the 4 warps in order) into a per-CTA
 // partial row; collapse_partials then combines the rows over CTAs in
 // index order (reduce_chainwise): sums in double, rounded once by the
-// caller, so reruns give the same bits.  Cohort sums go per cohort over
-// the CTA's chains in chain order, then over CTAs in order.
+// caller, so reruns give the same bits.
+//
+// K9 and K8 + K9 (analytics on): two launches.  The acc producer (EPI ==
+// PROD) is K3's step and statistics, bit for bit, that also writes the
+// block's time-major meter and pv (after K7's transforms), csi (with
+// telemetry) and the covered flags (uint8, with telemetry or analytics at
+// level full), coalesced as the trace does: 13 bytes per chain-second at
+// most.  obs_fold (wide_fold.cu) then folds both observers over them with
+// its own occupancy.  Fused, their ~47 registers of per-chain state took
+// the step past 128 registers a thread, so 3 or 2 CTAs an SM and two
+// waves of the 512 CTAs at 65536 chains; the producer is built for 4
+// CTAs an SM (__launch_bounds__(THREADS, 4)), one wave.
 //
 // K10 (scenario).  Two launches (kernels/block_step.py
 // block_step_scenario).  The producer is the step, K3's unchanged (so a
@@ -209,7 +219,7 @@
 #define PRNG TF
 #endif
 
-enum Epilogue { ACC = 0, SERIES = 1, TRACE = 2, SCEN = 3 };
+enum Epilogue { ACC = 0, SERIES = 1, TRACE = 2, SCEN = 3, PROD = 4 };
 
 // compute dtypes (Plan.compute_dtype)
 struct F32 {};
@@ -219,19 +229,16 @@ struct TF {};
 struct RBG {};
 struct URBG {};
 
-// scenario fold: the per-(scenario, chain) risk leaves (int, float), the
-// per-(chain group, scenario) partial row, and the most thresholds whose
-// exceedance slots count in registers
+// scenario fold: the per-(scenario, chain) risk leaves (int, float) and
+// the per-(chain group, scenario) partial row
 #define SCN_CHAIN_I 7
 #define SCN_CHAIN_F 8
 #define SCN_LEAVES 8
-#define SCN_MAX_THR 8
 // the scenario fold's seconds per load chunk (blocks are whole minutes)
 #define SCN_CHUNK 4
 // a value at most this large in magnitude, times a knob at most this
 // large, stays finite
 #define SCN_TAME 1e18f
-static_assert(SCN_MAX_THR == 8, "Scen::thr_v holds SCN_MAX_THR floats");
 
 // one second's calendar: global second, rebased indices and fractions
 struct Cal {
@@ -306,7 +313,7 @@ struct Scen {
   const float* pv;         // (T, n) and pv
   const int* tame;         // (n,) the producer's flags, or nullptr
   const float* thr;        // (n_thr,), ascending
-  float thr_v[8];          // the first SCN_MAX_THR of them, then +inf
+  float thr_v[8];          // the first MAX_THR of them, then +inf
   // (B,) knobs: demand_scale, demand_shift_w, pv_scale, weather_bias,
   // curtail_w; horizon_s, site_index, cohort
   const float* knob_f[5];
@@ -345,6 +352,9 @@ struct Args {
   // scenario: per chain, whether every meter and pv value of the block
   // is at most SCN_TAME in magnitude (so a masked second adds +-0)
   int* out_tame;
+  // acc producer: (T, n) csi and covered flags, or nullptr
+  float* out_csi;
+  unsigned char* out_cov;
   Obs o;
 };
 
@@ -785,8 +795,9 @@ struct ScnRow {
   float prev[3] = {0.0f, 0.0f, 0.0f};
 };
 
-template <class KS, class CD, class RG, int EPI, int GEO, bool TEL, bool FLT>
-__global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
+// the step (block_step_kernel, block_step_prod_kernel below)
+template <class KS, class CD, class RG, int EPI, int GEO, bool TEL>
+__device__ __forceinline__ void block_step_body(const Args& a) {
   // K13 and K14 draw alike; K14 derives the tile's keys its own way
   constexpr bool UR = std::is_same<RG, URBG>::value;
   constexpr bool RB = std::is_same<RG, RBG>::value || UR;
@@ -805,17 +816,14 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
   __shared__ TimeC samp[GEO == STRIDED ? MAX_SAMP : 1];
   __shared__ float red_m[EPI == SERIES ? WARPS : 1][TILE];
   __shared__ float red_p[EPI == SERIES ? WARPS : 1][TILE];
-  constexpr bool OBS = TEL || FLT;
-  __shared__ double s_stage[OBS ? WARPS * TEL_LEAVES : 1];
+  // the acc statistics: acc, and the acc producer
+  constexpr bool ACCUM = EPI == ACC || EPI == PROD;
+  __shared__ double s_stage[TEL ? WARPS * TEL_LEAVES : 1];
   __shared__ int s_csi[TEL ? CSI_BINS : 1];
-  // analytics: the cohort partials' staging, one entry per chain
-  __shared__ int s_cid[FLT ? THREADS : 1], s_cuse[FLT ? THREADS : 1];
-  __shared__ float s_cval[FLT ? 5 : 1][FLT ? THREADS : 1];
   // K12: the 128 bf16 normals
   __shared__ float s_z[BF_DRAWS ? 128 : 1];
   // K14: the tile's u, z and meter keys
   __shared__ ph::Key4 s_rk[UR ? 3 : 1];
-  extern __shared__ int s_dyn[];
   const int64_t n = a.n;
   const int T = a.T;
   const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
@@ -827,7 +835,7 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
   float pv_sum = 0.0f, pv_max = 0.0f, meter_sum = 0.0f, residual_sum = 0.0f,
         residual_min = 0.0f, residual_max = 0.0f;
   int n_seconds = 0;
-  if (EPI == ACC) {
+  if (ACCUM) {
     pv_sum = a.pv_sum[ii];
     pv_max = a.pv_max[ii];
     meter_sum = a.meter_sum[ii];
@@ -882,26 +890,11 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
   const uint32_t g_first = (uint32_t)(a.rows_i[0] / 60);
 
   bool tame = true;  // the scenario producer's per-chain flag
-  // K8 / K9 state
+  // K8 state
   TelField tel[4];
   int occ = 0;
-  FltChain f;
-  const int nb = a.o.bins + 2, ne = a.o.n_thr + 1;
-  int *hist = nullptr, *exc = nullptr, *coh_hist = nullptr;
-  int cohort = 0;
   if constexpr (TEL) {
     for (int k = threadIdx.x; k < CSI_BINS; k += blockDim.x) s_csi[k] = 0;
-  }
-  if constexpr (FLT) {
-    const int coh_off = a.o.hist_shared ? nb + ne : 0;
-    const int len = coh_off + (a.o.coh_shared ? a.o.n_cohorts * nb : 0);
-    for (int k = threadIdx.x; k < len; k += blockDim.x) s_dyn[k] = 0;
-    hist = a.o.hist_shared ? s_dyn : a.o.res_hist;
-    exc = a.o.hist_shared ? s_dyn + nb : a.o.exceed;
-    if (a.o.n_cohorts) {
-      coh_hist = a.o.coh_shared ? s_dyn + coh_off : a.o.cohort_hist;
-      cohort = a.o.cohort[ii];
-    }
   }
 
   // K6s: the geometry of the stride samples a tile touches; the upper
@@ -1130,7 +1123,7 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
       // K7: the heterogeneous columns' transforms
       if (het_power) ac = nminf(ac * pv_scale, ac_limit);
       if (het_demand) meter = fmaf(meter, dem_scale, dem_shift);
-      if (EPI == ACC) {
+      if (ACCUM) {
         const float residual = meter - ac;
         const bool valid = S.t < a.duration_s;
         const float vz = valid ? 1.0f : 0.0f;
@@ -1154,17 +1147,12 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
             occ += (valid && covered) ? 1 : 0;
           }
         }
-        if constexpr (FLT) {  // K9: obs/analytics.py fold_second
-          const float r = residual;
-          const bool use = flt_second(f, a.o, meter, ac, r, valid, S.t, hist,
-                                      exc, coh_hist, cohort);
-          if (a.o.flt_full) {
-            const bool cv = covered && use;
-            f.cov += cv ? 1 : 0;
-            f.cm = f.cm + (cv ? meter : 0.0f);
-            f.cp = f.cp + (cv ? ac : 0.0f);
-            f.cr = f.cr + (cv ? r : 0.0f);
-          }
+        if (EPI == PROD) {  // the observer fold's inputs
+          const int64_t o = (int64_t)(base + s) * n + i;
+          a.out_meter[o] = meter;
+          a.out_pv[o] = ac;
+          if (a.out_csi != nullptr) a.out_csi[o] = csi;
+          if (a.out_cov != nullptr) a.out_cov[o] = covered ? 1 : 0;
         }
       } else if (EPI == TRACE || EPI == SCEN) {
         const int64_t o = (int64_t)(base + s) * n + i;
@@ -1203,7 +1191,7 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
     a.total_end[i] = total_end;
     a.sec[i] = sec;
     if (EPI == SCEN) a.out_tame[i] = tame ? 1 : 0;
-    if (EPI == ACC) {
+    if (ACCUM) {
       a.pv_sum[i] = pv_sum;
       a.pv_max[i] = pv_max;
       a.meter_sum[i] = meter_sum;
@@ -1216,7 +1204,7 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
   // reduce_chainwise, first pass: the CTA's partial rows (every thread
   // takes part; a dead thread holds the identities)
   if constexpr (TEL) {
-    tel_epilogue(tel, occ, a.o, n, i, live, s_stage);
+    tel_epilogue(tel, occ, a.o, n, i, live, s_stage, blockIdx.x);
     flush_hist(s_csi, a.o.csi_hist, CSI_BINS);
     if (blockIdx.x == 0 && threadIdx.x == 0) {
       // the count leaf: valid seconds x n, added in float32 per second
@@ -1226,19 +1214,20 @@ __global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
       a.o.tel_count[0] = count;
     }
   }
-  if constexpr (FLT) {
-    flt_epilogue(f, true, a.o, n, i, live, s_stage);
-    if (a.o.hist_shared) {
-      flush_hist(s_dyn, a.o.res_hist, nb);
-      flush_hist(s_dyn + nb, a.o.exceed, ne);
-    }
-    if (a.o.n_cohorts) {
-      if (a.o.coh_shared)
-        flush_hist(s_dyn + (a.o.hist_shared ? nb + ne : 0), a.o.cohort_hist,
-                   a.o.n_cohorts * nb);
-      cohort_partials(f, a.o, live, cohort, s_cid, s_cuse, s_cval);
-    }
-  }
+}
+
+template <class KS, class CD, class RG, int EPI, int GEO, bool TEL>
+__global__ void __launch_bounds__(THREADS) block_step_kernel(const Args a) {
+  block_step_body<KS, CD, RG, EPI, GEO, TEL>(a);
+}
+
+// the acc producer: at most 128 registers a thread, so 4 CTAs an SM (one
+// wave of the 512 CTAs at 65536 chains); the other epilogues keep the
+// compiler's own register choice
+template <class KS, class CD, class RG, int GEO>
+__global__ void __launch_bounds__(THREADS, 4)
+    block_step_prod_kernel(const Args a) {
+  block_step_body<KS, CD, RG, PROD, GEO, false>(a);
 }
 
 // reduce_chainwise, second pass: leaf l of the per-CTA partial rows
@@ -1325,7 +1314,7 @@ __global__ void __launch_bounds__(SUM_STRANDS* SUM_COLS)
 // against the thresholds passed by value: with ascending thresholds slot
 // k's count is the used samples above threshold k - 1 less those above
 // threshold k, per-thread counters reduced over the warp before one
-// atomicAdd per slot (past SCN_MAX_THR thresholds, one shared atomicAdd
+// atomicAdd per slot (past MAX_THR thresholds, one shared atomicAdd
 // per used sample into the sketch's slots: counting the default seven
 // that way took the fold from 6.3 to 8.3 ms at 16 rows on an H100,
 // ab_kernels.py).  The residual bins count with one shared atomicAdd
@@ -1353,7 +1342,7 @@ __global__ void __launch_bounds__(THREADS)
   const int g0 = (blockIdx.x / B) * groups_per_cta;
   const int g1 = min(n_groups, g0 + groups_per_cta);
   const int nbq = q.bins + 2, neq = q.n_thr + 1;
-  const bool exc_regs = q.n_thr <= SCN_MAX_THR;
+  const bool exc_regs = q.n_thr <= MAX_THR;
   // dynamic shared memory: the sketch (when shared), then per second which
   // ramp grids it closes (bit k: window k)
   const int sk_len = q.hist_shared ? nbq + (exc_regs ? 0 : neq) : 0;
@@ -1399,9 +1388,9 @@ __global__ void __launch_bounds__(THREADS)
   int* const g_hist = q.res_hist + (int64_t)b * nbq;
   int* const g_exc = q.exceed + (int64_t)b * neq;
   // the used samples and those above each threshold, over the CTA's chains
-  int used = 0, above[SCN_MAX_THR];
+  int used = 0, above[MAX_THR];
 #pragma unroll
-  for (int j = 0; j < SCN_MAX_THR; ++j) above[j] = 0;
+  for (int j = 0; j < MAX_THR; ++j) above[j] = 0;
 
   for (int g = g0; g < g1; ++g) {
     const int64_t i = (int64_t)g * THREADS + threadIdx.x;
@@ -1496,9 +1485,7 @@ __global__ void __launch_bounds__(THREADS)
             if (q.hist_shared) atomicAdd(&s_dyn[idx], 1);
             else atomicAdd(&g_hist[idx], 1);
             if (exc_regs) {
-  #pragma unroll
-              for (int j = 0; j < SCN_MAX_THR; ++j)
-                above[j] += q.thr_v[j] < res ? 1 : 0;
+              exc_count(q.thr_v, res, above);
             } else {
               int slot = 0;
               for (int j = 0; j < q.n_thr; ++j)
@@ -1575,18 +1562,7 @@ __global__ void __launch_bounds__(THREADS)
     flush_hist(s_dyn, g_hist, nbq);
     if (!exc_regs) flush_hist(s_dyn + nbq, g_exc, neq);
   }
-  if (exc_regs) {
-    // slot k: the used samples above threshold k - 1 (all of them for
-    // k = 0) less those above threshold k
-#pragma unroll
-    for (int k = 0; k <= SCN_MAX_THR; ++k) {
-      if (k > q.n_thr) break;
-      const int hi = k == 0 ? used : above[k > 0 ? k - 1 : 0];
-      const int lo = k < q.n_thr ? above[k < SCN_MAX_THR ? k : 0] : 0;
-      const int cnt = __reduce_add_sync(0xffffffffu, hi - lo);
-      if ((threadIdx.x & 31) == 0 && cnt) atomicAdd(&g_exc[k], cnt);
-    }
-  }
+  if (exc_regs) exc_flush(q.n_thr, used, above, g_exc);
 }
 
 // the site mode's geometry on its own (a test entry): out (9, T, n)
@@ -1611,37 +1587,27 @@ __global__ void geometry_kernel(int64_t n, int T, const float* rows_f,
   }
 }
 
-template <int EPI, int GEO, bool TEL, bool FLT>
-static int launch_one(const Args& a, unsigned blocks, int smem,
-                      cudaStream_t st) {
-  auto kernel = block_step_kernel<KSET, CDTYPE, PRNG, EPI, GEO, TEL, FLT>;
-  if (smem > 48 * 1024) {  // above 48 KB only after opting in
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kernel<<<blocks, THREADS, smem, st>>>(a);
+using StepFn = void (*)(const Args);
+
+// the kernel of one instantiation
+template <int EPI, int GEO, bool TEL>
+static StepFn kernel_of() {
+  if constexpr (EPI == PROD)
+    return block_step_prod_kernel<KSET, CDTYPE, PRNG, GEO>;
+  else
+    return block_step_kernel<KSET, CDTYPE, PRNG, EPI, GEO, TEL>;
+}
+
+template <int EPI, int GEO, bool TEL>
+static int launch_one(const Args& a, unsigned blocks, cudaStream_t st) {
+  kernel_of<EPI, GEO, TEL>()<<<blocks, THREADS, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
-// the acc epilogue's four observer instantiations of a geometry mode
-template <int GEO>
-static int launch_acc(const Args& a, unsigned blocks, int smem,
-                      cudaStream_t st, int tel, int flt) {
-  switch ((tel ? 2 : 0) + (flt ? 1 : 0)) {
-    case 0: return launch_one<ACC, GEO, false, false>(a, blocks, smem, st);
-    case 1: return launch_one<ACC, GEO, false, true>(a, blocks, smem, st);
-    case 2: return launch_one<ACC, GEO, true, false>(a, blocks, smem, st);
-    default: return launch_one<ACC, GEO, true, true>(a, blocks, smem, st);
-  }
-}
-
-// one instantiation per (geometry mode, telemetry on, analytics on); the
-// observers exist only for the acc epilogue; geo: 0 shared, 1 site, 2
-// strided (a.stride 30 or 60)
+// one instantiation per (epilogue, geometry mode) and, for acc, telemetry
+// on or off; geo: 0 shared, 1 site, 2 strided (a.stride 30 or 60)
 template <int EPI>
-static int launch(int geo, const Args& a, void* stream, int tel = 0,
-                  int flt = 0, int smem = 0) {
+static int launch(int geo, const Args& a, void* stream, int tel = 0) {
   if (a.T % TILE) return (int)cudaErrorInvalidValue;
   if (geo == STRIDED && (a.stride <= 0 || TILE % a.stride ||
                          TILE / a.stride + 1 > MAX_SAMP))
@@ -1651,17 +1617,42 @@ static int launch(int geo, const Args& a, void* stream, int tel = 0,
   const unsigned blocks = (unsigned)((a.n + THREADS - 1) / THREADS);
   cudaStream_t st = (cudaStream_t)stream;
   if constexpr (EPI == ACC) {
-    return geo == SHARED ? launch_acc<SHARED>(a, blocks, smem, st, tel, flt)
-           : geo == SITE ? launch_acc<SITE>(a, blocks, smem, st, tel, flt)
-                         : launch_acc<STRIDED>(a, blocks, smem, st, tel, flt);
-  } else {
-    return geo == SHARED ? launch_one<EPI, SHARED, false, false>(a, blocks, 0,
-                                                                 st)
-           : geo == SITE ? launch_one<EPI, SITE, false, false>(a, blocks, 0,
-                                                               st)
-                         : launch_one<EPI, STRIDED, false, false>(a, blocks,
-                                                                  0, st);
+    if (tel)
+      return geo == SHARED ? launch_one<ACC, SHARED, true>(a, blocks, st)
+             : geo == SITE ? launch_one<ACC, SITE, true>(a, blocks, st)
+                           : launch_one<ACC, STRIDED, true>(a, blocks, st);
   }
+  return geo == SHARED ? launch_one<EPI, SHARED, false>(a, blocks, st)
+         : geo == SITE ? launch_one<EPI, SITE, false>(a, blocks, st)
+                       : launch_one<EPI, STRIDED, false>(a, blocks, st);
+}
+
+// an instantiation's registers and CTAs an SM (at 128 threads, no dynamic
+// shared memory): out = {registers, CTAs per SM, local bytes}
+template <int EPI, int GEO, bool TEL>
+static int attrs_one(int* out) {
+  const StepFn kernel = kernel_of<EPI, GEO, TEL>();
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], kernel,
+                                                      THREADS, 0);
+  out[0] = fa.numRegs;
+  out[2] = (int)fa.localSizeBytes;
+  return (int)e;
+}
+
+template <int EPI>
+static int attrs(int geo, int tel, int* out) {
+  if constexpr (EPI == ACC) {
+    if (tel)
+      return geo == SHARED ? attrs_one<ACC, SHARED, true>(out)
+             : geo == SITE ? attrs_one<ACC, SITE, true>(out)
+                           : attrs_one<ACC, STRIDED, true>(out);
+  }
+  return geo == SHARED ? attrs_one<EPI, SHARED, false>(out)
+         : geo == SITE ? attrs_one<EPI, SITE, false>(out)
+                       : attrs_one<EPI, STRIDED, false>(out);
 }
 
 
@@ -1731,13 +1722,12 @@ static Args common(int64_t n, int T, int stride, int layout, int duration_s,
       azi, alb, turb, pv_scale, ac_limit, dem_scale, dem_shift, cloud_end,   \
       total_end, sec
 
-// obs: the observers' arguments (nullptr with tel and flt 0); smem: the
-// analytics' dynamic shared histograms, in bytes
+// obs: the telemetry's arguments (nullptr with tel 0)
 extern "C" int block_step_acc(COMMON_PARAMS, float* pv_sum, float* pv_max,
                               float* meter_sum, float* residual_sum,
                               float* residual_min, float* residual_max,
                               int* n_seconds, const Obs* obs, int tel,
-                              int flt, int smem, void* stream) {
+                              void* stream) {
   Args a = common(COMMON_ARGS);
   a.pv_sum = pv_sum;
   a.pv_max = pv_max;
@@ -1747,7 +1737,47 @@ extern "C" int block_step_acc(COMMON_PARAMS, float* pv_sum, float* pv_max,
   a.residual_max = residual_max;
   a.n_seconds = n_seconds;
   if (obs != nullptr) a.o = *obs;
-  return launch<ACC>(geo, a, stream, tel, flt, smem);
+  return launch<ACC>(geo, a, stream, tel);
+}
+
+// the acc producer: the acc launch's statistics and carry, and the
+// block's time-major (T, n) meter, pv, csi (nullptr: not written) and
+// covered flags (uint8; nullptr: not written) for obs_fold
+extern "C" int block_step_prod(COMMON_PARAMS, float* pv_sum, float* pv_max,
+                               float* meter_sum, float* residual_sum,
+                               float* residual_min, float* residual_max,
+                               int* n_seconds, float* meter, float* pv,
+                               float* csi, unsigned char* cov,
+                               void* stream) {
+  Args a = common(COMMON_ARGS);
+  a.pv_sum = pv_sum;
+  a.pv_max = pv_max;
+  a.meter_sum = meter_sum;
+  a.residual_sum = residual_sum;
+  a.residual_min = residual_min;
+  a.residual_max = residual_max;
+  a.n_seconds = n_seconds;
+  a.out_meter = meter;
+  a.out_pv = pv;
+  a.out_csi = csi;
+  a.out_cov = cov;
+  return launch<PROD>(geo, a, stream);
+}
+
+// an instantiation's launch shape: epi (Epilogue), geo (Geom), tel (acc
+// only); out = {registers, CTAs per SM, local bytes}
+extern "C" int step_attrs(int epi, int geo, int tel, int* out,
+                          void* stream) {
+  (void)stream;
+  if (geo < SHARED || geo > STRIDED) return (int)cudaErrorInvalidValue;
+  switch (epi) {
+    case ACC: return attrs<ACC>(geo, tel, out);
+    case SERIES: return attrs<SERIES>(geo, 0, out);
+    case TRACE: return attrs<TRACE>(geo, 0, out);
+    case SCEN: return attrs<SCEN>(geo, 0, out);
+    case PROD: return attrs<PROD>(geo, 0, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // the layout check of the wrapper's ctypes mirror of Obs

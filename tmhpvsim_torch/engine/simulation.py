@@ -50,8 +50,10 @@ launches are enqueued back to back.
 A heterogeneous fleet (``config.fleet``) adds K7: each chain's Markov
 steps come from its weather regime's table (in K2) and its pv and meter
 take its capacity, inverter-limit and demand transforms (in every
-epilogue).  In reduce mode the telemetry (K8) and fleet analytics (K9)
-fold in the same block-step launch; each block's deltas come out
+epilogue).  In reduce mode the telemetry (K8) alone folds in the acc
+launch; with the fleet analytics (K9) on, the acc producer writes the
+block's arrays and the observer fold folds both observers over them;
+each block's deltas come out
 zero-initialised and collapsed, and the host keeps the last telemetry
 delta with its summary and merges the analytics into run totals
 (``fleet_summary``).
@@ -302,6 +304,9 @@ class Simulation:
         #: float64, on the run's device)
         self._fleet_last = None
         self._fleet_run = None
+        #: the acc producer's (T, n) arrays, kept from block to block
+        #: while the analytics are on (k3.prod_buffers)
+        self._prod_held = {}
         #: Observers of the state whose cohort ids they checked
         self._obs = (None, None)
         #: the scenario fold's sketch and, for a fleet with two or more
@@ -598,8 +603,9 @@ class Simulation:
 
     def step_acc(self, state, inputs: BlockInputs, acc):
         """One reduce block: K2 windows, then K3 (K6 for a grid) folds
-        every second into ``acc``, with the observers (K8, K9) in the same
-        launch when they are on; their block deltas land in
+        every second into ``acc``, with the telemetry (K8) in the same
+        launch, or with the analytics (K9) on as the acc producer and then
+        the observer fold (``k3.block_step_obs``); their block deltas land in
         ``_tel_last`` / ``_fleet_last``.  The wide formulation's split
         topology, and as in the JAX package any wide run with an observer
         on, instead launches the trace and then the wide fold (K4 merges,
@@ -634,7 +640,8 @@ class Simulation:
                                                 fleet=fleet, obs=obs,
                                                 kernels=ks,
                                                 compute_dtype=self._cd,
-                                                layout=lay, impl=self._impl)
+                                                layout=lay, impl=self._impl,
+                                                held=self._prod_held)
             self._tel_last, self._fleet_last = out["telemetry"], \
                 out["fleet"]
         return dict(state, carry=carry, cc_carry=cc_carry), acc

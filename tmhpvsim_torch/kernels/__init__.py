@@ -7,8 +7,10 @@ weather-regime gather and K13's and K14's windows), and the fused
 per-second block step
 (kernels/block_step.py): K3 (the reduce fold), K4 (the ensemble series
 with its cross-CTA sum, and the trace), K6 (per-chain site geometry), K7
-(fleet transforms), K8 (telemetry) and K9 (fleet analytics) with their
-chainwise collapse, K10 (the scenario fold of scenario serving) and K6s
+(fleet transforms), K8 (telemetry; with K9 on, in the observer fold)
+and K9 (fleet analytics: the acc producer, then the observer fold of
+csrc/wide_fold.cu) with their chainwise collapse, K10 (the scenario fold
+of scenario serving) and K6s
 (strided site geometry), one template over kernel set, compute dtype
 (K12), key implementation (K13, K14), epilogue, geometry mode and observers,
 whose Table instantiations inline K11 (the

@@ -26,7 +26,11 @@ Replaces, in tmhpvsim_tpu/engine/simulation.py:
 * K8 the TelemetryAcc fold of ``_block_step_scan_acc_tel`` (:1298-1337)
   and K9 the FleetAcc fold of ``_block_step_scan_acc_fleet`` (:1394-1481;
   both at once :1436, :1524), each with its ``reduce_chainwise`` collapse
-  (``block_step_obs``; obs/telemetry.py, obs/analytics.py);
+  (``block_step_obs``; obs/telemetry.py, obs/analytics.py): telemetry
+  alone in the acc launch; with analytics on two launches, the acc
+  producer (K3's statistics, writing the block's time-major meter, pv,
+  csi and covered flags, ``obs_producer``) and the observer fold over
+  them (``obs_fold``, csrc/wide_fold.cu);
 * K10 the scenario fold of ``_block_step_scan_scenario`` /
   ``_scenario_block_core`` (:1834, :1871-1937), two launches
   (``block_step_scenario``): the step writes the block's time-major meter
@@ -67,10 +71,11 @@ table lerps, the renewal step (a new cycle from ``cycle_from_u`` on
 redraw), the csi composition, ``pv.power_from_csi`` and the meter, fed by
 ``scan_draws_tmajor`` / ``meter_block_tmajor`` (models/clearsky_index.py
 :278-319).  ``block_step_plain``, ``series_plain``, ``trace_plain``,
-``block_step_obs_plain`` and ``scenario_producer_plain`` are that body
+``obs_producer_plain`` and ``scenario_producer_plain`` are that body
 (``_body_plain``) plus their epilogue, so they cannot drift apart
 (``scenario_plain`` is the producer's and ``scenario_fold_plain``'s
-composition); the CUDA kernel (csrc/block_step.cuh) is one template over
+composition, ``block_step_obs_plain`` ``obs_producer_plain``'s and
+``obs_fold_plain``'s); the CUDA kernel (csrc/block_step.cuh) is one template over
 the kernel set, the epilogue, the geometry mode and the observers, beside
 the scenario fold and the series' cross-CTA sum.
 
@@ -106,7 +111,7 @@ from tmhpvsim_torch.obs import telemetry as tel
 #: the geometry modes (csrc/block_step.cuh ``Geom``)
 GEOMS = ("shared", "site", "strided")
 _EPI_BASE = (("acc", "block_step"), ("series", "block_step_series"),
-             ("trace", "block_step_trace"))
+             ("trace", "block_step_trace"), ("prod", "block_step_prod"))
 
 
 def _counters(suffix: str) -> dict:
@@ -151,11 +156,15 @@ COMPUTE_DTYPES = ("f32", "bf16")
 K4_SUM = build.LaunchCounter("series_sum")
 #: block-step launches (any epilogue) that apply fleet transforms
 K7_FLEET = build.LaunchCounter("block_step_fleet")
-#: acc launches of the observer instantiations: telemetry only, analytics
-#: only, both
+#: blocks folded with the observers: telemetry only (the acc launch's
+#: telemetry instantiation), analytics only, both (each an acc producer
+#: launch and an observer fold)
 K8 = build.LaunchCounter("block_step_tel")
 K9 = build.LaunchCounter("block_step_analytics")
 K89 = build.LaunchCounter("block_step_tel_analytics")
+#: the observer fold over the acc producer's arrays (csrc/wide_fold.cu
+#: ``obs_fold``; the producer counts as the prod epilogue's instantiation)
+OBS_FOLD = build.LaunchCounter("obs_fold")
 #: the second pass of reduce_chainwise (per-CTA partials over CTAs)
 COLLAPSE = build.LaunchCounter("chainwise_collapse")
 #: K10's second launch, the scenario fold over the producer's meter and pv
@@ -166,8 +175,8 @@ SCN_FOLD = build.LaunchCounter("scenario_fold")
 COUNTERS = tuple(dict.fromkeys(
     [*STEP.values(), *STEP_BF16.values(), *STEP_RBG.values(),
      *STEP_RBG_BF16.values(), *STEP_URBG.values(),
-     *STEP_URBG_BF16.values()])) + (K4_SUM, K7_FLEET, K8, K9, K89, COLLAPSE,
-                                     SCN_FOLD)
+     *STEP_URBG_BF16.values()])) + (K4_SUM, K7_FLEET, K8, K9, K89,
+                                     OBS_FOLD, COLLAPSE, SCN_FOLD)
 
 #: per-second integer rows: global second, rebased hour / day / minute index
 ROWS_I = ("t", "h", "d", "m")
@@ -201,14 +210,14 @@ THREADS = 128
 #: the analytics' shared-memory histograms may take this many bytes per
 #: CTA (beyond, they count with global atomics)
 SMEM_MAX = 96 * 1024
+#: the observer, wide and scenario folds count the exceedance slots in
+#: registers up to this many thresholds (csrc/fold.cuh ``MAX_THR``)
+MAX_THR = 8
 #: the scenario fold's shared sketch (its row's residual histogram, and
 #: its exceedance slots when they do not count in registers) and its ramp
 #: flags may take this many bytes per CTA; beyond, the sketch counts with
 #: global atomics
 SCN_SMEM_MAX = 200 * 1024
-#: the scenario fold counts the exceedance slots in registers up to this
-#: many thresholds (csrc/block_step.cuh ``SCN_MAX_THR``)
-SCN_MAX_THR = 8
 #: series_sum's strands per second (csrc/block_step.cuh ``SUM_STRANDS``)
 SUM_STRANDS = 32
 
@@ -585,6 +594,66 @@ def block_step_plain(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
     return carry, stats_fold_plain(acc, rows_i[0], duration_s, meter, ac)
 
 
+def obs_producer_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
+                       acc, duration_s: int, meter_max_w: float,
+                       surface_tilt, albedo,
+                       site: SiteGeometry | None = None,
+                       fleet: FleetLeaves | None = None,
+                       kernels: str = "exact", compute_dtype: str = "f32",
+                       layout: str = "scan", impl: str = "threefry2x32"):
+    """Plain acc producer (the first launch of K9 and K8 + K9): the shared
+    body, the statistics fold, and the body's time-major ``(T, n)``
+    outputs the observer fold reads.  Returns ``(carry, acc, prod)``,
+    ``prod`` with float32 ``meter``, ``pv``, ``csi`` (before the cap, as
+    the telemetry reads it) and bool ``covered``."""
+    carry, meter, ac, csi, covered = _body_plain(
+        tables, rows_i, rows_f, k_scan, k_meter, carry, meter_max_w,
+        surface_tilt, albedo, site, fleet, kernels, compute_dtype,
+        layout=layout, impl=impl)
+    acc = stats_fold_plain(acc, rows_i[0], duration_s, meter, ac)
+    return carry, acc, {"meter": meter, "pv": ac, "csi": csi,
+                        "covered": covered}
+
+
+def obs_fold_plain(prod: dict, t, duration_s: int, obs: Observers):
+    """Plain observer fold: the observers' per-chain folds (obs/
+    telemetry.py and obs/analytics.py ``fold_second``, zero-initialised
+    for the block) second by second over the producer's ``(T, n)``
+    arrays (``t``: the ``(T,)`` global seconds), then their
+    ``reduce_chainwise``.  Returns ``out`` as ``block_step_obs_plain``'s:
+    the block's collapsed ``telemetry`` and ``fleet`` deltas (None when
+    off) and, with ``obs.per_chain``, the per-chain accs under
+    ``telemetry_chain`` / ``fleet_chain``."""
+    meter, ac = prod["meter"], prod["pv"]
+    csi, covered = prod.get("csi"), prod.get("covered")
+    n, dev = ac.shape[1], ac.device
+    cohorts = obs.n_cohorts if obs.n_cohorts >= 2 else 0
+    ta = None if obs.telemetry == "off" else \
+        tel.init_acc(obs.telemetry, n, dev)
+    fa = None if obs.analytics == "off" else \
+        flt.init_acc(obs.analytics, n, params=obs.params, cohorts=cohorts,
+                     device=dev)
+    residual = meter - ac
+    valid = t < duration_s
+    for s, ts in enumerate(t.tolist()):
+        if ta is not None:
+            ta = tel.fold_second(
+                ta, obs.telemetry, meter=meter[s], pv=ac[s], csi=csi[s],
+                residual=residual[s], covered=covered[s], valid=valid[s])
+        if fa is not None:
+            fa = flt.fold_second(
+                fa, obs.analytics, obs.params, meter=meter[s], pv=ac[s],
+                residual=residual[s],
+                covered=None if covered is None else covered[s], t=ts,
+                valid=valid[s], cohort=obs.cohort)
+    out = {"telemetry": None if ta is None else tel.reduce_chainwise(ta),
+           "fleet": None if fa is None else
+           flt.reduce_chainwise(fa, cohort=obs.cohort)}
+    if obs.per_chain:
+        out["telemetry_chain"], out["fleet_chain"] = ta, fa
+    return out
+
+
 def block_step_obs_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
                          acc, duration_s: int, meter_max_w: float,
                          surface_tilt, albedo,
@@ -593,45 +662,18 @@ def block_step_obs_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
                          obs: Observers = None, kernels: str = "exact",
                          compute_dtype: str = "f32", layout: str = "scan",
                          impl: str = "threefry2x32"):
-    """Plain K8 / K9: the acc epilogue with the observers' per-chain folds
-    (obs/telemetry.py and obs/analytics.py ``fold_second``, zero-
-    initialised for the block) beside the statistics, then their
-    ``reduce_chainwise``.  Returns ``(carry, acc, out)``; ``out`` holds
-    the block's collapsed ``telemetry`` and ``fleet`` deltas (None when
-    off) and, with ``obs.per_chain``, the per-chain accs under
-    ``telemetry_chain`` / ``fleet_chain``."""
-    carry, meter, ac, csi, covered = _body_plain(
-        tables, rows_i, rows_f, k_scan, k_meter, carry, meter_max_w,
-        surface_tilt, albedo, site, fleet, kernels, compute_dtype,
-        layout=layout, impl=impl)
-    n, dev = ac.shape[1], ac.device
-    cohorts = obs.n_cohorts if obs.n_cohorts >= 2 else 0
-    st = {"ta": None if obs.telemetry == "off" else
-          tel.init_acc(obs.telemetry, n, dev),
-          "fa": None if obs.analytics == "off" else
-          flt.init_acc(obs.analytics, n, params=obs.params,
-                       cohorts=cohorts, device=dev)}
-    t_rows = rows_i[0].tolist()
-
-    def hook(s, ok, res):
-        if st["ta"] is not None:
-            st["ta"] = tel.fold_second(
-                st["ta"], obs.telemetry, meter=meter[s], pv=ac[s],
-                csi=csi[s], residual=res, covered=covered[s], valid=ok)
-        if st["fa"] is not None:
-            st["fa"] = flt.fold_second(
-                st["fa"], obs.analytics, obs.params, meter=meter[s],
-                pv=ac[s], residual=res, covered=covered[s], t=t_rows[s],
-                valid=ok, cohort=obs.cohort)
-
-    acc = stats_fold_plain(acc, rows_i[0], duration_s, meter, ac, hook)
-    ta, fa = st["ta"], st["fa"]
-    out = {"telemetry": None if ta is None else tel.reduce_chainwise(ta),
-           "fleet": None if fa is None else
-           flt.reduce_chainwise(fa, cohort=obs.cohort)}
-    if obs.per_chain:
-        out["telemetry_chain"], out["fleet_chain"] = ta, fa
-    return carry, acc, out
+    """Plain K8 / K9, the kernels' composition: the acc producer
+    (``obs_producer_plain``: the shared body and the statistics fold),
+    then the observers' per-chain folds over its arrays and their
+    ``reduce_chainwise`` (``obs_fold_plain``).  Returns ``(carry, acc,
+    out)``; ``out`` holds the block's collapsed ``telemetry`` and
+    ``fleet`` deltas (None when off) and, with ``obs.per_chain``, the
+    per-chain accs under ``telemetry_chain`` / ``fleet_chain``."""
+    carry, acc, prod = obs_producer_plain(
+        tables, rows_i, rows_f, k_scan, k_meter, carry, acc, duration_s,
+        meter_max_w, surface_tilt, albedo, site, fleet, kernels,
+        compute_dtype, layout, impl)
+    return carry, acc, obs_fold_plain(prod, rows_i[0], duration_s, obs)
 
 
 def _scenario_check(scen):
@@ -825,7 +867,8 @@ class _Obs(ctypes.Structure):
                 ("hist_shared", ctypes.c_int), ("coh_shared", ctypes.c_int),
                 ("ramp_w", ctypes.c_int * 3), ("lo", ctypes.c_float),
                 ("inv_w", ctypes.c_float), ("capacity", ctypes.c_float),
-                ("thr", _P), ("res_hist", _P), ("exceed", _P),
+                ("thr", _P), ("thr_v", ctypes.c_float * MAX_THR),
+                ("res_hist", _P), ("exceed", _P),
                 ("cohort_hist", _P), ("cohort", _P), ("flt_part", _P),
                 ("coh_part", _P), ("flt_chain_i", _P), ("flt_chain_f", _P)]
 
@@ -841,7 +884,7 @@ class _Scen(ctypes.Structure):
                 ("capacity", ctypes.c_float), ("n", ctypes.c_int64),
                 ("t", _P), ("meter", _P), ("pv", _P), ("tame", _P),
                 ("thr", _P),
-                ("thr_v", ctypes.c_float * SCN_MAX_THR),
+                ("thr_v", ctypes.c_float * MAX_THR),
                 ("knob_f", _P * len(SCEN_F)), ("knob_i", _P * len(SCEN_I)),
                 ("cohort", _P), ("stat_f", _P * len(ACC_F)),
                 ("n_seconds", _P), ("res_hist", _P), ("exceed", _P),
@@ -956,6 +999,18 @@ def _const_tensor(values, dtype, dev):
     return t
 
 
+def _thresholds(thresholds, dev, what: str):
+    """The exceedance thresholds as a fold takes them: ``(thr, thr_v)``,
+    all of them as a float32 tensor on ``dev`` and the first ``MAX_THR``
+    by value, then +inf.  They must be ascending in float32."""
+    if (np.diff(np.asarray(thresholds, np.float32)) < 0).any():
+        raise ValueError(f"{what}: the thresholds must be ascending in "
+                         "float32")
+    thr_v = list(thresholds[:MAX_THR]) \
+        + [math.inf] * max(0, MAX_THR - len(thresholds))
+    return _const_tensor(thresholds, torch.float32, dev), thr_v
+
+
 def collapse_plain(part, kinds):
     """Plain second pass: ``(n_parts, L)`` float64 partial rows combined
     over the rows, by kind (0 sum, 1 min, 2 max); ``(L,)`` float64."""
@@ -982,7 +1037,10 @@ def collapse_partials(part, kinds):
 
 
 def _obs_buffers(obs: Observers, n: int, T: int, dev):
-    """The observers' outputs and the kernel's ``Obs`` argument."""
+    """The observers' outputs, the kernel's ``Obs`` argument and its
+    dynamic shared bytes: with analytics on, the sketch when it fits
+    ``SMEM_MAX`` (the residual bins and exceedance slots, then the cohort
+    histogram), then the T bytes of per-second ramp flags."""
     if n * T >= 2 ** 31:
         raise ValueError(f"block_step: {n} chains x {T} s passes the int32 "
                          "counts of one block")
@@ -1022,13 +1080,15 @@ def _obs_buffers(obs: Observers, n: int, T: int, dev):
         hist_shared = hist_bytes <= SMEM_MAX
         coh_shared = bool(C) and hist_shared and \
             hist_bytes + coh_bytes <= SMEM_MAX
-        smem = hist_bytes * hist_shared + coh_bytes * coh_shared
+        smem = hist_bytes * hist_shared + coh_bytes * coh_shared \
+            + -(-T // 4) * 4
         o.flt_full = int(obs.analytics == "full")
         o.bins, o.n_thr, o.lolp_k = prm.bins, ne - 1, prm.lolp_k
         o.n_cohorts, o.hist_shared, o.coh_shared = C, hist_shared, coh_shared
         o.ramp_w[:] = list(prm.ramp_windows)
         o.lo, o.inv_w, o.capacity = prm.lo, prm.inv_w, prm.capacity_w
-        o.thr = p(_const_tensor(prm.thresholds, torch.float32, dev))
+        thr, o.thr_v[:] = _thresholds(prm.thresholds, dev, "block_step")
+        o.thr = p(thr)
         o.res_hist = zeros("res_hist", (nb,), torch.int32)
         o.exceed = zeros("exceed", (ne,), torch.int32)
         o.flt_part = empty("flt_part", (n_ctas, len(FLT_KINDS)),
@@ -1111,44 +1171,201 @@ def _obs_outputs(obs: Observers, buf: dict, T: int) -> dict:
 _obs_size_checked: set = set()
 
 
+def _obs_struct_check(lib: str, entry: str = "obs_struct_size"):
+    if lib not in _obs_size_checked:
+        size = build.entry(lib, entry, [])
+        if size(None) != ctypes.sizeof(_Obs):
+            raise RuntimeError("block_step: the Obs layout differs between "
+                               "the kernel and its wrapper")
+        _obs_size_checked.add(lib)
+
+
+def prod_buffers(n: int, T: int, csi: bool, covered: bool, dev,
+                 held: dict | None = None) -> dict:
+    """The acc producer's outputs for ``n`` chains x ``T`` s: float32
+    ``meter``, ``pv`` and (with ``csi``) ``csi``, uint8 ``covered`` (with
+    ``covered``), each ``(T, n)``: 13 bytes per chain-second at most
+    (7.4 GB at 65536 chains x the default 8640 s block, 0.92 GB at 1080 s;
+    27.9 GB at the int32 ceiling n * T < 2**31).  ``held``: the caller's
+    dict that keeps the last call's buffers (the engine holds one per
+    simulation, so they go with it): reused when the shape and outputs
+    match, else dropped before new ones are made; None: new tensors.  A
+    run that cannot allocate them fails here."""
+    key = (n, T, csi, covered, str(dev))
+    if held is not None:
+        if held.get("key") == key:
+            return held["buf"]
+        held.clear()
+    names = ["meter", "pv"] + (["csi"] if csi else [])
+    size = (4 * len(names) + int(covered)) * n * T
+    try:
+        buf = {k: torch.empty((T, n), dtype=torch.float32, device=dev)
+               for k in names}
+        if covered:
+            buf["covered"] = torch.empty((T, n), dtype=torch.uint8,
+                                         device=dev)
+    except torch.cuda.OutOfMemoryError as e:
+        raise RuntimeError(
+            f"block_step: the observer fold's inputs ({size / 1e9:.3g} GB "
+            f"for {n} chains x {T} s) do not fit on {dev}; run fewer chains "
+            "per block or shorter blocks") from e
+    if held is not None:
+        held.update(key=key, buf=buf)
+    return buf
+
+
+def _acc_checks(acc, dev):
+    for k in ACC_F:
+        _check(acc[k], torch.float32, dev, f"acc {k}")
+    _check(acc["n_seconds"], torch.int32, dev, "acc n_seconds")
+
+
 def _block_step_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
                      duration_s, meter_max_w, surface_tilt, albedo, site,
                      fleet=None, obs: Observers | None = None,
                      kernels="exact", compute_dtype="f32", layout="scan",
-                     impl="threefry2x32"):
+                     impl="threefry2x32", held=None):
+    tel_on = obs is not None and obs.telemetry != "off"
+    flt_on = obs is not None and obs.analytics != "off"
+    if flt_on:
+        # two launches: the producer, then the observer fold
+        carry, acc, prod = _obs_producer_cuda(
+            tables, rows_i, rows_f, k_scan, k_meter, carry, acc, duration_s,
+            meter_max_w, surface_tilt, albedo, site, fleet, obs, kernels,
+            compute_dtype, layout, impl, held)
+        out = _obs_fold_cuda(prod, rows_i[0], duration_s, obs)
+        (K89 if tel_on else K9).launches += 1
+        return carry, acc, out
     n, T, dev, args = _common_args(tables, rows_i, rows_f, k_scan, k_meter,
                                    carry, duration_s, meter_max_w,
                                    surface_tilt, albedo, site, fleet, kernels,
                                    layout, impl)
     lib = _library(kernels, compute_dtype, impl)
-    for k in ACC_F:
-        _check(acc[k], torch.float32, dev, f"acc {k}")
-    _check(acc["n_seconds"], torch.int32, dev, "acc n_seconds")
-    fn = build.entry(lib, "block_step_acc",
-                     _COMMON + [_P] * 11 + [ctypes.c_int] * 3)
-    tel_on = obs is not None and obs.telemetry != "off"
-    flt_on = obs is not None and obs.analytics != "off"
-    o, buf, smem = (None, {}, 0)
-    if tel_on or flt_on:
-        if lib not in _obs_size_checked:
-            size = build.entry(lib, "obs_struct_size", [])
-            if size(None) != ctypes.sizeof(_Obs):
-                raise RuntimeError("block_step: the Obs layout differs "
-                                   "between the kernel and its wrapper")
-            _obs_size_checked.add(lib)
-        o, buf, smem = _obs_buffers(obs, n, T, dev)
+    _acc_checks(acc, dev)
+    fn = build.entry(lib, "block_step_acc", _COMMON + [_P] * 11
+                     + [ctypes.c_int])
+    o, buf = None, {}
+    if tel_on:
+        _obs_struct_check(lib)
+        o, buf, _ = _obs_buffers(obs, n, T, dev)
     p = build.ptr
     rc = fn(*args, *(p(carry[k]) for k in CARRY),
             *(p(acc[k]) for k in ACC_F), p(acc["n_seconds"]),
             None if o is None else ctypes.byref(o), int(tel_on),
-            int(flt_on), smem, build.stream_ptr(dev))
+            build.stream_ptr(dev))
     build.check(rc, "block_step_acc")
     _count("acc", site, fleet, kernels, compute_dtype, impl)
-    if tel_on or flt_on:
-        (K89 if tel_on and flt_on else K8 if tel_on else K9).launches += 1
     if o is None:
         return carry, acc
+    K8.launches += 1
     return carry, acc, _obs_outputs(obs, buf, T)
+
+
+def _obs_producer_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
+                       duration_s, meter_max_w, surface_tilt, albedo, site,
+                       fleet=None, obs: Observers | None = None,
+                       kernels="exact", compute_dtype="f32", layout="scan",
+                       impl="threefry2x32", held=None):
+    n, T, dev, args = _common_args(tables, rows_i, rows_f, k_scan, k_meter,
+                                   carry, duration_s, meter_max_w,
+                                   surface_tilt, albedo, site, fleet, kernels,
+                                   layout, impl)
+    _acc_checks(acc, dev)
+    want_csi, want_cov = _prod_wants(obs)
+    prod = prod_buffers(n, T, want_csi, want_cov, dev, held)
+    p = build.ptr
+    fn = build.entry(_library(kernels, compute_dtype, impl),
+                     "block_step_prod", _COMMON + [_P] * 14)
+    rc = fn(*args, *(p(carry[k]) for k in CARRY),
+            *(p(acc[k]) for k in ACC_F), p(acc["n_seconds"]),
+            *(p(prod[k]) if k in prod else None
+              for k in ("meter", "pv", "csi", "covered")),
+            build.stream_ptr(dev))
+    build.check(rc, "block_step_prod")
+    _count("prod", site, fleet, kernels, compute_dtype, impl)
+    return carry, acc, prod
+
+
+def _prod_wants(obs: Observers | None):
+    """Which of csi and the covered flags the observer fold reads."""
+    if obs is None:
+        return False, False
+    return (obs.telemetry != "off",
+            obs.telemetry == "full" or obs.analytics == "full")
+
+
+def _obs_fold_cuda(prod, t, duration_s, obs: Observers):
+    buf = _obs_fold_launch(prod, t, duration_s, obs)
+    return _obs_outputs(obs, buf, prod["meter"].shape[0])
+
+
+def _obs_fold_launch(prod, t, duration_s, obs: Observers) -> dict:
+    """The observer fold's launch alone: its partial rows and histograms
+    (``_obs_outputs`` collapses them)."""
+    meter, ac = prod["meter"], prod["pv"]
+    dev = meter.device
+    T, n = meter.shape
+    tel_on = obs.telemetry != "off"
+    if obs.analytics == "off":
+        raise ValueError("obs_fold: folds with analytics on (telemetry "
+                         "alone folds in the acc launch)")
+    want_csi, want_cov = _prod_wants(obs)
+    _check(meter, torch.float32, dev, "meter")
+    _check(ac, torch.float32, dev, "pv")
+    _check(t, torch.int32, dev, "t")
+    if ac.shape != (T, n) or t.shape != (T,):
+        raise ValueError(f"obs_fold: meter and pv must be ({T}, n), t "
+                         f"({T},)")
+    for k, want, dtype in (("csi", want_csi, torch.float32),
+                           ("covered", want_cov, torch.uint8)):
+        if want:
+            if k not in prod:
+                raise ValueError(f"obs_fold: these observers read {k}")
+            _check(prod[k], dtype, dev, k)
+            if prod[k].shape != (T, n):
+                raise ValueError(f"obs_fold: {k} must be ({T}, {n})")
+    lib = "wide_fold.cu"
+    _obs_struct_check(lib, "wide_obs_struct_size")
+    o, buf, smem = _obs_buffers(obs, n, T, dev)
+    p = build.ptr
+    fn = build.entry(lib, "obs_fold", [ctypes.c_int64, ctypes.c_int,
+                                       ctypes.c_int] + [_P] * 6
+                     + [ctypes.c_int] * 2)
+    rc = fn(n, T, int(duration_s), p(t), p(meter), p(ac),
+            p(prod["csi"]) if want_csi else None,
+            p(prod["covered"]) if want_cov else None, ctypes.byref(o),
+            int(tel_on), smem, build.stream_ptr(dev))
+    build.check(rc, "obs_fold")
+    OBS_FOLD.launches += 1
+    return buf
+
+
+def step_attrs(epi: str, geo: str, tel: bool = False, kernels="exact",
+               compute_dtype="f32", impl="threefry2x32") -> dict:
+    """A block-step instantiation's launch shape on the card (``epi``:
+    acc, series, trace, scen or prod; ``geo``: a ``GEOMS`` entry;
+    ``tel``: the acc launch's telemetry instantiation): registers, CTAs
+    per SM at 128 threads, local (spill) bytes."""
+    fn = build.entry(_library(kernels, compute_dtype, impl), "step_attrs",
+                     [ctypes.c_int] * 3 + [_P])
+    out = (ctypes.c_int * 3)()
+    codes = {"acc": 0, "series": 1, "trace": 2, "scen": 3, "prod": 4}
+    build.check(fn(codes[epi], GEOMS.index(geo), int(tel), out, None),
+                "step_attrs")
+    return {"regs": out[0], "ctas_per_sm": out[1], "local_bytes": out[2]}
+
+
+def obs_fold_attrs(n: int, obs: Observers, T: int, dev) -> dict:
+    """The observer fold's launch shape on the card at ``n`` chains:
+    registers, CTAs per SM, chain groups per CTA and CTAs (one wave)."""
+    _, _, smem = _obs_buffers(obs, n, T, dev)
+    fn = build.entry("wide_fold.cu", "obs_fold_attrs",
+                     [ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P])
+    out = (ctypes.c_int * 4)()
+    build.check(fn(n, int(obs.telemetry != "off"), smem, out, None),
+                "obs_fold_attrs")
+    return {"regs": out[0], "ctas_per_sm": out[1],
+            "groups_per_cta": out[2], "ctas": out[3], "smem": smem}
 
 
 _scen_size_checked: set = set()
@@ -1176,11 +1393,11 @@ def _scenario_producer_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry,
 def scenario_fold_layout(T: int, params: flt.FleetParams):
     """The scenario fold's shared memory for a ``T``-second block: ``(the
     sketch in shared memory, dynamic shared bytes)``.  The sketch (the
-    row's residual bins, and its exceedance slots past ``SCN_MAX_THR``
+    row's residual bins, and its exceedance slots past ``MAX_THR``
     thresholds) goes to global memory when it does not fit in
     ``SCN_SMEM_MAX`` beside the T bytes of per-second ramp flags."""
     nb, ne = params.bins + 2, len(params.thresholds) + 1
-    sketch = 4 * (nb + (0 if ne - 1 <= SCN_MAX_THR else ne))
+    sketch = 4 * (nb + (0 if ne - 1 <= MAX_THR else ne))
     flags = -(-T // 4) * 4
     if flags > SCN_SMEM_MAX:
         raise ValueError(f"scenario_fold: a {T} s block does not fit the "
@@ -1219,10 +1436,7 @@ def _scenario_fold_cuda(meter, ac, t, acc, duration_s, scen, params,
     if n * T >= 2 ** 31:
         raise ValueError(f"block_step_scenario: {n} chains x {T} s passes "
                          "the int32 counts of one block")
-    if (np.diff(np.asarray(params.thresholds, np.float32)) < 0).any():
-        raise ValueError("block_step_scenario: the thresholds must be "
-                         "ascending in float32")
-    thr = _const_tensor(params.thresholds, torch.float32, dev)
+    thr, thr_v = _thresholds(params.thresholds, dev, "block_step_scenario")
     lib = "block_step.cu"
     if lib not in _scen_size_checked:
         size = build.entry(lib, "scen_struct_size", [])
@@ -1254,8 +1468,7 @@ def _scenario_fold_cuda(meter, ac, t, acc, duration_s, scen, params,
         if tame.shape != (n,):
             raise ValueError(f"scenario_fold: tame must be ({n},)")
         q.tame = p(tame)
-    q.thr_v[:] = (list(params.thresholds[:SCN_MAX_THR])
-                  + [math.inf] * max(0, SCN_MAX_THR - ne + 1))
+    q.thr_v[:] = thr_v
     q.knob_f[:] = [p(scen[k]) for k in SCEN_F]
     q.knob_i[:] = [p(scen[k]) for k in SCEN_I]
     if cohort is not None:
@@ -1445,18 +1658,65 @@ def block_step_obs(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
                    fleet: FleetLeaves | None = None,
                    obs: Observers = None, kernels: str = "exact",
                    compute_dtype: str = "f32", layout: str = "scan",
-                   impl: str = "threefry2x32"):
+                   impl: str = "threefry2x32", held: dict | None = None):
     """``block_step_acc`` with the reduce-mode observers (K8 telemetry, K9
-    analytics) folded in the same launch: ``(carry, acc, out)``, ``out``
-    as ``block_step_obs_plain`` returns it (on the card the per-block
-    deltas come zero-initialised out of the kernel and its collapse)."""
+    analytics): ``(carry, acc, out)``, ``out`` as ``block_step_obs_plain``
+    returns it.  On the card telemetry alone folds in the acc launch; with
+    analytics on the acc producer writes the block's arrays and the
+    observer fold folds both observers over them (``obs_producer``,
+    ``obs_fold``); the per-block deltas come zero-initialised out of the
+    kernels and their collapse.  ``held``: a dict in which the producer's
+    arrays stay from one call to the next (``prod_buffers``); None: new
+    arrays each call."""
     if obs is None or (obs.telemetry == "off" and obs.analytics == "off"):
         raise ValueError("block_step_obs: no observer is on")
-    return _dispatch(k_scan, _block_step_cuda, block_step_obs_plain, tables,
+
+    def cuda(*a, **kw):
+        return _block_step_cuda(*a, **kw, held=held)
+
+    return _dispatch(k_scan, cuda, block_step_obs_plain, tables,
                      rows_i, rows_f, k_scan, k_meter, carry, acc,
                      duration_s, meter_max_w, surface_tilt, albedo, site,
                      fleet=fleet, obs=obs, kernels=kernels,
                      compute_dtype=compute_dtype, layout=layout, impl=impl)
+
+
+def obs_producer(tables, rows_i, rows_f, k_scan, k_meter, carry, acc,
+                 duration_s: int, meter_max_w: float, surface_tilt, albedo,
+                 site: SiteGeometry | None = None,
+                 fleet: FleetLeaves | None = None, obs: Observers = None,
+                 kernels: str = "exact", compute_dtype: str = "f32",
+                 layout: str = "scan", impl: str = "threefry2x32"):
+    """The acc producer on its own (the first launch of ``block_step_obs``
+    with analytics on): ``(carry, acc, prod)``, ``prod`` the block's
+    time-major ``(T, n)`` arrays that ``obs_fold`` reads for ``obs``
+    (``meter``, ``pv`` and on the card only those the observers read:
+    ``csi`` with telemetry, uint8 ``covered`` with telemetry or analytics
+    at level full; the plain version returns all four, ``covered``
+    bool).  On the card the arrays are new tensors."""
+
+    def plain(*a, obs=None, **kw):
+        return obs_producer_plain(*a, **kw)
+
+    return _dispatch(k_scan, _obs_producer_cuda, plain, tables, rows_i,
+                     rows_f, k_scan, k_meter, carry, acc, duration_s,
+                     meter_max_w, surface_tilt, albedo, site, fleet, obs=obs,
+                     kernels=kernels, compute_dtype=compute_dtype,
+                     layout=layout, impl=impl)
+
+
+def obs_fold(prod: dict, t, duration_s: int, obs: Observers):
+    """The observer fold on its own (the second launch of
+    ``block_step_obs`` with analytics on): the observers' folds of the
+    producer's ``(T, n)`` arrays (``t``: the block's ``(T,)`` int32
+    global seconds), zero-initialised for the block, and their
+    ``reduce_chainwise``.  Returns ``out`` as ``block_step_obs``'s."""
+    dev = prod["meter"].device
+    if dev.type == "cuda":
+        return _obs_fold_cuda(prod, t, duration_s, obs)
+    if dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return obs_fold_plain(prod, t, duration_s, obs)
 
 
 def block_step_scenario(tables, rows_i, rows_f, k_scan, k_meter, carry,
