@@ -83,8 +83,9 @@ Phases (any failure exits non-zero and prints no result line):
    block step under ``compute_dtype='bf16'``) against its plain bf16
    version at 65536 chains x 2 daylight blocks, bit for bit: acc on a
    shared site, on path B's grid and, strided with the table set, on path
-   B's grid; the series (sums rtol 1e-6) and the trace on a shared site,
-   the trace on path B's grid;
+   B's grid (the grid's two on the first block); the series (sums rtol
+   1e-6) and the trace on a shared site, the trace on path B's grid (the
+   first block);
    K8 + K9 on path F's fleet (path F-H's producer and the fold, checked
    as K8+K9 above);
    a difference prints its size in bf16 ULP and the bf16 step it starts
@@ -95,7 +96,7 @@ Phases (any failure exits non-zero and prints no result line):
    blocks) bit for bit; the rbg block step on 2 daylight blocks x 65536
    chains (acc in the scan, scan2 and trace layouts, series, trace, the
    site grid, bf16 acc with telemetry light; the strided table set in
-   float32 and bf16; path F's fleet: its regime windows and K8+K9 at
+   float32 and bf16 on the first block; path F's fleet: its regime windows and K8+K9 at
    level full, the rbg producer and the fold checked as K8+K9 above; the
    scenario epilogue at 16 rows); then K14
    (``prng_impl='unsafe_rbg'``: Philox key derivations, batched as jax's
@@ -104,10 +105,16 @@ Phases (any failure exits non-zero and prints no result line):
    fold_in, init_state's keys with and without a chain slab); K2's
    unsafe_rbg instantiation (init_state's launches, two blocks, a block
    of path B's grid); the unsafe_rbg block step as K13's above, with the
-   bf16 acc in every layout, and the scenario epilogue at 1, 4 and 16
+   bf16 acc in every layout (scan2 and trace on the first block), and the scenario epilogue at 1, 4 and 16
    rows; then K12 in K10 (the bf16 scenario producer and the fold)
    against its plain bf16 version at 1, 4 and 16 rows, its two launches
-   on their own as K10's.  The plain scenario fold folds all
+   on their own as K10's; then K15 (metersim's block producer) bit for
+   bit against its plain version on the card and on the host under
+   threefry2x32, rbg and unsafe_rbg, at sec0 0, 600 and 85800 and a
+   60-second block, then a day's 144 launches block for block, and the
+   first three blocks at seed 7 against the JAX producer's (their SHA-256
+   in ``tests/data/torch_port_reference.json``).  The plain scenario fold
+   folds all
    of a block's rows at once over a leading row axis; then NaNs and
    signed zeros (``phase_nan``), each result NaN where its plain version
    has one and every zero of the plain version's sign: the NaN-keeping
@@ -191,6 +198,17 @@ Phases (any failure exits non-zero and prints no result line):
       reply's sums within 1 % of the field's scale of path S's; then the
       same requests at 4096 chains x two blocks against the plain bf16
       scenario, every reply within the engine tolerance;
+   M. ``metersim_main`` over ``local://`` without realtime for a day
+      (86400 s, seed 1) on the device producer, a subscriber counting:
+      86400 messages in [0, 9000), equal to K15's plain stream, 144
+      launches;
+   SP. the streaming pair in one process over ``local://``: ``pvsim
+      --backend asyncio``'s ``pvsim_main`` (seed 1) and ``metersim_main``
+      (seed 2, device producer) from 2019-09-05 10:00 for 3600 s: at
+      least 95 % of the seconds joined, every residual meter - pv, the
+      meter column K15's plain stream (6 launches);
+   SP-T. path SP over ``tcp://`` through a ``TcpFanoutBroker`` started
+      in-process on port 0, for 600 s;
 6. each kernel and its plain version timed with CUDA events at the main
    paths' shapes (the fleet kernels on path F's noon block; K11 and K6s
    on paths R-T's and B-L's noon blocks, the K10 row reset of
@@ -200,7 +218,9 @@ Phases (any failure exits non-zero and prints no result line):
    instantiations that the bf16 paths launch on their noon blocks; K13's
    bits and the rbg windows and step that path R-P launches, with
    ``torch.rand`` beside the bits as a yardstick; K14's derivations, the
-   unsafe_rbg windows and step that path R-U launches; the acc producer
+   unsafe_rbg windows and step that path R-U launches; K15 per launch,
+   per synchronised launch and from a CUDA graph, ``torch.rand(600)``
+   beside it as a yardstick; the acc producer
    and the observer fold of paths F, F-L and F-H each on its own, the
    fold's bound its 13 bytes a chain-second); every timed
    kernel's issue bound beside its bound (``bound``'s third value:
@@ -3705,7 +3725,9 @@ def k12_where(head, carry, mw, tilt, alb, site, fleet, ks, pv_k):
 
 def phase_k12(dev):
     """K12 against its plain bf16 version at the main paths' shape,
-    65536 chains x 1080 s, 2 daylight blocks each, bit for bit: the acc
+    65536 chains x 1080 s, 2 daylight blocks (the site grid's and the
+    strided runs, and the grid's trace: the first of them), bit for bit:
+    the acc
     step with telemetry light, the launch paths R-H, B-H and B-HL make
     (the plan raises telemetry under bf16), on a shared site (the exact
     set), on path B's grid (site geometry) and on path B's grid with both
@@ -3719,13 +3741,15 @@ def phase_k12(dev):
     by its timing key (``(relative, absolute)`` where telemetry sums are
     held to float64)."""
     errs = {}
-    for key, label, extra in (
-            ("K12", "acc + K8 light, shared site", {}),
-            ("K12B", "acc + K8 light, site grid", dict(site_grid=grid_b())),
+    for key, label, extra, depth in (
+            ("K12", "acc + K8 light, shared site", {}, 2),
+            ("K12B", "acc + K8 light, site grid", dict(site_grid=grid_b()),
+             1),
             ("K12BL", "acc + K8 light, strided",
-             dict(site_grid=grid_b(), **LEVERS))):
+             dict(site_grid=grid_b(), **LEVERS), 1)):
         cfg = SimConfig(**dict(HEADLINE, start=CHECK_START, **BF16, **extra))
         sim, state, blocks = check_blocks(cfg, dev)
+        blocks = blocks[:depth]
         tilt, alb, site = sim.geometry_args(state)
         ks = sim.plan.kernel_impl
         obs = sim.observers(state)
@@ -3782,7 +3806,7 @@ def phase_k12(dev):
         if float(acc_k["pv_max"].max()) <= 10.0:
             fail(f"K12 ({label}) check blocks saw no daylight")
         errs[key] = (rel, err)
-        print(f"K12 ({label}, {ks} set) vs plain on 2 blocks x "
+        print(f"K12 ({label}, {ks} set) vs plain on {depth} block(s) x "
               f"{cfg.n_chains} chains: 7/7 statistics, the renewal carry, "
               f"{n_leaves} per-chain telemetry leaves, counts and extrema "
               f"bit-identical; telemetry sums within {rel:.3g} (relative; "
@@ -3831,7 +3855,7 @@ def phase_k12(dev):
     sim, state, blocks = check_blocks(cfg, dev)
     _, _, site = sim.geometry_args(state)
     carry_t, carry_tp = clone(state["carry"]), clone(state["carry"])
-    for ins, tables in blocks:
+    for ins, tables in blocks[:1]:
         head = head_of(state, ins, tables)
         start = clone(carry_t)
         carry_t, mk, pk = k3.block_step_trace(*head, carry_t, mw, None, None,
@@ -3848,7 +3872,7 @@ def phase_k12(dev):
                              "exact", pk))
         del mk, pk, mp, pp
     check_same("K12 trace (site grid) renewal carry", carry_t, carry_tp)
-    print(f"K12 trace on path B's grid vs plain on 2 blocks x {cfg.n_chains}"
+    print(f"K12 trace on path B's grid vs plain on 1 block x {cfg.n_chains}"
           " sites: every value and the renewal carry bit-identical")
     obs_err, _ = phase_k89(dev, BF16, "K12 K8+K9", path="F-H")
     return dict(errs, K12S=err, K12T=t_err, K12F=obs_err)
@@ -4449,7 +4473,7 @@ def phase_k13_k3(dev, keys=RBG):
     fixed-order float32 sums against float64), the trace (meter, the
     Philox stream alone, bit for bit; pv), the site grid's acc, and the
     bf16 acc with telemetry light (path R-H's instantiation; under K14 in
-    each layout).  K13's float32 statistics are held within the engine
+    each layout, scan2 and trace on the first block).  K13's float32 statistics are held within the engine
     tolerance (the count of bit-identical ones printed), every K14 check
     bit for bit."""
     impl = keys["prng_impl"]
@@ -4562,7 +4586,7 @@ def phase_k13_k3(dev, keys=RBG):
     for layout in ("scan", "scan2", "trace") if strict else ("scan",):
         ck, cp = clone(st_h["carry"]), clone(st_h["carry"])
         acc_k, acc_p = sim_h.init_reduce_acc(), sim_h.init_reduce_acc()
-        for ins, tables in hblocks:
+        for ins, tables in hblocks if layout == "scan" else hblocks[:1]:
             head = head_of(st_h, ins, tables)
             tail = (cfg_h.duration_s, mw, tilt, alb)
             kw = dict(obs=obs, compute_dtype="bf16", layout=layout,
@@ -4594,7 +4618,7 @@ def phase_k13_rest(dev, keys=RBG):
     instantiations phase_k13_k3 leaves out, against their plain versions
     at the main paths' width: the strided table set in float32 and bf16
     (block_step_{rbg,urbg}_table.cu, block_step_{rbg,urbg}_bf16_table.cu)
-    on path B's grid, 2 blocks of acc; path F's fleet: its regime windows
+    on path B's grid, the first check block of acc; path F's fleet: its regime windows
     (K7 in K2) and its acc with K8 + K9 at level full (phase_k89); the
     scenario epilogue (K10) on the noon block at 16 rows (K14: at 1, 4
     and 16), and its neutral row against the acc launch.  Every K14 check
@@ -4617,7 +4641,7 @@ def phase_k13_rest(dev, keys=RBG):
             acc_k, acc_p = sim.init_reduce_acc(), sim.init_reduce_acc()
             kw = dict(site=site, kernels="table", compute_dtype=cd,
                       impl=impl)
-            for ins, tables in blocks:
+            for ins, tables in blocks[:1]:
                 head = head_of(state, ins, tables)
                 tail = (cfg.duration_s, cfg.meter_max_w, tilt, alb)
                 ck, acc_k = k3.block_step_acc(*head, ck, acc_k, *tail, **kw)
@@ -5242,6 +5266,287 @@ def phase_path_ru(dev, reduced_r, wall_r):
 
 
 # ---------------------------------------------------------------------------
+# K15 and the streaming deployment: metersim's device producer, the fanout
+# broker and pvsim's streaming join
+
+
+#: the metersim producer's block (the JAX producer's block_s) and ceiling
+METER_BLOCK_S = 600
+METER_MAX_W = 9000.0
+#: K15's checks: block starts and sizes, the day's blocks
+K15_BLOCKS = ((0, 600), (600, 600), (85800, 600), (0, 60))
+K15_DAY = 86400
+#: path M (the JAX README's ``metersim --backend=jax --no-realtime
+#: --duration 86400 --seed 1``), paths SP / SP-T (the pair from 10:00)
+PATH_M = dict(duration_s=86400, seed=1)
+PATH_SP = dict(start="2019-09-05 10:00:00", duration_s=3600, pv_seed=1,
+               meter_seed=2)
+PATH_SPT_S = 600
+#: the share of the pair's seconds that must join
+SP_JOINED = 0.95
+
+
+def k15_plain(key, sec0, block_s, impl):
+    """K15's plain version on ``key``'s device."""
+    from tmhpvsim_torch.models import clearsky_index as tci
+
+    t = sec0 + torch.arange(block_s, dtype=torch.int64, device=key.device)
+    return tci.meter_block(key, t, METER_MAX_W, impl)
+
+
+def phase_k15(dev):
+    """K15 against its plain version bit for bit for threefry2x32, rbg and
+    unsafe_rbg: blocks at sec0 0, 600 and 85800 and a 60-second block
+    (the plain version on the card and on the host), then a whole day's
+    144 launches (the plain version on the card, block for block), then
+    the card's first three blocks at seed 7 against the JAX producer's
+    (their SHA-256 and first values in tests/data/
+    torch_port_reference.json); timed per launch (host clock around a
+    synchronised call, and device time from a CUDA graph) beside its
+    plain version and torch.rand(600) (another generator: a yardstick)."""
+    import hashlib
+
+    from tmhpvsim_torch.kernels import meter as k15
+
+    with open(os.path.join(HERE, "tests", "data",
+                           "torch_port_reference.json")) as f:
+        ref = json.load(f)["metersim"]
+    n_checks, err = 0, 0.0
+    for impl in rng.IMPLS:
+        key = rng.root_key(1, impl, dev)
+        for sec0, T in K15_BLOCKS:
+            got = k15.meter_block(key, sec0, T, METER_MAX_W, impl)
+            for where, want in (("card", k15_plain(key, sec0, T, impl)),
+                                ("host", k15_plain(key.cpu(), sec0, T,
+                                                   impl))):
+                if not torch.equal(got.cpu(), want.cpu()):
+                    fail(f"K15 {impl} at sec0 {sec0} x {T} differs from "
+                         f"its plain version on the {where}")
+                err = max(err, max_abs(got.cpu(), want.cpu()))
+                n_checks += 1
+        for b in range(K15_DAY // METER_BLOCK_S):
+            sec0 = b * METER_BLOCK_S
+            got = k15.meter_block(key, sec0, METER_BLOCK_S, METER_MAX_W,
+                                  impl)
+            if not torch.equal(got, k15_plain(key, sec0, METER_BLOCK_S,
+                                              impl)):
+                fail(f"K15 {impl}: the day's block {b} differs from its "
+                     "plain version")
+            if not bool(((got >= 0) & (got < METER_MAX_W)).all()):
+                fail(f"K15 {impl}: block {b} leaves [0, 9000)")
+        key7 = rng.root_key(ref["seed"], impl, dev)
+        vals = torch.cat([k15.meter_block(key7, b * ref["block_s"],
+                                          ref["block_s"], METER_MAX_W, impl)
+                          for b in range(ref["blocks"])]).cpu().numpy()
+        digest = hashlib.sha256(vals.astype("<f4").tobytes()).hexdigest()
+        heads = np.stack([vals[b * ref["block_s"]:b * ref["block_s"] + 4]
+                          for b in range(ref["blocks"])])
+        if digest != ref[impl]["sha256"] or not np.array_equal(
+                heads, np.asarray(ref[impl]["head"], np.float32)):
+            fail(f"K15 {impl}: the first {ref['blocks']} blocks at seed "
+                 f"{ref['seed']} differ from the JAX producer's")
+    print(f"K15 vs plain: {n_checks} blocks (sec0 0, 600, 85800 x 600 s "
+          "and 60 s; card and host plain versions) and a day's 144 "
+          "launches per key implementation (threefry2x32, rbg, "
+          "unsafe_rbg) bit-identical; the first 3 blocks at seed "
+          f"{ref['seed']} equal the JAX producer's (SHA-256)")
+    key = rng.root_key(1, "threefry2x32", dev)
+    T = METER_BLOCK_S
+
+    def launch():
+        return k15.meter_block(key, 600, T, METER_MAX_W)
+
+    def synced():
+        launch()
+        torch.cuda.synchronize()
+
+    ms = time_ms(launch, reps=50)
+    synced_ms = time_ms(synced, reps=50)
+    device_ms = time_graph_ms(launch)
+    plain = time_ms(lambda: k15_plain(key, 600, T, "threefry2x32"), reps=5)
+    yard = time_ms(lambda: torch.rand(T, device=dev), reps=50)
+    # the work the function needs: one fold_in per minute group (11) and
+    # one bits hash per second, a uniform and the multiply per second;
+    # the key read once, the values written once
+    n_groups = (T + 119) // 60
+    bms, by, ibms = bound((n_groups + T) * HASH_I, T * (UNIFORM_F + 1),
+                          8 * 2 + 4 * T)
+    print(f"timing K15 (threefry, one {T}-second block): kernel {ms:.4f} "
+          f"ms per launch ({synced_ms:.4f} ms with its copy-free "
+          f"synchronise, device time from a CUDA graph {device_ms:.4f} "
+          f"ms), plain {plain:.3f} ms, bound {bms:.6f} ms ({by}), issue "
+          f"bound {ibms:.6f} ms; torch.rand({T}) (another generator, a "
+          f"yardstick) {yard:.4f} ms")
+    return {"err": err, "ms": ms, "synced_ms": synced_ms,
+            "device_ms": device_ms, "plain_ms": plain, "bound_ms": bms,
+            "bound_by": by, "issue_bound_ms": ibms, "torch_rand_ms": yard}
+
+
+def phase_path_m(dev):
+    """Path M: ``metersim_main`` over ``local://`` without realtime for a
+    day (86400 s, seed 1) on the device producer, with a subscriber that
+    counts: 86400 messages, every value in [0, 9000) and equal to K15's
+    plain stream on the host, 144 launches (a block is filled only when
+    the previous one is used up); the wall and the time per launch."""
+    from tmhpvsim_torch.apps.metersim import metersim_main
+    from tmhpvsim_torch.obs import metrics as obs_metrics
+
+    url = "local://path-m"
+    start = _dt_start(HEADLINE["start"])
+    reg = obs_metrics.MetricsRegistry()
+
+    async def run():
+        got = []
+        ready = asyncio.Event()
+
+        async def count():
+            from tmhpvsim_torch.runtime.broker import LocalTransport
+
+            async with LocalTransport(url, "meter") as t:
+                sub = t.subscribe()
+                ready.set()
+                async for _, v in sub:
+                    got.append(v)
+
+        task = asyncio.create_task(count())
+        await asyncio.sleep(0)
+        await ready.wait()
+        await metersim_main(url, "meter", False, PATH_M["seed"],
+                            PATH_M["duration_s"], start, device=dev)
+        await asyncio.sleep(0.01)
+        task.cancel()
+        return got
+
+    with obs_metrics.use_registry(reg):
+        got, wall, launches = run_path("M", ("meter_block",),
+                                       lambda: asyncio.run(run()))
+    n = PATH_M["duration_s"]
+    if len(got) != n:
+        fail(f"path M: {len(got)} messages, not {n}")
+    if launches.get("meter_block") != n // METER_BLOCK_S:
+        fail(f"path M: {launches.get('meter_block')} K15 launches, not "
+             f"{n // METER_BLOCK_S}")
+    vals = np.asarray(got)
+    if not ((vals >= 0) & (vals < METER_MAX_W)).all():
+        fail("path M: a value outside [0, 9000)")
+    key = rng.root_key(PATH_M["seed"])
+    plain = torch.cat([k15_plain(key, b * METER_BLOCK_S, METER_BLOCK_S,
+                                 "threefry2x32")
+                       for b in range(n // METER_BLOCK_S)]).numpy()
+    if not np.array_equal(vals, plain.astype(np.float64)):
+        fail("path M: the published values differ from K15's plain stream")
+    dropped = reg.snapshot()["counters"].get("broker.dropped_total", 0)
+    print(f"path M (metersim_main over local://, device producer, "
+          f"{n} s, seed {PATH_M['seed']}, --no-realtime): {wall:.3f} s "
+          f"wall, {n / wall:.1f} messages/s; {len(got)} messages, all in "
+          f"[0, 9000) and equal to K15's plain stream; {dropped:.0f} "
+          f"dropped; {launches['meter_block']} K15 launches, "
+          f"{wall / launches['meter_block'] * 1e3:.3f} ms of wall per "
+          f"launch; launches {launches}")
+    return launches, wall
+
+
+def _dt_start(text):
+    import datetime as _dt
+
+    return _dt.datetime.fromisoformat(text)
+
+
+def run_pair_stream(dev, url, duration_s, broker=None):
+    """pvsim's streaming consumer (seed PATH_SP['pv_seed'], unbounded) and
+    metersim's device producer (seed PATH_SP['meter_seed'], ``duration_s``
+    s) in one event loop from PATH_SP['start'] over ``url``; pvsim is
+    stopped once every second is joined or a deadline passes.  Returns
+    the CSV's rows."""
+    import csv
+    import tempfile
+
+    from tmhpvsim_torch.apps.metersim import metersim_main
+    from tmhpvsim_torch.apps.pvsim import pvsim_main
+
+    start = _dt_start(PATH_SP["start"])
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "pair.csv")
+
+        async def both():
+            srv = None
+            u = url
+            if broker is not None:
+                srv = broker(port=0)
+                await srv.start()
+                u = f"tcp://127.0.0.1:{srv.port}"
+            try:
+                consumer = asyncio.ensure_future(pvsim_main(
+                    out, u, "meter", False, PATH_SP["pv_seed"], None,
+                    start))
+                await asyncio.sleep(0.3)
+                await metersim_main(u, "meter", False, PATH_SP["meter_seed"],
+                                    duration_s, start, device=dev)
+                deadline = time.monotonic() + 60
+                while time.monotonic() < deadline:
+                    await asyncio.sleep(0.02)
+                    with open(out) as f:
+                        if sum(1 for _ in f) > duration_s:
+                            break
+                consumer.cancel()
+                try:
+                    await consumer
+                except asyncio.CancelledError:
+                    pass
+            finally:
+                if srv is not None:
+                    await srv.stop()
+
+        asyncio.run(both())
+        with open(out) as f:
+            rows = list(csv.reader(f))
+    if rows[0] != ["time", "meter", "pv", "residual load"]:
+        fail(f"pair over {url}: header {rows[0]}")
+    return rows[1:]
+
+
+def phase_path_sp(dev, name, url, duration_s, broker=None):
+    """Paths SP (``local://``, 3600 s) and SP-T (``tcp://`` through an
+    in-process TcpFanoutBroker on port 0, 600 s): the pair from 10:00;
+    at least 95 % of the seconds joined, every row's residual equal to
+    meter - pv, the meter column equal to K15's plain stream for the
+    producer's seed computed on the host."""
+    import datetime as _dt
+
+    rows, wall, launches = run_path(
+        name, ("meter_block",),
+        lambda: run_pair_stream(dev, url, duration_s, broker))
+    if len(rows) < SP_JOINED * duration_s:
+        fail(f"path {name}: {len(rows)} of {duration_s} seconds joined")
+    key = rng.root_key(PATH_SP["meter_seed"])
+    n_blocks = -(-duration_s // METER_BLOCK_S)
+    plain = torch.cat([k15_plain(key, b * METER_BLOCK_S, METER_BLOCK_S,
+                                 "threefry2x32")
+                       for b in range(n_blocks)]).numpy()
+    start = _dt_start(PATH_SP["start"])
+    pv_max = 0.0
+    for t, meter, pv, residual in rows:
+        s = int((_dt.datetime.fromisoformat(t) - start).total_seconds())
+        if float(meter) - float(pv) != float(residual):
+            fail(f"path {name}: at {t} residual {residual} != meter - pv")
+        if not 0 <= s < duration_s or float(meter) != float(plain[s]):
+            fail(f"path {name}: at {t} meter {meter} is not K15's plain "
+                 "value")
+        pv_max = max(pv_max, float(pv))
+    if launches.get("meter_block") != n_blocks:
+        fail(f"path {name}: {launches.get('meter_block')} K15 launches, "
+             f"not {n_blocks}")
+    print(f"path {name} (pvsim --backend asyncio + metersim over {url}, "
+          f"{duration_s} s from {PATH_SP['start']}, seeds "
+          f"{PATH_SP['pv_seed']} / {PATH_SP['meter_seed']}): {wall:.3f} s "
+          f"wall, {len(rows)} of {duration_s} seconds joined "
+          f"({len(rows) / wall:.1f} rows/s); every residual = meter - pv, "
+          f"the meter column K15's plain stream; pv max {pv_max:.2f} W; "
+          f"launches {launches}")
+    return launches, wall, len(rows)
+
+
+# ---------------------------------------------------------------------------
 # NaNs and signed zeros: the kernels' minimum, maximum and clamp keep a NaN
 # and order -0.0 below +0.0, as jnp's and the plain versions' torch ones do
 # (csrc/nanminmax.cuh)
@@ -5671,6 +5976,7 @@ def main() -> int:
     err12 = timed("k12", phase_k12, dev)
     k13 = timed("k13", phase_k13, dev)
     err14d = timed("k14", phase_k14, dev)
+    k15 = timed("k15", phase_k15, dev)
     err13w = timed("k13_k2", phase_k13_k2, dev)
     err14w = timed("k14_k2", phase_k13_k2, dev, URBG)
     err13 = timed("k13_k3", phase_k13_k3, dev)
@@ -5725,6 +6031,13 @@ def main() -> int:
     launch_ru, walls_ru = timed("path_ru", phase_path_ru, dev, reduced_r,
                                 wall_r)
     launch_sh = timed("path_sh", phase_path_sh, dev, replies_s)
+    launch_m, wall_m = timed("path_m", phase_path_m, dev)
+    launch_sp, wall_sp, _ = timed("path_sp", phase_path_sp, dev, "SP",
+                                  "local://path-sp", PATH_SP["duration_s"])
+    from tmhpvsim_torch.runtime.tcpbroker import TcpFanoutBroker
+
+    launch_spt, _, _ = timed("path_spt", phase_path_sp, dev, "SP-T",
+                             "tcp://", PATH_SPT_S, TcpFanoutBroker)
     torch.cuda.empty_cache()
     timing = timed("timing", phase_timing, dev)
     timing.update(timed("timing_fleet", phase_timing_fleet, dev))
@@ -6014,6 +6327,25 @@ def main() -> int:
                     max_rel_err_k89_urbg=rel14r,
                     r_u_median_s=float(np.median(walls_ru["R-U"])),
                     r_median_s=float(np.median(walls_ru["R"])))
+    # K15: the metersim producer's block (timed on a 600-second block);
+    # its launches on path M (SP's and SP-T's beside them)
+    rows.append({"name": "meter_block", "route": "cuda",
+                 "source": "tmhpvsim_torch/csrc/meter.cu",
+                 "replaces": "tmhpvsim_tpu/apps/metersim.py:84",
+                 "launches": launch_m["meter_block"], "path": "M",
+                 "launches_sp": launch_sp["meter_block"],
+                 "launches_spt": launch_spt["meter_block"],
+                 "max_abs_err": k15["err"], "ms": k15["ms"],
+                 "synced_ms": k15["synced_ms"],
+                 "device_ms": k15["device_ms"],
+                 "plain_ms": k15["plain_ms"], "bound_ms": k15["bound_ms"],
+                 "bound_by": k15["bound_by"],
+                 "issue_bound_ms": k15["issue_bound_ms"],
+                 "library_ms": None, "torch_rand_ms": k15["torch_rand_ms"],
+                 "path_m_wall_s": wall_m,
+                 "path_m_wall_ms_per_launch":
+                     wall_m / launch_m["meter_block"] * 1e3,
+                 "path_sp_wall_s": wall_sp})
     add_shapes(rows, fold_shape)
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")

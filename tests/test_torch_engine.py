@@ -255,8 +255,28 @@ def test_reference_file_tracks_jax(jax_scan, jax_ensemble, jax_trace,
     assert os.path.getsize(REF) < 300_000
     with open(REF) as f:
         held = {k: v for k, v in json.load(f).items()
-                if k not in ("rbg", "unsafe_rbg")}
+                if k not in ("rbg", "unsafe_rbg", "metersim")}
     assert held == json.loads(json.dumps(doc))
+
+
+def test_reference_file_metersim_tracks_jax():
+    """The reference file's ``metersim`` section: the JAX device meter
+    producer's first three 600-second blocks at seed 7 under each key
+    implementation (their SHA-256 and first values), which chip_smoke.py's
+    ``phase_k15`` holds the card's K15 blocks to; written when missing,
+    and it must equal what the JAX package computes."""
+    from test_torch_metersim import jax_reference_blocks
+
+    sec = jax_reference_blocks()
+    with open(REF) as f:
+        doc = json.load(f)
+    if "metersim" not in doc:
+        doc["metersim"] = sec
+        with open(REF, "w") as f:
+            json.dump(doc, f, separators=(",", ":"))
+    assert os.path.getsize(REF) < 300_000
+    with open(REF) as f:
+        assert json.load(f)["metersim"] == json.loads(json.dumps(sec))
 
 
 def test_ensemble_matches_jax_scan(jax_ensemble):

@@ -661,6 +661,24 @@ def test_nan_minmax_matches_plain_on_card(card):
 
 
 @pytest.mark.cuda
+def test_k15_matches_plain_on_card(card):
+    """K15 (the metersim producer's block) against its plain version bit
+    for bit under every key implementation, aligned, far and 60-second
+    blocks, one launch each."""
+    from tmhpvsim_torch.kernels import meter as k15
+
+    for impl in rng.IMPLS:
+        key = rng.root_key(7, impl, card)
+        for sec0, T in ((0, 600), (600, 600), (85800, 600), (0, 60),
+                        (130, 600)):
+            kernels.reset_counts()
+            got = k15.meter_block(key, sec0, T, 9000.0, impl)
+            assert k15.K15.launches == 1
+            want = k15.meter_block(key.cpu(), sec0, T, 9000.0, impl)
+            assert torch.equal(got.cpu(), want), (impl, sec0, T)
+
+
+@pytest.mark.cuda
 def test_k1_matches_plain_on_card(card):
     keys = rng.split(rng.key(11, device=card), 4096)
     idx = torch.arange(4096, device=card) * 31

@@ -981,11 +981,17 @@ class TestContinuousScheduler:
 
 
 def test_make_transport_serves_local_and_names_the_rest():
-    assert isinstance(tbroker.make_transport(None, "x"),
-                      tbroker.LocalTransport)
+    """Serving runs over local:// and refuses the other schemes by name;
+    the streaming apps' transports of those schemes exist."""
+    from tmhpvsim_torch.runtime.tcpbroker import TcpTransport
+
+    for make in (tbroker.make_transport, tserver.make_transport):
+        assert isinstance(make(None, "x"), tbroker.LocalTransport)
     for url in ("tcp://127.0.0.1:5701/", "amqp://guest@host/"):
         with pytest.raises(NotImplementedError, match="not ported"):
-            tbroker.make_transport(url, "x")
+            tserver.make_transport(url, "x")
+    assert isinstance(tbroker.make_transport("tcp://127.0.0.1:5701/", "x"),
+                      TcpTransport)
 
 
 def test_local_transport_fans_out_with_meta():

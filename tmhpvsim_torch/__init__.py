@@ -7,8 +7,11 @@ Hopper card through hand-written kernels (K1 threefry, K2 sampler windows
 with the K7 regime gather, and the per-second block step: K3 reduce fold,
 K4 ensemble series and trace, K6 per-chain site geometry, K7 fleet
 transforms, K8 telemetry, K9 analytics, K10 the scenario fold behind
-scenario serving, ``tmhpvsim_torch.serve``); every kernel has a plain
-torch version that runs on CPU tensors.  Imports torch and numpy, never jax and never tmhpvsim_tpu.
+scenario serving, ``tmhpvsim_torch.serve``), and the reference's
+streaming deployment (``metersim`` with K15, the metersim producer's
+block, ``fanoutbroker`` and ``pvsim --backend asyncio``,
+``tmhpvsim_torch.apps`` and ``tmhpvsim_torch.runtime``); every kernel
+has a plain torch version that runs on CPU tensors.  Imports torch and numpy, never jax and never tmhpvsim_tpu.
 """
 
 from tmhpvsim_torch.config import (  # noqa: F401

@@ -1,5 +1,8 @@
-"""``pvsim`` on the port: a multi-chain PV + meter simulation written as CSV,
-in the JAX package's ``pvsim --backend jax`` file formats.
+"""``pvsim`` on the port, in two backends.
+
+The default (the JAX package's ``pvsim --backend jax``): a multi-chain
+PV + meter simulation on the card, written as CSV in the JAX package's
+file formats:
 
 * ``trace`` (the default): one chain's per-second rows ``time, meter, pv,
   residual load`` (the reference CSV format);
@@ -17,19 +20,41 @@ config, its resolved plan, the analytics' run totals as the ``fleet``
 section, the sentinel's verdict as the ``telemetry`` section and the
 ``precision`` section of the levers ``compute_dtype``, ``kernel_impl``,
 ``rng_batch`` and ``geom_stride``.
+
+The streaming backend (``pvsim_main``, ``--backend asyncio``): three
+concurrent tasks, a 1 Hz PV loop on the float64 golden model
+(engine/golden.py, host code by design, as in the JAX package), a meter
+consumer that subscribes to the fanout exchange with forever-reconnect,
+and a CSV writer, joined through a ``SynchronizingFunnel`` keyed by
+timestamp into ``time, meter, pv, residual load`` rows.  On shutdown the
+number of stranded half-records is warned about.
 """
 
 from __future__ import annotations
 
+import asyncio
 import csv
 import dataclasses
+import datetime as _dt
+import logging
 import time
+from collections import namedtuple
+from typing import Optional
 from zoneinfo import ZoneInfo
 
-from tmhpvsim_torch.config import SimConfig
+import numpy as np
+
+from tmhpvsim_torch.config import ModelOptions, SimConfig, Site
 from tmhpvsim_torch.engine.simulation import (REDUCE_STATS, Simulation,
                                               write_csv)
-from tmhpvsim_torch.obs.report import simulation_report, write_report
+from tmhpvsim_torch.obs import metrics as obs_metrics
+from tmhpvsim_torch.obs.report import (simulation_report, streaming_report,
+                                       write_report)
+from tmhpvsim_torch.runtime import (SynchronizingFunnel, fixedclock,
+                                    reconnect_policy)
+from tmhpvsim_torch.runtime.broker import make_transport
+
+logger = logging.getLogger(__name__)
 
 
 def write_reduced_csv(path: str, reduced: dict, ensemble: dict,
@@ -155,3 +180,182 @@ def pvsim(file: str, duration_s: int, n_chains: int, seed: int, start: str,
     if run_report:
         write_run_report(run_report, sim)
     return sim
+
+
+# ---------------------------------------------------------------------------
+# the streaming backend
+# ---------------------------------------------------------------------------
+
+#: the joined record
+Data = namedtuple("Data", ["meter", "pv"])
+
+
+class _StreamStats:
+    """Per-message latency accounting of the streaming backend.
+
+    ``publish -> join`` uses the publisher's monotonic stamp (``pub_us``
+    in the message's meta): meaningful when producer and consumer share a
+    process (local://); across hosts the clocks are unrelated and the
+    value is clamped at 0.  Both pending maps are bounded, so evicted or
+    never-joined timestamps cannot leak memory on an unbounded run."""
+
+    _MAX_PENDING = 20_000
+
+    def __init__(self, registry):
+        self.h_pub_join = registry.histogram("streaming.publish_to_join_s")
+        self.h_join_csv = registry.histogram("streaming.join_to_csv_s")
+        self.c_rows = registry.counter("pvsim.rows_written_total")
+        self._pub_us: dict = {}
+        self._join_ns: dict = {}
+
+    @staticmethod
+    def _cap(d: dict, cap: int) -> None:
+        while len(d) >= cap:
+            d.pop(next(iter(d)))  # insertion order ~ oldest timestamp
+
+    def on_consume(self, t, meta: Optional[dict]) -> None:
+        if meta and isinstance(meta.get("pub_us"), (int, float)):
+            self._cap(self._pub_us, self._MAX_PENDING)
+            self._pub_us[t] = meta["pub_us"]
+
+    def on_join(self, t) -> None:
+        now_ns = time.monotonic_ns()
+        pub = self._pub_us.pop(t, None)
+        if pub is not None:
+            self.h_pub_join.observe(max(0.0, now_ns / 1e3 - pub) / 1e6)
+        self._cap(self._join_ns, self._MAX_PENDING)
+        self._join_ns[t] = now_ns
+
+    def on_row(self, t) -> None:
+        j = self._join_ns.pop(t, None)
+        if j is not None:
+            self.h_join_csv.observe(
+                max(0.0, (time.monotonic_ns() - j) / 1e9))
+        self.c_rows.inc()
+
+
+class _JoinFront:
+    """The queue handed to the funnel in place of the writer's queue: the
+    funnel puts completed records only, so ``put`` is the join-complete
+    instant; stamp it and forward."""
+
+    __slots__ = ("_queue", "_stream")
+
+    def __init__(self, queue: asyncio.Queue, stream: _StreamStats):
+        self._queue = queue
+        self._stream = stream
+
+    async def put(self, item) -> None:
+        self._stream.on_join(item[0])
+        await self._queue.put(item)
+
+
+async def read_pv_values(funnel: SynchronizingFunnel, realtime: bool,
+                         seed=None, duration_s=None,
+                         start: Optional[_dt.datetime] = None) -> None:
+    """The 1 Hz PV loop feeding the funnel: the float64 golden model of
+    the default site, seeded from ``seed``."""
+    from tmhpvsim_torch.engine.golden import GoldenPVModel
+
+    if start is None:
+        start = _dt.datetime.now()
+    start = start.replace(microsecond=0)
+    model = GoldenPVModel(start, Site(), ModelOptions(),
+                          np.random.default_rng(seed))
+    async for t in fixedclock(rate=1, realtime=realtime, start=start,
+                              duration_s=duration_s):
+        t = t.replace(microsecond=0)
+        await funnel.put(t, pv=model.next(t))
+
+
+async def read_transport(funnel: SynchronizingFunnel, url, exchange,
+                         counter: Optional[dict] = None,
+                         stream: Optional[_StreamStats] = None) -> None:
+    """The meter consumer, reconnecting forever (jittered backoff)."""
+
+    async def run():
+        async with make_transport(url, exchange) as transport:
+            async for t, value, meta in transport.subscribe(with_meta=True):
+                if counter is not None:
+                    counter["meter"] = counter.get("meter", 0) + 1
+                if stream is not None:
+                    stream.on_consume(t, meta)
+                await funnel.put(t, meter=value)
+
+    await reconnect_policy(name="pvsim.read_transport").call(run)
+
+
+async def _no_meter_watchdog(counter: dict, url, timeout_s: float = 10.0):
+    """Warn once when no meter message arrived within ``timeout_s``: pvsim
+    points at a broker no metersim publishes to, or (local://) the pair
+    runs in separate processes."""
+    await asyncio.sleep(timeout_s)
+    if counter.get("meter", 0) == 0:
+        extra = (" local:// transports are in-process only: metersim must "
+                 "run inside the same process to join."
+                 if (url or "local://").startswith("local://") else "")
+        logger.warning("no meter messages received after %.0f s; is "
+                       "metersim publishing to this exchange?%s",
+                       timeout_s, extra)
+
+
+async def write_file(filename: str, queue: asyncio.Queue,
+                     stream: Optional[_StreamStats] = None) -> None:
+    """The CSV sink, line-buffered so that it can be followed."""
+    with open(filename, mode="w", newline="", buffering=1) as file:
+        writer = csv.writer(file)
+        writer.writerow(["time"] + list(Data._fields) + ["residual load"])
+        while True:
+            t, data = await queue.get()
+            writer.writerow([t] + list(data) + [data.meter - data.pv])
+            if stream is not None:
+                stream.on_row(t)
+            queue.task_done()
+
+
+async def pvsim_main(file, amqp_url, exchange, realtime, seed=None,
+                     duration_s=None, start=None,
+                     run_report_path: Optional[str] = None) -> None:
+    """The streaming app: the PV loop, the meter consumer and the CSV
+    writer, joined by a funnel with a 60-second lookahead (under
+    ``--no-realtime`` the local PV loop would otherwise race ahead of the
+    broker-paced meter stream and every pv-only record would be evicted
+    before its meter value arrives).  A bounded run (``duration_s``) ends
+    when the PV loop is done and the joined rows are written.
+    ``run_report_path`` writes a run report of app ``pvsim.stream`` whose
+    ``streaming`` section carries the publish -> join and join -> csv
+    latencies and the funnel, retry and broker counters."""
+    reg = obs_metrics.get_registry()
+    stream = _StreamStats(reg) if run_report_path else None
+    queue: asyncio.Queue = asyncio.Queue()
+    front = _JoinFront(queue, stream) if stream is not None else queue
+    funnel = SynchronizingFunnel(Data, front,
+                                 max_lookahead=_dt.timedelta(seconds=60))
+    counter: dict = {}
+    watchdog = asyncio.create_task(_no_meter_watchdog(counter, amqp_url))
+    tasks = [
+        asyncio.create_task(read_pv_values(funnel, realtime, seed,
+                                           duration_s, start)),
+        asyncio.create_task(read_transport(funnel, amqp_url, exchange,
+                                           counter, stream)),
+        asyncio.create_task(write_file(file, queue, stream)),
+    ]
+    try:
+        done, _ = await asyncio.wait(tasks,
+                                     return_when=asyncio.FIRST_COMPLETED)
+        for t in done:
+            t.result()
+        await queue.join()
+    finally:
+        for t in tasks:
+            t.cancel()
+        watchdog.cancel()
+        if len(funnel) > 0:
+            logger.warning("%d undelivered meter_values have been lost",
+                           len(funnel))
+        if run_report_path:
+            try:
+                write_report(run_report_path,
+                             streaming_report("pvsim.stream", reg))
+            except Exception as e:  # must not mask the run's own outcome
+                logger.warning("run report write failed: %s", e)

@@ -1,34 +1,70 @@
-"""Command line of the torch port: ``python -m tmhpvsim_torch pvsim ...``
-and ``python -m tmhpvsim_torch serve ...``.
+"""Command line of the torch port: ``python -m tmhpvsim_torch pvsim ...``,
+``metersim``, ``fanoutbroker`` and ``serve``.
 
-The flags mirror the JAX package's ``pvsim --backend jax`` flags of the
-ported slice: the three output modes, ``--chain``, site grids
-(``--site-grid`` / ``--sites-csv``), heterogeneous fleets (``--fleet-csv``
-/ ``--fleet-synth`` with ``--fleet-seed``), reduce-mode fleet analytics
-(``--analytics``), the precision levers ``--compute-dtype``,
-``--kernel-impl``, ``--geom-stride`` and ``--rng-batch``, the numerics
-telemetry and its drift sentinel (``--telemetry``, ``--telemetry-strict``),
-the key implementation ``--prng-impl`` (threefry2x32 | rbg),
-the formulation ``--block-impl`` and ``--blocks-per-dispatch`` (the JAX
-package's choices, defaults and errors), ``--output-overlap`` and
-``--realtime``.  ``--run-report PATH`` writes the run report (the JAX
-package's RunReport schema: config, the resolved plan, device, and the
-``fleet``, ``telemetry`` and ``precision`` sections).
+``pvsim``'s flags mirror the JAX package's ``pvsim`` flags of the ported
+slice.  Its default backend, ``device``, is the JAX package's ``pvsim
+--backend jax`` (the JAX CLI's default is ``asyncio``; the port's default
+is the simulation on the card, the path the port exists for, and it has
+been the port's only pvsim since the first slice): the three output
+modes, ``--chain``, site grids (``--site-grid`` / ``--sites-csv``),
+heterogeneous fleets (``--fleet-csv`` / ``--fleet-synth`` with
+``--fleet-seed``), reduce-mode fleet analytics (``--analytics``), the
+precision levers ``--compute-dtype``, ``--kernel-impl``, ``--geom-stride``
+and ``--rng-batch``, the numerics telemetry and its drift sentinel
+(``--telemetry``, ``--telemetry-strict``), the key implementation
+``--prng-impl`` (threefry2x32 | rbg), the formulation ``--block-impl`` and
+``--blocks-per-dispatch`` (the JAX package's choices, defaults and
+errors), ``--output-overlap`` and ``--realtime``.  ``--run-report PATH``
+writes the run report (the JAX package's RunReport schema: config, the
+resolved plan, device, and the ``fleet``, ``telemetry`` and ``precision``
+sections).  ``--backend asyncio`` is the streaming consumer: it
+subscribes to ``--amqp-url`` / ``--exchange``, runs the float64 golden PV
+model once per second and joins the meter stream into the CSV; the
+device backend's flags are refused there, as the JAX CLI refuses them.
+
+``metersim`` publishes 1 Hz demand to the fanout exchange: by default
+from K15 on the card (``--device cpu``: its plain version), with
+``--backend asyncio`` from the reference's per-second numpy producer.
+``fanoutbroker`` is the in-tree TCP fanout broker behind ``tcp://`` URLs.
+``--amqp-url`` takes ``local://NAME`` (in-process, the default),
+``tcp://HOST:PORT`` or an AMQP URL (needs aio-pika).  The JAX CLI's
+``--trace``, ``--obs-port`` / ``--obs-bind``, ``--metrics``, ``--chaos`` /
+``--chaos-seed`` and ``--supervise`` are not ported yet: each is refused
+with a usage error that names it.
 
 ``serve`` runs the scenario server (serve/server.py) with the JAX
 package's ``pvsim serve`` defaults on an in-process ``local://``
 transport, until SIGINT / SIGTERM.
 
-``--compile-cache DIR`` (both commands) builds and loads the CUDA kernels'
-libraries under DIR instead of inside the package (kernels/build.py), so
-that an installed, read-only package can build them.
+``--compile-cache DIR`` (pvsim, metersim and serve) builds and loads the
+CUDA kernels' libraries under DIR instead of inside the package
+(kernels/build.py), so that an installed, read-only package can build
+them.
 """
 
 from __future__ import annotations
 
 import argparse
 import datetime as _dt
+import logging
+import os
 import sys
+
+#: the JAX CLI's flags of the streaming commands that the port has not
+#: ported yet (tracing, the live ops plane, metrics sinks, fault
+#: injection, the supervisor): refused by name
+WAITING_FLAGS = ("--trace", "--obs-port", "--obs-bind", "--metrics",
+                 "--chaos", "--chaos-seed", "--supervise")
+#: the flags only the device backend of pvsim takes, with their defaults
+DEVICE_ONLY = {"output": "trace", "chain": 0, "chains": 1, "block_s": None,
+               "fleet_csv": None, "fleet_synth": None, "site_grid": None,
+               "sites_csv": None, "fleet_seed": 0, "analytics": "off",
+               "kernel_impl": "auto", "geom_stride": "0",
+               "block_impl": "auto", "blocks_per_dispatch": 0,
+               "rng_batch": "auto", "compute_dtype": "auto",
+               "telemetry": "off", "telemetry_strict": False,
+               "output_overlap": "auto", "prng_impl": "threefry2x32",
+               "compile_cache": None}
 
 
 def _parse_site_grid(spec):
@@ -47,6 +83,41 @@ def _parse_site_grid(spec):
     except ValueError as e:
         raise SystemExit(f"pvsim: bad --site-grid {spec!r} (want "
                          "LAT0:LAT1:NLAT,LON0:LON1:NLON)") from e
+
+
+def _waiting_dest(flag: str) -> str:
+    return "waiting_" + flag[2:].replace("-", "_")
+
+
+def _stream_options(sp) -> None:
+    """The streaming commands' transport and logging flags, and the JAX
+    CLI's flags that wait (hidden; refused by name in ``main``)."""
+    sp.add_argument("--amqp-url", default=os.environ.get("AMQP_URL"),
+                    help="broker URL: local://NAME (in-process, the "
+                         "default 'local://default'), tcp://HOST:PORT (the "
+                         "fanoutbroker command) or amqp://... (RabbitMQ, "
+                         "needs aio-pika); env AMQP_URL")
+    sp.add_argument("--exchange",
+                    default=os.environ.get("TMHPVSIM_EXCHANGE", "meter"),
+                    help="the fanout exchange (default 'meter'; env "
+                         "TMHPVSIM_EXCHANGE)")
+    sp.add_argument("-v", "--verbose", action="count", default=0,
+                    help="raise the log level from WARNING")
+    for flag in WAITING_FLAGS:
+        sp.add_argument(flag, dest=_waiting_dest(flag), default=None,
+                        help=argparse.SUPPRESS)
+
+
+def _setup_logging(verbose: int) -> None:
+    logging.basicConfig(level=max(logging.DEBUG,
+                                  logging.WARNING - 10 * verbose))
+
+
+def _parse_start(parser, start):
+    try:
+        return _dt.datetime.fromisoformat(start) if start else None
+    except ValueError:
+        parser.error(f"bad --start {start!r} (want 'YYYY-MM-DD HH:MM:SS')")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -68,12 +139,16 @@ def _parser() -> argparse.ArgumentParser:
     pv.add_argument("--no-realtime", dest="realtime", action="store_false",
                     help="switch off rate limiting (required for reduce)")
     pv.add_argument("--chains", type=int, default=1)
-    pv.add_argument("--duration", type=int, required=True,
-                    help="simulated seconds")
+    pv.add_argument("--duration", type=int, default=None,
+                    help="simulated seconds (required with the device "
+                         "backend; asyncio: stop after this many, default "
+                         "never)")
     pv.add_argument("--block-s", type=int, default=None,
                     help="seconds per block, a multiple of 60 "
                          "(default: min(8640, duration))")
-    pv.add_argument("--seed", type=int, default=0)
+    pv.add_argument("--seed", type=int, default=None,
+                    help="PRNG seed (device backend: default 0; asyncio: "
+                         "default nondeterministic)")
     pv.add_argument("--start", default=None,
                     help="start time 'YYYY-MM-DD HH:MM:SS' (default: now)")
     grid = pv.add_mutually_exclusive_group()
@@ -172,7 +247,16 @@ def _parser() -> argparse.ArgumentParser:
                          "see config.SimConfig.prng_impl)")
     pv.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="cuda (default) runs the kernels; cpu runs their "
-                         "plain torch versions")
+                         "plain torch versions (the asyncio backend is "
+                         "host code either way)")
+    pv.add_argument("--backend", choices=["device", "asyncio"],
+                    default="device",
+                    help="device (default): the blockwise simulation on the "
+                         "card, no broker (the JAX CLI's --backend jax); "
+                         "asyncio: the streaming consumer, joining the "
+                         "meter stream of --amqp-url with the golden PV "
+                         "model (the JAX CLI's default)")
+    _stream_options(pv)
 
     sv = sub.add_parser("serve", help="long-lived scenario server: a warm "
                         "simulation answering what-if queries")
@@ -214,7 +298,43 @@ def _parser() -> argparse.ArgumentParser:
     sv.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="cuda (default) runs the kernels; cpu runs their "
                          "plain torch versions")
-    for sp in (pv, sv):
+    mt = sub.add_parser("metersim", help="1 Hz demand producer publishing "
+                        "to a fanout exchange")
+    _stream_options(mt)
+    mt.add_argument("--realtime", dest="realtime", action="store_true",
+                    default=True,
+                    help="publish on the 1 Hz wall-clock grid (default)")
+    mt.add_argument("--no-realtime", dest="realtime", action="store_false",
+                    help="switch off rate limiting (for simulation)")
+    mt.add_argument("--seed", type=int, default=None,
+                    help="PRNG seed (default: nondeterministic)")
+    mt.add_argument("--duration", type=int, default=None,
+                    help="stop after this many simulated seconds (default: "
+                         "run forever)")
+    mt.add_argument("--start", default=None,
+                    help="simulation start 'YYYY-MM-DD HH:MM:SS' (default: "
+                         "now)")
+    mt.add_argument("--backend", choices=["device", "asyncio"],
+                    default="device",
+                    help="device (default): K15 fills 600-second blocks on "
+                         "the card (the JAX CLI's --backend jax); asyncio: "
+                         "per-second numpy sampling (the reference's)")
+    mt.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="the device backend's device: cuda (default) "
+                         "launches K15; cpu runs its plain version")
+
+    fb = sub.add_parser("fanoutbroker", help="TCP fanout broker for "
+                        "tcp:// URLs (the in-tree stand-in for RabbitMQ)")
+    fb.add_argument("--host", default="127.0.0.1",
+                    help="interface to listen on (default 127.0.0.1)")
+    fb.add_argument("--port", type=int, default=5673,
+                    help="TCP port (default 5673; 0 picks a free one)")
+    fb.add_argument("--max-backlog", type=int, default=None,
+                    help="per-subscriber buffered messages before the "
+                         "oldest is dropped (default 10000; "
+                         "tcpbroker.dropped_total counts the drops)")
+    fb.add_argument("-v", "--verbose", action="count", default=0)
+    for sp in (pv, mt, sv):
         sp.add_argument("--compile-cache", default=None, metavar="DIR",
                         help="directory the CUDA kernels are built into "
                              "and loaded from (default: _build inside "
@@ -257,14 +377,81 @@ def serve(args) -> int:
     return 0
 
 
+def fanoutbroker(args) -> int:
+    from tmhpvsim_torch.runtime import asyncrun
+    from tmhpvsim_torch.runtime.tcpbroker import (MAX_SUBSCRIBER_BACKLOG,
+                                                  TcpFanoutBroker)
+
+    _setup_logging(args.verbose)
+
+    async def run():
+        broker = TcpFanoutBroker(
+            args.host, args.port,
+            max_backlog=(MAX_SUBSCRIBER_BACKLOG if args.max_backlog is None
+                         else args.max_backlog))
+        await broker.start()
+        print(f"fanout broker listening on {broker.host}:{broker.port}",
+              file=sys.stderr, flush=True)
+        await broker.serve_forever()
+
+    asyncrun(run())
+    return 0
+
+
+def metersim(args, parser) -> int:
+    from tmhpvsim_torch.apps.metersim import metersim_main
+    from tmhpvsim_torch.runtime import asyncrun
+
+    if args.compile_cache is not None and args.backend != "device":
+        parser.error("--compile-cache requires --backend=device")
+    start = _parse_start(parser, args.start)
+    _setup_logging(args.verbose)
+    try:
+        asyncrun(metersim_main(args.amqp_url, args.exchange, args.realtime,
+                               args.seed, args.duration, start,
+                               backend=args.backend, device=args.device))
+    except (ValueError, RuntimeError) as e:
+        raise SystemExit(f"metersim: {e}") from e
+    return 0
+
+
+def pvsim_stream(args, parser) -> int:
+    """``pvsim --backend asyncio``: the streaming consumer."""
+    from tmhpvsim_torch.apps.pvsim import pvsim_main
+    from tmhpvsim_torch.runtime import asyncrun
+
+    for name, default in DEVICE_ONLY.items():
+        if getattr(args, name) != default:
+            parser.error(f"--{name.replace('_', '-')} requires "
+                         "--backend=device")
+    start = _parse_start(parser, args.start)
+    _setup_logging(args.verbose)
+    asyncrun(pvsim_main(args.file, args.amqp_url, args.exchange,
+                        args.realtime, args.seed, args.duration, start,
+                        run_report_path=args.run_report))
+    return 0
+
+
 def main(argv=None) -> int:
-    args = _parser().parse_args(argv)
+    parser = _parser()
+    args = parser.parse_args(argv)
+    for flag in WAITING_FLAGS:
+        if getattr(args, _waiting_dest(flag), None) is not None:
+            parser.error(f"{flag} is not ported to tmhpvsim_torch yet")
+    if args.command == "fanoutbroker":
+        return fanoutbroker(args)
+    if args.command == "pvsim" and args.backend == "asyncio":
+        return pvsim_stream(args, parser)
     if args.compile_cache is not None:
         from tmhpvsim_torch.kernels import build
 
         build.set_build_dir(args.compile_cache)
     if args.command == "serve":
         return serve(args)
+    if args.command == "metersim":
+        return metersim(args, parser)
+    if args.duration is None:
+        parser.error("--duration is required with --backend=device")
     if args.realtime and args.output == "reduce":
         raise SystemExit("pvsim: reduce mode needs --no-realtime")
     if args.fleet_synth is not None and args.fleet_synth < 1:
@@ -294,7 +481,8 @@ def main(argv=None) -> int:
     start = args.start or _dt.datetime.now().replace(
         microsecond=0).isoformat(" ")
     try:
-        pvsim(args.file, args.duration, args.chains, args.seed, start,
+        pvsim(args.file, args.duration, args.chains,
+              0 if args.seed is None else args.seed, start,
               chain=args.chain, block_s=args.block_s,
               realtime=args.realtime, site_grid=site_grid,
               output=args.output, output_overlap=args.output_overlap,

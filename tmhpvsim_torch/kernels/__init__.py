@@ -16,12 +16,14 @@ of scenario serving) and K6s
 whose Table instantiations inline K11 (the
 table transcendentals, also on their own in kernels/tables.py); and the
 K4 merges of the wide formulation (kernels/wide.py: the statistics fold
-with the wide observer folds, and the per-second series).  Each
+with the wide observer folds, and the per-second series); and K15, the
+metersim producer's block of demand values (kernels/meter.py).  Each
 wrapper runs its plain version on CPU tensors and its kernel on CUDA
 tensors, and counts its launches.
 """
 
 from tmhpvsim_torch.kernels import block_step as _block_step
+from tmhpvsim_torch.kernels import meter as _meter
 from tmhpvsim_torch.kernels import tables as _tables
 from tmhpvsim_torch.kernels import wide as _wide
 from tmhpvsim_torch.kernels.threefry import K1, K13, K14
@@ -30,7 +32,7 @@ from tmhpvsim_torch.kernels.windows import K2, K2_RBG, K2_URBG, K7_REGIME
 #: every kernel's launch counter, in path order
 COUNTERS = (K1, K13, K14, K2, K2_RBG, K2_URBG, K7_REGIME) \
     + _block_step.COUNTERS \
-    + _tables.COUNTERS + _wide.COUNTERS
+    + _tables.COUNTERS + _wide.COUNTERS + (_meter.K15,)
 
 
 def reset_counts() -> None:

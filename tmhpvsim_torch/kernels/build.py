@@ -9,8 +9,9 @@ K13's and K14's windows),
 ``block_step_bf16.cu`` and ``block_step_bf16_table.cu`` (the same under
 ``compute_dtype='bf16'``, K12), the four ``block_step_rbg*.cu`` (the same
 four under ``prng_impl='rbg'``, K13), the four ``block_step_urbg*.cu`` (under
-``prng_impl='unsafe_rbg'``, K14), ``tables.cu`` (K11 on its own) and
-``wide_fold.cu`` (the K4 merges) — compiles, in parallel with the
+``prng_impl='unsafe_rbg'``, K14), ``tables.cu`` (K11 on its own),
+``wide_fold.cu`` (the K4 merges) and ``meter.cu`` (K15, the metersim
+producer's block) — compiles, in parallel with the
 others, into its own shared
 library with a plain C interface, for ``sm_90a``; the headers of
 ``HEADERS`` key every library's hash.  The model
@@ -51,7 +52,7 @@ SOURCES = ("block_step.cu", "block_step_table.cu", "block_step_bf16.cu",
            "block_step_rbg_bf16_table.cu", "block_step_urbg.cu",
            "block_step_urbg_table.cu", "block_step_urbg_bf16.cu",
            "block_step_urbg_bf16_table.cu", "threefry.cu", "philox.cu",
-           "windows.cu", "tables.cu", "wide_fold.cu")
+           "windows.cu", "tables.cu", "wide_fold.cu", "meter.cu")
 HEADERS = ("threefry.cuh", "philox.cuh", "block_step.cuh", "tables.cuh",
            "fold.cuh", "bf16.cuh", "nanminmax.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

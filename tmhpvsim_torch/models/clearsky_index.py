@@ -180,6 +180,34 @@ def meter_block_tmajor(keys, g0: int, n_groups: int, max_w: float,
                            g0, n_groups, layout, impl)
 
 
+def minute_grouped_keys(key, t, impl="threefry2x32"):
+    """Per-minute keys covering the contiguous seconds ``t`` (any
+    alignment): key i is ``fold_in(key, t[0] // 60 + i)``, made under a
+    vmap over the minutes (an unsafe_rbg fold of that batch takes the
+    first minute's seed, rng.py), with ``(T + 119) // 60`` groups (11 for
+    a 600-second block).  Returns ``(keys (n_groups, w), offsets (T,))``,
+    ``offsets`` indexing each second into the flat ``(n_groups, 60)``
+    draw table."""
+    g0 = int(t[0]) // 60
+    n_groups = (t.shape[0] + 119) // 60
+    keys = rng.fold_in(key, _idx(g0, n_groups, key.device), impl)
+    return keys, t - g0 * 60
+
+
+def meter_block(key, t, max_w: float, impl="threefry2x32"):
+    """The metersim producer's stream: ``max_w * uniform(k_g, (60,))`` of
+    each minute key of ``minute_grouped_keys`` (the uniforms under a vmap
+    over the keys: rbg and unsafe_rbg draw the whole ``(n_groups, 60)``
+    table from the first key's stream), gathered by each second's offset;
+    ``key`` one ``(w,)`` root key, ``t`` int64 seconds from the run's
+    start.  K15's plain version (kernels/meter.py).  Not the engine's
+    ``meter_block_tmajor``, whose vmap over chains nests the draws
+    differently."""
+    kg, off = minute_grouped_keys(key, t, impl)
+    draws = rng.uniform(kg, (60,), impl=impl)
+    return max_w * draws.reshape(-1)[off]
+
+
 def value_major_tables(arrays, minute_vals):
     """Window values transposed to value-major ``(n_values, chains)``."""
     return {

@@ -1,6 +1,6 @@
-"""Host-side metrics of the serving layer: counters, gauges, histograms
-(own copy of the part of the JAX package's obs/metrics.py that the server
-and the batchers use).
+"""Host-side metrics of the serving and streaming layers: counters, gauges,
+histograms (own copy of the part of the JAX package's obs/metrics.py that
+the server, the batchers and the streaming runtime use).
 
 A registry hands out named metrics; :func:`get_registry` is the process
 default, and :func:`use_registry` installs a fresh one for a scope (a
@@ -55,6 +55,9 @@ class Gauge:
 
     def set(self, value: float) -> None:
         self._v = float(value)
+
+    def add(self, delta: float) -> None:
+        self._v += float(delta)
 
     @property
     def value(self) -> float:

@@ -10,7 +10,10 @@ package's ``validate_report``) pick it out and check it.  The port fills
 identity, not its rows), ``plan`` (the resolved plan in the JAX plan
 echo's keys), ``fleet`` (``fleet_summary()``), ``precision``
 (``precision_doc()``) and ``telemetry`` (the drift sentinel's report, when
-telemetry observed the run); every other section is None.
+telemetry observed the run); a streaming run (``pvsim --backend asyncio``,
+:func:`streaming_report`) fills ``metrics`` (the registry's snapshot),
+``streaming`` (the join's latencies and the funnel, retry and broker
+counters) and, paced at 1 Hz, ``realtime``; every other section is None.
 
 ``validate_report`` is the JAX validator's top level: required keys,
 types, no unknown keys, the fleet section's cohort rows, and a
@@ -28,6 +31,8 @@ import time
 from typing import Optional
 
 import torch
+
+from tmhpvsim_torch.obs.metrics import quantile_from_snapshot
 
 #: the JAX package's RunReport schema version and kind (obs/report.py)
 REPORT_SCHEMA_VERSION = 16
@@ -257,6 +262,81 @@ def simulation_report(app: str, sim) -> dict:
                precision=sim.precision_doc(),
                telemetry=(None if sim.sentinel is None
                           else sim.sentinel.report()))
+    return validate_report(doc)
+
+
+def _latency_doc(snap: Optional[dict]) -> Optional[dict]:
+    """Quantile summary of one latency histogram's snapshot."""
+    if not snap or not snap.get("count"):
+        return None
+    return {"count": snap["count"], "mean_s": snap.get("mean"),
+            "min_s": snap.get("min"), "max_s": snap.get("max"),
+            "p50_s": quantile_from_snapshot(snap, 0.50),
+            "p90_s": quantile_from_snapshot(snap, 0.90),
+            "p99_s": quantile_from_snapshot(snap, 0.99)}
+
+
+def _sum_prefixed(counters: dict, prefix: str) -> float:
+    return sum(v for k, v in counters.items() if k.startswith(prefix))
+
+
+def streaming_section(snap: dict) -> Optional[dict]:
+    """The ``streaming`` section from the metric names of the streaming
+    runtime (funnel, retry, brokers, pvsim's join accounting); None when
+    the run streamed nothing."""
+    hists = snap.get("histograms", {})
+    gauges = snap.get("gauges", {})
+    counters = snap.get("counters", {})
+    if not ("streaming.publish_to_join_s" in hists
+            or "streaming.join_to_csv_s" in hists
+            or any(k.startswith(("funnel.", "broker.", "retry."))
+                   for k in list(counters) + list(gauges))):
+        return None
+    return {
+        "publish_to_join": _latency_doc(
+            hists.get("streaming.publish_to_join_s")),
+        "join_to_csv": _latency_doc(hists.get("streaming.join_to_csv_s")),
+        "rows_written": int(counters.get("pvsim.rows_written_total", 0)),
+        "funnel": {
+            "pending_high_water":
+                int(gauges.get("funnel.pending_high_water", 0)),
+            "evictions": int(counters.get("funnel.evicted_total", 0)),
+            "stall_suspends":
+                int(counters.get("funnel.stall_suspends_total", 0)),
+            "backpressure_waits":
+                int(counters.get("funnel.backpressure_waits_total", 0)),
+        },
+        "retry": {
+            "attempts": int(_sum_prefixed(counters, "retry.attempts.")),
+            "exhausted": int(_sum_prefixed(counters, "retry.exhausted.")),
+        },
+        "broker": {
+            "connects": int(counters.get("broker.connects_total", 0)),
+            "reconnects": int(counters.get("broker.reconnects_total", 0)),
+            "published": int(counters.get("broker.published_total", 0)),
+            "delivered": int(counters.get("broker.delivered_total", 0)),
+        },
+    }
+
+
+def streaming_report(app: str, registry) -> dict:
+    """The validated report of a streaming run (host code: device cpu):
+    the registry's snapshot as ``metrics``, its ``streaming`` section and,
+    when the clock paced the run, its ``realtime`` section."""
+    snap = registry.snapshot()
+    gauges = snap["gauges"]
+    doc = {k: None for k in _TOP_SCHEMA}
+    doc.update(schema_version=REPORT_SCHEMA_VERSION, kind=REPORT_KIND,
+               app=app,
+               created_utc=time.strftime("%Y-%m-%dT%H:%M:%SZ",
+                                         time.gmtime()),
+               device=device_info("cpu"), metrics=snap,
+               streaming=streaming_section(snap))
+    if "clock.pacing_lag_s" in gauges:
+        doc["realtime"] = {
+            "pacing_lag_s": gauges["clock.pacing_lag_s"],
+            "pacing_slip_total_s": gauges.get("clock.pacing_slip_total_s",
+                                              0.0)}
     return validate_report(doc)
 
 

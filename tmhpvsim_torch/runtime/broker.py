@@ -69,6 +69,14 @@ def _count_connect(url: str, exchange: str) -> None:
         seen.add((url, exchange))
 
 
+def _pub_counter():
+    return obs_metrics.get_registry().counter("broker.published_total")
+
+
+def _deliver_counter():
+    return obs_metrics.get_registry().counter("broker.delivered_total")
+
+
 #: per-subscriber buffered messages before the oldest is dropped (a
 #: subscriber that stopped reading must not grow without bound)
 MAX_CONSUMER_BACKLOG = 10_000
@@ -137,14 +145,13 @@ class LocalTransport:
     async def publish(self, value: float, time: _dt.datetime,
                       meta: Optional[dict] = None) -> None:
         self._broker.publish(self._exchange, encode(value, time, meta))
-        obs_metrics.get_registry().counter("broker.published_total").inc()
+        _pub_counter().inc()
 
     async def subscribe(self, with_meta: bool = False) -> AsyncIterator:
         """Yields ``(time, value)``, or ``(time, value, meta)`` with
         ``with_meta=True``."""
         q = self._broker.bind(self._exchange)
-        deliver = obs_metrics.get_registry().counter(
-            "broker.delivered_total")
+        deliver = _deliver_counter()
         try:
             while True:
                 msg = await q.get()
@@ -154,14 +161,80 @@ class LocalTransport:
             self._broker.unbind(self._exchange, q)
 
 
+class AmqpTransport:
+    """Fanout pub/sub over a RabbitMQ broker through ``aio_pika``.
+
+    The reference's topology: a named fanout exchange; a publisher without
+    confirms whose publish is shielded from cancellation; a consumer with
+    an exclusive queue and prefetch 1.  ``meta`` rides in the AMQP
+    headers; a timestamp delivered as POSIX seconds is read as a naive
+    local datetime.
+    """
+
+    def __init__(self, url: str, exchange: str):
+        try:
+            import aio_pika
+        except ImportError as err:
+            raise RuntimeError(
+                "aio_pika is not installed; use a local:// or tcp:// URL, "
+                "or install aio-pika for AMQP") from err
+        self._aio_pika = aio_pika
+        self._url = url
+        self._exchange_name = exchange
+        self._conn = None
+
+    async def __aenter__(self):
+        ap = self._aio_pika
+        self._conn = await ap.connect_robust(self._url)
+        self._channel = await self._conn.channel()
+        self._exchange = await self._channel.declare_exchange(
+            self._exchange_name, ap.ExchangeType.FANOUT)
+        _count_connect(self._url, self._exchange_name)
+        return self
+
+    async def __aexit__(self, *exc):
+        if self._conn is not None:
+            await self._conn.close()
+        return False
+
+    async def publish(self, value: float, time: _dt.datetime,
+                      meta: Optional[dict] = None) -> None:
+        msg = self._aio_pika.Message(body=json.dumps(value).encode(),
+                                     timestamp=time, headers=meta or None)
+        await asyncio.shield(self._exchange.publish(msg, routing_key=""))
+        _pub_counter().inc()
+
+    async def subscribe(self, with_meta: bool = False) -> AsyncIterator:
+        """Yields ``(time, value)``, or ``(time, value, meta)`` with
+        ``with_meta=True``."""
+        await self._channel.set_qos(prefetch_count=1)
+        queue = await self._channel.declare_queue(exclusive=True)
+        await queue.bind(self._exchange)
+        deliver = _deliver_counter()
+        async with queue.iterator() as it:
+            async for message in it:
+                async with message.process():
+                    ts = message.timestamp
+                    if isinstance(ts, (int, float)):
+                        ts = _dt.datetime.fromtimestamp(ts)
+                    deliver.inc()
+                    value = json.loads(message.body.decode())
+                    if with_meta:
+                        meta = (dict(message.headers) if message.headers
+                                else None)
+                        yield ts, value, meta
+                    else:
+                        yield ts, value
+
+
 def make_transport(url: Optional[str], exchange: str):
-    """The transport of a URL: ``local://`` (the default) is the
-    in-process broker; ``tcp://`` and ``amqp://`` are not ported yet."""
+    """The transport of a URL: ``local://`` (the default) the in-process
+    broker, ``tcp://`` the in-tree TCP fanout broker, anything else AMQP."""
     url = url or "local://default"
     if url.startswith("local://"):
         return LocalTransport(url, exchange)
-    scheme = url.split("://", 1)[0] if "://" in url else url
-    raise NotImplementedError(
-        f"transport {scheme}:// is not ported to tmhpvsim_torch yet (the "
-        "tcp:// and amqp:// transports of tmhpvsim_tpu/runtime are still "
-        "to port); use a local://NAME URL")
+    if url.startswith("tcp://"):
+        from tmhpvsim_torch.runtime.tcpbroker import TcpTransport
+
+        return TcpTransport(url, exchange)
+    return AmqpTransport(url, exchange)

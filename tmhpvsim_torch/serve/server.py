@@ -50,7 +50,7 @@ import torch
 from tmhpvsim_torch.config import SimConfig
 from tmhpvsim_torch.obs import analytics as flt
 from tmhpvsim_torch.obs import metrics as obs_metrics
-from tmhpvsim_torch.runtime.broker import make_transport
+from tmhpvsim_torch.runtime import broker
 from tmhpvsim_torch.runtime.resilience import (CircuitBreaker,
                                                ResiliencePolicy, forever)
 from tmhpvsim_torch.serve import schema
@@ -58,6 +58,18 @@ from tmhpvsim_torch.serve.batcher import ContinuousBatcher, MicroBatcher
 from tmhpvsim_torch.serve.schema import Request, RequestError
 
 logger = logging.getLogger(__name__)
+
+
+def make_transport(url: Optional[str], exchange: str):
+    """The serving transport of a URL: ``local://`` only.  The streaming
+    apps also run over ``tcp://`` and ``amqp://``; serving over them waits
+    for the serving tier beyond one worker, and is refused by name."""
+    if url and not url.startswith("local://"):
+        scheme = url.split("://", 1)[0] if "://" in url else url
+        raise NotImplementedError(
+            f"serving over {scheme}:// is not ported to tmhpvsim_torch yet; "
+            "use a local://NAME URL")
+    return broker.make_transport(url, exchange)
 
 #: completed request ids remembered for duplicate rejection (an LRU)
 RECENT_IDS_CAP = 4096
