@@ -97,7 +97,8 @@ Phases (any failure exits non-zero and prints no result line):
    chains (acc in the scan, scan2 and trace layouts, series, trace, the
    site grid, bf16 acc with telemetry light; the strided table set in
    float32 and bf16 on the first block; path F's fleet: its regime windows and K8+K9 at
-   level full, the rbg producer and the fold checked as K8+K9 above; the
+   level full, the rbg producer and the fold checked as K8+K9 above on the noon
+   block; the
    scenario epilogue at 16 rows); then K14
    (``prng_impl='unsafe_rbg'``: Philox key derivations, batched as jax's
    vmap batches them) bit for bit: K14 in K1 (init_state's unbatched and
@@ -209,6 +210,26 @@ Phases (any failure exits non-zero and prints no result line):
       meter column K15's plain stream (6 launches);
    SP-T. path SP over ``tcp://`` through a ``TcpFanoutBroker`` started
       in-process on port 0, for 600 s;
+   the sharded phase (``tmhpvsim_torch.parallel``, after path H): (a)
+      NCCL in a group of one, joined through the package's
+      ``distributed.initialize``: R-N1 (path R's config through
+      ``ShardedSimulation``: rows bit for bit and ``ensemble_stats``
+      equal to path R's), A-N1 (path A's config over 4 blocks: means bit
+      for bit against A's first 4 blocks), F-N1 (path F's fleet with both
+      observers full over 4 blocks from 11:00) and F-NaN-N1 (2 blocks,
+      NaN fleet leaves in chains past 32768) bit for bit against their
+      unsharded runs; (b) the same four over two ranks on the one card
+      (this script re-invoked as ``--sharded-rank R DIR``; gloo on CUDA
+      tensors, as NCCL refuses two ranks on one device): R-2's rows bit
+      for bit and its ``ensemble_stats`` within 1e-12 of path R's, A-2's
+      means within rtol 1e-5 / atol 1e-3 of path A's, F-2's rows bit for
+      bit, the observers' integers and extrema exact and their sums
+      within 1e-5, the fleet summary's counts exact, F-NaN-2's NaN rows
+      where the unsharded run's are and NaN winning MIN and MAX in
+      ``ensemble_stats``; every rank must launch its path's kernels, and
+      every all_reduce wrapper is timed per call in both topologies
+      (CUDA events and the host's clock) with its bytes and its calls per
+      block (the ``{"collectives": [...]}`` line before the kernels line);
 6. each kernel and its plain version timed with CUDA events at the main
    paths' shapes (the fleet kernels on path F's noon block; K11 and K6s
    on paths R-T's and B-L's noon blocks, the K10 row reset of
@@ -246,8 +267,10 @@ Phases (any failure exits non-zero and prints no result line):
 
 Each phase prints its seconds on a line of its own (``phase NAME: S
 s``), and all of them once more as ``{"phase_s": {...}}`` after the
-run's total.  The line before the card line is the ``{"kernels":
-[...]}`` record; the last line is ``{"ok": true, "device": {...}}``.
+run's total.  Then the ``{"collectives": [...]}`` record (the library's
+all_reduce, not a hand-written kernel: route ``library``); the line
+before the card line is the ``{"kernels": [...]}`` record; the last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1328,9 +1351,11 @@ def check_collapse(partials, n_cohorts):
 OBS_BLOCKS = (("night", 0), ("noon", 40))
 
 
-def phase_k89(dev, levers=None, label="K8+K9", path=None):
+def phase_k89(dev, levers=None, label="K8+K9", path=None,
+              blocks=OBS_BLOCKS):
     """K8 and K9 on path F's config (both observers at level full with the
-    fleet's own cohorts), on its night and noon blocks: the acc producer
+    fleet's own cohorts), on its night and noon blocks (``blocks``): the
+    acc producer
     (``obs_producer``) against its plain version (statistics, carry,
     meter, csi and covered bit for bit, pv bit for bit or to the engine
     tolerance) and the acc kernel's statistics; the observer fold
@@ -1362,7 +1387,7 @@ def phase_k89(dev, levers=None, label="K8+K9", path=None):
     rel = err = c_err = c_rel = pv_err = 0.0
     n_leaves = pv_same = pv_all = 0
     dur, mw = cfg.duration_s, cfg.meter_max_w
-    for bname, bi in OBS_BLOCKS:
+    for bname, bi in blocks:
         ins = sim.host_inputs(bi)
         tables, _ = sim._windows(state, ins)
         head = head_of(state, ins, tables)
@@ -1439,8 +1464,9 @@ def phase_k89(dev, levers=None, label="K8+K9", path=None):
         e, r = check_collapse(out_k["partials"], C)
         c_err, c_rel = max(c_err, e), max(c_rel, r)
     mode = "site" if site.stride <= 1 else "strided"
+    names = " and ".join(b for b, _ in blocks)
     print(f"{label} vs plain on path {path or ('F-L' if levers else 'F')}'s "
-          f"night and noon blocks x {cfg.n_chains} fleet sites ({mode} "
+          f"{names} block(s) x {cfg.n_chains} fleet sites ({mode} "
           f"geometry, {ks} set, {cd}, {impl}, both level full, {C} "
           "cohorts): the producer's statistics (the acc kernel's), carry, "
           f"meter, csi and covered flags bit-identical, pv {pv_same}/"
@@ -1450,7 +1476,8 @@ def phase_k89(dev, levers=None, label="K8+K9", path=None):
           f"(relative; {err:.3g} absolute) of the float64 plain sums, a "
           "rerun bit-identical; block_step_obs equal to the two launches")
     print(f"collapse on {label}'s per-group rows "
-          f"({', '.join(out_k['partials'])}; 2 blocks): bit-identical to the "
+          f"({', '.join(out_k['partials'])}; {len(blocks)} block(s)): "
+          "bit-identical to the "
           f"host's index-order float64 fold; max abs {c_err:.3g} (relative "
           f"{c_rel:.3g}) from collapse_plain")
     return (rel, err), (c_rel, c_err)
@@ -4679,8 +4706,11 @@ def phase_k13_rest(dev, keys=RBG):
                    dict(tp, carry=cp))
         report.append("the fleet's regime windows bit-identical")
         del sim, state, tk, tp
+        # the noon block only: the night block's observers are checked
+        # in K8+K9's own phase and F-L's (the sharded phase's time)
         (rel89, _), _ = phase_k89(dev, keys, f"K8+K9 ({impl})",
-                                  path=f"F's fleet under {impl}")
+                                  path=f"F's fleet under {impl}",
+                                  blocks=OBS_BLOCKS[1:])
         cfg = SimConfig(**dict(HEADLINE, **keys))
         sim = Simulation(cfg, device=dev)
         state = sim.init_state()
@@ -5946,6 +5976,424 @@ def obs_fold_shape(dev):
     return sh
 
 
+# --------------------------------------------------------------------------
+# the sharded phase: chain-sharded runs over torch.distributed
+# --------------------------------------------------------------------------
+
+#: the two-rank cases' depth: A-2 and F-2 run 4 blocks, the NaN case 2
+SHARDED_BLOCKS = 4
+#: NaN fleet leaves of the NaN case, all in rank 1's rows (chains from
+#: 32768): a NaN meter, a NaN pv and a NaN inverter limit
+SHARDED_NAN = (("demand_scale", 40001), ("pv_scale", 50002),
+               ("ac_limit_w", 60003))
+#: the kernels each sharded path must launch (on every rank)
+SHARDED_NEED = {
+    "R": ("threefry_fill", "sampler_windows", "block_step"),
+    "A": ("threefry_fill", "sampler_windows", "block_step_series",
+          "series_sum"),
+    "F": ("threefry_fill", "sampler_windows", "sampler_windows_regime",
+          "block_step_prod_site", "block_step_fleet",
+          "block_step_tel_analytics", "obs_fold", "chainwise_collapse"),
+}
+#: seconds the parent waits for the two ranks
+SHARDED_TIMEOUT_S = 300
+
+
+def sharded_configs():
+    """The sharded cases' configs: R (path R's), A (path A's config over
+    4 blocks), F (path F's fleet over 4 blocks from 11:00, both observers
+    full) and F-NaN (F over 2 blocks)."""
+    f = dict(HEADLINE, start=CHECK_START,
+             duration_s=SHARDED_BLOCKS * HEADLINE["block_s"], fleet=fleet_f(),
+             telemetry="full", analytics="full")
+    return {
+        "R": SimConfig(**HEADLINE),
+        "A": SimConfig(**dict(HEADLINE, output="ensemble",
+                              duration_s=SHARDED_BLOCKS
+                              * HEADLINE["block_s"])),
+        "F": SimConfig(**f),
+        "F-NaN": SimConfig(**dict(f, duration_s=2 * HEADLINE["block_s"])),
+    }
+
+
+def sharded_jobs(suffix):
+    cfgs = sharded_configs()
+    out = {"R": ("reduce",), "A": ("ensemble",), "F": ("reduce",),
+           "F-NaN": ("reduce",)}
+    return [{"name": f"{k}-{suffix}", "config": cfg, "outputs": out[k],
+             **({"nan": SHARDED_NAN} if k == "F-NaN" else {})}
+            for k, cfg in cfgs.items()]
+
+
+def time_collectives(sims, dev, reps=20):
+    """Each all_reduce wrapper the sharded paths call, at the shapes they
+    call it, timed with CUDA events (and the host's clock) in this
+    process's group: the series pair of a block (path A), the telemetry
+    and analytics deltas of a block in one packed tree (path F),
+    ``ensemble_stats`` (every reduce run, once).  Returns ``{kind: {ms,
+    host_ms, calls, bytes}}`` per call of the wrapper."""
+    from tmhpvsim_torch.engine.simulation import REDUCE_STATS
+    from tmhpvsim_torch.parallel import distributed
+
+    f = sims["F"]
+    stats = {k: (1 if d == "i" else 1.5) for k, (_, d) in REDUCE_STATS.items()}
+    calls = {
+        "series": lambda: distributed.allreduce_sums(
+            torch.zeros(HEADLINE["block_s"], device=dev),
+            torch.zeros(HEADLINE["block_s"], device=dev)),
+        "observers": lambda: distributed.allreduce_deltas(f._tel_last,
+                                                          f._fleet_last),
+        "stats": lambda: distributed.allreduce_stats(stats, REDUCE_STATS,
+                                                     dev),
+    }
+    out = {}
+    for kind, fn in calls.items():
+        distributed.reset_counts()
+        fn()
+        n, nbytes = distributed.ALL_REDUCE.calls, distributed.ALL_REDUCE.bytes
+        for _ in range(3):
+            fn()
+        ms, host = [], []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            e0, e1 = torch.cuda.Event(enable_timing=True), \
+                torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            fn()
+            e1.record()
+            e1.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+            ms.append(e0.elapsed_time(e1))
+        out[kind] = {"ms": float(np.median(ms)),
+                     "host_ms": float(np.median(host)), "calls": n,
+                     "bytes": nbytes}
+    return out
+
+
+def sharded_rank(rank: int, d: str) -> int:
+    """One rank of the two-rank check (``chip_smoke.py --sharded-rank R
+    DIR``): the test topology of one card, two ranks over gloo on its
+    CUDA tensors (NCCL refuses two ranks on one device), joined through
+    a file in DIR; runs DIR/jobs.pkl once DIR/go exists and writes each
+    job's ``.npz`` (parallel/_check.py), its launches and wall, and the
+    collectives' times to DIR/rank{R}.json."""
+    import datetime as _dt
+    import pickle
+
+    import torch.distributed as dist
+
+    from tmhpvsim_torch.parallel._check import run_job
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{d}/gloo.rdv",
+                            world_size=2, rank=rank,
+                            timeout=_dt.timedelta(seconds=SHARDED_TIMEOUT_S))
+    with open(os.path.join(d, "jobs.pkl"), "rb") as f:
+        jobs = pickle.load(f)
+    for src in build.build_all():
+        build.library(src)
+    deadline = time.time() + SHARDED_TIMEOUT_S
+    while not os.path.exists(os.path.join(d, "go")):
+        if time.time() > deadline:
+            raise RuntimeError("the parent never started the two ranks")
+        time.sleep(0.05)
+    out, sims = {}, {}
+    for job in jobs:
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim = run_job(job, d, device=dev)
+        torch.cuda.synchronize()
+        key = job["name"].rsplit("-", 1)[0]
+        sims[key] = sim
+        out[job["name"]] = {
+            "wall_s": time.perf_counter() - t0, "n_blocks": sim.n_blocks,
+            "launches": {k: v for k, v in kernels.counts().items() if v}}
+    out["timing"] = time_collectives(sims, dev)
+    with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _npz(d, name, rank):
+    with np.load(os.path.join(d, f"{name}.rank{rank}.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _check_rows(what, got, want):
+    """Reduce rows bit for bit (NaN where the reference has NaN)."""
+    for k, w in want.items():
+        g = got[k]
+        if g.shape != w.shape or not np.array_equal(
+                g.view(np.uint32 if g.dtype.itemsize == 4 else np.uint64),
+                w.view(np.uint32 if w.dtype.itemsize == 4 else np.uint64)):
+            fail(f"{what}: rows of {k} differ from the unsharded run's "
+                 f"({int((g != w).sum())} of {w.size})")
+
+
+def _check_stats(what, got, want, rtol):
+    for k, w in want.items():
+        g = got[k]
+        if np.isnan(w) or np.isnan(g):
+            if not (np.isnan(w) and np.isnan(g)):
+                fail(f"{what}: ensemble_stats {k} {g} against {w}")
+        elif isinstance(w, int) or k.endswith(("_min", "_max")):
+            if g != w:
+                fail(f"{what}: ensemble_stats {k} {g} != {w}")
+        elif abs(g - w) > rtol * abs(w):
+            fail(f"{what}: ensemble_stats {k} {g} against {w}")
+
+
+def _check_observers(what, part, sim, rtol):
+    """Run totals and the last telemetry delta against the unsharded
+    run's: integers and extrema exact, float sums within ``rtol``."""
+    for prefix, tree in (("fleet_total", sim._fleet_total),
+                         ("tel_last", sim._tel_last)):
+        for k, v in tree.items():
+            w = v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+            g = part[f"{prefix}.{k}"]
+            if g.dtype != w.dtype or g.shape != w.shape:
+                fail(f"{what}: {prefix}.{k} {g.dtype}{g.shape}")
+            if g.dtype.kind == "f" and not k.startswith(("min", "max")):
+                if not np.allclose(g, w, rtol=rtol, atol=1e-6,
+                                   equal_nan=True):
+                    fail(f"{what}: {prefix}.{k} differs beyond {rtol}")
+            elif not np.array_equal(g, w, equal_nan=g.dtype.kind == "f"):
+                fail(f"{what}: {prefix}.{k} differs")
+
+
+def _fleet_summary_counts(what, got, want, path=""):
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            fail(f"{what}: fleet summary keys at {path}")
+        for k in want:
+            _fleet_summary_counts(what, got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, list):
+        for i, (g, w) in enumerate(zip(got, want)):
+            _fleet_summary_counts(what, g, w, f"{path}[{i}]")
+    elif isinstance(want, (int, bool, str)) or want is None:
+        if got != want:
+            fail(f"{what}: fleet summary {path} {got} != {want}")
+    elif not np.isclose(got, want, rtol=1e-5, atol=1e-9, equal_nan=True):
+        fail(f"{what}: fleet summary {path} {got} against {want}")
+
+
+def phase_sharded(dev, reduced_r, stats_r, means_a):
+    """(a) NCCL in a group of one through the package's ``initialize``:
+    R-N1 (path R's config through ``ShardedSimulation``: rows bit for bit
+    and ``ensemble_stats`` equal to path R's), A-N1 and F-N1 (bit for bit
+    against A's first 4 blocks and an unsharded 4-block F run), the NaN
+    case; (b) two ranks on the card over gloo: R-2 (rows bit for bit,
+    ``ensemble_stats`` within 1e-12), A-2 (means within rtol 1e-5 / atol
+    1e-3), F-2 (rows bit for bit; the observers' integers and extrema
+    exact, float sums within 1e-5; the fleet summary's counts exact) and
+    the NaN case (rows NaN where the unsharded run's are, the NaN
+    winning MIN and MAX in ``ensemble_stats``); each rank's paths must
+    launch their kernels.  Times every all_reduce in both topologies."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from tmhpvsim_torch.parallel import distributed
+    from tmhpvsim_torch.parallel._check import run_job
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    procs = []
+    try:
+        with open(os.path.join(d, "jobs.pkl"), "wb") as f:
+            pickle.dump(sharded_jobs("2"), f)
+        # the ranks start up (python, torch, the card, the libraries)
+        # while (a) runs, and wait for DIR/go before touching the card
+        for r in range(2):
+            log = open(os.path.join(d, f"rank{r}.log"), "w")
+            procs.append((log, subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--sharded-rank",
+                 str(r), d], stdout=log, stderr=subprocess.STDOUT,
+                cwd=HERE)))
+        # the unsharded references of the 4-block runs
+        cfgs = sharded_configs()
+        ref = {}
+        for k in ("F", "F-NaN"):
+            sim = Simulation(cfgs[k], device=dev)
+            state = None
+            if k == "F-NaN":
+                state = sim.init_state()
+                for leaf, c in SHARDED_NAN:
+                    state["fleet"][leaf][c] = float("nan")
+            ref[k] = (sim.run_reduced(state=state), sim)
+        # (a) NCCL, a group of one
+        if not distributed.initialize(f"file://{d}/nccl.rdv", 1, 0,
+                                      device=dev):
+            fail("sharded: initialize made no process group")
+        if dist.get_backend() != "nccl":
+            fail(f"sharded: the card's group is {dist.get_backend()}")
+        sims, launch_n1, walls = {}, {}, {}
+        for job in sharded_jobs("N1"):
+            key = job["name"].rsplit("-", 1)[0]
+            sim, walls[key], launch_n1[key] = run_path(
+                job["name"], SHARDED_NEED[key[0]],
+                lambda job=job: run_job(job, d, device=dev))
+            sims[key] = sim
+        p = _npz(d, "R-N1", 0)
+        _check_rows("R-N1", {k: p[f"reduce.{k}"] for k in reduced_r},
+                    reduced_r)
+        _check_stats("R-N1", json.loads(str(p["ensemble_stats"])), stats_r,
+                     0.0)
+        p = _npz(d, "A-N1", 0)
+        n_a = SHARDED_BLOCKS * HEADLINE["block_s"]
+        for i, f in enumerate(("meter", "pv")):
+            if not np.array_equal(p[f"ensemble.{f}"][0], means_a[i][:n_a]):
+                fail(f"A-N1: the {f} means differ from path A's")
+        for k in ("F", "F-NaN"):
+            p = _npz(d, f"{k}-N1", 0)
+            _check_rows(f"{k}-N1", {s: p[f"reduce.{s}"] for s in reduced_r},
+                        ref[k][0])
+            _check_stats(f"{k}-N1", json.loads(str(p["ensemble_stats"])),
+                         ref[k][1].ensemble_stats(), 0.0)
+            _check_observers(f"{k}-N1", p, ref[k][1], 0.0)
+        timing_n1 = time_collectives(sims, dev)
+        distributed.shutdown()
+        del sims
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        # (b) the two gloo ranks on this card
+        t0 = time.perf_counter()
+        open(os.path.join(d, "go"), "w").close()
+        for r, (log, p) in enumerate(procs):
+            try:
+                rc = p.wait(timeout=SHARDED_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            log.close()
+            if rc != 0:
+                with open(os.path.join(d, f"rank{r}.log")) as f:
+                    tail = f.read()[-4000:]
+                fail(f"sharded: rank {r} exited {rc}:\n{tail}")
+        wall_2 = time.perf_counter() - t0
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        for r, info in enumerate(ranks):
+            for name, need in (("R-2", "R"), ("A-2", "A"), ("F-2", "F"),
+                               ("F-NaN-2", "F")):
+                for k in SHARDED_NEED[need]:
+                    if not info[name]["launches"].get(k):
+                        fail(f"sharded: rank {r}'s {name} never launched {k}")
+        parts = {name: [_npz(d, name, r) for r in range(2)]
+                 for name in ("R-2", "A-2", "F-2", "F-NaN-2")}
+
+        def rows(name):
+            return {k: np.concatenate([p[f"reduce.{k}"] for p in
+                                       parts[name]]) for k in reduced_r}
+
+        _check_rows("R-2", rows("R-2"), reduced_r)
+        for p in parts["R-2"]:
+            _check_stats("R-2", json.loads(str(p["ensemble_stats"])),
+                         stats_r, 1e-12)
+        for p in parts["A-2"]:
+            for i, f in enumerate(("meter", "pv")):
+                if not np.allclose(p[f"ensemble.{f}"][0], means_a[i][:n_a],
+                                   rtol=1e-5, atol=1e-3):
+                    fail(f"A-2: the {f} means differ from path A's")
+        for k in ("F", "F-NaN"):
+            name = f"{k}-2"
+            _check_rows(name, rows(name), ref[k][0])
+            want = ref[k][1]
+            for p in parts[name]:
+                _check_stats(name, json.loads(str(p["ensemble_stats"])),
+                             want.ensemble_stats(), 1e-12)
+                _check_observers(name, p, want, 1e-5)
+                _fleet_summary_counts(
+                    name, json.loads(str(p["fleet_summary"])),
+                    json.loads(json.dumps(want.fleet_summary(),
+                                          default=float)))
+        st = json.loads(str(parts["F-NaN-2"][0]["ensemble_stats"]))
+        if not all(np.isnan(st[k]) for k in ("pv_max", "residual_min",
+                                             "residual_max", "meter_sum")):
+            fail(f"F-NaN-2: a NaN in rank 1's rows did not win: {st}")
+        nan_rows = {k: int(np.isnan(v).sum())
+                    for k, v in rows("F-NaN-2").items() if k != "n_seconds"}
+        per_block = {}
+        stats = timing_n1["stats"]
+        for name, out in (("R-2", "reduce"), ("A-2", "ensemble"),
+                          ("F-2", "reduce")):
+            p = parts[name][0]
+            n_blocks = ranks[0][name]["n_blocks"]
+            end = out == "reduce"           # ensemble_stats, once
+            calls = int(p[f"{out}.all_reduce_calls"])
+            nbytes = int(p[f"{out}.all_reduce_bytes"])
+            per_block[name] = {
+                "calls": (calls - end * stats["calls"]) / n_blocks,
+                "bytes": (nbytes - end * stats["bytes"]) / n_blocks,
+                "rank_walls_s": [ranks[r][name]["wall_s"] for r in range(2)]}
+        timing_2 = [info["timing"] for info in ranks]
+        print(f"sharded R-N1 (NCCL, a group of one, through initialize): "
+              f"rows bit-identical to path R's, ensemble_stats equal; "
+              f"{walls['R']:.3f} s wall (path R's loop through "
+              f"ShardedSimulation); A-N1, F-N1 and F-NaN-N1 bit-identical "
+              f"to their unsharded runs; launches R-N1 {launch_n1['R']}")
+        print(f"sharded, two ranks over gloo on this card: R-2 rows "
+              f"bit-identical to path R's, ensemble_stats within 1e-12; A-2 "
+              f"means within rtol 1e-5; F-2 rows bit-identical, observers' "
+              f"integers and extrema exact, sums within 1e-5; F-NaN-2's "
+              f"NaN rows {nan_rows}, NaN ensemble_stats; {wall_2:.3f} s from "
+              f"go to both ranks' exit; per block {json.dumps(per_block)}")
+        print(f"sharded all_reduce per call, NCCL group of one: "
+              f"{json.dumps(timing_n1)}")
+        for r, t in enumerate(timing_2):
+            print(f"sharded all_reduce per call, gloo rank {r} of 2 (CUDA "
+                  f"tensors, one card): {json.dumps(t)}")
+        return {"n1": timing_n1, "gloo2": timing_2, "per_block": per_block,
+                "walls": walls, "wall_2": wall_2}
+    finally:
+        for log, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        distributed.shutdown()
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def collective_rows(sharded):
+    """The ``{"collectives": [...]}`` rows: each all_reduce wrapper the
+    sharded paths call (the library's collective, not a hand-written
+    kernel), per call and per block of the path that calls it, in both
+    topologies; the bound is its bytes read and written once at the
+    card's memory rate."""
+    mesh = "tmhpvsim_tpu/parallel/mesh.py"
+    dis = "tmhpvsim_tpu/parallel/distributed.py"
+    pb = sharded["per_block"]
+    rows = []
+    for kind, replaces, path in (
+            ("series", f"{mesh}:447-448, {mesh}:468-469", "A-2"),
+            ("observers", f"{dis}:210, {dis}:222", "F-2"),
+            ("stats", f"{mesh}:660", "R-2")):
+        n1 = sharded["n1"][kind]
+        g2 = sharded["gloo2"][0][kind]
+        nbytes = n1["bytes"]
+        bms = 2 * nbytes / PEAK_BYTES * 1e3
+        rows.append({
+            "name": f"all_reduce_{kind}", "route": "library",
+            "source": "tmhpvsim_torch/parallel/distributed.py",
+            "replaces": replaces, "path": path,
+            "launches": n1["calls"],
+            "launches_per_block": (pb[path]["calls"] if kind != "stats"
+                                   else 0),
+            "bytes": nbytes, "ms": n1["ms"], "host_ms": n1["host_ms"],
+            "ms_gloo_2": g2["ms"], "host_ms_gloo_2": g2["host_ms"],
+            "plain_ms": None, "bound_ms": bms, "bound_by": "bytes",
+            "library_ms": n1["ms"]})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a "
@@ -5986,7 +6434,9 @@ def main() -> int:
     k12s = timed("k12_k10", phase_k12_k10, dev)
     timed("nan", phase_nan, dev)
     torch.cuda.empty_cache()
-    _, launch_r, reduced_r, wall_r = timed("path_r", phase_path_r, dev)
+    sim_r, launch_r, reduced_r, wall_r = timed("path_r", phase_path_r, dev)
+    stats_r = sim_r.ensemble_stats()
+    del sim_r
     launch_a, means_a = timed("path_a", phase_path_a, dev)
     launch_b = timed("path_b", phase_path_b, dev)
     launch_c = timed("path_c", phase_path_c, dev)
@@ -5994,6 +6444,9 @@ def main() -> int:
     launch_f, reduced_f = timed("path_f", phase_path_f, dev)
     timed("path_g", phase_path_g)
     launch_h = timed("path_h", phase_path_h, dev)
+    torch.cuda.empty_cache()
+    sharded = timed("sharded", phase_sharded, dev, reduced_r, stats_r,
+                    means_a)
     replies_s, launch_s = timed("path_s", phase_path_s, "S", "window", dev)
     replies_c, launch_sc = timed("path_sc", phase_path_s, "S-c",
                                  "continuous", dev)
@@ -6350,6 +6803,7 @@ def main() -> int:
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"phase_s": PHASE_S}))
+    print(json.dumps({"collectives": collective_rows(sharded)}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -6359,4 +6813,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--sharded-rank":
+        sys.exit(sharded_rank(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

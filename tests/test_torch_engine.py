@@ -55,8 +55,11 @@ FLEET_KW = dict(telemetry="full", analytics="full",
 
 
 def _jax_sim(impl="scan", **kw):
+    """The JAX package's run at this shape, its per-second scan at
+    ``scan_unroll`` 1 (a performance knob of the JAX package's SimConfig,
+    which compiles faster than the default 8)."""
     return JSim(jcfg.SimConfig(block_impl=impl, dtype="float32",
-                               **dict(SMALL, **kw)))
+                               **dict(SMALL, **{"scan_unroll": 1, **kw})))
 
 
 def _assert_engine_close(want, got):
@@ -103,10 +106,9 @@ def jax_fleet():
 
 #: the bf16 compute path's JAX runs: this shape over 2 x 600 s (a short
 #: depth keeps tests/test_torch_precision.py's port runs against them
-#: cheap); scan_unroll 1 only compiles faster, the JAX package gives every
-#: unroll the same bits
+#: cheap)
 BF16_SHAPE = dict(duration_s=1200, block_s=600)
-BF16_KW = dict(compute_dtype="bf16", scan_unroll=1, **BF16_SHAPE)
+BF16_KW = dict(compute_dtype="bf16", **BF16_SHAPE)
 
 
 @pytest.fixture(scope="module")
@@ -181,9 +183,9 @@ def test_reduce_matches_jax_scan(jax_scan, port):
         assert te[k] == pytest.approx(je[k], rel=2e-5, abs=1e-2), k
 
 
-def test_reduce_matches_jax_wide(port):
+def test_reduce_matches_jax_wide(jax_wide_runs, port):
     """The CPU default formulation of the JAX package, as a second case."""
-    _assert_engine_close(_jax_sim("wide").run_reduced(), port[1])
+    _assert_engine_close(jax_wide_runs["reduced"], port[1])
 
 
 def _f32_list(a):
@@ -390,7 +392,7 @@ def _jax_state_numpy(state):
 def test_jax_state_continues_in_port(jax_scan):
     """JAX runs block 0; the port takes its state and runs block 1; the
     result is JAX's two-block run."""
-    sim = _jax_sim()
+    sim = jax_scan[0]
     inputs, _ = sim.host_inputs(0)
     state, acc = sim.step_acc(sim.init_state(), inputs,
                               sim.init_reduce_acc())

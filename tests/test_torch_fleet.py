@@ -138,8 +138,12 @@ def test_regime_tables_bit_exact():
 
 
 def _fleet_sims(**kw):
+    """The JAX and the port's fleet runs at this shape; the JAX scan at
+    ``scan_unroll`` 1 (a performance knob of the JAX package's SimConfig),
+    which compiles faster than the default 8."""
     cfg = dict(SMALL, **kw)
     js = JSim(jcfg.SimConfig(block_impl="scan", dtype="float32",
+                             scan_unroll=1,
                              fleet=JFleet.synthetic(FLEET[0], seed=FLEET[1]),
                              **cfg))
     ts = TSim(tcfg.SimConfig(fleet=TFleet.synthetic(FLEET[0], seed=FLEET[1]),

@@ -1239,3 +1239,27 @@ def test_k14_matches_plain_on_card(card):
             *head, {k: v.clone() for k, v in state["carry"].items()},
             sim.init_reduce_acc(), *tail, layout=layout, impl=U)
         assert all(torch.equal(ak[k], ap[k]) for k in ak), layout
+
+
+@pytest.mark.cuda
+def test_nan_minmax_all_reduce_under_nccl(card, tmp_path):
+    """The sharded runs' MIN / MAX all_reduce on the card: NCCL in a group
+    of one through the package's own ``initialize``; NaN, infinities and
+    -0.0 against +0.0 keep every bit (the leaves ride as order keys)."""
+    from tmhpvsim_torch.parallel import distributed
+
+    assert distributed.initialize(f"file://{tmp_path}/nccl", 1, 0,
+                                  device=card)
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        vals = (float("nan"), -float("inf"), -2.5, -0.0, 0.0, 0.75,
+                float("inf"))
+        a = torch.tensor(vals, device=card)
+        out, _ = distributed.allreduce_deltas({"min_x": a, "max_x": a}, None)
+        for k in ("min_x", "max_x"):
+            assert torch.equal(out[k].isnan(), a.isnan())
+            ok = ~a.isnan()
+            assert torch.equal(out[k][ok].view(torch.int32),
+                               a[ok].view(torch.int32))
+    finally:
+        distributed.shutdown()

@@ -10,8 +10,11 @@ transforms, K8 telemetry, K9 analytics, K10 the scenario fold behind
 scenario serving, ``tmhpvsim_torch.serve``), and the reference's
 streaming deployment (``metersim`` with K15, the metersim producer's
 block, ``fanoutbroker`` and ``pvsim --backend asyncio``,
-``tmhpvsim_torch.apps`` and ``tmhpvsim_torch.runtime``); every kernel
-has a plain torch version that runs on CPU tensors.  Imports torch and numpy, never jax and never tmhpvsim_tpu.
+``tmhpvsim_torch.apps`` and ``tmhpvsim_torch.runtime``), and
+chain-sharded runs over ``torch.distributed``, one process per card
+(``tmhpvsim_torch.parallel.ShardedSimulation``, ``pvsim --sharded``);
+every kernel has a plain torch version that runs on CPU tensors.
+Imports torch and numpy, never jax and never tmhpvsim_tpu.
 """
 
 from tmhpvsim_torch.config import (  # noqa: F401

@@ -85,15 +85,20 @@ def _paced(blk, rate: float = 1.0):
             residual=blk.residual[:, i:i + 1])
 
 
-def write_run_report(path: str, sim: Simulation) -> dict:
+def write_run_report(path: str, sim: Simulation) -> Optional[dict]:
     """The run report of a finished run (``obs.report.simulation_report``):
     config, plan and device, the ``fleet`` section as
     ``sim.fleet_summary()`` gives it (None without analytics), the
     ``telemetry`` section as ``sim.sentinel.report()`` gives it (None when
     no block was observed) and the ``precision`` section as
     ``sim.precision_doc()`` gives it (None with the levers at their
-    defaults).  Returns the document."""
-    return write_report(path, simulation_report("pvsim", sim))
+    defaults); a sharded run adds ``mesh`` and ``processes``, and only
+    its process 0 writes.  Returns the document (None on the other
+    processes)."""
+    doc = simulation_report("pvsim", sim)
+    if sim.rank != 0:
+        return None
+    return write_report(path, doc)
 
 
 def pvsim(file: str, duration_s: int, n_chains: int, seed: int, start: str,
@@ -106,7 +111,9 @@ def pvsim(file: str, duration_s: int, n_chains: int, seed: int, start: str,
           rng_batch: str = "auto", compute_dtype: str = "auto",
           telemetry: str = "off",
           telemetry_strict: bool = False,
-          prng_impl: str = "threefry2x32") -> Simulation:
+          prng_impl: str = "threefry2x32", sharded: bool = False,
+          coordinator: str | None = None, num_processes: int | None = None,
+          process_id: int | None = None) -> Simulation:
     """Run one simulation and write ``file``; returns the Simulation.
 
     A site grid or a fleet sets the chain count (one chain per site).
@@ -125,7 +132,20 @@ def pvsim(file: str, duration_s: int, n_chains: int, seed: int, start: str,
     becomes 'light' under bf16), and ``telemetry_strict`` turns the
     sentinel's warnings into ``DriftError``.  ``prng_impl``
     ('threefry2x32' | 'rbg') the key implementation (rbg: K13's Philox
-    bits on the card)."""
+    bits on the card).
+
+    ``sharded`` runs the chains over the processes of a
+    ``torch.distributed`` group (``parallel.ShardedSimulation``), joined
+    from ``coordinator``, ``num_processes`` and ``process_id`` or from a
+    launcher's environment (``parallel.distributed.initialize``).  With
+    more than one process each writes ``{file}.host{rank}``: reduce mode
+    its own chains' rows (global chain ids) and the whole run's
+    ``ensemble`` row, ensemble mode the whole run's means, and trace mode
+    only the process that owns ``chain`` (the others run every block,
+    paced as the owner paces them, so that every process reaches each
+    block's collectives on one clock, and write nothing).  ``run_report`` is
+    written by process 0, with the ``mesh`` section and every process's
+    metrics snapshot (``processes``)."""
     if block_s is None:
         block_s = min(8640, max(60, (duration_s // 60) * 60))
     cfg = SimConfig(start=start, duration_s=duration_s, n_chains=n_chains,
@@ -138,8 +158,28 @@ def pvsim(file: str, duration_s: int, n_chains: int, seed: int, start: str,
                     rng_batch=rng_batch, compute_dtype=compute_dtype,
                     telemetry=telemetry, telemetry_strict=telemetry_strict,
                     prng_impl=prng_impl)
-    sim = Simulation(cfg, device=device)
+    if not sharded:
+        return _run(Simulation(cfg, device=device), file, duration_s,
+                    chain, realtime, output, run_report)
+    from tmhpvsim_torch.parallel import ShardedSimulation, distributed
+
+    own = distributed.initialize(coordinator, num_processes, process_id,
+                                 device=device)
+    try:
+        sim = ShardedSimulation(cfg, device=device)
+        if sim.world > 1:
+            file = f"{file}.host{sim.rank}"
+        return _run(sim, file, duration_s, chain, realtime, output,
+                    run_report)
+    finally:
+        if own:
+            distributed.shutdown()
+
+
+def _run(sim, file, duration_s, chain, realtime, output, run_report):
+    """The run and its CSV (and run report) of ``pvsim``."""
     cfg = sim.config  # a site grid or a fleet sets n_chains
+    sl = sim.chain_slice  # this process's chains (all but in a sharded run)
     t0 = time.perf_counter()
     if output == "reduce":
         if realtime:
@@ -148,7 +188,7 @@ def pvsim(file: str, duration_s: int, n_chains: int, seed: int, start: str,
         reduced = sim.run_reduced()
         wall = time.perf_counter() - t0
         ensemble = sim.ensemble_stats()
-        write_reduced_csv(file, reduced, ensemble)
+        write_reduced_csv(file, reduced, ensemble, chain_start=sl.start)
         print(f"pvsim[reduce]: {cfg.n_chains} chains x {duration_s} s on "
               f"{sim.device} in {wall:.3f} s "
               f"({cfg.n_chains * duration_s / wall:.4g} site-s/s incl. "
@@ -171,7 +211,19 @@ def pvsim(file: str, duration_s: int, n_chains: int, seed: int, start: str,
             else:
                 yield blk
 
-    write_csv(file, blocks(), chain=chain, tz=ZoneInfo(sim.timezone))
+    # --chain is a chain id of the whole run: in trace mode only the
+    # process that holds it writes; the others take the same (paced)
+    # blocks, so they join every block's collectives when the owner does
+    if output == "trace" and not sl.start <= chain < sl.stop:
+        logger.info("chain %d lives on another process (this one holds "
+                    "%d-%d): running without a trace", chain, sl.start,
+                    sl.stop - 1)
+        for _ in blocks():
+            pass
+    else:
+        write_csv(file, blocks(),
+                  chain=chain - sl.start if output == "trace" else chain,
+                  tz=ZoneInfo(sim.timezone))
     wall = time.perf_counter() - t0
     print(f"pvsim[{output}]: {cfg.n_chains} chains x {duration_s} s on "
           f"{sim.device} in {wall:.3f} s "

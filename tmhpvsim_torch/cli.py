@@ -14,7 +14,10 @@ and ``--rng-batch``, the numerics telemetry and its drift sentinel
 (``--telemetry``, ``--telemetry-strict``), the key implementation
 ``--prng-impl`` (threefry2x32 | rbg), the formulation ``--block-impl`` and
 ``--blocks-per-dispatch`` (the JAX package's choices, defaults and
-errors), ``--output-overlap`` and ``--realtime``.  ``--run-report PATH``
+errors), ``--output-overlap`` and ``--realtime``, and chain-sharded
+runs over ``torch.distributed`` (``--sharded`` with ``--coordinator``,
+``--num-processes``, ``--process-id`` or a launcher's environment; the
+JAX CLI's ``--mesh-scenario`` is refused by name).  ``--run-report PATH``
 writes the run report (the JAX package's RunReport schema: config, the
 resolved plan, device, and the ``fleet``, ``telemetry`` and ``precision``
 sections).  ``--backend asyncio`` is the streaming consumer: it
@@ -64,7 +67,10 @@ DEVICE_ONLY = {"output": "trace", "chain": 0, "chains": 1, "block_s": None,
                "rng_batch": "auto", "compute_dtype": "auto",
                "telemetry": "off", "telemetry_strict": False,
                "output_overlap": "auto", "prng_impl": "threefry2x32",
-               "compile_cache": None}
+               "compile_cache": None, "sharded": False, "coordinator": None,
+               "num_processes": None, "process_id": None}
+#: the process flags of a sharded run
+PROCESS_FLAGS = ("coordinator", "num_processes", "process_id")
 
 
 def _parse_site_grid(spec):
@@ -249,6 +255,23 @@ def _parser() -> argparse.ArgumentParser:
                     help="cuda (default) runs the kernels; cpu runs their "
                          "plain torch versions (the asyncio backend is "
                          "host code either way)")
+    pv.add_argument("--sharded", action="store_true",
+                    help="split the chains over the processes of a "
+                         "torch.distributed group, one card each (NCCL; "
+                         "--device cpu: gloo), joined from the process "
+                         "flags or a launcher's environment "
+                         "(torch.distributed.run); with more than one "
+                         "process each writes FILE.host<rank>")
+    pv.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                    help="rendezvous of a sharded run: HOST:PORT (tcp) or "
+                         "a tcp:// / file:// URL; with --num-processes and "
+                         "--process-id")
+    pv.add_argument("--num-processes", type=int, default=None, metavar="K",
+                    help="processes of the sharded run")
+    pv.add_argument("--process-id", type=int, default=None, metavar="I",
+                    help="this process's rank in [0, K)")
+    pv.add_argument("--mesh-scenario", dest="mesh_scenario", default=None,
+                    help=argparse.SUPPRESS)
     pv.add_argument("--backend", choices=["device", "asyncio"],
                     default="device",
                     help="device (default): the blockwise simulation on the "
@@ -438,6 +461,9 @@ def main(argv=None) -> int:
     for flag in WAITING_FLAGS:
         if getattr(args, _waiting_dest(flag), None) is not None:
             parser.error(f"{flag} is not ported to tmhpvsim_torch yet")
+    if getattr(args, "mesh_scenario", None) is not None:
+        parser.error("--mesh-scenario (the 2-D (chains, scenario) mesh) is "
+                     "not ported to tmhpvsim_torch yet")
     if args.command == "fanoutbroker":
         return fanoutbroker(args)
     if args.command == "pvsim" and args.backend == "asyncio":
@@ -452,6 +478,21 @@ def main(argv=None) -> int:
         return metersim(args, parser)
     if args.duration is None:
         parser.error("--duration is required with --backend=device")
+    given = [f for f in PROCESS_FLAGS if getattr(args, f) is not None]
+    if given and not args.sharded:
+        parser.error("--coordinator/--num-processes/--process-id require "
+                     "--sharded")
+    if given and len(given) != len(PROCESS_FLAGS):
+        parser.error("--coordinator, --num-processes and --process-id go "
+                     "together")
+    if args.num_processes is not None and not (
+            args.num_processes >= 1
+            and 0 <= args.process_id < args.num_processes):
+        parser.error("--process-id must be in [0, --num-processes)")
+    if args.sharded and args.prng_impl != "threefry2x32":
+        parser.error(f"--prng-impl {args.prng_impl} is not sharded: jax "
+                     "draws a batch of such keys from its first key, so a "
+                     "shard's draws depend on its batch")
     if args.realtime and args.output == "reduce":
         raise SystemExit("pvsim: reduce mode needs --no-realtime")
     if args.fleet_synth is not None and args.fleet_synth < 1:
@@ -493,8 +534,10 @@ def main(argv=None) -> int:
               rng_batch=args.rng_batch, compute_dtype=args.compute_dtype,
               telemetry=args.telemetry,
               telemetry_strict=args.telemetry_strict,
-              prng_impl=args.prng_impl)
-    except (ValueError, DriftError) as e:
+              prng_impl=args.prng_impl, sharded=args.sharded,
+              coordinator=args.coordinator,
+              num_processes=args.num_processes, process_id=args.process_id)
+    except (ValueError, NotImplementedError, DriftError) as e:
         raise SystemExit(f"pvsim: {e}") from e
     return 0
 

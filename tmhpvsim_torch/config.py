@@ -325,7 +325,7 @@ class SimConfig:
                     f"SimConfig.{f.name}={value!r} is outside the torch "
                     "port's slice: it computes in float32 or bf16 with "
                     "threefry2x32, rbg or unsafe_rbg keys under the static "
-                    "plan, with no autotuner, mesh, pod or phase "
+                    "plan, with no autotuner, 2-D mesh, pod or phase "
                     "observers, profiler trace or checkpoint options")
         if self.block_s % 60 != 0:
             raise ValueError("block_s must be a multiple of 60 (minute grid)")

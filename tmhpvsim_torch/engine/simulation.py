@@ -94,7 +94,7 @@ import csv
 import dataclasses
 import datetime as _dt
 import math
-from typing import Callable, Iterator
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -153,13 +153,16 @@ class BlockResult:
 
     Arrays are ``(n_chains, length)`` (a leading axis of 1 for the fleet
     mean); ``epoch`` is ``(length,)`` int64 UTC epoch seconds; ``offset``
-    is the block start in simulation seconds."""
+    is the block start in simulation seconds.  ``ensemble``: a sharded
+    trace's whole-run per-second means ``pv_mean`` and ``residual_mean``
+    (``(length,)``; the arrays hold the rank's chains only), else None."""
 
     offset: int
     epoch: np.ndarray
     meter: np.ndarray
     pv: np.ndarray
     residual: np.ndarray
+    ensemble: Optional[dict] = None
 
 
 @dataclasses.dataclass
@@ -202,26 +205,8 @@ class Simulation:
     def __init__(self, config: SimConfig, device=None):
         if config.block_s % 60 != 0:
             raise ValueError("block_s must be a multiple of 60 (minute grid)")
-        # a fleet: chain i simulates fleet row i; a uniform geometry runs
-        # on the shared-site path, any other derives the site grid; a
-        # site grid given beside the fleet must pair 1:1 with it
-        fp = config.fleet
-        if fp is not None:
-            if config.site_grid is None:
-                if fp.uniform_geometry:
-                    config = dataclasses.replace(
-                        config, n_chains=len(fp), site=fp.uniform_site())
-                else:
-                    config = dataclasses.replace(
-                        config, site_grid=fp.site_grid())
-            elif len(config.site_grid) != len(fp):
-                raise ValueError(
-                    f"fleet has {len(fp)} sites but site_grid has "
-                    f"{len(config.site_grid)} — they must pair 1:1 on "
-                    "the chain axis")
-        grid = config.site_grid
-        if grid is not None and config.n_chains != len(grid):
-            config = dataclasses.replace(config, n_chains=len(grid))
+        config = resolve_chains(config)
+        fp, grid = config.fleet, config.site_grid
         # slab bounds after the grid override, which rewrites n_chains
         if config.n_chains_total is not None:
             if (config.chain_offset < 0 or config.chain_offset
@@ -233,6 +218,15 @@ class Simulation:
         elif config.chain_offset:
             raise ValueError("chain_offset requires n_chains_total")
         self.config = config
+        #: the config of the chains this object holds: ``config`` itself,
+        #: or a sharded run's carve of its rank's chains, where ``config``
+        #: stays the whole run's (parallel/mesh.py)
+        self.local_config = config
+        #: this process's rank, the processes of the run and the chains
+        #: of ``config`` it holds: a world of one holding every chain
+        #: (a sharded run's rank sets its own, parallel/mesh.py)
+        self.rank, self.world = 0, 1
+        self.chain_slice = slice(0, config.n_chains)
         #: the resolved plan (precision levers, formulation, knobs)
         self.plan = resolve_plan(config)
         self._cd = self.plan.compute_dtype
@@ -333,7 +327,7 @@ class Simulation:
         under unsafe_rbg the splits are K14 launches, the chains' 5-way
         split (and K2's 4-way split) batched over the slab, so the keys
         depend on ``chain_offset`` through the slab's first key."""
-        cfg = self.config
+        cfg = self.local_config
         dev = self.device
         impl = self._impl
         total = cfg.n_chains_total or cfg.n_chains
@@ -404,7 +398,7 @@ class Simulation:
 
     def init_reduce_acc(self):
         """Zero accumulator: one ``(n_chains,)`` tensor per statistic."""
-        n = self.config.n_chains
+        n = self.local_config.n_chains
         big = float(np.finfo(np.float32).max)
         init = {"sum": 0.0, "max": -big, "min": big}
         return {
@@ -692,7 +686,7 @@ class Simulation:
         """The chains' cohort ids ``(n,)`` int32 for the cohort
         selector, or None when the run is no fleet of two or more
         cohorts (the JAX package folds no selector then)."""
-        fp = self.config.fleet
+        fp = self.local_config.fleet
         if self._scn_cohort is None and fp is not None and \
                 fp.n_cohorts > 1:
             self._scn_cohort = torch.tensor(
@@ -704,7 +698,7 @@ class Simulation:
         n_chains)`` tensor per statistic, with ``init_reduce_acc``'s
         values, so row ``i`` of a batch-of-N run folds exactly what a
         batch-of-1 run of scenario ``i`` folds."""
-        b, n = int(batch), self.config.n_chains
+        b, n = int(batch), self.local_config.n_chains
         big = float(np.finfo(np.float32).max)
         init = {"sum": 0.0, "max": -big, "min": big}
         return {
@@ -760,14 +754,14 @@ class Simulation:
                 ev.synchronize()
         off = bi * self.config.block_s
         n_valid = min(self.config.block_s, self.config.duration_s - off)
-        return make_result(off, epoch[:n_valid], outs[0][0].numpy(),
-                           outs[1][0].numpy(), n_valid)
+        return make_result(off, epoch[:n_valid], n_valid,
+                           *(h.numpy() for h, _ in outs))
 
     def _iter_blocks(self, state, start_block: int, step: Callable,
                      make_result: Callable) -> Iterator[BlockResult]:
         """The per-block loop of the per-second modes: ``step(state,
-        inputs) -> (state, a, b)`` on the device, ``make_result(off,
-        epoch, a, b, n_valid)`` on the host (padding trimmed).
+        inputs) -> (state, *outs)`` on the device, ``make_result(off,
+        epoch, n_valid, *outs)`` on the host (padding trimmed).
 
         With ``output_overlap='auto'`` block N+1 is dispatched before block
         N's result is built and yielded, so the card computes N+1 while
@@ -782,9 +776,9 @@ class Simulation:
         pend = None
         for bi in range(start_block, self.n_blocks):
             inputs = group[bi - g0]
-            self.state, a, b = step(self.state, inputs)
+            self.state, *outs = step(self.state, inputs)
             self.state_block = bi + 1
-            cur = (bi, inputs.epoch, (self._to_host(a), self._to_host(b)))
+            cur = (bi, inputs.epoch, [self._to_host(o) for o in outs])
             if bi + 1 == g0 + len(group):
                 group, g0 = self._inputs_ahead(bi + 1), bi + 1
             if not self._output_overlap:
@@ -801,7 +795,7 @@ class Simulation:
         """Trace mode: yield per-chain BlockResults (``(n_chains,
         n_valid)`` meter, pv and residual) in time order."""
 
-        def make(off, epoch, meter, pv_, n_valid):
+        def make(off, epoch, n_valid, meter, pv_):
             m = meter.T[:, :n_valid]       # (T, n) time-major -> (n, T)
             p = pv_.T[:, :n_valid]
             return BlockResult(offset=off, epoch=epoch, meter=m, pv=p,
@@ -818,13 +812,17 @@ class Simulation:
         n_chains)`` in host float32, as the JAX package takes it."""
         inv_n = 1.0 / self.config.n_chains
 
-        def make(off, epoch, m_sum, p_sum, n_valid):
+        def make(off, epoch, n_valid, m_sum, p_sum):
             m = m_sum[None, :n_valid] * inv_n
             p = p_sum[None, :n_valid] * inv_n
             return BlockResult(offset=off, epoch=epoch, meter=m, pv=p,
                                residual=m - p)
 
-        return self._iter_blocks(state, start_block, self.step_series, make)
+        def step(state, inputs):
+            state, m_sum, p_sum = self.step_series(state, inputs)
+            return (state, *self._share_series(m_sum, p_sum))
+
+        return self._iter_blocks(state, start_block, step, make)
 
     def run_reduced(self, state=None, on_block=None, acc=None,
                     start_block: int = 0):
@@ -867,6 +865,7 @@ class Simulation:
             snaps = []
             for j, inputs in enumerate(group):
                 state, acc = self.step_acc(state, inputs, acc)
+                self._share_deltas()
                 if self._analytics != "off":
                     self._fleet_run = flt.merge(self._fleet_run,
                                                 self._fleet_last)
@@ -980,7 +979,54 @@ class Simulation:
             v = np.asarray(self._last_acc[name].cpu().numpy(),
                            np.int64 if dkind == "i" else np.float64)
             out[name] = (int if dkind == "i" else float)(np_op[kind](v))
-        return out
+        return self._share_stats(out)
+
+    # ------------------------------------------------------------------
+    # the hooks of a sharded run (parallel/mesh.py); here they do nothing
+    # ------------------------------------------------------------------
+
+    def _share_deltas(self) -> None:
+        """Make the block's observer deltas (``_tel_last``,
+        ``_fleet_last``) the whole run's, right after the launch."""
+
+    def _share_series(self, m_sum, p_sum):
+        """The whole run's per-second sums of a block's meter and pv sums
+        over this object's chains."""
+        return m_sum, p_sum
+
+    def _share_stats(self, stats: dict) -> dict:
+        """The whole run's ``ensemble_stats`` of this object's."""
+        return stats
+
+    def mesh_doc(self) -> Optional[dict]:
+        """The run report's ``mesh`` section: None for a run that is not
+        sharded."""
+        return None
+
+
+def resolve_chains(config: SimConfig) -> SimConfig:
+    """``config`` with its chain axis resolved: a fleet's chain i
+    simulates fleet row i (a uniform geometry runs on the shared-site
+    path, any other derives the site grid; a site grid given beside the
+    fleet must pair 1:1 with it), and a site grid sets ``n_chains``."""
+    fp = config.fleet
+    if fp is not None:
+        if config.site_grid is None:
+            if fp.uniform_geometry:
+                config = dataclasses.replace(
+                    config, n_chains=len(fp), site=fp.uniform_site())
+            else:
+                config = dataclasses.replace(
+                    config, site_grid=fp.site_grid())
+        elif len(config.site_grid) != len(fp):
+            raise ValueError(
+                f"fleet has {len(fp)} sites but site_grid has "
+                f"{len(config.site_grid)} — they must pair 1:1 on "
+                "the chain axis")
+    grid = config.site_grid
+    if grid is not None and config.n_chains != len(grid):
+        config = dataclasses.replace(config, n_chains=len(grid))
+    return config
 
 
 def _clone(tree):

@@ -136,8 +136,13 @@ def build_all() -> dict:
     hdr_texts = [open(os.path.join(CSRC, h), "rb").read() for h in HEADERS]
     gen_dir = os.path.join(BUILD_DIR, "include-" + _digest([header]))
     os.makedirs(gen_dir, exist_ok=True)
-    with open(os.path.join(gen_dir, "consts.cuh"), "w") as f:
+    # published whole, as the libraries are: a process building beside
+    # this one (the ranks of a sharded run) never reads it half written
+    consts = os.path.join(gen_dir, "consts.cuh")
+    tmp = f"{consts}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
         f.write(header)
+    os.replace(tmp, consts)
     paths, procs = {}, []
     for src in SOURCES:
         text = open(os.path.join(CSRC, src), "rb").read()
@@ -147,7 +152,7 @@ def build_all() -> dict:
         if os.path.exists(out):
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        log = open(out[:-3] + ".log", "w")
+        log = open(f"{out[:-3]}.{os.getpid()}.log", "w")
         cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-I", gen_dir, "-o", tmp,
                os.path.join(CSRC, src)]
         procs.append((src, out, tmp, log,
@@ -157,6 +162,8 @@ def build_all() -> dict:
     for src, out, tmp, log, proc in procs:
         rc = proc.wait()
         log.close()
+        # the log too is published whole under its one name
+        os.replace(log.name, out[:-3] + ".log")
         if rc != 0:
             failed.append((src, out[:-3] + ".log"))
             continue
@@ -209,10 +216,17 @@ def ptr(t) -> ctypes.c_void_p:
 def stream_ptr(device) -> int:
     """The address of ``device``'s current CUDA stream (a ``cudaStream_t``),
     read without building a ``torch.cuda.Stream`` (a launch of a few
-    microseconds is bounded by its wrapper's host work)."""
+    microseconds is bounded by its wrapper's host work).  The kernels
+    launch on the thread's current device, so a ``device`` that is not
+    the current one is refused: its tensors live on another card (a
+    rank's card is made current by ``parallel.distributed``)."""
     import torch
 
-    index = device.index
-    if index is None:
-        index = torch.cuda.current_device()
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index != current:
+        raise RuntimeError(
+            f"a kernel for cuda:{index} would launch on the current device "
+            f"cuda:{current}; make it current first "
+            f"(torch.cuda.set_device({index}))")
     return torch._C._cuda_getCurrentRawStream(index)

@@ -17,15 +17,17 @@ counters) and, paced at 1 Hz, ``realtime``; every other section is None.
 
 ``validate_report`` is the JAX validator's top level: required keys,
 types, no unknown keys, the fleet section's cohort rows, and a
-JSON-serialisable document.  The sections the port never writes and has
-no validator for (``cost``, ``mesh``, ``pod``, ``attribution``) are
-refused when they are not None.
+JSON-serialisable document.  A sharded run adds ``mesh`` (checked by
+``validate_mesh_section``, the JAX validator's) and ``processes``.  The
+sections the port never writes and has no validator for (``cost``,
+``pod``, ``attribution``) are refused when they are not None.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import time
 from typing import Optional
@@ -92,7 +94,7 @@ _TIMING_SCHEMA = {
 
 #: sections whose validators live in JAX-only modules; the port writes
 #: none of them
-_UNCHECKED = ("cost", "mesh", "pod", "attribution")
+_UNCHECKED = ("cost", "pod", "attribution")
 
 
 def _check_fields(doc: dict, schema: dict, where: str,
@@ -147,6 +149,59 @@ def validate_fleet_section(sec: dict) -> list:
     return errors
 
 
+def validate_mesh_section(sec: dict) -> list:
+    """Shape-check the ``mesh`` section (the JAX package's v13 check);
+    returns a list of error strings (empty = valid): the shape's product
+    is ``n_devices`` and pairs with ``axis_names``, and a chain layout
+    divides evenly and bounds the process's slice."""
+    errors = []
+    shape = sec.get("shape")
+    axes = sec.get("axis_names")
+    if not (isinstance(shape, list) and shape
+            and all(isinstance(s, int) and s >= 1 for s in shape)):
+        errors.append("shape: expected a non-empty list of ints >= 1")
+        shape = None
+    if not (isinstance(axes, list) and axes
+            and all(isinstance(a, str) for a in axes)):
+        errors.append("axis_names: expected a non-empty list of strings")
+        axes = None
+    if shape is not None and axes is not None and len(shape) != len(axes):
+        errors.append(f"shape/axis_names: rank mismatch "
+                      f"({len(shape)} vs {len(axes)})")
+    n_dev = sec.get("n_devices")
+    if not isinstance(n_dev, int) or n_dev < 1:
+        errors.append("n_devices: expected an int >= 1")
+    elif shape is not None and math.prod(shape) != n_dev:
+        errors.append(f"n_devices: {n_dev} != product(shape) "
+                      f"{math.prod(shape)}")
+    for key in ("process_count", "process_index"):
+        if key in sec and (not isinstance(sec[key], int) or sec[key] < 0):
+            errors.append(f"{key}: expected an int >= 0")
+    if isinstance(sec.get("process_count"), int) and \
+            isinstance(sec.get("process_index"), int) and \
+            sec["process_index"] >= sec["process_count"] >= 1:
+        errors.append("process_index: outside [0, process_count)")
+    nc = sec.get("n_chains")
+    if nc is not None:
+        if not isinstance(nc, int) or nc < 1:
+            errors.append("n_chains: expected an int >= 1 or absent")
+        elif isinstance(n_dev, int) and n_dev >= 1:
+            if nc % n_dev != 0:
+                errors.append(f"n_chains: {nc} not divisible by "
+                              f"n_devices {n_dev}")
+            cpd = sec.get("chains_per_device")
+            if cpd is not None and cpd != nc // n_dev:
+                errors.append(f"chains_per_device: {cpd} != "
+                              f"{nc // n_dev}")
+        lo, hi = sec.get("chain_start"), sec.get("chain_stop")
+        if lo is not None and hi is not None and isinstance(nc, int):
+            if not (isinstance(lo, int) and isinstance(hi, int)
+                    and 0 <= lo <= hi <= nc):
+                errors.append("chain_start/chain_stop: expected "
+                              f"0 <= start <= stop <= n_chains ({nc})")
+    return errors
+
+
 def validate_report(doc) -> dict:
     """Validate ``doc`` against the versioned schema; returns it.
 
@@ -172,6 +227,10 @@ def validate_report(doc) -> dict:
         errors = validate_fleet_section(doc["fleet"])
         if errors:
             raise ValueError("run report fleet: " + "; ".join(errors))
+    if isinstance(doc.get("mesh"), dict):
+        errors = validate_mesh_section(doc["mesh"])
+        if errors:
+            raise ValueError("run report mesh: " + "; ".join(errors))
     for key in _UNCHECKED:
         if doc.get(key) is not None:
             raise ValueError(f"run report {key}: the port writes no such "
@@ -251,7 +310,11 @@ def simulation_report(app: str, sim) -> dict:
     config and plan, the ``fleet`` section (``fleet_summary()``), the
     ``precision`` section (``precision_doc()``) and the ``telemetry``
     section (``sim.sentinel.report()`` once the sentinel has checked a
-    block); every other section is None."""
+    block); a sharded run (``parallel.ShardedSimulation``) adds ``mesh``
+    (``sim.mesh_doc()``, None otherwise) and, over more than one process
+    (``sim.world``), ``processes``: every process's metrics snapshot in
+    rank order (a collective, so every process calls this).  Every other
+    section is None."""
     doc = {k: None for k in _TOP_SCHEMA}
     doc.update(schema_version=REPORT_SCHEMA_VERSION, kind=REPORT_KIND,
                app=app,
@@ -262,6 +325,16 @@ def simulation_report(app: str, sim) -> dict:
                precision=sim.precision_doc(),
                telemetry=(None if sim.sentinel is None
                           else sim.sentinel.report()))
+    mesh = sim.mesh_doc()
+    if mesh is not None:
+        doc["mesh"] = mesh
+        doc["device"].update(n_devices=mesh["n_devices"],
+                             process_count=mesh["process_count"],
+                             process_index=mesh["process_index"])
+    if sim.world > 1:
+        from tmhpvsim_torch.parallel import distributed
+
+        doc["processes"] = distributed.gather_metrics(sim.metrics.snapshot())
     return validate_report(doc)
 
 
