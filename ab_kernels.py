@@ -3,7 +3,8 @@ instantiations of one tree of the port on the card, to compare trees (a
 parent commit unpacked beside the change) in one call.
 
     python3 ab_kernels.py --root DIR [--rows 16] [--rounds 3]
-        [--kernels K3,K6,K6s,K7T,K8,K12B,K12BL,K89,K89L,K12F,K4M89]
+        [--kernels K1,K1N,K2,K2P,K2U,K7R,K3,K3N,K4T,K4S,K11R,K11N,K3P,K3U,
+                   K12R,K12T,K6,K6s,K7T,K8,K12B,K12BL,K89,K89L,K12F,K4M89]
         [--skip-scenario]
 
 ``--root`` is the directory that holds the ``tmhpvsim_torch`` package (and
@@ -28,7 +29,24 @@ line per measurement, ``{"tree": ..., "kernel": ..., ...}``:
   the observers' deltas), so that two trees' lines show whether their
   kernels give the same bits:
 
+  K1   ``init_state``'s five threefry launches at 65536 chains (the
+       split of the root key, the 5-way and 2-way splits, two uniforms);
+  K1N  ``normal`` of 60 draws on each of 2^20 keys (the op that reaches
+       ``erf_inv``);
+  K2   path R's sampler windows of the noon block (threefry keys);
+  K2P, K2U  the same under rbg and unsafe_rbg keys (K13 / K14 in K2);
+  K7R  path F's windows with K7's per-chain regime;
   K3   path R's acc launch (shared site);
+  K3N  the same launch on path R's first block (00:00, night: no
+       clear-sky GHI in any second);
+  K4T  path R-W's trace launch (its carry, meter and pv);
+  K4S  path A's series launch (the partials' sum, ``series_sum``);
+  K11R path R-T's acc launch (the table set);
+  K11N the same launch on path R-T's first block (00:00, night);
+  K3P  path R-P's acc launch (rbg keys, K13 in K3);
+  K3U  path R-U's acc launch (unsafe_rbg keys, K14 in K3);
+  K12R path R-H's acc launch (bf16, telemetry light: K12 with K8);
+  K12T path R-HW's trace launch (bf16, float32 draws);
   K6   path B's (the 256 x 256 grid of ``--site-grid
        47:55:256,6:15:256``, site geometry);
   K6s  path B-L's (that grid, ``geom_stride=60``, the table set);
@@ -73,8 +91,11 @@ MANY_THR = range(-4000, 6000, 1000)
 HEADLINE = dict(start="2019-09-05 00:00:00", duration_s=86400,
                 n_chains=65536, seed=0, block_s=1080, output="reduce")
 NOON = 40
-KERNELS = ("K3", "K6", "K6s", "K7T", "K8", "K12B", "K12BL", "K89", "K89L",
-           "K12F", "K4M89")
+KERNELS = ("K1", "K1N", "K2", "K2P", "K2U", "K7R", "K3", "K3N", "K4T", "K4S",
+           "K11R", "K11N", "K3P", "K3U", "K12R", "K12T", "K6", "K6s", "K7T",
+           "K8", "K12B", "K12BL", "K89", "K89L", "K12F", "K4M89")
+#: the cases timed on another block than the noon block
+BLOCK = {"K3N": 0, "K11N": 0}
 
 
 def digest(tree) -> str:
@@ -110,10 +131,49 @@ def block_step_cases(names, dev):
     from tmhpvsim_torch.kernels import wide
 
     fleet = FleetParams.synthetic(HEADLINE["n_chains"], seed=0) if any(
-        k in names for k in ("K7T", "K8", "K89", "K89L", "K12F", "K4M89")) \
-        else None
+        k in names for k in ("K7R", "K7T", "K8", "K89", "K89L", "K12F",
+                             "K4M89")) else None
+    out = {}
+    if "K1" in names or "K1N" in names:
+        from tmhpvsim_torch import rng
+        from tmhpvsim_torch.kernels import threefry as k1
+
+        root = rng.split(rng.key(HEADLINE["seed"]), 2)[0].to(dev)
+        keys = rng.split(rng.key(1234, device=dev), 1 << 20)
+
+        def k1_init(root=root):
+            chains = k1.split(root, HEADLINE["n_chains"])
+            kr = k1.split(k1.split(chains, 5)[:, 2, :].contiguous(), 2)
+            return (chains, kr, *(k1.uniform(kr[:, j, :].contiguous())
+                                  for j in (0, 1)))
+
+        if "K1" in names:
+            out["K1"] = (k1_init, "init_state's threefry launches", None)
+        if "K1N" in names:
+            out["K1N"] = (lambda: k1.normal(keys, 60),
+                          "normal on 2^20 keys x 60", None)
     configs = {
+        "K2": (dict(HEADLINE), "path R's sampler windows"),
+        "K2P": (dict(HEADLINE, prng_impl="rbg"), "path R-P's windows"),
+        "K2U": (dict(HEADLINE, prng_impl="unsafe_rbg"),
+                "path R-U's windows"),
+        "K7R": (dict(HEADLINE, fleet=fleet), "path F's windows (regime)"),
         "K3": (dict(HEADLINE), "path R's acc launch"),
+        "K3N": (dict(HEADLINE), "path R's acc launch at night"),
+        "K4T": (dict(HEADLINE, block_impl="wide", stats_fusion="split"),
+                "path R-W's trace launch"),
+        "K4S": (dict(HEADLINE, output="ensemble"), "path A's series launch"),
+        "K11R": (dict(HEADLINE, kernel_impl="table"),
+                 "path R-T's acc launch"),
+        "K11N": (dict(HEADLINE, kernel_impl="table"),
+                 "path R-T's acc launch at night"),
+        "K3P": (dict(HEADLINE, prng_impl="rbg"), "path R-P's acc launch"),
+        "K3U": (dict(HEADLINE, prng_impl="unsafe_rbg"),
+                "path R-U's acc launch"),
+        "K12R": (dict(HEADLINE, compute_dtype="bf16", telemetry="light"),
+                 "path R-H's acc launch"),
+        "K12T": (dict(HEADLINE, compute_dtype="bf16", block_impl="wide",
+                      stats_fusion="split"), "path R-HW's trace launch"),
         "K6": (dict(HEADLINE, site_grid=grid), "path B's acc launch"),
         "K6s": (dict(HEADLINE, site_grid=grid, geom_stride=60,
                      kernel_impl="table"), "path B-L's acc launch"),
@@ -137,12 +197,13 @@ def block_step_cases(names, dev):
                        analytics="full", block_impl="wide"),
                   "path F-W's wide fold with both observers"),
     }
-    out = {}
     for name in names:
+        if name in ("K1", "K1N"):
+            continue
         kw, what = configs[name]
         sim = Simulation(SimConfig(**kw), device=dev)
         state = sim.init_state()
-        ins = sim.host_inputs(NOON)
+        ins = sim.host_inputs(BLOCK.get(name, NOON))
         tables, _ = sim._windows(state, ins)
         tilt, alb, site = sim.geometry_args(state)
         head = (tables, ins.rows_i, ins.rows_f, state["k_scan"],
@@ -150,8 +211,24 @@ def block_step_cases(names, dev):
         tail = (sim.config.duration_s, sim.config.meter_max_w, tilt, alb)
         opts = dict(site=site, fleet=sim.fleet_leaves(state),
                     kernels=sim.plan.kernel_impl,
-                    compute_dtype=sim.plan.compute_dtype)
+                    compute_dtype=sim.plan.compute_dtype,
+                    layout=sim._draw_layout(), impl=sim.plan.prng_impl)
         obs = sim.observers(state)
+        if name in ("K2", "K2P", "K2U", "K7R"):
+            out[name] = (lambda sim=sim, state=state, ins=ins:
+                         sim._windows(state, ins), what, None)
+            continue
+        if name in ("K4T", "K4S", "K12T"):
+            def step(head=head, state=state, tail=tail, opts=opts,
+                     trace=name != "K4S"):
+                carry = {k: v.clone() for k, v in state["carry"].items()}
+                if trace:
+                    return k3.block_step_trace(*head, carry, *tail[1:],
+                                               **opts)
+                return k3.block_step_series(*head, carry, *tail[1:], **opts)
+
+            out[name] = (step, what, None)
+            continue
         if name == "K4M89":
             _, meter, pv = k3.block_step_trace(
                 *head, {k: v.clone() for k, v in state["carry"].items()},

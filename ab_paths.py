@@ -6,9 +6,9 @@ trees (a parent commit unpacked beside the change) in one call.
 ``--root`` is the directory that holds the ``tmhpvsim_torch`` package to
 time (default: this script's own).  Each path is run once to warm up (the
 kernels' build, the sentinel's first imports), then ``--reps`` times; a
-run's wall is ``run_reduced`` from a synchronised card to a synchronised
-card, as ``chip_smoke.py``'s paths measure it.  Prints one JSON line per
-path: ``{"tree": ..., "path": ..., "walls_s": [...]}``.  Paths (the shapes
+run's wall is ``run_reduced`` (``run_ensemble`` for A, A-W) from a
+synchronised card to a synchronised card, as ``chip_smoke.py``'s paths
+measure it.  Prints one JSON line per path: ``{"tree": ..., "path": ..., "walls_s": [...]}``.  Paths (the shapes
 of ``chip_smoke.py``'s paths of the same names):
 
 - R: 65536 chains x 86400 s, shared site, float32, no observer;
@@ -22,7 +22,14 @@ of ``chip_smoke.py``'s paths of the same names):
 - F-H: path F with ``compute_dtype='bf16'`` and a strict sentinel;
 - F-L: path F with ``geom_stride=60, kernel_impl='table'``;
 - F-W: path F with ``block_impl='wide'`` (the trace, then the wide fold
-  with both observers).
+  with both observers);
+- R-W: path R with ``block_impl='wide', stats_fusion='split'`` (the K4
+  trace, then the wide fold);
+- R-T: path R with ``kernel_impl='table'``;
+- R-P, R-U: path R with rbg and unsafe_rbg keys;
+- A, A-W: path R's shape as an ensemble (``run_ensemble``: the K4 series
+  and ``series_sum``; with ``block_impl='wide'`` the K4 trace and the wide
+  series).
 """
 
 from __future__ import annotations
@@ -85,6 +92,14 @@ def main(argv=None) -> int:
                                 kernel_impl="table"),
             "F-W": lambda: dict(HEADLINE, fleet=fleet, telemetry="full",
                                 analytics="full", block_impl="wide"),
+            "R-W": lambda: dict(HEADLINE, block_impl="wide",
+                                stats_fusion="split"),
+            "R-T": lambda: dict(HEADLINE, kernel_impl="table"),
+            "R-P": lambda: dict(HEADLINE, prng_impl="rbg"),
+            "R-U": lambda: dict(HEADLINE, prng_impl="unsafe_rbg"),
+            "A": lambda: dict(HEADLINE, output="ensemble"),
+            "A-W": lambda: dict(HEADLINE, output="ensemble",
+                                block_impl="wide"),
         }[name]()
 
     for name in args.paths.split(","):
@@ -94,7 +109,11 @@ def main(argv=None) -> int:
             sim = Simulation(cfg, device=dev)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            sim.run_reduced()
+            if name.startswith("A"):
+                for _ in sim.run_ensemble():
+                    pass
+            else:
+                sim.run_reduced()
             torch.cuda.synchronize()
             if rep:
                 walls.append(time.perf_counter() - t0)

@@ -20,7 +20,11 @@ Phases (any failure exits non-zero and prints no result line):
    cross-CTA sum ``series_sum`` bit for bit against its plain version,
    which holds within 1e-6 of the float64 sum); K4 trace (meter bit-identical, pv and
    residual to the K3 tolerance, and each chain's sums over the trace
-   against the acc kernel's); K6 (the site-geometry mode through the acc
+   against the acc kernel's); K3 and K4 trace bit for bit on a
+   redraw-heavy edge block (``edge_block``), and the lean step's acc,
+   series and trace under the table set, rbg, unsafe_rbg and bf16 keys
+   and from a start off a whole minute on one of 8192 - 37 chains
+   (``phase_lean_edges``); K6 (the site-geometry mode through the acc
    epilogue at 65536 sites, and the geometry fields on their own);
    then the fleet kernels on 2 blocks of path F's fleet: K7 (the regime
    gather of K2 at init_state's launch and two blocks, bit for bit; the
@@ -747,6 +751,61 @@ def phase_k2(dev):
     return err
 
 
+#: the lean step's edge block: the last hour of daylight, sunset in
+#: its last minutes (seconds with and without clear-sky GHI), 65536 - 37
+#: chains (a partial last CTA), the duration ending mid-tile and the wind
+#: speeds x16, so that cycles last a few seconds: redraws in consecutive
+#: seconds and in a tile's first and last second
+EDGE = dict(HEADLINE, start="2019-09-05 18:50:00", n_chains=65536 - 37,
+            block_s=3600)
+EDGE_WS = 16.0
+EDGE_DURATION = 3600 - 30
+
+
+_EDGE = {}
+
+
+def edge_block(dev):
+    """``(cfg, sim, state, head, tilt, albedo, reached)`` of the edge
+    block, its wind-speed table scaled by EDGE_WS (made once a run);
+    ``reached`` counts its edge cases (``edge_reached``)."""
+    if dev not in _EDGE:
+        cfg = SimConfig(**EDGE)
+        sim = Simulation(cfg, device=dev)
+        state = sim.init_state()
+        ins = sim.host_inputs(0)
+        tables, _ = sim._windows(state, ins)
+        tables = dict(tables, ws=tables["ws"] * EDGE_WS)
+        tilt, alb, _ = sim.geometry_args(state)
+        head = head_of(state, ins, tables)
+        _EDGE[dev] = (cfg, sim, state, head, tilt, alb,
+                      edge_reached(head, state["carry"]))
+    return _EDGE[dev]
+
+
+def edge_reached(head, carry):
+    """Fail unless the edge block has redraws in tiles' first and last
+    seconds and in consecutive seconds, and seconds with and without
+    clear-sky GHI; returns the counts."""
+    tables, rows_i, rows_f, k_scan, _ = head
+    red = k3.redraws_plain(tables, rows_i, rows_f, k_scan, carry)
+    ghi = rows_f[k3.ROWS_F.index("ghi_clear")]
+    got = {"redraws": int(red.sum()), "first": int(red[0::60].sum()),
+           "last": int(red[59::60].sum()),
+           "consecutive": int((red[1:] & red[:-1]).sum()),
+           "dark_s": int((ghi == 0).sum()), "T": int(ghi.numel())}
+    if not (got["first"] and got["last"] and got["consecutive"]
+            and 0 < got["dark_s"] < got["T"]):
+        fail(f"the edge block misses an edge case: {got}")
+    return got
+
+
+def bits_equal(a, b) -> bool:
+    return a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.int32) if a.dtype == torch.float32 else a,
+        b.contiguous().view(torch.int32) if b.dtype == torch.float32 else b)
+
+
 def phase_k3(dev):
     # the main path's shape (65536 chains x 1080 s), two daylight blocks
     cfg = SimConfig(**dict(HEADLINE, start="2019-09-05 11:00:00"))
@@ -791,6 +850,22 @@ def phase_k3(dev):
           f"({same}/7 statistics bit-identical)")
     if float(acc_k["pv_max"].max()) <= 10.0:
         fail("K3 check blocks saw no daylight")
+    # the lean step's edges, bit for bit
+    cfg, sim, state, head, tilt, alb, got = edge_block(dev)
+    tail = (EDGE_DURATION, cfg.meter_max_w, tilt, alb)
+    carry_k, acc_k = k3.block_step_acc(*head, clone(state["carry"]),
+                                       sim.init_reduce_acc(), *tail)
+    carry_p, acc_p = k3.block_step_plain(*head, clone(state["carry"]),
+                                         sim.init_reduce_acc(), *tail)
+    torch.cuda.synchronize()
+    for what, a, b in (("statistics", acc_k, acc_p),
+                       ("renewal carry", carry_k, carry_p)):
+        for k in a:
+            if not bits_equal(a[k], b[k]):
+                fail(f"K3 edge block: {what} {k} differs from the plain "
+                     f"version: max abs {max_abs(a[k], b[k])}")
+    print(f"K3 vs plain on the edge block ({cfg.n_chains} chains, duration "
+          f"ending mid-tile, wind x{EDGE_WS:g}: {got}): bit for bit")
     return err
 
 
@@ -907,7 +982,126 @@ def phase_k4_trace(dev):
           f"bit-identical, pv/residual max abs {err:.3g}; {same}/{total} pv "
           "values bit-identical; per-chain sums over the trace match the "
           "acc kernel's pv_sum/meter_sum to rtol 2e-5")
+    # the lean step's edges, bit for bit
+    cfg, sim, state, head, tilt, alb, got = edge_block(dev)
+    carry_k, mk, pk = k3.block_step_trace(*head, clone(state["carry"]), mw,
+                                          tilt, alb)
+    carry_p, mp, pp = k3.trace_plain(*head, clone(state["carry"]), mw, tilt,
+                                     alb)
+    torch.cuda.synchronize()
+    for what, a, b in (("meter", mk, mp), ("pv", pk, pp),
+                       *((f"carry {k}", carry_k[k], carry_p[k])
+                         for k in carry_k)):
+        if not bits_equal(a, b):
+            fail(f"K4 trace edge block: {what} differs from the plain "
+                 f"version: max abs {max_abs(a, b)}")
+    print(f"K4 trace vs plain on the edge block ({cfg.n_chains} chains, "
+          f"wind x{EDGE_WS:g}: {got}): bit for bit")
     return err
+
+
+#: the lean step's other instantiations on the edge block, at 8192 - 37
+#: chains, and the edge block from a start off a whole minute (the minute
+#: index then changes inside every tile): (label, SimConfig fields)
+LEAN_EDGES = (("off the minute", dict(start="2019-09-05 18:50:30")),
+              ("table set", dict(kernel_impl="table")),
+              ("rbg", dict(prng_impl="rbg")),
+              ("unsafe_rbg", dict(prng_impl="unsafe_rbg")),
+              ("bf16", dict(compute_dtype="bf16")),
+              ("bf16 rbg", dict(compute_dtype="bf16", prng_impl="rbg")),
+              ("bf16 unsafe_rbg", dict(compute_dtype="bf16",
+                                       prng_impl="unsafe_rbg")))
+
+
+def phase_lean_edges(dev):
+    """The acc, series and trace launches of each LEAN_EDGES case on its
+    edge block against their plain versions: bit for bit (the series'
+    per-CTA partials against ``series_partials_plain``), but for rbg
+    keys, whose float32 values the card's K13 checks hold within the
+    engine tolerance (``phase_k13_k3``): there the meter trace bit for
+    bit, the rest within that tolerance and the series' sums within rtol
+    1e-6 of the float64 plain sums."""
+    for label, fields in LEAN_EDGES:
+        cfg = SimConfig(**dict(EDGE, n_chains=8192 - 37, **fields))
+        sim = Simulation(cfg, device=dev)
+        state = sim.init_state()
+        ins = sim.host_inputs(0)
+        tables, _ = sim._windows(state, ins)
+        tables = dict(tables, ws=tables["ws"] * EDGE_WS)
+        tilt, alb, _ = sim.geometry_args(state)
+        head = head_of(state, ins, tables)
+        impl = sim.plan.prng_impl
+        kw = dict(kernels=sim.plan.kernel_impl,
+                  compute_dtype=sim.plan.compute_dtype, impl=impl)
+        strict = impl != "rbg"
+        mw, start = cfg.meter_max_w, state["carry"]
+        red = k3.redraws_plain(tables, ins.rows_i, ins.rows_f,
+                               state["k_scan"], start, impl=impl)
+        m = ins.rows_i[3]
+        got = {"first": int(red[0::60].sum()), "last": int(red[59::60].sum()),
+               "consecutive": int((red[1:] & red[:-1]).sum()),
+               "tiles with a minute change": int((m[0::60] != m[59::60])
+                                                 .sum())}
+        if not (got["first"] and got["last"] and got["consecutive"]):
+            fail(f"the lean step's edge block ({label}) misses an edge "
+                 f"case: {got}")
+        if cfg.start.endswith(":30") and \
+                got["tiles with a minute change"] != m.numel() // 60:
+            fail(f"the edge block ({label}) has a tile within one minute")
+
+        def carry_held(what, ck, cp):
+            if strict:
+                check_same(what, ck, cp)
+            elif not all(close(ck[k], cp[k], rtol=1e-5, atol=1e-3)
+                         for k in cp):
+                fail(f"{what} differs from the plain version")
+
+        ck, ak = k3.block_step_acc(*head, clone(start), sim.init_reduce_acc(),
+                                   EDGE_DURATION, mw, tilt, alb, **kw)
+        cp, ap = k3.block_step_plain(*head, clone(start),
+                                     sim.init_reduce_acc(), EDGE_DURATION,
+                                     mw, tilt, alb, **kw)
+        torch.cuda.synchronize()
+        if strict:
+            check_same(f"lean edge ({label}) acc", ak, ap)
+        else:
+            rbg_acc_held(f"lean edge ({label}) acc", ak, ap)
+        carry_held(f"lean edge ({label}) acc carry", ck, cp)
+        ck, mk, pk = k3.block_step_trace(*head, clone(start), mw, tilt, alb,
+                                         **kw)
+        cp, mp, pp = k3.trace_plain(*head, clone(start), mw, tilt, alb, **kw)
+        torch.cuda.synchronize()
+        check_same(f"lean edge ({label}) trace meter", {"m": mk}, {"m": mp})
+        if strict:
+            check_same(f"lean edge ({label}) trace pv", {"p": pk}, {"p": pp})
+        elif not close(pk, pp):
+            fail(f"lean edge ({label}) trace pv differs from the plain "
+                 f"version: max abs {max_abs(pk, pp)}")
+        carry_held(f"lean edge ({label}) trace carry", ck, cp)
+        ck, part = k3.series_partials_cuda(*head, clone(start), mw, tilt,
+                                           alb, **kw)
+        if strict:
+            cp, want = k3.series_partials_plain(*head, clone(start), mw,
+                                                tilt, alb, **kw)
+            torch.cuda.synchronize()
+            check_same(f"lean edge ({label}) series partials", {"p": part},
+                       {"p": want})
+        else:
+            cp, m_p, p_p = k3.series_plain(*head, clone(start), mw, tilt,
+                                           alb, **kw)
+            out = k3.series_sum(part)
+            torch.cuda.synchronize()
+            for what, a, b in (("meter", out[0], m_p), ("pv", out[1], p_p)):
+                if not close(a, b, rtol=1e-6, atol=0.0):
+                    fail(f"lean edge ({label}) series {what} sums differ "
+                         f"from the plain version: max abs {max_abs(a, b)}")
+        carry_held(f"lean edge ({label}) series carry", ck, cp)
+        print(f"lean step vs plain on the edge block ({label}, "
+              f"{cfg.n_chains} chains from {cfg.start}, wind x{EDGE_WS:g}: "
+              f"{got}): acc, trace and series "
+              + ("bit for bit" if strict else
+                 "within the rbg tolerance (series sums rtol 1e-6), the "
+                 "meter bit for bit"))
 
 
 def grid_b():
@@ -6408,6 +6602,7 @@ def main() -> int:
     err3 = timed("k3", phase_k3, dev)
     err_s, err_r = timed("k4_series", phase_k4_series, dev)
     err_t = timed("k4_trace", phase_k4_trace, dev)
+    timed("lean_edges", phase_lean_edges, dev)
     err6 = timed("k6", phase_k6, dev)
     err7r, err7t = timed("k7", phase_k7, dev)
     err8 = timed("k8", phase_k8, dev)

@@ -777,6 +777,69 @@ def test_k4_k6_match_plain_on_card(card, grid):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("fields", [
+    {}, {"start": "2019-09-05 18:50:30"}, {"kernel_impl": "table"},
+    {"prng_impl": "unsafe_rbg"}, {"compute_dtype": "bf16"},
+    {"compute_dtype": "bf16", "prng_impl": "unsafe_rbg"}],
+    ids=["edge", "off-minute", "table", "unsafe-rbg", "bf16", "bf16-urbg"])
+def test_lean_step_edges_match_plain_on_card(card, fields):
+    """The lean step's acc, trace and series (its per-CTA partials)
+    against their plain versions bit for bit on an edge block: the last
+    hour of daylight, sunset in its last minutes (seconds with and
+    without clear-sky GHI), 512 - 37 chains (a partial last CTA), the
+    duration ending mid-tile, and wind speeds x16 (cycles of a few
+    seconds: redraws in consecutive seconds and in a tile's first and
+    last second); also from a start off a whole minute (the minute index
+    changes inside every tile) and under the table set, unsafe_rbg keys
+    and bf16."""
+    cfg = SimConfig(**{"start": "2019-09-05 18:50:00", "duration_s": 86400,
+                       "n_chains": 512 - 37, "seed": 0, "block_s": 3600,
+                       **fields})
+    sim = Simulation(cfg, device=card)
+    state, ins = _block(sim)
+    tables, _ = sim._windows(state, ins)
+    tables = dict(tables, ws=tables["ws"] * 16.0)
+    kw = dict(kernels=sim.plan.kernel_impl,
+              compute_dtype=sim.plan.compute_dtype, impl=sim.plan.prng_impl)
+    red = k3.redraws_plain(tables, ins.rows_i, ins.rows_f, state["k_scan"],
+                           state["carry"], impl=kw["impl"])
+    assert bool(red[0::60].any() and red[59::60].any()
+                and (red[1:] & red[:-1]).any())
+    ghi = ins.rows_f[k3.ROWS_F.index("ghi_clear")]
+    assert 0 < int((ghi == 0).sum()) < ghi.numel()
+    m = ins.rows_i[3]
+    assert bool((m[0::60] != m[59::60]).all()) == ("start" in fields)
+    tilt, alb, _ = sim.geometry_args(state)
+    head = (tables, ins.rows_i, ins.rows_f, state["k_scan"],
+            state["k_meter"])
+    mw = cfg.meter_max_w
+
+    def carry():
+        return {k: v.clone() for k, v in state["carry"].items()}
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    ck, ak = k3.block_step_acc(*head, carry(), sim.init_reduce_acc(),
+                               3600 - 30, mw, tilt, alb, **kw)
+    cp, ap = k3.block_step_plain(*head, carry(), sim.init_reduce_acc(),
+                                 3600 - 30, mw, tilt, alb, **kw)
+    for a, b in ((ak, ap), (ck, cp)):
+        for k in b:
+            assert torch.equal(bits(a[k]), bits(b[k])), k
+    ck, mk, pk = k3.block_step_trace(*head, carry(), mw, tilt, alb, **kw)
+    cp, mp, pp = k3.trace_plain(*head, carry(), mw, tilt, alb, **kw)
+    assert torch.equal(bits(mk), bits(mp)) and torch.equal(bits(pk), bits(pp))
+    for k in cp:
+        assert torch.equal(bits(ck[k]), bits(cp[k])), k
+    ck, part = k3.series_partials_cuda(*head, carry(), mw, tilt, alb, **kw)
+    cp, want = k3.series_partials_plain(*head, carry(), mw, tilt, alb, **kw)
+    assert torch.equal(bits(part), bits(want))
+    for k in cp:
+        assert torch.equal(bits(ck[k]), bits(cp[k])), k
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("hist", ["shared", "cohort", "all"],
                          ids=["shared-hist", "global-hist",
                               "global-residual-hist"])

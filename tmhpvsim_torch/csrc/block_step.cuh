@@ -72,6 +72,22 @@
 // zenith, azimuth), refraction, Kasten-Young, Ineichen and AOI, and the
 // physics terms from them.
 //
+// The lean step (the shared-site acc, series and trace steps; not with the
+// telemetry observer, which folds csi every second).  The loop is bound by
+// the instructions it issues, not by their latency: stripping a piece
+// saved time in proportion to its instructions, and unrolling it, or
+// splitting a chain over two threads, did not pay (k3_split.py, PERF.md).
+// So these steps issue fewer:
+//   - the table indices are the CTA's, so the chain's value pairs (cloud
+//     cover and cloudy at the hour, clear day at hour + day, the minute
+//     noises) stay in registers, loaded when an index changes (a uniform
+//     branch), instead of six to eight loads every second;
+//   - where the second's clear-sky GHI is zero (the CTA's row: a uniform
+//     branch) power() is a constant for every csi (night_ac) and csi feeds
+//     nothing else, so neither the z word, erf_inv, the csi lerps nor
+//     power() is computed; the renewal steps as in every second.
+// Every value keeps its expression, so the outputs keep their bits.
+//
 // K6s (strided).  The tile stages the calendar and the DISC Spencer term
 // of each second (its exact doy) and the doy terms and the sun's time half
 // of the stride samples the tile touches (2 at stride 60, 3 at stride 30).  Each
@@ -185,7 +201,8 @@
 //
 // Bound: operations for acc and series (per site-second about three
 // 20-round threefry hashes, XLA's erfinv and log1p polynomials, accurate
-// expf and logf, plus powf x2 on a redraw; the site mode adds about 15
+// expf and logf, plus powf x2 on a redraw; a lean step's second without
+// clear-sky GHI about one hash; the site mode adds about 15
 // accurate transcendentals and a powf per site-second and 15 per second
 // for the CTA, the strided mode about as many per stride sample and 4 per
 // site-second); trace adds 8 bytes per
@@ -220,6 +237,7 @@
 #endif
 
 enum Epilogue { ACC = 0, SERIES = 1, TRACE = 2, SCEN = 3, PROD = 4 };
+
 
 // compute dtypes (Plan.compute_dtype)
 struct F32 {};
@@ -261,9 +279,11 @@ struct TimeC {
   float i0, dni_extra, tl, ra, cos_dec, sin_dec, tan_dec, gmst_ang;
 };
 
+// (16-byte aligned members: a thread reads a tile second's fields four at
+// a time)
 struct SharedSecond {
-  Cal c;
-  Phys p;
+  alignas(16) Cal c;
+  alignas(16) Phys p;
 };
 
 struct SiteSecond {
@@ -299,6 +319,13 @@ enum RowFStride { TDOY = 3, SAMP_DAY2000, SAMP_SEC, SAMP_DOY };
 // geometry modes: the host's shared rows, every chain's geometry every
 // second, every chain's geometry on the stride grid lerped to 1 Hz
 enum Geom { SHARED = 0, SITE = 1, STRIDED = 2 };
+
+// the instantiations that run the lean step (Design): the shared-site
+// acc (without the telemetry observer), series and trace epilogues
+__host__ __device__ constexpr bool lean_step(int epi, int geo, bool tel) {
+  return geo == SHARED && !tel &&
+         (epi == ACC || epi == SERIES || epi == TRACE);
+}
 // the most stride samples a 60-second tile touches (stride 30)
 #define MAX_SAMP 3
 
@@ -683,6 +710,14 @@ __device__ __forceinline__ float power(float csi, const Phys& S,
   return sapm_sandia<KS>(pdir, pdiff, S);
 }
 
+// power()'s value, and power_bf's, where the second's clear-sky GHI is
+// zero: ghi is then +-0 or NaN for every csi, so the plane-of-array
+// irradiances are +-0 or NaN, ee is never > 0, i_mp = v_mp = p_mp = +0 and,
+// with the inverter's self-consumption PSO above 0, ac is the night tare
+// clipped at 0
+constexpr bool NIGHT_SKIP = PSO > 0.0f;
+__device__ __forceinline__ float night_ac() { return nmaxf(PNT_NEG, 0.0f); }
+
 // K12: pv.second_terms_bf16 -- the csi-independent terms from bf16
 // geometry, in the JAX graph's types (bf16.cuh); csi_cap and ghi_clear keep
 // their bf16 values, the rest their float32 widening
@@ -824,6 +859,9 @@ __device__ __forceinline__ void block_step_body(const Args& a) {
   __shared__ float s_z[BF_DRAWS ? 128 : 1];
   // K14: the tile's u, z and meter keys
   __shared__ ph::Key4 s_rk[UR ? 3 : 1];
+  // the shared-site acc, series and trace steps: table pairs in
+  // registers, no physics on a second without clear-sky GHI (Design)
+  constexpr bool LEAN = lean_step(EPI, GEO, TEL);
   const int64_t n = a.n;
   const int T = a.T;
   const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
@@ -902,6 +940,12 @@ __device__ __forceinline__ void block_step_body(const Args& a) {
   const int stride = GEO == STRIDED ? a.stride : TILE;
   const int per_tile = TILE / stride;  // new samples per tile: 1 or 2
   Geo g_s[MAX_SAMP];
+
+  // lean: the chain's table pairs at the indices last loaded (cc and
+  // cloudy at h, clear_day at h + d, ml and mc at m)
+  int ld_h = -1, ld_hd = -1, ld_m = -1;
+  float cc0 = 0.0f, cc1 = 0.0f, cl0 = 0.0f, cl1 = 0.0f, cd0 = 0.0f,
+        cd1 = 0.0f, ml0 = 0.0f, ml1 = 0.0f, mc0 = 0.0f, mc1 = 0.0f;
 
   for (int base = 0; base < T; base += TILE) {
     __syncthreads();
@@ -986,9 +1030,30 @@ __device__ __forceinline__ void block_step_body(const Args& a) {
     }
     for (int s = 0; s < TILE; ++s) {
       const Cal& S = tile[s].c;
+      if constexpr (LEAN) {  // the pairs of an index that changed
+        if (S.h != ld_h) {
+          ld_h = S.h;
+          cc0 = a.t_cc[ld_h * n + ii];
+          cc1 = a.t_cc[(ld_h + 1) * n + ii];
+          cl0 = a.t_cloudy[ld_h * n + ii];
+          cl1 = a.t_cloudy[(ld_h + 1) * n + ii];
+        }
+        if (S.h + S.d != ld_hd) {
+          ld_hd = S.h + S.d;
+          cd0 = a.t_cd[ld_hd * n + ii];
+          cd1 = a.t_cd[(ld_hd + 1) * n + ii];
+        }
+        if (S.m != ld_m) {
+          ld_m = S.m;
+          ml0 = a.t_ml[ld_m * n + ii];
+          ml1 = a.t_ml[(ld_m + 1) * n + ii];
+          mc0 = a.t_mc[ld_m * n + ii];
+          mc1 = a.t_mc[(ld_m + 1) * n + ii];
+        }
+      }
       // the second's z and meter words (K13: four per Philox call; the
       // tile's first word is a multiple of 4)
-      uint32_t zb, mb;
+      uint32_t zb = 0, mb;
       if constexpr (RB) {
         if ((s & 3) == 0) {
           zq = ph::block(rz, (wb + s) >> 2);
@@ -997,7 +1062,7 @@ __device__ __forceinline__ void block_step_body(const Args& a) {
         zb = ph::pick(zq, s & 3);
         mb = ph::pick(mq, s & 3);
       } else {
-        zb = tf::bits(kz, (uint32_t)s);
+        if constexpr (!LEAN) zb = tf::bits(kz, (uint32_t)s);
         mb = tf::bits(km, (uint32_t)s);
       }
       Phys local;
@@ -1061,16 +1126,24 @@ __device__ __forceinline__ void block_step_body(const Args& a) {
       } else {
         P = &tile[s].p;
       }
-      // sampler lerps (value-major tables)
-      const float cc_t = a.t_cc[S.h * n + ii] * S.one_m_hf +
-                         a.t_cc[(S.h + 1) * n + ii] * S.hf;
-      float z;
-      if constexpr (BF_DRAWS) {  // K12: jax's 8-bit bits, the low byte
-        z = s_z[(zb & 0xFFu) >> 1];
-      } else {
-        z = tf::normal_from_bits(zb);
+      // lean: a second without clear-sky GHI draws no z and computes no
+      // csi; its pv is power()'s constant there
+      const bool lit = !LEAN || !NIGHT_SKIP || !(P->ghi_clear == 0.0f);
+      // sampler lerps (value-major tables; the lean step's registers)
+      const float cc_t = LEAN ? cc0 * S.one_m_hf + cc1 * S.hf
+                              : a.t_cc[S.h * n + ii] * S.one_m_hf +
+                                    a.t_cc[(S.h + 1) * n + ii] * S.hf;
+      float noise_sec = 0.0f;
+      if (lit) {
+        if constexpr (LEAN && !RB) zb = tf::bits(kz, (uint32_t)s);
+        float z;
+        if constexpr (BF_DRAWS) {  // K12: jax's 8-bit bits, the low byte
+          z = s_z[(zb & 0xFFu) >> 1];
+        } else {
+          z = tf::normal_from_bits(zb);
+        }
+        noise_sec = SIGMA_SEC * (SEC_S0 + SEC_S1X8 * cc_t) * z;
       }
-      const float noise_sec = SIGMA_SEC * (SEC_S0 + SEC_S1X8 * cc_t) * z;
       // renewal: a new cycle only on redraw
       sec = sec + 1.0f;
       if (sec >= total_end) {
@@ -1086,7 +1159,7 @@ __device__ __forceinline__ void block_step_body(const Args& a) {
         if constexpr (BF_DRAWS) {
           u = (float)((ub & 0xFFu) >> 1) * (1.0f / 128.0f);
         } else {
-          u = tf::uniform_range(ub, 0.0f, 1.0f);
+          u = tf::unit(ub);  // uniform_range(ub, 0, 1): unit(ub) is >= +0
         }
         const float cc = nclampf(cc_t, RN_CC_MIN, RN_CC_MAX);
         const float cap_m = RN_MAX_CYCLE * cc * ws_t;
@@ -1099,27 +1172,35 @@ __device__ __forceinline__ void block_step_body(const Args& a) {
         sec = 1.0f;
       }
       const bool covered = sec < cloud_end;
-      float base_v, nmin;
-      if (covered) {
-        const int cd = S.h + S.d;
-        base_v = a.t_cd[cd * n + ii] * S.one_m_df +
-                 a.t_cd[(cd + 1) * n + ii] * S.df;
-        nmin = a.t_ml[S.m * n + ii] * S.one_m_mf +
-               a.t_ml[(S.m + 1) * n + ii] * S.mf;
-      } else {
-        base_v = a.t_cloudy[S.h * n + ii] * S.one_m_hf +
-                 a.t_cloudy[(S.h + 1) * n + ii] * S.hf;
-        nmin = a.t_mc[S.m * n + ii] * S.one_m_mf +
-               a.t_mc[(S.m + 1) * n + ii] * S.mf;
+      float csi = 0.0f, ac = night_ac();
+      if (lit) {
+        float base_v, nmin;
+        if constexpr (LEAN) {
+          base_v = (covered ? cd0 : cl0) *
+                       (covered ? S.one_m_df : S.one_m_hf) +
+                   (covered ? cd1 : cl1) * (covered ? S.df : S.hf);
+          nmin = (covered ? ml0 : mc0) * S.one_m_mf +
+                 (covered ? ml1 : mc1) * S.mf;
+        } else if (covered) {
+          const int cd = S.h + S.d;
+          base_v = a.t_cd[cd * n + ii] * S.one_m_df +
+                   a.t_cd[(cd + 1) * n + ii] * S.df;
+          nmin = a.t_ml[S.m * n + ii] * S.one_m_mf +
+                 a.t_ml[(S.m + 1) * n + ii] * S.mf;
+        } else {
+          base_v = a.t_cloudy[S.h * n + ii] * S.one_m_hf +
+                   a.t_cloudy[(S.h + 1) * n + ii] * S.hf;
+          nmin = a.t_mc[S.m * n + ii] * S.one_m_mf +
+                 a.t_mc[(S.m + 1) * n + ii] * S.mf;
+        }
+        csi = base_v * (nmin + noise_sec);
+        if constexpr (BF) {
+          ac = power_bf<KS>(csi, *P, ct_b, al_b);
+        } else {
+          ac = power<KS>(csi, *P, cos_tilt, albedo);
+        }
       }
-      const float csi = base_v * (nmin + noise_sec);
-      float ac;
-      if constexpr (BF) {
-        ac = power_bf<KS>(csi, *P, ct_b, al_b);
-      } else {
-        ac = power<KS>(csi, *P, cos_tilt, albedo);
-      }
-      float meter = a.meter_max_w * tf::uniform_range(mb, 0.0f, 1.0f);
+      float meter = a.meter_max_w * tf::unit(mb);
       // K7: the heterogeneous columns' transforms
       if (het_power) ac = nminf(ac * pv_scale, ac_limit);
       if (het_demand) meter = fmaf(meter, dem_scale, dem_shift);

@@ -126,14 +126,23 @@ __device__ __forceinline__ float xla_log1p(float x) {
 }
 
 // XLA's float32 erf_inv (the chlo decomposition, multiply-adds fused).
+// The two polynomials are branches, not a select per coefficient: w >= 5
+// (|x| > 0.9966) is rare, and each multiply-add then reads its constant
+// directly.
 __device__ __forceinline__ float erfinv(float x) {
   const float w = -xla_log1p(x * -x);
-  const bool lt = w < 5.0f;
-  const float ww = lt ? w - 2.5f : sqrtf(w) - 3.0f;
-  float p = lt ? ERFINV_LT5[0] : ERFINV_GE5[0];
+  float p;
+  if (w < 5.0f) {
+    const float ww = w - 2.5f;
+    p = ERFINV_LT5[0];
 #pragma unroll
-  for (int i = 1; i < 9; ++i)
-    p = fmaf(p, ww, lt ? ERFINV_LT5[i] : ERFINV_GE5[i]);
+    for (int i = 1; i < 9; ++i) p = fmaf(p, ww, ERFINV_LT5[i]);
+  } else {
+    const float ww = sqrtf(w) - 3.0f;
+    p = ERFINV_GE5[0];
+#pragma unroll
+    for (int i = 1; i < 9; ++i) p = fmaf(p, ww, ERFINV_GE5[i]);
+  }
   return fabsf(x) == 1.0f ? x * TF_INF : p * x;
 }
 

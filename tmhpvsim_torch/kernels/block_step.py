@@ -77,7 +77,11 @@ redraw), the csi composition, ``pv.power_from_csi`` and the meter, fed by
 composition, ``block_step_obs_plain`` ``obs_producer_plain``'s and
 ``obs_fold_plain``'s); the CUDA kernel (csrc/block_step.cuh) is one template over
 the kernel set, the epilogue, the geometry mode and the observers, beside
-the scenario fold and the series' cross-CTA sum.
+the scenario fold and the series' cross-CTA sum.  Its shared-site acc,
+series and trace steps run each 60-second tile in two passes (the
+renewal carry first, then the seconds' draws and physics, none on a
+second without clear-sky GHI); ``redraws_plain`` says where a block's
+cycles renew, for checks that reach that design's edge cases.
 
 Each wrapper runs its plain version on CPU tensors and launches the
 kernel on CUDA tensors; every (epilogue, geometry, kernel set)
@@ -543,6 +547,30 @@ def _body_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
     return carry, meter, ac, csi, covered
 
 
+def redraws_plain(tables, rows_i, rows_f, k_scan, carry,
+                  layout: str = "scan", impl: str = "threefry2x32"):
+    """Where the block's renewal cycles end: a time-major ``(T, n)`` bool
+    array, true in the seconds in which a chain draws a new cycle (its u
+    and both ``powf``), as ``_body_plain`` steps the carry.  Checks use it
+    to show that an input reaches the step's edge cases (redraws in a
+    tile's first and last second, in consecutive seconds)."""
+    T = rows_i.shape[1]
+    lay = layout if impl != "threefry2x32" else "scan"
+    u, z = ci.scan_draws_tmajor(k_scan, int(rows_i[0, 0]) // 60, T // 60,
+                                torch.float32, lay, impl)
+    x = {"h": rows_i[1].long(), "d": rows_i[2].long(), "m": rows_i[3].long(),
+         "hf": rows_f[0][:, None], "df": rows_f[1][:, None],
+         "mf": rows_f[2][:, None], "z": z}
+    ins = ci.csi_inputs(tables, x)
+    cloud, total = renewal.cycle_from_u(u, ins["cc_t"], ins["ws_t"])
+    carry = dict(carry)
+    out = torch.empty_like(cloud, dtype=torch.bool)
+    for s in range(T):
+        out[s] = carry["sec"] + 1.0 >= carry["total_end"]
+        carry, _ = renewal.step_from_cycle(carry, cloud[s], total[s])
+    return out
+
+
 def stats_fold_plain(acc, t, duration_s, meter, ac, second_hook=None,
                      valid=None):
     """The statistics fold of time-major ``(T, n)`` meter and pv second by
@@ -811,6 +839,45 @@ def series_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
         layout=layout, impl=impl)
     return (carry, meter.double().sum(1).float(),
             ac.double().sum(1).float())
+
+
+def series_fold_plain(meter, ac):
+    """The series epilogue's first pass over time-major ``(T, n)`` meter
+    and pv in the kernel's order: ``(2, n_ctas, T)`` float32 sums of each
+    CTA's chains, per second a warp's 32 chains by the butterfly (lane 0
+    adds lane 16's value, then 8's, 4's, 2's, 1's), then the CTA's warps
+    in index order; a chain past ``n`` adds 0."""
+    T, n = meter.shape
+    n_ctas = -(-n // THREADS)
+    lane = torch.arange(32, device=meter.device)
+
+    def fold(x):
+        x = torch.nn.functional.pad(x, (0, n_ctas * THREADS - n))
+        x = x.reshape(T, n_ctas, THREADS // 32, 32)
+        for off in (16, 8, 4, 2, 1):
+            x = x + x[..., lane ^ off]
+        part = x[..., 0, 0]
+        for w in range(1, THREADS // 32):
+            part = part + x[..., w, 0]
+        return part.t()
+
+    return torch.stack((fold(meter), fold(ac)))
+
+
+def series_partials_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
+                          meter_max_w: float, surface_tilt, albedo,
+                          site: SiteGeometry | None = None,
+                          fleet: FleetLeaves | None = None,
+                          kernels: str = "exact", compute_dtype: str = "f32",
+                          layout: str = "scan", impl: str = "threefry2x32"):
+    """Plain K4 series' first pass, equal to ``series_partials_cuda`` bit
+    for bit: ``(carry, partials)``, the shared body's meter and pv folded
+    by ``series_fold_plain``."""
+    carry, meter, ac, _, _ = _body_plain(
+        tables, rows_i, rows_f, k_scan, k_meter, carry, meter_max_w,
+        surface_tilt, albedo, site, fleet, kernels, compute_dtype,
+        layout=layout, impl=impl)
+    return carry, series_fold_plain(meter, ac)
 
 
 def trace_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
