@@ -4,7 +4,8 @@ parent commit unpacked beside the change) in one call.
 
     python3 ab_kernels.py --root DIR [--rows 16] [--rounds 3]
         [--kernels K1,K1N,K2,K2P,K2U,K7R,K3,K3N,K4T,K4S,K11R,K11N,K3P,K3U,
-                   K12R,K12T,K6,K6s,K7T,K8,K12B,K12BL,K89,K89L,K12F,K4M89]
+                   K12R,K12RN,K8SL,K8SLN,K8SF,K8SFN,K12T,K6,K6s,K7T,K8,
+                   K12B,K12BL,K89,K89L,K12F,K4M89,KC]
         [--skip-scenario]
 
 ``--root`` is the directory that holds the ``tmhpvsim_torch`` package (and
@@ -46,6 +47,10 @@ line per measurement, ``{"tree": ..., "kernel": ..., ...}``:
   K3P  path R-P's acc launch (rbg keys, K13 in K3);
   K3U  path R-U's acc launch (unsafe_rbg keys, K14 in K3);
   K12R path R-H's acc launch (bf16, telemetry light: K12 with K8);
+  K12RN the same launch on path R-H's first block (00:00, night);
+  K8SL, K8SLN  path R's acc launch with telemetry light (float32, K3 with
+       K8 on a shared site), at noon and at 00:00;
+  K8SF, K8SFN  the same with telemetry full;
   K12T path R-HW's trace launch (bf16, float32 draws);
   K6   path B's (the 256 x 256 grid of ``--site-grid
        47:55:256,6:15:256``, site geometry);
@@ -69,7 +74,24 @@ line per measurement, ``{"tree": ..., "kernel": ..., ...}``:
 
   On a tree with the observer fold, K89, K89L and K12F also print the
   producer and the fold on their own (``ms_producer``, ``ms_fold``: the
-  fold's launch without the collapses).
+  fold's launch without the collapses).  The launches with telemetry
+  alone (K8, K12R, K8SL, ...) also print ``ms_step``: the acc launch
+  without its collapse (the wrapper's collapse of the partial rows
+  replaced by nothing while it is timed).  K3, K12R and K8SL (with their
+  night and full twins) print ``attrs``: ``k3.step_attrs`` of their
+  instantiation (registers, CTAs an SM, local bytes) and its waves at
+  65536 chains on 132 SMs.
+
+- KC, a block's chainwise collapses of the per-CTA partial rows:
+  path F's three row sets (telemetry 25 leaves, analytics 15, 3
+  cohorts x 6), path R-H's telemetry rows and path S's scenario rows
+  (16 rows x 8 leaves), each ``(512, L)`` float64 (65536 chains in
+  128-chain CTAs), seeded uniform values; through the tree's wrapper
+  (``collapse_group`` where the tree has it, else ``collapse_partials``
+  per set, as the tree's ``_obs_outputs`` does), per call and device
+  time from a CUDA graph, beside the library's yardstick ``part.sum(0)``,
+  ``part.amin(0)`` and ``part.amax(0)`` per set, with a digest of the
+  wrapper's outputs.
 
 Run it once per tree, alternating (parent, change, change, parent), so a
 slow card or a warm cache shows as a spread between a tree's runs.
@@ -92,10 +114,30 @@ HEADLINE = dict(start="2019-09-05 00:00:00", duration_s=86400,
                 n_chains=65536, seed=0, block_s=1080, output="reduce")
 NOON = 40
 KERNELS = ("K1", "K1N", "K2", "K2P", "K2U", "K7R", "K3", "K3N", "K4T", "K4S",
-           "K11R", "K11N", "K3P", "K3U", "K12R", "K12T", "K6", "K6s", "K7T",
-           "K8", "K12B", "K12BL", "K89", "K89L", "K12F", "K4M89")
+           "K11R", "K11N", "K3P", "K3U", "K12R", "K12RN", "K8SL", "K8SLN",
+           "K8SF", "K8SFN", "K12T", "K6", "K6s", "K7T", "K8", "K12B",
+           "K12BL", "K89", "K89L", "K12F", "K4M89", "KC")
 #: the cases timed on another block than the noon block
-BLOCK = {"K3N": 0, "K11N": 0}
+BLOCK = {"K3N": 0, "K11N": 0, "K12RN": 0, "K8SLN": 0, "K8SFN": 0}
+#: the cases whose launch shape is printed: (epilogue, geometry,
+#: telemetry, kernel set, compute dtype) of ``k3.step_attrs``
+ATTRS = {"K3": ("acc", "shared", False, "exact", "f32"),
+         "K3N": ("acc", "shared", False, "exact", "f32"),
+         **{k: ("acc", "shared", True, "exact", "bf16")
+            for k in ("K12R", "K12RN")},
+         **{k: ("acc", "shared", True, "exact", "f32")
+            for k in ("K8SL", "K8SLN", "K8SF", "K8SFN")}}
+#: the CTAs of a 65536-chain launch, and the H100's SMs
+CTAS_65536, SMS = 512, 132
+#: KC's row sets: path F's (telemetry, analytics, 3 cohorts), path R-H's,
+#: path S's (16 scenario rows); (leaves, kinds of one period)
+COLLAPSE_SETS = {
+    "F": ((25, (0, 0, 1, 2, 0, 0) * 4 + (0,)),
+          (15, (0, 1, 2, 0, 0, 2, 2, 2, 0, 0, 0, 0, 0, 0, 0)),
+          (18, (0, 0, 0, 0, 1, 2))),
+    "R-H": ((25, (0, 0, 1, 2, 0, 0) * 4 + (0,)),),
+    "S": ((128, (0, 1, 2, 0, 0, 2, 2, 2)),),
+}
 
 
 def digest(tree) -> str:
@@ -172,6 +214,16 @@ def block_step_cases(names, dev):
                 "path R-U's acc launch"),
         "K12R": (dict(HEADLINE, compute_dtype="bf16", telemetry="light"),
                  "path R-H's acc launch"),
+        "K12RN": (dict(HEADLINE, compute_dtype="bf16", telemetry="light"),
+                  "path R-H's acc launch at night"),
+        "K8SL": (dict(HEADLINE, telemetry="light"),
+                 "path R's acc launch with telemetry light"),
+        "K8SLN": (dict(HEADLINE, telemetry="light"),
+                  "path R's acc launch with telemetry light at night"),
+        "K8SF": (dict(HEADLINE, telemetry="full"),
+                 "path R's acc launch with telemetry full"),
+        "K8SFN": (dict(HEADLINE, telemetry="full"),
+                  "path R's acc launch with telemetry full at night"),
         "K12T": (dict(HEADLINE, compute_dtype="bf16", block_impl="wide",
                       stats_fusion="split"), "path R-HW's trace launch"),
         "K6": (dict(HEADLINE, site_grid=grid), "path B's acc launch"),
@@ -198,7 +250,7 @@ def block_step_cases(names, dev):
                   "path F-W's wide fold with both observers"),
     }
     for name in names:
-        if name in ("K1", "K1N"):
+        if name in ("K1", "K1N", "KC"):
             continue
         kw, what = configs[name]
         sim = Simulation(SimConfig(**kw), device=dev)
@@ -273,8 +325,43 @@ def block_step_cases(names, dev):
                                            obs)
 
             parts = (producer, fold)
+        elif obs is not None:
+            def step_only(launch=launch):
+                keep_outputs = k3._obs_outputs
+                k3._obs_outputs = lambda obs, buf, T: buf
+                try:
+                    return launch()
+                finally:
+                    k3._obs_outputs = keep_outputs
+
+            parts = (step_only,)
         out[name] = (launch, what, parts)
     return out
+
+
+def collapse_sets(dev, gen):
+    """KC's row sets: ``{path: [(part, kinds), ...]}``."""
+    import torch
+
+    return {path: [(torch.rand((CTAS_65536, L), generator=gen, device=dev,
+                               dtype=torch.float64) * 4000.0 - 1000.0,
+                    kinds) for L, kinds in sets]
+            for path, sets in COLLAPSE_SETS.items()}
+
+
+def collapse_block(k3, sets):
+    """A block's collapses through the tree's wrapper: one grouped call
+    where the tree has it, else one call per set."""
+    if hasattr(k3, "collapse_group"):
+        return k3.collapse_group(sets)
+    return [k3.collapse_partials(p, k * (p.shape[1] // len(k)))
+            for p, k in sets]
+
+
+def library_block(sets):
+    """The library's yardstick: a sum, a minimum and a maximum over the
+    rows of each set."""
+    return [(p.sum(0), p.amin(0), p.amax(0)) for p, _ in sets]
 
 
 def main(argv=None) -> int:
@@ -347,16 +434,40 @@ def main(argv=None) -> int:
              device_ms=device)
 
     names = [k for k in args.kernels.split(",") if k]
+    if "KC" in names:
+        for path, sets in collapse_sets(dev, gen).items():
+            sums = digest(collapse_block(k3, sets))
+            ms = {"wrapper": ([], []), "library": ([], [])}
+            for _ in range(args.rounds):
+                for key, fn in (
+                        ("wrapper", lambda: collapse_block(k3, sets)),
+                        ("library", lambda: library_block(sets))):
+                    ms[key][0].append(per_call_ms(fn))
+                    ms[key][1].append(graph_ms(fn))
+            emit(kernel="KC", path=path,
+                 leaves=[p.shape[1] for p, _ in sets],
+                 ms_per_call=ms["wrapper"][0], device_ms=ms["wrapper"][1],
+                 library_ms_per_call=ms["library"][0],
+                 library_device_ms=ms["library"][1], digest=sums)
     for name, (launch, what, parts) in block_step_cases(names, dev).items():
         sums = digest(launch())
         torch.cuda.synchronize()
         ms = [per_call_ms(launch, reps=5) for _ in range(args.rounds)]
         extra = {}
-        if parts is not None:
+        if parts is not None and len(parts) == 2:
             extra = {"ms_producer": [per_call_ms(parts[0], reps=5)
                                      for _ in range(args.rounds)],
                      "ms_fold": [per_call_ms(parts[1], reps=5)
                                  for _ in range(args.rounds)]}
+        elif parts is not None:
+            extra = {"ms_step": [per_call_ms(parts[0], reps=5)
+                                 for _ in range(args.rounds)]}
+        if name in ATTRS:
+            epi, geo, tel_on, ks, cdt = ATTRS[name]
+            a = k3.step_attrs(epi, geo, tel_on, kernels=ks,
+                              compute_dtype=cdt)
+            extra["attrs"] = dict(a, waves_65536=-(-CTAS_65536 // max(
+                1, SMS * a["ctas_per_sm"])))
         emit(kernel=name, launch=what, ms_per_call=ms, digest=sums, **extra)
 
     if args.skip_scenario or not hasattr(k3, "scenario_fold"):

@@ -29,7 +29,11 @@ of ``chip_smoke.py``'s paths of the same names):
 - R-P, R-U: path R with rbg and unsafe_rbg keys;
 - A, A-W: path R's shape as an ensemble (``run_ensemble``: the K4 series
   and ``series_sum``; with ``block_impl='wide'`` the K4 trace and the wide
-  series).
+  series);
+- S: the tree's ``chip_smoke.py`` path S (an in-process scenario server,
+  window batching, 16 clients x 2 requests at 65536 chains x 86400 s);
+  its wall is the burst's, from the first request to the last reply, as
+  that script prints it.
 """
 
 from __future__ import annotations
@@ -103,6 +107,11 @@ def main(argv=None) -> int:
         }[name]()
 
     for name in args.paths.split(","):
+        if name == "S":
+            print(json.dumps({"tree": args.root, "path": name,
+                              "walls_s": serve_walls(dev, args.reps)}),
+                  flush=True)
+            continue
         cfg = SimConfig(**config(name))
         walls = []
         for rep in range(args.reps + 1):
@@ -120,6 +129,26 @@ def main(argv=None) -> int:
         print(json.dumps({"tree": args.root, "path": name, "walls_s": walls}),
               flush=True)
     return 0
+
+
+def serve_walls(dev, reps):
+    """Path S's burst walls (after one run to warm up), from the tree's
+    ``chip_smoke.phase_path_s``."""
+    import contextlib
+    import io
+    import re
+
+    import chip_smoke as cs
+
+    walls = []
+    for rep in range(reps + 1):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cs.phase_path_s("S", "window", dev)
+        if rep:
+            walls.append(float(re.search(r"([\d.]+) s wall for",
+                                         out.getvalue()).group(1)))
+    return walls
 
 
 if __name__ == "__main__":

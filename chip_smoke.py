@@ -553,8 +553,11 @@ def close(a, b, rtol=TOL[0], atol=TOL[1]) -> bool:
 
 
 def time_ms(fn, reps: int = 5) -> float:
-    """Mean milliseconds of ``fn()`` on the card (CUDA events, warm)."""
-    fn()
+    """Mean milliseconds of ``fn()`` on the card (CUDA events), after one
+    call to warm up; a single-rep timing (a plain version's, seconds long,
+    whose functions the checks before it have run) is its one call."""
+    if reps > 1:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -1013,6 +1016,73 @@ LEAN_EDGES = (("off the minute", dict(start="2019-09-05 18:50:30")),
                                        prng_impl="unsafe_rbg")))
 
 
+#: the lean step's telemetry instantiations (shared site, acc with the
+#: telemetry observer) checked on both edge blocks: float32 light and full
+#: (one plain run at level full holds both: level light folds the same
+#: leaves but the csi histogram and the occupancy), bf16 light (path
+#: R-H's launch); (label, config fields, the levels the kernel runs)
+LEAN_TEL = (("f32", dict(telemetry="full"), ("full", "light")),
+            ("bf16", dict(compute_dtype="bf16", telemetry="light"),
+             ("light",)))
+#: the edge block on and off a whole minute
+EDGE_STARTS = (("on the minute", EDGE["start"]),
+               ("off the minute", "2019-09-05 18:50:30"))
+
+
+def lean_tel_edges(dev):
+    """The acc launch with the telemetry observer (each LEAN_TEL case and
+    level) on the edge block on and off the minute, against its plain
+    version: the statistics, the renewal carry and every per-chain
+    telemetry leaf bit for bit, the collapsed counts, extrema, csi
+    histogram and occupancy bit for bit, the sums within 1e-6 of the
+    float64 plain sums (a level-light launch against the level-full plain
+    run on the leaves level light has)."""
+    rel = 0.0
+    for edge, start in EDGE_STARTS:
+        runs = []
+        for label, fields, levels in LEAN_TEL:
+            cfg = SimConfig(**{**EDGE, "n_chains": 8192 - 37,
+                               "start": start, **fields})
+            sim = Simulation(cfg, device=dev)
+            state = sim.init_state()
+            ins = sim.host_inputs(0)
+            tables, _ = sim._windows(state, ins)
+            tables = dict(tables, ws=tables["ws"] * EDGE_WS)
+            tilt, alb, _ = sim.geometry_args(state)
+            head = head_of(state, ins, tables)
+            obs = dataclasses.replace(sim.observers(state), per_chain=True)
+            args = (EDGE_DURATION, cfg.meter_max_w, tilt, alb)
+            cd = sim.plan.compute_dtype
+            cp, ap, op = k3.block_step_obs_plain(
+                *head, clone(state["carry"]), sim.init_reduce_acc(), *args,
+                obs=obs, compute_dtype=cd)
+            for level in levels:
+                what = f"lean edge ({edge}, {label}, telemetry {level})"
+                ck, ak, ok = k3.block_step_obs(
+                    *head, clone(state["carry"]), sim.init_reduce_acc(),
+                    *args, obs=dataclasses.replace(obs, telemetry=level),
+                    compute_dtype=cd)
+                torch.cuda.synchronize()
+                check_same(f"{what} acc", ak, ap)
+                check_same(f"{what} carry", ck, cp)
+                # level light counts no occupancy
+                chain = {k: v for k, v in op["telemetry_chain"].items()
+                         if level == "full" or k != "occ_cov"}
+                n_leaves = check_chain(what, ok["telemetry_chain"], chain)
+                delta = {k: v for k, v in op["telemetry"].items()
+                         if k in ok["telemetry"]}
+                r, _ = check_sketch(f"{what} telemetry", ok["telemetry"],
+                                    delta, _plain_sums(chain, TEL_SUMS))
+                rel = max(rel, r)
+                runs.append(f"{label} {level} ({n_leaves} per-chain leaves)")
+        print(f"lean step with telemetry vs plain on the edge block ({edge},"
+              f" {cfg.n_chains} chains from {start}, wind x{EDGE_WS:g}; "
+              + ", ".join(runs) + "): statistics, carry, per-chain "
+              "telemetry leaves, counts, extrema, csi histogram and "
+              f"occupancy bit for bit; sums within {rel:.3g} of the float64 "
+              "plain sums")
+
+
 def phase_lean_edges(dev):
     """The acc, series and trace launches of each LEAN_EDGES case on its
     edge block against their plain versions: bit for bit (the series'
@@ -1020,7 +1090,8 @@ def phase_lean_edges(dev):
     keys, whose float32 values the card's K13 checks hold within the
     engine tolerance (``phase_k13_k3``): there the meter trace bit for
     bit, the rest within that tolerance and the series' sums within rtol
-    1e-6 of the float64 plain sums."""
+    1e-6 of the float64 plain sums; then the telemetry instantiations
+    (``lean_tel_edges``)."""
     for label, fields in LEAN_EDGES:
         cfg = SimConfig(**dict(EDGE, n_chains=8192 - 37, **fields))
         sim = Simulation(cfg, device=dev)
@@ -1102,6 +1173,7 @@ def phase_lean_edges(dev):
               + ("bit for bit" if strict else
                  "within the rbg tolerance (series sums rtol 1e-6), the "
                  "meter bit for bit"))
+    lean_tel_edges(dev)
 
 
 def grid_b():
@@ -1515,19 +1587,24 @@ def index_order(part, kinds):
     return torch.tensor(out, dtype=torch.float64)
 
 
-def check_collapse(partials, n_cohorts):
-    """collapse_partials on the kernel's per-CTA rows: bit for bit against
-    the host's index-order fold, and within 1e-12 of the rows' absolute
-    sum from collapse_plain.  Returns the largest (absolute, relative)
-    difference from collapse_plain."""
+def check_collapse(sets):
+    """The grouped collapse on row sets ``{name: (part, kinds)}`` (kinds:
+    one period that repeats over the leaves), all of them in one
+    ``collapse_group`` launch: each set bit for bit against the host's
+    index-order fold, and within 1e-12 of the rows' absolute sum from
+    collapse_plain.  Returns the largest (absolute, relative) difference
+    from collapse_plain."""
     err = rel = 0.0
-    for name, part in partials.items():
-        kinds = k3.PART_KINDS[name]
-        if name == "coh_part":
-            kinds = kinds * n_cohorts
-        got = k3.collapse_partials(part, kinds)
+    names = list(sets)
+    launches = k3.COLLAPSE.launches
+    outs = k3.collapse_group([sets[k] for k in names])
+    torch.cuda.synchronize()
+    if k3.COLLAPSE.launches != launches + 1:
+        fail(f"collapse of {', '.join(names)}: not one launch")
+    for name, got in zip(names, outs):
+        part, kinds = sets[name]
+        kinds = tuple(kinds) * (part.shape[1] // len(kinds))
         plain = k3.collapse_plain(part, kinds)
-        torch.cuda.synchronize()
         if not torch.equal(got.cpu(), index_order(part, kinds)):
             fail(f"collapse of {name}: not the index-order fold")
         d = (got - plain).abs()
@@ -1538,6 +1615,31 @@ def check_collapse(partials, n_cohorts):
         err = max(err, float(d.max()))
         rel = max(rel, float((d / scale.clamp_min(1e-300)).max()))
     return err, rel
+
+
+def obs_row_sets(partials):
+    """The observers' per-CTA row sets (``out["partials"]``) with their
+    kinds, as ``check_collapse`` takes them."""
+    return {k: (v, k3.PART_KINDS[k]) for k, v in partials.items()}
+
+
+def collapse_inputs(fn):
+    """``(fn(), sets)``: ``fn``'s result and the row sets its collapses
+    were given (``k3.collapse_group`` recorded while ``fn`` runs)."""
+    seen = []
+    grouped = k3.collapse_group
+
+    def spy(sets):
+        sets = [(part, tuple(kinds)) for part, kinds in sets]
+        seen.append({f"set {i}": s for i, s in enumerate(sets)})
+        return grouped(sets)
+
+    k3.collapse_group = spy
+    try:
+        out = fn()
+    finally:
+        k3.collapse_group = grouped
+    return out, seen
 
 
 #: the observer checks' blocks of path F's day: the night block (00:00)
@@ -1655,7 +1757,7 @@ def phase_k89(dev, levers=None, label="K8+K9", path=None,
         for leaf in ("res_hist", "exceed", "cohort_count", "cohort_hist"):
             if int(out_k["fleet"][leaf].sum()) != total:
                 fail(f"{what}: {leaf} does not hold every sample")
-        e, r = check_collapse(out_k["partials"], C)
+        e, r = check_collapse(obs_row_sets(out_k["partials"]))
         c_err, c_rel = max(c_err, e), max(c_rel, r)
     mode = "site" if site.stride <= 1 else "strided"
     names = " and ".join(b for b, _ in blocks)
@@ -1670,8 +1772,8 @@ def phase_k89(dev, levers=None, label="K8+K9", path=None,
           f"(relative; {err:.3g} absolute) of the float64 plain sums, a "
           "rerun bit-identical; block_step_obs equal to the two launches")
     print(f"collapse on {label}'s per-group rows "
-          f"({', '.join(out_k['partials'])}; {len(blocks)} block(s)): "
-          "bit-identical to the "
+          f"({', '.join(out_k['partials'])} in one launch; {len(blocks)} "
+          "block(s)): bit-identical to the "
           f"host's index-order float64 fold; max abs {c_err:.3g} (relative "
           f"{c_rel:.3g}) from collapse_plain")
     return (rel, err), (c_rel, c_err)
@@ -2320,25 +2422,39 @@ def phase_timing_fleet(dev):
         int_ops, f_k7, in_bytes + n * 4 * 7 * 2 + n * T * OBS_FOLD_BYTES))
     out["KF"] = (ms_f, plain_f, *obs_fold_bound(n, T, obs_tf))
     # the collapse on its own: the three per-CTA row sets of this block's
-    # K8+K9 launch, as path F collapses them per block
+    # K8+K9 launch in one launch, as path F collapses them per block; the
+    # library's yardstick a sum, a minimum and a maximum over each set's
+    # rows
     _, _, o = k3.block_step_obs(*head, acc, *tail, site=site, fleet=fleet,
                                 obs=dataclasses.replace(obs_tf,
                                                         per_chain=True))
-    parts = [(v, k3.PART_KINDS[k] * (C if k == "coh_part" else 1))
-             for k, v in o["partials"].items()]
+    parts = list(obs_row_sets(o["partials"]).values())
+    ms = time_ms(lambda: k3.collapse_group(parts), reps=20)
+    plain = time_ms(lambda: [k3.collapse_plain(
+        v, kinds * (v.shape[1] // len(kinds))) for v, kinds in parts],
+        reps=5)
 
-    def collapse(fn):
-        return [fn(v, kinds) for v, kinds in parts]
+    def library():
+        return [(v.sum(0), v.amin(0), v.amax(0)) for v, _ in parts]
 
-    ms = time_ms(lambda: collapse(k3.collapse_partials), reps=20)
-    plain = time_ms(lambda: collapse(k3.collapse_plain), reps=5)
+    out["KC_library"] = time_ms(library, reps=20)
+    out["KC_device"] = (time_graph_ms(lambda: k3.collapse_group(parts)),
+                        time_graph_ms(library))
     numel = sum(v.numel() for v, _ in parts)
     out["KC"] = (ms, plain, *bound(
         0, numel, numel * 8 + sum(v.shape[1] * 8 for v, _ in parts)))
-    for name, (ms, plain, bms, by, ibms) in out.items():
+    for name, v in out.items():
+        if name.startswith("KC_"):
+            continue
+        ms, plain, bms, by, ibms = v
         print(f"timing {name}: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
               f"bound {bms:.4f} ms ({by}), issue bound "
               f"{ibms:.4f} ms")
+    dev_ms, dev_lib = out["KC_device"]
+    print(f"timing KC: path F's block ({len(parts)} row sets, one launch) "
+          f"{out['KC'][0]:.4f} ms per call, device {dev_ms:.4f} ms from a "
+          f"CUDA graph; the library's sum, amin and amax per set "
+          f"{out['KC_library']:.4f} ms per call, device {dev_lib:.4f} ms")
     return out
 
 
@@ -2446,7 +2562,10 @@ def k10_parts(label, sim, head, tail, rows, params, ms_rows, cd="f32",
                                tame=tame)
         return scen, got
 
-    scen, want = fold_pair(rows, params)
+    (scen, want), row_sets = collapse_inputs(lambda: fold_pair(rows,
+                                                                params))
+    # the fold's per-(CTA, row) partial rows through the grouped collapse
+    c_err, _ = check_collapse(row_sets[0])
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -2548,7 +2667,10 @@ def k10_parts(label, sim, head, tail, rows, params, ms_rows, cd="f32",
                                  f"{params.bins} and {K10_GLOBAL_BINS} bins"
                                  if sketches else "")
           + ": every statistic, count, histogram, extremum and per-chain "
-          f"leaf bit-identical (max abs {fold_err})")
+          f"leaf bit-identical (max abs {fold_err}); the {B} rows' per-CTA "
+          "partial rows through the grouped collapse bit-identical to the "
+          f"host's index-order float64 fold (max abs {c_err:.3g} from "
+          "collapse_plain)")
     print(f"timing {label}: producer {ms_prod:.4f} ms (bound {b_prod:.4f} "
           f"ms, {by_prod}); fold " + ", ".join(
               f"{ms_fold[b]:.4f} ms ({b} rows)" for b in ms_rows)
@@ -3951,24 +4073,30 @@ def phase_k12(dev):
     the acc
     step with telemetry light, the launch paths R-H, B-H and B-HL make
     (the plan raises telemetry under bf16), on a shared site (the exact
-    set), on path B's grid (site geometry) and on path B's grid with both
+    set; also on the 00:00 block, where no second has clear-sky GHI, and
+    with its telemetry rows through the grouped collapse against the
+    host's index-order fold), on path B's grid (site geometry) and on path B's grid with both
     levers (strided, table set): statistics, renewal carry, per-chain
     telemetry leaves, counts and extrema bit for bit, telemetry sums
     within 1e-6 of the float64 plain sums, and the statistics equal to
     the no-observer launch's; then the series and the trace on a shared
     site, the trace on path B's grid, and K8 + K9 on path F's fleet
-    (phase_k89).  A difference prints its size in bf16 ULP and where it
+    (phase_k89, path F-H's noon block).  A difference prints its size in bf16 ULP and where it
     starts, and fails.  Returns each check's measured largest difference
     by its timing key (``(relative, absolute)`` where telemetry sums are
     held to float64)."""
     errs = {}
     for key, label, extra, depth in (
             ("K12", "acc + K8 light, shared site", {}, 2),
+            ("K12N", "acc + K8 light, shared site, 00:00",
+             dict(start=HEADLINE["start"]), 1),
             ("K12B", "acc + K8 light, site grid", dict(site_grid=grid_b()),
              1),
             ("K12BL", "acc + K8 light, strided",
              dict(site_grid=grid_b(), **LEVERS), 1)):
-        cfg = SimConfig(**dict(HEADLINE, start=CHECK_START, **BF16, **extra))
+        night = key == "K12N"
+        cfg = SimConfig(**{**HEADLINE, "start": CHECK_START, **BF16,
+                           **extra})
         sim, state, blocks = check_blocks(cfg, dev)
         blocks = blocks[:depth]
         tilt, alb, site = sim.geometry_args(state)
@@ -4024,7 +4152,13 @@ def phase_k12(dev):
             if float(out_k["telemetry"]["count"]) != \
                     int((ins.rows_i[0] < cfg.duration_s).sum()) * cfg.n_chains:
                 fail(f"K12 ({label}): the telemetry count misses samples")
-        if float(acc_k["pv_max"].max()) <= 10.0:
+            if key in ("K12", "K12N"):  # path R-H's row set
+                check_collapse(obs_row_sets(out_k["partials"]))
+        if night:
+            ghi = ins.rows_f[k3.ROWS_F.index("ghi_clear")]
+            if float(ghi.abs().max()) != 0.0:
+                fail(f"K12 ({label}): the block has clear-sky GHI")
+        elif float(acc_k["pv_max"].max()) <= 10.0:
             fail(f"K12 ({label}) check blocks saw no daylight")
         errs[key] = (rel, err)
         print(f"K12 ({label}, {ks} set) vs plain on {depth} block(s) x "
@@ -4032,7 +4166,11 @@ def phase_k12(dev):
               f"{n_leaves} per-chain telemetry leaves, counts and extrema "
               f"bit-identical; telemetry sums within {rel:.3g} (relative; "
               f"{err:.3g} absolute) of the float64 plain sums; the "
-              "statistics and carry equal the no-observer launch's")
+              "statistics and carry equal the no-observer launch's"
+              + ("; the telemetry rows' grouped collapse bit-identical to "
+                 "the host's index-order fold" if key in ("K12", "K12N")
+                 else "")
+              + ("; no clear-sky GHI in the block" if night else ""))
     cfg = SimConfig(**dict(HEADLINE, start=CHECK_START, **BF16))
     sim, state, blocks = check_blocks(cfg, dev)
     tilt, alb, _ = sim.geometry_args(state)
@@ -4095,7 +4233,8 @@ def phase_k12(dev):
     check_same("K12 trace (site grid) renewal carry", carry_t, carry_tp)
     print(f"K12 trace on path B's grid vs plain on 1 block x {cfg.n_chains}"
           " sites: every value and the renewal carry bit-identical")
-    obs_err, _ = phase_k89(dev, BF16, "K12 K8+K9", path="F-H")
+    obs_err, _ = phase_k89(dev, BF16, "K12 K8+K9", path="F-H",
+                           blocks=OBS_BLOCKS[1:])
     return dict(errs, K12S=err, K12T=t_err, K12F=obs_err)
 
 
@@ -4366,11 +4505,11 @@ def phase_timing_k12(dev):
     n, T = HEADLINE["n_chains"], HEADLINE["block_s"]
     draws_f = K12_DRAWS_F
 
-    def setup(**extra):
+    def setup(block=40, **extra):
         cfg = SimConfig(**dict(HEADLINE, **BF16, **extra))
         sim = Simulation(cfg, device=dev)
         state = sim.init_state()
-        ins = sim.host_inputs(40)
+        ins = sim.host_inputs(block)
         tables, _ = sim._windows(state, ins)
         tilt, alb, site = sim.geometry_args(state)
         head = (tables, ins.rows_i, ins.rows_f, state["k_scan"],
@@ -4397,6 +4536,12 @@ def phase_timing_k12(dev):
     out["K12"] = (ms, plain, *bound(
         int_ops + tel_i, n * T * (K3_SECOND_F + draws_f) + tel_f,
         in_b + n * 4 * 7 * 2))
+    # the same launch on the 00:00 block (no clear-sky GHI in any second)
+    _, sim0, state0, head0, _, _ = setup(block=0)
+    a0 = (*head0, clone(state0["carry"]), sim0.init_reduce_acc(),
+          cfg.duration_s, cfg.meter_max_w, tilt, alb)
+    k12_0000 = time_ms(lambda: k3.block_step_obs(*a0, obs=obs,
+                                                 compute_dtype="bf16"))
     # the series and the trace (A-H, C-H)
     c1 = clone(state["carry"])
     tail = (cfg.meter_max_w, tilt, alb)
@@ -4471,6 +4616,9 @@ def phase_timing_k12(dev):
         print(f"timing {name}: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
               f"bound {bms:.4f} ms ({by}), issue bound "
               f"{ibms:.4f} ms")
+    print(f"timing K12 at 00:00 (no clear-sky GHI): kernel {k12_0000:.4f} "
+          "ms")
+    out["K12_0000"] = k12_0000
     return out
 
 
@@ -6731,8 +6879,11 @@ def main() -> int:
     rows = []
     # one PyTorch call computes series_sum's function: part.sum(1), timed
     # in turns with it
-    library = {"K4R": timing.pop("K4R_library")}
+    # and the collapse's: a sum, a minimum and a maximum per row set
+    library = {"K4R": timing.pop("K4R_library"),
+               "KC": timing.pop("KC_library")}
     k4r_dev, k4r_dev_lib = timing.pop("K4R_device")
+    kc_dev, kc_dev_lib = timing.pop("KC_device")
     for key, (name, source, replaces, err, launches) in rows_of.items():
         ms, plain, bms, by, ibms = timing[key]
         # the observers' sums are checked relative to float64: both errors
@@ -6773,6 +6924,8 @@ def main() -> int:
     # series_sum: per call as every row; device time from CUDA graphs too
     next(r for r in rows if r["name"] == "series_sum").update(
         device_ms=k4r_dev, library_device_ms=k4r_dev_lib)
+    next(r for r in rows if r["name"] == "chainwise_collapse").update(
+        device_ms=kc_dev, library_device_ms=kc_dev_lib)
     # the K4 merges: the fold (path R-W's launch; path F-W's, with both
     # observers, beside it) and the series (path A-W's)
     wsrc = "tmhpvsim_torch/csrc/wide_fold.cu"
@@ -6902,7 +7055,8 @@ def main() -> int:
                      "issue_bound_ms": ibms,
                      "library_ms": None,
                      **({} if rel is None else {"max_rel_err": rel})})
-    rows[-7]["launches_gh"] = launch_gh["block_step_bf16"]
+    rows[-7].update(launches_gh=launch_gh["block_step_bf16"],
+                    ms_0000=timing_k12["K12_0000"])
     rows[-2].update(ms_producer=timing_k12["K12FP"][0],
                     ms_fold=timing_k12["K12FF"][0],
                     launches_pairs=launch_fh["block_step_tel_analytics"])

@@ -166,8 +166,8 @@ DESIGNS = {
         ("if constexpr (LEAN) {\n          base_v = (covered ? cd0",
          "if constexpr (false) {\n          base_v = (covered ? cd0")],
     "erfinv_select": [("threefry.cuh", ERFINV_BRANCH, ERFINV_SELECT)],
-    "no_lean": [("  return geo == SHARED && !tel &&\n",
-                 "  return false &&\n")],
+    "no_lean": [("  return geo == SHARED && (epi == ACC",
+                 "  return false && (epi == ACC")],
 }
 #: variants whose outputs must be the full variant's bits
 SAME_BITS = ("hoisted_tables", "unroll2")

@@ -631,6 +631,54 @@ def test_collapse_plain_combines_by_kind():
     assert k3.collapse_plain(part, (0, 1, 2)).tolist() == [7.0, 3.0, 7.0]
 
 
+def _row_sets(n_parts, seed=0):
+    """A block's row sets with their kinds as the callers pass them:
+    telemetry (25 leaves), analytics (15), 3 cohorts x 6 (kinds of one
+    cohort) and 16 scenario rows x 8 (kinds of one row); seeded rows."""
+    gen = np.random.default_rng(seed)
+    return {name: (torch.from_numpy(gen.normal(0.0, 1e3, (n_parts, L))),
+                   kinds)
+            for name, L, kinds in (
+                ("tel_part", 25, k3.TEL_KINDS),
+                ("flt_part", 15, k3.FLT_KINDS),
+                ("coh_part", 18, k3.COH_KINDS),
+                ("scenario", 128, k3.SCN_KINDS))}
+
+
+@pytest.mark.parametrize("names", [
+    ("tel_part",), ("tel_part", "flt_part", "coh_part"), ("scenario",),
+    ("tel_part", "flt_part", "coh_part", "scenario")],
+    ids=["telemetry", "observers", "scenario", "four-sets"])
+def test_collapse_group_plain_path_equals_collapse_plain(names):
+    """On the CPU the grouped collapse is ``collapse_plain`` on each set,
+    its kinds (one period of them) repeated over the set's leaves; it
+    counts no launch."""
+    sets = _row_sets(7)
+    kernels.reset_counts()
+    got = k3.collapse_group([sets[k] for k in names])
+    assert k3.COLLAPSE.launches == 0 and len(got) == len(names)
+    for name, g in zip(names, got):
+        part, kinds = sets[name]
+        full = tuple(kinds) * (part.shape[1] // len(kinds))
+        assert torch.equal(g, k3.collapse_plain(part, full)), name
+
+
+def test_collapse_group_refuses_what_the_kernel_cannot_take():
+    """At most COLLAPSE_MAX_SETS sets; kinds one period of at most 32
+    leaves that tiles the set's leaves, two bits a leaf."""
+    sets = list(_row_sets(3).values())
+    with pytest.raises(ValueError, match="row sets"):
+        k3.collapse_group(sets + sets[:1])
+    with pytest.raises(ValueError, match="row sets"):
+        k3.collapse_group([])
+    assert k3._kinds_bits(k3.TEL_KINDS, 25) == sum(
+        k << (2 * j) for j, k in enumerate(k3.TEL_KINDS))
+    assert k3._kinds_bits(k3.COH_KINDS, 30) == 0b100100000000
+    for kinds, L in (((0, 1), 25), (k3.SCN_KINDS * 5, 40), ((3,), 4), ((), 4)):
+        with pytest.raises(ValueError, match="period"):
+            k3._kinds_bits(kinds, L)
+
+
 # --------------------------------------------------------------------------
 # on the card
 # --------------------------------------------------------------------------
@@ -837,6 +885,96 @@ def test_lean_step_edges_match_plain_on_card(card, fields):
     assert torch.equal(bits(part), bits(want))
     for k in cp:
         assert torch.equal(bits(ck[k]), bits(cp[k])), k
+
+
+def _index_order(part, kinds):
+    """The host's fold of the rows in index order, sums in float64."""
+    rows = part.cpu().tolist()
+    out = list(rows[0])
+    for row in rows[1:]:
+        out = [x + y if k == 0 else (min(x, y) if k == 1 else max(x, y))
+               for x, y, k in zip(out, row, kinds)]
+    return torch.tensor(out, dtype=torch.float64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_parts", [512, 1, 2049],
+                         ids=["main-path", "one-row", "many-stages"])
+def test_collapse_group_matches_index_order_on_card(card, n_parts):
+    """The grouped collapse: four row sets (telemetry, analytics, 3
+    cohorts, 16 scenario rows over 4 CTAs) in one launch, each bit for bit
+    against the host's index-order float64 fold; at the main path's 512
+    rows (65536 chains), one row, and 2049 rows (stages past the ring's
+    four, a partial last stage)."""
+    sets = _row_sets(n_parts, seed=n_parts)
+    names = list(sets)
+    kernels.reset_counts()
+    got = k3.collapse_group([(p.to(card), k) for p, k in sets.values()])
+    assert k3.COLLAPSE.launches == 1
+    for name, g in zip(names, got):
+        part, kinds = sets[name]
+        full = tuple(kinds) * (part.shape[1] // len(kinds))
+        assert torch.equal(g.cpu(), _index_order(part, full)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fields", [
+    {"telemetry": "light"}, {"telemetry": "full"},
+    {"telemetry": "light", "compute_dtype": "bf16"},
+    {"telemetry": "light", "start": "2019-09-05 18:50:30"},
+    {"telemetry": "full", "start": "2019-09-05 18:50:30"},
+    {"telemetry": "light", "compute_dtype": "bf16",
+     "start": "2019-09-05 18:50:30"},
+    {"telemetry": "light", "compute_dtype": "bf16",
+     "start": "2019-09-05 00:00:00"}],
+    ids=["light", "full", "bf16-light", "off-minute-light",
+         "off-minute-full", "off-minute-bf16-light", "midnight-bf16-light"])
+def test_lean_tel_edges_match_plain_on_card(card, fields):
+    """The lean step with the telemetry observer (the shared-site acc
+    launch, path R-H's under bf16) against its plain version on the edge
+    block of ``test_lean_step_edges_match_plain_on_card`` (and on the
+    00:00 block, no second with clear-sky GHI): statistics, carry and
+    every per-chain telemetry leaf bit for bit, the collapsed counts,
+    extrema, csi histogram and occupancy bit for bit, the sums within
+    1e-6 of the plain version's float64 sums."""
+    cfg = SimConfig(**{"start": "2019-09-05 18:50:00", "duration_s": 86400,
+                       "n_chains": 512 - 37, "seed": 0, "block_s": 3600,
+                       **fields})
+    sim = Simulation(cfg, device=card)
+    state, ins = _block(sim)
+    tables, _ = sim._windows(state, ins)
+    tables = dict(tables, ws=tables["ws"] * 16.0)
+    tilt, alb, _ = sim.geometry_args(state)
+    head = (tables, ins.rows_i, ins.rows_f, state["k_scan"],
+            state["k_meter"])
+    obs = dataclasses.replace(sim.observers(state), per_chain=True)
+    assert obs.telemetry == fields["telemetry"] and obs.analytics == "off"
+    kw = dict(obs=obs, compute_dtype=sim.plan.compute_dtype)
+
+    def carry():
+        return {k: v.clone() for k, v in state["carry"].items()}
+
+    ck, ak, ok = k3.block_step_obs(*head, carry(), sim.init_reduce_acc(),
+                                   3600 - 30, cfg.meter_max_w, tilt, alb,
+                                   **kw)
+    cp, ap, op = k3.block_step_obs_plain(*head, carry(),
+                                         sim.init_reduce_acc(), 3600 - 30,
+                                         cfg.meter_max_w, tilt, alb, **kw)
+    for a, b in ((ak, ap), (ck, cp)):
+        for k in b:
+            assert torch.equal(a[k], b[k]), k
+    chain_k, chain_p = ok["telemetry_chain"], op["telemetry_chain"]
+    shared = [k for k in chain_p if k in chain_k]
+    assert len(shared) >= 24
+    for k in shared:
+        assert torch.equal(chain_k[k], chain_p[k]), k
+    for k, v in op["telemetry"].items():
+        if k.startswith(("sum_", "sumsq_")):
+            want = op["telemetry_chain"][k].double().sum()
+            assert float((ok["telemetry"][k].double() - want).abs()) <= \
+                1e-6 * float(want.abs()), k
+        else:
+            assert torch.equal(ok["telemetry"][k], v), k
 
 
 @pytest.mark.cuda

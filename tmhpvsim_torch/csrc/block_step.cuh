@@ -72,8 +72,8 @@
 // zenith, azimuth), refraction, Kasten-Young, Ineichen and AOI, and the
 // physics terms from them.
 //
-// The lean step (the shared-site acc, series and trace steps; not with the
-// telemetry observer, which folds csi every second).  The loop is bound by
+// The lean step (the shared-site acc, with or without the telemetry
+// observer, series and trace steps).  The loop is bound by
 // the instructions it issues, not by their latency: stripping a piece
 // saved time in proportion to its instructions, and unrolling it, or
 // splitting a chain over two threads, did not pay (k3_split.py, PERF.md).
@@ -83,9 +83,11 @@
 //     noises) stay in registers, loaded when an index changes (a uniform
 //     branch), instead of six to eight loads every second;
 //   - where the second's clear-sky GHI is zero (the CTA's row: a uniform
-//     branch) power() is a constant for every csi (night_ac) and csi feeds
-//     nothing else, so neither the z word, erf_inv, the csi lerps nor
-//     power() is computed; the renewal steps as in every second.
+//     branch) power() is a constant for every csi (night_ac), so power()
+//     is not computed; without the telemetry observer csi feeds nothing
+//     else there, so neither the z word, erf_inv nor the csi lerps are
+//     computed either (the observer folds csi every second, so with it
+//     they are); the renewal steps as in every second.
 // Every value keeps its expression, so the outputs keep their bits.
 //
 // K6s (strided).  The tile stages the calendar and the DISC Spencer term
@@ -214,6 +216,7 @@
 #include <algorithm>
 #include <cfloat>
 #include <cmath>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <type_traits>
@@ -321,10 +324,9 @@ enum RowFStride { TDOY = 3, SAMP_DAY2000, SAMP_SEC, SAMP_DOY };
 enum Geom { SHARED = 0, SITE = 1, STRIDED = 2 };
 
 // the instantiations that run the lean step (Design): the shared-site
-// acc (without the telemetry observer), series and trace epilogues
-__host__ __device__ constexpr bool lean_step(int epi, int geo, bool tel) {
-  return geo == SHARED && !tel &&
-         (epi == ACC || epi == SERIES || epi == TRACE);
+// acc (with or without the telemetry observer), series and trace epilogues
+__host__ __device__ constexpr bool lean_step(int epi, int geo) {
+  return geo == SHARED && (epi == ACC || epi == SERIES || epi == TRACE);
 }
 // the most stride samples a 60-second tile touches (stride 30)
 #define MAX_SAMP 3
@@ -861,7 +863,7 @@ __device__ __forceinline__ void block_step_body(const Args& a) {
   __shared__ ph::Key4 s_rk[UR ? 3 : 1];
   // the shared-site acc, series and trace steps: table pairs in
   // registers, no physics on a second without clear-sky GHI (Design)
-  constexpr bool LEAN = lean_step(EPI, GEO, TEL);
+  constexpr bool LEAN = lean_step(EPI, GEO);
   const int64_t n = a.n;
   const int T = a.T;
   const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
@@ -1126,15 +1128,18 @@ __device__ __forceinline__ void block_step_body(const Args& a) {
       } else {
         P = &tile[s].p;
       }
-      // lean: a second without clear-sky GHI draws no z and computes no
-      // csi; its pv is power()'s constant there
+      // lean: a second without clear-sky GHI computes no power() (lit,
+      // the physics); its pv is power()'s constant there.  csi feeds
+      // nothing else there but the telemetry, so without it such a second
+      // draws no z and computes no csi (csi_on)
       const bool lit = !LEAN || !NIGHT_SKIP || !(P->ghi_clear == 0.0f);
+      const bool csi_on = TEL || lit;
       // sampler lerps (value-major tables; the lean step's registers)
       const float cc_t = LEAN ? cc0 * S.one_m_hf + cc1 * S.hf
                               : a.t_cc[S.h * n + ii] * S.one_m_hf +
                                     a.t_cc[(S.h + 1) * n + ii] * S.hf;
       float noise_sec = 0.0f;
-      if (lit) {
+      if (csi_on) {
         if constexpr (LEAN && !RB) zb = tf::bits(kz, (uint32_t)s);
         float z;
         if constexpr (BF_DRAWS) {  // K12: jax's 8-bit bits, the low byte
@@ -1173,7 +1178,7 @@ __device__ __forceinline__ void block_step_body(const Args& a) {
       }
       const bool covered = sec < cloud_end;
       float csi = 0.0f, ac = night_ac();
-      if (lit) {
+      if (csi_on) {
         float base_v, nmin;
         if constexpr (LEAN) {
           base_v = (covered ? cd0 : cl0) *
@@ -1194,10 +1199,12 @@ __device__ __forceinline__ void block_step_body(const Args& a) {
                  a.t_mc[(S.m + 1) * n + ii] * S.mf;
         }
         csi = base_v * (nmin + noise_sec);
-        if constexpr (BF) {
-          ac = power_bf<KS>(csi, *P, ct_b, al_b);
-        } else {
-          ac = power<KS>(csi, *P, cos_tilt, albedo);
+        if (lit) {
+          if constexpr (BF) {
+            ac = power_bf<KS>(csi, *P, ct_b, al_b);
+          } else {
+            ac = power<KS>(csi, *P, cos_tilt, albedo);
+          }
         }
       }
       float meter = a.meter_max_w * tf::unit(mb);
@@ -1311,21 +1318,195 @@ __global__ void __launch_bounds__(THREADS, 4)
   block_step_body<KS, CD, RG, PROD, GEO, false>(a);
 }
 
-// reduce_chainwise, second pass: leaf l of the per-CTA partial rows
-// combined over the CTAs in index order (sum in double, min or max by
-// kinds[l]); the caller rounds the sums to float32 once
-__global__ void collapse_kernel(int n_parts, int L, const int* kinds,
-                                const double* __restrict__ part,
-                                double* out) {
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= L) return;
-  const int kind = kinds[l];
-  double x = part[l];
-  for (int c = 1; c < n_parts; ++c) {
-    const double y = part[(int64_t)c * L + l];
-    x = kind == K_SUM ? x + y : (kind == K_MIN ? fmin(x, y) : fmax(x, y));
+// reduce_chainwise, second pass, for a block's row sets in one launch (the
+// observers' telemetry, analytics and cohort rows, or the scenario fold's
+// rows): leaf l of a set's per-CTA partial rows combined over the rows in
+// index order (sum in double, min or max by its kind); the caller rounds
+// the sums to float32 once.
+//
+// Design.  A sum's fold is a chain of n_parts dependent double adds, so it
+// cannot be split over threads without changing its bits; what can be
+// spread is the loading, which one SM takes at a few tens of GB/s.  So a
+// CTA takes COLLAPSE_LW leaves of a set (a 65536-chain block's telemetry,
+// analytics and cohort rows: 9 CTAs; 16 scenario rows: 16) and copies
+// their rows into shared memory with every thread (cp.async, 16 bytes a
+// copy where the rows allow it), COLLAPSE_STAGE doubles a stage (the 512
+// rows of a block in one), COLLAPSE_NST stages in flight, while warp k
+// folds the chunk's leaves of kind k (a thread a leaf, so no warp
+// branches on the kind) from the stages that have landed, its shared
+// loads COLLAPSE_AHEAD rows ahead of the dependent operations.  fmin /
+// fmax on doubles (a compare, two selects and a NaN fix-up a step) made
+// the minima and maxima the longest chains; their result does not depend
+// on the order (LeafFold), so they run as COLLAPSE_AHEAD shorter ones.
+// Measured (PERF.md): one thread a leaf walking the rows through global
+// memory waited on each load (~0.1 ms a set); 32 leaves a CTA spent
+// longer loading than folding; 128-row stages cost more in their turns
+// than they saved.
+#define COLLAPSE_MAX_SETS 4
+#define COLLAPSE_LW 8
+#define COLLAPSE_THREADS 256
+#define COLLAPSE_STAGE 4096
+#define COLLAPSE_NST 4
+#define COLLAPSE_SMEM (COLLAPSE_NST * COLLAPSE_STAGE * (int)sizeof(double))
+#define COLLAPSE_AHEAD 8
+
+// one row set: its kinds repeat with a period of at most 32 leaves (the
+// cohorts' and the scenario rows' do), two bits a leaf
+struct CollapseSet {
+  const double* part;  // (n_parts, L), row-major
+  double* out;         // (L,)
+  uint64_t kinds;      // kind of leaf l: bits 2 (l % period) and up
+  int n_parts, L, period;
+  int cta0;            // the set's first CTA (the entry fills it in)
+};
+
+struct CollapseGroup {
+  int n_sets, n_ctas;  // n_ctas: filled in by the entry
+  CollapseSet set[COLLAPSE_MAX_SETS];
+};
+
+// one leaf's running fold: for a sum one double, added in index order;
+// for a minimum or maximum COLLAPSE_AHEAD running ones, a row each in
+// turn, combined at the end (fmin / fmax order the doubles totally, -0.0
+// below +0.0, and skip NaN, an empty accumulator's value, so any order
+// gives the index-order fold's bits; only the payload of a leaf whose rows
+// are all NaN may differ)
+template <int KIND>
+struct LeafFold {
+  static constexpr int B = COLLAPSE_AHEAD;
+  double x = 0.0;
+  double a[B];
+
+  __device__ __forceinline__ LeafFold() {
+#pragma unroll
+    for (int j = 0; j < B; ++j)
+      a[j] = __longlong_as_double(0x7ff8000000000000LL);
   }
-  out[l] = x;
+  __device__ __forceinline__ void first(double y) {
+    if (KIND == K_SUM) x = y;
+    else a[0] = y;
+  }
+  // rows r .. nr - 1 of a stage (row stride lw), loads ahead of the adds
+  __device__ __forceinline__ void rows(const double* v, int r, int nr,
+                                      int lw) {
+    const int batches = (nr - r) / B;
+    if (batches > 0) {
+      double y[B];
+#pragma unroll
+      for (int j = 0; j < B; ++j) y[j] = v[(r + j) * lw];
+      for (int b = 1; b < batches; ++b) {
+        double z[B];
+#pragma unroll
+        for (int j = 0; j < B; ++j) z[j] = v[(r + b * B + j) * lw];
+        add(y);
+#pragma unroll
+        for (int j = 0; j < B; ++j) y[j] = z[j];
+      }
+      add(y);
+      r += batches * B;
+    }
+    for (; r < nr; ++r) {
+      if (KIND == K_SUM) x = x + v[r * lw];
+      else a[0] = combine<KIND>(a[0], v[r * lw]);
+    }
+  }
+  __device__ __forceinline__ void add(const double (&y)[B]) {
+#pragma unroll
+    for (int j = 0; j < B; ++j) {
+      if (KIND == K_SUM) x = x + y[j];
+      else a[j] = combine<KIND>(a[j], y[j]);
+    }
+  }
+  __device__ __forceinline__ double value() const {
+    if (KIND == K_SUM) return x;
+    double v = a[0];
+#pragma unroll
+    for (int j = 1; j < B; ++j) v = combine<KIND>(v, a[j]);
+    return v;
+  }
+};
+
+__global__ void __launch_bounds__(COLLAPSE_THREADS)
+    collapse_kernel(const CollapseGroup g) {
+  extern __shared__ double s_rows[];
+  // the CTA's set (selects: no indexed read of the parameter)
+  CollapseSet q = g.set[0];
+#pragma unroll
+  for (int k = 1; k < COLLAPSE_MAX_SETS; ++k)
+    if (k < g.n_sets && (int)blockIdx.x >= g.set[k].cta0) q = g.set[k];
+  const int l0 = ((int)blockIdx.x - q.cta0) * COLLAPSE_LW;
+  const int lw = min(COLLAPSE_LW, q.L - l0);
+  // rows a stage holds (even, so a stage of whole rows starts 16-byte
+  // aligned)
+  const int rows = (COLLAPSE_STAGE / lw) & ~1;
+  const int n_st = (q.n_parts + rows - 1) / rows;
+  const int tid = threadIdx.x;
+  const bool aligned = (reinterpret_cast<uintptr_t>(q.part) & 15) == 0;
+  // 16-byte copies: a stage of whole rows is one aligned run; a chunk of
+  // each row is aligned when L, l0 and lw are even
+  const bool whole = lw == q.L;
+  const bool pairs = aligned && (whole || ((q.L | l0 | lw) & 1) == 0);
+  // stage k into slot k % COLLAPSE_NST: one commit group (empty past the
+  // last stage)
+  auto issue = [&](int k) {
+    if (k < n_st) {
+      const int r0 = k * rows;
+      const int ne = min(rows, q.n_parts - r0) * lw;
+      double* dst = s_rows + (k % COLLAPSE_NST) * COLLAPSE_STAGE;
+      const double* src = q.part + (int64_t)r0 * q.L + l0;
+      for (int e = (pairs ? 2 : 1) * tid; e < ne;
+           e += (pairs ? 2 : 1) * COLLAPSE_THREADS) {
+        const int r = whole ? 0 : e / lw;
+        const double* from = src + (int64_t)r * q.L + (e - r * lw);
+        if (pairs && e + 1 < ne)
+          __pipeline_memcpy_async(dst + e, from, 2 * sizeof(double));
+        else
+          __pipeline_memcpy_async(dst + e, from, sizeof(double));
+      }
+    }
+    __pipeline_commit();
+  };
+  for (int k = 0; k < COLLAPSE_NST - 1; ++k) issue(k);
+  // warp w < 3 folds the chunk's leaves of kind w, lane j the j-th of them
+  const int kind = tid >> 5, lane = tid & 31;
+  int leaf = -1;
+  if (kind <= K_MAX) {
+    for (int l = 0, j = 0; l < lw; ++l) {
+      if ((int)((q.kinds >> (2 * ((l0 + l) % q.period))) & 3u) != kind)
+        continue;
+      if (j++ == lane) leaf = l;
+    }
+  }
+  LeafFold<K_SUM> f_sum;
+  LeafFold<K_MIN> f_min;
+  LeafFold<K_MAX> f_max;
+  for (int k = 0; k < n_st; ++k) {
+    // the slot of stage k - 1, freed at the end of its turn
+    issue(k + COLLAPSE_NST - 1);
+    __pipeline_wait_prior(COLLAPSE_NST - 1);  // this thread's copies of k
+    __syncthreads();                          // and everyone's
+    if (leaf >= 0) {
+      const double* v = s_rows + (k % COLLAPSE_NST) * COLLAPSE_STAGE + leaf;
+      const int nr = min(rows, q.n_parts - k * rows);
+      const int r = k == 0 ? 1 : 0;
+      // warp-uniform: every lane of the warp has this kind
+      if (kind == K_SUM) {
+        if (k == 0) f_sum.first(v[0]);
+        f_sum.rows(v, r, nr, lw);
+      } else if (kind == K_MIN) {
+        if (k == 0) f_min.first(v[0]);
+        f_min.rows(v, r, nr, lw);
+      } else {
+        if (k == 0) f_max.first(v[0]);
+        f_max.rows(v, r, nr, lw);
+      }
+    }
+    __syncthreads();
+  }
+  if (leaf < 0) return;
+  q.out[l0 + leaf] = kind == K_SUM   ? f_sum.value()
+                     : kind == K_MIN ? f_min.value()
+                                     : f_max.value();
 }
 
 // the series epilogue's second pass: per second, the (n_parts, T) CTA
@@ -1918,15 +2099,42 @@ extern "C" int scen_struct_size(void* stream) {
   return (int)sizeof(Scen);
 }
 
-extern "C" int collapse_partials(int n_parts, int L, const int* kinds,
-                                 const double* part, double* out,
-                                 void* stream) {
-  if (L > 0) {
-    const unsigned blocks = (unsigned)((L + 127) / 128);
-    collapse_kernel<<<blocks, 128, 0, (cudaStream_t)stream>>>(
-        n_parts, L, kinds, part, out);
+// the grouped collapse: g's sets (their part, out, kinds, n_parts, L and
+// period; n_parts >= 1, 1 <= period <= 32, L a multiple of it), one launch
+extern "C" int collapse_partials(const CollapseGroup* g, void* stream) {
+  if (g->n_sets < 1 || g->n_sets > COLLAPSE_MAX_SETS)
+    return (int)cudaErrorInvalidValue;
+  CollapseGroup a = *g;
+  a.n_ctas = 0;
+  for (int k = 0; k < a.n_sets; ++k) {
+    CollapseSet& q = a.set[k];
+    if (q.n_parts < 1 || q.L < 1 || q.period < 1 || q.period > 32 ||
+        q.L % q.period)
+      return (int)cudaErrorInvalidValue;
+    q.cta0 = a.n_ctas;
+    a.n_ctas += (q.L + COLLAPSE_LW - 1) / COLLAPSE_LW;
   }
+  // above 48 KB of dynamic shared memory only after opting in, once a
+  // device
+  static unsigned opted = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && dev < 32 && !(opted & (1u << dev))) {
+    e = cudaFuncSetAttribute(collapse_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             COLLAPSE_SMEM);
+    if (e == cudaSuccess) opted |= 1u << dev;
+  }
+  if (e != cudaSuccess) return (int)e;
+  collapse_kernel<<<a.n_ctas, COLLAPSE_THREADS, COLLAPSE_SMEM,
+                    (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// the layout check of the wrapper's ctypes mirror of CollapseGroup
+extern "C" int collapse_struct_size(void* stream) {
+  (void)stream;
+  return (int)sizeof(CollapseGroup);
 }
 
 extern "C" int block_step_series(COMMON_PARAMS, float* part_meter,

@@ -958,6 +958,27 @@ class _Scen(ctypes.Structure):
                 ("chain_i", _P), ("chain_f", _P), ("part", _P)]
 
 
+#: the grouped collapse's row sets a launch (csrc/block_step.cuh
+#: ``COLLAPSE_MAX_SETS``) and the longest period of a set's kinds
+COLLAPSE_MAX_SETS = 4
+COLLAPSE_MAX_PERIOD = 32
+
+
+class _CollapseSet(ctypes.Structure):
+    """ctypes mirror of csrc/block_step.cuh's ``CollapseSet``."""
+
+    _fields_ = [("part", _P), ("out", _P), ("kinds", ctypes.c_uint64),
+                ("n_parts", ctypes.c_int), ("L", ctypes.c_int),
+                ("period", ctypes.c_int), ("cta0", ctypes.c_int)]
+
+
+class _CollapseGroup(ctypes.Structure):
+    """ctypes mirror of csrc/block_step.cuh's ``CollapseGroup``."""
+
+    _fields_ = [("n_sets", ctypes.c_int), ("n_ctas", ctypes.c_int),
+                ("set", _CollapseSet * COLLAPSE_MAX_SETS)]
+
+
 def _check(t, dtype, dev, what):
     if t.device != dev or t.dtype != dtype or not t.is_contiguous():
         raise ValueError(f"block_step: {what} must be a contiguous "
@@ -1087,20 +1108,67 @@ def collapse_plain(part, kinds):
                                    part.max(0).values))
 
 
-def collapse_partials(part, kinds):
-    """reduce_chainwise's second pass on the card: the ``(n_parts, L)``
-    float64 per-CTA partial rows combined over the rows in index order
-    (sums in float64), one thread per leaf."""
-    n_parts, L = part.shape
-    out = torch.empty(L, dtype=torch.float64, device=part.device)
-    fn = build.entry("block_step.cu", "collapse_partials",
-                     [ctypes.c_int, ctypes.c_int] + [_P] * 3)
-    p = build.ptr
-    rc = fn(n_parts, L, p(_const_tensor(kinds, torch.int32, part.device)),
-            p(part), p(out), build.stream_ptr(part.device))
-    build.check(rc, "collapse_partials")
+def _kinds_bits(kinds: tuple, L: int) -> int:
+    """One period of a set's kinds (it repeats over the ``L`` leaves;
+    at most ``COLLAPSE_MAX_PERIOD`` long) packed two bits a leaf."""
+    if not 0 < len(kinds) <= COLLAPSE_MAX_PERIOD or L % len(kinds) or \
+            any(k not in (0, 1, 2) for k in kinds):
+        raise ValueError(f"collapse: kinds {kinds} are not one period of "
+                         f"at most {COLLAPSE_MAX_PERIOD} that tiles {L} "
+                         "leaves")
+    return sum(k << (2 * j) for j, k in enumerate(kinds))
+
+
+_collapse_size_checked: set = set()
+
+
+def _collapse_cuda(sets):
+    dev = sets[0][0].device
+    outs = torch.empty(sum(p.shape[1] for p, _ in sets), dtype=torch.float64,
+                       device=dev).split([p.shape[1] for p, _ in sets])
+    g = _CollapseGroup()
+    g.n_sets = len(sets)
+    for q, (part, kinds), out in zip(g.set, sets, outs):
+        _check(part, torch.float64, dev, "collapse rows")
+        q.n_parts, q.L = part.shape
+        if q.n_parts < 1:
+            raise ValueError("collapse: a set without rows")
+        q.period, q.kinds = len(kinds), _kinds_bits(kinds, q.L)
+        q.part, q.out = build.ptr(part), build.ptr(out)
+    lib = "block_step.cu"
+    if lib not in _collapse_size_checked:
+        size = build.entry(lib, "collapse_struct_size", [])
+        if size(None) != ctypes.sizeof(_CollapseGroup):
+            raise RuntimeError("collapse: the CollapseGroup layout differs "
+                               "between the kernel and its wrapper")
+        _collapse_size_checked.add(lib)
+    fn = build.entry(lib, "collapse_partials", [_P])
+    build.check(fn(ctypes.byref(g), build.stream_ptr(dev)),
+                "collapse_partials")
     COLLAPSE.launches += 1
-    return out
+    return list(outs)
+
+
+def collapse_group(sets):
+    """reduce_chainwise's second pass for a block's row sets (at most
+    ``COLLAPSE_MAX_SETS``), each ``(part, kinds)``: the ``(n_parts, L)``
+    float64 per-CTA partial rows and their kinds (0 sum, 1 min, 2 max), one
+    period of at most ``COLLAPSE_MAX_PERIOD`` that repeats over the ``L``
+    leaves (the cohorts' and the scenario rows' do).  Returns each set's
+    ``(L,)`` float64 leaves combined over the rows in index order (sums in
+    float64).  On the card one launch for all the sets; on the CPU
+    ``collapse_plain`` per set."""
+    sets = [(part, tuple(kinds)) for part, kinds in sets]
+    if not 1 <= len(sets) <= COLLAPSE_MAX_SETS:
+        raise ValueError(f"collapse: 1 to {COLLAPSE_MAX_SETS} row sets a "
+                         f"launch, not {len(sets)}")
+    dev = sets[0][0].device
+    if dev.type == "cuda":
+        return _collapse_cuda(sets)
+    if dev.type != "cpu":
+        raise ValueError(f"collapse: no kernel for device {dev}")
+    return [collapse_plain(part, kinds * (part.shape[1] // len(kinds)))
+            for part, kinds in sets]
 
 
 def _obs_buffers(obs: Observers, n: int, T: int, dev):
@@ -1178,8 +1246,12 @@ def _obs_outputs(obs: Observers, buf: dict, T: int) -> dict:
     """The observers' collapsed deltas (the JAX package's leaf names and
     dtypes) from the kernel's partial rows and histograms."""
     out = {"telemetry": None, "fleet": None}
+    # the block's row sets in one collapse
+    names = [k for k in PART_KINDS if k in buf]
+    rows = dict(zip(names, collapse_group(
+        [(buf[k], PART_KINDS[k]) for k in names])))
     if obs.telemetry != "off":
-        t = collapse_partials(buf["tel_part"], TEL_KINDS)
+        t = rows["tel_part"]
         count = buf["tel_count"][0]
         d = {"count": count}
         for k, f in enumerate(tel.TELEMETRY_FIELDS):
@@ -1201,7 +1273,7 @@ def _obs_outputs(obs: Observers, buf: dict, T: int) -> dict:
                 **dict(zip(TEL_CHAIN_F, buf["tel_chain_f"]))}
     if obs.analytics != "off":
         prm = obs.params
-        f = collapse_partials(buf["flt_part"], FLT_KINDS)
+        f = rows["flt_part"]
         d = {"count": f[0].to(torch.int32), "res_hist": buf["res_hist"],
              "exceed": buf["exceed"], "min_res": f[1].float(),
              "max_res": f[2].float(), "lol_seconds": f[3].to(torch.int32),
@@ -1210,8 +1282,7 @@ def _obs_outputs(obs: Observers, buf: dict, T: int) -> dict:
             d[f"max_ramp_{w}s"] = f[5 + k].float()
         if "coh_part" in buf:
             C = obs.n_cohorts
-            c = collapse_partials(buf["coh_part"],
-                                  COH_KINDS * C).view(C, len(COH_KINDS))
+            c = rows["coh_part"].view(C, len(COH_KINDS))
             d["cohort_count"] = c[:, 0].to(torch.int32)
             d["cohort_hist"] = buf["cohort_hist"]
             d["min_cohort_res"] = c[:, 4].float()
@@ -1552,7 +1623,7 @@ def _scenario_fold_cuda(meter, ac, t, acc, duration_s, scen, params,
     build.check(rc, "scenario_fold")
     SCN_FOLD.launches += 1
     L = len(SCN_KINDS)
-    f = collapse_partials(buf["part"], SCN_KINDS * B).view(B, L)
+    f = collapse_group([(buf["part"], SCN_KINDS)])[0].view(B, L)
     delta = {"count": f[:, 0].to(torch.int32), "res_hist": buf["res_hist"],
              "exceed": buf["exceed"], "min_res": f[:, 1].float(),
              "max_res": f[:, 2].float(),
