@@ -3,9 +3,9 @@ instantiations of one tree of the port on the card, to compare trees (a
 parent commit unpacked beside the change) in one call.
 
     python3 ab_kernels.py --root DIR [--rows 16] [--rounds 3]
-        [--kernels K1,K1N,K2,K2P,K2U,K7R,K3,K3N,K4T,K4S,K11R,K11N,K3P,K3U,
-                   K12R,K12RN,K8SL,K8SLN,K8SF,K8SFN,K12T,K6,K6s,K7T,K8,
-                   K12B,K12BL,K89,K89L,K12F,K4M89,KC]
+        [--kernels K1,K1N,K2,K2P,K2U,K7R,K2M,K2H,K3,K3N,K4T,K4S,K11R,K11N,
+                   K3P,K3U,K12R,K12RN,K8SL,K8SLN,K8SF,K8SFN,K12T,K6,K6s,
+                   K7T,K8,K12B,K12BL,K89,K89L,K12F,K4M89,K4MF,K4MFT,KC]
         [--skip-scenario]
 
 ``--root`` is the directory that holds the ``tmhpvsim_torch`` package (and
@@ -37,6 +37,11 @@ line per measurement, ``{"tree": ..., "kernel": ..., ...}``:
   K2   path R's sampler windows of the noon block (threefry keys);
   K2P, K2U  the same under rbg and unsafe_rbg keys (K13 / K14 in K2);
   K7R  path F's windows with K7's per-chain regime;
+  K2M, K2H  path R's windows with pieces of the work cut, to see where
+       K2's time goes: K2M without the minute-noise values (no minute
+       index), K2H the hours alone (the chain keys, the Markov hour loop
+       and the carry; no cloudy, clear-day, windspeed or minute values);
+       their outputs are not K2's, only their times count;
   K3   path R's acc launch (shared site);
   K3N  the same launch on path R's first block (00:00, night: no
        clear-sky GHI in any second);
@@ -70,7 +75,18 @@ line per measurement, ``{"tree": ..., "kernel": ..., ...}``:
   K12F path F-H's (path F under ``compute_dtype='bf16'``).
 
   K4M89 path F-W's wide fold with both observers, on the K4 trace of
-       path F's noon block (the trace made once, the fold timed).
+       path F's noon block (the trace made once, the fold timed);
+  K4MF path R-W's wide fold (the seven statistics alone), on the K4
+       trace of path R's noon block;
+  K4MFT path R-HW's wide fold with telemetry (light, the bf16 path's),
+       on its K12 trace of that block.
+
+  The window launches (K2, K2P, K2U, K7R, K2M, K2H) also print
+  ``device_ms``: device time from a CUDA graph of 10 launches, no host
+  work between them.  K2, K2P, K2U and K7R print ``attrs``: the window
+  kernel's registers, CTAs an SM and its waves at 65536 chains on 132 SMs
+  (where the tree has ``windows_attrs``); K4MF likewise the fold's
+  (``wide_fold_attrs``).
 
   On a tree with the observer fold, K89, K89L and K12F also print the
   producer and the fold on their own (``ms_producer``, ``ms_fold``: the
@@ -113,10 +129,15 @@ MANY_THR = range(-4000, 6000, 1000)
 HEADLINE = dict(start="2019-09-05 00:00:00", duration_s=86400,
                 n_chains=65536, seed=0, block_s=1080, output="reduce")
 NOON = 40
-KERNELS = ("K1", "K1N", "K2", "K2P", "K2U", "K7R", "K3", "K3N", "K4T", "K4S",
-           "K11R", "K11N", "K3P", "K3U", "K12R", "K12RN", "K8SL", "K8SLN",
-           "K8SF", "K8SFN", "K12T", "K6", "K6s", "K7T", "K8", "K12B",
-           "K12BL", "K89", "K89L", "K12F", "K4M89", "KC")
+KERNELS = ("K1", "K1N", "K2", "K2P", "K2U", "K7R", "K2M", "K2H", "K3", "K3N",
+           "K4T", "K4S", "K11R", "K11N", "K3P", "K3U", "K12R", "K12RN",
+           "K8SL", "K8SLN", "K8SF", "K8SFN", "K12T", "K6", "K6s", "K7T", "K8",
+           "K12B", "K12BL", "K89", "K89L", "K12F", "K4M89", "K4MF", "K4MFT",
+           "KC")
+#: the window launches (the sampler-window kernel alone)
+WINDOWS = ("K2", "K2P", "K2U", "K7R", "K2M", "K2H")
+#: the wide folds: each times the fold alone on its path's K4 trace
+WIDE_FOLDS = ("K4M89", "K4MF", "K4MFT")
 #: the cases timed on another block than the noon block
 BLOCK = {"K3N": 0, "K11N": 0, "K12RN": 0, "K8SLN": 0, "K8SFN": 0}
 #: the cases whose launch shape is printed: (epilogue, geometry,
@@ -163,11 +184,14 @@ def block_step_cases(names, dev):
     """``{name: (launch, what)}``: each a function of no argument that
     launches the block step once on its path's noon block from fresh
     copies of the same inputs and returns its outputs."""
+    import torch
+
     from tmhpvsim_torch import SimConfig
     from tmhpvsim_torch.config import SiteGrid
     from tmhpvsim_torch.engine.simulation import Simulation
     from tmhpvsim_torch.fleet import FleetParams
     from tmhpvsim_torch.kernels import block_step as k3
+    from tmhpvsim_torch.kernels import windows as k2
 
     grid = SiteGrid.regular((47, 55), (6, 15), 256, 256)
     from tmhpvsim_torch.kernels import wide
@@ -200,6 +224,8 @@ def block_step_cases(names, dev):
         "K2U": (dict(HEADLINE, prng_impl="unsafe_rbg"),
                 "path R-U's windows"),
         "K7R": (dict(HEADLINE, fleet=fleet), "path F's windows (regime)"),
+        "K2M": (dict(HEADLINE), "path R's windows without minute values"),
+        "K2H": (dict(HEADLINE), "path R's windows, the hours alone"),
         "K3": (dict(HEADLINE), "path R's acc launch"),
         "K3N": (dict(HEADLINE), "path R's acc launch at night"),
         "K4T": (dict(HEADLINE, block_impl="wide", stats_fusion="split"),
@@ -248,6 +274,11 @@ def block_step_cases(names, dev):
         "K4M89": (dict(HEADLINE, fleet=fleet, telemetry="full",
                        analytics="full", block_impl="wide"),
                   "path F-W's wide fold with both observers"),
+        "K4MF": (dict(HEADLINE, block_impl="wide", stats_fusion="split"),
+                 "path R-W's wide fold (acc)"),
+        "K4MFT": (dict(HEADLINE, compute_dtype="bf16", block_impl="wide",
+                       stats_fusion="split"),
+                  "path R-HW's wide fold with telemetry"),
     }
     for name in names:
         if name in ("K1", "K1N", "KC"):
@@ -266,9 +297,25 @@ def block_step_cases(names, dev):
                     compute_dtype=sim.plan.compute_dtype,
                     layout=sim._draw_layout(), impl=sim.plan.prng_impl)
         obs = sim.observers(state)
-        if name in ("K2", "K2P", "K2U", "K7R"):
-            out[name] = (lambda sim=sim, state=state, ins=ins:
-                         sim._windows(state, ins), what, None)
+        if name in WINDOWS:
+            # the minute features on the card (no copy in a CUDA graph)
+            b = ins.bounds
+            mh = (ins.mh_idx.to(dev, torch.int32).contiguous(),
+                  ins.mh_frac.to(dev, torch.float32).contiguous())
+            if name in ("K2M", "K2H"):
+                mh = (mh[0][:0], mh[1][:0])
+            if name == "K2H":
+                b = k2.Bounds(b.hour_lo, b.n_hours, 0, b.hour_next_lo,
+                              b.cd_lo, 0, b.day_lo, 0, b.min_lo)
+            regime = state["fleet"]["regime"] if sim._het_regime else None
+
+            def windows(state=state, b=b, mh=mh, regime=regime,
+                        impl=sim.plan.prng_impl):
+                return k2.sampler_windows(state["k_arr"], state["k_min"],
+                                          state["cc_carry"], state["cc0"], b,
+                                          *mh, regime=regime, impl=impl)
+
+            out[name] = (windows, what, None)
             continue
         if name in ("K4T", "K4S", "K12T"):
             def step(head=head, state=state, tail=tail, opts=opts,
@@ -281,15 +328,21 @@ def block_step_cases(names, dev):
 
             out[name] = (step, what, None)
             continue
-        if name == "K4M89":
+        if name in WIDE_FOLDS:
             _, meter, pv = k3.block_step_trace(
                 *head, {k: v.clone() for k, v in state["carry"].items()},
                 tail[1], tilt, alb, **opts)
 
+            # K4MF and K4MFT merge into one accumulator, made fresh for
+            # the first (the digest's) launch: no allocation in the timed
+            # calls
+            held = None if name == "K4M89" else sim.init_reduce_acc()
+
             def fold(sim=sim, meter=meter, pv=pv, ins=ins, tail=tail,
-                     obs=obs):
-                return wide.wide_fold(meter, pv, ins.rows_i[0], tail[0],
-                                      sim.init_reduce_acc(), obs)
+                     obs=obs, held=held):
+                return wide.wide_fold(
+                    meter, pv, ins.rows_i[0], tail[0],
+                    sim.init_reduce_acc() if held is None else held, obs)
 
             out[name] = (fold, what, None)
             continue
@@ -378,6 +431,8 @@ def main(argv=None) -> int:
     import torch
 
     from tmhpvsim_torch.kernels import block_step as k3
+    from tmhpvsim_torch.kernels import wide
+    from tmhpvsim_torch.kernels import windows as k2
 
     if not torch.cuda.is_available():
         print("ab_kernels: no CUDA card", file=sys.stderr)
@@ -462,6 +517,19 @@ def main(argv=None) -> int:
         elif parts is not None:
             extra = {"ms_step": [per_call_ms(parts[0], reps=5)
                                  for _ in range(args.rounds)]}
+        if name in WINDOWS:
+            extra["device_ms"] = [graph_ms(launch, reps=10, rounds=3)
+                                  for _ in range(args.rounds)]
+        wk = {"K2": "threefry2x32", "K7R": "threefry2x32", "K2P": "rbg",
+              "K2U": "unsafe_rbg"}
+        if name in wk and hasattr(k2, "windows_attrs"):
+            a = k2.windows_attrs(wk[name], 5)
+            extra["attrs"] = dict(a, waves_65536=-(-CTAS_65536 // max(
+                1, SMS * a["ctas_per_sm"])))
+        if name == "K4MF" and hasattr(wide, "wide_fold_attrs"):
+            a = wide.wide_fold_attrs()
+            extra["attrs"] = dict(a, waves_65536=-(-CTAS_65536 // max(
+                1, SMS * a["ctas_per_sm"])))
         if name in ATTRS:
             epi, geo, tel_on, ks, cdt = ATTRS[name]
             a = k3.step_attrs(epi, geo, tel_on, kernels=ks,

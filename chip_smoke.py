@@ -10,9 +10,13 @@ Phases (any failure exits non-zero and prints no result line):
    launch ``init_state`` makes (on its own keys), then on 2**20 keys for
    split, fold_in, bits and uniform bit for bit and normal to 2 float32
    ULP;
-3. K2 (sampler windows) against its plain version at 65536 chains: the
-   two launches ``init_state`` makes, then two consecutive blocks (the
-   Markov carry crosses a block);
+3. K2 (sampler windows) against its plain version at 65536 chains, every
+   table and the carry bit for bit: the two launches ``init_state``
+   makes, a block after which the carry advances, then two consecutive
+   blocks (the Markov carry crosses a block); and the block from 23:45
+   across midnight at 65536 - 37 chains (a partial last CTA) under
+   threefry2x32 (also the next block), rbg and unsafe_rbg keys and with
+   K7's regimes (``K2_EDGE``);
 4. the block step against its plain versions at the main paths' shape,
    65536 chains x 1080 s, on 2 daylight blocks, on the same K2 tables:
    K3 (acc epilogue: 7 statistics and the renewal carry); K4 series (the
@@ -80,8 +84,9 @@ Phases (any failure exits non-zero and prints no result line):
    past F-W's launch on the second block)
    against its plain version (statistics, per-chain leaves, counts,
    histograms and extrema bit for bit, observer sums within 1e-6 of the
-   float64 plain sums, a rerun bit-identical) and against K3's acc on the
-   same blocks, the wide series against its plain version (rtol 1e-6, a
+   float64 plain sums, a rerun bit-identical; the acc-only fold's seven
+   statistics bit for bit) and against K3's acc on the same blocks (bit
+   for bit), the wide series against its plain version (rtol 1e-6, a
    rerun bit-identical) and the scan's series kernel; and the wide fused
    topology (the acc launch) on 2 blocks against path R's; then K12 (the
    block step under ``compute_dtype='bf16'``) against its plain bf16
@@ -238,8 +243,10 @@ Phases (any failure exits non-zero and prints no result line):
    paths' shapes (the fleet kernels on path F's noon block; K11 and K6s
    on paths R-T's and B-L's noon blocks, the K10 row reset of
    continuous batching at 16 rows, the wide fold on paths R's and F's
-   noon blocks and the wide series on R's, with ``torch.sum(dim=1)``
-   beside it and ``part.sum(1)`` beside ``series_sum``, in turns; K12's
+   noon blocks (the acc-only fold with the library's ``sum`` / ``amax``
+   / ``amin`` over the same arrays beside it, ``fold_library``) and the
+   wide series on R's, with ``torch.sum(dim=1)`` beside it and
+   ``part.sum(1)`` beside ``series_sum``, in turns; K12's
    instantiations that the bf16 paths launch on their noon blocks; K13's
    bits and the rbg windows and step that path R-P launches, with
    ``torch.rand`` beside the bits as a yardstick; K14's derivations, the
@@ -715,6 +722,28 @@ def phase_k1(dev):
     return max(errs.values())
 
 
+def k2_held(label, args, regime=None, impl="threefry2x32"):
+    """One K2 launch against its plain version on the same inputs: every
+    table and the Markov carry bit for bit.  Returns the carry."""
+    tk, ck = k2.sampler_windows(*args, regime=regime, impl=impl)
+    tp, cp = k2.windows_plain(*args, regime=regime, impl=impl)
+    torch.cuda.synchronize()
+    for name in tk:
+        if not torch.equal(tk[name], tp[name]):
+            fail(f"{label}: table {name} differs from the plain version: "
+                 f"max abs {max_abs(tk[name], tp[name])}")
+    if not torch.equal(ck, cp):
+        fail(f"{label}: the Markov carry differs from the plain version")
+    return ck
+
+
+#: K2's edge blocks: the first two 1080 s blocks from 23:45 (the first
+#: across midnight: clear-day and windspeed values of two days; the
+#: second's day windows start a day later), at 65536 - 37 chains (a
+#: partial last CTA)
+K2_EDGE = dict(HEADLINE, start="2019-09-05 23:45:00", n_chains=65536 - 37)
+
+
 def phase_k2(dev):
     sim = Simulation(SimConfig(**HEADLINE), device=dev)
     state = sim.init_state()
@@ -722,36 +751,57 @@ def phase_k2(dev):
     ones = torch.ones(sim.config.n_chains, dtype=torch.float32, device=dev)
     no_min = (torch.zeros(0, dtype=torch.int32, device=dev),
               torch.zeros(0, dtype=torch.float32, device=dev))
-    err = 0.0
-
-    def check(what, *args):
-        nonlocal err
-        tk, ck = k2.sampler_windows(*args)
-        tp, cp = k2.windows_plain(*args)
-        torch.cuda.synchronize()
-        for name in tk:
-            if not torch.allclose(tk[name], tp[name], rtol=1e-6, atol=1e-6):
-                fail(f"K2 table {name} differs from the plain version in "
-                     f"{what}: max abs {max_abs(tk[name], tp[name])}")
-            err = max(err, max_abs(tk[name], tp[name]))
-        if not torch.equal(ck, cp):
-            fail(f"K2 Markov carry differs from the plain version in {what}")
-        return ck
 
     # init_state's two launches (cc at hours 0-1 with ws0; the cloudy
-    # pair), then two consecutive blocks so the Markov carry crosses one
-    check("init cc01/ws0", k_arr, k_min, ones, ones,
-          k2.Bounds(0, 2, 0, 0, 0, 0, 0, 1), *no_min)
-    check("init cloudy pair", k_arr, k_min, ones, state["cc0"],
-          k2.Bounds(0, 0, 2, 0, 0, 0, 0, 0), *no_min)
+    # pair), block 6 (the hour window moves on after it: the carry
+    # advances), then two consecutive blocks so the Markov carry crosses
+    # one
+    k2_held("K2 init cc01/ws0", (k_arr, k_min, ones, ones,
+                                 k2.Bounds(0, 2, 0, 0, 0, 0, 0, 1),
+                                 *no_min))
+    k2_held("K2 init cloudy pair", (k_arr, k_min, ones, state["cc0"],
+                                    k2.Bounds(0, 0, 2, 0, 0, 0, 0, 0),
+                                    *no_min))
     cc_carry = state["cc_carry"]
-    for bi in (40, 41):
+    b6 = sim.host_inputs(6).bounds
+    if b6.hour_next_lo == b6.hour_lo:
+        fail("K2: block 6 does not advance the Markov carry")
+    for bi in (6, 40, 41):
         ins = sim.host_inputs(bi)
-        cc_carry = check(f"block {bi}", k_arr, k_min, cc_carry, state["cc0"],
-                         ins.bounds, ins.mh_idx, ins.mh_frac)
+        cc_carry = k2_held(f"K2 block {bi}", (
+            k_arr, k_min, cc_carry, state["cc0"], ins.bounds, ins.mh_idx,
+            ins.mh_frac))
+    # the edge blocks (the second under threefry only), under each key
+    # implementation and with K7's regimes (path F's fleet: 65536 sites)
+    n = K2_EDGE["n_chains"]
+    edges = []
+    for label, kw in (("K2", {}), ("K13 in K2", RBG), ("K14 in K2", URBG),
+                      ("K7 regime", dict(fleet=fleet_f(),
+                                         n_chains=HEADLINE["n_chains"]))):
+        esim = rbg_sim(SimConfig(**dict(K2_EDGE, **kw)), dev)
+        est = esim.init_state()
+        regime = est["fleet"]["regime"] if esim._het_regime else None
+        cc = est["cc_carry"]
+        bounds = []
+        for bi in ((0, 1) if not kw else (0,)):
+            ins = esim.host_inputs(bi)
+            cc = k2_held(f"{label} edge block {bi}", (
+                est["k_arr"], est["k_min"], cc, est["cc0"], ins.bounds,
+                ins.mh_idx, ins.mh_frac), regime, esim.plan.prng_impl)
+            bounds.append(ins.bounds)
+        edges.append(label)
+        if not kw:
+            b0, b1 = bounds
+    if not (b0.n_cd and b0.n_days and b1.day_lo > b0.day_lo):
+        fail(f"K2's edge blocks miss an edge case: {b0}, {b1}")
+    shapes = {impl: k2.windows_attrs(impl, b0.n_hours)
+              for impl in ("threefry2x32", "rbg", "unsafe_rbg")}
     print(f"K2 vs plain at {sim.config.n_chains} chains, init_state's 2 "
-          f"launches and blocks 40-41: max abs {err:.3g}")
-    return err
+          f"launches and blocks 6, 40-41, and ({', '.join(edges)}) the "
+          f"block from 23:45 across midnight (threefry also the next) at "
+          f"{n} chains (the regimes at path F's 65536 sites): every table "
+          f"and the carry bit-identical; launch shapes {shapes}")
+    return 0.0
 
 
 #: the lean step's edge block: the last hour of daylight, sunset in
@@ -1329,9 +1379,10 @@ def phase_k7(dev):
                  f"from the plain version in {what}")
         cc_same += tk["cc"].numel()
         for name in tk:
-            if not torch.allclose(tk[name], tp[name], rtol=1e-6, atol=1e-6):
+            if not torch.equal(tk[name], tp[name]):
                 fail(f"K7 regime gather: table {name} differs from the "
-                     f"plain version in {what}")
+                     f"plain version in {what}: max abs "
+                     f"{max_abs(tk[name], tp[name])}")
             err = max(err, max_abs(tk[name], tp[name]))
         return ck
 
@@ -1355,8 +1406,8 @@ def phase_k7(dev):
             float(moved[regime != 0].double().mean()) < 0.9:
         fail("K7 regime gather: the regimes do not select the tables")
     print(f"K7 regime gather vs plain at {n} chains (regimes {counts}), "
-          f"init_state's launch and 2 blocks: {cc_same} Markov values and "
-          f"the carry bit-identical, other tables max abs {err:.3g}")
+          f"init_state's launch and 2 blocks: {cc_same} Markov values, "
+          f"every other table and the carry bit-identical")
     # the transforms: acc (site geometry, the fleet's grid) and trace
     sim, state, blocks = fleet_blocks(cfg, dev)
     _, _, site = sim.geometry_args(state)
@@ -2132,7 +2183,7 @@ def phase_timing(dev):
     b = ins.bounds
     n_min = int(ins.mh_idx.shape[0])
     ms = time_ms(lambda: k2.sampler_windows(*args))
-    plain = time_ms(lambda: k2.windows_plain(*args), reps=2)
+    plain = time_ms(lambda: k2.windows_plain(*args), reps=1)
     # K2 work per chain: 4 key splits; per hour a fold_in, a split and a
     # draw (AL: 1 hash + 2 logf, or t: ~8 hashes with gamma); cloudy,
     # clear-day and windspeed draws (normal: 2 hashes; gamma: ~8); two
@@ -2288,7 +2339,7 @@ def phase_timing_k5(dev):
             fail(f"K5 {k} differs from its plain composition: max abs "
                  f"{max_abs(state[k].double(), v.double())}")
     ms = time_ms(sim.init_state)
-    plain_ms = time_ms(lambda: k5_plain(sim), reps=2)
+    plain_ms = time_ms(lambda: k5_plain(sim), reps=1)
     hashes = 1 + 5 + (4 + 2 * 6 + 8) + (4 + 2 * 6) + 4
     f32 = 2 * 30 + 60 + 2 * 40 + 2 * UNIFORM_F + 2 * POW_F + 12
     nbytes = n * (4 * 8 + 7 * 4)
@@ -2363,7 +2414,7 @@ def phase_timing_fleet(dev):
     n_min = int(ins.mh_idx.shape[0])
     out = {}
     ms = time_ms(lambda: k2.sampler_windows(*args, regime=regime))
-    plain = time_ms(lambda: k2.windows_plain(*args, regime=regime), reps=2)
+    plain = time_ms(lambda: k2.windows_plain(*args, regime=regime), reps=1)
     # K2's work (the regime adds one int32 load and an index per chain)
     hashes = 4 + b.n_hours * 6 + b.n_cloudy * 6 + b.n_cd * 2 + \
         b.n_days * 8 + n_min * 5
@@ -3616,6 +3667,9 @@ def phase_k4m(dev):
                                                        per_chain=True))):
         r, e, se, _, same = check_wide_fold(label, sim, traces, obs, dur)
         rel, err, stat_err = max(rel, r), max(err, e), max(stat_err, se)
+        if obs is None and same != 7 * len(traces):
+            fail(f"K4m fold (acc): {same}/{7 * len(traces)} statistics "
+                 "bit-identical to the plain fold")
         report.append(f"{label}: {same}/{7 * len(traces)} statistics "
                       "bit-identical to the plain fold")
     # the fold on the trace against K3's acc on the same blocks
@@ -3636,6 +3690,9 @@ def phase_k4m(dev):
                 fail(f"K4m fold: {k} on the trace differs from K3's acc "
                      f"beyond the engine tolerance: max abs "
                      f"{max_abs(acc3[k], accw[k])}")
+    if k3_same != 7 * len(traces):
+        fail(f"K4m fold: {k3_same}/{7 * len(traces)} statistics on the "
+             "trace bit-identical to K3's acc on the same blocks")
     # the series: against its plain version and the scan's series kernel
     s_err = 0.0
     s_same = 0
@@ -3911,6 +3968,15 @@ def phase_path_gw():
     return launches
 
 
+def fold_library(meter, pv):
+    """The wide fold's statistics by the library's reductions over the
+    block's (T, n) arrays (no mask: a block whose seconds are all valid);
+    a yardstick that the port never calls."""
+    residual = meter - pv
+    return (pv.sum(0), pv.amax(0), meter.sum(0), residual.sum(0),
+            residual.amin(0), residual.amax(0))
+
+
 def phase_timing_wide(dev):
     """K4m fold (acc only on path R's noon block; TEL + FLT, path F-W's
     launch, on path F's) and K4m series on path R's noon block, with their
@@ -3932,9 +3998,12 @@ def phase_timing_wide(dev):
     ms = time_ms(lambda: k4m.wide_fold(meter, pv, t, dur, acc), reps=20)
     plain = time_ms(lambda: k4m.wide_fold_plain(meter, pv, t, dur, acc),
                     reps=1)
+    # the library's yardstick: the seven statistics' reductions over the
+    # same (T, n) arrays (every second of the noon block is valid)
+    lib = time_ms(lambda: fold_library(meter, pv), reps=20)
     out["K4MF"] = (ms, plain, *bound(
         n * T * WIDE_SECOND_I, n * T * WIDE_SECOND_F,
-        trace_bytes + T * 4 + n * 4 * 7 * 2), None)
+        trace_bytes + T * 4 + n * 4 * 7 * 2), lib)
     part = k4m.wide_series_partials_cuda(meter, pv)
     ms = time_ms(lambda: k4m.wide_series_partials_cuda(meter, pv), reps=20)
     plain = time_ms(lambda: k4m.wide_series_plain(meter, pv), reps=5)
@@ -3975,8 +4044,7 @@ def phase_timing_wide(dev):
         print(f"timing {name}: kernel {ms:.4f} ms, plain {plain:.3f} ms, "
               f"bound {bms:.4f} ms ({by}), issue bound "
               f"{ibms:.4f} ms"
-              + ("" if lib is None else f", torch.sum(dim=1) x 2 "
-                 f"{lib:.4f} ms"))
+              + ("" if lib is None else f", library {lib:.4f} ms"))
     print(f"timing K4m series with series_sum: {whole:.4f} ms; "
           f"part.sum(1) on its (2, {n_ctas}, {T}) partials: "
           f"{lib_sum:.4f} ms")
@@ -6276,6 +6344,15 @@ STEP_SHAPES = {
 SHAPE_CHAINS = 65536
 
 
+#: the window kernel's rows: their key implementation, and the hour
+#: window of the main paths' 1080 s blocks (its shared bytes)
+WINDOW_SHAPES = {"sampler_windows": "threefry2x32",
+                 "sampler_windows_regime": "threefry2x32",
+                 "sampler_windows_rbg": "rbg",
+                 "sampler_windows_urbg": "unsafe_rbg"}
+WINDOW_HOURS = 5
+
+
 def waves(ctas_per_sm):
     """Waves of the main paths' 512 CTAs at ``ctas_per_sm`` CTAs an SM."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -6285,8 +6362,23 @@ def waves(ctas_per_sm):
 
 def add_shapes(rows, fold_shape):
     """Every block-step row's registers, CTAs per SM and waves of the
-    65536 chains; a pair row also the observer fold's."""
+    65536 chains; a pair row also the observer fold's; the window kernel's
+    and the wide fold's rows likewise."""
     for r in rows:
+        sh = None
+        if r["name"] in WINDOW_SHAPES:
+            sh = k2.windows_attrs(WINDOW_SHAPES[r["name"]], WINDOW_HOURS)
+        elif r["name"] == "wide_fold":
+            sh = k4m.wide_fold_attrs()
+        if sh is not None:
+            r.update(regs=sh["regs"], ctas_per_sm=sh["ctas_per_sm"],
+                     local_bytes=sh["local_bytes"],
+                     waves_65536=waves(sh["ctas_per_sm"]))
+            print(f"shape {r['name']}: {r['regs']} registers, "
+                  f"{r['ctas_per_sm']} CTAs per SM, {r['local_bytes']} "
+                  f"local bytes, {r['waves_65536']} wave(s) at "
+                  f"{SHAPE_CHAINS} chains")
+            continue
         key = STEP_SHAPES.get(r["name"])
         if key is None:
             continue

@@ -428,8 +428,15 @@ def test_build_flags():
         assert re.search(rf'extern "C" int {entry}\(', text), entry
     # the observer fold, beside the wide fold (analytics left the step)
     wide_text = open(os.path.join(build.CSRC, "wide_fold.cu")).read()
-    for entry in ("wide_fold", "obs_fold", "obs_fold_attrs"):
+    for entry in ("wide_fold", "obs_fold", "obs_fold_attrs",
+                  "wide_fold_attrs"):
         assert re.search(rf'extern "C" int {entry}\(', wide_text), entry
+    # the window kernel: one launcher for the three key implementations
+    win_text = open(os.path.join(build.CSRC, "windows.cu")).read()
+    for entry in ("sampler_windows", "windows_attrs"):
+        assert re.search(rf'extern "C" int {entry}\(', win_text), entry
+    assert win_text.count("<<<") == 1
+    assert f"#define MAX_HOURS {k2.MAX_HOURS}" in win_text
     assert not re.search(r"\bbool FLT\b", text)
     for src, kset in (("block_step.cu", "Exact"),
                       ("block_step_table.cu", "Table"),
@@ -757,6 +764,101 @@ def test_k2_k3_match_plain_on_card(card):
     assert torch.equal(ak["n_seconds"], ap["n_seconds"])
     for k in ap:
         torch.testing.assert_close(ak[k], ap[k], rtol=2e-5, atol=1e-2)
+
+
+#: K2's edge runs on the card: (what, config, blocks); every config at
+#: 65536 - 37 chains (a partial last CTA) unless it says otherwise
+K2_EDGES = (
+    ("noon", dict(start="2019-09-05 00:00:00", block_s=1080), (40, 41)),
+    ("carry advance", dict(start="2019-09-05 00:00:00", block_s=1080),
+     (6,)),
+    ("midnight", dict(start="2019-09-05 23:45:00", block_s=1080), (0, 1)),
+    # two days in one block: the hour window near MAX_HOURS
+    ("long", dict(start="2019-09-05 00:00:00", block_s=172800,
+                  n_chains=1024 - 37), (0,)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regimes", [False, True], ids=["shared", "regime"])
+@pytest.mark.parametrize("impl", rng.IMPLS)
+def test_k2_edges_match_plain_on_card(card, impl, regimes):
+    """K2 (with K7's regimes, K13 and K14 in K2) against windows_plain bit
+    for bit: init_state's two launches, the noon blocks, a block after
+    which the carry advances, the two blocks from 23:45 (across midnight:
+    clear-day and windspeed values of two days) and a two-day block (53
+    hours), at 65536 - 37 chains (1024 - 37 for the long block)."""
+    import warnings
+
+    def held(what, args, regime):
+        tk, ck = k2.sampler_windows(*args, regime=regime, impl=impl)
+        tp, cp = k2.windows_plain(*args, regime=regime, impl=impl)
+        assert torch.equal(ck, cp), what
+        for k in tp:
+            assert torch.equal(tk[k], tp[k]), (what, k)
+        return ck
+
+    hours = 0
+    for what, kw, blocks in K2_EDGES:
+        kw = dict(kw)
+        n = kw.pop("n_chains", 65536 - 37)
+        fleet = FleetParams.synthetic(n, seed=0) if regimes else None
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            sim = Simulation(SimConfig(n_chains=n, seed=0, duration_s=max(
+                86400, kw["block_s"]), prng_impl=impl, fleet=fleet, **kw),
+                device=card)
+        state = sim.init_state()
+        regime = state["fleet"]["regime"] if regimes else None
+        cc = state["cc_carry"]
+        for bi in blocks:
+            ins = sim.host_inputs(bi)
+            hours = max(hours, ins.bounds.n_hours)
+            cc = held(f"{what} block {bi}", (
+                state["k_arr"], state["k_min"], cc, state["cc0"], ins.bounds,
+                ins.mh_idx, ins.mh_frac), regime)
+        if what == "noon":
+            ones = torch.ones(n, device=card)
+            none = (torch.zeros(0, dtype=torch.int32, device=card),
+                    torch.zeros(0, device=card))
+            held("init cc01/ws0", (state["k_arr"], state["k_min"], ones, ones,
+                                   k2.Bounds(0, 2, 0, 0, 0, 0, 0, 1),
+                                   *none), None)
+            held("init cloudy pair", (state["k_arr"], state["k_min"], ones,
+                                      state["cc0"],
+                                      k2.Bounds(0, 0, 2, 0, 0, 0, 0, 0),
+                                      *none), None)
+    assert hours > 48
+
+
+@pytest.mark.cuda
+def test_wide_fold_acc_matches_plain_on_card(card):
+    """The wide fold's acc launch (no observer) against wide_fold_plain bit
+    for bit: T = 1037 seconds (not a multiple of the load ring's depth),
+    the duration ending mid-block, 65536 - 37 chains, a NaN meter value
+    (NaN where the plain version has one: PTX gives the canonical NaN)."""
+    from tmhpvsim_torch.kernels import wide
+
+    T, n = 1037, 65536 - 37
+    gen = np.random.default_rng(17)
+    meter = torch.from_numpy(gen.normal(500.0, 800.0, (T, n)).astype(
+        np.float32))
+    pv = torch.from_numpy(gen.uniform(0.0, 3000.0, (T, n)).astype(
+        np.float32))
+    meter[3, 5] = float("nan")
+    t = torch.arange(7000, 7000 + T, dtype=torch.int32)
+    acc = {k: torch.from_numpy(gen.normal(0.0, 100.0, n).astype(np.float32))
+           for k in k3.ACC_F}
+    acc["n_seconds"] = torch.from_numpy(gen.integers(0, 100, n).astype(
+        np.int32))
+    dur = 7000 + 1000
+    want, _ = wide.wide_fold_plain(meter, pv, t, dur, dict(acc))
+    got, _ = wide.wide_fold(meter.to(card), pv.to(card), t.to(card), dur,
+                            {k: v.to(card) for k, v in acc.items()})
+    for k, w in want.items():
+        g = got[k].cpu()
+        assert torch.equal(g.isnan(), w.isnan()), k
+        assert torch.equal(g[~w.isnan()], w[~w.isnan()]), k
+    assert bool(want["residual_min"].isnan().any())
 
 
 @pytest.mark.cuda

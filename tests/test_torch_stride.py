@@ -47,7 +47,6 @@ GRID4 = dict(latitude=(0.0, 48.12, 52.5, 70.0),
              surface_azimuth=(180.0, 180.0, 175.0, 180.0))
 #: the 12-site synthetic fleet of tests/test_torch_engine.py
 FLEET = (12, 3)
-GEOS = ("shared", "grid", "fleet")
 OUTPUTS = ("reduce", "ensemble", "trace")
 TOL = dict(rtol=2e-5, atol=1e-2)
 
@@ -92,9 +91,8 @@ def _port(geo, output, **kw):
     return TSim(cfg, device="cpu")
 
 
-@pytest.mark.parametrize("output", OUTPUTS)
-@pytest.mark.parametrize("geo", GEOS)
-def test_levers_match_jax(jax_runs, geo, output):
+def check_levers(jax_runs, geo, output):
+    """The port's run with both levers against the JAX package's."""
     want = jax_runs(geo, output)
     got = _run(_port(geo, output), output)
     if output == "reduce":
@@ -111,6 +109,14 @@ def test_levers_match_jax(jax_runs, geo, output):
                                        np.asarray(getattr(w, k))[0],
                                        err_msg=k, **TOL)
     assert float(np.max([np.max(g.pv) for g in got])) > 10.0
+
+
+# the fleet's cases are tests/test_torch_stride_fleet.py's (a file of their
+# own, so that a worker of a run split by file takes them apart from these)
+@pytest.mark.parametrize("output", OUTPUTS)
+@pytest.mark.parametrize("geo", ("shared", "grid"))
+def test_levers_match_jax(jax_runs, geo, output):
+    check_levers(jax_runs, geo, output)
 
 
 @pytest.mark.parametrize("geo", ("shared", "grid"))

@@ -28,8 +28,14 @@
 // in second order, its loads coalesced across the warp's chains, and
 // folds the seven statistics in registers with the block step's acc
 // epilogue's own expressions (block_step.cuh), so on the same meter and
-// pv it gives K3's bits.  The observers are template flags of the same
-// launch, so one pass reads the arrays once whatever is on: TEL folds
+// pv it gives K3's bits.  The acc fold alone (no observer) keeps WIDE_RING
+// seconds of loads in flight a thread (two register chunks: the next
+// chunk's loads issued before the current chunk folds): with one thread a
+// chain, 512 CTAs at 65536 chains put ~4 CTAs on an SM, and a loop that
+// waited on each unrolled group of 4 seconds kept ~16 KB in flight an SM
+// (45 % of the bytes bound on an H100, PERF.md); 16 seconds keep ~64 KB
+// (84 %).  The observers are template flags of the
+// same launch, so one pass reads the arrays once whatever is on: TEL folds
 // meter, pv and residual as K8 does (csi is never materialised and stays
 // at its identities; no histogram, no occupancy), FLT folds K9's leaves
 // (flt_second, fold.cuh) without the level-full regime sums; loss runs
@@ -74,6 +80,9 @@
 #include "fold.cuh"
 
 #define SERIES_TILE 60
+// the acc fold's loads in flight a thread: WIDE_RING seconds of meter and
+// pv (the bits do not depend on it)
+#define WIDE_RING 16
 
 struct WideArgs {
   int64_t n;
@@ -129,13 +138,9 @@ __global__ void __launch_bounds__(THREADS) wide_fold_kernel(const WideArgs a) {
           meter_sum = a.meter_sum[i], residual_sum = a.residual_sum[i],
           residual_min = a.residual_min[i], residual_max = a.residual_max[i];
     int n_seconds = a.n_seconds[i];
-#pragma unroll 4
-    for (int s = 0; s < T; ++s) {
+    // the acc epilogue's fold (block_step.cuh), expression for expression
+    auto fold = [&](int s, float meter, float ac) {
       const int t = __ldg(&a.t[s]);
-      const float meter = a.meter[(int64_t)s * n + i];
-      const float ac = a.pv[(int64_t)s * n + i];
-      // the acc epilogue's fold (block_step.cuh), expression for
-      // expression
       const float residual = meter - ac;
       const bool valid = t < a.duration_s;
       const float vz = valid ? 1.0f : 0.0f;
@@ -154,6 +159,40 @@ __global__ void __launch_bounds__(THREADS) wide_fold_kernel(const WideArgs a) {
       if constexpr (FLT)
         flt_second<TEL>(f, a.o, meter, ac, residual, valid, grid[s], hist,
                         exc, coh_hist, cohort, exc_regs, above);
+    };
+    if constexpr (!TEL && !FLT) {
+      // WIDE_RING seconds of meter and pv in flight while the previous
+      // WIDE_RING fold: the next chunk's loads are issued before this
+      // chunk's folds, which wait on nothing of them
+      const float* pm = a.meter + i;
+      const float* pa = a.pv + i;
+      float mc[WIDE_RING], ac[WIDE_RING];
+#pragma unroll
+      for (int u = 0; u < WIDE_RING; ++u) {
+        mc[u] = u < T ? __ldg(pm + (int64_t)u * n) : 0.0f;
+        ac[u] = u < T ? __ldg(pa + (int64_t)u * n) : 0.0f;
+      }
+      for (int s0 = 0; s0 < T; s0 += WIDE_RING) {
+        float mx[WIDE_RING], ax[WIDE_RING];
+#pragma unroll
+        for (int u = 0; u < WIDE_RING; ++u) {
+          const int s = s0 + WIDE_RING + u;
+          mx[u] = s < T ? __ldg(pm + (int64_t)s * n) : 0.0f;
+          ax[u] = s < T ? __ldg(pa + (int64_t)s * n) : 0.0f;
+        }
+#pragma unroll
+        for (int u = 0; u < WIDE_RING; ++u)
+          if (s0 + u < T) fold(s0 + u, mc[u], ac[u]);
+#pragma unroll
+        for (int u = 0; u < WIDE_RING; ++u) {
+          mc[u] = mx[u];
+          ac[u] = ax[u];
+        }
+      }
+    } else {
+#pragma unroll 4
+      for (int s = 0; s < T; ++s)
+        fold(s, a.meter[(int64_t)s * n + i], a.pv[(int64_t)s * n + i]);
     }
     a.pv_sum[i] = pv_sum;
     a.pv_max[i] = pv_max;
@@ -483,6 +522,21 @@ extern "C" int wide_fold(int64_t n, int T, int duration_s, const float* meter,
     case 2: return launch_fold<true, false>(a, blocks, smem, st);
     default: return launch_fold<true, true>(a, blocks, smem, st);
   }
+}
+
+// the acc fold's launch shape (no observer): out = {registers, CTAs per
+// SM, local (spill) bytes}
+extern "C" int wide_fold_attrs(int* out, void* stream) {
+  (void)stream;
+  auto kernel = wide_fold_kernel<false, false>;
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], kernel,
+                                                      THREADS, 0);
+  out[0] = fa.numRegs;
+  out[2] = (int)fa.localSizeBytes;
+  return (int)e;
 }
 
 // the observer fold's grid: one wave of CTAs (as many as fit on the

@@ -16,9 +16,11 @@ Replaces, in tmhpvsim_tpu/engine/simulation.py:
 Both kernels are in csrc/wide_fold.cu.  ``wide_fold`` folds in the block
 step's acc epilogue's order (each chain's seconds in order, with its
 expressions), so on the same meter and pv its statistics equal K3's bit
-for bit; ``wide_series`` sums in the series epilogue's order (per CTA of
-128 chains, then ``series_sum`` over CTAs in index order), so on the same
-values it equals the scan ensemble's sums bit for bit.
+for bit (without observers a thread keeps 16 seconds of loads in flight,
+for the card's memory rate); ``wide_series`` sums in the series
+epilogue's order (per CTA of 128 chains, then ``series_sum`` over CTAs in
+index order), so on the same values it equals the scan ensemble's sums
+bit for bit.
 
 Each wrapper runs its plain version on CPU tensors and launches its
 kernel on CUDA tensors, and counts its launches.  ``wide_fold`` merges
@@ -160,6 +162,15 @@ def wide_fold(meter, pv, t, duration_s: int, acc,
     if meter.device.type != "cpu":
         raise ValueError(f"unsupported device {meter.device}")
     return wide_fold_plain(meter, pv, t, duration_s, acc, obs)
+
+
+def wide_fold_attrs() -> dict:
+    """The acc fold's launch shape on the card (no observer): registers,
+    CTAs per SM at 128 threads, local (spill) bytes."""
+    fn = build.entry(_SOURCE, "wide_fold_attrs", [_P])
+    out = (ctypes.c_int * 3)()
+    build.check(fn(out, None), "wide_fold_attrs")
+    return {"regs": out[0], "ctas_per_sm": out[1], "local_bytes": out[2]}
 
 
 def wide_series_partials_cuda(meter, pv):

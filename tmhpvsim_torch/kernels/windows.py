@@ -27,8 +27,15 @@ gamma's entry split over (chain, value); csrc/windows.cu), the keys every
 chain shares once per CTA; ``windows_plain`` is the same model functions
 on unsafe_rbg keys.
 
+The kernel (csrc/windows.cu) takes 128 chains a CTA of 256 threads in
+two phases of one launch: a thread a chain runs the sequential Markov
+hour loop (the hour window staged in shared memory), then every thread
+of the CTA draws the cloudy, clear-day, windspeed and minute-noise values
+over (value, chain) tiles; each value's arithmetic is unchanged, so the
+tables keep their bits (``windows_attrs`` gives the launch shape).
+
 ``sampler_windows`` runs ``windows_plain`` on CPU tensors and launches the
-CUDA kernel (csrc/windows.cu) on CUDA tensors; ``K2.launches`` counts the
+CUDA kernel on CUDA tensors; ``K2.launches`` counts the
 launches, ``K7_REGIME.launches`` those with a regime vector,
 ``K2_RBG.launches`` those with rbg keys, ``K2_URBG.launches`` those with
 unsafe_rbg keys.
@@ -201,6 +208,17 @@ def _windows_cuda(k_arr, k_min, cc_carry, cc0, b: Bounds, mh_idx, mh_frac,
     if regime is not None:
         K7_REGIME.launches += 1
     return tables, carry
+
+
+def windows_attrs(impl: str, n_hours: int) -> dict:
+    """The launch shape of ``impl``'s kernel on the card for a window of
+    ``n_hours`` hours: registers, CTAs per SM (128 chains a CTA), local
+    (spill) bytes."""
+    fn = build.entry("windows.cu", "windows_attrs",
+                     [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    out = (ctypes.c_int * 3)()
+    build.check(fn(_IMPL_CODE[impl], n_hours, out, None), "windows_attrs")
+    return {"regs": out[0], "ctas_per_sm": out[1], "local_bytes": out[2]}
 
 
 def sampler_windows(k_arr, k_min, cc_carry, cc0, bounds: Bounds,
