@@ -27,8 +27,8 @@ Phases (any failure exits non-zero and prints no result line):
    against the acc kernel's); K3 and K4 trace bit for bit on a
    redraw-heavy edge block (``edge_block``), and the lean step's acc,
    series and trace under the table set, rbg, unsafe_rbg and bf16 keys
-   and from a start off a whole minute on one of 8192 - 37 chains
-   (``phase_lean_edges``); K6 (the site-geometry mode through the acc
+   and from a start off a whole minute on the edge block's last half hour
+   (its sunset seconds) at 8192 - 37 chains (``phase_lean_edges``); K6 (the site-geometry mode through the acc
    epilogue at 65536 sites, and the geometry fields on their own);
    then the fleet kernels on 2 blocks of path F's fleet: K7 (the regime
    gather of K2 at init_state's launch and two blocks, bit for bit; the
@@ -239,6 +239,32 @@ Phases (any failure exits non-zero and prints no result line):
       every all_reduce wrapper is timed per call in both topologies
       (CUDA events and the host's clock) with its bytes and its calls per
       block (the ``{"collectives": [...]}`` line before the kernels line);
+   R-SL. path R under a plan with ``slab_chains=16384`` (four slabs run
+      one after another): rows bit for bit against path R's, its wall
+      against R's in 3 alternating pairs; path A under the same plan: the
+      per-second means bit for bit against path A's (the slabs' per-CTA
+      partials folded on the host in the order of one launch);
+   R-CK. a checkpoint's host copy at path R's shape, waited for and
+      enqueued; path R's loop in process with nothing, a synchronous save
+      or the async writer after every block, 3 rounds in turns (the
+      loop's added ms a block against the copy's); path R's config
+      through the CLI with ``--checkpoint``: without checkpoints, with
+      synchronous and with async saves (each CSV byte-equal to the first;
+      the run reports' save counts and seconds); then per save mode the
+      CLI as a process of its own with ``--preempt-grace 30``, sent
+      SIGTERM once a generation past block 20 exists (async: the process
+      held 4 ms in every 5 from its first write on, so that a writer
+      stalled on the disk cannot let the loop end first): rc 0, the resume
+      line and no CSV; the same command rerun writes the
+      uninterrupted run's bytes;
+   D-CK. path D as a process with ``--checkpoint``, SIGKILLed once its
+      first checkpoint exists, then the same command rerun: path D's
+      bytes, each row once;
+   R-2CK. path R-2's two gloo ranks through ``pvsim(sharded=True,
+      checkpoint=...)`` (this script re-invoked as ``--ck-rank R DIR``),
+      stopped by SIGTERM once both have a generation past block 20; this
+      process reassembles their files (``checkpoint.load_elastic``) and
+      finishes the run: path R's rows bit for bit;
 6. each kernel and its plain version timed with CUDA events at the main
    paths' shapes (the fleet kernels on path F's noon block; K11 and K6s
    on paths R-T's and B-L's noon blocks, the K10 row reset of
@@ -290,6 +316,7 @@ import asyncio
 import dataclasses
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -1053,10 +1080,18 @@ def phase_k4_trace(dev):
     return err
 
 
-#: the lean step's other instantiations on the edge block, at 8192 - 37
-#: chains, and the edge block from a start off a whole minute (the minute
-#: index then changes inside every tile): (label, SimConfig fields)
-LEAN_EDGES = (("off the minute", dict(start="2019-09-05 18:50:30")),
+#: the lean step's plain checks' edge block: the edge block's last half
+#: hour (the same sunset seconds, with and without clear-sky GHI, at half
+#: the depth the plain versions' time follows), at 8192 - 37 chains, the
+#: duration ending mid-tile
+LEAN_EDGE = dict(EDGE, start="2019-09-05 19:20:00", n_chains=8192 - 37,
+                 block_s=1800)
+LEAN_DURATION = 1800 - 30
+
+#: the lean step's other instantiations on LEAN_EDGE, and LEAN_EDGE from a
+#: start off a whole minute (the minute index then changes inside every
+#: tile): (label, SimConfig fields)
+LEAN_EDGES = (("off the minute", dict(start="2019-09-05 19:20:30")),
               ("table set", dict(kernel_impl="table")),
               ("rbg", dict(prng_impl="rbg")),
               ("unsafe_rbg", dict(prng_impl="unsafe_rbg")),
@@ -1075,8 +1110,8 @@ LEAN_TEL = (("f32", dict(telemetry="full"), ("full", "light")),
             ("bf16", dict(compute_dtype="bf16", telemetry="light"),
              ("light",)))
 #: the edge block on and off a whole minute
-EDGE_STARTS = (("on the minute", EDGE["start"]),
-               ("off the minute", "2019-09-05 18:50:30"))
+EDGE_STARTS = (("on the minute", LEAN_EDGE["start"]),
+               ("off the minute", "2019-09-05 19:20:30"))
 
 
 def lean_tel_edges(dev):
@@ -1091,8 +1126,7 @@ def lean_tel_edges(dev):
     for edge, start in EDGE_STARTS:
         runs = []
         for label, fields, levels in LEAN_TEL:
-            cfg = SimConfig(**{**EDGE, "n_chains": 8192 - 37,
-                               "start": start, **fields})
+            cfg = SimConfig(**{**LEAN_EDGE, "start": start, **fields})
             sim = Simulation(cfg, device=dev)
             state = sim.init_state()
             ins = sim.host_inputs(0)
@@ -1101,7 +1135,7 @@ def lean_tel_edges(dev):
             tilt, alb, _ = sim.geometry_args(state)
             head = head_of(state, ins, tables)
             obs = dataclasses.replace(sim.observers(state), per_chain=True)
-            args = (EDGE_DURATION, cfg.meter_max_w, tilt, alb)
+            args = (LEAN_DURATION, cfg.meter_max_w, tilt, alb)
             cd = sim.plan.compute_dtype
             cp, ap, op = k3.block_step_obs_plain(
                 *head, clone(state["carry"]), sim.init_reduce_acc(), *args,
@@ -1143,7 +1177,7 @@ def phase_lean_edges(dev):
     1e-6 of the float64 plain sums; then the telemetry instantiations
     (``lean_tel_edges``)."""
     for label, fields in LEAN_EDGES:
-        cfg = SimConfig(**dict(EDGE, n_chains=8192 - 37, **fields))
+        cfg = SimConfig(**dict(LEAN_EDGE, **fields))
         sim = Simulation(cfg, device=dev)
         state = sim.init_state()
         ins = sim.host_inputs(0)
@@ -1178,9 +1212,9 @@ def phase_lean_edges(dev):
                 fail(f"{what} differs from the plain version")
 
         ck, ak = k3.block_step_acc(*head, clone(start), sim.init_reduce_acc(),
-                                   EDGE_DURATION, mw, tilt, alb, **kw)
+                                   LEAN_DURATION, mw, tilt, alb, **kw)
         cp, ap = k3.block_step_plain(*head, clone(start),
-                                     sim.init_reduce_acc(), EDGE_DURATION,
+                                     sim.init_reduce_acc(), LEAN_DURATION,
                                      mw, tilt, alb, **kw)
         torch.cuda.synchronize()
         if strict:
@@ -2014,8 +2048,9 @@ def phase_path_d():
             lambda: cli(["pvsim", out] + PATH_D_ARGS))
         if rc != 0:
             fail(f"path D: the CLI returned {rc}")
-        with open(out) as f:
-            lines = f.read().splitlines()
+        with open(out, "rb") as f:
+            data = f.read()
+        lines = data.decode().splitlines()
     finally:
         if os.path.exists(out):
             os.remove(out)
@@ -2031,7 +2066,7 @@ def phase_path_d():
           f"writing the CSV; {len(lines) - 1} rows plus the header, "
           f"{first[0]} .. {last[0]}; pv max {pv.max():.2f} W; launches "
           f"{launches}")
-    return launches
+    return launches, data
 
 
 def phase_path_f(dev):
@@ -6827,6 +6862,436 @@ def collective_rows(sharded):
             "library_ms": n1["ms"]})
     return rows
 
+# ---------------------------------------------------------------------------
+# checkpoints, preemption and chain slabs: paths R-SL, R-CK, D-CK, R-2CK
+# ---------------------------------------------------------------------------
+
+#: path R's config as the CLI's flags
+PATH_R_ARGS = ["--output", "reduce", "--no-realtime", "--chains",
+               str(HEADLINE["n_chains"]), "--duration",
+               str(HEADLINE["duration_s"]), "--start", HEADLINE["start"],
+               "--block-s", str(HEADLINE["block_s"]), "--seed",
+               str(HEADLINE["seed"])]
+#: the preemption notice goes out once a generation past this block exists
+CK_BLOCK = 20
+#: path R-SL's slab (a whole number of the block step's 128-chain CTAs)
+SLAB_CHAINS = 16384
+#: rounds of path R-CK's in-process loops (none, sync, async), in turns
+CK_ROUNDS = 3
+#: seconds a checkpointing process may take before the phase fails
+CK_TIMEOUT_S = 300
+
+
+def _latest_block(path) -> int:
+    """The newest resume point the manifest of checkpoint ``path`` names
+    (0 before the first generation)."""
+    from tmhpvsim_torch.engine import checkpoint as ckpt
+
+    man = ckpt.read_manifest(path)
+    if man is None:
+        return 0
+    return max((int(e.get("next_block", 0)) for e in man["generations"]),
+               default=0)
+
+
+def _spawn(args, log_path):
+    """Start ``args`` (a Python module command line) on its own, its output
+    to ``log_path``; returns ``(log, process)``."""
+    log = open(log_path, "w")
+    return log, subprocess.Popen([sys.executable, *args], stdout=log,
+                                 stderr=subprocess.STDOUT, cwd=HERE)
+
+
+def _signal_when(procs, paths, block, sig, what, throttle=False):
+    """Send ``sig`` to every process of ``procs`` once each checkpoint of
+    ``paths`` holds a generation past ``block``; fail when a process ends
+    first or the wait passes ``CK_TIMEOUT_S``.  With ``throttle``, once a
+    checkpoint's first write has begun, the processes run 1 ms in every 5
+    (SIGSTOP / SIGCONT) while the wait lasts: an async writer stalled on
+    the disk (an fsync behind the earlier phases' writes) goes on while
+    the run's loop is held, so the run cannot reach its end first."""
+    deadline = time.time() + CK_TIMEOUT_S
+    while not all(_latest_block(p) > block for p in paths):
+        if any(p.poll() is not None for p in procs):
+            fail(f"{what}: a process ended before its checkpoint passed "
+                 f"block {block}")
+        if time.time() > deadline:
+            fail(f"{what}: no checkpoint past block {block} in "
+                 f"{CK_TIMEOUT_S} s")
+        if throttle and any(os.path.exists(p + ".tmp") or
+                            _latest_block(p) > 0 for p in paths):
+            for p in procs:
+                p.send_signal(signal.SIGSTOP)
+            time.sleep(0.004)
+            for p in procs:
+                p.send_signal(signal.SIGCONT)
+            time.sleep(0.001)
+        else:
+            time.sleep(0.002)
+    for p in procs:
+        p.send_signal(sig)
+
+
+def _reap(procs, what):
+    """Wait for each ``(log, process)`` at most ``CK_TIMEOUT_S``, kill any
+    still alive, and return the exit codes."""
+    rcs = []
+    try:
+        for log, p in procs:
+            try:
+                rcs.append(p.wait(timeout=CK_TIMEOUT_S))
+            except subprocess.TimeoutExpired:
+                fail(f"{what}: a process ran past {CK_TIMEOUT_S} s")
+    finally:
+        for log, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    return rcs
+
+
+def phase_path_rsl(dev, reduced_r, means_a):
+    """Path R-SL: path R under a plan with ``slab_chains`` 16384 (four
+    slabs run one after another, engine/slab.py): rows bit for bit
+    against path R's; its wall against path R's in alternating pairs;
+    then path A under the same plan: the per-second means bit for bit
+    against path A's."""
+    import dataclasses as _dc
+
+    from tmhpvsim_torch.config import resolve_plan
+
+    cfg = SimConfig(**HEADLINE)
+    plan = _dc.replace(resolve_plan(cfg), slab_chains=SLAB_CHAINS)
+    sim = Simulation(cfg, device=dev, plan=plan)
+    reduced, wall, launches = run_path(
+        "R-SL", ("threefry_fill", "sampler_windows", "block_step"),
+        sim.run_reduced)
+    _check_rows("R-SL", reduced, reduced_r)
+    walls = {"R": [], "R-SL": []}
+    for pair in range(3):
+        for kind in (("R", "R-SL") if pair % 2 == 0 else ("R-SL", "R")):
+            s = Simulation(cfg, device=dev,
+                           plan=plan if kind == "R-SL" else None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.run_reduced()
+            torch.cuda.synchronize()
+            walls[kind].append(time.perf_counter() - t0)
+    print(f"path R-SL (path R in {HEADLINE['n_chains'] // SLAB_CHAINS} "
+          f"slabs of {SLAB_CHAINS} chains): rows bit-identical to path R's; "
+          f"{wall:.3f} s wall; 3 alternating pairs: "
+          + "; ".join(f"{k} median {np.median(v):.4f} s ("
+                      + ", ".join(f"{w:.4f}" for w in v) + ")"
+                      for k, v in walls.items())
+          + f"; launches {launches}")
+    cfg_a = SimConfig(**dict(HEADLINE, output="ensemble"))
+    sim_a = Simulation(cfg_a, device=dev, plan=plan)
+    blocks, wall_a, launches_a = run_path(
+        "R-SL (ensemble)", ("threefry_fill", "sampler_windows",
+                            "block_step_series"),
+        lambda: list(sim_a.run_ensemble()))
+    for i, f in enumerate(("meter", "pv")):
+        got = np.concatenate([getattr(b, f)[0] for b in blocks])
+        if got.dtype != means_a[i].dtype or \
+                not np.array_equal(got, means_a[i]):
+            fail(f"path R-SL (ensemble): the slabbed {f} means differ from "
+                 "path A's")
+    print(f"path R-SL (ensemble, path A in the same slabs): per-second "
+          f"means bit-identical to path A's; {wall_a:.3f} s wall; launches "
+          f"{launches_a}")
+    return launches
+
+
+def snapshot_ms(dev, reps=10):
+    """A checkpoint's host copy at path R's shape (the state and the
+    accumulator of 65536 chains): ``(bytes, ms of the copy waited for,
+    ms to enqueue it)``, medians of ``reps`` (``checkpoint._Snapshot``:
+    one pinned buffer, copies on the current stream)."""
+    from tmhpvsim_torch.engine import checkpoint as ckpt
+
+    sim = Simulation(SimConfig(**HEADLINE), device=dev)
+    tree = {"state": sim.init_state(), "acc": sim.init_reduce_acc()}
+    nbytes = sum(v.numel() * v.element_size()
+                 for _, _, v in ckpt._leaves(tree))
+    copy, enqueue = [], []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = ckpt._Snapshot(tree)
+        t1 = time.perf_counter()
+        snap.flat()
+        t2 = time.perf_counter()
+        enqueue.append((t1 - t0) * 1e3)
+        copy.append((t2 - t0) * 1e3)
+    return nbytes, float(np.median(copy[1:])), float(np.median(enqueue[1:]))
+
+
+def ck_loops(dev, d):
+    """Path R's ``run_reduced`` in process after each block doing nothing,
+    a synchronous ``checkpoint.save`` or an async writer's ``submit``, in
+    turns for ``CK_ROUNDS`` rounds: ``(walls {mode: [s]}, the async
+    writer's final drains [s])``; a loop's wall ends at a device
+    synchronise, the writer's drain (``close``) is timed apart."""
+    from tmhpvsim_torch.engine import checkpoint as ckpt
+
+    cfg = SimConfig(**HEADLINE)
+    walls = {"none": [], "sync": [], "async": []}
+    drains = []
+    for rnd in range(CK_ROUNDS):
+        for mode in (list(walls) if rnd % 2 == 0 else list(walls)[::-1]):
+            sim = Simulation(cfg, device=dev)
+            path = os.path.join(d, f"loop_{mode}{rnd}.npz")
+            w = (ckpt.AsyncCheckpointWriter(path, config=sim.config)
+                 if mode == "async" else None)
+
+            def cb(bi, state, acc, mode=mode, w=w, sim=sim, path=path):
+                tree = {"state": state, "acc": acc}
+                if mode == "sync":
+                    ckpt.save(path, tree, bi + 1, sim.config)
+                elif w is not None:
+                    w.submit(tree, bi + 1)
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sim.run_reduced(on_block=cb)
+            torch.cuda.synchronize()
+            walls[mode].append(time.perf_counter() - t0)
+            if w is not None:
+                t0 = time.perf_counter()
+                w.close(timeout=CK_TIMEOUT_S)
+                drains.append(time.perf_counter() - t0)
+    return walls, drains
+
+
+def phase_path_rck(dev):
+    """Path R-CK: a checkpoint's host copy at path R's shape on its own
+    (``snapshot_ms``); path R's run loop in process with a save a block,
+    sync and async (``ck_loops``); then path R's config through the CLI
+    with ``--checkpoint`` in process: without checkpoints, with
+    synchronous and with async saves (each CSV byte-equal to the first;
+    the run reports' save counts and seconds); then for each save mode
+    the CLI as a process of its own with ``--preempt-grace 30``, sent
+    SIGTERM once a generation past block 20 exists: it must exit 0 with the resume line and no CSV; the same
+    command rerun must write the uninterrupted run's bytes."""
+    import shutil
+    import signal
+    import tempfile
+
+    from tmhpvsim_torch.cli import main as cli
+
+    need = ("sampler_windows", "block_step")
+    n_blocks = HEADLINE["duration_s"] // HEADLINE["block_s"]
+    nbytes, copy_ms, enqueue_ms = snapshot_ms(dev)
+    print(f"path R-CK: a checkpoint's host copy ({nbytes} B, the state "
+          f"and the accumulator of {HEADLINE['n_chains']} chains): "
+          f"{copy_ms:.4f} ms waited for ({nbytes / copy_ms / 1e6:.2f} "
+          f"GB/s), {enqueue_ms:.4f} ms to enqueue (medians of 10)")
+    d = tempfile.mkdtemp(prefix="chip_smoke_ck_")
+    try:
+        loops, drains = ck_loops(dev, d)
+        med = {m: float(np.median(v)) for m, v in loops.items()}
+        added = {m: (med[m] - med["none"]) / n_blocks * 1e3
+                 for m in ("sync", "async")}
+        print(f"path R-CK, run_reduced in process with a save a block, "
+              f"{CK_ROUNDS} rounds in turns: "
+              + "; ".join(f"{m} " + ", ".join(f"{w:.4f}" for w in v) + " s"
+                          for m, v in loops.items())
+              + f"; the loop's added ms a block (medians): sync "
+              f"{added['sync']:.3f}, async {added['async']:.3f}, against "
+              f"the copy's {copy_ms:.4f} ms waited for; the async writer's "
+              f"final drain " + ", ".join(f"{x:.3f}" for x in drains) + " s")
+        ref, walls, secs = None, {}, {}
+        for mode in ("none", "off", "on"):
+            out = os.path.join(d, f"{mode}.csv")
+            rep = os.path.join(d, f"{mode}.json")
+            extra = [] if mode == "none" else [
+                "--checkpoint", os.path.join(d, f"{mode}.npz"),
+                "--checkpoint-async", mode, "--run-report", rep]
+            rc, walls[mode], _ = run_path(
+                f"R-CK ({mode})", need,
+                lambda: cli(["pvsim", out, *PATH_R_ARGS, *extra]))
+            if rc != 0:
+                fail(f"path R-CK ({mode}): the CLI returned {rc}")
+            with open(out, "rb") as f:
+                data = f.read()
+            ref = data if ref is None else ref
+            if data != ref:
+                fail(f"path R-CK ({mode}): the CSV differs from the "
+                     "uninterrupted run's")
+            if mode != "none":
+                with open(rep) as f:
+                    secs[mode] = json.load(f)["checkpoint"]
+        print("path R-CK, uninterrupted CLI runs in process incl. the CSV "
+              "and the writer's drain: "
+              + "; ".join(f"{m} {w:.4f} s" for m, w in walls.items()))
+        for m, sec in secs.items():
+            print(f"path R-CK ({m}) checkpoint section: {json.dumps(sec)}; "
+                  f"save s a generation "
+                  f"{sec['save_total_s'] / sec['saves']:.4f}")
+        for mode in ("off", "on"):
+            out = os.path.join(d, f"pre_{mode}.csv")
+            ck = os.path.join(d, f"pre_{mode}.npz")
+            args = ["pvsim", out, *PATH_R_ARGS, "--checkpoint", ck,
+                    "--preempt-grace", "30", "--checkpoint-async", mode]
+            log_path = os.path.join(d, f"pre_{mode}.log")
+            t0 = time.perf_counter()
+            proc = _spawn(["-m", "tmhpvsim_torch", *args], log_path)
+            _signal_when([proc[1]], [ck], CK_BLOCK, signal.SIGTERM,
+                         f"R-CK ({mode})", throttle=mode == "on")
+            rc, = _reap([proc], f"R-CK ({mode})")
+            wall_pre = time.perf_counter() - t0
+            with open(log_path) as f:
+                text = f.read()
+            if rc != 0 or "preempted" not in text:
+                fail(f"path R-CK ({mode}): the preempted run returned {rc}: "
+                     f"{text[-2000:]}")
+            if os.path.exists(out):
+                fail(f"path R-CK ({mode}): a preempted run wrote its CSV")
+            stopped = _latest_block(ck)
+            rc, wall, launches = run_path(f"R-CK ({mode}) rerun", need,
+                                          lambda: cli(args))
+            with open(out, "rb") as f:
+                if rc != 0 or f.read() != ref:
+                    fail(f"path R-CK ({mode}): the resumed CSV differs from "
+                         "the uninterrupted run's")
+            print(f"path R-CK ({mode}, preempted): SIGTERM once a "
+                  f"generation past block {CK_BLOCK} existed; rc 0, stopped "
+                  f"with block {stopped}/{n_blocks} checkpointed, "
+                  f"{wall_pre:.3f} s as a process incl. its start; the "
+                  f"rerun resumed and finished in {wall:.3f} s, CSV "
+                  f"byte-equal to the uninterrupted run's; launches "
+                  f"{launches}")
+        return med
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def phase_path_dck(csv_d):
+    """Path D-CK: path D through the CLI with ``--checkpoint`` as a process
+    of its own, SIGKILLed once its first checkpoint exists (rows past it
+    may be on disk), then the same command rerun: its CSV must be path
+    D's bytes, each row once."""
+    import shutil
+    import signal
+    import tempfile
+
+    from tmhpvsim_torch.cli import main as cli
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_dck_")
+    try:
+        out, ck = os.path.join(d, "d.csv"), os.path.join(d, "d.npz")
+        args = ["pvsim", out, *PATH_D_ARGS, "--checkpoint", ck]
+        proc = _spawn(["-m", "tmhpvsim_torch", *args],
+                      os.path.join(d, "d.log"))
+        _signal_when([proc[1]], [ck], 0, signal.SIGKILL, "D-CK")
+        _reap([proc], "D-CK")
+        at_kill = _latest_block(ck)
+        with open(out) as f:
+            rows_kill = len(f.read().splitlines()) - 1
+        rc, wall, launches = run_path(
+            "D-CK", ("sampler_windows", "block_step_trace"),
+            lambda: cli(args))
+        with open(out, "rb") as f:
+            if rc != 0 or f.read() != csv_d:
+                fail("path D-CK: the resumed CSV differs from path D's")
+        print(f"path D-CK: SIGKILLed with block {at_kill} checkpointed and "
+              f"{rows_kill} rows on disk; the rerun cut them to "
+              f"{min(86400, at_kill * 8640)} and finished in {wall:.3f} s; "
+              f"CSV byte-equal to path D's; launches {launches}")
+        return launches
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def ck_rank(rank: int, d: str) -> int:
+    """One rank of path R-2CK (``chip_smoke.py --ck-rank R DIR``): two
+    ranks over gloo on the card's CUDA tensors (NCCL refuses two ranks on
+    one device), joined through a file in DIR; runs path R's config
+    through ``pvsim(sharded=True, checkpoint=DIR/r2.npz,
+    preempt_grace_s=30)``, so that each rank checkpoints its chains to
+    ``DIR/r2.npz.host{R}`` until SIGTERM stops it, and writes its launches
+    to DIR/rank{R}.json."""
+    import datetime as _dt
+
+    import torch.distributed as dist
+
+    from tmhpvsim_torch.apps.pvsim import pvsim
+
+    torch.cuda.set_device(torch.device("cuda", 0))
+    dist.init_process_group("gloo", init_method=f"file://{d}/ck.rdv",
+                            world_size=2, rank=rank,
+                            timeout=_dt.timedelta(seconds=CK_TIMEOUT_S))
+    for src in build.build_all():
+        build.library(src)
+    kernels.reset_counts()
+    h = HEADLINE
+    pvsim(os.path.join(d, "r2.csv"), h["duration_s"], h["n_chains"],
+          h["seed"], h["start"], block_s=h["block_s"], output="reduce",
+          device="cuda", sharded=True, checkpoint=os.path.join(d, "r2.npz"),
+          preempt_grace_s=30.0)
+    with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+        json.dump({k: v for k, v in kernels.counts().items() if v}, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_path_r2ck(dev, reduced_r):
+    """Path R-2CK: path R-2's two gloo ranks on the card (``ck_rank``),
+    each checkpointing its chains, stopped by SIGTERM once both have a
+    generation past block 20 (the ranks agree on the block to stop
+    after: their newest generations must name one resume point); then
+    this process resumes their files through ``checkpoint.load_elastic``
+    and finishes the run: rows bit for bit against path R's."""
+    import shutil
+    import signal
+    import tempfile
+
+    from tmhpvsim_torch.engine import checkpoint as ckpt
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_r2ck_")
+    try:
+        t0 = time.perf_counter()
+        procs = [_spawn([os.path.abspath(__file__), "--ck-rank", str(r), d],
+                        os.path.join(d, f"rank{r}.log")) for r in range(2)]
+        paths = [os.path.join(d, f"r2.npz.host{r}") for r in range(2)]
+        _signal_when([p for _, p in procs], paths, CK_BLOCK, signal.SIGTERM,
+                     "R-2CK")
+        rcs = _reap(procs, "R-2CK")
+        wall_ranks = time.perf_counter() - t0
+        for r, rc in enumerate(rcs):
+            with open(os.path.join(d, f"rank{r}.log")) as f:
+                text = f.read()
+            if rc != 0 or "preempted" not in text:
+                fail(f"path R-2CK: rank {r} returned {rc}: {text[-2000:]}")
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                counts = json.load(f)
+            for k in ("threefry_fill", "sampler_windows", "block_step"):
+                if not counts.get(k):
+                    fail(f"path R-2CK: rank {r} never launched {k}")
+        stopped = [_latest_block(p) for p in paths]
+        if stopped[0] != stopped[1]:
+            fail(f"path R-2CK: the ranks stopped after different blocks "
+                 f"{stopped}")
+        cfg = SimConfig(**HEADLINE)
+        sim = Simulation(cfg, device=dev)
+        t1 = time.perf_counter()
+        tree, nb = ckpt.load_elastic(os.path.join(d, "r2.npz"), sim.config)
+        load_s = time.perf_counter() - t1
+        reduced, wall, launches = run_path(
+            "R-2CK", ("sampler_windows", "block_step"),
+            lambda: sim.run_reduced(state=tree["state"], acc=tree["acc"],
+                                    start_block=nb))
+        _check_rows("R-2CK", reduced, reduced_r)
+        print(f"path R-2CK: two gloo ranks stopped with blocks {stopped} "
+              f"checkpointed ({wall_ranks:.3f} s as processes incl. their "
+              f"start); one process reassembled them at block {nb} "
+              f"(load_elastic {load_s:.3f} s) and finished in {wall:.3f} s; "
+              f"rows bit-identical to path R's; launches {launches}")
+        return launches
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -6875,13 +7340,18 @@ def main() -> int:
     launch_a, means_a = timed("path_a", phase_path_a, dev)
     launch_b = timed("path_b", phase_path_b, dev)
     launch_c = timed("path_c", phase_path_c, dev)
-    timed("path_d", phase_path_d)
+    _, csv_d = timed("path_d", phase_path_d)
     launch_f, reduced_f = timed("path_f", phase_path_f, dev)
     timed("path_g", phase_path_g)
     launch_h = timed("path_h", phase_path_h, dev)
     torch.cuda.empty_cache()
     sharded = timed("sharded", phase_sharded, dev, reduced_r, stats_r,
                     means_a)
+    timed("path_rsl", phase_path_rsl, dev, reduced_r, means_a)
+    timed("path_rck", phase_path_rck, dev)
+    timed("path_dck", phase_path_dck, csv_d)
+    timed("path_r2ck", phase_path_r2ck, dev, reduced_r)
+    torch.cuda.empty_cache()
     replies_s, launch_s = timed("path_s", phase_path_s, "S", "window", dev)
     replies_c, launch_sc = timed("path_sc", phase_path_s, "S-c",
                                  "continuous", dev)
@@ -7256,4 +7726,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--sharded-rank":
         sys.exit(sharded_rank(int(sys.argv[2]), sys.argv[3]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--ck-rank":
+        sys.exit(ck_rank(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -699,6 +699,44 @@ def card():
 
 
 @pytest.mark.cuda
+def test_checkpoint_snapshot_on_card(card, tmp_path):
+    """A checkpoint's host copy of card tensors (one pinned buffer, copies
+    enqueued on the current stream) holds the tree as it was at the
+    snapshot, not an in-place update enqueued after it; through the async
+    writer the file holds the same record, bit for bit against the copy
+    of the CPU tensors."""
+    from tmhpvsim_torch.config import SimConfig
+    from tmhpvsim_torch.engine import checkpoint as ckpt
+    from tmhpvsim_torch.engine.simulation import Simulation
+
+    sim = Simulation(SimConfig(n_chains=1000, duration_s=1080,
+                               block_s=1080, output="reduce"), device=card)
+    tree = {"state": sim.init_state(), "acc": sim.init_reduce_acc()}
+    want = ckpt._flatten({k: {n: (v.cpu() if isinstance(v, torch.Tensor)
+                                  else {m: w.cpu() for m, w in v.items()})
+                              for n, v in t.items()}
+                          for k, t in tree.items()})
+    snap = ckpt._Snapshot(tree)
+    tree["state"]["cc0"].add_(1.0)
+    got = snap.flat()
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype and np.array_equal(
+            got[k].view(np.uint8), want[k].view(np.uint8)), k
+    tree = {"state": sim.init_state(), "acc": sim.init_reduce_acc()}
+    path = str(tmp_path / "ck.npz")
+    w = ckpt.AsyncCheckpointWriter(path, config=sim.config)
+    w.submit(tree, 1)
+    tree["acc"]["pv_sum"].add_(5.0)
+    w.close(timeout=60)
+    flat, meta = ckpt._read_npz(path)
+    assert meta["next_block"] == 1
+    for k in want:
+        assert np.array_equal(flat[k].view(np.uint8),
+                              want[k].view(np.uint8)), k
+
+
+@pytest.mark.cuda
 def test_nan_minmax_matches_plain_on_card(card):
     """The NaN-keeping helpers on the card against torch.minimum, maximum
     and clamp: NaN where torch has one (PTX gives the canonical NaN,

@@ -95,13 +95,22 @@ def test_k15_wrapper_runs_plain_on_cpu(impl):
         k15.meter_block(key[:1], 0, 600, 9000.0, impl)
 
 
+#: seconds a test's event loop may run before the test fails (a hang
+#: fails its test, not the run)
+LOOP_TIMEOUT_S = 120
+
+
+def _arun(coro):
+    return asyncio.run(asyncio.wait_for(coro, LOOP_TIMEOUT_S))
+
+
 def _collect(fn, *args, **kw):
     async def go():
         q = asyncio.Queue()
         await fn(q, *args, **kw)
         return [q.get_nowait() for _ in range(q.qsize())]
 
-    return asyncio.run(go())
+    return _arun(go())
 
 
 @pytest.mark.parametrize("impl", IMPLS)
@@ -137,10 +146,10 @@ def test_device_producer_needs_the_card_or_cpu():
     with pytest.raises(ValueError, match="multiple of 60"):
         tm.block_producer(1, block_s=90, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
-        asyncio.run(tm.metersim_main("local://none", "meter", False, 1, 60))
+        _arun(tm.metersim_main("local://none", "meter", False, 1, 60))
     with pytest.raises(ValueError, match="backend"):
-        asyncio.run(tm.metersim_main("local://none", "meter", False, 1, 60,
-                                     backend="jax"))
+        _arun(tm.metersim_main("local://none", "meter", False, 1, 60,
+                               backend="jax"))
 
 
 @pytest.mark.parametrize("backend", ["device", "asyncio"])
@@ -168,7 +177,7 @@ def test_metersim_main_publishes_every_second(backend):
         task.cancel()
         return got
 
-    got = asyncio.run(go())
+    got = _arun(go())
     assert len(got) == 1260
     assert [m["seq"] for _, _, m in got] == list(range(1260))
     assert all(isinstance(m["pub_us"], int) for _, _, m in got)

@@ -101,11 +101,24 @@ def test_config_fields_and_defaults_match(cls):
     ("site_grid", object()), ("fleet", object()), ("trace", "t.json"),
     ("phase_obs", "on"), ("prng_impl", "philox"),
     ("output", "nonsense"), ("dtype", "bfloat16"), ("tune", "auto"),
-    ("mesh_scenario", 2), ("pod_obs", "on"), ("checkpoint_async", "on"),
+    ("mesh_scenario", 2), ("pod_obs", "on"),
+    ("pod_straggler_factor", 3.0),
 ])
 def test_config_outside_slice_raises(field, value):
     with pytest.raises(NotImplementedError):
         tcfg.SimConfig(**{field: value})
+
+
+@pytest.mark.parametrize("field,good,bad", [
+    ("checkpoint_keep", 1, 0), ("checkpoint_async", "on", "maybe"),
+    ("preempt_grace_s", 30.0, -1.0),
+])
+def test_config_checkpoint_options_inside_slice(field, good, bad):
+    """The checkpoint options are in the slice, with the JAX CLI's value
+    checks."""
+    assert getattr(tcfg.SimConfig(**{field: good}), field) == good
+    with pytest.raises(ValueError, match=field):
+        tcfg.SimConfig(**{field: bad})
 
 
 @pytest.mark.parametrize("impl", ["threefry2x32", "rbg", "unsafe_rbg"])

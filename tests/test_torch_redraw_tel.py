@@ -24,12 +24,25 @@ from tmhpvsim_tpu.engine import Simulation as JSim
 from tmhpvsim_tpu.models import clearsky_index as jci
 
 
-@pytest.mark.parametrize("telemetry", ["light", "full"])
-@pytest.mark.parametrize("start", ["2019-09-05 18:50:00",
-                                   "2019-09-05 18:50:30",
-                                   "2019-09-05 00:00:00"],
-                         ids=["on-minute", "off-minute", "midnight"])
+#: the blocks' starts and their ids
+STARTS = dict(argnames="start",
+              argvalues=["2019-09-05 18:50:00", "2019-09-05 18:50:30",
+                         "2019-09-05 00:00:00"],
+              ids=["on-minute", "off-minute", "midnight"])
+
+
+@pytest.mark.parametrize("telemetry", ["light"])
+@pytest.mark.parametrize(**STARTS)
 def test_telemetry_block_matches_jax_scan(monkeypatch, start, telemetry):
+    check_telemetry_block(monkeypatch, start, telemetry)
+
+
+def check_telemetry_block(monkeypatch, start, telemetry):
+    """The JAX scan's block with telemetry at level ``telemetry`` from
+    ``start`` against the port's plain producer and fold (level full:
+    tests/test_torch_redraw_tel_full.py, a file of its own so that a run
+    of the suite that splits its workers by file takes the two levels'
+    JAX runs apart)."""
     real_tables = jci.value_major_tables
 
     def jax_tables(arrays, minute_vals):

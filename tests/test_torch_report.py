@@ -63,7 +63,7 @@ def test_plan_section_in_the_jax_keys(cli_report):
                          "compute_dtype", "kernel_impl", "rng_batch",
                          "geom_stride", "source"}
     assert plan == {"block_impl": "wide", "scan_unroll": 8,
-                    "stats_fusion": "fused", "slab_chains": None,
+                    "stats_fusion": "fused", "slab_chains": 6,
                     "blocks_per_dispatch": 2, "compute_dtype": "f32",
                     "kernel_impl": "table", "rng_batch": "block",
                     "geom_stride": 1, "source": "static"}

@@ -31,6 +31,7 @@ NaN: ROADMAP, reference-side caveats).
 """
 
 import csv
+import datetime
 import json
 import os
 import pickle
@@ -228,7 +229,7 @@ def _jax_reference():
     s = sim("main")
     out["reduce"] = {k: np.asarray(v) for k, v in s.run_reduced().items()}
     out["stats"] = s.ensemble_stats()
-    out["trace"] = list(sim("main").run_blocks())
+    out["trace"] = list(s.run_blocks())  # the reduce run's sim, shared
     s = sim("fleet")
     out["fleet"] = ({k: np.asarray(v) for k, v in s.run_reduced().items()},
                     s)
@@ -245,7 +246,7 @@ def _jax_reference():
 def port_runs(spawned, jax_runs):
     """``_port_reference()`` (made in ``spawned``'s thread; the JAX
     references first, so that both run at once)."""
-    return spawned.port.result()
+    return spawned.port.result(timeout=600)
 
 
 def _port_reference():
@@ -776,7 +777,8 @@ def test_order_key_keeps_nan_and_signed_zeros(dtype):
 def group_of_one(tmp_path):
     """A gloo group of this process alone (rendezvous in a file)."""
     torch.distributed.init_process_group(
-        "gloo", init_method=f"file://{tmp_path}/g1", world_size=1, rank=0)
+        "gloo", init_method=f"file://{tmp_path}/g1", world_size=1, rank=0,
+        timeout=datetime.timedelta(seconds=60))
     yield
     distributed.shutdown()
 

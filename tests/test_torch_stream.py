@@ -50,8 +50,14 @@ PKGS = {"jax": dict(clock=jclock, funnel=jfunnel, res=jres, broker=jbroker,
                       broker=tbroker, tcp=ttcp)}
 
 
+#: seconds a test's event loop may run before the test fails (a hang
+#: fails its test, not the run)
+LOOP_TIMEOUT_S = 120
+
+
 def _run(coro):
-    return asyncio.new_event_loop().run_until_complete(coro)
+    return asyncio.new_event_loop().run_until_complete(
+        asyncio.wait_for(coro, LOOP_TIMEOUT_S))
 
 
 def _both(scenario):

@@ -12,8 +12,11 @@ streaming deployment (``metersim`` with K15, the metersim producer's
 block, ``fanoutbroker`` and ``pvsim --backend asyncio``,
 ``tmhpvsim_torch.apps`` and ``tmhpvsim_torch.runtime``), and
 chain-sharded runs over ``torch.distributed``, one process per card
-(``tmhpvsim_torch.parallel.ShardedSimulation``, ``pvsim --sharded``);
-every kernel has a plain torch version that runs on CPU tensors.
+(``tmhpvsim_torch.parallel.ShardedSimulation``, ``pvsim --sharded``),
+preemption-safe checkpoints in the JAX package's format
+(``tmhpvsim_torch.engine.checkpoint``, ``pvsim --checkpoint``) and chain
+slabs (``tmhpvsim_torch.engine.slab``); every kernel has a plain torch
+version that runs on CPU tensors.
 Imports torch and numpy, never jax and never tmhpvsim_tpu.
 """
 

@@ -21,6 +21,17 @@ section, the sentinel's verdict as the ``telemetry`` section and the
 ``precision`` section of the levers ``compute_dtype``, ``kernel_impl``,
 ``rng_batch`` and ``geom_stride``.
 
+``checkpoint`` makes a run restart-safe (engine/checkpoint.py, in the JAX
+package's format, so either package resumes the other's checkpoints): the
+state (and in reduce mode the accumulator) is saved after every block
+into rotated, integrity-checked generations, and a rerun of the same
+command resumes from the newest one that verifies.  A trace or ensemble
+CSV keeps its rows exactly once: a resume truncates it to the rows of the
+checkpointed blocks and refuses a missing or short one.
+``preempt_grace_s > 0`` makes SIGTERM a preemption notice: the run
+finishes the block in flight, drains one final snapshot, prints the
+resume line and returns.
+
 The streaming backend (``pvsim_main``, ``--backend asyncio``): three
 concurrent tasks, a 1 Hz PV loop on the float64 golden model
 (engine/golden.py, host code by design, as in the JAX package), a meter
@@ -37,6 +48,8 @@ import csv
 import dataclasses
 import datetime as _dt
 import logging
+import os
+import signal
 import time
 from collections import namedtuple
 from typing import Optional
@@ -45,6 +58,7 @@ from zoneinfo import ZoneInfo
 import numpy as np
 
 from tmhpvsim_torch.config import ModelOptions, SimConfig, Site
+from tmhpvsim_torch.engine import checkpoint as ckpt
 from tmhpvsim_torch.engine.simulation import (REDUCE_STATS, Simulation,
                                               write_csv)
 from tmhpvsim_torch.obs import metrics as obs_metrics
@@ -101,6 +115,155 @@ def write_run_report(path: str, sim: Simulation) -> Optional[dict]:
     return write_report(path, doc)
 
 
+class _PreemptStop(Exception):
+    """Stops the run loop at a block boundary, the block's snapshot
+    taken (a SIGTERM under ``preempt_grace_s``)."""
+
+    def __init__(self, block: int):
+        super().__init__(f"preempted after block {block}")
+        self.block = block
+
+
+class _PreemptWatch:
+    """The preemption notice of a checkpointed run: with ``grace_s > 0``
+    a SIGTERM handler that only sets a flag, read at each block's end
+    (``should_stop``).  A handler can only be set in the main thread;
+    elsewhere SIGTERM keeps its default.  The JAX package's watcher also
+    consults the fault-injection chokepoint ``signal.preempt``, which
+    waits for the port's runtime/faults.py."""
+
+    def __init__(self, grace_s: float):
+        self.grace_s = grace_s
+        self._flag = False
+        self._old = None
+        if grace_s > 0:
+            try:
+                self._old = signal.signal(signal.SIGTERM, self._on_term)
+            except ValueError:  # not the main thread
+                self._old = None
+
+    def _on_term(self, signum, frame):
+        self._flag = True
+        logger.warning("SIGTERM received; finishing the current block "
+                       "and snapshotting (grace %.1f s)", self.grace_s)
+
+    def should_stop(self) -> bool:
+        return self._flag
+
+    def restore(self) -> None:
+        if self._old is not None:
+            signal.signal(signal.SIGTERM, self._old)
+            self._old = None
+
+
+def _ckpt_teardown(writer, watch, suppress: bool = False) -> None:
+    """Drain and close the async writer, then restore SIGTERM (a notice
+    during the drain does not cut it); ``suppress`` (an error in flight)
+    only warns when the close fails."""
+    try:
+        if writer is None:
+            return
+        if not suppress:
+            writer.close()
+            return
+        try:
+            writer.close(timeout=10.0)
+        except Exception as e:
+            logger.warning("async checkpoint writer close failed during "
+                           "error unwind: %s", e)
+    finally:
+        watch.restore()
+
+
+def _resume_source(checkpoint, ckpt_global, sim):
+    """``(path, chain_slice)`` to resume from, or ``(None, None)``: this
+    process's own checkpoint (its ``.host<rank>`` file in a sharded run;
+    another process count's shards count too), else the whole-run
+    checkpoint of another layout, as this process's chains."""
+    if ckpt.resumable(checkpoint):
+        return checkpoint, None
+    if ckpt_global != checkpoint and ckpt.resumable(ckpt_global):
+        return ckpt_global, sim.resume_chain_slice()
+    return None, None
+
+
+def _truncate_csv(path: str, keep_lines: int) -> int:
+    """Cut ``path`` to its first ``keep_lines`` lines; returns the lines
+    there are afterwards (0 for a missing file)."""
+    if not os.path.exists(path):
+        return 0
+    with open(path, "r+") as f:
+        n = 0
+        for _ in range(keep_lines):
+            if not f.readline():
+                return n
+            n += 1
+        f.truncate(f.tell())
+        return n
+
+
+class _Checkpointing:
+    """The checkpoints of one run (``pvsim(checkpoint=...)``): where it
+    resumes, each block's save (synchronous, or handed to the async
+    writer as host copies) and the preemption watch."""
+
+    def __init__(self, sim, path: str, path_global: str):
+        cfg = sim.config
+        self.sim, self.path, self.path_global = sim, path, path_global
+        self.reg = obs_metrics.get_registry()
+        self.watch = _PreemptWatch(cfg.preempt_grace_s)
+        self.writer = (ckpt.AsyncCheckpointWriter(
+            path, config=cfg, keep=cfg.checkpoint_keep)
+            if cfg.checkpoint_async == "on" else None)
+
+    def resume(self):
+        """``(tree, start_block)`` of the checkpoint to resume from (numpy
+        in the JAX layout), or ``(None, 0)``."""
+        src, rsl = _resume_source(self.path, self.path_global, self.sim)
+        if src is None:
+            return None, 0
+        tree, start_block = ckpt.load_elastic(src, self.sim.config,
+                                              chain_slice=rsl)
+        logger.info("resuming from %s at block %d", src, start_block)
+        self.reg.counter("resilience.resumed_total").inc()
+        self.reg.gauge("resilience.resumed_block").set(start_block)
+        return tree, start_block
+
+    def after_block(self, bi: int, tree) -> None:
+        """Save ``tree``, the state after block ``bi``, when the run's
+        state is that block's (``state_block``: under several blocks a
+        dispatch only a group's last block is), then stop the run on a
+        preemption notice.  The processes of a sharded run decide
+        together, at every block: a notice to any stops all after the
+        same block (a process that stopped alone would leave the others
+        waiting in a collective, or its shard generations apart from
+        theirs), and no process runs more than a block ahead of another,
+        so a kill leaves the shards' synchronous generations at most one
+        block apart."""
+        sim = self.sim
+        if sim.state_block == bi + 1:
+            tree = sim.host_local_tree(tree)
+            lay = sim.checkpoint_layout()
+            if self.writer is not None:
+                self.writer.submit(tree, bi + 1, layout=lay)
+            else:
+                ckpt.save(self.path, tree, bi + 1, sim.config,
+                          keep=sim.config.checkpoint_keep, layout=lay)
+        if sim.any_process(self.watch.should_stop()):
+            raise _PreemptStop(bi)
+
+    def finish(self, stop: Optional[_PreemptStop] = None,
+               suppress: bool = False) -> None:
+        """Drain the writer and restore SIGTERM; after a preemption,
+        print where the run stopped."""
+        _ckpt_teardown(self.writer, self.watch, suppress=suppress)
+        if stop is not None:
+            self.reg.counter("checkpoint.preempt_snapshots_total").inc()
+            print(f"pvsim: preempted — state through block "
+                  f"{stop.block + 1}/{self.sim.n_blocks} checkpointed to "
+                  f"{self.path}; rerun the same command to finish")
+
+
 def pvsim(file: str, duration_s: int, n_chains: int, seed: int, start: str,
           chain: int = 0, block_s: int | None = None, realtime: bool = False,
           site_grid=None, output: str = "trace",
@@ -113,7 +276,9 @@ def pvsim(file: str, duration_s: int, n_chains: int, seed: int, start: str,
           telemetry_strict: bool = False,
           prng_impl: str = "threefry2x32", sharded: bool = False,
           coordinator: str | None = None, num_processes: int | None = None,
-          process_id: int | None = None) -> Simulation:
+          process_id: int | None = None, checkpoint: str | None = None,
+          checkpoint_keep: int = 3, checkpoint_async: str = "off",
+          preempt_grace_s: float = 0.0) -> Simulation:
     """Run one simulation and write ``file``; returns the Simulation.
 
     A site grid or a fleet sets the chain count (one chain per site).
@@ -134,6 +299,13 @@ def pvsim(file: str, duration_s: int, n_chains: int, seed: int, start: str,
     ('threefry2x32' | 'rbg') the key implementation (rbg: K13's Philox
     bits on the card).
 
+    ``checkpoint`` saves the run after every block and resumes it from
+    there when the file exists (output overlap is then off, one block at
+    a time); ``checkpoint_keep`` (>= 1) generations are kept,
+    ``checkpoint_async`` ('off' | 'on') writes them on a background
+    thread, and ``preempt_grace_s > 0`` turns SIGTERM into a clean stop
+    after the block in flight, with its snapshot drained.
+
     ``sharded`` runs the chains over the processes of a
     ``torch.distributed`` group (``parallel.ShardedSimulation``), joined
     from ``coordinator``, ``num_processes`` and ``process_id`` or from a
@@ -145,9 +317,16 @@ def pvsim(file: str, duration_s: int, n_chains: int, seed: int, start: str,
     paced as the owner paces them, so that every process reaches each
     block's collectives on one clock, and write nothing).  ``run_report`` is
     written by process 0, with the ``mesh`` section and every process's
-    metrics snapshot (``processes``)."""
+    metrics snapshot (``processes``).  With more than one process each
+    checkpoints its own chains to ``{checkpoint}.host{rank}``; a resume
+    under another process count reslices (``checkpoint.load_elastic``)."""
     if block_s is None:
         block_s = min(8640, max(60, (duration_s // 60) * 60))
+    if checkpoint and output_overlap != "off":
+        # the save after block N reads the state after block N; the
+        # overlap dispatches block N + 1 before N is consumed
+        output_overlap = "off"
+        logger.info("checkpointing disables output_overlap")
     cfg = SimConfig(start=start, duration_s=duration_s, n_chains=n_chains,
                     seed=seed, block_s=block_s, site_grid=site_grid,
                     fleet=fleet, output=output,
@@ -157,64 +336,135 @@ def pvsim(file: str, duration_s: int, n_chains: int, seed: int, start: str,
                     blocks_per_dispatch=blocks_per_dispatch,
                     rng_batch=rng_batch, compute_dtype=compute_dtype,
                     telemetry=telemetry, telemetry_strict=telemetry_strict,
-                    prng_impl=prng_impl)
-    if not sharded:
-        return _run(Simulation(cfg, device=device), file, duration_s,
-                    chain, realtime, output, run_report)
-    from tmhpvsim_torch.parallel import ShardedSimulation, distributed
+                    prng_impl=prng_impl, checkpoint_keep=checkpoint_keep,
+                    checkpoint_async=checkpoint_async,
+                    preempt_grace_s=preempt_grace_s)
+    # the run's own metrics (the report's checkpoint section reads them)
+    with obs_metrics.use_registry(obs_metrics.MetricsRegistry()):
+        if not sharded:
+            return _run(Simulation(cfg, device=device), file, duration_s,
+                        chain, realtime, output, run_report, checkpoint,
+                        checkpoint)
+        from tmhpvsim_torch.parallel import ShardedSimulation, distributed
 
-    own = distributed.initialize(coordinator, num_processes, process_id,
-                                 device=device)
-    try:
-        sim = ShardedSimulation(cfg, device=device)
-        if sim.world > 1:
-            file = f"{file}.host{sim.rank}"
-        return _run(sim, file, duration_s, chain, realtime, output,
-                    run_report)
-    finally:
-        if own:
-            distributed.shutdown()
+        own = distributed.initialize(coordinator, num_processes,
+                                     process_id, device=device)
+        try:
+            sim = ShardedSimulation(cfg, device=device)
+            ck_own = checkpoint
+            if sim.world > 1:
+                file = f"{file}.host{sim.rank}"
+                if checkpoint:
+                    ck_own = f"{checkpoint}.host{sim.rank}"
+            return _run(sim, file, duration_s, chain, realtime, output,
+                        run_report, ck_own, checkpoint)
+        finally:
+            if own:
+                distributed.shutdown()
 
 
-def _run(sim, file, duration_s, chain, realtime, output, run_report):
-    """The run and its CSV (and run report) of ``pvsim``."""
+def _run(sim, file, duration_s, chain, realtime, output, run_report,
+         checkpoint=None, ckpt_global=None):
+    """The run and its CSV (and run report) of ``pvsim``; ``checkpoint``
+    is this process's checkpoint, ``ckpt_global`` the whole run's path."""
     cfg = sim.config  # a site grid or a fleet sets n_chains
     sl = sim.chain_slice  # this process's chains (all but in a sharded run)
+    if output == "reduce" and realtime:
+        raise ValueError("reduce mode has no per-second rows to pace; "
+                         "drop --realtime")
+    if output == "ensemble" and chain != 0:
+        raise ValueError("ensemble mode writes the fleet mean; --chain "
+                         "does not apply (drop it or use trace mode)")
+    if output != "reduce" and not 0 <= chain < cfg.n_chains:
+        raise ValueError(f"--chain {chain} out of range for "
+                         f"{cfg.n_chains} chains")
+    ck = None
+    if checkpoint:
+        # one state for the whole run: no slabs
+        sim.allow_slabs = False
+        ck = _Checkpointing(sim, checkpoint, ckpt_global)
     t0 = time.perf_counter()
+    try:
+        if output == "reduce":
+            reduced = _reduce(sim, ck)
+        else:
+            _rows(sim, file, chain, realtime, output, ck)
+    except _PreemptStop as stop:
+        ck.finish(stop)
+        return sim
+    except BaseException:
+        if ck:
+            ck.finish(suppress=True)
+        raise
+    if ck:
+        ck.finish()
+    wall = time.perf_counter() - t0
     if output == "reduce":
-        if realtime:
-            raise ValueError("reduce mode has no per-second rows to pace; "
-                             "drop --realtime")
-        reduced = sim.run_reduced()
-        wall = time.perf_counter() - t0
         ensemble = sim.ensemble_stats()
         write_reduced_csv(file, reduced, ensemble, chain_start=sl.start)
         print(f"pvsim[reduce]: {cfg.n_chains} chains x {duration_s} s on "
               f"{sim.device} in {wall:.3f} s "
               f"({cfg.n_chains * duration_s / wall:.4g} site-s/s incl. "
               f"set-up); fleet pv_max {ensemble['pv_max']:.1f} W")
-        if run_report:
-            write_run_report(run_report, sim)
-        return sim
-    if output == "ensemble" and chain != 0:
-        raise ValueError("ensemble mode writes the fleet mean; --chain "
-                         "does not apply (drop it or use trace mode)")
-    if not 0 <= chain < cfg.n_chains:
-        raise ValueError(f"--chain {chain} out of range for "
-                         f"{cfg.n_chains} chains")
+    else:
+        print(f"pvsim[{output}]: {cfg.n_chains} chains x {duration_s} s "
+              f"on {sim.device} in {wall:.3f} s "
+              f"({cfg.n_chains * duration_s / wall:.4g} site-s/s incl. "
+              "set-up and CSV)")
+    if run_report:
+        write_run_report(run_report, sim)
+    return sim
+
+
+def _reduce(sim, ck) -> dict:
+    """Reduce mode's run, resumed from the checkpoint and saving the
+    state and the accumulator after every block when ``ck`` is given."""
+    tree, start_block = ck.resume() if ck else (None, 0)
+    state, acc = (tree["state"], tree["acc"]) if tree else (None, None)
+    on_block = None
+    if ck:
+        def on_block(bi, state, acc):
+            ck.after_block(bi, {"state": state, "acc": acc})
+    return sim.run_reduced(state=state, acc=acc, start_block=start_block,
+                           on_block=on_block)
+
+
+def _rows(sim, file, chain, realtime, output, ck) -> None:
+    """Trace or ensemble mode's CSV rows, exactly once across a resume
+    when ``ck`` is given."""
+    cfg = sim.config
+    sl = sim.chain_slice
     runner = sim.run_ensemble if output == "ensemble" else sim.run_blocks
+    # --chain is a chain id of the whole run: in trace mode only the
+    # process that holds it writes; the others take the same (paced)
+    # blocks, so they join every block's collectives when the owner does
+    write_trace = output != "trace" or sl.start <= chain < sl.stop
+    state, start_block = ck.resume() if ck else (None, 0)
+    if start_block and write_trace:
+        # a crash between a block's rows and its checkpoint leaves rows
+        # past the checkpoint: cut them, and refuse to append to a
+        # missing or short CSV
+        expect = 1 + min(cfg.duration_s, start_block * cfg.block_s)
+        got = _truncate_csv(file, expect)
+        if got < expect:
+            raise RuntimeError(
+                f"checkpoint {ck.path} expects {expect} existing lines in "
+                f"{file} but found {got}; restore the CSV that belongs to "
+                "this checkpoint or delete the checkpoint to restart")
 
     def blocks():
-        for blk in runner():
+        for bi, blk in enumerate(runner(state=state,
+                                        start_block=start_block),
+                                 start=start_block):
             if realtime:
                 yield from _paced(blk)
             else:
                 yield blk
+            # the block's rows are written when control comes back here
+            if ck:
+                ck.after_block(bi, sim.state)
 
-    # --chain is a chain id of the whole run: in trace mode only the
-    # process that holds it writes; the others take the same (paced)
-    # blocks, so they join every block's collectives when the owner does
-    if output == "trace" and not sl.start <= chain < sl.stop:
+    if not write_trace:
         logger.info("chain %d lives on another process (this one holds "
                     "%d-%d): running without a trace", chain, sl.start,
                     sl.stop - 1)
@@ -223,15 +473,7 @@ def _run(sim, file, duration_s, chain, realtime, output, run_report):
     else:
         write_csv(file, blocks(),
                   chain=chain - sl.start if output == "trace" else chain,
-                  tz=ZoneInfo(sim.timezone))
-    wall = time.perf_counter() - t0
-    print(f"pvsim[{output}]: {cfg.n_chains} chains x {duration_s} s on "
-          f"{sim.device} in {wall:.3f} s "
-          f"({cfg.n_chains * duration_s / wall:.4g} site-s/s incl. set-up "
-          "and CSV)")
-    if run_report:
-        write_run_report(run_report, sim)
-    return sim
+                  tz=ZoneInfo(sim.timezone), append=start_block > 0)
 
 
 # ---------------------------------------------------------------------------

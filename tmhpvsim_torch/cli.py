@@ -14,7 +14,10 @@ and ``--rng-batch``, the numerics telemetry and its drift sentinel
 (``--telemetry``, ``--telemetry-strict``), the key implementation
 ``--prng-impl`` (threefry2x32 | rbg), the formulation ``--block-impl`` and
 ``--blocks-per-dispatch`` (the JAX package's choices, defaults and
-errors), ``--output-overlap`` and ``--realtime``, and chain-sharded
+errors), ``--output-overlap`` and ``--realtime``, checkpoints and preemption
+(``--checkpoint PATH``, ``--checkpoint-keep``, ``--checkpoint-async``,
+``--preempt-grace``; a resume without ``--seed`` takes the checkpoint's
+seed), and chain-sharded
 runs over ``torch.distributed`` (``--sharded`` with ``--coordinator``,
 ``--num-processes``, ``--process-id`` or a launcher's environment; the
 JAX CLI's ``--mesh-scenario`` is refused by name).  ``--run-report PATH``
@@ -68,7 +71,9 @@ DEVICE_ONLY = {"output": "trace", "chain": 0, "chains": 1, "block_s": None,
                "telemetry": "off", "telemetry_strict": False,
                "output_overlap": "auto", "prng_impl": "threefry2x32",
                "compile_cache": None, "sharded": False, "coordinator": None,
-               "num_processes": None, "process_id": None}
+               "num_processes": None, "process_id": None,
+               "checkpoint": None, "checkpoint_keep": 3,
+               "checkpoint_async": "off", "preempt_grace": 0.0}
 #: the process flags of a sharded run
 PROCESS_FLAGS = ("coordinator", "num_processes", "process_id")
 
@@ -270,6 +275,29 @@ def _parser() -> argparse.ArgumentParser:
                     help="processes of the sharded run")
     pv.add_argument("--process-id", type=int, default=None, metavar="I",
                     help="this process's rank in [0, K)")
+    pv.add_argument("--checkpoint", default=None, metavar="PATH",
+                    help="save the run after every block and resume from "
+                         "PATH when it exists (the JAX package's format: "
+                         "either package resumes the other's); trace and "
+                         "ensemble rows are written exactly once across a "
+                         "resume; turns --output-overlap off")
+    pv.add_argument("--checkpoint-keep", type=int, default=3, metavar="N",
+                    help="checkpoint generations kept on disk: the anchor "
+                         "plus the newest N rotated .g<gen> snapshots "
+                         "named by the integrity manifest; a torn newest "
+                         "generation falls back to the newest that "
+                         "verifies (default 3)")
+    pv.add_argument("--checkpoint-async", choices=["off", "on"],
+                    default="off",
+                    help="on: the run pays the device-to-host copy only; "
+                         "serialisation, checksums, fsync and rotation "
+                         "run on a writer thread (default off)")
+    pv.add_argument("--preempt-grace", type=float, default=0.0,
+                    metavar="S",
+                    help="preemption grace seconds: > 0 makes SIGTERM "
+                         "finish the block in flight, drain one final "
+                         "snapshot and exit 0 (default 0: SIGTERM's "
+                         "default)")
     pv.add_argument("--mesh-scenario", dest="mesh_scenario", default=None,
                     help=argparse.SUPPRESS)
     pv.add_argument("--backend", choices=["device", "asyncio"],
@@ -478,6 +506,10 @@ def main(argv=None) -> int:
         return metersim(args, parser)
     if args.duration is None:
         parser.error("--duration is required with --backend=device")
+    if args.checkpoint_keep < 1:
+        parser.error("--checkpoint-keep must be >= 1")
+    if args.preempt_grace < 0:
+        parser.error("--preempt-grace must be >= 0")
     given = [f for f in PROCESS_FLAGS if getattr(args, f) is not None]
     if given and not args.sharded:
         parser.error("--coordinator/--num-processes/--process-id require "
@@ -521,9 +553,18 @@ def main(argv=None) -> int:
 
     start = args.start or _dt.datetime.now().replace(
         microsecond=0).isoformat(" ")
+    seed = args.seed
+    if seed is None and args.checkpoint:
+        from tmhpvsim_torch.engine import checkpoint as ckpt
+
+        if ckpt.resumable(args.checkpoint):
+            # a resume without --seed takes the checkpoint's seed (the
+            # default would fail its config check)
+            seed = ckpt.peek_meta(args.checkpoint).get(
+                "config", {}).get("seed")
     try:
         pvsim(args.file, args.duration, args.chains,
-              0 if args.seed is None else args.seed, start,
+              0 if seed is None else seed, start,
               chain=args.chain, block_s=args.block_s,
               realtime=args.realtime, site_grid=site_grid,
               output=args.output, output_overlap=args.output_overlap,
@@ -536,7 +577,11 @@ def main(argv=None) -> int:
               telemetry_strict=args.telemetry_strict,
               prng_impl=args.prng_impl, sharded=args.sharded,
               coordinator=args.coordinator,
-              num_processes=args.num_processes, process_id=args.process_id)
+              num_processes=args.num_processes, process_id=args.process_id,
+              checkpoint=args.checkpoint,
+              checkpoint_keep=args.checkpoint_keep,
+              checkpoint_async=args.checkpoint_async,
+              preempt_grace_s=args.preempt_grace)
     except (ValueError, NotImplementedError, DriftError) as e:
         raise SystemExit(f"pvsim: {e}") from e
     return 0

@@ -9,10 +9,10 @@ transcendentals (``kernel_impl``), per-second or strided solar geometry
 (``geom_stride``), the wide, scan and scan2 formulations with either
 reduce topology (``block_impl``, ``stats_fusion``), any ``scan_unroll``,
 ``rng_batch`` and ``blocks_per_dispatch``, trace / reduce / ensemble
-output with reduce-mode telemetry and fleet analytics — and every field
-outside it raises ``NotImplementedError`` when it is set to anything but
-its default (or a value that means the same run).  Nothing is silently
-ignored.
+output with reduce-mode telemetry and fleet analytics, and the
+checkpoint options — and every field outside it raises
+``NotImplementedError`` when it is set to anything but its default (or a
+value that means the same run).  Nothing is silently ignored.
 """
 
 from __future__ import annotations
@@ -214,7 +214,8 @@ _FREE_FIELDS = frozenset({
     "analytics_capacity_w", "analytics_lolp_k", "analytics_thresholds",
     "serve_batch_sizes", "kernel_impl", "geom_stride", "block_impl",
     "scan_unroll", "stats_fusion", "blocks_per_dispatch", "rng_batch",
-    "compute_dtype", "telemetry_strict",
+    "compute_dtype", "telemetry_strict", "checkpoint_keep",
+    "checkpoint_async", "preempt_grace_s",
 })
 
 #: valid values of SimConfig.telemetry / --telemetry (obs/telemetry.py)
@@ -286,8 +287,15 @@ class SimConfig:
     trace: Optional[str] = None
     serve_batch_sizes: tuple = ()
     mesh_scenario: int = 0
+    #: checkpoint generations kept on disk (engine/checkpoint.py); not
+    #: part of the checkpoint's config echo
     checkpoint_keep: int = 3
+    #: 'on' writes checkpoints on a writer thread (the run pays the
+    #: device-to-host copy only); 'off' saves synchronously
     checkpoint_async: str = "off"
+    #: > 0: a SIGTERM finishes the block in flight, drains one final
+    #: snapshot and exits cleanly (apps/pvsim.py); 0 keeps SIGTERM's
+    #: default
     preempt_grace_s: float = 0.0
 
     def __post_init__(self):
@@ -309,6 +317,15 @@ class SimConfig:
         if self.analytics not in ANALYTICS_LEVELS:
             raise ValueError(f"analytics must be 'off', 'risk' or 'full', "
                              f"got {self.analytics!r}")
+        if not _is_int(self.checkpoint_keep) or self.checkpoint_keep < 1:
+            raise ValueError(f"checkpoint_keep must be >= 1, got "
+                             f"{self.checkpoint_keep!r}")
+        if self.checkpoint_async not in ("off", "on"):
+            raise ValueError(f"checkpoint_async must be 'off' or 'on', got "
+                             f"{self.checkpoint_async!r}")
+        if not self.preempt_grace_s >= 0:
+            raise ValueError(f"preempt_grace_s must be >= 0, got "
+                             f"{self.preempt_grace_s!r}")
         for f in dataclasses.fields(self):
             if f.name in _FREE_FIELDS:
                 continue
@@ -326,7 +343,7 @@ class SimConfig:
                     "port's slice: it computes in float32 or bf16 with "
                     "threefry2x32, rbg or unsafe_rbg keys under the static "
                     "plan, with no autotuner, 2-D mesh, pod or phase "
-                    "observers, profiler trace or checkpoint options")
+                    "observers or profiler trace")
         if self.block_s % 60 != 0:
             raise ValueError("block_s must be a multiple of 60 (minute grid)")
 
@@ -377,6 +394,9 @@ class Plan:
     compute_dtype: str = "f32"
     telemetry: str = "off"
     prng_impl: str = "threefry2x32"
+    #: chains of each sequential slab (engine/slab.py); ``slab_chains >=
+    #: n_chains`` (what ``resolve_plan`` sets) runs the batch in one piece
+    slab_chains: int = 0
 
 
 def escalate_telemetry(level: str, compute_dtype: str) -> str:
@@ -453,4 +473,4 @@ def resolve_plan(config: SimConfig) -> Plan:
                 blocks_per_dispatch=max(1, int(k)), rng_batch=rb,
                 compute_dtype=cd,
                 telemetry=escalate_telemetry(config.telemetry, cd),
-                prng_impl=config.prng_impl)
+                prng_impl=config.prng_impl, slab_chains=int(config.n_chains))

@@ -81,8 +81,13 @@ The chain state is O(1) per chain: threefry (or rbg) keys, the Markov
 carry, the renewal carry, three construction-time scalars, for a grid the
 six site
 scalars and, for a fleet, its heterogeneous columns (``state["fleet"]``).
-With the block offset it is a complete checkpoint; ``engine/convert.py``
-moves it to and from the JAX package's layout.
+With the block offset (and in reduce mode the accumulator) it is a
+complete checkpoint (engine/checkpoint.py, in the JAX package's layout
+through ``engine/convert.py``): the run loops take a resumed state and
+accumulator as tensors or as that layout's numpy (``_place_resume``).
+A plan whose ``slab_chains`` is below ``n_chains`` runs a fresh reduce or
+ensemble run as sequential chain slabs (engine/slab.py) with the
+unslabbed run's results.
 Every kernel wrapper runs its plain torch version on CPU tensors, so
 ``Simulation(config, device="cpu")`` is the reference implementation of
 the same run.
@@ -100,7 +105,8 @@ import numpy as np
 import torch
 
 from tmhpvsim_torch import rng
-from tmhpvsim_torch.config import SITE_FIELDS, SimConfig, resolve_plan
+from tmhpvsim_torch.config import SITE_FIELDS, Plan, SimConfig, resolve_plan
+from tmhpvsim_torch.engine import convert
 from tmhpvsim_torch.kernels import block_step as k3
 from tmhpvsim_torch.kernels import threefry as k1
 from tmhpvsim_torch.kernels import wide
@@ -200,9 +206,14 @@ class Simulation:
         risk = sim.fleet_summary()       # analytics on: the run's totals
         for blk in sim.run_blocks(): ... # per-chain BlockResults
         for blk in sim.run_ensemble(): ...  # fleet-mean BlockResults
+
+    ``plan`` replaces the resolved plan (``config.resolve_plan``), as the
+    JAX package's ``Simulation(config, plan=...)`` does: a ``slab_chains``
+    below ``n_chains`` slabs the run (``allow_slabs``).
     """
 
-    def __init__(self, config: SimConfig, device=None):
+    def __init__(self, config: SimConfig, device=None,
+                 plan: Optional[Plan] = None):
         if config.block_s % 60 != 0:
             raise ValueError("block_s must be a multiple of 60 (minute grid)")
         config = resolve_chains(config)
@@ -228,7 +239,10 @@ class Simulation:
         self.rank, self.world = 0, 1
         self.chain_slice = slice(0, config.n_chains)
         #: the resolved plan (precision levers, formulation, knobs)
-        self.plan = resolve_plan(config)
+        self.plan = resolve_plan(config) if plan is None else plan
+        #: cleared by callers that need one state for the whole run (a
+        #: checkpointed run, a sharded one): no slab scheduler then
+        self.allow_slabs = True
         self._cd = self.plan.compute_dtype
         self.device = resolve_device(device)
         self.timezone = (grid.timezone if grid is not None
@@ -642,20 +656,28 @@ class Simulation:
 
     def step_series(self, state, inputs: BlockInputs):
         """One ensemble block: ``(state, meter_sum, pv_sum)``, the sums
-        ``(block_s,)`` over chains per second (padding included); the wide
-        formulation launches the trace and then the wide series kernel."""
+        ``(block_s,)`` over chains per second (padding included): the
+        ``series_total`` of ``step_series_parts``."""
+        state, parts = self.step_series_parts(state, inputs)
+        out = k3.series_total(parts)
+        return state, out[0], out[1]
+
+    def step_series_parts(self, state, inputs: BlockInputs):
+        """One ensemble block up to its last fold: ``(state, parts)``
+        (``k3.series_total``'s input); the wide formulation launches the
+        trace and then the wide series kernel."""
         if self.plan.block_impl == "wide":
             state, meter, pv_ = self.step_trace(state, inputs)
-            return (state, *wide.wide_series(meter, pv_))
+            return state, wide.wide_series_parts(meter, pv_)
         tables, cc_carry = self._windows(state, inputs)
         tilt, albedo, site = self.geometry_args(state)
-        carry, m_sum, p_sum = k3.block_step_series(
+        carry, parts = k3.block_step_series_parts(
             tables, inputs.rows_i, inputs.rows_f, state["k_scan"],
             state["k_meter"], state["carry"], self.config.meter_max_w, tilt,
             albedo, site=site, fleet=self.fleet_leaves(state),
             kernels=self.plan.kernel_impl, compute_dtype=self._cd,
             layout=self._draw_layout(), impl=self._impl)
-        return dict(state, carry=carry, cc_carry=cc_carry), m_sum, p_sum
+        return dict(state, carry=carry, cc_carry=cc_carry), parts
 
     def step_trace(self, state, inputs: BlockInputs):
         """One trace block: ``(state, meter, pv)``, time-major
@@ -770,7 +792,7 @@ class Simulation:
         ``self.state`` is then a block ahead of the yielded result
         (``self.state_block == block_index + 2``)."""
         self.state = (self.init_state() if state is None
-                      else _clone(state))
+                      else self._resume_tree(state, "state"))
         self.state_block = start_block
         group, g0 = self._inputs_ahead(start_block), start_block
         pend = None
@@ -822,7 +844,21 @@ class Simulation:
             state, m_sum, p_sum = self.step_series(state, inputs)
             return (state, *self._share_series(m_sum, p_sum))
 
+        if state is None and start_block == 0:
+            sched = self._slab_scheduler()
+            if sched is not None:
+                return sched.run_ensemble()
         return self._iter_blocks(state, start_block, step, make)
+
+    def series_parts(self) -> Iterator[tuple]:
+        """``run_ensemble`` of a fresh run before its last fold: per block
+        ``(offset, epoch, n_valid, parts)``, ``parts`` the ``(2, k, T)``
+        host numpy of ``step_series_parts`` (the slab scheduler's input)."""
+
+        def make(off, epoch, n_valid, parts):
+            return off, epoch, n_valid, parts
+
+        return self._iter_blocks(None, 0, self.step_series_parts, make)
 
     def run_reduced(self, state=None, on_block=None, acc=None,
                     start_block: int = 0):
@@ -830,8 +866,10 @@ class Simulation:
 
         Returns a dict of ``(n_chains,)`` numpy arrays, one per
         ``REDUCE_STATS`` entry.  ``state``/``acc``/``start_block`` resume a
-        run (``acc`` is required with ``start_block > 0``);
-        ``on_block(block_index, state, acc)`` runs after each block.
+        run (``acc`` is required with ``start_block > 0``; tensors, or a
+        checkpoint's numpy in the JAX layout); ``on_block(block_index,
+        state, acc)`` runs after each block.  A fresh run under a slabbing
+        plan runs as the slab scheduler's slabs (engine/slab.py).
 
         Blocks go in dispatch groups of ``plan.blocks_per_dispatch`` (the
         last one may be shorter): a group's host inputs are computed while
@@ -854,8 +892,18 @@ class Simulation:
             raise ValueError(
                 "resuming run_reduced needs the accumulator: pass acc= "
                 "alongside state=/start_block=")
-        state = self.init_state() if state is None else _clone(state)
-        acc = self.init_reduce_acc() if acc is None else _clone(acc)
+        if state is None and acc is None and start_block == 0:
+            sched = self._slab_scheduler()
+            if sched is not None:
+                reduced = sched.run_reduced(on_block=on_block)
+                self._last_acc = {k: torch.from_numpy(v)
+                                  for k, v in reduced.items()}
+                self._fleet_run = sched.fleet_run
+                return reduced
+        state = (self.init_state() if state is None
+                 else self._resume_tree(state, "state"))
+        acc = (self.init_reduce_acc() if acc is None
+               else self._resume_tree(acc, "acc"))
         self.state = state
         self.state_block = start_block
         bi, group = start_block, self._inputs_ahead(start_block)
@@ -982,6 +1030,119 @@ class Simulation:
         return self._share_stats(out)
 
     # ------------------------------------------------------------------
+    # checkpoints and slabs
+    # ------------------------------------------------------------------
+
+    def _slab_scheduler(self):
+        """The slab scheduler this run delegates to (engine/slab.py), or
+        None: the plan does not slab, the config is itself a slab, or a
+        caller cleared ``allow_slabs``."""
+        cfg = self.config
+        if (not self.allow_slabs or cfg.n_chains_total is not None
+                or not 0 < self.plan.slab_chains < cfg.n_chains):
+            return None
+        from tmhpvsim_torch.engine.slab import SlabScheduler
+
+        return SlabScheduler(cfg, self.plan, device=self.device)
+
+    def _resume_signature(self, what: str, key_dtype: str) -> dict:
+        """``{leaf path: (dtype, trailing shape)}`` of this build's state
+        (``what='state'``) or accumulator, from the table of its leaves
+        (no state is built); key leaves as ``key_dtype``."""
+        if what == "acc":
+            return {k: ("int32" if d == "i" else "float32", ())
+                    for k, (_, d) in REDUCE_STATS.items()}
+        sig = {k: (key_dtype, (rng.KEY_WIDTH[self._impl],))
+               for k in convert.KEY_LEAVES}
+        sig.update(cc_carry=("float32", ()), cc0=("float32", ()),
+                   cloudy_pair=("float32", (2,)))
+        sig.update({f"carry/{k}": ("float32", ())
+                    for k in convert.CARRY_LEAVES})
+        if self.local_config.site_grid is not None:
+            sig.update({f"site/{k}": ("float32", ()) for k in SITE_FIELDS})
+        fleet = ((("demand_scale", "demand_shift_w") if self._het_demand
+                  else ()) + (("pv_scale", "ac_limit_w") if self._het_power
+                              else ())
+                 + (("regime",) if self._het_regime else ())
+                 + (("cohort",) if self._n_cohorts else ()))
+        sig.update({f"fleet/{k}": (np.dtype(convert.FLEET_LEAVES[k]).name,
+                                   ()) for k in fleet})
+        return sig
+
+    def _check_resume_layout(self, tree, what: str = "state"):
+        """Refuse a resumed state or accumulator whose leaves are not this
+        build's (a hand-edited or foreign checkpoint), naming the missing,
+        unexpected and mistyped leaves.  Tensors are checked in the port's
+        layout (int64 keys), numpy in the JAX layout (uint32 key data);
+        the chain axis is checked on placement (``_place_resume``)."""
+        leaves = dict(_leaf_items(tree))
+        port = any(isinstance(v, torch.Tensor) for v in leaves.values())
+        want = self._resume_signature(what, "int64" if port else "uint32")
+        got = {k: (str(v.dtype).replace("torch.", ""), tuple(v.shape[1:]))
+               for k, v in leaves.items()}
+        if want != got:
+            changed = sorted(f"{k}: expected {want[k]}, got {got[k]}"
+                             for k in set(want) & set(got)
+                             if want[k] != got[k])
+            raise ValueError(
+                f"resume {what} does not match this build's layout: "
+                f"missing leaves {sorted(set(want) - set(got)) or '{}'}, "
+                f"unexpected leaves {sorted(set(got) - set(want)) or '{}'}, "
+                f"dtype/shape mismatches {changed or '{}'} — the "
+                "checkpoint was written by an incompatible build or "
+                "edited by hand")
+        return tree
+
+    def _place_resume(self, tree, what: str = "state"):
+        """A resumed state or accumulator as this run's own tensors on its
+        device: a checkpoint's numpy in the JAX layout through
+        ``engine/convert.py`` (key data checked against the run's key
+        implementation), tensors copied.  Every leaf must hold this
+        object's chains."""
+        if any(isinstance(v, torch.Tensor) for _, v in _leaf_items(tree)):
+            tree = _clone(tree, self.device)
+        elif what == "acc":
+            tree = convert.acc_from_numpy(tree, self.device)
+        else:
+            tree = convert.state_from_numpy(tree, self.device, self._impl)
+        n = self.local_config.n_chains
+        bad = sorted(k for k, v in _leaf_items(tree) if v.shape[:1] != (n,))
+        if bad:
+            raise ValueError(f"resume {what} leaves {bad} do not hold this "
+                             f"run's {n} chains")
+        return tree
+
+    def _resume_tree(self, tree, what: str):
+        return self._place_resume(self._check_resume_layout(tree, what),
+                                  what)
+
+    def host_local_tree(self, tree):
+        """The checkpointable view of a state or accumulator tree: this
+        object holds exactly the chains it checkpoints, so the tree
+        itself."""
+        return tree
+
+    def checkpoint_layout(self) -> dict:
+        """``layout`` of this object's checkpoints
+        (``checkpoint.save(layout=...)``): the global chains it holds; an
+        explicit slab reports its range of the notional whole run."""
+        from tmhpvsim_torch.parallel.distributed import chain_layout
+
+        cfg = self.config
+        total = cfg.n_chains_total or cfg.n_chains
+        lay = chain_layout(total)
+        if total != cfg.n_chains or cfg.chain_offset:
+            lay.update(chain_start=int(cfg.chain_offset),
+                       chain_stop=int(cfg.chain_offset + cfg.n_chains))
+        return lay
+
+    def resume_chain_slice(self):
+        """The global chains ``(start, stop)`` this process loads from a
+        whole-run checkpoint (``checkpoint.load_elastic``), or None for
+        all of them."""
+        return None
+
+    # ------------------------------------------------------------------
     # the hooks of a sharded run (parallel/mesh.py); here they do nothing
     # ------------------------------------------------------------------
 
@@ -997,6 +1158,11 @@ class Simulation:
     def _share_stats(self, stats: dict) -> dict:
         """The whole run's ``ensemble_stats`` of this object's."""
         return stats
+
+    def any_process(self, flag: bool) -> bool:
+        """True when ``flag`` is set on any process of the run (every
+        process must call it at the same point): here ``flag`` itself."""
+        return flag
 
     def mesh_doc(self) -> Optional[dict]:
         """The run report's ``mesh`` section: None for a run that is not
@@ -1029,11 +1195,21 @@ def resolve_chains(config: SimConfig) -> SimConfig:
     return config
 
 
-def _clone(tree):
-    """A private copy of a state/acc dict (the run updates it in place)."""
+def _clone(tree, device=None):
+    """A private copy of a state/acc dict (the run updates it in place),
+    on ``device`` when given."""
     if isinstance(tree, dict):
-        return {k: _clone(v) for k, v in tree.items()}
-    return tree.clone()
+        return {k: _clone(v, device) for k, v in tree.items()}
+    return tree.to(device, copy=True)
+
+
+def _leaf_items(tree, prefix=""):
+    """``(path, leaf)`` of a nested dict, paths '/'-joined."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaf_items(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
 
 
 def write_csv(path: str, blocks: Iterator[BlockResult], chain: int = 0,

@@ -829,16 +829,47 @@ def series_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
                  fleet: FleetLeaves | None = None, kernels: str = "exact",
                  compute_dtype: str = "f32", layout: str = "scan",
                  impl: str = "threefry2x32"):
-    """Plain K4 series: the shared body, then each second's cross-chain
-    sums of meter and pv (accumulated in float64, rounded once to
-    float32).  Returns ``(carry, meter_sum, pv_sum)``, each ``(T,)``;
-    padding seconds are summed too (the engine trims them)."""
+    """Plain K4 series: ``series_parts_plain``, then ``series_total``
+    (each second's cross-chain sums of meter and pv accumulated in
+    float64, rounded once to float32).  Returns ``(carry, meter_sum,
+    pv_sum)``, each ``(T,)``; padding seconds are summed too (the engine
+    trims them)."""
+    carry, parts = series_parts_plain(
+        tables, rows_i, rows_f, k_scan, k_meter, carry, meter_max_w,
+        surface_tilt, albedo, site, fleet, kernels, compute_dtype, layout,
+        impl)
+    out = series_total(parts)
+    return carry, out[0], out[1]
+
+
+def series_parts_plain(tables, rows_i, rows_f, k_scan, k_meter, carry,
+                       meter_max_w: float, surface_tilt, albedo,
+                       site: SiteGeometry | None = None,
+                       fleet: FleetLeaves | None = None,
+                       kernels: str = "exact", compute_dtype: str = "f32",
+                       layout: str = "scan", impl: str = "threefry2x32"):
+    """Plain K4 series up to its rounding: the shared body, then
+    ``(carry, parts)``, with ``parts`` ``(2, 1, T)`` the float64 sums of
+    meter | pv over chains."""
     carry, meter, ac, _, _ = _body_plain(
         tables, rows_i, rows_f, k_scan, k_meter, carry, meter_max_w,
         surface_tilt, albedo, site, fleet, kernels, compute_dtype,
         layout=layout, impl=impl)
-    return (carry, meter.double().sum(1).float(),
-            ac.double().sum(1).float())
+    return carry, torch.stack([meter.double().sum(1),
+                               ac.double().sum(1)])[:, None]
+
+
+def series_total(parts):
+    """The per-second sums over chains, ``(2, T)`` float32, of series
+    parts ``(2, k, T)``: the card's float32 per-CTA partials (summed as
+    ``series_sum`` sums them) or the plain version's float64 sums (added
+    and rounded once).  The parts of consecutive chain ranges, joined on
+    axis 1 in chain order, give the sums of the whole range: the bits of
+    one launch over it on the CPU, and on the card when every range but
+    the last holds a whole number of CTAs (``THREADS`` chains)."""
+    if parts.dtype == torch.float64:
+        return parts.sum(1).float()
+    return series_sum(parts)
 
 
 def series_fold_plain(meter, ac):
@@ -1674,23 +1705,43 @@ def series_partials_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry,
     return carry, part
 
 
+def series_strands(parts, strands=None, first: int = 0):
+    """The first stage of ``series_sum``'s fixed order: series parts
+    ``(2, k, T)`` added, in float64 and in index order, to strands ``(2,
+    SUM_STRANDS, T)`` (new ones from 0.0, or ``strands``, updated in
+    place): part ``c`` to strand ``(first + c) % SUM_STRANDS``.  With
+    ``first`` the number of parts folded before, consecutive chain
+    ranges fold as one range does."""
+    p = parts.double()
+    if strands is None:
+        strands = torch.zeros((p.shape[0], SUM_STRANDS, p.shape[2]),
+                              dtype=torch.float64, device=p.device)
+    c = 0
+    while c < p.shape[1]:
+        j = (first + c) % SUM_STRANDS
+        w = min(SUM_STRANDS - j, p.shape[1] - c)
+        strands[:, j:j + w] += p[:, c:c + w]
+        c += w
+    return strands
+
+
+def strands_total(strands):
+    """The second stage: the strands ``(2, SUM_STRANDS, T)`` added in
+    index order from 0.0 and rounded once, ``(2, T)`` float32."""
+    tot = torch.zeros((strands.shape[0], strands.shape[2]),
+                      dtype=torch.float64, device=strands.device)
+    for j in range(SUM_STRANDS):
+        tot = tot + strands[:, j]
+    return tot.float()
+
+
 def series_sum_plain(part):
     """Plain cross-CTA sum: ``(2, n_ctas, T)`` partials -> ``(2, T)``,
     in float64 in the kernel's order, rounded once: strand ``j`` of
     ``SUM_STRANDS`` adds partials ``j, j + SUM_STRANDS, ...`` from 0.0,
     then the strands are added in index order from 0.0, so the kernel
     equals it bit for bit."""
-    p = part.double()
-    x = torch.zeros((p.shape[0], SUM_STRANDS, p.shape[2]),
-                    dtype=torch.float64, device=p.device)
-    for k in range(0, p.shape[1], SUM_STRANDS):
-        blk = p[:, k:k + SUM_STRANDS]
-        x[:, :blk.shape[1]] = x[:, :blk.shape[1]] + blk
-    tot = torch.zeros((p.shape[0], p.shape[2]), dtype=torch.float64,
-                      device=p.device)
-    for j in range(SUM_STRANDS):
-        tot = tot + x[:, j]
-    return tot.float()
+    return strands_total(series_strands(part))
 
 
 _SUM_ARGTYPES = [ctypes.c_int, ctypes.c_int] + [_P] * 4
@@ -1720,18 +1771,6 @@ def series_sum(part):
     build.check(rc, "series_sum")
     K4_SUM.launches += 1
     return out
-
-
-def _series_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry,
-                 meter_max_w, surface_tilt, albedo, site, fleet=None,
-                 kernels="exact", compute_dtype="f32", layout="scan",
-                 impl="threefry2x32"):
-    carry, part = series_partials_cuda(tables, rows_i, rows_f, k_scan,
-                                       k_meter, carry, meter_max_w,
-                                       surface_tilt, albedo, site, fleet,
-                                       kernels, compute_dtype, layout, impl)
-    out = series_sum(part)
-    return carry, out[0], out[1]
 
 
 def _trace_cuda(tables, rows_i, rows_f, k_scan, k_meter, carry,
@@ -1937,13 +1976,33 @@ def block_step_series(tables, rows_i, rows_f, k_scan, k_meter, carry,
                       kernels: str = "exact", compute_dtype: str = "f32",
                       layout: str = "scan", impl: str = "threefry2x32"):
     """One ensemble block: ``(carry, meter_sum, pv_sum)``, the sums
-    ``(T,)`` over chains per second.  On the card a fixed-order reduction
-    (per CTA, then over CTAs in index order): a repeated run gives the
-    same bits."""
-    return _dispatch(k_scan, _series_cuda, series_plain, tables, rows_i,
-                     rows_f, k_scan, k_meter, carry, meter_max_w,
-                     surface_tilt, albedo, site, fleet, kernels=kernels,
-                     compute_dtype=compute_dtype, layout=layout, impl=impl)
+    ``(T,)`` over chains per second: ``block_step_series_parts``, then
+    ``series_total``.  On the card a fixed-order reduction (per CTA, then
+    over CTAs in index order): a repeated run gives the same bits."""
+    carry, parts = block_step_series_parts(
+        tables, rows_i, rows_f, k_scan, k_meter, carry, meter_max_w,
+        surface_tilt, albedo, site, fleet, kernels=kernels,
+        compute_dtype=compute_dtype, layout=layout, impl=impl)
+    out = series_total(parts)
+    return carry, out[0], out[1]
+
+
+def block_step_series_parts(tables, rows_i, rows_f, k_scan, k_meter,
+                            carry, meter_max_w: float, surface_tilt,
+                            albedo, site: SiteGeometry | None = None,
+                            fleet: FleetLeaves | None = None,
+                            kernels: str = "exact",
+                            compute_dtype: str = "f32",
+                            layout: str = "scan",
+                            impl: str = "threefry2x32"):
+    """``block_step_series`` before its last fold: ``(carry, parts)`` for
+    ``series_total`` (the slab scheduler joins the slabs' parts before
+    it folds them, so that a slabbed run keeps the unslabbed sums)."""
+    return _dispatch(k_scan, series_partials_cuda, series_parts_plain,
+                     tables, rows_i, rows_f, k_scan, k_meter, carry,
+                     meter_max_w, surface_tilt, albedo, site, fleet,
+                     kernels=kernels, compute_dtype=compute_dtype,
+                     layout=layout, impl=impl)
 
 
 def block_step_trace(tables, rows_i, rows_f, k_scan, k_meter, carry,

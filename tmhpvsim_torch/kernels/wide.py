@@ -191,14 +191,22 @@ def wide_series_partials_cuda(meter, pv):
     return part
 
 
-def wide_series(meter, pv):
-    """Per second the sums over chains of one block's ``(T, n)`` meter
-    and pv: ``(meter_sum, pv_sum)``, each ``(T,)``.  On the card a
-    fixed-order reduction (per CTA, then ``series_sum`` over CTAs in
-    index order): a repeated run gives the same bits."""
+def wide_series_parts(meter, pv):
+    """``wide_series`` before its last fold: ``(2, k, T)`` parts for
+    ``block_step.series_total`` (the card's per-CTA partials, the plain
+    version's float64 sums)."""
     if meter.device.type == "cuda":
-        out = k3.series_sum(wide_series_partials_cuda(meter, pv))
-        return out[0], out[1]
+        return wide_series_partials_cuda(meter, pv)
     if meter.device.type != "cpu":
         raise ValueError(f"unsupported device {meter.device}")
-    return wide_series_plain(meter, pv)
+    return torch.stack([meter.double().sum(1), pv.double().sum(1)])[:, None]
+
+
+def wide_series(meter, pv):
+    """Per second the sums over chains of one block's ``(T, n)`` meter
+    and pv: ``(meter_sum, pv_sum)``, each ``(T,)``: ``wide_series_parts``,
+    then ``block_step.series_total``.  On the card a fixed-order
+    reduction (per CTA, then ``series_sum`` over CTAs in index order): a
+    repeated run gives the same bits."""
+    out = k3.series_total(wide_series_parts(meter, pv))
+    return out[0], out[1]

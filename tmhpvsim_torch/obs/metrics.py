@@ -15,6 +15,7 @@ from __future__ import annotations
 import bisect
 import contextlib
 import threading
+import time
 from typing import Iterable, Optional
 
 #: histogram bucket upper bounds (seconds; the +Inf bucket is implicit)
@@ -180,6 +181,15 @@ class MetricsRegistry:
     def histogram(self, name: str,
                   buckets: Iterable[float] = DEFAULT_BUCKETS) -> Histogram:
         return self._get(name, Histogram, buckets=buckets)
+
+    @contextlib.contextmanager
+    def timed(self, name: str):
+        """Wall-time the scope into histogram ``name``."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.histogram(name).observe(time.perf_counter() - t0)
 
     def snapshot(self) -> dict:
         """JSON-able state of every metric."""

@@ -10,7 +10,11 @@ package's ``validate_report``) pick it out and check it.  The port fills
 identity, not its rows), ``plan`` (the resolved plan in the JAX plan
 echo's keys), ``fleet`` (``fleet_summary()``), ``precision``
 (``precision_doc()``) and ``telemetry`` (the drift sentinel's report, when
-telemetry observed the run); a streaming run (``pvsim --backend asyncio``,
+telemetry observed the run), and from the run's metrics registry
+``checkpoint`` (saves, restores, generations, verify failures and
+fallbacks, the async writer's counts, preemption snapshots), ``slabs``
+and ``resilience`` (resumes), as the JAX ``RunReport.attach_metrics``
+derives them; a streaming run (``pvsim --backend asyncio``,
 :func:`streaming_report`) fills ``metrics`` (the registry's snapshot),
 ``streaming`` (the join's latencies and the funnel, retry and broker
 counters) and, paced at 1 Hz, ``realtime``; every other section is None.
@@ -289,20 +293,89 @@ def config_doc(config) -> Optional[dict]:
 
 
 def plan_doc(plan) -> Optional[dict]:
-    """The resolved plan in the JAX plan echo's keys: the port runs no
-    chain slabs and has no autotuner."""
+    """The resolved plan in the JAX plan echo's keys (the port has no
+    autotuner: its source is 'static')."""
     if plan is None:
         return None
     return {"block_impl": plan.block_impl,
             "scan_unroll": int(plan.scan_unroll),
             "stats_fusion": plan.stats_fusion,
-            "slab_chains": None,
+            "slab_chains": int(plan.slab_chains),
             "blocks_per_dispatch": int(plan.blocks_per_dispatch),
             "compute_dtype": plan.compute_dtype,
             "kernel_impl": plan.kernel_impl,
             "rng_batch": plan.rng_batch,
             "geom_stride": int(plan.geom_stride),
             "source": "static"}
+
+
+#: the ``checkpoint`` section's keys beyond the first four, with the
+#: registry metric each reads (present only when the run used it)
+_CHECKPOINT_EXTRA = (
+    ("generations", "gauges", "checkpoint.generations"),
+    ("latest_generation", "gauges", "checkpoint.latest_generation"),
+    ("verify_failures", "counters", "checkpoint.verify_fail_total"),
+    ("fallbacks", "counters", "checkpoint.fallback_total"),
+    ("async_saves", "counters", "checkpoint.async_saves_total"),
+    ("async_dropped", "counters", "checkpoint.async_dropped_total"),
+    ("async_write_failures", "counters",
+     "checkpoint.async_write_failures_total"),
+    ("async_queue_depth", "gauges", "checkpoint.async_queue_depth"),
+    ("preempt_snapshots", "counters", "checkpoint.preempt_snapshots_total"),
+)
+
+
+def registry_sections(snap: dict) -> dict:
+    """The ``checkpoint``, ``slabs`` and ``resilience`` sections of a
+    registry snapshot (the JAX ``RunReport.attach_metrics``; each None
+    when the run recorded none of its metrics)."""
+    hists = snap.get("histograms", {})
+    gauges = snap.get("gauges", {})
+    counters = snap.get("counters", {})
+    out = {"checkpoint": None, "slabs": None, "resilience": None}
+    save = hists.get("checkpoint.save_s")
+    restore = hists.get("checkpoint.restore_s")
+    if save or restore or any(k.startswith("checkpoint.")
+                              for k in list(counters) + list(gauges)):
+        sec = {"saves": (save or {}).get("count", 0),
+               "save_total_s": (save or {}).get("sum", 0.0),
+               "restores": (restore or {}).get("count", 0),
+               "restore_total_s": (restore or {}).get("sum", 0.0)}
+        src = {"gauges": gauges, "counters": counters}
+        for key, kind, metric in _CHECKPOINT_EXTRA:
+            if metric in src[kind]:
+                sec[key] = int(src[kind][metric])
+        out["checkpoint"] = sec
+    if "slab.total" in gauges:
+        out["slabs"] = {"completed": int(gauges.get("slab.completed", 0)),
+                        "total": int(gauges["slab.total"])}
+    if any(k.startswith(("resilience.", "faults."))
+           for k in list(counters) + list(gauges)):
+        states = {0: "closed", 1: "half_open", 2: "open"}
+        pre = "resilience.breaker_state."
+        res = {
+            "resumes": int(counters.get("resilience.resumed_total", 0)),
+            "restarts": int(gauges.get("resilience.supervised_restarts",
+                                       0)),
+            "retries": int(counters.get("resilience.retries_total", 0)),
+            "giveups": int(counters.get("resilience.giveups_total", 0)),
+            "breaker": {
+                "opens": int(_sum_prefixed(
+                    counters, "resilience.breaker_open_total.")),
+                "rejected": int(_sum_prefixed(
+                    counters, "resilience.breaker_rejected_total.")),
+                "states": {k[len(pre):]: states.get(int(v), str(v))
+                           for k, v in gauges.items()
+                           if k.startswith(pre)}},
+            "faults_injected": int(counters.get("faults.injected_total", 0)),
+            "faults_by_point": {k[len("faults.injected."):]: int(v)
+                                for k, v in counters.items()
+                                if k.startswith("faults.injected.")},
+        }
+        if "resilience.resumed_block" in gauges:
+            res["resumed_block"] = int(gauges["resilience.resumed_block"])
+        out["resilience"] = res
+    return out
 
 
 def simulation_report(app: str, sim) -> dict:
@@ -313,8 +386,10 @@ def simulation_report(app: str, sim) -> dict:
     block); a sharded run (``parallel.ShardedSimulation``) adds ``mesh``
     (``sim.mesh_doc()``, None otherwise) and, over more than one process
     (``sim.world``), ``processes``: every process's metrics snapshot in
-    rank order (a collective, so every process calls this).  Every other
-    section is None."""
+    rank order (a collective, so every process calls this); the
+    ``checkpoint``, ``slabs`` and ``resilience`` sections come from the
+    run's metrics (``registry_sections``).  Every other section is
+    None."""
     doc = {k: None for k in _TOP_SCHEMA}
     doc.update(schema_version=REPORT_SCHEMA_VERSION, kind=REPORT_KIND,
                app=app,
@@ -324,7 +399,8 @@ def simulation_report(app: str, sim) -> dict:
                plan=plan_doc(sim.plan), fleet=sim.fleet_summary(),
                precision=sim.precision_doc(),
                telemetry=(None if sim.sentinel is None
-                          else sim.sentinel.report()))
+                          else sim.sentinel.report()),
+               **registry_sections(sim.metrics.snapshot()))
     mesh = sim.mesh_doc()
     if mesh is not None:
         doc["mesh"] = mesh

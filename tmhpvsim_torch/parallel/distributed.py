@@ -176,6 +176,26 @@ def local_chain_slice(n_chains: int, rank: Optional[int] = None,
     return slice(rank * per, (rank + 1) * per)
 
 
+def chain_layout(n_chains: int, sharded: bool = False) -> dict:
+    """Where a process's checkpoint file sits in the run
+    (``meta['layout']``, engine/checkpoint.py): which global chains
+    ``[chain_start, chain_stop)`` of ``n_chains`` it holds, the processes
+    of the group and the cards of the run.  A plain run holds every chain
+    on one card; a sharded one (``sharded``) holds its rank's share on one
+    card a process.  Placement only, never identity: a resume under
+    another layout reslices (``checkpoint.load_elastic``)."""
+    rank, size = world()
+    lay = {"n_chains": int(n_chains), "chain_start": 0,
+           "chain_stop": int(n_chains), "process_count": size,
+           "process_index": rank, "n_devices": 1}
+    if sharded:
+        lay.update(n_devices=size, mesh_shape=[size])
+        if size > 1:
+            sl = local_chain_slice(int(n_chains), rank, size)
+            lay.update(chain_start=sl.start, chain_stop=sl.stop)
+    return lay
+
+
 def carve_config(config, offset: int, n: int, total=None):
     """Chain-range sub-view ``[offset, offset + n)`` of ``config`` (a
     config whose chain axis is resolved, ``engine.simulation.
@@ -345,6 +365,19 @@ def allreduce_sums(*parts: torch.Tensor) -> tuple:
         out.append(flat[o:o + p.numel()].reshape(p.shape))
         o += p.numel()
     return tuple(out)
+
+
+def any_rank(flag: bool, device=None) -> bool:
+    """True when ``flag`` is set on any rank of the default group: one
+    ``all_reduce`` of one integer (on ``device`` under NCCL, on the CPU
+    under gloo); ``flag`` itself without a group.  Every rank must call
+    it."""
+    if not _grouped():
+        return flag
+    dev = device if dist.get_backend() == "nccl" else "cpu"
+    t = torch.tensor([int(flag)], dtype=torch.int32, device=dev)
+    _all_reduce(t, "max")
+    return bool(t.item())
 
 
 def allreduce_stats(stats: dict, kinds: dict, device) -> dict:

@@ -26,10 +26,14 @@ Every rank runs every block and so reaches the same collectives in the
 same order.  ``self.config`` is the whole run's config (what the CLI
 reads back); ``self.local_config`` the rank's carve.
 
+Checkpoints are per process: a rank saves its own chains (with the
+layout of its global range, ``checkpoint_layout``), resumes from its own
+file, or takes its range of a whole-run checkpoint or of another process
+count's files (``resume_chain_slice``, ``checkpoint.load_elastic``).
+
 Left to the JAX package (ROADMAP): ``prng_impl`` 'rbg' and 'unsafe_rbg'
 (there a shard's batch decides the draws), the 2-D ``(chains,
-scenario)`` mesh, sharded serving, per-process checkpoints and the
-per-mesh autotuner.
+scenario)`` mesh, sharded serving and the per-mesh autotuner.
 """
 
 from __future__ import annotations
@@ -41,6 +45,11 @@ from tmhpvsim_torch.engine.simulation import (REDUCE_STATS, BlockResult,
                                               Simulation, resolve_chains)
 from tmhpvsim_torch.kernels import wide
 from tmhpvsim_torch.parallel import distributed
+
+
+def _map_leaves(tree, fn):
+    return {k: _map_leaves(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
 
 
 class ShardedSimulation(Simulation):
@@ -74,6 +83,32 @@ class ShardedSimulation(Simulation):
                          device=distributed.rank_device(device))
         self.config = whole
         self.rank, self.world, self.chain_slice = rank, size, sl
+        # the ranks partition the chains themselves
+        self.allow_slabs = False
+
+    def checkpoint_layout(self) -> dict:
+        """The rank's global chain range, the group's processes and its
+        cards (one a process)."""
+        return distributed.chain_layout(self.config.n_chains, sharded=True)
+
+    def resume_chain_slice(self):
+        """The rank's global chains ``(start, stop)`` of a whole-run
+        checkpoint; None in a world of one (it holds every chain)."""
+        if self.world == 1:
+            return None
+        return self.chain_slice.start, self.chain_slice.stop
+
+    def _place_resume(self, tree, what: str = "state"):
+        """A tree of the whole run's chains (a whole-run state handed to
+        every rank) is cut to the rank's chains first; a tree of the
+        rank's chains (its own checkpoint, or ``resume_chain_slice`` of
+        one) is placed as it is."""
+        n = self.config.n_chains
+        if self.world > 1:
+            sl = self.chain_slice
+            tree = _map_leaves(
+                tree, lambda v: v[sl] if v.shape[:1] == (n,) else v)
+        return super()._place_resume(tree, what)
 
     def mesh_doc(self) -> dict:
         """The run report's ``mesh`` section."""
@@ -90,6 +125,9 @@ class ShardedSimulation(Simulation):
 
     def _share_stats(self, stats: dict) -> dict:
         return distributed.allreduce_stats(stats, REDUCE_STATS, self.device)
+
+    def any_process(self, flag: bool) -> bool:
+        return distributed.any_rank(flag, self.device)
 
     def run_blocks(self, state=None, start_block: int = 0
                    ) -> Iterator[BlockResult]:
