@@ -37,8 +37,8 @@ Phases (any failure exits non-zero and prints no result line):
    global atomics, and with 30000 bins, where the residual histogram and
    the exceedance slots count through global atomics too; with ten
    exceedance thresholds, past the eight that count in registers, with
-   telemetry full and shared histograms and at 30000 bins, each past the
-   first on the second block; K9 is two launches, the acc producer and
+   telemetry full and shared histograms and at 30000 bins, each on the
+   second block; K9 is two launches, the acc producer and
    the observer fold) and K8+K9 (both at
    level full with the fleet's cohorts, path F's two launches) on path
    F's night and noon blocks: the acc producer against its plain version
@@ -76,25 +76,23 @@ Phases (any failure exits non-zero and prints no result line):
    (path F-L's producer and the fold, checked as K8+K9 above); and the port with both
    levers at the JAX suite's ``small_config`` shape (shared site, a
    4-site grid, a 12-site fleet) bit-identical to the host's plain run;
-   then the K4 merges on the K4 trace of 2 daylight blocks x 65536
-   chains: the wide fold (acc only; acc with telemetry; acc with
+   then the K4 merges on the K4 trace of the second of 2 daylight blocks
+   x 65536 chains: the wide fold (acc only; acc with telemetry; acc with
    telemetry and analytics on path F's fleet with its 3 cohorts; analytics
    with 64 cohorts and with 30000 bins, the global-memory branches, and
-   with ten exceedance thresholds in shared and in global memory, each
-   past F-W's launch on the second block)
+   with ten exceedance thresholds in shared and in global memory)
    against its plain version (statistics, per-chain leaves, counts,
    histograms and extrema bit for bit, observer sums within 1e-6 of the
    float64 plain sums, a rerun bit-identical; the acc-only fold's seven
-   statistics bit for bit) and against K3's acc on the same blocks (bit
+   statistics bit for bit) and against K3's acc on the same block (bit
    for bit), the wide series against its plain version (rtol 1e-6, a
    rerun bit-identical) and the scan's series kernel; and the wide fused
    topology (the acc launch) on 2 blocks against path R's; then K12 (the
    block step under ``compute_dtype='bf16'``) against its plain bf16
-   version at 65536 chains x 2 daylight blocks, bit for bit: acc on a
+   version at 65536 chains x one daylight block, bit for bit: acc on a
    shared site, on path B's grid and, strided with the table set, on path
-   B's grid (the grid's two on the first block); the series (sums rtol
-   1e-6) and the trace on a shared site, the trace on path B's grid (the
-   first block);
+   B's grid; the series (sums rtol 1e-6) and the trace on a shared site,
+   the trace on path B's grid;
    K8 + K9 on path F's fleet (path F-H's producer and the fold, checked
    as K8+K9 above);
    a difference prints its size in bf16 ULP and the bf16 step it starts
@@ -1611,8 +1609,9 @@ def phase_k9(dev):
         sums = [(f"{k}_{f}", f"{k}_{f}") for f in ("meter", "pv", "residual")
                 for k in ("sum", "cov_sum", "cohort_sum")]
         events = 0
-        # the first run on both blocks, the other branches on the second
-        for ins, tables in (blocks if j == 0 else blocks[-1:]):
+        # every run on the second check block (the first only advances
+        # the windows' carry)
+        for ins, tables in blocks[-1:]:
             head = head_of(state, ins, tables)
             common = (cfg.duration_s, mw, None, None)
             _, _, out_k = k3.block_step_obs(
@@ -1652,8 +1651,8 @@ def phase_k9(dev):
         report.append(f"{label}: {nl} per-chain leaves, every count, "
                       f"histogram and extremum bit-identical, {events} LOLP "
                       "events")
-    print(f"K9 vs plain on 2 blocks x {n} fleet sites (the runs past the "
-          f"first on the second; site geometry, level full, capacity "
+    print(f"K9 vs plain on the second of 2 blocks x {n} fleet sites (site "
+          f"geometry, level full, capacity "
           f"{K9_CAPACITY} W, lolp_k {K9_LOLP_K}): "
           + "; ".join(report) + f"; float sums within {rel:.3g} "
           f"(relative; {err:.3g} absolute) of the float64 plain sums; "
@@ -3686,13 +3685,15 @@ def check_wide_fold(label, sim, traces, obs, dur):
 
 def phase_k4m(dev):
     """K4m fold and series against their plain versions on the K4 trace
-    of 2 daylight blocks x 65536 chains: acc only (and against K3's acc on
+    of the second of 2 daylight blocks x 65536 chains (the first's trace
+    only gives it its carry): acc only (and against K3's acc on
     the same blocks), acc with TEL, acc with TEL + FLT on path F's fleet
     (level full, 3 cohorts), FLT with 64 cohorts and with 30000 bins (the
     global-memory branches); the series against its plain version and
     against the scan's series kernel on the same blocks."""
     cfg = SimConfig(**dict(HEADLINE, start=CHECK_START))
     sim, state, traces = wide_traces(cfg, dev)
+    traces = traces[-1:]
     dur, mw = cfg.duration_s, cfg.meter_max_w
     tilt, alb, _ = sim.geometry_args(state)
     report = []
@@ -3755,6 +3756,7 @@ def phase_k4m(dev):
     fcfg = SimConfig(**dict(HEADLINE, start=CHECK_START, fleet=fp,
                             telemetry="full", analytics="full"))
     fsim, fstate, ftraces = wide_traces(fcfg, dev)
+    ftraces = ftraces[-1:]
     n = fsim.config.n_chains
     params = dataclasses.replace(fsim._fleet_params, capacity_w=K9_CAPACITY,
                                  lolp_k=K9_LOLP_K)
@@ -3787,9 +3789,7 @@ def phase_k4m(dev):
              k3.Observers(analytics="full", params=dataclasses.replace(
                  wide_bins, thresholds=K9_MANY_THR), cohort=own[0],
                  n_cohorts=own[1], per_chain=True), (False, False))):
-        # F-W's launch on both blocks, the other branches on the second
-        traces = ftraces if label.endswith("(path F-W's launch)") \
-            else ftraces[-1:]
+        traces = ftraces
         prm, C = obs.params, obs.n_cohorts
         hist_bytes = 4 * (prm.bins + len(prm.thresholds) + 3)
         coh_bytes = 4 * C * (prm.bins + 2)
@@ -3803,22 +3803,22 @@ def phase_k4m(dev):
         rel, err, stat_err = max(rel, r), max(err, e), max(stat_err, se)
         report.append(f"{label}: {same}/{7 * len(traces)} statistics "
                       f"bit-identical, {events} LOLP events")
-    print(f"K4m fold vs plain on the K4 trace of 2 blocks x {n} chains "
-          f"(the fleet's branches past F-W's launch on the second; "
-          f"capacity {K9_CAPACITY} W, lolp_k {K9_LOLP_K} for FLT): "
+    print(f"K4m fold vs plain on the K4 trace of the second of 2 blocks x "
+          f"{n} chains (capacity {K9_CAPACITY} W, lolp_k {K9_LOLP_K} for "
+          "FLT): "
           + "; ".join(report) + f"; statistics' sums within rtol 1e-6 (max "
           f"abs {stat_err:.3g}), every per-chain leaf, count, histogram and "
           f"extremum bit-identical, observer sums within {rel:.3g} "
           f"(relative; {err:.3g} absolute) of the float64 plain sums; "
           "reruns bit-identical")
-    print(f"K4m fold on the trace vs K3's acc on the same 2 blocks: "
-          f"{k3_same}/14 statistics bit-identical, {k3_chains}/"
-          f"{2 * cfg.n_chains} chains with every float statistic "
+    print(f"K4m fold on the trace vs K3's acc on the same block: "
+          f"{k3_same}/7 statistics bit-identical, {k3_chains}/"
+          f"{cfg.n_chains} chains with every float statistic "
           "bit-identical")
-    print(f"K4m series vs plain on 2 blocks: per-second sums within rtol "
-          f"1e-6 (max abs {s_err:.3g} W), a rerun bit-identical; "
-          f"{s_same}/4 per-second series bit-identical to the scan's "
-          "series kernel on the same blocks")
+    print(f"K4m series vs plain on the same block: per-second sums within "
+          f"rtol 1e-6 (max abs {s_err:.3g} W), a rerun bit-identical; "
+          f"{s_same}/2 per-second series bit-identical to the scan's "
+          "series kernel on the same block")
     return stat_err, (rel, err), s_err
 
 
@@ -4171,8 +4171,7 @@ def k12_where(head, carry, mw, tilt, alb, site, fleet, ks, pv_k):
 
 def phase_k12(dev):
     """K12 against its plain bf16 version at the main paths' shape,
-    65536 chains x 1080 s, 2 daylight blocks (the site grid's and the
-    strided runs, and the grid's trace: the first of them), bit for bit:
+    65536 chains x 1080 s, on one daylight block, bit for bit:
     the acc
     step with telemetry light, the launch paths R-H, B-H and B-HL make
     (the plan raises telemetry under bf16), on a shared site (the exact
@@ -4190,7 +4189,7 @@ def phase_k12(dev):
     held to float64)."""
     errs = {}
     for key, label, extra, depth in (
-            ("K12", "acc + K8 light, shared site", {}, 2),
+            ("K12", "acc + K8 light, shared site", {}, 1),
             ("K12N", "acc + K8 light, shared site, 00:00",
              dict(start=HEADLINE["start"]), 1),
             ("K12B", "acc + K8 light, site grid", dict(site_grid=grid_b()),
@@ -4281,7 +4280,7 @@ def phase_k12(dev):
     carry_s, carry_sp = clone(state["carry"]), clone(state["carry"])
     carry_t, carry_tp = clone(state["carry"]), clone(state["carry"])
     err = t_err = 0.0
-    for ins, tables in blocks:
+    for ins, tables in blocks[:1]:
         head = head_of(state, ins, tables)
         start = clone(carry_t)
         carry_s, part = k3.series_partials_cuda(*head, carry_s, mw, tilt, alb,
@@ -4308,7 +4307,7 @@ def phase_k12(dev):
                              "exact", pk))
         check_same("K12 trace renewal carry", carry_t, carry_tp)
         del mk, pk, mp, pp
-    print(f"K12 series and trace vs plain on 2 blocks x {cfg.n_chains} "
+    print(f"K12 series and trace vs plain on 1 block x {cfg.n_chains} "
           f"chains: per-second sums within rtol 1e-6 (max abs {err:.3g} W), "
           "every trace value and both renewal carries bit-identical")
     # the trace on path B's grid: the wide formulation's producer there
@@ -7293,6 +7292,249 @@ def phase_path_r2ck(dev, reduced_r):
         shutil.rmtree(d, ignore_errors=True)
 
 
+#: path G-T's command line: path G-W's shape through the tuner (the
+#: flags the JAX README's autotuner recipe types)
+PATH_GT_ARGS = ["--output", "reduce", "--chains", "4096", "--duration",
+                "3600", "--no-realtime", "--start", CHECK_START, "--tune",
+                "auto", "--compile-cache"]
+TUNE_TIMEOUT_S = 300
+
+
+def tune_rank(rank: int, d: str) -> int:
+    """One rank of path R-2T (``chip_smoke.py --tune-rank R DIR``): path
+    R-2's two gloo ranks on the card's CUDA tensors, joined through a file
+    in DIR, each building ``ShardedSimulation(SimConfig(**HEADLINE,
+    tune='auto'))`` with the plan cache of ``TMHPVSIM_AUTOTUNE_CACHE``
+    (the phase's fresh file).  The grid is narrowed to one unroll and
+    stage 2 collapsed, so rank 0's probes stay short; writes the rank's
+    plan, probes and launches to DIR/rank{R}.json."""
+    import datetime as _dt
+
+    import torch.distributed as dist
+
+    from tmhpvsim_torch.engine import autotune
+    from tmhpvsim_torch.parallel import ShardedSimulation
+
+    autotune.CANDIDATE_UNROLLS = (8,)
+    autotune.CANDIDATE_COMPUTE_DTYPES = ("f32",)
+    autotune.CANDIDATE_KERNEL_IMPLS = ("exact",)
+    autotune.CANDIDATE_RNG_BATCHES = ("scan",)
+    autotune.CANDIDATE_GEOM_STRIDES = (1,)
+    torch.cuda.set_device(torch.device("cuda", 0))
+    dist.init_process_group("gloo", init_method=f"file://{d}/tune.rdv",
+                            world_size=2, rank=rank,
+                            timeout=_dt.timedelta(seconds=TUNE_TIMEOUT_S))
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    sim = ShardedSimulation(SimConfig(**dict(HEADLINE, tune="auto")))
+    wall = time.perf_counter() - t0
+    with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+        json.dump({"plan": dataclasses.asdict(sim.plan),
+                   "probes": autotune.PROBE_COUNT, "wall_s": wall,
+                   "launches": {k: v for k, v in kernels.counts().items()
+                                if v}}, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_tune(dev, reduced_r):
+    """The runtime autotuner (engine/autotune.py) through its entry
+    points, with the plan cache in a fresh file
+    (``TMHPVSIM_AUTOTUNE_CACHE``): (a) ``tune='force'`` at path R's
+    shape, 65536 chains x 1080 s: every candidate of the structural grid
+    and every sentinel-gated stage-2 variant, each candidate's rate,
+    gate verdict and first-dispatch seconds, the winner, the probes, the
+    grid's wall and the gates' seconds; no candidate may have an error;
+    (b) ``Simulation(tune='auto')`` at the same key: no probe, the same
+    plan from the cache; (c) path R-TU, ``run_reduced`` under that plan:
+    a float32 / exact / stride-1 winner gives path R's rows bit for bit,
+    a lever's winner passes its strict drift sentinel; (d) path R-2T,
+    path R-2's two gloo ranks under ``tune='auto'`` (``tune_rank``):
+    both hold one plan, rank 1's from the broadcast, and rank 1 probes
+    nothing; (e) path G-T, ``pvsim`` at path G-W's shape with ``--tune
+    auto --run-report`` and ``--compile-cache`` the build directory, run
+    twice as processes of their own: the second report's plan from the
+    cache, its executor section with no cold build and every library
+    warm."""
+    import shutil
+    import tempfile
+
+    from tmhpvsim_torch.engine import autotune
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    old_env = os.environ.get("TMHPVSIM_AUTOTUNE_CACHE")
+    os.environ["TMHPVSIM_AUTOTUNE_CACHE"] = os.path.join(d, "autotune.json")
+    real_gate = autotune._sentinel_gate
+    gate_s = []
+
+    def gate(config, plan, device=None):
+        t0 = time.perf_counter()
+        try:
+            return real_gate(config, plan, device=device)
+        finally:
+            gate_s.append(time.perf_counter() - t0)
+
+    try:
+        # (a) the whole grid at path R's shape
+        cfg = SimConfig(**dict(HEADLINE, tune="force"))
+        autotune._sentinel_gate = gate
+        try:
+            p0 = autotune.PROBE_COUNT
+            torch.cuda.synchronize()
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            plan = autotune.resolve_plan(cfg, device=dev)
+            torch.cuda.synchronize()
+            grid_s = time.perf_counter() - t0
+        finally:
+            autotune._sentinel_gate = real_gate
+        probes = autotune.PROBE_COUNT - p0
+        launches = {k: v for k, v in kernels.counts().items() if v}
+        recs = autotune.cached_candidates(cfg, device=dev)
+        n_grid = len(autotune.candidate_plans(cfg))
+        bad = [r for r in recs if "error" in r]
+        if bad:
+            fail(f"tune: {len(bad)} candidates failed: {bad}")
+        if plan.source != "probe" or len(recs) < n_grid or \
+                probes != sum("rate" in r for r in recs):
+            fail(f"tune: plan {plan}, {len(recs)} records of a grid of "
+                 f"{n_grid}, {probes} probes")
+        # K1, K2, the block step, and in the gated variants K11 (the table
+        # set) and K12 (bf16) in whichever epilogue the winner's
+        # formulation launches
+        for what, hit in (("K1", lambda k: k == "threefry_fill"),
+                          ("K2", lambda k: k == "sampler_windows"),
+                          ("the block step", lambda k: k == "block_step"),
+                          ("K11", lambda k: k.startswith("block_step")
+                           and "_table" in k),
+                          ("K12", lambda k: k.startswith("block_step")
+                           and k.endswith("_bf16"))):
+            if not any(hit(k) for k in launches):
+                fail(f"tune: the probes and gates never launched {what} "
+                     f"({launches})")
+        best = max((r for r in recs if "rate" in r), key=lambda r: r["rate"])
+        if any(best[f] != getattr(plan, f) for f in autotune._TUNED):
+            fail(f"tune: the plan {plan} is not the fastest record {best}")
+        print(f"tune (a): tune='force' at {cfg.n_chains} chains x "
+              f"{cfg.block_s} s blocks: {len(recs)} candidates ({n_grid} "
+              f"structural, {len(recs) - n_grid} gated), {probes} probes "
+              f"(PROBE_COUNT), the grid's wall {grid_s:.3f} s, "
+              f"{len(gate_s)} sentinel gates {sum(gate_s):.3f} s ("
+              + ", ".join(f"{g:.3f}" for g in gate_s) + ")")
+        for r in recs:
+            print("  candidate " + " ".join(
+                f"{f}={r[f]}" for f in autotune._TUNED)
+                + f": rate {r.get('rate', '-')} site-s/s, sentinel "
+                f"{r.get('sentinel', '-')}, compile_s "
+                f"{r.get('compile_s', '-')}")
+        print("tune (a): winner " + " ".join(
+            f"{f}={getattr(plan, f)}" for f in autotune._TUNED)
+            + f" at {best['rate']} site-s/s; launches {launches}")
+        print(json.dumps({"tune": {"records": recs, "grid_s": grid_s,
+                                   "gate_s": gate_s, "probes": probes}}))
+        # (b) the cache hit through Simulation
+        p0 = autotune.PROBE_COUNT
+        acfg = SimConfig(**dict(HEADLINE, tune="auto"))
+        lever = (plan.compute_dtype, plan.kernel_impl, plan.geom_stride) \
+            != ("f32", "exact", 1)
+        if lever:
+            acfg = dataclasses.replace(acfg, telemetry="light",
+                                       telemetry_strict=True)
+        t0 = time.perf_counter()
+        sim = Simulation(acfg, device=dev)
+        hit_s = time.perf_counter() - t0
+        if autotune.PROBE_COUNT != p0 or sim.plan.source != "cache" or \
+                any(getattr(sim.plan, f) != getattr(plan, f)
+                    for f in autotune._TUNED):
+            fail(f"tune (b): {autotune.PROBE_COUNT - p0} probes, plan "
+                 f"{sim.plan}")
+        print(f"tune (b): tune='auto' at the same key: 0 probes, the plan "
+              f"from the cache in {hit_s:.3f} s")
+        # (c) path R-TU: the run under the tuned plan
+        reduced, wall, launches_c = run_path(
+            "R-TU", ("threefry_fill", "sampler_windows"), sim.run_reduced)
+        check_reduced("R-TU", reduced, acfg.duration_s)
+        if lever:
+            rep = check_sentinel("R-TU", sim, sim.n_blocks)
+            what = f"strict drift sentinel {rep['verdict']}"
+        else:
+            _check_rows("path R-TU", reduced, reduced_r)
+            what = "rows bit-identical to path R's"
+        print(f"path R-TU (run_reduced under the tuned plan): {wall:.3f} s "
+              f"wall; {what}; launches {launches_c}")
+        del sim
+        torch.cuda.empty_cache()
+        # (d) path R-2T: two gloo ranks under tune='auto'
+        t0 = time.perf_counter()
+        procs = [_spawn([os.path.abspath(__file__), "--tune-rank", str(r),
+                         d], os.path.join(d, f"rank{r}.log"))
+                 for r in range(2)]
+        rcs = _reap(procs, "R-2T")
+        ranks_s = time.perf_counter() - t0
+        got = []
+        for r, rc in enumerate(rcs):
+            if rc != 0:
+                with open(os.path.join(d, f"rank{r}.log")) as f:
+                    fail(f"path R-2T: rank {r} returned {rc}: "
+                         f"{f.read()[-2000:]}")
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                got.append(json.load(f))
+        p0, p1 = got[0]["plan"], got[1]["plan"]
+        if (p0["source"], p1["source"]) != ("probe", "broadcast") or \
+                dict(p1, source="probe") != p0 or got[1]["probes"] != 0 \
+                or got[0]["probes"] < 1:
+            fail(f"path R-2T: ranks {got}")
+        if not got[0]["launches"].get("block_step"):
+            fail(f"path R-2T: rank 0's probes launched {got[0]['launches']}")
+        print(f"path R-2T: two gloo ranks under tune='auto' ({ranks_s:.3f} s "
+              f"as processes incl. their start): rank 0 probed "
+              f"{got[0]['probes']} candidates at {p0['slab_chains']} chains "
+              f"in {got[0]['wall_s']:.3f} s, rank 1 probed 0 and holds rank "
+              f"0's plan from the broadcast (block_impl "
+              f"{p0['block_impl']}, blocks_per_dispatch "
+              f"{p0['blocks_per_dispatch']})")
+        # (e) path G-T: the CLI twice, the second from the caches
+        reports = []
+        for i in range(2):
+            out = os.path.join(d, f"gt{i}.csv")
+            rep = os.path.join(d, f"gt{i}.json")
+            t0 = time.perf_counter()
+            rc, = _reap([_spawn(["-m", "tmhpvsim_torch", "pvsim", out,
+                                 *PATH_GT_ARGS, build.BUILD_DIR,
+                                 "--run-report", rep],
+                                os.path.join(d, f"gt{i}.log"))], "G-T")
+            wall_gt = time.perf_counter() - t0
+            if rc != 0:
+                with open(os.path.join(d, f"gt{i}.log")) as f:
+                    fail(f"path G-T: run {i + 1} returned {rc}: "
+                         f"{f.read()[-2000:]}")
+            with open(rep) as f:
+                doc = json.load(f)
+            validate_report(doc)
+            reports.append(doc)
+            print(f"path G-T run {i + 1} (pvsim --tune auto, a process of "
+                  f"its own): {wall_gt:.3f} s incl. the start; plan "
+                  f"{doc['plan']}; executor {doc['executor']}")
+        first, second = reports
+        ex = second["executor"]
+        if first["plan"]["source"] != "probe" or \
+                second["plan"] != dict(first["plan"], source="cache") or \
+                ex is None or ex["compile_cold"] != 0 or \
+                ex["compile_warm"] != len(build.SOURCES) or \
+                ex["cache_dir"] != build.BUILD_DIR:
+            fail(f"path G-T: reports {first['plan']}, {second['plan']}, "
+                 f"{ex}")
+        print(f"path G-T: the second report's plan from the cache, "
+              f"compile_cold 0, compile_warm {ex['compile_warm']} of "
+              f"{len(build.SOURCES)} libraries")
+    finally:
+        if old_env is None:
+            os.environ.pop("TMHPVSIM_AUTOTUNE_CACHE", None)
+        else:
+            os.environ["TMHPVSIM_AUTOTUNE_CACHE"] = old_env
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a "
@@ -7351,6 +7593,8 @@ def main() -> int:
     timed("path_rck", phase_path_rck, dev)
     timed("path_dck", phase_path_dck, csv_d)
     timed("path_r2ck", phase_path_r2ck, dev, reduced_r)
+    torch.cuda.empty_cache()
+    timed("tune", phase_tune, dev, reduced_r)
     torch.cuda.empty_cache()
     replies_s, launch_s = timed("path_s", phase_path_s, "S", "window", dev)
     replies_c, launch_sc = timed("path_sc", phase_path_s, "S-c",
@@ -7728,4 +7972,6 @@ if __name__ == "__main__":
         sys.exit(sharded_rank(int(sys.argv[2]), sys.argv[3]))
     if len(sys.argv) == 4 and sys.argv[1] == "--ck-rank":
         sys.exit(ck_rank(int(sys.argv[2]), sys.argv[3]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--tune-rank":
+        sys.exit(tune_rank(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

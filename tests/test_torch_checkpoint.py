@@ -28,6 +28,7 @@ from tmhpvsim_tpu import config as jcfg
 from tmhpvsim_tpu.engine import checkpoint as jckpt
 from tmhpvsim_tpu.fleet import FleetParams as JFleet
 from tmhpvsim_tpu.obs import report as jrep
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPE = dict(start="2019-09-05 10:00:00", duration_s=360, n_chains=8,

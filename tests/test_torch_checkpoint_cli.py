@@ -20,6 +20,7 @@ import pytest
 
 from tmhpvsim_torch.cli import main
 from tmhpvsim_torch.engine import checkpoint as ckpt
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASE = ["--device", "cpu", "--no-realtime", "--duration", "360",

@@ -24,6 +24,7 @@ from tmhpvsim_torch import config as tcfg
 from tmhpvsim_torch.cli import main
 from tmhpvsim_torch.engine import checkpoint as ckpt
 from tmhpvsim_torch.engine.simulation import Simulation as TSim
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 START = "2019-09-05 10:00:00"

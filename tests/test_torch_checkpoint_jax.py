@@ -21,6 +21,7 @@ from tmhpvsim_torch.engine.simulation import Simulation as TSim
 from tmhpvsim_tpu import config as jcfg
 from tmhpvsim_tpu.engine import Simulation as JSim
 from tmhpvsim_tpu.engine import checkpoint as jckpt
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 SHAPE = dict(start="2019-09-05 10:00:00", duration_s=360, n_chains=8,
              seed=13, block_s=120, output="reduce")

@@ -16,6 +16,7 @@ from tmhpvsim_torch import config as tcfg
 from tmhpvsim_torch.engine import checkpoint as ckpt
 from tmhpvsim_torch.engine.simulation import REDUCE_STATS
 from tmhpvsim_torch.engine.simulation import Simulation as TSim
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 SHAPE = dict(start="2019-09-05 10:00:00", duration_s=360, n_chains=8,
              seed=13, block_s=120)

@@ -18,6 +18,7 @@ from tmhpvsim_torch import config as tcfg
 from tmhpvsim_torch.engine.simulation import REDUCE_STATS
 from tmhpvsim_torch.engine.simulation import Simulation as TSim
 from tmhpvsim_torch.fleet import FleetParams as TFleet
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _read_csv(path):

@@ -35,6 +35,7 @@ from tmhpvsim_tpu.engine import Simulation as JSim
 from tmhpvsim_tpu.fleet import FleetParams as JFleet
 from tmhpvsim_tpu.fleet import slice_fleet as j_slice
 from tmhpvsim_tpu.models import markov_hourly as jmh
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(start="2019-09-05 10:00:00", duration_s=7200, n_chains=3,
              seed=7, block_s=3600)

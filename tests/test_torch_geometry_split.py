@@ -31,6 +31,7 @@ from tmhpvsim_tpu import config as jcfg
 from tmhpvsim_tpu.models import solar as jsol
 from tmhpvsim_tpu.models import tables as jtab
 from tmhpvsim_tpu.models import timegrid as jtg
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 #: a solstice, an equinox, the main path's day, the other solstice
 DAYS = ["2019-06-21 00:00:00", "2019-03-20 00:00:00",

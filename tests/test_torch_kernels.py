@@ -35,6 +35,7 @@ from tmhpvsim_torch.kernels import threefry as k1
 from tmhpvsim_torch.kernels import windows as k2
 from tmhpvsim_torch.fleet import FleetParams
 from tmhpvsim_torch.models import solar
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "tmhpvsim_torch")
@@ -1604,3 +1605,43 @@ def test_nan_minmax_all_reduce_under_nccl(card, tmp_path):
                                a[ok].view(torch.int32))
     finally:
         distributed.shutdown()
+
+
+@pytest.mark.cuda
+def test_real_probe_beats_or_matches_static(card, tmp_path, monkeypatch):
+    """The JAX package's acceptance test of its autotuner, on the card:
+    ``tune='auto'`` at 256 chains x 1080 s over a narrowed grid probes
+    every candidate with real blocks (the kernels, never a plain
+    version), picks a plan whose measured rate is at least the static
+    candidate's, and the second resolution probes nothing."""
+    from tmhpvsim_torch.engine import autotune
+
+    monkeypatch.setenv("TMHPVSIM_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune.json"))
+    monkeypatch.setattr(autotune, "CANDIDATE_UNROLLS", (1, 8))
+    monkeypatch.setattr(autotune, "CANDIDATE_SLAB_CHAINS", (None,))
+    monkeypatch.setattr(autotune, "CANDIDATE_RNG_BATCHES", ("scan",))
+    monkeypatch.setattr(autotune, "CANDIDATE_GEOM_STRIDES", (1,))
+    cfg = SimConfig(start="2019-09-05 00:00:00", duration_s=1080 * 3,
+                    n_chains=256, seed=0, block_s=1080, tune="auto")
+    before = autotune.PROBE_COUNT
+    kernels.reset_counts()
+    plan = autotune.resolve_plan(cfg, device=card)
+    assert autotune.PROBE_COUNT - before >= \
+        len(autotune.candidate_plans(cfg)) > 0
+    assert plan.source == "probe"
+    assert sum(c.launches for c in kernels.COUNTERS) > 0
+    cands = autotune.cached_candidates(cfg, device=card)
+    assert not [c for c in cands if "error" in c], cands
+    static = autotune.static_plan(cfg)
+    rated = {(c["block_impl"], c["scan_unroll"],
+              c["blocks_per_dispatch"]): c["rate"]
+             for c in cands if "rate" in c and "sentinel" not in c}
+    best = max(c["rate"] for c in cands if "rate" in c)
+    assert best >= rated[(static.block_impl, static.scan_unroll,
+                          static.blocks_per_dispatch)]
+    assert best == next(c["rate"] for c in cands if "rate" in c and all(
+        c[f] == getattr(plan, f) for f in autotune._TUNED))
+    before = autotune.PROBE_COUNT
+    again = autotune.resolve_plan(cfg, device=card)
+    assert autotune.PROBE_COUNT == before and again.source == "cache"

@@ -24,6 +24,7 @@ from tmhpvsim_torch.kernels import meter as k15
 from tmhpvsim_torch.models import clearsky_index as tci
 from tmhpvsim_tpu.apps import metersim as jm
 from tmhpvsim_tpu.models import clearsky_index as jci
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 IMPLS = ("threefry2x32", "rbg", "unsafe_rbg")
 SEC0 = (0, 600, 85800)

@@ -52,6 +52,7 @@ from tmhpvsim_tpu.models import pv as jpv
 from tmhpvsim_tpu.models import renewal as jren
 from tmhpvsim_tpu.models import solar as jsol
 from tmhpvsim_tpu.models import timegrid as jtg
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 F32 = jnp.float32
 SEEDS = [0, 1, 2]
@@ -100,7 +101,8 @@ def test_config_fields_and_defaults_match(cls):
 @pytest.mark.parametrize("field,value", [
     ("site_grid", object()), ("fleet", object()), ("trace", "t.json"),
     ("phase_obs", "on"), ("prng_impl", "philox"),
-    ("output", "nonsense"), ("dtype", "bfloat16"), ("tune", "auto"),
+    ("output", "nonsense"), ("dtype", "bfloat16"),
+    ("output_overlap", "on"),
     ("mesh_scenario", 2), ("pod_obs", "on"),
     ("pod_straggler_factor", 3.0),
 ])
@@ -128,6 +130,23 @@ def test_config_prng_impls_inside_slice(impl):
     cfg = tcfg.SimConfig(prng_impl=impl)
     assert cfg.prng_impl == impl
     assert tcfg.resolve_plan(cfg).prng_impl == impl
+
+
+def test_config_tune_inside_slice():
+    """``tune`` 'auto' and 'force' are accepted; another value raises the
+    JAX package's ValueError from plan resolution."""
+    from tmhpvsim_torch.engine import autotune as tat
+    from tmhpvsim_tpu.engine import autotune as jat
+
+    for value in ("off", "auto", "force"):
+        assert tcfg.SimConfig(tune=value).tune == value
+    bad = tcfg.SimConfig(tune="sometimes")
+    with pytest.raises(ValueError) as t:
+        tat.resolve_plan(bad, device="cpu")
+    with pytest.raises(ValueError) as j:
+        jat.resolve_plan(jcfg.SimConfig(tune="sometimes"))
+    assert str(t.value) == str(j.value) == (
+        "tune must be 'auto', 'off' or 'force', got 'sometimes'")
 
 
 def test_refusal_names_what_is_still_to_port():

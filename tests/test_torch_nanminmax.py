@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from tmhpvsim_torch.kernels import block_step as k3
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 #: every kind of float32 operand: NaN, the infinities, both zeros, values
 #: on and between the clamp's bounds

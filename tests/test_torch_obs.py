@@ -31,6 +31,7 @@ from tmhpvsim_torch.obs import telemetry as ttel
 from tmhpvsim_tpu import config as jcfg
 from tmhpvsim_tpu.obs import analytics as jflt
 from tmhpvsim_tpu.obs import telemetry as jtel
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 N, T = 16, 240
 T0 = 3540  # the inputs' first global second: ramp grids are crossed

@@ -33,6 +33,7 @@ from tmhpvsim_torch.obs import telemetry as tel
 from tmhpvsim_tpu import config as jcfg
 from tmhpvsim_tpu.engine import Simulation as JSim
 from tmhpvsim_tpu.fleet import FleetParams as JFleet
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 #: 12 sites over two 600 s blocks from 11:00, the second padded (300 s)
 CFG = dict(start="2019-09-05 11:00:00", duration_s=900, n_chains=12,

@@ -58,6 +58,7 @@ from tmhpvsim_tpu.models import clearsky_index as jci
 from tmhpvsim_tpu.models import pv as jpv
 from tmhpvsim_tpu.models import solar as jsolar
 from tmhpvsim_tpu.models import tables as jtables
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 #: the reference file's bf16 shape: small_config's chains over 2 x 600 s
 SHORT = dict(start="2019-09-05 10:00:00", duration_s=1200, n_chains=3,

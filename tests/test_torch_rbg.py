@@ -48,6 +48,7 @@ from tmhpvsim_tpu.fleet import FleetParams as JFleet
 from tmhpvsim_tpu.models import clearsky_index as jci
 from tmhpvsim_tpu.models import markov_hourly as jmh
 from tmhpvsim_tpu.models import renewal as jren
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 F32 = jnp.float32
 R = "rbg"

@@ -29,6 +29,7 @@ from tmhpvsim_torch.kernels import block_step as k3
 from tmhpvsim_tpu import config as jcfg
 from tmhpvsim_tpu.engine import Simulation as JSim
 from tmhpvsim_tpu.models import clearsky_index as jci
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 #: one 3600 s block from 18:50 (sunset in its last minutes), 30 s of it
 #: past the duration

@@ -22,6 +22,7 @@ from tmhpvsim_torch.kernels import block_step as k3
 from tmhpvsim_tpu import config as jcfg
 from tmhpvsim_tpu.engine import Simulation as JSim
 from tmhpvsim_tpu.models import clearsky_index as jci
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 #: the blocks' starts and their ids

@@ -9,6 +9,7 @@ runs apart.
 import pytest
 
 from test_torch_redraw_tel import STARTS, check_telemetry_block
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("telemetry", ["full"])

@@ -20,6 +20,7 @@ from tmhpvsim_torch.engine.simulation import Simulation as TSim
 from tmhpvsim_torch.fleet import FleetParams as TFleet
 from tmhpvsim_torch.obs import report as trep
 from tmhpvsim_tpu.obs import report as jrep
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 START = "2019-09-05 10:00:00"

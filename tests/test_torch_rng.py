@@ -20,6 +20,7 @@ import torch
 from jax import lax
 
 from tmhpvsim_torch import rng
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _kd(k):

@@ -41,6 +41,7 @@ from tmhpvsim_tpu.models import renewal as jrenewal
 from tmhpvsim_tpu.obs import metrics as jmetrics
 from tmhpvsim_tpu.obs import sentinel as jsen
 from tmhpvsim_tpu.obs import telemetry as jtel
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 #: a short bf16 run: 2 reference blocks of 600 s from 10:00 (the golden
 #: reference costs a few golden seconds per block second)

@@ -59,6 +59,7 @@ from tmhpvsim_tpu.obs.metrics import use_registry as j_use_registry
 from tmhpvsim_tpu.serve import schema as jschema
 from tmhpvsim_tpu.serve.server import ScenarioEngine as JEngine
 from tmhpvsim_tpu.serve.server import default_buckets as j_default_buckets
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 BASE = dict(start="2019-09-05 10:00:00", duration_s=120, n_chains=4,
             seed=7, block_s=60, output="reduce")

@@ -14,6 +14,7 @@ from test_torch_serve import _run, req, scen_of, tcfg, teng  # noqa: F401
 from tmhpvsim_torch.obs.metrics import MetricsRegistry as TRegistry
 from tmhpvsim_torch.serve import schema as tschema
 from tmhpvsim_torch.serve import server as tserver
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _serve_cfg(url, **kw):

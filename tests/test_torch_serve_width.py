@@ -30,6 +30,7 @@ from tmhpvsim_tpu.obs.metrics import MetricsRegistry as JRegistry
 from tmhpvsim_tpu.obs.metrics import use_registry as j_use_registry
 from tmhpvsim_tpu.serve import schema as jschema
 from tmhpvsim_tpu.serve.server import ScenarioEngine as JEngine
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 #: the width of the K10 check against the JAX engine: a few hundred

@@ -58,6 +58,7 @@ from tmhpvsim_tpu.fleet import FleetParams as JFleet
 from tmhpvsim_tpu.obs.report import validate_report as j_validate_report
 from tmhpvsim_tpu.parallel import ShardedSimulation as JSharded
 from tmhpvsim_tpu.parallel import make_mesh
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: tests/test_parallel.py's shape

@@ -19,6 +19,7 @@ from tmhpvsim_torch.engine.simulation import Simulation as TSim
 from tmhpvsim_torch.engine.slab import SlabScheduler
 from tmhpvsim_torch.kernels import block_step as k3
 from tmhpvsim_torch.parallel import distributed
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 SHAPE = dict(start="2019-09-05 10:00:00", duration_s=360, n_chains=8,
              seed=13, block_s=120)

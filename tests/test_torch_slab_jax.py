@@ -17,6 +17,7 @@ from test_torch_slab import SHAPE, cfg, slabbed
 from tmhpvsim_tpu import config as jcfg
 from tmhpvsim_tpu.engine import Simulation as JSim
 from tmhpvsim_tpu.engine import autotune
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.filterwarnings("ignore:prng_impl=:RuntimeWarning")

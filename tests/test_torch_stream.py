@@ -39,6 +39,7 @@ from tmhpvsim_tpu.runtime import clock as jclock
 from tmhpvsim_tpu.runtime import funnel as jfunnel
 from tmhpvsim_tpu.runtime import resilience as jres
 from tmhpvsim_tpu.runtime import tcpbroker as jtcp
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 Data = namedtuple("Data", ["meter", "pv"])

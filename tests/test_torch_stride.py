@@ -35,6 +35,7 @@ from tmhpvsim_tpu import config as jcfg
 from tmhpvsim_tpu.engine import Simulation as JSim
 from tmhpvsim_tpu.fleet import FleetParams as JFleet
 from tmhpvsim_tpu.models import solar as jsolar
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(start="2019-09-05 10:00:00", duration_s=7200, n_chains=3,
              seed=7, block_s=3600)
@@ -300,7 +301,8 @@ def test_strided_plain_geometry_is_the_lerped_sample_grid():
         "kernel_impl": "table", "geom_stride": 60, "block_impl": "scan",
         "stats_fusion": "fused", "scan_unroll": 8, "blocks_per_dispatch": 1,
         "rng_batch": "scan", "compute_dtype": "f32", "telemetry": "off",
-        "prng_impl": "threefry2x32", "slab_chains": 4}
+        "prng_impl": "threefry2x32", "slab_chains": 4,
+        "source": "static"}
 
 
 def test_scenario_engine_serves_with_levers():

@@ -11,6 +11,7 @@ its workers by file takes them apart from the rest.
 import pytest
 
 from test_torch_stride import check_levers, jax_runs  # noqa: F401
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("output", ("reduce",))

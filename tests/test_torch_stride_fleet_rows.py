@@ -8,6 +8,7 @@ made once per process, by tests/test_torch_stride.py's cache).
 import pytest
 
 from test_torch_stride import check_levers, jax_runs  # noqa: F401
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("output", ("ensemble", "trace"))

@@ -27,6 +27,7 @@ from tmhpvsim_torch.models import solar as tsolar
 from tmhpvsim_torch.models import tables as tt
 from tmhpvsim_tpu.models import solar as jsolar
 from tmhpvsim_tpu.models import tables as jt
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 N = 10_000
 FUNCS = ("sin", "cos", "tan", "arcsin", "arccos", "arctan2", "exp", "log",

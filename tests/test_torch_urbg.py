@@ -55,6 +55,7 @@ from tmhpvsim_tpu.models import renewal as jren
 from tmhpvsim_tpu.serve import schema as jschema
 
 from test_torch_rbg import _jax_layout
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 F32 = jnp.float32
 U = "unsafe_rbg"

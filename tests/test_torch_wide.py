@@ -37,6 +37,7 @@ from tmhpvsim_tpu.engine import Simulation as JSim
 from tmhpvsim_tpu.fleet import FleetParams as JFleet
 from tmhpvsim_tpu.obs import analytics as jflt
 from tmhpvsim_tpu.obs import telemetry as jtel
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(start="2019-09-05 10:00:00", duration_s=7200, n_chains=3,
              seed=7, block_s=3600)

@@ -278,7 +278,7 @@ def pvsim(file: str, duration_s: int, n_chains: int, seed: int, start: str,
           coordinator: str | None = None, num_processes: int | None = None,
           process_id: int | None = None, checkpoint: str | None = None,
           checkpoint_keep: int = 3, checkpoint_async: str = "off",
-          preempt_grace_s: float = 0.0) -> Simulation:
+          preempt_grace_s: float = 0.0, tune: str = "off") -> Simulation:
     """Run one simulation and write ``file``; returns the Simulation.
 
     A site grid or a fleet sets the chain count (one chain per site).
@@ -297,7 +297,10 @@ def pvsim(file: str, duration_s: int, n_chains: int, seed: int, start: str,
     becomes 'light' under bf16), and ``telemetry_strict`` turns the
     sentinel's warnings into ``DriftError``.  ``prng_impl``
     ('threefry2x32' | 'rbg') the key implementation (rbg: K13's Philox
-    bits on the card).
+    bits on the card).  ``tune`` ('off' | 'auto' | 'force') resolves the
+    plan through the runtime autotuner (engine/autotune.py): 'auto' takes
+    the plan cache's entry for this card and shape or probes the
+    candidates and stores the winner, 'force' probes even on a hit.
 
     ``checkpoint`` saves the run after every block and resumes it from
     there when the file exists (output overlap is then off, one block at
@@ -338,7 +341,7 @@ def pvsim(file: str, duration_s: int, n_chains: int, seed: int, start: str,
                     telemetry=telemetry, telemetry_strict=telemetry_strict,
                     prng_impl=prng_impl, checkpoint_keep=checkpoint_keep,
                     checkpoint_async=checkpoint_async,
-                    preempt_grace_s=preempt_grace_s)
+                    preempt_grace_s=preempt_grace_s, tune=tune)
     # the run's own metrics (the report's checkpoint section reads them)
     with obs_metrics.use_registry(obs_metrics.MetricsRegistry()):
         if not sharded:
@@ -369,6 +372,14 @@ def _run(sim, file, duration_s, chain, realtime, output, run_report,
     is this process's checkpoint, ``ckpt_global`` the whole run's path."""
     cfg = sim.config  # a site grid or a fleet sets n_chains
     sl = sim.chain_slice  # this process's chains (all but in a sharded run)
+    plan = sim.plan
+    logger.info(
+        "plan [%s]: block_impl=%s scan_unroll=%d stats_fusion=%s "
+        "slab_chains=%d blocks_per_dispatch=%d compute_dtype=%s "
+        "kernel_impl=%s rng_batch=%s geom_stride=%d", plan.source,
+        plan.block_impl, plan.scan_unroll, plan.stats_fusion,
+        plan.slab_chains, plan.blocks_per_dispatch, plan.compute_dtype,
+        plan.kernel_impl, plan.rng_batch, plan.geom_stride)
     if output == "reduce" and realtime:
         raise ValueError("reduce mode has no per-second rows to pace; "
                          "drop --realtime")

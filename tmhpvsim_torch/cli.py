@@ -14,7 +14,9 @@ and ``--rng-batch``, the numerics telemetry and its drift sentinel
 (``--telemetry``, ``--telemetry-strict``), the key implementation
 ``--prng-impl`` (threefry2x32 | rbg), the formulation ``--block-impl`` and
 ``--blocks-per-dispatch`` (the JAX package's choices, defaults and
-errors), ``--output-overlap`` and ``--realtime``, checkpoints and preemption
+errors), the runtime autotuner ``--tune`` (off | auto | force,
+engine/autotune.py), ``--output-overlap`` and ``--realtime``, checkpoints
+and preemption
 (``--checkpoint PATH``, ``--checkpoint-keep``, ``--checkpoint-async``,
 ``--preempt-grace``; a resume without ``--seed`` takes the checkpoint's
 seed), and chain-sharded
@@ -40,7 +42,8 @@ with a usage error that names it.
 
 ``serve`` runs the scenario server (serve/server.py) with the JAX
 package's ``pvsim serve`` defaults on an in-process ``local://``
-transport, until SIGINT / SIGTERM.
+transport, until SIGINT / SIGTERM; ``--tune`` resolves the served plan
+through the autotuner.
 
 ``--compile-cache DIR`` (pvsim, metersim and serve) builds and loads the
 CUDA kernels' libraries under DIR instead of inside the package
@@ -73,7 +76,8 @@ DEVICE_ONLY = {"output": "trace", "chain": 0, "chains": 1, "block_s": None,
                "compile_cache": None, "sharded": False, "coordinator": None,
                "num_processes": None, "process_id": None,
                "checkpoint": None, "checkpoint_keep": 3,
-               "checkpoint_async": "off", "preempt_grace": 0.0}
+               "checkpoint_async": "off", "preempt_grace": 0.0,
+               "tune": "off"}
 #: the process flags of a sharded run
 PROCESS_FLAGS = ("coordinator", "num_processes", "process_id")
 
@@ -246,6 +250,14 @@ def _parser() -> argparse.ArgumentParser:
     pv.add_argument("--telemetry-strict", action="store_true",
                     help="escalate drift-sentinel WARNs (NaN/Inf, "
                          "reference band escape) to a hard error")
+    pv.add_argument("--tune", choices=["off", "auto", "force"],
+                    default="off",
+                    help="runtime autotuner: auto = use/populate the "
+                         "persistent per-device plan cache (short "
+                         "real-block probes on a miss); force = re-probe "
+                         "even on a hit; the resolved plan is echoed in "
+                         "the logs (device backend, see "
+                         "config.SimConfig.tune)")
     pv.add_argument("--output-overlap", choices=["auto", "off"],
                     default="auto",
                     help="auto: dispatch block N+1 before writing block N's "
@@ -346,6 +358,10 @@ def _parser() -> argparse.ArgumentParser:
                     default="window",
                     help="window: every row of a dispatch retires together; "
                          "continuous: freed slots backfill every block")
+    sv.add_argument("--tune", choices=["off", "auto", "force"],
+                    default="off",
+                    help="runtime autotuner for the served plan "
+                         "(config.SimConfig.tune)")
     sv.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="cuda (default) runs the kernels; cpu runs their "
                          "plain torch versions")
@@ -404,7 +420,7 @@ def serve(args) -> int:
         level=max(logging.DEBUG, logging.WARNING - 10 * args.verbose),
         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     sim_kw = dict(duration_s=args.duration, n_chains=args.chains,
-                  seed=args.seed, output="reduce",
+                  seed=args.seed, output="reduce", tune=args.tune,
                   block_s=args.block_s or min(8640, args.duration))
     if args.start:
         sim_kw["start"] = args.start
@@ -581,7 +597,7 @@ def main(argv=None) -> int:
               checkpoint=args.checkpoint,
               checkpoint_keep=args.checkpoint_keep,
               checkpoint_async=args.checkpoint_async,
-              preempt_grace_s=args.preempt_grace)
+              preempt_grace_s=args.preempt_grace, tune=args.tune)
     except (ValueError, NotImplementedError, DriftError) as e:
         raise SystemExit(f"pvsim: {e}") from e
     return 0

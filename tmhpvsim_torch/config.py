@@ -9,8 +9,9 @@ transcendentals (``kernel_impl``), per-second or strided solar geometry
 (``geom_stride``), the wide, scan and scan2 formulations with either
 reduce topology (``block_impl``, ``stats_fusion``), any ``scan_unroll``,
 ``rng_batch`` and ``blocks_per_dispatch``, trace / reduce / ensemble
-output with reduce-mode telemetry and fleet analytics, and the
-checkpoint options — and every field outside it raises
+output with reduce-mode telemetry and fleet analytics, the checkpoint
+options and the runtime autotuner (``tune``, engine/autotune.py) — and
+every field outside it raises
 ``NotImplementedError`` when it is set to anything but its default (or a
 value that means the same run).  Nothing is silently ignored.
 """
@@ -206,7 +207,8 @@ _SLICE_VALUES = {
 
 #: fields whose every value belongs to the slice (``telemetry``,
 #: ``analytics`` and ``fleet`` are checked on their own below; the plan's
-#: fields by ``resolve_plan``, with the JAX package's errors)
+#: fields, ``tune`` included, by plan resolution, with the JAX package's
+#: errors)
 _FREE_FIELDS = frozenset({
     "start", "duration_s", "n_chains", "seed", "n_chains_total",
     "chain_offset", "site", "site_grid", "fleet", "options", "meter_max_w",
@@ -215,7 +217,7 @@ _FREE_FIELDS = frozenset({
     "serve_batch_sizes", "kernel_impl", "geom_stride", "block_impl",
     "scan_unroll", "stats_fusion", "blocks_per_dispatch", "rng_batch",
     "compute_dtype", "telemetry_strict", "checkpoint_keep",
-    "checkpoint_async", "preempt_grace_s",
+    "checkpoint_async", "preempt_grace_s", "tune",
 })
 
 #: valid values of SimConfig.telemetry / --telemetry (obs/telemetry.py)
@@ -341,9 +343,8 @@ class SimConfig:
                 raise NotImplementedError(
                     f"SimConfig.{f.name}={value!r} is outside the torch "
                     "port's slice: it computes in float32 or bf16 with "
-                    "threefry2x32, rbg or unsafe_rbg keys under the static "
-                    "plan, with no autotuner, 2-D mesh, pod or phase "
-                    "observers or profiler trace")
+                    "threefry2x32, rbg or unsafe_rbg keys, with no 2-D "
+                    "mesh, pod or phase observers or profiler trace")
         if self.block_s % 60 != 0:
             raise ValueError("block_s must be a multiple of 60 (minute grid)")
 
@@ -397,6 +398,10 @@ class Plan:
     #: chains of each sequential slab (engine/slab.py); ``slab_chains >=
     #: n_chains`` (what ``resolve_plan`` sets) runs the batch in one piece
     slab_chains: int = 0
+    #: provenance: 'static' (no measurement) | 'probe' (measured in this
+    #: process) | 'cache' (a persisted probe result) | 'broadcast'
+    #: (rank 0's plan, received by another rank; engine/autotune.py)
+    source: str = "static"
 
 
 def escalate_telemetry(level: str, compute_dtype: str) -> str:
@@ -413,13 +418,13 @@ def _is_int(v) -> bool:
 
 
 def resolve_plan(config: SimConfig) -> Plan:
-    """``config``'s plan resolved as the JAX package resolves it without
-    the autotuner on an accelerator: 'auto' is the exact set, float32,
-    the scan formulation, the fused topology and per-minute draws, a stride
-    of 0 is 1 and 0 blocks per dispatch is 1; the telemetry level escalates
-    under bf16.  Raises ``ValueError`` with the JAX package's messages for
-    a value outside the choices or a stride that does not divide
-    ``block_s``."""
+    """``config``'s static plan (``source='static'``, no slabbing), resolved
+    as the JAX package's ``static_plan`` resolves it on an accelerator:
+    'auto' is the exact set, float32, the scan formulation, the fused
+    topology and per-minute draws, a stride of 0 is 1 and 0 blocks per
+    dispatch is 1; the telemetry level escalates under bf16.  Raises
+    ``ValueError`` with the JAX package's messages for a value outside the
+    choices or a stride that does not divide ``block_s``."""
     cd = config.compute_dtype
     if cd == "auto":
         cd = "f32"
@@ -473,4 +478,5 @@ def resolve_plan(config: SimConfig) -> Plan:
                 blocks_per_dispatch=max(1, int(k)), rng_batch=rb,
                 compute_dtype=cd,
                 telemetry=escalate_telemetry(config.telemetry, cd),
-                prng_impl=config.prng_impl, slab_chains=int(config.n_chains))
+                prng_impl=config.prng_impl, slab_chains=int(config.n_chains),
+                source="static")

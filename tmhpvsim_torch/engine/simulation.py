@@ -105,8 +105,8 @@ import numpy as np
 import torch
 
 from tmhpvsim_torch import rng
-from tmhpvsim_torch.config import SITE_FIELDS, Plan, SimConfig, resolve_plan
-from tmhpvsim_torch.engine import convert
+from tmhpvsim_torch.config import SITE_FIELDS, Plan, SimConfig
+from tmhpvsim_torch.engine import autotune, convert
 from tmhpvsim_torch.kernels import block_step as k3
 from tmhpvsim_torch.kernels import threefry as k1
 from tmhpvsim_torch.kernels import wide
@@ -207,9 +207,11 @@ class Simulation:
         for blk in sim.run_blocks(): ... # per-chain BlockResults
         for blk in sim.run_ensemble(): ...  # fleet-mean BlockResults
 
-    ``plan`` replaces the resolved plan (``config.resolve_plan``), as the
-    JAX package's ``Simulation(config, plan=...)`` does: a ``slab_chains``
-    below ``n_chains`` slabs the run (``allow_slabs``).
+    ``plan`` replaces the resolved plan (``autotune.resolve_plan``: the
+    static plan under ``tune='off'``, a probed or cached one under
+    'auto' and 'force'), as the JAX package's ``Simulation(config,
+    plan=...)`` does: a ``slab_chains`` below ``n_chains`` slabs the run
+    (``allow_slabs``).
     """
 
     def __init__(self, config: SimConfig, device=None,
@@ -238,13 +240,16 @@ class Simulation:
         #: (a sharded run's rank sets its own, parallel/mesh.py)
         self.rank, self.world = 0, 1
         self.chain_slice = slice(0, config.n_chains)
-        #: the resolved plan (precision levers, formulation, knobs)
-        self.plan = resolve_plan(config) if plan is None else plan
+        self.device = resolve_device(device)
+        #: the resolved plan (precision levers, formulation, knobs):
+        #: static under ``tune='off'``, else probed on this device or
+        #: taken from the plan cache (engine/autotune.py)
+        self.plan = (autotune.resolve_plan(config, device=self.device)
+                     if plan is None else plan)
         #: cleared by callers that need one state for the whole run (a
         #: checkpointed run, a sharded one): no slab scheduler then
         self.allow_slabs = True
         self._cd = self.plan.compute_dtype
-        self.device = resolve_device(device)
         self.timezone = (grid.timezone if grid is not None
                          else config.site.timezone)
         self._padded_s = _round_up(config.duration_s, config.block_s)
@@ -308,6 +313,9 @@ class Simulation:
         #: block (reduce mode); the metrics registry it publishes into
         self.sentinel = None
         self.metrics = obs_metrics.get_registry()
+        #: the loops' dispatch groups (the run report's ``executor``
+        #: section, engine/compilecache.py)
+        self._m_dispatch = self.metrics.counter("executor.dispatches_total")
         #: the last block's analytics delta; the run total (int64 /
         #: float64, on the run's device)
         self._fleet_last = None
@@ -794,9 +802,12 @@ class Simulation:
         self.state = (self.init_state() if state is None
                       else self._resume_tree(state, "state"))
         self.state_block = start_block
+        self._dispatch_gauge()
         group, g0 = self._inputs_ahead(start_block), start_block
         pend = None
         for bi in range(start_block, self.n_blocks):
+            if bi == g0:
+                self._m_dispatch.inc()
             inputs = group[bi - g0]
             self.state, *outs = step(self.state, inputs)
             self.state_block = bi + 1
@@ -906,10 +917,12 @@ class Simulation:
                else self._resume_tree(acc, "acc"))
         self.state = state
         self.state_block = start_block
+        self._dispatch_gauge()
         bi, group = start_block, self._inputs_ahead(start_block)
         #: (block index, telemetry delta) not yet observed
         tels = []
         while group:
+            self._m_dispatch.inc()
             snaps = []
             for j, inputs in enumerate(group):
                 state, acc = self.step_acc(state, inputs, acc)
@@ -942,6 +955,11 @@ class Simulation:
         self._observe_telemetry(tels)
         self._last_acc = acc
         return {k: v.cpu().numpy() for k, v in acc.items()}
+
+    def _dispatch_gauge(self) -> None:
+        """Set ``executor.blocks_per_dispatch`` to the loop's group size."""
+        self.metrics.gauge("executor.blocks_per_dispatch").set(
+            self.plan.blocks_per_dispatch)
 
     def _tel_to_host(self, delta: dict):
         """Start reading a block's telemetry delta back, right after its

@@ -41,6 +41,8 @@ import threading
 
 import numpy as np
 
+from tmhpvsim_torch.obs import metrics as obs_metrics
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 #: the default build directory, inside the package (git-ignored)
 DEFAULT_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
@@ -130,7 +132,10 @@ def _digest(parts) -> str:
 
 def build_all() -> dict:
     """Compile every missing library (one nvcc per source, all at once)
-    and return ``{source: path}``."""
+    and return ``{source: path}``.  The libraries found already built
+    count into ``executor.compile_warm_total``, those built here into
+    ``executor.compile_cold_total`` (the current metrics registry; the
+    run report's ``executor`` section, engine/compilecache.py)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     header = consts_header()
     hdr_texts = [open(os.path.join(CSRC, h), "rb").read() for h in HEADERS]
@@ -174,6 +179,12 @@ def build_all() -> dict:
             with open(logp) as f:
                 msgs.append(f"--- {src} ---\n{f.read()[-4000:]}")
         raise RuntimeError("nvcc failed:\n" + "\n".join(msgs))
+    reg = obs_metrics.get_registry()
+    if len(paths) > len(procs):
+        reg.counter("executor.compile_warm_total").inc(
+            len(paths) - len(procs))
+    if procs:
+        reg.counter("executor.compile_cold_total").inc(len(procs))
     return paths
 
 

@@ -8,9 +8,11 @@ package's ``validate_report``) pick it out and check it.  The port fills
 ``device`` (from torch: platform ``gpu`` with the card's name, or
 ``cpu``), ``config`` (the SimConfig echo; a site grid or fleet by its
 identity, not its rows), ``plan`` (the resolved plan in the JAX plan
-echo's keys), ``fleet`` (``fleet_summary()``), ``precision``
-(``precision_doc()``) and ``telemetry`` (the drift sentinel's report, when
-telemetry observed the run), and from the run's metrics registry
+echo's keys and its source), ``fleet`` (``fleet_summary()``),
+``precision`` (``precision_doc()``), ``executor`` (the kernels' warm and
+cold builds and the dispatches, ``engine.compilecache``) and
+``telemetry`` (the drift sentinel's report, when telemetry observed the
+run), and from the run's metrics registry
 ``checkpoint`` (saves, restores, generations, verify failures and
 fallbacks, the async writer's counts, preemption snapshots), ``slabs``
 and ``resilience`` (resumes), as the JAX ``RunReport.attach_metrics``
@@ -38,6 +40,7 @@ from typing import Optional
 
 import torch
 
+from tmhpvsim_torch.engine import compilecache
 from tmhpvsim_torch.obs.metrics import quantile_from_snapshot
 
 #: the JAX package's RunReport schema version and kind (obs/report.py)
@@ -293,8 +296,8 @@ def config_doc(config) -> Optional[dict]:
 
 
 def plan_doc(plan) -> Optional[dict]:
-    """The resolved plan in the JAX plan echo's keys (the port has no
-    autotuner: its source is 'static')."""
+    """The resolved plan in the JAX plan echo's keys, with its source
+    ('static', 'probe', 'cache' or 'broadcast'; engine/autotune.py)."""
     if plan is None:
         return None
     return {"block_impl": plan.block_impl,
@@ -306,7 +309,7 @@ def plan_doc(plan) -> Optional[dict]:
             "kernel_impl": plan.kernel_impl,
             "rng_batch": plan.rng_batch,
             "geom_stride": int(plan.geom_stride),
-            "source": "static"}
+            "source": plan.source}
 
 
 #: the ``checkpoint`` section's keys beyond the first four, with the
@@ -388,8 +391,9 @@ def simulation_report(app: str, sim) -> dict:
     (``sim.world``), ``processes``: every process's metrics snapshot in
     rank order (a collective, so every process calls this); the
     ``checkpoint``, ``slabs`` and ``resilience`` sections come from the
-    run's metrics (``registry_sections``).  Every other section is
-    None."""
+    run's metrics (``registry_sections``), and ``executor`` from its
+    build and dispatch counts (``engine.compilecache.executor_doc``).
+    Every other section is None."""
     doc = {k: None for k in _TOP_SCHEMA}
     doc.update(schema_version=REPORT_SCHEMA_VERSION, kind=REPORT_KIND,
                app=app,
@@ -400,6 +404,7 @@ def simulation_report(app: str, sim) -> dict:
                precision=sim.precision_doc(),
                telemetry=(None if sim.sentinel is None
                           else sim.sentinel.report()),
+               executor=compilecache.executor_doc(sim.metrics),
                **registry_sections(sim.metrics.snapshot()))
     mesh = sim.mesh_doc()
     if mesh is not None:

@@ -380,6 +380,20 @@ def any_rank(flag: bool, device=None) -> bool:
     return bool(t.item())
 
 
+def broadcast_ints(values, device=None) -> list:
+    """Rank 0's integers on every rank of the default group: one int32
+    ``broadcast`` (on ``device`` under NCCL, on the CPU under gloo);
+    ``values`` themselves without a group.  Every rank must call it with
+    as many values."""
+    if not _grouped():
+        return [int(v) for v in values]
+    dev = device if dist.get_backend() == "nccl" else "cpu"
+    t = torch.tensor([int(v) for v in values], dtype=torch.int32,
+                     device=dev)
+    dist.broadcast(t, src=0)
+    return [int(v) for v in t.tolist()]
+
+
 def allreduce_stats(stats: dict, kinds: dict, device) -> dict:
     """Host aggregates (python floats and ints, ``kinds[name] = (kind,
     'f' | 'i')`` as ``engine.simulation.REDUCE_STATS``) over all ranks,

@@ -31,9 +31,13 @@ layout of its global range, ``checkpoint_layout``), resumes from its own
 file, or takes its range of a whole-run checkpoint or of another process
 count's files (``resume_chain_slice``, ``checkpoint.load_elastic``).
 
+The plan is the per-mesh autotuner's (``autotune.resolve_plan_for_mesh``):
+under ``tune`` 'auto' or 'force' rank 0 probes at the rank's chain shape
+and broadcasts its winner, so every rank runs the same plan.
+
 Left to the JAX package (ROADMAP): ``prng_impl`` 'rbg' and 'unsafe_rbg'
 (there a shard's batch decides the draws), the 2-D ``(chains,
-scenario)`` mesh, sharded serving and the per-mesh autotuner.
+scenario)`` mesh and sharded serving.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from __future__ import annotations
 from typing import Iterator
 
 from tmhpvsim_torch.config import SimConfig
+from tmhpvsim_torch.engine import autotune
 from tmhpvsim_torch.engine.simulation import (REDUCE_STATS, BlockResult,
                                               Simulation, resolve_chains)
 from tmhpvsim_torch.kernels import wide
@@ -79,8 +84,12 @@ class ShardedSimulation(Simulation):
         whole = resolve_chains(config)
         rank, size = distributed.world()
         sl = distributed.local_chain_slice(whole.n_chains, rank, size)
+        dev = distributed.rank_device(device)
+        # every rank runs rank 0's plan, probed at the rank's chain shape
+        # (engine/autotune.py); static under tune='off'
+        plan = autotune.resolve_plan_for_mesh(whole, size, device=dev)
         super().__init__(distributed.carve_process_config(whole, rank, size),
-                         device=distributed.rank_device(device))
+                         device=dev, plan=plan)
         self.config = whole
         self.rank, self.world, self.chain_slice = rank, size, sl
         # the ranks partition the chains themselves
